@@ -1,0 +1,50 @@
+// Shared helpers for the attention kernels of fish_speech_tpu_torch.
+//
+// The kernels take bfloat16 or float32 tensors; all arithmetic is float32.
+// Each C entry point returns cudaGetLastError() after its launch (0 on
+// success); the Python wrapper raises on anything else.
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include <math.h>
+#include <stdint.h>
+
+namespace fs {
+
+// Score of a masked key, as in the JAX package (ops/attention.py NEG_INF):
+// finite, so a row with no visible key softmaxes to a uniform average
+// instead of NaN.
+constexpr float kMaskedScore = -1e30f;
+
+constexpr unsigned kFullMask = 0xffffffffu;
+
+// dtype codes shared with the Python wrappers
+constexpr int kFloat32 = 0;
+constexpr int kBFloat16 = 1;
+
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+__device__ __forceinline__ void store(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16(v);
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFullMask, v, o);
+  return v;
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(kFullMask, v, o));
+  return v;
+}
+
+}  // namespace fs

@@ -1,0 +1,435 @@
+"""Dual-AR text->semantic transformer, inference half, in PyTorch.
+
+Port of `fish_speech_tpu/models/dual_ar.py`. Parameters are a nested dict
+of tensors with the JAX package's layout: every transformer layer stacked
+on a leading axis, weights stored (in, out) and used as `x @ w`:
+
+  embeddings            (V, D)
+  codebook_embeddings   (C*K, D)
+  layers/attn_norm      (L, D)
+  layers/wqkv           (L, D, (H + 2*Hkv) * Dh)   [+ bqkv]
+  layers/q_norm, k_norm (L, Dh)                     [if qk_norm]
+  layers/wo             (L, H*Dh, D)                [+ bo]
+  layers/ffn_norm       (L, D)
+  layers/w1, w3         (L, D, I)   (or w13 (L, D, 2I) after fuse_ffn_weights)
+  layers/w2             (L, I, D)
+  norm                  (D,)
+  output                (D, V)                      [if untied]
+  fast/project_in/{w,b} (D, Df), (Df,)              [if Df != D]
+  fast/embeddings       (K, Df)
+  fast/layers/...       (same structure, Lf stacked)
+  fast/norm             (Df,)
+  fast/output           (Df, K)
+
+Activations are (B, T, H, Dh); the KV caches are (L, B, S, Hkv, Dh) and are
+written IN PLACE (JAX threads them functionally; here the returned cache is
+the same tensors). Prefill attention runs `flash_prefill_attention` and
+decode attention of both stacks runs `flash_decode_attention` with
+`lengths = pos + 1`: on CUDA tensors those are the hand-written kernels.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from fish_speech_tpu.config import DualARConfig
+from fish_speech_tpu_torch.ops.flash_decode import flash_decode_attention
+from fish_speech_tpu_torch.ops.flash_prefill import flash_prefill_attention
+from fish_speech_tpu_torch.ops.norms import rms_norm
+from fish_speech_tpu_torch.ops.quant import mm
+from fish_speech_tpu_torch.ops.rope import apply_rope, rope_table
+
+# ---------------------------------------------------------------------------
+# Initialization (random weights; real checkpoints go through convert/)
+# ---------------------------------------------------------------------------
+
+
+def _dense(gen, shape, std, dtype, device):
+    w = torch.empty(shape, dtype=torch.float32, device=device)
+    w.normal_(0.0, std, generator=gen)
+    return w.to(dtype)
+
+
+def _init_layer_stack(gen, n_layer, dim, n_head, n_kv, head_dim, inter,
+                      qkv_bias, o_bias, qk_norm, std, dtype, device):
+    total_qkv = (n_head + 2 * n_kv) * head_dim
+
+    def dense(shape):
+        return _dense(gen, shape, std, dtype, device)
+
+    def ones(shape):
+        return torch.ones(shape, dtype=dtype, device=device)
+
+    layers = {
+        "attn_norm": ones((n_layer, dim)),
+        "wqkv": dense((n_layer, dim, total_qkv)),
+        "wo": dense((n_layer, n_head * head_dim, dim)),
+        "ffn_norm": ones((n_layer, dim)),
+        "w1": dense((n_layer, dim, inter)),
+        "w3": dense((n_layer, dim, inter)),
+        "w2": dense((n_layer, inter, dim)),
+    }
+    if qkv_bias:
+        layers["bqkv"] = torch.zeros((n_layer, total_qkv), dtype=dtype, device=device)
+    if o_bias:
+        layers["bo"] = torch.zeros((n_layer, dim), dtype=dtype, device=device)
+    if qk_norm:
+        layers["q_norm"] = ones((n_layer, head_dim))
+        layers["k_norm"] = ones((n_layer, head_dim))
+    return layers
+
+
+def init_dual_ar(seed: int, cfg: DualARConfig, dtype=torch.bfloat16,
+                 device=None):
+    """Random-weight parameters with `init_dual_ar`'s shapes and scales,
+    drawn from a torch.Generator seeded with `seed` directly on `device`
+    (the values differ from the JAX package's, whose RNG is threefry).
+    Each tensor is drawn in fp32 and cast, one at a time, so the 5B model
+    never holds a second full copy."""
+    cfg = cfg.resolve()
+    device = torch.device(device or "cpu")
+    gen = torch.Generator(device=device).manual_seed(seed)
+    std = cfg.initializer_range
+
+    def dense(shape):
+        return _dense(gen, shape, std, dtype, device)
+
+    params = {
+        "embeddings": dense((cfg.vocab_size, cfg.dim)),
+        "codebook_embeddings": dense((cfg.codebook_size * cfg.num_codebooks, cfg.dim)),
+        "layers": _init_layer_stack(
+            gen, cfg.n_layer, cfg.dim, cfg.n_head, cfg.n_local_heads,
+            cfg.head_dim, cfg.intermediate_size, cfg.attention_qkv_bias,
+            cfg.attention_o_bias, cfg.attention_qk_norm, std, dtype, device,
+        ),
+        "norm": torch.ones((cfg.dim,), dtype=dtype, device=device),
+        "fast": {
+            "embeddings": dense((cfg.codebook_size, cfg.fast_dim)),
+            "layers": _init_layer_stack(
+                gen, cfg.n_fast_layer, cfg.fast_dim, cfg.fast_n_head,
+                cfg.fast_n_local_heads, cfg.fast_head_dim,
+                cfg.fast_intermediate_size, cfg.fast_attention_qkv_bias,
+                cfg.fast_attention_o_bias, cfg.fast_attention_qk_norm, std,
+                dtype, device,
+            ),
+            "norm": torch.ones((cfg.fast_dim,), dtype=dtype, device=device),
+            "output": dense((cfg.fast_dim, cfg.codebook_size)),
+        },
+    }
+    if not cfg.tie_word_embeddings:
+        params["output"] = dense((cfg.dim, cfg.vocab_size))
+    if cfg.audio_feature_dim > 0:
+        raise NotImplementedError(
+            "audio-feature conditioning is not ported yet (ROADMAP: dac_encode "
+            "and references)")
+    if cfg.fast_dim != cfg.dim:
+        params["fast"]["project_in"] = {
+            "w": dense((cfg.dim, cfg.fast_dim)),
+            "b": torch.zeros((cfg.fast_dim,), dtype=dtype, device=device),
+        }
+    return params
+
+
+def param_count(params) -> int:
+    if isinstance(params, dict):
+        return sum(param_count(v) for v in params.values())
+    return params.numel()
+
+
+# ---------------------------------------------------------------------------
+# KV caches
+# ---------------------------------------------------------------------------
+
+
+def init_kv_cache(cfg: DualARConfig, batch: int, max_seq: int,
+                  dtype=torch.bfloat16, device=None):
+    """Slow-transformer cache: k/v (L, B, S, Hkv, Dh). Only the bf16 (or
+    fp32) layout is ported; the int8 cache is a ROADMAP item."""
+    cfg = cfg.resolve()
+    shape = (cfg.n_layer, batch, max_seq, cfg.n_local_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def init_fast_kv_cache(cfg: DualARConfig, batch: int, dtype=torch.bfloat16,
+                       device=None):
+    """Fast-transformer cache: the sequence axis is the codebook index."""
+    cfg = cfg.resolve()
+    shape = (cfg.n_fast_layer, batch, cfg.num_codebooks,
+             cfg.fast_n_local_heads, cfg.fast_head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+# ---------------------------------------------------------------------------
+# Embedding
+# ---------------------------------------------------------------------------
+
+
+def embed_tokens(params, cfg: DualARConfig, inp):
+    """inp (B, C+1, T) int — row 0 text ids, rows 1..C codebook values ->
+    token + summed codebook embedding (gated by the semantic id range),
+    (B, T, D). The audio-feature path is not ported."""
+    inp = inp.long()
+    codes = inp[:, 1:, :]  # (B, C, T)
+    offsets = (torch.arange(cfg.num_codebooks, device=inp.device)
+               * cfg.codebook_size)[None, :, None]
+    vq_sum = F.embedding(codes + offsets, params["codebook_embeddings"]).sum(dim=1)
+
+    main = inp[:, 0, :]
+    is_semantic = ((main >= cfg.semantic_begin_id)
+                   & (main <= cfg.semantic_end_id))[..., None]
+    x = F.embedding(main, params["embeddings"])
+    x = x + torch.where(is_semantic, vq_sum, torch.zeros_like(vq_sum))
+    if cfg.scale_codebook_embeddings:
+        scale = 1.0 / math.sqrt(cfg.num_codebooks + 1)
+        x = torch.where(is_semantic, x * scale, x)
+    return x
+
+
+# ---------------------------------------------------------------------------
+# Transformer block pieces (shared by the slow and fast stacks)
+# ---------------------------------------------------------------------------
+
+
+def _qkv(lp, spec, h):
+    """Project + split + per-head norm. Returns q, k, v (B, T, H*, Dh)."""
+    n_head, n_kv, head_dim, eps = spec
+    qkv = mm(h, lp["wqkv"])
+    if "bqkv" in lp:
+        qkv = qkv + lp["bqkv"]
+    b, t, _ = qkv.shape
+    q_size = n_head * head_dim
+    kv_size = n_kv * head_dim
+    q = qkv[..., :q_size].reshape(b, t, n_head, head_dim)
+    k = qkv[..., q_size : q_size + kv_size].reshape(b, t, n_kv, head_dim)
+    v = qkv[..., q_size + kv_size :].reshape(b, t, n_kv, head_dim)
+    if "q_norm" in lp:
+        q = rms_norm(q, lp["q_norm"], eps)
+        k = rms_norm(k, lp["k_norm"], eps)
+    return q, k, v
+
+
+def _attn_out(lp, y):
+    out = mm(y, lp["wo"])
+    if "bo" in lp:
+        out = out + lp["bo"]
+    return out
+
+
+def _ffn(lp, h2):
+    if "w13" in lp:
+        u = mm(h2, lp["w13"])
+        i = u.shape[-1] // 2
+        u1, u3 = u[..., :i], u[..., i:]
+    else:
+        u1, u3 = mm(h2, lp["w1"]), mm(h2, lp["w3"])
+    return mm(F.silu(u1) * u3, lp["w2"])
+
+
+def _layer_slice(layers, i):
+    return {name: w[i] for name, w in layers.items()}
+
+
+def _run_stack_decode(layers, spec, x, freqs, cache, pos: int, lengths):
+    """Decode-mode layer loop, lockstep write of one position.
+
+    x (B, 1, D); freqs (1, Dh/2, 2); the cache is written in place at `pos`
+    and each layer's attention reads its first `lengths[b]` positions."""
+    n_head, n_kv, head_dim, eps = spec
+    b = x.shape[0]
+    for i in range(cache["k"].shape[0]):
+        lp = _layer_slice(layers, i)
+        h = rms_norm(x, lp["attn_norm"], eps)
+        q, k, v = _qkv(lp, spec, h)
+        q = apply_rope(q, freqs)
+        k = apply_rope(k, freqs)
+        cache["k"][i, :, pos] = k[:, 0].to(cache["k"].dtype)
+        cache["v"][i, :, pos] = v[:, 0].to(cache["v"].dtype)
+        qg = q.reshape(b, n_kv, n_head // n_kv, head_dim)
+        y = flash_decode_attention(qg, cache["k"], cache["v"], i, lengths)
+        x = x + _attn_out(lp, y.reshape(b, 1, -1))
+        h2 = rms_norm(x, lp["ffn_norm"], eps)
+        x = x + _ffn(lp, h2)
+    return x, cache
+
+
+def _slow_spec(cfg: DualARConfig):
+    return (cfg.n_head, cfg.n_local_heads, cfg.head_dim, cfg.norm_eps)
+
+
+def _fast_spec(cfg: DualARConfig):
+    return (cfg.fast_n_head, cfg.fast_n_local_heads, cfg.fast_head_dim,
+            cfg.norm_eps)
+
+
+def _lm_head(params, cfg: DualARConfig, slow_out):
+    if cfg.tie_word_embeddings:
+        logits = slow_out @ params["embeddings"].T
+    else:
+        logits = mm(slow_out, params["output"])
+    return logits.float()
+
+
+def fast_project_in(params, cfg: DualARConfig, hidden):
+    if "project_in" in params["fast"]:
+        p = params["fast"]["project_in"]
+        return hidden @ p["w"] + p["b"]
+    return hidden
+
+
+def fast_embed(params, cfg: DualARConfig, codes):
+    return F.embedding(codes.long(), params["fast"]["embeddings"])
+
+
+def _fast_head(params, cfg: DualARConfig, out):
+    return mm(out, params["fast"]["output"]).float()
+
+
+# ---------------------------------------------------------------------------
+# Inference: prefill and single-step decode
+# ---------------------------------------------------------------------------
+
+
+def _prefill_tail(params, cfg: DualARConfig, x, t_end, cache):
+    """Last-real-position extraction, final norm, LM head. t_end is an int
+    or a (B,) tensor of per-row end positions."""
+    b = x.shape[0]
+    t_last = torch.as_tensor(t_end, device=x.device).long().reshape(-1) - 1
+    x_last = x[torch.arange(b, device=x.device), t_last.expand(b)]  # (B, D)
+    slow_out = rms_norm(x_last, params["norm"], cfg.norm_eps)
+    logits = _lm_head(params, cfg, slow_out[:, None])[:, 0]
+    hidden = slow_out if cfg.norm_fastlayer_input else x_last
+    return logits, hidden, cache
+
+
+def prefill(params, cfg: DualARConfig, inp, cache, offsets, t_end):
+    """Run the prompt (B, C+1, Tpad) through the slow stack, writing k/v at
+    [0, Tpad) of the cache. Row i's prompt occupies [offsets[i], t_end);
+    attention is the prefill kernel over the fresh k/v (every prompt length,
+    not only >= 512 as on the TPU).
+
+    Returns (logits_last (B, V) fp32, hidden_last (B, D), cache)."""
+    cfg = cfg.resolve()
+    t = inp.shape[2]
+    x = embed_tokens(params, cfg, inp)
+    freqs = rope_table(cfg.max_seq_len, cfg.head_dim, cfg.rope_base,
+                       x.device)[:t]
+    offsets = offsets.to(device=x.device, dtype=torch.int32)
+    spec = _slow_spec(cfg)
+    b = x.shape[0]
+    for i in range(cache["k"].shape[0]):
+        lp = _layer_slice(params["layers"], i)
+        h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
+        q, k, v = _qkv(lp, spec, h)
+        q = apply_rope(q, freqs)
+        k = apply_rope(k, freqs)
+        cache["k"][i, :, :t] = k.to(cache["k"].dtype)
+        cache["v"][i, :, :t] = v.to(cache["v"].dtype)
+        y = flash_prefill_attention(q, k, v.contiguous(), offsets)
+        x = x + _attn_out(lp, y.reshape(b, t, -1))
+        h2 = rms_norm(x, lp["ffn_norm"], cfg.norm_eps)
+        x = x + _ffn(lp, h2)
+    return _prefill_tail(params, cfg, x, t_end, cache)
+
+
+def _lengths(b: int, pos: int, device):
+    return torch.full((b,), pos + 1, dtype=torch.int32, device=device)
+
+
+def decode_slow_step(params, cfg: DualARConfig, token, cache, pos: int):
+    """One slow-transformer step at absolute position `pos` (host int).
+
+    token: (B, C+1) int current column. Returns (hidden (B, D) for the fast
+    stack, slow_out (B, D) normed, cache)."""
+    cfg = cfg.resolve()
+    x = embed_tokens(params, cfg, token[:, :, None])  # (B, 1, D)
+    table = rope_table(cfg.max_seq_len, cfg.head_dim, cfg.rope_base, x.device)
+    # past the table JAX's dynamic_slice clamps; overshoot steps past the
+    # budget are discarded on the host either way
+    p = min(pos, table.shape[0] - 1)
+    x, cache = _run_stack_decode(
+        params["layers"], _slow_spec(cfg), x, table[p : p + 1], cache, pos,
+        _lengths(x.shape[0], pos, x.device),
+    )
+    x = x[:, 0]
+    slow_out = rms_norm(x, params["norm"], cfg.norm_eps)
+    hidden = slow_out if cfg.norm_fastlayer_input else x
+    return hidden, slow_out, cache
+
+
+def fast_decode_step(params, cfg: DualARConfig, x, fast_cache, pos: int,
+                     with_logits: bool = True):
+    """One fast-transformer step at codebook position `pos` (host int).
+
+    x: (B, Df). Returns (logits (B, K) fp32 or None, fast_cache)."""
+    cfg = cfg.resolve()
+    table = rope_table(cfg.num_codebooks, cfg.fast_head_dim, cfg.rope_base,
+                       x.device)
+    y, fast_cache = _run_stack_decode(
+        params["fast"]["layers"], _fast_spec(cfg), x[:, None],
+        table[pos : pos + 1], fast_cache, pos,
+        _lengths(x.shape[0], pos, x.device),
+    )
+    if not with_logits:
+        return None, fast_cache
+    out = rms_norm(y[:, 0], params["fast"]["norm"], cfg.norm_eps)
+    return _fast_head(params, cfg, out), fast_cache
+
+
+# ---------------------------------------------------------------------------
+# Heads and inference-time weight preparation
+# ---------------------------------------------------------------------------
+
+
+def precompute_semantic_head(params, cfg: DualARConfig):
+    """Return params plus `_semantic_head`: the (D, S+1) slice of the LM
+    head over the semantic ids and im_end, materialized once."""
+    cfg = cfg.resolve()
+    sb, se = cfg.semantic_begin_id, cfg.semantic_end_id
+    if cfg.tie_word_embeddings:
+        emb = params["embeddings"]
+        w = torch.cat([emb[sb : se + 1], emb[cfg.im_end_id][None]], dim=0).T
+    else:
+        out_w = params["output"]
+        w = torch.cat([out_w[:, sb : se + 1], out_w[:, cfg.im_end_id][:, None]],
+                      dim=1)
+    new = dict(params)
+    new["_semantic_head"] = {"w": w.contiguous()}
+    return new
+
+
+def fuse_ffn_weights(params):
+    """Concatenate each stack's w1|w3 into w13 (one (D, 2I) matmul). The
+    concatenation materializes a copy; the split tensors are dropped from
+    the returned dict."""
+    def fuse_stack(layers):
+        if "w1" not in layers:
+            return layers
+        out = {k: v for k, v in layers.items() if k not in ("w1", "w3")}
+        out["w13"] = torch.cat([layers["w1"], layers["w3"]], dim=-1)
+        return out
+
+    new = dict(params)
+    new["layers"] = fuse_stack(params["layers"])
+    fast = dict(params["fast"])
+    fast["layers"] = fuse_stack(fast["layers"])
+    new["fast"] = fast
+    return new
+
+
+def semantic_head_logits(params, cfg: DualARConfig, slow_out):
+    """Constrained-decoding head: logits over the semantic ids (columns
+    [0, S)) plus im_end (column S), fp32 (B, S+1). Needs the params from
+    `precompute_semantic_head`."""
+    return (slow_out @ params["_semantic_head"]["w"]).float()
+
+
+def semantic_index_to_token(cfg: DualARConfig, idx):
+    """Map a restricted-head sample index back to a text-vocab id."""
+    n_sem = cfg.semantic_end_id - cfg.semantic_begin_id + 1
+    return torch.where(idx >= n_sem, torch.full_like(idx, cfg.im_end_id),
+                       cfg.semantic_begin_id + idx)

@@ -1,0 +1,102 @@
+"""Build and load the port's CUDA kernels.
+
+The sources under `fish_speech_tpu_torch/csrc/` are compiled with `nvcc` for
+Hopper (`sm_90a`) into one shared library with a plain C interface, bound
+with `ctypes`. The build runs at first use, into `build/kernels-<hash>/` at
+the root of the checkout, keyed by the hash of the sources and flags, so an
+edited source rebuilds and an unchanged one loads in milliseconds.
+
+Nothing here runs at import time: the CPU tests import every module of the
+port on a machine without `nvcc`.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+import torch
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_ROOT = _PKG.parent / "build"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+# dtype codes of the C entry points (csrc/common.cuh)
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME")
+    for cand in ([os.path.join(cuda_home, "bin", "nvcc")] if cuda_home else []) + [
+        shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"
+    ]:
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: set CUDA_HOME to the CUDA toolkit")
+
+
+def _sources():
+    return sorted(CSRC.glob("*.cu")), sorted(CSRC.glob("*.cuh"))
+
+
+def source_hash() -> str:
+    cu, cuh = _sources()
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in cu + cuh:
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def library_path() -> Path:
+    return BUILD_ROOT / f"kernels-{source_hash()}" / "libfs_kernels.so"
+
+
+def _build(out: Path):
+    cu, _ = _sources()
+    out.parent.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, cu)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    (out.parent / "build.log").write_text(
+        " ".join(cmd) + "\n" + proc.stdout + proc.stderr
+    )
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}"
+        )
+    os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
+
+
+@functools.cache
+def load_kernels() -> ctypes.CDLL:
+    """Build (once per source hash) and load the kernel library."""
+    out = library_path()
+    if not out.exists():
+        _build(out)
+    lib = ctypes.CDLL(str(out))
+    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.fs_flash_prefill.argtypes = [
+        ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, f32, ptr
+    ]
+    lib.fs_flash_prefill.restype = i32
+    lib.fs_flash_decode.argtypes = [
+        ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, f32, ptr
+    ]
+    lib.fs_flash_decode.restype = i32
+    return lib
+
+
+def check_launch(rc: int, name: str):
+    """Raise if a C entry point reported a CUDA error."""
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
