@@ -7,32 +7,50 @@ Phases, each of which ends the run with a nonzero exit if it fails:
 
 1. the card (`nvidia-smi` name and power limit), torch and CUDA versions,
    and the build of the CUDA kernels from `fish_speech_tpu_torch/csrc/`;
-2. each kernel against its plain PyTorch version at the main path's shapes,
+2. each kernel against its plain PyTorch version at the main paths' shapes,
    in bf16 from N(0,1) inputs (pass: max abs error <= 2e-2, mean <= 2e-3,
-   the bound of bf16 rounding of P before P.V in the plain version), timed
-   with CUDA events in turns (plain, kernel, kernel, plain);
+   the bound of bf16 rounding of P before P.V in the plain version; the
+   training forward's O also gets one bf16 step of the value, 2^-7 |O|;
+   the training backward's dQ/dK/dV, 2e-2 of the tensor's largest
+   magnitude and 1e-2 of its mean magnitude), timed with CUDA events in
+   turns (plain, kernel, kernel, plain). The training kernels run at B=2
+   T=1024 with a right-padded row, B=1 T=4096 and a ragged B=2 T=1000;
 3. a small-input reference: a tiny fp32 model runs the same greedy request
    through the kernels on the card and through the plain versions on the
    CPU; token columns must be identical and prefill logits within 1e-4;
-4. the slice: the full-width `dual_ar_s2_pro` LM (bf16, random weights from
-   a seed, max_seq_len 2048) and the `dac_s2_pro` codec answer streamed
-   requests through `TTSInferenceEngine`, one of them with a prompt over 512
-   tokens. The audio must be finite and in whole frames, both kernels'
-   launch counts must be > 0, and a repeated request with the same seed
-   must give identical codes.
+3b. a small training reference: a tiny fp32 LoRA model takes two
+   `make_train_step` steps through the training kernels on the card and the
+   plain versions on the CPU; losses and LoRA leaves must agree to 1e-5;
+4. the serving slice: the full-width `dual_ar_s2_pro` LM (bf16, random
+   weights from a seed, max_seq_len 2048) and the `dac_s2_pro` codec answer
+   streamed requests through `TTSInferenceEngine`, one of them with a
+   prompt over 512 tokens. The audio must be finite and in whole frames,
+   both kernels' launch counts must be > 0, and a repeated request with the
+   same seed must give identical codes;
+5. the training slice: the serving model is freed, then `Trainer.fit` runs
+   8 LoRA steps (r=8, alpha=16, attention/mlp/embeddings/output, remat on)
+   of the full-width `dual_ar_s2_pro` (bf16, random weights, max_seq_len
+   1024) on one B=2 x T=1024 batch of the shared data pipeline, repeated.
+   Every loss must be finite and the last below the first, sampled frozen
+   base tensors bitwise unchanged, every LoRA B leaf nonzero, both training
+   kernels launched, and the checkpoint must restore.
 
-The line before the last is a JSON object with each kernel's numbers; the
-last line is `{"ok": true, "device": {...}}`. No result is printed when
-CUDA is unavailable or when the port's package is not beside this script.
+Each phase sets the kernels' launch counts to 0 before it drives its path
+and reads them after. The line before the last is a JSON object with each
+kernel's numbers; the last line is `{"ok": true, "device": {...}}`. No
+result is printed when CUDA is unavailable or when the port's package is
+not beside this script.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 
@@ -125,16 +143,101 @@ def kernel_cases(dev):
             shape=f"L={n_layer} B=1 S={s} Hkv={hkv} G={g} D=128 len={length}",
             max_abs_err=mx, mean_abs_err=mean, ms=ms, plain_ms=plain_ms))
         del kc, vc
+    cases.update(train_kernel_cases(dev, randn))
     torch.cuda.synchronize()
     for name, rows in cases.items():
         for r in rows:
             print(f"kernel {name} [{r['shape']}]: max_abs_err={r['max_abs_err']:.3e} "
                   f"mean_abs_err={r['mean_abs_err']:.3e} kernel_ms={r['ms']:.4f} "
-                  f"plain_ms={r['plain_ms']:.4f}")
-            if r["max_abs_err"] > 2e-2 or r["mean_abs_err"] > 2e-3:
+                  f"plain_ms={r['plain_ms']:.4f}"
+                  + "".join(f" {k}={v[0]:.3e}/{v[1]:.3e}"
+                            for k, v in r.get("outputs", {}).items()))
+            ok = r.get("ok", r["max_abs_err"] <= 2e-2 and r["mean_abs_err"] <= 2e-3)
+            if not ok:
                 raise SystemExit(f"{name} disagrees with its plain version at "
                                  f"{r['shape']}")
     return cases
+
+
+def _within_bf16_step(got, want):
+    want = want.float()
+    return bool(((got.float() - want).abs() <= 2e-2 + 2 ** -7 * want.abs()).all())
+
+
+def train_kernel_cases(dev, randn):
+    """The training attention's forward and backward kernels against their
+    plain versions on the same inputs (the backward on the plain forward's
+    O and lse). Bounds, bf16 from N(0,1): O to 2e-2 plus one bf16 step of
+    the value (2^-7 |O|) elementwise and 2e-3 mean abs (the kernel keeps P
+    in fp32, the plain version rounds it to bf16; rows with few visible
+    keys have |O| above 2, where the two roundings can land one step
+    apart); lse, fp32 on both sides, to 1e-4; dQ, dK and dV, which are not convex
+    combinations, to 2e-2 of the tensor's largest magnitude (max) and 1e-2
+    of its mean magnitude (mean): one bf16 rounding of the output, plus the
+    plain version's bf16 rounding of P and dS."""
+    import torch
+
+    from fish_speech_tpu_torch.ops.flash_train import (
+        flash_train_backward, flash_train_backward_reference, flash_train_forward,
+        flash_train_forward_reference)
+
+    cases = {"flash_train_fwd": [], "flash_train_bwd": []}
+    # the fine-tune shape with a right-padded row, the default max_length,
+    # and a ragged T (not a multiple of the 64-row tile)
+    for b, t, pads in [(2, 1024, [0, 100]), (1, 4096, [0]), (2, 1000, [0, 0])]:
+        q, k, v = randn(b, t, 32, 128), randn(b, t, 8, 128), randn(b, t, 8, 128)
+        kvalid = torch.ones((b, t), dtype=torch.int32, device=dev)
+        for i, n in enumerate(pads):
+            if n:
+                kvalid[i, -n:] = 0
+        do = randn(b, t, 32, 128) * kvalid[:, :, None, None].to(torch.bfloat16)
+        shape = f"B={b} T={t} H=32 Hkv=8 D=128 right_pad={pads}"
+
+        o, lse = flash_train_forward(q, k, v, kvalid)
+        want_o, want_lse = flash_train_forward_reference(q, k, v, kvalid)
+        e_o, e_lse = _errors(o, want_o), _errors(lse, want_lse)
+        ms, plain_ms = _in_turns(
+            lambda i=0: flash_train_forward_reference(q, k, v, kvalid),
+            lambda i=0: flash_train_forward(q, k, v, kvalid), 10)
+        cases["flash_train_fwd"].append(dict(
+            shape=shape, max_abs_err=max(e_o[0], e_lse[0]),
+            mean_abs_err=max(e_o[1], e_lse[1]), ms=ms, plain_ms=plain_ms,
+            outputs={"O": e_o, "lse": e_lse},
+            ok=_within_bf16_step(o, want_o) and e_o[1] <= 2e-3
+            and e_lse[0] <= 1e-4))
+
+        args = (q, k, v, kvalid, want_o, want_lse, do)
+        got = flash_train_backward(*args)
+        want = flash_train_backward_reference(*args)
+        errs, ok = {}, True
+        for name, g, w in zip(("dQ", "dK", "dV"), got, want):
+            errs[name] = _errors(g, w)
+            ref = w.float().abs()
+            ok &= bool(torch.isfinite(g.float()).all())
+            ok &= (errs[name][0] <= 2e-2 * ref.max().item()
+                   and errs[name][1] <= 1e-2 * ref.mean().item())
+        ms, plain_ms = _in_turns(lambda i=0: flash_train_backward_reference(*args),
+                                 lambda i=0: flash_train_backward(*args), 5)
+        cases["flash_train_bwd"].append(dict(
+            shape=shape, max_abs_err=max(e[0] for e in errs.values()),
+            mean_abs_err=max(e[1] for e in errs.values()), ms=ms,
+            plain_ms=plain_ms, outputs=errs, ok=ok))
+        del q, k, v, do, o, lse, want_o, want_lse, got, want, args
+    torch.cuda.empty_cache()
+    return cases
+
+
+def _tiny_cfg(tokenizer):
+    """A tiny model whose slow heads (D=64) the attention kernels take."""
+    from fish_speech_tpu.config import dual_ar_tiny
+
+    return dual_ar_tiny(vocab_size=tokenizer.vocab_size, head_dim=64,
+                        n_head=4, n_local_heads=2, fast_head_dim=64,
+                        fast_n_head=3, fast_n_local_heads=1, num_codebooks=10,
+                        attention_qk_norm=True, tie_word_embeddings=False,
+                        semantic_begin_id=tokenizer.semantic_begin_id,
+                        semantic_end_id=tokenizer.semantic_end_id,
+                        im_end_id=tokenizer.im_end_id)
 
 
 def small_reference(dev, tokenizer):
@@ -142,17 +245,11 @@ def small_reference(dev, tokenizer):
     versions (CPU) on the same weights and request."""
     import torch
 
-    from fish_speech_tpu.config import SamplingConfig, dual_ar_tiny
+    from fish_speech_tpu.config import SamplingConfig
     from fish_speech_tpu_torch.generate import GenerationSession, generate_long
     from fish_speech_tpu_torch.models import dual_ar
 
-    cfg = dual_ar_tiny(vocab_size=tokenizer.vocab_size, head_dim=64,
-                       n_head=4, n_local_heads=2, fast_head_dim=64,
-                       fast_n_head=3, fast_n_local_heads=1, num_codebooks=10,
-                       attention_qk_norm=True, tie_word_embeddings=False,
-                       semantic_begin_id=tokenizer.semantic_begin_id,
-                       semantic_end_id=tokenizer.semantic_end_id,
-                       im_end_id=tokenizer.im_end_id)
+    cfg = _tiny_cfg(tokenizer)
     cpu_params = dual_ar.init_dual_ar(3, cfg, torch.float32, "cpu")
     gpu_params = _to(cpu_params, dev)
     inp = torch.randint(0, cfg.codebook_size, (1, cfg.num_codebooks + 1, 64),
@@ -185,9 +282,90 @@ def small_reference(dev, tokenizer):
 
 
 def _to(tree, dev):
+    """A copy of a tensor tree on `dev` (new leaf tensors, never shared)."""
     if isinstance(tree, dict):
         return {k: _to(v, dev) for k, v in tree.items()}
-    return tree.to(dev)
+    return tree.detach().to(dev, copy=True)
+
+
+def _flat(tree, prefix=""):
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flat(v, f"{prefix}{k}/"))
+        else:
+            out[prefix + k] = v
+    return out
+
+
+def _numpy_batch(cfg, rng, b, t, pads):
+    """A training batch in `TextDataCollator`'s layout: text ids with
+    stretches of semantic tokens carrying codebook values, rows right-padded
+    by `pads` (padding is IGNORE_INDEX in the labels)."""
+    inputs = np.zeros((b, cfg.num_codebooks + 1, t), dtype=np.int32)
+    inputs[:, 0] = rng.integers(4, 200, size=(b, t))
+    sem = rng.random((b, t)) < 0.6
+    for i in range(b):
+        codes = rng.integers(0, cfg.codebook_size, size=(cfg.num_codebooks, t))
+        inputs[i, 0, sem[i]] = cfg.semantic_begin_id + codes[0, sem[i]]
+        inputs[i, 1:, sem[i]] = codes[:, sem[i]].T
+    labels = inputs.copy()
+    pad = np.zeros((b, t), bool)
+    for i, n in enumerate(pads):
+        if n:
+            pad[i, -n:] = True
+            labels[i, :, -n:] = -100
+    return {"inputs": inputs, "labels": labels, "pad_mask": pad}
+
+
+def small_train_reference(dev, tokenizer):
+    """Phase 3b: a tiny fp32 LoRA model takes two optimizer steps through the
+    training attention kernels (card) and the plain versions (CPU), from the
+    same weights on the same batch (T=200: a ragged tile, one row padded).
+    Pass: both steps' losses within 1e-5 and every LoRA leaf within 1e-5
+    after the steps (fp32 on both sides, TF32 off; only the summation order
+    differs)."""
+    import torch
+
+    from fish_speech_tpu_torch.models import dual_ar
+    from fish_speech_tpu_torch.models.lora import (LoraConfig, add_lora,
+                                                   apply_lora_config,
+                                                   lora_filter)
+    from fish_speech_tpu_torch.ops.flash_train import (flash_train_backward,
+                                                       flash_train_forward)
+    from fish_speech_tpu_torch.train.step import make_optimizer, make_train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = _tiny_cfg(tokenizer)
+    lcfg = LoraConfig(r=4, lora_alpha=8.0)
+    base = add_lora(dual_ar.init_dual_ar(4, cfg, torch.float32, "cpu"), cfg,
+                    lcfg, seed=5, dtype=torch.float32)
+    cfg = apply_lora_config(cfg, lcfg)
+    batch = _numpy_batch(cfg, np.random.default_rng(0), 2, 200, [0, 37])
+    launches = (flash_train_forward.launches, flash_train_backward.launches)
+    losses, trees = [], []
+    for d in ("cpu", dev):
+        params = _to(base, d)
+        opt = make_optimizer(params, lr=1e-3, trainable_mask=lora_filter(params))
+        step = make_train_step(cfg, opt)
+        placed = {k: torch.from_numpy(v).to(d) for k, v in batch.items()}
+        losses.append([float(step(params, placed)["loss"]) for _ in range(2)])
+        trees.append({k: v.detach().cpu() for k, v in _flat(params).items()
+                      if "lora" in k})
+    if (flash_train_forward.launches == launches[0]
+            or flash_train_backward.launches == launches[1]):
+        raise SystemExit("the card's training steps did not run the kernels")
+    loss_err = max(abs(a - b) for a, b in zip(*losses))
+    leaf_err = max((trees[0][k] - trees[1][k]).abs().max().item()
+                   for k in trees[0])
+    moved = all(not torch.equal(trees[0][k], _flat(base)[k]) for k in trees[0])
+    print(f"small training reference (tiny fp32 LoRA, 2 steps, card kernels vs "
+          f"CPU plain): losses {losses[0]} vs {losses[1]}, max loss err "
+          f"{loss_err:.3e}, max LoRA leaf err {leaf_err:.3e} over "
+          f"{len(trees[0])} leaves, all moved={moved}")
+    if loss_err > 1e-5 or leaf_err > 1e-5 or not moved:
+        raise SystemExit("the training kernels disagree with the plain path on "
+                         "the small reference")
 
 
 def run_slice(dev, tokenizer):
@@ -247,8 +425,8 @@ def run_slice(dev, tokenizer):
                                     max_new_tokens=96, seed=11)),
     ]
     frame = dac_cfg.frame_length
-    flash_prefill_attention.launches = 0
-    flash_decode_attention.launches = 0
+    for f in _kernel_wrappers():
+        f.launches = 0
     results, codes = [], {}
     for name, req in requests:
         torch.cuda.synchronize()
@@ -300,11 +478,167 @@ def run_slice(dev, tokenizer):
     return results, launches
 
 
+def _write_protos(path, num_codebooks, codebook_size, rng):
+    """A small proto shard: two speakers, sentences of random text and
+    random codes, enough for samples past 1024 tokens and shorter ones."""
+    from fish_speech_tpu.data.protos import Semantics, Sentence, TextData
+    from fish_speech_tpu.data.stream import write_pb_stream
+
+    words = ["speech", "model", "voice", "quiet", "river", "light", "stone",
+             "window", "morning", "paper", "simple", "garden"]
+    with open(path, "wb") as f:
+        for name, n_sentences in (("spk0", 16), ("spk1", 5)):
+            sentences = []
+            for _ in range(n_sentences):
+                text = " ".join(rng.choice(words, size=int(rng.integers(4, 9))))
+                frames = int(rng.integers(20, 60))
+                sems = [Semantics(values=rng.integers(0, codebook_size,
+                                                      size=frames).tolist())
+                        for _ in range(num_codebooks)]
+                sentences.append(Sentence(texts=[text], semantics=sems))
+            write_pb_stream(f, TextData(source="chip_smoke", name=name,
+                                        sentences=sentences))
+    return path
+
+
+def run_train_slice(dev, tokenizer, cfg, out_dir):
+    """Phase 5: LoRA fine-tuning of `cfg` through `Trainer.fit` on one batch
+    of the shared data pipeline, repeated, so that the loss must fall."""
+    import itertools
+    import shutil
+
+    import torch
+
+    from fish_speech_tpu.data.dataset import (SemanticIterableDataset,
+                                              TextDataCollator)
+    from fish_speech_tpu_torch.models.dual_ar import param_count
+    from fish_speech_tpu_torch.models.lora import LoraConfig
+    from fish_speech_tpu_torch.ops.flash_train import (flash_train_backward,
+                                                       flash_train_forward)
+    from fish_speech_tpu_torch.train.trainer import TrainConfig, Trainer
+
+    steps, batch_size, max_length = 8, 2, 1024
+    # constant after a one-step warmup: at this rate the loss on the
+    # repeated batch falls within the 8 steps
+    lr = 1e-3
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    rng = np.random.default_rng(0)
+    proto = _write_protos(out_dir / "data.protos", cfg.num_codebooks,
+                          cfg.codebook_size, rng)
+    ds = SemanticIterableDataset([str(proto)], tokenizer, seed=0,
+                                 max_length=max_length,
+                                 num_codebooks=cfg.num_codebooks)
+    stream = iter(ds)
+    batch = TextDataCollator(tokenizer, max_length)(
+        [next(stream) for _ in range(batch_size)])
+    real_tokens = int((~batch["pad_mask"]).sum())
+
+    lora = LoraConfig(r=8, lora_alpha=16.0,
+                      target_modules=["attention", "mlp", "embeddings", "output"])
+    tcfg = TrainConfig(output_dir=str(out_dir), project="lora",
+                       max_steps=steps, batch_size=batch_size,
+                       max_length=max_length, lr=lr, warmup_steps=1,
+                       schedule="constant", log_every_steps=1,
+                       val_every_steps=10 ** 9, ckpt_every_steps=steps,
+                       seed=0, precision="bfloat16", lora=lora)
+    t0 = time.perf_counter()
+    trainer = Trainer(cfg, tcfg, device=dev)
+    torch.cuda.synchronize()
+    flat = _flat(trainer.params)
+    n_lora = sum(v.numel() for k, v in flat.items() if "lora" in k)
+    n_base = param_count(trainer.params) - n_lora
+    print(f"training slice: {n_base / 1e9:.3f}B base params bf16 (frozen, "
+          f"remat={trainer.cfg.use_gradient_checkpointing}), "
+          f"{n_lora / 1e6:.2f}M LoRA params (r=8, alpha=16, "
+          f"{','.join(lora.target_modules)}), built in "
+          f"{time.perf_counter() - t0:.1f}s; batch {tuple(batch['inputs'].shape)} "
+          f"from the data pipeline, {real_tokens} real tokens; constant LR "
+          f"{lr:g} after a 1-step warmup; device memory allocated "
+          f"{torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB")
+    # samples of the frozen base: first/last layers, the semantic rows and
+    # columns of the tables the batch reads
+    sem = slice(cfg.semantic_begin_id, cfg.semantic_end_id + 1)
+    samples = {"layers/wqkv": (0,), "layers/w2": (-1,), "fast/layers/w1": (0,),
+               "embeddings": (sem,), "codebook_embeddings": (slice(0, 4096),),
+               "output": (slice(None), sem), "fast/output": (slice(None),)}
+    frozen = {k: flat[k][idx].clone() for k, idx in samples.items()}
+
+    for f in _kernel_wrappers():
+        f.launches = 0
+    torch.cuda.reset_peak_memory_stats(dev)
+    trainer.fit(itertools.repeat(batch, steps), resume=False)
+    torch.cuda.synchronize()
+    launches = {"flash_train_fwd": flash_train_forward.launches,
+                "flash_train_bwd": flash_train_backward.launches}
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+
+    recs = [json.loads(line) for line in
+            (trainer.out_dir / "metrics.jsonl").read_text().splitlines()]
+    step_tokens = batch_size * max_length
+    for r in recs:
+        s = 1.0 / r["it_per_s"]
+        print(f"train step {r['step']}: loss {r['loss']:.4f} (base "
+              f"{r['base_loss']:.4f} semantic {r['semantic_loss']:.4f}) grad_norm "
+              f"{r['grad_norm']:.4f} {s:.3f} s/step {step_tokens / s:.0f} tokens/s "
+              f"({real_tokens / s:.0f} real)")
+    steady = float(np.mean([1.0 / r["it_per_s"] for r in recs[1:]]))
+    print(f"training: steps 2-{steps} mean {steady:.4f} s/step, "
+          f"{step_tokens / steady:.0f} tokens/s; peak device memory {peak:.2f} GiB; "
+          f"kernel launches {launches}")
+
+    losses = [r["loss"] for r in recs]
+    if len(recs) != steps or not np.isfinite(losses).all():
+        raise SystemExit(f"training: losses {losses}")
+    if not losses[-1] < losses[0]:
+        raise SystemExit(f"training: the loss did not fall on a repeated batch: "
+                         f"{losses}")
+    flat = _flat(trainer.params)
+    changed = [k for k, v in frozen.items()
+               if not torch.equal(flat[k][samples[k]], v)]
+    zero_b = [k for k, v in flat.items()
+              if "lora" in k and k.endswith("/b") and not bool(v.any())]
+    if changed or zero_b:
+        raise SystemExit(f"training: frozen tensors changed {changed}, LoRA B "
+                         f"leaves still zero {zero_b}")
+    if min(launches.values()) <= 0:
+        raise SystemExit("a training kernel of the path was never launched")
+
+    # the checkpoint holds the LoRA leaves and the optimizer state: wipe the
+    # leaves and restore them
+    ckpt = trainer.latest_checkpoint()
+    lora_now = {k: v.detach().clone() for k, v in flat.items() if "lora" in k}
+    with torch.no_grad():
+        for k in lora_now:
+            flat[k].zero_()
+    trainer.step = 0
+    restored = trainer.restore_checkpoint(ckpt)
+    same = all(torch.equal(flat[k], v) for k, v in lora_now.items())
+    print(f"checkpoint {ckpt.name}: {len(lora_now)} LoRA leaves restored "
+          f"identical={same}, step {trainer.step}, optimizer count "
+          f"{trainer.optimizer.count}")
+    if not (restored and same and trainer.step == steps
+            and trainer.optimizer.count == steps):
+        raise SystemExit("training: the checkpoint did not restore")
+    return launches
+
+
+def _kernel_wrappers():
+    from fish_speech_tpu_torch.ops.flash_decode import flash_decode_attention
+    from fish_speech_tpu_torch.ops.flash_prefill import flash_prefill_attention
+    from fish_speech_tpu_torch.ops.flash_train import (flash_train_backward,
+                                                       flash_train_forward)
+
+    return (flash_prefill_attention, flash_decode_attention, flash_train_forward,
+            flash_train_backward)
+
+
 def main():
     import torch
 
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available")
+    from fish_speech_tpu.config import dual_ar_s2_pro
     from fish_speech_tpu.tokenizer import build_test_tokenizer
     from fish_speech_tpu_torch.ops import _kernels
 
@@ -321,18 +655,37 @@ def main():
     cases = kernel_cases(dev)
     tokenizer = build_test_tokenizer()
     small_reference(dev, tokenizer)
+    small_train_reference(dev, tokenizer)
     _, launches = run_slice(dev, tokenizer)
+    gc.collect()  # the serving slice's model and caches go before training
+    torch.cuda.empty_cache()
+    cfg = dual_ar_s2_pro(semantic_begin_id=tokenizer.semantic_begin_id,
+                         semantic_end_id=tokenizer.semantic_end_id,
+                         im_end_id=tokenizer.im_end_id)
+    cfg = dataclasses.replace(cfg, max_seq_len=1024).resolve()
+    train_launches = run_train_slice(
+        dev, tokenizer, cfg,
+        Path(__file__).resolve().parent / "build" / "chip_smoke_train")
+    launches.update(train_launches)
 
+    src = "fish_speech_tpu_torch/csrc/"
+    source = {"flash_prefill": src + "flash_prefill.cu",
+              "flash_decode": src + "flash_decode.cu",
+              "flash_train_fwd": src + "flash_train.cu",
+              "flash_train_bwd": src + "flash_train.cu"}
     replaces = {"flash_prefill": "fish_speech_tpu/ops/pallas_attention.py:26",
-                "flash_decode": "fish_speech_tpu/ops/pallas_decode.py:47"}
-    # headline shapes: the long request's prefill bucket, a 257-long cache
-    headline = {"flash_prefill": 1, "flash_decode": 1}
+                "flash_decode": "fish_speech_tpu/ops/pallas_decode.py:47",
+                "flash_train_fwd": "fish_speech_tpu/ops/pallas_attention_train.py:56",
+                "flash_train_bwd": "fish_speech_tpu/ops/pallas_attention_train.py:131"}
+    # headline shapes: the long request's prefill bucket, a 257-long cache,
+    # the B=2 x T=1024 fine-tune shape
+    headline = {"flash_prefill": 1, "flash_decode": 1, "flash_train_fwd": 0,
+                "flash_train_bwd": 0}
     kernels = []
     for name, rows in cases.items():
         pick = rows[headline[name]]
         kernels.append({
-            "name": name, "route": "cuda",
-            "source": f"fish_speech_tpu_torch/csrc/{name}.cu",
+            "name": name, "route": "cuda", "source": source[name],
             "replaces": replaces[name], "launches": launches[name],
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "ms": pick["ms"], "plain_ms": pick["plain_ms"],

@@ -45,8 +45,9 @@ def _tree(x, fn):
 
 
 def dual_ar_from_jax(params, dtype=torch.bfloat16, device=None):
-    """Dual-AR LM pytree (numpy leaves) -> torch tensors, layout unchanged.
-    Quantized ({"q","s"} / {"p","gs"}) and LoRA leaves are not ported."""
+    """Dual-AR LM pytree (numpy leaves) -> torch tensors, layout unchanged,
+    LoRA leaves included (`models/lora.py` layout). Quantized ({"q","s"} /
+    {"p","gs"}) weights and the audio projector are not ported."""
     def check(node, path=""):
         if isinstance(node, dict):
             if {"q", "s"} <= node.keys() or {"p", "gs"} <= node.keys():
@@ -54,7 +55,7 @@ def dual_ar_from_jax(params, dtype=torch.bfloat16, device=None):
                     f"quantized weight at {path} (ROADMAP: int8 weights and "
                     f"the int8 KV cache)")
             for k, v in node.items():
-                if k.startswith("lora") or k == "audio_projector":
+                if k == "audio_projector":
                     raise NotImplementedError(f"{path}/{k} is not ported")
                 check(v, f"{path}/{k}")
 

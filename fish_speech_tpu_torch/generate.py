@@ -142,6 +142,12 @@ class GenerateResponse:
     text: Optional[str] = None
 
 
+def _detached(tree):
+    if isinstance(tree, dict):
+        return {k: _detached(v) for k, v in tree.items()}
+    return tree.detach()
+
+
 class GenerationSession:
     """Owns the KV cache and the inference-prepared weights of one model,
     for one stream at a time (batching is not ported yet).
@@ -154,6 +160,9 @@ class GenerationSession:
     def __init__(self, params, cfg: DualARConfig, scfg: SamplingConfig = None,
                  dtype=torch.bfloat16, decode_chunk_size: int = 32,
                  first_chunk_size: int = 0, pipeline_lookahead: int = 1):
+        # detached views: a tree fresh from training (LoRA tensors that
+        # require grad) must not make decoding record an autograd graph
+        params = _detached(params)
         self.params = dual_ar.fuse_ffn_weights(
             dual_ar.precompute_semantic_head(params, cfg))
         self.cfg = cfg.resolve()

@@ -1,4 +1,4 @@
-"""Dual-AR text->semantic transformer, inference half, in PyTorch.
+"""Dual-AR text->semantic transformer in PyTorch: inference, training, LoRA.
 
 Port of `fish_speech_tpu/models/dual_ar.py`. Parameters are a nested dict
 of tensors with the JAX package's layout: every transformer layer stacked
@@ -21,11 +21,18 @@ on a leading axis, weights stored (in, out) and used as `x @ w`:
   fast/norm             (Df,)
   fast/output           (Df, K)
 
+LoRA leaves (`models/lora.py`) live inside the same tree: a layer stack
+gets a "lora" sub-dict keyed by weight name ({"a": (L, in, r), "b": (L, r,
+out)}), the top-level tables get "lora_embeddings" / "lora_codebook_embeddings"
+/ "lora_output" siblings, and every projection adds `lora_scale * (x @ A) @ B`
+where its LoRA exists, as the JAX package does.
+
 Activations are (B, T, H, Dh); the KV caches are (L, B, S, Hkv, Dh) and are
 written IN PLACE (JAX threads them functionally; here the returned cache is
-the same tensors). Prefill attention runs `flash_prefill_attention` and
-decode attention of both stacks runs `flash_decode_attention` with
-`lengths = pos + 1`: on CUDA tensors those are the hand-written kernels.
+the same tensors). Prefill attention runs `flash_prefill_attention`, decode
+attention of both stacks runs `flash_decode_attention` with `lengths = pos +
+1`, and the teacher-forced training forward's slow stack runs
+`flash_train_attention`: on CUDA tensors those are the hand-written kernels.
 """
 
 from __future__ import annotations
@@ -34,10 +41,13 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from fish_speech_tpu.config import DualARConfig
+from fish_speech_tpu_torch.ops.attention import causal_mask, gqa_attention
 from fish_speech_tpu_torch.ops.flash_decode import flash_decode_attention
 from fish_speech_tpu_torch.ops.flash_prefill import flash_prefill_attention
+from fish_speech_tpu_torch.ops.flash_train import flash_train_attention
 from fish_speech_tpu_torch.ops.norms import rms_norm
 from fish_speech_tpu_torch.ops.quant import mm
 from fish_speech_tpu_torch.ops.rope import apply_rope, rope_table
@@ -169,22 +179,36 @@ def init_fast_kv_cache(cfg: DualARConfig, batch: int, dtype=torch.bfloat16,
 # ---------------------------------------------------------------------------
 
 
-def embed_tokens(params, cfg: DualARConfig, inp):
+def _lora_embed(params, name, idx, scale):
+    """Low-rank embedding delta `scale * A[idx] @ B` when `name` has LoRA."""
+    if name in params:
+        la = params[name]
+        return scale * (F.embedding(idx, la["a"]) @ la["b"])
+    return 0
+
+
+def embed_tokens(params, cfg: DualARConfig, inp, inference: bool = True):
     """inp (B, C+1, T) int — row 0 text ids, rows 1..C codebook values ->
     token + summed codebook embedding (gated by the semantic id range),
-    (B, T, D). The audio-feature path is not ported."""
+    (B, T, D). `scale_codebook_embeddings` applies on the inference path
+    only: the training forward passes inference=False, as the JAX package
+    does. The audio-feature path is not ported."""
     inp = inp.long()
     codes = inp[:, 1:, :]  # (B, C, T)
     offsets = (torch.arange(cfg.num_codebooks, device=inp.device)
                * cfg.codebook_size)[None, :, None]
-    vq_sum = F.embedding(codes + offsets, params["codebook_embeddings"]).sum(dim=1)
+    cb_idx = codes + offsets
+    cb = F.embedding(cb_idx, params["codebook_embeddings"])
+    vq_sum = (cb + _lora_embed(params, "lora_codebook_embeddings", cb_idx,
+                               cfg.lora_scale)).sum(dim=1)
 
     main = inp[:, 0, :]
     is_semantic = ((main >= cfg.semantic_begin_id)
                    & (main <= cfg.semantic_end_id))[..., None]
     x = F.embedding(main, params["embeddings"])
+    x = x + _lora_embed(params, "lora_embeddings", main, cfg.lora_scale)
     x = x + torch.where(is_semantic, vq_sum, torch.zeros_like(vq_sum))
-    if cfg.scale_codebook_embeddings:
+    if cfg.scale_codebook_embeddings and inference:
         scale = 1.0 / math.sqrt(cfg.num_codebooks + 1)
         x = torch.where(is_semantic, x * scale, x)
     return x
@@ -195,10 +219,18 @@ def embed_tokens(params, cfg: DualARConfig, inp):
 # ---------------------------------------------------------------------------
 
 
+def _lora_delta(lp, name, x, scale):
+    """Low-rank delta `scale * (x @ A) @ B` when this weight has LoRA."""
+    lora = lp.get("lora")
+    if lora is not None and name in lora:
+        return scale * ((x @ lora[name]["a"]) @ lora[name]["b"])
+    return 0
+
+
 def _qkv(lp, spec, h):
     """Project + split + per-head norm. Returns q, k, v (B, T, H*, Dh)."""
-    n_head, n_kv, head_dim, eps = spec
-    qkv = mm(h, lp["wqkv"])
+    n_head, n_kv, head_dim, eps, lora_scale = spec
+    qkv = mm(h, lp["wqkv"]) + _lora_delta(lp, "wqkv", h, lora_scale)
     if "bqkv" in lp:
         qkv = qkv + lp["bqkv"]
     b, t, _ = qkv.shape
@@ -213,25 +245,32 @@ def _qkv(lp, spec, h):
     return q, k, v
 
 
-def _attn_out(lp, y):
-    out = mm(y, lp["wo"])
+def _attn_out(lp, spec, y):
+    """Output projection with optional bias/LoRA. y: (B, T, H*Dh)."""
+    out = mm(y, lp["wo"]) + _lora_delta(lp, "wo", y, spec[4])
     if "bo" in lp:
         out = out + lp["bo"]
     return out
 
 
-def _ffn(lp, h2):
-    if "w13" in lp:
+def _ffn(lp, spec, h2):
+    lora_scale = spec[4]
+    if "w13" in lp:  # fused w1|w3 (`fuse_ffn_weights`); LoRA stays split
         u = mm(h2, lp["w13"])
         i = u.shape[-1] // 2
-        u1, u3 = u[..., :i], u[..., i:]
+        u1 = u[..., :i] + _lora_delta(lp, "w1", h2, lora_scale)
+        u3 = u[..., i:] + _lora_delta(lp, "w3", h2, lora_scale)
     else:
-        u1, u3 = mm(h2, lp["w1"]), mm(h2, lp["w3"])
-    return mm(F.silu(u1) * u3, lp["w2"])
+        u1 = mm(h2, lp["w1"]) + _lora_delta(lp, "w1", h2, lora_scale)
+        u3 = mm(h2, lp["w3"]) + _lora_delta(lp, "w3", h2, lora_scale)
+    g = F.silu(u1) * u3
+    return mm(g, lp["w2"]) + _lora_delta(lp, "w2", g, lora_scale)
 
 
 def _layer_slice(layers, i):
-    return {name: w[i] for name, w in layers.items()}
+    """Layer i of a stacked layer tree (LoRA sub-dicts included)."""
+    return {name: _layer_slice(w, i) if isinstance(w, dict) else w[i]
+            for name, w in layers.items()}
 
 
 def _run_stack_decode(layers, spec, x, freqs, cache, pos: int, lengths):
@@ -239,7 +278,7 @@ def _run_stack_decode(layers, spec, x, freqs, cache, pos: int, lengths):
 
     x (B, 1, D); freqs (1, Dh/2, 2); the cache is written in place at `pos`
     and each layer's attention reads its first `lengths[b]` positions."""
-    n_head, n_kv, head_dim, eps = spec
+    n_head, n_kv, head_dim, eps, _ = spec
     b = x.shape[0]
     for i in range(cache["k"].shape[0]):
         lp = _layer_slice(layers, i)
@@ -251,26 +290,127 @@ def _run_stack_decode(layers, spec, x, freqs, cache, pos: int, lengths):
         cache["v"][i, :, pos] = v[:, 0].to(cache["v"].dtype)
         qg = q.reshape(b, n_kv, n_head // n_kv, head_dim)
         y = flash_decode_attention(qg, cache["k"], cache["v"], i, lengths)
-        x = x + _attn_out(lp, y.reshape(b, 1, -1))
+        x = x + _attn_out(lp, spec, y.reshape(b, 1, -1))
         h2 = rms_norm(x, lp["ffn_norm"], eps)
-        x = x + _ffn(lp, h2)
+        x = x + _ffn(lp, spec, h2)
     return x, cache
 
 
 def _slow_spec(cfg: DualARConfig):
-    return (cfg.n_head, cfg.n_local_heads, cfg.head_dim, cfg.norm_eps)
+    return (cfg.n_head, cfg.n_local_heads, cfg.head_dim, cfg.norm_eps,
+            cfg.lora_scale)
 
 
 def _fast_spec(cfg: DualARConfig):
     return (cfg.fast_n_head, cfg.fast_n_local_heads, cfg.fast_head_dim,
-            cfg.norm_eps)
+            cfg.norm_eps, cfg.lora_scale)
+
+
+# ---------------------------------------------------------------------------
+# Training forward
+# ---------------------------------------------------------------------------
+
+
+def _block_train(lp, spec, x, freqs, kvalid=None, mask=None):
+    """One pre-norm block, self-attention over x itself (no cache).
+
+    With `kvalid` (B, T) int32 the attention is `flash_train_attention`
+    (causal & key-valid; the hand-written kernels on CUDA tensors, at any
+    T); without it, plain `gqa_attention` under `mask` (the fast stack)."""
+    eps = spec[3]
+    h = rms_norm(x, lp["attn_norm"], eps)
+    q, k, v = _qkv(lp, spec, h)
+    q = apply_rope(q, freqs)
+    k = apply_rope(k, freqs)
+    if kvalid is not None:
+        y = flash_train_attention(q, k, v.contiguous(), kvalid)
+    else:
+        y = gqa_attention(q, k, v, mask)
+    b, t = y.shape[:2]
+    x = x + _attn_out(lp, spec, y.reshape(b, t, -1))
+    h2 = rms_norm(x, lp["ffn_norm"], eps)
+    return x + _ffn(lp, spec, h2)
+
+
+def _run_stack_train(layers, spec, x, freqs, remat: bool, kvalid=None,
+                     mask=None):
+    """The layer loop; with `remat` each layer is recomputed in the backward
+    (`torch.utils.checkpoint`, the counterpart of `jax.checkpoint`)."""
+    for i in range(layers["attn_norm"].shape[0]):
+        lp = _layer_slice(layers, i)
+        if remat:
+            x = checkpoint(_block_train, lp, spec, x, freqs, kvalid, mask,
+                           use_reentrant=False)
+        else:
+            x = _block_train(lp, spec, x, freqs, kvalid, mask)
+    return x
+
+
+def forward_train(params, cfg: DualARConfig, inp, labels=None, pad_mask=None,
+                  remat=None):
+    """Full teacher-forced forward.
+
+    inp (B, C+1, T) int inputs; labels (B, C+1, T) (the fast stack is
+    teacher-forced on rows 1..C-1; defaults to inp); pad_mask (B, T) bool,
+    True where PADDING. remat defaults to `cfg.use_gradient_checkpointing`.
+
+    Returns token_logits (B, T, V) fp32 and codebook_logits (B, T, C, K)
+    fp32, the fast logits at every position (the loss masks them)."""
+    cfg = cfg.resolve()
+    if remat is None:
+        remat = cfg.use_gradient_checkpointing
+    b, _, t = inp.shape
+    x = embed_tokens(params, cfg, inp, inference=False)
+    freqs = rope_table(cfg.max_seq_len, cfg.head_dim, cfg.rope_base,
+                       x.device)[:t]
+    if pad_mask is None:
+        kvalid = torch.ones((b, t), dtype=torch.int32, device=x.device)
+    else:
+        kvalid = (~pad_mask.to(x.device)).to(torch.int32)
+    x = _run_stack_train(params["layers"], _slow_spec(cfg), x, freqs, remat,
+                         kvalid=kvalid)
+    slow_out = rms_norm(x, params["norm"], cfg.norm_eps)
+    token_logits = _lm_head(params, cfg, slow_out)
+    hidden = slow_out if cfg.norm_fastlayer_input else x
+
+    if labels is None:
+        labels = inp
+    teacher = labels[:, 1:-1, :].long().clamp(0, cfg.codebook_size - 1)
+    teacher = teacher.transpose(1, 2).reshape(b * t, cfg.num_codebooks - 1)
+    codebook_logits = fast_forward_train(
+        params, cfg, hidden.reshape(b * t, cfg.dim), teacher, remat)
+    return token_logits, codebook_logits.reshape(
+        b, t, cfg.num_codebooks, cfg.codebook_size)
+
+
+def fast_forward_train(params, cfg: DualARConfig, hidden, codebooks,
+                       remat: bool = False):
+    """Teacher-forced fast transformer: hidden (N, D) slow states, codebooks
+    (N, C-1) ground-truth codebooks 0..C-2 -> (N, C, K) fp32 logits;
+    position i predicts codebook i."""
+    cfg = cfg.resolve()
+    x0 = fast_project_in(params, cfg, hidden)
+    emb = fast_embed(params, cfg, codebooks)
+    x = torch.cat([x0[:, None, :].to(emb.dtype), emb], dim=1)  # (N, C, Df)
+    c = cfg.num_codebooks
+    freqs = rope_table(c, cfg.fast_head_dim, cfg.rope_base, x.device)
+    x = _run_stack_train(params["fast"]["layers"], _fast_spec(cfg), x, freqs,
+                         remat, mask=causal_mask(c, x.device))
+    out = rms_norm(x, params["fast"]["norm"], cfg.norm_eps)
+    return _fast_head(params, cfg, out)
 
 
 def _lm_head(params, cfg: DualARConfig, slow_out):
     if cfg.tie_word_embeddings:
         logits = slow_out @ params["embeddings"].T
+        if "lora_embeddings" in params:
+            la = params["lora_embeddings"]
+            logits = logits + cfg.lora_scale * ((slow_out @ la["b"].T) @ la["a"].T)
     else:
         logits = mm(slow_out, params["output"])
+        if "lora_output" in params:
+            la = params["lora_output"]
+            logits = logits + cfg.lora_scale * ((slow_out @ la["a"]) @ la["b"])
     return logits.float()
 
 
@@ -282,11 +422,19 @@ def fast_project_in(params, cfg: DualARConfig, hidden):
 
 
 def fast_embed(params, cfg: DualARConfig, codes):
-    return F.embedding(codes.long(), params["fast"]["embeddings"])
+    """Fast-codebook embedding lookup with optional LoRA."""
+    codes = codes.long()
+    return (F.embedding(codes, params["fast"]["embeddings"])
+            + _lora_embed(params["fast"], "lora_embeddings", codes,
+                          cfg.lora_scale))
 
 
 def _fast_head(params, cfg: DualARConfig, out):
-    return mm(out, params["fast"]["output"]).float()
+    logits = mm(out, params["fast"]["output"])
+    if "lora_output" in params["fast"]:
+        la = params["fast"]["lora_output"]
+        logits = logits + cfg.lora_scale * ((out @ la["a"]) @ la["b"])
+    return logits.float()
 
 
 # ---------------------------------------------------------------------------
@@ -330,9 +478,9 @@ def prefill(params, cfg: DualARConfig, inp, cache, offsets, t_end):
         cache["k"][i, :, :t] = k.to(cache["k"].dtype)
         cache["v"][i, :, :t] = v.to(cache["v"].dtype)
         y = flash_prefill_attention(q, k, v.contiguous(), offsets)
-        x = x + _attn_out(lp, y.reshape(b, t, -1))
+        x = x + _attn_out(lp, spec, y.reshape(b, t, -1))
         h2 = rms_norm(x, lp["ffn_norm"], cfg.norm_eps)
-        x = x + _ffn(lp, h2)
+        x = x + _ffn(lp, spec, h2)
     return _prefill_tail(params, cfg, x, t_end, cache)
 
 
@@ -423,9 +571,24 @@ def fuse_ffn_weights(params):
 
 def semantic_head_logits(params, cfg: DualARConfig, slow_out):
     """Constrained-decoding head: logits over the semantic ids (columns
-    [0, S)) plus im_end (column S), fp32 (B, S+1). Needs the params from
+    [0, S)) plus im_end (column S), fp32 (B, S+1), with the LM head's LoRA
+    term restricted to those columns. Needs the params from
     `precompute_semantic_head`."""
-    return (slow_out @ params["_semantic_head"]["w"]).float()
+    cfg = cfg.resolve()
+    logits = slow_out @ params["_semantic_head"]["w"]
+    sb, se, end = cfg.semantic_begin_id, cfg.semantic_end_id, cfg.im_end_id
+    la = params.get("lora_embeddings" if cfg.tie_word_embeddings
+                    else "lora_output")
+    if la is not None:
+        if cfg.tie_word_embeddings:
+            # effective rows (W + s*A@B)[rows]: delta = (x @ B.T) @ A[rows].T
+            a_rows = torch.cat([la["a"][sb : se + 1], la["a"][end][None]], dim=0)
+            logits = logits + cfg.lora_scale * ((slow_out @ la["b"].T) @ a_rows.T)
+        else:
+            b_cols = torch.cat([la["b"][:, sb : se + 1], la["b"][:, end][:, None]],
+                               dim=1)
+            logits = logits + cfg.lora_scale * ((slow_out @ la["a"]) @ b_cols)
+    return logits.float()
 
 
 def semantic_index_to_token(cfg: DualARConfig, idx):

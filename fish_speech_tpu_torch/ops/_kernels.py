@@ -1,10 +1,11 @@
 """Build and load the port's CUDA kernels.
 
 The sources under `fish_speech_tpu_torch/csrc/` are compiled with `nvcc` for
-Hopper (`sm_90a`) into one shared library with a plain C interface, bound
-with `ctypes`. The build runs at first use, into `build/kernels-<hash>/` at
-the root of the checkout, keyed by the hash of the sources and flags, so an
-edited source rebuilds and an unchanged one loads in milliseconds.
+Hopper (`sm_90a`), one `nvcc` per source, all started together, and linked
+into one shared library with a plain C interface, bound with `ctypes`. The
+build runs at first use, into `build/kernels-<hash>/` at the root of the
+checkout, keyed by the hash of the sources and flags, so an edited source
+rebuilds and an unchanged one loads in milliseconds.
 
 Nothing here runs at import time: the CPU tests import every module of the
 port on a machine without `nvcc`.
@@ -27,7 +28,7 @@ CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG.parent / "build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 # dtype codes of the C entry points (csrc/common.cuh)
@@ -64,16 +65,28 @@ def library_path() -> Path:
 def _build(out: Path):
     cu, _ = _sources()
     out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, cu)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    (out.parent / "build.log").write_text(
-        " ".join(cmd) + "\n" + proc.stdout + proc.stderr
-    )
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}"
-        )
+    tag = os.getpid()
+    objs = [out.parent / f"{src.stem}.{tag}.o" for src in cu]
+    compiles = [[_nvcc(), *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
+                for src, obj in zip(cu, objs)]
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for cmd in compiles]
+    logs = [(cmd, *proc.communicate()) for cmd, proc in zip(compiles, procs)]
+    tmp = out.with_suffix(f".{tag}.tmp")
+    link = [_nvcc(), "-shared", "-o", str(tmp), *map(str, objs)]
+    failed = [proc.returncode for proc in procs if proc.returncode != 0]
+    if not failed:
+        proc = subprocess.run(link, capture_output=True, text=True)
+        logs.append((link, proc.stdout + proc.stderr, None))
+        if proc.returncode != 0:
+            failed.append(proc.returncode)
+    text = "".join(" ".join(cmd) + "\n" + (log or "") for cmd, log, _ in logs)
+    (out.parent / "build.log").write_text(text)
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    if failed:
+        raise RuntimeError(f"nvcc failed ({failed}):\n{text}")
     os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
 
 
@@ -93,6 +106,15 @@ def load_kernels() -> ctypes.CDLL:
         ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, f32, ptr
     ]
     lib.fs_flash_decode.restype = i32
+    lib.fs_flash_train_fwd.argtypes = [
+        ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, f32, ptr
+    ]
+    lib.fs_flash_train_fwd.restype = i32
+    lib.fs_flash_train_bwd.argtypes = [
+        ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr,
+        i32, i32, i32, i32, i32, i32, f32, ptr
+    ]
+    lib.fs_flash_train_bwd.restype = i32
     return lib
 
 

@@ -178,8 +178,15 @@ PORT_MODULES = [
     "fish_speech_tpu_torch.ops.sampling",
     "fish_speech_tpu_torch.ops.flash_prefill",
     "fish_speech_tpu_torch.ops.flash_decode",
+    "fish_speech_tpu_torch.ops.flash_train",
     "fish_speech_tpu_torch.ops._kernels",
     "fish_speech_tpu_torch.models.dual_ar",
+    "fish_speech_tpu_torch.models.lora",
+    "fish_speech_tpu_torch.train.loss",
+    "fish_speech_tpu_torch.train.step",
+    "fish_speech_tpu_torch.train.trainer",
+    "fish_speech_tpu_torch.train.cli",
+    "fish_speech_tpu_torch.utils.checkpoint",
     "fish_speech_tpu_torch.models.dac.conv",
     "fish_speech_tpu_torch.models.dac.transformer",
     "fish_speech_tpu_torch.models.dac.rvq",
