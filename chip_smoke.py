@@ -14,13 +14,24 @@ Phases, each of which ends the run with a nonzero exit if it fails:
    the training backward's dQ/dK/dV, 2e-2 of the tensor's largest
    magnitude and 1e-2 of its mean magnitude), timed with CUDA events in
    turns (plain, kernel, kernel, plain). The training kernels run at B=2
-   T=1024 with a right-padded row, B=1 T=4096 and a ragged B=2 T=1000;
+   T=1024 with a right-padded row, B=1 T=4096 and a ragged B=2 T=1000.
+   The int4 matmul runs at s2-pro's eight decode shapes (B=1) and two
+   prefill shapes (B=1024), held to one bf16 rounding of W and y, 2^-8
+   (|x| @ |W| + |y|) elementwise; the int8-KV decode kernel at the slow
+   cache (S = 2048 + 64) to kernel 2's bounds. Each case also reports its
+   bound (the larger of its bytes over 3.35 TB/s and its operations over
+   989 TFLOP/s, H100 SXM) and, where one PyTorch call computes the same
+   function, that call's time (SDPA; cuBLAS on the dequantized weight);
 3. a small-input reference: a tiny fp32 model runs the same greedy request
    through the kernels on the card and through the plain versions on the
    CPU; token columns must be identical and prefill logits within 1e-4;
 3b. a small training reference: a tiny fp32 LoRA model takes two
    `make_train_step` steps through the training kernels on the card and the
    plain versions on the CPU; losses and LoRA leaves must agree to 1e-5;
+3c. a small quantized reference: phase 3's tiny fp32 model quantized
+   `mixed` (slow int8, fast int4, heads int8) with the int8 KV cache, card
+   kernels against CPU plain versions: identical greedy token columns,
+   prefill logits within 1e-4;
 4. the serving slice: the full-width `dual_ar_s2_pro` LM (bf16, random
    weights from a seed, max_seq_len 2048) and the `dac_s2_pro` codec answer
    streamed requests through `TTSInferenceEngine`, one of them with a
@@ -33,7 +44,26 @@ Phases, each of which ends the run with a nonzero exit if it fails:
    1024) on one B=2 x T=1024 batch of the shared data pipeline, repeated.
    Every loss must be finite and the last below the first, sampled frozen
    base tensors bitwise unchanged, every LoRA B leaf nonzero, both training
-   kernels launched, and the checkpoint must restore.
+   kernels launched, and the checkpoint must restore;
+6. quantized serving: the training model is freed, full-width s2-pro (bf16,
+   seed 0, max_seq_len 2048) is quantized `mixed` (`quantize_dual_ar_lowmem
+   (mode="int8", fast_mode="int4")`) and served with the int8 KV cache
+   (`kv_quant=True`) to phase 4's four streamed requests: finite whole
+   frames, identical codes on the repeated seed, and `int4_mm`,
+   `flash_decode_kv8` and `flash_prefill` launched. Then the model is
+   rebuilt and quantized `int4` (every layer int4, heads int8) and serves
+   the 700-byte request (prefill bucket 1024: `int4_mm` at prefill shapes)
+   and the short one. TTFA, frames/s, weight bytes and peak memory for both,
+   and the fast stack's time per frame on the serving path;
+7. the fast-stack probe at flagship dims (12 layers x 10 steps, 1536 /
+   2560 / 6144): R in {0, 1} x {bf16, w8a8}, each against its plain version
+   on one codebook step (the 12 layers at full width; outputs of rms 1):
+   w8a8 to 1e-5 (int8 products summed exactly in int32 on both sides),
+   bf16 to 5e-2 (fp32 sums in another order move a few activations across
+   a bf16 rounding boundary, a 2^-8 jump each, compounding over the 12
+   layers). The whole 120-layer frame is chaotic under such jumps: its
+   error and the kernel's run-to-run spread are printed, not held. Then ms
+   per frame and effective GB/s through the probe's own `_bench`.
 
 Each phase sets the kernels' launch counts to 0 before it drives its path
 and reads them after. The line before the last is a JSON object with each
@@ -87,6 +117,18 @@ def _in_turns(plain, kernel, iters):
     return (k1 + k2) / 2, (p1 + p2) / 2
 
 
+# H100 SXM peaks (NVIDIA's data sheet): HBM3 bytes/s, dense bf16 and int8
+HBM_BYTES_PER_S = 3.35e12
+PEAK_BF16 = 989e12
+PEAK_INT8 = 1979e12
+
+
+def _bound(flops, nbytes, peak=PEAK_BF16):
+    """(ms, "bytes" | "operations"): the least time the card could take."""
+    t_ops, t_bytes = flops / peak, nbytes / HBM_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops > t_bytes else "bytes"
+
+
 def _errors(got, want):
     err = (got.float() - want.float()).abs()
     return err.max().item(), err.mean().item()
@@ -95,6 +137,8 @@ def _errors(got, want):
 def kernel_cases(dev):
     """Phase 2: every kernel against its plain version at main-path shapes."""
     import torch
+
+    import torch.nn.functional as F
 
     from fish_speech_tpu_torch.ops.flash_decode import (flash_decode_attention,
                                                         flash_decode_reference)
@@ -117,9 +161,19 @@ def kernel_cases(dev):
         ms, plain_ms = _in_turns(lambda i=0: flash_prefill_reference(q, k, v, off),
                                  lambda i=0: flash_prefill_attention(q, k, v, off),
                                  20)
+        pairs = sum((t - o) * (t - o + 1) // 2 for o in offsets)
+        bound = _bound(4 * 32 * 128 * pairs, 2 * b * t * 128 * 2 * (32 + 8))
+        # SDPA with the same causal, offset mask (GQA heads expanded by SDPA)
+        i = torch.arange(t, device=dev)
+        mask = ((i[None, :] <= i[:, None])[None]
+                & (i[None, None, :] >= off[:, None, None]))[:, None]
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        lib = _time_ms(lambda i=0: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, enable_gqa=True), 20)
         cases["flash_prefill"].append(dict(
             shape=f"B={b} T={t} H=32 Hkv=8 D=128 offsets={offsets}",
-            max_abs_err=mx, mean_abs_err=mean, ms=ms, plain_ms=plain_ms))
+            max_abs_err=mx, mean_abs_err=mean, ms=ms, plain_ms=plain_ms,
+            bound_ms=bound[0], bound_by=bound[1], library_ms=lib))
     # decode: slow cache (36 layers, S = 2048 + 64 is the slice's; 4160 the
     # 4096-context one) and fast cache (12 layers, S = 10 codebooks). Each
     # timed launch reads the next layer, as the decode loop does, so the
@@ -139,17 +193,28 @@ def kernel_cases(dev):
             lambda i=0: flash_decode_reference(q, kc, vc, i % n_layer, lens),
             lambda i=0: flash_decode_attention(q, kc, vc, i % n_layer, lens),
             100)
+        bound = _bound(4 * hkv * g * 128 * length,
+                       2 * (2 * length * hkv * 128 + 2 * hkv * g * 128))
+        qs = q.reshape(1, hkv * g, 1, 128)
+        lib = _time_ms(lambda i=0: F.scaled_dot_product_attention(
+            qs, kc[i % n_layer, :, :length].transpose(1, 2),
+            vc[i % n_layer, :, :length].transpose(1, 2), enable_gqa=True), 100)
         cases["flash_decode"].append(dict(
             shape=f"L={n_layer} B=1 S={s} Hkv={hkv} G={g} D=128 len={length}",
-            max_abs_err=mx, mean_abs_err=mean, ms=ms, plain_ms=plain_ms))
+            max_abs_err=mx, mean_abs_err=mean, ms=ms, plain_ms=plain_ms,
+            bound_ms=bound[0], bound_by=bound[1], library_ms=lib))
         del kc, vc
     cases.update(train_kernel_cases(dev, randn))
+    cases.update(quant_kernel_cases(dev, randn))
     torch.cuda.synchronize()
     for name, rows in cases.items():
         for r in rows:
+            lib = r.get("library_ms")
             print(f"kernel {name} [{r['shape']}]: max_abs_err={r['max_abs_err']:.3e} "
                   f"mean_abs_err={r['mean_abs_err']:.3e} kernel_ms={r['ms']:.4f} "
-                  f"plain_ms={r['plain_ms']:.4f}"
+                  f"plain_ms={r['plain_ms']:.4f} bound_ms={r['bound_ms']:.4f} "
+                  f"({r['bound_by']}) library_ms="
+                  + ("null" if lib is None else f"{lib:.4f}")
                   + "".join(f" {k}={v[0]:.3e}/{v[1]:.3e}"
                             for k, v in r.get("outputs", {}).items()))
             ok = r.get("ok", r["max_abs_err"] <= 2e-2 and r["mean_abs_err"] <= 2e-3)
@@ -176,6 +241,7 @@ def train_kernel_cases(dev, randn):
     of its mean magnitude (mean): one bf16 rounding of the output, plus the
     plain version's bf16 rounding of P and dS."""
     import torch
+    import torch.nn.functional as F
 
     from fish_speech_tpu_torch.ops.flash_train import (
         flash_train_backward, flash_train_backward_reference, flash_train_forward,
@@ -199,9 +265,33 @@ def train_kernel_cases(dev, randn):
         ms, plain_ms = _in_turns(
             lambda i=0: flash_train_forward_reference(q, k, v, kvalid),
             lambda i=0: flash_train_forward(q, k, v, kvalid), 10)
+        # visible (query, key) pairs: causal and key-valid
+        pairs = sum((t - n) * (t - n + 1) // 2 + n * (t - n) for n in pads)
+        io_bytes = 2 * b * t * 128 * (32 + 8)  # q, o | k, v: bf16
+        fwd_bound = _bound(4 * 32 * 128 * pairs, 2 * io_bytes + 4 * b * 32 * t)
+        bwd_bound = _bound(10 * 32 * 128 * pairs,
+                           2 * io_bytes + 2 * b * t * 32 * 128 * 2 + 4 * b * 32 * t)
+        i = torch.arange(t, device=dev)
+        mask = ((i[None, :] <= i[:, None])[None]
+                & kvalid[:, None, :].bool())[:, None]
+        qt, kt, vt, dot = (x.transpose(1, 2) for x in (q, k, v, do))
+
+        def sdpa_fwd(i=0):
+            return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                                  enable_gqa=True)
+
+        def sdpa_fwd_bwd(i=0):
+            leaves = [x.detach().requires_grad_(True) for x in (qt, kt, vt)]
+            out = F.scaled_dot_product_attention(*leaves, attn_mask=mask,
+                                                 enable_gqa=True)
+            return torch.autograd.grad(out, leaves, dot)
+
+        lib_fwd = _time_ms(sdpa_fwd, 10)
+        lib_bwd = _time_ms(sdpa_fwd_bwd, 5) - lib_fwd
         cases["flash_train_fwd"].append(dict(
             shape=shape, max_abs_err=max(e_o[0], e_lse[0]),
             mean_abs_err=max(e_o[1], e_lse[1]), ms=ms, plain_ms=plain_ms,
+            bound_ms=fwd_bound[0], bound_by=fwd_bound[1], library_ms=lib_fwd,
             outputs={"O": e_o, "lse": e_lse},
             ok=_within_bf16_step(o, want_o) and e_o[1] <= 2e-3
             and e_lse[0] <= 1e-4))
@@ -221,15 +311,102 @@ def train_kernel_cases(dev, randn):
         cases["flash_train_bwd"].append(dict(
             shape=shape, max_abs_err=max(e[0] for e in errs.values()),
             mean_abs_err=max(e[1] for e in errs.values()), ms=ms,
-            plain_ms=plain_ms, outputs=errs, ok=ok))
+            plain_ms=plain_ms, bound_ms=bwd_bound[0], bound_by=bwd_bound[1],
+            library_ms=lib_bwd, outputs=errs, ok=ok))
         del q, k, v, do, o, lse, want_o, want_lse, got, want, args
+    torch.cuda.empty_cache()
+    return cases
+
+
+# s2-pro's int4 weights, I -> O (w13 fused): slow stack, then fast stack
+INT4_SHAPES = [("slow wqkv", 2560, 6144), ("slow wo", 4096, 2560),
+               ("slow w13", 2560, 19456), ("slow w2", 9728, 2560),
+               ("fast wqkv", 1536, 2560), ("fast wo", 1536, 1536),
+               ("fast w13", 1536, 12288), ("fast w2", 6144, 1536)]
+
+
+def quant_kernel_cases(dev, randn):
+    """The int4 matmul and the int8-KV decode kernel against their plain
+    versions at the quantized serving path's shapes."""
+    import torch
+    import torch.nn.functional as F
+
+    from fish_speech_tpu_torch.models.dual_ar import _kv_dequant, _kv_quant
+    from fish_speech_tpu_torch.ops.flash_decode import (
+        flash_decode_attention_kv8, flash_decode_kv8_reference)
+    from fish_speech_tpu_torch.ops.int4 import (int4_matmul,
+                                                 int4_matmul_reference)
+    from fish_speech_tpu_torch.ops.quant import (_int4_effective_weight,
+                                                 quantize_int4)
+
+    cases = {"int4_mm": [], "flash_decode_kv8": []}
+    g = 128
+    shapes = [(1, *s) for s in INT4_SHAPES] + [(1024, *INT4_SHAPES[0]),
+                                               (1024, *INT4_SHAPES[2])]
+    for b, name, i, o in shapes:
+        qw = quantize_int4(randn(i, o).float() * 0.02, group_size=g)
+        x = randn(b, i)
+        got = int4_matmul(x, qw["p"], qw["gs"])
+        want = int4_matmul_reference(x, qw["p"], qw["gs"]).float()
+        w_eff = _int4_effective_weight(qw, torch.float32)
+        bound_err = 2.0 ** -8 * (x.float().abs() @ w_eff.abs() + want.abs())
+        err = (got.float() - want).abs()
+        ok = bool((err <= bound_err).all())
+        w_bf16 = w_eff.to(torch.bfloat16)
+        del w_eff
+        iters = 200 if b == 1 else 10
+        ms, plain_ms = _in_turns(
+            lambda k=0: int4_matmul_reference(x, qw["p"], qw["gs"]),
+            lambda k=0: int4_matmul(x, qw["p"], qw["gs"]), iters)
+        lib = _time_ms(lambda k=0: x @ w_bf16, iters)
+        bound = _bound(2 * b * i * o, i // 2 * o + 4 * (i // g) * o
+                       + 2 * b * (i + o))
+        cases["int4_mm"].append(dict(
+            shape=f"{name} B={b} I={i} O={o} g={g}", max_abs_err=err.max().item(),
+            mean_abs_err=err.mean().item(), ms=ms, plain_ms=plain_ms,
+            bound_ms=bound[0], bound_by=bound[1], library_ms=lib, ok=ok))
+        del qw, x, w_bf16, got, want, bound_err, err
+    # the slow cache of the serving session: 36 layers, S = 2048 + 64
+    n_layer, s, hkv, grp = 36, 2112, 8, 4
+    kq, ks = _kv_quant(randn(n_layer, 1, s, hkv, 128))
+    vq, vs = _kv_quant(randn(n_layer, 1, s, hkv, 128))
+    for length in (1, 257, 1100, 2048):
+        q = randn(1, hkv, grp, 128)
+        lens = torch.tensor([length], dtype=torch.int32, device=dev)
+        mx = mean = 0.0
+        for layer in (0, n_layer - 1):
+            e = _errors(flash_decode_attention_kv8(q, kq, ks, vq, vs, layer, lens),
+                        flash_decode_kv8_reference(q, kq, ks, vq, vs, layer, lens))
+            mx, mean = max(mx, e[0]), max(mean, e[1])
+        ms, plain_ms = _in_turns(
+            lambda k=0: flash_decode_kv8_reference(q, kq, ks, vq, vs,
+                                                   k % n_layer, lens),
+            lambda k=0: flash_decode_attention_kv8(q, kq, ks, vq, vs,
+                                                   k % n_layer, lens), 100)
+        # SDPA over the same cache dequantized to bf16 beforehand
+        kd = _kv_dequant(kq[:, :, :length], ks[:, :, :length], torch.bfloat16)
+        vd = _kv_dequant(vq[:, :, :length], vs[:, :, :length], torch.bfloat16)
+        qs = q.reshape(1, hkv * grp, 1, 128)
+        lib = _time_ms(lambda k=0: F.scaled_dot_product_attention(
+            qs, kd[k % n_layer].transpose(1, 2), vd[k % n_layer].transpose(1, 2),
+            enable_gqa=True), 100)
+        del kd, vd
+        bound = _bound(4 * hkv * grp * 128 * length,
+                       2 * length * hkv * 128 + 2 * 2 * length * hkv
+                       + 2 * 2 * hkv * grp * 128)
+        cases["flash_decode_kv8"].append(dict(
+            shape=f"L={n_layer} B=1 S={s} Hkv={hkv} G={grp} D=128 len={length} "
+                  f"int8 K/V", max_abs_err=mx, mean_abs_err=mean, ms=ms,
+            plain_ms=plain_ms, bound_ms=bound[0], bound_by=bound[1],
+            library_ms=lib))
+    del kq, ks, vq, vs
     torch.cuda.empty_cache()
     return cases
 
 
 def _tiny_cfg(tokenizer):
     """A tiny model whose slow heads (D=64) the attention kernels take."""
-    from fish_speech_tpu.config import dual_ar_tiny
+    from fish_speech_tpu_torch.config import dual_ar_tiny
 
     return dual_ar_tiny(vocab_size=tokenizer.vocab_size, head_dim=64,
                         n_head=4, n_local_heads=2, fast_head_dim=64,
@@ -245,7 +422,7 @@ def small_reference(dev, tokenizer):
     versions (CPU) on the same weights and request."""
     import torch
 
-    from fish_speech_tpu.config import SamplingConfig
+    from fish_speech_tpu_torch.config import SamplingConfig
     from fish_speech_tpu_torch.generate import GenerationSession, generate_long
     from fish_speech_tpu_torch.models import dual_ar
 
@@ -279,6 +456,57 @@ def small_reference(dev, tokenizer):
     if err > 1e-4 or not same:
         raise SystemExit("the kernel path disagrees with the plain path on "
                          "the small reference")
+
+
+def small_quant_reference(dev, tokenizer):
+    """Phase 3c: phase 3's tiny fp32 model quantized `mixed` (slow int8,
+    fast int4, heads int8), with the int8 KV cache, through the kernels
+    (card) and the plain versions (CPU) on the same weights and request."""
+    import torch
+
+    from fish_speech_tpu_torch.config import SamplingConfig
+    from fish_speech_tpu_torch.generate import GenerationSession, generate_long
+    from fish_speech_tpu_torch.models import dual_ar
+    from fish_speech_tpu_torch.ops.flash_decode import flash_decode_attention_kv8
+    from fish_speech_tpu_torch.ops.int4 import int4_matmul
+    from fish_speech_tpu_torch.ops.quant import quantize_dual_ar_lowmem
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = _tiny_cfg(tokenizer)
+    cpu_params = quantize_dual_ar_lowmem(
+        dual_ar.init_dual_ar(3, cfg, torch.float32, "cpu"), mode="int8",
+        fast_mode="int4")
+    gpu_params = _to(cpu_params, dev)
+    inp = torch.randint(0, cfg.codebook_size, (1, cfg.num_codebooks + 1, 64),
+                        generator=torch.Generator().manual_seed(0),
+                        dtype=torch.int32)
+    inp[0, 0, 10:30] += cfg.semantic_begin_id
+    launches = (int4_matmul.launches, flash_decode_attention_kv8.launches)
+    logits = []
+    for params, d in ((cpu_params, "cpu"), (gpu_params, dev)):
+        cache = dual_ar.init_kv_cache(cfg, 1, 96, torch.float32, d, quant=True)
+        lg, _, _ = dual_ar.prefill(params, cfg, inp.to(d), cache,
+                                   torch.zeros(1, dtype=torch.int32, device=d), 60)
+        logits.append(lg.cpu())
+    err = (logits[0] - logits[1]).abs().max().item()
+    codes = []
+    for params in (cpu_params, gpu_params):
+        session = GenerationSession(params, cfg, SamplingConfig(),
+                                    dtype=torch.float32, decode_chunk_size=8,
+                                    first_chunk_size=4, kv_quant=True)
+        out = [r.codes for r in generate_long(
+            session=session, tokenizer=tokenizer, text="A small check.",
+            max_new_tokens=20, top_k=1, seed=5) if r.action == "sample"]
+        codes.append(np.concatenate(out, axis=1))
+    same = codes[0].shape == codes[1].shape and np.array_equal(*codes)
+    ran = (int4_matmul.launches > launches[0]
+           and flash_decode_attention_kv8.launches > launches[1])
+    print(f"small quantized reference (tiny fp32 mixed int8/int4 + int8 KV, card "
+          f"kernels vs CPU plain): prefill max_abs_err={err:.3e}, greedy codes "
+          f"{codes[0].shape} identical={same}, int4/kv8 kernels ran={ran}")
+    if err > 1e-4 or not same or not ran:
+        raise SystemExit("the quantized kernel path disagrees with the plain "
+                         "path on the small reference")
 
 
 def _to(tree, dev):
@@ -368,30 +596,121 @@ def small_train_reference(dev, tokenizer):
                          "the small reference")
 
 
+def _recording_engine(session, tokenizer, codec, dac_cfg):
+    """A `TTSInferenceEngine` that keeps the codes of the last decoded
+    segment, for the repeat check."""
+    from fish_speech_tpu_torch.engine.tts import TTSInferenceEngine
+
+    class RecordingEngine(TTSInferenceEngine):
+        def decode_vq_tokens(self, codes):
+            self.last_codes = np.array(codes)
+            return super().decode_vq_tokens(codes)
+
+    return RecordingEngine(session, tokenizer, codec, dac_cfg)
+
+
+def _s2_pro_cfg(tokenizer, max_seq_len):
+    from fish_speech_tpu_torch.config import dual_ar_s2_pro
+
+    cfg = dual_ar_s2_pro(semantic_begin_id=tokenizer.semantic_begin_id,
+                         semantic_end_id=tokenizer.semantic_end_id,
+                         im_end_id=tokenizer.im_end_id)
+    return dataclasses.replace(cfg, max_seq_len=max_seq_len).resolve()
+
+
+def _requests():
+    """Phase 4's streamed requests (one client, in this order)."""
+    from fish_speech_tpu_torch.engine.tts import TTSRequest
+
+    short = "Hello from the port. This is a short streamed request."
+    long_text = ("The quick brown fox jumps over the lazy dog, and then it runs "
+                 "back home before the rain. ") * 8
+    long_text = long_text[:700]
+    medium = ("Streaming speech synthesis sends the first audio while the "
+              "rest is still being generated. ") * 3
+    return [
+        ("short", TTSRequest(text=short, streaming=True, max_new_tokens=96, seed=11)),
+        ("long", TTSRequest(text=long_text, streaming=True, max_new_tokens=96,
+                            seed=12, chunk_length=1000)),
+        ("medium", TTSRequest(text=medium, streaming=True, max_new_tokens=96,
+                              seed=13)),
+        ("short-repeat", TTSRequest(text=short, streaming=True,
+                                    max_new_tokens=96, seed=11)),
+    ]
+
+
+def serve(dev, tokenizer, engine, requests, frame, label):
+    """Stream `requests` through `engine`, checking every segment; returns
+    the per-request rows and codes."""
+    import torch
+
+    results, codes = [], {}
+    for name, req in requests:
+        torch.cuda.synchronize()
+        t_start = time.perf_counter()
+        t_first = t_last = None
+        samples, n_seg = 0, 0
+        for res in engine.inference(req):
+            now = time.perf_counter()
+            if res.code == "error":
+                raise SystemExit(f"{label} request {name} failed: {res.error!r}")
+            if res.code == "segment":
+                audio = res.audio[1]
+                if len(audio) % frame or not np.isfinite(audio).all():
+                    raise SystemExit(f"{label} request {name}: a segment of "
+                                     f"{len(audio)} samples is not whole finite "
+                                     f"frames")
+                samples += len(audio)
+                n_seg += 1
+                t_first = t_first or now
+                t_last = now
+            if res.code == "final":
+                if not np.isfinite(res.audio[1]).all() or len(res.audio[1]) != samples:
+                    raise SystemExit(f"{label} request {name}: bad final audio")
+        frames = samples // frame
+        if frames < 2 or t_first is None:
+            raise SystemExit(f"{label} request {name}: only {frames} frames")
+        codes[name] = engine.last_codes
+        prompt_len = len(tokenizer.encode(req.text))
+        row = dict(request=name, text_bytes=len(req.text.encode()),
+                   ttfa_s=t_first - t_start, frames=frames, segments=n_seg,
+                   samples=samples,
+                   decode_frames_per_s=(frames - 1) / (t_last - t_first),
+                   wall_s=t_last - t_start)
+        results.append(row)
+        print(f"{label} request {name}: text {row['text_bytes']} bytes "
+              f"(~{prompt_len} text tokens), TTFA {row['ttfa_s'] * 1e3:.1f} ms, "
+              f"{frames} frames in {n_seg} segments, decode "
+              f"{row['decode_frames_per_s']:.2f} frames/s, {samples} samples, "
+              f"wall {row['wall_s']:.2f}s")
+    torch.cuda.synchronize()
+    if "short-repeat" in codes:
+        same = np.array_equal(codes["short"], codes["short-repeat"])
+        print(f"{label} repeat with the same seed: codes {codes['short'].shape} "
+              f"identical={same}")
+        if not same:
+            raise SystemExit(f"{label}: the repeated request gave different codes")
+    return results
+
+
+def _counted(wrappers):
+    """Launch counts of `wrappers` (name -> function), read after a path."""
+    return {name: f.launches for name, f in wrappers.items()}
+
+
 def run_slice(dev, tokenizer):
     """Phase 4: the full-width LM and codec answer streamed requests."""
     import torch
 
-    from fish_speech_tpu.config import SamplingConfig, dac_s2_pro, dual_ar_s2_pro
+    from fish_speech_tpu_torch.config import SamplingConfig, dac_s2_pro
     from fish_speech_tpu_torch.convert.from_jax import init_dac_decoder
-    from fish_speech_tpu_torch.engine.tts import TTSInferenceEngine, TTSRequest
     from fish_speech_tpu_torch.generate import GenerationSession
     from fish_speech_tpu_torch.models import dual_ar
     from fish_speech_tpu_torch.ops.flash_decode import flash_decode_attention
     from fish_speech_tpu_torch.ops.flash_prefill import flash_prefill_attention
 
-    class RecordingEngine(TTSInferenceEngine):
-        """Keeps the codes of the last decoded segment for the repeat check."""
-
-        def decode_vq_tokens(self, codes):
-            self.last_codes = np.array(codes)
-            return super().decode_vq_tokens(codes)
-
     t0 = time.perf_counter()
-    cfg = dual_ar_s2_pro(semantic_begin_id=tokenizer.semantic_begin_id,
-                         semantic_end_id=tokenizer.semantic_end_id,
-                         im_end_id=tokenizer.im_end_id)
-    cfg = dataclasses.replace(cfg, max_seq_len=2048).resolve()
+    cfg = _s2_pro_cfg(tokenizer, 2048)
     dac_cfg = dac_s2_pro()
     if cfg.num_codebooks != dac_cfg.rvq.total_codebooks:
         raise SystemExit("LM and codec codebook counts differ")
@@ -402,87 +721,200 @@ def run_slice(dev, tokenizer):
                                 dtype=torch.bfloat16, decode_chunk_size=64,
                                 first_chunk_size=8)
     del params  # the session holds the fused-FFN copy it decodes with
-    engine = RecordingEngine(session, tokenizer, codec, dac_cfg)
+    engine = _recording_engine(session, tokenizer, codec, dac_cfg)
     torch.cuda.synchronize()
     print(f"slice: dual_ar_s2_pro {n_params / 1e9:.3f}B params bf16 "
           f"(max_seq_len 2048) + dac_s2_pro, built in "
           f"{time.perf_counter() - t0:.1f}s; device memory allocated "
           f"{torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB")
-
-    short = "Hello from the port. This is a short streamed request."
-    long_text = ("The quick brown fox jumps over the lazy dog, and then it runs "
-                 "back home before the rain. ") * 8
-    long_text = long_text[:700]
-    medium = ("Streaming speech synthesis sends the first audio while the "
-              "rest is still being generated. ") * 3
-    requests = [
-        ("short", TTSRequest(text=short, streaming=True, max_new_tokens=96, seed=11)),
-        ("long", TTSRequest(text=long_text, streaming=True, max_new_tokens=96,
-                            seed=12, chunk_length=1000)),
-        ("medium", TTSRequest(text=medium, streaming=True, max_new_tokens=96,
-                              seed=13)),
-        ("short-repeat", TTSRequest(text=short, streaming=True,
-                                    max_new_tokens=96, seed=11)),
-    ]
-    frame = dac_cfg.frame_length
     for f in _kernel_wrappers():
         f.launches = 0
-    results, codes = [], {}
-    for name, req in requests:
-        torch.cuda.synchronize()
-        t_start = time.perf_counter()
-        t_first = t_last = None
-        samples, n_seg = 0, 0
-        for res in engine.inference(req):
-            now = time.perf_counter()
-            if res.code == "error":
-                raise SystemExit(f"request {name} failed: {res.error!r}")
-            if res.code == "segment":
-                audio = res.audio[1]
-                if len(audio) % frame or not np.isfinite(audio).all():
-                    raise SystemExit(f"request {name}: a segment of {len(audio)} "
-                                     f"samples is not whole finite frames")
-                samples += len(audio)
-                n_seg += 1
-                t_first = t_first or now
-                t_last = now
-            if res.code == "final":
-                if not np.isfinite(res.audio[1]).all() or len(res.audio[1]) != samples:
-                    raise SystemExit(f"request {name}: bad final audio")
-        frames = samples // frame
-        if frames < 2 or t_first is None:
-            raise SystemExit(f"request {name}: only {frames} frames")
-        codes[name] = engine.last_codes
-        prompt_len = len(tokenizer.encode(req.text))
-        row = dict(request=name, text_bytes=len(req.text.encode()),
-                   ttfa_s=t_first - t_start, frames=frames, segments=n_seg,
-                   samples=samples,
-                   decode_frames_per_s=(frames - 1) / (t_last - t_first),
-                   wall_s=t_last - t_start)
-        results.append(row)
-        print(f"request {name}: text {row['text_bytes']} bytes (~{prompt_len} "
-              f"text tokens), TTFA {row['ttfa_s'] * 1e3:.1f} ms, {frames} frames "
-              f"in {n_seg} segments, decode {row['decode_frames_per_s']:.2f} "
-              f"frames/s, {samples} samples, wall {row['wall_s']:.2f}s")
-    torch.cuda.synchronize()
-    launches = {"flash_prefill": flash_prefill_attention.launches,
-                "flash_decode": flash_decode_attention.launches}
+    results = serve(dev, tokenizer, engine, _requests(), dac_cfg.frame_length,
+                    "bf16")
+    launches = _counted({"flash_prefill": flash_prefill_attention,
+                         "flash_decode": flash_decode_attention})
     print(f"kernel launches on the engine path: {launches}")
     if min(launches.values()) <= 0:
         raise SystemExit("a kernel of the path was never launched")
-    same = np.array_equal(codes["short"], codes["short-repeat"])
-    print(f"repeat with the same seed: codes {codes['short'].shape} identical={same}")
-    if not same:
-        raise SystemExit("the repeated request gave different codes")
     print(f"peak device memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
     return results, launches
+
+
+def _tree_bytes(tree):
+    if isinstance(tree, dict):
+        return sum(_tree_bytes(v) for v in tree.values())
+    return tree.numel() * tree.element_size()
+
+
+def fast_stack_frame_ms(session, frames=20):
+    """The serving path's fast stack per frame: `_sample_column` (project
+    in, NC fast steps with their heads and samplers, one top-k of the slow
+    head) on a random hidden state, CUDA events over `frames` frames."""
+    import torch
+
+    from fish_speech_tpu_torch.generate import _sample_column
+
+    cfg, dev = session.cfg, session.device
+    gen = torch.Generator(device=dev).manual_seed(0)
+    hidden = torch.randn((1, cfg.dim), generator=gen, device=dev,
+                         dtype=torch.bfloat16)
+    logits = torch.randn((1, cfg.semantic_end_id - cfg.semantic_begin_id + 2),
+                         generator=gen, device=dev)
+
+    def frame(i=0):
+        return _sample_column(session.params, cfg, session.scfg, logits, hidden,
+                              None, gen, 1.0, 0.9, 30)
+
+    return _time_ms(frame, frames)
+
+
+def run_quant_slice(dev, tokenizer):
+    """Phase 6: quantized serving of full-width s2-pro, `mixed` with the int8
+    KV cache (four requests), then `int4` (two requests)."""
+    import torch
+
+    from fish_speech_tpu_torch.config import SamplingConfig, dac_s2_pro
+    from fish_speech_tpu_torch.convert.from_jax import init_dac_decoder
+    from fish_speech_tpu_torch.generate import GenerationSession
+    from fish_speech_tpu_torch.models import dual_ar
+    from fish_speech_tpu_torch.ops.flash_decode import flash_decode_attention_kv8
+    from fish_speech_tpu_torch.ops.flash_prefill import flash_prefill_attention
+    from fish_speech_tpu_torch.ops.int4 import int4_matmul
+    from fish_speech_tpu_torch.ops.quant import quantize_dual_ar_lowmem
+
+    cfg = _s2_pro_cfg(tokenizer, 2048)
+    dac_cfg = dac_s2_pro()
+    codec = init_dac_decoder(1, dac_cfg, torch.float32, dev)
+    wrappers = {"int4_mm": int4_matmul, "flash_decode_kv8": flash_decode_attention_kv8,
+                "flash_prefill": flash_prefill_attention}
+    requests = dict(_requests())
+    out = {}
+    for label, mode, fast_mode, names in (
+            ("mixed", "int8", "int4", ["short", "long", "medium", "short-repeat"]),
+            ("int4", "int4", None, ["long", "short"])):
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        params = quantize_dual_ar_lowmem(
+            dual_ar.init_dual_ar(0, cfg, torch.bfloat16, dev), mode=mode,
+            fast_mode=fast_mode)
+        session = GenerationSession(params, cfg, SamplingConfig(), max_batch=1,
+                                    dtype=torch.bfloat16, decode_chunk_size=64,
+                                    first_chunk_size=8, kv_quant=True)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        engine = _recording_engine(session, tokenizer, codec, dac_cfg)
+        torch.cuda.synchronize()
+        weight_bytes = _tree_bytes(session.params)
+        print(f"quantized slice {label} (slow {mode}, fast {fast_mode or mode}, "
+              f"heads int8, int8 KV cache): built and quantized in "
+              f"{time.perf_counter() - t0:.1f}s; session weights "
+              f"{weight_bytes / 2**30:.3f} GiB; device memory allocated "
+              f"{torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB")
+        for f in _kernel_wrappers():
+            f.launches = 0
+        rows = serve(dev, tokenizer, engine, [(n, requests[n]) for n in names],
+                     dac_cfg.frame_length, label)
+        launches = _counted(wrappers)
+        peak = torch.cuda.max_memory_allocated(dev) / 2**30
+        fast_ms = fast_stack_frame_ms(session)
+        print(f"{label}: kernel launches {launches}; peak device memory "
+              f"{peak:.2f} GiB; serving fast stack {fast_ms:.3f} ms/frame "
+              f"(_sample_column, CUDA events)")
+        if min(launches.values()) <= 0:
+            raise SystemExit(f"{label}: a kernel of the quantized path was never "
+                             f"launched: {launches}")
+        out[label] = dict(rows=rows, launches=launches, peak_gib=peak,
+                          weight_bytes=weight_bytes, fast_stack_ms=fast_ms)
+        del engine, session
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def run_probe(dev, serving_fast_ms):
+    """Phase 7: the fast-stack probe at flagship dims against its plain
+    version, R in {0, 1} x {bf16, w8a8}."""
+    import torch
+
+    from fish_speech_tpu_torch.ops import faststack
+
+    dims = faststack.ProbeDims()
+    t0 = time.perf_counter()
+    weights = faststack.make_weights(dims, dev)
+    print(f"probe: {dims}, weights {dims.layer_bytes * dims.n_layer / 1e6:.1f} MB "
+          f"int8 made in {time.perf_counter() - t0:.1f}s")
+    x = torch.full((1, dims.df), 0.01, device=dev)
+    configs = [(variant, r) for variant in ("bf16", "w8a8") for r in (0, 1)]
+    # the check: one codebook step (12 layers) at flagship widths
+    one_step = dataclasses.replace(dims, steps=1)
+    tol = {"bf16": 5e-2, "w8a8": 1e-5}
+    checks = {}
+    for variant, r in configs:
+        got = faststack.faststack_probe(x, weights, r, variant, one_step)
+        want = faststack.probe_reference(x, weights, variant, one_step)
+        frame = faststack.faststack_probe(x, weights, r, variant, dims)
+        again = faststack.faststack_probe(x, weights, r, variant, dims)
+        frame_want = faststack.probe_reference(x, weights, variant, dims)
+        plain_ms = _time_ms(lambda i=0: faststack.probe_reference(
+            x, weights, variant, dims), 2)
+        checks[variant, r] = dict(
+            err=(got - want).abs(), out_max=want.abs().max().item(),
+            finite=bool(torch.isfinite(frame).all()), plain_ms=plain_ms,
+            frame_err=(frame - frame_want).abs().max().item(),
+            spread=(frame - again).abs().max().item())
+    # the probe's own entry point (`python -m ...faststack`'s `_bench`):
+    # best of 3 x 30 chained frames; only these launches are counted
+    faststack.faststack_probe.launches = 0
+    rows = []
+    for variant, r in configs:
+        ms = faststack._bench(r, variant, dims=dims, weights=weights, device=dev)
+        c = checks[variant, r]
+        err, plain_ms = c["err"], c["plain_ms"]
+        traffic = dims.frame_bytes(r)
+        n_w = dims.layer_bytes * dims.n_layer
+        flops = 2 * n_w * dims.steps
+        bound = _bound(flops, n_w + 4 * (dims.dqkv + 2 * dims.df
+                                         + 2 * dims.inter) * dims.n_layer
+                       + 8 * dims.df,
+                       PEAK_INT8 if variant == "w8a8" else PEAK_BF16)
+        row = dict(shape=f"R={r} {variant} DF={dims.df} DQKV={dims.dqkv} "
+                         f"INTER={dims.inter} NL={dims.n_layer} "
+                         f"steps={dims.steps} (error: 1 step)",
+                   max_abs_err=err.max().item(), mean_abs_err=err.mean().item(),
+                   frame_max_abs_err=c["frame_err"], frame_spread=c["spread"],
+                   ms=ms, plain_ms=plain_ms, bound_ms=bound[0],
+                   bound_by=bound[1], library_ms=None,
+                   streamed_bound_ms=traffic / HBM_BYTES_PER_S * 1e3,
+                   effective_gb_s=traffic / ms / 1e6)
+        rows.append(row)
+        print(f"probe R={r} {variant}: {ms:.4f} ms/frame, effective "
+              f"{row['effective_gb_s']:.0f} GB/s over {traffic / 1e9:.3f} GB "
+              f"(streamed bound {row['streamed_bound_ms']:.4f} ms); plain "
+              f"{plain_ms:.2f} ms; one step (12 layers): max_abs_err "
+              f"{row['max_abs_err']:.3e} (bound {tol[variant]:g}), mean "
+              f"{row['mean_abs_err']:.3e}, max |out| {c['out_max']:.3f}; whole "
+              f"frame (120 layers): max_abs_err {c['frame_err']:.3e}, kernel "
+              f"run-to-run {c['spread']:.3e}")
+        if not (c["finite"] and row["max_abs_err"] <= tol[variant]):
+            raise SystemExit(f"probe R={r} {variant} disagrees with its plain "
+                             f"version")
+    launches = faststack.faststack_probe.launches
+    faststack.reset_l2_persistence()
+    print(f"probe vs serving: the probe's matvec chain {min(r['ms'] for r in rows):.3f}"
+          f"-{max(r['ms'] for r in rows):.3f} ms/frame against the serving fast "
+          f"stack's {serving_fast_ms:.3f} ms/frame (mixed: fast int4, with "
+          f"attention, heads and sampling); kernel launches {launches}")
+    if launches <= 0:
+        raise SystemExit("the probe kernel was never launched")
+    return rows, launches
 
 
 def _write_protos(path, num_codebooks, codebook_size, rng):
     """A small proto shard: two speakers, sentences of random text and
     random codes, enough for samples past 1024 tokens and shorter ones."""
-    from fish_speech_tpu.data.protos import Semantics, Sentence, TextData
-    from fish_speech_tpu.data.stream import write_pb_stream
+    from fish_speech_tpu_torch.data.protos import Semantics, Sentence, TextData
+    from fish_speech_tpu_torch.data.stream import write_pb_stream
 
     words = ["speech", "model", "voice", "quiet", "river", "light", "stone",
              "window", "morning", "paper", "simple", "garden"]
@@ -509,7 +941,7 @@ def run_train_slice(dev, tokenizer, cfg, out_dir):
 
     import torch
 
-    from fish_speech_tpu.data.dataset import (SemanticIterableDataset,
+    from fish_speech_tpu_torch.data.dataset import (SemanticIterableDataset,
                                               TextDataCollator)
     from fish_speech_tpu_torch.models.dual_ar import param_count
     from fish_speech_tpu_torch.models.lora import LoraConfig
@@ -624,13 +1056,41 @@ def run_train_slice(dev, tokenizer, cfg, out_dir):
 
 
 def _kernel_wrappers():
-    from fish_speech_tpu_torch.ops.flash_decode import flash_decode_attention
+    from fish_speech_tpu_torch.ops.faststack import faststack_probe
+    from fish_speech_tpu_torch.ops.flash_decode import (
+        flash_decode_attention, flash_decode_attention_kv8)
     from fish_speech_tpu_torch.ops.flash_prefill import flash_prefill_attention
     from fish_speech_tpu_torch.ops.flash_train import (flash_train_backward,
                                                        flash_train_forward)
+    from fish_speech_tpu_torch.ops.int4 import int4_matmul
 
     return (flash_prefill_attention, flash_decode_attention, flash_train_forward,
-            flash_train_backward)
+            flash_train_backward, int4_matmul, flash_decode_attention_kv8,
+            faststack_probe)
+
+
+SRC = "fish_speech_tpu_torch/csrc/"
+KERNELS = {  # name: (source, the TPU kernel or JAX code it replaces)
+    "flash_prefill": (SRC + "flash_prefill.cu",
+                      "fish_speech_tpu/ops/pallas_attention.py:26"),
+    "flash_decode": (SRC + "flash_decode.cu",
+                     "fish_speech_tpu/ops/pallas_decode.py:47"),
+    "flash_train_fwd": (SRC + "flash_train.cu",
+                        "fish_speech_tpu/ops/pallas_attention_train.py:56"),
+    "flash_train_bwd": (SRC + "flash_train.cu",
+                        "fish_speech_tpu/ops/pallas_attention_train.py:131"),
+    "int4_mm": (SRC + "int4_mm.cu", "fish_speech_tpu/ops/pallas_int4.py:32"),
+    "flash_decode_kv8": (SRC + "flash_decode.cu",
+                         "fish_speech_tpu/ops/attention.py:66"),
+    "faststack_probe": (SRC + "faststack.cu",
+                        "fish_speech_tpu/ops/pallas_faststack.py:136"),
+}
+# headline shapes: the long request's prefill bucket, a 257-long cache, the
+# B=2 x T=1024 fine-tune shape, the slow w13 (B=1), a 257-long int8 cache,
+# the probe at R=0 in bf16
+HEADLINE = {"flash_prefill": 1, "flash_decode": 1, "flash_train_fwd": 0,
+            "flash_train_bwd": 0, "int4_mm": 2, "flash_decode_kv8": 1,
+            "faststack_probe": 0}
 
 
 def main():
@@ -638,8 +1098,7 @@ def main():
 
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available")
-    from fish_speech_tpu.config import dual_ar_s2_pro
-    from fish_speech_tpu.tokenizer import build_test_tokenizer
+    from fish_speech_tpu_torch.tokenizer import build_test_tokenizer
     from fish_speech_tpu_torch.ops import _kernels
 
     dev = torch.device("cuda:0")
@@ -656,39 +1115,33 @@ def main():
     tokenizer = build_test_tokenizer()
     small_reference(dev, tokenizer)
     small_train_reference(dev, tokenizer)
+    small_quant_reference(dev, tokenizer)
     _, launches = run_slice(dev, tokenizer)
     gc.collect()  # the serving slice's model and caches go before training
     torch.cuda.empty_cache()
-    cfg = dual_ar_s2_pro(semantic_begin_id=tokenizer.semantic_begin_id,
-                         semantic_end_id=tokenizer.semantic_end_id,
-                         im_end_id=tokenizer.im_end_id)
-    cfg = dataclasses.replace(cfg, max_seq_len=1024).resolve()
     train_launches = run_train_slice(
-        dev, tokenizer, cfg,
+        dev, tokenizer, _s2_pro_cfg(tokenizer, 1024),
         Path(__file__).resolve().parent / "build" / "chip_smoke_train")
     launches.update(train_launches)
+    gc.collect()  # the training model goes before quantized serving
+    torch.cuda.empty_cache()
+    quant = run_quant_slice(dev, tokenizer)
+    launches["int4_mm"] = quant["mixed"]["launches"]["int4_mm"]
+    launches["flash_decode_kv8"] = quant["mixed"]["launches"]["flash_decode_kv8"]
+    cases["faststack_probe"], launches["faststack_probe"] = run_probe(
+        dev, quant["mixed"]["fast_stack_ms"])
 
-    src = "fish_speech_tpu_torch/csrc/"
-    source = {"flash_prefill": src + "flash_prefill.cu",
-              "flash_decode": src + "flash_decode.cu",
-              "flash_train_fwd": src + "flash_train.cu",
-              "flash_train_bwd": src + "flash_train.cu"}
-    replaces = {"flash_prefill": "fish_speech_tpu/ops/pallas_attention.py:26",
-                "flash_decode": "fish_speech_tpu/ops/pallas_decode.py:47",
-                "flash_train_fwd": "fish_speech_tpu/ops/pallas_attention_train.py:56",
-                "flash_train_bwd": "fish_speech_tpu/ops/pallas_attention_train.py:131"}
-    # headline shapes: the long request's prefill bucket, a 257-long cache,
-    # the B=2 x T=1024 fine-tune shape
-    headline = {"flash_prefill": 1, "flash_decode": 1, "flash_train_fwd": 0,
-                "flash_train_bwd": 0}
     kernels = []
     for name, rows in cases.items():
-        pick = rows[headline[name]]
+        pick = rows[HEADLINE[name]]
+        source, replaces = KERNELS[name]
         kernels.append({
-            "name": name, "route": "cuda", "source": source[name],
-            "replaces": replaces[name], "launches": launches[name],
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches[name],
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "ms": pick["ms"], "plain_ms": pick["plain_ms"],
+            "bound_ms": pick["bound_ms"], "bound_by": pick["bound_by"],
+            "library_ms": pick["library_ms"],
             "shape": pick["shape"], "cases": rows,
         })
     print(json.dumps({"kernels": kernels}))

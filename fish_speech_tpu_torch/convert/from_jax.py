@@ -20,19 +20,52 @@ the card without a second copy on the host.
 
 from __future__ import annotations
 
+import dataclasses
+import typing
+
 import numpy as np
 import torch
 
-from fish_speech_tpu.config import DACConfig
+from fish_speech_tpu_torch.config import DACConfig
+
+
+def config_from_jax(obj, cls):
+    """The port's config `cls` built from any dataclass with the same field
+    names (a config of the JAX package, say), by its fields: nested configs
+    are rebuilt as the port's classes. Never imports the JAX package."""
+    return _config(cls, dataclasses.asdict(obj))
+
+
+def _config(cls, data):
+    hints = typing.get_type_hints(cls)
+    kwargs = {}
+    for f in dataclasses.fields(cls):
+        if not f.init or f.name not in data:
+            continue
+        value = data[f.name]
+        sub = _nested_dataclass(hints[f.name])
+        if sub is not None and isinstance(value, dict):
+            value = _config(sub, value)
+        kwargs[f.name] = value
+    return cls(**kwargs)
+
+
+def _nested_dataclass(tp):
+    """The dataclass in a field's type (`X` or `Optional[X]`), if any."""
+    if dataclasses.is_dataclass(tp):
+        return tp
+    return next((a for a in typing.get_args(tp) if dataclasses.is_dataclass(a)),
+                None)
 
 
 def _tensor(a, dtype, device):
+    """One leaf as a tensor: integer leaves (int8 `q`, uint8 `p`) stay
+    integer, floating leaves are cast to `dtype` (None: the leaf's own)."""
     a = np.asarray(a)
-    if a.dtype.name == "bfloat16":  # ml_dtypes bf16: torch cannot view it
-        a = a.astype(np.float32)
-    t = torch.from_numpy(np.array(a))  # a writable copy
-    if t.is_floating_point() and dtype is not None:
-        t = t.to(dtype)
+    bf16 = a.dtype.name == "bfloat16"  # ml_dtypes bf16: torch cannot view it
+    t = torch.from_numpy(np.array(a.astype(np.float32) if bf16 else a))
+    if t.is_floating_point():
+        t = t.to(dtype or (torch.bfloat16 if bf16 else t.dtype))
     return t.to(device)
 
 
@@ -46,21 +79,26 @@ def _tree(x, fn):
 
 def dual_ar_from_jax(params, dtype=torch.bfloat16, device=None):
     """Dual-AR LM pytree (numpy leaves) -> torch tensors, layout unchanged,
-    LoRA leaves included (`models/lora.py` layout). Quantized ({"q","s"} /
-    {"p","gs"}) weights and the audio projector are not ported."""
-    def check(node, path=""):
+    LoRA leaves included (`models/lora.py` layout). Quantized weights cross
+    leaf for leaf: int8 {"q","s"} and int4 {"p","gs"} keep their integer
+    `q`/`p` and their scales' dtype. The audio projector is not ported."""
+    def convert(node, path=""):
         if isinstance(node, dict):
-            if {"q", "s"} <= node.keys() or {"p", "gs"} <= node.keys():
-                raise NotImplementedError(
-                    f"quantized weight at {path} (ROADMAP: int8 weights and "
-                    f"the int8 KV cache)")
+            quant = {"q", "s"} <= node.keys() or {"p", "gs"} <= node.keys()
+            out = {}
             for k, v in node.items():
                 if k == "audio_projector":
                     raise NotImplementedError(f"{path}/{k} is not ported")
-                check(v, f"{path}/{k}")
+                if quant and k in ("s", "gs"):  # scales keep their dtype
+                    out[k] = _tensor(v, None, device)
+                else:
+                    out[k] = convert(v, f"{path}/{k}")
+            return out
+        if isinstance(node, (list, tuple)):
+            return [convert(v, path) for v in node]
+        return _tensor(node, dtype, device)
 
-    check(params)
-    return _tree(params, lambda a: _tensor(a, dtype, device))
+    return convert(params)
 
 
 def _conv(p, dtype, device):

@@ -19,6 +19,17 @@
 // running max / sum / accumulator. The 8 partial softmax states are merged
 // through shared memory at the end. With B*Hkv blocks the card is far from
 // full at batch 1: splitting S across blocks (flash-decoding) is later work.
+//
+// The int8-KV variant (fs_flash_decode_kv8) serves the slow stack under the
+// int8 KV cache, where the JAX package ran the einsum of
+// fish_speech_tpu/ops/attention.py:66-104 (gqa_attention_kv8; no Pallas
+// kernel). It reads int8 K/V rows and their bf16 per-(position, head)
+// scales and folds the scales in as that einsum does: score = (q . k_i8) *
+// ks * 1/sqrt(d), online fp32 softmax, accumulator += p * vs * v_i8. Half
+// the bytes of the bf16 cache (plus 4 bytes of scales per row and head).
+// It splits the positions into chunks of `chunk` over a third grid axis
+// (flash-decoding), so batch 1 gets Hkv x ceil(S / chunk) blocks instead of
+// Hkv; a second kernel merges the chunks' (max, sum, accumulator) states.
 
 #include "common.cuh"
 
@@ -137,6 +148,181 @@ int launch_decode(const void* q, const void* k, const void* v,
   return (int)cudaGetLastError();
 }
 
+
+// ---------------------------------------------------------------------------
+// int8 K/V with bf16 per-(position, head) scales, positions split in chunks
+// ---------------------------------------------------------------------------
+
+template <int EPL>
+__device__ __forceinline__ void load_i8(const int8_t* p, float* out) {
+  if constexpr (EPL == 4) {
+    const char4 c = *reinterpret_cast<const char4*>(p);
+    out[0] = (float)c.x; out[1] = (float)c.y; out[2] = (float)c.z; out[3] = (float)c.w;
+  } else {
+#pragma unroll
+    for (int e = 0; e < EPL; ++e) out[e] = (float)p[e];
+  }
+}
+
+// part: (B, Hkv, n_split, G, D + 2) fp32 -- per chunk the unnormalised
+// accumulator, then its running max and sum
+template <typename T, int D>
+__global__ void __launch_bounds__(NW * 32)
+    decode_kv8_kernel(const T* __restrict__ q, const int8_t* __restrict__ k,
+                      const __nv_bfloat16* __restrict__ ks,
+                      const int8_t* __restrict__ v,
+                      const __nv_bfloat16* __restrict__ vs,
+                      const int* __restrict__ lengths, float* __restrict__ part,
+                      int s_len, int n_kv, int n_group, int chunk, float scale) {
+  constexpr int EPL = D / 32;
+  __shared__ float sm_m[NW][MAXG];
+  __shared__ float sm_l[NW][MAXG];
+  __shared__ float sm_acc[NW][MAXG][D];
+
+  const int hk = blockIdx.x;
+  const int b = blockIdx.y;
+  const int split = blockIdx.z;
+  const int n_split = gridDim.z;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int len = min(max(lengths[b], 0), s_len);
+  const int start = split * chunk;
+  const int end = min(start + chunk, len);
+
+  float qr[MAXG][EPL];
+  float m[MAXG], l[MAXG], acc[MAXG][EPL];
+#pragma unroll
+  for (int g = 0; g < MAXG; ++g) {
+    m[g] = -INFINITY;
+    l[g] = 0.f;
+#pragma unroll
+    for (int e = 0; e < EPL; ++e) {
+      acc[g][e] = 0.f;
+      qr[g][e] = g < n_group
+                     ? fs::to_float(q[(((size_t)b * n_kv + hk) * n_group + g) * D +
+                                      lane * EPL + e])
+                     : 0.f;
+    }
+  }
+
+  for (int j0 = start + warp * UNROLL; j0 < end; j0 += NW * UNROLL) {
+    float kr[UNROLL][EPL], vr[UNROLL][EPL], ksc[UNROLL], vsc[UNROLL];
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u) {
+      const int j = j0 + u;
+      const size_t row = ((size_t)b * s_len + j) * n_kv + hk;
+      if (j < end) {
+        load_i8<EPL>(k + row * D + lane * EPL, kr[u]);
+        load_i8<EPL>(v + row * D + lane * EPL, vr[u]);
+        ksc[u] = __bfloat162float(ks[row]) * scale;
+        vsc[u] = __bfloat162float(vs[row]);
+      } else {
+#pragma unroll
+        for (int e = 0; e < EPL; ++e) kr[u][e] = vr[u][e] = 0.f;
+        ksc[u] = vsc[u] = 0.f;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u) {
+      if (j0 + u >= end) break;
+#pragma unroll
+      for (int g = 0; g < MAXG; ++g) {
+        if (g >= n_group) break;
+        float s = 0.f;
+#pragma unroll
+        for (int e = 0; e < EPL; ++e) s = fmaf(qr[g][e], kr[u][e], s);
+        s = fs::warp_sum(s) * ksc[u];
+        const float m_new = fmaxf(m[g], s);
+        const float a = expf(m[g] - m_new);
+        const float p = expf(s - m_new);
+        const float pv = p * vsc[u];
+        l[g] = l[g] * a + p;
+#pragma unroll
+        for (int e = 0; e < EPL; ++e) acc[g][e] = fmaf(pv, vr[u][e], acc[g][e] * a);
+        m[g] = m_new;
+      }
+    }
+  }
+
+#pragma unroll
+  for (int g = 0; g < MAXG; ++g) {
+    if (g >= n_group) break;
+    if (lane == 0) {
+      sm_m[warp][g] = m[g];
+      sm_l[warp][g] = l[g];
+    }
+#pragma unroll
+    for (int e = 0; e < EPL; ++e) sm_acc[warp][g][lane * EPL + e] = acc[g][e];
+  }
+  __syncthreads();
+
+  float* out = part + (((size_t)b * n_kv + hk) * n_split + split) * n_group * (D + 2);
+  for (int idx = threadIdx.x; idx < n_group * D; idx += NW * 32) {
+    const int g = idx / D, d = idx % D;
+    float mx = -INFINITY;
+#pragma unroll
+    for (int w = 0; w < NW; ++w) mx = fmaxf(mx, sm_m[w][g]);
+    float tot = 0.f, o = 0.f;
+#pragma unroll
+    for (int w = 0; w < NW; ++w) {
+      const float mw = sm_m[w][g];
+      if (mw == -INFINITY) continue;  // warp saw no position
+      const float f = expf(mw - mx);
+      tot += sm_l[w][g] * f;
+      o += sm_acc[w][g][d] * f;
+    }
+    out[g * (D + 2) + d] = o;
+    if (d == 0) {
+      out[g * (D + 2) + D] = mx;
+      out[g * (D + 2) + D + 1] = tot;
+    }
+  }
+}
+
+template <typename T, int D>
+__global__ void decode_merge_kernel(const float* __restrict__ part,
+                                    T* __restrict__ out, int n_kv, int n_group,
+                                    int n_split) {
+  const int hk = blockIdx.x;
+  const int b = blockIdx.y;
+  const float* base = part + ((size_t)b * n_kv + hk) * n_split * n_group * (D + 2);
+  for (int idx = threadIdx.x; idx < n_group * D; idx += blockDim.x) {
+    const int g = idx / D, d = idx % D;
+    float mx = -INFINITY;
+    for (int s = 0; s < n_split; ++s)
+      mx = fmaxf(mx, base[(s * n_group + g) * (D + 2) + D]);
+    float tot = 0.f, o = 0.f;
+    for (int s = 0; s < n_split; ++s) {
+      const float* st = base + (s * n_group + g) * (D + 2);
+      if (st[D] == -INFINITY) continue;  // chunk past the length
+      const float f = expf(st[D] - mx);
+      tot += st[D + 1] * f;
+      o += st[d] * f;
+    }
+    fs::store(out + (((size_t)b * n_kv + hk) * n_group + g) * D + d,
+              tot > 0.f ? o / tot : 0.f);
+  }
+}
+
+template <typename T, int D>
+int launch_decode_kv8(const void* q, const void* k, const void* ks,
+                      const void* v, const void* vs, const int* lengths,
+                      float* part, void* out, int batch, int s_len, int n_kv,
+                      int n_group, int chunk, float scale, cudaStream_t stream) {
+  const int n_split = (s_len + chunk - 1) / chunk;
+  dim3 grid(n_kv, batch, n_split);
+  decode_kv8_kernel<T, D><<<grid, NW * 32, 0, stream>>>(
+      static_cast<const T*>(q), static_cast<const int8_t*>(k),
+      static_cast<const __nv_bfloat16*>(ks), static_cast<const int8_t*>(v),
+      static_cast<const __nv_bfloat16*>(vs), lengths, part, s_len, n_kv,
+      n_group, chunk, scale);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  decode_merge_kernel<T, D><<<dim3(n_kv, batch), 256, 0, stream>>>(
+      part, static_cast<T*>(out), n_kv, n_group, n_split);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // k_layer / v_layer point at one layer of the stacked cache: (B, S, Hkv, D).
@@ -163,5 +349,33 @@ extern "C" int fs_flash_decode(const void* q, const void* k_layer,
   if (dtype == fs::kFloat32 && head_dim == 64)
     return launch_decode<float, 64>(q, k_layer, v_layer, lens, out, batch,
                                     s_len, n_kv, n_group, scale, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// int8 K/V: k_layer / v_layer (B, S, Hkv, D) int8 and ks_layer / vs_layer
+// (B, S, Hkv) bf16 point at one layer of the stacked cache; part is
+// (B, Hkv, ceil(S / chunk), G, D + 2) fp32 partials; q and out are `dtype`.
+extern "C" int fs_flash_decode_kv8(const void* q, const void* k_layer,
+                                   const void* ks_layer, const void* v_layer,
+                                   const void* vs_layer, const void* lengths,
+                                   void* part, void* out, int batch, int s_len,
+                                   int n_kv, int n_group, int head_dim,
+                                   int dtype, int chunk, float scale,
+                                   void* stream) {
+  if (batch < 1 || s_len < 1 || n_kv < 1 || n_group < 1 || n_group > MAXG ||
+      chunk < 1)
+    return (int)cudaErrorInvalidValue;
+  const int* lens = static_cast<const int*>(lengths);
+  float* pt = static_cast<float*>(part);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define FS_KV8(T, D)                                                          \
+  return launch_decode_kv8<T, D>(q, k_layer, ks_layer, v_layer, vs_layer,     \
+                                 lens, pt, out, batch, s_len, n_kv, n_group,  \
+                                 chunk, scale, s)
+  if (dtype == fs::kBFloat16 && head_dim == 128) FS_KV8(__nv_bfloat16, 128);
+  if (dtype == fs::kBFloat16 && head_dim == 64) FS_KV8(__nv_bfloat16, 64);
+  if (dtype == fs::kFloat32 && head_dim == 128) FS_KV8(float, 128);
+  if (dtype == fs::kFloat32 && head_dim == 64) FS_KV8(float, 64);
+#undef FS_KV8
   return (int)cudaErrorInvalidValue;
 }

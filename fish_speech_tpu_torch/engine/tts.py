@@ -20,8 +20,8 @@ from typing import Generator, List, Optional, Tuple
 import numpy as np
 import torch
 
-from fish_speech_tpu.audio.io import wav_chunk_header
-from fish_speech_tpu.config import DACConfig
+from fish_speech_tpu_torch.audio.io import wav_chunk_header
+from fish_speech_tpu_torch.config import DACConfig
 from fish_speech_tpu_torch.generate import GenerationSession, generate_long
 from fish_speech_tpu_torch.models.dac.model import dac_from_indices
 

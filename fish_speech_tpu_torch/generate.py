@@ -24,7 +24,7 @@ from typing import List, Optional, Union
 import numpy as np
 import torch
 
-from fish_speech_tpu.config import DualARConfig, SamplingConfig
+from fish_speech_tpu_torch.config import DualARConfig, SamplingConfig
 from fish_speech_tpu_torch.models import dual_ar
 from fish_speech_tpu_torch.ops.sampling import (check_top_k, ras_select,
                                                  sample_topk, topk_state)
@@ -150,21 +150,33 @@ def _detached(tree):
 
 class GenerationSession:
     """Owns the KV cache and the inference-prepared weights of one model,
-    for one stream at a time (batching is not ported yet).
+    for one stream at a time (batching is not ported yet: `max_batch` must
+    be 1).
 
     The session re-uses one cache for every request (each prefill writes
-    the positions it reads); `params` are augmented with the restricted LM
-    head and the fused w1|w3 FFN weight. Fusing copies the FFN weights: the
-    caller should drop its own reference to `params`."""
+    the positions it reads); `params` (plain or quantized, `ops/quant.py`)
+    are augmented with the restricted LM head and, when `fuse_ffn` (default:
+    `max_batch == 1`, as in the JAX package), the fused w1|w3 FFN weight.
+    Fusing copies the FFN weights: the caller should drop its own reference
+    to `params`. `kv_quant` keeps the slow cache in int8 with per-(position,
+    head) scales (`dual_ar.init_kv_cache(quant=True)`)."""
 
     def __init__(self, params, cfg: DualARConfig, scfg: SamplingConfig = None,
-                 dtype=torch.bfloat16, decode_chunk_size: int = 32,
-                 first_chunk_size: int = 0, pipeline_lookahead: int = 1):
+                 max_batch: int = 1, dtype=torch.bfloat16,
+                 decode_chunk_size: int = 32, first_chunk_size: int = 0,
+                 pipeline_lookahead: int = 1, fuse_ffn: Optional[bool] = None,
+                 kv_quant: bool = False):
+        if max_batch != 1:
+            raise NotImplementedError(
+                "batched sessions are not ported yet (ROADMAP: the batcher)")
         # detached views: a tree fresh from training (LoRA tensors that
         # require grad) must not make decoding record an autograd graph
         params = _detached(params)
-        self.params = dual_ar.fuse_ffn_weights(
-            dual_ar.precompute_semantic_head(params, cfg))
+        self.params = dual_ar.precompute_semantic_head(params, cfg)
+        if fuse_ffn is None:
+            fuse_ffn = max_batch == 1
+        if fuse_ffn:
+            self.params = dual_ar.fuse_ffn_weights(self.params)
         self.cfg = cfg.resolve()
         self.scfg = scfg or SamplingConfig()
         self.device = params["embeddings"].device
@@ -174,8 +186,9 @@ class GenerationSession:
         self.pipeline_lookahead = pipeline_lookahead
         # headroom so a chunk's overshoot never writes past the buffer
         self.cache_len = self.cfg.max_seq_len + decode_chunk_size
-        self.cache = dual_ar.init_kv_cache(self.cfg, 1, self.cache_len, dtype,
-                                           self.device)
+        self.kv_quant = kv_quant
+        self.cache = dual_ar.init_kv_cache(self.cfg, max_batch, self.cache_len,
+                                           dtype, self.device, quant=kv_quant)
 
     def new_generator(self, seed: int) -> torch.Generator:
         return torch.Generator(device=self.device).manual_seed(int(seed))
@@ -316,9 +329,10 @@ SYSTEM_PROMPT_PLAIN = "convert the provided text to speech"
 def build_base_conversation(prompt_text: Optional[List[str]],
                             prompt_tokens: Optional[List[np.ndarray]]):
     """System message for voice cloning (reference texts + VQ codes) or
-    plain TTS. Imports the shared host `sequence` module here, not at module
-    import: it pulls in the `tokenizers` package."""
-    from fish_speech_tpu.sequence import Conversation, Message, TextPart, VQPart
+    plain TTS. Imports the `sequence` module here, not at module import: it
+    pulls in the `tokenizers` package."""
+    from fish_speech_tpu_torch.sequence import (Conversation, Message,
+                                                TextPart, VQPart)
 
     conv = Conversation()
     use_prompt = (bool(prompt_text) and prompt_tokens is not None
@@ -354,7 +368,7 @@ def generate_long(*, session: GenerationSession, tokenizer, text: str,
     stream_partials: also yield action="partial" with the cumulative codes
     of the segment in progress after every decode chunk; the closing
     action="sample" repeats the whole segment."""
-    from fish_speech_tpu.sequence import Conversation, Message, TextPart, VQPart
+    from fish_speech_tpu_torch.sequence import Conversation, Message, TextPart, VQPart
 
     if not 0 < top_p <= 1:
         raise ValueError("top_p must be in (0, 1]")

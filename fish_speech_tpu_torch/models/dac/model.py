@@ -6,7 +6,7 @@ from __future__ import annotations
 
 import torch
 
-from fish_speech_tpu.config import DACConfig
+from fish_speech_tpu_torch.config import DACConfig
 from fish_speech_tpu_torch.models.dac.conv import (causal_conv1d,
                                                    causal_conv_transpose1d,
                                                    snake)

@@ -7,7 +7,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from fish_speech_tpu.config import RVQConfig
+from fish_speech_tpu_torch.config import RVQConfig
 from fish_speech_tpu_torch.models.dac.conv import (causal_conv1d,
                                                    causal_conv_transpose1d,
                                                    layer_norm)

@@ -6,7 +6,7 @@ from __future__ import annotations
 
 import torch.nn.functional as F
 
-from fish_speech_tpu.config import CodecTransformerConfig
+from fish_speech_tpu_torch.config import CodecTransformerConfig
 from fish_speech_tpu_torch.ops.attention import (causal_mask, gqa_attention,
                                                  windowed_causal_mask)
 from fish_speech_tpu_torch.ops.norms import rms_norm

@@ -27,12 +27,20 @@ out)}), the top-level tables get "lora_embeddings" / "lora_codebook_embeddings"
 / "lora_output" siblings, and every projection adds `lora_scale * (x @ A) @ B`
 where its LoRA exists, as the JAX package does.
 
+Quantized weights (`ops/quant.py`: int8 {"q","s"}, int4 {"p","gs"}) may
+stand for any projection weight and for the untied heads; every product
+goes through `mm`.
+
 Activations are (B, T, H, Dh); the KV caches are (L, B, S, Hkv, Dh) and are
 written IN PLACE (JAX threads them functionally; here the returned cache is
-the same tensors). Prefill attention runs `flash_prefill_attention`, decode
-attention of both stacks runs `flash_decode_attention` with `lengths = pos +
-1`, and the teacher-forced training forward's slow stack runs
-`flash_train_attention`: on CUDA tensors those are the hand-written kernels.
+the same tensors). The slow cache may be int8 (`init_kv_cache(quant=True)`:
+int8 k/v with bf16 per-(position, head) scales "ks"/"vs"); the fast cache is
+always bf16. Prefill attention runs `flash_prefill_attention` over the fresh
+k/v (also under the int8 cache, which is only stored quantized), decode
+attention runs `flash_decode_attention` with `lengths = pos + 1`, or
+`flash_decode_attention_kv8` over the int8 cache, and the teacher-forced
+training forward's slow stack runs `flash_train_attention`: on CUDA tensors
+those are the hand-written kernels.
 """
 
 from __future__ import annotations
@@ -43,9 +51,10 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from fish_speech_tpu.config import DualARConfig
+from fish_speech_tpu_torch.config import DualARConfig
 from fish_speech_tpu_torch.ops.attention import causal_mask, gqa_attention
-from fish_speech_tpu_torch.ops.flash_decode import flash_decode_attention
+from fish_speech_tpu_torch.ops.flash_decode import (
+    flash_decode_attention, flash_decode_attention_kv8)
 from fish_speech_tpu_torch.ops.flash_prefill import flash_prefill_attention
 from fish_speech_tpu_torch.ops.flash_train import flash_train_attention
 from fish_speech_tpu_torch.ops.norms import rms_norm
@@ -155,13 +164,54 @@ def param_count(params) -> int:
 
 
 def init_kv_cache(cfg: DualARConfig, batch: int, max_seq: int,
-                  dtype=torch.bfloat16, device=None):
-    """Slow-transformer cache: k/v (L, B, S, Hkv, Dh). Only the bf16 (or
-    fp32) layout is ported; the int8 cache is a ROADMAP item."""
+                  dtype=torch.bfloat16, device=None, quant: bool = False):
+    """Slow-transformer cache: k/v (L, B, S, Hkv, Dh).
+
+    quant=True stores k/v int8 with per-(position, head) absmax scales
+    ("ks"/"vs", (L, B, S, Hkv) bf16), as the JAX package does: half the
+    decode-time KV bytes. Prefill attends the fresh k/v and only the store
+    is quantized, so prefill logits are exact; decode sees the rounding."""
     cfg = cfg.resolve()
     shape = (cfg.n_layer, batch, max_seq, cfg.n_local_heads, cfg.head_dim)
+    if quant:
+        return {"k": torch.zeros(shape, dtype=torch.int8, device=device),
+                "v": torch.zeros(shape, dtype=torch.int8, device=device),
+                "ks": torch.zeros(shape[:-1], dtype=torch.bfloat16, device=device),
+                "vs": torch.zeros(shape[:-1], dtype=torch.bfloat16, device=device)}
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def _kv_quant(x):
+    """Per-(position, head) absmax int8: (..., D) -> (int8 (..., D), bf16
+    scales (...)), bitwise as `fish_speech_tpu.models.dual_ar._kv_quant`."""
+    xf = x.float()
+    s = xf.abs().amax(dim=-1) / 127.0
+    q = torch.round(xf / torch.clamp(s, min=1e-8)[..., None])
+    return q.to(torch.int8), s.to(torch.bfloat16)
+
+
+def _kv_dequant(q, s, dtype):
+    """Inverse of `_kv_quant`."""
+    return (q.float() * s[..., None].float()).to(dtype)
+
+
+def _store_kv(cache, i, sl, k, v):
+    """Write k/v (B, T, Hkv, Dh) into layer i of the cache at positions
+    `sl` (a slice or an int with T == 1), quantized under the int8 cache."""
+    if "ks" in cache:
+        (kq, ks), (vq, vs) = _kv_quant(k), _kv_quant(v)
+        if isinstance(sl, int):
+            kq, ks, vq, vs = kq[:, 0], ks[:, 0], vq[:, 0], vs[:, 0]
+        cache["k"][i, :, sl] = kq
+        cache["v"][i, :, sl] = vq
+        cache["ks"][i, :, sl] = ks
+        cache["vs"][i, :, sl] = vs
+        return
+    if isinstance(sl, int):
+        k, v = k[:, 0], v[:, 0]
+    cache["k"][i, :, sl] = k.to(cache["k"].dtype)
+    cache["v"][i, :, sl] = v.to(cache["v"].dtype)
 
 
 def init_fast_kv_cache(cfg: DualARConfig, batch: int, dtype=torch.bfloat16,
@@ -277,19 +327,24 @@ def _run_stack_decode(layers, spec, x, freqs, cache, pos: int, lengths):
     """Decode-mode layer loop, lockstep write of one position.
 
     x (B, 1, D); freqs (1, Dh/2, 2); the cache is written in place at `pos`
-    and each layer's attention reads its first `lengths[b]` positions."""
+    (int8 plus scales under the int8 cache) and each layer's attention
+    reads its first `lengths[b]` positions."""
     n_head, n_kv, head_dim, eps, _ = spec
     b = x.shape[0]
+    quant = "ks" in cache
     for i in range(cache["k"].shape[0]):
         lp = _layer_slice(layers, i)
         h = rms_norm(x, lp["attn_norm"], eps)
         q, k, v = _qkv(lp, spec, h)
         q = apply_rope(q, freqs)
         k = apply_rope(k, freqs)
-        cache["k"][i, :, pos] = k[:, 0].to(cache["k"].dtype)
-        cache["v"][i, :, pos] = v[:, 0].to(cache["v"].dtype)
-        qg = q.reshape(b, n_kv, n_head // n_kv, head_dim)
-        y = flash_decode_attention(qg, cache["k"], cache["v"], i, lengths)
+        _store_kv(cache, i, pos, k, v)
+        qg = q.reshape(b, n_kv, n_head // n_kv, head_dim).contiguous()
+        if quant:
+            y = flash_decode_attention_kv8(qg, cache["k"], cache["ks"],
+                                           cache["v"], cache["vs"], i, lengths)
+        else:
+            y = flash_decode_attention(qg, cache["k"], cache["v"], i, lengths)
         x = x + _attn_out(lp, spec, y.reshape(b, 1, -1))
         h2 = rms_norm(x, lp["ffn_norm"], eps)
         x = x + _ffn(lp, spec, h2)
@@ -456,9 +511,9 @@ def _prefill_tail(params, cfg: DualARConfig, x, t_end, cache):
 
 def prefill(params, cfg: DualARConfig, inp, cache, offsets, t_end):
     """Run the prompt (B, C+1, Tpad) through the slow stack, writing k/v at
-    [0, Tpad) of the cache. Row i's prompt occupies [offsets[i], t_end);
-    attention is the prefill kernel over the fresh k/v (every prompt length,
-    not only >= 512 as on the TPU).
+    [0, Tpad) of the cache (quantized under the int8 cache). Row i's prompt
+    occupies [offsets[i], t_end); attention is the prefill kernel over the
+    fresh k/v (every prompt length, not only >= 512 as on the TPU).
 
     Returns (logits_last (B, V) fp32, hidden_last (B, D), cache)."""
     cfg = cfg.resolve()
@@ -475,8 +530,7 @@ def prefill(params, cfg: DualARConfig, inp, cache, offsets, t_end):
         q, k, v = _qkv(lp, spec, h)
         q = apply_rope(q, freqs)
         k = apply_rope(k, freqs)
-        cache["k"][i, :, :t] = k.to(cache["k"].dtype)
-        cache["v"][i, :, :t] = v.to(cache["v"].dtype)
+        _store_kv(cache, i, slice(0, t), k, v)
         y = flash_prefill_attention(q, k, v.contiguous(), offsets)
         x = x + _attn_out(lp, spec, y.reshape(b, t, -1))
         h2 = rms_norm(x, lp["ffn_norm"], cfg.norm_eps)
@@ -535,30 +589,42 @@ def fast_decode_step(params, cfg: DualARConfig, x, fast_cache, pos: int,
 
 def precompute_semantic_head(params, cfg: DualARConfig):
     """Return params plus `_semantic_head`: the (D, S+1) slice of the LM
-    head over the semantic ids and im_end, materialized once."""
+    head over the semantic ids and im_end, materialized once (an int8 head
+    keeps its int8 columns and their scales)."""
     cfg = cfg.resolve()
-    sb, se = cfg.semantic_begin_id, cfg.semantic_end_id
+    sb, se, end = cfg.semantic_begin_id, cfg.semantic_end_id, cfg.im_end_id
     if cfg.tie_word_embeddings:
         emb = params["embeddings"]
-        w = torch.cat([emb[sb : se + 1], emb[cfg.im_end_id][None]], dim=0).T
+        head = {"w": torch.cat([emb[sb : se + 1], emb[end][None]], dim=0).T}
+    elif isinstance(params["output"], dict):
+        out_w = params["output"]
+        head = {"q": torch.cat([out_w["q"][:, sb : se + 1],
+                                out_w["q"][:, end][:, None]], dim=1),
+                "s": torch.cat([out_w["s"][sb : se + 1], out_w["s"][end][None]])}
     else:
         out_w = params["output"]
-        w = torch.cat([out_w[:, sb : se + 1], out_w[:, cfg.im_end_id][:, None]],
-                      dim=1)
+        head = {"w": torch.cat([out_w[:, sb : se + 1], out_w[:, end][:, None]],
+                               dim=1)}
     new = dict(params)
-    new["_semantic_head"] = {"w": w.contiguous()}
+    new["_semantic_head"] = {k: v.contiguous() for k, v in head.items()}
     return new
 
 
 def fuse_ffn_weights(params):
-    """Concatenate each stack's w1|w3 into w13 (one (D, 2I) matmul). The
+    """Concatenate each stack's w1|w3 into w13 (one (D, 2I) matmul), also
+    for int8 ({"q","s"}) and int4 ({"p","gs"}) weights: every leaf keeps
+    the output dim last, so the fused product is the split one's. The
     concatenation materializes a copy; the split tensors are dropped from
     the returned dict."""
     def fuse_stack(layers):
         if "w1" not in layers:
             return layers
+        w1, w3 = layers["w1"], layers["w3"]
         out = {k: v for k, v in layers.items() if k not in ("w1", "w3")}
-        out["w13"] = torch.cat([layers["w1"], layers["w3"]], dim=-1)
+        if isinstance(w1, dict):
+            out["w13"] = {k: torch.cat([w1[k], w3[k]], dim=-1) for k in w1}
+        else:
+            out["w13"] = torch.cat([w1, w3], dim=-1)
         return out
 
     new = dict(params)
@@ -575,7 +641,8 @@ def semantic_head_logits(params, cfg: DualARConfig, slow_out):
     term restricted to those columns. Needs the params from
     `precompute_semantic_head`."""
     cfg = cfg.resolve()
-    logits = slow_out @ params["_semantic_head"]["w"]
+    head = params["_semantic_head"]
+    logits = mm(slow_out, head["w"] if "w" in head else head)
     sb, se, end = cfg.semantic_begin_id, cfg.semantic_end_id, cfg.im_end_id
     la = params.get("lora_embeddings" if cfg.tie_word_embeddings
                     else "lora_output")

@@ -21,7 +21,7 @@ from typing import List
 
 import torch
 
-from fish_speech_tpu.config import DualARConfig
+from fish_speech_tpu_torch.config import DualARConfig
 
 
 @dataclass

@@ -115,6 +115,21 @@ def load_kernels() -> ctypes.CDLL:
         i32, i32, i32, i32, i32, i32, f32, ptr
     ]
     lib.fs_flash_train_bwd.restype = i32
+    lib.fs_flash_decode_kv8.argtypes = [
+        ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr,
+        i32, i32, i32, i32, i32, i32, i32, f32, ptr
+    ]
+    lib.fs_flash_decode_kv8.restype = i32
+    lib.fs_int4_matmul.argtypes = [
+        ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, ptr
+    ]
+    lib.fs_int4_matmul.restype = i32
+    lib.fs_faststack_probe.argtypes = [
+        ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, i32, ptr
+    ]
+    lib.fs_faststack_probe.restype = i32
+    lib.fs_l2_persistence_reset.argtypes = []
+    lib.fs_l2_persistence_reset.restype = i32
     return lib
 
 

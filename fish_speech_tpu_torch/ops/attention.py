@@ -52,3 +52,34 @@ def windowed_causal_mask(t: int, window: int, device=None):
     i = torch.arange(t, device=device)[:, None]
     j = torch.arange(t, device=device)[None, :]
     return (j <= i) & (j >= i - (window - 1))
+
+
+def gqa_attention_kv8(q, kq, ks, vq, vs, mask=None, scale=None):
+    """Grouped-query attention over an int8 KV cache
+    (`fish_speech_tpu/ops/attention.py:gqa_attention_kv8`).
+
+    kq/vq: (B, S, Hkv, D) int8; ks/vs: (B, S, Hkv) per-(position, head)
+    absmax scales (`dual_ar._kv_quant`). The scales fold into the scores
+    and the probabilities: q.(k ks) == (q.k) ks and sum_j p_j (v_j vs_j) ==
+    sum_j (p_j vs_j) v_j; p * vs is rounded to q's dtype before P.V, as in
+    the JAX package."""
+    b, t, h, d = q.shape
+    hkv = kq.shape[2]
+    g = h // hkv
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    qg = q.reshape(b, t, hkv, g, d)
+    scores = torch.einsum("btkgd,bskd->bkgts", qg.float(),
+                          kq.to(q.dtype).float())
+    ks_b = ks.float().permute(0, 2, 1)[:, :, None, None, :]
+    scores = scores * (ks_b * scale)
+    if mask is not None:
+        while mask.dim() < 3:
+            mask = mask[None]
+        scores = scores.masked_fill(~mask[:, None, None], NEG_INF)
+    weights = torch.softmax(scores, dim=-1)
+    vs_b = vs.float().permute(0, 2, 1)[:, :, None, None, :]
+    weights = (weights * vs_b).to(q.dtype)
+    out = torch.einsum("bkgts,bskd->btkgd", weights.float(),
+                       vq.to(q.dtype).float())
+    return out.reshape(b, t, h, d).to(q.dtype)

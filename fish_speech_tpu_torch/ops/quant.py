@@ -1,19 +1,174 @@
-"""Matmul helper of the model code (`fish_speech_tpu/ops/quant.py:mm`).
+"""Weight-only quantization and the model's matmul helper.
 
-Only plain weights are ported so far. The JAX package's int8 ({"q", "s"})
-and int4 ({"p", "gs"}) weight dicts are the ROADMAP item "int8 weights and
-the int8 KV cache" (and, for int4, the unported Pallas kernel
-`ops/pallas_int4.py`).
+Port of `fish_speech_tpu/ops/quant.py`. A quantized weight is a dict:
+
+  * int8, per output channel: {"q": int8 (..., I, O), "s": fp32 (..., O)};
+  * int4, group-wise, two values per byte in the HALF-SPLIT layout:
+    {"p": uint8 (..., I/2, O), "gs": fp32 (..., I/g, O)}, where byte
+    [i, o] holds w[i, o] in the low nibble and w[i + I/2, o] in the high
+    nibble, each biased by 8; the group size is g = 2 * p.rows / gs.rows.
+
+`mm` dispatches on the dict. The int8 product is `x @ q * s` in torch, as
+the JAX package left it to XLA (no Pallas kernel). The int4 product runs
+the hand-written kernel `ops/int4.py` (`csrc/int4_mm.cu`) on CUDA tensors
+and the unpacked reference weight on the CPU. The quantizers give results
+bitwise equal to the JAX package's (the tests hold them to it).
 """
+
+from __future__ import annotations
 
 import torch
 
+from fish_speech_tpu_torch.ops.int4 import int4_matmul
+
+DEFAULT_TARGETS = ("wqkv", "wo", "w1", "w2", "w3")
+
+
+def quantize_int8(w, dim: int = -2):
+    """Symmetric per-output-channel int8 quantization of (..., I, O)."""
+    wf = w.float()
+    scale = wf.abs().amax(dim=dim, keepdim=True) / 127.0
+    q = torch.clamp(torch.round(wf / torch.clamp(scale, min=1e-12)), -128, 127)
+    # fp32 scales, as in the JAX package: a bf16 scale would add a ~0.4%
+    # multiplicative rounding to every channel
+    return {"q": q.to(torch.int8), "s": scale.squeeze(dim)}
+
+
+def dequantize_int8(qw, dtype=torch.bfloat16):
+    return (qw["q"].float() * qw["s"][..., None, :].float()).to(dtype)
+
+
+def quantize_int4(w, group_size: int = 128):
+    """Group-wise symmetric int4 quantization of (..., I, O), packed in the
+    half-split layout (module docstring)."""
+    wf = w.float()
+    *lead, i, o = wf.shape
+    if i % 2 or i % group_size:
+        raise ValueError(f"int4: I={i} must be even and a multiple of the "
+                         f"group size {group_size}")
+    grouped = wf.reshape(*lead, i // group_size, group_size, o)
+    scale = grouped.abs().amax(dim=-2, keepdim=True) / 7.0
+    q = torch.clamp(torch.round(grouped / torch.clamp(scale, min=1e-12)), -8, 7)
+    q = q.to(torch.int8).reshape(*lead, i, o)
+    half = i // 2
+    lo = (q[..., :half, :] + 8).to(torch.uint8)
+    hi = (q[..., half:, :] + 8).to(torch.uint8)
+    return {"p": lo | (hi << 4), "gs": scale.squeeze(-2)}
+
+
+def _int4_effective_weight(qw, dtype):
+    """Unpack an int4 weight to (..., I, O) in `dtype`: the plain version of
+    the int4 kernel's operand (W rounded to `dtype`, as the JAX package's
+    reference path does)."""
+    p = qw["p"]
+    lo = (p & 0xF).to(torch.int8) - 8
+    hi = (p >> 4).to(torch.int8) - 8
+    q = torch.cat([lo, hi], dim=-2)  # (..., I, O)
+    g = q.shape[-2] // qw["gs"].shape[-2]
+    scale = torch.repeat_interleave(qw["gs"].float(), g, dim=-2)
+    return (q.float() * scale).to(dtype)
+
 
 def mm(x: torch.Tensor, w) -> torch.Tensor:
-    """x @ w for a plain (..., I, O) weight."""
-    if isinstance(w, dict):
-        raise NotImplementedError(
-            "quantized weights are not ported yet (ROADMAP: int8 weights and "
-            "the int8 KV cache; int4 needs ops/pallas_int4.py ported)"
-        )
+    """x @ w for a plain, int8- or int4-quantized (..., I, O) weight."""
+    if isinstance(w, dict) and "p" in w:
+        if x.device.type == "cpu":
+            return x @ _int4_effective_weight(w, x.dtype)
+        lead = x.shape[:-1]
+        gs = w["gs"].float()  # a checkpoint read in bf16 has bf16 scales
+        y = int4_matmul(x.reshape(-1, x.shape[-1]).contiguous(), w["p"], gs)
+        return y.reshape(*lead, y.shape[-1])
+    if isinstance(w, dict) and "q" in w:
+        y = x @ w["q"].to(x.dtype)
+        return y * w["s"].to(x.dtype)
     return x @ w
+
+
+def _quantize_weight(w, mode: str, group_size: int):
+    if mode == "int8":
+        return quantize_int8(w)
+    if mode == "int4":
+        i = w.shape[-2]
+        g = group_size
+        # g must divide I and must not straddle the half split (the kernel's
+        # contract): (I/2) % g == 0
+        while g > 1 and (i % g or (i // 2) % g):
+            g //= 2
+        return quantize_int4(w, group_size=g)
+    raise ValueError(mode)
+
+
+def quantize_layer_stack(layers: dict, targets=DEFAULT_TARGETS, mode="int8",
+                         group_size=128) -> dict:
+    out = dict(layers)
+    for name in targets:
+        if name in out and not isinstance(out[name], dict):
+            out[name] = _quantize_weight(out[name], mode, group_size)
+    return out
+
+
+def quantize_dual_ar(params, targets=DEFAULT_TARGETS, quantize_heads=True,
+                     mode: str = "int8", group_size: int = 128):
+    """Quantize the Dual-AR parameter tree (returns a new tree).
+
+    mode: "int8" (per channel) or "int4" (group-wise, packed). Embedding
+    tables stay as they are (gathers, not matmuls); the untied LM head and
+    the fast head are quantized when `quantize_heads`, always int8."""
+    out = dict(params)
+    out["layers"] = quantize_layer_stack(params["layers"], targets, mode,
+                                         group_size)
+    fast = dict(params["fast"])
+    fast["layers"] = quantize_layer_stack(fast["layers"], targets, mode,
+                                          group_size)
+    if quantize_heads and "output" in fast and not isinstance(fast["output"], dict):
+        fast["output"] = quantize_int8(fast["output"])
+    out["fast"] = fast
+    if quantize_heads and "output" in out and not isinstance(out["output"], dict):
+        out["output"] = quantize_int8(out["output"])
+    return out
+
+
+def _quantize_stacked(w, mode, group_size):
+    """Quantize a leaf one layer at a time, so the fp32 temporaries stay
+    one layer in size; the outputs are allocated once and filled."""
+    if w.dim() != 3:
+        return _quantize_weight(w, mode, group_size)
+    first = _quantize_weight(w[0], mode, group_size)
+    out = {k: torch.empty((w.shape[0], *v.shape), dtype=v.dtype, device=v.device)
+           for k, v in first.items()}
+    for i in range(w.shape[0]):
+        qi = first if i == 0 else _quantize_weight(w[i], mode, group_size)
+        for k, v in qi.items():
+            out[k][i] = v
+    return out
+
+
+def quantize_dual_ar_lowmem(params, targets=DEFAULT_TARGETS,
+                            quantize_heads=True, mode="int8", fast_mode=None,
+                            group_size: int = 128):
+    """Memory-bounded quantization of a device-resident model: one leaf at
+    a time, one layer at a time, each source leaf dropped from the returned
+    tree as soon as it is quantized (the caller drops its own reference to
+    `params` to free it). `fast_mode` quantizes the fast stack differently
+    ("mixed": mode="int8", fast_mode="int4"); the heads are always int8.
+
+    Returns a new tree equal to `quantize_dual_ar`'s (with `fast_mode`)."""
+    out = dict(params)
+    layers = dict(params["layers"])
+    for name in targets:
+        if name in layers and not isinstance(layers[name], dict):
+            layers[name] = _quantize_stacked(layers.pop(name), mode, group_size)
+    out["layers"] = layers
+    fast = dict(params["fast"])
+    flayers = dict(fast["layers"])
+    for name in targets:
+        if name in flayers and not isinstance(flayers[name], dict):
+            flayers[name] = _quantize_stacked(flayers.pop(name),
+                                              fast_mode or mode, group_size)
+    fast["layers"] = flayers
+    if quantize_heads and "output" in fast and not isinstance(fast["output"], dict):
+        fast["output"] = _quantize_stacked(fast.pop("output"), "int8", group_size)
+    out["fast"] = fast
+    if quantize_heads and "output" in out and not isinstance(out["output"], dict):
+        out["output"] = _quantize_stacked(out.pop("output"), "int8", group_size)
+    return out

@@ -25,8 +25,8 @@ import click
 def _peek_num_codebooks(paths):
     """Codebook count of the first sentence in the data (None if no data
     is readable) — the tiny dev model is sized to match."""
-    from fish_speech_tpu.data.dataset import expand_proto_files
-    from fish_speech_tpu.data.stream import read_pb_stream
+    from fish_speech_tpu_torch.data.dataset import expand_proto_files
+    from fish_speech_tpu_torch.data.stream import read_pb_stream
 
     for f in expand_proto_files(list(paths)):
         try:
@@ -82,11 +82,11 @@ def main(checkpoint_path, data_paths, val_paths, output, max_steps, batch_size,
 
     import torch
 
-    from fish_speech_tpu.config import dual_ar_tiny
-    from fish_speech_tpu.data.dataset import (DataLoader,
-                                              SemanticIterableDataset,
-                                              TextDataCollator)
-    from fish_speech_tpu.tokenizer import FishTokenizer, build_test_tokenizer
+    from fish_speech_tpu_torch.config import dual_ar_tiny
+    from fish_speech_tpu_torch.data.dataset import (DataLoader,
+                                                    SemanticIterableDataset,
+                                                    TextDataCollator)
+    from fish_speech_tpu_torch.tokenizer import FishTokenizer, build_test_tokenizer
     from fish_speech_tpu_torch.models.lora import LoraConfig
     from fish_speech_tpu_torch.train.trainer import TrainConfig, Trainer
     from fish_speech_tpu_torch.utils.checkpoint import load_dual_ar

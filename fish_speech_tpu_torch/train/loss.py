@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import torch
 
-from fish_speech_tpu.config import DualARConfig
+from fish_speech_tpu_torch.config import DualARConfig
 from fish_speech_tpu_torch.models.dual_ar import forward_train
 
 IGNORE_INDEX = -100

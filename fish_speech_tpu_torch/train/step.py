@@ -16,7 +16,7 @@ from typing import Callable, Optional
 
 import torch
 
-from fish_speech_tpu.config import DualARConfig
+from fish_speech_tpu_torch.config import DualARConfig
 from fish_speech_tpu_torch.train.loss import dual_ar_loss
 
 _NO_DECAY_NAMES = ("alpha", "alpha1", "alpha2", "gamma", "norm_w", "norm_b")

@@ -21,7 +21,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from fish_speech_tpu.config import DualARConfig
+from fish_speech_tpu_torch.config import DualARConfig
 from fish_speech_tpu_torch.models import dual_ar
 from fish_speech_tpu_torch.models.lora import (LoraConfig, add_lora,
                                                apply_lora_config, extract_lora,

@@ -4,6 +4,11 @@ Port of the reading half of `fish_speech_tpu/utils/checkpoint.py`: a
 directory with `config.json` (DualARConfig) and `model.safetensors`, a flat
 "/"-joined parameter tree whose bf16 leaves are stored as raw uint16 bits
 under a "::bf16" key suffix. Lists are numeric path segments.
+
+A quantized tree (`ops/quant.py`) reads back as it was written: integer
+leaves (int8 `q`, uint8 `p`) stay integer, and floating leaves, the scales
+included, are cast to `dtype` when one is given, as the JAX package's
+`load_params` casts them.
 """
 
 from __future__ import annotations
@@ -14,7 +19,7 @@ import numpy as np
 import torch
 from safetensors.numpy import load_file
 
-from fish_speech_tpu.config import DualARConfig
+from fish_speech_tpu_torch.config import DualARConfig
 
 _BF16_SUFFIX = "::bf16"
 

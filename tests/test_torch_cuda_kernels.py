@@ -12,14 +12,30 @@ rows with few visible keys have outputs above 2 in magnitude, where the
 kernel's and the plain version's roundings can land one step apart. The
 training backward's gradients are held to 1e-4 (fp32) or 2e-2 (bf16) of
 each tensor's largest magnitude.
+
+The int4 matmul (`csrc/int4_mm.cu`) keeps the dequantized weight and the
+sums in fp32: fp32 cases are held to 1e-5 of |x| @ |W| (summation order),
+bf16 cases to one bf16 rounding of W and of y, 2^-8 (|x| @ |W| + |y|),
+against both plain versions (`int4_matmul_reference` in fp32 and `mm`'s
+CPU path, which rounds W to bf16). The int8-KV decode kernel is held to
+kernel 2's bounds (the plain version rounds p * vs to bf16, the kernel
+keeps it in fp32). The fast-stack probe at small dims (3 layers, 2 steps)
+is held to 1e-3 abs on outputs of rms 1 (fp32 sums in another order, and
+the activations' bf16 / int8 rounding can land one step apart).
 """
 
 import numpy as np
 import pytest
 import torch
 
-from fish_speech_tpu_torch.ops.flash_decode import (flash_decode_attention,
-                                                    flash_decode_reference)
+from fish_speech_tpu_torch.models.dual_ar import _kv_quant
+from fish_speech_tpu_torch.ops import faststack
+from fish_speech_tpu_torch.ops.flash_decode import (
+    flash_decode_attention, flash_decode_attention_kv8,
+    flash_decode_kv8_reference, flash_decode_reference)
+from fish_speech_tpu_torch.ops.int4 import int4_matmul, int4_matmul_reference
+from fish_speech_tpu_torch.ops.quant import (_int4_effective_weight, mm,
+                                             quantize_int4)
 from fish_speech_tpu_torch.ops.flash_prefill import (flash_prefill_attention,
                                                      flash_prefill_reference)
 from fish_speech_tpu_torch.ops.flash_train import (
@@ -192,3 +208,100 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
         flash_train_forward(q, k, k, kvalid)
     with pytest.raises(TypeError):
         flash_train_forward(q.half(), k.half(), k.half(), kvalid)
+
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,i,o,g", [
+    (1, 2560, 6144, 128),    # slow wqkv, decode
+    (1, 9728, 2560, 128),    # slow w2
+    (1, 1536, 1536, 128),    # fast wo
+    (3, 256, 200, 64),       # O not a multiple of 256
+    (8, 128, 130, 32),       # ragged O, the matvec kernel's largest B
+    (9, 256, 136, 64),       # the tiled kernel's smallest B
+    (300, 512, 264, 128),
+    (1024, 2560, 6144, 128), # slow wqkv, prefill bucket 1024
+])
+def test_int4_kernel_matches_plain(dev, dtype, b, i, o, g):
+    rng = np.random.default_rng(b + i + o)
+    w = torch.from_numpy(rng.standard_normal((i, o)).astype(np.float32) * 0.02)
+    qw = {k: v.to(dev) for k, v in quantize_int4(w, group_size=g).items()}
+    x = _randn(rng, (b, i), dtype, dev)
+    n0 = int4_matmul.launches
+    got = int4_matmul(x, qw["p"], qw["gs"])
+    torch.cuda.synchronize()
+    assert int4_matmul.launches == n0 + 1 and got.dtype == dtype
+    want = int4_matmul_reference(x, qw["p"], qw["gs"]).float()
+    w_abs = _int4_effective_weight(qw, torch.float32).abs()
+    scale = x.float().abs() @ w_abs
+    err = (got.float() - want).abs()
+    if dtype == torch.float32:
+        assert bool((err <= 1e-5 * scale + 1e-6).all()), err.max().item()
+    else:
+        bound = 2.0 ** -8 * (scale + want.abs())
+        assert bool((err <= bound).all()), err.max().item()
+        plain_bf16 = (x @ _int4_effective_weight(qw, dtype)).float()  # mm on CPU
+        assert bool(((got.float() - plain_bf16).abs()
+                     <= 2.0 ** -8 * (scale + plain_bf16.abs())).all())
+    # mm dispatches CUDA int4 weights to the kernel
+    assert torch.equal(mm(x[None], qw)[0], got)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n_layer,b,s,hkv,g,d,lengths", [
+    (2, 1, 2112, 8, 4, 128, [1]),
+    (2, 1, 2112, 8, 4, 128, [129]),
+    (2, 1, 2112, 8, 4, 128, [2000]),
+    (2, 3, 300, 2, 8, 64, [1, 128, 300]),
+    (1, 2, 96, 4, 3, 128, [96, 40]),
+])
+def test_kv8_decode_kernel_matches_plain(dev, dtype, n_layer, b, s, hkv, g, d,
+                                         lengths):
+    rng = np.random.default_rng(s + sum(lengths))
+    q = _randn(rng, (b, hkv, g, d), dtype, dev)
+    k, ks = _kv_quant(_randn(rng, (n_layer, b, s, hkv, d), torch.float32, dev))
+    v, vs = _kv_quant(_randn(rng, (n_layer, b, s, hkv, d), torch.float32, dev))
+    lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    for layer in range(n_layer):
+        n0 = flash_decode_attention_kv8.launches
+        got = flash_decode_attention_kv8(q, k, ks, v, vs, layer, lens)
+        torch.cuda.synchronize()
+        assert flash_decode_attention_kv8.launches == n0 + 1
+        _assert_close(got, flash_decode_kv8_reference(q, k, ks, v, vs, layer,
+                                                      lens), dtype)
+
+
+@pytest.mark.parametrize("variant", ["bf16", "w8a8"])
+@pytest.mark.parametrize("r", [0, 1])
+def test_faststack_kernel_matches_plain(dev, variant, r):
+    dims = faststack.ProbeDims(df=256, dqkv=384, inter=512, n_layer=3, steps=2)
+    w = faststack.make_weights(dims, dev)
+    x = torch.full((1, dims.df), 0.01, device=dev)
+    n0 = faststack.faststack_probe.launches
+    got = faststack.faststack_probe(x, w, r, variant, dims)
+    torch.cuda.synchronize()
+    assert faststack.faststack_probe.launches == n0 + 1
+    want = faststack.probe_reference(x, w, variant, dims)
+    assert (got - want).abs().max().item() <= 1e-3
+    faststack.reset_l2_persistence()
+
+
+def test_new_wrappers_reject_what_the_kernels_do_not_take(dev):
+    x = torch.zeros(1, 96, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="straddle"):
+        int4_matmul(x, torch.zeros(48, 8, dtype=torch.uint8, device=dev),
+                    torch.ones(3, 8, device=dev))
+    with pytest.raises(TypeError):
+        int4_matmul(x.half(), torch.zeros(48, 8, dtype=torch.uint8, device=dev),
+                    torch.ones(1, 8, device=dev))
+    q = torch.zeros(1, 2, 4, 128, device=dev, dtype=torch.bfloat16)
+    kq = torch.zeros(1, 1, 8, 2, 128, device=dev, dtype=torch.int8)
+    sc = torch.zeros(1, 1, 8, 2, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(TypeError):
+        flash_decode_attention_kv8(q, kq, sc.float(), kq, sc, 0,
+                                   torch.ones(1, dtype=torch.int32, device=dev))
+    dims = faststack.ProbeDims(df=64, dqkv=128, inter=64, n_layer=2, steps=1)
+    with pytest.raises(ValueError):
+        faststack.faststack_probe(torch.zeros(1, 32, device=dev),
+                                  faststack.make_weights(dims, dev), 0,
+                                  "bf16", dims)

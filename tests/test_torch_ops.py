@@ -9,6 +9,7 @@ runs the plain version and never counts a launch.
 """
 
 import os
+import re
 import subprocess
 import sys
 
@@ -34,6 +35,7 @@ from fish_speech_tpu_torch.ops.flash_decode import (flash_decode_attention,
                                                     flash_decode_reference)
 from fish_speech_tpu_torch.ops.flash_prefill import (flash_prefill_attention,
                                                      flash_prefill_reference)
+from fish_speech_tpu_torch.ops.int4 import int4_matmul
 from fish_speech_tpu_torch.ops.quant import mm
 
 torch.set_num_threads(1)
@@ -163,10 +165,16 @@ def test_flash_decode_plain_matches_pallas_interpret(g, lengths):
 
 
 def test_mm_rejects_quantized_weights():
+    """`mm` takes int8 and int4 weight dicts (`tests/test_torch_quant.py`
+    holds them to JAX); it rejects an int4 weight whose groups straddle the
+    half split, as the kernel's contract does."""
     x = torch.ones(2, 4)
     assert mm(x, torch.ones(4, 3)).shape == (2, 3)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        mm(x, {"q": torch.ones(4, 3, dtype=torch.int8), "s": torch.ones(3)})
+    y = mm(x, {"q": torch.ones(4, 3, dtype=torch.int8), "s": torch.full((3,), 0.5)})
+    np.testing.assert_array_equal(y.numpy(), np.full((2, 3), 2.0, np.float32))
+    with pytest.raises(ValueError, match="straddle"):
+        int4_matmul(torch.ones(1, 12), torch.zeros(6, 3, dtype=torch.uint8),
+                    torch.ones(3, 3))
 
 
 PORT_MODULES = [
@@ -194,7 +202,80 @@ PORT_MODULES = [
     "fish_speech_tpu_torch.convert.from_jax",
     "fish_speech_tpu_torch.generate",
     "fish_speech_tpu_torch.engine.tts",
+    "fish_speech_tpu_torch.ops.int4",
+    "fish_speech_tpu_torch.ops.faststack",
+    "fish_speech_tpu_torch.config",
+    "fish_speech_tpu_torch.tokenizer",
+    "fish_speech_tpu_torch.sequence",
+    "fish_speech_tpu_torch.audio.io",
+    "fish_speech_tpu_torch.data.clean",
+    "fish_speech_tpu_torch.data.stream",
+    "fish_speech_tpu_torch.data.dataset",
+    "fish_speech_tpu_torch.data.protos",
+    "fish_speech_tpu_torch.utils.file",
 ]
+
+# Run on the CPU with the JAX package and jax unimportable: every port
+# module, the tiny training CLI, a streamed engine request (generate_long
+# inside), a mixed-quantized int8-KV session and the fast-stack probe.
+_RUN_WITHOUT_JAX = """
+import importlib, os, sys, tempfile
+sys.modules['jax'] = None
+for m in MODULES:
+    importlib.import_module(m)
+import numpy as np, torch
+from fish_speech_tpu_torch import config
+from fish_speech_tpu_torch.convert.from_jax import init_dac_decoder
+from fish_speech_tpu_torch.data.protos import Semantics, Sentence, TextData
+from fish_speech_tpu_torch.data.stream import write_pb_stream
+from fish_speech_tpu_torch.engine.tts import TTSInferenceEngine, TTSRequest
+from fish_speech_tpu_torch.generate import GenerationSession
+from fish_speech_tpu_torch.models import dual_ar
+from fish_speech_tpu_torch.ops import faststack, quant
+from fish_speech_tpu_torch.tokenizer import build_test_tokenizer
+from fish_speech_tpu_torch.train import cli
+
+tmp = tempfile.mkdtemp()
+rng = np.random.default_rng(0)
+with open(os.path.join(tmp, 'd.protos'), 'wb') as f:
+    for g in range(2):
+        sents = [Sentence(texts=['a short line'], semantics=[
+            Semantics(values=rng.integers(0, 32, size=6).tolist())
+            for _ in range(3)]) for _ in range(3)]
+        write_pb_stream(f, TextData(source='t', name=f's{g}', sentences=sents))
+cli.main(['--tiny', '--cpu', '--data', os.path.join(tmp, 'd.protos'),
+          '--output', os.path.join(tmp, 'ft'), '--max-steps', '1',
+          '--batch-size', '1', '--max-length', '64', '--precision', 'float32'],
+         standalone_mode=False)
+
+tok = build_test_tokenizer()
+dac_cfg = config.dac_tiny()
+cfg = config.dual_ar_tiny(vocab_size=tok.vocab_size, max_seq_len=256,
+                          num_codebooks=dac_cfg.rvq.total_codebooks,
+                          tie_word_embeddings=False,
+                          semantic_begin_id=tok.semantic_begin_id,
+                          semantic_end_id=tok.semantic_end_id,
+                          im_end_id=tok.im_end_id)
+params = quant.quantize_dual_ar_lowmem(
+    dual_ar.init_dual_ar(0, cfg, torch.float32, 'cpu'), mode='int8',
+    fast_mode='int4')
+session = GenerationSession(params, cfg, dtype=torch.float32,
+                            decode_chunk_size=4, kv_quant=True)
+engine = TTSInferenceEngine(session, tok, init_dac_decoder(1, dac_cfg), dac_cfg)
+codes = [r.code for r in engine.inference(TTSRequest(
+    text='Hi.', streaming=True, max_new_tokens=6, seed=1))]
+assert codes[0] == 'header' and codes[-1] == 'final', codes
+
+dims = faststack.ProbeDims(64, 128, 64, 2, 2)
+out = faststack.make_probe(1, 'w8a8', dims)(
+    torch.ones(1, 64), faststack.make_weights(dims))
+assert bool(torch.isfinite(out).all())
+
+bad = sorted(m for m in sys.modules
+             if m == 'fish_speech_tpu' or m.startswith('fish_speech_tpu.'))
+assert not bad, bad
+print('ok')
+"""
 
 
 def test_port_imports_no_jax():
@@ -215,3 +296,19 @@ def test_port_imports_no_jax():
                          cwd=os.path.dirname(os.path.dirname(__file__)))
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().endswith("ok")
+
+
+def test_port_runs_without_the_jax_package():
+    """The import rule as a test: the port's paths run on the CPU with `jax`
+    unimportable, and no `fish_speech_tpu` module is loaded on the way;
+    `chip_smoke.py` imports nothing of either."""
+    code = _RUN_WITHOUT_JAX.replace("MODULES", repr(PORT_MODULES))
+    env = {k: v for k, v in os.environ.items() if not k.startswith("XLA")}
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, timeout=300, cwd=root)
+    assert out.returncode == 0, out.stderr[-4000:]
+    assert out.stdout.strip().endswith("ok")
+    src = open(os.path.join(root, "chip_smoke.py")).read()
+    assert not re.search(r"^\s*(from|import)\s+(jax|fish_speech_tpu)\b(?!_torch)",
+                         src, re.M)
