@@ -48,22 +48,25 @@ Phases, each of which ends the run with a nonzero exit if it fails:
 6. quantized serving: the training model is freed, full-width s2-pro (bf16,
    seed 0, max_seq_len 2048) is quantized `mixed` (`quantize_dual_ar_lowmem
    (mode="int8", fast_mode="int4")`) and served with the int8 KV cache
-   (`kv_quant=True`) to phase 4's four streamed requests: finite whole
-   frames, identical codes on the repeated seed, and `int4_mm`,
+   (`kv_quant=True`) to phase 4's short request and its repeat: finite
+   whole frames, identical codes on the repeated seed, and `int4_mm`,
    `flash_decode_kv8` and `flash_prefill` launched. Then the model is
    rebuilt and quantized `int4` (every layer int4, heads int8) and serves
-   the 700-byte request (prefill bucket 1024: `int4_mm` at prefill shapes)
-   and the short one. TTFA, frames/s, weight bytes and peak memory for both,
-   and the fast stack's time per frame on the serving path;
+   the 700-byte request (prefill bucket 1024: `int4_mm` at prefill shapes).
+   TTFA, frames/s, weight bytes and peak memory for both, and the fast
+   stack's time per frame on the serving path;
 7. the fast-stack probe at flagship dims (12 layers x 10 steps, 1536 /
    2560 / 6144): R in {0, 1} x {bf16, w8a8}, each against its plain version
-   on one codebook step (the 12 layers at full width; outputs of rms 1):
-   w8a8 to 1e-5 (int8 products summed exactly in int32 on both sides),
-   bf16 to 5e-2 (fp32 sums in another order move a few activations across
-   a bf16 rounding boundary, a 2^-8 jump each, compounding over the 12
-   layers). The whole 120-layer frame is chaotic under such jumps: its
-   error and the kernel's run-to-run spread are printed, not held. Then ms
-   per frame and effective GB/s through the probe's own `_bench`.
+   on one and on two codebook steps (12 and 24 layers at full width, the
+   second step re-reading every layer; outputs of rms 1): w8a8 to 1e-5
+   (int8 products summed exactly in int32 on both sides), bf16 to 5e-2
+   (fp32 sums in another order move a few activations across a bf16
+   rounding boundary, a 2^-8 jump each, compounding over the layers).
+   Faulty weights in the plain chain (one layer's w2, or one 128-column
+   tile of it, from the next layer) must score above each bound. The whole
+   120-layer frame is chaotic under such jumps: its error and the kernel's
+   run-to-run spread are printed, not held. Then ms per frame and
+   effective GB/s through the probe's own `_bench`.
 
 Each phase sets the kernels' launch counts to 0 before it drives its path
 and reads them after. The line before the last is a JSON object with each
@@ -619,7 +622,8 @@ def _s2_pro_cfg(tokenizer, max_seq_len):
 
 
 def _requests():
-    """Phase 4's streamed requests (one client, in this order)."""
+    """Phase 4's streamed requests (one client, in this order). 72 new
+    tokens each: the first chunk of 8 and one of 64, so no step is cut."""
     from fish_speech_tpu_torch.engine.tts import TTSRequest
 
     short = "Hello from the port. This is a short streamed request."
@@ -629,13 +633,13 @@ def _requests():
     medium = ("Streaming speech synthesis sends the first audio while the "
               "rest is still being generated. ") * 3
     return [
-        ("short", TTSRequest(text=short, streaming=True, max_new_tokens=96, seed=11)),
-        ("long", TTSRequest(text=long_text, streaming=True, max_new_tokens=96,
+        ("short", TTSRequest(text=short, streaming=True, max_new_tokens=72, seed=11)),
+        ("long", TTSRequest(text=long_text, streaming=True, max_new_tokens=72,
                             seed=12, chunk_length=1000)),
-        ("medium", TTSRequest(text=medium, streaming=True, max_new_tokens=96,
+        ("medium", TTSRequest(text=medium, streaming=True, max_new_tokens=72,
                               seed=13)),
         ("short-repeat", TTSRequest(text=short, streaming=True,
-                                    max_new_tokens=96, seed=11)),
+                                    max_new_tokens=72, seed=11)),
     ]
 
 
@@ -769,8 +773,9 @@ def fast_stack_frame_ms(session, frames=20):
 
 
 def run_quant_slice(dev, tokenizer):
-    """Phase 6: quantized serving of full-width s2-pro, `mixed` with the int8
-    KV cache (four requests), then `int4` (two requests)."""
+    """Phase 6: quantized serving of full-width s2-pro with the int8 KV
+    cache, `mixed` (the short request and its repeat), then `int4` (the
+    700-byte request)."""
     import torch
 
     from fish_speech_tpu_torch.config import SamplingConfig, dac_s2_pro
@@ -790,8 +795,8 @@ def run_quant_slice(dev, tokenizer):
     requests = dict(_requests())
     out = {}
     for label, mode, fast_mode, names in (
-            ("mixed", "int8", "int4", ["short", "long", "medium", "short-repeat"]),
-            ("int4", "int4", None, ["long", "short"])):
+            ("mixed", "int8", "int4", ["short", "short-repeat"]),
+            ("int4", "int4", None, ["long"])):
         torch.cuda.reset_peak_memory_stats(dev)
         t0 = time.perf_counter()
         params = quantize_dual_ar_lowmem(
@@ -832,6 +837,24 @@ def run_quant_slice(dev, tokenizer):
     return out
 
 
+def _probe_faults(weights, dims):
+    """Two faulty weight sets for the plain chain, to show what a wrong
+    kernel scores against the check's bound: layer 0 reads layer 1's whole
+    w2 (the kind of fault the TPU probe's prefetch race makes), and layer 0
+    reads layer 1's w2 in one 128-column tile only (one block's share)."""
+    from fish_speech_tpu_torch.ops.faststack import layer_weights
+
+    faults = {}
+    for name, cols in (("layer 0 reads layer 1's w2", slice(None)),
+                       ("one 128-column tile of layer 0's w2 from layer 1",
+                        slice(0, 128))):
+        bad = {"w": weights["w"].clone(), "sc": weights["sc"]}
+        layer_weights(bad, 0, dims)["w2"][0][:, cols] = (
+            layer_weights(weights, 1, dims)["w2"][0][:, cols])
+        faults[name] = bad
+    return faults
+
+
 def run_probe(dev, serving_fast_ms):
     """Phase 7: the fast-stack probe at flagship dims against its plain
     version, R in {0, 1} x {bf16, w8a8}."""
@@ -846,20 +869,37 @@ def run_probe(dev, serving_fast_ms):
           f"int8 made in {time.perf_counter() - t0:.1f}s")
     x = torch.full((1, dims.df), 0.01, device=dev)
     configs = [(variant, r) for variant in ("bf16", "w8a8") for r in (0, 1)]
-    # the check: one codebook step (12 layers) at flagship widths
-    one_step = dataclasses.replace(dims, steps=1)
+    # the checks: one and two codebook steps (12 and 24 layers; the second
+    # step re-reads every layer, the resident one from L2) at full width
+    held = [dataclasses.replace(dims, steps=n) for n in (1, 2)]
     tol = {"bf16": 5e-2, "w8a8": 1e-5}
+    faults = _probe_faults(weights, dims)
+    for variant in tol:
+        for d in held:
+            want = faststack.probe_reference(x, weights, variant, d)
+            for name, bad in faults.items():
+                e = (faststack.probe_reference(x, bad, variant, d) - want).abs()
+                print(f"probe fault yardstick {variant} steps={d.steps}: {name}: "
+                      f"max_abs_err {e.max().item():.3e} mean {e.mean().item():.3e} "
+                      f"(bound {tol[variant]:g})")
+                if e.max().item() <= tol[variant]:
+                    raise SystemExit(f"probe: the {variant} bound cannot see a "
+                                     f"fault ({name})")
+    del faults
     checks = {}
     for variant, r in configs:
-        got = faststack.faststack_probe(x, weights, r, variant, one_step)
-        want = faststack.probe_reference(x, weights, variant, one_step)
+        errs = []
+        for d in held:
+            got = faststack.faststack_probe(x, weights, r, variant, d)
+            want = faststack.probe_reference(x, weights, variant, d)
+            errs.append((got - want).abs())
         frame = faststack.faststack_probe(x, weights, r, variant, dims)
         again = faststack.faststack_probe(x, weights, r, variant, dims)
         frame_want = faststack.probe_reference(x, weights, variant, dims)
         plain_ms = _time_ms(lambda i=0: faststack.probe_reference(
             x, weights, variant, dims), 2)
         checks[variant, r] = dict(
-            err=(got - want).abs(), out_max=want.abs().max().item(),
+            errs=errs, out_max=want.abs().max().item(),
             finite=bool(torch.isfinite(frame).all()), plain_ms=plain_ms,
             frame_err=(frame - frame_want).abs().max().item(),
             spread=(frame - again).abs().max().item())
@@ -867,35 +907,39 @@ def run_probe(dev, serving_fast_ms):
     # best of 3 x 30 chained frames; only these launches are counted
     faststack.faststack_probe.launches = 0
     rows = []
+    scale_bytes = 4 * (dims.dqkv + 2 * dims.df + 2 * dims.inter)
     for variant, r in configs:
         ms = faststack._bench(r, variant, dims=dims, weights=weights, device=dev)
         c = checks[variant, r]
-        err, plain_ms = c["err"], c["plain_ms"]
+        plain_ms = c["plain_ms"]
         traffic = dims.frame_bytes(r)
-        n_w = dims.layer_bytes * dims.n_layer
-        flops = 2 * n_w * dims.steps
-        bound = _bound(flops, n_w + 4 * (dims.dqkv + 2 * dims.df
-                                         + 2 * dims.inter) * dims.n_layer
-                       + 8 * dims.df,
+        # least time: every streamed layer (weights and scales) is read on
+        # each step, the resident one once; the L2 cannot hold the rest
+        layer_reads = r + dims.steps * (dims.n_layer - r)
+        flops = 2 * dims.layer_bytes * dims.n_layer * dims.steps
+        bound = _bound(flops, traffic + layer_reads * scale_bytes + 8 * dims.df,
                        PEAK_INT8 if variant == "w8a8" else PEAK_BF16)
         row = dict(shape=f"R={r} {variant} DF={dims.df} DQKV={dims.dqkv} "
                          f"INTER={dims.inter} NL={dims.n_layer} "
-                         f"steps={dims.steps} (error: 1 step)",
-                   max_abs_err=err.max().item(), mean_abs_err=err.mean().item(),
+                         f"steps={dims.steps} (error: 1 and 2 steps)",
+                   max_abs_err=max(e.max().item() for e in c["errs"]),
+                   mean_abs_err=max(e.mean().item() for e in c["errs"]),
+                   step_max_abs_err=[e.max().item() for e in c["errs"]],
                    frame_max_abs_err=c["frame_err"], frame_spread=c["spread"],
                    ms=ms, plain_ms=plain_ms, bound_ms=bound[0],
                    bound_by=bound[1], library_ms=None,
-                   streamed_bound_ms=traffic / HBM_BYTES_PER_S * 1e3,
                    effective_gb_s=traffic / ms / 1e6)
         rows.append(row)
+        steps_err = ", ".join(f"{d.steps} step(s) ({d.steps * d.n_layer} layers) "
+                              f"{e.max().item():.3e} mean {e.mean().item():.3e}"
+                              for d, e in zip(held, c["errs"]))
         print(f"probe R={r} {variant}: {ms:.4f} ms/frame, effective "
               f"{row['effective_gb_s']:.0f} GB/s over {traffic / 1e9:.3f} GB "
-              f"(streamed bound {row['streamed_bound_ms']:.4f} ms); plain "
-              f"{plain_ms:.2f} ms; one step (12 layers): max_abs_err "
-              f"{row['max_abs_err']:.3e} (bound {tol[variant]:g}), mean "
-              f"{row['mean_abs_err']:.3e}, max |out| {c['out_max']:.3f}; whole "
-              f"frame (120 layers): max_abs_err {c['frame_err']:.3e}, kernel "
-              f"run-to-run {c['spread']:.3e}")
+              f"(bound {row['bound_ms']:.4f} ms, {row['bound_by']}); plain "
+              f"{plain_ms:.2f} ms; max_abs_err at {steps_err} (bound "
+              f"{tol[variant]:g}), max |out| {c['out_max']:.3f}; whole frame "
+              f"({dims.steps * dims.n_layer} layers): max_abs_err "
+              f"{c['frame_err']:.3e}, kernel run-to-run {c['spread']:.3e}")
         if not (c["finite"] and row["max_abs_err"] <= tol[variant]):
             raise SystemExit(f"probe R={r} {variant} disagrees with its plain "
                              f"version")

@@ -155,28 +155,24 @@ class GenerationSession:
 
     The session re-uses one cache for every request (each prefill writes
     the positions it reads); `params` (plain or quantized, `ops/quant.py`)
-    are augmented with the restricted LM head and, when `fuse_ffn` (default:
-    `max_batch == 1`, as in the JAX package), the fused w1|w3 FFN weight.
-    Fusing copies the FFN weights: the caller should drop its own reference
-    to `params`. `kv_quant` keeps the slow cache in int8 with per-(position,
+    are augmented with the restricted LM head and the fused w1|w3 FFN
+    weight (the JAX package fuses at batch 1, the only batch here). Fusing
+    copies the FFN weights: the caller should drop its own reference to
+    `params`. `kv_quant` keeps the slow cache in int8 with per-(position,
     head) scales (`dual_ar.init_kv_cache(quant=True)`)."""
 
     def __init__(self, params, cfg: DualARConfig, scfg: SamplingConfig = None,
                  max_batch: int = 1, dtype=torch.bfloat16,
                  decode_chunk_size: int = 32, first_chunk_size: int = 0,
-                 pipeline_lookahead: int = 1, fuse_ffn: Optional[bool] = None,
-                 kv_quant: bool = False):
+                 pipeline_lookahead: int = 1, kv_quant: bool = False):
         if max_batch != 1:
             raise NotImplementedError(
                 "batched sessions are not ported yet (ROADMAP: the batcher)")
         # detached views: a tree fresh from training (LoRA tensors that
         # require grad) must not make decoding record an autograd graph
         params = _detached(params)
-        self.params = dual_ar.precompute_semantic_head(params, cfg)
-        if fuse_ffn is None:
-            fuse_ffn = max_batch == 1
-        if fuse_ffn:
-            self.params = dual_ar.fuse_ffn_weights(self.params)
+        self.params = dual_ar.fuse_ffn_weights(
+            dual_ar.precompute_semantic_head(params, cfg))
         self.cfg = cfg.resolve()
         self.scfg = scfg or SamplingConfig()
         self.device = params["embeddings"].device

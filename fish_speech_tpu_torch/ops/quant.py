@@ -21,7 +21,10 @@ import torch
 
 from fish_speech_tpu_torch.ops.int4 import int4_matmul
 
-DEFAULT_TARGETS = ("wqkv", "wo", "w1", "w2", "w3")
+# the layer weights quantized, and the int4 group size (halved where a
+# weight needs it, `_quantize_weight`)
+TARGETS = ("wqkv", "wo", "w1", "w2", "w3")
+GROUP_SIZE = 128
 
 
 def quantize_int8(w, dim: int = -2):
@@ -84,12 +87,12 @@ def mm(x: torch.Tensor, w) -> torch.Tensor:
     return x @ w
 
 
-def _quantize_weight(w, mode: str, group_size: int):
+def _quantize_weight(w, mode: str):
     if mode == "int8":
         return quantize_int8(w)
     if mode == "int4":
         i = w.shape[-2]
-        g = group_size
+        g = GROUP_SIZE
         # g must divide I and must not straddle the half split (the kernel's
         # contract): (I/2) % g == 0
         while g > 1 and (i % g or (i // 2) % g):
@@ -98,77 +101,49 @@ def _quantize_weight(w, mode: str, group_size: int):
     raise ValueError(mode)
 
 
-def quantize_layer_stack(layers: dict, targets=DEFAULT_TARGETS, mode="int8",
-                         group_size=128) -> dict:
-    out = dict(layers)
-    for name in targets:
-        if name in out and not isinstance(out[name], dict):
-            out[name] = _quantize_weight(out[name], mode, group_size)
-    return out
-
-
-def quantize_dual_ar(params, targets=DEFAULT_TARGETS, quantize_heads=True,
-                     mode: str = "int8", group_size: int = 128):
-    """Quantize the Dual-AR parameter tree (returns a new tree).
-
-    mode: "int8" (per channel) or "int4" (group-wise, packed). Embedding
-    tables stay as they are (gathers, not matmuls); the untied LM head and
-    the fast head are quantized when `quantize_heads`, always int8."""
-    out = dict(params)
-    out["layers"] = quantize_layer_stack(params["layers"], targets, mode,
-                                         group_size)
-    fast = dict(params["fast"])
-    fast["layers"] = quantize_layer_stack(fast["layers"], targets, mode,
-                                          group_size)
-    if quantize_heads and "output" in fast and not isinstance(fast["output"], dict):
-        fast["output"] = quantize_int8(fast["output"])
-    out["fast"] = fast
-    if quantize_heads and "output" in out and not isinstance(out["output"], dict):
-        out["output"] = quantize_int8(out["output"])
-    return out
-
-
-def _quantize_stacked(w, mode, group_size):
+def _quantize_stacked(w, mode):
     """Quantize a leaf one layer at a time, so the fp32 temporaries stay
     one layer in size; the outputs are allocated once and filled."""
     if w.dim() != 3:
-        return _quantize_weight(w, mode, group_size)
-    first = _quantize_weight(w[0], mode, group_size)
+        return _quantize_weight(w, mode)
+    first = _quantize_weight(w[0], mode)
     out = {k: torch.empty((w.shape[0], *v.shape), dtype=v.dtype, device=v.device)
            for k, v in first.items()}
     for i in range(w.shape[0]):
-        qi = first if i == 0 else _quantize_weight(w[i], mode, group_size)
+        qi = first if i == 0 else _quantize_weight(w[i], mode)
         for k, v in qi.items():
             out[k][i] = v
     return out
 
 
-def quantize_dual_ar_lowmem(params, targets=DEFAULT_TARGETS,
-                            quantize_heads=True, mode="int8", fast_mode=None,
-                            group_size: int = 128):
-    """Memory-bounded quantization of a device-resident model: one leaf at
-    a time, one layer at a time, each source leaf dropped from the returned
-    tree as soon as it is quantized (the caller drops its own reference to
-    `params` to free it). `fast_mode` quantizes the fast stack differently
-    ("mixed": mode="int8", fast_mode="int4"); the heads are always int8.
+def quantize_dual_ar_lowmem(params, mode="int8", fast_mode=None):
+    """Quantize the Dual-AR parameter tree of a device-resident model, one
+    leaf at a time and one layer at a time, each source leaf dropped from
+    the returned tree as soon as it is quantized (the caller drops its own
+    reference to `params` to free it).
 
-    Returns a new tree equal to `quantize_dual_ar`'s (with `fast_mode`)."""
+    mode: "int8" (per channel) or "int4" (group-wise, packed) for the
+    TARGETS of both layer stacks; `fast_mode` quantizes the fast stack
+    differently ("mixed": mode="int8", fast_mode="int4"). Embedding tables
+    stay as they are (gathers, not matmuls); the untied LM head and the
+    fast head are always int8. The tree equals the JAX package's
+    `quantize_dual_ar` with the same modes."""
     out = dict(params)
     layers = dict(params["layers"])
-    for name in targets:
+    for name in TARGETS:
         if name in layers and not isinstance(layers[name], dict):
-            layers[name] = _quantize_stacked(layers.pop(name), mode, group_size)
+            layers[name] = _quantize_stacked(layers.pop(name), mode)
     out["layers"] = layers
     fast = dict(params["fast"])
     flayers = dict(fast["layers"])
-    for name in targets:
+    for name in TARGETS:
         if name in flayers and not isinstance(flayers[name], dict):
             flayers[name] = _quantize_stacked(flayers.pop(name),
-                                              fast_mode or mode, group_size)
+                                              fast_mode or mode)
     fast["layers"] = flayers
-    if quantize_heads and "output" in fast and not isinstance(fast["output"], dict):
-        fast["output"] = _quantize_stacked(fast.pop("output"), "int8", group_size)
+    if "output" in fast and not isinstance(fast["output"], dict):
+        fast["output"] = _quantize_stacked(fast.pop("output"), "int8")
     out["fast"] = fast
-    if quantize_heads and "output" in out and not isinstance(out["output"], dict):
-        out["output"] = _quantize_stacked(out.pop("output"), "int8", group_size)
+    if "output" in out and not isinstance(out["output"], dict):
+        out["output"] = _quantize_stacked(out.pop("output"), "int8")
     return out

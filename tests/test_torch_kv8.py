@@ -219,10 +219,12 @@ def test_greedy_quantized_kv8_session_matches_jax(tokenizer, mode, fast_mode):
 def test_session_options_follow_jax(tokenizer):
     jcfg, cfg = _cfgs(tokenizer)
     _, tq = _quantized(jcfg, "int8", None)
-    split = tgen.GenerationSession(tq, cfg, fuse_ffn=False, dtype=torch.float32)
-    assert "w1" in split.params["layers"] and "w13" not in split.params["layers"]
-    assert split.cache["k"].dtype == torch.float32 and "ks" not in split.cache
-    assert split.params["_semantic_head"]["q"].dtype == torch.int8
+    session = tgen.GenerationSession(tq, cfg, dtype=torch.float32)
+    fused = session.params["layers"]["w13"]  # fused at batch 1, as in JAX
+    assert "w1" not in session.params["layers"] and fused["q"].dtype == torch.int8
+    assert fused["q"].shape[-1] == 2 * tq["layers"]["w1"]["q"].shape[-1]
+    assert session.cache["k"].dtype == torch.float32 and "ks" not in session.cache
+    assert session.params["_semantic_head"]["q"].dtype == torch.int8
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tgen.GenerationSession(tq, cfg, max_batch=2)
     cfg2 = dataclasses.replace(cfg, max_seq_len=64)
