@@ -6,7 +6,9 @@
 Phases, each of which ends the run with a nonzero exit if it fails:
 
 1. the card (`nvidia-smi` name and power limit), torch and CUDA versions,
-   and the build of the CUDA kernels from `fish_speech_tpu_torch/csrc/`;
+   the build of the CUDA kernels from `fish_speech_tpu_torch/csrc/`, and
+   the count of HGMMA (wgmma) instructions in the int4 tensor-core
+   kernel's SASS (`cuobjdump -sass`), which must not be 0;
 2. each kernel against its plain PyTorch version at the main paths' shapes,
    in bf16 from N(0,1) inputs (pass: max abs error <= 2e-2, mean <= 2e-3,
    the bound of bf16 rounding of P before P.V in the plain version; the
@@ -15,9 +17,14 @@ Phases, each of which ends the run with a nonzero exit if it fails:
    magnitude and 1e-2 of its mean magnitude), timed with CUDA events in
    turns (plain, kernel, kernel, plain). The training kernels run at B=2
    T=1024 with a right-padded row, B=1 T=4096 and a ragged B=2 T=1000.
-   The int4 matmul runs at s2-pro's eight decode shapes (B=1) and two
-   prefill shapes (B=1024), held to one bf16 rounding of W and y, 2^-8
-   (|x| @ |W| + |y|) elementwise; the int8-KV decode kernel at the slow
+   The int4 matmul's matvec route runs at s2-pro's eight decode shapes
+   (B=1), its tensor-core route at the slow stack's four shapes at B=128
+   and B=1024 (the two prompt buckets) and at a ragged (1000, 384, 200,
+   g=64); every case is held to one bf16 rounding of W and y, 2^-8
+   (|x| @ |W| + |y|) elementwise, against the fp32-W plain version, and
+   the tensor-core cases also to their own plain version (the Pallas
+   kernel's bf16 W, summed in fp32) within 2^-8 |y| + 1e-5 (|x| @ |W|);
+   each prints its TFLOP/s. The int8-KV decode kernel runs at the slow
    cache (S = 2048 + 64) to kernel 2's bounds. Each case also reports its
    bound (the larger of its bytes over 3.35 TB/s and its operations over
    989 TFLOP/s, H100 SXM) and, where one PyTorch call computes the same
@@ -52,9 +59,10 @@ Phases, each of which ends the run with a nonzero exit if it fails:
    whole frames, identical codes on the repeated seed, and `int4_mm`,
    `flash_decode_kv8` and `flash_prefill` launched. Then the model is
    rebuilt and quantized `int4` (every layer int4, heads int8) and serves
-   the 700-byte request (prefill bucket 1024: `int4_mm` at prefill shapes).
-   TTFA, frames/s, weight bytes and peak memory for both, and the fast
-   stack's time per frame on the serving path;
+   the 700-byte request (prefill bucket 1024: the int4 matmul's
+   tensor-core route, whose launch count must be > 0). TTFA, frames/s,
+   weight bytes and peak memory for both, and the fast stack's time per
+   frame on the serving path;
 7. the fast-stack probe at flagship dims (12 layers x 10 steps, 1536 /
    2560 / 6144): R in {0, 1} x {bf16, w8a8}, each against its plain version
    on one and on two codebook steps (12 and 24 layers at full width, the
@@ -329,46 +337,66 @@ INT4_SHAPES = [("slow wqkv", 2560, 6144), ("slow wo", 4096, 2560),
 
 
 def quant_kernel_cases(dev, randn):
-    """The int4 matmul and the int8-KV decode kernel against their plain
-    versions at the quantized serving path's shapes."""
+    """The int4 matmul's routes and the int8-KV decode kernel against their
+    plain versions at the quantized serving path's shapes: the matvec route
+    at the eight decode shapes (B=1); the tensor-core route at the slow
+    stack's four shapes at B=128 (the short prompt's bucket) and B=1024
+    (the long one's), and at a ragged (1000, 384, 200, g=64)."""
     import torch
     import torch.nn.functional as F
 
     from fish_speech_tpu_torch.models.dual_ar import _kv_dequant, _kv_quant
     from fish_speech_tpu_torch.ops.flash_decode import (
         flash_decode_attention_kv8, flash_decode_kv8_reference)
-    from fish_speech_tpu_torch.ops.int4 import (int4_matmul,
+    from fish_speech_tpu_torch.ops.int4 import (_route, int4_dequant_bf16,
+                                                 int4_matmul,
+                                                 int4_matmul_bf16w_reference,
                                                  int4_matmul_reference)
     from fish_speech_tpu_torch.ops.quant import (_int4_effective_weight,
                                                  quantize_int4)
 
-    cases = {"int4_mm": [], "flash_decode_kv8": []}
-    g = 128
-    shapes = [(1, *s) for s in INT4_SHAPES] + [(1024, *INT4_SHAPES[0]),
-                                               (1024, *INT4_SHAPES[2])]
-    for b, name, i, o in shapes:
+    cases = {"int4_mm": [], "int4_mm_wgmma": [], "flash_decode_kv8": []}
+    slow = INT4_SHAPES[:4]
+    shapes = ([(1, *s, 128) for s in INT4_SHAPES]
+              + [(b, *s, 128) for b in (128, 1024) for s in slow]
+              + [(1000, "ragged", 384, 200, 64)])
+    for b, name, i, o, g in shapes:
         qw = quantize_int4(randn(i, o).float() * 0.02, group_size=g)
+        p, gs = qw["p"], qw["gs"]
         x = randn(b, i)
-        got = int4_matmul(x, qw["p"], qw["gs"])
-        want = int4_matmul_reference(x, qw["p"], qw["gs"]).float()
-        w_eff = _int4_effective_weight(qw, torch.float32)
-        bound_err = 2.0 ** -8 * (x.float().abs() @ w_eff.abs() + want.abs())
-        err = (got.float() - want).abs()
-        ok = bool((err <= bound_err).all())
-        w_bf16 = w_eff.to(torch.bfloat16)
-        del w_eff
-        iters = 200 if b == 1 else 10
-        ms, plain_ms = _in_turns(
-            lambda k=0: int4_matmul_reference(x, qw["p"], qw["gs"]),
-            lambda k=0: int4_matmul(x, qw["p"], qw["gs"]), iters)
-        lib = _time_ms(lambda k=0: x @ w_bf16, iters)
-        bound = _bound(2 * b * i * o, i // 2 * o + 4 * (i // g) * o
-                       + 2 * b * (i + o))
-        cases["int4_mm"].append(dict(
-            shape=f"{name} B={b} I={i} O={o} g={g}", max_abs_err=err.max().item(),
-            mean_abs_err=err.mean().item(), ms=ms, plain_ms=plain_ms,
-            bound_ms=bound[0], bound_by=bound[1], library_ms=lib, ok=ok))
-        del qw, x, w_bf16, got, want, bound_err, err
+        route = _route(b, x.dtype)
+        got = int4_matmul(x, p, gs).float()
+        want = int4_matmul_reference(x, p, gs).float()
+        scale = x.float().abs() @ _int4_effective_weight(qw, torch.float32).abs()
+        # every route: one bf16 rounding of W and of y against the fp32 W
+        ok = bool(((got - want).abs() <= 2.0 ** -8 * (scale + want.abs())).all())
+        if route == "wgmma":
+            # the Pallas kernel's bf16 W, summed in fp32: one rounding of y
+            # plus the order of the sums
+            plain = int4_matmul_bf16w_reference
+            w_lib = int4_dequant_bf16(p, gs)
+            exact = plain(x.float(), p, gs)
+            err = (got - exact).abs()
+            ok &= bool((err <= 2.0 ** -8 * exact.abs() + 1e-5 * scale).all())
+            del exact
+        else:
+            plain = int4_matmul_reference
+            w_lib = _int4_effective_weight(qw, torch.bfloat16)
+            err = (got - want).abs()
+        del got, want, scale
+        iters = 200 if b == 1 else 20
+        ms, plain_ms = _in_turns(lambda k=0: plain(x, p, gs),
+                                 lambda k=0: int4_matmul(x, p, gs), iters)
+        lib = _time_ms(lambda k=0: x @ w_lib, iters)
+        flops = 2 * b * i * o
+        bound = _bound(flops, i // 2 * o + 4 * (i // g) * o + 2 * b * (i + o))
+        tflops = flops / ms / 1e9
+        cases["int4_mm_wgmma" if route == "wgmma" else "int4_mm"].append(dict(
+            shape=f"{name} B={b} I={i} O={o} g={g} ({tflops:.1f} TFLOP/s)",
+            max_abs_err=err.max().item(), mean_abs_err=err.mean().item(), ms=ms,
+            plain_ms=plain_ms, bound_ms=bound[0], bound_by=bound[1],
+            library_ms=lib, tflop_s=tflops, ok=ok))
+        del qw, p, gs, x, w_lib, err
     # the slow cache of the serving session: 36 layers, S = 2048 + 64
     n_layer, s, hkv, grp = 36, 2112, 8, 4
     kq, ks = _kv_quant(randn(n_layer, 1, s, hkv, 128))
@@ -731,8 +759,7 @@ def run_slice(dev, tokenizer):
           f"(max_seq_len 2048) + dac_s2_pro, built in "
           f"{time.perf_counter() - t0:.1f}s; device memory allocated "
           f"{torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB")
-    for f in _kernel_wrappers():
-        f.launches = 0
+    _zero_counts()
     results = serve(dev, tokenizer, engine, _requests(), dac_cfg.frame_length,
                     "bf16")
     launches = _counted({"flash_prefill": flash_prefill_attention,
@@ -790,7 +817,7 @@ def run_quant_slice(dev, tokenizer):
     cfg = _s2_pro_cfg(tokenizer, 2048)
     dac_cfg = dac_s2_pro()
     codec = init_dac_decoder(1, dac_cfg, torch.float32, dev)
-    wrappers = {"int4_mm": int4_matmul, "flash_decode_kv8": flash_decode_attention_kv8,
+    wrappers = {"flash_decode_kv8": flash_decode_attention_kv8,
                 "flash_prefill": flash_prefill_attention}
     requests = dict(_requests())
     out = {}
@@ -816,19 +843,32 @@ def run_quant_slice(dev, tokenizer):
               f"{time.perf_counter() - t0:.1f}s; session weights "
               f"{weight_bytes / 2**30:.3f} GiB; device memory allocated "
               f"{torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB")
-        for f in _kernel_wrappers():
-            f.launches = 0
+        _zero_counts()
         rows = serve(dev, tokenizer, engine, [(n, requests[n]) for n in names],
                      dac_cfg.frame_length, label)
-        launches = _counted(wrappers)
+        # the int4 matmul's routes: matvec (decode), tensor cores (bf16
+        # prefill); the fp32 tiled route serves no bf16 model
+        launches = dict(_counted(wrappers),
+                        int4_mm=int4_matmul.launches_gemv,
+                        int4_mm_wgmma=int4_matmul.launches_wgmma,
+                        int4_mm_fp32_tiled=int4_matmul.launches_fp32_tiled)
         peak = torch.cuda.max_memory_allocated(dev) / 2**30
         fast_ms = fast_stack_frame_ms(session)
         print(f"{label}: kernel launches {launches}; peak device memory "
               f"{peak:.2f} GiB; serving fast stack {fast_ms:.3f} ms/frame "
               f"(_sample_column, CUDA events)")
-        if min(launches.values()) <= 0:
+        # `mixed` keeps its slow stack int8, so only `int4` prefills in int4
+        required = ["int4_mm", *wrappers] + (["int4_mm_wgmma"] if label == "int4"
+                                             else [])
+        if min(launches[k] for k in required) <= 0:
             raise SystemExit(f"{label}: a kernel of the quantized path was never "
                              f"launched: {launches}")
+        if label == "int4":
+            ttfa_ms = rows[0]["ttfa_s"] * 1e3
+            print(f"int4 700-byte request: TTFA {ttfa_ms:.1f} ms against the "
+                  f"predicted 250-320 ms (545.2 ms with the CUDA-core tiled "
+                  f"product); tensor-core route launched "
+                  f"{launches['int4_mm_wgmma']} times")
         out[label] = dict(rows=rows, launches=launches, peak_gib=peak,
                           weight_bytes=weight_bytes, fast_stack_ms=fast_ms)
         del engine, session
@@ -1040,8 +1080,7 @@ def run_train_slice(dev, tokenizer, cfg, out_dir):
                "output": (slice(None), sem), "fast/output": (slice(None),)}
     frozen = {k: flat[k][idx].clone() for k, idx in samples.items()}
 
-    for f in _kernel_wrappers():
-        f.launches = 0
+    _zero_counts()
     torch.cuda.reset_peak_memory_stats(dev)
     trainer.fit(itertools.repeat(batch, steps), resume=False)
     torch.cuda.synchronize()
@@ -1099,6 +1138,16 @@ def run_train_slice(dev, tokenizer, cfg, out_dir):
     return launches
 
 
+def _zero_counts():
+    """Set every kernel wrapper's launch counts to 0 (the int4 matmul's per
+    route too)."""
+    from fish_speech_tpu_torch.ops.int4 import reset_launches
+
+    for f in _kernel_wrappers():
+        f.launches = 0
+    reset_launches()
+
+
 def _kernel_wrappers():
     from fish_speech_tpu_torch.ops.faststack import faststack_probe
     from fish_speech_tpu_torch.ops.flash_decode import (
@@ -1124,17 +1173,38 @@ KERNELS = {  # name: (source, the TPU kernel or JAX code it replaces)
     "flash_train_bwd": (SRC + "flash_train.cu",
                         "fish_speech_tpu/ops/pallas_attention_train.py:131"),
     "int4_mm": (SRC + "int4_mm.cu", "fish_speech_tpu/ops/pallas_int4.py:32"),
+    "int4_mm_wgmma": (SRC + "int4_mm.cu",
+                      "fish_speech_tpu/ops/pallas_int4.py:32"),
     "flash_decode_kv8": (SRC + "flash_decode.cu",
                          "fish_speech_tpu/ops/attention.py:66"),
     "faststack_probe": (SRC + "faststack.cu",
                         "fish_speech_tpu/ops/pallas_faststack.py:136"),
 }
 # headline shapes: the long request's prefill bucket, a 257-long cache, the
-# B=2 x T=1024 fine-tune shape, the slow w13 (B=1), a 257-long int8 cache,
-# the probe at R=0 in bf16
+# B=2 x T=1024 fine-tune shape, the slow w13 at B=1 (matvec route) and at
+# B=1024 (tensor-core route), a 257-long int8 cache, the probe at R=0 in bf16
 HEADLINE = {"flash_prefill": 1, "flash_decode": 1, "flash_train_fwd": 0,
-            "flash_train_bwd": 0, "int4_mm": 2, "flash_decode_kv8": 1,
-            "faststack_probe": 0}
+            "flash_train_bwd": 0, "int4_mm": 2, "int4_mm_wgmma": 6,
+            "flash_decode_kv8": 1, "faststack_probe": 0}
+
+
+def _sass_hgmma(lib_path):
+    """Count of HGMMA (wgmma) instructions per kernel in the built library's
+    SASS, read with the toolkit's cuobjdump."""
+    from fish_speech_tpu_torch.ops import _kernels
+
+    cuobjdump = Path(_kernels._nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass", str(lib_path)],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :")[1].strip()
+            counts[name] = 0
+        elif name is not None and "HGMMA" in line:
+            counts[name] += 1
+    return counts
 
 
 def main():
@@ -1154,6 +1224,11 @@ def main():
     _kernels.load_kernels()
     print(f"kernels built from {_kernels.CSRC} and loaded in "
           f"{time.perf_counter() - t0:.1f}s: {_kernels.library_path()}")
+    hgmma = {k: n for k, n in _sass_hgmma(_kernels.library_path()).items()
+             if "int4_wgmma_kernel" in k}
+    print(f"HGMMA instructions in the int4 tensor-core kernel's SASS: {hgmma}")
+    if not hgmma or min(hgmma.values()) <= 0:
+        raise SystemExit("the int4 tensor-core kernel issues no HGMMA")
 
     cases = kernel_cases(dev)
     tokenizer = build_test_tokenizer()
@@ -1171,6 +1246,7 @@ def main():
     torch.cuda.empty_cache()
     quant = run_quant_slice(dev, tokenizer)
     launches["int4_mm"] = quant["mixed"]["launches"]["int4_mm"]
+    launches["int4_mm_wgmma"] = quant["int4"]["launches"]["int4_mm_wgmma"]
     launches["flash_decode_kv8"] = quant["mixed"]["launches"]["flash_decode_kv8"]
     cases["faststack_probe"], launches["faststack_probe"] = run_probe(
         dev, quant["mixed"]["fast_stack_ms"])

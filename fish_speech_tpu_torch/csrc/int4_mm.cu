@@ -7,14 +7,18 @@
 // scales per group of g original rows, and no group straddles the half split
 // ((I/2) % g == 0).
 //
-// What bounds it on the H100: at B = 1 (decode) it is a matrix-vector
-// product that reads I/2 * O bytes of packed weight plus 4 * (I/g) * O
-// bytes of scales for 2 * I * O operations, far below the ~295 operations
-// per byte where the card stops being memory-bound, so its time is those
-// bytes over 3.35 TB/s. At B = 1024 (prefill) the operations dominate.
+// What bounds it on the H100: the product does 2 * B * I * O operations and
+// must move the packed weight (I/2 * O bytes), its scales (4 * (I/g) * O),
+// x (2 * B * I) and y (2 * B * O). At B = 1 (decode) that is far below the
+// ~295 operations per byte where the card stops being memory-bound, so its
+// least time is those bytes over 3.35 TB/s; at s2-pro's shapes the bytes
+// bound it below roughly B = 80. At B = 1024 (prefill) the operations bound
+// it: 2 * 1024 * 2560 * 19456 = 102 GFLOP for the slow w13 is 0.103 ms at
+// the 989 TFLOP/s of the bf16 tensor cores, which only `wgmma` reaches.
 //
-// Design (first, simple version):
-// * B <= 8: split-K matrix-vector kernel. A block owns 256 output columns
+// Three routes, chosen by the wrapper (`ops/int4.py:_route`) on B and x's
+// dtype; a route that does not take the call returns cudaErrorInvalidValue.
+// * "gemv", B <= 8: split-K matrix-vector kernel. A block owns 256 output columns
 //   (64 column threads x 4 columns, one 4-byte coalesced load per packed
 //   row) and one group of g packed rows, so both nibbles of every byte it
 //   reads belong to one group each (rows r and r + I/2): the block sums
@@ -25,11 +29,23 @@
 //   would give 6-76 blocks. Each block writes its fp32 partial sums; a
 //   second kernel adds the I/2g partials per output in a fixed order
 //   (deterministic, no atomics) and writes x's dtype.
-// * B > 8: tiled product on the CUDA cores. A block computes a 128 x 128
-//   output tile; per step it stages 8 packed rows (16 logical rows) of W,
-//   unpacked and dequantized in fp32 with their group scales, and the
-//   matching 16 columns of x in shared memory; each thread accumulates an
-//   8 x 8 sub-tile in fp32 registers. Tensor cores (wgmma) are later work.
+// * "wgmma", bf16 x and B > 8 (every prefill): tensor-core product,
+//   `int4_wgmma_kernel` below, whose note gives its design.
+// * "fp32_tiled", fp32 x and B > 8 (the small fp32 reference models):
+//   tiled product on the CUDA cores. A block computes a 128 x 128 output
+//   tile; per step it stages 8 packed rows (16 logical rows) of W, unpacked
+//   and dequantized in fp32 with their group scales, and the matching 16
+//   columns of x in shared memory; each thread accumulates an 8 x 8
+//   sub-tile in fp32 registers.
+//
+// The W of each route: the fp32 routes use q * s in fp32 (the JAX package's
+// `int4_matmul_reference`). The wgmma route uses rn_bf16(q * rn_bf16(s)),
+// which is bitwise the W of the Pallas kernel: it casts the nibble and the
+// scale to bf16 and multiplies them in bf16, and a product of a 4-bit and
+// an 8-bit significand is exact in fp32, so it rounds once. Only the order
+// of the fp32 sums differs from the TPU kernel.
+
+#include <algorithm>
 
 #include "common.cuh"
 
@@ -228,43 +244,465 @@ __global__ void __launch_bounds__(256)
   }
 }
 
-template <typename T>
-int launch(const void* x, const uint8_t* p, const float* gs, void* out,
-           float* part, int batch, int in_dim, int out_dim, int group,
-           cudaStream_t stream) {
-  const T* xt = static_cast<const T*>(x);
-  T* ot = static_cast<T*>(out);
-  if (batch <= GV_MAXB) {
-    const int n_split = (in_dim / 2) / group;
-    const size_t smem =
-        sizeof(float) * ((size_t)batch * 2 * group + (GV_SLICES - 1) * batch * GV_COLS);
-    if (smem > 48 * 1024) {
-      const cudaError_t e = cudaFuncSetAttribute(
-          int4_gemv_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-      if (e != cudaSuccess) return (int)e;
+// ---------------------------------------------------------------------------
+// The "wgmma" route: y (B, O) bf16 = x (B, I) bf16 @ W, W = rn_bf16(q *
+// rn_bf16(s)), summed in fp32 on the tensor cores.
+//
+// * It computes y^T = W^T x^T: the tensor cores' M is O and their N is B.
+//   W^T is wgmma's A operand, which may come from registers: each thread
+//   dequantizes its own A fragments straight from the packed bytes, so the
+//   bf16 W is never written to or read from shared memory. x is the B
+//   operand, read by wgmma from shared memory in its natural layout (rows
+//   of B, K contiguous: "K-major", no transpose flag).
+// * Two products share one byte stream: packed row r holds logical rows r
+//   and r + I/2, so y = x[:, :I/2] @ W_lo + x[:, I/2:] @ W_hi, both into the
+//   same accumulators; each packed byte is read once and gives one A value
+//   of each product.
+// * Tile: 128 output columns x 128 rows of x per block of 256 threads, two
+//   warpgroups of 64 columns, each running
+//   wgmma.mma_async.m64n128k16.f32.bf16.bf16 (A from registers) into 64
+//   fp32 accumulators per thread. A stage is 64 packed rows: 64 logical K
+//   of the low half and 64 of the high half, 8 k16 steps per warpgroup.
+//   Grid ceil(O/128) x ceil(B/128).
+// * A fragments: thread (warp w, lane 4g + t) holds fragment rows 16w + g
+//   and 16w + g + 8 at K 2t, 2t+1, 2t+8, 2t+9 of each k16 step. Fragment
+//   row 16w + g + 8e is mapped to output column 16w + 2g + e of the
+//   warpgroup, so one 16-bit load gives a thread both of its columns for
+//   one packed row: 4 loads per k16 step feed 8 A values of each half.
+//   A nibble v becomes bf16 (128 + v) by OR-ing it into 0x4300, then
+//   q = (128 + v) - 136 exactly and W = q * s in bf16x2 arithmetic (round
+//   to nearest, as the Pallas kernel's bf16 product).
+// * Shared memory: x tiles in the 128-byte swizzle (row m's 16-byte chunk
+//   c at chunk c ^ (m % 8), tiles 1024-byte aligned) for the wgmma
+//   descriptor; packed bytes in rows padded to 144 bytes, so the 16-bit
+//   loads of a warp hit distinct banks; the stage's <= ceil(64/g) + 1 fp32
+//   scale rows per half, rounded to bf16 where used (a group under 11 rows,
+//   which would need more than S_MAX rows, reads them from global memory).
+//   All arrive by 16-byte cp.async, zero-filled beyond B, I/2 and O.
+// * Overlap: two blocks per SM (99 KB of shared memory and 128 registers a
+//   thread each), so one block's dequantization runs on the CUDA cores
+//   while the other's wgmmas run on the tensor cores. Within a block, each
+//   stage is dequantized, its 8 wgmmas issued and then retired: ptxas
+//   serializes wgmmas (C7513) when the registers of a later wgmma are
+//   written while an earlier one is in flight, so a second register set
+//   would not overlap. The copies of stage s + 2 are issued as stage s
+//   retires and land while stage s + 1 runs; one barrier per stage.
+//
+// Measured on the H100 (chip_smoke.py phase 2, PERF.md): the slow w13 at
+// B = 1024 in about 0.33 ms, ~310 TFLOP/s, 3.2x its bound and 2.2x cuBLAS
+// on a bf16 weight. The designs this replaced, kept in PERF.md: a bf16 W
+// tile written to shared memory and read by wgmma as operand B took
+// 0.49-0.74 ms (shared-memory traffic and serial phases).
+//
+// Left for later: TMA loads with mbarriers, a producer warp beside
+// ping-pong consumer warpgroups, a persistent grid, split-K or a narrower
+// tile where the grid has fewer blocks than two per SM (O = 2560 gives
+// 20 x ceil(B/128)), and more output columns per block (x is re-read
+// once per 128 columns).
+namespace tc {
+
+constexpr int BN = 128;      // rows of x per block (the tensor cores' N)
+constexpr int BO = 128;      // output columns per block (2 warpgroups x 64)
+constexpr int KP = 64;       // packed rows per stage
+constexpr int THREADS = 256;
+constexpr int NBUF = 2;      // stages of x, packed bytes and scales in flight
+constexpr int S_MAX = 8;     // scale rows per half kept in shared memory
+constexpr int PS = BO + 16;  // padded row of the packed tile (bytes)
+constexpr int X_TILE = BN * KP * 2;   // one half of a stage's x tile: 16 KB
+constexpr int P_TILE = KP * PS;       // a stage's packed bytes
+constexpr int S_TILE = S_MAX * BO * 4;  // one half's fp32 scale rows: 4 KB
+constexpr int X_OFF = 0;                          // [stage][half] x tiles
+constexpr int P_OFF = X_OFF + NBUF * 2 * X_TILE;  // [stage] packed bytes
+constexpr int S_OFF = P_OFF + NBUF * P_TILE;      // [stage][half] scales
+constexpr int R_OFF = S_OFF + NBUF * 2 * S_TILE;  // [stage][KP] scale row of each K
+constexpr int SMEM = 1024 + R_OFF + NBUF * KP;    // + alignment slack
+
+// scale rows per half that a stage of KP packed rows can touch
+inline int scale_rows(int group) { return std::min(KP, (KP - 1) / group + 2); }
+
+__device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
+}
+
+// byte offset of the 16-byte chunk c of row m in a 128-byte-swizzled tile
+__device__ __forceinline__ int sw128(int m, int c) {
+  return m * 128 + ((c ^ (m & 7)) << 4);
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_u32(dst)), "l"(src), "r"(valid ? 16 : 0) : "memory");
+}
+
+// wgmma operand descriptor of a K-major, 128-byte-swizzled tile: start
+// address >> 4, leading byte offset 16 (unused by this layout), stride 1024
+// bytes between 8-row groups, layout type 1 (128-byte swizzle)
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+// d (64 x 128, fp32) += a (64 x 16, bf16, registers) * b (16 x 128, bf16,
+// shared memory, K-major)
+__device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64],
+                                                    const uint32_t (&a)[4],
+                                                    uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
+      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
+      "%62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]),
+        "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]),
+        "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]),
+        "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),
+        "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]),
+        "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]),
+        "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
+        "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// keeps the compiler from moving accumulator accesses across the
+// asynchronous wgmmas
+__device__ __forceinline__ void fence_regs(float (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+struct Args {
+  const __nv_bfloat16* x;
+  const uint8_t* p;
+  const float* gs;
+  __nv_bfloat16* out;
+  int batch, in_dim, out_dim, group, srows;
+  bool xvec, pvec, svec;  // 16-byte copies possible (else element by element)
+  bool sglobal;           // scales read from global memory (srows > S_MAX)
+};
+
+// Stage `st` into buffer `buf`. Thread t copies 8 chunks of x (rows
+// t/8 + 32j of the tile, j = 0..3, in both halves, 16-byte chunk t % 8) and
+// 2 of packed bytes (rows t/8 + 32j, j = 0..1, chunk t % 8).
+__device__ void load_stage(uint8_t* sm, int buf, int st, int m0, int n0,
+                           const Args& a) {
+  const int half = a.in_dim / 2, r0 = st * KP, t = threadIdx.x, c = t % 8;
+  uint8_t* xs = sm + X_OFF + buf * 2 * X_TILE + sw128(t / 8, c);
+  const bool k_ok = r0 + 8 * c < half;
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      uint8_t* dst = xs + h * X_TILE + j * 32 * 128;
+      const int row = m0 + t / 8 + 32 * j;
+      const __nv_bfloat16* src = a.x + (size_t)row * a.in_dim + h * half + r0 + 8 * c;
+      if (a.xvec) {
+        const bool valid = row < a.batch && k_ok;
+        cp_async16(dst, valid ? src : a.x, valid);
+      } else {
+        uint4 v;
+        __nv_bfloat16* e = reinterpret_cast<__nv_bfloat16*>(&v);
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+          e[i] = (row < a.batch && r0 + 8 * c + i < half) ? src[i]
+                                                          : __float2bfloat16(0.f);
+        *reinterpret_cast<uint4*>(dst) = v;
+      }
     }
-    dim3 grid((out_dim + GV_COLS - 1) / GV_COLS, n_split);
-    int4_gemv_kernel<T><<<grid, GV_THREADS, smem, stream>>>(
-        xt, p, gs, part, batch, in_dim, out_dim, group);
-    const cudaError_t e = cudaGetLastError();
-    if (e != cudaSuccess) return (int)e;
-    const int n = batch * out_dim;
-    int4_reduce_kernel<T><<<(n + 255) / 256, 256, 0, stream>>>(part, ot, n_split, n);
-    return (int)cudaGetLastError();
+  uint8_t* ps = sm + P_OFF + buf * P_TILE;
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const int kp = t / 8 + 32 * j, r = r0 + kp, col = n0 + 16 * c;
+    uint8_t* dst = ps + kp * PS + 16 * c;
+    const uint8_t* src = a.p + (size_t)r * a.out_dim + col;
+    if (a.pvec) {
+      const bool valid = r < half && col < a.out_dim;
+      cp_async16(dst, valid ? src : a.p, valid);
+    } else {
+      uint4 v;
+      uint8_t* e = reinterpret_cast<uint8_t*>(&v);
+#pragma unroll
+      for (int i = 0; i < 16; ++i)
+        e[i] = (r < half && col + i < a.out_dim) ? src[i] : 0;
+      *reinterpret_cast<uint4*>(dst) = v;
+    }
   }
-  dim3 grid((out_dim + BN - 1) / BN, (batch + BM - 1) / BM);
-  int4_gemm_kernel<T><<<grid, 256, 0, stream>>>(xt, p, gs, ot, batch, in_dim,
-                                                 out_dim, group);
+  // the scale row of each of the stage's K, counted from the stage's first
+  // (r0 / g), so the dequantization divides by nothing
+  const int groups_half = half / a.group, j0 = r0 / a.group;
+  if (t < KP) sm[R_OFF + buf * KP + t] = (uint8_t)((r0 + t) / a.group - j0);
+  if (a.sglobal) return;
+  // rows [j0, j0 + srows) of each half's scales, 4 floats a chunk; zero
+  // past the half and past O, so padded rows and columns dequantize to 0
+  float* ss = reinterpret_cast<float*>(sm + S_OFF + buf * 2 * S_TILE);
+  for (int idx = t; idx < 2 * a.srows * (BO / 4); idx += THREADS) {
+    const int h = idx / (a.srows * (BO / 4)), j = (idx / (BO / 4)) % a.srows;
+    const int c4 = idx % (BO / 4);
+    const int grow = j0 + j, col = n0 + 4 * c4;
+    float* dst = ss + h * (S_TILE / 4) + j * BO + 4 * c4;
+    const float* src = a.gs + (size_t)(h * groups_half + grow) * a.out_dim + col;
+    if (a.svec) {
+      const bool valid = grow < groups_half && col < a.out_dim;
+      cp_async16(dst, valid ? src : a.gs, valid);
+    } else {
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        dst[i] = (grow < groups_half && col + i < a.out_dim) ? src[i] : 0.f;
+    }
+  }
+}
+
+// the bf16 scales of half h at scale row `rel` of the stage (row j0 + rel
+// of the half's groups), for tile columns c and c + 1
+__device__ __forceinline__ void scales_at(const float* ss, int h, int rel,
+                                          int c, int j0, int n0, const Args& a,
+                                          __nv_bfloat16& s0, __nv_bfloat16& s1) {
+  float2 v;
+  if (a.sglobal) {
+    const int groups_half = a.in_dim / 2 / a.group, grow = j0 + rel;
+    const float* row = a.gs + (size_t)(h * groups_half + grow) * a.out_dim + n0;
+    const bool ok = grow < groups_half;
+    v.x = ok && n0 + c < a.out_dim ? __ldg(row + c) : 0.f;
+    v.y = ok && n0 + c + 1 < a.out_dim ? __ldg(row + c + 1) : 0.f;
+  } else {
+    v = *reinterpret_cast<const float2*>(ss + h * (S_TILE / 4) + rel * BO + c);
+  }
+  s0 = __float2bfloat16_rn(v.x);
+  s1 = __float2bfloat16_rn(v.y);
+}
+
+__device__ __forceinline__ uint32_t bf2_bits(__nv_bfloat162 v) {
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+__device__ __forceinline__ __nv_bfloat162 bits_bf2(uint32_t v) {
+  return *reinterpret_cast<__nv_bfloat162*>(&v);
+}
+
+// W values of the low nibbles (bytes 0 and 2 of w) and of the high ones
+__device__ __forceinline__ void dequant_pair(uint32_t w, __nv_bfloat162 s_lo,
+                                             __nv_bfloat162 s_hi, uint32_t& lo,
+                                             uint32_t& hi) {
+  const __nv_bfloat162 bias = __floats2bfloat162_rn(136.f, 136.f);  // 128 + 8
+  const __nv_bfloat162 ql = __hsub2(bits_bf2((w & 0x000F000Fu) | 0x43004300u), bias);
+  const __nv_bfloat162 qh =
+      __hsub2(bits_bf2(((w >> 4) & 0x000F000Fu) | 0x43004300u), bias);
+  lo = bf2_bits(__hmul2_rn(ql, s_lo));
+  hi = bf2_bits(__hmul2_rn(qh, s_hi));
+}
+
+// A fragments of stage `st` (buffer `buf`) for this thread: frag[kk] for
+// the low half's k16 step kk, frag[4 + kk] for the high half's.
+__device__ __forceinline__ void dequant_stage(const uint8_t* sm, int buf, int st,
+                                              int n0, const Args& a,
+                                              uint32_t (&frag)[8][4]) {
+  const uint8_t* ps = sm + P_OFF + buf * P_TILE;
+  const float* ss = reinterpret_cast<const float*>(sm + S_OFF + buf * 2 * S_TILE);
+  const uint8_t* srow = sm + R_OFF + buf * KP;
+  const int j0 = st * KP / a.group;
+  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const int c = (threadIdx.x / 128) * 64 + ((threadIdx.x % 128) / 32) * 16 + 2 * g;
+  const bool uniform = a.group % 16 == 0;  // a k16 step lies in one group
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const int k0 = kk * 16 + 2 * t;  // K rows k0, k0+1, k0+8, k0+9
+    uint32_t u[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      u[e] = *reinterpret_cast<const uint16_t*>(ps + (k0 + (e & 1) + 8 * (e >> 1)) * PS + c);
+    // scales: [half][fragment register], each a bf16 pair over its two K
+    __nv_bfloat162 sp[2][4];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      if (uniform) {
+        __nv_bfloat16 s0, s1;
+        scales_at(ss, h, srow[kk * 16], c, j0, n0, a, s0, s1);
+        sp[h][0] = sp[h][2] = __halves2bfloat162(s0, s0);
+        sp[h][1] = sp[h][3] = __halves2bfloat162(s1, s1);
+      } else {
+        __nv_bfloat16 s[4][2];  // [K row k0, k0+1, k0+8, k0+9][column]
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          scales_at(ss, h, srow[k0 + (e & 1) + 8 * (e >> 1)], c, j0, n0, a,
+                    s[e][0], s[e][1]);
+        sp[h][0] = __halves2bfloat162(s[0][0], s[1][0]);
+        sp[h][1] = __halves2bfloat162(s[0][1], s[1][1]);
+        sp[h][2] = __halves2bfloat162(s[2][0], s[3][0]);
+        sp[h][3] = __halves2bfloat162(s[2][1], s[3][1]);
+      }
+    }
+    // register 0: column c at K k0, k0+1; 1: column c+1 at K k0, k0+1;
+    // 2 and 3: the same at K k0+8, k0+9
+    const uint32_t w[4] = {__byte_perm(u[0], u[1], 0x0400), __byte_perm(u[0], u[1], 0x0501),
+                           __byte_perm(u[2], u[3], 0x0400), __byte_perm(u[2], u[3], 0x0501)};
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      dequant_pair(w[r], sp[0][r], sp[1][r], frag[kk][r], frag[4 + kk][r]);
+  }
+}
+
+__device__ __forceinline__ void issue_wgmmas(float (&acc)[64],
+                                             uint32_t (&frag)[8][4],
+                                             const uint8_t* sm, int buf) {
+  const uint32_t xa = smem_u32(sm + X_OFF + buf * 2 * X_TILE);
+  // every input of the stage's wgmmas is computed before wgmma.fence:
+  // a register defined after it would make ptxas serialize the wgmmas
+  uint64_t desc[8];
+#pragma unroll
+  for (int f = 0; f < 8; ++f) {
+    desc[f] = sw128_desc(xa + (f / 4) * X_TILE + (f % 4) * 32);
+    asm volatile("" : "+l"(desc[f]));
+#pragma unroll
+    for (int r = 0; r < 4; ++r) asm volatile("" : "+r"(frag[f][r]));
+  }
+  fence_regs(acc);
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+  for (int f = 0; f < 8; ++f) wgmma_m64n128k16_rs(acc, frag[f], desc[f]);
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+  fence_regs(acc);
+}
+
+// One stage: dequantize it, run its wgmmas, wait for the next stage's
+// copies, one barrier, then the copies of stage st + NBUF into its buffer.
+__device__ __forceinline__ void run_stage(float (&acc)[64], uint32_t (&frag)[8][4],
+                                          uint8_t* sm, int st, int n_stages,
+                                          int m0, int n0, const Args& a) {
+  dequant_stage(sm, st % NBUF, st, n0, a, frag);
+  issue_wgmmas(acc, frag, sm, st % NBUF);
+  // ptxas serializes wgmmas whose register inputs are written while an
+  // earlier group is in flight, so the stage's group is retired here; the
+  // other block on the SM fills the tensor cores meanwhile
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+  fence_regs(acc);
+  // stage st+1's copies have landed (NBUF - 2 later stages may be in flight)
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(NBUF - 2) : "memory");
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  // stage st+1 is visible to every thread, and every warpgroup is done with
+  // buffer st, which stage st+NBUF now takes
+  __syncthreads();
+  const int next = st + NBUF;
+  if (next < n_stages) load_stage(sm, next % NBUF, next, m0, n0, a);
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__global__ void __launch_bounds__(THREADS, 2) int4_wgmma_kernel(const Args a) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  const int m0 = blockIdx.y * BN, n0 = blockIdx.x * BO;
+  const int t = threadIdx.x;
+  const int n_stages = (a.in_dim / 2 + KP - 1) / KP;
+
+  float acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+
+#pragma unroll
+  for (int st = 0; st < NBUF; ++st) {
+    if (st < n_stages) load_stage(sm, st, st, m0, n0, a);
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  }
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(NBUF - 1) : "memory");
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  __syncthreads();
+
+  uint32_t frag[8][4];
+  for (int st = 0; st < n_stages; ++st)
+    run_stage(acc, frag, sm, st, n_stages, m0, n0, a);
+
+  // accumulator i of a thread: fragment row 16 * warp + g + 8 * ((i / 2) % 2),
+  // which is output column 16 * warp + 2 * g + (i / 2) % 2 of its warpgroup;
+  // x row 8 * (i / 4) + 2 * t + i % 2 of the tile
+  const int lane = t % 32, g = lane / 4, tq = lane % 4;
+  const int col = n0 + (t / 128) * 64 + ((t % 128) / 32) * 16 + 2 * g;
+  const bool pairs = a.out_dim % 2 == 0;
+#pragma unroll
+  for (int i = 0; i < 64; i += 4) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int row = m0 + 8 * (i / 4) + 2 * tq + e;
+      if (row >= a.batch || col >= a.out_dim) continue;
+      __nv_bfloat16* dst = a.out + (size_t)row * a.out_dim + col;
+      if (pairs) {
+        *reinterpret_cast<__nv_bfloat162*>(dst) =
+            __floats2bfloat162_rn(acc[i + e], acc[i + 2 + e]);
+      } else {
+        dst[0] = __float2bfloat16_rn(acc[i + e]);
+        if (col + 1 < a.out_dim) dst[1] = __float2bfloat16_rn(acc[i + 2 + e]);
+      }
+    }
+  }
+}
+
+int launch(const void* x, const uint8_t* p, const float* gs, void* out,
+           int batch, int in_dim, int out_dim, int group, cudaStream_t stream) {
+  Args a;
+  a.x = static_cast<const __nv_bfloat16*>(x);
+  a.p = p;
+  a.gs = gs;
+  a.out = static_cast<__nv_bfloat16*>(out);
+  a.batch = batch;
+  a.in_dim = in_dim;
+  a.out_dim = out_dim;
+  a.group = group;
+  a.srows = scale_rows(group);
+  a.sglobal = a.srows > S_MAX;
+  a.xvec = in_dim % 16 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  a.pvec = out_dim % 16 == 0 && reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  a.svec = out_dim % 4 == 0 && reinterpret_cast<uintptr_t>(gs) % 16 == 0;
+  const cudaError_t e = cudaFuncSetAttribute(
+      int4_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid((out_dim + BO - 1) / BO, (batch + BN - 1) / BN);
+  int4_wgmma_kernel<<<grid, THREADS, SMEM, stream>>>(a);
   return (int)cudaGetLastError();
 }
+
+}  // namespace tc
+
+template <typename T>
+int launch_gemv(const void* x, const uint8_t* p, const float* gs, void* out,
+                float* part, int batch, int in_dim, int out_dim, int group,
+                cudaStream_t stream) {
+  const T* xt = static_cast<const T*>(x);
+  T* ot = static_cast<T*>(out);
+  const int n_split = (in_dim / 2) / group;
+  const size_t smem =
+      sizeof(float) * ((size_t)batch * 2 * group + (GV_SLICES - 1) * batch * GV_COLS);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        int4_gemv_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  dim3 grid((out_dim + GV_COLS - 1) / GV_COLS, n_split);
+  int4_gemv_kernel<T><<<grid, GV_THREADS, smem, stream>>>(
+      xt, p, gs, part, batch, in_dim, out_dim, group);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  const int n = batch * out_dim;
+  int4_reduce_kernel<T><<<(n + 255) / 256, 256, 0, stream>>>(part, ot, n_split, n);
+  return (int)cudaGetLastError();
+}
+
+// route codes, as `ops/int4.py:ROUTES`
+constexpr int kRouteGemv = 0, kRouteWgmma = 1, kRouteFp32Tiled = 2;
 
 }  // namespace
 
 // x (B, I) in `dtype`; p (I/2, O) uint8; gs (I/g, O) fp32; out (B, O) in
-// `dtype`; part: (I/2g, B, O) fp32 when B <= 8, unused otherwise.
+// `dtype`; part: (I/2g, B, O) fp32 for the "gemv" route, unused otherwise.
 extern "C" int fs_int4_matmul(const void* x, const void* p, const void* gs,
                               void* out, void* part, int batch, int in_dim,
-                              int out_dim, int group, int dtype, void* stream) {
+                              int out_dim, int group, int dtype, int route,
+                              void* stream) {
   if (batch < 1 || in_dim < 2 || in_dim % 2 || out_dim < 1 || group < 1 ||
       (in_dim / 2) % group)
     return (int)cudaErrorInvalidValue;
@@ -272,10 +710,22 @@ extern "C" int fs_int4_matmul(const void* x, const void* p, const void* gs,
   const float* gp = static_cast<const float*>(gs);
   float* sp = static_cast<float*>(part);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == fs::kBFloat16)
-    return launch<__nv_bfloat16>(x, pp, gp, out, sp, batch, in_dim, out_dim,
-                                 group, s);
-  if (dtype == fs::kFloat32)
-    return launch<float>(x, pp, gp, out, sp, batch, in_dim, out_dim, group, s);
+  if (route == kRouteGemv && batch <= GV_MAXB) {
+    if (dtype == fs::kBFloat16)
+      return launch_gemv<__nv_bfloat16>(x, pp, gp, out, sp, batch, in_dim,
+                                        out_dim, group, s);
+    if (dtype == fs::kFloat32)
+      return launch_gemv<float>(x, pp, gp, out, sp, batch, in_dim, out_dim,
+                                group, s);
+  }
+  if (route == kRouteWgmma && dtype == fs::kBFloat16)
+    return tc::launch(x, pp, gp, out, batch, in_dim, out_dim, group, s);
+  if (route == kRouteFp32Tiled && dtype == fs::kFloat32) {
+    dim3 grid((out_dim + BN - 1) / BN, (batch + BM - 1) / BM);
+    int4_gemm_kernel<float><<<grid, 256, 0, s>>>(
+        static_cast<const float*>(x), pp, gp, static_cast<float*>(out), batch,
+        in_dim, out_dim, group);
+    return (int)cudaGetLastError();
+  }
   return (int)cudaErrorInvalidValue;
 }

@@ -121,7 +121,7 @@ def load_kernels() -> ctypes.CDLL:
     ]
     lib.fs_flash_decode_kv8.restype = i32
     lib.fs_int4_matmul.argtypes = [
-        ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, ptr
+        ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, ptr
     ]
     lib.fs_int4_matmul.restype = i32
     lib.fs_faststack_probe.argtypes = [

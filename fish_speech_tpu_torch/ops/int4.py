@@ -9,13 +9,21 @@ Port of the Pallas TPU kernel `fish_speech_tpu/ops/pallas_int4.py`
 
 and a group never straddles the half split: (I/2) % g == 0.
 
-The kernel is hand-written CUDA for Hopper (`csrc/int4_mm.cu`): it reads
-the packed bytes once, coalesced along O, unpacks both nibbles and
-dequantizes in fp32 with the group's scale, accumulates in fp32 and writes
-x's dtype. `int4_matmul_reference` is the plain version (the JAX package's
-`int4_matmul_reference`: fp32 product of the unpacked weight); the wrapper
-runs it for CPU tensors only, and for a CUDA tensor launches the kernel or
-raises.
+The kernels are hand-written CUDA for Hopper (`csrc/int4_mm.cu`). The
+wrapper picks one of three routes by x's rows B and dtype (`_route`), an
+explicit dispatch, not a fallback:
+
+  * "gemv", B <= 8: a split-K matrix-vector kernel on the CUDA cores, W
+    dequantized in fp32;
+  * "wgmma", bf16 x with B > 8 (every prefill): a tensor-core kernel that
+    dequantizes W as the Pallas kernel does, rn_bf16(q * rn_bf16(s)), and
+    sums in fp32; its plain version is `int4_matmul_bf16w_reference`;
+  * "fp32_tiled", fp32 x with B > 8: a tiled product on the CUDA cores, W
+    in fp32.
+
+`int4_matmul_reference` is the plain version of the fp32-W routes (the JAX
+package's `int4_matmul_reference`). The wrapper runs it for CPU tensors
+only; for a CUDA tensor it launches the route's kernel or raises.
 """
 
 from __future__ import annotations
@@ -26,6 +34,7 @@ from fish_speech_tpu_torch.ops._kernels import (DTYPE_CODES, check_launch,
                                                  load_kernels)
 
 GEMV_MAX_ROWS = 8  # rows of x up to which the split-K matvec kernel runs
+ROUTES = ("gemv", "wgmma", "fp32_tiled")  # route codes of fs_int4_matmul
 
 
 def _group(i: int, n_groups: int) -> int:
@@ -36,16 +45,42 @@ def _group(i: int, n_groups: int) -> int:
     return g
 
 
+def unpack_int4(p):
+    """(..., I/2, O) packed bytes -> (..., I, O) int8 values in [-8, 7]."""
+    lo = (p & 0xF).to(torch.int8) - 8
+    hi = (p >> 4).to(torch.int8) - 8
+    return torch.cat([lo, hi], dim=-2)
+
+
 def int4_matmul_reference(x, p, gs):
     """x (B, I) @ the unpacked weight (I, O), in fp32, cast to x's dtype."""
     half = p.shape[-2]
-    _group(2 * half, gs.shape[-2])
-    lo = (p & 0xF).to(torch.int8) - 8
-    hi = (p >> 4).to(torch.int8) - 8
-    q = torch.cat([lo, hi], dim=-2)
-    g = q.shape[-2] // gs.shape[-2]
-    w = q.float() * torch.repeat_interleave(gs.float(), g, dim=-2)
+    g = _group(2 * half, gs.shape[-2])
+    w = unpack_int4(p).float() * torch.repeat_interleave(gs.float(), g, dim=-2)
     return (x.float() @ w).to(x.dtype)
+
+
+def int4_dequant_bf16(p, gs):
+    """The Pallas kernel's weight: rn_bf16(q * rn_bf16(s)), (I, O) bf16.
+    Both factors are bf16, so the product rounds once, from an exact fp32
+    product (a 4-bit and an 8-bit significand)."""
+    half = p.shape[-2]
+    g = _group(2 * half, gs.shape[-2])
+    s = torch.repeat_interleave(gs.to(torch.bfloat16).float(), g, dim=-2)
+    return (unpack_int4(p).float() * s).to(torch.bfloat16)
+
+
+def int4_matmul_bf16w_reference(x, p, gs):
+    """Plain version of the "wgmma" route: x @ `int4_dequant_bf16(p, gs)`,
+    summed in fp32, cast to x's dtype."""
+    return (x.float() @ int4_dequant_bf16(p, gs).float()).to(x.dtype)
+
+
+def _route(b: int, dtype: torch.dtype) -> str:
+    """Which kernel `int4_matmul` launches for B rows of x in `dtype`."""
+    if b <= GEMV_MAX_ROWS:
+        return "gemv"
+    return "wgmma" if dtype == torch.bfloat16 else "fp32_tiled"
 
 
 def _check(x, p, gs):
@@ -69,24 +104,32 @@ def _check(x, p, gs):
 
 def int4_matmul(x, p, gs):
     """x (B, I) bf16/fp32 @ packed int4 W -> (B, O) in x's dtype. On CUDA
-    tensors runs the hand-written kernel (a split-K matvec for B <= 8, a
-    tiled product for larger B)."""
+    tensors runs the hand-written kernel of `_route(B, x.dtype)`."""
     if x.device.type == "cpu":
         return int4_matmul_reference(x, p, gs)
     b, i, o, g = _check(x, p, gs)
+    route = _route(b, x.dtype)
     lib = load_kernels()
     out = torch.empty((b, o), dtype=x.dtype, device=x.device)
-    n_split = (i // 2) // g
-    part = (torch.empty((n_split, b, o), dtype=torch.float32, device=x.device)
-            if b <= GEMV_MAX_ROWS else out)
+    part = (torch.empty(((i // 2) // g, b, o), dtype=torch.float32,
+                        device=x.device) if route == "gemv" else out)
     rc = lib.fs_int4_matmul(
         x.data_ptr(), p.data_ptr(), gs.data_ptr(), out.data_ptr(),
-        part.data_ptr(), b, i, o, g, DTYPE_CODES[x.dtype],
+        part.data_ptr(), b, i, o, g, DTYPE_CODES[x.dtype], ROUTES.index(route),
         torch.cuda.current_stream(x.device).cuda_stream,
     )
-    check_launch(rc, "int4_matmul")
+    check_launch(rc, f"int4_matmul ({route})")
     int4_matmul.launches += 1
+    count = f"launches_{route}"
+    setattr(int4_matmul, count, getattr(int4_matmul, count) + 1)
     return out
 
 
-int4_matmul.launches = 0
+def reset_launches():
+    """Set `int4_matmul`'s launch counts (all routes and each route) to 0."""
+    int4_matmul.launches = 0
+    for route in ROUTES:
+        setattr(int4_matmul, f"launches_{route}", 0)
+
+
+reset_launches()

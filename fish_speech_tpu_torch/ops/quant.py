@@ -19,7 +19,7 @@ from __future__ import annotations
 
 import torch
 
-from fish_speech_tpu_torch.ops.int4 import int4_matmul
+from fish_speech_tpu_torch.ops.int4 import int4_matmul, unpack_int4
 
 # the layer weights quantized, and the int4 group size (halved where a
 # weight needs it, `_quantize_weight`)
@@ -60,13 +60,10 @@ def quantize_int4(w, group_size: int = 128):
 
 
 def _int4_effective_weight(qw, dtype):
-    """Unpack an int4 weight to (..., I, O) in `dtype`: the plain version of
-    the int4 kernel's operand (W rounded to `dtype`, as the JAX package's
-    reference path does)."""
-    p = qw["p"]
-    lo = (p & 0xF).to(torch.int8) - 8
-    hi = (p >> 4).to(torch.int8) - 8
-    q = torch.cat([lo, hi], dim=-2)  # (..., I, O)
+    """Unpack an int4 weight to (..., I, O) in `dtype`: `mm`'s CPU operand
+    (W = q * s in fp32, rounded to `dtype`, as the JAX package's reference
+    path does)."""
+    q = unpack_int4(qw["p"])  # (..., I, O)
     g = q.shape[-2] // qw["gs"].shape[-2]
     scale = torch.repeat_interleave(qw["gs"].float(), g, dim=-2)
     return (q.float() * scale).to(dtype)

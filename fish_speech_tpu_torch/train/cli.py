@@ -6,11 +6,11 @@
         --data data/protos --output results/my_run \\
         --lora-r 8 --lora-alpha 16
 
-Runs on `cuda:0` when CUDA is available and `--cpu` is not given, else on
-the CPU. `--tiny` (or no checkpoint) trains a tiny random model sized to the
-data's codebook count. The multi-device flags (`--dp` > 1, `--tp` > 1,
-`--zero1`, `--coordinator`/`--num-hosts`/`--host-id`) are not ported and
-raise.
+Runs on `cuda:0`, and on the CPU only with `--cpu`: without it, a machine
+with no CUDA device raises instead of training on the CPU. `--tiny` (or no
+checkpoint) trains a tiny random model sized to the data's codebook count.
+The multi-device flags (`--dp` > 1, `--tp` > 1, `--zero1`,
+`--coordinator`/`--num-hosts`/`--host-id`) are not ported and raise.
 """
 
 from __future__ import annotations
@@ -91,8 +91,9 @@ def main(checkpoint_path, data_paths, val_paths, output, max_steps, batch_size,
     from fish_speech_tpu_torch.train.trainer import TrainConfig, Trainer
     from fish_speech_tpu_torch.utils.checkpoint import load_dual_ar
 
-    device = torch.device("cuda:0" if torch.cuda.is_available() and not cpu
-                          else "cpu")
+    if not cpu and not torch.cuda.is_available():
+        raise click.UsageError("no CUDA device: pass --cpu to train on the CPU")
+    device = torch.device("cpu" if cpu else "cuda:0")
     logging.getLogger(__name__).info("training on %s", device)
     if tiny or checkpoint_path is None:
         tokenizer = build_test_tokenizer()

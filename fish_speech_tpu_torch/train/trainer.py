@@ -77,12 +77,15 @@ def _copy_into(dst, src):
 
 class Trainer:
     def __init__(self, cfg: DualARConfig, train_cfg: TrainConfig, params=None,
-                 device="cpu"):
+                 device="cuda:0"):
         if train_cfg.dp not in (None, 1) or train_cfg.tp != 1 or train_cfg.zero1:
             raise NotImplementedError(
                 "dp/tp/zero1 are not ported yet (ROADMAP: multi-device trainer)")
         self.train_cfg = train_cfg
         self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(f"Trainer: no CUDA device for {self.device}; "
+                               f"pass device='cpu' to train on the CPU")
         self.out_dir = Path(train_cfg.output_dir) / train_cfg.project
         self.out_dir.mkdir(parents=True, exist_ok=True)
 

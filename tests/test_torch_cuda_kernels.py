@@ -13,11 +13,15 @@ kernel's and the plain version's roundings can land one step apart. The
 training backward's gradients are held to 1e-4 (fp32) or 2e-2 (bf16) of
 each tensor's largest magnitude.
 
-The int4 matmul (`csrc/int4_mm.cu`) keeps the dequantized weight and the
-sums in fp32: fp32 cases are held to 1e-5 of |x| @ |W| (summation order),
-bf16 cases to one bf16 rounding of W and of y, 2^-8 (|x| @ |W| + |y|),
-against both plain versions (`int4_matmul_reference` in fp32 and `mm`'s
-CPU path, which rounds W to bf16). The int8-KV decode kernel is held to
+The int4 matmul (`csrc/int4_mm.cu`) has three routes (`ops/int4.py:
+_route`). The fp32-W routes (matvec, fp32 tiled) hold fp32 cases to 1e-5
+of |x| @ |W| (summation order). Every bf16 case is held to one bf16
+rounding of W and of y, 2^-8 (|x| @ |W| + |y|), against both fp32-W plain
+versions (`int4_matmul_reference` and `mm`'s CPU path, which rounds W to
+bf16). The tensor-core route (bf16, B > 8) is also held to its own plain
+version, `int4_matmul_bf16w_reference` (the Pallas kernel's bf16 W), summed
+in fp32: 2^-8 |y| (the kernel's one rounding of y to bf16) + 1e-5 of
+|x| @ |W| (the order of the fp32 sums). The int8-KV decode kernel is held to
 kernel 2's bounds (the plain version rounds p * vs to bf16, the kernel
 keeps it in fp32). The fast-stack probe at small dims (3 layers, 2 steps)
 is held to 1e-3 abs on outputs of rms 1 (fp32 sums in another order, and
@@ -33,7 +37,9 @@ from fish_speech_tpu_torch.ops import faststack
 from fish_speech_tpu_torch.ops.flash_decode import (
     flash_decode_attention, flash_decode_attention_kv8,
     flash_decode_kv8_reference, flash_decode_reference)
-from fish_speech_tpu_torch.ops.int4 import int4_matmul, int4_matmul_reference
+from fish_speech_tpu_torch.ops.int4 import (_route, int4_matmul,
+                                             int4_matmul_bf16w_reference,
+                                             int4_matmul_reference)
 from fish_speech_tpu_torch.ops.quant import (_int4_effective_weight, mm,
                                              quantize_int4)
 from fish_speech_tpu_torch.ops.flash_prefill import (flash_prefill_attention,
@@ -218,19 +224,29 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
     (1, 1536, 1536, 128),    # fast wo
     (3, 256, 200, 64),       # O not a multiple of 256
     (8, 128, 130, 32),       # ragged O, the matvec kernel's largest B
-    (9, 256, 136, 64),       # the tiled kernel's smallest B
+    (9, 256, 136, 64),       # the tiled kernels' smallest B
+    (128, 256, 128, 64),     # one 128 x 128 tile, two K stages
+    (40, 192, 72, 12),       # groups that split a chunk of 8 rows
+    (33, 192, 72, 3),        # odd groups, scales read from global memory
+    (16, 100, 40, 2),        # I and O off the 16-byte copies
+    (20, 64, 24, 1),         # one scale per row
     (300, 512, 264, 128),
+    (1000, 384, 200, 64),    # ragged B and O, a half-filled last K stage
+    (128, 2560, 6144, 128),  # slow wqkv, the short prompt's bucket
     (1024, 2560, 6144, 128), # slow wqkv, prefill bucket 1024
+    (1024, 2560, 19456, 128),  # slow w13
 ])
 def test_int4_kernel_matches_plain(dev, dtype, b, i, o, g):
     rng = np.random.default_rng(b + i + o)
     w = torch.from_numpy(rng.standard_normal((i, o)).astype(np.float32) * 0.02)
     qw = {k: v.to(dev) for k, v in quantize_int4(w, group_size=g).items()}
     x = _randn(rng, (b, i), dtype, dev)
-    n0 = int4_matmul.launches
+    route = f"launches_{_route(b, dtype)}"
+    n0, r0 = int4_matmul.launches, getattr(int4_matmul, route)
     got = int4_matmul(x, qw["p"], qw["gs"])
     torch.cuda.synchronize()
     assert int4_matmul.launches == n0 + 1 and got.dtype == dtype
+    assert getattr(int4_matmul, route) == r0 + 1
     want = int4_matmul_reference(x, qw["p"], qw["gs"]).float()
     w_abs = _int4_effective_weight(qw, torch.float32).abs()
     scale = x.float().abs() @ w_abs
@@ -243,8 +259,33 @@ def test_int4_kernel_matches_plain(dev, dtype, b, i, o, g):
         plain_bf16 = (x @ _int4_effective_weight(qw, dtype)).float()  # mm on CPU
         assert bool(((got.float() - plain_bf16).abs()
                      <= 2.0 ** -8 * (scale + plain_bf16.abs())).all())
+    if route == "launches_wgmma":
+        # the same bf16 W summed in fp32 (x.float() is exact)
+        exact = int4_matmul_bf16w_reference(x.float(), qw["p"], qw["gs"])
+        err = (got.float() - exact).abs()
+        assert bool((err <= 2.0 ** -8 * exact.abs() + 1e-5 * scale).all()), \
+            err.max().item()
     # mm dispatches CUDA int4 weights to the kernel
     assert torch.equal(mm(x[None], qw)[0], got)
+
+
+def test_mm_routes_int4_products_by_rows_and_dtype(dev):
+    """bf16 prefill rows go to the tensor-core kernel, fp32 rows to the
+    CUDA-core tiled kernel, up to 8 rows to the matvec kernel."""
+    rng = np.random.default_rng(0)
+    w = torch.from_numpy(rng.standard_normal((256, 192)).astype(np.float32))
+    qw = {k: v.to(dev) for k, v in quantize_int4(w, group_size=64).items()}
+    for shape, dtype, route in [((2, 64, 256), torch.bfloat16, "wgmma"),
+                                ((2, 64, 256), torch.float32, "fp32_tiled"),
+                                ((1, 8, 256), torch.bfloat16, "gemv"),
+                                ((1, 1, 256), torch.float32, "gemv")]:
+        before = {r: getattr(int4_matmul, f"launches_{r}")
+                  for r in ("gemv", "wgmma", "fp32_tiled")}
+        y = mm(_randn(rng, shape, dtype, dev), qw)
+        torch.cuda.synchronize()
+        assert y.shape == (*shape[:-1], 192) and y.dtype == dtype
+        for r, n in before.items():
+            assert getattr(int4_matmul, f"launches_{r}") == n + (r == route), r
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -264,11 +264,11 @@ def test_trainer_resume_is_bit_equivalent(tokenizer, tmp_path, lora):
             precision="float32", val_every_steps=1000,
             lora=tlora.LoraConfig(r=2, lora_alpha=4.0) if lora else None)
 
-    t_a = Trainer(cfg, tc("a", 4))
+    t_a = Trainer(cfg, tc("a", 4), device="cpu")
     t_a.fit(list(batches), resume=False)
-    t_b = Trainer(cfg, tc("b", 2))
+    t_b = Trainer(cfg, tc("b", 2), device="cpu")
     t_b.fit(batches[:2], resume=False)
-    t_b2 = Trainer(cfg, tc("b", 4))
+    t_b2 = Trainer(cfg, tc("b", 4), device="cpu")
     t_b2.fit(batches[2:], resume=True)
     assert t_a.step == t_b2.step == 4
 
@@ -292,7 +292,7 @@ def test_trainer_prunes_checkpoints_and_logs(tokenizer, tmp_path):
                        ckpt_every_steps=1, keep_ckpts=2, log_every_steps=2,
                        precision="float32",
                        lora=tlora.LoraConfig(r=2, lora_alpha=4.0))
-    trainer = Trainer(cfg, tcfg)
+    trainer = Trainer(cfg, tcfg, device="cpu")
     batch = make_batch(cfg)
     trainer.fit([batch] * 4, resume=False)
     ckpts = sorted(p.name for p in (tmp_path / "p" / "checkpoints").iterdir())
