@@ -6,17 +6,24 @@
 Phases, each of which ends the run with a nonzero exit if it fails:
 
 1. the card (`nvidia-smi` name and power limit), torch and CUDA versions,
-   the build of the CUDA kernels from `fish_speech_tpu_torch/csrc/`, and
-   the count of HGMMA (wgmma) instructions in the int4 tensor-core
-   kernel's SASS (`cuobjdump -sass`), which must not be 0;
+   the build of the CUDA kernels from `fish_speech_tpu_torch/csrc/` (the
+   tensor-core kernels' registers and spills from ptxas' report), and the
+   count of HGMMA (wgmma) instructions in the SASS (`cuobjdump -sass`) of
+   the int4 tensor-core kernel and of the two attention forwards
+   (`train_fwd_wgmma_kernel`, `prefill_wgmma_kernel`), none of which may
+   be 0;
 2. each kernel against its plain PyTorch version at the main paths' shapes,
    in bf16 from N(0,1) inputs (pass: max abs error <= 2e-2, mean <= 2e-3,
    the bound of bf16 rounding of P before P.V in the plain version; the
    training forward's O also gets one bf16 step of the value, 2^-7 |O|;
    the training backward's dQ/dK/dV, 2e-2 of the tensor's largest
    magnitude and 1e-2 of its mean magnitude), timed with CUDA events in
-   turns (plain, kernel, kernel, plain). The training kernels run at B=2
-   T=1024 with a right-padded row, B=1 T=4096 and a ragged B=2 T=1000.
+   turns (plain, kernel, kernel, plain). The attention forwards' bf16
+   cases run their tensor-core route and print TFLOP/s: the prefill at
+   B=1 T=64, 1024 and 4096 and B=2 T=600 with offsets [0, 129], the
+   training forward and backward at B=2 T=1024 with a right-padded row,
+   B=1 T=4096 and a ragged B=2 T=1000; their fp32 CUDA-core route is held
+   once at a small shape, to 1e-4.
    The int4 matmul's matvec route runs at s2-pro's eight decode shapes
    (B=1), its tensor-core route at the slow stack's four shapes at B=128
    and B=1024 (the two prompt buckets) and at a ragged (1000, 384, 200,
@@ -43,21 +50,24 @@ Phases, each of which ends the run with a nonzero exit if it fails:
    weights from a seed, max_seq_len 2048) and the `dac_s2_pro` codec answer
    streamed requests through `TTSInferenceEngine`, one of them with a
    prompt over 512 tokens. The audio must be finite and in whole frames,
-   both kernels' launch counts must be > 0, and a repeated request with the
-   same seed must give identical codes;
+   the decode kernel and the prefill's tensor-core route must have been
+   launched, and a repeated request with the same seed must give identical
+   codes;
 5. the training slice: the serving model is freed, then `Trainer.fit` runs
    8 LoRA steps (r=8, alpha=16, attention/mlp/embeddings/output, remat on)
    of the full-width `dual_ar_s2_pro` (bf16, random weights, max_seq_len
    1024) on one B=2 x T=1024 batch of the shared data pipeline, repeated.
    Every loss must be finite and the last below the first, sampled frozen
-   base tensors bitwise unchanged, every LoRA B leaf nonzero, both training
-   kernels launched, and the checkpoint must restore;
+   base tensors bitwise unchanged, every LoRA B leaf nonzero, the
+   forward's tensor-core route and the backward launched, and the
+   checkpoint must restore; s/step and tokens/s are printed beside the
+   prediction;
 6. quantized serving: the training model is freed, full-width s2-pro (bf16,
    seed 0, max_seq_len 2048) is quantized `mixed` (`quantize_dual_ar_lowmem
    (mode="int8", fast_mode="int4")`) and served with the int8 KV cache
    (`kv_quant=True`) to phase 4's short request and its repeat: finite
    whole frames, identical codes on the repeated seed, and `int4_mm`,
-   `flash_decode_kv8` and `flash_prefill` launched. Then the model is
+   `flash_decode_kv8` and `flash_prefill` (tensor-core route) launched. Then the model is
    rebuilt and quantized `int4` (every layer int4, heads int8) and serves
    the 700-byte request (prefill bucket 1024: the int4 matmul's
    tensor-core route, whose launch count must be > 0). TTFA, frames/s,
@@ -129,9 +139,11 @@ def _in_turns(plain, kernel, iters):
 
 
 # H100 SXM peaks (NVIDIA's data sheet): HBM3 bytes/s, dense bf16 and int8
+# on the tensor cores, fp32 on the CUDA cores
 HBM_BYTES_PER_S = 3.35e12
 PEAK_BF16 = 989e12
 PEAK_INT8 = 1979e12
+PEAK_FP32 = 67e12
 
 
 def _bound(flops, nbytes, peak=PEAK_BF16):
@@ -153,6 +165,7 @@ def kernel_cases(dev):
 
     from fish_speech_tpu_torch.ops.flash_decode import (flash_decode_attention,
                                                         flash_decode_reference)
+    from fish_speech_tpu_torch.ops.flash_prefill import _route as flash_prefill_route
     from fish_speech_tpu_torch.ops.flash_prefill import (
         flash_prefill_attention, flash_prefill_reference)
 
@@ -161,30 +174,45 @@ def kernel_cases(dev):
     def randn(*shape):
         return torch.randn(shape, generator=gen, device=dev, dtype=torch.bfloat16)
 
-    cases = {"flash_prefill": [], "flash_decode": []}
-    # prefill: flagship heads (H=32, Hkv=8, D=128), prompt buckets
-    for b, t, offsets in [(1, 64, [0]), (1, 1024, [0]), (2, 600, [0, 129])]:
-        q, k, v = randn(b, t, 32, 128), randn(b, t, 8, 128), randn(b, t, 8, 128)
+    cases = {"flash_prefill": [], "flash_prefill_fp32": [], "flash_decode": []}
+    # prefill: flagship heads (H=32, Hkv=8, D=128), prompt buckets, bf16
+    # (the tensor-core route); the fp32 route (CUDA cores, the tiny fp32
+    # models of phases 3 and 3c) once at a small shape, to fp32's 1e-4
+    for b, t, offsets, dtype in [(1, 64, [0], torch.bfloat16),
+                                 (1, 1024, [0], torch.bfloat16),
+                                 (2, 600, [0, 129], torch.bfloat16),
+                                 (1, 4096, [0], torch.bfloat16),
+                                 (1, 256, [0], torch.float32)]:
+        q, k, v = (randn(b, t, n, 128).to(dtype) for n in (32, 8, 8))
         off = torch.tensor(offsets, dtype=torch.int32, device=dev)
+        route = flash_prefill_route(dtype)
         got = flash_prefill_attention(q, k, v, off)
         want = flash_prefill_reference(q, k, v, off)
         mx, mean = _errors(got, want)
+        iters = 5 if t == 4096 else 20
         ms, plain_ms = _in_turns(lambda i=0: flash_prefill_reference(q, k, v, off),
                                  lambda i=0: flash_prefill_attention(q, k, v, off),
-                                 20)
+                                 iters)
         pairs = sum((t - o) * (t - o + 1) // 2 for o in offsets)
-        bound = _bound(4 * 32 * 128 * pairs, 2 * b * t * 128 * 2 * (32 + 8))
+        flops = 4 * 32 * 128 * pairs
+        bound = _bound(flops, q.element_size() * b * t * 128 * 2 * (32 + 8),
+                       PEAK_BF16 if dtype == torch.bfloat16 else PEAK_FP32)
         # SDPA with the same causal, offset mask (GQA heads expanded by SDPA)
         i = torch.arange(t, device=dev)
         mask = ((i[None, :] <= i[:, None])[None]
                 & (i[None, None, :] >= off[:, None, None]))[:, None]
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
         lib = _time_ms(lambda i=0: F.scaled_dot_product_attention(
-            qt, kt, vt, attn_mask=mask, enable_gqa=True), 20)
-        cases["flash_prefill"].append(dict(
-            shape=f"B={b} T={t} H=32 Hkv=8 D=128 offsets={offsets}",
+            qt, kt, vt, attn_mask=mask, enable_gqa=True), iters)
+        fp32 = dtype == torch.float32
+        cases["flash_prefill_fp32" if fp32 else "flash_prefill"].append(dict(
+            shape=f"B={b} T={t} H=32 Hkv=8 D=128 offsets={offsets} "
+                  f"{str(dtype)[6:]} {route} ({flops / ms / 1e9:.1f} TFLOP/s)",
             max_abs_err=mx, mean_abs_err=mean, ms=ms, plain_ms=plain_ms,
-            bound_ms=bound[0], bound_by=bound[1], library_ms=lib))
+            bound_ms=bound[0], bound_by=bound[1], library_ms=lib,
+            tflop_s=flops / ms / 1e9,
+            ok=mx <= 1e-4 if fp32 else mx <= 2e-2 and mean <= 2e-3))
+        del q, k, v, got, want, mask
     # decode: slow cache (36 layers, S = 2048 + 64 is the slice's; 4160 the
     # 4096-context one) and fast cache (12 layers, S = 10 codebooks). Each
     # timed launch reads the next layer, as the decode loop does, so the
@@ -244,31 +272,43 @@ def train_kernel_cases(dev, randn):
     """The training attention's forward and backward kernels against their
     plain versions on the same inputs (the backward on the plain forward's
     O and lse). Bounds, bf16 from N(0,1): O to 2e-2 plus one bf16 step of
-    the value (2^-7 |O|) elementwise and 2e-3 mean abs (the kernel keeps P
-    in fp32, the plain version rounds it to bf16; rows with few visible
-    keys have |O| above 2, where the two roundings can land one step
-    apart); lse, fp32 on both sides, to 1e-4; dQ, dK and dV, which are not convex
+    the value (2^-7 |O|) elementwise and 2e-3 mean abs (the tensor-core
+    kernel rounds the unnormalised P to bf16, the plain version the
+    normalised one; rows with few visible keys have |O| above 2, where the
+    two roundings can land one step apart); lse, fp32 on both sides, to
+    1e-4; the fp32 route's O to 1e-4; dQ, dK and dV, which are not convex
     combinations, to 2e-2 of the tensor's largest magnitude (max) and 1e-2
     of its mean magnitude (mean): one bf16 rounding of the output, plus the
     plain version's bf16 rounding of P and dS."""
     import torch
     import torch.nn.functional as F
 
+    from fish_speech_tpu_torch.ops.flash_train import _route as flash_train_route
     from fish_speech_tpu_torch.ops.flash_train import (
         flash_train_backward, flash_train_backward_reference, flash_train_forward,
         flash_train_forward_reference)
 
-    cases = {"flash_train_fwd": [], "flash_train_bwd": []}
+    cases = {"flash_train_fwd": [], "flash_train_fwd_fp32": [],
+             "flash_train_bwd": []}
     # the fine-tune shape with a right-padded row, the default max_length,
-    # and a ragged T (not a multiple of the 64-row tile)
-    for b, t, pads in [(2, 1024, [0, 100]), (1, 4096, [0]), (2, 1000, [0, 0])]:
-        q, k, v = randn(b, t, 32, 128), randn(b, t, 8, 128), randn(b, t, 8, 128)
+    # and a ragged T (not a multiple of the 64-row tile), in bf16 (the
+    # forward's tensor-core route); the forward's fp32 route (CUDA cores,
+    # the tiny fp32 model of phase 3b) once at a small shape, to 1e-4
+    for b, t, pads, dtype in [(2, 1024, [0, 100], torch.bfloat16),
+                              (1, 4096, [0], torch.bfloat16),
+                              (2, 1000, [0, 0], torch.bfloat16),
+                              (2, 256, [0, 30], torch.float32)]:
+        q, k, v = (randn(b, t, n, 128).to(dtype) for n in (32, 8, 8))
         kvalid = torch.ones((b, t), dtype=torch.int32, device=dev)
         for i, n in enumerate(pads):
             if n:
                 kvalid[i, -n:] = 0
-        do = randn(b, t, 32, 128) * kvalid[:, :, None, None].to(torch.bfloat16)
-        shape = f"B={b} T={t} H=32 Hkv=8 D=128 right_pad={pads}"
+        do = randn(b, t, 32, 128).to(dtype) * kvalid[:, :, None, None].to(dtype)
+        fp32 = dtype == torch.float32
+        route = flash_train_route(dtype)
+        # visible (query, key) pairs: causal and key-valid
+        pairs = sum((t - n) * (t - n + 1) // 2 + n * (t - n) for n in pads)
+        flops = 4 * 32 * 128 * pairs
 
         o, lse = flash_train_forward(q, k, v, kvalid)
         want_o, want_lse = flash_train_forward_reference(q, k, v, kvalid)
@@ -276,10 +316,11 @@ def train_kernel_cases(dev, randn):
         ms, plain_ms = _in_turns(
             lambda i=0: flash_train_forward_reference(q, k, v, kvalid),
             lambda i=0: flash_train_forward(q, k, v, kvalid), 10)
-        # visible (query, key) pairs: causal and key-valid
-        pairs = sum((t - n) * (t - n + 1) // 2 + n * (t - n) for n in pads)
-        io_bytes = 2 * b * t * 128 * (32 + 8)  # q, o | k, v: bf16
-        fwd_bound = _bound(4 * 32 * 128 * pairs, 2 * io_bytes + 4 * b * 32 * t)
+        shape = (f"B={b} T={t} H=32 Hkv=8 D=128 right_pad={pads} "
+                 f"{str(dtype)[6:]} {route} ({flops / ms / 1e9:.1f} TFLOP/s)")
+        io_bytes = q.element_size() * b * t * 128 * (32 + 8)  # q, o | k, v
+        fwd_bound = _bound(flops, 2 * io_bytes + 4 * b * 32 * t,
+                           PEAK_FP32 if fp32 else PEAK_BF16)
         bwd_bound = _bound(10 * 32 * 128 * pairs,
                            2 * io_bytes + 2 * b * t * 32 * 128 * 2 + 4 * b * 32 * t)
         i = torch.arange(t, device=dev)
@@ -298,15 +339,18 @@ def train_kernel_cases(dev, randn):
             return torch.autograd.grad(out, leaves, dot)
 
         lib_fwd = _time_ms(sdpa_fwd, 10)
-        lib_bwd = _time_ms(sdpa_fwd_bwd, 5) - lib_fwd
-        cases["flash_train_fwd"].append(dict(
+        cases["flash_train_fwd_fp32" if fp32 else "flash_train_fwd"].append(dict(
             shape=shape, max_abs_err=max(e_o[0], e_lse[0]),
             mean_abs_err=max(e_o[1], e_lse[1]), ms=ms, plain_ms=plain_ms,
             bound_ms=fwd_bound[0], bound_by=fwd_bound[1], library_ms=lib_fwd,
-            outputs={"O": e_o, "lse": e_lse},
-            ok=_within_bf16_step(o, want_o) and e_o[1] <= 2e-3
-            and e_lse[0] <= 1e-4))
+            outputs={"O": e_o, "lse": e_lse}, tflop_s=flops / ms / 1e9,
+            ok=(e_o[0] <= 1e-4 if fp32 else _within_bf16_step(o, want_o)
+                and e_o[1] <= 2e-3) and e_lse[0] <= 1e-4))
+        if fp32:  # the backward's cases are the bf16 ones
+            del q, k, v, do, o, lse, want_o, want_lse
+            continue
 
+        lib_bwd = _time_ms(sdpa_fwd_bwd, 5) - lib_fwd
         args = (q, k, v, kvalid, want_o, want_lse, do)
         got = flash_train_backward(*args)
         want = flash_train_backward_reference(*args)
@@ -320,7 +364,8 @@ def train_kernel_cases(dev, randn):
         ms, plain_ms = _in_turns(lambda i=0: flash_train_backward_reference(*args),
                                  lambda i=0: flash_train_backward(*args), 5)
         cases["flash_train_bwd"].append(dict(
-            shape=shape, max_abs_err=max(e[0] for e in errs.values()),
+            shape=f"B={b} T={t} H=32 Hkv=8 D=128 right_pad={pads} bfloat16",
+            max_abs_err=max(e[0] for e in errs.values()),
             mean_abs_err=max(e[1] for e in errs.values()), ms=ms,
             plain_ms=plain_ms, bound_ms=bwd_bound[0], bound_by=bwd_bound[1],
             library_ms=lib_bwd, outputs=errs, ok=ok))
@@ -762,9 +807,10 @@ def run_slice(dev, tokenizer):
     _zero_counts()
     results = serve(dev, tokenizer, engine, _requests(), dac_cfg.frame_length,
                     "bf16")
-    launches = _counted({"flash_prefill": flash_prefill_attention,
-                         "flash_decode": flash_decode_attention})
-    print(f"kernel launches on the engine path: {launches}")
+    launches = {"flash_prefill": flash_prefill_attention.launches_wgmma,
+                "flash_decode": flash_decode_attention.launches}
+    print(f"kernel launches on the engine path: {launches} (prefill on the "
+          f"tensor-core route; all routes {flash_prefill_attention.launches})")
     if min(launches.values()) <= 0:
         raise SystemExit("a kernel of the path was never launched")
     print(f"peak device memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
@@ -817,8 +863,7 @@ def run_quant_slice(dev, tokenizer):
     cfg = _s2_pro_cfg(tokenizer, 2048)
     dac_cfg = dac_s2_pro()
     codec = init_dac_decoder(1, dac_cfg, torch.float32, dev)
-    wrappers = {"flash_decode_kv8": flash_decode_attention_kv8,
-                "flash_prefill": flash_prefill_attention}
+    wrappers = {"flash_decode_kv8": flash_decode_attention_kv8}
     requests = dict(_requests())
     out = {}
     for label, mode, fast_mode, names in (
@@ -849,6 +894,7 @@ def run_quant_slice(dev, tokenizer):
         # the int4 matmul's routes: matvec (decode), tensor cores (bf16
         # prefill); the fp32 tiled route serves no bf16 model
         launches = dict(_counted(wrappers),
+                        flash_prefill=flash_prefill_attention.launches_wgmma,
                         int4_mm=int4_matmul.launches_gemv,
                         int4_mm_wgmma=int4_matmul.launches_wgmma,
                         int4_mm_fp32_tiled=int4_matmul.launches_fp32_tiled)
@@ -858,8 +904,8 @@ def run_quant_slice(dev, tokenizer):
               f"{peak:.2f} GiB; serving fast stack {fast_ms:.3f} ms/frame "
               f"(_sample_column, CUDA events)")
         # `mixed` keeps its slow stack int8, so only `int4` prefills in int4
-        required = ["int4_mm", *wrappers] + (["int4_mm_wgmma"] if label == "int4"
-                                             else [])
+        required = ["int4_mm", "flash_prefill", *wrappers] + (
+            ["int4_mm_wgmma"] if label == "int4" else [])
         if min(launches[k] for k in required) <= 0:
             raise SystemExit(f"{label}: a kernel of the quantized path was never "
                              f"launched: {launches}")
@@ -1084,7 +1130,7 @@ def run_train_slice(dev, tokenizer, cfg, out_dir):
     torch.cuda.reset_peak_memory_stats(dev)
     trainer.fit(itertools.repeat(batch, steps), resume=False)
     torch.cuda.synchronize()
-    launches = {"flash_train_fwd": flash_train_forward.launches,
+    launches = {"flash_train_fwd": flash_train_forward.launches_wgmma,
                 "flash_train_bwd": flash_train_backward.launches}
     peak = torch.cuda.max_memory_allocated(dev) / 2**30
 
@@ -1099,8 +1145,11 @@ def run_train_slice(dev, tokenizer, cfg, out_dir):
               f"({real_tokens / s:.0f} real)")
     steady = float(np.mean([1.0 / r["it_per_s"] for r in recs[1:]]))
     print(f"training: steps 2-{steps} mean {steady:.4f} s/step, "
-          f"{step_tokens / steady:.0f} tokens/s; peak device memory {peak:.2f} GiB; "
-          f"kernel launches {launches}")
+          f"{step_tokens / steady:.0f} tokens/s (predicted 0.74-0.77 s/step, "
+          f"about 2,650-2,770 tokens/s, with the tensor-core attention "
+          f"forward; 0.8586-0.8709 s/step without); peak device memory "
+          f"{peak:.2f} GiB; kernel launches {launches} (forward on the "
+          f"tensor-core route; all routes {flash_train_forward.launches})")
 
     losses = [r["loss"] for r in recs]
     if len(recs) != steps or not np.isfinite(losses).all():
@@ -1139,13 +1188,13 @@ def run_train_slice(dev, tokenizer, cfg, out_dir):
 
 
 def _zero_counts():
-    """Set every kernel wrapper's launch counts to 0 (the int4 matmul's per
-    route too)."""
-    from fish_speech_tpu_torch.ops.int4 import reset_launches
+    """Set every kernel wrapper's launch counts to 0 (per route too)."""
+    from fish_speech_tpu_torch.ops import flash_prefill, flash_train, int4
 
     for f in _kernel_wrappers():
         f.launches = 0
-    reset_launches()
+    for mod in (flash_prefill, flash_train, int4):
+        mod.reset_launches()
 
 
 def _kernel_wrappers():
@@ -1164,12 +1213,16 @@ def _kernel_wrappers():
 
 SRC = "fish_speech_tpu_torch/csrc/"
 KERNELS = {  # name: (source, the TPU kernel or JAX code it replaces)
-    "flash_prefill": (SRC + "flash_prefill.cu",
+    "flash_prefill": (SRC + "attn_wgmma.cuh",
                       "fish_speech_tpu/ops/pallas_attention.py:26"),
+    "flash_prefill_fp32": (SRC + "flash_prefill.cu",
+                           "fish_speech_tpu/ops/pallas_attention.py:26"),
     "flash_decode": (SRC + "flash_decode.cu",
                      "fish_speech_tpu/ops/pallas_decode.py:47"),
-    "flash_train_fwd": (SRC + "flash_train.cu",
+    "flash_train_fwd": (SRC + "attn_wgmma.cuh",
                         "fish_speech_tpu/ops/pallas_attention_train.py:56"),
+    "flash_train_fwd_fp32": (SRC + "flash_train.cu",
+                             "fish_speech_tpu/ops/pallas_attention_train.py:56"),
     "flash_train_bwd": (SRC + "flash_train.cu",
                         "fish_speech_tpu/ops/pallas_attention_train.py:131"),
     "int4_mm": (SRC + "int4_mm.cu", "fish_speech_tpu/ops/pallas_int4.py:32"),
@@ -1182,10 +1235,29 @@ KERNELS = {  # name: (source, the TPU kernel or JAX code it replaces)
 }
 # headline shapes: the long request's prefill bucket, a 257-long cache, the
 # B=2 x T=1024 fine-tune shape, the slow w13 at B=1 (matvec route) and at
-# B=1024 (tensor-core route), a 257-long int8 cache, the probe at R=0 in bf16
-HEADLINE = {"flash_prefill": 1, "flash_decode": 1, "flash_train_fwd": 0,
+# B=1024 (tensor-core route), a 257-long int8 cache, the probe at R=0 in
+# bf16; the fp32 attention routes' one small case each
+HEADLINE = {"flash_prefill": 1, "flash_prefill_fp32": 0, "flash_decode": 1,
+            "flash_train_fwd": 0, "flash_train_fwd_fp32": 0,
             "flash_train_bwd": 0, "int4_mm": 2, "int4_mm_wgmma": 6,
             "flash_decode_kv8": 1, "faststack_probe": 0}
+# the kernels whose SASS must hold HGMMA (wgmma) instructions
+WGMMA_KERNELS = ("int4_wgmma_kernel", "train_fwd_wgmma_kernel",
+                 "prefill_wgmma_kernel")
+
+
+def _ptxas_report(build_log):
+    """Print ptxas' registers, shared memory and spills of the tensor-core
+    kernels from the build's log."""
+    name = None
+    for line in build_log.read_text().splitlines():
+        if "Compiling entry function" in line:
+            name = next((k for k in WGMMA_KERNELS if k in line), None)
+            dims = "<64>" if "ILi64E" in line else "<128>" if "ILi128E" in line else ""
+        elif name and ("spill" in line or "Used" in line):
+            print(f"ptxas {name}{dims}: {line.strip()}")
+        if "C7513" in line:
+            print(f"ptxas: {line.strip()}")
 
 
 def _sass_hgmma(lib_path):
@@ -1224,16 +1296,29 @@ def main():
     _kernels.load_kernels()
     print(f"kernels built from {_kernels.CSRC} and loaded in "
           f"{time.perf_counter() - t0:.1f}s: {_kernels.library_path()}")
-    hgmma = {k: n for k, n in _sass_hgmma(_kernels.library_path()).items()
-             if "int4_wgmma_kernel" in k}
-    print(f"HGMMA instructions in the int4 tensor-core kernel's SASS: {hgmma}")
-    if not hgmma or min(hgmma.values()) <= 0:
-        raise SystemExit("the int4 tensor-core kernel issues no HGMMA")
+    _ptxas_report(_kernels.library_path().parent / "build.log")
+    sass = _sass_hgmma(_kernels.library_path())
+    for name in WGMMA_KERNELS:
+        hgmma = {k: n for k, n in sass.items() if name in k}
+        print(f"HGMMA instructions in {name}'s SASS: {hgmma}")
+        if not hgmma or min(hgmma.values()) <= 0:
+            raise SystemExit(f"{name} issues no HGMMA")
 
     cases = kernel_cases(dev)
     tokenizer = build_test_tokenizer()
+    from fish_speech_tpu_torch.ops.flash_prefill import flash_prefill_attention
+    from fish_speech_tpu_torch.ops.flash_train import flash_train_forward
+
+    # the fp32 routes run in the tiny fp32 models' phases
+    _zero_counts()
     small_reference(dev, tokenizer)
+    fp32_launches = {"flash_prefill_fp32": flash_prefill_attention.launches_cuda_cores}
+    _zero_counts()
     small_train_reference(dev, tokenizer)
+    fp32_launches["flash_train_fwd_fp32"] = flash_train_forward.launches_cuda_cores
+    print(f"fp32 routes' launches in phases 3 and 3b: {fp32_launches}")
+    if min(fp32_launches.values()) <= 0:
+        raise SystemExit("an fp32 attention route was never launched")
     small_quant_reference(dev, tokenizer)
     _, launches = run_slice(dev, tokenizer)
     gc.collect()  # the serving slice's model and caches go before training
@@ -1242,6 +1327,7 @@ def main():
         dev, tokenizer, _s2_pro_cfg(tokenizer, 1024),
         Path(__file__).resolve().parent / "build" / "chip_smoke_train")
     launches.update(train_launches)
+    launches.update(fp32_launches)
     gc.collect()  # the training model goes before quantized serving
     torch.cuda.empty_cache()
     quant = run_quant_slice(dev, tokenizer)

@@ -1,6 +1,7 @@
 // Shared helpers for the attention kernels of fish_speech_tpu_torch.
 //
-// The kernels take bfloat16 or float32 tensors; all arithmetic is float32.
+// The kernels take bfloat16 or float32 tensors and sum in float32 (the
+// tensor-core kernels multiply bf16 operands, wgmma.cuh).
 // Each C entry point returns cudaGetLastError() after its launch (0 on
 // success); the Python wrapper raises on anything else.
 

@@ -14,11 +14,17 @@
 // BK keys and keeps an online (running max / running sum) softmax in float32
 // per query row. Scores never reach device memory.
 //
-// Design (first, simple version): one block of 256 threads per (query tile
-// of BQ=64 rows, head, batch row). Products run on the CUDA cores in float32
-// from shared memory; tiles past the causal limit of the block are skipped.
-// wgmma, TMA and warp specialisation are later work.
+// Two routes, chosen by the wrapper (`ops/flash_prefill.py:_route`) on the
+// dtype:
+//  * "wgmma", bf16 (every served model): `prefill_wgmma_kernel`, the
+//    tensor-core mainloop of attn_wgmma.cuh (whose note gives its design)
+//    with the offset mask;
+//  * "cuda_cores", fp32 (the small fp32 reference models):
+//    `prefill_kernel`, one block of 256 threads per (query tile of BQ=64
+//    rows, head, batch row), products on the CUDA cores in float32 from
+//    shared memory, tiles past the causal limit of the block skipped.
 
+#include "attn_wgmma.cuh"
 #include "common.cuh"
 
 namespace {
@@ -218,26 +224,46 @@ int launch_prefill(const void* q, const void* k, const void* v,
   return (int)cudaGetLastError();
 }
 
+template <int D>
+__global__ void __launch_bounds__(fs::attn::THREADS, 1)
+    prefill_wgmma_kernel(const fs::attn::Args a) {
+  fs::attn::attn_fwd_wgmma<fs::attn::Mask::kOffset, D>(a);
+}
+
+// route codes, as `ops/flash_prefill.py:ROUTES`
+constexpr int kRouteCudaCores = 0, kRouteWgmma = 1;
+
 }  // namespace
 
 extern "C" int fs_flash_prefill(const void* q, const void* k, const void* v,
                                 const void* offsets, void* out, int batch,
                                 int t_len, int n_head, int n_kv, int head_dim,
-                                int dtype, float scale, void* stream) {
+                                int dtype, int route, float scale, void* stream) {
   if (batch < 1 || t_len < 1 || n_kv < 1 || n_head % n_kv != 0)
     return (int)cudaErrorInvalidValue;
   const int* off = static_cast<const int*>(offsets);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == fs::kBFloat16 && head_dim == 128)
-    return launch_prefill<__nv_bfloat16, 128>(q, k, v, off, out, batch, t_len,
-                                              n_head, n_kv, scale, s);
-  if (dtype == fs::kBFloat16 && head_dim == 64)
-    return launch_prefill<__nv_bfloat16, 64>(q, k, v, off, out, batch, t_len,
-                                             n_head, n_kv, scale, s);
-  if (dtype == fs::kFloat32 && head_dim == 128)
+  if (route == kRouteWgmma && dtype == fs::kBFloat16) {
+    fs::attn::Args a;
+    a.q = static_cast<const __nv_bfloat16*>(q);
+    a.k = static_cast<const __nv_bfloat16*>(k);
+    a.v = static_cast<const __nv_bfloat16*>(v);
+    a.mask = off;
+    a.out = static_cast<__nv_bfloat16*>(out);
+    a.lse = nullptr;
+    a.t_len = t_len;
+    a.n_head = n_head;
+    a.n_kv = n_kv;
+    a.scale = scale;
+    if (head_dim == 128)
+      return fs::attn::launch<128>(prefill_wgmma_kernel<128>, a, batch, s);
+    if (head_dim == 64)
+      return fs::attn::launch<64>(prefill_wgmma_kernel<64>, a, batch, s);
+  }
+  if (route == kRouteCudaCores && dtype == fs::kFloat32 && head_dim == 128)
     return launch_prefill<float, 128>(q, k, v, off, out, batch, t_len, n_head,
                                       n_kv, scale, s);
-  if (dtype == fs::kFloat32 && head_dim == 64)
+  if (route == kRouteCudaCores && dtype == fs::kFloat32 && head_dim == 64)
     return launch_prefill<float, 64>(q, k, v, off, out, batch, t_len, n_head,
                                      n_kv, scale, s);
   return (int)cudaErrorInvalidValue;

@@ -17,9 +17,17 @@
 // kernels stream 64-row tiles through shared memory and never store a T x T
 // tensor in device memory:
 //
-//  * forward: one block per (64-query tile, head, batch row), an online
-//    (running max / running sum) softmax in float32 per row, causal tiles
-//    past the block's last row skipped; writes O and lse = m + log(l).
+//  * forward, two routes chosen by the wrapper (`ops/flash_train.py:
+//    _route`) on the dtype:
+//      - "wgmma", bf16: `train_fwd_wgmma_kernel`, the tensor-core mainloop
+//        of attn_wgmma.cuh (whose note gives its design) with the
+//        key-valid mask; writes O and lse;
+//      - "cuda_cores", fp32 (the small fp32 reference models):
+//        `train_fwd_kernel`, one block per (64-query tile, head, batch
+//        row), products on the CUDA cores in float32 from shared memory,
+//        an online (running max / running sum) softmax in float32 per
+//        row, causal tiles past the block's last row skipped; writes O
+//        and lse = m + log(l).
 //  * backward, FlashAttention-2 style recompute from lse, in two kernels so
 //    that every output is written once by one block (deterministic, no
 //    atomics, as the TPU kernel's revisit-accumulate was):
@@ -33,10 +41,11 @@
 //    delta = rowsum(dO * O) comes in from the wrapper (a plain reduction, as
 //    the JAX package computes it outside its kernel).
 //
-// All products run on the CUDA cores in float32 from shared memory, with P
-// and dS kept in float32 (the TPU kernel rounds them to bf16 before its
-// matrix products). wgmma, TMA and warp specialisation are later work.
+// The backward's products run on the CUDA cores in float32 from shared
+// memory, with P and dS kept in float32 (the TPU kernel rounds them to
+// bf16 before its matrix products); its tensor-core version is later work.
 
+#include "attn_wgmma.cuh"
 #include "common.cuh"
 
 namespace {
@@ -549,6 +558,15 @@ int launch_bwd(const void* q, const void* k, const void* v, const int* kvalid,
   return (int)cudaGetLastError();
 }
 
+template <int D>
+__global__ void __launch_bounds__(fs::attn::THREADS, 1)
+    train_fwd_wgmma_kernel(const fs::attn::Args a) {
+  fs::attn::attn_fwd_wgmma<fs::attn::Mask::kKeyValid, D>(a);
+}
+
+// route codes, as `ops/flash_train.py:ROUTES`
+constexpr int kRouteCudaCores = 0, kRouteWgmma = 1;
+
 bool bad_shape(int batch, int t_len, int n_head, int n_kv) {
   return batch < 1 || t_len < 1 || n_kv < 1 || n_head % n_kv != 0;
 }
@@ -558,22 +576,33 @@ bool bad_shape(int batch, int t_len, int n_head, int n_kv) {
 extern "C" int fs_flash_train_fwd(const void* q, const void* k, const void* v,
                                   const void* kvalid, void* out, void* lse,
                                   int batch, int t_len, int n_head, int n_kv,
-                                  int head_dim, int dtype, float scale,
-                                  void* stream) {
+                                  int head_dim, int dtype, int route,
+                                  float scale, void* stream) {
   if (bad_shape(batch, t_len, n_head, n_kv)) return (int)cudaErrorInvalidValue;
   const int* kv = static_cast<const int*>(kvalid);
   float* l = static_cast<float*>(lse);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == fs::kBFloat16 && head_dim == 128)
-    return launch_fwd<__nv_bfloat16, 128>(q, k, v, kv, out, l, batch, t_len,
-                                          n_head, n_kv, scale, s);
-  if (dtype == fs::kBFloat16 && head_dim == 64)
-    return launch_fwd<__nv_bfloat16, 64>(q, k, v, kv, out, l, batch, t_len,
-                                         n_head, n_kv, scale, s);
-  if (dtype == fs::kFloat32 && head_dim == 128)
+  if (route == kRouteWgmma && dtype == fs::kBFloat16) {
+    fs::attn::Args a;
+    a.q = static_cast<const __nv_bfloat16*>(q);
+    a.k = static_cast<const __nv_bfloat16*>(k);
+    a.v = static_cast<const __nv_bfloat16*>(v);
+    a.mask = kv;
+    a.out = static_cast<__nv_bfloat16*>(out);
+    a.lse = l;
+    a.t_len = t_len;
+    a.n_head = n_head;
+    a.n_kv = n_kv;
+    a.scale = scale;
+    if (head_dim == 128)
+      return fs::attn::launch<128>(train_fwd_wgmma_kernel<128>, a, batch, s);
+    if (head_dim == 64)
+      return fs::attn::launch<64>(train_fwd_wgmma_kernel<64>, a, batch, s);
+  }
+  if (route == kRouteCudaCores && dtype == fs::kFloat32 && head_dim == 128)
     return launch_fwd<float, 128>(q, k, v, kv, out, l, batch, t_len, n_head,
                                   n_kv, scale, s);
-  if (dtype == fs::kFloat32 && head_dim == 64)
+  if (route == kRouteCudaCores && dtype == fs::kFloat32 && head_dim == 64)
     return launch_fwd<float, 64>(q, k, v, kv, out, l, batch, t_len, n_head,
                                  n_kv, scale, s);
   return (int)cudaErrorInvalidValue;

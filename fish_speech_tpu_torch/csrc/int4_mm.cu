@@ -21,8 +21,11 @@
 // * "gemv", B <= 8: split-K matrix-vector kernel. A block owns 256 output columns
 //   (64 column threads x 4 columns, one 4-byte coalesced load per packed
 //   row) and one group of g packed rows, so both nibbles of every byte it
-//   reads belong to one group each (rows r and r + I/2): the block sums
-//   x * nibble for the two groups in fp32 and applies the two scales once.
+//   reads belong to one group each (rows r and r + I/2). For fp32 x the
+//   block sums x * nibble for the two groups in fp32 and applies the two
+//   scales once; for bf16 x it dequantizes every nibble to the bf16 W of
+//   the other routes (below, four columns at a time in bf16x2 arithmetic)
+//   and sums x * W in fp32.
 //   Four row slices share the rows and are summed through shared memory.
 //   The grid is (O/256) x (I/2g) blocks (e.g. 12 x 10 for 2560 -> 6144 at
 //   g = 128), so most of the 132 SMs get work where a column split alone
@@ -38,16 +41,20 @@
 //   columns of x in shared memory; each thread accumulates an 8 x 8
 //   sub-tile in fp32 registers.
 //
-// The W of each route: the fp32 routes use q * s in fp32 (the JAX package's
-// `int4_matmul_reference`). The wgmma route uses rn_bf16(q * rn_bf16(s)),
-// which is bitwise the W of the Pallas kernel: it casts the nibble and the
-// scale to bf16 and multiplies them in bf16, and a product of a 4-bit and
-// an 8-bit significand is exact in fp32, so it rounds once. Only the order
-// of the fp32 sums differs from the TPU kernel.
+// The W of each route: fp32 x (the "gemv" and "fp32_tiled" routes) uses
+// q * s in fp32 (the JAX package's `int4_matmul_reference`). bf16 x (the
+// "gemv" and "wgmma" routes) uses rn_bf16(q * rn_bf16(s)), which is
+// bitwise the W of the Pallas kernel: it casts the nibble and the scale to
+// bf16 and multiplies them in bf16, and a product of a 4-bit and an 8-bit
+// significand is exact in fp32, so it rounds once. So a bf16 decode step
+// and its prefill run on one W; only the order of the fp32 sums differs
+// from the TPU kernel.
 
 #include <algorithm>
+#include <type_traits>
 
 #include "common.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
@@ -65,6 +72,25 @@ __device__ __forceinline__ void load4(const uint8_t* row, int col0, int out_dim,
 #pragma unroll
     for (int c = 0; c < 4; ++c) w[c] = col0 + c < out_dim ? row[col0 + c] : 0x88;
   }
+}
+
+__device__ __forceinline__ uint32_t bf2_bits(__nv_bfloat162 v) {
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+__device__ __forceinline__ __nv_bfloat162 bits_bf2(uint32_t v) {
+  return *reinterpret_cast<__nv_bfloat162*>(&v);
+}
+
+// W values of the low nibbles (bytes 0 and 2 of w) and of the high ones
+__device__ __forceinline__ void dequant_pair(uint32_t w, __nv_bfloat162 s_lo,
+                                             __nv_bfloat162 s_hi, uint32_t& lo,
+                                             uint32_t& hi) {
+  const __nv_bfloat162 bias = __floats2bfloat162_rn(136.f, 136.f);  // 128 + 8
+  const __nv_bfloat162 ql = __hsub2(bits_bf2((w & 0x000F000Fu) | 0x43004300u), bias);
+  const __nv_bfloat162 qh =
+      __hsub2(bits_bf2(((w >> 4) & 0x000F000Fu) | 0x43004300u), bias);
+  lo = bf2_bits(__hmul2_rn(ql, s_lo));
+  hi = bf2_bits(__hmul2_rn(qh, s_hi));
 }
 
 template <typename T>
@@ -95,16 +121,45 @@ __global__ void __launch_bounds__(GV_THREADS)
 #pragma unroll
     for (int c = 0; c < 4; ++c) lo_acc[b][c] = hi_acc[b][c] = 0.f;
 
+  // the block's two groups: k (rows r) and g_hi (rows r + I/2)
+  float s_lo[4], s_hi[4];
+  const int g_hi = k + half / group;
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    const int col = col0 + c;
+    s_lo[c] = col < out_dim ? gs[(size_t)k * out_dim + col] : 0.f;
+    s_hi[c] = col < out_dim ? gs[(size_t)g_hi * out_dim + col] : 0.f;
+  }
+  // bf16 x: each W element is rn_bf16(q * rn_bf16(s)) before it is
+  // multiplied (the scale cannot be factored out: q * s_bf16 has up to 11
+  // significant bits and rounds); fp32 x: W = q * s, the scale applied once
+  constexpr bool kBf16W = std::is_same<T, __nv_bfloat16>::value;
+  const __nv_bfloat162 sl01 = __floats2bfloat162_rn(s_lo[0], s_lo[1]);
+  const __nv_bfloat162 sl23 = __floats2bfloat162_rn(s_lo[2], s_lo[3]);
+  const __nv_bfloat162 sh01 = __floats2bfloat162_rn(s_hi[0], s_hi[1]);
+  const __nv_bfloat162 sh23 = __floats2bfloat162_rn(s_hi[2], s_hi[3]);
+
   const bool vec = (out_dim % 4 == 0) && (col0 + 4 <= out_dim);
   if (col0 < out_dim) {
     for (int j = slice; j < group; j += GV_SLICES) {
       uint8_t w[4];
       load4(p + (size_t)(r0 + j) * out_dim, col0, out_dim, vec, w);
       float lo[4], hi[4];
+      if constexpr (kBf16W) {
+        const uint32_t v = w[0] | (w[1] << 8) | (w[2] << 16) | ((uint32_t)w[3] << 24);
+        uint32_t lo01, hi01, lo23, hi23;  // bf16 pairs, column c in the low half
+        dequant_pair(__byte_perm(v, 0, 0x4140), sl01, sh01, lo01, hi01);
+        dequant_pair(__byte_perm(v, 0, 0x4342), sl23, sh23, lo23, hi23);
+        lo[0] = __uint_as_float(lo01 << 16); lo[1] = __uint_as_float(lo01 & 0xFFFF0000u);
+        lo[2] = __uint_as_float(lo23 << 16); lo[3] = __uint_as_float(lo23 & 0xFFFF0000u);
+        hi[0] = __uint_as_float(hi01 << 16); hi[1] = __uint_as_float(hi01 & 0xFFFF0000u);
+        hi[2] = __uint_as_float(hi23 << 16); hi[3] = __uint_as_float(hi23 & 0xFFFF0000u);
+      } else {
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        lo[c] = (float)((int)(w[c] & 0xF) - 8);
-        hi[c] = (float)((int)(w[c] >> 4) - 8);
+        for (int c = 0; c < 4; ++c) {
+          lo[c] = (float)((int)(w[c] & 0xF) - 8);
+          hi[c] = (float)((int)(w[c] >> 4) - 8);
+        }
       }
 #pragma unroll
       for (int b = 0; b < GV_MAXB; ++b) {
@@ -119,16 +174,12 @@ __global__ void __launch_bounds__(GV_THREADS)
       }
     }
   }
+  if constexpr (kBf16W) {
+#pragma unroll
+    for (int c = 0; c < 4; ++c) s_lo[c] = s_hi[c] = 1.f;  // already in W
+  }
 
   // y = s_lo * sum(x * lo) + s_hi * sum(x * hi), per output column
-  float s_lo[4], s_hi[4];
-  const int g_hi = k + half / group;
-#pragma unroll
-  for (int c = 0; c < 4; ++c) {
-    const int col = col0 + c;
-    s_lo[c] = col < out_dim ? gs[(size_t)k * out_dim + col] : 0.f;
-    s_hi[c] = col < out_dim ? gs[(size_t)g_hi * out_dim + col] : 0.f;
-  }
   if (slice > 0) {
 #pragma unroll
     for (int b = 0; b < GV_MAXB; ++b) {
@@ -320,64 +371,7 @@ constexpr int SMEM = 1024 + R_OFF + NBUF * KP;    // + alignment slack
 // scale rows per half that a stage of KP packed rows can touch
 inline int scale_rows(int group) { return std::min(KP, (KP - 1) / group + 2); }
 
-__device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
-}
-
-// byte offset of the 16-byte chunk c of row m in a 128-byte-swizzled tile
-__device__ __forceinline__ int sw128(int m, int c) {
-  return m * 128 + ((c ^ (m & 7)) << 4);
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(smem_u32(dst)), "l"(src), "r"(valid ? 16 : 0) : "memory");
-}
-
-// wgmma operand descriptor of a K-major, 128-byte-swizzled tile: start
-// address >> 4, leading byte offset 16 (unused by this layout), stride 1024
-// bytes between 8-row groups, layout type 1 (128-byte swizzle)
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
-         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
-}
-
-// d (64 x 128, fp32) += a (64 x 16, bf16, registers) * b (16 x 128, bf16,
-// shared memory, K-major)
-__device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64],
-                                                    const uint32_t (&a)[4],
-                                                    uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
-      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
-      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
-      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
-      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
-      "%62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]),
-        "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]),
-        "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]),
-        "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),
-        "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]),
-        "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]),
-        "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
-        "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// keeps the compiler from moving accumulator accesses across the
-// asynchronous wgmmas
-__device__ __forceinline__ void fence_regs(float (&d)[64]) {
-#pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
+using namespace fs::wg;
 
 struct Args {
   const __nv_bfloat16* x;
@@ -479,25 +473,6 @@ __device__ __forceinline__ void scales_at(const float* ss, int h, int rel,
   s1 = __float2bfloat16_rn(v.y);
 }
 
-__device__ __forceinline__ uint32_t bf2_bits(__nv_bfloat162 v) {
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-__device__ __forceinline__ __nv_bfloat162 bits_bf2(uint32_t v) {
-  return *reinterpret_cast<__nv_bfloat162*>(&v);
-}
-
-// W values of the low nibbles (bytes 0 and 2 of w) and of the high ones
-__device__ __forceinline__ void dequant_pair(uint32_t w, __nv_bfloat162 s_lo,
-                                             __nv_bfloat162 s_hi, uint32_t& lo,
-                                             uint32_t& hi) {
-  const __nv_bfloat162 bias = __floats2bfloat162_rn(136.f, 136.f);  // 128 + 8
-  const __nv_bfloat162 ql = __hsub2(bits_bf2((w & 0x000F000Fu) | 0x43004300u), bias);
-  const __nv_bfloat162 qh =
-      __hsub2(bits_bf2(((w >> 4) & 0x000F000Fu) | 0x43004300u), bias);
-  lo = bf2_bits(__hmul2_rn(ql, s_lo));
-  hi = bf2_bits(__hmul2_rn(qh, s_hi));
-}
-
 // A fragments of stage `st` (buffer `buf`) for this thread: frag[kk] for
 // the low half's k16 step kk, frag[4 + kk] for the high half's.
 __device__ __forceinline__ void dequant_stage(const uint8_t* sm, int buf, int st,
@@ -563,10 +538,10 @@ __device__ __forceinline__ void issue_wgmmas(float (&acc)[64],
     for (int r = 0; r < 4; ++r) asm volatile("" : "+r"(frag[f][r]));
   }
   fence_regs(acc);
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+  wgmma_fence();
 #pragma unroll
   for (int f = 0; f < 8; ++f) wgmma_m64n128k16_rs(acc, frag[f], desc[f]);
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+  wgmma_commit();
   fence_regs(acc);
 }
 
@@ -580,17 +555,16 @@ __device__ __forceinline__ void run_stage(float (&acc)[64], uint32_t (&frag)[8][
   // ptxas serializes wgmmas whose register inputs are written while an
   // earlier group is in flight, so the stage's group is retired here; the
   // other block on the SM fills the tensor cores meanwhile
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+  wgmma_wait<0>();
   fence_regs(acc);
   // stage st+1's copies have landed (NBUF - 2 later stages may be in flight)
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(NBUF - 2) : "memory");
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  cp_async_wait<NBUF - 2>();
   // stage st+1 is visible to every thread, and every warpgroup is done with
   // buffer st, which stage st+NBUF now takes
   __syncthreads();
   const int next = st + NBUF;
   if (next < n_stages) load_stage(sm, next % NBUF, next, m0, n0, a);
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
+  cp_async_commit();
 }
 
 __global__ void __launch_bounds__(THREADS, 2) int4_wgmma_kernel(const Args a) {
@@ -608,10 +582,9 @@ __global__ void __launch_bounds__(THREADS, 2) int4_wgmma_kernel(const Args a) {
 #pragma unroll
   for (int st = 0; st < NBUF; ++st) {
     if (st < n_stages) load_stage(sm, st, st, m0, n0, a);
-    asm volatile("cp.async.commit_group;\n" ::: "memory");
+    cp_async_commit();
   }
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(NBUF - 1) : "memory");
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  cp_async_wait<NBUF - 1>();
   __syncthreads();
 
   uint32_t frag[8][4];

@@ -99,7 +99,7 @@ def load_kernels() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(out))
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.fs_flash_prefill.argtypes = [
-        ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, f32, ptr
+        ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, i32, f32, ptr
     ]
     lib.fs_flash_prefill.restype = i32
     lib.fs_flash_decode.argtypes = [
@@ -107,7 +107,8 @@ def load_kernels() -> ctypes.CDLL:
     ]
     lib.fs_flash_decode.restype = i32
     lib.fs_flash_train_fwd.argtypes = [
-        ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, f32, ptr
+        ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, i32, f32,
+        ptr
     ]
     lib.fs_flash_train_fwd.restype = i32
     lib.fs_flash_train_bwd.argtypes = [
@@ -137,3 +138,11 @@ def check_launch(rc: int, name: str):
     """Raise if a C entry point reported a CUDA error."""
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
+
+
+def check_aligned(name: str, **tensors):
+    """Raise unless every tensor starts on a 16-byte boundary (the
+    tensor-core kernels copy rows in 16-byte pieces)."""
+    for n, x in tensors.items():
+        if x.data_ptr() % 16:
+            raise ValueError(f"{name}: {n} must start on a 16-byte boundary")

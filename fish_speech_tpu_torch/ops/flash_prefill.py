@@ -1,11 +1,16 @@
 """Prefill attention: causal GQA with a per-row key start offset.
 
 Port of the Pallas TPU kernel `fish_speech_tpu/ops/pallas_attention.py`
-(`flash_prefill_attention`). The kernel is hand-written CUDA for Hopper
-(`csrc/flash_prefill.cu`; its header note says what bounds it and how it is
-tiled). `flash_prefill_reference` is its plain PyTorch version: the wrapper
-runs it for CPU tensors only; for a CUDA tensor it launches the kernel or
-raises.
+(`flash_prefill_attention`). The kernels are hand-written CUDA for Hopper
+(`csrc/flash_prefill.cu`; its header note says what bounds them and how
+they are tiled), picked by `_route` on the dtype, an explicit dispatch, not
+a fallback: bf16 goes to "wgmma", the tensor-core kernel
+(`prefill_wgmma_kernel`, `csrc/attn_wgmma.cuh`), fp32 to "cuda_cores", the
+float32 kernel on the CUDA cores (`prefill_kernel`), which the small fp32
+reference models use. `flash_prefill_reference` is their plain PyTorch
+version: the wrapper runs it for CPU tensors only; for a CUDA tensor it
+launches the route's kernel or raises, and counts the launches in
+`.launches` and `.launches_<route>` (`reset_launches` zeroes them).
 """
 
 from __future__ import annotations
@@ -14,8 +19,8 @@ import math
 
 import torch
 
-from fish_speech_tpu_torch.ops._kernels import (DTYPE_CODES, check_launch,
-                                                 load_kernels)
+from fish_speech_tpu_torch.ops._kernels import (DTYPE_CODES, check_aligned,
+                                                 check_launch, load_kernels)
 from fish_speech_tpu_torch.ops.attention import gqa_attention
 
 
@@ -33,11 +38,21 @@ def flash_prefill_reference(q, k, v, offsets):
     return gqa_attention(q, k, v, mask)
 
 
+ROUTES = ("cuda_cores", "wgmma")  # route codes of fs_flash_prefill
+
+
+def _route(dtype: torch.dtype) -> str:
+    """Which kernel `flash_prefill_attention` launches for `dtype`."""
+    if dtype == torch.bfloat16:
+        return "wgmma"
+    if dtype == torch.float32:
+        return "cuda_cores"
+    raise TypeError(f"flash_prefill_attention: bf16 or fp32 q/k/v, got {dtype}")
+
+
 def _check(q, k, v, offsets):
-    if not (q.is_cuda and k.device == q.device and v.device == q.device
-            and offsets.device == q.device):
-        raise ValueError("flash_prefill_attention: q, k, v and offsets must "
-                         "lie on one CUDA device")
+    """What the kernels take; the device is checked last, so that the CPU
+    tests can hold the rest of the contract."""
     if q.dtype not in DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"flash_prefill_attention: bf16 or fp32 q/k/v of one "
                         f"dtype, got {q.dtype}/{k.dtype}/{v.dtype}")
@@ -58,25 +73,44 @@ def _check(q, k, v, offsets):
     for name, x in (("q", q), ("k", k), ("v", v), ("offsets", offsets)):
         if not x.is_contiguous():
             raise ValueError(f"flash_prefill_attention: {name} must be contiguous")
+    if not (q.is_cuda and k.device == q.device and v.device == q.device
+            and offsets.device == q.device):
+        raise ValueError("flash_prefill_attention: q, k, v and offsets must "
+                         "lie on one CUDA device")
 
 
 def flash_prefill_attention(q, k, v, offsets):
     """Same contract as `flash_prefill_reference`; on CUDA tensors runs the
-    hand-written kernel (bf16 or fp32, D in {64, 128}, any T)."""
+    kernel of `_route(q.dtype)` (D in {64, 128}, any T)."""
     if q.device.type == "cpu":
         return flash_prefill_reference(q, k, v, offsets)
     _check(q, k, v, offsets)
+    route = _route(q.dtype)
+    if route == "wgmma":
+        check_aligned("flash_prefill_attention", q=q, k=k, v=v)
     lib = load_kernels()
     b, t, h, d = q.shape
     out = torch.empty_like(q)
     rc = lib.fs_flash_prefill(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), offsets.data_ptr(),
         out.data_ptr(), b, t, h, k.shape[2], d, DTYPE_CODES[q.dtype],
-        1.0 / math.sqrt(d), torch.cuda.current_stream(q.device).cuda_stream,
+        ROUTES.index(route), 1.0 / math.sqrt(d),
+        torch.cuda.current_stream(q.device).cuda_stream,
     )
-    check_launch(rc, "flash_prefill")
+    check_launch(rc, f"flash_prefill ({route})")
     flash_prefill_attention.launches += 1
+    count = f"launches_{route}"
+    setattr(flash_prefill_attention, count,
+            getattr(flash_prefill_attention, count) + 1)
     return out
 
 
-flash_prefill_attention.launches = 0
+def reset_launches():
+    """Set `flash_prefill_attention`'s launch counts (all routes and each
+    route) to 0."""
+    flash_prefill_attention.launches = 0
+    for route in ROUTES:
+        setattr(flash_prefill_attention, f"launches_{route}", 0)
+
+
+reset_launches()

@@ -7,11 +7,18 @@ Port of the Pallas TPU kernels `fish_speech_tpu/ops/pallas_attention_train.py`
 are tiled); they read the model's (B, T, H, D) layout directly, so there
 are no transposes.
 
+The forward has two kernels, picked by `_route` on the dtype, an explicit
+dispatch, not a fallback: bf16 goes to "wgmma", the tensor-core kernel
+(`train_fwd_wgmma_kernel`, `csrc/attn_wgmma.cuh`), fp32 to "cuda_cores",
+the float32 kernel on the CUDA cores (`train_fwd_kernel`), which the small
+fp32 reference models use. The backward has one pair of kernels for both.
+
 `flash_train_attention` is a `torch.autograd.Function`: its forward runs
 `flash_train_forward` and saves q, k, v, O and the fp32 row logsumexp; its
 backward runs `flash_train_backward`. Each of those two wrappers runs its
 plain PyTorch version for CPU tensors only; for a CUDA tensor it launches
-the kernel or raises, and counts its launches in `.launches`.
+the kernel or raises, and counts its launches in `.launches` (the forward
+also per route, `.launches_<route>`; `reset_launches` zeroes them all).
 
 Gradient contract (as the TPU kernel's): masked pairs get probability 0, so
 their score gradient vanishes; a query row with no visible key (left
@@ -24,8 +31,8 @@ import math
 
 import torch
 
-from fish_speech_tpu_torch.ops._kernels import (DTYPE_CODES, check_launch,
-                                                 load_kernels)
+from fish_speech_tpu_torch.ops._kernels import (DTYPE_CODES, check_aligned,
+                                                 check_launch, load_kernels)
 from fish_speech_tpu_torch.ops.attention import NEG_INF
 
 
@@ -79,10 +86,21 @@ def flash_train_backward_reference(q, k, v, kvalid, o, lse, do):
     return dq.reshape(b, t, h, d).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+ROUTES = ("cuda_cores", "wgmma")  # route codes of fs_flash_train_fwd
+
+
+def _route(dtype: torch.dtype) -> str:
+    """Which forward kernel `flash_train_forward` launches for `dtype`."""
+    if dtype == torch.bfloat16:
+        return "wgmma"
+    if dtype == torch.float32:
+        return "cuda_cores"
+    raise TypeError(f"flash_train_forward: bf16 or fp32 q/k/v, got {dtype}")
+
+
 def _check(q, k, v, kvalid, name="flash_train"):
-    if not (q.is_cuda and k.device == q.device and v.device == q.device
-            and kvalid.device == q.device):
-        raise ValueError(f"{name}: q, k, v and kvalid must lie on one CUDA device")
+    """What the kernels take; the device is checked last, so that the CPU
+    tests can hold the rest of the contract."""
     if q.dtype not in DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"{name}: bf16 or fp32 q/k/v of one dtype, got "
                         f"{q.dtype}/{k.dtype}/{v.dtype}")
@@ -103,15 +121,21 @@ def _check(q, k, v, kvalid, name="flash_train"):
     for n, x in (("q", q), ("k", k), ("v", v), ("kvalid", kvalid)):
         if not x.is_contiguous():
             raise ValueError(f"{name}: {n} must be contiguous")
+    if not (q.is_cuda and k.device == q.device and v.device == q.device
+            and kvalid.device == q.device):
+        raise ValueError(f"{name}: q, k, v and kvalid must lie on one CUDA device")
 
 
 def flash_train_forward(q, k, v, kvalid):
     """Same contract as `flash_train_forward_reference`; on CUDA tensors runs
-    the forward kernel (bf16 or fp32, D in {64, 128}, any T). kvalid is
-    (B, T) int32, nonzero where the key is real."""
+    the forward kernel of `_route(q.dtype)` (D in {64, 128}, any T). kvalid
+    is (B, T) int32, nonzero where the key is real."""
     if q.device.type == "cpu":
         return flash_train_forward_reference(q, k, v, kvalid)
     _check(q, k, v, kvalid, "flash_train_forward")
+    route = _route(q.dtype)
+    if route == "wgmma":
+        check_aligned("flash_train_forward", q=q, k=k, v=v)
     lib = load_kernels()
     b, t, h, d = q.shape
     out = torch.empty_like(q)
@@ -119,15 +143,14 @@ def flash_train_forward(q, k, v, kvalid):
     rc = lib.fs_flash_train_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), kvalid.data_ptr(),
         out.data_ptr(), lse.data_ptr(), b, t, h, k.shape[2], d,
-        DTYPE_CODES[q.dtype], 1.0 / math.sqrt(d),
+        DTYPE_CODES[q.dtype], ROUTES.index(route), 1.0 / math.sqrt(d),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
-    check_launch(rc, "flash_train_fwd")
+    check_launch(rc, f"flash_train_fwd ({route})")
     flash_train_forward.launches += 1
+    count = f"launches_{route}"
+    setattr(flash_train_forward, count, getattr(flash_train_forward, count) + 1)
     return out, lse
-
-
-flash_train_forward.launches = 0
 
 
 def flash_train_backward(q, k, v, kvalid, o, lse, do):
@@ -159,7 +182,15 @@ def flash_train_backward(q, k, v, kvalid, o, lse, do):
     return dq, dk, dv
 
 
-flash_train_backward.launches = 0
+def reset_launches():
+    """Set the launch counts of the forward (all routes and each route) and
+    of the backward to 0."""
+    flash_train_forward.launches = flash_train_backward.launches = 0
+    for route in ROUTES:
+        setattr(flash_train_forward, f"launches_{route}", 0)
+
+
+reset_launches()
 
 
 class FlashTrainAttention(torch.autograd.Function):

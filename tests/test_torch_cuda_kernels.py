@@ -5,8 +5,10 @@ Run them on a GPU machine with
     python -m pytest tests/test_torch_cuda_kernels.py -q
 Inputs come from numpy with a seed. fp32 cases hold the kernel to 1e-4 abs
 (only the summation order differs); bf16 cases to 2e-2 max / 2e-3 mean abs,
-the bound of bf16 rounding of P before P.V in the plain version (the
-output is a convex combination of V rows of unit scale). The training
+the bound of bf16 rounding of P before P.V (the output is a convex
+combination of V rows of unit scale). The attention forwards take bf16 on
+their tensor-core route and fp32 on their CUDA-core route (`_route`); each
+case counts its launch on its route. The training
 forward's bf16 output gets one bf16 step of the value on top (2^-7 |O|):
 rows with few visible keys have outputs above 2 in magnitude, where the
 kernel's and the plain version's roundings can land one step apart. The
@@ -14,14 +16,14 @@ training backward's gradients are held to 1e-4 (fp32) or 2e-2 (bf16) of
 each tensor's largest magnitude.
 
 The int4 matmul (`csrc/int4_mm.cu`) has three routes (`ops/int4.py:
-_route`). The fp32-W routes (matvec, fp32 tiled) hold fp32 cases to 1e-5
-of |x| @ |W| (summation order). Every bf16 case is held to one bf16
+_route`). fp32 x (matvec, fp32 tiled) uses the fp32 W: fp32 cases are held
+to 1e-5 of |x| @ |W| (summation order). Every bf16 case is held to one bf16
 rounding of W and of y, 2^-8 (|x| @ |W| + |y|), against both fp32-W plain
 versions (`int4_matmul_reference` and `mm`'s CPU path, which rounds W to
-bf16). The tensor-core route (bf16, B > 8) is also held to its own plain
-version, `int4_matmul_bf16w_reference` (the Pallas kernel's bf16 W), summed
-in fp32: 2^-8 |y| (the kernel's one rounding of y to bf16) + 1e-5 of
-|x| @ |W| (the order of the fp32 sums). The int8-KV decode kernel is held to
+bf16), and, since bf16 x uses the Pallas kernel's bf16 W on every route
+(matvec, B <= 8, and tensor cores, B > 8), to that W's plain version,
+`int4_matmul_bf16w_reference`, summed in fp32: 2^-8 |y| (the kernel's one
+rounding of y to bf16) + 1e-5 of |x| @ |W| (the order of the fp32 sums). The int8-KV decode kernel is held to
 kernel 2's bounds (the plain version rounds p * vs to bf16, the kernel
 keeps it in fp32). The fast-stack probe at small dims (3 layers, 2 steps)
 is held to 1e-3 abs on outputs of rms 1 (fp32 sums in another order, and
@@ -42,8 +44,10 @@ from fish_speech_tpu_torch.ops.int4 import (_route, int4_matmul,
                                              int4_matmul_reference)
 from fish_speech_tpu_torch.ops.quant import (_int4_effective_weight, mm,
                                              quantize_int4)
+from fish_speech_tpu_torch.ops.flash_prefill import _route as prefill_route
 from fish_speech_tpu_torch.ops.flash_prefill import (flash_prefill_attention,
                                                      flash_prefill_reference)
+from fish_speech_tpu_torch.ops.flash_train import _route as train_route
 from fish_speech_tpu_torch.ops.flash_train import (
     flash_train_attention, flash_train_backward, flash_train_backward_reference,
     flash_train_forward, flash_train_forward_reference)
@@ -79,17 +83,23 @@ def _assert_close(got, want, dtype):
     (2, 100, 4, 2, 64, [0, 7]),
     (2, 600, 32, 8, 128, [0, 129]),
     (1, 1024, 32, 8, 128, [0]),
+    (1, 64, 4, 2, 64, [0]),
+    (2, 600, 8, 2, 64, [0, 129]),
+    (1, 1000, 8, 2, 64, [0]),
+    (1, 1024, 4, 1, 64, [300]),
 ])
 def test_prefill_kernel_matches_plain(dev, dtype, b, t, h, hkv, d, offsets):
-    rng = np.random.default_rng(t)
+    rng = np.random.default_rng(t + d)
     q = _randn(rng, (b, t, h, d), dtype, dev)
     k = _randn(rng, (b, t, hkv, d), dtype, dev)
     v = _randn(rng, (b, t, hkv, d), dtype, dev)
     off = torch.tensor(offsets, dtype=torch.int32, device=dev)
-    n0 = flash_prefill_attention.launches
+    route = f"launches_{prefill_route(dtype)}"
+    n0, r0 = flash_prefill_attention.launches, getattr(flash_prefill_attention, route)
     got = flash_prefill_attention(q, k, v, off)
     torch.cuda.synchronize()
     assert flash_prefill_attention.launches == n0 + 1
+    assert getattr(flash_prefill_attention, route) == r0 + 1
     _assert_close(got, flash_prefill_reference(q, k, v, off), dtype)
 
 
@@ -134,6 +144,9 @@ TRAIN_SHAPES = [
     (1, 130, 8, 2, 128, [3]),
     (2, 1024, 32, 8, 128, [0, 100]),
     (2, 1000, 32, 8, 128, [0, 0]),
+    (1, 64, 4, 2, 64, [0]),
+    (2, 600, 8, 2, 64, [0, 50]),
+    (1, 1024, 4, 1, 64, [200]),
 ]
 
 
@@ -142,10 +155,12 @@ TRAIN_SHAPES = [
 def test_train_forward_kernel_matches_plain(dev, dtype, b, t, h, hkv, d, pads):
     rng = np.random.default_rng(t + h)
     q, k, v, kvalid, _ = _train_inputs(rng, b, t, h, hkv, d, pads, dtype, dev)
-    n0 = flash_train_forward.launches
+    route = f"launches_{train_route(dtype)}"
+    n0, r0 = flash_train_forward.launches, getattr(flash_train_forward, route)
     o, lse = flash_train_forward(q, k, v, kvalid)
     torch.cuda.synchronize()
     assert flash_train_forward.launches == n0 + 1
+    assert getattr(flash_train_forward, route) == r0 + 1
     want_o, want_lse = flash_train_forward_reference(q, k, v, kvalid)
     if dtype == torch.float32:
         _assert_close(o, want_o, dtype)
@@ -197,6 +212,32 @@ def test_train_attention_function_launches_both_kernels(dev):
         assert (g.cpu() - w).abs().max().item() <= 1e-4
 
 
+def test_train_attention_function_bf16_matches_plain(dev):
+    """bf16 autograd through the tensor-core forward and the backward
+    kernels, against the plain forward and backward on the same inputs."""
+    rng = np.random.default_rng(1)
+    q, k, v, kvalid, do = _train_inputs(rng, 2, 600, 8, 2, 128, [0, 40],
+                                        torch.bfloat16, dev)
+    q, k, v = (x.requires_grad_(True) for x in (q, k, v))
+    n_f = flash_train_forward.launches_wgmma
+    n_b = flash_train_backward.launches
+    out = flash_train_attention(q, k, v, kvalid)
+    grads = torch.autograd.grad(out, (q, k, v), do)
+    torch.cuda.synchronize()
+    assert flash_train_forward.launches_wgmma == n_f + 1
+    assert flash_train_backward.launches == n_b + 1
+    args = [x.detach() for x in (q, k, v)] + [kvalid]
+    want_o, want_lse = flash_train_forward_reference(*args)
+    err = (out.detach().float() - want_o.float()).abs()
+    assert (err <= 2e-2 + 2 ** -7 * want_o.float().abs()).all(), err.max().item()
+    assert err.mean().item() <= 2e-3
+    want = flash_train_backward_reference(*args, want_o, want_lse, do)
+    for g, w in zip(grads, want):
+        assert torch.isfinite(g.float()).all()
+        err = (g.float() - w.float()).abs().max().item()
+        assert err <= 2e-2 * max(1.0, w.float().abs().max().item()), err
+
+
 def test_wrappers_reject_what_the_kernels_do_not_take(dev):
     q = torch.zeros(1, 8, 4, 128, device=dev, dtype=torch.float16)
     with pytest.raises(TypeError):
@@ -220,8 +261,13 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,i,o,g", [
     (1, 2560, 6144, 128),    # slow wqkv, decode
+    (1, 4096, 2560, 128),    # slow wo
+    (1, 2560, 19456, 128),   # slow w13
     (1, 9728, 2560, 128),    # slow w2
+    (1, 1536, 2560, 128),    # fast wqkv
     (1, 1536, 1536, 128),    # fast wo
+    (1, 1536, 12288, 128),   # fast w13
+    (1, 6144, 1536, 128),    # fast w2
     (3, 256, 200, 64),       # O not a multiple of 256
     (8, 128, 130, 32),       # ragged O, the matvec kernel's largest B
     (9, 256, 136, 64),       # the tiled kernels' smallest B
@@ -259,8 +305,9 @@ def test_int4_kernel_matches_plain(dev, dtype, b, i, o, g):
         plain_bf16 = (x @ _int4_effective_weight(qw, dtype)).float()  # mm on CPU
         assert bool(((got.float() - plain_bf16).abs()
                      <= 2.0 ** -8 * (scale + plain_bf16.abs())).all())
-    if route == "launches_wgmma":
-        # the same bf16 W summed in fp32 (x.float() is exact)
+    if dtype == torch.bfloat16:
+        # every bf16 route (matvec and tensor cores): the same bf16 W summed
+        # in fp32 (x.float() is exact)
         exact = int4_matmul_bf16w_reference(x.float(), qw["p"], qw["gs"])
         err = (got.float() - exact).abs()
         assert bool((err <= 2.0 ** -8 * exact.abs() + 1e-5 * scale).all()), \
