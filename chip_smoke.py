@@ -35,7 +35,10 @@ Phases, each of which ends the run with a nonzero exit if it fails:
    cache (S = 2048 + 64) to kernel 2's bounds. Each case also reports its
    bound (the larger of its bytes over 3.35 TB/s and its operations over
    989 TFLOP/s, H100 SXM) and, where one PyTorch call computes the same
-   function, that call's time (SDPA; cuBLAS on the dequantized weight);
+   function, that call's time (SDPA, with `is_causal` where the mask is
+   plain causal and the mask tensor where padding or offsets need it, the
+   best of three runs for the attention cases; cuBLAS on the dequantized
+   weight);
 3. a small-input reference: a tiny fp32 model runs the same greedy request
    through the kernels on the card and through the plain versions on the
    CPU; token columns must be identical and prefill logits within 1e-4;
@@ -129,6 +132,12 @@ def _time_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def _library_ms(fn, iters: int) -> float:
+    """The library call's time: the best of three `_time_ms` runs, so that
+    its first calls on a new shape (plan and workspace set-up) do not count."""
+    return min(_time_ms(fn, iters) for _ in range(3))
+
+
 def _in_turns(plain, kernel, iters):
     """Times (plain, kernel, kernel, plain); returns the two means in ms."""
     p1 = _time_ms(plain, iters)
@@ -150,6 +159,19 @@ def _bound(flops, nbytes, peak=PEAK_BF16):
     """(ms, "bytes" | "operations"): the least time the card could take."""
     t_ops, t_bytes = flops / peak, nbytes / HBM_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops > t_bytes else "bytes"
+
+
+def _sdpa(q, k, v, mask, causal, **kw):
+    """SDPA over (B, H, T, D) with GQA: `is_causal` where the mask is plain
+    causal (its flash kernel takes that case, not a mask tensor), else the
+    explicit boolean mask."""
+    import torch.nn.functional as F
+
+    if causal:
+        return F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                              enable_gqa=True, **kw)
+    return F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                          enable_gqa=True, **kw)
 
 
 def _errors(got, want):
@@ -197,17 +219,19 @@ def kernel_cases(dev):
         flops = 4 * 32 * 128 * pairs
         bound = _bound(flops, q.element_size() * b * t * 128 * 2 * (32 + 8),
                        PEAK_BF16 if dtype == torch.bfloat16 else PEAK_FP32)
-        # SDPA with the same causal, offset mask (GQA heads expanded by SDPA)
+        # SDPA on the same function: is_causal where every offset is 0, else
+        # the causal, offset mask
         i = torch.arange(t, device=dev)
         mask = ((i[None, :] <= i[:, None])[None]
                 & (i[None, None, :] >= off[:, None, None]))[:, None]
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-        lib = _time_ms(lambda i=0: F.scaled_dot_product_attention(
-            qt, kt, vt, attn_mask=mask, enable_gqa=True), iters)
+        causal = not any(offsets)
+        lib = _library_ms(lambda i=0: _sdpa(qt, kt, vt, mask, causal), iters)
         fp32 = dtype == torch.float32
         cases["flash_prefill_fp32" if fp32 else "flash_prefill"].append(dict(
             shape=f"B={b} T={t} H=32 Hkv=8 D=128 offsets={offsets} "
-                  f"{str(dtype)[6:]} {route} ({flops / ms / 1e9:.1f} TFLOP/s)",
+                  f"{str(dtype)[6:]} {route} ({flops / ms / 1e9:.1f} TFLOP/s; "
+                  f"SDPA {'is_causal' if causal else 'mask'})",
             max_abs_err=mx, mean_abs_err=mean, ms=ms, plain_ms=plain_ms,
             bound_ms=bound[0], bound_by=bound[1], library_ms=lib,
             tflop_s=flops / ms / 1e9,
@@ -254,6 +278,8 @@ def kernel_cases(dev):
                   f"plain_ms={r['plain_ms']:.4f} bound_ms={r['bound_ms']:.4f} "
                   f"({r['bound_by']}) library_ms="
                   + ("null" if lib is None else f"{lib:.4f}")
+                  + (f" library_causal_ms={r['library_causal_ms']:.4f}"
+                     if "library_causal_ms" in r else "")
                   + "".join(f" {k}={v[0]:.3e}/{v[1]:.3e}"
                             for k, v in r.get("outputs", {}).items()))
             ok = r.get("ok", r["max_abs_err"] <= 2e-2 and r["mean_abs_err"] <= 2e-3)
@@ -281,7 +307,6 @@ def train_kernel_cases(dev, randn):
     of its mean magnitude (mean): one bf16 rounding of the output, plus the
     plain version's bf16 rounding of P and dS."""
     import torch
-    import torch.nn.functional as F
 
     from fish_speech_tpu_torch.ops.flash_train import _route as flash_train_route
     from fish_speech_tpu_torch.ops.flash_train import (
@@ -323,26 +348,32 @@ def train_kernel_cases(dev, randn):
                            PEAK_FP32 if fp32 else PEAK_BF16)
         bwd_bound = _bound(10 * 32 * 128 * pairs,
                            2 * io_bytes + 2 * b * t * 32 * 128 * 2 + 4 * b * 32 * t)
+        # SDPA on the same function: is_causal where no key is padded, else
+        # the causal, key-valid mask; a padded case also times is_causal,
+        # which gives the same O on every row that is not padding
         i = torch.arange(t, device=dev)
         mask = ((i[None, :] <= i[:, None])[None]
                 & kvalid[:, None, :].bool())[:, None]
         qt, kt, vt, dot = (x.transpose(1, 2) for x in (q, k, v, do))
+        causal = not any(pads)
+        shape += f"; SDPA {'is_causal' if causal else 'mask'}"
 
-        def sdpa_fwd(i=0):
-            return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
-                                                  enable_gqa=True)
+        def sdpa_fwd(i=0, causal=causal):
+            return _sdpa(qt, kt, vt, mask, causal)
 
         def sdpa_fwd_bwd(i=0):
             leaves = [x.detach().requires_grad_(True) for x in (qt, kt, vt)]
-            out = F.scaled_dot_product_attention(*leaves, attn_mask=mask,
-                                                 enable_gqa=True)
+            out = _sdpa(*leaves, mask, causal)
             return torch.autograd.grad(out, leaves, dot)
 
-        lib_fwd = _time_ms(sdpa_fwd, 10)
+        lib_fwd = _library_ms(sdpa_fwd, 10)
+        extra = {} if causal else {
+            "library_causal_ms": _library_ms(lambda i=0: sdpa_fwd(causal=True), 10)}
         cases["flash_train_fwd_fp32" if fp32 else "flash_train_fwd"].append(dict(
             shape=shape, max_abs_err=max(e_o[0], e_lse[0]),
             mean_abs_err=max(e_o[1], e_lse[1]), ms=ms, plain_ms=plain_ms,
             bound_ms=fwd_bound[0], bound_by=fwd_bound[1], library_ms=lib_fwd,
+            **extra,
             outputs={"O": e_o, "lse": e_lse}, tflop_s=flops / ms / 1e9,
             ok=(e_o[0] <= 1e-4 if fp32 else _within_bf16_step(o, want_o)
                 and e_o[1] <= 2e-3) and e_lse[0] <= 1e-4))
@@ -350,7 +381,7 @@ def train_kernel_cases(dev, randn):
             del q, k, v, do, o, lse, want_o, want_lse
             continue
 
-        lib_bwd = _time_ms(sdpa_fwd_bwd, 5) - lib_fwd
+        lib_bwd = _library_ms(sdpa_fwd_bwd, 5) - lib_fwd
         args = (q, k, v, kvalid, want_o, want_lse, do)
         got = flash_train_backward(*args)
         want = flash_train_backward_reference(*args)

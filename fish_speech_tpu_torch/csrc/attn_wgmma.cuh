@@ -22,10 +22,10 @@
 //   and the query tiles run from the last (most keys) to the first, so
 //   the causal tail does not leave the card idle.
 // * Shared memory (128-byte swizzle, wgmma.cuh): the Q tile (32 KB at
-//   D = 128) and two stages of 64-key K and V tiles (16 KB each) and of
+//   D = 128) and three stages of 64-key K and V tiles (16 KB each) and of
 //   their key-valid flags, loaded with cp.async, zero-filled past T
-//   (0 * V stays finite). Tile j + 1 is copied while tile j is computed;
-//   one barrier per tile.
+//   (0 * V stays finite). Tile j + 1 is copied while tile j's K and tile
+//   j - 1's V are read; one barrier per tile.
 // * S = Q K^T: D/16 wgmma.m64n64k16, both operands from shared memory,
 //   both K-major (rows are D-contiguous), fp32 accumulators in registers.
 // * Mask (only on tiles that need one: the diagonal, the ragged end, a
@@ -38,17 +38,24 @@
 //   from shared memory, MN-major (D is N and contiguous): transpose-B and
 //   the MN-major descriptor. O (64 x D fp32 per warpgroup) stays in
 //   registers and is rescaled by exp(m_old - m_new) per tile.
+// * Software pipeline inside a warpgroup: iteration j issues S of tile j
+//   and then P V of tile j - 1, waits for S only (wait_group 1), and runs
+//   tile j's mask and softmax while P V runs on the tensor cores; it then
+//   retires P V, rescales O and only then packs tile j's P (kept in fp32
+//   in S's registers meanwhile) into the bf16 fragments the P V in flight
+//   read. The last tile's P V follows the walk; on tile 0 the P V adds
+//   P = 0, so no branch splits a wgmma group.
 // * l sums the fp32 p (before their rounding to bf16); the epilogue
 //   writes O / l. The TPU kernels round the normalised P to bf16 instead:
 //   both put one bf16 rounding (2^-9 relative) on each weight.
-// * Each wgmma group is retired (wait_group 0) before its registers are
-//   written again, so ptxas keeps the wgmmas of a group together (C7513).
-//   One block per SM (about 100 KB of shared memory and up to 255
-//   registers a thread).
+// * No register of a wgmma in flight is written before the wait that
+//   retires it, and every descriptor and fragment is built before the
+//   fence, so ptxas keeps the wgmmas asynchronous (C7513). One block per
+//   SM (about 130 KB of shared memory and up to 255 registers a thread).
 //
 // Left for later: TMA with mbarriers, a producer warp beside ping-pong
 // consumer warpgroups (softmax of one overlapping the wgmmas of the
-// other), and S of tile j + 1 issued before the softmax of tile j.
+// other), 128-key tiles.
 
 #pragma once
 
@@ -60,6 +67,7 @@ namespace attn {
 
 constexpr int BQ = 128;      // query rows per block (2 warpgroups x 64)
 constexpr int BK = 64;       // keys per tile
+constexpr int NST = 3;       // K/V stages: tile j + 1 lands, j is read, j - 1's V too
 constexpr int THREADS = 256;
 constexpr float kLog2e = 1.4426950408889634f;
 
@@ -83,11 +91,26 @@ struct Layout {
   static constexpr int KV_BLOCK = BK * 128;      // a column block of a K/V tile
   static constexpr int KV_TILE = DB * KV_BLOCK;
   static constexpr int Q_OFF = 0;
-  static constexpr int K_OFF = Q_OFF + DB * Q_BLOCK;  // [stage] K tiles
-  static constexpr int V_OFF = K_OFF + 2 * KV_TILE;   // [stage] V tiles
-  static constexpr int M_OFF = V_OFF + 2 * KV_TILE;   // [stage][BK] kvalid
-  static constexpr int SMEM = 1024 + M_OFF + 2 * BK * 4;  // + alignment slack
+  static constexpr int K_OFF = Q_OFF + DB * Q_BLOCK;    // [stage] K tiles
+  static constexpr int V_OFF = K_OFF + NST * KV_TILE;   // [stage] V tiles
+  static constexpr int M_OFF = V_OFF + NST * KV_TILE;   // [stage][BK] kvalid
+  static constexpr int SMEM = 1024 + M_OFF + NST * BK * 4;  // + alignment slack
 };
+
+// O += P V for one 64-key tile: P (64 x 64 bf16) in A fragments, V from the
+// MN-major descriptors of its k16 steps
+template <int D>
+__device__ __forceinline__ void pv_wgmma(float (&o)[D / 2], const uint32_t (&p)[4][4],
+                                         const uint64_t (&dv)[4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    if constexpr (D == 128) {
+      wg::wgmma_m64n128k16_rs_tb(o, p[kk], dv[kk]);
+    } else {
+      wg::wgmma_m64n64k16_rs_tb(o, p[kk], dv[kk]);
+    }
+  }
+}
 
 __device__ __forceinline__ float ex2(float x) {
   float y;
@@ -148,9 +171,9 @@ __device__ __forceinline__ void attn_fwd_wgmma(const Args& a) {
   const int r0 = q0 + 64 * wgi;  // this warpgroup's first row
   const int my_tiles = r0 < t_len ? kv_tiles(r0, min(r0 + 64, t_len) - 1) : 0;
 
-  // K, V and the key-valid flags (0 past T) of tile j into stage j & 1
+  // K, V and the key-valid flags (0 past T) of tile j into stage j % NST
   auto load_kv = [&](int j) {
-    const int st = j & 1;
+    const int st = j % NST;
     load_tile<D, BK>(sm + L::K_OFF + st * L::KV_TILE, a.k, b, j * BK, hk, a.n_kv, t_len);
     load_tile<D, BK>(sm + L::V_OFF + st * L::KV_TILE, a.v, b, j * BK, hk, a.n_kv, t_len);
     if (M == Mask::kKeyValid && tid < BK) {
@@ -171,18 +194,47 @@ __device__ __forceinline__ void attn_fwd_wgmma(const Args& a) {
   for (int i = 0; i < NO; ++i) o[i] = 0.f;
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
   const int row_g = r0 + 16 * warp + g;  // this thread's rows: row_g, row_g + 8
+  // P of the tile before, bf16: the operand of its P V, in flight during
+  // this tile's softmax
+  uint32_t pc[4][4] = {};
+
+  // V descriptors of the tile in `stage`, built before the wgmma fence
+  auto v_descs = [&](int stage, uint64_t (&dv)[4]) {
+    const uint32_t va = wg::smem_u32(sm + L::V_OFF + stage * L::KV_TILE);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      dv[kk] = wg::sw128_desc_mn(va + kk * 16 * 128, L::KV_BLOCK);
+      asm volatile("" : "+l"(dv[kk]));
+#pragma unroll
+      for (int r = 0; r < 4; ++r) asm volatile("" : "+r"(pc[kk][r]));
+    }
+  };
 
   for (int j = 0; j < n_tiles; ++j) {
-    const int k0 = j * BK, st = j & 1;
+    // tile j - 1's V; on tile 0, P V adds P = 0 times tile 0's (finite) V,
+    // so that every iteration runs the same wgmma groups
+    const int k0 = j * BK, st = j % NST, sv = j > 0 ? (j - 1) % NST : 0;
     wg::cp_async_wait<0>();
-    // tile j is in place for every thread, and both warpgroups are done
-    // with stage st ^ 1 (tile j - 1), which tile j + 1 now takes
+    // tile j is in place for every thread, and both warpgroups have retired
+    // every read of tile j - 2's stage, which tile j + 1 now takes
     __syncthreads();
     if (j + 1 < n_tiles) load_kv(j + 1);
     wg::cp_async_commit();
-    if (j >= my_tiles) continue;  // past this warpgroup's causal limit
+    if (j > my_tiles || my_tiles == 0) continue;  // past this warpgroup's limit
+    uint64_t dv[4];
+    v_descs(sv, dv);
+    if (j == my_tiles) {  // this warpgroup's last P V
+      wg::fence_regs(o);
+      wg::wgmma_fence();
+      pv_wgmma<D>(o, pc, dv);
+      wg::wgmma_commit();
+      wg::wgmma_wait<0>();
+      wg::fence_regs(o);
+      continue;
+    }
 
-    // S = Q K^T; every descriptor is built before the wgmma fence
+    // S = Q K^T of tile j, then P V of tile j - 1, both in flight; every
+    // descriptor is built before the wgmma fence
     const uint32_t qa = wg::smem_u32(sm + L::Q_OFF + wgi * 64 * 128);
     const uint32_t ka = wg::smem_u32(sm + L::K_OFF + st * L::KV_TILE);
     uint64_t dq[KS], dk[KS];
@@ -193,11 +245,14 @@ __device__ __forceinline__ void attn_fwd_wgmma(const Args& a) {
       asm volatile("" : "+l"(dq[f]), "+l"(dk[f]));
     }
     wg::fence_regs(s);
+    wg::fence_regs(o);
     wg::wgmma_fence();
 #pragma unroll
     for (int f = 0; f < KS; ++f) wg::wgmma_m64n64k16_ss(s, dq[f], dk[f], f > 0);
     wg::wgmma_commit();
-    wg::wgmma_wait<0>();
+    pv_wgmma<D>(o, pc, dv);
+    wg::wgmma_commit();
+    wg::wgmma_wait<1>();  // S is retired; P V runs under the softmax
     wg::fence_regs(s);
 
     // scale and mask; s[i] is row row_g + 8 * ((i / 2) % 2), key
@@ -237,42 +292,34 @@ __device__ __forceinline__ void attn_fwd_wgmma(const Args& a) {
       m[e] = mx;
       l[e] *= alpha[e];
     }
-    // P's A fragments: register r of k16 step kk is row (r % 2), keys
+    // p = exp(s - m) in fp32, in place: pc is still read by the P V in
+    // flight, so P reaches its bf16 fragments only after that retires
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      s[i] = ex2((s[i] - m[(i / 2) % 2]) * kLog2e);
+      l[(i / 2) % 2] += s[i];
+    }
+
+    // retire P V of tile j - 1, rescale O to this tile's max, and pack P's
+    // A fragments: register r of k16 step kk is row (r % 2), keys
     // 16 kk + 8 (r / 2) + 2 tq, +1: accumulators 8 kk + 2 r, +1
-    uint32_t pf[4][4];
+    wg::wgmma_wait<0>();
+    wg::fence_regs(o);
+#pragma unroll
+    for (int i = 0; i < NO; ++i) o[i] *= alpha[(i / 2) % 2];
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const int i = 8 * kk + 2 * r, e = r % 2;
-        const float p0 = ex2((s[i] - m[e]) * kLog2e);
-        const float p1 = ex2((s[i + 1] - m[e]) * kLog2e);
-        l[e] += p0 + p1;
-        pf[kk][r] = pack_bf16(p0, p1);
-      }
-#pragma unroll
-    for (int i = 0; i < NO; ++i) o[i] *= alpha[(i / 2) % 2];
-
-    // O += P V
-    const uint32_t va = wg::smem_u32(sm + L::V_OFF + st * L::KV_TILE);
+      for (int r = 0; r < 4; ++r)
+        pc[kk][r] = pack_bf16(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
+  }
+  // the last tile's P V, where this warpgroup walked every tile of the block
+  if (my_tiles == n_tiles) {
     uint64_t dv[4];
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      dv[kk] = wg::sw128_desc_mn(va + kk * 16 * 128, L::KV_BLOCK);
-      asm volatile("" : "+l"(dv[kk]));
-#pragma unroll
-      for (int r = 0; r < 4; ++r) asm volatile("" : "+r"(pf[kk][r]));
-    }
+    v_descs((n_tiles - 1) % NST, dv);
     wg::fence_regs(o);
     wg::wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      if constexpr (D == 128) {
-        wg::wgmma_m64n128k16_rs_tb(o, pf[kk], dv[kk]);
-      } else {
-        wg::wgmma_m64n64k16_rs_tb(o, pf[kk], dv[kk]);
-      }
-    }
+    pv_wgmma<D>(o, pc, dv);
     wg::wgmma_commit();
     wg::wgmma_wait<0>();
     wg::fence_regs(o);

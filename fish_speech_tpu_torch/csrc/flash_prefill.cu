@@ -14,8 +14,8 @@
 // BK keys and keeps an online (running max / running sum) softmax in float32
 // per query row. Scores never reach device memory.
 //
-// Two routes, chosen by the wrapper (`ops/flash_prefill.py:_route`) on the
-// dtype:
+// Two routes, one per dtype (fs_flash_prefill dispatches on it; the
+// wrapper's `ops/flash_prefill.py:_route` names the route it counts):
 //  * "wgmma", bf16 (every served model): `prefill_wgmma_kernel`, the
 //    tensor-core mainloop of attn_wgmma.cuh (whose note gives its design)
 //    with the offset mask;
@@ -230,20 +230,17 @@ __global__ void __launch_bounds__(fs::attn::THREADS, 1)
   fs::attn::attn_fwd_wgmma<fs::attn::Mask::kOffset, D>(a);
 }
 
-// route codes, as `ops/flash_prefill.py:ROUTES`
-constexpr int kRouteCudaCores = 0, kRouteWgmma = 1;
-
 }  // namespace
 
 extern "C" int fs_flash_prefill(const void* q, const void* k, const void* v,
                                 const void* offsets, void* out, int batch,
                                 int t_len, int n_head, int n_kv, int head_dim,
-                                int dtype, int route, float scale, void* stream) {
+                                int dtype, float scale, void* stream) {
   if (batch < 1 || t_len < 1 || n_kv < 1 || n_head % n_kv != 0)
     return (int)cudaErrorInvalidValue;
   const int* off = static_cast<const int*>(offsets);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (route == kRouteWgmma && dtype == fs::kBFloat16) {
+  if (dtype == fs::kBFloat16) {  // "wgmma"
     fs::attn::Args a;
     a.q = static_cast<const __nv_bfloat16*>(q);
     a.k = static_cast<const __nv_bfloat16*>(k);
@@ -260,10 +257,10 @@ extern "C" int fs_flash_prefill(const void* q, const void* k, const void* v,
     if (head_dim == 64)
       return fs::attn::launch<64>(prefill_wgmma_kernel<64>, a, batch, s);
   }
-  if (route == kRouteCudaCores && dtype == fs::kFloat32 && head_dim == 128)
+  if (dtype == fs::kFloat32 && head_dim == 128)  // "cuda_cores"
     return launch_prefill<float, 128>(q, k, v, off, out, batch, t_len, n_head,
                                       n_kv, scale, s);
-  if (route == kRouteCudaCores && dtype == fs::kFloat32 && head_dim == 64)
+  if (dtype == fs::kFloat32 && head_dim == 64)
     return launch_prefill<float, 64>(q, k, v, off, out, batch, t_len, n_head,
                                      n_kv, scale, s);
   return (int)cudaErrorInvalidValue;

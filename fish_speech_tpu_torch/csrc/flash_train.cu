@@ -17,8 +17,9 @@
 // kernels stream 64-row tiles through shared memory and never store a T x T
 // tensor in device memory:
 //
-//  * forward, two routes chosen by the wrapper (`ops/flash_train.py:
-//    _route`) on the dtype:
+//  * forward, two routes, one per dtype (fs_flash_train_fwd dispatches on
+//    it; the wrapper's `ops/flash_train.py:_route` names the route it
+//    counts):
 //      - "wgmma", bf16: `train_fwd_wgmma_kernel`, the tensor-core mainloop
 //        of attn_wgmma.cuh (whose note gives its design) with the
 //        key-valid mask; writes O and lse;
@@ -564,9 +565,6 @@ __global__ void __launch_bounds__(fs::attn::THREADS, 1)
   fs::attn::attn_fwd_wgmma<fs::attn::Mask::kKeyValid, D>(a);
 }
 
-// route codes, as `ops/flash_train.py:ROUTES`
-constexpr int kRouteCudaCores = 0, kRouteWgmma = 1;
-
 bool bad_shape(int batch, int t_len, int n_head, int n_kv) {
   return batch < 1 || t_len < 1 || n_kv < 1 || n_head % n_kv != 0;
 }
@@ -576,13 +574,13 @@ bool bad_shape(int batch, int t_len, int n_head, int n_kv) {
 extern "C" int fs_flash_train_fwd(const void* q, const void* k, const void* v,
                                   const void* kvalid, void* out, void* lse,
                                   int batch, int t_len, int n_head, int n_kv,
-                                  int head_dim, int dtype, int route,
-                                  float scale, void* stream) {
+                                  int head_dim, int dtype, float scale,
+                                  void* stream) {
   if (bad_shape(batch, t_len, n_head, n_kv)) return (int)cudaErrorInvalidValue;
   const int* kv = static_cast<const int*>(kvalid);
   float* l = static_cast<float*>(lse);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (route == kRouteWgmma && dtype == fs::kBFloat16) {
+  if (dtype == fs::kBFloat16) {  // "wgmma"
     fs::attn::Args a;
     a.q = static_cast<const __nv_bfloat16*>(q);
     a.k = static_cast<const __nv_bfloat16*>(k);
@@ -599,10 +597,10 @@ extern "C" int fs_flash_train_fwd(const void* q, const void* k, const void* v,
     if (head_dim == 64)
       return fs::attn::launch<64>(train_fwd_wgmma_kernel<64>, a, batch, s);
   }
-  if (route == kRouteCudaCores && dtype == fs::kFloat32 && head_dim == 128)
+  if (dtype == fs::kFloat32 && head_dim == 128)  // "cuda_cores"
     return launch_fwd<float, 128>(q, k, v, kv, out, l, batch, t_len, n_head,
                                   n_kv, scale, s);
-  if (route == kRouteCudaCores && dtype == fs::kFloat32 && head_dim == 64)
+  if (dtype == fs::kFloat32 && head_dim == 64)
     return launch_fwd<float, 64>(q, k, v, kv, out, l, batch, t_len, n_head,
                                  n_kv, scale, s);
   return (int)cudaErrorInvalidValue;

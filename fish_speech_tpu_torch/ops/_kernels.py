@@ -99,7 +99,7 @@ def load_kernels() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(out))
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.fs_flash_prefill.argtypes = [
-        ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, i32, f32, ptr
+        ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, f32, ptr
     ]
     lib.fs_flash_prefill.restype = i32
     lib.fs_flash_decode.argtypes = [
@@ -107,8 +107,7 @@ def load_kernels() -> ctypes.CDLL:
     ]
     lib.fs_flash_decode.restype = i32
     lib.fs_flash_train_fwd.argtypes = [
-        ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, i32, f32,
-        ptr
+        ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, f32, ptr
     ]
     lib.fs_flash_train_fwd.restype = i32
     lib.fs_flash_train_bwd.argtypes = [

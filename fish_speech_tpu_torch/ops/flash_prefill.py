@@ -38,7 +38,7 @@ def flash_prefill_reference(q, k, v, offsets):
     return gqa_attention(q, k, v, mask)
 
 
-ROUTES = ("cuda_cores", "wgmma")  # route codes of fs_flash_prefill
+ROUTES = ("cuda_cores", "wgmma")  # fs_flash_prefill picks one by the dtype
 
 
 def _route(dtype: torch.dtype) -> str:
@@ -94,7 +94,7 @@ def flash_prefill_attention(q, k, v, offsets):
     rc = lib.fs_flash_prefill(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), offsets.data_ptr(),
         out.data_ptr(), b, t, h, k.shape[2], d, DTYPE_CODES[q.dtype],
-        ROUTES.index(route), 1.0 / math.sqrt(d),
+        1.0 / math.sqrt(d),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     check_launch(rc, f"flash_prefill ({route})")

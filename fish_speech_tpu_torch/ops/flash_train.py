@@ -86,7 +86,7 @@ def flash_train_backward_reference(q, k, v, kvalid, o, lse, do):
     return dq.reshape(b, t, h, d).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-ROUTES = ("cuda_cores", "wgmma")  # route codes of fs_flash_train_fwd
+ROUTES = ("cuda_cores", "wgmma")  # fs_flash_train_fwd picks one by the dtype
 
 
 def _route(dtype: torch.dtype) -> str:
@@ -143,7 +143,7 @@ def flash_train_forward(q, k, v, kvalid):
     rc = lib.fs_flash_train_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), kvalid.data_ptr(),
         out.data_ptr(), lse.data_ptr(), b, t, h, k.shape[2], d,
-        DTYPE_CODES[q.dtype], ROUTES.index(route), 1.0 / math.sqrt(d),
+        DTYPE_CODES[q.dtype], 1.0 / math.sqrt(d),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     check_launch(rc, f"flash_train_fwd ({route})")

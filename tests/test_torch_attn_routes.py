@@ -7,12 +7,10 @@ the CUDA-core kernel ("cuda_cores"), anything else raises. Their checks
 device, so the contract is held here without a card. The launch counters
 count per route and `reset_launches` zeroes them.
 
-`_wgmma_model` replays the tensor-core kernel's walk in PyTorch (blocks of
-128 query rows in two warpgroups of 64, 64-key tiles up to each
-warpgroup's limit, the online softmax with the unnormalised P rounded to
-bf16 and l summed over the fp32 p) and is held to the plain versions at
-the card tests' bounds, so the walk limits and masks of
-`csrc/attn_wgmma.cuh` are checked on the CPU too.
+`_walked_keys` states which key tiles each warpgroup of the tensor-core
+kernel walks (`kv_tiles` in `csrc/attn_wgmma.cuh`); the walk tests show
+that the keys it skips change no row of the plain versions. The kernel's
+arithmetic is held on the card (`tests/test_torch_cuda_kernels.py`).
 """
 
 import math
@@ -110,56 +108,33 @@ def test_launch_counts_per_route_and_reset(name):
     assert all(getattr(f, f"launches_{r}") == 0 for r in mod.ROUTES)
 
 
-def _wgmma_model(q, k, v, kvalid=None, offsets=None):
-    """The tensor-core kernel's arithmetic and walk on the CPU: (O, lse)."""
+def _walked_keys(t, offset=None):
+    """(T, T) bool: key j lies in a tile that query row i's warpgroup walks
+    in `attn_fwd_wgmma` (`kv_tiles`, `csrc/attn_wgmma.cuh`): 64 rows a
+    warpgroup, 64-key tiles up to the causal limit of its last row, or all T
+    where a row of it lies before the prefill offset."""
+    walked = torch.zeros(t, t, dtype=torch.bool)
+    for r0 in range(0, t, 64):
+        last = min(r0 + 64, t) - 1
+        end = t if offset is not None and r0 < offset else last + 1
+        walked[r0:last + 1, :64 * -(-end // 64)] = True
+    return walked
+
+
+def _softmax_over_walk(q, k, v, visible, walked):
+    """fp32 attention where masked keys score NEG_INF and keys the walk never
+    reaches are left out (-inf): what the kernel's softmax sees."""
     b, t, h, d = q.shape
     g = h // k.shape[2]
-    scale = 1.0 / math.sqrt(d)
-    out = torch.zeros(b, t, h, d)
-    lse = torch.zeros(b, h, t)
-    n_blocks = -(-t // 128)
-    for bi in range(b):
-        off = int(offsets[bi]) if offsets is not None else 0
-
-        def n_tiles(first, last):
-            end = t if offsets is not None and first < off else last + 1
-            return -(-end // 64)
-
-        for hi in range(h):
-            for blk in range(n_blocks):
-                for r0 in (128 * blk, 128 * blk + 64):
-                    if r0 >= t:
-                        continue
-                    rows = torch.arange(r0, min(r0 + 64, t))
-                    qs = q[bi, rows, hi].float()
-                    m = torch.full((len(rows),), -math.inf)
-                    l = torch.zeros(len(rows))
-                    o = torch.zeros(len(rows), d)
-                    for j in range(n_tiles(r0, int(rows[-1]))):
-                        keys = torch.arange(64 * j, min(64 * j + 64, t))
-                        kt = k[bi, keys, hi // g].float()
-                        s = (qs @ kt.T) * scale
-                        vis = keys[None, :] <= rows[:, None]
-                        if offsets is not None:
-                            vis &= keys[None, :] >= off
-                        else:
-                            vis &= kvalid[bi, keys][None, :] != 0
-                        s = torch.where(vis, s, torch.tensor(NEG_INF))
-                        m_new = torch.maximum(m, s.amax(1))
-                        alpha = torch.exp(m - m_new)
-                        p = torch.exp(s - m_new[:, None])
-                        l = l * alpha + p.sum(1)
-                        o = o * alpha[:, None] + p.to(torch.bfloat16).float() @ (
-                            v[bi, keys, hi // g].float())
-                        m = m_new
-                    out[bi, rows, hi] = o / l[:, None]
-                    lse[bi, hi, rows] = m + torch.log(l)
-    return out.to(q.dtype), lse
+    s = torch.einsum("bthd,bshd->bhts", q, k.repeat_interleave(g, 2)) / math.sqrt(d)
+    s = torch.where(visible[:, None], s, torch.tensor(NEG_INF))
+    s = s.masked_fill(~walked, -math.inf)
+    p = torch.softmax(s, -1)
+    return torch.einsum("bhts,bshd->bthd", p, v.repeat_interleave(g, 2))
 
 
-def _bf16(rng, shape):
-    return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(
-        torch.bfloat16)
+def _f32(rng, shape):
+    return torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
 
 
 @pytest.mark.parametrize("b,t,h,hkv,d,pads", [
@@ -168,18 +143,18 @@ def _bf16(rng, shape):
     (1, 130, 4, 2, 64, [0]),
 ])
 def test_wgmma_walk_matches_the_plain_training_forward(b, t, h, hkv, d, pads):
+    # the keys the tensor-core kernel's walk skips change no training row
     rng = np.random.default_rng(t)
-    q, k, v = _bf16(rng, (b, t, h, d)), _bf16(rng, (b, t, hkv, d)), _bf16(rng, (b, t, hkv, d))
+    q, k, v = _f32(rng, (b, t, h, d)), _f32(rng, (b, t, hkv, d)), _f32(rng, (b, t, hkv, d))
     kvalid = torch.ones(b, t, dtype=torch.int32)
     for i, n in enumerate(pads):
         if n:
             kvalid[i, -n:] = 0
-    o, lse = _wgmma_model(q, k, v, kvalid=kvalid)
-    want_o, want_lse = flash_train.flash_train_forward_reference(q, k, v, kvalid)
-    err = (o.float() - want_o.float()).abs()
-    assert bool((err <= 2e-2 + 2 ** -7 * want_o.float().abs()).all()), err.max()
-    assert err.mean().item() <= 2e-3
-    assert (lse - want_lse).abs().max().item() <= 1e-4
+    i = torch.arange(t)
+    visible = (i[None, :] <= i[:, None])[None] & (kvalid != 0)[:, None, :]
+    got = _softmax_over_walk(q, k, v, visible, _walked_keys(t))
+    want, _ = flash_train.flash_train_forward_reference(q, k, v, kvalid)
+    assert (got - want).abs().max().item() <= 1e-5
 
 
 @pytest.mark.parametrize("b,t,h,hkv,d,offsets", [
@@ -188,15 +163,21 @@ def test_wgmma_walk_matches_the_plain_training_forward(b, t, h, hkv, d, pads):
     (1, 260, 2, 2, 64, [200]),
 ])
 def test_wgmma_walk_matches_the_plain_prefill(b, t, h, hkv, d, offsets):
+    # the keys the walk skips change no prefill row; a row before its offset
+    # needs every key (the mean of V over all T), and its warpgroup walks them
     rng = np.random.default_rng(t + 1)
-    q, k, v = _bf16(rng, (b, t, h, d)), _bf16(rng, (b, t, hkv, d)), _bf16(rng, (b, t, hkv, d))
+    q, k, v = _f32(rng, (b, t, h, d)), _f32(rng, (b, t, hkv, d)), _f32(rng, (b, t, hkv, d))
     off = torch.tensor(offsets, dtype=torch.int32)
-    got, _ = _wgmma_model(q, k, v, offsets=off)
+    i = torch.arange(t)
+    visible = (i[None, :] <= i[:, None])[None] & (i[None, None, :] >= off[:, None, None])
+    walked = torch.stack([_walked_keys(t, o) for o in offsets])[:, None]
+    got = _softmax_over_walk(q, k, v, visible, walked)
     want = flash_prefill.flash_prefill_reference(q, k, v, off)
-    err = (got.float() - want.float()).abs()
-    assert err.max().item() <= 2e-2 and err.mean().item() <= 2e-3, err.max()
-    # rows before their offset see no key: the mean of V over all T keys
+    assert (got - want).abs().max().item() <= 1e-5
     for bi, o in enumerate(offsets):
         if o:
-            mean_v = v[bi].float().mean(0).repeat_interleave(h // hkv, 0)
-            assert (got[bi, :o].float() - mean_v).abs().max().item() <= 2e-2
+            mean_v = v[bi].mean(0).repeat_interleave(h // hkv, 0)
+            assert (got[bi, :o] - mean_v).abs().max().item() <= 1e-5
+            # the causal walk alone would average fewer keys
+            short = _softmax_over_walk(q, k, v, visible, _walked_keys(t))
+            assert (short[bi, :o] - mean_v).abs().max().item() > 1e-3
