@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from fish_speech_tpu_torch.config import DACConfig
+from fish_speech_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
 
 
 def config_from_jax(obj, cls):
@@ -77,11 +78,14 @@ def _tree(x, fn):
     return fn(x)
 
 
-def dual_ar_from_jax(params, dtype=torch.bfloat16, device=None):
-    """Dual-AR LM pytree (numpy leaves) -> torch tensors, layout unchanged,
-    LoRA leaves included (`models/lora.py` layout). Quantized weights cross
-    leaf for leaf: int8 {"q","s"} and int4 {"p","gs"} keep their integer
-    `q`/`p` and their scales' dtype. The audio projector is not ported."""
+def dual_ar_from_jax(params, dtype=torch.bfloat16, device=DEFAULT_DEVICE):
+    """Dual-AR LM pytree (numpy leaves) -> torch tensors on `device`, layout
+    unchanged, LoRA leaves included (`models/lora.py` layout). Quantized
+    weights cross leaf for leaf: int8 {"q","s"} and int4 {"p","gs"} keep
+    their integer `q`/`p` and their scales' dtype. The audio projector is
+    not ported. Raises without CUDA unless `device` is the CPU."""
+    device = resolve_device(device, "dual_ar_from_jax")
+
     def convert(node, path=""):
         if isinstance(node, dict):
             quant = {"q", "s"} <= node.keys() or {"p", "gs"} <= node.keys()
@@ -108,11 +112,14 @@ def _conv(p, dtype, device):
             "b": _tensor(p["b"], dtype, device)}
 
 
-def dac_decoder_from_jax(params, dtype=torch.float32, device=None):
-    """Codec pytree (numpy leaves) -> the decode half in torch layout:
-    {"quantizer": {semantic, residual, upsample, post}, "decoder": ...}.
-    The encoder, the downsample stages and the pre-quantizer transformer
-    serve `dac_encode`, which is not ported."""
+def dac_decoder_from_jax(params, dtype=torch.float32, device=DEFAULT_DEVICE):
+    """Codec pytree (numpy leaves) -> the decode half in torch layout on
+    `device`: {"quantizer": {semantic, residual, upsample, post},
+    "decoder": ...}. The encoder, the downsample stages and the
+    pre-quantizer transformer serve `dac_encode`, which is not ported.
+    Raises without CUDA unless `device` is the CPU."""
+    device = resolve_device(device, "dac_decoder_from_jax")
+
     def plain(x):
         return _tree(x, lambda a: _tensor(a, dtype, device))
 
@@ -167,12 +174,13 @@ def dac_decoder_from_jax(params, dtype=torch.float32, device=None):
 
 
 def init_dac_decoder(seed: int, cfg: DACConfig, dtype=torch.float32,
-                     device=None):
+                     device=DEFAULT_DEVICE):
     """Random weights for `dac_from_indices` with `init_dac`'s shapes and
     scales (truncated-normal convs and transformer weights at std 0.02,
     normal codebooks, unit snake alphas), drawn on `device` from a
-    torch.Generator seeded with `seed`."""
-    device = torch.device(device or "cpu")
+    torch.Generator seeded with `seed`. Raises without CUDA unless `device`
+    is the CPU."""
+    device = resolve_device(device, "init_dac_decoder")
     gen = torch.Generator(device=device).manual_seed(seed)
 
     def trunc(shape, std=0.02):

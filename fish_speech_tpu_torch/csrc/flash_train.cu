@@ -31,21 +31,25 @@
 //        and lse = m + log(l).
 //  * backward, FlashAttention-2 style recompute from lse, in two kernels so
 //    that every output is written once by one block (deterministic, no
-//    atomics, as the TPU kernel's revisit-accumulate was):
-//      - dK/dV: one block per (64-key tile, KV head, batch row); it walks the
-//        G query heads of its group and the query tiles from its own tile to
-//        T, recomputing P = exp(S - lse) and dS = P * (dO V^T - delta) *
-//        scale, and accumulates dV += P^T dO and dK += dS^T Q in float32
-//        registers;
-//      - dQ: one block per (64-query tile, head, batch row); it walks the key
-//        tiles up to the causal limit and accumulates dQ += dS K.
+//    atomics, as the TPU kernel's revisit-accumulate was), two routes, one
+//    per dtype (fs_flash_train_bwd dispatches on it):
+//      - "wgmma", bf16: `train_bwd_dkdv_wgmma_kernel` and
+//        `train_bwd_dq_wgmma_kernel`, the tensor-core kernels of
+//        attn_bwd_wgmma.cuh (whose note gives their design); P and dS are
+//        rounded to bf16 as the products' operands, as the TPU kernel does;
+//      - "cuda_cores", fp32: `train_bwd_dkdv_kernel`, one block per (64-key
+//        tile, KV head, batch row) walking the G query heads of its group
+//        and the query tiles from its own tile to T, recomputing P =
+//        exp(S - lse) and dS = P * (dO V^T - delta) * scale and summing
+//        dV += P^T dO and dK += dS^T Q in float32 registers; then
+//        `train_bwd_dq_kernel`, one block per (64-query tile, head, batch
+//        row) walking the key tiles up to the causal limit, dQ += dS K.
+//        Products on the CUDA cores in float32 from shared memory, P and dS
+//        kept in float32.
 //    delta = rowsum(dO * O) comes in from the wrapper (a plain reduction, as
 //    the JAX package computes it outside its kernel).
-//
-// The backward's products run on the CUDA cores in float32 from shared
-// memory, with P and dS kept in float32 (the TPU kernel rounds them to
-// bf16 before its matrix products); its tensor-core version is later work.
 
+#include "attn_bwd_wgmma.cuh"
 #include "attn_wgmma.cuh"
 #include "common.cuh"
 
@@ -531,10 +535,11 @@ int launch_fwd(const void* q, const void* k, const void* v, const int* kvalid,
 }
 
 template <typename T, int D>
-int launch_bwd(const void* q, const void* k, const void* v, const int* kvalid,
-               const void* dout, const float* lse, const float* delta,
-               void* dq, void* dk, void* dv, int batch, int t_len, int n_head,
-               int n_kv, float scale, cudaStream_t stream) {
+int launch_bwd_cuda_cores(const void* q, const void* k, const void* v,
+                          const int* kvalid, const void* dout, const float* lse,
+                          const float* delta, void* dq, void* dk, void* dv,
+                          int batch, int t_len, int n_head, int n_kv,
+                          float scale, cudaStream_t stream) {
   constexpr size_t smem_kv = dkdv_smem_bytes<D>();
   constexpr size_t smem_q = dq_smem_bytes<D>();
   auto kv_kernel = train_bwd_dkdv_kernel<T, D>;
@@ -563,6 +568,18 @@ template <int D>
 __global__ void __launch_bounds__(fs::attn::THREADS, 1)
     train_fwd_wgmma_kernel(const fs::attn::Args a) {
   fs::attn::attn_fwd_wgmma<fs::attn::Mask::kKeyValid, D>(a);
+}
+
+template <int D>
+__global__ void __launch_bounds__(fs::attn::THREADS, 1)
+    train_bwd_dkdv_wgmma_kernel(const fs::attn::BwdArgs a) {
+  fs::attn::attn_bwd_dkdv_wgmma<D>(a);
+}
+
+template <int D>
+__global__ void __launch_bounds__(fs::attn::THREADS, 1)
+    train_bwd_dq_wgmma_kernel(const fs::attn::BwdArgs a) {
+  fs::attn::attn_bwd_dq_wgmma<D>(a);
 }
 
 bool bad_shape(int batch, int t_len, int n_head, int n_kv) {
@@ -617,17 +634,37 @@ extern "C" int fs_flash_train_bwd(const void* q, const void* k, const void* v,
   const float* l = static_cast<const float*>(lse);
   const float* dl = static_cast<const float*>(delta);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == fs::kBFloat16 && head_dim == 128)
-    return launch_bwd<__nv_bfloat16, 128>(q, k, v, kv, dout, l, dl, dq, dk, dv,
-                                          batch, t_len, n_head, n_kv, scale, s);
-  if (dtype == fs::kBFloat16 && head_dim == 64)
-    return launch_bwd<__nv_bfloat16, 64>(q, k, v, kv, dout, l, dl, dq, dk, dv,
-                                         batch, t_len, n_head, n_kv, scale, s);
+  if (dtype == fs::kBFloat16) {  // "wgmma"
+    fs::attn::BwdArgs a;
+    a.q = static_cast<const __nv_bfloat16*>(q);
+    a.k = static_cast<const __nv_bfloat16*>(k);
+    a.v = static_cast<const __nv_bfloat16*>(v);
+    a.dout = static_cast<const __nv_bfloat16*>(dout);
+    a.kvalid = kv;
+    a.lse = l;
+    a.delta = dl;
+    a.dq = static_cast<__nv_bfloat16*>(dq);
+    a.dk = static_cast<__nv_bfloat16*>(dk);
+    a.dv = static_cast<__nv_bfloat16*>(dv);
+    a.t_len = t_len;
+    a.n_head = n_head;
+    a.n_kv = n_kv;
+    a.scale = scale;
+    if (head_dim == 128)
+      return fs::attn::launch_bwd<128>(train_bwd_dkdv_wgmma_kernel<128>,
+                                       train_bwd_dq_wgmma_kernel<128>, a, batch, s);
+    if (head_dim == 64)
+      return fs::attn::launch_bwd<64>(train_bwd_dkdv_wgmma_kernel<64>,
+                                      train_bwd_dq_wgmma_kernel<64>, a, batch, s);
+  }
+  // "cuda_cores"
   if (dtype == fs::kFloat32 && head_dim == 128)
-    return launch_bwd<float, 128>(q, k, v, kv, dout, l, dl, dq, dk, dv, batch,
-                                  t_len, n_head, n_kv, scale, s);
+    return launch_bwd_cuda_cores<float, 128>(q, k, v, kv, dout, l, dl, dq, dk,
+                                             dv, batch, t_len, n_head, n_kv,
+                                             scale, s);
   if (dtype == fs::kFloat32 && head_dim == 64)
-    return launch_bwd<float, 64>(q, k, v, kv, dout, l, dl, dq, dk, dv, batch,
-                                 t_len, n_head, n_kv, scale, s);
+    return launch_bwd_cuda_cores<float, 64>(q, k, v, kv, dout, l, dl, dq, dk,
+                                            dv, batch, t_len, n_head, n_kv,
+                                            scale, s);
   return (int)cudaErrorInvalidValue;
 }

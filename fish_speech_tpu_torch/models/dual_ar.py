@@ -60,6 +60,7 @@ from fish_speech_tpu_torch.ops.flash_train import flash_train_attention
 from fish_speech_tpu_torch.ops.norms import rms_norm
 from fish_speech_tpu_torch.ops.quant import mm
 from fish_speech_tpu_torch.ops.rope import apply_rope, rope_table
+from fish_speech_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
 
 # ---------------------------------------------------------------------------
 # Initialization (random weights; real checkpoints go through convert/)
@@ -102,14 +103,15 @@ def _init_layer_stack(gen, n_layer, dim, n_head, n_kv, head_dim, inter,
 
 
 def init_dual_ar(seed: int, cfg: DualARConfig, dtype=torch.bfloat16,
-                 device=None):
+                 device=DEFAULT_DEVICE):
     """Random-weight parameters with `init_dual_ar`'s shapes and scales,
     drawn from a torch.Generator seeded with `seed` directly on `device`
     (the values differ from the JAX package's, whose RNG is threefry).
     Each tensor is drawn in fp32 and cast, one at a time, so the 5B model
-    never holds a second full copy."""
+    never holds a second full copy. Raises without CUDA unless `device` is
+    the CPU."""
     cfg = cfg.resolve()
-    device = torch.device(device or "cpu")
+    device = resolve_device(device, "init_dual_ar")
     gen = torch.Generator(device=device).manual_seed(seed)
     std = cfg.initializer_range
 

@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from fish_speech_tpu_torch.ops._kernels import check_launch, load_kernels
+from fish_speech_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
 
 RMS_EPS = 1e-5
 
@@ -60,13 +61,15 @@ class ProbeDims:
         return (r_resident + self.steps * s) * self.layer_bytes
 
 
-def make_weights(dims: ProbeDims = ProbeDims(), device=None):
+def make_weights(dims: ProbeDims = ProbeDims(), device=DEFAULT_DEVICE):
     """Random int8 weights and fp32 column scales, drawn from numpy's
     default_rng(0) in the order of the JAX package's `make_weights` (so the
     numbers are the same), laid out for the kernel: "w" (NL, layer_bytes)
     int8 with Wqkv | Wo | W13 | W2 of each layer in (I, O) row-major
     order, "sc" (NL, DQKV + DF + 2 INTER + DF) fp32 in the same order. Any
-    R reads this one layout: residency changes where bytes come from."""
+    R reads this one layout: residency changes where bytes come from. On
+    `device`; raises without CUDA unless it is the CPU."""
+    device = resolve_device(device, "make_weights")
     rng = np.random.default_rng(0)
     w = np.empty((dims.n_layer, dims.layer_bytes), np.int8)
     scales = []
@@ -78,7 +81,6 @@ def make_weights(dims: ProbeDims = ProbeDims(), device=None):
         off += i * o
         scales.append(rng.random((dims.n_layer, o), dtype=np.float32)
                       * np.float32(0.04 / 127.0))
-    device = torch.device(device or "cpu")
     return {"w": torch.from_numpy(w).to(device),
             "sc": torch.from_numpy(np.concatenate(scales, axis=1)).to(device)}
 
@@ -224,8 +226,7 @@ if __name__ == "__main__":
     rs = [int(a) for a in sys.argv[1:] if a.isdigit()] or [0, 1]
     variants = [a for a in sys.argv[1:] if a in ("bf16", "w8a8")] or [
         "bf16", "w8a8"]
-    w = make_weights(ProbeDims(), "cuda:0" if torch.cuda.is_available()
-                     else None)
+    w = make_weights(ProbeDims(), "cuda:0")
     for v in variants:
         for r in rs:
             _bench(r, v, weights=w)

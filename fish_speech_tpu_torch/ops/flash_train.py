@@ -7,18 +7,20 @@ Port of the Pallas TPU kernels `fish_speech_tpu/ops/pallas_attention_train.py`
 are tiled); they read the model's (B, T, H, D) layout directly, so there
 are no transposes.
 
-The forward has two kernels, picked by `_route` on the dtype, an explicit
-dispatch, not a fallback: bf16 goes to "wgmma", the tensor-core kernel
-(`train_fwd_wgmma_kernel`, `csrc/attn_wgmma.cuh`), fp32 to "cuda_cores",
-the float32 kernel on the CUDA cores (`train_fwd_kernel`), which the small
-fp32 reference models use. The backward has one pair of kernels for both.
+The forward and the backward each have two routes, picked by `_route` on
+the dtype, an explicit dispatch, not a fallback: bf16 goes to "wgmma", the
+tensor-core kernels (`train_fwd_wgmma_kernel`, `csrc/attn_wgmma.cuh`;
+`train_bwd_dkdv_wgmma_kernel` and `train_bwd_dq_wgmma_kernel`,
+`csrc/attn_bwd_wgmma.cuh`), fp32 to "cuda_cores", the float32 kernels on
+the CUDA cores (`train_fwd_kernel`, `train_bwd_dkdv_kernel` and
+`train_bwd_dq_kernel`), which the small fp32 reference models use.
 
 `flash_train_attention` is a `torch.autograd.Function`: its forward runs
 `flash_train_forward` and saves q, k, v, O and the fp32 row logsumexp; its
 backward runs `flash_train_backward`. Each of those two wrappers runs its
 plain PyTorch version for CPU tensors only; for a CUDA tensor it launches
-the kernel or raises, and counts its launches in `.launches` (the forward
-also per route, `.launches_<route>`; `reset_launches` zeroes them all).
+the kernel or raises, and counts its launches in `.launches` and per route
+in `.launches_<route>` (`reset_launches` zeroes them all).
 
 Gradient contract (as the TPU kernel's): masked pairs get probability 0, so
 their score gradient vanishes; a query row with no visible key (left
@@ -59,7 +61,7 @@ def flash_train_forward_reference(q, k, v, kvalid):
     w = (p / l).to(v.dtype).float()
     o = torch.einsum("bkgts,bskd->btkgd", w, v.float())
     lse = (m + torch.log(l))[..., 0].reshape(b, h, t)
-    return o.reshape(b, t, h, d).to(q.dtype), lse
+    return o.reshape(b, t, h, d).contiguous().to(q.dtype), lse
 
 
 def flash_train_backward_reference(q, k, v, kvalid, o, lse, do):
@@ -86,16 +88,18 @@ def flash_train_backward_reference(q, k, v, kvalid, o, lse, do):
     return dq.reshape(b, t, h, d).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-ROUTES = ("cuda_cores", "wgmma")  # fs_flash_train_fwd picks one by the dtype
+# fs_flash_train_fwd and fs_flash_train_bwd pick one by the dtype
+ROUTES = ("cuda_cores", "wgmma")
 
 
 def _route(dtype: torch.dtype) -> str:
-    """Which forward kernel `flash_train_forward` launches for `dtype`."""
+    """Which kernels `flash_train_forward` and `flash_train_backward` launch
+    for `dtype`."""
     if dtype == torch.bfloat16:
         return "wgmma"
     if dtype == torch.float32:
         return "cuda_cores"
-    raise TypeError(f"flash_train_forward: bf16 or fp32 q/k/v, got {dtype}")
+    raise TypeError(f"flash_train: bf16 or fp32 q/k/v, got {dtype}")
 
 
 def _check(q, k, v, kvalid, name="flash_train"):
@@ -126,6 +130,22 @@ def _check(q, k, v, kvalid, name="flash_train"):
         raise ValueError(f"{name}: q, k, v and kvalid must lie on one CUDA device")
 
 
+def _check_backward(q, k, v, kvalid, o, lse, do):
+    """`_check`, and what the backward takes of the saved O and lse and of
+    dO; the devices are checked last."""
+    name = "flash_train_backward"
+    for n, x, dtype in (("o", o, q.dtype), ("do", do, q.dtype),
+                        ("lse", lse, torch.float32)):
+        if x.dtype != dtype or not x.is_contiguous():
+            raise ValueError(f"{name}: {n} must be a contiguous {dtype} tensor")
+    if q.dim() == 4 and (o.shape != q.shape or do.shape != q.shape or tuple(
+            lse.shape) != (q.shape[0], q.shape[2], q.shape[1])):
+        raise ValueError(f"{name}: o/do (B,T,H,D), lse (B,H,T)")
+    _check(q, k, v, kvalid, name)
+    if any(x.device != q.device for x in (o, lse, do)):
+        raise ValueError(f"{name}: o, lse and do must lie on {q.device}")
+
+
 def flash_train_forward(q, k, v, kvalid):
     """Same contract as `flash_train_forward_reference`; on CUDA tensors runs
     the forward kernel of `_route(q.dtype)` (D in {64, 128}, any T). kvalid
@@ -147,26 +167,21 @@ def flash_train_forward(q, k, v, kvalid):
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     check_launch(rc, f"flash_train_fwd ({route})")
-    flash_train_forward.launches += 1
-    count = f"launches_{route}"
-    setattr(flash_train_forward, count, getattr(flash_train_forward, count) + 1)
+    _count(flash_train_forward, route)
     return out, lse
 
 
 def flash_train_backward(q, k, v, kvalid, o, lse, do):
     """Same contract as `flash_train_backward_reference`; on CUDA tensors
-    runs the dK/dV and dQ kernels (one launch of the pair counts once)."""
+    runs the dK/dV and dQ kernels of `_route(q.dtype)` (one launch of the
+    pair counts once)."""
     if q.device.type == "cpu":
         return flash_train_backward_reference(q, k, v, kvalid, o, lse, do)
-    _check(q, k, v, kvalid, "flash_train_backward")
+    _check_backward(q, k, v, kvalid, o, lse, do)
     b, t, h, d = q.shape
-    for n, x, dtype in (("o", o, q.dtype), ("do", do, q.dtype),
-                        ("lse", lse, torch.float32)):
-        if x.device != q.device or x.dtype != dtype or not x.is_contiguous():
-            raise ValueError(f"flash_train_backward: {n} must be a contiguous "
-                             f"{dtype} tensor on {q.device}")
-    if o.shape != q.shape or do.shape != q.shape or lse.shape != (b, h, t):
-        raise ValueError("flash_train_backward: o/do (B,T,H,D), lse (B,H,T)")
+    route = _route(q.dtype)
+    if route == "wgmma":
+        check_aligned("flash_train_backward", q=q, k=k, v=v, do=do)
     lib = load_kernels()
     delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
@@ -177,17 +192,25 @@ def flash_train_backward(q, k, v, kvalid, o, lse, do):
         DTYPE_CODES[q.dtype], 1.0 / math.sqrt(d),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
-    check_launch(rc, "flash_train_bwd")
-    flash_train_backward.launches += 1
+    check_launch(rc, f"flash_train_bwd ({route})")
+    _count(flash_train_backward, route)
     return dq, dk, dv
 
 
+def _count(wrapper, route):
+    """One launch of `wrapper` on `route`: its total and its route's count."""
+    wrapper.launches += 1
+    count = f"launches_{route}"
+    setattr(wrapper, count, getattr(wrapper, count) + 1)
+
+
 def reset_launches():
-    """Set the launch counts of the forward (all routes and each route) and
-    of the backward to 0."""
-    flash_train_forward.launches = flash_train_backward.launches = 0
-    for route in ROUTES:
-        setattr(flash_train_forward, f"launches_{route}", 0)
+    """Set the launch counts of the forward and of the backward (all routes
+    and each route) to 0."""
+    for wrapper in (flash_train_forward, flash_train_backward):
+        wrapper.launches = 0
+        for route in ROUTES:
+            setattr(wrapper, f"launches_{route}", 0)
 
 
 reset_launches()

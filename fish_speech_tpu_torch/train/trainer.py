@@ -30,6 +30,7 @@ from fish_speech_tpu_torch.train.loss import dual_ar_loss
 from fish_speech_tpu_torch.train.step import (constant_schedule_with_warmup,
                                               cosine_schedule_with_warmup,
                                               make_optimizer, make_train_step)
+from fish_speech_tpu_torch.utils.device import resolve_device
 
 logger = logging.getLogger(__name__)
 
@@ -82,10 +83,7 @@ class Trainer:
             raise NotImplementedError(
                 "dp/tp/zero1 are not ported yet (ROADMAP: multi-device trainer)")
         self.train_cfg = train_cfg
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(f"Trainer: no CUDA device for {self.device}; "
-                               f"pass device='cpu' to train on the CPU")
+        self.device = resolve_device(device, "Trainer")
         self.out_dir = Path(train_cfg.output_dir) / train_cfg.project
         self.out_dir.mkdir(parents=True, exist_ok=True)
 

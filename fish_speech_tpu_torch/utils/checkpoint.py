@@ -20,6 +20,7 @@ import torch
 from safetensors.numpy import load_file
 
 from fish_speech_tpu_torch.config import DualARConfig
+from fish_speech_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
 
 _BF16_SUFFIX = "::bf16"
 
@@ -44,9 +45,12 @@ def _lists_from_numeric_dicts(node):
     return node
 
 
-def load_params(path, name="model.safetensors", dtype=None, device="cpu"):
+def load_params(path, name="model.safetensors", dtype=None,
+                device=DEFAULT_DEVICE):
     """The parameter tree of `path/name`; floating leaves cast to `dtype`
-    when given, every leaf placed on `device`."""
+    when given, every leaf placed on `device`. Raises without CUDA unless
+    `device` is the CPU."""
+    device = resolve_device(device, "load_params")
     root = {}
     for key, value in load_file(str(Path(path) / name)).items():
         parts = key[: -len(_BF16_SUFFIX)].split("/") if key.endswith(
@@ -58,8 +62,10 @@ def load_params(path, name="model.safetensors", dtype=None, device="cpu"):
     return _lists_from_numeric_dicts(root)
 
 
-def load_dual_ar(path, dtype=torch.bfloat16, device="cpu"):
-    """(params, cfg) of a native Dual-AR checkpoint directory."""
+def load_dual_ar(path, dtype=torch.bfloat16, device=DEFAULT_DEVICE):
+    """(params, cfg) of a native Dual-AR checkpoint directory, on `device`.
+    Raises without CUDA unless `device` is the CPU."""
+    device = resolve_device(device, "load_dual_ar")
     path = Path(path)
     cfg = DualARConfig.from_json(str(path / "config.json"))
     return load_params(path, dtype=dtype, device=device), cfg

@@ -42,17 +42,19 @@ SMALL = [("train", 2, 100, 4, 2, 64, [0, 7]), ("train", 1, 600, 8, 2, 64, [0]),
          ("prefill", 2, 300, 4, 1, 64, [200, 0]), ("prefill", 1, 64, 32, 8, 128, [0])]
 
 
-def _builds(variants):
-    """label -> csrc directory: the checkout's, then one copy per variant."""
+def _builds(variants, header_name="attn_wgmma.cuh", build="attn_fwd_bench"):
+    """label -> csrc directory: the checkout's, then one copy per LABEL=HEADER
+    variant in which `header_name` is replaced by HEADER, under
+    `build/<build>/`."""
     from fish_speech_tpu_torch.ops import _kernels
 
     dirs = {"checkout": _kernels.CSRC}
     for spec in variants:
         label, header = spec.split("=", 1)
-        out = ROOT / "build" / "attn_fwd_bench" / label / "csrc"
+        out = ROOT / "build" / build / label / "csrc"
         shutil.rmtree(out, ignore_errors=True)
         shutil.copytree(_kernels.CSRC, out)
-        shutil.copy(header, out / "attn_wgmma.cuh")
+        shutil.copy(header, out / header_name)
         dirs[label] = out
     return dirs
 

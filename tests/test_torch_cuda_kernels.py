@@ -148,6 +148,12 @@ TRAIN_SHAPES = [
     (2, 600, 8, 2, 64, [0, 50]),
     (1, 1024, 4, 1, 64, [200]),
 ]
+# the backward's walks also at G = 1 (H = Hkv), G = 8 and a long D = 64 T
+BWD_SHAPES = TRAIN_SHAPES + [
+    (2, 300, 4, 4, 128, [0, 20]),
+    (1, 257, 16, 2, 64, [5]),
+    (1, 4096, 4, 2, 64, [0]),
+]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -172,7 +178,7 @@ def test_train_forward_kernel_matches_plain(dev, dtype, b, t, h, hkv, d, pads):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("b,t,h,hkv,d,pads", TRAIN_SHAPES)
+@pytest.mark.parametrize("b,t,h,hkv,d,pads", BWD_SHAPES)
 def test_train_backward_kernels_match_plain(dev, dtype, b, t, h, hkv, d, pads):
     """dQ/dK/dV from the kernels vs the plain formulas on the same saved O
     and lse. Gradients are not convex combinations, so bf16 is held to
@@ -180,10 +186,12 @@ def test_train_backward_kernels_match_plain(dev, dtype, b, t, h, hkv, d, pads):
     rng = np.random.default_rng(t + d)
     q, k, v, kvalid, do = _train_inputs(rng, b, t, h, hkv, d, pads, dtype, dev)
     o, lse = flash_train_forward_reference(q, k, v, kvalid)
-    n0 = flash_train_backward.launches
+    route = f"launches_{train_route(dtype)}"
+    n0, r0 = flash_train_backward.launches, getattr(flash_train_backward, route)
     got = flash_train_backward(q, k, v, kvalid, o, lse, do)
     torch.cuda.synchronize()
     assert flash_train_backward.launches == n0 + 1
+    assert getattr(flash_train_backward, route) == r0 + 1
     want = flash_train_backward_reference(q, k, v, kvalid, o, lse, do)
     for g, w in zip(got, want):
         assert torch.isfinite(g.float()).all()
@@ -213,19 +221,21 @@ def test_train_attention_function_launches_both_kernels(dev):
 
 
 def test_train_attention_function_bf16_matches_plain(dev):
-    """bf16 autograd through the tensor-core forward and the backward
-    kernels, against the plain forward and backward on the same inputs."""
+    """bf16 autograd through the tensor-core forward and backward kernels,
+    against the plain forward and backward on the same inputs."""
     rng = np.random.default_rng(1)
     q, k, v, kvalid, do = _train_inputs(rng, 2, 600, 8, 2, 128, [0, 40],
                                         torch.bfloat16, dev)
     q, k, v = (x.requires_grad_(True) for x in (q, k, v))
     n_f = flash_train_forward.launches_wgmma
     n_b = flash_train_backward.launches
+    n_bw = flash_train_backward.launches_wgmma
     out = flash_train_attention(q, k, v, kvalid)
     grads = torch.autograd.grad(out, (q, k, v), do)
     torch.cuda.synchronize()
     assert flash_train_forward.launches_wgmma == n_f + 1
     assert flash_train_backward.launches == n_b + 1
+    assert flash_train_backward.launches_wgmma == n_bw + 1
     args = [x.detach() for x in (q, k, v)] + [kvalid]
     want_o, want_lse = flash_train_forward_reference(*args)
     err = (out.detach().float() - want_o.float()).abs()

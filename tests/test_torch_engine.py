@@ -42,7 +42,7 @@ def codec():
     cfg = dac_tiny()
     jp = init_dac(jax.random.PRNGKey(1), cfg, dtype=jnp.float32)
     tp = dac_decoder_from_jax(jax.tree_util.tree_map(np.asarray, jp),
-                              dtype=torch.float32)
+                              dtype=torch.float32, device="cpu")
     return cfg, jp, tp
 
 
@@ -99,7 +99,7 @@ def test_dac_from_indices_matches_jax(codec):
 
 def test_init_dac_decoder_has_the_bridge_layout(codec):
     cfg, _, tp = codec
-    fresh = init_dac_decoder(0, cfg)
+    fresh = init_dac_decoder(0, cfg, device="cpu")
     shapes = jax.tree_util.tree_map(lambda t: tuple(t.shape), tp)
     assert jax.tree_util.tree_map(lambda t: tuple(t.shape), fresh) == shapes
     out = t_from_indices(fresh, cfg, torch.zeros((1, 3, 4), dtype=torch.int32))
@@ -116,7 +116,7 @@ def test_streamed_engine_matches_jax(tokenizer, codec, tmp_path):
                        attention_qk_norm=True, max_seq_len=160)
     jp = jdual.init_dual_ar(jax.random.PRNGKey(4), cfg, dtype=jnp.float32)
     tp = dual_ar_from_jax(jax.tree_util.tree_map(np.asarray, jp),
-                          dtype=torch.float32)
+                          dtype=torch.float32, device="cpu")
     scfg = SamplingConfig()
     kw = dict(decode_chunk_size=4, first_chunk_size=2)
     jeng = jtts.TTSInferenceEngine(JSession(jp, cfg, scfg, max_batch=1,

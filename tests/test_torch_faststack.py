@@ -65,7 +65,7 @@ def _numpy_chain(x, weights, variant):
 
 def test_make_weights_draws_the_jax_numbers(small_jax_probe):
     jw = small_jax_probe.make_weights(1)
-    tw = tprobe.make_weights(DIMS)
+    tw = tprobe.make_weights(DIMS, "cpu")
     for kind in DIMS.shapes():
         streamed = np.asarray(jw["hbm"][kind])
         if kind == "w13":  # streamed w13 is stored pre-split (S, 2, DF, INTER)
@@ -86,14 +86,14 @@ def test_plain_chain_matches_pallas_probe_with_one_streamed_layer(
     run = small_jax_probe.make_probe(r, variant, o_chunk=128, interpret=True)
     want = np.asarray(run(jnp.asarray(_x()), small_jax_probe.make_weights(r)))
     got = tprobe.probe_reference(torch.from_numpy(_x()),
-                                 tprobe.make_weights(DIMS), variant, DIMS)
+                                 tprobe.make_weights(DIMS, "cpu"), variant, DIMS)
     np.testing.assert_allclose(got.numpy(), want, atol=ATOL, rtol=0)
     assert 0.5 < np.abs(want).max() < 5.0  # rms-normed, not degenerate
 
 
 @pytest.mark.parametrize("variant", ["bf16", "w8a8"])
 def test_plain_chain_matches_numpy_layer_compute(variant):
-    w = tprobe.make_weights(DIMS)
+    w = tprobe.make_weights(DIMS, "cpu")
     got = tprobe.probe_reference(torch.from_numpy(_x()), w, variant, DIMS)
     np.testing.assert_allclose(got.numpy(), _numpy_chain(_x(), w, variant),
                                atol=ATOL, rtol=0)
@@ -101,7 +101,7 @@ def test_plain_chain_matches_numpy_layer_compute(variant):
 
 @pytest.mark.parametrize("r", [0, 1, 2])
 def test_residency_changes_no_math_and_cpu_counts_no_launch(r):
-    w = tprobe.make_weights(DIMS)
+    w = tprobe.make_weights(DIMS, "cpu")
     n0 = tprobe.faststack_probe.launches
     got = tprobe.make_probe(r, "bf16", DIMS)(torch.from_numpy(_x()), w)
     want = tprobe.probe_reference(torch.from_numpy(_x()), w, "bf16", DIMS)
@@ -119,12 +119,12 @@ def test_pallas_probe_race_with_two_streamed_layers(small_jax_probe):
     chain."""
     run = small_jax_probe.make_probe(0, "bf16", o_chunk=128, interpret=True)
     racy = np.asarray(run(jnp.asarray(_x()), small_jax_probe.make_weights(0)))
-    want = _numpy_chain(_x(), tprobe.make_weights(DIMS), "bf16")
+    want = _numpy_chain(_x(), tprobe.make_weights(DIMS, "cpu"), "bf16")
     assert np.abs(racy - want).max() > 0.1
 
 
 def test_probe_rejects_bad_arguments():
-    w = tprobe.make_weights(DIMS)
+    w = tprobe.make_weights(DIMS, "cpu")
     with pytest.raises(ValueError, match="variant"):
         tprobe.faststack_probe(torch.from_numpy(_x()), w, 0, "fp8", DIMS)
     with pytest.raises(ValueError, match="R=3"):

@@ -128,7 +128,7 @@ def _quantized(jcfg, mode, fast_mode, seed=0):
     jp = jdual.init_dual_ar(jax.random.PRNGKey(seed), jcfg, dtype=jnp.float32)
     jq = jquant.quantize_dual_ar_lowmem(jp, mode=mode, fast_mode=fast_mode)
     tq = dual_ar_from_jax(jax.tree_util.tree_map(np.asarray, jq),
-                          dtype=torch.float32)
+                          dtype=torch.float32, device="cpu")
     return jq, tq
 
 

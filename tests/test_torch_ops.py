@@ -261,14 +261,15 @@ params = quant.quantize_dual_ar_lowmem(
     fast_mode='int4')
 session = GenerationSession(params, cfg, dtype=torch.float32,
                             decode_chunk_size=4, kv_quant=True)
-engine = TTSInferenceEngine(session, tok, init_dac_decoder(1, dac_cfg), dac_cfg)
+engine = TTSInferenceEngine(session, tok, init_dac_decoder(1, dac_cfg, device='cpu'),
+                             dac_cfg)
 codes = [r.code for r in engine.inference(TTSRequest(
     text='Hi.', streaming=True, max_new_tokens=6, seed=1))]
 assert codes[0] == 'header' and codes[-1] == 'final', codes
 
 dims = faststack.ProbeDims(64, 128, 64, 2, 2)
 out = faststack.make_probe(1, 'w8a8', dims)(
-    torch.ones(1, 64), faststack.make_weights(dims))
+    torch.ones(1, 64), faststack.make_weights(dims, 'cpu'))
 assert bool(torch.isfinite(out).all())
 
 bad = sorted(m for m in sys.modules

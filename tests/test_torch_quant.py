@@ -176,7 +176,7 @@ def _cfg(tokenizer, **kw):
 def _params(jcfg, seed=0):
     jp = jdual.init_dual_ar(jax.random.PRNGKey(seed), jcfg, dtype=jnp.float32)
     return jp, dual_ar_from_jax(jax.tree_util.tree_map(np.asarray, jp),
-                                dtype=torch.float32)
+                                dtype=torch.float32, device="cpu")
 
 
 @pytest.mark.parametrize("mode,fast_mode", [("int8", None), ("int4", None),
@@ -211,8 +211,8 @@ def test_bridge_carries_quantized_leaves(tokenizer):
     jq = jquant.quantize_dual_ar(jp, mode="int4")
     jq["fast"]["output"]["s"] = jq["fast"]["output"]["s"].astype(jnp.bfloat16)
     leaves = jax.tree_util.tree_map(np.asarray, jq)
-    _tree_equal(dual_ar_from_jax(leaves, dtype=torch.float32), jq)
-    tq = dual_ar_from_jax(leaves, dtype=torch.bfloat16)
+    _tree_equal(dual_ar_from_jax(leaves, dtype=torch.float32, device="cpu"), jq)
+    tq = dual_ar_from_jax(leaves, dtype=torch.bfloat16, device="cpu")
     assert tq["layers"]["wqkv"]["p"].dtype == torch.uint8
     assert tq["layers"]["wqkv"]["gs"].dtype == torch.float32
     assert tq["output"]["q"].dtype == torch.int8
@@ -228,7 +228,7 @@ def test_quantized_checkpoint_reads_back(tokenizer, tmp_path, dtype):
     jp, _ = _params(jcfg, seed=2)
     jq = jquant.quantize_dual_ar_lowmem(jp, mode="int8", fast_mode="int4")
     save_dual_ar(tmp_path, jax.tree_util.tree_map(np.asarray, jq), jcfg)
-    tq, cfg = load_dual_ar(tmp_path, dtype=getattr(torch, dtype))
+    tq, cfg = load_dual_ar(tmp_path, dtype=getattr(torch, dtype), device="cpu")
     assert isinstance(cfg, DualARConfig)
     assert config_from_jax(cfg, JDualARConfig) == jcfg.resolve()
     from fish_speech_tpu.utils.checkpoint import load_dual_ar as j_load

@@ -57,7 +57,7 @@ def make_params(cfg, seed=0):
         jp["layers"]["bqkv"] = jnp.asarray(
             rng.normal(size=jp["layers"]["bqkv"].shape).astype(np.float32) * 0.1)
     tp = dual_ar_from_jax(jax.tree_util.tree_map(np.asarray, jp),
-                          dtype=torch.float32)
+                          dtype=torch.float32, device="cpu")
     return jp, tp
 
 
@@ -186,7 +186,7 @@ def test_greedy_generate_long_voice_clone_codes_identical(tokenizer):
 def test_init_dual_ar_has_the_jax_layout(tokenizer, name):
     cfg = make_cfg(tokenizer, name)
     jp = jdual.init_dual_ar(jax.random.PRNGKey(0), cfg, dtype=jnp.float32)
-    tp = tdual.init_dual_ar(0, cfg, torch.bfloat16)
+    tp = tdual.init_dual_ar(0, cfg, torch.bfloat16, "cpu")
     shape = lambda t: (tuple(t.shape), str(t.dtype).split(".")[-1])
     assert (jax.tree_util.tree_map(shape, tp)
             == jax.tree_util.tree_map(lambda a: (a.shape, "bfloat16"), jp))
@@ -203,10 +203,10 @@ def test_bridge_rejects_what_is_not_ported(tokenizer):
         np.asarray, jdual.init_dual_ar(jax.random.PRNGKey(0), cfg, jnp.float32))
     jp["layers"]["wo"] = {"q": jp["layers"]["wo"].astype(np.int8),
                           "s": np.ones(cfg.dim, np.float32)}
-    assert dual_ar_from_jax(jp)["layers"]["wo"]["q"].dtype == torch.int8
+    assert dual_ar_from_jax(jp, device="cpu")["layers"]["wo"]["q"].dtype == torch.int8
     jp["audio_projector"] = {"w": np.ones((4, cfg.dim), np.float32)}
     with pytest.raises(NotImplementedError, match="not ported"):
-        dual_ar_from_jax(jp)
+        dual_ar_from_jax(jp, device="cpu")
 
 
 def test_bucket_and_speaker_helpers_match_jax():

@@ -64,7 +64,7 @@ def make_lora_params(cfg, seed=0, lora=True):
         return np.asarray(x)
 
     jp = jax.tree_util.tree_map_with_path(leaf, jp)
-    tp = dual_ar_from_jax(jp, dtype=torch.float32)
+    tp = dual_ar_from_jax(jp, dtype=torch.float32, device="cpu")
     return cfg, jax.tree_util.tree_map(jnp.asarray, jp), tp
 
 
@@ -331,7 +331,7 @@ def test_load_dual_ar_reads_the_native_format(tokenizer, tmp_path):
     cfg = make_cfg(tokenizer, "qwen3ish")
     jp = jdual.init_dual_ar(jax.random.PRNGKey(0), cfg, dtype=jnp.bfloat16)
     save_dual_ar(tmp_path / "ckpt", jp, cfg)
-    params, got_cfg = load_dual_ar(tmp_path / "ckpt", dtype=None)
+    params, got_cfg = load_dual_ar(tmp_path / "ckpt", dtype=None, device="cpu")
     assert got_cfg.n_layer == cfg.n_layer and got_cfg.dim == cfg.dim
     flat_j, flat_t = _flat(jp), _flat(params)
     assert flat_j.keys() == flat_t.keys()
@@ -339,5 +339,6 @@ def test_load_dual_ar_reads_the_native_format(tokenizer, tmp_path):
         assert flat_t[k].dtype == torch.bfloat16
         np.testing.assert_array_equal(flat_t[k].float().numpy(),
                                       np.asarray(v.astype(jnp.float32)), k)
-    params32, _ = load_dual_ar(tmp_path / "ckpt", dtype=torch.float32)
+    params32, _ = load_dual_ar(tmp_path / "ckpt", dtype=torch.float32,
+                                device="cpu")
     assert params32["layers"]["wqkv"].dtype == torch.float32
