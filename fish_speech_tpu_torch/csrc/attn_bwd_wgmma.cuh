@@ -37,7 +37,11 @@
 //     S^T = K Q^T and dP^T = V dO^T: 2 * D/16 wgmma.m64n64k16, both
 //       operands from shared memory, K-major (rows are D-contiguous);
 //     P^T and dS^T in registers, lse and delta per column from shared
-//       memory, the mask only on tiles that need one;
+//       memory, the mask only on tiles that need one, each pair of
+//       columns packed to bf16 as soon as it is made (so the fp32 values
+//       die as they go: at D = 128 the kernel needs 255 registers; ptxas
+//       spilled 40 bytes when it packed after the whole tile, and 60 for
+//       the mask below without its shared `ok`);
 //     dV += bf16(P^T) dO and dK += bf16(dS^T) Q: the accumulator layout of
 //       S^T is the A-fragment layout of its k16 slices (wgmma.cuh), so
 //       no shuffle; dO and Q are the B operand read MN-major (D is N and
@@ -266,21 +270,33 @@ __device__ __forceinline__ void attn_bwd_dkdv_wgmma(const BwdArgs& a) {
     const float* lse_s = stat_s + st * 2 * BK;
     const float* dlt_s = lse_s + BK;
     const bool need_mask = q0 < kw0 + 63 || q0 + BK > t_len || !(kv_ok[0] && kv_ok[1]);
+    // each pair of columns is packed as soon as it is made, so the fp32
+    // P^T and dS^T die as they go: register r of k16 step kk holds
+    // accumulators 8 kk + 2 r, +1 (rows r % 2, columns 16 kk + 8 (r / 2)
+    // + 2 tq, +1)
+    uint32_t pf[4][4], df[4][4];
 #pragma unroll
-    for (int i = 0; i < 32; ++i) {
-      const int col = 8 * (i / 4) + 2 * tq + i % 2, e = (i / 2) % 2;
-      const int qi = q0 + col, key = key_g + 8 * e;
-      float p = ex2(fmaf(s[i], sl2, -lse_s[col] * kLog2e));
-      if (need_mask) p = (key <= qi && qi < t_len && kv_ok[e]) ? p : 0.f;
-      dp[i] = p * (dp[i] - dlt_s[col]) * a.scale;
-      s[i] = p;
-    }
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int col = 16 * kk + 8 * (r / 2) + 2 * tq, e = r % 2, key = key_g + 8 * e;
+        const float2 lse = *reinterpret_cast<const float2*>(lse_s + col);
+        const float2 dlt = *reinterpret_cast<const float2*>(dlt_s + col);
+        const int i = 8 * kk + 2 * r;
+        float p0 = ex2(fmaf(s[i], sl2, -lse.x * kLog2e));
+        float p1 = ex2(fmaf(s[i + 1], sl2, -lse.y * kLog2e));
+        if (need_mask) {
+          const bool ok = kv_ok[e] && q0 + col < t_len;
+          p0 = ok && key <= q0 + col ? p0 : 0.f;
+          p1 = ok && key <= q0 + col + 1 && q0 + col + 1 < t_len ? p1 : 0.f;
+        }
+        pf[kk][r] = pack_bf16(p0, p1);
+        df[kk][r] = pack_bf16(p0 * (dp[i] - dlt.x) * a.scale,
+                              p1 * (dp[i + 1] - dlt.y) * a.scale);
+      }
 
     // dV += bf16(P^T) dO, dK += bf16(dS^T) Q: fragments and descriptors
     // before the fence, the group retired before the next tile writes them
-    uint32_t pf[4][4], df[4][4];
-    pack_frags(s, pf);
-    pack_frags(dp, df);
     uint64_t dob_mn = wg::sw128_desc_mn(oa, L::R_BLOCK);
     uint64_t dqb_mn = wg::sw128_desc_mn(qa, L::R_BLOCK);
     asm volatile("" : "+l"(dob_mn), "+l"(dqb_mn));
