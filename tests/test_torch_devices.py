@@ -72,13 +72,12 @@ def _builders(checkpoint):
     }
 
 
-NAMES = ["init_dual_ar", "init_dac_decoder", "dual_ar_from_jax",
-         "dac_decoder_from_jax", "load_params", "load_dual_ar", "make_weights"]
 FUNCTIONS = {"init_dual_ar": init_dual_ar, "init_dac_decoder": init_dac_decoder,
              "dual_ar_from_jax": dual_ar_from_jax,
              "dac_decoder_from_jax": dac_decoder_from_jax,
              "load_params": load_params, "load_dual_ar": load_dual_ar,
              "make_weights": faststack.make_weights}
+NAMES = list(FUNCTIONS)
 
 
 @pytest.mark.parametrize("name", NAMES)
