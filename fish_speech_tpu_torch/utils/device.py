@@ -1,4 +1,4 @@
-"""Where the port's builders and loaders place what they make.
+"""Where the port's initialisers and loaders place what they make.
 
 Every entry point runs on the card unless the caller asks for the CPU:
 the default device is `cuda:0`, and asking for a CUDA device where there is

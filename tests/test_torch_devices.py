@@ -1,4 +1,4 @@
-"""Where the port's builders and loaders place what they make, on the CPU.
+"""Where the port's initialisers and loaders place what they make, on the CPU.
 
 Every entry point runs on the card unless the caller asks for the CPU:
 `init_dual_ar`, `init_dac_decoder`, `dual_ar_from_jax`,
@@ -54,8 +54,8 @@ def checkpoint(tmp_path_factory):
     return path
 
 
-def _builders(checkpoint):
-    """name -> a call of the builder or loader with `device` given or not."""
+def _makers(checkpoint):
+    """name -> a call of the initialiser or loader with `device` given or not."""
     lm = init_dual_ar(0, dual_ar_tiny(), torch.float32, "cpu")
     lm_np = jax.tree_util.tree_map(lambda t: t.numpy(), lm)
     dac_np = jax.tree_util.tree_map(
@@ -86,8 +86,8 @@ def test_default_device_is_the_card(name):
 
 
 @pytest.mark.parametrize("name", NAMES)
-def test_builder_raises_without_cuda_and_builds_on_the_cpu(checkpoint, name):
-    build = _builders(checkpoint)[name]
+def test_maker_raises_without_cuda_and_runs_on_the_cpu(checkpoint, name):
+    build = _makers(checkpoint)[name]
     if torch.cuda.is_available():
         assert all(x.is_cuda for x in _leaves(build()))
     else:
