@@ -12,7 +12,8 @@ Phases, each of which ends the run with a nonzero exit if it fails:
    the int4 tensor-core kernel, of the two attention forwards
    (`train_fwd_wgmma_kernel`, `prefill_wgmma_kernel`) and of the training
    backward's two kernels (`train_bwd_dkdv_wgmma_kernel`,
-   `train_bwd_dq_wgmma_kernel`), none of which may be 0;
+   `train_bwd_dq_wgmma_kernel`), none of which may be 0, and the blocks
+   per SM of the backward's two kernels (CUDA's occupancy calculator);
 2. each kernel against its plain PyTorch version at the main paths' shapes,
    in bf16 from N(0,1) inputs (pass: max abs error <= 2e-2, mean <= 2e-3,
    the bound of bf16 rounding of P before P.V in the plain version; the
@@ -1347,6 +1348,24 @@ def _sass_hgmma(lib_path):
     return counts
 
 
+def _bwd_occupancy():
+    """Blocks per SM of the bf16 backward's two kernels at D = 64 and 128,
+    from the CUDA occupancy calculator."""
+    import ctypes
+
+    from fish_speech_tpu_torch.ops import _kernels
+
+    lib = _kernels.load_kernels()
+    out = {}
+    for d in (64, 128):
+        dkdv, dq = ctypes.c_int(), ctypes.c_int()
+        rc = lib.fs_flash_train_bwd_occupancy(d, ctypes.byref(dkdv), ctypes.byref(dq))
+        _kernels.check_launch(rc, "fs_flash_train_bwd_occupancy")
+        out[f"train_bwd_dkdv_wgmma_kernel<{d}>"] = dkdv.value
+        out[f"train_bwd_dq_wgmma_kernel<{d}>"] = dq.value
+    return out
+
+
 def main():
     import torch
 
@@ -1371,6 +1390,10 @@ def main():
         print(f"HGMMA instructions in {name}'s SASS: {hgmma}")
         if not hgmma or min(hgmma.values()) <= 0:
             raise SystemExit(f"{name} issues no HGMMA")
+    occupancy = _bwd_occupancy()
+    print(f"blocks per SM of the training backward's kernels: {occupancy}")
+    if min(occupancy.values()) <= 0:
+        raise SystemExit("a training backward kernel fits no block on an SM")
 
     cases = kernel_cases(dev)
     tokenizer = build_test_tokenizer()

@@ -430,24 +430,42 @@ __device__ __forceinline__ void attn_bwd_dq_wgmma(const BwdArgs& a) {
   store_rows<D>(a.dq, dq, b, row_g, h, a.n_head, t_len, tq);
 }
 
-// sets both kernels' shared memory and launches dK/dV on the (Hkv, B, key
-// blocks) grid, then dQ on the (H, B, query blocks) grid; returns the CUDA
-// error code
+// lets both kernels use their shared memory; returns the CUDA error code
 template <int D, typename KernelKV, typename KernelQ>
-int launch_bwd(KernelKV dkdv, KernelQ dq, const BwdArgs& a, int batch,
-               cudaStream_t stream) {
+int allow_bwd_smem(KernelKV dkdv, KernelQ dq) {
   cudaError_t e = cudaFuncSetAttribute(
       dkdv, cudaFuncAttributeMaxDynamicSharedMemorySize, DkdvLayout<D>::SMEM);
   if (e != cudaSuccess) return (int)e;
-  e = cudaFuncSetAttribute(dq, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           DqLayout<D>::SMEM);
-  if (e != cudaSuccess) return (int)e;
+  return (int)cudaFuncSetAttribute(dq, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   DqLayout<D>::SMEM);
+}
+
+// launches dK/dV on the (Hkv, B, key blocks) grid, then dQ on the (H, B,
+// query blocks) grid; returns the CUDA error code
+template <int D, typename KernelKV, typename KernelQ>
+int launch_bwd(KernelKV dkdv, KernelQ dq, const BwdArgs& a, int batch,
+               cudaStream_t stream) {
+  int e = allow_bwd_smem<D>(dkdv, dq);
+  if (e != 0) return e;
   const int blocks = (a.t_len + BQ - 1) / BQ;
   dkdv<<<dim3(a.n_kv, batch, blocks), THREADS, DkdvLayout<D>::SMEM, stream>>>(a);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
+  e = (int)cudaGetLastError();
+  if (e != 0) return e;
   dq<<<dim3(a.n_head, batch, blocks), THREADS, DqLayout<D>::SMEM, stream>>>(a);
   return (int)cudaGetLastError();
+}
+
+// how many blocks of each kernel one SM holds at once (registers and
+// shared memory); returns the CUDA error code
+template <int D, typename KernelKV, typename KernelQ>
+int bwd_blocks_per_sm(KernelKV dkdv, KernelQ dq, int* n_dkdv, int* n_dq) {
+  int e = allow_bwd_smem<D>(dkdv, dq);
+  if (e != 0) return e;
+  e = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(n_dkdv, dkdv, THREADS,
+                                                         DkdvLayout<D>::SMEM);
+  if (e != 0) return e;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(n_dq, dq, THREADS,
+                                                            DqLayout<D>::SMEM);
 }
 
 }  // namespace attn

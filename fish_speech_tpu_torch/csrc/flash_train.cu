@@ -668,3 +668,15 @@ extern "C" int fs_flash_train_bwd(const void* q, const void* k, const void* v,
                                             scale, s);
   return (int)cudaErrorInvalidValue;
 }
+
+// blocks of each bf16 backward kernel that one SM holds at once, at
+// `head_dim`; returns the CUDA error code
+extern "C" int fs_flash_train_bwd_occupancy(int head_dim, int* dkdv, int* dq) {
+  if (head_dim == 128)
+    return fs::attn::bwd_blocks_per_sm<128>(train_bwd_dkdv_wgmma_kernel<128>,
+                                            train_bwd_dq_wgmma_kernel<128>, dkdv, dq);
+  if (head_dim == 64)
+    return fs::attn::bwd_blocks_per_sm<64>(train_bwd_dkdv_wgmma_kernel<64>,
+                                           train_bwd_dq_wgmma_kernel<64>, dkdv, dq);
+  return (int)cudaErrorInvalidValue;
+}

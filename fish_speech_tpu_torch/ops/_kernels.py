@@ -115,6 +115,8 @@ def load_kernels() -> ctypes.CDLL:
         i32, i32, i32, i32, i32, i32, f32, ptr
     ]
     lib.fs_flash_train_bwd.restype = i32
+    lib.fs_flash_train_bwd_occupancy.argtypes = [i32, ptr, ptr]
+    lib.fs_flash_train_bwd_occupancy.restype = i32
     lib.fs_flash_decode_kv8.argtypes = [
         ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr,
         i32, i32, i32, i32, i32, i32, i32, f32, ptr
