@@ -243,8 +243,8 @@ __device__ __forceinline__ void attn_bwd_dkdv_wgmma(const BwdArgs& a) {
     wg::cp_async_commit();
     if (q0 + BK - 1 < kw0 || kw0 >= t_len) continue;  // no key here sees the tile
 
-    // S^T = K Q^T and dP^T = V dO^T in one group; every descriptor is built
-    // before the fence
+    // S^T = K Q^T and dP^T = V dO^T in one group; the four tiles'
+    // descriptors are built before the fence
     const uint32_t qa = wg::smem_u32(sm + L::Q_OFF + st * L::R_TILE);
     const uint32_t oa = wg::smem_u32(sm + L::O_OFF + st * L::R_TILE);
     uint64_t dka = wg::sw128_desc(ka), dva = wg::sw128_desc(va);
