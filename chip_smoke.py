@@ -36,7 +36,13 @@ Phases, each of which ends the run with a nonzero exit if it fails:
    the tensor-core cases also to their own plain version (the Pallas
    kernel's bf16 W, summed in fp32) within 2^-8 |y| + 1e-5 (|x| @ |W|);
    each prints its TFLOP/s. The int8-KV decode kernel runs at the slow
-   cache (S = 2048 + 64) to kernel 2's bounds. Each case also reports its
+   cache (S = 2048 + 64) to kernel 2's bounds. The decode cases (slow cache
+   S = 4160 at len 1, 257 and 4000, S = 2112 at len 2048, fast cache S =
+   10) and the matvec cases also print `device_ms`: the same calls
+   captured in one CUDA graph and replayed (no wrapper host cost; the
+   matvec walking copies of its weight, and cuBLAS copies of the bf16 W,
+   over twice the L2), with the library call's `library_device_ms` and the
+   wrapper's host cost (`ms` - `device_ms`). Each case also reports its
    bound (the larger of its bytes over 3.35 TB/s and its operations over
    989 TFLOP/s, H100 SXM) and, where one PyTorch call computes the same
    function, that call's time (SDPA, with `is_causal` where the mask is
@@ -137,6 +143,34 @@ def _time_ms(fn, iters: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def _device_ms(fn, iters: int) -> float:
+    """Device time of one call: `iters` calls (`fn(i)`) captured in one CUDA
+    graph, its replay timed with CUDA events, best of three replays. The
+    wrappers' host cost (checks, allocation, the ctypes call) is left out,
+    and the capture shows that `fn` runs under a CUDA graph."""
+    import torch
+
+    fn(0)  # built, scratch made, library plans chosen before the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(iters):
+            fn(i)
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    best = float("inf")
+    for _ in range(3):
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        best = min(best, start.elapsed_time(end) / iters)
+    del graph
+    return best
 
 
 def _library_ms(fn, iters: int) -> float:
@@ -250,11 +284,13 @@ def kernel_cases(dev):
             tflop_s=flops / ms / 1e9,
             ok=mx <= 1e-4 if fp32 else mx <= 2e-2 and mean <= 2e-3))
         del q, k, v, got, want, mask
-    # decode: slow cache (36 layers, S = 2048 + 64 is the slice's; 4160 the
-    # 4096-context one) and fast cache (12 layers, S = 10 codebooks). Each
-    # timed launch reads the next layer, as the decode loop does, so the
-    # cache is not served from L2.
+    # decode: slow cache (36 layers, S = 2048 + 64 is the serving session's;
+    # 4160 the 4096-context one) and fast cache (12 layers, S = 10
+    # codebooks). Each timed launch reads the next layer, as the decode loop
+    # does, so the cache is not served from L2. `device_ms` and
+    # `library_device_ms` time the same calls replayed from a CUDA graph.
     for n_layer, s, hkv, g, length in [(36, 4160, 8, 4, 1), (36, 4160, 8, 4, 257),
+                                       (36, 2112, 8, 4, 2048),
                                        (36, 4160, 8, 4, 4000), (12, 10, 4, 3, 10)]:
         q = randn(1, hkv, g, 128)
         kc, vc = randn(n_layer, 1, s, hkv, 128), randn(n_layer, 1, s, hkv, 128)
@@ -272,13 +308,20 @@ def kernel_cases(dev):
         bound = _bound(4 * hkv * g * 128 * length,
                        2 * (2 * length * hkv * 128 + 2 * hkv * g * 128))
         qs = q.reshape(1, hkv * g, 1, 128)
-        lib = _time_ms(lambda i=0: F.scaled_dot_product_attention(
-            qs, kc[i % n_layer, :, :length].transpose(1, 2),
-            vc[i % n_layer, :, :length].transpose(1, 2), enable_gqa=True), 100)
+
+        def sdpa(i=0):
+            return F.scaled_dot_product_attention(
+                qs, kc[i % n_layer, :, :length].transpose(1, 2),
+                vc[i % n_layer, :, :length].transpose(1, 2), enable_gqa=True)
+
+        lib = _time_ms(sdpa, 100)
         cases["flash_decode"].append(dict(
             shape=f"L={n_layer} B=1 S={s} Hkv={hkv} G={g} D=128 len={length}",
             max_abs_err=mx, mean_abs_err=mean, ms=ms, plain_ms=plain_ms,
-            bound_ms=bound[0], bound_by=bound[1], library_ms=lib))
+            bound_ms=bound[0], bound_by=bound[1], library_ms=lib,
+            device_ms=_device_ms(lambda i=0: flash_decode_attention(
+                q, kc, vc, i % n_layer, lens), 100),
+            library_device_ms=_device_ms(sdpa, 100)))
         del kc, vc
     cases.update(train_kernel_cases(dev, randn))
     cases.update(quant_kernel_cases(dev, randn))
@@ -293,6 +336,10 @@ def kernel_cases(dev):
                   + ("null" if lib is None else f"{lib:.4f}")
                   + (f" library_causal_ms={r['library_causal_ms']:.4f}"
                      if "library_causal_ms" in r else "")
+                  + (f" device_ms={r['device_ms']:.4f} library_device_ms="
+                     f"{r['library_device_ms']:.4f} wrapper_host_ms="
+                     f"{max(0.0, r['ms'] - r['device_ms']):.4f}"
+                     if "device_ms" in r else "")
                   + "".join(f" {k}={v[0]:.3e}/{v[1]:.3e}"
                             for k, v in r.get("outputs", {}).items()))
             ok = r.get("ok", r["max_abs_err"] <= 2e-2 and r["mean_abs_err"] <= 2e-3)
@@ -432,6 +479,8 @@ def train_kernel_cases(dev, randn):
     return cases
 
 
+L2_COLD_BYTES = 100_000_000  # twice the H100's 50 MB L2
+
 # s2-pro's int4 weights, I -> O (w13 fused): slow stack, then fast stack
 INT4_SHAPES = [("slow wqkv", 2560, 6144), ("slow wo", 4096, 2560),
                ("slow w13", 2560, 19456), ("slow w2", 9728, 2560),
@@ -494,11 +543,25 @@ def quant_kernel_cases(dev, randn):
         flops = 2 * b * i * o
         bound = _bound(flops, i // 2 * o + 4 * (i // g) * o + 2 * b * (i + o))
         tflops = flops / ms / 1e9
+        device = {}
+        if route == "gemv":
+            # device time with the weights read cold, as the decode loop reads
+            # each layer's own: the graph walks copies of (p, gs), and cuBLAS
+            # copies of its bf16 W, over at least twice the 50 MB L2
+            n_q = -(-L2_COLD_BYTES // (p.numel() + 4 * gs.numel()))
+            n_w = -(-L2_COLD_BYTES // (2 * i * o))
+            qs = [(p.clone(), gs.clone()) for _ in range(n_q)]
+            ws = [w_lib.clone() for _ in range(n_w)]
+            device = dict(
+                device_ms=_device_ms(lambda k=0: int4_matmul(x, *qs[k % n_q]), iters),
+                library_device_ms=_device_ms(lambda k=0: x @ ws[k % n_w], iters),
+                weight_copies=[n_q, n_w])
+            del qs, ws
         cases["int4_mm_wgmma" if route == "wgmma" else "int4_mm"].append(dict(
             shape=f"{name} B={b} I={i} O={o} g={g} ({tflops:.1f} TFLOP/s)",
             max_abs_err=err.max().item(), mean_abs_err=err.mean().item(), ms=ms,
             plain_ms=plain_ms, bound_ms=bound[0], bound_by=bound[1],
-            library_ms=lib, tflop_s=tflops, ok=ok))
+            library_ms=lib, tflop_s=tflops, ok=ok, **device))
         del qw, p, gs, x, w_lib, err
     # the slow cache of the serving session: 36 layers, S = 2048 + 64
     n_layer, s, hkv, grp = 36, 2112, 8, 4
@@ -903,6 +966,12 @@ def fast_stack_frame_ms(session, frames=20):
     return _time_ms(frame, frames)
 
 
+# the serving fast stack per frame in PR 7's three runs of this script
+# (NVIDIA H100 80GB HBM3, 700.00 W), before the one-launch int4 matvec
+PR7_FAST_STACK_MS = {"mixed": "159.234 / 172.634 / 174.479",
+                     "int4": "161.277 / 155.006 / 261.142"}
+
+
 def run_quant_slice(dev, tokenizer):
     """Phase 6: quantized serving of full-width s2-pro with the int8 KV
     cache, `mixed` (the short request and its repeat), then `int4` (the
@@ -960,7 +1029,8 @@ def run_quant_slice(dev, tokenizer):
         fast_ms = fast_stack_frame_ms(session)
         print(f"{label}: kernel launches {launches}; peak device memory "
               f"{peak:.2f} GiB; serving fast stack {fast_ms:.3f} ms/frame "
-              f"(_sample_column, CUDA events)")
+              f"(_sample_column, CUDA events; PR 7's runs: "
+              f"{PR7_FAST_STACK_MS[label]} ms/frame)")
         # `mixed` keeps its slow stack int8, so only `int4` prefills in int4
         required = ["int4_mm", "flash_prefill", *wrappers] + (
             ["int4_mm_wgmma"] if label == "int4" else [])

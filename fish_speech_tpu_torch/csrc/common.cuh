@@ -48,4 +48,16 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
+// atom.add with release and acquire semantics at GPU scope. After a
+// __syncthreads(), one thread's call publishes the whole block's earlier
+// global stores to the block that sees the last count (the pattern of
+// CUTLASS's generic barrier), and that block's reads after a second
+// __syncthreads() see every arrived block's stores.
+__device__ __forceinline__ int atomic_add_acq_rel(int* p, int v) {
+  int old;
+  asm volatile("atom.acq_rel.gpu.global.add.s32 %0, [%1], %2;\n"
+               : "=r"(old) : "l"(p), "r"(v) : "memory");
+  return old;
+}
+
 }  // namespace fs

@@ -12,13 +12,32 @@
 // D * 2 bytes per layer in bf16. It reads only the first lengths[b]
 // positions, so no fixed-length buckets are needed.
 //
-// Design (first, simple version): one block of 8 warps per (KV head, batch
-// row), as the issue's slice asks; each warp walks every 8th position,
-// reading a K and a V row with one coalesced load per lane (D/32 elements),
-// reducing the G dot products with warp shuffles and keeping its own
-// running max / sum / accumulator. The 8 partial softmax states are merged
-// through shared memory at the end. With B*Hkv blocks the card is far from
-// full at batch 1: splitting S across blocks (flash-decoding) is later work.
+// Design: flash-decoding in one launch. The grid is (Hkv, B, Z): the
+// wrapper picks Z from S and the card's SM count alone
+// (`ops/flash_decode.py:decode_split_count`, about one block per SM at
+// batch 1), never from `lengths`, so the launch is the same at every step
+// and can be captured in a CUDA graph. Block z reads positions
+// [z * chunk, (z + 1) * chunk) of [0, lengths[b]), chunk = ceil(S / Z)
+// rounded up to 16 (`slice_chunk`, mirrored by `decode_slice`; a chunk cut
+// from the row's length instead measured slower at len 4000 and no faster
+// at 2048); a block whose slice is empty returns at once. The slice's K
+// and V rows stream into a ring of three 32 KB stages in shared memory
+// (two blocks fit an SM), all in flight at once. bf16 runs on the tensor
+// cores (`decode_mma_kernel`): one thread asks the TMA for each stage's
+// boxes (64 dims x 64 positions, 128-byte swizzle) against an mbarrier,
+// and each warp takes tiles of 16 positions, S^T = Q K^T and O += P V by
+// mma.sync with one max and one rescale per tile. fp32 runs on the CUDA
+// cores (`decode_kernel`): 16-byte cp.async into XOR-swizzled stages,
+// 16-byte pieces per lane, a shuffle sum per score, one max and one
+// rescale per warp and stage. The warps' states merge through shared
+// memory. A lone active slice writes `out` itself; otherwise each block
+// writes its (m, l, acc) partial to a workspace and, after a barrier, one
+// thread bumps a per-(b, hk) counter with a release-acquire atomic; the
+// block that arrives last merges the partials in split order
+// (deterministic; no atomics on data), writes `out` and puts the counter
+// back to 0. The workspace and counters are allocated once per device by
+// the wrapper, so a call allocates and memsets nothing and launches one
+// kernel.
 //
 // The int8-KV variant (fs_flash_decode_kv8) serves the slow stack under the
 // int8 KV cache, where the JAX package ran the einsum of
@@ -31,123 +50,693 @@
 // (flash-decoding), so batch 1 gets Hkv x ceil(S / chunk) blocks instead of
 // Hkv; a second kernel merges the chunks' (max, sum, accumulator) states.
 
+#include <algorithm>
+#include <type_traits>
+
 #include "common.cuh"
+#include "tma.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
-constexpr int NW = 8;         // warps per block
+constexpr int NW = 8;         // warps per block of the int8-KV kernel
 constexpr int MAXG = 8;       // query heads per KV head served by one block
 constexpr int UNROLL = 4;     // positions per warp iteration (loads in flight)
 
+constexpr int SLICE_ALIGN = 16;   // slice lengths are multiples of this
+constexpr int MAX_SPLIT = 64;     // most blocks over one (b, hk) row
+constexpr int STAGE_BYTES = 32768;  // K and V rows of one stage of the ring
+constexpr int STAGES = 3;         // stages of the ring: two blocks fit an SM
+constexpr int MAX_STAGES = 4;     // the most a launch may ask for (measurement)
+constexpr int ML = 2 * MAXG;      // a partial's (m, l) ahead of its acc
+constexpr int FIXED_CHUNK = 1;    // slices cut from S, not the row's length (measured)
+constexpr int CW = 8;             // warps per block, CUDA-core (fp32) kernel
+constexpr int TW = 4;             // warps per block, tensor-core (bf16) kernel
+
+// Positions per slice of `n` split Z ways: ceil(n / Z) rounded up to
+// SLICE_ALIGN (`ops/flash_decode.py:decode_slice`). n is the row's length
+// (balanced, the kernel's choice) or S (a fixed chunk, for measurement).
+__host__ __device__ __forceinline__ int slice_chunk(int n, int n_split) {
+  const int c = (n + n_split - 1) / n_split;
+  const int a = (c + SLICE_ALIGN - 1) / SLICE_ALIGN * SLICE_ALIGN;
+  return a > SLICE_ALIGN ? a : SLICE_ALIGN;
+}
+
+// positions of one stage: the K and V rows of SP positions fill STAGE_BYTES
 template <typename T, int D>
-__global__ void __launch_bounds__(NW * 32)
-    decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                  const T* __restrict__ v, const int* __restrict__ lengths,
-                  T* __restrict__ out, int s_len, int n_kv, int n_group,
-                  float scale) {
-  constexpr int EPL = D / 32;  // elements per lane
-  __shared__ float sm_m[NW][MAXG];
-  __shared__ float sm_l[NW][MAXG];
-  __shared__ float sm_acc[NW][MAXG][D];
+__host__ __device__ constexpr int stage_positions() {
+  return STAGE_BYTES / (2 * D * (int)sizeof(T));
+}
 
-  const int hk = blockIdx.x;
-  const int b = blockIdx.y;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int len = min(max(lengths[b], 0), s_len);
+// element offset of the 16-byte piece c of row j of a stage: the pieces of
+// eight neighbouring rows are spread over the banks (XOR with j % 8)
+template <typename T, int D>
+__device__ __forceinline__ int swz(int j, int c) {
+  return j * D + ((c ^ (j & 7)) << 4) / (int)sizeof(T);
+}
 
-  float qr[MAXG][EPL];
-  float m[MAXG], l[MAXG], acc[MAXG][EPL];
+// 8 bf16 or 4 fp32 values of one 16-byte load, as fp32
+template <typename T>
+__device__ __forceinline__ void unpack16(const uint4& w, float* f) {
+  if constexpr (std::is_same<T, float>::value) {
+    f[0] = __uint_as_float(w.x); f[1] = __uint_as_float(w.y);
+    f[2] = __uint_as_float(w.z); f[3] = __uint_as_float(w.w);
+  } else {
+    const uint32_t u[4] = {w.x, w.y, w.z, w.w};
 #pragma unroll
-  for (int g = 0; g < MAXG; ++g) {
-    m[g] = -INFINITY;
-    l[g] = 0.f;
-#pragma unroll
-    for (int e = 0; e < EPL; ++e) {
-      acc[g][e] = 0.f;
-      qr[g][e] = g < n_group
-                     ? fs::to_float(q[(((size_t)b * n_kv + hk) * n_group + g) * D +
-                                      lane * EPL + e])
-                     : 0.f;
+    for (int i = 0; i < 4; ++i) {
+      f[2 * i] = __uint_as_float(u[i] << 16);
+      f[2 * i + 1] = __uint_as_float(u[i] & 0xFFFF0000u);
     }
   }
+}
 
-  for (int j0 = warp * UNROLL; j0 < len; j0 += NW * UNROLL) {
-    float kr[UNROLL][EPL], vr[UNROLL][EPL];
+// Merge the first n_active partials of one (b, hk) row into out_bh (G x D),
+// in split order, 32 at a time. A partial is ML + G * D floats: its max
+// (log2 units) per head, its sum per head, then the unnormalised
+// accumulator. A thread takes four d of one head and loads up to 32
+// partials at once, so a row of up to 32 slices is one round trip.
+template <typename T, int D>
+__device__ void merge_partials(const float* part, int n_active, int n_group,
+                               T* out_bh) {
+  const int stride = ML + n_group * D;
+  constexpr int ZU = 32;
+  for (int t = threadIdx.x; t < n_group * D / 4; t += blockDim.x) {
+    const int g = t / (D / 4), d = (t % (D / 4)) * 4;
+    float mx = -INFINITY, tot = 0.f, o[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int z0 = 0; z0 < n_active; z0 += ZU) {
+      float4 a[ZU];
+      float mz[ZU], lz[ZU];
 #pragma unroll
-    for (int u = 0; u < UNROLL; ++u) {
-      const int j = j0 + u;
-      const size_t base = (((size_t)b * s_len + j) * n_kv + hk) * D + lane * EPL;
+      for (int u = 0; u < ZU; ++u)
+        if (z0 + u < n_active) {
+          const float* st = part + (size_t)(z0 + u) * stride;
+          mz[u] = __ldcg(st + g);
+          lz[u] = __ldcg(st + MAXG + g);
+          a[u] = __ldcg(reinterpret_cast<const float4*>(st + ML + g * D + d));
+        }
+      // the batch's max first, so its weights do not wait on each other
+      float m_new = mx;
 #pragma unroll
-      for (int e = 0; e < EPL; ++e) {
-        kr[u][e] = j < len ? fs::to_float(k[base + e]) : 0.f;
-        vr[u][e] = j < len ? fs::to_float(v[base + e]) : 0.f;
+      for (int u = 0; u < ZU; ++u)
+        if (z0 + u < n_active) m_new = fmaxf(m_new, mz[u]);
+      const float r = exp2f(mx - m_new);  // 0 on the first batch
+      tot *= r;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[e] *= r;
+      mx = m_new;
+#pragma unroll
+      for (int u = 0; u < ZU; ++u) {
+        if (z0 + u >= n_active) break;
+        const float f = exp2f(mz[u] - mx);
+        tot = fmaf(lz[u], f, tot);
+        o[0] = fmaf(a[u].x, f, o[0]); o[1] = fmaf(a[u].y, f, o[1]);
+        o[2] = fmaf(a[u].z, f, o[2]); o[3] = fmaf(a[u].w, f, o[3]);
       }
     }
 #pragma unroll
-    for (int u = 0; u < UNROLL; ++u) {
-      if (j0 + u >= len) break;
-#pragma unroll
-      for (int g = 0; g < MAXG; ++g) {
-        if (g >= n_group) break;
-        float s = 0.f;
-#pragma unroll
-        for (int e = 0; e < EPL; ++e) s = fmaf(qr[g][e], kr[u][e], s);
-        s = fs::warp_sum(s) * scale;
-        const float m_new = fmaxf(m[g], s);
-        const float a = expf(m[g] - m_new);  // 0 on a warp's first position
-        const float p = expf(s - m_new);
-        l[g] = l[g] * a + p;
-#pragma unroll
-        for (int e = 0; e < EPL; ++e) acc[g][e] = fmaf(p, vr[u][e], acc[g][e] * a);
-        m[g] = m_new;
-      }
-    }
+    for (int e = 0; e < 4; ++e) fs::store(out_bh + g * D + d + e, o[e] / tot);
   }
+}
 
-#pragma unroll
-  for (int g = 0; g < MAXG; ++g) {
-    if (g >= n_group) break;
-    if (lane == 0) {
-      sm_m[warp][g] = m[g];
-      sm_l[warp][g] = l[g];
-    }
-#pragma unroll
-    for (int e = 0; e < EPL; ++e) sm_acc[warp][g][lane * EPL + e] = acc[g][e];
+// Copies positions [p0, p0 + SP) ∩ [.., end) of K and V into a stage of
+// the ring (rows past `end` zero-filled; pieces in `swz` order) and commits
+// them as one group.
+template <typename T, int D, int THREADS>
+__device__ __forceinline__ void load_stage(T* stage, const T* kb, const T* vb,
+                                           size_t row_stride, int p0, int end) {
+  constexpr int SP = stage_positions<T, D>();
+  constexpr int PIECES = D * (int)sizeof(T) / 16;  // 16-byte pieces per row
+  for (int idx = threadIdx.x; idx < 2 * SP * PIECES; idx += THREADS) {
+    const int kv = idx / (SP * PIECES), j = (idx / PIECES) % SP, c = idx % PIECES;
+    const bool valid = p0 + j < end;
+    const T* src = (kv ? vb : kb) + (size_t)(valid ? p0 + j : p0) * row_stride +
+                   c * 16 / (int)sizeof(T);
+    fs::wg::cp_async16(stage + kv * SP * D + swz<T, D>(j, c), src, valid);
   }
-  __syncthreads();
+  fs::wg::cp_async_commit();
+}
 
-  for (int idx = threadIdx.x; idx < n_group * D; idx += NW * 32) {
+__device__ __forceinline__ void wait_stage(int n_stages) {
+  // the oldest of the n_stages groups in flight has landed
+  if (n_stages == 1) fs::wg::cp_async_wait<0>();
+  else if (n_stages == 2) fs::wg::cp_async_wait<1>();
+  else if (n_stages == 3) fs::wg::cp_async_wait<2>();
+  else fs::wg::cp_async_wait<3>();
+}
+
+// The slice of block (hk, b, z): returns false (after writing 0 for an
+// empty row) when the block has nothing to do.
+template <typename T, int D>
+__device__ __forceinline__ bool block_slice(const int* lengths, T* out_bh,
+                                            int s_len, int n_group,
+                                            int fixed_chunk, int& start,
+                                            int& end, int& n_active) {
+  const int z = blockIdx.z, n_split = gridDim.z;
+  const int len = min(max(lengths[blockIdx.y], 0), s_len);
+  if (len == 0) {  // no visible position: 0, as the old kernel gave
+    if (z == 0)
+      for (int idx = threadIdx.x; idx < n_group * D; idx += blockDim.x)
+        fs::store(out_bh + idx, 0.f);
+    return false;
+  }
+  const int chunk = slice_chunk(fixed_chunk ? s_len : len, n_split);
+  n_active = (len + chunk - 1) / chunk;
+  if (z >= n_active) return false;
+  start = z * chunk;
+  end = min(start + chunk, len);
+  return true;
+}
+
+// The block's warps have left their (m, l, acc) in sm_m [W][NG], sm_l
+// [W][NG] and sm_acc [W][NG][D] (m = -inf for a warp that saw no position). Merges them; a lone active
+// slice writes `out`, otherwise the block writes its partial and the last
+// block of the row merges (merge = 1), or leaves that to a second kernel
+// (0) or to nobody (-1, for measurement).
+template <typename T, int D, int W, int NG>
+__device__ void block_finish(const float* sm_m, const float* sm_l,
+                             const float* sm_acc, T* out_bh, float* part,
+                             int* counter, int n_group, int n_active,
+                             int merge) {
+  __shared__ int last_s;
+  const int z = blockIdx.z;
+  const bool direct = merge == 1 && n_active == 1;
+  const int stride = ML + n_group * D;
+  float* st = part + (size_t)z * stride;
+  for (int idx = threadIdx.x; idx < n_group * D; idx += blockDim.x) {
     const int g = idx / D, d = idx % D;
     float mx = -INFINITY;
 #pragma unroll
-    for (int w = 0; w < NW; ++w) mx = fmaxf(mx, sm_m[w][g]);
+    for (int w = 0; w < W; ++w) mx = fmaxf(mx, sm_m[w * NG + g]);
     float tot = 0.f, o = 0.f;
 #pragma unroll
-    for (int w = 0; w < NW; ++w) {
-      const float mw = sm_m[w][g];
-      if (mw == -INFINITY) continue;  // warp saw no position
-      const float f = expf(mw - mx);
-      tot += sm_l[w][g] * f;
-      o += sm_acc[w][g][d] * f;
+    for (int w = 0; w < W; ++w) {
+      const float mw = sm_m[w * NG + g];
+      if (mw == -INFINITY) continue;  // the warp saw no position
+      const float f = exp2f(mw - mx);
+      tot += sm_l[w * NG + g] * f;
+      o += sm_acc[(w * NG + g) * D + d] * f;
     }
-    fs::store(out + (((size_t)b * n_kv + hk) * n_group + g) * D + d,
-              tot > 0.f ? o / tot : 0.f);
+    if (direct) {
+      fs::store(out_bh + idx, o / tot);
+    } else {
+      st[ML + idx] = o;
+      if (d == 0) {
+        st[g] = mx;
+        st[MAXG + g] = tot;
+      }
+    }
   }
+  if (direct || merge != 1) return;
+  __syncthreads();  // the block's partial is stored: publish it
+  if (threadIdx.x == 0)
+    last_s = fs::atomic_add_acq_rel(counter, 1) == n_active - 1;
+  __syncthreads();
+  if (!last_s) return;
+  merge_partials<T, D>(part, n_active, n_group, out_bh);
+  if (threadIdx.x == 0) *counter = 0;
 }
 
+// ---------------------------------------------------------------------------
+// fp32 (and any dtype): CUDA cores. Each of CW warps scores SP / CW
+// positions of a stage for its G heads (NG >= n_group bounds the
+// registers): lanes hold 16-byte pieces of a row, a shuffle sum per score,
+// one max and one rescale per warp and stage.
+// ---------------------------------------------------------------------------
+template <typename T, int D, int NG>
+__global__ void __launch_bounds__(CW * 32)
+    decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                  const T* __restrict__ v, const int* __restrict__ lengths,
+                  T* __restrict__ out, float* __restrict__ work,
+                  int* __restrict__ counters, int s_len, int n_kv, int n_group,
+                  float scale_log2, int fixed_chunk, int merge, int n_stages) {
+  constexpr int VEC = 16 / sizeof(T);  // elements per 16-byte load
+  constexpr int LPR = D / VEC;         // lanes per K/V row
+  constexpr int RPW = 32 / LPR;        // rows per warp load
+  constexpr int SP = stage_positions<T, D>();
+  constexpr int TP = SP / CW;          // positions per warp and stage
+  constexpr int U = TP / RPW;          // rows per lane and stage
+  static_assert(U * RPW * CW == SP, "a stage splits evenly over the warps");
+  extern __shared__ __align__(16) unsigned char ring_raw[];
+  T* ring = reinterpret_cast<T*>(ring_raw);
+  const int hk = blockIdx.x, b = blockIdx.y;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int rg = lane / LPR, li = lane % LPR;
+  const size_t bh = (size_t)b * n_kv + hk;
+  T* out_bh = out + bh * n_group * D;
+  int start, end, n_active;
+  if (!block_slice<T, D>(lengths, out_bh, s_len, n_group, fixed_chunk, start,
+                         end, n_active))
+    return;
+  const int n_sub = (end - start + SP - 1) / SP;
+  const size_t row_stride = (size_t)n_kv * D;  // elements between positions
+  const T* kb = k + ((size_t)b * s_len * n_kv + hk) * D;
+  const T* vb = v + ((size_t)b * s_len * n_kv + hk) * D;
+  for (int st = 0; st < n_stages; ++st) {  // one group per stage, even if empty
+    if (st < n_sub)
+      load_stage<T, D, CW * 32>(ring + st * 2 * SP * D, kb, vb, row_stride,
+                                start + st * SP, end);
+    else
+      fs::wg::cp_async_commit();
+  }
+
+  float qr[NG][VEC], m[NG], l[NG], acc[NG][VEC];
+#pragma unroll
+  for (int g = 0; g < NG; ++g) {
+    m[g] = -INFINITY;
+    l[g] = 0.f;
+    float f[VEC];
+    if (g < n_group)
+      unpack16<T>(*reinterpret_cast<const uint4*>(q + (bh * n_group + g) * D +
+                                                  li * VEC), f);
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) {
+      qr[g][e] = g < n_group ? f[e] : 0.f;
+      acc[g][e] = 0.f;
+    }
+  }
+
+  for (int sub = 0; sub < n_sub; ++sub) {
+    wait_stage(n_stages);
+    __syncthreads();
+    const T* ks = ring + (sub % n_stages) * 2 * SP * D;
+    const T* vs = ks + SP * D;
+    if (start + sub * SP + warp * TP < end) {  // the warp's first position
+      float s[U][NG];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int j = warp * TP + u * RPW + rg;  // row in the stage
+        float kf[VEC];
+        unpack16<T>(*reinterpret_cast<const uint4*>(ks + swz<T, D>(j, li)), kf);
+        const bool valid = start + sub * SP + j < end;
+#pragma unroll
+        for (int g = 0; g < NG; ++g) {
+          float d = 0.f;
+#pragma unroll
+          for (int e = 0; e < VEC; ++e) d = fmaf(qr[g][e], kf[e], d);
+#pragma unroll
+          for (int o = LPR / 2; o > 0; o >>= 1) d += __shfl_xor_sync(fs::kFullMask, d, o);
+          s[u][g] = valid ? d * scale_log2 : -INFINITY;
+        }
+      }
+#pragma unroll
+      for (int g = 0; g < NG; ++g) {
+        float mt = s[0][g];
+#pragma unroll
+        for (int u = 1; u < U; ++u) mt = fmaxf(mt, s[u][g]);
+#pragma unroll
+        for (int o = LPR; o < 32; o <<= 1) mt = fmaxf(mt, __shfl_xor_sync(fs::kFullMask, mt, o));
+        const float m_new = fmaxf(m[g], mt);
+        const float a = exp2f(m[g] - m_new);  // 0 on the warp's first tile
+        l[g] *= a;
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) acc[g][e] *= a;
+        m[g] = m_new;
+#pragma unroll
+        for (int u = 0; u < U; ++u) s[u][g] = exp2f(s[u][g] - m_new);  // p; 0 if masked
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int j = warp * TP + u * RPW + rg;
+        float vf[VEC];
+        unpack16<T>(*reinterpret_cast<const uint4*>(vs + swz<T, D>(j, li)), vf);
+#pragma unroll
+        for (int g = 0; g < NG; ++g) {
+          l[g] += s[u][g];
+#pragma unroll
+          for (int e = 0; e < VEC; ++e) acc[g][e] = fmaf(s[u][g], vf[e], acc[g][e]);
+        }
+      }
+    }
+    __syncthreads();  // the stage is read: refill it
+    if (sub + n_stages < n_sub)
+      load_stage<T, D, CW * 32>(ring + (sub % n_stages) * 2 * SP * D, kb, vb,
+                                row_stride, start + (sub + n_stages) * SP, end);
+    else
+      fs::wg::cp_async_commit();
+  }
+  // the warps' states go where the ring was (every stage has been read)
+  float* sm_m = reinterpret_cast<float*>(ring_raw);
+  float* sm_l = sm_m + CW * NG;
+  float* sm_acc = sm_l + CW * NG;
+  // the row groups of a warp share its max: add their sums
+#pragma unroll
+  for (int g = 0; g < NG; ++g) {
+#pragma unroll
+    for (int o = LPR; o < 32; o <<= 1) {
+      l[g] += __shfl_xor_sync(fs::kFullMask, l[g], o);
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) acc[g][e] += __shfl_xor_sync(fs::kFullMask, acc[g][e], o);
+    }
+    if (lane == 0) {
+      sm_m[warp * NG + g] = m[g];
+      sm_l[warp * NG + g] = l[g];
+    }
+    if (rg == 0)
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) sm_acc[(warp * NG + g) * D + li * VEC + e] = acc[g][e];
+  }
+  __syncthreads();
+  block_finish<T, D, CW, NG>(sm_m, sm_l, sm_acc, out_bh,
+                             work + bh * gridDim.z * (ML + n_group * D),
+                             counters + bh, n_group, n_active, merge);
+}
+
+// ---------------------------------------------------------------------------
+// bf16: tensor cores (mma.sync m16n8k16, fp32 sums). A warp takes tiles of
+// 16 positions: S^T = Q K^T with the G heads on M (rows past G are zero),
+// the positions on N and D on K; one max and one rescale per tile; then
+// O += P V with P (rounded to bf16, as the tensor-core attention forwards
+// round it) as the A operand straight from S's registers and V read
+// transposed by ldmatrix. K and V rows come from the ring in `swz` order,
+// so ldmatrix reads eight rows without bank conflicts.
+// ---------------------------------------------------------------------------
+__device__ __forceinline__ void mma_bf16(float (&d)[4], uint32_t a0, uint32_t a1,
+                                         uint32_t a2, uint32_t a3, uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void ldsm4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(fs::wg::smem_u32(p)));
+}
+
+__device__ __forceinline__ void ldsm4_t(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(fs::wg::smem_u32(p)));
+}
+
+// element offset of the 16-byte piece c of row j in a stage of the bf16
+// kernel: TMA boxes of SP rows x 64 dims (128 bytes), the 128-byte swizzle
+template <int SP>
+__device__ __forceinline__ int tswz(int j, int c) {
+  return (c >> 3) * SP * 64 + j * 64 + (((c & 7) ^ (j & 7)) << 3);
+}
+
+template <int D>
+__global__ void __launch_bounds__(TW * 32)
+    decode_mma_kernel(const __grid_constant__ CUtensorMap kmap,
+                      const __grid_constant__ CUtensorMap vmap,
+                      const __nv_bfloat16* __restrict__ q,
+                      const int* __restrict__ lengths,
+                      __nv_bfloat16* __restrict__ out, float* __restrict__ work,
+                      int* __restrict__ counters, int s_len, int n_kv,
+                      int n_group, float scale_log2, int fixed_chunk, int merge,
+                      int n_stages) {
+  using T = __nv_bfloat16;
+  constexpr int SP = stage_positions<T, D>();
+  constexpr int KS = D / 16;  // k steps of S, n tiles of O
+  constexpr int NBOX = D / 64, BOX = SP * 64;  // boxes per K (or V) stage
+  extern __shared__ __align__(1024) unsigned char ring_raw[];
+  __shared__ __align__(8) uint64_t full[MAX_STAGES];
+  // the swizzled boxes want 1024-byte aligned stages (1 KB of slack)
+  T* ring = reinterpret_cast<T*>(
+      ring_raw + ((1024 - fs::wg::smem_u32(ring_raw) % 1024) % 1024));
+  const int hk = blockIdx.x, b = blockIdx.y;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, qd = lane & 3;  // mma row group, thread in group
+  const size_t bh = (size_t)b * n_kv + hk;
+  T* out_bh = out + bh * n_group * D;
+  int start, end, n_active;
+  if (!block_slice<T, D>(lengths, out_bh, s_len, n_group, fixed_chunk, start,
+                         end, n_active))
+    return;
+  const int n_sub = (end - start + SP - 1) / SP;
+  auto issue = [&](int slot, int sub) {  // thread 0: K and V boxes of a stage
+    T* st = ring + slot * 2 * SP * D;
+    fs::tma::bar_expect(&full[slot], STAGE_BYTES);
+#pragma unroll
+    for (int kv = 0; kv < 2; ++kv)
+#pragma unroll
+      for (int bx = 0; bx < NBOX; ++bx)
+        fs::tma::load_3d(st + (kv * NBOX + bx) * BOX, kv ? &vmap : &kmap,
+                         &full[slot], 64 * bx, hk, b * s_len + start + sub * SP);
+  };
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < n_stages; ++st) fs::tma::bar_init(&full[st]);
+    fs::tma::bar_init_fence();
+    for (int st = 0; st < n_stages && st < n_sub; ++st) issue(st, st);
+  }
+  __syncthreads();  // the barriers' init is visible
+
+  // A of S^T: Q, head g (row g + 8 is zero), d pairs 2qd and 2qd + 8 of
+  // each k step
+  uint32_t qa[KS][2];
+  const uint32_t* qrow = reinterpret_cast<const uint32_t*>(q + (bh * n_group + g) * D);
+#pragma unroll
+  for (int s = 0; s < KS; ++s) {
+    qa[s][0] = g < n_group ? qrow[8 * s + qd] : 0u;
+    qa[s][1] = g < n_group ? qrow[8 * s + 4 + qd] : 0u;
+  }
+  float m = -INFINITY, l = 0.f;  // head g
+  float acc[KS * 2][4];          // O[g][8 n + 2 qd, + 1] in [n][0..1]
+#pragma unroll
+  for (int n = 0; n < KS * 2; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  // ldmatrix rows: lane l feeds row l % 8 of matrix l / 8
+  const int mi = lane >> 3, mr = lane & 7;
+  for (int sub = 0; sub < n_sub; ++sub) {
+    const int slot = sub % n_stages;
+    T* stage = ring + slot * 2 * SP * D;
+    fs::tma::bar_wait(&full[slot], (sub / n_stages) & 1);
+    const T* ks = stage;
+    const T* vs = stage + NBOX * BOX;
+    for (int t = warp; t * 16 < SP; t += TW) {
+      const int pb = start + sub * SP + t * 16;  // the tile's first position
+      if (pb >= end) break;
+      // S^T (heads x 16 positions) in two n tiles of 8 positions
+      float s[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk) {
+        // matrices: positions 0-7 / 8-15 (mi / 2) x d pieces 2kk, 2kk + 1 (mi % 2)
+        uint32_t kf[4];
+        const int j = t * 16 + (mi >> 1) * 8 + mr;
+        ldsm4(kf, ks + tswz<SP>(j, 2 * kk + (mi & 1)));
+        mma_bf16(s[0], qa[kk][0], 0u, qa[kk][1], 0u, kf[0], kf[1]);
+        mma_bf16(s[1], qa[kk][0], 0u, qa[kk][1], 0u, kf[2], kf[3]);
+      }
+      // s[n][0..1]: head g, positions pb + 8 n + 2 qd, + 1
+      float mt = -INFINITY;
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const bool valid = pb + 8 * n + 2 * qd + e < end;
+          s[n][e] = valid ? s[n][e] * scale_log2 : -INFINITY;
+          mt = fmaxf(mt, s[n][e]);
+        }
+      mt = fmaxf(mt, __shfl_xor_sync(fs::kFullMask, mt, 1));
+      mt = fmaxf(mt, __shfl_xor_sync(fs::kFullMask, mt, 2));
+      const float m_new = fmaxf(m, mt);  // finite: position pb is valid
+      const float a = exp2f(m - m_new);
+      m = m_new;
+      l *= a;
+#pragma unroll
+      for (int n = 0; n < KS * 2; ++n) {
+        acc[n][0] *= a;
+        acc[n][1] *= a;
+      }
+      uint32_t pa[2];  // P as the A operand: positions 2qd.. and 8 + 2qd..
+#pragma unroll
+      for (int n = 0; n < 2; ++n) {
+        const float p0 = exp2f(s[n][0] - m_new), p1 = exp2f(s[n][1] - m_new);
+        l += p0 + p1;
+        const __nv_bfloat162 h = __floats2bfloat162_rn(p0, p1);
+        pa[n] = *reinterpret_cast<const uint32_t*>(&h);
+      }
+      // V rows past the slice may hold anything (even NaN): their B values
+      // are zeroed, as 0 * NaN would not be 0. mv[h]: positions
+      // 8 h + 2 qd, + 1 of the tile
+      uint32_t mv[2] = {~0u, ~0u};
+      if (pb + 16 > end)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          mv[h] = (pb + 8 * h + 2 * qd < end ? 0x0000FFFFu : 0u) |
+                  (pb + 8 * h + 2 * qd + 1 < end ? 0xFFFF0000u : 0u);
+      // O (heads x D) += P (heads x 16 positions) V (16 positions x D)
+#pragma unroll
+      for (int pp = 0; pp < KS; ++pp) {
+        // matrices: positions 0-7 / 8-15 (mi % 2) x d pieces 2pp, 2pp + 1 (mi / 2)
+        uint32_t vf[4];
+        const int j = t * 16 + (mi & 1) * 8 + mr;
+        ldsm4_t(vf, vs + tswz<SP>(j, 2 * pp + (mi >> 1)));
+        vf[0] &= mv[0]; vf[1] &= mv[1]; vf[2] &= mv[0]; vf[3] &= mv[1];
+        mma_bf16(acc[2 * pp], pa[0], 0u, pa[1], 0u, vf[0], vf[1]);
+        mma_bf16(acc[2 * pp + 1], pa[0], 0u, pa[1], 0u, vf[2], vf[3]);
+      }
+    }
+    __syncthreads();  // the stage is read: refill it
+    if (threadIdx.x == 0 && sub + n_stages < n_sub) issue(slot, sub + n_stages);
+  }
+  // the four lanes of head g hold parts of its sum
+  l += __shfl_xor_sync(fs::kFullMask, l, 1);
+  l += __shfl_xor_sync(fs::kFullMask, l, 2);
+  // the warps' states go where the ring was (every stage has been read)
+  float* sm_m = reinterpret_cast<float*>(ring);
+  float* sm_l = sm_m + TW * MAXG;
+  float* sm_acc = sm_l + TW * MAXG;
+  if (qd == 0) {
+    sm_m[warp * MAXG + g] = m;
+    sm_l[warp * MAXG + g] = l;
+  }
+#pragma unroll
+  for (int n = 0; n < KS * 2; ++n) {
+    sm_acc[(warp * MAXG + g) * D + 8 * n + 2 * qd] = acc[n][0];
+    sm_acc[(warp * MAXG + g) * D + 8 * n + 2 * qd + 1] = acc[n][1];
+  }
+  __syncthreads();
+  block_finish<T, D, TW, MAXG>(sm_m, sm_l, sm_acc, out_bh,
+                               work + bh * gridDim.z * (ML + n_group * D),
+                               counters + bh, n_group, n_active, merge);
+}
+
+// The two-launch variant's second kernel: one block per (KV head, batch row)
+template <typename T, int D>
+__global__ void decode_merge_split_kernel(const float* __restrict__ work,
+                                          const int* __restrict__ lengths,
+                                          T* __restrict__ out, int s_len,
+                                          int n_kv, int n_group, int n_split,
+                                          int fixed_chunk) {
+  const int hk = blockIdx.x, b = blockIdx.y;
+  const int len = min(max(lengths[b], 0), s_len);
+  if (len == 0) return;
+  const int chunk = slice_chunk(fixed_chunk ? s_len : len, n_split);
+  const size_t bh = (size_t)b * n_kv + hk;
+  merge_partials<T, D>(work + bh * n_split * (ML + n_group * D),
+                       (len + chunk - 1) / chunk, n_group,
+                       out + bh * n_group * D);
+}
+
+// The TMA map of one layer of the cache, (B, S, Hkv, D) bf16 read as
+// D x Hkv x (B * S) in boxes of 64 dims x 1 head x SP positions; encoded
+// once per (address, shape) and kept (a session's layers are fixed
+// addresses).
+template <int D>
+int cache_map(CUtensorMap* map, const void* base, int batch, int s_len,
+              int n_kv) {
+  struct Entry {
+    const void* base;
+    int batch, s_len, n_kv;
+    CUtensorMap map;
+  };
+  static Entry table[512];
+  Entry& e = table[(reinterpret_cast<uintptr_t>(base) >> 8) % 512];
+  if (e.base != base || e.batch != batch || e.s_len != s_len || e.n_kv != n_kv) {
+    constexpr int SP = stage_positions<__nv_bfloat16, D>();
+    const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)n_kv,
+                                (cuuint64_t)batch * s_len};
+    const cuuint64_t strides[2] = {(cuuint64_t)D * 2, (cuuint64_t)n_kv * D * 2};
+    const cuuint32_t box[3] = {64, 1, SP};
+    const int rc = fs::tma::encode(&e.map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+                                   base, dims, strides, box);
+    if (rc != 0) {
+      e.base = nullptr;
+      return rc;
+    }
+    e.base = base;
+    e.batch = batch;
+    e.s_len = s_len;
+    e.n_kv = n_kv;
+  }
+  *map = e.map;
+  return 0;
+}
+
+// merge: 1 in the kernel, 0 in a second kernel, -1 not at all
 template <typename T, int D>
 int launch_decode(const void* q, const void* k, const void* v,
-                  const int* lengths, void* out, int batch, int s_len,
-                  int n_kv, int n_group, float scale, cudaStream_t stream) {
-  dim3 grid(n_kv, batch);
-  decode_kernel<T, D><<<grid, NW * 32, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), lengths, static_cast<T*>(out), s_len, n_kv,
-      n_group, scale);
+                  const int* lengths, void* out, float* work, int* counters,
+                  int batch, int s_len, int n_kv, int n_group, int n_split,
+                  float scale, int fixed_chunk, int merge, int stages,
+                  cudaStream_t stream) {
+  constexpr float kLog2e = 1.4426950408889634f;
+  constexpr int SP = stage_positions<T, D>();
+  constexpr bool kTensorCores = std::is_same<T, __nv_bfloat16>::value;
+  // enough stages for the longest slice S allows, at most MAX_STAGES
+  const int subs = (slice_chunk(s_len, n_split) + SP - 1) / SP;
+  const int n_stages = std::min(subs, std::min(stages, MAX_STAGES));
+  // the ring, or the warps' states that take its place at the end
+  const int warps = kTensorCores ? TW : CW, ng = kTensorCores || n_group > 4 ? MAXG : 4;
+  const size_t smem = 1024 + std::max((size_t)n_stages * STAGE_BYTES,
+                                      sizeof(float) * warps * ng * (2 + D));
+  dim3 grid(n_kv, batch, n_split);
+  const T* qt = static_cast<const T*>(q);
+  const T* kt = static_cast<const T*>(k);
+  const T* vt = static_cast<const T*>(v);
+  T* ot = static_cast<T*>(out);
+  // one attribute call per kernel: up to MAX_STAGES stages of the ring
+  static bool sized[3] = {false, false, false};
+  const int which = kTensorCores ? 0 : n_group <= 4 ? 1 : 2;
+  cudaError_t e = cudaSuccess;
+  if (!sized[which]) {
+    if constexpr (kTensorCores)
+      e = cudaFuncSetAttribute(decode_mma_kernel<D>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               1024 + MAX_STAGES * STAGE_BYTES);
+    else
+      e = cudaFuncSetAttribute(which == 1 ? decode_kernel<T, D, 4> : decode_kernel<T, D, 8>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               1024 + MAX_STAGES * STAGE_BYTES);
+    if (e != cudaSuccess) return (int)e;
+    sized[which] = true;
+  }
+  if constexpr (kTensorCores) {
+    CUtensorMap kmap, vmap;
+    int rc = cache_map<D>(&kmap, k, batch, s_len, n_kv);
+    if (rc == 0) rc = cache_map<D>(&vmap, v, batch, s_len, n_kv);
+    if (rc != 0) return rc;
+    decode_mma_kernel<D><<<grid, TW * 32, smem, stream>>>(
+        kmap, vmap, qt, lengths, ot, work, counters, s_len, n_kv, n_group,
+        scale * kLog2e, fixed_chunk, merge, n_stages);
+  } else if (n_group <= 4) {
+    decode_kernel<T, D, 4><<<grid, CW * 32, smem, stream>>>(
+        qt, kt, vt, lengths, ot, work, counters, s_len, n_kv, n_group,
+        scale * kLog2e, fixed_chunk, merge, n_stages);
+  } else {
+    decode_kernel<T, D, 8><<<grid, CW * 32, smem, stream>>>(
+        qt, kt, vt, lengths, ot, work, counters, s_len, n_kv, n_group,
+        scale * kLog2e, fixed_chunk, merge, n_stages);
+  }
+  e = cudaGetLastError();
+  if (e != cudaSuccess || merge != 0) return (int)e;
+  decode_merge_split_kernel<T, D><<<dim3(n_kv, batch), 128, 0, stream>>>(
+      work, lengths, ot, s_len, n_kv, n_group, n_split, fixed_chunk);
   return (int)cudaGetLastError();
 }
 
+int decode_entry(const void* q, const void* k_layer, const void* v_layer,
+                 const void* lengths, void* out, void* work, void* counters,
+                 int batch, int s_len, int n_kv, int n_group, int head_dim,
+                 int dtype, int n_split, float scale, int fixed_chunk,
+                 int two_launch, int stages, void* stream) {
+  if (batch < 1 || s_len < 1 || n_kv < 1 || n_group < 1 || n_group > MAXG ||
+      n_split < 1 || n_split > MAX_SPLIT)
+    return (int)cudaErrorInvalidValue;
+  const int* lens = static_cast<const int*>(lengths);
+  float* wk = static_cast<float*>(work);
+  int* cnt = static_cast<int*>(counters);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int merge = two_launch == 0 ? 1 : two_launch == 1 ? 0 : -1;
+#define FS_DEC(T, D)                                                         \
+  return launch_decode<T, D>(q, k_layer, v_layer, lens, out, wk, cnt, batch, \
+                             s_len, n_kv, n_group, n_split, scale,           \
+                             fixed_chunk, merge, stages, s)
+  if (dtype == fs::kBFloat16 && head_dim == 128) FS_DEC(__nv_bfloat16, 128);
+  if (dtype == fs::kBFloat16 && head_dim == 64) FS_DEC(__nv_bfloat16, 64);
+  if (dtype == fs::kFloat32 && head_dim == 128) FS_DEC(float, 128);
+  if (dtype == fs::kFloat32 && head_dim == 64) FS_DEC(float, 64);
+#undef FS_DEC
+  return (int)cudaErrorInvalidValue;
+}
 
 // ---------------------------------------------------------------------------
 // int8 K/V with bf16 per-(position, head) scales, positions split in chunks
@@ -325,31 +914,37 @@ int launch_decode_kv8(const void* q, const void* k, const void* ks,
 
 }  // namespace
 
-// k_layer / v_layer point at one layer of the stacked cache: (B, S, Hkv, D).
+// k_layer / v_layer point at one layer of the stacked cache: (B, S, Hkv, D);
+// q and out are (B, Hkv, G, D). work holds B * Hkv * n_split * (16 + G * D)
+// fp32 partials and counters B * Hkv int32s, all 0 on entry (the kernel
+// leaves them 0). q, k_layer and v_layer start on 16-byte boundaries.
 extern "C" int fs_flash_decode(const void* q, const void* k_layer,
                                const void* v_layer, const void* lengths,
-                               void* out, int batch, int s_len, int n_kv,
-                               int n_group, int head_dim, int dtype,
+                               void* out, void* work, void* counters,
+                               int batch, int s_len, int n_kv, int n_group,
+                               int head_dim, int dtype, int n_split,
                                float scale, void* stream) {
-  if (batch < 1 || s_len < 1 || n_kv < 1 || n_group < 1 || n_group > MAXG)
-    return (int)cudaErrorInvalidValue;
-  const int* lens = static_cast<const int*>(lengths);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == fs::kBFloat16 && head_dim == 128)
-    return launch_decode<__nv_bfloat16, 128>(q, k_layer, v_layer, lens, out,
-                                             batch, s_len, n_kv, n_group,
-                                             scale, s);
-  if (dtype == fs::kBFloat16 && head_dim == 64)
-    return launch_decode<__nv_bfloat16, 64>(q, k_layer, v_layer, lens, out,
-                                            batch, s_len, n_kv, n_group, scale,
-                                            s);
-  if (dtype == fs::kFloat32 && head_dim == 128)
-    return launch_decode<float, 128>(q, k_layer, v_layer, lens, out, batch,
-                                     s_len, n_kv, n_group, scale, s);
-  if (dtype == fs::kFloat32 && head_dim == 64)
-    return launch_decode<float, 64>(q, k_layer, v_layer, lens, out, batch,
-                                    s_len, n_kv, n_group, scale, s);
-  return (int)cudaErrorInvalidValue;
+  return decode_entry(q, k_layer, v_layer, lengths, out, work, counters, batch,
+                      s_len, n_kv, n_group, head_dim, dtype, n_split, scale,
+                      FIXED_CHUNK, 0, STAGES, stream);
+}
+
+// The same with the choices the kernel did not keep, for measurement
+// (`scripts/decode_int4_bench.py`): fixed_chunk = 1 cuts S (not the row's
+// length) into the slices; two_launch = 1 merges in a second kernel, 2
+// leaves the partials unmerged (the split's time alone; `out` is not
+// written).
+extern "C" int fs_flash_decode_variant(const void* q, const void* k_layer,
+                                       const void* v_layer, const void* lengths,
+                                       void* out, void* work, void* counters,
+                                       int batch, int s_len, int n_kv,
+                                       int n_group, int head_dim, int dtype,
+                                       int n_split, float scale,
+                                       int fixed_chunk, int two_launch,
+                                       int stages, void* stream) {
+  return decode_entry(q, k_layer, v_layer, lengths, out, work, counters, batch,
+                      s_len, n_kv, n_group, head_dim, dtype, n_split, scale,
+                      fixed_chunk, two_launch, stages < 1 ? 1 : stages, stream);
 }
 
 // int8 K/V: k_layer / v_layer (B, S, Hkv, D) int8 and ks_layer / vs_layer

@@ -18,20 +18,22 @@
 //
 // Three routes, chosen by the wrapper (`ops/int4.py:_route`) on B and x's
 // dtype; a route that does not take the call returns cudaErrorInvalidValue.
-// * "gemv", B <= 8: split-K matrix-vector kernel. A block owns 256 output columns
-//   (64 column threads x 4 columns, one 4-byte coalesced load per packed
-//   row) and one group of g packed rows, so both nibbles of every byte it
-//   reads belong to one group each (rows r and r + I/2). For fp32 x the
-//   block sums x * nibble for the two groups in fp32 and applies the two
-//   scales once; for bf16 x it dequantizes every nibble to the bf16 W of
-//   the other routes (below, four columns at a time in bf16x2 arithmetic)
-//   and sums x * W in fp32.
-//   Four row slices share the rows and are summed through shared memory.
-//   The grid is (O/256) x (I/2g) blocks (e.g. 12 x 10 for 2560 -> 6144 at
-//   g = 128), so most of the 132 SMs get work where a column split alone
-//   would give 6-76 blocks. Each block writes its fp32 partial sums; a
-//   second kernel adds the I/2g partials per output in a fixed order
-//   (deterministic, no atomics) and writes x's dtype.
+// * "gemv", B <= 8: split-K matrix-vector kernel, one launch a product.
+//   A block owns 256 output columns and one run of whole groups of packed
+//   rows (`ops/int4.py:gemv_split` picks the runs from the shape and the
+//   SM count, so that the grid covers the card where the columns alone
+//   would give 6-76 blocks). Its 16 row slices of 16 threads each read 16
+//   packed bytes (32 W values: rows r and r + I/2 of 16 columns) per load,
+//   8 rows in flight per thread, while the block stages x and the group's
+//   scales in shared memory. bf16 x dequantizes every nibble to the bf16 W
+//   of the other routes (below, in bf16x2 arithmetic); fp32 x uses q * s in
+//   fp32; the sums are fp32. The slices' sums meet by a shuffle and then
+//   through shared memory in a fixed order. With one run the block writes
+//   y; otherwise each block writes its fp32 partial to a workspace, fences
+//   and bumps its column tile's counter, and the last block of the tile adds
+//   the partials in split order (deterministic, no atomics on data),
+//   writes y in x's dtype and puts the counter back to 0. The workspace and
+//   counters are allocated once per device by the wrapper.
 // * "wgmma", bf16 x and B > 8 (every prefill): tensor-core product,
 //   `int4_wgmma_kernel` below, whose note gives its design.
 // * "fp32_tiled", fp32 x and B > 8 (the small fp32 reference models):
@@ -54,14 +56,19 @@
 #include <type_traits>
 
 #include "common.cuh"
+#include "tma.cuh"
 #include "wgmma.cuh"
 
 namespace {
 
 constexpr int GV_THREADS = 256;
-constexpr int GV_COLS = 256;   // output columns per block (64 threads x 4)
-constexpr int GV_SLICES = 4;   // row slices per block
-constexpr int GV_MAXB = 8;     // rows of x the matvec kernel takes
+constexpr int GV_VEC = 16;                      // packed bytes (columns) a thread loads per row
+constexpr int GV_CT = 16;                       // column threads of a row slice
+constexpr int GV_COLS = GV_CT * GV_VEC;         // output columns per block
+constexpr int GV_SLICES = GV_THREADS / GV_CT;   // row slices per block
+constexpr int GV_U = 8;                         // rows in flight per thread
+constexpr int GV_CHUNK = GV_SLICES * GV_U;      // packed rows per block step
+constexpr int GV_MAXB = 8;                      // rows of x the matvec kernel takes
 
 __device__ __forceinline__ void load4(const uint8_t* row, int col0, int out_dim,
                                       bool vec, uint8_t w[4]) {
@@ -93,130 +100,229 @@ __device__ __forceinline__ void dequant_pair(uint32_t w, __nv_bfloat162 s_lo,
   hi = bf2_bits(__hmul2_rn(qh, s_hi));
 }
 
-template <typename T>
-__global__ void __launch_bounds__(GV_THREADS)
-    int4_gemv_kernel(const T* __restrict__ x, const uint8_t* __restrict__ p,
-                     const float* __restrict__ gs, float* __restrict__ part,
-                     int batch, int in_dim, int out_dim, int group) {
-  extern __shared__ float smem[];
-  float* xs = smem;                              // [batch][2 * group]
-  float* red = smem + batch * 2 * group;         // [SLICES-1][batch][COLS]
-  const int half = in_dim / 2;
-  const int k = blockIdx.y;  // packed rows [k*g, (k+1)*g): groups k and k + half/g
-  const int r0 = k * group;
-  const int ct = threadIdx.x % (GV_COLS / 4);
-  const int slice = threadIdx.x / (GV_COLS / 4);
-  const int col0 = blockIdx.x * GV_COLS + ct * 4;
-
-  for (int idx = threadIdx.x; idx < batch * 2 * group; idx += GV_THREADS) {
-    const int b = idx / (2 * group), j = idx % (2 * group);
-    const int row = j < group ? r0 + j : half + r0 + (j - group);
-    xs[idx] = fs::to_float(x[(size_t)b * in_dim + row]);
-  }
-  __syncthreads();
-
-  float lo_acc[GV_MAXB][4], hi_acc[GV_MAXB][4];
+// One 16-byte load: 16 columns of packed row r, i.e. W[r, c..c+16) in the
+// low nibbles and W[r + I/2, c..c+16) in the high ones. The ragged edge
+// (O not a multiple of 16, or p off the 16-byte grid) reads bytes one by
+// one; columns past O read 0x88, q = 0.
+__device__ __forceinline__ uint4 load16(const uint8_t* row, int col0,
+                                        int out_dim, bool vec) {
+  if (vec) return __ldg(reinterpret_cast<const uint4*>(row + col0));
+  uint32_t w[4];
 #pragma unroll
-  for (int b = 0; b < GV_MAXB; ++b)
+  for (int i = 0; i < 4; ++i) {
+    w[i] = 0;
 #pragma unroll
-    for (int c = 0; c < 4; ++c) lo_acc[b][c] = hi_acc[b][c] = 0.f;
-
-  // the block's two groups: k (rows r) and g_hi (rows r + I/2)
-  float s_lo[4], s_hi[4];
-  const int g_hi = k + half / group;
-#pragma unroll
-  for (int c = 0; c < 4; ++c) {
-    const int col = col0 + c;
-    s_lo[c] = col < out_dim ? gs[(size_t)k * out_dim + col] : 0.f;
-    s_hi[c] = col < out_dim ? gs[(size_t)g_hi * out_dim + col] : 0.f;
-  }
-  // bf16 x: each W element is rn_bf16(q * rn_bf16(s)) before it is
-  // multiplied (the scale cannot be factored out: q * s_bf16 has up to 11
-  // significant bits and rounds); fp32 x: W = q * s, the scale applied once
-  constexpr bool kBf16W = std::is_same<T, __nv_bfloat16>::value;
-  const __nv_bfloat162 sl01 = __floats2bfloat162_rn(s_lo[0], s_lo[1]);
-  const __nv_bfloat162 sl23 = __floats2bfloat162_rn(s_lo[2], s_lo[3]);
-  const __nv_bfloat162 sh01 = __floats2bfloat162_rn(s_hi[0], s_hi[1]);
-  const __nv_bfloat162 sh23 = __floats2bfloat162_rn(s_hi[2], s_hi[3]);
-
-  const bool vec = (out_dim % 4 == 0) && (col0 + 4 <= out_dim);
-  if (col0 < out_dim) {
-    for (int j = slice; j < group; j += GV_SLICES) {
-      uint8_t w[4];
-      load4(p + (size_t)(r0 + j) * out_dim, col0, out_dim, vec, w);
-      float lo[4], hi[4];
-      if constexpr (kBf16W) {
-        const uint32_t v = w[0] | (w[1] << 8) | (w[2] << 16) | ((uint32_t)w[3] << 24);
-        uint32_t lo01, hi01, lo23, hi23;  // bf16 pairs, column c in the low half
-        dequant_pair(__byte_perm(v, 0, 0x4140), sl01, sh01, lo01, hi01);
-        dequant_pair(__byte_perm(v, 0, 0x4342), sl23, sh23, lo23, hi23);
-        lo[0] = __uint_as_float(lo01 << 16); lo[1] = __uint_as_float(lo01 & 0xFFFF0000u);
-        lo[2] = __uint_as_float(lo23 << 16); lo[3] = __uint_as_float(lo23 & 0xFFFF0000u);
-        hi[0] = __uint_as_float(hi01 << 16); hi[1] = __uint_as_float(hi01 & 0xFFFF0000u);
-        hi[2] = __uint_as_float(hi23 << 16); hi[3] = __uint_as_float(hi23 & 0xFFFF0000u);
-      } else {
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          lo[c] = (float)((int)(w[c] & 0xF) - 8);
-          hi[c] = (float)((int)(w[c] >> 4) - 8);
-        }
-      }
-#pragma unroll
-      for (int b = 0; b < GV_MAXB; ++b) {
-        if (b >= batch) break;
-        const float xl = xs[b * 2 * group + j];
-        const float xh = xs[b * 2 * group + group + j];
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          lo_acc[b][c] = fmaf(xl, lo[c], lo_acc[b][c]);
-          hi_acc[b][c] = fmaf(xh, hi[c], hi_acc[b][c]);
-        }
-      }
+    for (int c = 0; c < 4; ++c) {
+      const int col = col0 + 4 * i + c;
+      w[i] |= (uint32_t)(col < out_dim ? row[col] : 0x88) << (8 * c);
     }
   }
-  if constexpr (kBf16W) {
-#pragma unroll
-    for (int c = 0; c < 4; ++c) s_lo[c] = s_hi[c] = 1.f;  // already in W
-  }
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
 
-  // y = s_lo * sum(x * lo) + s_hi * sum(x * hi), per output column
-  if (slice > 0) {
+// The n partial sums at p, p + stride, ..., added in split order; eight
+// loads in flight at a time
+__device__ __forceinline__ float sum_partials(const float* p, size_t stride, int n) {
+  float y = 0.f;
+  for (int k0 = 0; k0 < n; k0 += 8) {
+    float v[8];
 #pragma unroll
-    for (int b = 0; b < GV_MAXB; ++b) {
-      if (b >= batch) break;
+    for (int u = 0; u < 8; ++u) v[u] = k0 + u < n ? __ldcg(p + (k0 + u) * stride) : 0.f;
 #pragma unroll
-      for (int c = 0; c < 4; ++c)
-        red[((slice - 1) * batch + b) * GV_COLS + ct * 4 + c] =
-            s_lo[c] * lo_acc[b][c] + s_hi[c] * hi_acc[b][c];
-    }
+    for (int u = 0; u < 8; ++u)
+      if (k0 + u < n) y += v[u];
   }
-  __syncthreads();
-  if (slice == 0) {
+  return y;
+}
+
+// y[b][c] += x_lo[b] * W[r, c] + x_hi[b] * W[r + I/2, c] over a thread's 16
+// columns. bf16 x: W = rn_bf16(q * rn_bf16(s)) (s_lo/s_hi hold rn_bf16(s)
+// as bf16 pairs, column 2i in the low half); fp32 x: W = q * s in fp32.
+template <typename T, int NB>
+__device__ __forceinline__ void gemv_row(uint4 w4, const float* s_lo,
+                                         const float* s_hi,
+                                         const uint32_t* sb_lo,
+                                         const uint32_t* sb_hi,
+                                         const float* x_lo, const float* x_hi,
+                                         float (&acc)[NB][GV_VEC]) {
+  const uint32_t words[4] = {w4.x, w4.y, w4.z, w4.w};
 #pragma unroll
-    for (int b = 0; b < GV_MAXB; ++b) {
-      if (b >= batch) break;
+  for (int i = 0; i < 4; ++i) {
+    float lo[4], hi[4];
+    if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+      uint32_t lo01, hi01, lo23, hi23;  // bf16 pairs, column c in the low half
+      dequant_pair(__byte_perm(words[i], 0, 0x4140), bits_bf2(sb_lo[2 * i]),
+                   bits_bf2(sb_hi[2 * i]), lo01, hi01);
+      dequant_pair(__byte_perm(words[i], 0, 0x4342), bits_bf2(sb_lo[2 * i + 1]),
+                   bits_bf2(sb_hi[2 * i + 1]), lo23, hi23);
+      lo[0] = __uint_as_float(lo01 << 16); lo[1] = __uint_as_float(lo01 & 0xFFFF0000u);
+      lo[2] = __uint_as_float(lo23 << 16); lo[3] = __uint_as_float(lo23 & 0xFFFF0000u);
+      hi[0] = __uint_as_float(hi01 << 16); hi[1] = __uint_as_float(hi01 & 0xFFFF0000u);
+      hi[2] = __uint_as_float(hi23 << 16); hi[3] = __uint_as_float(hi23 & 0xFFFF0000u);
+    } else {
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
-        const int col = col0 + c;
-        if (col >= out_dim) continue;
-        float y = s_lo[c] * lo_acc[b][c] + s_hi[c] * hi_acc[b][c];
-#pragma unroll
-        for (int s = 0; s < GV_SLICES - 1; ++s)
-          y += red[(s * batch + b) * GV_COLS + ct * 4 + c];
-        part[((size_t)k * batch + b) * out_dim + col] = y;
+        const uint32_t byte = (words[i] >> (8 * c)) & 0xFF;
+        lo[c] = (float)((int)(byte & 0xF) - 8) * s_lo[4 * i + c];
+        hi[c] = (float)((int)(byte >> 4) - 8) * s_hi[4 * i + c];
       }
     }
+#pragma unroll
+    for (int b = 0; b < NB; ++b)
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        acc[b][4 * i + c] = fmaf(x_hi[b], hi[c], fmaf(x_lo[b], lo[c], acc[b][4 * i + c]));
   }
 }
 
-template <typename T>
-__global__ void int4_reduce_kernel(const float* __restrict__ part,
-                                   T* __restrict__ out, int n_split, int n) {
-  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= n) return;
-  float y = 0.f;
-  for (int k = 0; k < n_split; ++k) y += part[(size_t)k * n + idx];
-  fs::store(out + idx, y);
+// The 16 scales of a thread's columns in group `grp`: fp32 (fp32 x) and
+// rn_bf16 pairs (bf16 x).
+__device__ __forceinline__ void gemv_scales(const float* gs, int grp, int col0,
+                                            int out_dim, float* s,
+                                            uint32_t* sb) {
+#pragma unroll
+  for (int c = 0; c < GV_VEC; ++c) {
+    const int col = col0 + c;
+    s[c] = col < out_dim ? gs[(size_t)grp * out_dim + col] : 0.f;
+  }
+#pragma unroll
+  for (int i = 0; i < GV_VEC / 2; ++i)
+    sb[i] = bf2_bits(__floats2bfloat162_rn(s[2 * i], s[2 * i + 1]));
+}
+
+// grid (ceil(O / GV_COLS), n_split); split k owns packed rows
+// [k * rows, (k + 1) * rows), rows = groups_per_split * g. Dynamic shared
+// memory: x [NB][2][GV_CHUNK], scales [2][GV_COLS], partials
+// [GV_THREADS / 32][NB][GV_COLS], all fp32.
+template <typename T, int NB>
+__global__ void __launch_bounds__(GV_THREADS, NB <= 4 ? 2 : 1)
+    int4_gemv_kernel(const T* __restrict__ x, const uint8_t* __restrict__ p,
+                     const float* __restrict__ gs, T* __restrict__ out,
+                     float* __restrict__ work, int* __restrict__ counters,
+                     int in_dim, int out_dim, int group, int rows, bool pvec) {
+  extern __shared__ __align__(16) float smem[];
+  float* xs = smem;                          // [NB][2][GV_CHUNK]
+  float* ss = xs + NB * 2 * GV_CHUNK;        // [2][GV_COLS]
+  float* red = ss + 2 * GV_COLS;             // [warps][NB][GV_COLS]
+  __shared__ int last_s;
+  const int half = in_dim / 2;
+  const int ks = blockIdx.y, n_split = gridDim.y;
+  const int r0 = ks * rows, r1 = r0 + rows;
+  const int ct = threadIdx.x % GV_CT, slice = threadIdx.x / GV_CT;
+  const int tile0 = blockIdx.x * GV_COLS;
+  const int col0 = tile0 + ct * GV_VEC;
+  // every chunk lies in one group: its scales are staged once
+  const bool one_group = group % GV_CHUNK == 0;
+
+  float acc[NB][GV_VEC];
+#pragma unroll
+  for (int b = 0; b < NB; ++b)
+#pragma unroll
+    for (int c = 0; c < GV_VEC; ++c) acc[b][c] = 0.f;
+
+  for (int c0 = r0; c0 < r1; c0 += GV_CHUNK) {
+    const int n = min(GV_CHUNK, r1 - c0);
+    uint4 w[GV_U];  // the loads go out before the staging below
+#pragma unroll
+    for (int u = 0; u < GV_U; ++u) {
+      const int j = slice + u * GV_SLICES;
+      w[u] = j < n ? load16(p + (size_t)(c0 + j) * out_dim, col0, out_dim, pvec)
+                   : make_uint4(0x88888888u, 0x88888888u, 0x88888888u, 0x88888888u);
+    }
+    __syncthreads();  // the previous chunk is done with xs and ss
+    for (int idx = threadIdx.x; idx < NB * 2 * GV_CHUNK; idx += GV_THREADS) {
+      const int b = idx / (2 * GV_CHUNK), h = (idx / GV_CHUNK) & 1;
+      const int j = idx % GV_CHUNK;
+      xs[idx] = j < n ? fs::to_float(x[(size_t)b * in_dim + h * half + c0 + j]) : 0.f;
+    }
+    if (one_group) {
+      const int grp = c0 / group;
+      for (int idx = threadIdx.x; idx < 2 * GV_COLS; idx += GV_THREADS) {
+        const int h = idx / GV_COLS, col = tile0 + idx % GV_COLS;
+        ss[idx] = col < out_dim
+                      ? gs[(size_t)(grp + h * (half / group)) * out_dim + col]
+                      : 0.f;
+      }
+    }
+    __syncthreads();
+    float s_lo[GV_VEC], s_hi[GV_VEC];
+    uint32_t sb_lo[GV_VEC / 2], sb_hi[GV_VEC / 2];
+    if (one_group) {
+#pragma unroll
+      for (int c = 0; c < GV_VEC; ++c) {
+        s_lo[c] = ss[ct * GV_VEC + c];
+        s_hi[c] = ss[GV_COLS + ct * GV_VEC + c];
+      }
+#pragma unroll
+      for (int i = 0; i < GV_VEC / 2; ++i) {
+        sb_lo[i] = bf2_bits(__floats2bfloat162_rn(s_lo[2 * i], s_lo[2 * i + 1]));
+        sb_hi[i] = bf2_bits(__floats2bfloat162_rn(s_hi[2 * i], s_hi[2 * i + 1]));
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < GV_U; ++u) {
+      const int j = slice + u * GV_SLICES;
+      if (j >= n) break;
+      if (!one_group) {  // small or odd groups: the row's own scales
+        const int grp = (c0 + j) / group;
+        gemv_scales(gs, grp, col0, out_dim, s_lo, sb_lo);
+        gemv_scales(gs, grp + half / group, col0, out_dim, s_hi, sb_hi);
+      }
+      float x_lo[NB], x_hi[NB];
+#pragma unroll
+      for (int b = 0; b < NB; ++b) {
+        x_lo[b] = xs[(b * 2) * GV_CHUNK + j];
+        x_hi[b] = xs[(b * 2 + 1) * GV_CHUNK + j];
+      }
+      gemv_row<T, NB>(w[u], s_lo, s_hi, sb_lo, sb_hi, x_lo, x_hi, acc);
+    }
+  }
+
+  // the 16 row slices' sums: two per warp by a shuffle, then the warps' in
+  // order through shared memory (fixed order, deterministic)
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+#pragma unroll
+  for (int b = 0; b < NB; ++b)
+#pragma unroll
+    for (int c = 0; c < GV_VEC; ++c)
+      acc[b][c] += __shfl_xor_sync(fs::kFullMask, acc[b][c], 16);
+  if (lane < 16)
+#pragma unroll
+    for (int b = 0; b < NB; ++b)
+#pragma unroll
+      for (int c = 0; c < GV_VEC; c += 4)
+        *reinterpret_cast<float4*>(red + (warp * NB + b) * GV_COLS + lane * GV_VEC + c) =
+            make_float4(acc[b][c], acc[b][c + 1], acc[b][c + 2], acc[b][c + 3]);
+  __syncthreads();
+  constexpr int kWarps = GV_THREADS / 32;
+  float* part = work + (size_t)ks * NB * out_dim;
+  for (int idx = threadIdx.x; idx < NB * GV_COLS; idx += GV_THREADS) {
+    const int b = idx / GV_COLS, col = tile0 + idx % GV_COLS;
+    if (col >= out_dim) continue;
+    float y = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) y += red[(w * NB + b) * GV_COLS + idx % GV_COLS];
+    if (n_split == 1)
+      fs::store(out + (size_t)b * out_dim + col, y);
+    else
+      part[(size_t)b * out_dim + col] = y;
+  }
+  if (n_split == 1) return;
+  // the last split of this column tile to finish adds the partials, in
+  // split order, and puts the tile's counter back to 0
+  __syncthreads();  // the block's partial is stored: publish it
+  if (threadIdx.x == 0)
+    last_s = fs::atomic_add_acq_rel(counters + blockIdx.x, 1) == n_split - 1;
+  __syncthreads();
+  if (!last_s) return;
+  for (int idx = threadIdx.x; idx < NB * GV_COLS; idx += GV_THREADS) {
+    const int b = idx / GV_COLS, col = tile0 + idx % GV_COLS;
+    if (col >= out_dim) continue;
+    fs::store(out + (size_t)b * out_dim + col,
+              sum_partials(work + (size_t)b * out_dim + col,
+                           (size_t)NB * out_dim, n_split));
+  }
+  if (threadIdx.x == 0) counters[blockIdx.x] = 0;
 }
 
 constexpr int BM = 128, BN = 128, KP = 8;  // tile rows, tile columns, packed rows per step
@@ -641,28 +747,297 @@ int launch(const void* x, const uint8_t* p, const float* gs, void* out,
 
 }  // namespace tc
 
-template <typename T>
+// ---------------------------------------------------------------------------
+// "gemv" route, bf16 x with g % 128 == 0 and O % 16 == 0: the products on
+// the tensor cores (mma.sync m16n8k16, bf16 in, fp32 sums), y^T = W^T x^T.
+// A block owns 256 columns and a run of whole groups of packed rows; its
+// W streams through a ring of MMA_STAGES stages of 64 packed rows in
+// shared memory, each stage two TMA boxes of 64 rows x 128 bytes (the
+// 128-byte swizzle; columns past O read as 0), every stage in flight at
+// once. Warp (wc, wr) takes columns [128 wc, 128 wc + 128) of the block
+// (box wc) and every fourth tile of 8 packed rows. In an mma, lane
+// (g = lane / 4, q = lane % 4) holds the A values of columns c = 16 g + 2 j
+// and c + 1 (m = g and g + 8) at packed rows q and q + 4, each register
+// one byte: its two nibbles are rows r and r + I/2 (the k pair 2q, 2q + 1),
+// dequantized to the bf16 W in bf16x2 arithmetic. B holds x at the same
+// rows, batch row g in column n = g.
+// ---------------------------------------------------------------------------
+
+constexpr int MMA_COLS = 256;          // output columns per block
+constexpr int MMA_STAGE_ROWS = 64;     // packed rows per stage
+constexpr int MMA_STAGES = 1;         // stages in flight (measured: 1 beat 2, 3 and 4)
+constexpr int MMA_MAX_STAGES = 4;     // the most a launch may ask for (measurement)
+constexpr int MMA_MAX_RUN = 1024;      // packed rows of a run (ops/int4.py)
+constexpr int MMA_BOX = MMA_STAGE_ROWS * 128;        // one TMA box, bytes
+constexpr int MMA_STAGE_BYTES = 2 * MMA_BOX;
+
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// smem: ring [MMA_STAGES][2 boxes][64][128] bytes | x pairs [NB][run]
+// uint32 (row r and r + I/2, bf16) | scale pairs [groups of the run][2][128]
+// uint32 (columns c, c + 1, bf16; low groups then high) | sums [4][NB][256]
+// fp32. probe (measurement only): 1 drops the products, 2 the sum of the
+// splits.
+template <int NB>
+__global__ void __launch_bounds__(GV_THREADS)
+    int4_gemv_mma_kernel(const __grid_constant__ CUtensorMap pmap,
+                         const __nv_bfloat16* __restrict__ x,
+                         const float* __restrict__ gs,
+                         __nv_bfloat16* __restrict__ out,
+                         float* __restrict__ work, int* __restrict__ counters,
+                         int in_dim, int out_dim, int group, int rows,
+                         int n_stages, int probe) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t full[MMA_MAX_STAGES];
+  __shared__ int last_s;
+  // the swizzled boxes want 1024-byte aligned stages (1 KB of slack)
+  uint8_t* ring = smem_raw + ((1024 - fs::wg::smem_u32(smem_raw) % 1024) % 1024);
+  uint32_t* xs = reinterpret_cast<uint32_t*>(ring + n_stages * MMA_STAGE_BYTES);
+  uint32_t* ss = xs + NB * rows;
+  const int n_grp = rows / group;
+  float* red = reinterpret_cast<float*>(ss + n_grp * MMA_COLS);
+  const int half = in_dim / 2;
+  const int ks = blockIdx.y, n_split = gridDim.y;
+  const int r0 = ks * rows;
+  const int tile0 = blockIdx.x * MMA_COLS;
+  const int n_sub = rows / MMA_STAGE_ROWS;
+
+  auto load_stage = [&](int slot, int sub) {  // thread 0
+    fs::tma::bar_expect(&full[slot], MMA_STAGE_BYTES);
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      fs::tma::load_2d(ring + slot * MMA_STAGE_BYTES + h * MMA_BOX, &pmap,
+                       &full[slot], tile0 + 128 * h, r0 + sub * MMA_STAGE_ROWS);
+  };
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < n_stages; ++st) fs::tma::bar_init(&full[st]);
+    fs::tma::bar_init_fence();
+    for (int st = 0; st < n_stages; ++st) load_stage(st, st);
+  }
+
+  // x of the run's rows as bf16 pairs (row r, row r + I/2); the scales of
+  // its groups as bf16 pairs of neighbouring columns, rn_bf16(s)
+  for (int idx = threadIdx.x; idx < NB * rows; idx += GV_THREADS) {
+    const int b = idx / rows, r = r0 + idx % rows;
+    const __nv_bfloat16* xb = x + (size_t)b * in_dim;
+    xs[idx] = (uint32_t)__bfloat16_as_ushort(xb[r]) |
+              ((uint32_t)__bfloat16_as_ushort(xb[half + r]) << 16);
+  }
+  for (int idx = threadIdx.x; idx < n_grp * MMA_COLS; idx += GV_THREADS) {
+    const int gi = idx / MMA_COLS, h = (idx / (MMA_COLS / 2)) & 1;
+    const int col = tile0 + 2 * (idx % (MMA_COLS / 2));
+    const float* srow = gs + (size_t)(r0 / group + gi + h * (half / group)) * out_dim;
+    ss[idx] = bf2_bits(__floats2bfloat162_rn(col < out_dim ? srow[col] : 0.f,
+                                             col + 1 < out_dim ? srow[col + 1] : 0.f));
+  }
+  __syncthreads();  // x, the scales and the barriers' init are visible
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int wc = warp & 1, wr = warp >> 1;
+  const int g = lane >> 2, q = lane & 3;
+  const int cw = wc * 128 + 16 * g;  // the lane's first column in the block
+  float acc[8][4];
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+
+  for (int sub = 0; sub < n_sub; ++sub) {
+    const int slot = sub % n_stages;
+    fs::tma::bar_wait(&full[slot], (sub / n_stages) & 1);
+    const uint8_t* box = ring + slot * MMA_STAGE_BYTES + wc * MMA_BOX;
+    // a stage lies in one group (g % 128 == 0): its 16 scale pairs
+    const int gi = sub * MMA_STAGE_ROWS / group;
+    __nv_bfloat162 s_lo[8], s_hi[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      s_lo[j] = bits_bf2(ss[gi * MMA_COLS + cw / 2 + j]);
+      s_hi[j] = bits_bf2(ss[gi * MMA_COLS + MMA_COLS / 2 + cw / 2 + j]);
+    }
+#pragma unroll
+    for (int t = 0; t < MMA_STAGE_ROWS / 8 / 4; ++t) {
+      const int tr = (t * 4 + wr) * 8;  // the tile's first row in the stage
+      // row R's 16-byte chunk g of the box lies at chunk g ^ (R % 8)
+      const uint4 w0 = *reinterpret_cast<const uint4*>(
+          box + (tr + q) * 128 + ((g ^ ((tr + q) & 7)) << 4));
+      const uint4 w1 = *reinterpret_cast<const uint4*>(
+          box + (tr + q + 4) * 128 + ((g ^ ((tr + q + 4) & 7)) << 4));
+      const int xr = sub * MMA_STAGE_ROWS + tr + q;
+      const uint32_t b0 = g < NB ? xs[g * rows + xr] : 0u;
+      const uint32_t b1 = g < NB ? xs[g * rows + xr + 4] : 0u;
+      if (probe & 1) {  // measurement: the loads without the products
+        acc[0][0] += __uint_as_float((w0.x ^ w0.y ^ w0.z ^ w0.w ^ w1.x ^ w1.y ^
+                                      w1.z ^ w1.w ^ b0 ^ b1) & 0x3F800000u);
+        continue;
+      }
+      const uint32_t words0[4] = {w0.x, w0.y, w0.z, w0.w};
+      const uint32_t words1[4] = {w1.x, w1.y, w1.z, w1.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {  // columns 4i .. 4i + 3 of the lane's 16
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {  // column pair j = 2i + h
+          const int j = 2 * i + h;
+          const uint32_t sel = h ? 0x4342u : 0x4140u;
+          uint32_t lo0, hi0, lo1, hi1;  // (W[r, c], W[r, c+1]), (W[r+I/2, ...])
+          dequant_pair(__byte_perm(words0[i], 0, sel), s_lo[j], s_hi[j], lo0, hi0);
+          dequant_pair(__byte_perm(words1[i], 0, sel), s_lo[j], s_hi[j], lo1, hi1);
+          // A: (m = g, k pair q): column c at row q; (g + 8, q): column c + 1;
+          // (g, q + 4) and (g + 8, q + 4): row q + 4
+          const uint32_t a[4] = {__byte_perm(lo0, hi0, 0x5410),
+                                 __byte_perm(lo0, hi0, 0x7632),
+                                 __byte_perm(lo1, hi1, 0x5410),
+                                 __byte_perm(lo1, hi1, 0x7632)};
+          mma_bf16(acc[j], a, b0, b1);
+        }
+      }
+    }
+    __syncthreads();  // the stage is read: refill it
+    if (threadIdx.x == 0 && sub + n_stages < n_sub) load_stage(slot, sub + n_stages);
+  }
+
+  // acc[j]: y[batch 2q][c], y[2q + 1][c], y[2q][c + 1], y[2q + 1][c + 1],
+  // c = cw + 2j. The four row warps meet in shared memory, in order.
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int b = 2 * q + (e & 1), c = cw + 2 * j + (e >> 1);
+      if (b < NB) red[(wr * NB + b) * MMA_COLS + c] = acc[j][e];
+    }
+  __syncthreads();
+  float* part = work + (size_t)ks * NB * out_dim;
+  for (int idx = threadIdx.x; idx < NB * MMA_COLS; idx += GV_THREADS) {
+    const int b = idx / MMA_COLS, col = tile0 + idx % MMA_COLS;
+    if (col >= out_dim) continue;
+    float y = 0.f;
+#pragma unroll
+    for (int w = 0; w < 4; ++w) y += red[(w * NB + b) * MMA_COLS + idx % MMA_COLS];
+    if (n_split == 1)
+      out[(size_t)b * out_dim + col] = __float2bfloat16_rn(y);
+    else
+      part[(size_t)b * out_dim + col] = y;
+  }
+  if (n_split == 1 || (probe & 2)) return;  // probe 2: partials only
+  __syncthreads();  // the block's partial is stored: publish it
+  if (threadIdx.x == 0)
+    last_s = fs::atomic_add_acq_rel(counters + blockIdx.x, 1) == n_split - 1;
+  __syncthreads();
+  if (!last_s) return;
+  for (int idx = threadIdx.x; idx < NB * MMA_COLS; idx += GV_THREADS) {
+    const int b = idx / MMA_COLS, col = tile0 + idx % MMA_COLS;
+    if (col >= out_dim) continue;
+    out[(size_t)b * out_dim + col] = __float2bfloat16_rn(
+        sum_partials(work + (size_t)b * out_dim + col, (size_t)NB * out_dim, n_split));
+  }
+  if (threadIdx.x == 0) counters[blockIdx.x] = 0;
+}
+
+// The TMA map of p, out_dim-byte rows read in boxes of 64 rows x 128
+// bytes; encoded once per (address, shape) and kept (a model's weights
+// are fixed addresses).
+int weight_map(CUtensorMap* map, const uint8_t* p, int in_dim, int out_dim) {
+  struct Entry {
+    const uint8_t* p;
+    int in_dim, out_dim;
+    CUtensorMap map;
+  };
+  static Entry table[1024];
+  Entry& e = table[(reinterpret_cast<uintptr_t>(p) >> 8) % 1024];
+  if (e.p != p || e.in_dim != in_dim || e.out_dim != out_dim) {
+    const int rc = fs::tma::encode_2d(&e.map, CU_TENSOR_MAP_DATA_TYPE_UINT8, p,
+                                      out_dim, in_dim / 2, out_dim, 128,
+                                      MMA_STAGE_ROWS);
+    if (rc != 0) {
+      e.p = nullptr;
+      return rc;
+    }
+    e.p = p;
+    e.in_dim = in_dim;
+    e.out_dim = out_dim;
+  }
+  *map = e.map;
+  return 0;
+}
+
+template <int NB>
+int launch_gemv_mma(const void* x, const uint8_t* p, const float* gs, void* out,
+                    float* work, int* counters, int in_dim, int out_dim,
+                    int group, int n_split, cudaStream_t stream, int probe = 0,
+                    int stages = MMA_STAGES) {
+  const int rows = in_dim / 2 / n_split;
+  const int n_stages = std::min(std::min(stages, MMA_MAX_STAGES), rows / MMA_STAGE_ROWS);
+  const size_t smem = 1024 + (size_t)n_stages * MMA_STAGE_BYTES + 4 * NB * rows +
+                      4 * (rows / group) * MMA_COLS + 16 * NB * MMA_COLS;
+  static bool sized = false;  // one attribute call per instantiation
+  if (!sized) {
+    const int most = 1024 + MMA_MAX_STAGES * MMA_STAGE_BYTES + 4 * NB * MMA_MAX_RUN +
+                     4 * (MMA_MAX_RUN / 128) * MMA_COLS + 16 * NB * MMA_COLS;
+    const cudaError_t e = cudaFuncSetAttribute(
+        int4_gemv_mma_kernel<NB>, cudaFuncAttributeMaxDynamicSharedMemorySize, most);
+    if (e != cudaSuccess) return (int)e;
+    sized = true;
+  }
+  CUtensorMap pmap;
+  const int rc = weight_map(&pmap, p, in_dim, out_dim);
+  if (rc != 0) return rc;
+  dim3 grid((out_dim + MMA_COLS - 1) / MMA_COLS, n_split);
+  int4_gemv_mma_kernel<NB><<<grid, GV_THREADS, smem, stream>>>(
+      pmap, static_cast<const __nv_bfloat16*>(x), gs,
+      static_cast<__nv_bfloat16*>(out), work, counters, in_dim, out_dim, group,
+      rows, n_stages, probe);
+  return (int)cudaGetLastError();
+}
+
+// the tensor-core matvec takes the call: bf16 x, whole 128-row groups, runs
+// of at most MMA_MAX_RUN rows, 16-byte rows of p
+bool gemv_mma_takes(int in_dim, int out_dim, int group, int n_split,
+                    const void* p) {
+  const int rows = in_dim / 2 / n_split;
+  return group % 128 == 0 && rows <= MMA_MAX_RUN && out_dim % 16 == 0 &&
+         reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
+template <typename T, int NB>
 int launch_gemv(const void* x, const uint8_t* p, const float* gs, void* out,
-                float* part, int batch, int in_dim, int out_dim, int group,
-                cudaStream_t stream) {
-  const T* xt = static_cast<const T*>(x);
-  T* ot = static_cast<T*>(out);
-  const int n_split = (in_dim / 2) / group;
-  const size_t smem =
-      sizeof(float) * ((size_t)batch * 2 * group + (GV_SLICES - 1) * batch * GV_COLS);
+                float* work, int* counters, int in_dim, int out_dim, int group,
+                int n_split, cudaStream_t stream) {
+  const size_t smem = sizeof(float) * (NB * 2 * GV_CHUNK + 2 * GV_COLS +
+                                       (GV_THREADS / 32) * NB * GV_COLS);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        int4_gemv_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        int4_gemv_kernel<T, NB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
+  const bool pvec = out_dim % 16 == 0 && reinterpret_cast<uintptr_t>(p) % 16 == 0;
   dim3 grid((out_dim + GV_COLS - 1) / GV_COLS, n_split);
-  int4_gemv_kernel<T><<<grid, GV_THREADS, smem, stream>>>(
-      xt, p, gs, part, batch, in_dim, out_dim, group);
-  const cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  const int n = batch * out_dim;
-  int4_reduce_kernel<T><<<(n + 255) / 256, 256, 0, stream>>>(part, ot, n_split, n);
+  int4_gemv_kernel<T, NB><<<grid, GV_THREADS, smem, stream>>>(
+      static_cast<const T*>(x), p, gs, static_cast<T*>(out), work, counters,
+      in_dim, out_dim, group, in_dim / 2 / n_split, pvec);
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_gemv_rows(int batch, const void* x, const uint8_t* p,
+                     const float* gs, void* out, float* work, int* counters,
+                     int in_dim, int out_dim, int group, int n_split,
+                     cudaStream_t stream) {
+  switch (batch) {
+#define FS_GV(NB)                                                            \
+  case NB:                                                                   \
+    return launch_gemv<T, NB>(x, p, gs, out, work, counters, in_dim, out_dim, \
+                              group, n_split, stream)
+    FS_GV(1); FS_GV(2); FS_GV(3); FS_GV(4); FS_GV(5); FS_GV(6); FS_GV(7); FS_GV(8);
+#undef FS_GV
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 // route codes, as `ops/int4.py:ROUTES`
@@ -671,26 +1046,44 @@ constexpr int kRouteGemv = 0, kRouteWgmma = 1, kRouteFp32Tiled = 2;
 }  // namespace
 
 // x (B, I) in `dtype`; p (I/2, O) uint8; gs (I/g, O) fp32; out (B, O) in
-// `dtype`; part: (I/2g, B, O) fp32 for the "gemv" route, unused otherwise.
+// `dtype`. The "gemv" route splits the I/2 packed rows into n_split equal
+// runs of whole groups (`ops/int4.py:gemv_split`); with n_split > 1 it needs
+// work, n_split * B * O fp32 partials, and counters, ceil(O / 256) int32s,
+// all 0 on entry (the kernel leaves them 0). The other routes take
+// n_split = 1 and ignore work and counters.
 extern "C" int fs_int4_matmul(const void* x, const void* p, const void* gs,
-                              void* out, void* part, int batch, int in_dim,
-                              int out_dim, int group, int dtype, int route,
-                              void* stream) {
+                              void* out, void* work, void* counters, int batch,
+                              int in_dim, int out_dim, int group, int dtype,
+                              int route, int n_split, void* stream) {
   if (batch < 1 || in_dim < 2 || in_dim % 2 || out_dim < 1 || group < 1 ||
-      (in_dim / 2) % group)
+      (in_dim / 2) % group || n_split < 1 || (in_dim / 2) % n_split ||
+      (in_dim / 2 / n_split) % group)
     return (int)cudaErrorInvalidValue;
   const uint8_t* pp = static_cast<const uint8_t*>(p);
   const float* gp = static_cast<const float*>(gs);
-  float* sp = static_cast<float*>(part);
+  float* wk = static_cast<float*>(work);
+  int* cnt = static_cast<int*>(counters);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (route == kRouteGemv && batch <= GV_MAXB) {
+  if (route == kRouteGemv && batch <= GV_MAXB &&
+      (n_split == 1 || (wk != nullptr && cnt != nullptr))) {
+    if (dtype == fs::kBFloat16 && gemv_mma_takes(in_dim, out_dim, group, n_split, p)) {
+      switch (batch) {
+#define FS_GV(NB)                                                              \
+  case NB:                                                                     \
+    return launch_gemv_mma<NB>(x, pp, gp, out, wk, cnt, in_dim, out_dim, group, \
+                               n_split, s)
+        FS_GV(1); FS_GV(2); FS_GV(3); FS_GV(4); FS_GV(5); FS_GV(6); FS_GV(7); FS_GV(8);
+#undef FS_GV
+      }
+    }
     if (dtype == fs::kBFloat16)
-      return launch_gemv<__nv_bfloat16>(x, pp, gp, out, sp, batch, in_dim,
-                                        out_dim, group, s);
+      return launch_gemv_rows<__nv_bfloat16>(batch, x, pp, gp, out, wk, cnt,
+                                             in_dim, out_dim, group, n_split, s);
     if (dtype == fs::kFloat32)
-      return launch_gemv<float>(x, pp, gp, out, sp, batch, in_dim, out_dim,
-                                group, s);
+      return launch_gemv_rows<float>(batch, x, pp, gp, out, wk, cnt, in_dim,
+                                     out_dim, group, n_split, s);
   }
+  if (n_split != 1) return (int)cudaErrorInvalidValue;
   if (route == kRouteWgmma && dtype == fs::kBFloat16)
     return tc::launch(x, pp, gp, out, batch, in_dim, out_dim, group, s);
   if (route == kRouteFp32Tiled && dtype == fs::kFloat32) {
@@ -701,4 +1094,26 @@ extern "C" int fs_int4_matmul(const void* x, const void* p, const void* gs,
     return (int)cudaGetLastError();
   }
   return (int)cudaErrorInvalidValue;
+}
+
+// The tensor-core matvec at B = 1 with parts left out, for measurement
+// (`scripts/decode_int4_bench.py`): probe 1 drops the products (the loads
+// alone), 2 the sum of the splits (the output is then not written); at
+// most `stages` stages of the ring. Same arguments as fs_int4_matmul's
+// bf16 "gemv" route.
+extern "C" int fs_int4_gemv_probe(const void* x, const void* p, const void* gs,
+                                  void* out, void* work, void* counters,
+                                  int in_dim, int out_dim, int group,
+                                  int n_split, int probe, int stages,
+                                  void* stream) {
+  if (in_dim < 2 || in_dim % 2 || n_split < 1 || (in_dim / 2) % n_split ||
+      !gemv_mma_takes(in_dim, out_dim, group, n_split, p) ||
+      (n_split > 1 && (work == nullptr || counters == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  return launch_gemv_mma<1>(x, static_cast<const uint8_t*>(p),
+                            static_cast<const float*>(gs), out,
+                            static_cast<float*>(work), static_cast<int*>(counters),
+                            in_dim, out_dim, group, n_split,
+                            static_cast<cudaStream_t>(stream), probe,
+                            stages < 1 ? 1 : stages);
 }

@@ -103,9 +103,14 @@ def load_kernels() -> ctypes.CDLL:
     ]
     lib.fs_flash_prefill.restype = i32
     lib.fs_flash_decode.argtypes = [
-        ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, f32, ptr
+        ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, i32,
+        f32, ptr
     ]
     lib.fs_flash_decode.restype = i32
+    lib.fs_flash_decode_variant.argtypes = [
+        *lib.fs_flash_decode.argtypes[:-1], i32, i32, i32, ptr
+    ]
+    lib.fs_flash_decode_variant.restype = i32
     lib.fs_flash_train_fwd.argtypes = [
         ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, f32, ptr
     ]
@@ -123,9 +128,11 @@ def load_kernels() -> ctypes.CDLL:
     ]
     lib.fs_flash_decode_kv8.restype = i32
     lib.fs_int4_matmul.argtypes = [
-        ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, ptr
+        ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, i32, ptr
     ]
     lib.fs_int4_matmul.restype = i32
+    lib.fs_int4_gemv_probe.argtypes = [ptr] * 6 + [i32] * 6 + [ptr]
+    lib.fs_int4_gemv_probe.restype = i32
     lib.fs_faststack_probe.argtypes = [
         ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, i32, ptr
     ]
@@ -133,6 +140,37 @@ def load_kernels() -> ctypes.CDLL:
     lib.fs_l2_persistence_reset.argtypes = []
     lib.fs_l2_persistence_reset.restype = i32
     return lib
+
+
+@functools.cache
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of a CUDA device (the split kernels size
+    their grids by it)."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+_SCRATCH: dict = {}
+_RETIRED: list = []
+
+
+def scratch(name: str, device: torch.device, n_floats: int, n_counters: int):
+    """(work, counters): an fp32 workspace and int32 counters of at least
+    these sizes, made once per (name, device) and grown as needed. The
+    counters start at 0 and the kernels that use them leave them at 0, so
+    no call memsets them. A buffer that is outgrown stays allocated, so a
+    CUDA graph that captured it stays valid. The kernels of one `name` share
+    them, so they run on one stream at a time."""
+    key = (name, device)
+    have = _SCRATCH.get(key)
+    if have is None or have[0].numel() < n_floats or have[1].numel() < n_counters:
+        if have is not None:
+            _RETIRED.append(have)
+            n_floats = max(n_floats, have[0].numel())
+            n_counters = max(n_counters, have[1].numel())
+        have = (torch.empty(max(n_floats, 1), dtype=torch.float32, device=device),
+                torch.zeros(max(n_counters, 1), dtype=torch.int32, device=device))
+        _SCRATCH[key] = have
+    return have
 
 
 def check_launch(rc: int, name: str):

@@ -10,6 +10,12 @@ heads of a KV head to Gp >= 8; this one takes any G <= 8 unpadded.
 `flash_decode_reference` is the plain PyTorch version: the wrapper runs it
 for CPU tensors only; for a CUDA tensor it launches the kernel or raises.
 
+The kernel splits each row's positions over Z blocks and merges their
+softmax states in the same launch. `decode_split_count` (Z, from S and the
+SM count) and `decode_slice` (a block's positions, from the row's length)
+state its slice arithmetic; `decode_partial_reference` and
+`merge_decode_states` replay the split in plain PyTorch.
+
 `flash_decode_attention_kv8` is the same attention over the int8 KV cache
 (int8 K/V, bf16 per-(position, head) scales): the JAX package computed it
 with the einsum `gqa_attention_kv8` (no Pallas kernel); here it is a
@@ -23,12 +29,69 @@ import math
 
 import torch
 
-from fish_speech_tpu_torch.ops._kernels import (DTYPE_CODES, check_launch,
-                                                 load_kernels)
+from fish_speech_tpu_torch.ops._kernels import (DTYPE_CODES, check_aligned,
+                                                 check_launch, load_kernels,
+                                                 scratch, sm_count)
 from fish_speech_tpu_torch.ops.attention import NEG_INF, gqa_attention_kv8
 
 MAX_GROUP = 8  # query heads per KV head one kernel block serves
 KV8_CHUNK = 128  # cache positions per block of the int8-KV kernel
+SLICE_ALIGN = 16  # a slice's length is a multiple of this (csrc: SLICE_ALIGN)
+MAX_SPLIT = 64  # most blocks over one (batch row, KV head) (csrc: MAX_SPLIT)
+BLOCKS_PER_SM = 1  # blocks the split aims for at batch 1
+PARTIAL_HEAD = 2 * MAX_GROUP  # floats ahead of a slice's accumulator (csrc: ML)
+
+
+def decode_split_count(s_len: int, n_kv: int, batch: int, n_sm: int) -> int:
+    """Z, the blocks over each (batch row, KV head): about BLOCKS_PER_SM per
+    SM over the grid, at most one per SLICE_ALIGN positions of S and at
+    most MAX_SPLIT. It never reads `lengths`, so every step launches alike."""
+    want = -(-BLOCKS_PER_SM * n_sm // (n_kv * batch))
+    return max(1, min(want, -(-s_len // SLICE_ALIGN), MAX_SPLIT))
+
+
+def decode_slice(z: int, n_split: int, length: int, s_len: int,
+                 balanced: bool = False):
+    """[start, end) of the positions block z of n_split reads in a row of
+    `length`: chunks of ceil(n / Z) rounded up to SLICE_ALIGN, n = S (the
+    kernel's fixed chunk) or the length (`balanced`, kept for measurement:
+    it lost at len 4000 and tied at 2048). Blocks past the length get an
+    empty slice and do nothing."""
+    per_block = -(-(length if balanced else s_len) // n_split)
+    chunk = max(SLICE_ALIGN, -(-per_block // SLICE_ALIGN) * SLICE_ALIGN)
+    start = min(z * chunk, length)
+    return start, min(start + chunk, length)
+
+
+def decode_partial_reference(q, k_all, v_all, layer: int, starts, ends):
+    """The softmax state (m, l, acc) of each row over positions
+    [starts[b], ends[b]) of layer `layer`, in fp32: m (B, Hkv, G) the
+    largest score, l the sum of exp(score - m), acc (B, Hkv, G, D) the
+    exp-weighted sum of V rows; an empty range gives (-inf, 0, 0)."""
+    d = q.shape[-1]
+    k = k_all[layer].float()
+    v = v_all[layer].float()
+    s = torch.einsum("bkgd,bskd->bkgs", q.float(), k) / math.sqrt(d)
+    j = torch.arange(k.shape[1], device=q.device)
+    inside = ((j[None, :] >= torch.as_tensor(starts, device=q.device)[:, None])
+              & (j[None, :] < torch.as_tensor(ends, device=q.device)[:, None]))
+    s = s.masked_fill(~inside[:, None, None, :], -math.inf)
+    m = s.amax(dim=-1)
+    p = torch.exp(s - m.clamp_min(NEG_INF)[..., None])
+    return m, p.sum(dim=-1), torch.einsum("bkgs,bskd->bkgd", p, v)
+
+
+def merge_decode_states(states, dtype):
+    """Merge a row's per-slice states (m, l, acc) in split order, as the
+    kernel's last block does; a row with no position gives 0."""
+    mx = torch.stack([m for m, _, _ in states]).amax(dim=0)
+    tot = torch.zeros_like(mx)
+    out = torch.zeros_like(states[0][2])
+    for m, l, acc in states:
+        f = torch.exp(m - mx.clamp_min(NEG_INF))
+        tot = tot + l * f
+        out = out + acc * f[..., None]
+    return (out / tot.clamp_min(1e-38)[..., None]).to(dtype)
 
 
 def flash_decode_reference(q, k_all, v_all, layer: int, lengths):
@@ -76,25 +139,41 @@ def _check(q, k_all, v_all, layer, lengths):
                     ("lengths", lengths)):
         if not x.is_contiguous():
             raise ValueError(f"flash_decode_attention: {name} must be contiguous")
+    check_aligned("flash_decode_attention", q=q, k_all=k_all, v_all=v_all)
+
+
+def _launch(entry, q, k_all, v_all, layer, lengths, *variant, n_split=None):
+    """Run the kernel through C entry `entry` (`fs_flash_decode`, or
+    `fs_flash_decode_variant` with its fixed-chunk, two-launch and stage
+    arguments) over n_split slices (default `decode_split_count`); returns
+    the output."""
+    b, hkv, g, d = q.shape
+    s_len = k_all.shape[2]
+    z = n_split or decode_split_count(s_len, hkv, b, sm_count(q.device))
+    # per slice: the max and the sum of each head (PARTIAL_HEAD floats), then
+    # the G x D accumulator
+    work, counters = scratch("flash_decode", q.device,
+                             b * hkv * z * (PARTIAL_HEAD + g * d), b * hkv)
+    layer_bytes = k_all.stride(0) * k_all.element_size() * layer
+    out = torch.empty_like(q)
+    rc = entry(q.data_ptr(), k_all.data_ptr() + layer_bytes,
+               v_all.data_ptr() + layer_bytes, lengths.data_ptr(),
+               out.data_ptr(), work.data_ptr(), counters.data_ptr(), b, s_len,
+               hkv, g, d, DTYPE_CODES[q.dtype], z, 1.0 / math.sqrt(d), *variant,
+               torch.cuda.current_stream(q.device).cuda_stream)
+    check_launch(rc, "flash_decode")
+    return out
 
 
 def flash_decode_attention(q, k_all, v_all, layer: int, lengths):
     """Same contract as `flash_decode_reference`; on CUDA tensors runs the
-    hand-written kernel, which reads only the first lengths[b] positions."""
+    hand-written kernel, which reads only the first lengths[b] positions,
+    split over `decode_split_count` blocks per row, in one launch."""
     if q.device.type == "cpu":
         return flash_decode_reference(q, k_all, v_all, layer, lengths)
     _check(q, k_all, v_all, layer, lengths)
-    lib = load_kernels()
-    b, hkv, g, d = q.shape
-    layer_bytes = k_all.stride(0) * k_all.element_size() * layer
-    out = torch.empty_like(q)
-    rc = lib.fs_flash_decode(
-        q.data_ptr(), k_all.data_ptr() + layer_bytes,
-        v_all.data_ptr() + layer_bytes, lengths.data_ptr(), out.data_ptr(),
-        b, k_all.shape[2], hkv, g, d, DTYPE_CODES[q.dtype],
-        1.0 / math.sqrt(d), torch.cuda.current_stream(q.device).cuda_stream,
-    )
-    check_launch(rc, "flash_decode")
+    out = _launch(load_kernels().fs_flash_decode, q, k_all, v_all, layer,
+                  lengths)
     flash_decode_attention.launches += 1
     return out
 

@@ -13,8 +13,11 @@ The kernels are hand-written CUDA for Hopper (`csrc/int4_mm.cu`). The
 wrapper picks one of three routes by x's rows B and dtype (`_route`), an
 explicit dispatch, not a fallback:
 
-  * "gemv", B <= 8: a split-K matrix-vector kernel on the CUDA cores, W
-    dequantized in fp32;
+  * "gemv", B <= 8: a split-K matrix-vector kernel, one launch a product:
+    `gemv_split` cuts the packed rows into runs of whole groups, and the
+    kernel adds the runs' partials in split order itself; bf16 x uses the
+    Pallas kernel's bf16 W (on the tensor cores where the groups are
+    multiples of 128 rows and O of 16), fp32 x the fp32 W (CUDA cores);
   * "wgmma", bf16 x with B > 8 (every prefill): a tensor-core kernel that
     dequantizes W as the Pallas kernel does, rn_bf16(q * rn_bf16(s)), and
     sums in fp32; its plain version is `int4_matmul_bf16w_reference`;
@@ -28,13 +31,57 @@ only; for a CUDA tensor it launches the route's kernel or raises.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from fish_speech_tpu_torch.ops._kernels import (DTYPE_CODES, check_launch,
-                                                 load_kernels)
+                                                 load_kernels, scratch,
+                                                 sm_count)
 
 GEMV_MAX_ROWS = 8  # rows of x up to which the split-K matvec kernel runs
 ROUTES = ("gemv", "wgmma", "fp32_tiled")  # route codes of fs_int4_matmul
+GEMV_COLS = 256  # output columns per block of the matvec kernel
+GEMV_BLOCKS_PER_SM = 2  # blocks the split aims for
+GEMV_MAX_SPLIT = 64  # most runs the packed rows are cut into
+GEMV_MAX_RUN = 1024  # most packed rows of a run, where groups allow
+_ROUTE_CODES = {r: n for n, r in enumerate(ROUTES)}
+
+
+@functools.lru_cache(maxsize=None)
+def gemv_split(i: int, o: int, g: int, n_sm: int) -> int:
+    """How many equal runs of whole groups the matvec kernel cuts the I/2
+    packed rows into: the fewest that still give GEMV_BLOCKS_PER_SM blocks
+    per SM with ceil(O / GEMV_COLS) column tiles, else as many as
+    GEMV_MAX_SPLIT allows (up to one group a run); a run of more than one
+    group keeps within GEMV_MAX_RUN packed rows (the kernel stages a run's
+    x in shared memory)."""
+    n_groups = i // 2 // g
+    tiles = -(-o // GEMV_COLS)
+    sizes = [d for d in range(1, n_groups + 1)  # groups per run
+             if n_groups % d == 0 and n_groups // d <= GEMV_MAX_SPLIT
+             and (d == 1 or d * g <= GEMV_MAX_RUN)]
+    sizes = sizes or [n_groups]
+    fits = [d for d in sizes if tiles * (n_groups // d) >= GEMV_BLOCKS_PER_SM * n_sm]
+    return n_groups // (max(fits) if fits else min(sizes))
+
+
+def gemv_partials_reference(x, p, gs, n_split: int):
+    """The matvec kernel's per-run partial sums in fp32, (n_split, B, O):
+    run k covers packed rows [k * I/(2 n_split), (k + 1) * I/(2 n_split))
+    and both their nibbles, on the W of x's dtype (bf16: the Pallas
+    kernel's; fp32: q * s). Summed in run order they give y."""
+    half = p.shape[-2]
+    rows = half // n_split
+    w = (int4_dequant_bf16(p, gs) if x.dtype == torch.bfloat16 else
+         unpack_int4(p).float() * torch.repeat_interleave(
+             gs.float(), 2 * half // gs.shape[-2], dim=-2)).float()
+    xf = x.float()
+    return torch.stack([
+        xf[:, k * rows:(k + 1) * rows] @ w[k * rows:(k + 1) * rows]
+        + xf[:, half + k * rows:half + (k + 1) * rows]
+        @ w[half + k * rows:half + (k + 1) * rows]
+        for k in range(n_split)])
 
 
 def _group(i: int, n_groups: int) -> int:
@@ -111,12 +158,15 @@ def int4_matmul(x, p, gs):
     route = _route(b, x.dtype)
     lib = load_kernels()
     out = torch.empty((b, o), dtype=x.dtype, device=x.device)
-    part = (torch.empty(((i // 2) // g, b, o), dtype=torch.float32,
-                        device=x.device) if route == "gemv" else out)
+    n_split = gemv_split(i, o, g, sm_count(x.device)) if route == "gemv" else 1
+    work = counters = 0  # NULL: one run, or another route
+    if n_split > 1:
+        w, c = scratch("int4_gemv", x.device, n_split * b * o, -(-o // GEMV_COLS))
+        work, counters = w.data_ptr(), c.data_ptr()
     rc = lib.fs_int4_matmul(
-        x.data_ptr(), p.data_ptr(), gs.data_ptr(), out.data_ptr(),
-        part.data_ptr(), b, i, o, g, DTYPE_CODES[x.dtype], ROUTES.index(route),
-        torch.cuda.current_stream(x.device).cuda_stream,
+        x.data_ptr(), p.data_ptr(), gs.data_ptr(), out.data_ptr(), work,
+        counters, b, i, o, g, DTYPE_CODES[x.dtype], _ROUTE_CODES[route],
+        n_split, torch.cuda.current_stream(x.device).cuda_stream,
     )
     check_launch(rc, f"int4_matmul ({route})")
     int4_matmul.launches += 1

@@ -99,7 +99,8 @@ def main():
     fns = {}
     for name, path in libs.items():
         fn = ctypes.CDLL(str(path)).fs_int4_matmul
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
+                       + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         fns[name] = fn
     b, g = 1024, 128
@@ -109,8 +110,8 @@ def main():
         x = torch.randn(b, i, generator=gen, device=dev).to(torch.bfloat16)
         out = torch.empty(b, o, device=dev, dtype=torch.bfloat16)
         args = (x.data_ptr(), qw["p"].data_ptr(), qw["gs"].data_ptr(),
-                out.data_ptr(), out.data_ptr(), b, i, o, g,
-                DTYPE_CODES[torch.bfloat16], ROUTES.index("wgmma"), stream)
+                out.data_ptr(), None, None, b, i, o, g,
+                DTYPE_CODES[torch.bfloat16], ROUTES.index("wgmma"), 1, stream)
         for name, fn in fns.items():
             if fn(*args) != 0:
                 raise SystemExit(f"{name}: launch failed")

@@ -126,6 +126,96 @@ def test_decode_kernel_matches_plain(dev, dtype, n_layer, b, s, hkv, g, d,
         _assert_close(got, flash_decode_reference(q, k, v, layer, lens), dtype)
 
 
+# S = 4160 at 8 KV heads splits 17 ways on 132 SMs, into slices of 256
+# positions (`decode_split_count`, `decode_slice`); the bf16 kernel reads
+# them in stages of 64 and tiles of 16
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("lengths", [[1], [15], [17], [255], [256], [257],
+                                     [513], [4160], [1, 257, 4160]])
+def test_decode_kernel_on_slice_boundaries(dev, dtype, lengths):
+    rng = np.random.default_rng(sum(lengths))
+    b, s, hkv, g, d = len(lengths), 4160, 8, 4, 128
+    q = _randn(rng, (b, hkv, g, d), dtype, dev)
+    k = _randn(rng, (1, b, s, hkv, d), dtype, dev)
+    v = _randn(rng, (1, b, s, hkv, d), dtype, dev)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    got = flash_decode_attention(q, k, v, 0, lens)
+    torch.cuda.synchronize()
+    _assert_close(got, flash_decode_reference(q, k, v, 0, lens), dtype)
+
+
+def _one_call(fn, counters):
+    """Run fn once after a warm call; returns its output, the launches it
+    added to each counter and the allocations it made."""
+    fn()
+    torch.cuda.synchronize()
+    before = [getattr(f, name) for f, name in counters]
+    allocs = torch.cuda.memory_stats()["allocation.all.allocated"]
+    out = fn()
+    torch.cuda.synchronize()
+    made = torch.cuda.memory_stats()["allocation.all.allocated"] - allocs
+    return out, [getattr(f, name) - n for (f, name), n in zip(counters, before)], made
+
+
+def test_decode_and_matvec_launch_once_and_allocate_only_the_output(dev):
+    rng = np.random.default_rng(3)
+    q = _randn(rng, (1, 8, 4, 128), torch.bfloat16, dev)
+    k = _randn(rng, (2, 1, 4160, 8, 128), torch.bfloat16, dev)
+    lens = torch.tensor([4000], dtype=torch.int32, device=dev)
+    _, launched, made = _one_call(
+        lambda: flash_decode_attention(q, k, k, 1, lens),
+        [(flash_decode_attention, "launches")])
+    assert launched == [1] and made == 1  # the output only
+    w = torch.from_numpy(rng.standard_normal((2560, 19456)).astype(np.float32) * 0.02)
+    qw = {n: t.to(dev) for n, t in quantize_int4(w, group_size=128).items()}
+    x = _randn(rng, (1, 2560), torch.bfloat16, dev)
+    _, launched, made = _one_call(
+        lambda: int4_matmul(x, qw["p"], qw["gs"]),
+        [(int4_matmul, "launches"), (int4_matmul, "launches_gemv")])
+    assert launched == [1, 1] and made == 1
+
+
+@pytest.mark.parametrize("kernel", ["decode", "gemv"])
+def test_split_kernels_are_deterministic_and_graph_capturable(dev, kernel):
+    """Two calls give the same bits; a CUDA graph of the call, replayed
+    after its inputs (lengths, q / x) are changed in place, equals the eager
+    call on the new inputs."""
+    rng = np.random.default_rng(11)
+    if kernel == "decode":
+        q = _randn(rng, (3, 8, 4, 128), torch.bfloat16, dev)
+        k = _randn(rng, (2, 3, 2112, 8, 128), torch.bfloat16, dev)
+        v = _randn(rng, (2, 3, 2112, 8, 128), torch.bfloat16, dev)
+        lens = torch.tensor([2048, 1, 700], dtype=torch.int32, device=dev)
+
+        def call():
+            return flash_decode_attention(q, k, v, 1, lens)
+
+        def change():
+            lens.copy_(torch.tensor([5, 2112, 1057], dtype=torch.int32))
+            q.copy_(_randn(rng, q.shape, q.dtype, dev))
+    else:
+        w = torch.from_numpy(rng.standard_normal((9728, 2560)).astype(np.float32) * 0.02)
+        qw = {n: t.to(dev) for n, t in quantize_int4(w, group_size=128).items()}
+        x = _randn(rng, (1, 9728), torch.bfloat16, dev)
+
+        def call():
+            return int4_matmul(x, qw["p"], qw["gs"])
+
+        def change():
+            x.copy_(_randn(rng, x.shape, x.dtype, dev))
+    first, second = call(), call()
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = call()
+    change()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(captured, call())
+    assert not torch.equal(captured, first)
+
+
 def _train_inputs(rng, b, t, h, hkv, d, pads, dtype, dev):
     q = _randn(rng, (b, t, h, d), dtype, dev)
     k = _randn(rng, (b, t, hkv, d), dtype, dev)

@@ -69,15 +69,19 @@ def test_the_pallas_weight_is_not_the_fp32_weight_rounded():
     assert 0.0 < differ.mean().item() < 0.5
 
 
-@pytest.mark.parametrize("b", [9, 130, 300])
+@pytest.mark.parametrize("b", [1, 8, 9, 130, 300])
 def test_bf16w_reference_matches_the_pallas_kernel(b):
     i, o, g = 256, 136, 64
     p, gs = _packed(i, o, g, seed=b)
     x = np.random.default_rng(b + 1).standard_normal((b, i)).astype(np.float32)
     xb = torch.from_numpy(x).to(torch.bfloat16)
-    kern = _bf16_np(j_int4_matmul(jnp.asarray(x, dtype=jnp.bfloat16),
+    # B = 1 runs as the first of two rows on the JAX side: on the CPU, XLA
+    # rewrites a one-row dot into a multiply in bf16 and a sum, which rounds
+    # every product (the TPU's matrix unit sums exact products in fp32)
+    xj = np.concatenate([x, np.zeros_like(x)]) if b == 1 else x
+    kern = _bf16_np(j_int4_matmul(jnp.asarray(xj, dtype=jnp.bfloat16),
                                   jnp.asarray(p), jnp.asarray(gs),
-                                  interpret=True))
+                                  interpret=True))[:b]
     got = int4_matmul_bf16w_reference(xb, torch.from_numpy(p),
                                       torch.from_numpy(gs))
     assert got.dtype == torch.bfloat16 and got.shape == (b, o)
