@@ -966,10 +966,10 @@ def fast_stack_frame_ms(session, frames=20):
     return _time_ms(frame, frames)
 
 
-# the serving fast stack per frame in PR 7's three runs of this script
-# (NVIDIA H100 80GB HBM3, 700.00 W), before the one-launch int4 matvec
-PR7_FAST_STACK_MS = {"mixed": "159.234 / 172.634 / 174.479",
-                     "int4": "161.277 / 155.006 / 261.142"}
+# the serving fast stack per frame in three earlier runs of this script
+# with the two-launch int4 matvec (NVIDIA H100 80GB HBM3, 700.00 W)
+TWO_LAUNCH_FAST_STACK_MS = {"mixed": "159.234 / 172.634 / 174.479",
+                            "int4": "161.277 / 155.006 / 261.142"}
 
 
 def run_quant_slice(dev, tokenizer):
@@ -1029,8 +1029,8 @@ def run_quant_slice(dev, tokenizer):
         fast_ms = fast_stack_frame_ms(session)
         print(f"{label}: kernel launches {launches}; peak device memory "
               f"{peak:.2f} GiB; serving fast stack {fast_ms:.3f} ms/frame "
-              f"(_sample_column, CUDA events; PR 7's runs: "
-              f"{PR7_FAST_STACK_MS[label]} ms/frame)")
+              f"(_sample_column, CUDA events; with the two-launch matvec: "
+              f"{TWO_LAUNCH_FAST_STACK_MS[label]} ms/frame)")
         # `mixed` keeps its slow stack int8, so only `int4` prefills in int4
         required = ["int4_mm", "flash_prefill", *wrappers] + (
             ["int4_mm_wgmma"] if label == "int4" else [])

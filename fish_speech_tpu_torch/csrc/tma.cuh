@@ -1,9 +1,10 @@
-// Tensor Memory Accelerator (TMA) loads of 2D tiles into shared memory, for
-// the split matvec and decode kernels (int4_mm.cu, flash_decode.cu).
+// Tensor Memory Accelerator (TMA) loads of 2D and 3D tiles into shared memory,
+// for the split matvec and decode kernels (int4_mm.cu, flash_decode.cu).
 //
-// The host encodes a tensor map (`encode_2d`, through the driver's
-// cuTensorMapEncodeTiled, looked up once) and passes it by value as a
-// __grid_constant__ kernel parameter, so a captured CUDA graph replays it.
+// The host encodes a tensor map (`encode`, `encode_2d`: through
+// cuTensorMapEncodeTiled, looked up once at run time) and passes it by
+// value as a __grid_constant__ kernel parameter, so a captured CUDA graph
+// replays it.
 // In the kernel one thread arms an mbarrier with the bytes to expect and
 // issues the copy; the copy's completion flips the barrier's phase, which
 // the consumers wait on. With the 128-byte swizzle a box row is 128 bytes
