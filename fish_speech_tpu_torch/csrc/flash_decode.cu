@@ -628,8 +628,8 @@ int cache_map(CUtensorMap* map, const void* base, int batch, int s_len,
     int batch, s_len, n_kv;
     CUtensorMap map;
   };
-  static Entry table[512];
-  Entry& e = table[(reinterpret_cast<uintptr_t>(base) >> 8) % 512];
+  static Entry table[1 << 9];
+  Entry& e = table[fs::tma::table_slot(base, 9)];
   if (e.base != base || e.batch != batch || e.s_len != s_len || e.n_kv != n_kv) {
     constexpr int SP = stage_positions<__nv_bfloat16, D>();
     const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)n_kv,

@@ -948,8 +948,8 @@ int weight_map(CUtensorMap* map, const uint8_t* p, int in_dim, int out_dim) {
     int in_dim, out_dim;
     CUtensorMap map;
   };
-  static Entry table[1024];
-  Entry& e = table[(reinterpret_cast<uintptr_t>(p) >> 8) % 1024];
+  static Entry table[1 << 10];
+  Entry& e = table[fs::tma::table_slot(p, 10)];
   if (e.p != p || e.in_dim != in_dim || e.out_dim != out_dim) {
     const int rc = fs::tma::encode_2d(&e.map, CU_TENSOR_MAP_DATA_TYPE_UINT8, p,
                                       out_dim, in_dim / 2, out_dim, 128,

@@ -61,6 +61,15 @@ inline int encode_2d(CUtensorMap* map, CUtensorMapDataType type,
   return encode(map, type, 2, base, dims, strides, box);
 }
 
+// Slot of an address in a table of 2^bits cached maps: every bit of the
+// address mixed in, since tensors often start on 2 MB boundaries
+inline int table_slot(const void* p, int bits) {
+  uint64_t h = reinterpret_cast<uintptr_t>(p);
+  h ^= h >> 29;
+  h *= 0x9E3779B97F4A7C15ull;
+  return (int)(h >> (64 - bits));
+}
+
 __device__ __forceinline__ void bar_init(uint64_t* bar) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n"
                :: "r"(wg::smem_u32(bar)) : "memory");
