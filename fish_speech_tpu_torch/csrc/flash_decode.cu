@@ -26,18 +26,18 @@
 // cores (`decode_mma_kernel`): one thread asks the TMA for each stage's
 // boxes (64 dims x 64 positions, 128-byte swizzle) against an mbarrier,
 // and each warp takes tiles of 16 positions, S^T = Q K^T and O += P V by
-// mma.sync with one max and one rescale per tile. fp32 runs on the CUDA
-// cores (`decode_kernel`): 16-byte cp.async into XOR-swizzled stages,
-// 16-byte pieces per lane, a shuffle sum per score, one max and one
-// rescale per warp and stage. The warps' states merge through shared
-// memory. A lone active slice writes `out` itself; otherwise each block
-// writes its (m, l, acc) partial to a workspace and, after a barrier, one
-// thread bumps a per-(b, hk) counter with a release-acquire atomic; the
-// block that arrives last merges the partials in split order
-// (deterministic; no atomics on data), writes `out` and puts the counter
-// back to 0. The workspace and counters are allocated once per device by
-// the wrapper, so a call allocates and memsets nothing and launches one
-// kernel.
+// mma.sync with one max and one rescale per tile (P as two bf16 terms).
+// fp32 runs on the CUDA cores (`decode_kernel`): 16-byte cp.async into
+// XOR-swizzled stages, 16-byte pieces per lane, a shuffle sum per score,
+// one max and one rescale per warp and stage. The warps' states merge
+// through shared memory. A lone active slice writes `out` itself;
+// otherwise each block writes its (m, l, acc) partial to a workspace and,
+// after a barrier, one thread bumps a per-(b, hk) counter with a
+// release-acquire atomic; the block that arrives last merges the partials
+// in split order (deterministic; no atomics on data), writes `out` and
+// puts the counter back to 0. The workspace and counters are allocated
+// once per device by the wrapper, so a call allocates and memsets nothing
+// and launches one kernel.
 //
 // The int8-KV variant (fs_flash_decode_kv8) serves the slow stack under the
 // int8 KV cache, where the JAX package ran the einsum of
@@ -67,17 +67,16 @@ constexpr int SLICE_ALIGN = 16;   // slice lengths are multiples of this
 constexpr int MAX_SPLIT = 64;     // most blocks over one (b, hk) row
 constexpr int STAGE_BYTES = 32768;  // K and V rows of one stage of the ring
 constexpr int STAGES = 3;         // stages of the ring: two blocks fit an SM
-constexpr int MAX_STAGES = 4;     // the most a launch may ask for (measurement)
 constexpr int ML = 2 * MAXG;      // a partial's (m, l) ahead of its acc
-constexpr int FIXED_CHUNK = 1;    // slices cut from S, not the row's length (measured)
 constexpr int CW = 8;             // warps per block, CUDA-core (fp32) kernel
 constexpr int TW = 4;             // warps per block, tensor-core (bf16) kernel
 
-// Positions per slice of `n` split Z ways: ceil(n / Z) rounded up to
-// SLICE_ALIGN (`ops/flash_decode.py:decode_slice`). n is the row's length
-// (balanced, the kernel's choice) or S (a fixed chunk, for measurement).
-__host__ __device__ __forceinline__ int slice_chunk(int n, int n_split) {
-  const int c = (n + n_split - 1) / n_split;
+// Positions per slice of a cache of S positions split Z ways: ceil(S / Z)
+// rounded up to SLICE_ALIGN (`ops/flash_decode.py:decode_slice`). The
+// chunk comes from S, not from the row's length: a chunk cut from the
+// length measured slower at len 4000 and no faster at 2048 (PERF.md).
+__host__ __device__ __forceinline__ int slice_chunk(int s_len, int n_split) {
+  const int c = (s_len + n_split - 1) / n_split;
   const int a = (c + SLICE_ALIGN - 1) / SLICE_ALIGN * SLICE_ALIGN;
   return a > SLICE_ALIGN ? a : SLICE_ALIGN;
 }
@@ -86,6 +85,14 @@ __host__ __device__ __forceinline__ int slice_chunk(int n, int n_split) {
 template <typename T, int D>
 __host__ __device__ constexpr int stage_positions() {
   return STAGE_BYTES / (2 * D * (int)sizeof(T));
+}
+
+// stages of the ring: STAGES, or fewer where a slice has fewer
+template <typename T, int D>
+__host__ __device__ __forceinline__ int ring_stages(int s_len, int n_split) {
+  constexpr int SP = stage_positions<T, D>();
+  const int subs = (slice_chunk(s_len, n_split) + SP - 1) / SP;
+  return subs < STAGES ? subs : STAGES;
 }
 
 // element offset of the 16-byte piece c of row j of a stage: the pieces of
@@ -189,8 +196,7 @@ __device__ __forceinline__ void wait_stage(int n_stages) {
 // empty row) when the block has nothing to do.
 template <typename T, int D>
 __device__ __forceinline__ bool block_slice(const int* lengths, T* out_bh,
-                                            int s_len, int n_group,
-                                            int fixed_chunk, int& start,
+                                            int s_len, int n_group, int& start,
                                             int& end, int& n_active) {
   const int z = blockIdx.z, n_split = gridDim.z;
   const int len = min(max(lengths[blockIdx.y], 0), s_len);
@@ -200,7 +206,7 @@ __device__ __forceinline__ bool block_slice(const int* lengths, T* out_bh,
         fs::store(out_bh + idx, 0.f);
     return false;
   }
-  const int chunk = slice_chunk(fixed_chunk ? s_len : len, n_split);
+  const int chunk = slice_chunk(s_len, n_split);
   n_active = (len + chunk - 1) / chunk;
   if (z >= n_active) return false;
   start = z * chunk;
@@ -209,18 +215,16 @@ __device__ __forceinline__ bool block_slice(const int* lengths, T* out_bh,
 }
 
 // The block's warps have left their (m, l, acc) in sm_m [W][NG], sm_l
-// [W][NG] and sm_acc [W][NG][D] (m = -inf for a warp that saw no position). Merges them; a lone active
-// slice writes `out`, otherwise the block writes its partial and the last
-// block of the row merges (merge = 1), or leaves that to a second kernel
-// (0) or to nobody (-1, for measurement).
+// [W][NG] and sm_acc [W][NG][D] (m = -inf for a warp that saw no
+// position). Merges them; a lone active slice writes `out`, otherwise the
+// block writes its partial and the last block of the row merges.
 template <typename T, int D, int W, int NG>
 __device__ void block_finish(const float* sm_m, const float* sm_l,
                              const float* sm_acc, T* out_bh, float* part,
-                             int* counter, int n_group, int n_active,
-                             int merge) {
+                             int* counter, int n_group, int n_active) {
   __shared__ int last_s;
   const int z = blockIdx.z;
-  const bool direct = merge == 1 && n_active == 1;
+  const bool direct = n_active == 1;
   const int stride = ML + n_group * D;
   float* st = part + (size_t)z * stride;
   for (int idx = threadIdx.x; idx < n_group * D; idx += blockDim.x) {
@@ -247,7 +251,7 @@ __device__ void block_finish(const float* sm_m, const float* sm_l,
       }
     }
   }
-  if (direct || merge != 1) return;
+  if (direct) return;
   __syncthreads();  // the block's partial is stored: publish it
   if (threadIdx.x == 0)
     last_s = fs::atomic_add_acq_rel(counter, 1) == n_active - 1;
@@ -269,7 +273,7 @@ __global__ void __launch_bounds__(CW * 32)
                   const T* __restrict__ v, const int* __restrict__ lengths,
                   T* __restrict__ out, float* __restrict__ work,
                   int* __restrict__ counters, int s_len, int n_kv, int n_group,
-                  float scale_log2, int fixed_chunk, int merge, int n_stages) {
+                  float scale_log2) {
   constexpr int VEC = 16 / sizeof(T);  // elements per 16-byte load
   constexpr int LPR = D / VEC;         // lanes per K/V row
   constexpr int RPW = 32 / LPR;        // rows per warp load
@@ -285,9 +289,9 @@ __global__ void __launch_bounds__(CW * 32)
   const size_t bh = (size_t)b * n_kv + hk;
   T* out_bh = out + bh * n_group * D;
   int start, end, n_active;
-  if (!block_slice<T, D>(lengths, out_bh, s_len, n_group, fixed_chunk, start,
-                         end, n_active))
+  if (!block_slice<T, D>(lengths, out_bh, s_len, n_group, start, end, n_active))
     return;
+  const int n_stages = ring_stages<T, D>(s_len, gridDim.z);
   const int n_sub = (end - start + SP - 1) / SP;
   const size_t row_stride = (size_t)n_kv * D;  // elements between positions
   const T* kb = k + ((size_t)b * s_len * n_kv + hk) * D;
@@ -399,17 +403,19 @@ __global__ void __launch_bounds__(CW * 32)
   __syncthreads();
   block_finish<T, D, CW, NG>(sm_m, sm_l, sm_acc, out_bh,
                              work + bh * gridDim.z * (ML + n_group * D),
-                             counters + bh, n_group, n_active, merge);
+                             counters + bh, n_group, n_active);
 }
 
 // ---------------------------------------------------------------------------
 // bf16: tensor cores (mma.sync m16n8k16, fp32 sums). A warp takes tiles of
 // 16 positions: S^T = Q K^T with the G heads on M (rows past G are zero),
 // the positions on N and D on K; one max and one rescale per tile; then
-// O += P V with P (rounded to bf16, as the tensor-core attention forwards
-// round it) as the A operand straight from S's registers and V read
-// transposed by ldmatrix. K and V rows come from the ring in `swz` order,
-// so ldmatrix reads eight rows without bank conflicts.
+// O += P V with P as the A operand straight from S's registers and V read
+// transposed by ldmatrix. The TPU kernel keeps p in fp32; here p is split
+// into two bf16 terms, hi = rn_bf16(p) and lo = rn_bf16(p - hi), and each
+// takes one mma, so P keeps 16 significant bits (|p - hi - lo| <= 2^-17 p)
+// where one bf16 term would keep 8. K and V rows come from the ring in
+// `tswz` order, so ldmatrix reads eight rows without bank conflicts.
 // ---------------------------------------------------------------------------
 __device__ __forceinline__ void mma_bf16(float (&d)[4], uint32_t a0, uint32_t a1,
                                          uint32_t a2, uint32_t a3, uint32_t b0,
@@ -448,14 +454,13 @@ __global__ void __launch_bounds__(TW * 32)
                       const int* __restrict__ lengths,
                       __nv_bfloat16* __restrict__ out, float* __restrict__ work,
                       int* __restrict__ counters, int s_len, int n_kv,
-                      int n_group, float scale_log2, int fixed_chunk, int merge,
-                      int n_stages) {
+                      int n_group, float scale_log2) {
   using T = __nv_bfloat16;
   constexpr int SP = stage_positions<T, D>();
   constexpr int KS = D / 16;  // k steps of S, n tiles of O
   constexpr int NBOX = D / 64, BOX = SP * 64;  // boxes per K (or V) stage
   extern __shared__ __align__(1024) unsigned char ring_raw[];
-  __shared__ __align__(8) uint64_t full[MAX_STAGES];
+  __shared__ __align__(8) uint64_t full[STAGES];
   // the swizzled boxes want 1024-byte aligned stages (1 KB of slack)
   T* ring = reinterpret_cast<T*>(
       ring_raw + ((1024 - fs::wg::smem_u32(ring_raw) % 1024) % 1024));
@@ -465,9 +470,9 @@ __global__ void __launch_bounds__(TW * 32)
   const size_t bh = (size_t)b * n_kv + hk;
   T* out_bh = out + bh * n_group * D;
   int start, end, n_active;
-  if (!block_slice<T, D>(lengths, out_bh, s_len, n_group, fixed_chunk, start,
-                         end, n_active))
+  if (!block_slice<T, D>(lengths, out_bh, s_len, n_group, start, end, n_active))
     return;
+  const int n_stages = ring_stages<T, D>(s_len, gridDim.z);
   const int n_sub = (end - start + SP - 1) / SP;
   auto issue = [&](int slot, int sub) {  // thread 0: K and V boxes of a stage
     T* st = ring + slot * 2 * SP * D;
@@ -545,13 +550,18 @@ __global__ void __launch_bounds__(TW * 32)
         acc[n][0] *= a;
         acc[n][1] *= a;
       }
-      uint32_t pa[2];  // P as the A operand: positions 2qd.. and 8 + 2qd..
+      // P as the A operand (positions 2qd.. and 8 + 2qd..), the fp32 p
+      // carried as hi + lo, two bf16 terms (16 significant bits)
+      uint32_t phi[2], plo[2];
 #pragma unroll
       for (int n = 0; n < 2; ++n) {
         const float p0 = exp2f(s[n][0] - m_new), p1 = exp2f(s[n][1] - m_new);
         l += p0 + p1;
-        const __nv_bfloat162 h = __floats2bfloat162_rn(p0, p1);
-        pa[n] = *reinterpret_cast<const uint32_t*>(&h);
+        const __nv_bfloat162 hi = __floats2bfloat162_rn(p0, p1);
+        const __nv_bfloat162 lo = __floats2bfloat162_rn(
+            p0 - __low2float(hi), p1 - __high2float(hi));
+        phi[n] = *reinterpret_cast<const uint32_t*>(&hi);
+        plo[n] = *reinterpret_cast<const uint32_t*>(&lo);
       }
       // V rows past the slice may hold anything (even NaN): their B values
       // are zeroed, as 0 * NaN would not be 0. mv[h]: positions
@@ -570,8 +580,10 @@ __global__ void __launch_bounds__(TW * 32)
         const int j = t * 16 + (mi & 1) * 8 + mr;
         ldsm4_t(vf, vs + tswz<SP>(j, 2 * pp + (mi >> 1)));
         vf[0] &= mv[0]; vf[1] &= mv[1]; vf[2] &= mv[0]; vf[3] &= mv[1];
-        mma_bf16(acc[2 * pp], pa[0], 0u, pa[1], 0u, vf[0], vf[1]);
-        mma_bf16(acc[2 * pp + 1], pa[0], 0u, pa[1], 0u, vf[2], vf[3]);
+        mma_bf16(acc[2 * pp], phi[0], 0u, phi[1], 0u, vf[0], vf[1]);
+        mma_bf16(acc[2 * pp + 1], phi[0], 0u, phi[1], 0u, vf[2], vf[3]);
+        mma_bf16(acc[2 * pp], plo[0], 0u, plo[1], 0u, vf[0], vf[1]);
+        mma_bf16(acc[2 * pp + 1], plo[0], 0u, plo[1], 0u, vf[2], vf[3]);
       }
     }
     __syncthreads();  // the stage is read: refill it
@@ -596,96 +608,53 @@ __global__ void __launch_bounds__(TW * 32)
   __syncthreads();
   block_finish<T, D, TW, MAXG>(sm_m, sm_l, sm_acc, out_bh,
                                work + bh * gridDim.z * (ML + n_group * D),
-                               counters + bh, n_group, n_active, merge);
-}
-
-// The two-launch variant's second kernel: one block per (KV head, batch row)
-template <typename T, int D>
-__global__ void decode_merge_split_kernel(const float* __restrict__ work,
-                                          const int* __restrict__ lengths,
-                                          T* __restrict__ out, int s_len,
-                                          int n_kv, int n_group, int n_split,
-                                          int fixed_chunk) {
-  const int hk = blockIdx.x, b = blockIdx.y;
-  const int len = min(max(lengths[b], 0), s_len);
-  if (len == 0) return;
-  const int chunk = slice_chunk(fixed_chunk ? s_len : len, n_split);
-  const size_t bh = (size_t)b * n_kv + hk;
-  merge_partials<T, D>(work + bh * n_split * (ML + n_group * D),
-                       (len + chunk - 1) / chunk, n_group,
-                       out + bh * n_group * D);
+                               counters + bh, n_group, n_active);
 }
 
 // The TMA map of one layer of the cache, (B, S, Hkv, D) bf16 read as
-// D x Hkv x (B * S) in boxes of 64 dims x 1 head x SP positions; encoded
-// once per (address, shape) and kept (a session's layers are fixed
-// addresses).
+// D x Hkv x (B * S) in boxes of 64 dims x 1 head x SP positions (encoded
+// once and kept by `fs::tma::encode`).
 template <int D>
 int cache_map(CUtensorMap* map, const void* base, int batch, int s_len,
               int n_kv) {
-  struct Entry {
-    const void* base;
-    int batch, s_len, n_kv;
-    CUtensorMap map;
-  };
-  static Entry table[1 << 9];
-  Entry& e = table[fs::tma::table_slot(base, 9)];
-  if (e.base != base || e.batch != batch || e.s_len != s_len || e.n_kv != n_kv) {
-    constexpr int SP = stage_positions<__nv_bfloat16, D>();
-    const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)n_kv,
-                                (cuuint64_t)batch * s_len};
-    const cuuint64_t strides[2] = {(cuuint64_t)D * 2, (cuuint64_t)n_kv * D * 2};
-    const cuuint32_t box[3] = {64, 1, SP};
-    const int rc = fs::tma::encode(&e.map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
-                                   base, dims, strides, box);
-    if (rc != 0) {
-      e.base = nullptr;
-      return rc;
-    }
-    e.base = base;
-    e.batch = batch;
-    e.s_len = s_len;
-    e.n_kv = n_kv;
-  }
-  *map = e.map;
-  return 0;
+  constexpr int SP = stage_positions<__nv_bfloat16, D>();
+  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)n_kv,
+                              (cuuint64_t)batch * s_len};
+  const cuuint64_t strides[2] = {(cuuint64_t)D * 2, (cuuint64_t)n_kv * D * 2};
+  const cuuint32_t box[3] = {64, 1, SP};
+  return fs::tma::encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, base, dims,
+                         strides, box);
 }
 
-// merge: 1 in the kernel, 0 in a second kernel, -1 not at all
 template <typename T, int D>
 int launch_decode(const void* q, const void* k, const void* v,
                   const int* lengths, void* out, float* work, int* counters,
                   int batch, int s_len, int n_kv, int n_group, int n_split,
-                  float scale, int fixed_chunk, int merge, int stages,
-                  cudaStream_t stream) {
+                  float scale, cudaStream_t stream) {
   constexpr float kLog2e = 1.4426950408889634f;
-  constexpr int SP = stage_positions<T, D>();
   constexpr bool kTensorCores = std::is_same<T, __nv_bfloat16>::value;
-  // enough stages for the longest slice S allows, at most MAX_STAGES
-  const int subs = (slice_chunk(s_len, n_split) + SP - 1) / SP;
-  const int n_stages = std::min(subs, std::min(stages, MAX_STAGES));
   // the ring, or the warps' states that take its place at the end
   const int warps = kTensorCores ? TW : CW, ng = kTensorCores || n_group > 4 ? MAXG : 4;
-  const size_t smem = 1024 + std::max((size_t)n_stages * STAGE_BYTES,
-                                      sizeof(float) * warps * ng * (2 + D));
+  const size_t smem =
+      1024 + std::max((size_t)ring_stages<T, D>(s_len, n_split) * STAGE_BYTES,
+                      sizeof(float) * warps * ng * (2 + D));
   dim3 grid(n_kv, batch, n_split);
   const T* qt = static_cast<const T*>(q);
   const T* kt = static_cast<const T*>(k);
   const T* vt = static_cast<const T*>(v);
   T* ot = static_cast<T*>(out);
-  // one attribute call per kernel: up to MAX_STAGES stages of the ring
+  // one attribute call per kernel: up to STAGES stages of the ring
   static bool sized[3] = {false, false, false};
   const int which = kTensorCores ? 0 : n_group <= 4 ? 1 : 2;
-  cudaError_t e = cudaSuccess;
   if (!sized[which]) {
+    constexpr int most = 1024 + STAGES * STAGE_BYTES;
+    cudaError_t e;
     if constexpr (kTensorCores)
       e = cudaFuncSetAttribute(decode_mma_kernel<D>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               1024 + MAX_STAGES * STAGE_BYTES);
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, most);
     else
       e = cudaFuncSetAttribute(which == 1 ? decode_kernel<T, D, 4> : decode_kernel<T, D, 8>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               1024 + MAX_STAGES * STAGE_BYTES);
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, most);
     if (e != cudaSuccess) return (int)e;
     sized[which] = true;
   }
@@ -696,46 +665,17 @@ int launch_decode(const void* q, const void* k, const void* v,
     if (rc != 0) return rc;
     decode_mma_kernel<D><<<grid, TW * 32, smem, stream>>>(
         kmap, vmap, qt, lengths, ot, work, counters, s_len, n_kv, n_group,
-        scale * kLog2e, fixed_chunk, merge, n_stages);
+        scale * kLog2e);
   } else if (n_group <= 4) {
     decode_kernel<T, D, 4><<<grid, CW * 32, smem, stream>>>(
         qt, kt, vt, lengths, ot, work, counters, s_len, n_kv, n_group,
-        scale * kLog2e, fixed_chunk, merge, n_stages);
+        scale * kLog2e);
   } else {
     decode_kernel<T, D, 8><<<grid, CW * 32, smem, stream>>>(
         qt, kt, vt, lengths, ot, work, counters, s_len, n_kv, n_group,
-        scale * kLog2e, fixed_chunk, merge, n_stages);
+        scale * kLog2e);
   }
-  e = cudaGetLastError();
-  if (e != cudaSuccess || merge != 0) return (int)e;
-  decode_merge_split_kernel<T, D><<<dim3(n_kv, batch), 128, 0, stream>>>(
-      work, lengths, ot, s_len, n_kv, n_group, n_split, fixed_chunk);
   return (int)cudaGetLastError();
-}
-
-int decode_entry(const void* q, const void* k_layer, const void* v_layer,
-                 const void* lengths, void* out, void* work, void* counters,
-                 int batch, int s_len, int n_kv, int n_group, int head_dim,
-                 int dtype, int n_split, float scale, int fixed_chunk,
-                 int two_launch, int stages, void* stream) {
-  if (batch < 1 || s_len < 1 || n_kv < 1 || n_group < 1 || n_group > MAXG ||
-      n_split < 1 || n_split > MAX_SPLIT)
-    return (int)cudaErrorInvalidValue;
-  const int* lens = static_cast<const int*>(lengths);
-  float* wk = static_cast<float*>(work);
-  int* cnt = static_cast<int*>(counters);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int merge = two_launch == 0 ? 1 : two_launch == 1 ? 0 : -1;
-#define FS_DEC(T, D)                                                         \
-  return launch_decode<T, D>(q, k_layer, v_layer, lens, out, wk, cnt, batch, \
-                             s_len, n_kv, n_group, n_split, scale,           \
-                             fixed_chunk, merge, stages, s)
-  if (dtype == fs::kBFloat16 && head_dim == 128) FS_DEC(__nv_bfloat16, 128);
-  if (dtype == fs::kBFloat16 && head_dim == 64) FS_DEC(__nv_bfloat16, 64);
-  if (dtype == fs::kFloat32 && head_dim == 128) FS_DEC(float, 128);
-  if (dtype == fs::kFloat32 && head_dim == 64) FS_DEC(float, 64);
-#undef FS_DEC
-  return (int)cudaErrorInvalidValue;
 }
 
 // ---------------------------------------------------------------------------
@@ -924,27 +864,22 @@ extern "C" int fs_flash_decode(const void* q, const void* k_layer,
                                int batch, int s_len, int n_kv, int n_group,
                                int head_dim, int dtype, int n_split,
                                float scale, void* stream) {
-  return decode_entry(q, k_layer, v_layer, lengths, out, work, counters, batch,
-                      s_len, n_kv, n_group, head_dim, dtype, n_split, scale,
-                      FIXED_CHUNK, 0, STAGES, stream);
-}
-
-// The same with the choices the kernel did not keep, for measurement
-// (`scripts/decode_int4_bench.py`): fixed_chunk = 1 cuts S (not the row's
-// length) into the slices; two_launch = 1 merges in a second kernel, 2
-// leaves the partials unmerged (the split's time alone; `out` is not
-// written).
-extern "C" int fs_flash_decode_variant(const void* q, const void* k_layer,
-                                       const void* v_layer, const void* lengths,
-                                       void* out, void* work, void* counters,
-                                       int batch, int s_len, int n_kv,
-                                       int n_group, int head_dim, int dtype,
-                                       int n_split, float scale,
-                                       int fixed_chunk, int two_launch,
-                                       int stages, void* stream) {
-  return decode_entry(q, k_layer, v_layer, lengths, out, work, counters, batch,
-                      s_len, n_kv, n_group, head_dim, dtype, n_split, scale,
-                      fixed_chunk, two_launch, stages < 1 ? 1 : stages, stream);
+  if (batch < 1 || s_len < 1 || n_kv < 1 || n_group < 1 || n_group > MAXG ||
+      n_split < 1 || n_split > MAX_SPLIT)
+    return (int)cudaErrorInvalidValue;
+  const int* lens = static_cast<const int*>(lengths);
+  float* wk = static_cast<float*>(work);
+  int* cnt = static_cast<int*>(counters);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define FS_DEC(T, D)                                                         \
+  return launch_decode<T, D>(q, k_layer, v_layer, lens, out, wk, cnt, batch, \
+                             s_len, n_kv, n_group, n_split, scale, s)
+  if (dtype == fs::kBFloat16 && head_dim == 128) FS_DEC(__nv_bfloat16, 128);
+  if (dtype == fs::kBFloat16 && head_dim == 64) FS_DEC(__nv_bfloat16, 64);
+  if (dtype == fs::kFloat32 && head_dim == 128) FS_DEC(float, 128);
+  if (dtype == fs::kFloat32 && head_dim == 64) FS_DEC(float, 64);
+#undef FS_DEC
+  return (int)cudaErrorInvalidValue;
 }
 
 // int8 K/V: k_layer / v_layer (B, S, Hkv, D) int8 and ks_layer / vs_layer

@@ -101,9 +101,9 @@ __device__ __forceinline__ void dequant_pair(uint32_t w, __nv_bfloat162 s_lo,
 }
 
 // One 16-byte load: 16 columns of packed row r, i.e. W[r, c..c+16) in the
-// low nibbles and W[r + I/2, c..c+16) in the high ones. The ragged edge
-// (O not a multiple of 16, or p off the 16-byte grid) reads bytes one by
-// one; columns past O read 0x88, q = 0.
+// low nibbles and W[r + I/2, c..c+16) in the high ones; col0 < O. The
+// ragged edge (O not a multiple of 16, or p off the 16-byte grid) reads
+// bytes one by one; columns past O read 0x88, q = 0.
 __device__ __forceinline__ uint4 load16(const uint8_t* row, int col0,
                                         int out_dim, bool vec) {
   if (vec) return __ldg(reinterpret_cast<const uint4*>(row + col0));
@@ -226,8 +226,10 @@ __global__ void __launch_bounds__(GV_THREADS, NB <= 4 ? 2 : 1)
 #pragma unroll
     for (int u = 0; u < GV_U; ++u) {
       const int j = slice + u * GV_SLICES;
-      w[u] = j < n ? load16(p + (size_t)(c0 + j) * out_dim, col0, out_dim, pvec)
-                   : make_uint4(0x88888888u, 0x88888888u, 0x88888888u, 0x88888888u);
+      // threads of the last tile whose columns start past O load nothing
+      w[u] = j < n && col0 < out_dim
+                 ? load16(p + (size_t)(c0 + j) * out_dim, col0, out_dim, pvec)
+                 : make_uint4(0x88888888u, 0x88888888u, 0x88888888u, 0x88888888u);
     }
     __syncthreads();  // the previous chunk is done with xs and ss
     for (int idx = threadIdx.x; idx < NB * 2 * GV_CHUNK; idx += GV_THREADS) {
@@ -751,11 +753,12 @@ int launch(const void* x, const uint8_t* p, const float* gs, void* out,
 // "gemv" route, bf16 x with g % 128 == 0 and O % 16 == 0: the products on
 // the tensor cores (mma.sync m16n8k16, bf16 in, fp32 sums), y^T = W^T x^T.
 // A block owns 256 columns and a run of whole groups of packed rows; its
-// W streams through a ring of MMA_STAGES stages of 64 packed rows in
-// shared memory, each stage two TMA boxes of 64 rows x 128 bytes (the
-// 128-byte swizzle; columns past O read as 0), every stage in flight at
-// once. Warp (wc, wr) takes columns [128 wc, 128 wc + 128) of the block
-// (box wc) and every fourth tile of 8 packed rows. In an mma, lane
+// W streams through shared memory in stages of 64 packed rows, each stage
+// two TMA boxes of 64 rows x 128 bytes (the 128-byte swizzle; columns past
+// O read as 0), MMA_STAGES in flight per block (one measured faster than
+// two to four: the SM's other blocks keep loads in flight). Warp (wc, wr)
+// takes columns [128 wc, 128 wc + 128) of the block (box wc) and every
+// fourth tile of 8 packed rows. In an mma, lane
 // (g = lane / 4, q = lane % 4) holds the A values of columns c = 16 g + 2 j
 // and c + 1 (m = g and g + 8) at packed rows q and q + 4, each register
 // one byte: its two nibbles are rows r and r + I/2 (the k pair 2q, 2q + 1),
@@ -766,7 +769,6 @@ int launch(const void* x, const uint8_t* p, const float* gs, void* out,
 constexpr int MMA_COLS = 256;          // output columns per block
 constexpr int MMA_STAGE_ROWS = 64;     // packed rows per stage
 constexpr int MMA_STAGES = 1;         // stages in flight (measured: 1 beat 2, 3 and 4)
-constexpr int MMA_MAX_STAGES = 4;     // the most a launch may ask for (measurement)
 constexpr int MMA_MAX_RUN = 1024;      // packed rows of a run (ops/int4.py)
 constexpr int MMA_BOX = MMA_STAGE_ROWS * 128;        // one TMA box, bytes
 constexpr int MMA_STAGE_BYTES = 2 * MMA_BOX;
@@ -783,8 +785,7 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
 // smem: ring [MMA_STAGES][2 boxes][64][128] bytes | x pairs [NB][run]
 // uint32 (row r and r + I/2, bf16) | scale pairs [groups of the run][2][128]
 // uint32 (columns c, c + 1, bf16; low groups then high) | sums [4][NB][256]
-// fp32. probe (measurement only): 1 drops the products, 2 the sum of the
-// splits.
+// fp32.
 template <int NB>
 __global__ void __launch_bounds__(GV_THREADS)
     int4_gemv_mma_kernel(const __grid_constant__ CUtensorMap pmap,
@@ -792,10 +793,10 @@ __global__ void __launch_bounds__(GV_THREADS)
                          const float* __restrict__ gs,
                          __nv_bfloat16* __restrict__ out,
                          float* __restrict__ work, int* __restrict__ counters,
-                         int in_dim, int out_dim, int group, int rows,
-                         int n_stages, int probe) {
+                         int in_dim, int out_dim, int group, int rows) {
+  constexpr int n_stages = MMA_STAGES;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
-  __shared__ __align__(8) uint64_t full[MMA_MAX_STAGES];
+  __shared__ __align__(8) uint64_t full[n_stages];
   __shared__ int last_s;
   // the swizzled boxes want 1024-byte aligned stages (1 KB of slack)
   uint8_t* ring = smem_raw + ((1024 - fs::wg::smem_u32(smem_raw) % 1024) % 1024);
@@ -872,11 +873,6 @@ __global__ void __launch_bounds__(GV_THREADS)
       const int xr = sub * MMA_STAGE_ROWS + tr + q;
       const uint32_t b0 = g < NB ? xs[g * rows + xr] : 0u;
       const uint32_t b1 = g < NB ? xs[g * rows + xr + 4] : 0u;
-      if (probe & 1) {  // measurement: the loads without the products
-        acc[0][0] += __uint_as_float((w0.x ^ w0.y ^ w0.z ^ w0.w ^ w1.x ^ w1.y ^
-                                      w1.z ^ w1.w ^ b0 ^ b1) & 0x3F800000u);
-        continue;
-      }
       const uint32_t words0[4] = {w0.x, w0.y, w0.z, w0.w};
       const uint32_t words1[4] = {w1.x, w1.y, w1.z, w1.w};
 #pragma unroll
@@ -924,7 +920,7 @@ __global__ void __launch_bounds__(GV_THREADS)
     else
       part[(size_t)b * out_dim + col] = y;
   }
-  if (n_split == 1 || (probe & 2)) return;  // probe 2: partials only
+  if (n_split == 1) return;
   __syncthreads();  // the block's partial is stored: publish it
   if (threadIdx.x == 0)
     last_s = fs::atomic_add_acq_rel(counters + blockIdx.x, 1) == n_split - 1;
@@ -939,59 +935,33 @@ __global__ void __launch_bounds__(GV_THREADS)
   if (threadIdx.x == 0) counters[blockIdx.x] = 0;
 }
 
-// The TMA map of p, out_dim-byte rows read in boxes of 64 rows x 128
-// bytes; encoded once per (address, shape) and kept (a model's weights
-// are fixed addresses).
-int weight_map(CUtensorMap* map, const uint8_t* p, int in_dim, int out_dim) {
-  struct Entry {
-    const uint8_t* p;
-    int in_dim, out_dim;
-    CUtensorMap map;
-  };
-  static Entry table[1 << 10];
-  Entry& e = table[fs::tma::table_slot(p, 10)];
-  if (e.p != p || e.in_dim != in_dim || e.out_dim != out_dim) {
-    const int rc = fs::tma::encode_2d(&e.map, CU_TENSOR_MAP_DATA_TYPE_UINT8, p,
-                                      out_dim, in_dim / 2, out_dim, 128,
-                                      MMA_STAGE_ROWS);
-    if (rc != 0) {
-      e.p = nullptr;
-      return rc;
-    }
-    e.p = p;
-    e.in_dim = in_dim;
-    e.out_dim = out_dim;
-  }
-  *map = e.map;
-  return 0;
-}
-
 template <int NB>
 int launch_gemv_mma(const void* x, const uint8_t* p, const float* gs, void* out,
                     float* work, int* counters, int in_dim, int out_dim,
-                    int group, int n_split, cudaStream_t stream, int probe = 0,
-                    int stages = MMA_STAGES) {
+                    int group, int n_split, cudaStream_t stream) {
   const int rows = in_dim / 2 / n_split;
-  const int n_stages = std::min(std::min(stages, MMA_MAX_STAGES), rows / MMA_STAGE_ROWS);
-  const size_t smem = 1024 + (size_t)n_stages * MMA_STAGE_BYTES + 4 * NB * rows +
+  const size_t smem = 1024 + (size_t)MMA_STAGES * MMA_STAGE_BYTES + 4 * NB * rows +
                       4 * (rows / group) * MMA_COLS + 16 * NB * MMA_COLS;
   static bool sized = false;  // one attribute call per instantiation
   if (!sized) {
-    const int most = 1024 + MMA_MAX_STAGES * MMA_STAGE_BYTES + 4 * NB * MMA_MAX_RUN +
+    const int most = 1024 + MMA_STAGES * MMA_STAGE_BYTES + 4 * NB * MMA_MAX_RUN +
                      4 * (MMA_MAX_RUN / 128) * MMA_COLS + 16 * NB * MMA_COLS;
     const cudaError_t e = cudaFuncSetAttribute(
         int4_gemv_mma_kernel<NB>, cudaFuncAttributeMaxDynamicSharedMemorySize, most);
     if (e != cudaSuccess) return (int)e;
     sized = true;
   }
+  // p as out_dim-byte rows read in boxes of 64 rows x 128 bytes
   CUtensorMap pmap;
-  const int rc = weight_map(&pmap, p, in_dim, out_dim);
+  const int rc = fs::tma::encode_2d(&pmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, p,
+                                    out_dim, in_dim / 2, out_dim, 128,
+                                    MMA_STAGE_ROWS);
   if (rc != 0) return rc;
   dim3 grid((out_dim + MMA_COLS - 1) / MMA_COLS, n_split);
   int4_gemv_mma_kernel<NB><<<grid, GV_THREADS, smem, stream>>>(
       pmap, static_cast<const __nv_bfloat16*>(x), gs,
       static_cast<__nv_bfloat16*>(out), work, counters, in_dim, out_dim, group,
-      rows, n_stages, probe);
+      rows);
   return (int)cudaGetLastError();
 }
 
@@ -1094,26 +1064,4 @@ extern "C" int fs_int4_matmul(const void* x, const void* p, const void* gs,
     return (int)cudaGetLastError();
   }
   return (int)cudaErrorInvalidValue;
-}
-
-// The tensor-core matvec at B = 1 with parts left out, for measurement
-// (`scripts/decode_int4_bench.py`): probe 1 drops the products (the loads
-// alone), 2 the sum of the splits (the output is then not written); at
-// most `stages` stages of the ring. Same arguments as fs_int4_matmul's
-// bf16 "gemv" route.
-extern "C" int fs_int4_gemv_probe(const void* x, const void* p, const void* gs,
-                                  void* out, void* work, void* counters,
-                                  int in_dim, int out_dim, int group,
-                                  int n_split, int probe, int stages,
-                                  void* stream) {
-  if (in_dim < 2 || in_dim % 2 || n_split < 1 || (in_dim / 2) % n_split ||
-      !gemv_mma_takes(in_dim, out_dim, group, n_split, p) ||
-      (n_split > 1 && (work == nullptr || counters == nullptr)))
-    return (int)cudaErrorInvalidValue;
-  return launch_gemv_mma<1>(x, static_cast<const uint8_t*>(p),
-                            static_cast<const float*>(gs), out,
-                            static_cast<float*>(work), static_cast<int*>(counters),
-                            in_dim, out_dim, group, n_split,
-                            static_cast<cudaStream_t>(stream), probe,
-                            stages < 1 ? 1 : stages);
 }

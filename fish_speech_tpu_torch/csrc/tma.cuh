@@ -2,9 +2,9 @@
 // for the split matvec and decode kernels (int4_mm.cu, flash_decode.cu).
 //
 // The host encodes a tensor map (`encode`, `encode_2d`: through
-// cuTensorMapEncodeTiled, looked up once at run time) and passes it by
-// value as a __grid_constant__ kernel parameter, so a captured CUDA graph
-// replays it.
+// cuTensorMapEncodeTiled, looked up once at run time; each map is encoded
+// once and cached) and passes it by value as a __grid_constant__ kernel
+// parameter, so a captured CUDA graph replays it.
 // In the kernel one thread arms an mbarrier with the bytes to expect and
 // issues the copy; the copy's completion flips the barrier's phase, which
 // the consumers wait on. With the 128-byte swizzle a box row is 128 bytes
@@ -18,17 +18,40 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <cstring>
+#include <mutex>
+#include <unordered_map>
+
 #include "wgmma.cuh"
 
 namespace fs {
 namespace tma {
 
-// A map of a rank-`rank` tensor: dims[0] contiguous elements, then
-// dims[i] steps of strides[i - 1] bytes, read in boxes of box[] with the
-// 128-byte swizzle. Returns a CUDA error code (0 on success).
-inline int encode(CUtensorMap* map, CUtensorMapDataType type, int rank,
-                  const void* base, const cuuint64_t* dims,
-                  const cuuint64_t* strides, const cuuint32_t* box) {
+// Everything that goes into a map: a cached map with an equal key is the
+// map `encode_tiled` would build, whatever tensor now lives at `base`.
+struct MapKey {
+  int type = 0, rank = 0;
+  const void* base = nullptr;
+  cuuint64_t dims[3] = {0, 0, 0};
+  cuuint64_t strides[2] = {0, 0};
+  cuuint32_t box[4] = {0, 0, 0, 0};  // box[3] pads the key: no loose bytes
+  bool operator==(const MapKey& o) const {
+    return std::memcmp(this, &o, sizeof(MapKey)) == 0;
+  }
+};
+static_assert(sizeof(MapKey) == 72, "MapKey has no padding bytes");
+
+struct MapKeyHash {
+  size_t operator()(const MapKey& k) const {
+    const auto* w = reinterpret_cast<const uint64_t*>(&k);
+    uint64_t h = 0;
+    for (size_t i = 0; i < sizeof(MapKey) / 8; ++i)
+      h = (h ^ w[i]) * 0x9E3779B97F4A7C15ull;
+    return (size_t)(h ^ (h >> 29));
+  }
+};
+
+inline int encode_tiled(CUtensorMap* map, const MapKey& k) {
   static PFN_cuTensorMapEncodeTiled_v12000 encode_fn = nullptr;
   if (encode_fn == nullptr) {
     cudaDriverEntryPointQueryResult found;
@@ -41,12 +64,53 @@ inline int encode(CUtensorMap* map, CUtensorMapDataType type, int rank,
     }
   }
   const cuuint32_t step[5] = {1, 1, 1, 1, 1};
-  const CUresult r = encode_fn(map, type, rank, const_cast<void*>(base), dims,
-                               strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                               CU_TENSOR_MAP_SWIZZLE_128B,
-                               CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                               CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  const CUresult r = encode_fn(
+      map, (CUtensorMapDataType)k.type, k.rank, const_cast<void*>(k.base),
+      k.dims, k.strides, k.box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// A map of a rank-`rank` (2 or 3) tensor: dims[0] contiguous elements, then
+// dims[i] steps of strides[i - 1] bytes, read in boxes of box[] with the
+// 128-byte swizzle. Returns a CUDA error code (0 on success). Maps are
+// encoded once and kept in one table keyed by every argument (a model's
+// weights and a session's cache are fixed addresses, so the steady state
+// encodes nothing); the table is cleared when it holds kMaxMaps, and a
+// mutex guards it, as ctypes calls come without the GIL.
+inline int encode(CUtensorMap* map, CUtensorMapDataType type, int rank,
+                  const void* base, const cuuint64_t* dims,
+                  const cuuint64_t* strides, const cuuint32_t* box) {
+  constexpr size_t kMaxMaps = 1 << 14;
+  static std::mutex mu;
+  struct Bytes {  // a map's bytes, kept without its 64-byte alignment
+    unsigned char b[sizeof(CUtensorMap)];
+  };
+  static std::unordered_map<MapKey, Bytes, MapKeyHash> maps;
+  if (rank < 1 || rank > 3) return (int)cudaErrorInvalidValue;
+  MapKey k;
+  k.type = (int)type;
+  k.rank = rank;
+  k.base = base;
+  for (int i = 0; i < rank; ++i) {
+    k.dims[i] = dims[i];
+    k.box[i] = box[i];
+    if (i > 0) k.strides[i - 1] = strides[i - 1];
+  }
+  std::lock_guard<std::mutex> lock(mu);
+  const auto hit = maps.find(k);
+  if (hit != maps.end()) {
+    std::memcpy(map, hit->second.b, sizeof(CUtensorMap));
+    return 0;
+  }
+  const int rc = encode_tiled(map, k);
+  if (rc != 0) return rc;
+  if (maps.size() >= kMaxMaps) maps.clear();
+  Bytes bytes;
+  std::memcpy(bytes.b, map, sizeof(CUtensorMap));
+  maps.emplace(k, bytes);
+  return 0;
 }
 
 // A 2D map of `outer` rows of `inner` elements, `row_bytes` apart, read in
@@ -59,15 +123,6 @@ inline int encode_2d(CUtensorMap* map, CUtensorMapDataType type,
   const cuuint64_t strides[1] = {row_bytes};
   const cuuint32_t box[2] = {box_inner, box_outer};
   return encode(map, type, 2, base, dims, strides, box);
-}
-
-// Slot of an address in a table of 2^bits cached maps: every bit of the
-// address mixed in, since tensors often start on 2 MB boundaries
-inline int table_slot(const void* p, int bits) {
-  uint64_t h = reinterpret_cast<uintptr_t>(p);
-  h ^= h >> 29;
-  h *= 0x9E3779B97F4A7C15ull;
-  return (int)(h >> (64 - bits));
 }
 
 __device__ __forceinline__ void bar_init(uint64_t* bar) {

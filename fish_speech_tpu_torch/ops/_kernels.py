@@ -107,10 +107,6 @@ def load_kernels() -> ctypes.CDLL:
         f32, ptr
     ]
     lib.fs_flash_decode.restype = i32
-    lib.fs_flash_decode_variant.argtypes = [
-        *lib.fs_flash_decode.argtypes[:-1], i32, i32, i32, ptr
-    ]
-    lib.fs_flash_decode_variant.restype = i32
     lib.fs_flash_train_fwd.argtypes = [
         ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, f32, ptr
     ]
@@ -131,8 +127,6 @@ def load_kernels() -> ctypes.CDLL:
         ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, i32, ptr
     ]
     lib.fs_int4_matmul.restype = i32
-    lib.fs_int4_gemv_probe.argtypes = [ptr] * 6 + [i32] * 6 + [ptr]
-    lib.fs_int4_gemv_probe.restype = i32
     lib.fs_faststack_probe.argtypes = [
         ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, i32, ptr
     ]
@@ -147,6 +141,19 @@ def sm_count(device: torch.device) -> int:
     """Streaming multiprocessors of a CUDA device (the split kernels size
     their grids by it)."""
     return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+# the current stream's raw handle without a Stream object (the public
+# `torch.cuda.current_stream(device).cuda_stream` where torch lacks it)
+_RAW_STREAM = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
+def stream_ptr(x: torch.Tensor) -> int:
+    """The raw handle of the current CUDA stream on x's device, for the C
+    entry points' `stream` argument."""
+    if _RAW_STREAM is not None:
+        return _RAW_STREAM(x.get_device())
+    return torch.cuda.current_stream(x.device).cuda_stream
 
 
 _SCRATCH: dict = {}

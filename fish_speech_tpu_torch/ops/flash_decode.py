@@ -31,7 +31,7 @@ import torch
 
 from fish_speech_tpu_torch.ops._kernels import (DTYPE_CODES, check_aligned,
                                                  check_launch, load_kernels,
-                                                 scratch, sm_count)
+                                                 scratch, sm_count, stream_ptr)
 from fish_speech_tpu_torch.ops.attention import NEG_INF, gqa_attention_kv8
 
 MAX_GROUP = 8  # query heads per KV head one kernel block serves
@@ -50,14 +50,12 @@ def decode_split_count(s_len: int, n_kv: int, batch: int, n_sm: int) -> int:
     return max(1, min(want, -(-s_len // SLICE_ALIGN), MAX_SPLIT))
 
 
-def decode_slice(z: int, n_split: int, length: int, s_len: int,
-                 balanced: bool = False):
+def decode_slice(z: int, n_split: int, length: int, s_len: int):
     """[start, end) of the positions block z of n_split reads in a row of
-    `length`: chunks of ceil(n / Z) rounded up to SLICE_ALIGN, n = S (the
-    kernel's fixed chunk) or the length (`balanced`, kept for measurement:
-    it lost at len 4000 and tied at 2048). Blocks past the length get an
-    empty slice and do nothing."""
-    per_block = -(-(length if balanced else s_len) // n_split)
+    `length`: chunks of ceil(S / Z) rounded up to SLICE_ALIGN (a chunk cut
+    from the row's length measured slower at len 4000 and no faster at
+    2048). Blocks past the length get an empty slice and do nothing."""
+    per_block = -(-s_len // n_split)
     chunk = max(SLICE_ALIGN, -(-per_block // SLICE_ALIGN) * SLICE_ALIGN)
     start = min(z * chunk, length)
     return start, min(start + chunk, length)
@@ -142,38 +140,58 @@ def _check(q, k_all, v_all, layer, lengths):
     check_aligned("flash_decode_attention", q=q, k_all=k_all, v_all=v_all)
 
 
-def _launch(entry, q, k_all, v_all, layer, lengths, *variant, n_split=None):
-    """Run the kernel through C entry `entry` (`fs_flash_decode`, or
-    `fs_flash_decode_variant` with its fixed-chunk, two-launch and stage
-    arguments) over n_split slices (default `decode_split_count`); returns
-    the output."""
-    b, hkv, g, d = q.shape
-    s_len = k_all.shape[2]
-    z = n_split or decode_split_count(s_len, hkv, b, sm_count(q.device))
-    # per slice: the max and the sum of each head (PARTIAL_HEAD floats), then
-    # the G x D accumulator
-    work, counters = scratch("flash_decode", q.device,
-                             b * hkv * z * (PARTIAL_HEAD + g * d), b * hkv)
-    layer_bytes = k_all.stride(0) * k_all.element_size() * layer
-    out = torch.empty_like(q)
-    rc = entry(q.data_ptr(), k_all.data_ptr() + layer_bytes,
-               v_all.data_ptr() + layer_bytes, lengths.data_ptr(),
-               out.data_ptr(), work.data_ptr(), counters.data_ptr(), b, s_len,
-               hkv, g, d, DTYPE_CODES[q.dtype], z, 1.0 / math.sqrt(d), *variant,
-               torch.cuda.current_stream(q.device).cuda_stream)
-    check_launch(rc, "flash_decode")
-    return out
+_PLANS: dict = {}
+
+
+def _plan(q, k_all, v_all, layer, lengths):
+    """What a call of these shapes, dtypes and devices passes the kernel
+    beyond its pointers: (Z, workspace, counters, layers, bytes per layer,
+    dtype code, scale). The first call of a key runs every check of
+    `_check` and keeps the plan; a later one repeats only the checks that
+    the key does not fix (the layer, contiguity, alignment)."""
+    key = (q.shape, k_all.shape, v_all.shape, lengths.shape, q.dtype,
+           k_all.dtype, v_all.dtype, lengths.dtype, q.get_device(),
+           k_all.get_device(), v_all.get_device(), lengths.get_device())
+    plan = _PLANS.get(key)
+    if plan is None:
+        _check(q, k_all, v_all, layer, lengths)
+        b, hkv, g, d = q.shape
+        z = decode_split_count(k_all.shape[2], hkv, b, sm_count(q.device))
+        # per slice: the max and the sum of each head (PARTIAL_HEAD floats),
+        # then the G x D accumulator
+        work, counters = scratch("flash_decode", q.device,
+                                 b * hkv * z * (PARTIAL_HEAD + g * d), b * hkv)
+        plan = _PLANS[key] = (z, work.data_ptr(), counters.data_ptr(),
+                              k_all.shape[0], k_all[0].numel() * k_all.element_size(),
+                              DTYPE_CODES[q.dtype], 1.0 / math.sqrt(d))
+        return plan
+    if not 0 <= layer < plan[3]:
+        raise ValueError(f"flash_decode_attention: layer {layer} out of range")
+    if not (q.is_contiguous() and k_all.is_contiguous() and v_all.is_contiguous()
+            and lengths.is_contiguous()):
+        raise ValueError("flash_decode_attention: q, k_all, v_all and lengths "
+                         "must be contiguous")
+    if (q.data_ptr() | k_all.data_ptr() | v_all.data_ptr()) % 16:
+        check_aligned("flash_decode_attention", q=q, k_all=k_all, v_all=v_all)
+    return plan
 
 
 def flash_decode_attention(q, k_all, v_all, layer: int, lengths):
     """Same contract as `flash_decode_reference`; on CUDA tensors runs the
     hand-written kernel, which reads only the first lengths[b] positions,
     split over `decode_split_count` blocks per row, in one launch."""
-    if q.device.type == "cpu":
+    if not q.is_cuda and q.device.type == "cpu":
         return flash_decode_reference(q, k_all, v_all, layer, lengths)
-    _check(q, k_all, v_all, layer, lengths)
-    out = _launch(load_kernels().fs_flash_decode, q, k_all, v_all, layer,
-                  lengths)
+    z, work, counters, _, layer_bytes, code, scale = _plan(
+        q, k_all, v_all, layer, lengths)
+    b, hkv, g, d = q.shape
+    out = torch.empty_like(q)
+    rc = load_kernels().fs_flash_decode(
+        q.data_ptr(), k_all.data_ptr() + layer_bytes * layer,
+        v_all.data_ptr() + layer_bytes * layer, lengths.data_ptr(),
+        out.data_ptr(), work, counters, b, k_all.shape[2], hkv, g, d, code, z,
+        scale, stream_ptr(q))
+    check_launch(rc, "flash_decode")
     flash_decode_attention.launches += 1
     return out
 

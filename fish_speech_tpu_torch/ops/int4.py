@@ -37,7 +37,7 @@ import torch
 
 from fish_speech_tpu_torch.ops._kernels import (DTYPE_CODES, check_launch,
                                                  load_kernels, scratch,
-                                                 sm_count)
+                                                 sm_count, stream_ptr)
 
 GEMV_MAX_ROWS = 8  # rows of x up to which the split-K matvec kernel runs
 ROUTES = ("gemv", "wgmma", "fp32_tiled")  # route codes of fs_int4_matmul
@@ -149,28 +149,46 @@ def _check(x, p, gs):
     return b, i, o, _group(i, gs.shape[0])
 
 
+_PLANS: dict = {}
+
+
+def _plan(x, p, gs):
+    """What a call of these shapes, dtypes and devices passes the kernel
+    beyond its pointers: (route, counter name, I, O, g, split count,
+    workspace, counters, dtype code, route code). The first call of a key
+    runs every check of `_check` and keeps the plan; a later one repeats
+    only contiguity, which the key does not fix."""
+    key = (x.shape, p.shape, gs.shape, x.dtype, p.dtype, gs.dtype,
+           x.get_device(), p.get_device(), gs.get_device())
+    plan = _PLANS.get(key)
+    if plan is None:
+        b, i, o, g = _check(x, p, gs)
+        route = _route(b, x.dtype)
+        n_split = gemv_split(i, o, g, sm_count(x.device)) if route == "gemv" else 1
+        work = counters = 0  # NULL: one run, or another route
+        if n_split > 1:
+            w, c = scratch("int4_gemv", x.device, n_split * b * o, -(-o // GEMV_COLS))
+            work, counters = w.data_ptr(), c.data_ptr()
+        plan = _PLANS[key] = (route, f"launches_{route}", i, o, g, n_split, work,
+                              counters, DTYPE_CODES[x.dtype], _ROUTE_CODES[route])
+    elif not (x.is_contiguous() and p.is_contiguous() and gs.is_contiguous()):
+        raise ValueError("int4_matmul: x, p and gs must be contiguous")
+    return plan
+
+
 def int4_matmul(x, p, gs):
     """x (B, I) bf16/fp32 @ packed int4 W -> (B, O) in x's dtype. On CUDA
     tensors runs the hand-written kernel of `_route(B, x.dtype)`."""
-    if x.device.type == "cpu":
+    if not x.is_cuda and x.device.type == "cpu":
         return int4_matmul_reference(x, p, gs)
-    b, i, o, g = _check(x, p, gs)
-    route = _route(b, x.dtype)
-    lib = load_kernels()
-    out = torch.empty((b, o), dtype=x.dtype, device=x.device)
-    n_split = gemv_split(i, o, g, sm_count(x.device)) if route == "gemv" else 1
-    work = counters = 0  # NULL: one run, or another route
-    if n_split > 1:
-        w, c = scratch("int4_gemv", x.device, n_split * b * o, -(-o // GEMV_COLS))
-        work, counters = w.data_ptr(), c.data_ptr()
-    rc = lib.fs_int4_matmul(
+    route, count, i, o, g, n_split, work, counters, code, route_code = _plan(x, p, gs)
+    b = x.shape[0]
+    out = x.new_empty((b, o))
+    rc = load_kernels().fs_int4_matmul(
         x.data_ptr(), p.data_ptr(), gs.data_ptr(), out.data_ptr(), work,
-        counters, b, i, o, g, DTYPE_CODES[x.dtype], _ROUTE_CODES[route],
-        n_split, torch.cuda.current_stream(x.device).cuda_stream,
-    )
+        counters, b, i, o, g, code, route_code, n_split, stream_ptr(x))
     check_launch(rc, f"int4_matmul ({route})")
     int4_matmul.launches += 1
-    count = f"launches_{route}"
     setattr(int4_matmul, count, getattr(int4_matmul, count) + 1)
     return out
 

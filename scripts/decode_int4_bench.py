@@ -1,43 +1,40 @@
 #!/usr/bin/env python3
-"""The decode attention's and the int4 matvec's design choices, timed on the card.
+"""The decode attention and the int4 matvec against their PyTorch yardsticks
+and against an earlier checkout, timed on the card.
 
-    python3 scripts/decode_int4_bench.py [PARENT_CSRC]
+    python3 scripts/decode_int4_bench.py [OTHER_CHECKOUT]
 
 Device time of each call (`chip_smoke.py:_device_ms`: 100 calls captured in
 one CUDA graph, best of three replays), so the wrappers' host cost is left
-out. Each option is timed twice, in turns (in order, then in reverse) and
-the two means averaged; every line carries the card's name and power limit.
+out; and host-inclusive time (`chip_smoke.py:_time_ms`, CUDA events around
+a loop of Python calls, as `chip_smoke.py`'s `ms`). Each option is timed
+twice, in turns (in order, then in reverse), and the two means averaged;
+every line carries the card's name and power limit.
 
 Decode attention (bf16, s2-pro's slow cache, 36 layers, Hkv=8 G=4 D=128, at
 S = 4160 and the serving session's S = 2112, and the fast cache, 12 layers,
-S = 10, Hkv=4 G=3; each call reads the next layer): the kernel as built
-(`fs_flash_decode`: slices of a chunk cut from S, three stages of the ring,
-merged by the last block in the same launch) against
-`fs_flash_decode_variant` with the chunk cut from the row's length
-(`balanced`), with the merge in a second kernel, with two or four stages,
-and over 33 slices in place of `decode_split_count`'s, and against SDPA on
-the visible
-rows; `no_merge` times the slices alone (partials written, no merge).
-Every option but that one is first held to `flash_decode_reference` (2e-2
-max abs, 2e-3 mean, chip_smoke's bounds).
+S = 10, Hkv=4 G=3; each call reads the next layer): the kernel through
+`flash_decode_attention` against SDPA on the visible rows. Each kernel's
+error against `flash_decode_reference` (fp32) is printed: max and mean abs
+and the share of outputs equal to the reference rounded to bf16.
 
 int4 matvec (bf16 x, B = 1, s2-pro's eight shapes, g = 128): the kernel
 through `int4_matmul` against cuBLAS on the bf16 W, both walking copies of
-their weight over twice the L2, as in `chip_smoke.py`; and, unchecked, the
-same kernel with its products dropped (`loads_only`), its sum of the splits
-dropped (`no_split_sum`), or both, and with two or three stages of its
-ring in flight instead of one (`fs_int4_gemv_probe`).
+their weight over twice the L2, as in `chip_smoke.py`.
 
-PARENT_CSRC, a `csrc/` directory of an earlier version (the two-launch
-matvec with its per-call partials, the one-block-per-row decode kernel),
-is built beside the checkout's into `build/decode_int4_bench/` and timed in
-the same turns through its own C entry points (their older signatures).
+OTHER_CHECKOUT (`git archive REV | tar -x -C DIR`), whose kernels have the
+same C entry points as this checkout's, adds two columns per case:
+`other_kernel`, its `csrc/` built into `build/decode_int4_bench/` and
+called through this checkout's wrapper (device time and error), and
+`other_wrapper`, its `ops/flash_decode.py` and `ops/int4.py` loaded on this
+checkout's kernels (host-inclusive time: the wrappers' host cost alone
+differs).
 """
 
 from __future__ import annotations
 
 import ctypes
-import math
+import importlib.util
 import subprocess
 import sys
 from pathlib import Path
@@ -45,20 +42,21 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
-from chip_smoke import INT4_SHAPES, L2_COLD_BYTES, _device_ms  # noqa: E402
+from chip_smoke import (INT4_SHAPES, L2_COLD_BYTES, _device_ms,  # noqa: E402
+                        _time_ms)
 
 DECODE = [(36, 4160, 8, 4, 1), (36, 4160, 8, 4, 257), (36, 4160, 8, 4, 4000),
           (36, 2112, 8, 4, 257), (36, 2112, 8, 4, 2048), (12, 10, 4, 3, 10)]
 ITERS = 100
 
 
-def _parent_lib(csrc):
-    """Build the kernel library from another `csrc/` and bind its decode and
-    int4 C entry points with their older signatures."""
+def _other_lib(tree):
+    """The kernel library built from another checkout's `csrc/`, bound
+    with this checkout's signatures."""
     from fish_speech_tpu_torch.ops import _kernels
 
     here = _kernels.CSRC
-    _kernels.CSRC = Path(csrc).resolve()
+    _kernels.CSRC = (Path(tree) / "fish_speech_tpu_torch" / "csrc").resolve()
     try:
         out = (ROOT / "build" / "decode_int4_bench"
                / f"kernels-{_kernels.source_hash()}" / "libfs_kernels.so")
@@ -67,37 +65,63 @@ def _parent_lib(csrc):
     finally:
         _kernels.CSRC = here
     lib = ctypes.CDLL(str(out))
-    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.fs_flash_decode.argtypes = [ptr] * 5 + [i32] * 6 + [f32, ptr]
-    lib.fs_int4_matmul.argtypes = [ptr] * 5 + [i32] * 6 + [ptr]
-    lib.fs_flash_decode.restype = lib.fs_int4_matmul.restype = i32
+    mine = _kernels.load_kernels()
+    for name in ("fs_flash_decode", "fs_int4_matmul"):
+        getattr(lib, name).argtypes = getattr(mine, name).argtypes
+        getattr(lib, name).restype = ctypes.c_int
     return lib
 
 
-def _in_turns(fns):
-    """name -> fn(i): device ms of each, timed in order then in reverse."""
+def _other_module(tree, name):
+    """Another checkout's `ops/<name>.py`, loaded beside this one's: its
+    wrapper on this checkout's `_kernels` (library, scratch, checks)."""
+    path = Path(tree) / "fish_speech_tpu_torch" / "ops" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(f"other_{name}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+class _Lib:
+    """`load_kernels` of a module pointed at another library for a call."""
+
+    def __init__(self, mod, lib):
+        self.mod, self.lib = mod, lib
+
+    def __enter__(self):
+        self.saved = self.mod.load_kernels
+        self.mod.load_kernels = lambda: self.lib
+
+    def __exit__(self, *exc):
+        self.mod.load_kernels = self.saved
+
+
+def _in_turns(fns, timer):
+    """name -> fn(i): the timer's ms of each, in order then in reverse."""
     got = {name: [] for name in fns}
     for names in (list(fns), list(fns)[::-1]):
         for name in names:
-            got[name].append(_device_ms(fns[name], ITERS))
+            got[name].append(timer(fns[name], ITERS))
     return {name: sum(v) / len(v) for name, v in got.items()}
 
 
-def _check(name, got, want):
+def _errors(name, got, want):
+    """(max abs, mean abs, share equal to the reference rounded to bf16);
+    exits where the kernel breaks chip_smoke's bounds (2e-2, 2e-3)."""
     err = (got.float() - want.float()).abs()
+    equal = (got == want.to(got.dtype)).float().mean().item()
     if err.max().item() > 2e-2 or err.mean().item() > 2e-3:
         raise SystemExit(f"{name} disagrees with the plain version: max abs "
                          f"{err.max().item():.3e}")
+    return err.max().item(), err.mean().item(), equal
 
 
-def bench_decode(dev, parent, smi):
+def bench_decode(dev, other, smi):
     import torch
     import torch.nn.functional as F
 
     from fish_speech_tpu_torch.ops import flash_decode as fd
-    from fish_speech_tpu_torch.ops._kernels import DTYPE_CODES, check_launch
 
-    lib = fd.load_kernels()
     gen = torch.Generator(device=dev).manual_seed(0)
     for n_layer, s, hkv, g, length in DECODE:
         q = torch.randn((1, hkv, g, 128), generator=gen, device=dev,
@@ -105,84 +129,48 @@ def bench_decode(dev, parent, smi):
         kc, vc = (torch.randn((n_layer, 1, s, hkv, 128), generator=gen,
                               device=dev, dtype=torch.bfloat16) for _ in range(2))
         lens = torch.tensor([length], dtype=torch.int32, device=dev)
-        layer_bytes = kc.stride(0) * kc.element_size()
 
-        def variant(fixed=1, two=0, stages=3, z=None):
-            def call(i=0):
-                return fd._launch(lib.fs_flash_decode_variant, q, kc, vc,
-                                  i % n_layer, lens, fixed, two, stages,
-                                  n_split=z)
-            return call
+        def kept(i=0):
+            return fd.flash_decode_attention(q, kc, vc, i % n_layer, lens)
 
-        fns = {"kept": lambda i=0: fd.flash_decode_attention(q, kc, vc, i % n_layer, lens),
-               "balanced": variant(fixed=0), "two_launch": variant(two=1),
-               "stages2": variant(stages=2), "stages4": variant(stages=4)}
-        if 33 < -(-s // fd.SLICE_ALIGN):
-            fns["z33"] = variant(z=33)
-        if parent is not None:
-            def old(i=0):
-                out = torch.empty_like(q)
-                rc = parent.fs_flash_decode(
-                    q.data_ptr(), kc.data_ptr() + layer_bytes * (i % n_layer),
-                    vc.data_ptr() + layer_bytes * (i % n_layer), lens.data_ptr(),
-                    out.data_ptr(), 1, s, hkv, g, 128, DTYPE_CODES[q.dtype],
-                    1.0 / math.sqrt(128), torch.cuda.current_stream(dev).cuda_stream)
-                check_launch(rc, "parent flash_decode")
-                return out
-            fns["parent"] = old
-        want = fd.flash_decode_reference(q, kc, vc, 0, lens)
-        for name, fn in fns.items():
-            _check(f"decode {name}", fn(0), want)
-        # the split alone: partials written, no merge (out is not written)
-        fns["no_merge"] = variant(two=2)
         qs = q.reshape(1, hkv * g, 1, 128)
-        fns["sdpa"] = lambda i=0: F.scaled_dot_product_attention(
-            qs, kc[i % n_layer, :, :length].transpose(1, 2),
-            vc[i % n_layer, :, :length].transpose(1, 2), enable_gqa=True)
-        ms = _in_turns(fns)
-        z = fd.decode_split_count(s, hkv, 1, fd.sm_count(dev))
-        active = [hkv * sum(a < b for a, b in (fd.decode_slice(i, z, length, s, bal)
-                                               for i in range(z)))
-                  for bal in (False, True)]
+
+        def sdpa(i=0):
+            return F.scaled_dot_product_attention(
+                qs, kc[i % n_layer, :, :length].transpose(1, 2),
+                vc[i % n_layer, :, :length].transpose(1, 2), enable_gqa=True)
+
+        want = fd.flash_decode_reference(q, kc, vc, 0, lens).float()
+        errs = {"kept": _errors("decode", kept(0), want)}
+        device = {"kept": kept, "sdpa": sdpa}
+        host = {"kept": kept}
+        if other is not None:
+            lib, mod = other["lib"], other["flash_decode"]
+
+            def other_kernel(i=0):
+                with _Lib(fd, lib):
+                    return kept(i)
+
+            errs["other_kernel"] = _errors("other decode", other_kernel(0), want)
+            device["other_kernel"] = other_kernel
+            host["other_wrapper"] = lambda i=0: mod.flash_decode_attention(
+                q, kc, vc, i % n_layer, lens)
+        dev_ms = _in_turns(device, _device_ms)
+        host_ms = _in_turns(host, _time_ms)
         bound = 2 * (2 * length * hkv * 128 + 2 * hkv * g * 128) / 3.35e12 * 1e3
-        print(f"decode L={n_layer} S={s} Hkv={hkv} G={g} len={length} Z={z} "
-              f"(blocks with work: {active[0]}, balanced chunk {active[1]}): "
-              + " ".join(f"{k}={v:.4f}" for k, v in ms.items())
-              + f" bound={bound:.5f} ms; {smi}")
+        print(f"decode L={n_layer} S={s} Hkv={hkv} G={g} len={length}: device "
+              + " ".join(f"{k}={v:.4f}" for k, v in dev_ms.items())
+              + "; host-inclusive " + " ".join(f"{k}={v:.4f}" for k, v in host_ms.items())
+              + "; errors " + " ".join(f"{k}={m:.3e}/{a:.3e}/{e:.4f}"
+                                       for k, (m, a, e) in errs.items())
+              + f"; bound={bound:.5f} ms; {smi}", flush=True)
         del kc, vc
 
 
-def _probe_variant(x, qs, g, dev, probe, stages=1):
-    """The tensor-core matvec with parts left out (fs_int4_gemv_probe):
-    1 the products, 2 the sum of the splits, 3 both; at most `stages`
-    stages of its ring."""
+def bench_int4(dev, other, smi):
     import torch
 
     from fish_speech_tpu_torch.ops import int4
-    from fish_speech_tpu_torch.ops._kernels import check_launch, scratch
-
-    i, o = x.shape[1], qs[0][0].shape[1]
-    n_split = int4.gemv_split(i, o, g, int4.sm_count(dev))
-    work, counters = scratch("int4_gemv", dev, n_split * o, -(-o // int4.GEMV_COLS))
-    lib = int4.load_kernels()
-
-    def call(k=0):
-        p, gs = qs[k % len(qs)]
-        out = torch.empty((1, o), dtype=x.dtype, device=dev)
-        rc = lib.fs_int4_gemv_probe(
-            x.data_ptr(), p.data_ptr(), gs.data_ptr(), out.data_ptr(),
-            work.data_ptr(), counters.data_ptr(), i, o, g, n_split, probe,
-            stages, torch.cuda.current_stream(dev).cuda_stream)
-        check_launch(rc, f"int4 gemv probe {probe}")
-        return out
-    return call
-
-
-def bench_int4(dev, parent, smi):
-    import torch
-
-    from fish_speech_tpu_torch.ops import int4
-    from fish_speech_tpu_torch.ops._kernels import DTYPE_CODES, check_launch
     from fish_speech_tpu_torch.ops.quant import quantize_int4
 
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -197,35 +185,32 @@ def bench_int4(dev, parent, smi):
         n_w = -(-L2_COLD_BYTES // (2 * i * o))
         ws = [w.clone() for _ in range(n_w)]
         want = int4.int4_matmul_bf16w_reference(x, qw["p"], qw["gs"])
-        fns = {"kept": lambda k=0: int4.int4_matmul(x, *qs[k % n_q])}
-        probes = {"loads_only": 1, "no_split_sum": 2, "loads_no_sum": 3}
-        if parent is not None:
-            part = torch.empty((i // 2 // g, 1, o), dtype=torch.float32, device=dev)
 
-            def old(k=0):
-                p, gs = qs[k % n_q]
-                out = torch.empty((1, o), dtype=x.dtype, device=dev)
-                rc = parent.fs_int4_matmul(
-                    x.data_ptr(), p.data_ptr(), gs.data_ptr(), out.data_ptr(),
-                    part.data_ptr(), 1, i, o, g, DTYPE_CODES[x.dtype], 0,
-                    torch.cuda.current_stream(dev).cuda_stream)
-                check_launch(rc, "parent int4_matmul")
-                return out
-            fns["parent"] = old
-        for label, fn in fns.items():
-            _check(f"int4 {label}", fn(0), want)
-        for stages in (2, 3):  # other counts of stages in flight per block
-            fns[f"stages{stages}"] = _probe_variant(x, qs, g, dev, 0, stages)
-        for label, probe in probes.items():  # where the time goes (unchecked)
-            fns[label] = _probe_variant(x, qs, g, dev, probe)
-        fns["cublas"] = lambda k=0: x @ ws[k % n_w]
-        ms = _in_turns(fns)
+        def kept(k=0):
+            return int4.int4_matmul(x, *qs[k % n_q])
+
+        device = {"kept": kept, "cublas": lambda k=0: x @ ws[k % n_w]}
+        host = {"kept": kept}
+        errs = {"kept": _errors("int4", kept(0), want)}
+        if other is not None:
+            lib, mod = other["lib"], other["int4"]
+
+            def other_kernel(k=0):
+                with _Lib(int4, lib):
+                    return kept(k)
+
+            errs["other_kernel"] = _errors("other int4", other_kernel(0), want)
+            device["other_kernel"] = other_kernel
+            host["other_wrapper"] = lambda k=0: mod.int4_matmul(x, *qs[k % n_q])
+        dev_ms = _in_turns(device, _device_ms)
+        host_ms = _in_turns(host, _time_ms)
         bound = (i // 2 * o + 4 * (i // g) * o + 2 * (i + o)) / 3.35e12 * 1e3
-        n_split = int4.gemv_split(i, o, g, int4.sm_count(dev))
-        print(f"int4 {name} B=1 I={i} O={o} g={g} n_split={n_split} (blocks "
-              f"{-(-o // int4.GEMV_COLS) * n_split}): "
-              + " ".join(f"{k}={v:.4f}" for k, v in ms.items())
-              + f" bound={bound:.4f} ms; {smi}")
+        print(f"int4 {name} B=1 I={i} O={o} g={g}: device "
+              + " ".join(f"{k}={v:.4f}" for k, v in dev_ms.items())
+              + "; host-inclusive " + " ".join(f"{k}={v:.4f}" for k, v in host_ms.items())
+              + "; errors " + " ".join(f"{k}={m:.3e}/{a:.3e}/{e:.4f}"
+                                       for k, (m, a, e) in errs.items())
+              + f"; bound={bound:.4f} ms; {smi}", flush=True)
         del qs, ws
 
 
@@ -238,9 +223,13 @@ def main():
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60).stdout.strip()
     dev = torch.device("cuda:0")
-    parent = _parent_lib(sys.argv[1]) if len(sys.argv) > 1 else None
-    bench_decode(dev, parent, smi)
-    bench_int4(dev, parent, smi)
+    other = None
+    if len(sys.argv) > 1:
+        other = {"lib": _other_lib(sys.argv[1]),
+                 "flash_decode": _other_module(sys.argv[1], "flash_decode"),
+                 "int4": _other_module(sys.argv[1], "int4")}
+    bench_decode(dev, other, smi)
+    bench_int4(dev, other, smi)
 
 
 if __name__ == "__main__":

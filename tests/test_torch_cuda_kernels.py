@@ -357,6 +357,30 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
         flash_train_forward(q.half(), k.half(), k.half(), kvalid)
 
 
+def test_wrappers_recheck_what_a_kept_plan_does_not_fix(dev):
+    """A call whose shapes, dtypes and devices match a kept plan still
+    checks the layer, contiguity and alignment (decode) and contiguity
+    (int4) before it launches."""
+    q = torch.zeros(1, 8, 4, 128, device=dev, dtype=torch.bfloat16)
+    cache = torch.zeros(2, 1, 64, 8, 128, device=dev, dtype=torch.bfloat16)
+    lens = torch.ones(1, dtype=torch.int32, device=dev)
+    flash_decode_attention(q, cache, cache, 1, lens)  # the plan is kept
+    with pytest.raises(ValueError):
+        flash_decode_attention(q, cache, cache, 2, lens)
+    q_t = torch.zeros(1, 8, 128, 4, device=dev, dtype=torch.bfloat16).transpose(2, 3)
+    with pytest.raises(ValueError):
+        flash_decode_attention(q_t, cache, cache, 0, lens)
+    q_off = torch.zeros(q.numel() + 1, device=dev, dtype=torch.bfloat16)[1:]
+    with pytest.raises(ValueError):
+        flash_decode_attention(q_off.view(q.shape), cache, cache, 0, lens)
+    w = torch.zeros(256, 128)
+    qw = {n: t.to(dev) for n, t in quantize_int4(w, group_size=64).items()}
+    int4_matmul(torch.zeros(1, 256, device=dev, dtype=torch.bfloat16), qw["p"], qw["gs"])
+    x_strided = torch.zeros(1, 512, device=dev, dtype=torch.bfloat16)[:, ::2]
+    with pytest.raises(ValueError):
+        int4_matmul(x_strided, qw["p"], qw["gs"])
+
+
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,i,o,g", [
@@ -369,6 +393,7 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
     (1, 1536, 12288, 128),   # fast w13
     (1, 6144, 1536, 128),    # fast w2
     (3, 256, 200, 64),       # O not a multiple of 256
+    (1, 256, 272, 64),       # O a multiple of 16, not of 256: a tile past O
     (8, 128, 130, 32),       # ragged O, the matvec kernel's largest B
     (9, 256, 136, 64),       # the tiled kernels' smallest B
     (128, 256, 128, 64),     # one 128 x 128 tile, two K stages

@@ -49,15 +49,15 @@ INT4_SHAPES = [(2560, 6144), (4096, 2560), (2560, 19456), (9728, 2560),
                (1536, 2560), (1536, 1536), (1536, 12288), (6144, 1536)]
 
 
-@pytest.mark.parametrize("balanced", [False, True])
+@pytest.mark.parametrize("n_sm", [H100_SMS, 114])  # H100 SXM and PCIe
 @pytest.mark.parametrize("s,hkv,b", CACHES)
-def test_decode_slices_cover_every_length_once(s, hkv, b, balanced):
-    z = decode_split_count(s, hkv, b, H100_SMS)
+def test_decode_slices_cover_every_length_once(s, hkv, b, n_sm):
+    z = decode_split_count(s, hkv, b, n_sm)
     assert 1 <= z <= MAX_SPLIT
     for length in range(1, s + 1):
         cover = 0
         for i in range(z):
-            start, end = decode_slice(i, z, length, s, balanced)
+            start, end = decode_slice(i, z, length, s)
             if start < end:  # the slices with work follow one another
                 assert start == cover, (length, i, start, cover)
                 cover = end
@@ -68,13 +68,12 @@ def test_decode_slices_cover_every_length_once(s, hkv, b, balanced):
 
 def test_decode_split_covers_the_card_at_long_context():
     """At batch 1 (S = 4160, 8 KV heads) the grid covers all 132 SMs; at
-    len 4000 the 256-position slices put 128 blocks to work, in one wave
-    (the balanced chunk would put 136); the fast cache is one slice."""
+    len 4000 the 256-position slices put 128 blocks to work, in one wave;
+    the fast cache is one slice."""
     z = decode_split_count(4160, 8, 1, H100_SMS)
     assert 8 * z >= H100_SMS
-    busy = [sum(a < e for a, e in (decode_slice(i, z, 4000, 4160, balanced)
-                                   for i in range(z))) for balanced in (False, True)]
-    assert 8 * busy[0] == 128 and 8 * busy[1] == 136
+    busy = sum(a < e for a, e in (decode_slice(i, z, 4000, 4160) for i in range(z)))
+    assert 8 * busy == 128
     assert decode_split_count(10, 4, 1, H100_SMS) == 1
 
 
@@ -127,7 +126,8 @@ def test_decode_split_merge_matches_pallas_interpret(g, lengths):
 
 @pytest.mark.parametrize("n_sm", [H100_SMS, 114, 1])
 @pytest.mark.parametrize("i,o,g", [
-    *((i, o, 128) for i, o in INT4_SHAPES), (256, 200, 64), (128, 130, 32),
+    *((i, o, 128) for i, o in INT4_SHAPES), (256, 200, 64), (256, 272, 64),
+    (128, 130, 32),
     (192, 72, 3), (64, 24, 1)])
 def test_gemv_runs_cover_the_packed_rows_on_group_boundaries(i, o, g, n_sm):
     half, n_groups = i // 2, i // g
