@@ -35,10 +35,15 @@ Phases, each of which ends the run with a nonzero exit if it fails:
    (|x| @ |W| + |y|) elementwise, against the fp32-W plain version, and
    the tensor-core cases also to their own plain version (the Pallas
    kernel's bf16 W, summed in fp32) within 2^-8 |y| + 1e-5 (|x| @ |W|);
-   each prints its TFLOP/s. The int8-KV decode kernel runs at the slow
-   cache (S = 2048 + 64) to kernel 2's bounds. The decode cases (slow cache
+   each prints its TFLOP/s. The int8-KV decode kernel runs in bf16 at the
+   slow caches (S = 2048 + 64 at len 1, 257, 1100 and 2048, S = 4096 + 64
+   at len 4000) to kernel 2's bounds and in fp32 at phase 3c's tiny cache
+   to 1e-4. The fp32 routes of the decode (phase 3's tiny slow and fast
+   caches) and of the int4 matvec (phase 3c's tiny fast shapes) are held
+   to 1e-4 and to 1e-5 of |x| @ |W|. The decode cases (slow cache
    S = 4160 at len 1, 257 and 4000, S = 2112 at len 2048, fast cache S =
-   10) and the matvec cases also print `device_ms`: the same calls
+   10), the int8-KV and fp32 cases and the matvec cases also print
+   `device_ms`: the same calls
    captured in one CUDA graph and replayed (no wrapper host cost; the
    matvec walking copies of its weight, and cuBLAS copies of the bf16 W,
    over twice the L2), with the library call's `library_device_ms` and the
@@ -98,9 +103,11 @@ Phases, each of which ends the run with a nonzero exit if it fails:
    rounding boundary, a 2^-8 jump each, compounding over the layers).
    Faulty weights in the plain chain (one layer's w2, or one 128-column
    tile of it, from the next layer) must score above each bound. The whole
-   120-layer frame is chaotic under such jumps: its error and the kernel's
-   run-to-run spread are printed, not held. Then ms per frame and
-   effective GB/s through the probe's own `_bench`.
+   120-layer frame is chaotic under such jumps: its error is printed, not
+   held; two frames must give equal bits (each column is summed in one
+   order). Then ms per frame and effective GB/s through the probe's own
+   `_bench`, and, timed alike, the frame's grid barriers alone and its
+   weight stream alone (`part_ms`).
 
 Each phase sets the kernels' launch counts to 0 before it drives its path
 and reads them after. The line before the last is a JSON object with each
@@ -323,6 +330,36 @@ def kernel_cases(dev):
                 q, kc, vc, i % n_layer, lens), 100),
             library_device_ms=_device_ms(sdpa, 100)))
         del kc, vc
+    # the fp32 route (CUDA cores) at the caches of phase 3's tiny fp32 model:
+    # the slow one (2 layers, S = 256 + 8, Hkv=2 G=2 D=64) and the fast one
+    # (S = 10 codebooks, Hkv=1 G=3), to fp32's 1e-4
+    cases["flash_decode_fp32"] = []
+    for n_layer, s, hkv, g, length in [(2, 264, 2, 2, 100), (2, 10, 1, 3, 10)]:
+        q = randn(1, hkv, g, 64).float()
+        kc, vc = (randn(n_layer, 1, s, hkv, 64).float() for _ in range(2))
+        lens = torch.tensor([length], dtype=torch.int32, device=dev)
+        mx, mean = _errors(flash_decode_attention(q, kc, vc, 1, lens),
+                           flash_decode_reference(q, kc, vc, 1, lens))
+        ms, plain_ms = _in_turns(
+            lambda i=0: flash_decode_reference(q, kc, vc, i % n_layer, lens),
+            lambda i=0: flash_decode_attention(q, kc, vc, i % n_layer, lens),
+            100)
+        bound = _bound(4 * hkv * g * 64 * length,
+                       4 * (2 * length * hkv * 64 + 2 * hkv * g * 64), PEAK_FP32)
+        qs = q.reshape(1, hkv * g, 1, 64)
+
+        def sdpa(i=0):
+            return F.scaled_dot_product_attention(
+                qs, kc[i % n_layer, :, :length].transpose(1, 2),
+                vc[i % n_layer, :, :length].transpose(1, 2), enable_gqa=True)
+
+        cases["flash_decode_fp32"].append(dict(
+            shape=f"L={n_layer} B=1 S={s} Hkv={hkv} G={g} D=64 len={length} fp32",
+            max_abs_err=mx, mean_abs_err=mean, ms=ms, plain_ms=plain_ms,
+            bound_ms=bound[0], bound_by=bound[1], library_ms=_time_ms(sdpa, 100),
+            device_ms=_device_ms(lambda i=0: flash_decode_attention(
+                q, kc, vc, i % n_layer, lens), 100),
+            library_device_ms=_device_ms(sdpa, 100), ok=mx <= 1e-4))
     cases.update(train_kernel_cases(dev, randn))
     cases.update(quant_kernel_cases(dev, randn))
     torch.cuda.synchronize()
@@ -493,7 +530,9 @@ def quant_kernel_cases(dev, randn):
     plain versions at the quantized serving path's shapes: the matvec route
     at the eight decode shapes (B=1); the tensor-core route at the slow
     stack's four shapes at B=128 (the short prompt's bucket) and B=1024
-    (the long one's), and at a ragged (1000, 384, 200, g=64)."""
+    (the long one's), and at a ragged (1000, 384, 200, g=64); the matvec's
+    fp32 route at phase 3c's tiny shapes; the int8-KV decode at the slow
+    caches (bf16) and phase 3c's tiny one (fp32)."""
     import torch
     import torch.nn.functional as F
 
@@ -563,39 +602,84 @@ def quant_kernel_cases(dev, randn):
             plain_ms=plain_ms, bound_ms=bound[0], bound_by=bound[1],
             library_ms=lib, tflop_s=tflops, ok=ok, **device))
         del qw, p, gs, x, w_lib, err
-    # the slow cache of the serving session: 36 layers, S = 2048 + 64
-    n_layer, s, hkv, grp = 36, 2112, 8, 4
-    kq, ks = _kv_quant(randn(n_layer, 1, s, hkv, 128))
-    vq, vs = _kv_quant(randn(n_layer, 1, s, hkv, 128))
-    for length in (1, 257, 1100, 2048):
-        q = randn(1, hkv, grp, 128)
-        lens = torch.tensor([length], dtype=torch.int32, device=dev)
-        mx = mean = 0.0
-        for layer in (0, n_layer - 1):
-            e = _errors(flash_decode_attention_kv8(q, kq, ks, vq, vs, layer, lens),
-                        flash_decode_kv8_reference(q, kq, ks, vq, vs, layer, lens))
-            mx, mean = max(mx, e[0]), max(mean, e[1])
-        ms, plain_ms = _in_turns(
-            lambda k=0: flash_decode_kv8_reference(q, kq, ks, vq, vs,
-                                                   k % n_layer, lens),
-            lambda k=0: flash_decode_attention_kv8(q, kq, ks, vq, vs,
-                                                   k % n_layer, lens), 100)
-        # SDPA over the same cache dequantized to bf16 beforehand
-        kd = _kv_dequant(kq[:, :, :length], ks[:, :, :length], torch.bfloat16)
-        vd = _kv_dequant(vq[:, :, :length], vs[:, :, :length], torch.bfloat16)
-        qs = q.reshape(1, hkv * grp, 1, 128)
-        lib = _time_ms(lambda k=0: F.scaled_dot_product_attention(
-            qs, kd[k % n_layer].transpose(1, 2), vd[k % n_layer].transpose(1, 2),
-            enable_gqa=True), 100)
-        del kd, vd
-        bound = _bound(4 * hkv * grp * 128 * length,
-                       2 * length * hkv * 128 + 2 * 2 * length * hkv
-                       + 2 * 2 * hkv * grp * 128)
-        cases["flash_decode_kv8"].append(dict(
-            shape=f"L={n_layer} B=1 S={s} Hkv={hkv} G={grp} D=128 len={length} "
-                  f"int8 K/V", max_abs_err=mx, mean_abs_err=mean, ms=ms,
-            plain_ms=plain_ms, bound_ms=bound[0], bound_by=bound[1],
-            library_ms=lib))
+    # the int4 matvec's fp32 route (`int4_gemv_kernel`) at the fast-stack
+    # shapes of phase 3c's tiny model (fast dim 32, 3 x 64 q, 64 x 2 kv,
+    # ffn 64), held to 1e-5 of |x| @ |W| (the order of the fp32 sums)
+    cases["int4_mm_fp32"] = []
+    for name, i, o, g in [("tiny fast wqkv", 32, 320, 16), ("tiny fast wo", 192, 32, 32),
+                          ("tiny fast w13", 32, 128, 16), ("tiny fast w2", 64, 32, 32)]:
+        qw = quantize_int4(randn(i, o).float() * 0.02, group_size=g)
+        p, gs = qw["p"], qw["gs"]
+        x = randn(1, i).float()
+        w_lib = _int4_effective_weight(qw, torch.float32)
+        err = (int4_matmul(x, p, gs) - int4_matmul_reference(x, p, gs)).abs()
+        scale = x.abs() @ w_lib.abs()
+        ms, plain_ms = _in_turns(lambda k=0: int4_matmul_reference(x, p, gs),
+                                 lambda k=0: int4_matmul(x, p, gs), 200)
+        bound = _bound(2 * i * o, i // 2 * o + 4 * (i // g) * o + 4 * (i + o),
+                       PEAK_FP32)
+        cases["int4_mm_fp32"].append(dict(
+            shape=f"{name} B=1 I={i} O={o} g={g} fp32", max_abs_err=err.max().item(),
+            mean_abs_err=err.mean().item(), ms=ms, plain_ms=plain_ms,
+            bound_ms=bound[0], bound_by=bound[1],
+            library_ms=_time_ms(lambda k=0: x @ w_lib, 200),
+            device_ms=_device_ms(lambda k=0: int4_matmul(x, p, gs), 200),
+            library_device_ms=_device_ms(lambda k=0: x @ w_lib, 200),
+            ok=bool((err <= 1e-5 * scale + 1e-6).all())))
+    # the int8 cache of the serving session (36 layers, S = 2048 + 64) and
+    # of the 4096-context one (S = 4096 + 64); each timed call reads the
+    # next layer, `device_ms` / `library_device_ms` from a CUDA-graph replay
+    # as for the decode rows. Then the fp32 route (CUDA cores) at phase 3c's
+    # tiny cache (2 layers, S = 264, Hkv=2 G=2 D=64), to fp32's 1e-4.
+    hkv, grp = 8, 4
+    for n_layer, s, lengths, d, dtype in [
+            (36, 2112, (1, 257, 1100, 2048), 128, torch.bfloat16),
+            (36, 4160, (4000,), 128, torch.bfloat16),
+            (2, 264, (100,), 64, torch.float32)]:
+        h, gq = (hkv, grp) if d == 128 else (2, 2)
+        kq, ks = _kv_quant(randn(n_layer, 1, s, h, d))
+        vq, vs = _kv_quant(randn(n_layer, 1, s, h, d))
+        for length in lengths:
+            q = randn(1, h, gq, d).to(dtype)
+            lens = torch.tensor([length], dtype=torch.int32, device=dev)
+            mx = mean = 0.0
+            for layer in (0, n_layer - 1):
+                e = _errors(flash_decode_attention_kv8(q, kq, ks, vq, vs, layer, lens),
+                            flash_decode_kv8_reference(q, kq, ks, vq, vs, layer, lens))
+                mx, mean = max(mx, e[0]), max(mean, e[1])
+
+            def kernel(k=0):
+                return flash_decode_attention_kv8(q, kq, ks, vq, vs, k % n_layer, lens)
+
+            ms, plain_ms = _in_turns(
+                lambda k=0: flash_decode_kv8_reference(q, kq, ks, vq, vs,
+                                                       k % n_layer, lens),
+                kernel, 100)
+            # SDPA over the same cache dequantized to q's dtype beforehand
+            kd = _kv_dequant(kq[:, :, :length], ks[:, :, :length], dtype)
+            vd = _kv_dequant(vq[:, :, :length], vs[:, :, :length], dtype)
+            qs = q.reshape(1, h * gq, 1, d)
+
+            def sdpa(k=0):
+                return F.scaled_dot_product_attention(
+                    qs, kd[k % n_layer].transpose(1, 2),
+                    vd[k % n_layer].transpose(1, 2), enable_gqa=True)
+
+            lib = _time_ms(sdpa, 100)
+            device = dict(device_ms=_device_ms(kernel, 100),
+                          library_device_ms=_device_ms(sdpa, 100))
+            del kd, vd
+            bound = _bound(4 * h * gq * d * length,
+                           2 * length * h * d + 2 * 2 * length * h
+                           + 2 * q.element_size() * h * gq * d,
+                           PEAK_BF16 if dtype == torch.bfloat16 else PEAK_FP32)
+            fp32 = dtype == torch.float32
+            cases["flash_decode_kv8"].append(dict(
+                shape=f"L={n_layer} B=1 S={s} Hkv={h} G={gq} D={d} len={length} "
+                      f"int8 K/V {str(dtype)[6:]}", max_abs_err=mx,
+                mean_abs_err=mean, ms=ms, plain_ms=plain_ms, bound_ms=bound[0],
+                bound_by=bound[1], library_ms=lib,
+                ok=mx <= 1e-4 if fp32 else mx <= 2e-2 and mean <= 2e-3, **device))
     del kq, ks, vq, vs
     torch.cuda.empty_cache()
     return cases
@@ -1109,6 +1193,8 @@ def run_probe(dev, serving_fast_ms):
             errs.append((got - want).abs())
         frame = faststack.faststack_probe(x, weights, r, variant, dims)
         again = faststack.faststack_probe(x, weights, r, variant, dims)
+        if not torch.equal(frame, again):  # each column summed in one order
+            raise SystemExit(f"probe R={r} {variant}: two frames differ")
         frame_want = faststack.probe_reference(x, weights, variant, dims)
         plain_ms = _time_ms(lambda i=0: faststack.probe_reference(
             x, weights, variant, dims), 2)
@@ -1124,6 +1210,10 @@ def run_probe(dev, serving_fast_ms):
     scale_bytes = 4 * (dims.dqkv + 2 * dims.df + 2 * dims.inter)
     for variant, r in configs:
         ms = faststack._bench(r, variant, dims=dims, weights=weights, device=dev)
+        # a frame's pieces alone (the same best of 3 x 30 frames)
+        parts = {part: faststack.part_ms(part, r, variant, dims=dims,
+                                         weights=weights, device=dev)
+                 for part in ("barriers", "loads")}
         c = checks[variant, r]
         plain_ms = c["plain_ms"]
         traffic = dims.frame_bytes(r)
@@ -1142,18 +1232,24 @@ def run_probe(dev, serving_fast_ms):
                    frame_max_abs_err=c["frame_err"], frame_spread=c["spread"],
                    ms=ms, plain_ms=plain_ms, bound_ms=bound[0],
                    bound_by=bound[1], library_ms=None,
-                   effective_gb_s=traffic / ms / 1e6)
+                   effective_gb_s=traffic / ms / 1e6,
+                   barriers_ms=parts["barriers"], loads_ms=parts["loads"])
         rows.append(row)
         steps_err = ", ".join(f"{d.steps} step(s) ({d.steps * d.n_layer} layers) "
                               f"{e.max().item():.3e} mean {e.mean().item():.3e}"
                               for d, e in zip(held, c["errs"]))
         print(f"probe R={r} {variant}: {ms:.4f} ms/frame, effective "
               f"{row['effective_gb_s']:.0f} GB/s over {traffic / 1e9:.3f} GB "
-              f"(bound {row['bound_ms']:.4f} ms, {row['bound_by']}); plain "
+              f"(bound {row['bound_ms']:.4f} ms, {row['bound_by']}, "
+              f"{row['bound_ms'] / ms:.1%} of it); its "
+              f"{4 * dims.n_layer * dims.steps} grid barriers alone "
+              f"{parts['barriers']:.4f} ms/frame, its weight stream alone "
+              f"{parts['loads']:.4f} ms/frame; plain "
               f"{plain_ms:.2f} ms; max_abs_err at {steps_err} (bound "
               f"{tol[variant]:g}), max |out| {c['out_max']:.3f}; whole frame "
               f"({dims.steps * dims.n_layer} layers): max_abs_err "
-              f"{c['frame_err']:.3e}, kernel run-to-run {c['spread']:.3e}")
+              f"{c['frame_err']:.3e}, kernel run-to-run {c['spread']:.3e} "
+              f"(equal bits required)")
         if not (c["finite"] and row["max_abs_err"] <= tol[variant]):
             raise SystemExit(f"probe R={r} {variant} disagrees with its plain "
                              f"version")
@@ -1355,6 +1451,8 @@ KERNELS = {  # name: (source, the TPU kernel or JAX code it replaces)
                            "fish_speech_tpu/ops/pallas_attention.py:26"),
     "flash_decode": (SRC + "flash_decode.cu",
                      "fish_speech_tpu/ops/pallas_decode.py:47"),
+    "flash_decode_fp32": (SRC + "flash_decode.cu",
+                          "fish_speech_tpu/ops/pallas_decode.py:47"),
     "flash_train_fwd": (SRC + "attn_wgmma.cuh",
                         "fish_speech_tpu/ops/pallas_attention_train.py:56"),
     "flash_train_fwd_fp32": (SRC + "flash_train.cu",
@@ -1366,6 +1464,7 @@ KERNELS = {  # name: (source, the TPU kernel or JAX code it replaces)
     "int4_mm": (SRC + "int4_mm.cu", "fish_speech_tpu/ops/pallas_int4.py:32"),
     "int4_mm_wgmma": (SRC + "int4_mm.cu",
                       "fish_speech_tpu/ops/pallas_int4.py:32"),
+    "int4_mm_fp32": (SRC + "int4_mm.cu", "fish_speech_tpu/ops/pallas_int4.py:32"),
     "flash_decode_kv8": (SRC + "flash_decode.cu",
                          "fish_speech_tpu/ops/attention.py:66"),
     "faststack_probe": (SRC + "faststack.cu",
@@ -1374,11 +1473,13 @@ KERNELS = {  # name: (source, the TPU kernel or JAX code it replaces)
 # headline shapes: the long request's prefill bucket, a 257-long cache, the
 # B=2 x T=1024 fine-tune shape, the slow w13 at B=1 (matvec route) and at
 # B=1024 (tensor-core route), a 257-long int8 cache, the probe at R=0 in
-# bf16; the fp32 attention routes' one small case each
+# bf16; the fp32 attention routes' one small case each, the tiny slow
+# cache and the tiny fast wqkv for the fp32 decode and matvec
 HEADLINE = {"flash_prefill": 1, "flash_prefill_fp32": 0, "flash_decode": 1,
-            "flash_train_fwd": 0, "flash_train_fwd_fp32": 0,
-            "flash_train_bwd": 0, "flash_train_bwd_fp32": 0, "int4_mm": 2, "int4_mm_wgmma": 6,
-            "flash_decode_kv8": 1, "faststack_probe": 0}
+            "flash_decode_fp32": 0, "flash_train_fwd": 0, "flash_train_fwd_fp32": 0,
+            "flash_train_bwd": 0, "flash_train_bwd_fp32": 0, "int4_mm": 2,
+            "int4_mm_wgmma": 6, "int4_mm_fp32": 0, "flash_decode_kv8": 1,
+            "faststack_probe": 0}
 # the kernels whose SASS must hold HGMMA (wgmma) instructions
 WGMMA_KERNELS = ("int4_wgmma_kernel", "train_fwd_wgmma_kernel",
                  "prefill_wgmma_kernel", "train_bwd_dkdv_wgmma_kernel",
@@ -1467,22 +1568,28 @@ def main():
 
     cases = kernel_cases(dev)
     tokenizer = build_test_tokenizer()
+    from fish_speech_tpu_torch.ops.flash_decode import flash_decode_attention
     from fish_speech_tpu_torch.ops.flash_prefill import flash_prefill_attention
     from fish_speech_tpu_torch.ops.flash_train import (flash_train_backward,
                                                        flash_train_forward)
+    from fish_speech_tpu_torch.ops.int4 import int4_matmul
 
-    # the fp32 routes run in the tiny fp32 models' phases
+    # the fp32 routes run in the tiny fp32 models' phases (phase 3's decode
+    # is all fp32, so its launches are the fp32 route's)
     _zero_counts()
     small_reference(dev, tokenizer)
-    fp32_launches = {"flash_prefill_fp32": flash_prefill_attention.launches_cuda_cores}
+    fp32_launches = {"flash_prefill_fp32": flash_prefill_attention.launches_cuda_cores,
+                     "flash_decode_fp32": flash_decode_attention.launches}
     _zero_counts()
     small_train_reference(dev, tokenizer)
     fp32_launches["flash_train_fwd_fp32"] = flash_train_forward.launches_cuda_cores
     fp32_launches["flash_train_bwd_fp32"] = flash_train_backward.launches_cuda_cores
-    print(f"fp32 routes' launches in phases 3 and 3b: {fp32_launches}")
-    if min(fp32_launches.values()) <= 0:
-        raise SystemExit("an fp32 attention route was never launched")
+    _zero_counts()
     small_quant_reference(dev, tokenizer)
+    fp32_launches["int4_mm_fp32"] = int4_matmul.launches_gemv
+    print(f"fp32 routes' launches in phases 3, 3b and 3c: {fp32_launches}")
+    if min(fp32_launches.values()) <= 0:
+        raise SystemExit("an fp32 route was never launched")
     _, launches = run_slice(dev, tokenizer)
     gc.collect()  # the serving slice's model and caches go before training
     torch.cuda.empty_cache()

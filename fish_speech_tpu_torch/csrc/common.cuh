@@ -36,6 +36,15 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16(v);
 }
 
+// Byte E of a word of four int8 values as an exact fp32 integer: wx is the
+// word ^ 0x80808080 (each byte + 128), placed in the mantissa of 2^23, and
+// 2^23 + 128 is taken off again (a byte permute and an add, in place of a
+// conversion instruction, which the SM issues at a lower rate).
+template <int E>
+__device__ __forceinline__ float i8_to_f32(uint32_t wx) {
+  return __uint_as_float(__byte_perm(wx, 0x4B000000u, 0x7650 + E)) - 8388736.f;
+}
+
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFullMask, v, o);

@@ -22,43 +22,118 @@
 // byte, so a frame moves STEPS * NL * 34.6 MB of int8 weight at flagship
 // dims (4.15 GB) for ~8.3 GFLOP: bytes, 1.24 ms at 3.35 TB/s.
 //
-// Design: one cooperative launch runs the whole frame, so the ~480 kernel
-// launches of an eager fast stack become one; stages that depend on each
-// other are separated by grid.sync(). A stage's matvec is cut into units of
-// 512 columns (a warp reads one 16-byte vector of 16 int8 columns per lane
-// and row) by a chunk of rows sized so that the units cover the grid; the
-// 8 warps of a block share the rows and reduce through shared memory, and
-// each unit adds its column sums into a global fp32 (bf16) or int32 (w8a8,
-// exact) accumulator with atomics. The small vector work between matvecs
-// (residual, rms, the mock-attention sum, silu * gate, the activation
-// absmax) is done by every block from the global vectors after the sync,
-// in the same order in every block, so all blocks agree bit for bit.
-// "Resident" layers cannot live in shared memory (132 x 227 KB < one 34.6
-// MB layer): the first R layers are read through an L2 persisting
-// access-policy window (50 MB of L2) and the streamed ones with
-// evict-first loads; R changes where the bytes come from, never the math.
-
-#include <cooperative_groups.h>
+// Design: one cooperative launch runs the whole frame, one block per SM.
+// The weights do not depend on the activations, so they need not wait for
+// the barriers between the stages that do: a producer warp streams each
+// block's weights into a ring of 16 KB slots in shared memory with 1-D
+// bulk copies (cp.async.bulk against the slots' mbarriers), running ahead
+// of the eight consumer warps across their grid barriers, so the memory
+// keeps streaming while the consumers wait (8, 32 and 64 KB slots measured
+// slower). The consumers' barriers leave the producer out: named barrier 1
+// inside the block, and a grid barrier of their own (one release add per
+// block on a word whose top bit flips at each barrier, the scheme of
+// cooperative groups' grid sync).
+//
+// Work split: the columns of each matrix are cut into units of 4; block b
+// owns units [b NU / NB, (b + 1) NU / NB) of every matrix, over all rows, so
+// no sum crosses blocks: each column's sum is stored by its block (no
+// atomics, no zeroing, the same bits on every run). The weights are packed
+// once per weight set (`ops/faststack.py:pack_weights`, outside the frame):
+// layer by layer (the first R layers are one range, for the L2 window),
+// then block by block, then matrix by matrix; a block's strip of a matrix
+// is its quads of 4 rows, each quad's units, each unit a 4 x 4 tile stored
+// column by column (column c's 4 rows at bytes 4c..4c+3), so one dp4a
+// takes a column of a quad; W13's units pair gate and up columns. A
+// stage's strip streams in chunks of whole quads. Consumer thread t of an
+// n-unit strip takes unit t % n and every P-th quad (P = 256 / n); one
+// thread then adds a column's P partial sums in a fixed order and the
+// block stores the stage's output for its columns: u = x Wqkv, x_mid =
+// x_in + y Wo, g = silu(gate) * up, h = x_mid + g W2.
+//
+// The small vector work between matvecs (rms, the mock-attention sum and
+// mix, the activation's bf16 rounding or int8 quantization) is done by
+// every block from those global vectors after the barrier, in the same
+// order in every block, so all blocks agree bit for bit. "Resident" layers
+// cannot live in shared memory (132 x 227 KB < one 34.6 MB layer): the
+// first R layers are read through an L2 persisting access-policy window
+// (50 MB of L2) and with an evict-last hint, the streamed ones with
+// evict-first; R changes where the bytes come from, never the math.
+//
+// `part` runs a piece of the frame alone, to time it: the grid barriers
+// alone (kBarriers), or the weight stream alone (kLoads: the producer as
+// in a frame, the consumers only releasing each slot).
 
 #include "common.cuh"
-
-namespace cg = cooperative_groups;
+#include "tma.cuh"
 
 namespace {
 
-constexpr int NT = 256;         // threads per block
-constexpr int NWARP = NT / 32;
-constexpr int UCOLS = 512;      // columns per unit: 32 lanes x 16
+constexpr int NC = 256;          // consumer threads (8 warps)
+constexpr int NCW = NC / 32;
+constexpr int NT = NC + 32;      // and the producer warp
+constexpr int SLOT = 16384;      // bytes of a ring slot
+constexpr int MAX_SLOTS = 16;
 constexpr float kRmsEps = 1e-5f;
 
+enum Part { kFrame = 0, kBarriers = 1, kLoads = 2 };
+
 struct Probe {
-  const int8_t* w;    // (NL, layer_bytes): Wqkv | Wo | W13 | W2, each (I, O)
-  const float* sc;    // (NL, DQKV + DF + 2 INTER + DF) column scales, same order
+  const int8_t* w;    // packed (NL, layer_bytes), see above
+  const float* sc;    // (NL, DQKV + DF + 2 INTER + DF) column scales, in
+                      // the order Wqkv | Wo | W13 | W2
   const float* x0;    // (DF) input
   float* out;         // (DF) output
   float* ws;          // workspace, see the offsets below
-  int df, dqkv, inter, n_layer, steps, r_resident;
+  unsigned* bar;      // the grid barrier's word
+  int df, dqkv, inter, n_layer, steps, r_resident, n_slots, part;
 };
+
+// A wait that outlasts this ends the launch with an error (a trap) instead
+// of hanging the card: a frame takes milliseconds.
+constexpr uint64_t kStuckNs = 10000000000ull;
+
+__device__ __forceinline__ uint64_t now_ns() {
+  uint64_t t;
+  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
+  return t;
+}
+
+// waits for an mbarrier's phase `parity` (or traps, see kStuckNs)
+__device__ __forceinline__ void slot_wait(uint64_t* bar, uint32_t parity) {
+  if (fs::tma::bar_try_wait(bar, parity)) return;
+  const uint64_t t0 = now_ns();
+  for (unsigned n = 1; !fs::tma::bar_try_wait(bar, parity); ++n)
+    if (n % 256 == 0 && now_ns() - t0 > kStuckNs) __trap();
+}
+
+// the consumer threads of the block (the producer warp never joins)
+__device__ __forceinline__ void consumer_sync() {
+  asm volatile("bar.sync 1, %0;\n" :: "n"(NC) : "memory");
+}
+
+// Every block's consumers: all stores before it are seen by all loads after
+// it. The top bit of *bar flips once all blocks have arrived; thread 0
+// arrives with a release add and waits with acquire loads, around block
+// syncs (CUTLASS's generic barrier does the same; a __threadfence on each
+// side instead, as cooperative groups' grid sync has, was slower).
+__device__ void grid_sync(unsigned* bar) {
+  consumer_sync();
+  if (threadIdx.x == 0) {
+    const unsigned inc = blockIdx.x == 0 ? 0x80000000u - (gridDim.x - 1) : 1u;
+    unsigned old;  // the release publishes the block's stores (after the sync)
+    asm volatile("atom.release.gpu.global.add.u32 %0, [%1], %2;\n"
+                 : "=r"(old) : "l"(bar), "r"(inc) : "memory");
+    const uint64_t t0 = now_ns();
+    unsigned now;
+    for (unsigned n = 1;; ++n) {
+      asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n"
+                   : "=r"(now) : "l"(bar) : "memory");
+      if ((old ^ now) & 0x80000000u) break;
+      if (n % 256 == 0 && now_ns() - t0 > kStuckNs) __trap();
+    }
+  }
+  consumer_sync();  // the acquire orders the block's loads after the flip
+}
 
 __device__ __forceinline__ float bf16_round(float v) {
   return __bfloat162float(__float2bfloat16(v));
@@ -67,11 +142,11 @@ __device__ __forceinline__ float bf16_round(float v) {
 __device__ float block_reduce(float v, float* red, bool is_max) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   v = is_max ? fs::warp_max(v) : fs::warp_sum(v);
-  __syncthreads();  // red may still be read from the previous reduction
+  consumer_sync();  // red may still be read from the previous reduction
   if (lane == 0) red[warp] = v;
-  __syncthreads();
+  consumer_sync();
   float r = red[0];
-  for (int i = 1; i < NWARP; ++i) r = is_max ? fmaxf(r, red[i]) : r + red[i];
+  for (int i = 1; i < NCW; ++i) r = is_max ? fmaxf(r, red[i]) : r + red[i];
   return r;
 }
 
@@ -80,279 +155,436 @@ __device__ float block_reduce(float v, float* red, bool is_max) {
 template <bool W8A8>
 __device__ float prepare_act(float* act_f, int8_t* act_q, int n, float* red) {
   if (!W8A8) {
-    for (int i = threadIdx.x; i < n; i += NT) act_f[i] = bf16_round(act_f[i]);
-    __syncthreads();
+    for (int i = threadIdx.x; i < n; i += NC) act_f[i] = bf16_round(act_f[i]);
+    consumer_sync();
     return 1.f;
   }
   float m = 0.f;
-  for (int i = threadIdx.x; i < n; i += NT) m = fmaxf(m, fabsf(act_f[i]));
+  for (int i = threadIdx.x; i < n; i += NC) m = fmaxf(m, fabsf(act_f[i]));
   const float xs = block_reduce(m, red, true) / 127.f;
   const float inv = fmaxf(xs, 1e-12f);
-  for (int i = threadIdx.x; i < n; i += NT)
+  for (int i = threadIdx.x; i < n; i += NC)
     act_q[i] = (int8_t)fminf(fmaxf(rintf(act_f[i] / inv), -127.f), 127.f);
-  __syncthreads();
+  consumer_sync();
   return xs;
 }
 
-__device__ __forceinline__ uint4 load16(const int8_t* p, bool resident) {
-  const int4 v = resident ? __ldg(reinterpret_cast<const int4*>(p))
-                          : __ldcs(reinterpret_cast<const int4*>(p));
-  return make_uint4((unsigned)v.x, (unsigned)v.y, (unsigned)v.z, (unsigned)v.w);
+// This block's strip of matrix m (0 Wqkv, 1 Wo, 2 W13, 3 W2) of a layer:
+// its first unit, its units, the matrix's rows and the strip's byte offset
+// in the packed layer (`ops/faststack.py:piece_plan`).
+struct Strip {
+  int u0, nu, in;
+  size_t off;
+};
+
+__device__ Strip strip(const Probe& a, int m) {
+  const int ins[4] = {a.df, a.df, a.df, a.inter};
+  const int outs[4] = {a.dqkv, a.df, 2 * a.inter, a.df};
+  const int b = blockIdx.x, nb = gridDim.x;
+  Strip s{0, 0, ins[m], 0};
+  for (int k = 0; k < 4; ++k) {
+    const int units = outs[k] / 4;
+    const int u0 = b * units / nb, u1 = (b + 1) * units / nb;
+    s.off += (size_t)ins[k] * 4 * u0;            // the blocks before b
+    if (k < m) s.off += (size_t)ins[k] * 4 * (u1 - u0);  // b's earlier strips
+    if (k == m) s.u0 = u0, s.nu = u1 - u0;
+  }
+  return s;
 }
 
-// acc[O] += act[I] @ W[I, O] (int8), over the whole grid.
-template <bool W8A8>
-__device__ void matvec(const int8_t* __restrict__ W, int in_dim, int out_dim,
-                       const float* act_f, const int8_t* act_q, float* acc,
-                       float* red_cols, bool resident) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int n_ct = (out_dim + UCOLS - 1) / UCOLS;
-  // rows per unit: a multiple of 4 * NWARP, enough units to cover the grid
-  int rc = (int)(((long long)in_dim * n_ct + gridDim.x - 1) / gridDim.x);
-  rc = max(4 * NWARP, (rc + 4 * NWARP - 1) / (4 * NWARP) * (4 * NWARP));
-  const int n_rt = (in_dim + rc - 1) / rc;
-  for (int unit = blockIdx.x; unit < n_ct * n_rt; unit += gridDim.x) {
-    const int ct = unit % n_ct, rt = unit / n_ct;
-    const int col = ct * UCOLS + lane * 16;
-    const bool valid = col < out_dim;
-    const int r_end = min(in_dim, (rt + 1) * rc);
-    float facc[16];
-    int iacc[16];
-#pragma unroll
-    for (int c = 0; c < 16; ++c) facc[c] = 0.f, iacc[c] = 0;
-    if (valid) {
-      for (int r = rt * rc + warp * 4; r < r_end; r += NWARP * 4) {
-        uint4 rows[4];
-#pragma unroll
-        for (int t = 0; t < 4; ++t)
-          rows[t] = load16(W + (size_t)(r + t) * out_dim + col, resident);
-        if (W8A8) {
-          const int xp = *reinterpret_cast<const int*>(act_q + r);
-          const unsigned* a0 = &rows[0].x;
-          const unsigned* a1 = &rows[1].x;
-          const unsigned* a2 = &rows[2].x;
-          const unsigned* a3 = &rows[3].x;
-#pragma unroll
-          for (int wd = 0; wd < 4; ++wd) {
-            // 4 x 4 byte transpose: column 4*wd + j gets byte j of rows 0..3
-            const unsigned t0 = __byte_perm(a0[wd], a1[wd], 0x5140);
-            const unsigned t1 = __byte_perm(a2[wd], a3[wd], 0x5140);
-            const unsigned t2 = __byte_perm(a0[wd], a1[wd], 0x7362);
-            const unsigned t3 = __byte_perm(a2[wd], a3[wd], 0x7362);
-            iacc[4 * wd + 0] = __dp4a((int)__byte_perm(t0, t1, 0x5410), xp, iacc[4 * wd + 0]);
-            iacc[4 * wd + 1] = __dp4a((int)__byte_perm(t0, t1, 0x7632), xp, iacc[4 * wd + 1]);
-            iacc[4 * wd + 2] = __dp4a((int)__byte_perm(t2, t3, 0x5410), xp, iacc[4 * wd + 2]);
-            iacc[4 * wd + 3] = __dp4a((int)__byte_perm(t2, t3, 0x7632), xp, iacc[4 * wd + 3]);
-          }
-        } else {
-#pragma unroll
-          for (int t = 0; t < 4; ++t) {
-            const float xv = act_f[r + t];
-            const int8_t* b = reinterpret_cast<const int8_t*>(&rows[t]);
-#pragma unroll
-            for (int c = 0; c < 16; ++c) facc[c] = fmaf(xv, (float)b[c], facc[c]);
-          }
-        }
+// quads of a strip's chunk: whole quads of all its units in one slot
+__device__ __forceinline__ int chunk_quads(int nu) { return SLOT / (16 * nu); }
+
+// A place in the ring: the slot of the next chunk and the parity of its
+// barriers' phase (flipped at each pass over the ring).
+struct RingPos {
+  int slot = 0;
+  uint32_t phase = 0;
+  __device__ __forceinline__ void next(int n_slots) {
+    if (++slot == n_slots) slot = 0, phase ^= 1;
+  }
+};
+
+// The producer (lane 0 of the last warp): every chunk of the frame, in the
+// consumers' order, each into the next slot once its consumers left it.
+__device__ void produce(const Probe& a, unsigned char* ring, uint64_t* full,
+                        uint64_t* empty) {
+  if ((threadIdx.x & 31) != 0) return;
+  uint64_t evict_first, evict_last;
+  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n"
+               : "=l"(evict_first));
+  asm volatile("createpolicy.fractional.L2::evict_last.b64 %0, 1.0;\n"
+               : "=l"(evict_last));
+  Strip st[4];
+  for (int m = 0; m < 4; ++m) st[m] = strip(a, m);
+  const size_t layer_bytes = (size_t)a.df * a.dqkv + (size_t)a.df * a.df +
+                             (size_t)a.df * 2 * a.inter + (size_t)a.inter * a.df;
+  RingPos at;
+  for (int it = 0; it < a.steps * a.n_layer; ++it) {
+    const int l = it % a.n_layer;
+    const int8_t* wl = a.w + (size_t)l * layer_bytes;
+    const uint64_t policy = l < a.r_resident ? evict_last : evict_first;
+    for (int m = 0; m < 4; ++m) {
+      const Strip& s = st[m];
+      if (s.nu == 0) continue;
+      const int quads = s.in / 4, cq = chunk_quads(s.nu);
+      for (int q0 = 0; q0 < quads; q0 += cq, at.next(a.n_slots)) {
+        // the slot's previous chunk was released (a fresh barrier passes)
+        slot_wait(&empty[at.slot], at.phase ^ 1);
+        const uint32_t bytes = (uint32_t)(min(cq, quads - q0) * 16 * s.nu);
+        fs::tma::bar_expect(&full[at.slot], bytes);
+        fs::tma::load_1d(ring + (size_t)at.slot * SLOT,
+                         wl + s.off + (size_t)q0 * 16 * s.nu, bytes,
+                         &full[at.slot], policy);
       }
     }
-    // reduce the 8 warps' column sums, then one atomic per column
-#pragma unroll
-    for (int c = 0; c < 16; ++c)
-      red_cols[warp * UCOLS + lane * 16 + c] = W8A8 ? __int_as_float(iacc[c]) : facc[c];
-    __syncthreads();
-    for (int cc = threadIdx.x; cc < UCOLS; cc += NT) {
-      const int o = ct * UCOLS + cc;
-      if (o >= out_dim) continue;
-      if (W8A8) {
-        int s = 0;
-        for (int w2 = 0; w2 < NWARP; ++w2) s += __float_as_int(red_cols[w2 * UCOLS + cc]);
-        atomicAdd(reinterpret_cast<int*>(acc) + o, s);
-      } else {
-        float s = 0.f;
-        for (int w2 = 0; w2 < NWARP; ++w2) s += red_cols[w2 * UCOLS + cc];
-        atomicAdd(acc + o, s);
-      }
-    }
-    __syncthreads();
   }
 }
 
-// The column-scaled value of accumulator entry o.
+// a + b of two column sums (int32 bits under w8a8)
 template <bool W8A8>
-__device__ __forceinline__ float scaled(const float* acc, int o, const float* s,
-                                        float xs) {
-  if (W8A8) return (float)reinterpret_cast<const int*>(acc)[o] * (xs * s[o]);
-  return acc[o] * s[o];
+__device__ __forceinline__ float add(float a, float b) {
+  if (W8A8) return __int_as_float(__float_as_int(a) + __float_as_int(b));
+  return a + b;
 }
 
-__device__ void zero(float* p, int n, const cg::grid_group& grid) {
-  for (int i = (int)grid.thread_rank(); i < n; i += (int)grid.size()) p[i] = 0.f;
+// The column-scaled value of a column sum (int32 bits under w8a8).
+template <bool W8A8>
+__device__ __forceinline__ float scaled(float sum, float s, float xs) {
+  if (W8A8) return (float)__float_as_int(sum) * (xs * s);
+  return sum * s;
+}
+
+// The global vectors between the stages (fp32, written by the blocks that
+// own their columns, read by every block after the barrier).
+struct Vecs {
+  float *x_in, *x_mid, *u, *g, *h;
+};
+
+// act[I] @ W[I, strip] for this block's strip s of matrix m, chunk by
+// chunk from the ring (k counts the frame's chunks), then the stage's
+// output for the strip's columns: m = 0 u = Wqkv's columns; 1 x_mid = x_in
+// + Wo's; 2 g = silu(gate) * up (W13's units are packed as gate 2u, 2u + 1,
+// up 2u, 2u + 1); 3 h = x_mid + W2's. red_cols holds NC x 4 partial sums.
+template <bool W8A8>
+__device__ void matvec(const Probe& a, int m, const Strip& s, const float* sc,
+                       float xs, const float* act_f, const int8_t* act_q,
+                       const Vecs& v, const unsigned char* ring, uint64_t* full,
+                       uint64_t* empty, float* red_cols, RingPos& at) {
+  if (s.nu == 0) return;
+  const int t = threadIdx.x, lane = t & 31;
+  const int P = NC / s.nu;          // threads per unit
+  const bool active = t < P * s.nu;
+  const int u = t % s.nu, p = t / s.nu;
+  const int quads = s.in / 4, cq = chunk_quads(s.nu);
+  // the epilogue's residual entries, fetched while the chunks stream
+  // the epilogue's column scales and residual entries (thread t takes
+  // columns t + n NC, or the gate/up pairs t + n NC under W13), fetched
+  // while the chunks stream
+  constexpr int RN = 4;  // columns per thread at most: 4 nu <= 4 NC
+  float resid[RN], sc0[RN], sc1[RN];
+#pragma unroll
+  for (int n = 0; n < RN; ++n) {
+    const int j = t + n * NC;
+    if (m == 2) {
+      const int i = 2 * s.u0 + j;  // gate column i, up column INTER + i
+      if (j < 2 * s.nu) sc0[n] = sc[i], sc1[n] = sc[a.inter + i];
+    } else if (j < 4 * s.nu) {
+      sc0[n] = sc[4 * s.u0 + j];
+      if (m != 0) resid[n] = __ldcg((m == 1 ? v.x_in : v.x_mid) + 4 * s.u0 + j);
+    }
+  }
+  float facc[4] = {0.f, 0.f, 0.f, 0.f};
+  int iacc[4] = {0, 0, 0, 0};
+  // one 16-byte tile (quad q, this thread's unit) into the sums
+  auto tile = [&](const uint4& w, int q) {
+    const uint32_t col[4] = {w.x, w.y, w.z, w.w};
+    if (W8A8) {
+      const int xp = *reinterpret_cast<const int*>(act_q + 4 * q);
+#pragma unroll
+      for (int c = 0; c < 4; ++c) iacc[c] = __dp4a((int)col[c], xp, iacc[c]);
+    } else {
+      const float4 x = *reinterpret_cast<const float4*>(act_f + 4 * q);
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const uint32_t wx = col[c] ^ 0x80808080u;
+        facc[c] = fmaf(x.x, fs::i8_to_f32<0>(wx), facc[c]);
+        facc[c] = fmaf(x.y, fs::i8_to_f32<1>(wx), facc[c]);
+        facc[c] = fmaf(x.z, fs::i8_to_f32<2>(wx), facc[c]);
+        facc[c] = fmaf(x.w, fs::i8_to_f32<3>(wx), facc[c]);
+      }
+    }
+  };
+  const int step = P * s.nu;  // uint4s between this thread's quads
+  int r = p;                  // (p - q0) mod P: its first quad is q0 + r
+  for (int q0 = 0; q0 < quads; q0 += cq, at.next(a.n_slots)) {
+    slot_wait(&full[at.slot], at.phase);
+    const int q1 = min(q0 + cq, quads);
+    if (active) {
+      // its quads q = p (mod P) of the chunk, in order, four loads at a time
+      const uint4* w = reinterpret_cast<const uint4*>(ring + (size_t)at.slot * SLOT) +
+                       r * s.nu + u;
+      for (int q = q0 + r; q < q1; q += 4 * P, w += 4 * step) {
+        uint4 x[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          if (q + i * P < q1) x[i] = w[i * step];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          if (q + i * P < q1) tile(x[i], q + i * P);
+      }
+    }
+    r -= cq % P;
+    if (r < 0) r += P;
+    __syncwarp();
+    if (lane == 0) fs::tma::bar_arrive(&empty[at.slot]);  // the warp left the slot
+  }
+  if (active)
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+      red_cols[t * 4 + c] = W8A8 ? __int_as_float(iacc[c]) : facc[c];
+  consumer_sync();
+  // column j = 4 uj + c: its P partial sums (partial i at 4 (i nu + uj) + c),
+  // in four chains i = 0, 1, 2, 3 (mod 4), (s0 + s1) + (s2 + s3); the sum
+  // goes where partial 0 was, which only this thread reads
+  const int stride = 4 * s.nu;
+  for (int j = t; j < stride; j += NC) {
+    float c0 = 0.f, c1 = 0.f, c2 = 0.f, c3 = 0.f;  // int32 bits under w8a8
+    for (int i = 0; i < P; i += 4) {
+      const float* r = red_cols + i * stride + j;
+      c0 = add<W8A8>(c0, r[0]);
+      if (i + 1 < P) c1 = add<W8A8>(c1, r[stride]);
+      if (i + 2 < P) c2 = add<W8A8>(c2, r[2 * stride]);
+      if (i + 3 < P) c3 = add<W8A8>(c3, r[3 * stride]);
+    }
+    red_cols[j] = add<W8A8>(add<W8A8>(c0, c1), add<W8A8>(c2, c3));
+  }
+  consumer_sync();
+#pragma unroll
+  for (int n = 0; n < RN; ++n) {
+    const int j = t + n * NC;
+    if (m == 2) {  // gate and up of the pair i = 2 (u0 + uj) + e
+      if (j >= 2 * s.nu) break;
+      const int uj = j / 2, e = j % 2;
+      const float f1 = scaled<W8A8>(red_cols[4 * uj + e], sc0[n], xs);
+      const float f3 = scaled<W8A8>(red_cols[4 * uj + 2 + e], sc1[n], xs);
+      v.g[2 * s.u0 + j] = f1 / (1.f + expf(-f1)) * f3;
+      continue;
+    }
+    if (j >= 4 * s.nu) break;
+    const int o = 4 * s.u0 + j;
+    const float y = scaled<W8A8>(red_cols[j], sc0[n], xs);
+    if (m == 0) v.u[o] = y;
+    else if (m == 1) v.x_mid[o] = resid[n] + y;
+    else v.h[o] = resid[n] + y;
+  }
+}
+
+// The consumers release every chunk of the frame unread (part kLoads).
+__device__ void drain(const Probe& a, const Strip* st, uint64_t* full,
+                      uint64_t* empty) {
+  RingPos at;
+  for (int it = 0; it < a.steps * a.n_layer; ++it)
+    for (int m = 0; m < 4; ++m) {
+      const Strip& s = st[m];
+      if (s.nu == 0) continue;
+      for (int q0 = 0; q0 < s.in / 4; q0 += chunk_quads(s.nu), at.next(a.n_slots)) {
+        slot_wait(&full[at.slot], at.phase);
+        __syncwarp();
+        if ((threadIdx.x & 31) == 0) fs::tma::bar_arrive(&empty[at.slot]);
+      }
+    }
+}
+
+// n values of a global vector into act (read past L1: other blocks stored
+// them); returns this thread's sum of their squares
+__device__ float load_vec(float* act, const float* src, int n) {
+  float ss = 0.f;
+#pragma unroll 4
+  for (int i = threadIdx.x; i < n / 4; i += NC) {
+    const float4 x = __ldcg(reinterpret_cast<const float4*>(src) + i);
+    reinterpret_cast<float4*>(act)[i] = x;
+    ss += x.x * x.x + x.y * x.y + x.z * x.z + x.w * x.w;
+  }
+  return ss;
+}
+
+// act *= rsqrt(mean(act^2) + eps) over n values, from this thread's ss
+__device__ void rms_norm(float* act, float ss, int n, float* red) {
+  const float r = rsqrtf(block_reduce(ss, red, false) / n + kRmsEps);
+  for (int i = threadIdx.x; i < n; i += NC) act[i] *= r;
 }
 
 template <bool W8A8>
-__global__ void __launch_bounds__(NT) faststack_kernel(Probe a) {
-  cg::grid_group grid = cg::this_grid();
-  extern __shared__ float smem[];
+__global__ void __launch_bounds__(NT, 1) faststack_kernel(Probe a) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  __shared__ __align__(8) uint64_t full[MAX_SLOTS], empty[MAX_SLOTS];
   const int DF = a.df, DQKV = a.dqkv, INTER = a.inter;
   const int amax = max(DF, INTER);
-  float* act_f = smem;                                         // [amax]
-  float* red_cols = act_f + amax;                              // [NWARP * UCOLS]
-  float* red = red_cols + NWARP * UCOLS;                       // [32]
-  int8_t* act_q = reinterpret_cast<int8_t*>(red + 32);         // [amax]
+  unsigned char* ring = smem;                                   // [n_slots][SLOT]
+  float* act_f = reinterpret_cast<float*>(ring + (size_t)a.n_slots * SLOT);  // [amax]
+  float* red_cols = act_f + amax;                               // [NC * 4]
+  float* red = red_cols + NC * 4;                               // [32]
+  int8_t* act_q = reinterpret_cast<int8_t*>(red + 32);          // [amax]
 
-  float* x_in = a.ws;               // the layer's input
-  float* x_mid = x_in + DF;         // after the attention residual
-  float* acc_qkv = x_mid + DF;
-  float* acc_o = acc_qkv + DQKV;
-  float* acc_f = acc_o + DF;
-  float* acc_2 = acc_f + 2 * INTER;
-
-  const size_t o_wo = (size_t)DF * DQKV;
-  const size_t o_w13 = o_wo + (size_t)DF * DF;
-  const size_t o_w2 = o_w13 + (size_t)DF * 2 * INTER;
-  const size_t layer_bytes = o_w2 + (size_t)INTER * DF;
-  const int sc_len = DQKV + DF + 2 * INTER + DF;
-
-  zero(acc_qkv, DQKV, grid);
-  grid.sync();
-
-  float xs_prev_w2 = 1.f;  // activation scale of the previous layer's W2 input
-  const float* s_prev_w2 = nullptr;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < a.n_slots; ++i) {
+      fs::tma::bar_init(&full[i], 1);
+      fs::tma::bar_init(&empty[i], NCW);
+    }
+    fs::tma::bar_init_fence();
+  }
+  __syncthreads();  // the barriers' init is visible; the last sync of all
+  if (threadIdx.x >= NC) {
+    if (a.part != kBarriers) produce(a, ring, full, empty);
+    return;
+  }
   const int total = a.steps * a.n_layer;
+  if (a.part == kBarriers) {
+    for (int i = 0; i < 4 * total; ++i) grid_sync(a.bar);
+    return;
+  }
+  Strip st[4];
+  for (int m = 0; m < 4; ++m) st[m] = strip(a, m);
+  if (a.part == kLoads) {
+    drain(a, st, full, empty);
+    return;
+  }
+
+  Vecs v;
+  v.x_in = a.ws;           // the layer's input (rms output), block 0 stores it
+  v.x_mid = v.x_in + DF;   // after the attention residual
+  v.u = v.x_mid + DF;      // x @ Wqkv
+  v.g = v.u + DQKV;        // silu(gate) * up
+  v.h = v.g + INTER;       // x_mid + g @ W2, the next layer's rms input
+  const int sc_len = DQKV + DF + 2 * INTER + DF;
+  RingPos at;  // the next chunk's place in the ring
+
   for (int it = 0; it < total; ++it) {
-    const int l = it % a.n_layer;
-    const bool resident = l < a.r_resident;
-    const int8_t* W = a.w + (size_t)l * layer_bytes;
-    const float* s_qkv = a.sc + (size_t)l * sc_len;
+    const float* s_qkv = a.sc + (size_t)(it % a.n_layer) * sc_len;
     const float* s_wo = s_qkv + DQKV;
     const float* s_w13 = s_wo + DF;
     const float* s_w2 = s_w13 + 2 * INTER;
 
-    // A: the layer input (the previous layer's rms output), then x @ Wqkv
+    // A: the layer input (rms of the previous layer's h), then x @ Wqkv
     if (it == 0) {
-      for (int i = threadIdx.x; i < DF; i += NT) act_f[i] = a.x0[i];
+      for (int i = threadIdx.x; i < DF; i += NC) act_f[i] = a.x0[i];
     } else {
-      float ss = 0.f;
-      for (int i = threadIdx.x; i < DF; i += NT) {
-        const float v = x_mid[i] + scaled<W8A8>(acc_2, i, s_prev_w2, xs_prev_w2);
-        act_f[i] = v;
-        ss += v * v;
-      }
-      const float r = rsqrtf(block_reduce(ss, red, false) / DF + kRmsEps);
-      for (int i = threadIdx.x; i < DF; i += NT) act_f[i] *= r;
+      rms_norm(act_f, load_vec(act_f, v.h, DF), DF, red);
     }
-    __syncthreads();
+    consumer_sync();
     if (blockIdx.x == 0)
-      for (int i = threadIdx.x; i < DF; i += NT) x_in[i] = act_f[i];
-    zero(acc_o, DF, grid);
+      for (int i = threadIdx.x; i < DF; i += NC) v.x_in[i] = act_f[i];
     float xs = prepare_act<W8A8>(act_f, act_q, DF, red);
-    matvec<W8A8>(W, DF, DQKV, act_f, act_q, acc_qkv, red_cols, resident);
-    grid.sync();
+    matvec<W8A8>(a, 0, st[0], s_qkv, xs, act_f, act_q, v, ring, full, empty,
+                 red_cols, at);
+    grid_sync(a.bar);
 
     // B: mock attention, then y @ Wo
     float kv = 0.f;
-    for (int i = DF + threadIdx.x; i < DQKV; i += NT)
-      kv += scaled<W8A8>(acc_qkv, i, s_qkv, xs);
+    for (int i = DF / 4 + threadIdx.x; i < DQKV / 4; i += NC) {
+      const float4 x = __ldcg(reinterpret_cast<const float4*>(v.u) + i);
+      kv += (x.x + x.y) + (x.z + x.w);
+    }
     const float mix = 1.f + block_reduce(kv, red, false) * 1e-3f;
-    for (int i = threadIdx.x; i < DF; i += NT)
-      act_f[i] = scaled<W8A8>(acc_qkv, i, s_qkv, xs) * mix;
-    __syncthreads();
-    zero(acc_f, 2 * INTER, grid);
-    xs = prepare_act<W8A8>(act_f, act_q, DF, red);
-    matvec<W8A8>(W + o_wo, DF, DF, act_f, act_q, acc_o, red_cols, resident);
-    grid.sync();
-
-    // C: attention residual, rms, then h @ W13
-    float ss = 0.f;
-    for (int i = threadIdx.x; i < DF; i += NT) {
-      const float v = x_in[i] + scaled<W8A8>(acc_o, i, s_wo, xs);
-      act_f[i] = v;
-      ss += v * v;
+    for (int i = threadIdx.x; i < DF / 4; i += NC) {
+      float4 x = __ldcg(reinterpret_cast<const float4*>(v.u) + i);
+      x.x *= mix, x.y *= mix, x.z *= mix, x.w *= mix;
+      reinterpret_cast<float4*>(act_f)[i] = x;
     }
-    __syncthreads();
-    if (blockIdx.x == 0)
-      for (int i = threadIdx.x; i < DF; i += NT) x_mid[i] = act_f[i];
-    const float r = rsqrtf(block_reduce(ss, red, false) / DF + kRmsEps);
-    for (int i = threadIdx.x; i < DF; i += NT) act_f[i] *= r;
-    __syncthreads();
-    zero(acc_2, DF, grid);
+    consumer_sync();
     xs = prepare_act<W8A8>(act_f, act_q, DF, red);
-    matvec<W8A8>(W + o_w13, DF, 2 * INTER, act_f, act_q, acc_f, red_cols, resident);
-    grid.sync();
+    matvec<W8A8>(a, 1, st[1], s_wo, xs, act_f, act_q, v, ring, full, empty,
+                 red_cols, at);
+    grid_sync(a.bar);
 
-    // D: silu(gate) * up, then g @ W2
-    for (int i = threadIdx.x; i < INTER; i += NT) {
-      const float f1 = scaled<W8A8>(acc_f, i, s_w13, xs);
-      const float f3 = scaled<W8A8>(acc_f, INTER + i, s_w13, xs);
-      act_f[i] = f1 / (1.f + expf(-f1)) * f3;
-    }
-    __syncthreads();
-    zero(acc_qkv, DQKV, grid);
-    xs_prev_w2 = prepare_act<W8A8>(act_f, act_q, INTER, red);
-    s_prev_w2 = s_w2;
-    matvec<W8A8>(W + o_w2, INTER, DF, act_f, act_q, acc_2, red_cols, resident);
-    grid.sync();
+    // C: rms of the attention residual, then h @ W13 and silu(gate) * up
+    rms_norm(act_f, load_vec(act_f, v.x_mid, DF), DF, red);
+    consumer_sync();
+    xs = prepare_act<W8A8>(act_f, act_q, DF, red);
+    matvec<W8A8>(a, 2, st[2], s_w13, xs, act_f, act_q, v, ring, full, empty,
+                 red_cols, at);
+    grid_sync(a.bar);
+
+    // D: g @ W2 and the residual
+    load_vec(act_f, v.g, INTER);
+    consumer_sync();
+    xs = prepare_act<W8A8>(act_f, act_q, INTER, red);
+    matvec<W8A8>(a, 3, st[3], s_w2, xs, act_f, act_q, v, ring, full, empty,
+                 red_cols, at);
+    grid_sync(a.bar);
   }
 
   // the last layer's rms output
-  float ss = 0.f;
-  for (int i = threadIdx.x; i < DF; i += NT) {
-    const float v = x_mid[i] + scaled<W8A8>(acc_2, i, s_prev_w2, xs_prev_w2);
-    act_f[i] = v;
-    ss += v * v;
-  }
-  const float r = rsqrtf(block_reduce(ss, red, false) / DF + kRmsEps);
+  rms_norm(act_f, load_vec(act_f, v.h, DF), DF, red);
   if (blockIdx.x == 0)
-    for (int i = threadIdx.x; i < DF; i += NT) a.out[i] = act_f[i] * r;
+    for (int i = threadIdx.x; i < DF; i += NC) a.out[i] = act_f[i];
 }
 
-size_t smem_bytes(int df, int inter) {
+size_t smem_bytes(int df, int inter, int n_slots) {
   const int amax = df > inter ? df : inter;
-  return sizeof(float) * ((size_t)amax + NWARP * UCOLS + 32) + amax;
+  return (size_t)n_slots * SLOT + sizeof(float) * ((size_t)amax + NC * 4 + 32) + amax;
 }
 
-constexpr int kBlocksPerSm = 2;  // cooperative grid: at most this many per SM
-
-// Launches the frame on a grid of min(occupancy, kBlocksPerSm) blocks per
-// SM, all co-resident as grid.sync() requires.
+// Launches the frame on n_blocks blocks (the count the weights were packed
+// for), one per SM, with as many ring slots as the shared memory holds.
 template <bool W8A8>
-cudaError_t launch(Probe a, cudaStream_t s) {
-  int dev = 0, n_sm = 0, per_sm = 0;
+cudaError_t launch(Probe a, int n_blocks, cudaStream_t s) {
+  int dev = 0, n_sm = 0, optin = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess)
     e = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
-  const size_t smem = smem_bytes(a.df, a.inter);
   if (e == cudaSuccess)
-    e = cudaFuncSetAttribute(faststack_kernel<W8A8>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  cudaFuncAttributes fa;
+  if (e == cudaSuccess) e = cudaFuncGetAttributes(&fa, faststack_kernel<W8A8>);
+  if (e != cudaSuccess) return e;
+  if (n_blocks > n_sm) return cudaErrorInvalidConfiguration;
+  const size_t room = (size_t)optin - fa.sharedSizeBytes;
+  a.n_slots = MAX_SLOTS;
+  while (a.n_slots > 2 && smem_bytes(a.df, a.inter, a.n_slots) > room) --a.n_slots;
+  const size_t smem = smem_bytes(a.df, a.inter, a.n_slots);
+  if (smem > room) return cudaErrorInvalidConfiguration;
+  e = cudaFuncSetAttribute(faststack_kernel<W8A8>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  int per_sm = 0;
   if (e == cudaSuccess)
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, faststack_kernel<W8A8>,
                                                       NT, smem);
   if (e != cudaSuccess) return e;
   if (per_sm < 1) return cudaErrorInvalidConfiguration;
-  const int blocks = (per_sm < kBlocksPerSm ? per_sm : kBlocksPerSm) * n_sm;
   void* args[] = {&a};
-  return cudaLaunchCooperativeKernel((void*)faststack_kernel<W8A8>, blocks, NT,
+  return cudaLaunchCooperativeKernel((void*)faststack_kernel<W8A8>, n_blocks, NT,
                                      args, smem, s);
 }
 
 }  // namespace
 
-// One frame: w (NL, layer_bytes) int8, sc (NL, DQKV + DF + 2 INTER + DF)
-// fp32, x0/out (DF) fp32, ws (2 DF + DQKV + DF + 2 INTER + DF) fp32.
-// With r_resident > 0 the first r_resident layers are read through an L2
-// persisting access-policy window set on `stream` for this launch.
+// One frame: w (NL, layer_bytes) int8 packed for n_blocks blocks
+// (`ops/faststack.py:pack_weights`), sc (NL, DQKV + DF + 2 INTER + DF) fp32,
+// x0/out (DF) fp32, ws (3 DF + DQKV + INTER) fp32, bar one uint32 that is
+// 0 before the first launch (each launch leaves it 0 or 0x80000000). With
+// r_resident > 0 the first r_resident layers are read through an L2
+// persisting access-policy window set on `stream` for this launch. part: 0
+// the frame, 1 its grid barriers alone, 2 its weight stream alone.
 extern "C" int fs_faststack_probe(const void* w, const void* sc, const void* x0,
-                                  void* out, void* ws, int df, int dqkv,
-                                  int inter, int n_layer, int steps,
-                                  int r_resident, int w8a8, void* stream) {
+                                  void* out, void* ws, void* bar, int df,
+                                  int dqkv, int inter, int n_layer, int steps,
+                                  int r_resident, int w8a8, int n_blocks,
+                                  int part, void* stream) {
   if (df % 16 || dqkv % 16 || inter % 16 || dqkv <= df || n_layer < 1 ||
-      steps < 1 || r_resident < 0 || r_resident >= n_layer)
+      steps < 1 || r_resident < 0 || r_resident >= n_layer || n_blocks < 1 ||
+      part < kFrame || part > kLoads)
+    return (int)cudaErrorInvalidValue;
+  // a strip's units: at most one per consumer thread
+  const int most_units = (2 * inter / 4 + n_blocks - 1) / n_blocks;
+  if (most_units > NC || (dqkv / 4 + n_blocks - 1) / n_blocks > NC)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   Probe a{static_cast<const int8_t*>(w), static_cast<const float*>(sc),
           static_cast<const float*>(x0), static_cast<float*>(out),
-          static_cast<float*>(ws), df, dqkv, inter, n_layer, steps, r_resident};
+          static_cast<float*>(ws), static_cast<unsigned*>(bar), df, dqkv, inter,
+          n_layer, steps, r_resident, 0, part};
   cudaError_t e;
   if (r_resident > 0) {
     int dev = 0, max_persist = 0, max_window = 0;
@@ -375,7 +607,7 @@ extern "C" int fs_faststack_probe(const void* w, const void* sc, const void* x0,
     e = cudaStreamSetAttribute(s, cudaStreamAttributeAccessPolicyWindow, &attr);
     if (e != cudaSuccess) return (int)e;
   }
-  e = w8a8 ? launch<true>(a, s) : launch<false>(a, s);
+  e = w8a8 ? launch<true>(a, n_blocks, s) : launch<false>(a, n_blocks, s);
   if (r_resident > 0) {
     cudaStreamAttrValue attr = {};  // num_bytes 0: no window for later work
     const cudaError_t e2 =

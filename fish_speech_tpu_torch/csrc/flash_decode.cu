@@ -44,11 +44,13 @@
 // fish_speech_tpu/ops/attention.py:66-104 (gqa_attention_kv8; no Pallas
 // kernel). It reads int8 K/V rows and their bf16 per-(position, head)
 // scales and folds the scales in as that einsum does: score = (q . k_i8) *
-// ks * 1/sqrt(d), online fp32 softmax, accumulator += p * vs * v_i8. Half
-// the bytes of the bf16 cache (plus 4 bytes of scales per row and head).
-// It splits the positions into chunks of `chunk` over a third grid axis
-// (flash-decoding), so batch 1 gets Hkv x ceil(S / chunk) blocks instead of
-// Hkv; a second kernel merges the chunks' (max, sum, accumulator) states.
+// ks * 1/sqrt(d), online fp32 softmax, accumulator += (p * vs) * v_i8. Half
+// the bytes of the bf16 cache (plus 4 bytes of scales per row and head),
+// so at the serving lengths the launch and the merge, not the bytes, set
+// its time. It has the bf16 kernel's design: the same split, slices, ring
+// (TMA boxes of int8 rows) and merge by the last block, one launch and no
+// allocation; bf16 q runs on the tensor cores (`decode_kv8_mma_kernel`,
+// int8 -> bf16 in registers), fp32 q on the CUDA cores (`decode_kv8_kernel`).
 
 #include <algorithm>
 #include <type_traits>
@@ -59,9 +61,8 @@
 
 namespace {
 
-constexpr int NW = 8;         // warps per block of the int8-KV kernel
 constexpr int MAXG = 8;       // query heads per KV head served by one block
-constexpr int UNROLL = 4;     // positions per warp iteration (loads in flight)
+constexpr int UNROLL = 4;     // positions per warp iteration, fp32 int8-KV
 
 constexpr int SLICE_ALIGN = 16;   // slice lengths are multiples of this
 constexpr int MAX_SPLIT = 64;     // most blocks over one (b, hk) row
@@ -215,10 +216,11 @@ __device__ __forceinline__ bool block_slice(const int* lengths, T* out_bh,
 }
 
 // The block's warps have left their (m, l, acc) in sm_m [W][NG], sm_l
-// [W][NG] and sm_acc [W][NG][D] (m = -inf for a warp that saw no
-// position). Merges them; a lone active slice writes `out`, otherwise the
-// block writes its partial and the last block of the row merges.
-template <typename T, int D, int W, int NG>
+// [W][NG] and sm_acc [W][NG][AS] (rows AS >= D floats apart; m = -inf for
+// a warp that saw no position). Merges them; a lone active slice writes
+// `out`, otherwise the block writes its partial and the last block of the
+// row merges.
+template <typename T, int D, int W, int NG, int AS = D>
 __device__ void block_finish(const float* sm_m, const float* sm_l,
                              const float* sm_acc, T* out_bh, float* part,
                              int* counter, int n_group, int n_active) {
@@ -239,7 +241,7 @@ __device__ void block_finish(const float* sm_m, const float* sm_l,
       if (mw == -INFINITY) continue;  // the warp saw no position
       const float f = exp2f(mw - mx);
       tot += sm_l[w * NG + g] * f;
-      o += sm_acc[(w * NG + g) * D + d] * f;
+      o += sm_acc[(w * NG + g) * AS + d] * f;
     }
     if (direct) {
       fs::store(out_bh + idx, o / tot);
@@ -679,47 +681,312 @@ int launch_decode(const void* q, const void* k, const void* v,
 }
 
 // ---------------------------------------------------------------------------
-// int8 K/V with bf16 per-(position, head) scales, positions split in chunks
+// int8 K/V with bf16 per-(position, head) scales: the bf16 kernels' split,
+// ring and merge, with the einsum's scales folded in per position.
 // ---------------------------------------------------------------------------
 
-template <int EPL>
-__device__ __forceinline__ void load_i8(const int8_t* p, float* out) {
-  if constexpr (EPL == 4) {
-    const char4 c = *reinterpret_cast<const char4*>(p);
-    out[0] = (float)c.x; out[1] = (float)c.y; out[2] = (float)c.z; out[3] = (float)c.w;
-  } else {
-#pragma unroll
-    for (int e = 0; e < EPL; ++e) out[e] = (float)p[e];
-  }
+// p * vs enters P.V as this many bf16 terms: 2 carries it as hi + lo (16
+// significant bits), 1 rounds it to bf16 once, as the JAX einsum rounds
+// (weights * vs).astype(q.dtype) (ROADMAP §3 records the choice)
+constexpr int KV8_PV_TERMS = 2;
+
+// two exact fp32 integers (|v| <= 128: their low 16 bits are 0) as bf16x2
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  return __byte_perm(__float_as_uint(lo), __float_as_uint(hi), 0x7632);
 }
 
-// part: (B, Hkv, n_split, G, D + 2) fp32 -- per chunk the unnormalised
-// accumulator, then its running max and sum
-template <typename T, int D>
-__global__ void __launch_bounds__(NW * 32)
-    decode_kv8_kernel(const T* __restrict__ q, const int8_t* __restrict__ k,
+// byte offset of the 16-byte chunk c of row r of a K or V stage: rows of D
+// int8 values, in the 128-byte swizzle at D = 128, plain at D = 64
+template <int D>
+__device__ __forceinline__ int kv8_off(int r, int c) {
+  if constexpr (D == 128) return r * 128 + ((c ^ (r & 7)) << 4);
+  else return r * D + (c << 4);
+}
+
+// ---------------------------------------------------------------------------
+// bf16 q: tensor cores (mma.sync m16n8k16, fp32 sums) on the TMA ring of
+// decode_mma_kernel, one warp per tile of 16 positions. Each int8 value
+// becomes bf16 in registers (exact: |k| <= 127). The positions take the
+// mma's M (all 16 rows used) and the G <= 8 heads its N:
+//   S = K Q^T (16 positions x 8 heads), one mma per 16 d. The dot product's
+//   order over d is free, so thread qd of a row group reads the D/4
+//   contiguous bytes [qd D/4, (qd + 1) D/4) of its K rows, each 4 bytes one
+//   k step, and Q^T takes the same d's.
+//   O^T += V^T P (D x 8 heads, 16 positions deep). P's rows leave S's
+//   registers as heads x positions by movmatrix.trans. V^T needs two
+//   positions per register, so thread g reads the D/8 bytes
+//   [g D/8, (g + 1) D/8) of its four V rows and pairs them across rows; row
+//   r of M tile t is d = (D/8)(r % 8) + 2 t + r / 8.
+// Scores are scaled by ks * scale per position, with one max and one
+// rescale per tile and head. The scales of a stage's positions are read
+// into shared memory during the stage before it (the first stage's while
+// its K and V fly). Positions at or past the slice's end get score -inf,
+// scale 0 and V 0: the cache may hold anything there.
+// ---------------------------------------------------------------------------
+__device__ __forceinline__ uint32_t transpose8x8(uint32_t x) {
+  uint32_t y;
+  asm volatile("movmatrix.sync.aligned.m8n8.trans.b16 %0, %1;\n" : "=r"(y) : "r"(x));
+  return y;
+}
+
+template <int D>
+__global__ void __launch_bounds__(TW * 32)
+    decode_kv8_mma_kernel(const __grid_constant__ CUtensorMap kmap,
+                          const __grid_constant__ CUtensorMap vmap,
+                          const __nv_bfloat16* __restrict__ q,
+                          const __nv_bfloat16* __restrict__ ks,
+                          const __nv_bfloat16* __restrict__ vs,
+                          const int* __restrict__ lengths,
+                          __nv_bfloat16* __restrict__ out,
+                          float* __restrict__ work, int* __restrict__ counters,
+                          int s_len, int n_kv, int n_group, float scale_log2) {
+  using T = __nv_bfloat16;
+  constexpr int SP = stage_positions<int8_t, D>();
+  constexpr int SPT = SP / (TW * 32);  // scale positions per thread
+  constexpr int KS = D / 16;   // k steps of S
+  constexpr int MT = D / 16;   // M tiles of O^T
+  constexpr int NV = D / 8;    // V bytes per thread and row
+  constexpr int CPT = D / 64;  // 16-byte K chunks per thread and row
+  constexpr int AS = D + 1;    // sm_acc row stride (fewer bank conflicts)
+  extern __shared__ __align__(1024) unsigned char ring_raw[];
+  __shared__ __align__(8) uint64_t full[STAGES];
+  __shared__ float sc_k[2][SP], sc_v[2][SP];  // stage sub's in [sub % 2]
+  unsigned char* ring =
+      ring_raw + ((1024 - fs::wg::smem_u32(ring_raw) % 1024) % 1024);
+  const int hk = blockIdx.x, b = blockIdx.y;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, qd = lane & 3;  // mma row group, thread in group
+  const size_t bh = (size_t)b * n_kv + hk;
+  T* out_bh = out + bh * n_group * D;
+  int start, end, n_active;
+  if (!block_slice<T, D>(lengths, out_bh, s_len, n_group, start, end, n_active))
+    return;
+  const int n_stages = ring_stages<int8_t, D>(s_len, gridDim.z);
+  const int n_sub = (end - start + SP - 1) / SP;
+  auto issue = [&](int slot, int sub) {  // thread 0: K and V boxes of a stage
+    unsigned char* st = ring + slot * STAGE_BYTES;
+    const int row = b * s_len + start + sub * SP;
+    fs::tma::bar_expect(&full[slot], STAGE_BYTES);
+    fs::tma::load_3d(st, &kmap, &full[slot], 0, hk, row);
+    fs::tma::load_3d(st + SP * D, &vmap, &full[slot], 0, hk, row);
+  };
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < n_stages; ++st) fs::tma::bar_init(&full[st]);
+    fs::tma::bar_init_fence();
+    for (int st = 0; st < n_stages && st < n_sub; ++st) issue(st, st);
+  }
+  // a stage's scales: ks * scale_log2 and vs of its positions, 0 past end
+  const T* ks_row = ks + (size_t)b * s_len * n_kv + hk;
+  const T* vs_row = vs + (size_t)b * s_len * n_kv + hk;
+  float nk[SPT], nv[SPT];
+  auto fetch = [&](int sub) {
+#pragma unroll
+    for (int i = 0; i < SPT; ++i) {
+      const int p = start + sub * SP + threadIdx.x + i * TW * 32;
+      nk[i] = p < end ? __bfloat162float(ks_row[(size_t)p * n_kv]) * scale_log2 : 0.f;
+      nv[i] = p < end ? __bfloat162float(vs_row[(size_t)p * n_kv]) : 0.f;
+    }
+  };
+  auto keep = [&](int sub) {
+#pragma unroll
+    for (int i = 0; i < SPT; ++i) {
+      sc_k[sub & 1][threadIdx.x + i * TW * 32] = nk[i];
+      sc_v[sub & 1][threadIdx.x + i * TW * 32] = nv[i];
+    }
+  };
+  fetch(0);
+  // B of S: Q^T, head g (heads past G are zero); k step s takes the d's
+  // qd D/4 + 4 s .. + 3, the bytes of K this thread reads
+  uint32_t qb[KS][2];
+  const uint2* qrow = reinterpret_cast<const uint2*>(
+      q + (bh * n_group + g) * D + qd * (D / 4));
+#pragma unroll
+  for (int s = 0; s < KS; ++s) {
+    const uint2 w = g < n_group ? qrow[s] : make_uint2(0u, 0u);
+    qb[s][0] = w.x;
+    qb[s][1] = w.y;
+  }
+  keep(0);
+  __syncthreads();  // the barriers' init and the first scales are visible
+
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};  // heads 2 qd + e
+  float acc[MT][4];  // O^T rows (D/8) g + 2 t (+ 1), heads 2 qd, 2 qd + 1
+#pragma unroll
+  for (int t = 0; t < MT; ++t)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[t][e] = 0.f;
+
+  for (int sub = 0; sub < n_sub; ++sub) {
+    const int slot = sub % n_stages;
+    const unsigned char* kst = ring + slot * STAGE_BYTES;
+    const unsigned char* vst = kst + SP * D;
+    const float* sk = sc_k[sub & 1];
+    const float* sv = sc_v[sub & 1];
+    if (sub + 1 < n_sub) fetch(sub + 1);  // lands while this stage is read
+    fs::tma::bar_wait(&full[slot], (sub / n_stages) & 1);
+    for (int t = warp; t * 16 < SP; t += TW) {
+      const int pb = start + sub * SP + t * 16;  // the tile's first position
+      if (pb >= end) break;
+      const int r0 = t * 16 + g, r1 = r0 + 8;   // this thread's rows of S
+      // S: [0..1] position r0, heads 2 qd, 2 qd + 1; [2..3] position r1
+      float sc[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int c = 0; c < CPT; ++c) {
+        const uint4 k0 = *reinterpret_cast<const uint4*>(kst + kv8_off<D>(r0, CPT * qd + c));
+        const uint4 k1 = *reinterpret_cast<const uint4*>(kst + kv8_off<D>(r1, CPT * qd + c));
+        const uint32_t w0[4] = {k0.x, k0.y, k0.z, k0.w}, w1[4] = {k1.x, k1.y, k1.z, k1.w};
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const uint32_t x0 = w0[i] ^ 0x80808080u, x1 = w1[i] ^ 0x80808080u;
+          mma_bf16(sc,
+                   pack_bf16x2(fs::i8_to_f32<0>(x0), fs::i8_to_f32<1>(x0)),
+                   pack_bf16x2(fs::i8_to_f32<0>(x1), fs::i8_to_f32<1>(x1)),
+                   pack_bf16x2(fs::i8_to_f32<2>(x0), fs::i8_to_f32<3>(x0)),
+                   pack_bf16x2(fs::i8_to_f32<2>(x1), fs::i8_to_f32<3>(x1)),
+                   qb[4 * c + i][0], qb[4 * c + i][1]);
+        }
+      }
+      const bool v0 = pb + g < end, v1 = pb + g + 8 < end;
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        sc[e] = v0 ? sc[e] * sk[r0] : -INFINITY;
+        sc[2 + e] = v1 ? sc[2 + e] * sk[r1] : -INFINITY;
+      }
+      // per head, the tile's max over its 16 positions (the 8 row groups)
+      float p[4];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float mt = fmaxf(sc[e], sc[2 + e]);
+        mt = fmaxf(mt, __shfl_xor_sync(fs::kFullMask, mt, 4));
+        mt = fmaxf(mt, __shfl_xor_sync(fs::kFullMask, mt, 8));
+        mt = fmaxf(mt, __shfl_xor_sync(fs::kFullMask, mt, 16));
+        const float m_new = fmaxf(m[e], mt);  // finite: position pb is valid
+        const float a = exp2f(m[e] - m_new);
+        m[e] = m_new;
+        l[e] *= a;
+#pragma unroll
+        for (int t2 = 0; t2 < MT; ++t2) {
+          acc[t2][e] *= a;
+          acc[t2][2 + e] *= a;
+        }
+        p[e] = exp2f(sc[e] - m_new);
+        p[2 + e] = exp2f(sc[2 + e] - m_new);
+        l[e] += p[e] + p[2 + e];
+      }
+      // B of O^T: p * vs as hi (+ lo) bf16 terms, positions x heads, rows
+      // r0 / r1 of S transposed to heads x positions
+      const float w[4] = {p[0] * sv[r0], p[1] * sv[r0], p[2] * sv[r1], p[3] * sv[r1]};
+      const __nv_bfloat162 h0 = __floats2bfloat162_rn(w[0], w[1]);
+      const __nv_bfloat162 h1 = __floats2bfloat162_rn(w[2], w[3]);
+      const __nv_bfloat162 o0 = __floats2bfloat162_rn(w[0] - __low2float(h0),
+                                                      w[1] - __high2float(h0));
+      const __nv_bfloat162 o1 = __floats2bfloat162_rn(w[2] - __low2float(h1),
+                                                      w[3] - __high2float(h1));
+      const uint32_t bhi0 = transpose8x8(*reinterpret_cast<const uint32_t*>(&h0));
+      const uint32_t bhi1 = transpose8x8(*reinterpret_cast<const uint32_t*>(&h1));
+      uint32_t blo0 = 0u, blo1 = 0u;
+      if (KV8_PV_TERMS == 2) {
+        blo0 = transpose8x8(*reinterpret_cast<const uint32_t*>(&o0));
+        blo1 = transpose8x8(*reinterpret_cast<const uint32_t*>(&o1));
+      }
+      // V rows t 16 + {2 qd, 2 qd + 1, 2 qd + 8, 2 qd + 9}, bytes
+      // [g D/8, (g + 1) D/8) of each; rows past the slice count as 0
+      uint32_t vw[4][NV / 4];
+#pragma unroll
+      for (int h = 0; h < 4; ++h) {
+        const int r = t * 16 + 2 * qd + (h & 1) + 8 * (h >> 1);
+        const bool valid = pb + (r - t * 16) < end;
+        if constexpr (D == 128) {
+          const uint4 x = *reinterpret_cast<const uint4*>(vst + kv8_off<D>(r, g));
+          vw[h][0] = x.x; vw[h][1] = x.y; vw[h][2] = x.z; vw[h][3] = x.w;
+        } else {
+          const uint2 x = *reinterpret_cast<const uint2*>(vst + r * D + g * NV);
+          vw[h][0] = x.x; vw[h][1] = x.y;
+        }
+#pragma unroll
+        for (int i = 0; i < NV / 4; ++i)  // byte 0x80 is int8 0 after the ^
+          vw[h][i] = valid ? vw[h][i] ^ 0x80808080u : 0x80808080u;
+      }
+      // O^T (D x heads) += V^T (D x 16 positions) P (16 positions x heads):
+      // word i of a row holds d (D/8) g + 4 i .. + 3, M tiles 2 i and 2 i + 1
+#pragma unroll
+      for (int i = 0; i < NV / 4; ++i) {
+        float f[4][4];  // [row][byte]
+#pragma unroll
+        for (int h = 0; h < 4; ++h) {
+          f[h][0] = fs::i8_to_f32<0>(vw[h][i]); f[h][1] = fs::i8_to_f32<1>(vw[h][i]);
+          f[h][2] = fs::i8_to_f32<2>(vw[h][i]); f[h][3] = fs::i8_to_f32<3>(vw[h][i]);
+        }
+#pragma unroll
+        for (int mm = 0; mm < 2; ++mm) {
+          const uint32_t a0 = pack_bf16x2(f[0][2 * mm], f[1][2 * mm]);
+          const uint32_t a1 = pack_bf16x2(f[0][2 * mm + 1], f[1][2 * mm + 1]);
+          const uint32_t a2 = pack_bf16x2(f[2][2 * mm], f[3][2 * mm]);
+          const uint32_t a3 = pack_bf16x2(f[2][2 * mm + 1], f[3][2 * mm + 1]);
+          mma_bf16(acc[2 * i + mm], a0, a1, a2, a3, bhi0, bhi1);
+          if (KV8_PV_TERMS == 2)
+            mma_bf16(acc[2 * i + mm], a0, a1, a2, a3, blo0, blo1);
+        }
+      }
+    }
+    if (sub + 1 < n_sub) keep(sub + 1);
+    __syncthreads();  // the stage is read: refill it
+    if (threadIdx.x == 0 && sub + n_stages < n_sub) issue(slot, sub + n_stages);
+  }
+  // the row groups of head 2 qd + e hold parts of its sum
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    l[e] += __shfl_xor_sync(fs::kFullMask, l[e], 4);
+    l[e] += __shfl_xor_sync(fs::kFullMask, l[e], 8);
+    l[e] += __shfl_xor_sync(fs::kFullMask, l[e], 16);
+  }
+  // the warps' states go where the ring was (every stage has been read)
+  float* sm_m = reinterpret_cast<float*>(ring);
+  float* sm_l = sm_m + TW * MAXG;
+  float* sm_acc = sm_l + TW * MAXG;
+  if (g == 0)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      sm_m[warp * MAXG + 2 * qd + e] = m[e];
+      sm_l[warp * MAXG + 2 * qd + e] = l[e];
+    }
+#pragma unroll
+  for (int t = 0; t < MT; ++t)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      sm_acc[(warp * MAXG + 2 * qd + (e & 1)) * AS + NV * g + 2 * t + (e >> 1)] = acc[t][e];
+  __syncthreads();
+  block_finish<T, D, TW, MAXG, AS>(sm_m, sm_l, sm_acc, out_bh,
+                                   work + bh * gridDim.z * (ML + n_group * D),
+                                   counters + bh, n_group, n_active);
+}
+
+// ---------------------------------------------------------------------------
+// fp32 q (the tiny fp32 models): CUDA cores. Each of CW warps takes UNROLL
+// positions at a time of the block's slice; a lane holds D/32 values of a
+// row, a warp sum per score and head; the warps' states merge as above.
+// ---------------------------------------------------------------------------
+template <int D>
+__global__ void __launch_bounds__(CW * 32)
+    decode_kv8_kernel(const float* __restrict__ q, const int8_t* __restrict__ k,
                       const __nv_bfloat16* __restrict__ ks,
                       const int8_t* __restrict__ v,
                       const __nv_bfloat16* __restrict__ vs,
-                      const int* __restrict__ lengths, float* __restrict__ part,
-                      int s_len, int n_kv, int n_group, int chunk, float scale) {
+                      const int* __restrict__ lengths, float* __restrict__ out,
+                      float* __restrict__ work, int* __restrict__ counters,
+                      int s_len, int n_kv, int n_group, float scale_log2) {
   constexpr int EPL = D / 32;
-  __shared__ float sm_m[NW][MAXG];
-  __shared__ float sm_l[NW][MAXG];
-  __shared__ float sm_acc[NW][MAXG][D];
-
-  const int hk = blockIdx.x;
-  const int b = blockIdx.y;
-  const int split = blockIdx.z;
-  const int n_split = gridDim.z;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int len = min(max(lengths[b], 0), s_len);
-  const int start = split * chunk;
-  const int end = min(start + chunk, len);
-
-  float qr[MAXG][EPL];
-  float m[MAXG], l[MAXG], acc[MAXG][EPL];
+  __shared__ float sm_m[CW * MAXG];
+  __shared__ float sm_l[CW * MAXG];
+  __shared__ float sm_acc[CW * MAXG * D];
+  const int hk = blockIdx.x, b = blockIdx.y;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const size_t bh = (size_t)b * n_kv + hk;
+  float* out_bh = out + bh * n_group * D;
+  int start, end, n_active;
+  if (!block_slice<float, D>(lengths, out_bh, s_len, n_group, start, end, n_active))
+    return;
+  float qr[MAXG][EPL], m[MAXG], l[MAXG], acc[MAXG][EPL];
 #pragma unroll
   for (int g = 0; g < MAXG; ++g) {
     m[g] = -INFINITY;
@@ -727,29 +994,23 @@ __global__ void __launch_bounds__(NW * 32)
 #pragma unroll
     for (int e = 0; e < EPL; ++e) {
       acc[g][e] = 0.f;
-      qr[g][e] = g < n_group
-                     ? fs::to_float(q[(((size_t)b * n_kv + hk) * n_group + g) * D +
-                                      lane * EPL + e])
-                     : 0.f;
+      qr[g][e] = g < n_group ? q[(bh * n_group + g) * D + lane * EPL + e] : 0.f;
     }
   }
-
-  for (int j0 = start + warp * UNROLL; j0 < end; j0 += NW * UNROLL) {
+  for (int j0 = start + warp * UNROLL; j0 < end; j0 += CW * UNROLL) {
     float kr[UNROLL][EPL], vr[UNROLL][EPL], ksc[UNROLL], vsc[UNROLL];
 #pragma unroll
     for (int u = 0; u < UNROLL; ++u) {
       const int j = j0 + u;
       const size_t row = ((size_t)b * s_len + j) * n_kv + hk;
-      if (j < end) {
-        load_i8<EPL>(k + row * D + lane * EPL, kr[u]);
-        load_i8<EPL>(v + row * D + lane * EPL, vr[u]);
-        ksc[u] = __bfloat162float(ks[row]) * scale;
-        vsc[u] = __bfloat162float(vs[row]);
-      } else {
+      const bool valid = j < end;
 #pragma unroll
-        for (int e = 0; e < EPL; ++e) kr[u][e] = vr[u][e] = 0.f;
-        ksc[u] = vsc[u] = 0.f;
+      for (int e = 0; e < EPL; ++e) {
+        kr[u][e] = valid ? (float)k[row * D + lane * EPL + e] : 0.f;
+        vr[u][e] = valid ? (float)v[row * D + lane * EPL + e] : 0.f;
       }
+      ksc[u] = valid ? __bfloat162float(ks[row]) * scale_log2 : 0.f;
+      vsc[u] = valid ? __bfloat162float(vs[row]) : 0.f;
     }
 #pragma unroll
     for (int u = 0; u < UNROLL; ++u) {
@@ -762,8 +1023,8 @@ __global__ void __launch_bounds__(NW * 32)
         for (int e = 0; e < EPL; ++e) s = fmaf(qr[g][e], kr[u][e], s);
         s = fs::warp_sum(s) * ksc[u];
         const float m_new = fmaxf(m[g], s);
-        const float a = expf(m[g] - m_new);
-        const float p = expf(s - m_new);
+        const float a = exp2f(m[g] - m_new);
+        const float p = exp2f(s - m_new);
         const float pv = p * vsc[u];
         l[g] = l[g] * a + p;
 #pragma unroll
@@ -772,83 +1033,73 @@ __global__ void __launch_bounds__(NW * 32)
       }
     }
   }
-
 #pragma unroll
   for (int g = 0; g < MAXG; ++g) {
-    if (g >= n_group) break;
     if (lane == 0) {
-      sm_m[warp][g] = m[g];
-      sm_l[warp][g] = l[g];
+      sm_m[warp * MAXG + g] = m[g];
+      sm_l[warp * MAXG + g] = l[g];
     }
 #pragma unroll
-    for (int e = 0; e < EPL; ++e) sm_acc[warp][g][lane * EPL + e] = acc[g][e];
+    for (int e = 0; e < EPL; ++e) sm_acc[(warp * MAXG + g) * D + lane * EPL + e] = acc[g][e];
   }
   __syncthreads();
-
-  float* out = part + (((size_t)b * n_kv + hk) * n_split + split) * n_group * (D + 2);
-  for (int idx = threadIdx.x; idx < n_group * D; idx += NW * 32) {
-    const int g = idx / D, d = idx % D;
-    float mx = -INFINITY;
-#pragma unroll
-    for (int w = 0; w < NW; ++w) mx = fmaxf(mx, sm_m[w][g]);
-    float tot = 0.f, o = 0.f;
-#pragma unroll
-    for (int w = 0; w < NW; ++w) {
-      const float mw = sm_m[w][g];
-      if (mw == -INFINITY) continue;  // warp saw no position
-      const float f = expf(mw - mx);
-      tot += sm_l[w][g] * f;
-      o += sm_acc[w][g][d] * f;
-    }
-    out[g * (D + 2) + d] = o;
-    if (d == 0) {
-      out[g * (D + 2) + D] = mx;
-      out[g * (D + 2) + D + 1] = tot;
-    }
-  }
+  block_finish<float, D, CW, MAXG>(sm_m, sm_l, sm_acc, out_bh,
+                                   work + bh * gridDim.z * (ML + n_group * D),
+                                   counters + bh, n_group, n_active);
 }
 
-template <typename T, int D>
-__global__ void decode_merge_kernel(const float* __restrict__ part,
-                                    T* __restrict__ out, int n_kv, int n_group,
-                                    int n_split) {
-  const int hk = blockIdx.x;
-  const int b = blockIdx.y;
-  const float* base = part + ((size_t)b * n_kv + hk) * n_split * n_group * (D + 2);
-  for (int idx = threadIdx.x; idx < n_group * D; idx += blockDim.x) {
-    const int g = idx / D, d = idx % D;
-    float mx = -INFINITY;
-    for (int s = 0; s < n_split; ++s)
-      mx = fmaxf(mx, base[(s * n_group + g) * (D + 2) + D]);
-    float tot = 0.f, o = 0.f;
-    for (int s = 0; s < n_split; ++s) {
-      const float* st = base + (s * n_group + g) * (D + 2);
-      if (st[D] == -INFINITY) continue;  // chunk past the length
-      const float f = expf(st[D] - mx);
-      tot += st[D + 1] * f;
-      o += st[d] * f;
-    }
-    fs::store(out + (((size_t)b * n_kv + hk) * n_group + g) * D + d,
-              tot > 0.f ? o / tot : 0.f);
-  }
+// The TMA map of one layer of the int8 cache, (B, S, Hkv, D) read as D x
+// Hkv x (B * S) bytes in boxes of D x 1 head x SP positions.
+template <int D>
+int kv8_map(CUtensorMap* map, const void* base, int batch, int s_len, int n_kv) {
+  constexpr int SP = stage_positions<int8_t, D>();
+  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)n_kv,
+                              (cuuint64_t)batch * s_len};
+  const cuuint64_t strides[2] = {(cuuint64_t)D, (cuuint64_t)n_kv * D};
+  const cuuint32_t box[3] = {D, 1, SP};
+  return fs::tma::encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 3, base, dims,
+                         strides, box,
+                         D == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                                  : CU_TENSOR_MAP_SWIZZLE_NONE);
 }
 
 template <typename T, int D>
 int launch_decode_kv8(const void* q, const void* k, const void* ks,
                       const void* v, const void* vs, const int* lengths,
-                      float* part, void* out, int batch, int s_len, int n_kv,
-                      int n_group, int chunk, float scale, cudaStream_t stream) {
-  const int n_split = (s_len + chunk - 1) / chunk;
-  dim3 grid(n_kv, batch, n_split);
-  decode_kv8_kernel<T, D><<<grid, NW * 32, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const int8_t*>(k),
-      static_cast<const __nv_bfloat16*>(ks), static_cast<const int8_t*>(v),
-      static_cast<const __nv_bfloat16*>(vs), lengths, part, s_len, n_kv,
-      n_group, chunk, scale);
-  const cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  decode_merge_kernel<T, D><<<dim3(n_kv, batch), 256, 0, stream>>>(
-      part, static_cast<T*>(out), n_kv, n_group, n_split);
+                      void* out, float* work, int* counters, int batch,
+                      int s_len, int n_kv, int n_group, int n_split,
+                      float scale, cudaStream_t stream) {
+  constexpr float kLog2e = 1.4426950408889634f;
+  const dim3 grid(n_kv, batch, n_split);
+  const auto* kst = static_cast<const __nv_bfloat16*>(ks);
+  const auto* vst = static_cast<const __nv_bfloat16*>(vs);
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    // the ring, or the warps' states that take its place at the end
+    const size_t smem =
+        1024 + std::max((size_t)ring_stages<int8_t, D>(s_len, n_split) * STAGE_BYTES,
+                        sizeof(float) * TW * MAXG * (3 + D));
+    static bool sized = false;  // one attribute call: up to STAGES stages
+    if (!sized) {
+      const cudaError_t e = cudaFuncSetAttribute(
+          decode_kv8_mma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          1024 + STAGES * STAGE_BYTES);
+      if (e != cudaSuccess) return (int)e;
+      sized = true;
+    }
+    CUtensorMap kmap, vmap;
+    int rc = kv8_map<D>(&kmap, k, batch, s_len, n_kv);
+    if (rc == 0) rc = kv8_map<D>(&vmap, v, batch, s_len, n_kv);
+    if (rc != 0) return rc;
+    decode_kv8_mma_kernel<D><<<grid, TW * 32, smem, stream>>>(
+        kmap, vmap, static_cast<const T*>(q), kst, vst, lengths,
+        static_cast<T*>(out), work, counters, s_len, n_kv, n_group,
+        scale * kLog2e);
+  } else {
+    decode_kv8_kernel<D><<<grid, CW * 32, 0, stream>>>(
+        static_cast<const float*>(q), static_cast<const int8_t*>(k), kst,
+        static_cast<const int8_t*>(v), vst, lengths, static_cast<float*>(out),
+        work, counters, s_len, n_kv, n_group, scale * kLog2e);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -883,25 +1134,27 @@ extern "C" int fs_flash_decode(const void* q, const void* k_layer,
 }
 
 // int8 K/V: k_layer / v_layer (B, S, Hkv, D) int8 and ks_layer / vs_layer
-// (B, S, Hkv) bf16 point at one layer of the stacked cache; part is
-// (B, Hkv, ceil(S / chunk), G, D + 2) fp32 partials; q and out are `dtype`.
+// (B, S, Hkv) bf16 point at one layer of the stacked cache; q and out are
+// `dtype` (B, Hkv, G, D); work and counters as fs_flash_decode's. q,
+// k_layer and v_layer start on 16-byte boundaries.
 extern "C" int fs_flash_decode_kv8(const void* q, const void* k_layer,
                                    const void* ks_layer, const void* v_layer,
                                    const void* vs_layer, const void* lengths,
-                                   void* part, void* out, int batch, int s_len,
-                                   int n_kv, int n_group, int head_dim,
-                                   int dtype, int chunk, float scale,
-                                   void* stream) {
+                                   void* out, void* work, void* counters,
+                                   int batch, int s_len, int n_kv, int n_group,
+                                   int head_dim, int dtype, int n_split,
+                                   float scale, void* stream) {
   if (batch < 1 || s_len < 1 || n_kv < 1 || n_group < 1 || n_group > MAXG ||
-      chunk < 1)
+      n_split < 1 || n_split > MAX_SPLIT)
     return (int)cudaErrorInvalidValue;
   const int* lens = static_cast<const int*>(lengths);
-  float* pt = static_cast<float*>(part);
+  float* wk = static_cast<float*>(work);
+  int* cnt = static_cast<int*>(counters);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define FS_KV8(T, D)                                                          \
-  return launch_decode_kv8<T, D>(q, k_layer, ks_layer, v_layer, vs_layer,     \
-                                 lens, pt, out, batch, s_len, n_kv, n_group,  \
-                                 chunk, scale, s)
+#define FS_KV8(T, D)                                                        \
+  return launch_decode_kv8<T, D>(q, k_layer, ks_layer, v_layer, vs_layer,   \
+                                 lens, out, wk, cnt, batch, s_len, n_kv,    \
+                                 n_group, n_split, scale, s)
   if (dtype == fs::kBFloat16 && head_dim == 128) FS_KV8(__nv_bfloat16, 128);
   if (dtype == fs::kBFloat16 && head_dim == 64) FS_KV8(__nv_bfloat16, 64);
   if (dtype == fs::kFloat32 && head_dim == 128) FS_KV8(float, 128);

@@ -1,5 +1,6 @@
 // Tensor Memory Accelerator (TMA) loads of 2D and 3D tiles into shared memory,
-// for the split matvec and decode kernels (int4_mm.cu, flash_decode.cu).
+// for the split matvec and decode kernels (int4_mm.cu, flash_decode.cu), and
+// 1D bulk copies, for the fast-stack probe (faststack.cu).
 //
 // The host encodes a tensor map (`encode`, `encode_2d`: through
 // cuTensorMapEncodeTiled, looked up once at run time; each map is encoded
@@ -34,7 +35,8 @@ struct MapKey {
   const void* base = nullptr;
   cuuint64_t dims[3] = {0, 0, 0};
   cuuint64_t strides[2] = {0, 0};
-  cuuint32_t box[4] = {0, 0, 0, 0};  // box[3] pads the key: no loose bytes
+  cuuint32_t box[3] = {0, 0, 0};
+  int swizzle = 0;
   bool operator==(const MapKey& o) const {
     return std::memcmp(this, &o, sizeof(MapKey)) == 0;
   }
@@ -67,21 +69,23 @@ inline int encode_tiled(CUtensorMap* map, const MapKey& k) {
   const CUresult r = encode_fn(
       map, (CUtensorMapDataType)k.type, k.rank, const_cast<void*>(k.base),
       k.dims, k.strides, k.box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      (CUtensorMapSwizzle)k.swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
 // A map of a rank-`rank` (2 or 3) tensor: dims[0] contiguous elements, then
 // dims[i] steps of strides[i - 1] bytes, read in boxes of box[] with the
-// 128-byte swizzle. Returns a CUDA error code (0 on success). Maps are
-// encoded once and kept in one table keyed by every argument (a model's
-// weights and a session's cache are fixed addresses, so the steady state
-// encodes nothing); the table is cleared when it holds kMaxMaps, and a
-// mutex guards it, as ctypes calls come without the GIL.
+// given swizzle (the 128-byte one unless named). Returns a CUDA error code
+// (0 on success). Maps are encoded once and kept in one table keyed by
+// every argument (a model's weights and a session's cache are fixed
+// addresses, so the steady state encodes nothing); the table is cleared
+// when it holds kMaxMaps, and a mutex guards it, as ctypes calls come
+// without the GIL.
 inline int encode(CUtensorMap* map, CUtensorMapDataType type, int rank,
                   const void* base, const cuuint64_t* dims,
-                  const cuuint64_t* strides, const cuuint32_t* box) {
+                  const cuuint64_t* strides, const cuuint32_t* box,
+                  CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   constexpr size_t kMaxMaps = 1 << 14;
   static std::mutex mu;
   struct Bytes {  // a map's bytes, kept without its 64-byte alignment
@@ -93,6 +97,7 @@ inline int encode(CUtensorMap* map, CUtensorMapDataType type, int rank,
   k.type = (int)type;
   k.rank = rank;
   k.base = base;
+  k.swizzle = (int)swizzle;
   for (int i = 0; i < rank; ++i) {
     k.dims[i] = dims[i];
     k.box[i] = box[i];
@@ -125,8 +130,15 @@ inline int encode_2d(CUtensorMap* map, CUtensorMapDataType type,
   return encode(map, type, 2, base, dims, strides, box);
 }
 
-__device__ __forceinline__ void bar_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n"
+// a barrier whose phase completes after `count` arrivals (and the bytes
+// that an arrival with expect_tx announced)
+__device__ __forceinline__ void bar_init(uint64_t* bar, uint32_t count = 1) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(wg::smem_u32(bar)), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void bar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
                :: "r"(wg::smem_u32(bar)) : "memory");
 }
 
@@ -152,6 +164,20 @@ __device__ __forceinline__ void bar_wait(uint64_t* bar, uint32_t parity) {
       :: "r"(wg::smem_u32(bar)), "r"(parity) : "memory");
 }
 
+// true once the barrier's phase `parity` has completed (one try: the
+// hardware may wait a little before it says no)
+__device__ __forceinline__ bool bar_try_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n"
+      "}\n"
+      : "=r"(done) : "r"(wg::smem_u32(bar)), "r"(parity) : "memory");
+  return done != 0;
+}
+
 // the box at (x, y, z) of a rank-3 map into dst, counted on bar
 __device__ __forceinline__ void load_3d(void* dst, const CUtensorMap* map,
                                         uint64_t* bar, int x, int y, int z) {
@@ -160,6 +186,19 @@ __device__ __forceinline__ void load_3d(void* dst, const CUtensorMap* map,
       " [%0], [%1, {%3, %4, %5}], [%2];\n"
       :: "r"(wg::smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
          "r"(wg::smem_u32(bar)), "r"(x), "r"(y), "r"(z)
+      : "memory");
+}
+
+// `bytes` (a multiple of 16) from src into dst, both 16-byte aligned, in one
+// bulk copy counted on bar, with an L2 policy (`createpolicy`)
+__device__ __forceinline__ void load_1d(void* dst, const void* src,
+                                        uint32_t bytes, uint64_t* bar,
+                                        uint64_t policy) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".L2::cache_hint [%0], [%1], %2, [%3], %4;\n"
+      :: "r"(wg::smem_u32(dst)), "l"(src), "r"(bytes), "r"(wg::smem_u32(bar)),
+         "l"(policy)
       : "memory");
 }
 

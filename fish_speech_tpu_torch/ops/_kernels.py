@@ -119,7 +119,7 @@ def load_kernels() -> ctypes.CDLL:
     lib.fs_flash_train_bwd_occupancy.argtypes = [i32, ptr, ptr]
     lib.fs_flash_train_bwd_occupancy.restype = i32
     lib.fs_flash_decode_kv8.argtypes = [
-        ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr,
+        ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr,
         i32, i32, i32, i32, i32, i32, i32, f32, ptr
     ]
     lib.fs_flash_decode_kv8.restype = i32
@@ -128,7 +128,8 @@ def load_kernels() -> ctypes.CDLL:
     ]
     lib.fs_int4_matmul.restype = i32
     lib.fs_faststack_probe.argtypes = [
-        ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, i32, ptr
+        ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, i32, i32,
+        i32, ptr
     ]
     lib.fs_faststack_probe.restype = i32
     lib.fs_l2_persistence_reset.argtypes = []

@@ -19,8 +19,9 @@ state its slice arithmetic; `decode_partial_reference` and
 `flash_decode_attention_kv8` is the same attention over the int8 KV cache
 (int8 K/V, bf16 per-(position, head) scales): the JAX package computed it
 with the einsum `gqa_attention_kv8` (no Pallas kernel); here it is a
-hand-written kernel in the same source, and `flash_decode_kv8_reference`
-(that einsum's semantics under `lengths`) is its plain version.
+hand-written kernel in the same source, with the same split and merge, and
+`flash_decode_kv8_reference` (that einsum's semantics under `lengths`) is
+its plain version. `decode_partial_kv8_reference` replays its slices.
 """
 
 from __future__ import annotations
@@ -35,7 +36,6 @@ from fish_speech_tpu_torch.ops._kernels import (DTYPE_CODES, check_aligned,
 from fish_speech_tpu_torch.ops.attention import NEG_INF, gqa_attention_kv8
 
 MAX_GROUP = 8  # query heads per KV head one kernel block serves
-KV8_CHUNK = 128  # cache positions per block of the int8-KV kernel
 SLICE_ALIGN = 16  # a slice's length is a multiple of this (csrc: SLICE_ALIGN)
 MAX_SPLIT = 64  # most blocks over one (batch row, KV head) (csrc: MAX_SPLIT)
 BLOCKS_PER_SM = 1  # blocks the split aims for at batch 1
@@ -143,36 +143,36 @@ def _check(q, k_all, v_all, layer, lengths):
 _PLANS: dict = {}
 
 
-def _plan(q, k_all, v_all, layer, lengths):
-    """What a call of these shapes, dtypes and devices passes the kernel
-    beyond its pointers: (Z, workspace, counters, layers, bytes per layer,
-    dtype code, scale). The first call of a key runs every check of
-    `_check` and keeps the plan; a later one repeats only the checks that
-    the key does not fix (the layer, contiguity, alignment)."""
-    key = (q.shape, k_all.shape, v_all.shape, lengths.shape, q.dtype,
-           k_all.dtype, v_all.dtype, lengths.dtype, q.get_device(),
-           k_all.get_device(), v_all.get_device(), lengths.get_device())
+def _plan(name, q, caches, lengths, layer, check):
+    """What a call of these shapes, dtypes and devices passes a decode
+    kernel beyond its pointers: (Z, workspace, counters, layers, bytes per
+    layer of each stacked cache tensor, dtype code, scale). The first call
+    of a key runs `check` and keeps the plan; a later one repeats only the
+    checks that the key does not fix (the layer, contiguity, and the
+    alignment of q and the K/V that the TMA reads, caches[0] and
+    caches[-2])."""
+    tensors = (q, *caches, lengths)
+    key = (name,) + tuple((t.shape, t.dtype, t.get_device()) for t in tensors)
     plan = _PLANS.get(key)
     if plan is None:
-        _check(q, k_all, v_all, layer, lengths)
+        check()
         b, hkv, g, d = q.shape
-        z = decode_split_count(k_all.shape[2], hkv, b, sm_count(q.device))
+        z = decode_split_count(caches[0].shape[2], hkv, b, sm_count(q.device))
         # per slice: the max and the sum of each head (PARTIAL_HEAD floats),
         # then the G x D accumulator
         work, counters = scratch("flash_decode", q.device,
                                  b * hkv * z * (PARTIAL_HEAD + g * d), b * hkv)
-        plan = _PLANS[key] = (z, work.data_ptr(), counters.data_ptr(),
-                              k_all.shape[0], k_all[0].numel() * k_all.element_size(),
-                              DTYPE_CODES[q.dtype], 1.0 / math.sqrt(d))
+        plan = _PLANS[key] = (
+            z, work.data_ptr(), counters.data_ptr(), caches[0].shape[0],
+            tuple(c[0].numel() * c.element_size() for c in caches),
+            DTYPE_CODES[q.dtype], 1.0 / math.sqrt(d))
         return plan
     if not 0 <= layer < plan[3]:
-        raise ValueError(f"flash_decode_attention: layer {layer} out of range")
-    if not (q.is_contiguous() and k_all.is_contiguous() and v_all.is_contiguous()
-            and lengths.is_contiguous()):
-        raise ValueError("flash_decode_attention: q, k_all, v_all and lengths "
-                         "must be contiguous")
-    if (q.data_ptr() | k_all.data_ptr() | v_all.data_ptr()) % 16:
-        check_aligned("flash_decode_attention", q=q, k_all=k_all, v_all=v_all)
+        raise ValueError(f"{name}: layer {layer} out of range")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{name}: every tensor must be contiguous")
+    if (q.data_ptr() | caches[0].data_ptr() | caches[-2].data_ptr()) % 16:
+        check_aligned(name, q=q, k_all=caches[0], v_all=caches[-2])
     return plan
 
 
@@ -182,8 +182,9 @@ def flash_decode_attention(q, k_all, v_all, layer: int, lengths):
     split over `decode_split_count` blocks per row, in one launch."""
     if not q.is_cuda and q.device.type == "cpu":
         return flash_decode_reference(q, k_all, v_all, layer, lengths)
-    z, work, counters, _, layer_bytes, code, scale = _plan(
-        q, k_all, v_all, layer, lengths)
+    z, work, counters, _, (layer_bytes, _), code, scale = _plan(
+        "flash_decode_attention", q, (k_all, v_all), lengths, layer,
+        lambda: _check(q, k_all, v_all, layer, lengths))
     b, hkv, g, d = q.shape
     out = torch.empty_like(q)
     rc = load_kernels().fs_flash_decode(
@@ -212,6 +213,39 @@ def flash_decode_kv8_reference(q, k_all, ks_all, v_all, vs_all, layer: int,
     y = gqa_attention_kv8(q.reshape(b, 1, hkv * g, d), k_all[layer],
                           ks_all[layer], v_all[layer], vs_all[layer], mask)
     return y.reshape(b, hkv, g, d)
+
+
+def _pv_terms(w):
+    """p * vs as the bf16 kernel feeds it to P.V: hi = rn_bf16(w) and lo =
+    rn_bf16(w - hi), summed (`csrc/flash_decode.cu:KV8_PV_TERMS`)."""
+    hi = w.to(torch.bfloat16).float()
+    return hi + (w - hi).to(torch.bfloat16).float()
+
+
+def decode_partial_kv8_reference(q, k_all, ks_all, v_all, vs_all, layer: int,
+                                 starts, ends):
+    """The int8-KV kernel's softmax state (m, l, acc) of each row over
+    positions [starts[b], ends[b]) of layer `layer`, in fp32, shaped as
+    `decode_partial_reference`'s: scores (q . k_i8) * ks / sqrt(D), p =
+    exp(score - m), l the sum of p, acc the sum of (p * vs) v_i8, with p *
+    vs carried as the kernel carries it (fp32 for fp32 q, two bf16 terms
+    for bf16 q)."""
+    d = q.shape[-1]
+    k = k_all[layer].float()
+    v = v_all[layer].float()
+    s = torch.einsum("bkgd,bskd->bkgs", q.float(), k)
+    s = s * (ks_all[layer].float().permute(0, 2, 1)[:, :, None, :]
+             / math.sqrt(d))
+    j = torch.arange(k.shape[1], device=q.device)
+    inside = ((j[None, :] >= torch.as_tensor(starts, device=q.device)[:, None])
+              & (j[None, :] < torch.as_tensor(ends, device=q.device)[:, None]))
+    s = s.masked_fill(~inside[:, None, None, :], -math.inf)
+    m = s.amax(dim=-1)
+    p = torch.exp(s - m.clamp_min(NEG_INF)[..., None])
+    w = p * vs_all[layer].float().permute(0, 2, 1)[:, :, None, :]
+    if q.dtype == torch.bfloat16:
+        w = _pv_terms(w)
+    return m, p.sum(dim=-1), torch.einsum("bkgs,bskd->bkgd", w, v)
 
 
 def _check_kv8(q, k_all, ks_all, v_all, vs_all, layer, lengths):
@@ -247,33 +281,30 @@ def _check_kv8(q, k_all, ks_all, v_all, vs_all, layer, lengths):
         if not x.is_contiguous():
             raise ValueError(f"flash_decode_attention_kv8: {name} must be "
                              f"contiguous")
+    check_aligned("flash_decode_attention_kv8", q=q, k_all=k_all, v_all=v_all)
 
 
 def flash_decode_attention_kv8(q, k_all, ks_all, v_all, vs_all, layer: int,
                                lengths):
     """Same contract as `flash_decode_kv8_reference`; on CUDA tensors runs
     the hand-written int8-KV kernel, which reads only the first lengths[b]
-    positions, in chunks of KV8_CHUNK positions per block."""
+    positions, split over `decode_split_count` blocks per row, in one
+    launch."""
     if q.device.type == "cpu":
         return flash_decode_kv8_reference(q, k_all, ks_all, v_all, vs_all,
                                           layer, lengths)
-    _check_kv8(q, k_all, ks_all, v_all, vs_all, layer, lengths)
-    lib = load_kernels()
+    z, work, counters, _, (kv_bytes, sc_bytes, _, _), code, scale = _plan(
+        "flash_decode_attention_kv8", q, (k_all, ks_all, v_all, vs_all),
+        lengths, layer,
+        lambda: _check_kv8(q, k_all, ks_all, v_all, vs_all, layer, lengths))
     b, hkv, g, d = q.shape
-    s = k_all.shape[2]
-    n_split = -(-s // KV8_CHUNK)
-    kv_off = k_all.stride(0) * layer  # int8: bytes
-    sc_off = ks_all.stride(0) * ks_all.element_size() * layer
-    part = torch.empty((b, hkv, n_split, g, d + 2), dtype=torch.float32,
-                       device=q.device)
     out = torch.empty_like(q)
-    rc = lib.fs_flash_decode_kv8(
-        q.data_ptr(), k_all.data_ptr() + kv_off, ks_all.data_ptr() + sc_off,
-        v_all.data_ptr() + kv_off, vs_all.data_ptr() + sc_off,
-        lengths.data_ptr(), part.data_ptr(), out.data_ptr(), b, s, hkv, g, d,
-        DTYPE_CODES[q.dtype], KV8_CHUNK, 1.0 / math.sqrt(d),
-        torch.cuda.current_stream(q.device).cuda_stream,
-    )
+    rc = load_kernels().fs_flash_decode_kv8(
+        q.data_ptr(), k_all.data_ptr() + kv_bytes * layer,
+        ks_all.data_ptr() + sc_bytes * layer, v_all.data_ptr() + kv_bytes * layer,
+        vs_all.data_ptr() + sc_bytes * layer, lengths.data_ptr(), out.data_ptr(),
+        work, counters, b, k_all.shape[2], hkv, g, d, code, z, scale,
+        stream_ptr(q))
     check_launch(rc, "flash_decode_kv8")
     flash_decode_attention_kv8.launches += 1
     return out

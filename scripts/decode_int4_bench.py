@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
-"""The decode attention and the int4 matvec against their PyTorch yardsticks
-and against an earlier checkout, timed on the card.
+"""The decode attention (bf16 and int8 KV cache) and the int4 matvec against
+their PyTorch yardsticks and against an earlier checkout, timed on the card.
 
-    python3 scripts/decode_int4_bench.py [OTHER_CHECKOUT]
+    python3 scripts/decode_int4_bench.py [OTHER_CHECKOUT] [decode|kv8|int4 ...]
+
+The names pick the benches (all three by default).
 
 Device time of each call (`chip_smoke.py:_device_ms`: 100 calls captured in
 one CUDA graph, best of three replays), so the wrappers' host cost is left
@@ -18,6 +20,14 @@ S = 10, Hkv=4 G=3; each call reads the next layer): the kernel through
 error against `flash_decode_reference` (fp32) is printed: max and mean abs
 and the share of outputs equal to the reference rounded to bf16.
 
+int8-KV decode (bf16 q, s2-pro's slow cache quantized as the int8 KV cache
+holds it, at S = 2112 and S = 4160): the kernel through
+`flash_decode_attention_kv8` against SDPA on K/V dequantized beforehand;
+its error against the exact fp32 arithmetic (`flash_decode_kv8_reference`
+on fp32 q, which keeps p * vs in fp32): max and mean abs and the share of
+outputs equal to that reference rounded to bf16; the plain version on bf16
+q (which rounds p * vs to bf16 once, as the JAX einsum) is scored the same.
+
 int4 matvec (bf16 x, B = 1, s2-pro's eight shapes, g = 128): the kernel
 through `int4_matmul` against cuBLAS on the bf16 W, both walking copies of
 their weight over twice the L2, as in `chip_smoke.py`.
@@ -28,7 +38,11 @@ same C entry points as this checkout's, adds two columns per case:
 called through this checkout's wrapper (device time and error), and
 `other_wrapper`, its `ops/flash_decode.py` and `ops/int4.py` loaded on this
 checkout's kernels (host-inclusive time: the wrappers' host cost alone
-differs).
+differs). For the int8-KV decode, whose C entry point changed when it
+became one launch, a checkout of the two-kernel design (its wrapper still
+has `KV8_CHUNK`) is timed whole, as `other_wrapper`: its own wrapper on
+its own kernels (device time and host-inclusive, error); a later one as
+`other_kernel`.
 """
 
 from __future__ import annotations
@@ -47,6 +61,7 @@ from chip_smoke import (INT4_SHAPES, L2_COLD_BYTES, _device_ms,  # noqa: E402
 
 DECODE = [(36, 4160, 8, 4, 1), (36, 4160, 8, 4, 257), (36, 4160, 8, 4, 4000),
           (36, 2112, 8, 4, 257), (36, 2112, 8, 4, 2048), (12, 10, 4, 3, 10)]
+KV8 = [(36, 2112, 8, 4, (1, 257, 1100, 2048)), (36, 4160, 8, 4, (4000,))]
 ITERS = 100
 
 
@@ -66,10 +81,22 @@ def _other_lib(tree):
         _kernels.CSRC = here
     lib = ctypes.CDLL(str(out))
     mine = _kernels.load_kernels()
-    for name in ("fs_flash_decode", "fs_int4_matmul"):
+    for name in ("fs_flash_decode", "fs_flash_decode_kv8", "fs_int4_matmul"):
         getattr(lib, name).argtypes = getattr(mine, name).argtypes
         getattr(lib, name).restype = ctypes.c_int
     return lib
+
+
+def _old_kv8(tree, lib_path):
+    """The int8-KV wrapper of a checkout of the two-kernel design, bound
+    to its own library (that design's C entry point)."""
+    mod = _other_module(tree, "flash_decode")
+    lib = ctypes.CDLL(lib_path)
+    p, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.fs_flash_decode_kv8.argtypes = [p] * 8 + [i32] * 7 + [ctypes.c_float, p]
+    lib.fs_flash_decode_kv8.restype = i32
+    mod.load_kernels = lambda: lib
+    return mod
 
 
 def _other_module(tree, name):
@@ -167,6 +194,76 @@ def bench_decode(dev, other, smi):
         del kc, vc
 
 
+def bench_kv8(dev, other, smi):
+    import torch
+    import torch.nn.functional as F
+
+    from fish_speech_tpu_torch.models.dual_ar import _kv_dequant, _kv_quant
+    from fish_speech_tpu_torch.ops import flash_decode as fd
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for n_layer, s, hkv, g, lengths in KV8:
+        kq, ks = _kv_quant(torch.randn((n_layer, 1, s, hkv, 128), generator=gen,
+                                       device=dev, dtype=torch.bfloat16))
+        vq, vs = _kv_quant(torch.randn((n_layer, 1, s, hkv, 128), generator=gen,
+                                       device=dev, dtype=torch.bfloat16))
+        for length in lengths:
+            q = torch.randn((1, hkv, g, 128), generator=gen, device=dev,
+                            dtype=torch.bfloat16)
+            lens = torch.tensor([length], dtype=torch.int32, device=dev)
+
+            def kept(i=0):
+                return fd.flash_decode_attention_kv8(q, kq, ks, vq, vs,
+                                                     i % n_layer, lens)
+
+            kd = _kv_dequant(kq[:, :, :length], ks[:, :, :length], torch.bfloat16)
+            vd = _kv_dequant(vq[:, :, :length], vs[:, :, :length], torch.bfloat16)
+            qs = q.reshape(1, hkv * g, 1, 128)
+
+            def sdpa(i=0):
+                return F.scaled_dot_product_attention(
+                    qs, kd[i % n_layer].transpose(1, 2),
+                    vd[i % n_layer].transpose(1, 2), enable_gqa=True)
+
+            want = fd.flash_decode_kv8_reference(q.float(), kq, ks, vq, vs, 0,
+                                                 lens)
+            errs = {"kept": _errors("kv8", kept(0), want),
+                    "plain": _errors("plain", fd.flash_decode_kv8_reference(
+                        q, kq, ks, vq, vs, 0, lens), want)}
+            device = {"kept": kept, "sdpa": sdpa}
+            host = {"kept": kept}
+            if other is not None and other["kv8_old"] is not None:
+                mod = other["kv8_old"]
+
+                def other_wrapper(i=0):
+                    return mod.flash_decode_attention_kv8(q, kq, ks, vq, vs,
+                                                          i % n_layer, lens)
+
+                errs["other_wrapper"] = _errors("other kv8", other_wrapper(0), want)
+                device["other_wrapper"] = host["other_wrapper"] = other_wrapper
+            elif other is not None:
+                lib = other["lib"]
+
+                def other_kernel(i=0):
+                    with _Lib(fd, lib):
+                        return kept(i)
+
+                errs["other_kernel"] = _errors("other kv8", other_kernel(0), want)
+                device["other_kernel"] = other_kernel
+            dev_ms = _in_turns(device, _device_ms)
+            host_ms = _in_turns(host, _time_ms)
+            bound = (2 * length * hkv * 128 + 4 * length * hkv
+                     + 4 * hkv * g * 128) / 3.35e12 * 1e3
+            print(f"kv8 L={n_layer} S={s} Hkv={hkv} G={g} len={length}: device "
+                  + " ".join(f"{k}={v:.4f}" for k, v in dev_ms.items())
+                  + "; host-inclusive " + " ".join(f"{k}={v:.4f}" for k, v in host_ms.items())
+                  + "; errors vs fp32 " + " ".join(f"{k}={m:.3e}/{a:.3e}/{e:.4f}"
+                                                   for k, (m, a, e) in errs.items())
+                  + f"; bound={bound:.5f} ms; {smi}", flush=True)
+            del kd, vd
+        del kq, ks, vq, vs
+
+
 def bench_int4(dev, other, smi):
     import torch
 
@@ -223,13 +320,18 @@ def main():
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60).stdout.strip()
     dev = torch.device("cuda:0")
+    benches = {"decode": bench_decode, "kv8": bench_kv8, "int4": bench_int4}
+    picked = [a for a in sys.argv[1:] if a in benches] or list(benches)
+    trees = [a for a in sys.argv[1:] if a not in benches]
     other = None
-    if len(sys.argv) > 1:
-        other = {"lib": _other_lib(sys.argv[1]),
-                 "flash_decode": _other_module(sys.argv[1], "flash_decode"),
-                 "int4": _other_module(sys.argv[1], "int4")}
-    bench_decode(dev, other, smi)
-    bench_int4(dev, other, smi)
+    if trees:
+        other = {"lib": _other_lib(trees[0]),
+                 "flash_decode": _other_module(trees[0], "flash_decode"),
+                 "int4": _other_module(trees[0], "int4"), "kv8_old": None}
+        if hasattr(other["flash_decode"], "KV8_CHUNK"):
+            other["kv8_old"] = _old_kv8(trees[0], other["lib"]._name)
+    for name in picked:
+        benches[name](dev, other, smi)
 
 
 if __name__ == "__main__":

@@ -24,10 +24,11 @@ bf16), and, since bf16 x uses the Pallas kernel's bf16 W on every route
 (matvec, B <= 8, and tensor cores, B > 8), to that W's plain version,
 `int4_matmul_bf16w_reference`, summed in fp32: 2^-8 |y| (the kernel's one
 rounding of y to bf16) + 1e-5 of |x| @ |W| (the order of the fp32 sums). The int8-KV decode kernel is held to
-kernel 2's bounds (the plain version rounds p * vs to bf16, the kernel
-keeps it in fp32). The fast-stack probe at small dims (3 layers, 2 steps)
-is held to 1e-3 abs on outputs of rms 1 (fp32 sums in another order, and
-the activations' bf16 / int8 rounding can land one step apart).
+kernel 2's bounds (the plain version rounds p * vs to bf16 once, the
+kernel carries it as two bf16 terms). The fast-stack probe at small dims
+(3 layers, 2 steps) is held to 1e-3 abs on outputs of rms 1 (fp32 sums in
+another order, and the activations' bf16 / int8 rounding can land one step
+apart), and gives the same bits twice (no atomics).
 """
 
 import numpy as np
@@ -166,6 +167,13 @@ def test_decode_and_matvec_launch_once_and_allocate_only_the_output(dev):
         lambda: flash_decode_attention(q, k, k, 1, lens),
         [(flash_decode_attention, "launches")])
     assert launched == [1] and made == 1  # the output only
+    for dtype in (torch.bfloat16, torch.float32):  # both int8-KV routes
+        kq, ks = _kv_quant(_randn(rng, (2, 1, 4160, 8, 128), torch.float32, dev))
+        qk = _randn(rng, (1, 8, 4, 128), dtype, dev)
+        _, launched, made = _one_call(
+            lambda: flash_decode_attention_kv8(qk, kq, ks, kq, ks, 1, lens),
+            [(flash_decode_attention_kv8, "launches")])
+        assert launched == [1] and made == 1
     w = torch.from_numpy(rng.standard_normal((2560, 19456)).astype(np.float32) * 0.02)
     qw = {n: t.to(dev) for n, t in quantize_int4(w, group_size=128).items()}
     x = _randn(rng, (1, 2560), torch.bfloat16, dev)
@@ -175,13 +183,25 @@ def test_decode_and_matvec_launch_once_and_allocate_only_the_output(dev):
     assert launched == [1, 1] and made == 1
 
 
-@pytest.mark.parametrize("kernel", ["decode", "gemv"])
+@pytest.mark.parametrize("kernel", ["decode", "kv8", "gemv"])
 def test_split_kernels_are_deterministic_and_graph_capturable(dev, kernel):
     """Two calls give the same bits; a CUDA graph of the call, replayed
     after its inputs (lengths, q / x) are changed in place, equals the eager
     call on the new inputs."""
     rng = np.random.default_rng(11)
-    if kernel == "decode":
+    if kernel == "kv8":
+        q = _randn(rng, (3, 8, 4, 128), torch.bfloat16, dev)
+        k, ks = _kv_quant(_randn(rng, (2, 3, 2112, 8, 128), torch.float32, dev))
+        v, vs = _kv_quant(_randn(rng, (2, 3, 2112, 8, 128), torch.float32, dev))
+        lens = torch.tensor([2048, 1, 700], dtype=torch.int32, device=dev)
+
+        def call():
+            return flash_decode_attention_kv8(q, k, ks, v, vs, 1, lens)
+
+        def change():
+            lens.copy_(torch.tensor([5, 2112, 1057], dtype=torch.int32))
+            q.copy_(_randn(rng, q.shape, q.dtype, dev))
+    elif kernel == "decode":
         q = _randn(rng, (3, 8, 4, 128), torch.bfloat16, dev)
         k = _randn(rng, (2, 3, 2112, 8, 128), torch.bfloat16, dev)
         v = _randn(rng, (2, 3, 2112, 8, 128), torch.bfloat16, dev)
@@ -465,7 +485,10 @@ def test_mm_routes_int4_products_by_rows_and_dtype(dev):
     (2, 1, 2112, 8, 4, 128, [1]),
     (2, 1, 2112, 8, 4, 128, [129]),
     (2, 1, 2112, 8, 4, 128, [2000]),
+    (2, 1, 4160, 8, 4, 128, [4000]),
+    (1, 3, 4160, 8, 4, 128, [257, 4160, 17]),  # ragged, on slice edges
     (2, 3, 300, 2, 8, 64, [1, 128, 300]),
+    (1, 2, 2112, 8, 1, 64, [2112, 1100]),
     (1, 2, 96, 4, 3, 128, [96, 40]),
 ])
 def test_kv8_decode_kernel_matches_plain(dev, dtype, n_layer, b, s, hkv, g, d,
@@ -492,10 +515,16 @@ def test_faststack_kernel_matches_plain(dev, variant, r):
     x = torch.full((1, dims.df), 0.01, device=dev)
     n0 = faststack.faststack_probe.launches
     got = faststack.faststack_probe(x, w, r, variant, dims)
+    again = faststack.faststack_probe(x, w, r, variant, dims)
     torch.cuda.synchronize()
-    assert faststack.faststack_probe.launches == n0 + 1
+    assert faststack.faststack_probe.launches == n0 + 2
+    assert torch.equal(got, again)
     want = faststack.probe_reference(x, w, variant, dims)
     assert (got - want).abs().max().item() <= 1e-3
+    for part in ("barriers", "loads"):  # a frame's pieces alone launch too
+        assert faststack.part_ms(part, r, variant, repeats=1, frames=2,
+                                 dims=dims, weights=w, device=dev) > 0
+    assert faststack.faststack_probe.launches == n0 + 2
     faststack.reset_l2_persistence()
 
 

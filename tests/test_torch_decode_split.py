@@ -16,7 +16,15 @@ in plain PyTorch, to the plain versions and to the JAX package:
     (`tests/test_torch_ops.py`'s tolerance);
   * the plain per-run partials, added in run order, equal the int4 plain
     versions' fp32 sums (before the cast to x's dtype) within 1e-5 of
-    |x| @ |W| (fp32 sums in another order).
+    |x| @ |W| (fp32 sums in another order);
+  * the int8-KV kernel's per-slice states (`decode_partial_kv8_reference`:
+    the scales folded in, p * vs carried as the kernel carries it), merged
+    in split order, equal `flash_decode_kv8_reference` for every len in
+    1..S: within 1e-6 for fp32 q (only the order of the sums differs) and
+    within kernel 2's bf16 bounds for bf16 q (2e-2 max, 2e-3 mean: the
+    plain version rounds p * vs to bf16 once, the kernel keeps it as two
+    bf16 terms); and the JAX package's `gqa_attention_kv8` masked to
+    j < len within 1e-5 (fp32) or the same bf16 bounds.
 """
 
 import jax.numpy as jnp
@@ -24,11 +32,14 @@ import numpy as np
 import pytest
 import torch
 
+from fish_speech_tpu.ops.attention import gqa_attention_kv8 as j_gqa_kv8
 from fish_speech_tpu.ops.pallas_decode import \
     flash_decode_attention as j_flash_decode
+from fish_speech_tpu_torch.models.dual_ar import _kv_quant
 from fish_speech_tpu_torch.ops.flash_decode import (
-    MAX_SPLIT, decode_partial_reference, decode_slice,
-    decode_split_count, flash_decode_reference, merge_decode_states)
+    MAX_SPLIT, decode_partial_kv8_reference, decode_partial_reference,
+    decode_slice, decode_split_count, flash_decode_kv8_reference,
+    flash_decode_reference, merge_decode_states)
 from fish_speech_tpu_torch.ops.int4 import (GEMV_COLS, GEMV_MAX_SPLIT,
                                              gemv_partials_reference,
                                              gemv_split, int4_dequant_bf16,
@@ -122,6 +133,60 @@ def test_decode_split_merge_matches_pallas_interpret(g, lengths):
                             torch.from_numpy(lens), s)
         np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5,
                                    rtol=0)
+
+
+def _kv8_split_replay(q, k, ks, v, vs, layer, lengths, s, z):
+    states = []
+    for i in range(z):
+        bounds = [decode_slice(i, z, int(n), s) for n in lengths]
+        states.append(decode_partial_kv8_reference(
+            q, k, ks, v, vs, layer, [a for a, _ in bounds],
+            [e for _, e in bounds]))
+    return merge_decode_states(states, q.dtype)
+
+
+def _assert_within(got, want, dtype, fp32_atol):
+    err = (got.float() - want.float()).abs()
+    if dtype == torch.float32:
+        assert err.max().item() <= fp32_atol, err.max().item()
+    else:
+        assert err.max().item() <= 2e-2 and err.mean().item() <= 2e-3, \
+            (err.max().item(), err.mean().item())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("g", [1, 3, 4, 8])
+def test_kv8_split_merge_matches_the_plain_version_and_jax(g, dtype):
+    """Row b of the batch attends its first b + 1 positions, so one batch
+    checks every len in 1..S; the split is a one-row call's (S = 80 over
+    Hkv = 2 gives 5 slices of 16)."""
+    rng = np.random.default_rng(100 + g)
+    n_layer, s, hkv, d = 2, 80, 2, 64
+    b = s
+    q = torch.from_numpy(rng.standard_normal((b, hkv, g, d))
+                         .astype(np.float32)).to(dtype)
+    k, ks = _kv_quant(torch.from_numpy(
+        rng.standard_normal((n_layer, b, s, hkv, d)).astype(np.float32)))
+    v, vs = _kv_quant(torch.from_numpy(
+        rng.standard_normal((n_layer, b, s, hkv, d)).astype(np.float32)))
+    lengths = torch.arange(1, s + 1, dtype=torch.int32)
+    z = decode_split_count(s, hkv, 1, H100_SMS)
+    assert z == 5
+    mask = jnp.asarray((np.arange(s)[None, :] < lengths.numpy()[:, None])[:, None])
+    jdtype = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+    for layer in range(n_layer):
+        got = _kv8_split_replay(q, k, ks, v, vs, layer, lengths, s, z)
+        assert got.dtype == dtype
+        _assert_within(got, flash_decode_kv8_reference(
+            q, k, ks, v, vs, layer, lengths), dtype, 1e-6)
+        want = j_gqa_kv8(
+            jnp.asarray(q.float().numpy().reshape(b, 1, hkv * g, d), jdtype),
+            jnp.asarray(k[layer].numpy()),
+            jnp.asarray(ks[layer].float().numpy(), jnp.bfloat16),
+            jnp.asarray(v[layer].numpy()),
+            jnp.asarray(vs[layer].float().numpy(), jnp.bfloat16), mask)
+        want = torch.from_numpy(np.array(want, np.float32)).reshape(b, hkv, g, d)
+        _assert_within(got, want, dtype, 1e-5)
 
 
 @pytest.mark.parametrize("n_sm", [H100_SMS, 114, 1])
