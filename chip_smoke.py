@@ -55,8 +55,10 @@ Phases, each of which ends the run with a nonzero exit if it fails:
    best of three runs for the attention cases; cuBLAS on the dequantized
    weight);
 3. a small-input reference: a tiny fp32 model runs the same greedy request
-   through the kernels on the card and through the plain versions on the
-   CPU; token columns must be identical and prefill logits within 1e-4;
+   through the kernels on the card (its session's graphs captured at first
+   use) and through the plain versions on the CPU (the same step bodies
+   run eagerly); token columns must be identical and prefill logits within
+   1e-4;
 3b. a small training reference: a tiny fp32 LoRA model takes two
    `make_train_step` steps through the training kernels on the card (the
    forward's and the backward's CUDA-core route, which must launch) and
@@ -69,10 +71,16 @@ Phases, each of which ends the run with a nonzero exit if it fails:
 4. the serving slice: the full-width `dual_ar_s2_pro` LM (bf16, random
    weights from a seed, max_seq_len 2048) and the `dac_s2_pro` codec answer
    streamed requests through `TTSInferenceEngine`, one of them with a
-   prompt over 512 tokens. The audio must be finite and in whole frames,
-   the decode kernel and the prefill's tensor-core route must have been
-   launched, and a repeated request with the same seed must give identical
-   codes;
+   prompt over 512 tokens. The session's CUDA graphs (each request's
+   prefill bucket, the decode step) are captured first by
+   `GenerationSession.precompile` (capture seconds and the graphs' pool
+   printed apart from the requests). The audio must be finite and in whole
+   frames, the decode kernel and the prefill's tensor-core route must have
+   been launched (by graph replays: a replay adds the launches its capture
+   recorded), every decode step must have been a replay of the step graph
+   (no eager body run on the card), and a repeated request with the same
+   seed must give identical codes. Then the launches of one replayed step
+   by kernel and its device time (CUDA events over 64 replays);
 5. the training slice: the serving model is freed, then `Trainer.fit` runs
    8 LoRA steps (r=8, alpha=16, attention/mlp/embeddings/output, remat on)
    of the full-width `dual_ar_s2_pro` (bf16, random weights, max_seq_len
@@ -91,9 +99,11 @@ Phases, each of which ends the run with a nonzero exit if it fails:
    `flash_decode_kv8` and `flash_prefill` (tensor-core route) launched. Then the model is
    rebuilt and quantized `int4` (every layer int4, heads int8) and serves
    the 700-byte request (prefill bucket 1024: the int4 matmul's
-   tensor-core route, whose launch count must be > 0). TTFA, frames/s,
-   weight bytes and peak memory for both, and the fast stack's time per
-   frame on the serving path;
+   tensor-core route, whose launch count must be > 0). Both serve through
+   graphs captured beforehand, as phase 4 does, with the same replay
+   checks. TTFA, frames/s, weight bytes and peak memory for both, the
+   replayed step's launches and device time, and the fast stack's time per
+   frame on the serving path, eager and replayed from a graph;
 7. the fast-stack probe at flagship dims (12 layers x 10 steps, 1536 /
    2560 / 6144): R in {0, 1} x {bf16, w8a8}, each against its plain version
    on one and on two codebook steps (12 and 24 layers at full width, the
@@ -980,6 +990,71 @@ def _counted(wrappers):
     return {name: f.launches for name, f in wrappers.items()}
 
 
+def _prompt_len(tokenizer, cfg, text):
+    """The prompt length of a request's (only) text batch, built as
+    `generate_long` builds it."""
+    from fish_speech_tpu_torch.generate import build_base_conversation, encode_turn
+
+    return encode_turn(build_base_conversation(None, None), text, tokenizer,
+                       cfg.num_codebooks).shape[1]
+
+
+def precompile_for(session, tokenizer, requests, label):
+    """Capture the graphs of `requests` before they are measured, as the
+    JAX server's `warm_up` compiles; prints the capture seconds and pool."""
+    times = {}
+    for t in sorted({_prompt_len(tokenizer, session.cfg, req.text)
+                     for _, req in requests}):
+        times.update(session.precompile(t, requests[0][1].max_new_tokens,
+                                        session.first_chunk_size))
+    print(f"{label} graphs captured (s, each with its eager run): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in times.items())
+          + f"; graph pool {session.pool_bytes / 2**20:.1f} MiB")
+    session.replays.clear()
+    session.eager_runs.clear()
+    return times
+
+
+def replayed_step_ms(session, n=64):
+    """Device ms of one decode step: n replays of the step graph (one
+    chunk: its uniforms, the replays, the copy of its columns) between CUDA
+    events, after one such chunk untimed."""
+    import torch
+
+    gen = session.new_generator(0)
+    session.decode_chunk(n, gen)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    session.decode_chunk(n, gen)
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / n
+
+
+def check_replayed(session, label):
+    """Every decode step of the measured requests was a graph replay: no
+    eager body ran on the card, and the step graph replayed. Prints the
+    replays and the launches one replayed step makes."""
+    per_step = session.launches_per_replay("decode")
+    print(f"{label}: graph replays {dict(session.replays)}; eager body runs "
+          f"{dict(session.eager_runs)}; launches per replayed decode step "
+          f"{per_step}")
+    if session.eager_runs or session.replays["decode"] <= 0:
+        raise SystemExit(f"{label}: a step ran eagerly on the card, or the "
+                         f"decode graph never replayed")
+    return per_step
+
+
+# the eager session's figures that the replayed runs replace (earlier runs
+# of this script, before the decode ran as CUDA graphs; NVIDIA H100 80GB
+# HBM3, 700.00 W): decode frames/s and TTFA of the streamed requests
+EAGER_FIGURES = {"bf16": "decode 4.31-6.38 frames/s, TTFA 173-253 ms",
+                 "mixed": "decode 4.31-6.38 frames/s",
+                 "int4": "TTFA 248.2-306.7 ms"}
+
+
 def run_slice(dev, tokenizer):
     """Phase 4: the full-width LM and codec answer streamed requests."""
     import torch
@@ -1009,6 +1084,7 @@ def run_slice(dev, tokenizer):
           f"(max_seq_len 2048) + dac_s2_pro, built in "
           f"{time.perf_counter() - t0:.1f}s; device memory allocated "
           f"{torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB")
+    precompile_for(session, tokenizer, _requests(), "bf16")
     _zero_counts()
     results = serve(dev, tokenizer, engine, _requests(), dac_cfg.frame_length,
                     "bf16")
@@ -1018,6 +1094,11 @@ def run_slice(dev, tokenizer):
           f"tensor-core route; all routes {flash_prefill_attention.launches})")
     if min(launches.values()) <= 0:
         raise SystemExit("a kernel of the path was never launched")
+    check_replayed(session, "bf16")
+    step_ms = replayed_step_ms(session)
+    print(f"bf16 replayed decode step: {step_ms:.3f} ms of device time "
+          f"({1e3 / step_ms:.2f} steps/s; the eager session: "
+          f"{EAGER_FIGURES['bf16']})")
     print(f"peak device memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
     return results, launches
 
@@ -1028,26 +1109,49 @@ def _tree_bytes(tree):
     return tree.numel() * tree.element_size()
 
 
-def fast_stack_frame_ms(session, frames=20):
-    """The serving path's fast stack per frame: `_sample_column` (project
+def _fast_stack_frame(session):
+    """One frame of the serving path's fast stack: `_sample_column` (project
     in, NC fast steps with their heads and samplers, one top-k of the slow
-    head) on a random hidden state, CUDA events over `frames` frames."""
+    head) on a random hidden state, reading the session's fixed buffers."""
     import torch
 
     from fish_speech_tpu_torch.generate import _sample_column
 
-    cfg, dev = session.cfg, session.device
+    cfg, dev, st = session.cfg, session.device, session.state
     gen = torch.Generator(device=dev).manual_seed(0)
     hidden = torch.randn((1, cfg.dim), generator=gen, device=dev,
-                         dtype=torch.bfloat16)
+                         dtype=session.params["embeddings"].dtype)
     logits = torch.randn((1, cfg.semantic_end_id - cfg.semantic_begin_id + 2),
                          generator=gen, device=dev)
+    u = st.u[0].uniform_(generator=gen).clamp_(min=1e-30)
 
     def frame(i=0):
         return _sample_column(session.params, cfg, session.scfg, logits, hidden,
-                              None, gen, 1.0, 0.9, 30)
+                              None, u, st.sampling_args(), st.fast_cache)
 
-    return _time_ms(frame, frames)
+    return frame
+
+
+def fast_stack_frame_ms(session, frames=20):
+    """The serving path's fast stack per frame, run eagerly: CUDA events
+    over `frames` frames."""
+    return _time_ms(_fast_stack_frame(session), frames)
+
+
+def fast_stack_replayed_ms(session, frames=20):
+    """The same frame captured in a CUDA graph: CUDA events over `frames`
+    replays."""
+    import torch
+
+    frame = _fast_stack_frame(session)
+    frame()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        frame()
+    ms = _time_ms(lambda i=0: graph.replay(), frames)
+    del graph
+    return ms
 
 
 # the serving fast stack per frame in three earlier runs of this script
@@ -1099,9 +1203,10 @@ def run_quant_slice(dev, tokenizer):
               f"{time.perf_counter() - t0:.1f}s; session weights "
               f"{weight_bytes / 2**30:.3f} GiB; device memory allocated "
               f"{torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB")
+        served = [(n, requests[n]) for n in names]
+        precompile_for(session, tokenizer, served, label)
         _zero_counts()
-        rows = serve(dev, tokenizer, engine, [(n, requests[n]) for n in names],
-                     dac_cfg.frame_length, label)
+        rows = serve(dev, tokenizer, engine, served, dac_cfg.frame_length, label)
         # the int4 matmul's routes: matvec (decode), tensor cores (bf16
         # prefill); the fp32 tiled route serves no bf16 model
         launches = dict(_counted(wrappers),
@@ -1110,11 +1215,17 @@ def run_quant_slice(dev, tokenizer):
                         int4_mm_wgmma=int4_matmul.launches_wgmma,
                         int4_mm_fp32_tiled=int4_matmul.launches_fp32_tiled)
         peak = torch.cuda.max_memory_allocated(dev) / 2**30
+        per_step = check_replayed(session, label)
+        step_ms = replayed_step_ms(session)
         fast_ms = fast_stack_frame_ms(session)
+        fast_replayed_ms = fast_stack_replayed_ms(session)
         print(f"{label}: kernel launches {launches}; peak device memory "
-              f"{peak:.2f} GiB; serving fast stack {fast_ms:.3f} ms/frame "
-              f"(_sample_column, CUDA events; with the two-launch matvec: "
-              f"{TWO_LAUNCH_FAST_STACK_MS[label]} ms/frame)")
+              f"{peak:.2f} GiB; replayed decode step {step_ms:.3f} ms "
+              f"({1e3 / step_ms:.2f} steps/s; the eager session: "
+              f"{EAGER_FIGURES[label]}); serving fast stack "
+              f"{fast_ms:.3f} ms/frame eager, {fast_replayed_ms:.3f} replayed "
+              f"(_sample_column, CUDA events; eager with the two-launch "
+              f"matvec: {TWO_LAUNCH_FAST_STACK_MS[label]} ms/frame)")
         # `mixed` keeps its slow stack int8, so only `int4` prefills in int4
         required = ["int4_mm", "flash_prefill", *wrappers] + (
             ["int4_mm_wgmma"] if label == "int4" else [])
@@ -1124,11 +1235,12 @@ def run_quant_slice(dev, tokenizer):
         if label == "int4":
             ttfa_ms = rows[0]["ttfa_s"] * 1e3
             print(f"int4 700-byte request: TTFA {ttfa_ms:.1f} ms against the "
-                  f"predicted 250-320 ms (545.2 ms with the CUDA-core tiled "
-                  f"product); tensor-core route launched "
+                  f"predicted 80-160 ms (the eager session: "
+                  f"{EAGER_FIGURES['int4']}); tensor-core route launched "
                   f"{launches['int4_mm_wgmma']} times")
         out[label] = dict(rows=rows, launches=launches, peak_gib=peak,
-                          weight_bytes=weight_bytes, fast_stack_ms=fast_ms)
+                          weight_bytes=weight_bytes, fast_stack_ms=fast_ms,
+                          step_ms=step_ms, launches_per_step=per_step)
         del engine, session
         gc.collect()
         torch.cuda.empty_cache()

@@ -1,23 +1,34 @@
 """Token-level generation runtime for the Dual-AR model, in PyTorch.
 
 Port of `fish_speech_tpu/generate.py` for the single-stream path. Where the
-JAX package ran a decode chunk as one `lax.scan` program, here it is a
-Python loop that enqueues every step's kernels without waiting on the
-device; the host syncs once per chunk, when it reads the chunk's columns,
-as in JAX. Steps run past `<|im_end|>` and are cut on the host.
+JAX package jits `prefill_step` per prompt bucket and a decode chunk as one
+`lax.scan` program, here each is a CUDA graph: one per bucket for the
+prefill with its first column, and one of the decode step, replayed n
+times per chunk (`GenerationSession`; `precompile` captures them ahead of
+the first request, as JAX's compiles them). The step bodies
+(`prefill_body`, `decode_step`) read and write fixed buffers
+(`StepState`): the position, token, RAS window and step index live on the
+device. The host syncs once per chunk, when it reads the chunk's columns,
+as in JAX. Steps run past `<|im_end|>` and are cut on the host. On the
+CPU the same bodies run eagerly.
 
-Positions are host integers, so the decode attention kernel reads exactly
-`pos + 1` cache positions: the JAX package's fixed kv-length buckets are
-not needed. Sampling draws its uniforms from one `torch.Generator` per
-request (seeded from the request's seed), on the model's device.
+The decode attention kernel reads exactly `pos + 1` cache positions, with
+`pos` read on the device: the JAX package's fixed kv-length buckets are
+not needed. Sampling reads its uniforms from a block that one eager call
+fills per chunk from the request's `torch.Generator` (seeded from the
+request's seed), on the model's device (`ops/sampling.py`).
 
 Not ported yet (ROADMAP): prefix caching (`prefill_suffix`), device
-partials (`StreamPartial`), AOT precompile, batched lockstep generation.
+partials (`StreamPartial`), batched lockstep generation.
 """
 
 from __future__ import annotations
 
+import collections
+import functools
+import gc
 import re
+import time
 from dataclasses import dataclass
 from typing import List, Optional, Union
 
@@ -26,8 +37,15 @@ import torch
 
 from fish_speech_tpu_torch.config import DualARConfig, SamplingConfig
 from fish_speech_tpu_torch.models import dual_ar
-from fish_speech_tpu_torch.ops.sampling import (check_top_k, ras_select,
-                                                 sample_topk, topk_state)
+from fish_speech_tpu_torch.ops.flash_decode import (
+    flash_decode_attention, flash_decode_attention_kv8)
+from fish_speech_tpu_torch.ops.flash_prefill import flash_prefill_attention
+from fish_speech_tpu_torch.ops.int4 import int4_matmul
+from fish_speech_tpu_torch.ops.sampling import (TOP_K_CAP, UNIFORM_FAST,
+                                                 UNIFORM_RAS, UNIFORM_SLOW,
+                                                 check_top_k, fill_uniforms,
+                                                 ras_select, sample_topk,
+                                                 topk_state, uniform_rows)
 
 PROMPT_BUCKETS = (64, 128, 256, 512, 1024, 2048, 4096, 8192)
 
@@ -47,21 +65,26 @@ def pick_bucket(t: int, max_seq: int) -> int:
 
 
 def _sample_column(params, cfg: DualARConfig, scfg: SamplingConfig, logits,
-                   hidden, window, generator, temperature, top_p, top_k):
+                   hidden, window, u, sampling, fast_cache):
     """Sample one (B, C+1) token column from the slow-head logits: the main
     token (top-k/top-p, RAS when `window` is given) and then codebooks
-    1..C-1 through the fast stack."""
-    b = logits.shape[0]
+    1..C-1 through the fast stack.
+
+    u: one step's uniforms, (`uniform_rows(C)`, >= k) in the rows of
+    `ops/sampling.py`; sampling: (temperature, top_p, top_k), numbers or
+    tensors; fast_cache: the fast stack's cache, zeroed and refilled."""
+    temperature, top_p, top_k = sampling
     if scfg.mask_im_end:  # benchmark-only, see SamplingConfig
         logits = logits.clone()
         logits[:, -1] = float("-inf")
 
     state = topk_state(logits)
-    idx_normal = sample_topk(state, temperature, top_p, top_k, generator)
+    idx_normal = sample_topk(state, temperature, top_p, top_k,
+                             u=u[UNIFORM_SLOW])
     tok_normal = dual_ar.semantic_index_to_token(cfg, idx_normal)
     if window is not None:
         idx_high = sample_topk(state, scfg.ras_high_temp, scfg.ras_high_top_p,
-                               top_k, generator)
+                               top_k, u=u[UNIFORM_RAS])
         tok_high = dual_ar.semantic_index_to_token(cfg, idx_high)
         main = ras_select(tok_normal, tok_high, window, cfg.semantic_begin_id,
                           cfg.semantic_end_id)
@@ -70,8 +93,8 @@ def _sample_column(params, cfg: DualARConfig, scfg: SamplingConfig, logits,
 
     code = torch.clamp(main - cfg.semantic_begin_id, 0, cfg.codebook_size - 1)
     codes = [main, code]
-    fast_cache = dual_ar.init_fast_kv_cache(cfg, b, dtype=hidden.dtype,
-                                            device=hidden.device)
+    for t in fast_cache.values():
+        t.zero_()
     h0 = dual_ar.fast_project_in(params, cfg, hidden)
     _, fast_cache = dual_ar.fast_decode_step(params, cfg, h0, fast_cache, 0,
                                              with_logits=False)
@@ -80,7 +103,7 @@ def _sample_column(params, cfg: DualARConfig, scfg: SamplingConfig, logits,
         logits_i, fast_cache = dual_ar.fast_decode_step(params, cfg, x,
                                                         fast_cache, i)
         code = sample_topk(topk_state(logits_i), temperature, top_p, top_k,
-                           generator)
+                           u=u[UNIFORM_FAST + i - 1])
         codes.append(code)
     return torch.stack(codes, dim=1).to(torch.int32)  # (B, C+1)
 
@@ -94,40 +117,113 @@ def _restricted_logits(cfg: DualARConfig, logits_full):
 
 
 def prefill_step(params, cfg: DualARConfig, scfg: SamplingConfig, inp, cache,
-                 offsets, t_end, generator, temperature, top_p, top_k):
-    """Prefill the cache from the prompt and sample the first column."""
+                 offsets, t_end, u, sampling, fast_cache):
+    """Prefill the cache from the prompt and sample the first column (no
+    RAS), from the uniforms `u` of one step."""
     logits_full, hidden, cache = dual_ar.prefill(params, cfg, inp, cache,
                                                  offsets, t_end)
     column = _sample_column(params, cfg, scfg,
                             _restricted_logits(cfg, logits_full), hidden,
-                            None, generator, temperature, top_p, top_k)
+                            None, u, sampling, fast_cache)
     return column, cache
 
 
-def _decode_one(params, cfg, scfg, token, cache, pos, window, generator,
-                temperature, top_p, top_k):
-    hidden, slow_out, cache = dual_ar.decode_slow_step(params, cfg, token,
-                                                       cache, pos)
+class StepState:
+    """The fixed buffers of one stream's prefill and decode steps, which a
+    captured CUDA graph reads and writes at the addresses it was captured
+    with. The host writes a request's inputs in place (the prompt,
+    `t_end`, `sampling`, the uniform block `u`, `step`); the bodies
+    (`prefill_body`, `decode_step`) carry the rest on the device.
+
+    token (1, C+1) int32: the last column; pos (1,) int64: the next step's
+    position; window (1, W) int32: the RAS window; step (1,) int64: the
+    step's row in `u` and `cols`; u (n_steps, uniform_rows(C), TOP_K_CAP)
+    fp32; cols (n_steps, 1, C+1) int32: a chunk's columns; sampling (3,)
+    fp32: temperature, top_p, top_k; offsets (1,) int32 and t_end (1,)
+    int64: the prompt's rows [offsets, t_end); inp: the padded prompt of
+    each bucket, (1, C+1, bucket) int32."""
+
+    def __init__(self, cfg: DualARConfig, scfg: SamplingConfig, cache_len: int,
+                 n_steps: int, dtype, act_dtype, device, kv_quant: bool):
+        c1 = cfg.num_codebooks + 1
+        i32 = dict(dtype=torch.int32, device=device)
+        i64 = dict(dtype=torch.int64, device=device)
+        self.device = device
+        self.cache = dual_ar.init_kv_cache(cfg, 1, cache_len, dtype, device,
+                                           quant=kv_quant)
+        self.fast_cache = dual_ar.init_fast_kv_cache(cfg, 1, act_dtype, device)
+        self.token = torch.zeros((1, c1), **i32)
+        self.pos = torch.zeros((1,), **i64)
+        self.window = torch.zeros((1, scfg.ras_win_size), **i32)
+        self.step = torch.zeros((1,), **i64)
+        self.u = torch.zeros((n_steps, uniform_rows(cfg.num_codebooks),
+                              TOP_K_CAP), dtype=torch.float32, device=device)
+        self.cols = torch.zeros((n_steps, 1, c1), **i32)
+        self.sampling = torch.zeros((3,), dtype=torch.float32, device=device)
+        self.offsets = torch.zeros((1,), **i32)
+        self.t_end = torch.zeros((1,), **i64)
+        self.inp = {}
+
+    def prompt(self, bucket: int):
+        """The prompt buffer of `bucket`, made at its first use."""
+        if bucket not in self.inp:
+            self.inp[bucket] = torch.zeros(
+                (1, self.token.shape[1], bucket), dtype=torch.int32,
+                device=self.device)
+        return self.inp[bucket]
+
+    def carry(self):
+        """The tensors a body carries from one run to the next."""
+        return self.token, self.pos, self.window, self.step
+
+    def sampling_args(self):
+        return self.sampling[0], self.sampling[1], self.sampling[2]
+
+
+def prefill_body(params, cfg: DualARConfig, scfg: SamplingConfig,
+                 st: StepState, bucket: int):
+    """`prefill_step` of the prompt in `st.prompt(bucket)` on the fixed
+    buffers: the first column (from row 0 of `st.u`) goes to `st.token`,
+    `st.pos` becomes `t_end` and the RAS window is cleared."""
+    column, _ = prefill_step(params, cfg, scfg, st.prompt(bucket), st.cache,
+                             st.offsets, st.t_end, st.u[0], st.sampling_args(),
+                             st.fast_cache)
+    st.token.copy_(column)
+    st.pos.copy_(st.t_end)
+    st.window.zero_()
+
+
+def decode_step(params, cfg: DualARConfig, scfg: SamplingConfig,
+                st: StepState):
+    """One decode step on the fixed buffers: the slow step at `st.pos` on
+    `st.token`, the head, sampling with RAS from `st.u[st.step]` and the
+    fast column. The column goes to `st.cols[st.step]` and `st.token`, the
+    window rolls, and `pos` and `step` advance, all on the device: a CUDA
+    graph of this body replayed n times runs n steps (JAX's `decode_chunk`
+    scan). Steps run past `<|im_end|>`; the host cuts them."""
+    hidden, slow_out, _ = dual_ar.decode_slow_step(params, cfg, st.token,
+                                                   st.cache, st.pos)
     logits = dual_ar.semantic_head_logits(params, cfg, slow_out)
-    column = _sample_column(params, cfg, scfg, logits, hidden, window,
-                            generator, temperature, top_p, top_k)
-    return column, cache
+    column = _sample_column(params, cfg, scfg, logits, hidden, st.window,
+                            st.u.index_select(0, st.step)[0],
+                            st.sampling_args(), st.fast_cache)
+    st.cols.index_copy_(0, st.step, column[None])
+    st.token.copy_(column)
+    st.window.copy_(torch.cat([st.window[:, 1:], column[:, :1]], dim=1))
+    st.pos.add_(1)
+    st.step.add_(1)
 
 
-def decode_chunk(params, cfg: DualARConfig, scfg: SamplingConfig,
-                 n_steps: int, token, cache, pos: int, window, generator,
-                 temperature, top_p, top_k):
-    """Enqueue n_steps decode steps; nothing here waits on the device.
+# the wrappers whose launch counters a captured graph's replays add to
+_WRAPPERS = (flash_decode_attention, flash_decode_attention_kv8,
+             flash_prefill_attention, int4_matmul)
 
-    Returns (columns (n, B, C+1), token, cache, pos, window)."""
-    cols = []
-    for step in range(n_steps):
-        token, cache = _decode_one(params, cfg, scfg, token, cache, pos + step,
-                                   window, generator, temperature, top_p,
-                                   top_k)
-        window = torch.cat([window[:, 1:], token[:, :1]], dim=1)
-        cols.append(token)
-    return torch.stack(cols), token, cache, pos + n_steps, window
+
+def _launch_counts():
+    """Every launch counter of the serving path's kernel wrappers
+    (`.launches` and the per-route `.launches_<route>`)."""
+    return {(f, name): n for f in _WRAPPERS for name, n in vars(f).items()
+            if name.startswith("launches")}
 
 
 # ---------------------------------------------------------------------------
@@ -149,17 +245,32 @@ def _detached(tree):
 
 
 class GenerationSession:
-    """Owns the KV cache and the inference-prepared weights of one model,
-    for one stream at a time (batching is not ported yet: `max_batch` must
-    be 1).
+    """Owns the KV cache, the step buffers (`StepState`) and the
+    inference-prepared weights of one model, for one stream at a time
+    (batching is not ported yet: `max_batch` must be 1).
 
     The session re-uses one cache for every request (each prefill writes
     the positions it reads); `params` (plain or quantized, `ops/quant.py`)
     are augmented with the restricted LM head and the fused w1|w3 FFN
     weight (the JAX package fuses at batch 1, the only batch here). Fusing
     copies the FFN weights: the caller should drop its own reference to
-    `params`. `kv_quant` keeps the slow cache in int8 with per-(position,
-    head) scales (`dual_ar.init_kv_cache(quant=True)`)."""
+    `params`, and must not change the session's. `kv_quant` keeps the slow
+    cache in int8 with per-(position, head) scales
+    (`dual_ar.init_kv_cache(quant=True)`).
+
+    On CUDA every step is a replay of a CUDA graph: one graph per prompt
+    bucket for the prefill and its first column (`prefill_{bucket}`) and
+    one for the decode step (`decode`), replayed n times per chunk. A graph
+    is captured at the first use of its name, or ahead of time by
+    `precompile`, after one eager run of its body that builds the kernels'
+    plans and workspaces; a failed capture raises. The graphs share one
+    memory pool: they replay on one stream, one at a time, and keep no
+    output in it (every result goes to a `StepState` buffer). The weights
+    and the cache must stay where they were captured. A capture launches
+    no kernel, so it takes back the launch counts its body added; each
+    replay adds them again. On the CPU the bodies run eagerly.
+    `replays` and `eager_runs` count graph replays and eager body runs by
+    name; `capture_seconds` and `pool_bytes` what the captures took."""
 
     def __init__(self, params, cfg: DualARConfig, scfg: SamplingConfig = None,
                  max_batch: int = 1, dtype=torch.bfloat16,
@@ -183,11 +294,132 @@ class GenerationSession:
         # headroom so a chunk's overshoot never writes past the buffer
         self.cache_len = self.cfg.max_seq_len + decode_chunk_size
         self.kv_quant = kv_quant
-        self.cache = dual_ar.init_kv_cache(self.cfg, max_batch, self.cache_len,
-                                           dtype, self.device, quant=kv_quant)
+        self.state = StepState(
+            self.cfg, self.scfg, self.cache_len,
+            max(self.first_chunk_size, decode_chunk_size), dtype,
+            params["embeddings"].dtype, self.device, kv_quant)
+        self.cache = self.state.cache
+        self._graphs = {}  # name -> (CUDAGraph, launch counts per replay)
+        self._pool = None
+        self.capture_seconds = {}
+        self.pool_bytes = 0
+        self.replays = collections.Counter()
+        self.eager_runs = collections.Counter()
 
     def new_generator(self, seed: int) -> torch.Generator:
         return torch.Generator(device=self.device).manual_seed(int(seed))
+
+    def _bucket(self, t: int) -> int:
+        return min(pick_bucket(t, self.cache_len), self.cfg.max_seq_len)
+
+    def _body(self, name: str):
+        if name == "decode":
+            return functools.partial(decode_step, self.params, self.cfg,
+                                     self.scfg, self.state)
+        return functools.partial(prefill_body, self.params, self.cfg,
+                                 self.scfg, self.state,
+                                 int(name.split("_")[1]))
+
+    def _capture(self, name: str):
+        """Capture graph `name`: one eager run of its body (the carried
+        buffers put back after it), then the capture into the shared pool."""
+        t0 = time.perf_counter()
+        body = self._body(name)
+        saved = [t.clone() for t in self.state.carry()]
+        body()
+        self.eager_runs[name] += 1
+        for t, s in zip(self.state.carry(), saved):
+            t.copy_(s)
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        del saved
+        gc.collect()
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved(self.device)
+        before = _launch_counts()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, pool=self._pool):
+            body()
+        after = _launch_counts()
+        for (f, attr), n in before.items():
+            setattr(f, attr, n)
+        torch.cuda.synchronize(self.device)
+        self.pool_bytes += torch.cuda.memory_reserved(self.device) - reserved
+        self.capture_seconds[name] = time.perf_counter() - t0
+        self._graphs[name] = (graph, {k: after[k] - n for k, n in before.items()
+                                      if after[k] != n})
+        return self._graphs[name]
+
+    def _run(self, name: str):
+        """Run step `name` once: a replay of its graph on CUDA (captured at
+        its first use), its body on the CPU."""
+        if self.device.type != "cuda":
+            self._body(name)()
+            self.eager_runs[name] += 1
+            return
+        graph, launches = self._graphs.get(name) or self._capture(name)
+        graph.replay()
+        self.replays[name] += 1
+        for (f, attr), n in launches.items():
+            setattr(f, attr, getattr(f, attr) + n)
+
+    def launches_per_replay(self, name: str) -> dict:
+        """{counter: launches} one replay of graph `name` adds."""
+        return {f"{f.__name__}.{attr}": n
+                for (f, attr), n in self._graphs[name][1].items()}
+
+    def precompile(self, prompt_len: int, max_new_tokens: int = 0,
+                   first_chunk: Optional[int] = None) -> dict:
+        """Capture, ahead of the first request, the graphs a request of
+        `prompt_len` tokens and `max_new_tokens` replays: its bucket's
+        prefill (`prefill_{bucket}`) and, unless its budget ends with the
+        prefill, the decode step (`decode`), the counterpart of the JAX
+        session's `precompile`. One decode graph serves every chunk size,
+        so `first_chunk` has only to fit the step buffers. Call it between
+        requests: the eager runs write the cache. Returns {name: seconds}
+        of the graphs captured by this call (each with its eager run); on
+        the CPU nothing is captured and it returns {}."""
+        cfg = self.cfg
+        n_steps = self.state.u.shape[0]
+        if first_chunk is not None and not 0 < first_chunk <= n_steps:
+            raise ValueError(f"first_chunk={first_chunk} outside the step "
+                             f"buffers' 1..{n_steps}")
+        if not 0 < prompt_len < cfg.max_seq_len:
+            raise ValueError(f"prompt_len {prompt_len} outside 1.."
+                             f"{cfg.max_seq_len - 1}")
+        if self.device.type != "cuda":
+            return {}
+        budget = (max_new_tokens
+                  if max_new_tokens and prompt_len + max_new_tokens <= cfg.max_seq_len
+                  else cfg.max_seq_len - prompt_len)
+        names = [f"prefill_{self._bucket(prompt_len)}"]
+        if budget > 1:
+            names.append("decode")
+        self._set_request(prompt_len, self.scfg.temperature, self.scfg.top_p,
+                          self.scfg.top_k)
+        out = {}
+        for name in names:
+            if name not in self._graphs:
+                self._capture(name)
+                out[name] = self.capture_seconds[name]
+        return out
+
+    def _set_request(self, t: int, temperature, top_p, top_k):
+        st = self.state
+        st.t_end.fill_(t)
+        for i, v in enumerate((temperature, top_p, top_k)):
+            st.sampling[i].fill_(float(v))
+
+    def decode_chunk(self, n: int, generator):
+        """Enqueue n decode steps (on CUDA n replays of the step graph) after
+        filling their uniforms; returns a copy of their columns (n, 1, C+1).
+        Nothing here waits on the device, so chunks can queue."""
+        st = self.state
+        fill_uniforms(st.u[:n], generator)
+        st.step.zero_()
+        for _ in range(n):
+            self._run("decode")
+        return st.cols[:n].clone()
 
     def generate(self, prompt: np.ndarray, generator, max_new_tokens: int = 0,
                  temperature: float = 1.0, top_p: float = 0.9,
@@ -212,7 +444,7 @@ class GenerationSession:
 
         pipeline_lookahead > 0 enqueues that many chunks beyond the one
         being read, so the device runs chunks back to back."""
-        cfg, scfg = self.cfg, self.scfg
+        cfg, st = self.cfg, self.state
         check_top_k(top_k)
         t = prompt.shape[1]
         if t >= cfg.max_seq_len:
@@ -224,23 +456,19 @@ class GenerationSession:
         else:
             budget = cfg.max_seq_len - t
 
-        bucket = min(pick_bucket(t, self.cache_len), cfg.max_seq_len)
+        bucket = self._bucket(t)
         inp = np.zeros((1, cfg.num_codebooks + 1, bucket), dtype=np.int32)
         inp[0, :, :t] = prompt
-        offsets = torch.zeros((1,), dtype=torch.int32, device=self.device)
-        column, self.cache = prefill_step(
-            self.params, cfg, scfg, torch.from_numpy(inp).to(self.device),
-            self.cache, offsets, t, generator, temperature, top_p, top_k,
-        )
-        columns = [column.cpu().numpy()]  # list of (B, C+1)
+        st.prompt(bucket).copy_(torch.from_numpy(inp))
+        self._set_request(t, temperature, top_p, top_k)
+        fill_uniforms(st.u[:1], generator)
+        self._run(f"prefill_{bucket}")
+        # a copy: on the CPU .cpu() returns the buffer the steps overwrite
+        columns = [st.token.cpu().numpy().copy()]  # list of (B, C+1)
         yield np.concatenate(columns, axis=0).T
         if int(columns[0][0, 0]) == cfg.im_end_id:
             return
 
-        pos = t
-        token = column
-        window = torch.zeros((1, scfg.ras_win_size), dtype=torch.int32,
-                             device=self.device)
         dispatch_left = budget - 1  # steps not yet enqueued
         emit_left = budget - 1  # steps not yet yielded
         first = True
@@ -251,11 +479,7 @@ class GenerationSession:
                 # decode_chunk_size positions of headroom for the overshoot
                 n = self.first_chunk_size if first else self.decode_chunk_size
                 first = False
-                cols, token, self.cache, pos, window = decode_chunk(
-                    self.params, cfg, scfg, n, token, self.cache, pos, window,
-                    generator, temperature, top_p, top_k,
-                )
-                inflight.append((cols, n))
+                inflight.append((self.decode_chunk(n, generator), n))
                 dispatch_left -= n
             cols_dev, n = inflight.pop(0)
             cols = cols_dev.cpu().numpy()[:, 0][: max(emit_left, 0)]
@@ -349,6 +573,23 @@ def build_base_conversation(prompt_text: Optional[List[str]],
     return conv
 
 
+def encode_turn(conversation, text: str, tokenizer, num_codebooks: int):
+    """Append the user's `text` to `conversation` and return the (C+1, T)
+    prompt of the assistant's voice turn that answers it."""
+    from fish_speech_tpu_torch.sequence import Conversation, Message, TextPart
+
+    conversation.append(Message(role="user", parts=[TextPart(text=text)],
+                                cal_loss=False, add_im_start=True,
+                                add_im_end=True))
+    gen_conv = Conversation(list(conversation.messages))
+    gen_conv.append(Message(role="assistant", parts=[], cal_loss=False,
+                            modality="voice", add_im_start=True,
+                            add_im_end=False))
+    encoded, _, _ = gen_conv.encode_for_inference(tokenizer,
+                                                  num_codebooks=num_codebooks)
+    return encoded
+
+
 def generate_long(*, session: GenerationSession, tokenizer, text: str,
                   max_new_tokens: int = 0, top_p: float = 0.9, top_k: int = 30,
                   temperature: float = 1.0, chunk_length: int = 300,
@@ -364,7 +605,7 @@ def generate_long(*, session: GenerationSession, tokenizer, text: str,
     stream_partials: also yield action="partial" with the cumulative codes
     of the segment in progress after every decode chunk; the closing
     action="sample" repeats the whole segment."""
-    from fish_speech_tpu_torch.sequence import Conversation, Message, TextPart, VQPart
+    from fish_speech_tpu_torch.sequence import Conversation, Message, VQPart
 
     if not 0 < top_p <= 1:
         raise ValueError("top_p must be in (0, 1]")
@@ -389,16 +630,8 @@ def generate_long(*, session: GenerationSession, tokenizer, text: str,
     generator = session.new_generator(seed)
     conversation = Conversation(list(base_conversation.messages))
     for batch_text in batches:
-        conversation.append(Message(role="user",
-                                    parts=[TextPart(text=batch_text)],
-                                    cal_loss=False, add_im_start=True,
-                                    add_im_end=True))
-        gen_conv = Conversation(list(conversation.messages))
-        gen_conv.append(Message(role="assistant", parts=[], cal_loss=False,
-                                modality="voice", add_im_start=True,
-                                add_im_end=False))
-        encoded, _, _ = gen_conv.encode_for_inference(
-            tokenizer, num_codebooks=cfg.num_codebooks)
+        encoded = encode_turn(conversation, batch_text, tokenizer,
+                              cfg.num_codebooks)
         if encoded.shape[1] > cfg.max_seq_len - 2048 and cfg.max_seq_len > 2048:
             raise ValueError(f"Prompt is too long: {encoded.shape[1]} > "
                              f"{cfg.max_seq_len - 2048}")

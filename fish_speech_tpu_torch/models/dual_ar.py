@@ -200,20 +200,22 @@ def _kv_dequant(q, s, dtype):
 
 def _store_kv(cache, i, sl, k, v):
     """Write k/v (B, T, Hkv, Dh) into layer i of the cache at positions
-    `sl` (a slice or an int with T == 1), quantized under the int8 cache."""
+    `sl`: a slice, an int with T == 1, or a (1,) int64 device tensor with
+    T == 1 (written by `index_copy_`, so a CUDA graph reads the position
+    at replay); quantized under the int8 cache."""
     if "ks" in cache:
-        (kq, ks), (vq, vs) = _kv_quant(k), _kv_quant(v)
-        if isinstance(sl, int):
-            kq, ks, vq, vs = kq[:, 0], ks[:, 0], vq[:, 0], vs[:, 0]
-        cache["k"][i, :, sl] = kq
-        cache["v"][i, :, sl] = vq
-        cache["ks"][i, :, sl] = ks
-        cache["vs"][i, :, sl] = vs
-        return
+        (k, ks), (v, vs) = _kv_quant(k), _kv_quant(v)
+        pairs = ((cache["k"], k), (cache["v"], v), (cache["ks"], ks),
+                 (cache["vs"], vs))
+    else:
+        pairs = ((cache["k"], k), (cache["v"], v))
     if isinstance(sl, int):
-        k, v = k[:, 0], v[:, 0]
-    cache["k"][i, :, sl] = k.to(cache["k"].dtype)
-    cache["v"][i, :, sl] = v.to(cache["v"].dtype)
+        sl = slice(sl, sl + 1)
+    for dst, src in pairs:
+        if isinstance(sl, torch.Tensor):
+            dst[i].index_copy_(1, sl, src.to(dst.dtype))
+        else:
+            dst[i, :, sl] = src.to(dst.dtype)
 
 
 def init_fast_kv_cache(cfg: DualARConfig, batch: int, dtype=torch.bfloat16,
@@ -325,12 +327,12 @@ def _layer_slice(layers, i):
             for name, w in layers.items()}
 
 
-def _run_stack_decode(layers, spec, x, freqs, cache, pos: int, lengths):
+def _run_stack_decode(layers, spec, x, freqs, cache, pos, lengths):
     """Decode-mode layer loop, lockstep write of one position.
 
     x (B, 1, D); freqs (1, Dh/2, 2); the cache is written in place at `pos`
-    (int8 plus scales under the int8 cache) and each layer's attention
-    reads its first `lengths[b]` positions."""
+    (an int or a (1,) int64 tensor; int8 plus scales under the int8 cache)
+    and each layer's attention reads its first `lengths[b]` positions."""
     n_head, n_kv, head_dim, eps, _ = spec
     b = x.shape[0]
     quant = "ks" in cache
@@ -544,21 +546,26 @@ def _lengths(b: int, pos: int, device):
     return torch.full((b,), pos + 1, dtype=torch.int32, device=device)
 
 
-def decode_slow_step(params, cfg: DualARConfig, token, cache, pos: int):
-    """One slow-transformer step at absolute position `pos` (host int).
+def decode_slow_step(params, cfg: DualARConfig, token, cache, pos):
+    """One slow-transformer step at absolute position `pos`: a host int or
+    an int tensor of one element on the model's device. Everything that
+    depends on it is computed on the device (the RoPE row, the cache
+    write, the attention lengths), so a CUDA graph of the step reads the
+    position at replay.
 
     token: (B, C+1) int current column. Returns (hidden (B, D) for the fast
     stack, slow_out (B, D) normed, cache)."""
     cfg = cfg.resolve()
     x = embed_tokens(params, cfg, token[:, :, None])  # (B, 1, D)
+    b = x.shape[0]
+    pos = torch.as_tensor(pos, device=x.device).reshape(1).long()
     table = rope_table(cfg.max_seq_len, cfg.head_dim, cfg.rope_base, x.device)
     # past the table JAX's dynamic_slice clamps; overshoot steps past the
     # budget are discarded on the host either way
-    p = min(pos, table.shape[0] - 1)
-    x, cache = _run_stack_decode(
-        params["layers"], _slow_spec(cfg), x, table[p : p + 1], cache, pos,
-        _lengths(x.shape[0], pos, x.device),
-    )
+    freqs = table.index_select(0, pos.clamp(max=table.shape[0] - 1))
+    lengths = (pos + 1).to(torch.int32).expand(b).contiguous()
+    x, cache = _run_stack_decode(params["layers"], _slow_spec(cfg), x, freqs,
+                                 cache, pos, lengths)
     x = x[:, 0]
     slow_out = rms_norm(x, params["norm"], cfg.norm_eps)
     hidden = slow_out if cfg.norm_fastlayer_input else x

@@ -15,6 +15,18 @@ import torch
 
 TOP_K_CAP = 64  # static top-k width of the fast path (runtime top_k <= cap)
 _TINY = torch.finfo(torch.float32).tiny  # minval of the uniforms, as in JAX
+UNIFORM_SLOW, UNIFORM_RAS, UNIFORM_FAST = 0, 1, 2  # rows of a step's block
+
+
+def uniform_rows(num_codebooks: int) -> int:
+    """Rows of uniforms one decode step reads: the slow head's two samples
+    and one for each of the fast stack's num_codebooks - 1 codebooks."""
+    return UNIFORM_FAST + num_codebooks - 1
+
+
+def fill_uniforms(block: torch.Tensor, generator: torch.Generator):
+    """Fill `block` in place with uniforms in [tiny, 1) from `generator`."""
+    return block.uniform_(generator=generator).clamp_(min=_TINY)
 
 
 def check_top_k(top_k, k_cap: int = TOP_K_CAP):
@@ -39,20 +51,28 @@ def topk_state(logits: torch.Tensor, k_cap: int = TOP_K_CAP):
 def sample_topk(state, temperature: float, top_p: float, top_k: int,
                 generator: Optional[torch.Generator] = None,
                 u: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Draw one token from a `topk_state`. Returns int32 vocab indices (...,)."""
+    """Draw one token from a `topk_state`. Returns int32 vocab indices (...,).
+
+    `u` may be wider than the state's k (a row of the uniform block): its
+    first k values are used."""
     vals, idx, lse = state
     k_cap = vals.shape[-1]
-    top_k = min(int(top_k), k_cap)
     probs = torch.exp(vals - lse[..., None])  # true softmax probs of the top-k
     cum = torch.cumsum(probs, dim=-1)
     ranks = torch.arange(k_cap, device=vals.device)
-    remove = (cum > top_p) | (ranks >= top_k)
+    remove = (cum > top_p) | (ranks >= top_k)  # top_k above k_cap keeps all
     remove[..., 0] = False
-    filtered = vals.masked_fill(remove, float("-inf")) / max(temperature, 1e-5)
-    p = torch.softmax(filtered, dim=-1)
+    if isinstance(temperature, torch.Tensor):
+        temperature = temperature.clamp(min=1e-5)
+    else:
+        temperature = max(temperature, 1e-5)
+    p = torch.softmax(vals.masked_fill(remove, float("-inf")) / temperature,
+                      dim=-1)
     if u is None:  # uniforms in [tiny, 1)
         u = torch.rand(p.shape, generator=generator, device=p.device,
                        dtype=torch.float32).clamp_(min=_TINY)
+    else:
+        u = u[..., :k_cap]
     choice = torch.argmax(p / -torch.log(u), dim=-1)
     return torch.gather(idx, -1, choice[..., None])[..., 0].to(torch.int32)
 

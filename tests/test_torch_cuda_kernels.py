@@ -547,3 +547,158 @@ def test_new_wrappers_reject_what_the_kernels_do_not_take(dev):
         faststack.faststack_probe(torch.zeros(1, 32, device=dev),
                                   faststack.make_weights(dims, dev), 0,
                                   "bf16", dims)
+
+
+def _graph_session(dev, kind, **kw):
+    """A small model on the card (heads of D=64, ten codebooks) served by a
+    graphed session: "bf16" weights and cache, or "mixed" (slow int8, fast
+    int4, heads int8) with the int8 KV cache."""
+    from fish_speech_tpu_torch.config import SamplingConfig, dual_ar_tiny
+    from fish_speech_tpu_torch.generate import GenerationSession
+    from fish_speech_tpu_torch.models.dual_ar import init_dual_ar
+    from fish_speech_tpu_torch.ops.quant import quantize_dual_ar_lowmem
+    from fish_speech_tpu_torch.tokenizer import build_test_tokenizer
+
+    tok = build_test_tokenizer()
+    cfg = dual_ar_tiny(vocab_size=tok.vocab_size, head_dim=64, n_head=4,
+                       n_local_heads=2, dim=256, intermediate_size=512,
+                       fast_dim=256, fast_intermediate_size=512,
+                       fast_head_dim=64, fast_n_head=3, fast_n_local_heads=1,
+                       num_codebooks=10, attention_qk_norm=True,
+                       tie_word_embeddings=False, max_seq_len=256,
+                       semantic_begin_id=tok.semantic_begin_id,
+                       semantic_end_id=tok.semantic_end_id,
+                       im_end_id=tok.im_end_id)
+    params = init_dual_ar(7, cfg, torch.bfloat16, dev)
+    if kind == "mixed":
+        params = quantize_dual_ar_lowmem(params, mode="int8", fast_mode="int4")
+    return GenerationSession(params, cfg, SamplingConfig(), dtype=torch.bfloat16,
+                             decode_chunk_size=4, first_chunk_size=2,
+                             kv_quant=kind == "mixed", **kw)
+
+
+def _graph_prompt(cfg, t, seed):
+    rng = np.random.default_rng(seed)
+    inp = rng.integers(0, cfg.codebook_size,
+                       (cfg.num_codebooks + 1, t)).astype(np.int32)
+    inp[0, t // 4 : t // 2] += cfg.semantic_begin_id  # a stretch of semantic tokens
+    return inp
+
+
+def _eager_stream(session, prompt, budget, sampling, generator):
+    """The session's request run eagerly: the same bodies on a fresh
+    `StepState` (the same weights), the uniform blocks filled from
+    `generator` in `generate_stream`'s order, every chunk run in full and
+    cut at the budget and at im_end as `generate_stream` cuts."""
+    from fish_speech_tpu_torch.generate import (StepState, decode_step,
+                                                prefill_body)
+    from fish_speech_tpu_torch.ops.sampling import fill_uniforms
+
+    cfg, scfg, ref = session.cfg, session.scfg, session.state
+    st = StepState(cfg, scfg, session.cache_len, ref.u.shape[0], torch.bfloat16,
+                   torch.bfloat16, session.device, session.kv_quant)
+    t = prompt.shape[1]
+    bucket = session._bucket(t)
+    st.prompt(bucket)[0, :, :t].copy_(torch.from_numpy(prompt))
+    st.t_end.fill_(t)
+    st.sampling.copy_(torch.tensor(sampling, dtype=torch.float32))
+    fill_uniforms(st.u[:1], generator)
+    prefill_body(session.params, cfg, scfg, st, bucket)
+    cols = [st.token.clone()]
+    left, n = budget - 1, session.first_chunk_size
+    while left > 0:
+        fill_uniforms(st.u[:n], generator)
+        st.step.zero_()
+        for _ in range(n):
+            decode_step(session.params, cfg, scfg, st)
+        cols.extend(st.cols[:n].clone())
+        left, n = left - n, session.decode_chunk_size
+    out = torch.cat(cols).cpu().numpy().T[:, :budget]
+    ends = np.flatnonzero(out[0] == cfg.im_end_id)
+    return out[:, : ends[0] + 1] if len(ends) else out
+
+
+@pytest.mark.parametrize("kind", ["bf16", "mixed"])
+def test_graphed_session_columns_equal_the_eager_bodies(dev, kind):
+    """Greedy, over a first chunk of 2 and chunks of 4, at prompt buckets 64
+    and 128 (captured ahead by `precompile`): the replayed graphs give the
+    eager bodies' columns; every decode step on the card is a replay, each
+    graph had one eager run (its capture's warm-up), and the launch counts
+    are the captured counts times the replays."""
+    session = _graph_session(dev, kind)
+    cfg = session.cfg
+    times = session.precompile(37, 11)
+    assert set(times) == {"prefill_64", "decode"} and min(times.values()) > 0
+    assert set(session.precompile(90, 11, first_chunk=2)) == {"prefill_128"}
+    assert session.pool_bytes > 0
+    per_step = session.launches_per_replay("decode")
+    fast = cfg.num_codebooks * cfg.n_fast_layer
+    if kind == "mixed":
+        assert per_step["flash_decode_attention_kv8.launches"] == cfg.n_layer
+        assert per_step["flash_decode_attention.launches"] == fast
+        assert per_step["int4_matmul.launches_gemv"] > 0
+    else:
+        assert per_step["flash_decode_attention.launches"] == cfg.n_layer + fast
+    for t, bucket in ((37, 64), (90, 128)):
+        prompt = _graph_prompt(cfg, t, seed=t)
+        replays = dict(session.replays)
+        n0 = flash_decode_attention.launches
+        got = session.generate(prompt, session.new_generator(1), max_new_tokens=11,
+                               top_k=1)
+        launched = flash_decode_attention.launches - n0
+        want = _eager_stream(session, prompt, 11, (1.0, 0.9, 1),
+                             session.new_generator(1))
+        np.testing.assert_array_equal(got, want)
+        name = f"prefill_{bucket}"
+        assert session.replays[name] == replays.get(name, 0) + 1
+        steps = session.replays["decode"] - replays.get("decode", 0)
+        assert steps >= got.shape[1] - 1 and steps > 0
+        # the prefill graph's first column runs the fast stack's decode too
+        assert launched == (steps * per_step["flash_decode_attention.launches"]
+                            + session.launches_per_replay(f"prefill_{bucket}")[
+                                "flash_decode_attention.launches"])
+    assert dict(session.eager_runs) == {"prefill_64": 1, "decode": 1,
+                                        "prefill_128": 1}
+
+
+@pytest.mark.parametrize("kind", ["bf16", "mixed"])
+def test_decode_graph_replayed_after_pos_and_token_change(dev, kind):
+    """Replayed after `pos`, `token` (and the window and uniforms) change
+    in place, the decode graph gives an eager step's column and cache row
+    there."""
+    from fish_speech_tpu_torch.generate import StepState, decode_step
+
+    session = _graph_session(dev, kind)
+    cfg, st = session.cfg, session.state
+    session.generate(_graph_prompt(cfg, 60, seed=3), session.new_generator(2),
+                     max_new_tokens=7, top_k=30)
+    rng = np.random.default_rng(4)
+    st.pos.fill_(97)
+    st.token.copy_(torch.from_numpy(_graph_prompt(cfg, 1, seed=5)[:, 0][None]))
+    st.window.copy_(torch.from_numpy(rng.integers(
+        cfg.semantic_begin_id, cfg.semantic_begin_id + 50, st.window.shape)))
+    st.u.uniform_(generator=session.new_generator(9)).clamp_(min=1e-30)
+    st.step.fill_(1)
+    ref = StepState(cfg, session.scfg, session.cache_len, st.u.shape[0],
+                    torch.bfloat16, torch.bfloat16, dev, session.kv_quant)
+    for name in ("token", "pos", "window", "step", "u", "sampling"):
+        getattr(ref, name).copy_(getattr(st, name))
+    for name, t in st.cache.items():
+        ref.cache[name].copy_(t)
+    decode_step(session.params, cfg, session.scfg, ref)
+    session._run("decode")
+    torch.cuda.synchronize()
+    assert torch.equal(st.cols[1], ref.cols[1])
+    assert int(st.pos) == 98 and int(st.step) == 2
+    for name, t in st.cache.items():
+        assert torch.equal(t[:, :, 97], ref.cache[name][:, :, 97]), name
+
+
+def test_repeated_seed_gives_identical_codes(dev):
+    session = _graph_session(dev, "bf16")
+    prompt = _graph_prompt(session.cfg, 50, seed=6)
+    runs = [session.generate(prompt, session.new_generator(s), max_new_tokens=15,
+                             temperature=0.8, top_p=0.9, top_k=30)
+            for s in (11, 11, 12)]
+    np.testing.assert_array_equal(runs[0], runs[1])
+    assert not np.array_equal(runs[0], runs[2])
