@@ -69,18 +69,41 @@ Phases, each of which ends the run with a nonzero exit if it fails:
    kernels against CPU plain versions: identical greedy token columns,
    prefill logits within 1e-4;
 4. the serving slice: the full-width `dual_ar_s2_pro` LM (bf16, random
-   weights from a seed, max_seq_len 2048) and the `dac_s2_pro` codec answer
-   streamed requests through `TTSInferenceEngine`, one of them with a
-   prompt over 512 tokens. The session's CUDA graphs (each request's
-   prefill bucket, the decode step) are captured first by
-   `GenerationSession.precompile` (capture seconds and the graphs' pool
-   printed apart from the requests). The audio must be finite and in whole
+   weights from a seed, max_seq_len 2048) and the full `dac_s2_pro` codec
+   (encoder included) answer streamed requests through
+   `TTSInferenceEngine`, one of them with a prompt over 512 tokens. The
+   session's CUDA graphs (each request's prefill bucket, the decode step)
+   are captured first by `GenerationSession.precompile`, and the codec's
+   decode graphs of the code buckets the requests reach (32 and 128) by
+   `TTSInferenceEngine.precompile` (capture seconds and both pools printed
+   apart from the requests). The audio must be finite and in whole
    frames, the decode kernel and the prefill's tensor-core route must have
    been launched (by graph replays: a replay adds the launches its capture
    recorded), every decode step must have been a replay of the step graph
-   (no eager body run on the card), and a repeated request with the same
-   seed must give identical codes. Then the launches of one replayed step
-   by kernel and its device time (CUDA events over 64 replays);
+   and every codec call a replay of a codec graph (no eager body run on
+   the card), and a repeated request with the same seed must give
+   identical codes. The first request's TTFA is printed beside the
+   others'; then the codec's device ms per replay for each (rows, bucket)
+   reached, and the launches of one replayed step by kernel and its
+   device time (CUDA events over 64 replays);
+4b. voice cloning on the same model, session and engine: a ~30 s
+   reference clip written from a seed under `build/` (16-bit mono PCM at
+   24 kHz, so `load_audio` resamples it) with its transcript, in a
+   references directory. Its encode graph (bucket 1024) and its prompt's
+   prefill graph are captured first; then three streamed requests of 72
+   new tokens: by `reference_id` (memory cache on), by `references` (the
+   same bytes and text) and by id again, with one seed. Each must give
+   finite whole frames and no `error`; the clip must have been encoded
+   once (one VQ cache miss, a hit), every prompt prefilled by
+   `prefill_1024`, the prefill's tensor-core route and the decode kernel
+   launched, the encode graph replayed, no step or codec body run eagerly
+   on the card, and the three requests' codes identical. The TTFAs (the
+   first with the clip's `load_audio` + encode time apart), frames/s, the
+   encode's device ms at bucket 1024, the codec pool and the peak memory
+   are printed. The replayed encode's codes must equal an eager run of
+   the same body on the card bit for bit; their agreement with an eager
+   run without TF32 (cuDNN and matmul) is printed per codebook, not held
+   (TF32 against fp32 moves near ties of the argmax);
 5. the training slice: the serving model is freed, then `Trainer.fit` runs
    8 LoRA steps (r=8, alpha=16, attention/mlp/embeddings/output, remat on)
    of the full-width `dual_ar_s2_pro` (bf16, random weights, max_seq_len
@@ -101,7 +124,8 @@ Phases, each of which ends the run with a nonzero exit if it fails:
    the 700-byte request (prefill bucket 1024: the int4 matmul's
    tensor-core route, whose launch count must be > 0). Both serve through
    graphs captured beforehand, as phase 4 does, with the same replay
-   checks. TTFA, frames/s, weight bytes and peak memory for both, the
+   checks (the codec's decode graphs captured first, as in phase 4).
+   TTFA, frames/s, weight bytes and peak memory for both, the
    replayed step's launches and device time, and the fast stack's time per
    frame on the serving path, eager and replayed from a graph;
 7. the fast-stack probe at flagship dims (12 layers x 10 steps, 1536 /
@@ -887,17 +911,33 @@ def small_train_reference(dev, tokenizer):
                          "the small reference")
 
 
-def _recording_engine(session, tokenizer, codec, dac_cfg):
+def _recording_engine(session, tokenizer, codec, dac_cfg, references_dir="references"):
     """A `TTSInferenceEngine` that keeps the codes of the last decoded
-    segment, for the repeat check."""
+    segment, for the repeat check, and the host seconds of each codec
+    decode and reference encode (`load_audio` and the codec's encode);
+    both end in a host copy, so each is the call's whole time."""
     from fish_speech_tpu_torch.engine.tts import TTSInferenceEngine
 
     class RecordingEngine(TTSInferenceEngine):
+        def __init__(self, *args):
+            super().__init__(*args)
+            self.encode_seconds = []
+            self.decode_seconds = []
+
         def decode_vq_tokens(self, codes):
             self.last_codes = np.array(codes)
-            return super().decode_vq_tokens(codes)
+            t0 = time.perf_counter()
+            out = super().decode_vq_tokens(codes)
+            self.decode_seconds.append(time.perf_counter() - t0)
+            return out
 
-    return RecordingEngine(session, tokenizer, codec, dac_cfg)
+        def encode_references_batch(self, audios):
+            t0 = time.perf_counter()
+            out = super().encode_references_batch(audios)
+            self.encode_seconds.append(time.perf_counter() - t0)
+            return out
+
+    return RecordingEngine(session, tokenizer, codec, dac_cfg, references_dir)
 
 
 def _s2_pro_cfg(tokenizer, max_seq_len):
@@ -939,6 +979,7 @@ def serve(dev, tokenizer, engine, requests, frame, label):
     results, codes = [], {}
     for name, req in requests:
         torch.cuda.synchronize()
+        engine.decode_seconds.clear()
         t_start = time.perf_counter()
         t_first = t_last = None
         samples, n_seg = 0, 0
@@ -968,13 +1009,15 @@ def serve(dev, tokenizer, engine, requests, frame, label):
                    ttfa_s=t_first - t_start, frames=frames, segments=n_seg,
                    samples=samples,
                    decode_frames_per_s=(frames - 1) / (t_last - t_first),
-                   wall_s=t_last - t_start)
+                   wall_s=t_last - t_start,
+                   codec_s=[round(x, 4) for x in engine.decode_seconds])
         results.append(row)
         print(f"{label} request {name}: text {row['text_bytes']} bytes "
               f"(~{prompt_len} text tokens), TTFA {row['ttfa_s'] * 1e3:.1f} ms, "
               f"{frames} frames in {n_seg} segments, decode "
               f"{row['decode_frames_per_s']:.2f} frames/s, {samples} samples, "
-              f"wall {row['wall_s']:.2f}s")
+              f"wall {row['wall_s']:.2f}s; codec decodes (host s each, "
+              f"replay + copy) {row['codec_s']}")
     torch.cuda.synchronize()
     if "short-repeat" in codes:
         same = np.array_equal(codes["short"], codes["short-repeat"])
@@ -990,13 +1033,14 @@ def _counted(wrappers):
     return {name: f.launches for name, f in wrappers.items()}
 
 
-def _prompt_len(tokenizer, cfg, text):
+def _prompt_len(tokenizer, cfg, text, prompt_text=None, prompt_tokens=None):
     """The prompt length of a request's (only) text batch, built as
-    `generate_long` builds it."""
+    `generate_long` builds it (with a voice-clone prompt of reference
+    texts and codes, if given)."""
     from fish_speech_tpu_torch.generate import build_base_conversation, encode_turn
 
-    return encode_turn(build_base_conversation(None, None), text, tokenizer,
-                       cfg.num_codebooks).shape[1]
+    return encode_turn(build_base_conversation(prompt_text, prompt_tokens), text,
+                       tokenizer, cfg.num_codebooks).shape[1]
 
 
 def precompile_for(session, tokenizer, requests, label):
@@ -1013,6 +1057,84 @@ def precompile_for(session, tokenizer, requests, label):
     session.replays.clear()
     session.eager_runs.clear()
     return times
+
+
+def precompile_codec(engine, code_buckets, reference_buckets, label):
+    """Capture the codec graphs the timed requests reach, before them (the
+    engine's `precompile`); prints the capture seconds and the codec pool,
+    then clears the codec's replay and eager-run counts."""
+    times, grown = {}, {}
+    for kind, buckets in (("code", code_buckets), ("reference", reference_buckets)):
+        for b in buckets:  # one graph a call, to read each one's pool growth
+            before = engine.codec_pool_bytes
+            new = engine.precompile(**{f"{kind}_buckets": (b,)})
+            times.update(new)
+            grown.update({k: (engine.codec_pool_bytes - before) / 2**20 for k in new})
+    print(f"{label} codec graphs captured by engine.precompile (s, each with its "
+          f"eager run; the pool's growth in MiB): "
+          + ", ".join(f"{k} {v:.3f} s +{grown[k]:.1f}" for k, v in times.items())
+          + f"; codec graph pool {engine.codec_pool_bytes / 2**20:.1f} MiB")
+    engine.codec_replays.clear()
+    engine.codec_eager_runs.clear()
+    return times
+
+
+def check_codec_replayed(engine, kinds, label):
+    """Every codec call of the measured requests was a graph replay (no
+    codec body ran eagerly on the card), and each kind in `kinds` replayed."""
+    print(f"{label}: codec graph replays {dict(engine.codec_replays)}; codec "
+          f"eager body runs {dict(engine.codec_eager_runs)}")
+    replayed = {k[0] for k, n in engine.codec_replays.items() if n > 0}
+    if engine.codec_eager_runs or not set(kinds) <= replayed:
+        raise SystemExit(f"{label}: a codec body ran eagerly on the card, or "
+                         f"the codec's {kinds} graphs never replayed")
+
+
+def codec_device_ms(engine, key, n):
+    """Device ms of one replay of codec graph `key`: n replays between CUDA
+    events, after one untimed (not counted as the engine's replays)."""
+    import torch
+
+    graph = engine.codec_graphs[key].graph
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / n
+
+
+def eager_peak_mib(engine, key):
+    """MiB above the allocation before it that an eager run of codec graph
+    `key`'s body peaks at (its live temporaries), to set beside the pool
+    its capture grew."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    with torch.no_grad():
+        engine._codec_body(key)()
+    torch.cuda.synchronize()
+    return (torch.cuda.max_memory_allocated() - base) / 2**20
+
+
+def print_codec_ms(engine, label, reps=10):
+    """The codec's device ms per replay for each (rows, bucket) a timed
+    request reached, and each body's eager peak of live temporaries."""
+    out = {}
+    for key in sorted(engine.codec_replays):
+        out[key] = codec_device_ms(engine, key, reps)
+    peaks = {key: eager_peak_mib(engine, key) for key in out}
+    print(f"{label} codec device ms per replay (CUDA events, {reps} replays): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in out.items())
+          + "; eager peak of each body's temporaries (MiB): "
+          + ", ".join(f"{k} {v:.1f}" for k, v in peaks.items()))
+    return out
 
 
 def replayed_step_ms(session, n=64):
@@ -1055,14 +1177,20 @@ EAGER_FIGURES = {"bf16": "decode 4.31-6.38 frames/s, TTFA 173-253 ms",
                  "int4": "TTFA 248.2-306.7 ms"}
 
 
+# phase 4's requests decode at these code buckets: the first partial (the
+# prefill's frame, then 9 frames after the first chunk of 8) and 72 frames
+PHASE4_CODE_BUCKETS = (32, 128)
+
+
 def run_slice(dev, tokenizer):
-    """Phase 4: the full-width LM and codec answer streamed requests."""
+    """Phase 4: the full-width LM and codec answer streamed requests; then
+    phase 4b, voice cloning, on the same model, session and engine."""
     import torch
 
     from fish_speech_tpu_torch.config import SamplingConfig, dac_s2_pro
-    from fish_speech_tpu_torch.convert.from_jax import init_dac_decoder
     from fish_speech_tpu_torch.generate import GenerationSession
     from fish_speech_tpu_torch.models import dual_ar
+    from fish_speech_tpu_torch.models.dac.model import init_dac
     from fish_speech_tpu_torch.ops.flash_decode import flash_decode_attention
     from fish_speech_tpu_torch.ops.flash_prefill import flash_prefill_attention
 
@@ -1073,21 +1201,29 @@ def run_slice(dev, tokenizer):
         raise SystemExit("LM and codec codebook counts differ")
     params = dual_ar.init_dual_ar(0, cfg, torch.bfloat16, dev)
     n_params = dual_ar.param_count(params)
-    codec = init_dac_decoder(1, dac_cfg, torch.float32, dev)
+    codec = init_dac(1, dac_cfg, torch.float32, dev)
     session = GenerationSession(params, cfg, SamplingConfig(),
                                 dtype=torch.bfloat16, decode_chunk_size=64,
                                 first_chunk_size=8)
     del params  # the session holds the fused-FFN copy it decodes with
-    engine = _recording_engine(session, tokenizer, codec, dac_cfg)
+    refs_dir = Path(__file__).resolve().parent / "build" / "chip_smoke_refs"
+    engine = _recording_engine(session, tokenizer, codec, dac_cfg, str(refs_dir))
     torch.cuda.synchronize()
     print(f"slice: dual_ar_s2_pro {n_params / 1e9:.3f}B params bf16 "
-          f"(max_seq_len 2048) + dac_s2_pro, built in "
+          f"(max_seq_len 2048) + dac_s2_pro with its encoder "
+          f"({_tree_bytes(codec) / 2**30:.2f} GiB fp32), built in "
           f"{time.perf_counter() - t0:.1f}s; device memory allocated "
           f"{torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB")
     precompile_for(session, tokenizer, _requests(), "bf16")
+    precompile_codec(engine, PHASE4_CODE_BUCKETS, (), "bf16")
     _zero_counts()
     results = serve(dev, tokenizer, engine, _requests(), dac_cfg.frame_length,
                     "bf16")
+    print("bf16 TTFA after precompile: first request "
+          f"{results[0]['ttfa_s'] * 1e3:.1f} ms, the others "
+          + " / ".join(f"{r['ttfa_s'] * 1e3:.1f}" for r in results[1:])
+          + " ms (earlier runs of this script with the codec eager, NVIDIA "
+          "H100 80GB HBM3, 700.00 W: first 424.1-573.3, warm 43.5-65.9)")
     launches = {"flash_prefill": flash_prefill_attention.launches_wgmma,
                 "flash_decode": flash_decode_attention.launches}
     print(f"kernel launches on the engine path: {launches} (prefill on the "
@@ -1095,17 +1231,156 @@ def run_slice(dev, tokenizer):
     if min(launches.values()) <= 0:
         raise SystemExit("a kernel of the path was never launched")
     check_replayed(session, "bf16")
+    check_codec_replayed(engine, ("decode",), "bf16")
+    print(f"peak device memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB "
+          f"(allocated; the graph pools' reserved memory aside)")
+    print_codec_ms(engine, "bf16")
     step_ms = replayed_step_ms(session)
     print(f"bf16 replayed decode step: {step_ms:.3f} ms of device time "
           f"({1e3 / step_ms:.2f} steps/s; the eager session: "
           f"{EAGER_FIGURES['bf16']})")
-    print(f"peak device memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
-    return results, launches
+    clone = run_clone(dev, tokenizer, session, engine, refs_dir)
+    return results, launches, clone
+
+
+CLONE_TEXT = ("A reference speaker reads a few calm sentences, so that the model "
+              "can follow the voice, the pace and the tone of the recording.")
+
+
+def _reference_clip(path, seconds=30.0, sr=24000, seed=21):
+    """A ~30 s reference clip from a seed, written as 16-bit mono PCM at
+    24 kHz (so `load_audio` resamples it to 44.1 kHz): a tone gliding
+    around 140 Hz with its harmonics, in syllable-like bursts, and noise."""
+    from fish_speech_tpu_torch.audio.io import write_wav
+
+    rng = np.random.default_rng(seed)
+    t = np.arange(int(seconds * sr)) / sr
+    f0 = 140 + 30 * np.sin(2 * np.pi * 0.3 * t)
+    phase = 2 * np.pi * np.cumsum(f0) / sr
+    voice = sum(np.sin(k * phase) / k for k in range(1, 6))
+    bursts = 0.5 + 0.5 * np.sin(2 * np.pi * 3.7 * t + rng.uniform(0, 2 * np.pi))
+    x = 0.25 * voice * bursts + 0.02 * rng.standard_normal(len(t))
+    path.parent.mkdir(parents=True, exist_ok=True)
+    write_wav(path, x, sr)
+    return path.read_bytes()
+
+
+def run_clone(dev, tokenizer, session, engine, refs_dir):
+    """Phase 4b: voice cloning on phase 4's model, session and engine: a
+    ~30 s reference by id, by bytes, and by id again (the same seed)."""
+    import shutil
+    from types import SimpleNamespace
+
+    import torch
+
+    from fish_speech_tpu_torch.audio.io import load_audio
+    from fish_speech_tpu_torch.engine.tts import TTSRequest
+    from fish_speech_tpu_torch.models.dac.model import dac_encode
+    from fish_speech_tpu_torch.ops.flash_decode import flash_decode_attention
+    from fish_speech_tpu_torch.ops.flash_prefill import flash_prefill_attention
+
+    cfg, dac_cfg = session.cfg, engine.codec_cfg
+    frame = dac_cfg.frame_length
+    shutil.rmtree(refs_dir, ignore_errors=True)
+    clip = _reference_clip(refs_dir / "speaker" / "sample.wav")
+    (refs_dir / "speaker" / "sample.lab").write_text(CLONE_TEXT)
+    n_frames = -(-len(load_audio(clip, dac_cfg.sample_rate)) // frame)
+    text = _requests()[0][1].text
+    prompt_len = _prompt_len(tokenizer, cfg, text, [CLONE_TEXT],
+                             [np.zeros((dac_cfg.rvq.total_codebooks, n_frames),
+                                       np.int32)])
+    bucket = session._bucket(prompt_len)
+    print(f"clone reference: {len(clip)} bytes of 16-bit mono PCM at 24 kHz "
+          f"(~30 s), {n_frames} frames at 44.1 kHz; transcript "
+          f"{len(CLONE_TEXT)} bytes; prompt {prompt_len} tokens (prefill "
+          f"bucket {bucket}) with phase 4's {len(text)}-byte short text")
+    torch.cuda.reset_peak_memory_stats(dev)
+    times = session.precompile(prompt_len, 72, session.first_chunk_size)
+    print(f"clone session graphs captured (s): {times or 'none new'}")
+    precompile_codec(engine, (), (n_frames,), "clone")
+    session.replays.clear()
+    session.eager_runs.clear()
+    engine.encode_seconds.clear()
+    _zero_counts()
+    common = dict(text=text, streaming=True, max_new_tokens=72, seed=31)
+    requests = [
+        ("clone-id", TTSRequest(**common, reference_id="speaker",
+                                use_memory_cache="on")),
+        ("clone-bytes", TTSRequest(**common, references=[
+            SimpleNamespace(audio=clip, text=CLONE_TEXT)])),
+        ("clone-id-repeat", TTSRequest(**common, reference_id="speaker",
+                                       use_memory_cache="on")),
+    ]
+    codes = {}
+    rows = []
+    for name, req in requests:
+        rows += serve(dev, tokenizer, engine, [(name, req)], frame, "clone")
+        codes[name] = engine.last_codes
+    launches = {"flash_prefill": flash_prefill_attention.launches_wgmma,
+                "flash_decode": flash_decode_attention.launches}
+    encode_key = ("encode", 1, engine._code_bucket(n_frames))
+    print(f"clone: reference load_audio + encode {engine.encode_seconds[0] * 1e3:.1f} "
+          f"ms inside request clone-id's TTFA; VQ cache misses "
+          f"{engine.vq_cache_misses}, hits {engine.vq_cache_hits}; prefill "
+          f"graph replays {dict(session.replays)}; kernel launches {launches}")
+    check_replayed(session, "clone")
+    check_codec_replayed(engine, ("decode", "encode"), "clone")
+    same = all(np.array_equal(codes["clone-id"], c) for c in codes.values())
+    print(f"clone: codes of the three requests {codes['clone-id'].shape} "
+          f"identical={same}")
+    failures = [msg for bad, msg in (
+        (engine.vq_cache_misses != 1 or engine.vq_cache_hits < 1,
+         "the clip was not encoded exactly once"),
+        (bucket != 1024 or session.replays[f"prefill_{bucket}"] != 3,
+         "the prompts did not go through prefill_1024"),
+        (min(launches.values()) <= 0, "a kernel of the path was never launched"),
+        (engine.codec_replays[encode_key] < 1, "the encode graph never replayed"),
+        (not same, "the same reference, text and seed gave different codes"))
+        if bad]
+    if failures:
+        raise SystemExit(f"clone: {'; '.join(failures)}")
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    encode_ms = codec_device_ms(engine, encode_key, 5)
+    step_ms = replayed_step_ms(session)
+    print(f"clone: encode device ms per replay at {encode_key}: {encode_ms:.3f} "
+          f"(its body's eager peak of temporaries "
+          f"{eager_peak_mib(engine, encode_key):.1f} MiB); codec graph pool "
+          f"{engine.codec_pool_bytes / 2**20:.1f} MiB; peak device memory over "
+          f"the requests {peak:.2f} GiB; replayed decode step after them "
+          f"{step_ms:.3f} ms of device time")
+
+    # the replayed codes against eager runs of the same body on the card
+    entry = engine.codec_graphs[encode_key]
+    entry.graph.replay()
+    replayed = entry.out.clone()
+    with torch.no_grad():
+        eager = dac_encode(engine.codec_params, dac_cfg, entry.inp)[0]
+        flags = (torch.backends.cudnn.allow_tf32,
+                 torch.backends.cuda.matmul.allow_tf32)
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        try:
+            fp32 = dac_encode(engine.codec_params, dac_cfg, entry.inp)[0]
+        finally:
+            (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32) = flags
+    bitwise = torch.equal(replayed, eager)
+    share = (replayed[0, :, :n_frames] == fp32[0, :, :n_frames]).float().mean(dim=1)
+    print(f"clone encode check: replayed codes equal an eager run on the card "
+          f"bit for bit: {bitwise}; share of codes equal to an eager run "
+          f"without TF32 (cuDNN and matmul), per codebook over {n_frames} "
+          f"frames: {[round(float(x), 4) for x in share]} (printed, not held)")
+    if not bitwise:
+        raise SystemExit("clone: the replayed encode differs from its eager body")
+    return dict(rows=rows, encode_ms=encode_ms, encode_s=engine.encode_seconds[0],
+                prompt_len=prompt_len)
 
 
 def _tree_bytes(tree):
     if isinstance(tree, dict):
         return sum(_tree_bytes(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(_tree_bytes(v) for v in tree)
     return tree.numel() * tree.element_size()
 
 
@@ -1205,6 +1480,7 @@ def run_quant_slice(dev, tokenizer):
               f"{torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB")
         served = [(n, requests[n]) for n in names]
         precompile_for(session, tokenizer, served, label)
+        precompile_codec(engine, PHASE4_CODE_BUCKETS, (), label)
         _zero_counts()
         rows = serve(dev, tokenizer, engine, served, dac_cfg.frame_length, label)
         # the int4 matmul's routes: matvec (decode), tensor cores (bf16
@@ -1216,6 +1492,7 @@ def run_quant_slice(dev, tokenizer):
                         int4_mm_fp32_tiled=int4_matmul.launches_fp32_tiled)
         peak = torch.cuda.max_memory_allocated(dev) / 2**30
         per_step = check_replayed(session, label)
+        check_codec_replayed(engine, ("decode",), label)
         step_ms = replayed_step_ms(session)
         fast_ms = fast_stack_frame_ms(session)
         fast_replayed_ms = fast_stack_replayed_ms(session)
@@ -1702,7 +1979,7 @@ def main():
     print(f"fp32 routes' launches in phases 3, 3b and 3c: {fp32_launches}")
     if min(fp32_launches.values()) <= 0:
         raise SystemExit("an fp32 route was never launched")
-    _, launches = run_slice(dev, tokenizer)
+    _, launches, _ = run_slice(dev, tokenizer)
     gc.collect()  # the serving slice's model and caches go before training
     torch.cuda.empty_cache()
     train_launches = run_train_slice(

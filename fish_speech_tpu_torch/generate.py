@@ -226,6 +226,36 @@ def _launch_counts():
             if name.startswith("launches")}
 
 
+def capture_graph(body, pool, device):
+    """Capture `body()` into a CUDA graph drawing on the memory pool `pool`,
+    after the caller's eager run of it (which builds the kernels' plans,
+    workspaces and cached tables outside the pool). A capture launches
+    nothing, so the launch counts it added are taken back. Returns (graph,
+    {(wrapper, counter): launches one replay makes}, bytes the pool grew
+    by)."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    reserved = torch.cuda.memory_reserved(device)
+    before = _launch_counts()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, pool=pool):
+        body()
+    after = _launch_counts()
+    for (f, attr), n in before.items():
+        setattr(f, attr, n)
+    torch.cuda.synchronize(device)
+    launches = {k: after[k] - n for k, n in before.items() if after[k] != n}
+    return graph, launches, torch.cuda.memory_reserved(device) - reserved
+
+
+def replay_graph(graph, launches):
+    """Replay `graph` on the current stream and add the launches its
+    capture recorded to the wrappers' counters."""
+    graph.replay()
+    for (f, attr), n in launches.items():
+        setattr(f, attr, getattr(f, attr) + n)
+
+
 # ---------------------------------------------------------------------------
 # Host-side generation driver
 # ---------------------------------------------------------------------------
@@ -333,21 +363,10 @@ class GenerationSession:
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
         del saved
-        gc.collect()
-        torch.cuda.empty_cache()
-        reserved = torch.cuda.memory_reserved(self.device)
-        before = _launch_counts()
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, pool=self._pool):
-            body()
-        after = _launch_counts()
-        for (f, attr), n in before.items():
-            setattr(f, attr, n)
-        torch.cuda.synchronize(self.device)
-        self.pool_bytes += torch.cuda.memory_reserved(self.device) - reserved
+        graph, launches, grown = capture_graph(body, self._pool, self.device)
+        self.pool_bytes += grown
         self.capture_seconds[name] = time.perf_counter() - t0
-        self._graphs[name] = (graph, {k: after[k] - n for k, n in before.items()
-                                      if after[k] != n})
+        self._graphs[name] = (graph, launches)
         return self._graphs[name]
 
     def _run(self, name: str):
@@ -357,11 +376,8 @@ class GenerationSession:
             self._body(name)()
             self.eager_runs[name] += 1
             return
-        graph, launches = self._graphs.get(name) or self._capture(name)
-        graph.replay()
+        replay_graph(*(self._graphs.get(name) or self._capture(name)))
         self.replays[name] += 1
-        for (f, attr), n in launches.items():
-            setattr(f, attr, getattr(f, attr) + n)
 
     def launches_per_replay(self, name: str) -> dict:
         """{counter: launches} one replay of graph `name` adds."""

@@ -10,7 +10,7 @@ from fish_speech_tpu_torch.config import CodecTransformerConfig
 from fish_speech_tpu_torch.ops.attention import (causal_mask, gqa_attention,
                                                  windowed_causal_mask)
 from fish_speech_tpu_torch.ops.norms import rms_norm
-from fish_speech_tpu_torch.ops.rope import apply_rope, precompute_rope
+from fish_speech_tpu_torch.ops.rope import apply_rope, rope_table
 
 
 def codec_transformer(params, cfg: CodecTransformerConfig, x):
@@ -19,8 +19,10 @@ def codec_transformer(params, cfg: CodecTransformerConfig, x):
     if "input_proj" in params:
         x = x @ params["input_proj"]["w"] + params["input_proj"]["b"]
     t = x.shape[1]
-    # bf16 table on purpose: the trained codec saw bf16-rounded angles
-    freqs = precompute_rope(t, cfg.head_dim, cfg.rope_base, device=x.device)
+    # bf16 table on purpose: the trained codec saw bf16-rounded angles. The
+    # cached table is on the device before a graph captures this body (its
+    # eager run builds it), so the capture copies nothing from the host.
+    freqs = rope_table(t, cfg.head_dim, cfg.rope_base, x.device)
     if cfg.window_size is not None:
         mask = windowed_causal_mask(t, cfg.window_size, device=x.device)
     else:

@@ -144,8 +144,8 @@ def init_dual_ar(seed: int, cfg: DualARConfig, dtype=torch.bfloat16,
         params["output"] = dense((cfg.dim, cfg.vocab_size))
     if cfg.audio_feature_dim > 0:
         raise NotImplementedError(
-            "audio-feature conditioning is not ported yet (ROADMAP: dac_encode "
-            "and references)")
+            "audio-feature conditioning (the audio_projector) is not ported "
+            "(ROADMAP §1 item 11: remaining modules)")
     if cfg.fast_dim != cfg.dim:
         params["fast"]["project_in"] = {
             "w": dense((cfg.dim, cfg.fast_dim)),

@@ -27,11 +27,13 @@ def precompute_rope(seq_len: int, n_elem: int, base: float = 10000.0,
     return torch.from_numpy(table).to(dtype=dtype, device=device)
 
 
-@functools.lru_cache(maxsize=16)
+@functools.lru_cache(maxsize=None)
 def rope_table(seq_len: int, n_elem: int, base: float, device) -> torch.Tensor:
     """The default bf16 table, built once per (shape, base, device): the
-    decode loop reads one row per step and must not rebuild it. Callers
-    only read the shared tensor."""
+    decode loop reads one row per step and must not rebuild it, and a CUDA
+    graph reads the tensor it was captured with, so no entry is ever
+    evicted (the keys are the few lengths the models run: max_seq_len, the
+    codebooks, the codec's buckets). Callers only read the shared tensor."""
     return precompute_rope(seq_len, n_elem, base, device=device)
 
 

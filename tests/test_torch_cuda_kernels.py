@@ -702,3 +702,60 @@ def test_repeated_seed_gives_identical_codes(dev):
             for s in (11, 11, 12)]
     np.testing.assert_array_equal(runs[0], runs[1])
     assert not np.array_equal(runs[0], runs[2])
+
+
+@pytest.mark.parametrize("kind", ["decode", "encode"])
+def test_codec_graph_replays_equal_the_eager_bodies(dev, tmp_path, kind):
+    """The engine's codec graphs on `dac_tiny`: one row captured ahead by
+    `precompile`, two rows at first use; each replay's output equals an
+    eager run of the same body on the card, bit for bit, and each graph
+    ran its body eagerly once (its capture's warm-up)."""
+    from fish_speech_tpu_torch.audio.io import load_audio, write_wav
+    from fish_speech_tpu_torch.config import dac_tiny
+    from fish_speech_tpu_torch.engine.tts import TTSInferenceEngine
+    from fish_speech_tpu_torch.models.dac.model import (dac_encode,
+                                                        dac_from_indices,
+                                                        init_dac)
+
+    cfg = dac_tiny()
+    frame = cfg.frame_length
+    engine = TTSInferenceEngine(None, None, init_dac(5, cfg, device=dev), cfg)
+    rng = np.random.default_rng(8)
+    if kind == "decode":
+        times = engine.precompile(code_buckets=(20,))
+        items = [rng.integers(0, cfg.rvq.codebook_size,
+                              (cfg.rvq.total_codebooks, t)).astype(np.int32)
+                 for t in (20, 9, 30)]
+        got = [engine.decode_vq_tokens(items[0])] + engine.decode_vq_batch(items[1:])
+    else:
+        times = engine.precompile(reference_buckets=(7,))
+        items = []
+        for i, seconds in enumerate((0.3, 0.2, 0.45)):
+            write_wav(tmp_path / f"{i}.wav", 0.3 * rng.standard_normal(
+                int(seconds * cfg.sample_rate)), cfg.sample_rate)
+            items.append((tmp_path / f"{i}.wav").read_bytes())
+        got = [engine.encode_reference(items[0])] + engine.encode_references_batch(
+            items[1:])
+    assert set(times) == {(kind, 1, 32)}
+    assert dict(engine.codec_replays) == {(kind, 1, 32): 1, (kind, 2, 32): 1}
+    assert dict(engine.codec_eager_runs) == {(kind, 1, 32): 1, (kind, 2, 32): 1}
+    assert engine.codec_pool_bytes > 0
+    for rows, group in ((1, items[:1]), (2, items[1:])):
+        if kind == "decode":
+            padded = torch.zeros((rows, cfg.rvq.total_codebooks, 32),
+                                 dtype=torch.int32, device=dev)
+            for r, codes in enumerate(group):
+                padded[r, :, : codes.shape[1]] = torch.from_numpy(codes)
+            with torch.no_grad():
+                eager = dac_from_indices(engine.codec_params, cfg, padded).cpu().numpy()
+            want = [eager[r, 0, : c.shape[1] * frame] for r, c in enumerate(group)]
+        else:
+            padded = torch.zeros((rows, 1, 32 * frame), device=dev)
+            wavs = [load_audio(b, cfg.sample_rate) for b in group]
+            for r, wav in enumerate(wavs):
+                padded[r, 0, : len(wav)] = torch.from_numpy(wav)
+            with torch.no_grad():
+                eager = dac_encode(engine.codec_params, cfg, padded)[0].cpu().numpy()
+            want = [eager[r, :, : -(-len(w) // frame)] for r, w in enumerate(wavs)]
+        for g, w in zip(got[:rows] if rows == 1 else got[1:], want):
+            np.testing.assert_array_equal(g, w)

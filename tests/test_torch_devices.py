@@ -1,8 +1,8 @@
 """Where the port's initialisers and loaders place what they make, on the CPU.
 
 Every entry point runs on the card unless the caller asks for the CPU:
-`init_dual_ar`, `init_dac_decoder`, `dual_ar_from_jax`,
-`dac_decoder_from_jax`, `load_params`, `load_dual_ar` and
+`init_dual_ar`, `init_dac`, `init_dac_decoder`, `dual_ar_from_jax`,
+`dac_from_jax`, `dac_decoder_from_jax`, `load_params`, `load_dual_ar` and
 `faststack.make_weights` default to `cuda:0`. Where CUDA is absent, that
 default (or any CUDA device asked for) raises, and `device="cpu"` builds on
 the CPU. The probe's `__main__` asks for the card whatever the machine has.
@@ -27,8 +27,10 @@ from fish_speech_tpu.models.dac import init_dac
 from fish_speech_tpu.utils.checkpoint import save_dual_ar
 from fish_speech_tpu_torch.config import dac_tiny, dual_ar_tiny
 from fish_speech_tpu_torch.convert.from_jax import (dac_decoder_from_jax,
+                                                    dac_from_jax,
                                                     dual_ar_from_jax,
                                                     init_dac_decoder)
+from fish_speech_tpu_torch.models.dac.model import init_dac as t_init_dac
 from fish_speech_tpu_torch.models.dual_ar import init_dual_ar
 from fish_speech_tpu_torch.ops import faststack
 from fish_speech_tpu_torch.utils.checkpoint import load_dual_ar, load_params
@@ -63,7 +65,9 @@ def _makers(checkpoint):
     dims = faststack.ProbeDims(64, 128, 64, 2, 2)
     return {
         "init_dual_ar": lambda **kw: init_dual_ar(0, dual_ar_tiny(), torch.float32, **kw),
+        "init_dac": lambda **kw: t_init_dac(1, dac_tiny(), **kw),
         "init_dac_decoder": lambda **kw: init_dac_decoder(1, dac_tiny(), **kw),
+        "dac_from_jax": lambda **kw: dac_from_jax(dac_np, **kw),
         "dual_ar_from_jax": lambda **kw: dual_ar_from_jax(lm_np, torch.float32, **kw),
         "dac_decoder_from_jax": lambda **kw: dac_decoder_from_jax(dac_np, **kw),
         "load_params": lambda **kw: load_params(checkpoint, **kw),
@@ -72,8 +76,9 @@ def _makers(checkpoint):
     }
 
 
-FUNCTIONS = {"init_dual_ar": init_dual_ar, "init_dac_decoder": init_dac_decoder,
-             "dual_ar_from_jax": dual_ar_from_jax,
+FUNCTIONS = {"init_dual_ar": init_dual_ar, "init_dac": t_init_dac,
+             "init_dac_decoder": init_dac_decoder,
+             "dual_ar_from_jax": dual_ar_from_jax, "dac_from_jax": dac_from_jax,
              "dac_decoder_from_jax": dac_decoder_from_jax,
              "load_params": load_params, "load_dual_ar": load_dual_ar,
              "make_weights": faststack.make_weights}

@@ -2,9 +2,13 @@
 originals: configs and presets field for field, the tokenizer's ids,
 `sequence`'s encodings, the protobuf messages (one serialized descriptor,
 so either module reads the other's bytes), the data pipeline's batches,
-brace expansion and the WAV writer, all equal."""
+brace expansion, the WAV writer and reader, resampling and `load_audio`,
+all equal; the reference loader behaves as the original on a temporary
+directory."""
 
 import dataclasses
+import struct
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -16,6 +20,7 @@ from fish_speech_tpu.audio import io as jio
 from fish_speech_tpu.data import dataset as jdata
 from fish_speech_tpu.data import protos as jprotos
 from fish_speech_tpu.data import stream as jstream
+from fish_speech_tpu.engine import reference_loader as jref
 from fish_speech_tpu.utils import file as jfile
 from fish_speech_tpu_torch import config as tconfig
 from fish_speech_tpu_torch import sequence as tseq
@@ -25,6 +30,7 @@ from fish_speech_tpu_torch.convert.from_jax import config_from_jax
 from fish_speech_tpu_torch.data import dataset as tdata
 from fish_speech_tpu_torch.data import protos as tprotos
 from fish_speech_tpu_torch.data import stream as tstream
+from fish_speech_tpu_torch.engine import reference_loader as tref
 from fish_speech_tpu_torch.utils import file as tfile
 
 PRESETS = ["dual_ar_tiny", "dual_ar_s2_pro", "dac_tiny", "dac_s2_pro"]
@@ -156,3 +162,128 @@ def test_wav_writer_and_header_are_equal(tmp_path):
     tio.write_wav(tmp_path / "t.wav", x, 22050)
     assert (tmp_path / "t.wav").read_bytes() == (tmp_path / "j.wav").read_bytes()
     assert tio.wav_chunk_header(44100) == jio.wav_chunk_header(44100)
+
+
+def _wav_bytes(x, sr, bits, float_fmt=False, extra_chunk=False):
+    """RIFF bytes of x (channels, T) in [-1, 1]: PCM at `bits` or IEEE
+    float32, optionally with an odd-sized chunk before `data`."""
+    channels = x.shape[0]
+    inter = x.T.reshape(-1)
+    if float_fmt:
+        raw, code, bits = inter.astype("<f4").tobytes(), 3, 32
+    elif bits == 8:
+        raw, code = np.clip(inter * 128 + 128, 0, 255).astype(np.uint8).tobytes(), 1
+    elif bits == 24:
+        v = np.clip(inter * (1 << 23), -(1 << 23), (1 << 23) - 1).astype("<i4")
+        raw, code = v.view(np.uint8).reshape(-1, 4)[:, :3].tobytes(), 1
+    else:
+        dt, scale = {16: ("<i2", 32767), 32: ("<i4", 2**31 - 1)}[bits]
+        raw, code = (inter * scale).astype(dt).tobytes(), 1
+    fmt = struct.pack("<HHIIHH", code, channels, sr, sr * channels * bits // 8,
+                      channels * bits // 8, bits)
+    body = b"WAVE" + b"fmt " + struct.pack("<I", 16) + fmt
+    if extra_chunk:
+        body += b"LIST" + struct.pack("<I", 3) + b"abc\0"
+    body += b"data" + struct.pack("<I", len(raw)) + raw
+    return b"RIFF" + struct.pack("<I", len(body)) + body
+
+
+def _signal(channels, n, seed):
+    rng = np.random.default_rng(seed)
+    t = np.arange(n) / 16000.0
+    x = 0.5 * np.sin(2 * np.pi * 220 * t)[None] + 0.1 * rng.standard_normal((channels, n))
+    return np.clip(x, -0.99, 0.99).astype(np.float32)
+
+
+WAV_CASES = [(1, 16, False, False), (1, 8, False, False), (1, 24, False, False),
+             (1, 32, False, False), (1, 32, True, False), (2, 16, False, False),
+             (2, 24, False, True)]
+
+
+@pytest.mark.parametrize("channels,bits,float_fmt,extra", WAV_CASES)
+def test_wav_reader_and_load_audio_are_equal(tmp_path, channels, bits, float_fmt,
+                                             extra):
+    data = _wav_bytes(_signal(channels, 1601, bits + channels), 16000, bits,
+                      float_fmt, extra)
+    (tmp_path / "a.wav").write_bytes(data)
+    for src in (data, tmp_path / "a.wav"):
+        (gx, gsr), (wx, wsr) = tio.read_wav(src), jio.read_wav(src)
+        assert gsr == wsr == 16000 and gx.dtype == wx.dtype == np.float32
+        assert gx.shape == (channels, 1601)
+        np.testing.assert_array_equal(gx, wx)
+        for sr in (16000, 44100):
+            got, want = tio.load_audio(src, sr), jio.load_audio(src, sr)
+            assert got.dtype == want.dtype and got.ndim == 1
+            np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("sr_from,sr_to", [(24000, 44100), (48000, 44100),
+                                           (44100, 16000), (44100, 44100)])
+def test_resample_is_equal(sr_from, sr_to):
+    x = _signal(2, 2000, sr_from)
+    got, want = tio.resample(x, sr_from, sr_to), jio.resample(x, sr_from, sr_to)
+    assert got.shape == want.shape == (2, -(-2000 * sr_to // sr_from))
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("data", [b"fLaC" + bytes(60), b"ID3" + bytes(61),
+                                  b"OggS" + bytes(60)])
+def test_load_audio_refuses_what_is_not_wav(tmp_path, data):
+    with pytest.raises(ValueError, match="item 6"):
+        tio.load_audio(data, 44100)
+    (tmp_path / "x.bin").write_bytes(data)
+    with pytest.raises(ValueError, match="item 6"):
+        tio.load_audio(tmp_path / "x.bin", 44100)
+
+
+def test_reference_loader_behaves_as_the_original(tmp_path):
+    """By id (audio files with a same-stem `.lab` only, in name order), by
+    hash, the id cache, CRUD and `validate_id`, on two directories."""
+    def run(mod, root):
+        loader = mod.ReferenceLoader(str(root))
+        calls = []
+        loader.encode_reference = lambda b: calls.append(b) or np.full(
+            (2, len(b) % 7 + 1), len(calls), np.int32)
+        log = [loader.list_references()]
+        loader.add_reference("spk", b"RIFF-one", "hello there")
+        (root / "spk" / "b.wav").write_bytes(b"RIFF-two")
+        (root / "spk" / "b.lab").write_text(" second \n")
+        (root / "spk" / "c.flac").write_bytes(b"no lab")
+        (root / "spk" / "notes.txt").write_text("ignored")
+        log.append(loader.load_by_id("spk"))
+        log.append(loader.load_by_id("spk", use_cache="on"))
+        log.append(len(calls))
+        refs = [SimpleNamespace(audio=b"xyz", text="t1"),
+                SimpleNamespace(audio=b"pq", text="t2")]
+        log.append(loader.load_by_hash(refs, use_cache="on"))
+        log.append(loader.load_by_hash(refs, use_cache="on"))
+        log.append(len(calls))
+        for bad in ("../up", "a/b", "", "ok name-1_2"):
+            log.append(mod.ReferenceLoader.validate_id(bad))
+        for call in (lambda: loader.load_by_id("missing"),
+                     lambda: loader.load_by_id("../up"),
+                     lambda: loader.add_reference("spk", b"", ""),
+                     lambda: loader.delete_reference("missing")):
+            with pytest.raises(Exception) as err:
+                call()
+            log.append(type(err.value).__name__)
+        loader.add_reference("other", b"RIFF-3", "three")
+        loader.update_reference("other", "renamed", audio=b"RIFF-4", text="four")
+        log.append(loader.list_references())
+        log.append(loader.load_by_id("renamed"))
+        loader.delete_reference("spk")
+        log.append(loader.list_references())
+        log.append(sorted(loader.ref_by_id))
+        return log
+
+    def plain(x):
+        if isinstance(x, (list, tuple)):
+            return [plain(v) for v in x]
+        return x.tolist() if isinstance(x, np.ndarray) else x
+
+    (tmp_path / "j").mkdir()
+    (tmp_path / "t").mkdir()
+    want = run(jref, tmp_path / "j")
+    got = run(tref, tmp_path / "t")
+    assert plain(got) == plain(want)
+    assert want[3] == 2 and want[6] == 4  # two clips by id, two by hash

@@ -202,6 +202,7 @@ PORT_MODULES = [
     "fish_speech_tpu_torch.convert.from_jax",
     "fish_speech_tpu_torch.generate",
     "fish_speech_tpu_torch.engine.tts",
+    "fish_speech_tpu_torch.engine.reference_loader",
     "fish_speech_tpu_torch.ops.int4",
     "fish_speech_tpu_torch.ops.faststack",
     "fish_speech_tpu_torch.config",
@@ -217,20 +218,31 @@ PORT_MODULES = [
 
 # Run on the CPU with the JAX package and jax unimportable: every port
 # module, the tiny training CLI, a streamed engine request (generate_long
-# inside), a mixed-quantized int8-KV session and the fast-stack probe.
+# inside) and a voice-clone one (a WAV reference by id: load_audio, the
+# codec's encode), a mixed-quantized int8-KV session and the fast-stack
+# probe.
+# (`jax` is blocked by an import hook, not by `sys.modules['jax'] = None`:
+# scipy's array-API helpers take a `jax` entry in `sys.modules` for the
+# imported package.)
 _RUN_WITHOUT_JAX = """
 import importlib, os, sys, tempfile
-sys.modules['jax'] = None
+class NoJax:
+    def find_spec(self, name, path=None, target=None):
+        if name == 'jax' or name.startswith('jax.'):
+            raise ImportError(name + ' is made unimportable')
+assert 'jax' not in sys.modules
+sys.meta_path.insert(0, NoJax())
 for m in MODULES:
     importlib.import_module(m)
 import numpy as np, torch
 from fish_speech_tpu_torch import config
-from fish_speech_tpu_torch.convert.from_jax import init_dac_decoder
+from fish_speech_tpu_torch.audio.io import write_wav
 from fish_speech_tpu_torch.data.protos import Semantics, Sentence, TextData
 from fish_speech_tpu_torch.data.stream import write_pb_stream
 from fish_speech_tpu_torch.engine.tts import TTSInferenceEngine, TTSRequest
 from fish_speech_tpu_torch.generate import GenerationSession
 from fish_speech_tpu_torch.models import dual_ar
+from fish_speech_tpu_torch.models.dac.model import init_dac
 from fish_speech_tpu_torch.ops import faststack, quant
 from fish_speech_tpu_torch.tokenizer import build_test_tokenizer
 from fish_speech_tpu_torch.train import cli
@@ -261,11 +273,19 @@ params = quant.quantize_dual_ar_lowmem(
     fast_mode='int4')
 session = GenerationSession(params, cfg, dtype=torch.float32,
                             decode_chunk_size=4, kv_quant=True)
-engine = TTSInferenceEngine(session, tok, init_dac_decoder(1, dac_cfg, device='cpu'),
-                             dac_cfg)
-codes = [r.code for r in engine.inference(TTSRequest(
-    text='Hi.', streaming=True, max_new_tokens=6, seed=1))]
-assert codes[0] == 'header' and codes[-1] == 'final', codes
+os.makedirs(os.path.join(tmp, 'refs', 'spk'))
+write_wav(os.path.join(tmp, 'refs', 'spk', 'sample.wav'),
+          0.3 * rng.standard_normal(4000), 16000)
+with open(os.path.join(tmp, 'refs', 'spk', 'sample.lab'), 'w') as f:
+    f.write('a reference line')
+engine = TTSInferenceEngine(session, tok, init_dac(1, dac_cfg, device='cpu'),
+                            dac_cfg, references_dir=os.path.join(tmp, 'refs'))
+for extra in ({}, {'reference_id': 'spk'}):
+    results = list(engine.inference(TTSRequest(
+        text='Hi.', streaming=True, max_new_tokens=6, seed=1, **extra)))
+    codes = [r.code for r in results]
+    assert codes[0] == 'header' and codes[-1] == 'final', (codes, results[-1].error)
+assert engine.vq_cache_misses == 1
 
 dims = faststack.ProbeDims(64, 128, 64, 2, 2)
 out = faststack.make_probe(1, 'w8a8', dims)(
