@@ -141,7 +141,42 @@ Phases, each of which ends the run with a nonzero exit if it fails:
    held; two frames must give equal bits (each column is summed in one
    order). Then ms per frame and effective GB/s through the probe's own
    `_bench`, and, timed alike, the frame's grid barriers alone and its
-   weight stream alone (`part_ms`).
+   weight stream alone (`part_ms`);
+8. the continuous batcher's pool: the earlier models freed, full-width
+   s2-pro (seed 0, max_seq_len 2048) behind a `ContinuousBatcher(pool_size
+   =32, decode_chunk_size=128, first_chunk_size=8, admit_every=4)` and a
+   `TTSInferenceEngine` over its `BatcherSession`, with the codec; first
+   bf16, then int8 weights (`quantize_dual_ar_lowmem(mode="int8")`) with
+   the int8 KV cache. The pool's graphs (the step, and each admission
+   signature {1, 4, 16} at the two prompt buckets the texts reach) are
+   captured by `precompile` and the codec's decode graphs (buckets 32
+   and 64) by the engine's, before any request. A burst of 40 streamed
+   requests of 64 new tokens (distinct seeds) from 40 threads: 32
+   admitted, the rest parked. Every request must give finite whole frames
+   and no `error`; a group must have been parked; every decode step and
+   admission prefill must have been a graph replay (no eager body on the
+   card after `precompile`); `flash_prefill`'s tensor-core route and
+   `flash_decode` (bf16) or `flash_decode_kv8` (int8) must have launched;
+   one of the 40 sent again alone must give the codes it got in the
+   burst. Printed, not held: aggregate frames/s (all frames over the wall
+   time from the first submit to the last frame), per-stream frames/s p50
+   and min, TTFA p50, p90 and max, the replayed step's device ms at P=32
+   (CUDA events over its replays, every row at position 256) with its
+   launches by kernel, the KV pool's bytes, each graph's pool growth, the
+   peak memory, the bf16 step at P=8 beside phase 4's P=1 step, and under
+   int8 each graph's pool growth beside its body's eager peak of
+   temporaries at P=32 and P=1.
+
+Phase 2 also holds the kernels at the pool's shapes: `decode_mma_kernel`
+and `decode_kv8_mma_kernel` at B=32, S=2176 (8 layers) with ragged
+lengths in 1..2048 (SDPA with the ragged mask as the library call),
+`decode_mma_kernel` on the fast cache at B=32 (12 layers, S=10, len 10),
+`prefill_wgmma_kernel` over the group prefills (k = 4 and 16 rows at
+buckets 128 and 256, offsets 0; every bf16 prefill case with its
+`device_ms` and SDPA's), and `int4_wgmma_kernel` at B=32 on the slow
+stack's four shapes (cuBLAS on the dequantized W); the kernels' line
+gives each kernel's launches in one replayed P=32 step, read from the
+pools' captured steps (`launches_per_p32_step`).
 
 Each phase sets the kernels' launch counts to 0 before it drives its path
 and reads them after. The line before the last is a JSON object with each
@@ -157,6 +192,7 @@ import gc
 import json
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -262,6 +298,13 @@ def _ms_text(ms):
     return f"{ms * 1e3:.4f}us" if ms < 1e-3 else f"{ms:.4f}ms"
 
 
+def _offsets_text(offsets):
+    """A prefill case's offsets, one value for a group whose rows share it."""
+    if len(offsets) > 1 and len(set(offsets)) == 1:
+        return f"[{offsets[0]}] x {len(offsets)}"
+    return str(offsets)
+
+
 def _errors(got, want):
     err = (got.float() - want.float()).abs()
     return err.max().item(), err.mean().item()
@@ -286,12 +329,16 @@ def kernel_cases(dev):
 
     cases = {"flash_prefill": [], "flash_prefill_fp32": [], "flash_decode": []}
     # prefill: flagship heads (H=32, Hkv=8, D=128), prompt buckets, bf16
-    # (the tensor-core route); the fp32 route (CUDA cores, the tiny fp32
-    # models of phases 3 and 3c) once at a small shape, to fp32's 1e-4
+    # (the tensor-core route), also the pool's group prefills (k = 4 and 16
+    # rows at buckets 128 and 256, offsets 0, phase 8); the fp32 route (CUDA
+    # cores, the tiny fp32 models of phases 3 and 3c) once at a small shape,
+    # to fp32's 1e-4
     for b, t, offsets, dtype in [(1, 64, [0], torch.bfloat16),
                                  (1, 1024, [0], torch.bfloat16),
                                  (2, 600, [0, 129], torch.bfloat16),
                                  (1, 4096, [0], torch.bfloat16),
+                                 *((k, t, [0] * k, torch.bfloat16)
+                                   for k in (4, 16) for t in (128, 256)),
                                  (1, 256, [0], torch.float32)]:
         q, k, v = (randn(b, t, n, 128).to(dtype) for n in (32, 8, 8))
         off = torch.tensor(offsets, dtype=torch.int32, device=dev)
@@ -316,26 +363,38 @@ def kernel_cases(dev):
         causal = not any(offsets)
         lib = _library_ms(lambda i=0: _sdpa(qt, kt, vt, mask, causal), iters)
         fp32 = dtype == torch.float32
+        # the tensor-core route's device time, as the pool's prefill graphs
+        # replay it, beside SDPA's
+        dev_ms = {} if fp32 else dict(
+            device_ms=_device_ms(lambda i=0: flash_prefill_attention(q, k, v, off),
+                                 iters),
+            library_device_ms=_device_ms(lambda i=0: _sdpa(qt, kt, vt, mask, causal),
+                                         iters))
         cases["flash_prefill_fp32" if fp32 else "flash_prefill"].append(dict(
-            shape=f"B={b} T={t} H=32 Hkv=8 D=128 offsets={offsets} "
+            shape=f"B={b} T={t} H=32 Hkv=8 D=128 offsets={_offsets_text(offsets)} "
                   f"{str(dtype)[6:]} {route} ({flops / ms / 1e9:.1f} TFLOP/s; "
                   f"SDPA {'is_causal' if causal else 'mask'})",
             max_abs_err=mx, mean_abs_err=mean, ms=ms, plain_ms=plain_ms,
             bound_ms=bound[0], bound_by=bound[1], library_ms=lib,
-            tflop_s=flops / ms / 1e9,
+            tflop_s=flops / ms / 1e9, **dev_ms,
             ok=mx <= 1e-4 if fp32 else mx <= 2e-2 and mean <= 2e-3))
         del q, k, v, got, want, mask
     # decode: slow cache (36 layers, S = 2048 + 64 is the serving session's;
     # 4160 the 4096-context one) and fast cache (12 layers, S = 10
-    # codebooks). Each timed launch reads the next layer, as the decode loop
-    # does, so the cache is not served from L2. `device_ms` and
-    # `library_device_ms` time the same calls replayed from a CUDA graph.
-    for n_layer, s, hkv, g, length in [(36, 4160, 8, 4, 1), (36, 4160, 8, 4, 257),
-                                       (36, 2112, 8, 4, 2048),
-                                       (36, 4160, 8, 4, 4000), (12, 10, 4, 3, 10)]:
-        q = randn(1, hkv, g, 128)
-        kc, vc = randn(n_layer, 1, s, hkv, 128), randn(n_layer, 1, s, hkv, 128)
-        lens = torch.tensor([length], dtype=torch.int32, device=dev)
+    # codebooks), one row, and the fast cache at the pool's 32 rows (phase
+    # 8's fast stack: every row at the same codebook). Each timed launch
+    # reads the next layer, as the decode loop does, so the cache is not
+    # served from L2. `device_ms` and `library_device_ms` time the same
+    # calls replayed from a CUDA graph.
+    for n_layer, b, s, hkv, g, length in [(36, 1, 4160, 8, 4, 1),
+                                          (36, 1, 4160, 8, 4, 257),
+                                          (36, 1, 2112, 8, 4, 2048),
+                                          (36, 1, 4160, 8, 4, 4000),
+                                          (12, 1, 10, 4, 3, 10),
+                                          (12, 32, 10, 4, 3, 10)]:
+        q = randn(b, hkv, g, 128)
+        kc, vc = randn(n_layer, b, s, hkv, 128), randn(n_layer, b, s, hkv, 128)
+        lens = torch.full((b,), length, dtype=torch.int32, device=dev)
         mx = mean = 0.0
         for layer in (0, n_layer - 1):
             got = flash_decode_attention(q, kc, vc, layer, lens)
@@ -346,9 +405,9 @@ def kernel_cases(dev):
             lambda i=0: flash_decode_reference(q, kc, vc, i % n_layer, lens),
             lambda i=0: flash_decode_attention(q, kc, vc, i % n_layer, lens),
             100)
-        bound = _bound(4 * hkv * g * 128 * length,
-                       2 * (2 * length * hkv * 128 + 2 * hkv * g * 128))
-        qs = q.reshape(1, hkv * g, 1, 128)
+        bound = _bound(4 * b * hkv * g * 128 * length,
+                       2 * b * (2 * length * hkv * 128 + 2 * hkv * g * 128))
+        qs = q.reshape(b, hkv * g, 1, 128)
 
         def sdpa(i=0):
             return F.scaled_dot_product_attention(
@@ -357,13 +416,14 @@ def kernel_cases(dev):
 
         lib = _time_ms(sdpa, 100)
         cases["flash_decode"].append(dict(
-            shape=f"L={n_layer} B=1 S={s} Hkv={hkv} G={g} D=128 len={length}",
+            shape=f"L={n_layer} B={b} S={s} Hkv={hkv} G={g} D=128 len={length}",
             max_abs_err=mx, mean_abs_err=mean, ms=ms, plain_ms=plain_ms,
             bound_ms=bound[0], bound_by=bound[1], library_ms=lib,
             device_ms=_device_ms(lambda i=0: flash_decode_attention(
                 q, kc, vc, i % n_layer, lens), 100),
             library_device_ms=_device_ms(sdpa, 100)))
         del kc, vc
+    cases["flash_decode"].append(pool_decode_case(dev, randn))
     # the fp32 route (CUDA cores) at the caches of phase 3's tiny fp32 model:
     # the slow one (2 layers, S = 256 + 8, Hkv=2 G=2 D=64) and the fast one
     # (S = 10 codebooks, Hkv=1 G=3), to fp32's 1e-4
@@ -418,6 +478,124 @@ def kernel_cases(dev):
                 raise SystemExit(f"{name} disagrees with its plain version at "
                                  f"{r['shape']}")
     return cases
+
+
+# the pool's decode attention (phase 8): B=32 rows of the P=32 step's slow
+# cache (S = 2048 + 128, Hkv=8, G=4, D=128) at ragged lengths in 1..2048
+# from a seed, over 8 layers (each timed call reads the next, 1.1 GB of K
+# and of V in all, so the cache is not served from L2)
+POOL_LAYERS, POOL_S = 8, 2176
+
+
+def _pool_lengths(dev):
+    import torch
+
+    lens = np.random.default_rng(8).integers(1, 2049, 32)
+    lens[:2] = (1, 2048)
+    return torch.tensor(lens, dtype=torch.int32, device=dev)
+
+
+def _ragged_sdpa(lens, s):
+    """SDPA's boolean mask for ragged rows: (B, 1, 1, s), key j visible to
+    row b iff j < lens[b]."""
+    import torch
+
+    return (torch.arange(s, device=lens.device)[None, :] < lens[:, None])[:, None, None]
+
+
+def pool_decode_case(dev, randn):
+    """`decode_mma_kernel` at the pool's shapes against its plain version,
+    with device times (graph replays) and SDPA's on the ragged mask."""
+    import torch.nn.functional as F
+
+    from fish_speech_tpu_torch.ops.flash_decode import (flash_decode_attention,
+                                                        flash_decode_reference)
+
+    hkv, g, n_layer, s = 8, 4, POOL_LAYERS, POOL_S
+    lens = _pool_lengths(dev)
+    lmax = int(lens.max())
+    q = randn(32, hkv, g, 128)
+    kc, vc = randn(n_layer, 32, s, hkv, 128), randn(n_layer, 32, s, hkv, 128)
+    mx = mean = 0.0
+    for layer in (0, n_layer - 1):
+        e = _errors(flash_decode_attention(q, kc, vc, layer, lens),
+                    flash_decode_reference(q, kc, vc, layer, lens))
+        mx, mean = max(mx, e[0]), max(mean, e[1])
+    ms, plain_ms = _in_turns(
+        lambda i=0: flash_decode_reference(q, kc, vc, i % n_layer, lens),
+        lambda i=0: flash_decode_attention(q, kc, vc, i % n_layer, lens), 20)
+    total = int(lens.sum())
+    bound = _bound(4 * hkv * g * 128 * total,
+                   2 * (2 * total * hkv * 128 + 2 * 32 * hkv * g * 128))
+    qs = q.reshape(32, hkv * g, 1, 128)
+    mask = _ragged_sdpa(lens, lmax)
+
+    def sdpa(i=0):
+        return F.scaled_dot_product_attention(
+            qs, kc[i % n_layer, :, :lmax].transpose(1, 2),
+            vc[i % n_layer, :, :lmax].transpose(1, 2), attn_mask=mask,
+            enable_gqa=True)
+
+    row = dict(shape=f"L={n_layer} B=32 S={s} Hkv={hkv} G={g} D=128 ragged "
+                     f"len 1..2048 (sum {total}; SDPA ragged mask)",
+               max_abs_err=mx, mean_abs_err=mean, ms=ms, plain_ms=plain_ms,
+               bound_ms=bound[0], bound_by=bound[1], library_ms=_library_ms(sdpa, 20),
+               device_ms=_device_ms(lambda i=0: flash_decode_attention(
+                   q, kc, vc, i % n_layer, lens), 40),
+               library_device_ms=_device_ms(sdpa, 40))
+    del kc, vc
+    return row
+
+
+def pool_decode_kv8_case(dev, randn):
+    """`decode_kv8_mma_kernel` at the pool's shapes (the int8 pool's slow
+    cache), against its plain version; SDPA on K/V dequantized beforehand,
+    with the ragged mask."""
+    import torch
+    import torch.nn.functional as F
+
+    from fish_speech_tpu_torch.models.dual_ar import _kv_dequant, _kv_quant
+    from fish_speech_tpu_torch.ops.flash_decode import (
+        flash_decode_attention_kv8, flash_decode_kv8_reference)
+
+    hkv, g, n_layer, s = 8, 4, POOL_LAYERS, POOL_S
+    lens = _pool_lengths(dev)
+    lmax = int(lens.max())
+    kq, ks = _kv_quant(randn(n_layer, 32, s, hkv, 128))
+    vq, vs = _kv_quant(randn(n_layer, 32, s, hkv, 128))
+    q = randn(32, hkv, g, 128)
+    mx = mean = 0.0
+    for layer in (0, n_layer - 1):
+        e = _errors(flash_decode_attention_kv8(q, kq, ks, vq, vs, layer, lens),
+                    flash_decode_kv8_reference(q, kq, ks, vq, vs, layer, lens))
+        mx, mean = max(mx, e[0]), max(mean, e[1])
+
+    def kernel(i=0):
+        return flash_decode_attention_kv8(q, kq, ks, vq, vs, i % n_layer, lens)
+
+    ms, plain_ms = _in_turns(
+        lambda i=0: flash_decode_kv8_reference(q, kq, ks, vq, vs, i % n_layer, lens),
+        kernel, 20)
+    kd = _kv_dequant(kq[:, :, :lmax], ks[:, :, :lmax], torch.bfloat16)
+    vd = _kv_dequant(vq[:, :, :lmax], vs[:, :, :lmax], torch.bfloat16)
+    qs = q.reshape(32, hkv * g, 1, 128)
+    mask = _ragged_sdpa(lens, lmax)
+
+    def sdpa(i=0):
+        return F.scaled_dot_product_attention(
+            qs, kd[i % n_layer].transpose(1, 2), vd[i % n_layer].transpose(1, 2),
+            attn_mask=mask, enable_gqa=True)
+
+    total = int(lens.sum())
+    bound = _bound(4 * hkv * g * 128 * total,
+                   2 * total * hkv * 128 + 2 * 2 * total * hkv + 2 * 2 * 32 * hkv * g * 128)
+    row = dict(shape=f"L={n_layer} B=32 S={s} Hkv={hkv} G={g} D=128 ragged len "
+                     f"1..2048 (sum {total}) int8 K/V bf16 (SDPA ragged mask)",
+               max_abs_err=mx, mean_abs_err=mean, ms=ms, plain_ms=plain_ms,
+               bound_ms=bound[0], bound_by=bound[1], library_ms=_library_ms(sdpa, 20),
+               device_ms=_device_ms(kernel, 40), library_device_ms=_device_ms(sdpa, 40))
+    del kq, ks, vq, vs, kd, vd
+    return row
 
 
 def _within_bf16_step(got, want):
@@ -584,7 +762,8 @@ def quant_kernel_cases(dev, randn):
     slow = INT4_SHAPES[:4]
     shapes = ([(1, *s, 128) for s in INT4_SHAPES]
               + [(b, *s, 128) for b in (128, 1024) for s in slow]
-              + [(1000, "ragged", 384, 200, 64)])
+              + [(1000, "ragged", 384, 200, 64)]
+              + [(32, *s, 128) for s in slow])  # a 32-row pool's decode
     for b, name, i, o, g in shapes:
         qw = quantize_int4(randn(i, o).float() * 0.02, group_size=g)
         p, gs = qw["p"], qw["gs"]
@@ -715,6 +894,7 @@ def quant_kernel_cases(dev, randn):
                 bound_by=bound[1], library_ms=lib,
                 ok=mx <= 1e-4 if fp32 else mx <= 2e-2 and mean <= 2e-3, **device))
     del kq, ks, vq, vs
+    cases["flash_decode_kv8"].append(pool_decode_kv8_case(dev, randn))
     torch.cuda.empty_cache()
     return cases
 
@@ -1240,7 +1420,7 @@ def run_slice(dev, tokenizer):
           f"({1e3 / step_ms:.2f} steps/s; the eager session: "
           f"{EAGER_FIGURES['bf16']})")
     clone = run_clone(dev, tokenizer, session, engine, refs_dir)
-    return results, launches, clone
+    return results, launches, clone, step_ms
 
 
 CLONE_TEXT = ("A reference speaker reads a few calm sentences, so that the model "
@@ -1808,6 +1988,317 @@ def run_train_slice(dev, tokenizer, cfg, out_dir):
     return launches
 
 
+# phase 8: the 40 texts of the burst, whose prompts reach two buckets
+# (128 and 256 with the system prompt), and the index of the request sent
+# again alone
+POOL_CLIENTS, POOL_REPEAT = 40, 5
+POOL_TIMED_POS = 256  # the rows' position when a step alone is timed
+
+
+def _pool_requests():
+    from fish_speech_tpu_torch.engine.tts import TTSRequest
+
+    long_tail = (" The pool decodes every stream in one step, and each one keeps "
+                 "its own place, seed and budget.")
+    texts = [f"Pooled request {i} says hello." + (long_tail if i % 2 else "")
+             for i in range(POOL_CLIENTS)]
+    return [TTSRequest(text=t, streaming=True, max_new_tokens=64, seed=100 + i)
+            for i, t in enumerate(texts)]
+
+
+def _pool_engine(session, tokenizer, codec, dac_cfg):
+    """An engine that keeps each request thread's last decoded codes (the
+    closing decode of its segment) and the host seconds of each decode."""
+    from fish_speech_tpu_torch.engine.tts import TTSInferenceEngine
+
+    class PoolRecordingEngine(TTSInferenceEngine):
+        def __init__(self, *args):
+            super().__init__(*args)
+            self.codes = {}
+            self.decode_seconds = []
+
+        def decode_vq_tokens(self, codes):
+            self.codes[threading.get_ident()] = np.array(codes)
+            t0 = time.perf_counter()
+            out = super().decode_vq_tokens(codes)
+            self.decode_seconds.append(time.perf_counter() - t0)
+            return out
+
+    return PoolRecordingEngine(session, tokenizer, codec, dac_cfg)
+
+
+def pool_serve(engine, requests, frame, label):
+    """Stream `requests` from one thread each, all released together;
+    returns (rows per request, the wall time of the first submit)."""
+    rows = [None] * len(requests)
+    errors = []
+    gate = threading.Barrier(len(requests) + 1)
+
+    def client(i, req):
+        gate.wait()
+        t0 = time.perf_counter()
+        first = last = None
+        samples = 0
+        try:
+            for res in engine.inference(req):
+                now = time.perf_counter()
+                if res.code == "error":
+                    raise res.error
+                if res.code == "segment":
+                    audio = res.audio[1]
+                    if len(audio) % frame or not np.isfinite(audio).all():
+                        raise ValueError(f"a segment of {len(audio)} samples is "
+                                         f"not whole finite frames")
+                    samples += len(audio)
+                    first = first or now
+                    last = now
+                if res.code == "final" and (not np.isfinite(res.audio[1]).all()
+                                            or len(res.audio[1]) != samples):
+                    raise ValueError("bad final audio")
+            if first is None or samples // frame < 2:
+                raise ValueError(f"only {samples // frame} frames")
+            rows[i] = dict(t0=t0, first=first, last=last, frames=samples // frame,
+                           codes=engine.codes[threading.get_ident()])
+        except Exception as e:  # reported below, after every client ends
+            errors.append((i, e))
+
+    threads = [threading.Thread(target=client, args=(i, r), daemon=True)
+               for i, r in enumerate(requests)]
+    for t in threads:
+        t.start()
+    gate.wait()
+    t_submit = time.perf_counter()
+    deadline = time.monotonic() + 300
+    for t in threads:
+        t.join(timeout=max(0.0, deadline - time.monotonic()))
+    if any(t.is_alive() for t in threads):
+        # a hung request: every thread's stack, then out without waiting
+        # for threads blocked on the device
+        import faulthandler
+        import os
+
+        print(f"{label} pool: {sum(t.is_alive() for t in threads)} requests "
+              f"still running after 300 s; every thread's stack:", flush=True)
+        faulthandler.dump_traceback(all_threads=True)
+        sys.stderr.flush()
+        os._exit(1)
+    if errors:
+        raise SystemExit(f"{label} pool: failed requests {errors[:4]} "
+                         f"({len(errors)} in all)")
+    return rows, t_submit
+
+
+def _pct(xs, q):
+    return float(np.percentile(np.asarray(xs, np.float64), q))
+
+
+def pool_step_ms(batcher, reps=8, pos=POOL_TIMED_POS):
+    """Device ms of one replayed pool step: `reps` sub-chunks of the
+    batcher's step buffer (the step index reset, then its replays) between
+    CUDA events, after one untimed, with every row at position `pos` and
+    inactive (an inactive row computes as an active one does and keeps its
+    position, so each replay reads pos + 1 cached positions)."""
+    import torch
+
+    from fish_speech_tpu_torch.generate import replay_graph
+
+    graph = batcher._graphs["decode"]
+    n = batcher.state.cols.shape[0]
+
+    def sub_chunks(k):
+        for _ in range(k):
+            batcher.state.step.zero_()
+            for _ in range(n):
+                replay_graph(*graph)
+
+    with batcher._state_lock:  # the worker, idle, stays off the buffers
+        batcher.state.active.zero_()
+        batcher.state.pos.fill_(pos)
+        sub_chunks(1)
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        sub_chunks(reps)
+        end.record()
+        end.synchronize()
+    return start.elapsed_time(end) / (reps * n)
+
+
+def graph_eager_peak_mib(batcher, name):
+    """MiB above the allocation before it that an eager run of graph
+    `name`'s body (`ContinuousBatcher._eager_run`, which puts the pool's
+    carried buffers back) peaks at: its live temporaries, with the
+    carry's copies."""
+    import torch
+
+    with batcher._state_lock:  # the worker, idle, stays off the buffers
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        batcher._eager_run(name)
+        torch.cuda.synchronize()
+        return (torch.cuda.max_memory_allocated() - base) / 2**20
+
+
+def print_pool_accounting(batcher, label):
+    """Each graph's pool growth beside its body's eager peak of temporaries."""
+    rows = {name: (batcher.pool_growth[name] / 2**20,
+                   graph_eager_peak_mib(batcher, name))
+            for name in batcher.pool_growth}
+    print(f"{label} graph pool accounting (MiB: the capture's pool growth / the "
+          f"body's eager peak of temporaries): "
+          + ", ".join(f"{k} {g:.1f}/{e:.1f}" for k, (g, e) in rows.items())
+          + f"; pool {batcher.pool_bytes / 2**20:.1f} MiB")
+    return rows
+
+
+def _pool_for(params, cfg, pool_size, kv_quant):
+    import torch
+
+    from fish_speech_tpu_torch.config import SamplingConfig
+    from fish_speech_tpu_torch.engine.batcher import ContinuousBatcher
+
+    return ContinuousBatcher(params, cfg, SamplingConfig(), pool_size=pool_size,
+                             dtype=torch.bfloat16, decode_chunk_size=128,
+                             first_chunk_size=8, admit_every=4,
+                             kv_quant=kv_quant)
+
+
+def run_pool(dev, tokenizer, p1_step_ms):
+    """Phase 8: the continuous batcher's 32-slot pool on full-width s2-pro
+    and the codec, bf16 and then int8 weights with the int8 KV cache: a
+    burst of 40 concurrent streamed requests through the engine (32
+    admitted, 8 parked), then one of them again alone."""
+    import torch
+
+    from fish_speech_tpu_torch.config import dac_s2_pro
+    from fish_speech_tpu_torch.convert.from_jax import init_dac_decoder
+    from fish_speech_tpu_torch.engine.batcher import BatcherSession
+    from fish_speech_tpu_torch.generate import pick_bucket
+    from fish_speech_tpu_torch.models import dual_ar
+    from fish_speech_tpu_torch.ops.flash_decode import (
+        flash_decode_attention, flash_decode_attention_kv8)
+    from fish_speech_tpu_torch.ops.flash_prefill import flash_prefill_attention
+    from fish_speech_tpu_torch.ops.quant import quantize_dual_ar_lowmem
+
+    t_phase = time.perf_counter()
+    cfg = _s2_pro_cfg(tokenizer, 2048)
+    dac_cfg = dac_s2_pro()
+    frame = dac_cfg.frame_length
+    codec = init_dac_decoder(1, dac_cfg, torch.float32, dev)
+    requests = _pool_requests()
+    out = {}
+    for label in ("bf16", "int8"):
+        quant = label == "int8"
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        params = dual_ar.init_dual_ar(0, cfg, torch.bfloat16, dev)
+        if quant:
+            params = quantize_dual_ar_lowmem(params, mode="int8")
+        batcher = _pool_for(params, cfg, 32, quant)
+        cache_len = batcher.cache_len
+        engine = _pool_engine(BatcherSession(batcher), tokenizer, codec, dac_cfg)
+        kv_bytes = sum(t.numel() * t.element_size()
+                       for t in batcher.state.cache.values())
+        buckets = sorted({pick_bucket(_prompt_len(tokenizer, cfg, r.text), cache_len)
+                          for r in requests})
+        if len(buckets) < 2:
+            raise SystemExit(f"pool: the texts reach one bucket only {buckets}")
+        torch.cuda.synchronize()
+        print(f"pool {label} (P=32, weights {'int8' if quant else 'bf16'}, KV "
+              f"{'int8' if quant else 'bf16'}, chunk 128, first chunk 8, admit "
+              f"every 4): built in {time.perf_counter() - t0:.1f}s; KV pool "
+              f"{kv_bytes / 2**30:.2f} GiB; device memory allocated "
+              f"{torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB")
+        t0 = time.perf_counter()
+        times = batcher.precompile(buckets)
+        print(f"pool {label} graphs captured by precompile({buckets}) in "
+              f"{time.perf_counter() - t0:.1f}s (s, each with its eager run; the "
+              f"pool's growth in MiB): "
+              + ", ".join(f"{k} {v:.2f} s +{batcher.pool_growth[k] / 2**20:.1f}"
+                          for k, v in times.items())
+              + f"; graph pool {batcher.pool_bytes / 2**20:.1f} MiB")
+        precompile_codec(engine, (32, 64), (), f"pool {label}")
+        batcher.replays.clear()
+        batcher.eager_runs.clear()
+        _zero_counts()
+        rows, t_submit = pool_serve(engine, requests, frame, f"{label}")
+        launches = {"flash_decode": flash_decode_attention.launches,
+                    "flash_decode_kv8": flash_decode_attention_kv8.launches,
+                    "flash_prefill": flash_prefill_attention.launches_wgmma}
+        stats = batcher.stats()
+        frames = sum(r["frames"] for r in rows)
+        wall = max(r["last"] for r in rows) - t_submit
+        ttfa = [(r["first"] - r["t0"]) * 1e3 for r in rows]
+        fps = [(r["frames"] - 1) / (r["last"] - r["first"]) for r in rows]
+        print(f"pool {label} burst: {len(rows)} requests, {frames} frames in "
+              f"{wall:.3f}s: aggregate {frames / wall:.1f} frames/s; per stream "
+              f"frames/s p50 {_pct(fps, 50):.2f} min {min(fps):.2f}; TTFA ms p50 "
+              f"{_pct(ttfa, 50):.1f} p90 {_pct(ttfa, 90):.1f} max {max(ttfa):.1f}; "
+              f"stats {stats}; graph replays {dict(batcher.replays)}; eager body "
+              f"runs {dict(batcher.eager_runs)}; kernel launches {launches}; "
+              f"codec decodes {len(engine.decode_seconds)} (host s p50 "
+              f"{_pct(engine.decode_seconds, 50):.4f})")
+        if stats["parked_groups"] < 1:
+            raise SystemExit(f"pool {label}: no group was parked")
+        prefills = sum(n for k, n in batcher.replays.items() if k.startswith("prefill"))
+        if batcher.eager_runs or batcher.replays["decode"] <= 0 or prefills <= 0:
+            raise SystemExit(f"pool {label}: a step or prefill ran eagerly on the "
+                             f"card, or a graph never replayed")
+        need = ["flash_prefill", "flash_decode_kv8" if quant else "flash_decode"]
+        if min(launches[k] for k in need) <= 0:
+            raise SystemExit(f"pool {label}: a kernel of the path was never "
+                             f"launched: {launches}")
+        check_codec_replayed(engine, ("decode",), f"pool {label}")
+        again, _ = pool_serve(engine, [requests[POOL_REPEAT]], frame, label)
+        same = np.array_equal(again[0]["codes"], rows[POOL_REPEAT]["codes"])
+        print(f"pool {label} request {POOL_REPEAT} alone in the idle pool: TTFA "
+              f"{(again[0]['first'] - again[0]['t0']) * 1e3:.1f} ms, codes "
+              f"{again[0]['codes'].shape} identical to its run in the burst={same}")
+        if not same:
+            raise SystemExit(f"pool {label}: the repeated request gave other codes")
+        per_step = batcher.launches_per_replay("decode")
+        step_ms = pool_step_ms(batcher)
+        peak = torch.cuda.max_memory_allocated(dev) / 2**30
+        print(f"pool {label} replayed step at P=32: {step_ms:.3f} ms of device time "
+              f"({32e3 / step_ms:.1f} row-steps/s); launches per step {per_step}; "
+              f"peak device memory {peak:.2f} GiB")
+        row = dict(frames_per_s=frames / wall, fps_p50=_pct(fps, 50), fps_min=min(fps),
+                   ttfa_ms=(_pct(ttfa, 50), _pct(ttfa, 90), max(ttfa)),
+                   step_ms=step_ms, per_step=per_step, launches=launches,
+                   kv_bytes=kv_bytes, peak_gib=peak)
+        if quant:
+            row["accounting"] = {"P=32": print_pool_accounting(batcher, "int8 P=32")}
+        batcher.shutdown()
+        del engine, batcher
+        gc.collect()
+        torch.cuda.empty_cache()
+        # the same weights at P=8 (bf16) and P=1 (int8): the step alone
+        small = 1 if quant else 8
+        batcher = _pool_for(params, cfg, small, quant)
+        del params
+        gc.collect()
+        if quant:
+            batcher.precompile(buckets[:1])
+        else:
+            batcher._graph("decode")
+        row[f"step_ms_p{small}"] = pool_step_ms(batcher)
+        print(f"pool {label} replayed step at P={small}: {row[f'step_ms_p{small}']:.3f} "
+              f"ms of device time"
+              + (f" (phase 4's single-stream step at P=1: {p1_step_ms:.3f} ms)"
+                 if not quant else ""))
+        if quant:
+            row["accounting"]["P=1"] = print_pool_accounting(batcher, "int8 P=1")
+        batcher.shutdown()
+        del batcher
+        gc.collect()
+        torch.cuda.empty_cache()
+        out[label] = row
+    print(f"phase 8 (the pool) took {time.perf_counter() - t_phase:.1f}s")
+    return out
+
+
 def _zero_counts():
     """Set every kernel wrapper's launch counts to 0 (per route too)."""
     from fish_speech_tpu_torch.ops import flash_prefill, flash_train, int4
@@ -1979,7 +2470,7 @@ def main():
     print(f"fp32 routes' launches in phases 3, 3b and 3c: {fp32_launches}")
     if min(fp32_launches.values()) <= 0:
         raise SystemExit("an fp32 route was never launched")
-    _, launches, _ = run_slice(dev, tokenizer)
+    _, launches, _, p1_step_ms = run_slice(dev, tokenizer)
     gc.collect()  # the serving slice's model and caches go before training
     torch.cuda.empty_cache()
     train_launches = run_train_slice(
@@ -1995,6 +2486,21 @@ def main():
     launches["flash_decode_kv8"] = quant["mixed"]["launches"]["flash_decode_kv8"]
     cases["faststack_probe"], launches["faststack_probe"] = run_probe(
         dev, quant["mixed"]["fast_stack_ms"])
+    gc.collect()  # the probe's weights go before the pool
+    torch.cuda.empty_cache()
+    pool = run_pool(dev, tokenizer, p1_step_ms)
+    for row in pool.values():
+        for name in ("flash_decode", "flash_decode_kv8", "flash_prefill"):
+            launches[name] += row["launches"][name]
+    per_step = {}  # launches of each kernel in one replayed P=32 step
+    for label, name, counter in (
+            ("bf16", "flash_decode", "flash_decode_attention.launches"),
+            ("int8", "flash_decode_kv8", "flash_decode_attention_kv8.launches")):
+        per_step[name] = pool[label]["per_step"].get(counter, 0)
+    # the pools are bf16 and int8: each pool's count of the int4 tensor-core
+    # route's launches in its captured step
+    per_step["int4_mm_wgmma"] = max(row["per_step"].get("int4_matmul.launches_wgmma", 0)
+                                    for row in pool.values())
 
     kernels = []
     for name, rows in cases.items():
@@ -2008,6 +2514,7 @@ def main():
             "bound_ms": pick["bound_ms"], "bound_by": pick["bound_by"],
             "library_ms": pick["library_ms"],
             "shape": pick["shape"], "cases": rows,
+            **({"launches_per_p32_step": per_step[name]} if name in per_step else {}),
         })
     print(json.dumps({"kernels": kernels}))
     print(smi)

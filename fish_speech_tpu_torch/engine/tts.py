@@ -17,6 +17,14 @@ use or ahead of time by `precompile`, each after one eager run of its
 body, into a memory pool of the engine's own. On the CPU the bodies run
 eagerly.
 
+A session with `concurrent = True` (`engine/batcher.py`'s
+`BatcherSession`, over the continuous batcher's decode pool) serves
+requests at once: the engine takes its lock only for single-stream
+sessions, and the codec's own lock keeps one codec call at a time. The
+codec's device work holds `generate.GUARD` shared, and its captures hold
+it alone, so a codec graph captured at first use never overlaps the
+batcher worker's replays.
+
 Not ported yet (ROADMAP): device partials, `cancel_check`, and the HTTP
 server's backend selection.
 """
@@ -24,6 +32,7 @@ server's backend selection.
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import hashlib
 import threading
@@ -37,8 +46,9 @@ import torch
 from fish_speech_tpu_torch.audio.io import load_audio, wav_chunk_header
 from fish_speech_tpu_torch.config import DACConfig
 from fish_speech_tpu_torch.engine.reference_loader import ReferenceLoader
-from fish_speech_tpu_torch.generate import (GenerationSession, capture_graph,
-                                            generate_long, replay_graph)
+from fish_speech_tpu_torch.generate import (GUARD, GenerationSession,
+                                            capture_graph, generate_long,
+                                            replay_graph)
 from fish_speech_tpu_torch.models.dac.model import dac_encode, dac_from_indices
 
 
@@ -98,7 +108,8 @@ class TTSInferenceEngine:
         self.codec_cfg = codec_cfg
         self.references = ReferenceLoader(references_dir)
         self.references.encode_reference = self.encode_reference
-        self.lock = threading.Lock()  # one request on the session at a time
+        # one request at a time on a single-stream session
+        self.lock = threading.Lock()
         # per-clip sha256 -> codes (see encode_references_batch)
         self._vq_cache = collections.OrderedDict()
         self._vq_cache_lock = threading.Lock()
@@ -168,10 +179,11 @@ class TTSInferenceEngine:
         """Capture graph `key`: one eager run of its body, then the capture
         into the codec's pool (`generate.capture_graph`)."""
         t0 = time.perf_counter()
-        entry = self._codec_graph(key)
-        body = self._codec_body(key)
         with torch.no_grad():
-            body()
+            with GUARD.launching():
+                entry = self._codec_graph(key)
+                body = self._codec_body(key)
+                body()
             self.codec_eager_runs[key] += 1
             if self._codec_pool is None:
                 self._codec_pool = torch.cuda.graph_pool_handle()
@@ -191,19 +203,22 @@ class TTSInferenceEngine:
             bucket //= self.codec_cfg.frame_length
         key = (kind, rows, bucket)
         with self._codec_lock:
-            entry = self._codec_graph(key)
-            entry.inp.copy_(torch.from_numpy(padded))
-            if self._codec_device.type != "cuda":
-                with torch.no_grad():
-                    self._codec_body(key)()
-                self.codec_eager_runs[key] += 1
-            else:
-                if entry.graph is None:
-                    self._capture_codec(key)
-                replay_graph(entry.graph, entry.launches)
-                self.codec_replays[key] += 1
-            # a copy: on the CPU .cpu() is the buffer the next call writes
-            return entry.out.to("cpu", copy=True).numpy()
+            cuda = self._codec_device.type == "cuda"
+            known = self.codec_graphs.get(key)
+            if cuda and (known is None or known.graph is None):
+                self._capture_codec(key)
+            with GUARD.launching():
+                entry = self._codec_graph(key)
+                entry.inp.copy_(torch.from_numpy(padded))
+                if not cuda:
+                    with torch.no_grad():
+                        self._codec_body(key)()
+                    self.codec_eager_runs[key] += 1
+                else:
+                    replay_graph(entry.graph, entry.launches)
+                    self.codec_replays[key] += 1
+                # a copy: on the CPU .cpu() is the buffer the next call writes
+                return entry.out.to("cpu", copy=True).numpy()
 
     def precompile(self, code_buckets=(), reference_buckets=()) -> dict:
         """Capture, ahead of the first request, the codec graphs a request
@@ -330,8 +345,10 @@ class TTSInferenceEngine:
 
         segments: List[np.ndarray] = []
         emitted = 0  # samples of the segment in progress already streamed
+        lock = (contextlib.nullcontext() if getattr(self.session, "concurrent", False)
+                else self.lock)
         try:
-            with self.lock:
+            with lock:
                 for response in generate_long(
                     session=self.session, tokenizer=self.tokenizer,
                     text=req.text, max_new_tokens=req.max_new_tokens,

@@ -18,16 +18,32 @@ not needed. Sampling reads its uniforms from a block that one eager call
 fills per chunk from the request's `torch.Generator` (seeded from the
 request's seed), on the model's device (`ops/sampling.py`).
 
+The continuous batcher's device steps (`engine/batcher.py`) are here too:
+`pool_decode_step` (JAX's `decode_chunk_multi`, one step of every row of
+the pool, each at its own position) over `PoolState`, the group admission
+prefill `prefill_group_body` (JAX's `prefill_group_parked`) over
+`GroupState`, and the host-driven `apply_admission` and
+`scatter_parked_rows`. A pool row's uniforms are `counter_uniforms` of its
+request's seed and draw index, computed inside the step.
+
+Every graph capture in the process goes through `capture_graph`, which
+holds `GUARD` alone; every thread's other device work holds it shared
+(`GUARD.launching()`), so no launch from another thread lands inside a
+capture.
+
 Not ported yet (ROADMAP): prefix caching (`prefill_suffix`), device
-partials (`StreamPartial`), batched lockstep generation.
+partials (`StreamPartial`), batched lockstep generation
+(`generate_batch`) and its pool-insert prefills.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import functools
 import gc
 import re
+import threading
 import time
 from dataclasses import dataclass
 from typing import List, Optional, Union
@@ -43,9 +59,10 @@ from fish_speech_tpu_torch.ops.flash_prefill import flash_prefill_attention
 from fish_speech_tpu_torch.ops.int4 import int4_matmul
 from fish_speech_tpu_torch.ops.sampling import (TOP_K_CAP, UNIFORM_FAST,
                                                  UNIFORM_RAS, UNIFORM_SLOW,
-                                                 check_top_k, fill_uniforms,
-                                                 ras_select, sample_topk,
-                                                 topk_state, uniform_rows)
+                                                 check_top_k, counter_uniforms,
+                                                 fill_uniforms, ras_select,
+                                                 sample_topk, topk_state,
+                                                 uniform_rows)
 
 PROMPT_BUCKETS = (64, 128, 256, 512, 1024, 2048, 4096, 8192)
 
@@ -71,8 +88,10 @@ def _sample_column(params, cfg: DualARConfig, scfg: SamplingConfig, logits,
     1..C-1 through the fast stack.
 
     u: one step's uniforms, (`uniform_rows(C)`, >= k) in the rows of
-    `ops/sampling.py`; sampling: (temperature, top_p, top_k), numbers or
-    tensors; fast_cache: the fast stack's cache, zeroed and refilled."""
+    `ops/sampling.py`, or (`uniform_rows(C)`, B, >= k) with a block per
+    row; sampling: (temperature, top_p, top_k), numbers, 0-d tensors or
+    (B,) tensors of per-row values; fast_cache: the fast stack's cache,
+    zeroed and refilled."""
     temperature, top_p, top_k = sampling
     if scfg.mask_im_end:  # benchmark-only, see SamplingConfig
         logits = logits.clone()
@@ -214,6 +233,161 @@ def decode_step(params, cfg: DualARConfig, scfg: SamplingConfig,
     st.step.add_(1)
 
 
+class PoolState:
+    """The fixed buffers of the decode pool's step (`pool_decode_step`): one
+    row per slot of the continuous batcher, each its own sequence. A CUDA
+    graph of the step reads and writes them at the addresses it was
+    captured with; the host writes admitted rows in place
+    (`apply_admission`, `scatter_parked_rows`) and clears `active` of a
+    row it retires.
+
+    cache: the pool's slow cache (L, P, S, Hkv, Dh); token (P, C+1) int32:
+    each row's last column; pos (P,) int64: its next position; window (P,
+    W) int32: its RAS window; active (P,) bool; seed (P,) int64: its
+    request's seed; draw (P,) int64: its next draw of uniforms
+    (`counter_uniforms`; the prefill's column is draw 0); sampling (3, P)
+    fp32: temperature, top_p, top_k; step (1,) int64: the step's row of
+    `cols`; cols (n_steps, P, C+1) int32: a sub-chunk's columns."""
+
+    def __init__(self, cfg: DualARConfig, scfg: SamplingConfig, pool_size: int,
+                 cache_len: int, n_steps: int, dtype, act_dtype, device,
+                 kv_quant: bool):
+        p, c1 = pool_size, cfg.num_codebooks + 1
+        i32 = dict(dtype=torch.int32, device=device)
+        i64 = dict(dtype=torch.int64, device=device)
+        self.cache = dual_ar.init_kv_cache(cfg, p, cache_len, dtype, device,
+                                           quant=kv_quant)
+        self.fast_cache = dual_ar.init_fast_kv_cache(cfg, p, act_dtype, device)
+        self.token = torch.zeros((p, c1), **i32)
+        self.pos = torch.zeros((p,), **i64)
+        self.window = torch.zeros((p, scfg.ras_win_size), **i32)
+        self.active = torch.zeros((p,), dtype=torch.bool, device=device)
+        self.seed = torch.zeros((p,), **i64)
+        self.draw = torch.zeros((p,), **i64)
+        self.sampling = torch.ones((3, p), dtype=torch.float32, device=device)
+        self.step = torch.zeros((1,), **i64)
+        self.cols = torch.zeros((n_steps, p, c1), **i32)
+
+    def carry(self):
+        """The tensors a step carries from one run to the next."""
+        return self.token, self.pos, self.window, self.active, self.draw, self.step
+
+    def sampling_args(self):
+        return self.sampling[0], self.sampling[1], self.sampling[2]
+
+
+def pool_decode_step(params, cfg: DualARConfig, scfg: SamplingConfig,
+                     ps: PoolState):
+    """One step of every pool row on the fixed buffers (a step of JAX's
+    `decode_chunk_multi`): the slow step at each row's own position, the
+    head, sampling with each row's parameters and uniforms (`counter_uniforms`
+    of its seed and draw) with RAS, and the fast column. An active row
+    emits its column into `cols[step]`, rolls its window, advances pos and
+    draw, and turns itself inactive on `<|im_end|>`; an inactive row's
+    token, window, pos and cache stay as they are (its emitted column is
+    its old token). All on the device: a CUDA graph of this body replayed n
+    times runs n steps."""
+    hidden, slow_out, _ = dual_ar.decode_slow_step_multi(
+        params, cfg, ps.token, ps.cache, ps.pos, ps.active)
+    logits = dual_ar.semantic_head_logits(params, cfg, slow_out)
+    u = counter_uniforms(ps.seed, ps.draw, uniform_rows(cfg.num_codebooks))
+    column = _sample_column(params, cfg, scfg, logits, hidden, ps.window,
+                            u.transpose(0, 1), ps.sampling_args(),
+                            ps.fast_cache)
+    act = ps.active[:, None]
+    emitted = torch.where(act, column, ps.token)
+    ps.cols.index_copy_(0, ps.step, emitted[None])
+    ps.window.copy_(torch.where(
+        act, torch.cat([ps.window[:, 1:], column[:, :1]], dim=1), ps.window))
+    ps.token.copy_(emitted)
+    advance = ps.active.long()
+    ps.pos.add_(advance)
+    ps.draw.add_(advance)
+    ps.active.logical_and_(column[:, 0] != cfg.im_end_id)
+    ps.step.add_(1)
+
+
+def apply_admission(ps: PoolState, rows, ints, floats):
+    """Fold admitted rows into the pool's buffers in place (JAX's
+    `_apply_admission`, `fish_speech_tpu/engine/batcher.py:90-115`): rows
+    (m,) int64 pool rows; ints (m, 2 + C+1) int64: each row's position,
+    seed and first column; floats (3, m) fp32: its temperature, top_p and
+    top_k. The window is cleared, the next draw is 1 and the row turns
+    active. Device tensors in, no host read."""
+    ps.pos.index_copy_(0, rows, ints[:, 0])
+    ps.seed.index_copy_(0, rows, ints[:, 1])
+    ps.token.index_copy_(0, rows, ints[:, 2:].to(ps.token.dtype))
+    ps.window.index_fill_(0, rows, 0)
+    ps.draw.index_fill_(0, rows, 1)
+    ps.active.index_fill_(0, rows, True)
+    ps.sampling.index_copy_(1, rows, floats)
+
+
+def scatter_parked_rows(pool, parked, src, rows):
+    """Copy rows `src` (m,) of a parked group's cache (L, k, bucket, ...) to
+    pool rows `rows` (m,), positions [0, bucket), for every tensor of the
+    cache layout (plain {k, v} or int8 {k, v, ks, vs}): the rows JAX's
+    `scatter_parked_rows` takes, copied eagerly (its fixed pool-sized
+    signature only bounds XLA's compiles)."""
+    s = parked["k"].shape[2]
+    for name, dst in pool.items():
+        dst[:, :, :s].index_copy_(
+            1, rows, parked[name].index_select(1, src).to(dst.dtype))
+
+
+class GroupState:
+    """The fixed buffers of one admission signature's group prefill
+    (`prefill_group_body`): k rows of prompts right-aligned at [0,
+    t_end[i]) in a bucket. One scratch cache at the largest bucket serves
+    every bucket's graph (the graphs replay one at a time, and each group's
+    rows are copied out before the next replay).
+
+    cache (L, k, max_bucket, Hkv, Dh); offsets (k,) int32 zeros; t_end (k,)
+    int64; seed (k,) int64; sampling (3, k) fp32; column (k, C+1) int32:
+    the first columns; inp: the padded prompts of each bucket, (k, C+1,
+    bucket) int32."""
+
+    def __init__(self, cfg: DualARConfig, scfg: SamplingConfig, k: int,
+                 max_bucket: int, dtype, act_dtype, device, kv_quant: bool):
+        self.k, self.max_bucket, self.device = k, max_bucket, device
+        self.cache = dual_ar.init_kv_cache(cfg, k, max_bucket, dtype, device,
+                                           quant=kv_quant)
+        self.fast_cache = dual_ar.init_fast_kv_cache(cfg, k, act_dtype, device)
+        self.offsets = torch.zeros((k,), dtype=torch.int32, device=device)
+        self.t_end = torch.ones((k,), dtype=torch.int64, device=device)
+        self.seed = torch.zeros((k,), dtype=torch.int64, device=device)
+        self.sampling = torch.ones((3, k), dtype=torch.float32, device=device)
+        self.column = torch.zeros((k, cfg.num_codebooks + 1), dtype=torch.int32,
+                                  device=device)
+        self.inp = {}
+
+    def prompt(self, bucket: int):
+        """The prompt buffer of `bucket`, made at its first use."""
+        if bucket not in self.inp:
+            self.inp[bucket] = torch.zeros(
+                (self.k, self.column.shape[1], bucket), dtype=torch.int32,
+                device=self.device)
+        return self.inp[bucket]
+
+    def sampling_args(self):
+        return self.sampling[0], self.sampling[1], self.sampling[2]
+
+
+def prefill_group_body(params, cfg: DualARConfig, scfg: SamplingConfig,
+                       gs: GroupState, bucket: int):
+    """JAX's `prefill_group_parked` on the fixed buffers: the k prompts of
+    `gs.prompt(bucket)` (offsets 0, per-row t_end) prefilled into the
+    scratch cache, and each row's first column sampled with its own
+    parameters from draw 0 of its seed (no RAS) into `gs.column`."""
+    logits_full, hidden, _ = dual_ar.prefill(params, cfg, gs.prompt(bucket),
+                                             gs.cache, gs.offsets, gs.t_end)
+    u = counter_uniforms(gs.seed, torch.zeros_like(gs.seed),
+                         uniform_rows(cfg.num_codebooks))
+    gs.column.copy_(_sample_column(
+        params, cfg, scfg, _restricted_logits(cfg, logits_full), hidden, None,
+        u.transpose(0, 1), gs.sampling_args(), gs.fast_cache))
+
+
 # the wrappers whose launch counters a captured graph's replays add to
 _WRAPPERS = (flash_decode_attention, flash_decode_attention_kv8,
              flash_prefill_attention, int4_matmul)
@@ -226,32 +400,100 @@ def _launch_counts():
             if name.startswith("launches")}
 
 
+class LaunchGuard:
+    """Keeps CUDA graph captures apart from every other device call.
+
+    `torch.cuda.graph` captures in CUDA's "global" mode: a launch, copy or
+    synchronisation from another thread while a capture is open fails the
+    capture or spoils it. The batcher's worker, the engine's request
+    threads (the codec) and a single-stream session may all call the
+    device at once, so each holds `launching()` around its device work
+    (shared: any number at once; re-entrant in a thread) and
+    `capture_graph` holds `capturing()` (alone: it waits for the shared
+    holders to leave and keeps new ones out until it is done). A CUDA
+    capture is process-wide, hence one guard per process (`GUARD`)."""
+
+    def __init__(self):
+        self._cond = threading.Condition()
+        self._launching = 0
+        self._capturing = False
+        self._waiting = 0  # captures waiting: new launching sections wait too
+        self._held = threading.local()
+
+    @contextlib.contextmanager
+    def launching(self):
+        depth = getattr(self._held, "depth", 0)
+        outer = depth == 0 and not getattr(self._held, "capturing", False)
+        if outer:
+            with self._cond:
+                while self._capturing or self._waiting:
+                    self._cond.wait()
+                self._launching += 1
+        self._held.depth = depth + 1
+        try:
+            yield
+        finally:
+            self._held.depth = depth
+            if outer:
+                with self._cond:
+                    self._launching -= 1
+                    self._cond.notify_all()
+
+    @contextlib.contextmanager
+    def capturing(self):
+        if getattr(self._held, "depth", 0):
+            raise RuntimeError("a CUDA graph capture inside a launching section "
+                               "would wait for itself")
+        with self._cond:
+            self._waiting += 1
+            try:
+                while self._capturing or self._launching:
+                    self._cond.wait()
+            finally:
+                self._waiting -= 1
+            self._capturing = True
+        self._held.capturing = True
+        try:
+            yield
+        finally:
+            self._held.capturing = False
+            with self._cond:
+                self._capturing = False
+                self._cond.notify_all()
+
+
+GUARD = LaunchGuard()
+
+
 def capture_graph(body, pool, device):
     """Capture `body()` into a CUDA graph drawing on the memory pool `pool`,
     after the caller's eager run of it (which builds the kernels' plans,
-    workspaces and cached tables outside the pool). A capture launches
-    nothing, so the launch counts it added are taken back. Returns (graph,
-    {(wrapper, counter): launches one replay makes}, bytes the pool grew
-    by)."""
-    gc.collect()
-    torch.cuda.empty_cache()
-    reserved = torch.cuda.memory_reserved(device)
-    before = _launch_counts()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph, pool=pool):
-        body()
-    after = _launch_counts()
-    for (f, attr), n in before.items():
-        setattr(f, attr, n)
-    torch.cuda.synchronize(device)
+    workspaces and cached tables outside the pool), holding `GUARD` alone.
+    A capture launches nothing, so the launch counts it added are taken
+    back. Returns (graph, {(wrapper, counter): launches one replay makes},
+    bytes the pool grew by)."""
+    with GUARD.capturing():
+        gc.collect()
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved(device)
+        before = _launch_counts()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, pool=pool):
+            body()
+        after = _launch_counts()
+        for (f, attr), n in before.items():
+            setattr(f, attr, n)
+        torch.cuda.synchronize(device)
+        grown = torch.cuda.memory_reserved(device) - reserved
     launches = {k: after[k] - n for k, n in before.items() if after[k] != n}
-    return graph, launches, torch.cuda.memory_reserved(device) - reserved
+    return graph, launches, grown
 
 
 def replay_graph(graph, launches):
     """Replay `graph` on the current stream and add the launches its
     capture recorded to the wrappers' counters."""
-    graph.replay()
+    with GUARD.launching():
+        graph.replay()
     for (f, attr), n in launches.items():
         setattr(f, attr, getattr(f, attr) + n)
 
@@ -277,7 +519,8 @@ def _detached(tree):
 class GenerationSession:
     """Owns the KV cache, the step buffers (`StepState`) and the
     inference-prepared weights of one model, for one stream at a time
-    (batching is not ported yet: `max_batch` must be 1).
+    (`max_batch` must be 1; concurrent streams share the decode pool of
+    `engine/batcher.py`).
 
     The session re-uses one cache for every request (each prefill writes
     the positions it reads); `params` (plain or quantized, `ops/quant.py`)
@@ -308,7 +551,9 @@ class GenerationSession:
                  pipeline_lookahead: int = 1, kv_quant: bool = False):
         if max_batch != 1:
             raise NotImplementedError(
-                "batched sessions are not ported yet (ROADMAP: the batcher)")
+                "lockstep batched sessions (generate_batch) are not ported "
+                "yet (ROADMAP); the decode pool is engine/batcher.py's "
+                "ContinuousBatcher")
         # detached views: a tree fresh from training (LoRA tensors that
         # require grad) must not make decoding record an autograd graph
         params = _detached(params)
@@ -355,14 +600,15 @@ class GenerationSession:
         buffers put back after it), then the capture into the shared pool."""
         t0 = time.perf_counter()
         body = self._body(name)
-        saved = [t.clone() for t in self.state.carry()]
-        body()
-        self.eager_runs[name] += 1
-        for t, s in zip(self.state.carry(), saved):
-            t.copy_(s)
+        with GUARD.launching():
+            saved = [t.clone() for t in self.state.carry()]
+            body()
+            self.eager_runs[name] += 1
+            for t, s in zip(self.state.carry(), saved):
+                t.copy_(s)
+            del saved
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
-        del saved
         graph, launches, grown = capture_graph(body, self._pool, self.device)
         self.pool_bytes += grown
         self.capture_seconds[name] = time.perf_counter() - t0
@@ -378,6 +624,14 @@ class GenerationSession:
             return
         replay_graph(*(self._graphs.get(name) or self._capture(name)))
         self.replays[name] += 1
+
+    def _graphs_for(self, *names):
+        """Capture the graphs `names` not captured yet (on CUDA): before a
+        launching section, which a capture may not sit in."""
+        if self.device.type == "cuda":
+            for name in names:
+                if name not in self._graphs:
+                    self._capture(name)
 
     def launches_per_replay(self, name: str) -> dict:
         """{counter: launches} one replay of graph `name` adds."""
@@ -411,8 +665,9 @@ class GenerationSession:
         names = [f"prefill_{self._bucket(prompt_len)}"]
         if budget > 1:
             names.append("decode")
-        self._set_request(prompt_len, self.scfg.temperature, self.scfg.top_p,
-                          self.scfg.top_k)
+        with GUARD.launching():
+            self._set_request(prompt_len, self.scfg.temperature,
+                              self.scfg.top_p, self.scfg.top_k)
         out = {}
         for name in names:
             if name not in self._graphs:
@@ -431,11 +686,13 @@ class GenerationSession:
         filling their uniforms; returns a copy of their columns (n, 1, C+1).
         Nothing here waits on the device, so chunks can queue."""
         st = self.state
-        fill_uniforms(st.u[:n], generator)
-        st.step.zero_()
-        for _ in range(n):
-            self._run("decode")
-        return st.cols[:n].clone()
+        self._graphs_for("decode")
+        with GUARD.launching():
+            fill_uniforms(st.u[:n], generator)
+            st.step.zero_()
+            for _ in range(n):
+                self._run("decode")
+            return st.cols[:n].clone()
 
     def generate(self, prompt: np.ndarray, generator, max_new_tokens: int = 0,
                  temperature: float = 1.0, top_p: float = 0.9,
@@ -475,12 +732,14 @@ class GenerationSession:
         bucket = self._bucket(t)
         inp = np.zeros((1, cfg.num_codebooks + 1, bucket), dtype=np.int32)
         inp[0, :, :t] = prompt
-        st.prompt(bucket).copy_(torch.from_numpy(inp))
-        self._set_request(t, temperature, top_p, top_k)
-        fill_uniforms(st.u[:1], generator)
-        self._run(f"prefill_{bucket}")
-        # a copy: on the CPU .cpu() returns the buffer the steps overwrite
-        columns = [st.token.cpu().numpy().copy()]  # list of (B, C+1)
+        self._graphs_for(f"prefill_{bucket}")
+        with GUARD.launching():
+            st.prompt(bucket).copy_(torch.from_numpy(inp))
+            self._set_request(t, temperature, top_p, top_k)
+            fill_uniforms(st.u[:1], generator)
+            self._run(f"prefill_{bucket}")
+            # a copy: on the CPU .cpu() returns the buffer the steps overwrite
+            columns = [st.token.cpu().numpy().copy()]  # list of (B, C+1)
         yield np.concatenate(columns, axis=0).T
         if int(columns[0][0, 0]) == cfg.im_end_id:
             return
@@ -498,7 +757,8 @@ class GenerationSession:
                 inflight.append((self.decode_chunk(n, generator), n))
                 dispatch_left -= n
             cols_dev, n = inflight.pop(0)
-            cols = cols_dev.cpu().numpy()[:, 0][: max(emit_left, 0)]
+            with GUARD.launching():
+                cols = cols_dev.cpu().numpy()[:, 0][: max(emit_left, 0)]
             emit_left -= n
             ends = cols[:, 0] == cfg.im_end_id
             if ends.any():

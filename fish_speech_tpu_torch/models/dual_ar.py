@@ -218,6 +218,28 @@ def _store_kv(cache, i, sl, k, v):
             dst[i, :, sl] = src.to(dst.dtype)
 
 
+def _store_kv_rows(cache, i, flat_pos, active, k, v):
+    """Write row b's k/v (B, 1, Hkv, Dh) into layer i of the cache at
+    position `flat_pos[b] - b * S` where `active[b]`, and rewrite what is
+    there where not (JAX's `write_rows`, `fish_speech_tpu/models/dual_ar.py:
+    449-463`); quantized under the int8 cache. flat_pos (B,) int64 indexes
+    the layer's (B * S) rows; everything stays on the device, so a CUDA
+    graph of the step reads the positions at replay."""
+    if "ks" in cache:
+        (k, ks), (v, vs) = _kv_quant(k), _kv_quant(v)
+        pairs = ((cache["k"], k), (cache["v"], v), (cache["ks"], ks),
+                 (cache["vs"], vs))
+    else:
+        pairs = ((cache["k"], k), (cache["v"], v))
+    b, s = cache["k"].shape[1:3]
+    for dst, src in pairs:
+        flat = dst[i].view(b * s, *dst.shape[3:])
+        new = src[:, 0].to(dst.dtype)
+        keep = flat.index_select(0, flat_pos)
+        act = active.view(b, *([1] * (new.dim() - 1)))
+        flat.index_copy_(0, flat_pos, torch.where(act, new, keep))
+
+
 def init_fast_kv_cache(cfg: DualARConfig, batch: int, dtype=torch.bfloat16,
                        device=None):
     """Fast-transformer cache: the sequence axis is the codebook index."""
@@ -328,11 +350,13 @@ def _layer_slice(layers, i):
 
 
 def _run_stack_decode(layers, spec, x, freqs, cache, pos, lengths):
-    """Decode-mode layer loop, lockstep write of one position.
+    """Decode-mode layer loop.
 
-    x (B, 1, D); freqs (1, Dh/2, 2); the cache is written in place at `pos`
-    (an int or a (1,) int64 tensor; int8 plus scales under the int8 cache)
-    and each layer's attention reads its first `lengths[b]` positions."""
+    x (B, 1, D). Lockstep: freqs (1, Dh/2, 2) and the cache is written in
+    place at `pos` (an int or a (1,) int64 tensor). Per row (the decode
+    pool): freqs (B, 1, Dh/2, 2) and `pos` is (flat_pos, active) for
+    `_store_kv_rows`. int8 plus scales under the int8 cache; each layer's
+    attention reads its first `lengths[b]` positions."""
     n_head, n_kv, head_dim, eps, _ = spec
     b = x.shape[0]
     quant = "ks" in cache
@@ -342,7 +366,10 @@ def _run_stack_decode(layers, spec, x, freqs, cache, pos, lengths):
         q, k, v = _qkv(lp, spec, h)
         q = apply_rope(q, freqs)
         k = apply_rope(k, freqs)
-        _store_kv(cache, i, pos, k, v)
+        if isinstance(pos, tuple):
+            _store_kv_rows(cache, i, *pos, k, v)
+        else:
+            _store_kv(cache, i, pos, k, v)
         qg = q.reshape(b, n_kv, n_head // n_kv, head_dim).contiguous()
         if quant:
             y = flash_decode_attention_kv8(qg, cache["k"], cache["ks"],
@@ -566,6 +593,37 @@ def decode_slow_step(params, cfg: DualARConfig, token, cache, pos):
     lengths = (pos + 1).to(torch.int32).expand(b).contiguous()
     x, cache = _run_stack_decode(params["layers"], _slow_spec(cfg), x, freqs,
                                  cache, pos, lengths)
+    x = x[:, 0]
+    slow_out = rms_norm(x, params["norm"], cfg.norm_eps)
+    hidden = slow_out if cfg.norm_fastlayer_input else x
+    return hidden, slow_out, cache
+
+
+def decode_slow_step_multi(params, cfg: DualARConfig, token, cache, pos,
+                           active):
+    """One slow step with a position per row (the decode pool's rows are
+    sequences of their own; `fish_speech_tpu/models/dual_ar.py:860-888`).
+
+    token (B, C+1) int; pos (B,) int64 and active (B,) bool on the model's
+    device. Row b writes its k/v at pos[b] only where active[b] (an
+    inactive row's cache stays as it is) and attends positions [0,
+    pos[b]]: inactive rows still attend, as in JAX, so their pos keeps the
+    length >= 1. Positions past the cache or the RoPE table clamp (the
+    pool's headroom keeps them inside). Nothing is read on the host, so a
+    CUDA graph of the step reads pos and active at replay.
+
+    Returns (hidden (B, D) for the fast stack, slow_out (B, D) normed, cache)."""
+    cfg = cfg.resolve()
+    x = embed_tokens(params, cfg, token[:, :, None])  # (B, 1, D)
+    b = x.shape[0]
+    s = cache["k"].shape[2]
+    table = rope_table(cfg.max_seq_len, cfg.head_dim, cfg.rope_base, x.device)
+    freqs = table.index_select(0, pos.clamp(0, table.shape[0] - 1))[:, None]
+    at = pos.clamp(0, s - 1)
+    flat_pos = torch.arange(b, device=x.device) * s + at
+    x, cache = _run_stack_decode(params["layers"], _slow_spec(cfg), x, freqs,
+                                 cache, (flat_pos, active),
+                                 (at + 1).to(torch.int32))
     x = x[:, 0]
     slow_out = rms_norm(x, params["norm"], cfg.norm_eps)
     hidden = slow_out if cfg.norm_fastlayer_input else x

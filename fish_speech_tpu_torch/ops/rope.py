@@ -38,11 +38,14 @@ def rope_table(seq_len: int, n_elem: int, base: float, device) -> torch.Tensor:
 
 
 def apply_rope(x: torch.Tensor, freqs: torch.Tensor) -> torch.Tensor:
-    """Rotate x (..., S, H, D) by the table slice freqs (S, D//2, 2); the
-    table is upcast to fp32 and the result cast back to x's dtype."""
+    """Rotate x (..., S, H, D) by the table slice freqs (S, D//2, 2), or by
+    per-row table rows freqs (B, S, D//2, 2) for x (B, S, H, D) (the decode
+    pool's rows sit at positions of their own,
+    `fish_speech_tpu/models/dual_ar.py:_rope_rows`); the table is upcast to
+    fp32 and the result cast back to x's dtype."""
     *lead, s, h, d = x.shape
     xf = x.float().reshape(*lead, s, h, d // 2, 2)
-    fr = freqs.float().reshape(*([1] * len(lead)), s, 1, d // 2, 2)
+    fr = freqs.float().unsqueeze(-3)
     real = xf[..., 0] * fr[..., 0] - xf[..., 1] * fr[..., 1]
     imag = xf[..., 1] * fr[..., 0] + xf[..., 0] * fr[..., 1]
     return torch.stack([real, imag], dim=-1).reshape(x.shape).to(x.dtype)

@@ -7,6 +7,14 @@ exponential race `argmax(p / -log u)` draws the sample. The uniforms come
 from a `torch.Generator`, or are passed in as `u` so that a test can feed
 both packages the same numbers (JAX's threefry and torch's Philox give
 different bits from one seed).
+
+The decode pool (`engine/batcher.py`) samples each row with its own
+parameters (`sample_topk` on (B,) tensors: JAX's `sample_topk_rows`) and
+its own uniforms, which `counter_uniforms` computes on the device from the
+row's request seed and draw index: a counter-based hash, so what a request draws does not depend
+on its slot, its neighbours or how its steps were cut into chunks (CUDA's
+Philox generator rounds its offset per call, so one fill of 8 steps does
+not draw what two fills of 4 draw).
 """
 
 from typing import Optional
@@ -48,15 +56,23 @@ def topk_state(logits: torch.Tensor, k_cap: int = TOP_K_CAP):
     return vals, idx, torch.logsumexp(lf, dim=-1)
 
 
+def _per_row(x):
+    """A (B,) tensor of per-row values as a (B, 1) column; numbers and 0-d
+    tensors as they are."""
+    return x[:, None] if isinstance(x, torch.Tensor) and x.dim() else x
+
+
 def sample_topk(state, temperature: float, top_p: float, top_k: int,
                 generator: Optional[torch.Generator] = None,
                 u: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Draw one token from a `topk_state`. Returns int32 vocab indices (...,).
 
-    `u` may be wider than the state's k (a row of the uniform block): its
-    first k values are used."""
+    temperature, top_p, top_k: numbers, 0-d tensors, or (B,) tensors of
+    per-row values (JAX's `sample_topk_rows`). `u` may be wider than the
+    state's k (a row of the uniform block): its first k values are used."""
     vals, idx, lse = state
     k_cap = vals.shape[-1]
+    temperature, top_p, top_k = map(_per_row, (temperature, top_p, top_k))
     probs = torch.exp(vals - lse[..., None])  # true softmax probs of the top-k
     cum = torch.cumsum(probs, dim=-1)
     ranks = torch.arange(k_cap, device=vals.device)
@@ -75,6 +91,43 @@ def sample_topk(state, temperature: float, top_p: float, top_k: int,
         u = u[..., :k_cap]
     choice = torch.argmax(p / -torch.log(u), dim=-1)
     return torch.gather(idx, -1, choice[..., None])[..., 0].to(torch.int32)
+
+
+_M32 = 0xFFFFFFFF
+
+
+def _mul32(x, c: int):
+    """x * c mod 2**32 for int64 x in [0, 2**32), in 16-bit halves of c so
+    that no int64 product overflows (CPU and CUDA give the same bits)."""
+    return (x * (c & 0xFFFF) + ((x * (c >> 16)) & 0xFFFF) * 65536) & _M32
+
+
+def _mix32(x):
+    """A 32-bit integer hash (xor-shift-multiply, "lowbias32")."""
+    x = x ^ (x >> 16)
+    x = _mul32(x, 0x7FEB352D)
+    x = x ^ (x >> 15)
+    x = _mul32(x, 0x846CA68B)
+    return x ^ (x >> 16)
+
+
+def counter_uniforms(seed: torch.Tensor, draw: torch.Tensor, n_rows: int,
+                     k: int = TOP_K_CAP) -> torch.Tensor:
+    """(B, n_rows, k) fp32 uniforms in (0, 1) for draw `draw[b]` of the
+    request seeded `seed[b]` (both (B,) int64 on the device): element e is
+    a keyed hash of (draw * n_rows * k + e), its top 24 bits centred in
+    their interval. A pure function of (seed, draw), computed on the
+    device, so a CUDA graph of a step draws a row's next uniforms from the
+    row's own counter and the same request draws the same numbers whatever
+    its slot, its neighbours or its chunks."""
+    width = n_rows * k
+    e = torch.arange(width, device=seed.device, dtype=torch.int64)
+    key = _mix32((seed & _M32) ^ 0x9E3779B9)[:, None]
+    key2 = _mix32(key ^ 0x85EBCA6B)
+    ctr = (draw[:, None] * width + e) & _M32
+    h = _mix32(_mix32(ctr ^ key) ^ key2)
+    u = ((h >> 8).to(torch.float32) + 0.5) * (1.0 / (1 << 24))
+    return u.reshape(-1, n_rows, k)
 
 
 def ras_select(token_normal, token_high, prev_window, semantic_begin_id: int,

@@ -549,26 +549,33 @@ def test_new_wrappers_reject_what_the_kernels_do_not_take(dev):
                                   "bf16", dims)
 
 
+def _graph_cfg():
+    """A small model with heads of D=64 and ten codebooks."""
+    from fish_speech_tpu_torch.config import dual_ar_tiny
+    from fish_speech_tpu_torch.tokenizer import build_test_tokenizer
+
+    tok = build_test_tokenizer()
+    return dual_ar_tiny(vocab_size=tok.vocab_size, head_dim=64, n_head=4,
+                        n_local_heads=2, dim=256, intermediate_size=512,
+                        fast_dim=256, fast_intermediate_size=512,
+                        fast_head_dim=64, fast_n_head=3, fast_n_local_heads=1,
+                        num_codebooks=10, attention_qk_norm=True,
+                        tie_word_embeddings=False, max_seq_len=256,
+                        semantic_begin_id=tok.semantic_begin_id,
+                        semantic_end_id=tok.semantic_end_id,
+                        im_end_id=tok.im_end_id)
+
+
 def _graph_session(dev, kind, **kw):
     """A small model on the card (heads of D=64, ten codebooks) served by a
     graphed session: "bf16" weights and cache, or "mixed" (slow int8, fast
     int4, heads int8) with the int8 KV cache."""
-    from fish_speech_tpu_torch.config import SamplingConfig, dual_ar_tiny
+    from fish_speech_tpu_torch.config import SamplingConfig
     from fish_speech_tpu_torch.generate import GenerationSession
     from fish_speech_tpu_torch.models.dual_ar import init_dual_ar
     from fish_speech_tpu_torch.ops.quant import quantize_dual_ar_lowmem
-    from fish_speech_tpu_torch.tokenizer import build_test_tokenizer
 
-    tok = build_test_tokenizer()
-    cfg = dual_ar_tiny(vocab_size=tok.vocab_size, head_dim=64, n_head=4,
-                       n_local_heads=2, dim=256, intermediate_size=512,
-                       fast_dim=256, fast_intermediate_size=512,
-                       fast_head_dim=64, fast_n_head=3, fast_n_local_heads=1,
-                       num_codebooks=10, attention_qk_norm=True,
-                       tie_word_embeddings=False, max_seq_len=256,
-                       semantic_begin_id=tok.semantic_begin_id,
-                       semantic_end_id=tok.semantic_end_id,
-                       im_end_id=tok.im_end_id)
+    cfg = _graph_cfg()
     params = init_dual_ar(7, cfg, torch.bfloat16, dev)
     if kind == "mixed":
         params = quantize_dual_ar_lowmem(params, mode="int8", fast_mode="int4")
@@ -759,3 +766,167 @@ def test_codec_graph_replays_equal_the_eager_bodies(dev, tmp_path, kind):
             want = [eager[r, :, : -(-len(w) // frame)] for r, w in enumerate(wavs)]
         for g, w in zip(got[:rows] if rows == 1 else got[1:], want):
             np.testing.assert_array_equal(g, w)
+
+
+def _graph_pool(dev, kind, scfg=None, **kw):
+    """`_graph_session`'s small model behind a `ContinuousBatcher` on the
+    card: "bf16", or "int8" weights with the int8 KV cache."""
+    from fish_speech_tpu_torch.config import SamplingConfig
+    from fish_speech_tpu_torch.engine.batcher import ContinuousBatcher
+    from fish_speech_tpu_torch.models.dual_ar import init_dual_ar
+    from fish_speech_tpu_torch.ops.quant import quantize_dual_ar_lowmem
+
+    cfg = _graph_cfg()
+    params = init_dual_ar(7, cfg, torch.bfloat16, dev)
+    if kind == "int8":
+        params = quantize_dual_ar_lowmem(params, mode="int8")
+    kw = {"pool_size": 4, "decode_chunk_size": 8, "first_chunk_size": 2, **kw}
+    return ContinuousBatcher(params, cfg, scfg or SamplingConfig(),
+                             dtype=torch.bfloat16, kv_quant=kind == "int8", **kw)
+
+
+@pytest.mark.parametrize("kind", ["bf16", "int8"])
+def test_pool_step_graph_replay_equals_the_eager_body(dev, kind):
+    """After a few sampled requests, with ragged positions, some rows
+    inactive and new tokens written in place, one replay of the pool's step
+    graph gives what an eager run of `pool_decode_step` on a copy of the
+    buffers gives, bit for bit: columns, carried state and the cache."""
+    from fish_speech_tpu_torch.generate import PoolState, pool_decode_step
+
+    b = _graph_pool(dev, kind)
+    try:
+        assert set(b.precompile((64,))) == {"decode", "prefill_4_64", "prefill_1_64"}
+        cfg, st = b.cfg, b.state
+        for i in range(3):
+            b.generate(_graph_prompt(cfg, 30 + 7 * i, seed=i), seed=i,
+                       max_new_tokens=9, top_k=30)
+        b._state_lock.acquire()  # the worker stays idle from here on
+        rng = np.random.default_rng(5)
+        st.pos.copy_(torch.tensor([40, 97, 3, 120], device=dev))
+        st.active.copy_(torch.tensor([True, False, True, True], device=dev))
+        st.token.copy_(torch.from_numpy(np.stack(
+            [_graph_prompt(cfg, 1, seed=s)[:, 0] for s in range(4)])))
+        st.seed.copy_(torch.tensor([3, 4, 5, 6], device=dev))
+        st.step.fill_(1)
+        st.window.copy_(torch.from_numpy(rng.integers(
+            cfg.semantic_begin_id, cfg.semantic_begin_id + 50, st.window.shape)))
+        ref = PoolState(cfg, b.scfg, 4, b.cache_len, st.cols.shape[0],
+                        torch.bfloat16, torch.bfloat16, dev, b.kv_quant)
+        for name in ("token", "pos", "window", "active", "seed", "draw",
+                     "sampling", "step", "cols"):
+            getattr(ref, name).copy_(getattr(st, name))
+        for name, t in st.cache.items():
+            ref.cache[name].copy_(t)
+        with torch.no_grad():
+            pool_decode_step(b.params, cfg, b.scfg, ref)
+            b._run("decode")
+        torch.cuda.synchronize()
+        for name in ("cols", "token", "pos", "window", "active", "draw", "step"):
+            assert torch.equal(getattr(st, name), getattr(ref, name)), name
+        for name, t in st.cache.items():
+            assert torch.equal(t, ref.cache[name]), name
+        b._state_lock.release()
+    finally:
+        b.shutdown()
+
+
+def test_pool_sampled_codes_do_not_depend_on_traffic_or_chunks(dev):
+    """A sampled request gives the same codes alone, inside a burst of
+    five, and in a pool that cuts its steps into other chunks (sub-chunks
+    of 3 after a first chunk of 5 against 4 after 2): CUDA's Philox
+    generator would draw other numbers for other chunk cuts; the pool's
+    counter-based uniforms do not."""
+    import threading
+
+    prompts = [_graph_prompt(_graph_cfg(), 25 + 6 * i, seed=i) for i in range(5)]
+    kw = dict(max_new_tokens=23, temperature=0.8, top_p=0.9, top_k=30)
+    runs = {}
+    for name, pool_kw in (("a", dict(admit_every=4)),
+                          ("b", dict(admit_every=3, first_chunk_size=5,
+                                     decode_chunk_size=12))):
+        b = _graph_pool(dev, "bf16", **pool_kw)
+        try:
+            b.precompile((64,))
+            alone = b.generate(prompts[0], seed=77, **kw)
+            burst = [None] * 5
+
+            def go(i):
+                burst[i] = b.generate(prompts[i], seed=77 if i == 0 else i, **kw)
+
+            threads = [threading.Thread(target=go, args=(i,)) for i in range(5)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=300)
+            assert not b.eager_runs.get("decode", 0) > 1
+            runs[name] = (alone, burst[0])
+        finally:
+            b.shutdown()
+    np.testing.assert_array_equal(runs["a"][0], runs["a"][1])
+    np.testing.assert_array_equal(runs["a"][0], runs["b"][0])
+    np.testing.assert_array_equal(runs["a"][0], runs["b"][1])
+    assert runs["a"][0].shape[1] > 3
+
+
+def test_codec_capture_while_the_pool_replays_goes_through_the_guard(dev):
+    """A codec graph captured at first use from a request thread while the
+    batcher's worker replays its step graph: the capture waits for the
+    worker's launching sections (`generate.GUARD`), completes, and equals
+    an eager run of its body; the pooled request is unharmed (the same
+    codes as with no capture beside it)."""
+    import threading
+
+    from fish_speech_tpu_torch.config import SamplingConfig, dac_tiny
+    from fish_speech_tpu_torch.engine.batcher import BatchRequest
+    from fish_speech_tpu_torch.engine.tts import TTSInferenceEngine
+    from fish_speech_tpu_torch.models.dac.model import dac_from_indices, init_dac
+
+    b = _graph_pool(dev, "bf16", scfg=SamplingConfig(mask_im_end=True))
+    try:
+        b.precompile((64,))
+        cfg = dac_tiny()
+        engine = TTSInferenceEngine(None, None, init_dac(5, cfg, device=dev), cfg)
+        prompt = _graph_prompt(b.cfg, 40, seed=9)
+        quiet = b.generate(prompt, seed=5, max_new_tokens=200, top_k=30)
+        req = BatchRequest(prompt=prompt, seed=5, max_new_tokens=200, top_k=30)
+        out = b.submit(req)
+        chunks = [out.get(timeout=120), out.get(timeout=120)]
+        assert b.stats()["active_slots"] == 1  # the worker is replaying
+        codes = np.random.default_rng(3).integers(
+            0, cfg.rvq.codebook_size, (cfg.rvq.total_codebooks, 50)).astype(np.int32)
+        audio = engine.decode_vq_tokens(codes)  # captured here, at first use
+        assert dict(engine.codec_eager_runs) == {("decode", 1, 64): 1}
+        while (item := out.get(timeout=120)) is not None:
+            chunks.append(item)
+        np.testing.assert_array_equal(np.concatenate(chunks).T, quiet)
+        padded = torch.zeros((1, cfg.rvq.total_codebooks, 64), dtype=torch.int32,
+                             device=dev)
+        padded[0, :, :50] = torch.from_numpy(codes)
+        with torch.no_grad():
+            eager = dac_from_indices(engine.codec_params, cfg, padded)
+        np.testing.assert_array_equal(audio, eager[0, 0, : 50 * cfg.frame_length]
+                                      .cpu().numpy())
+        assert not b.eager_runs.get("decode", 0) > 1
+    finally:
+        b.shutdown()
+
+
+def test_pool_prefill_graph_captured_after_a_longer_bucket(dev):
+    """One scratch per group size serves every bucket: a bucket-64 prefill
+    graph captured at first use after a bucket-128 group ran (its t_end of
+    100 still in the scratch) captures and serves the request as a batcher
+    that precompiled bucket 64 does."""
+    cfg = _graph_cfg()
+    short = _graph_prompt(cfg, 30, seed=2)
+    outs = []
+    for buckets, first in (((128,), _graph_prompt(cfg, 100, seed=1)), ((64,), None)):
+        b = _graph_pool(dev, "bf16", pool_size=1)
+        try:
+            b.precompile(buckets)
+            if first is not None:
+                b.generate(first, seed=1, max_new_tokens=5, top_k=1)
+            outs.append(b.generate(short, seed=2, max_new_tokens=7, top_k=1))
+            assert b.replays["prefill_1_64"] == 1 and b.eager_runs["prefill_1_64"] == 1
+        finally:
+            b.shutdown()
+    np.testing.assert_array_equal(outs[0], outs[1])

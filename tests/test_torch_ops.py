@@ -202,6 +202,7 @@ PORT_MODULES = [
     "fish_speech_tpu_torch.convert.from_jax",
     "fish_speech_tpu_torch.generate",
     "fish_speech_tpu_torch.engine.tts",
+    "fish_speech_tpu_torch.engine.batcher",
     "fish_speech_tpu_torch.engine.reference_loader",
     "fish_speech_tpu_torch.ops.int4",
     "fish_speech_tpu_torch.ops.faststack",
@@ -219,8 +220,8 @@ PORT_MODULES = [
 # Run on the CPU with the JAX package and jax unimportable: every port
 # module, the tiny training CLI, a streamed engine request (generate_long
 # inside) and a voice-clone one (a WAV reference by id: load_audio, the
-# codec's encode), a mixed-quantized int8-KV session and the fast-stack
-# probe.
+# codec's encode), a mixed-quantized int8-KV session, a streamed request
+# through the continuous batcher's pool, and the fast-stack probe.
 # (`jax` is blocked by an import hook, not by `sys.modules['jax'] = None`:
 # scipy's array-API helpers take a `jax` entry in `sys.modules` for the
 # imported package.)
@@ -286,6 +287,19 @@ for extra in ({}, {'reference_id': 'spk'}):
     codes = [r.code for r in results]
     assert codes[0] == 'header' and codes[-1] == 'final', (codes, results[-1].error)
 assert engine.vq_cache_misses == 1
+
+from fish_speech_tpu_torch.engine.batcher import BatcherSession, ContinuousBatcher
+pool = ContinuousBatcher(dual_ar.init_dual_ar(1, cfg, torch.float32, 'cpu'), cfg,
+                         pool_size=2, dtype=torch.float32, decode_chunk_size=4)
+try:
+    pooled = TTSInferenceEngine(BatcherSession(pool), tok, engine.codec_params,
+                                dac_cfg)
+    results = list(pooled.inference(TTSRequest(
+        text='Hi.', streaming=True, max_new_tokens=6, seed=1)))
+    codes = [r.code for r in results]
+    assert codes[0] == 'header' and codes[-1] == 'final', (codes, results[-1].error)
+finally:
+    pool.shutdown()
 
 dims = faststack.ProbeDims(64, 128, 64, 2, 2)
 out = faststack.make_probe(1, 'w8a8', dims)(
