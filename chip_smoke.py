@@ -14,6 +14,7 @@ Phases, each of which ends the run with a nonzero exit if it fails:
    backward's two kernels (`train_bwd_dkdv_wgmma_kernel`,
    `train_bwd_dq_wgmma_kernel`), none of which may be 0, and the blocks
    per SM of the backward's two kernels (CUDA's occupancy calculator);
+   ptxas' report covers the int8 matvec (`int8_gemv_mma_kernel`) too;
 2. each kernel against its plain PyTorch version at the main paths' shapes,
    in bf16 from N(0,1) inputs (pass: max abs error <= 2e-2, mean <= 2e-3,
    the bound of bf16 rounding of P before P.V in the plain version; the
@@ -54,6 +55,16 @@ Phases, each of which ends the run with a nonzero exit if it fails:
    plain causal and the mask tensor where padding or offsets need it, the
    best of three runs for the attention cases; cuBLAS on the dequantized
    weight);
+   the int8 matmul's tensor-core kernel (`int8_gemv_mma_kernel`, bf16 x)
+   runs at every int8 shape of the serving paths (the slow and fast stacks'
+   eight, the full LM head, the semantic head's 4097 columns as a view of
+   rows 16 bytes apart, the fast head) at B = 1, 4, 16 and 32, held to
+   2^-8 |y| + 1e-5 (|x| @ |q|) * s of the plain version summed in fp32, its
+   CUDA-core kernel (`int8_gemv_kernel`, fp32 x) at phase 3c's tiny shapes
+   to 1e-5 (|x| @ |q|) * s; each prints `device_ms`, cuBLAS on the
+   dequantized bf16 W (`library_device_ms`) and the cast route it replaces
+   (`cast_device_ms`, `x @ q.to(bf16) * s.to(bf16)`), all from graphs
+   walking weight copies over twice the L2;
 3. a small-input reference: a tiny fp32 model runs the same greedy request
    through the kernels on the card (its session's graphs captured at first
    use) and through the plain versions on the CPU (the same step bodies
@@ -67,7 +78,8 @@ Phases, each of which ends the run with a nonzero exit if it fails:
 3c. a small quantized reference: phase 3's tiny fp32 model quantized
    `mixed` (slow int8, fast int4, heads int8) with the int8 KV cache, card
    kernels against CPU plain versions: identical greedy token columns,
-   prefill logits within 1e-4;
+   prefill logits within 1e-4; the int4, int8-KV and int8 kernels must
+   launch (the int8 matmul's fp32 route counted);
 4. the serving slice: the full-width `dual_ar_s2_pro` LM (bf16, random
    weights from a seed, max_seq_len 2048) and the full `dac_s2_pro` codec
    (encoder included) answer streamed requests through
@@ -124,8 +136,11 @@ Phases, each of which ends the run with a nonzero exit if it fails:
    the 700-byte request (prefill bucket 1024: the int4 matmul's
    tensor-core route, whose launch count must be > 0). Both serve through
    graphs captured beforehand, as phase 4 does, with the same replay
-   checks (the codec's decode graphs captured first, as in phase 4).
-   TTFA, frames/s, weight bytes and peak memory for both, the
+   checks (the codec's decode graphs captured first, as in phase 4), and
+   the int8 matmul's kernel must be launched by a replayed decode step and
+   torch's int8 cast route never (both sessions' heads are int8).
+   TTFA, frames/s, weight bytes and peak memory for both, the graph pool
+   and the replayed step beside an earlier run's with the int8 cast, the
    replayed step's launches and device time, and the fast stack's time per
    frame on the serving path, eager and replayed from a graph;
 7. the fast-stack probe at flagship dims (12 layers x 10 steps, 1536 /
@@ -156,7 +171,9 @@ Phases, each of which ends the run with a nonzero exit if it fails:
    and no `error`; a group must have been parked; every decode step and
    admission prefill must have been a graph replay (no eager body on the
    card after `precompile`); `flash_prefill`'s tensor-core route and
-   `flash_decode` (bf16) or `flash_decode_kv8` (int8) must have launched;
+   `flash_decode` (bf16) or `flash_decode_kv8` and the int8 matmul's
+   kernel (int8) must have launched, and the int8 pool's replayed step
+   must launch that kernel and never torch's int8 cast route;
    one of the 40 sent again alone must give the codes it got in the
    burst. Printed, not held: aggregate frames/s (all frames over the wall
    time from the first submit to the last frame), per-stream frames/s p50
@@ -165,7 +182,8 @@ Phases, each of which ends the run with a nonzero exit if it fails:
    launches by kernel, the KV pool's bytes, each graph's pool growth, the
    peak memory, the bf16 step at P=8 beside phase 4's P=1 step, and under
    int8 each graph's pool growth beside its body's eager peak of
-   temporaries at P=32 and P=1.
+   temporaries at P=32 and P=1; the graph pools and the int8 steps beside
+   an earlier run's with the int8 cast.
 
 Phase 2 also holds the kernels at the pool's shapes: `decode_mma_kernel`
 and `decode_kv8_mma_kernel` at B=32, S=2176 (8 layers) with ragged
@@ -176,7 +194,8 @@ buckets 128 and 256, offsets 0; every bf16 prefill case with its
 `device_ms` and SDPA's), and `int4_wgmma_kernel` at B=32 on the slow
 stack's four shapes (cuBLAS on the dequantized W); the kernels' line
 gives each kernel's launches in one replayed P=32 step, read from the
-pools' captured steps (`launches_per_p32_step`).
+pools' captured steps (`launches_per_p32_step`); `int8_mm` and
+`int8_mm_fp32` replace `scripts/microbench/matvec_pallas.py:18`.
 
 Each phase sets the kernels' launch counts to 0 before it drives its path
 and reads them after. The line before the last is a JSON object with each
@@ -190,6 +209,7 @@ from __future__ import annotations
 import dataclasses
 import gc
 import json
+import re
 import subprocess
 import sys
 import threading
@@ -456,6 +476,7 @@ def kernel_cases(dev):
             library_device_ms=_device_ms(sdpa, 100), ok=mx <= 1e-4))
     cases.update(train_kernel_cases(dev, randn))
     cases.update(quant_kernel_cases(dev, randn))
+    cases.update(int8_kernel_cases(dev, randn))
     torch.cuda.synchronize()
     for name, rows in cases.items():
         for r in rows:
@@ -471,6 +492,8 @@ def kernel_cases(dev):
                      f"{r['library_device_ms']:.4f} wrapper_host_ms="
                      f"{max(0.0, r['ms'] - r['device_ms']):.4f}"
                      if "device_ms" in r else "")
+                  + (f" cast_device_ms={r['cast_device_ms']:.4f}"
+                     if "cast_device_ms" in r else "")
                   + "".join(f" {k}={v[0]:.3e}/{v[1]:.3e}"
                             for k, v in r.get("outputs", {}).items()))
             ok = r.get("ok", r["max_abs_err"] <= 2e-2 and r["mean_abs_err"] <= 2e-3)
@@ -899,6 +922,96 @@ def quant_kernel_cases(dev, randn):
     return cases
 
 
+# s2-pro's int8 products at decode, I -> O: the slow and fast stacks (w13
+# fused) and the three heads: the full LM head (the prefill's, one row per
+# prompt), the semantic head (S + 1 columns, rows 16 bytes apart as
+# `precompute_semantic_head` lays them out) and the fast head
+INT8_SHAPES = INT4_SHAPES + [("LM head", 2560, 155136),
+                             ("semantic head", 2560, 4097),
+                             ("fast head", 1536, 4096)]
+INT8_ROWS = (1, 4, 16, 32)  # the session, the group prefills' heads, the pool
+# phase 3c's tiny fp32 model's int8 products (slow stack and heads)
+INT8_TINY_SHAPES = [("tiny slow wqkv", 64, 512), ("tiny slow wo", 256, 64),
+                    ("tiny slow w13", 64, 256), ("tiny slow w2", 128, 64),
+                    ("tiny semantic head", 64, 33), ("tiny fast head", 32, 32)]
+
+
+def int8_kernel_cases(dev, randn):
+    """The int8 matmul against its plain version: `int8_gemv_mma_kernel` at
+    every int8 shape of the serving paths and B in {1, 4, 16, 32}, held to
+    2^-8 |y| (its one rounding) + 1e-5 (|x| @ |q|) * s (the order of the
+    fp32 sums) of the plain version summed in fp32; `int8_gemv_kernel` (fp32
+    x) at phase 3c's tiny shapes to 1e-5 (|x| @ |q|) * s. Each case is timed
+    against the plain version, cuBLAS on the dequantized bf16 W (the library
+    call) and the cast route it replaces (`x @ q.to(bf16) * s.to(bf16)`),
+    and from CUDA-graph replays that walk copies of the weights over twice
+    the L2 (`device_ms`, `library_device_ms`, `cast_device_ms`)."""
+    import torch
+
+    from fish_speech_tpu_torch.models.dual_ar import _rows_16_bytes_apart
+    from fish_speech_tpu_torch.ops.int8 import int8_matmul, int8_matmul_reference
+    from fish_speech_tpu_torch.ops.quant import quantize_int8
+
+    cases = {"int8_mm": [], "int8_mm_fp32": []}
+    for name, i, o in INT8_SHAPES:
+        qw = quantize_int8(randn(i, o).float() * 0.02)
+        q, s = _rows_16_bytes_apart(qw["q"]), qw["s"]
+        del qw
+        qf = q.float()
+        w_lib = (qf * s).to(torch.bfloat16)  # cuBLAS's operand: W dequantized
+        n_q = -(-L2_COLD_BYTES // (i * q.stride(0) + 4 * o))
+        n_w = -(-L2_COLD_BYTES // (2 * i * o))
+        qs = [(q.clone() if o % 16 == 0 else _rows_16_bytes_apart(q), s.clone())
+              for _ in range(n_q)]
+        ws = [w_lib.clone() for _ in range(n_w)]
+        for b in INT8_ROWS:
+            x = randn(b, i)
+            got = int8_matmul(x, q, s)
+            exact = (x.float() @ qf) * s  # the plain version in fp32, not rounded
+            scale = (x.float().abs() @ qf.abs()) * s
+            ok = bool(((got.float() - exact).abs()
+                       <= 2.0 ** -8 * exact.abs() + 1e-5 * scale).all())
+            err = (got.float() - int8_matmul_reference(x, q, s).float()).abs()
+            del exact, scale
+            iters = 20 if o > 100_000 else 200
+            ms, plain_ms = _in_turns(lambda k=0: int8_matmul_reference(x, q, s),
+                                     lambda k=0: int8_matmul(x, q, s), iters)
+            lib = _library_ms(lambda k=0: x @ w_lib, iters)
+            bound = _bound(2 * b * i * o, i * o + 4 * o + 2 * b * (i + o))
+            cases["int8_mm"].append(dict(
+                shape=f"{name} B={b} I={i} O={o} bf16", max_abs_err=err.max().item(),
+                mean_abs_err=err.mean().item(), ms=ms, plain_ms=plain_ms,
+                bound_ms=bound[0], bound_by=bound[1], library_ms=lib, ok=ok,
+                device_ms=_device_ms(lambda k=0: int8_matmul(x, *qs[k % n_q]), iters),
+                library_device_ms=_device_ms(lambda k=0: x @ ws[k % n_w], iters),
+                cast_device_ms=_device_ms(
+                    lambda k=0: x @ qs[k % n_q][0].to(x.dtype)
+                    * qs[k % n_q][1].to(x.dtype), iters),
+                weight_copies=[n_q, n_w]))
+            del got, err
+        del q, s, qf, w_lib, qs, ws
+        torch.cuda.empty_cache()
+    for name, i, o in INT8_TINY_SHAPES:
+        qw = quantize_int8(randn(i, o).float() * 0.02)
+        q, s = qw["q"], qw["s"]
+        x = randn(1, i).float()
+        w_lib = q.float() * s
+        err = (int8_matmul(x, q, s) - int8_matmul_reference(x, q, s)).abs()
+        scale = x.abs() @ w_lib.abs()
+        ms, plain_ms = _in_turns(lambda k=0: int8_matmul_reference(x, q, s),
+                                 lambda k=0: int8_matmul(x, q, s), 200)
+        bound = _bound(2 * i * o, i * o + 4 * o + 4 * (i + o), PEAK_FP32)
+        cases["int8_mm_fp32"].append(dict(
+            shape=f"{name} B=1 I={i} O={o} fp32", max_abs_err=err.max().item(),
+            mean_abs_err=err.mean().item(), ms=ms, plain_ms=plain_ms,
+            bound_ms=bound[0], bound_by=bound[1],
+            library_ms=_library_ms(lambda k=0: x @ w_lib, 200),
+            device_ms=_device_ms(lambda k=0: int8_matmul(x, q, s), 200),
+            library_device_ms=_device_ms(lambda k=0: x @ w_lib, 200),
+            ok=bool((err <= 1e-5 * scale + 1e-6).all())))
+    return cases
+
+
 def _tiny_cfg(tokenizer):
     """A tiny model whose slow heads (D=64) the attention kernels take."""
     from fish_speech_tpu_torch.config import dual_ar_tiny
@@ -964,6 +1077,7 @@ def small_quant_reference(dev, tokenizer):
     from fish_speech_tpu_torch.models import dual_ar
     from fish_speech_tpu_torch.ops.flash_decode import flash_decode_attention_kv8
     from fish_speech_tpu_torch.ops.int4 import int4_matmul
+    from fish_speech_tpu_torch.ops.int8 import int8_matmul
     from fish_speech_tpu_torch.ops.quant import quantize_dual_ar_lowmem
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -976,7 +1090,8 @@ def small_quant_reference(dev, tokenizer):
                         generator=torch.Generator().manual_seed(0),
                         dtype=torch.int32)
     inp[0, 0, 10:30] += cfg.semantic_begin_id
-    launches = (int4_matmul.launches, flash_decode_attention_kv8.launches)
+    launches = (int4_matmul.launches, flash_decode_attention_kv8.launches,
+                int8_matmul.launches)
     logits = []
     for params, d in ((cpu_params, "cpu"), (gpu_params, dev)):
         cache = dual_ar.init_kv_cache(cfg, 1, 96, torch.float32, d, quant=True)
@@ -995,10 +1110,11 @@ def small_quant_reference(dev, tokenizer):
         codes.append(np.concatenate(out, axis=1))
     same = codes[0].shape == codes[1].shape and np.array_equal(*codes)
     ran = (int4_matmul.launches > launches[0]
-           and flash_decode_attention_kv8.launches > launches[1])
+           and flash_decode_attention_kv8.launches > launches[1]
+           and int8_matmul.launches > launches[2])
     print(f"small quantized reference (tiny fp32 mixed int8/int4 + int8 KV, card "
           f"kernels vs CPU plain): prefill max_abs_err={err:.3e}, greedy codes "
-          f"{codes[0].shape} identical={same}, int4/kv8 kernels ran={ran}")
+          f"{codes[0].shape} identical={same}, int4/kv8/int8 kernels ran={ran}")
     if err > 1e-4 or not same or not ran:
         raise SystemExit("the quantized kernel path disagrees with the plain "
                          "path on the small reference")
@@ -1615,6 +1731,27 @@ TWO_LAUNCH_FAST_STACK_MS = {"mixed": "159.234 / 172.634 / 174.479",
                             "int4": "161.277 / 155.006 / 261.142"}
 
 
+# the figures of an earlier run of this script, before int8 products ran the
+# int8 kernel (every one cast its weight to bf16; NVIDIA H100 80GB HBM3,
+# 700.00 W): the graph pools and replayed steps of phase 6's sessions and
+# phase 8's pools
+CAST_ROUTE_GRAPH_POOL_MIB = {"mixed": 916.0, "int4": 984.0, "pool bf16": 1088.0,
+                       "pool int8": 1288.0, "pool int8 P=1": 896.0}
+CAST_ROUTE_STEP_MS = {"mixed": 33.952, "int4": 27.004, "pool int8": 53.500,
+                "pool int8 P=1": 47.516}
+
+
+def check_int8_route(per_step, label, required=True):
+    """A replayed decode step launches the int8 kernel (where the weights
+    hold int8 products) and never torch's cast route: every int8 product
+    of a decode step has at most 32 rows."""
+    kernel = per_step.get("int8_matmul.launches", 0)
+    cast = per_step.get("mm.launches_int8_cast", 0)
+    if cast or (required and kernel <= 0):
+        raise SystemExit(f"{label}: a replayed decode step launched the int8 "
+                         f"cast route {cast} times and the int8 kernel {kernel}")
+
+
 def run_quant_slice(dev, tokenizer):
     """Phase 6: quantized serving of full-width s2-pro with the int8 KV
     cache, `mixed` (the short request and its repeat), then `int4` (the
@@ -1628,7 +1765,8 @@ def run_quant_slice(dev, tokenizer):
     from fish_speech_tpu_torch.ops.flash_decode import flash_decode_attention_kv8
     from fish_speech_tpu_torch.ops.flash_prefill import flash_prefill_attention
     from fish_speech_tpu_torch.ops.int4 import int4_matmul
-    from fish_speech_tpu_torch.ops.quant import quantize_dual_ar_lowmem
+    from fish_speech_tpu_torch.ops.int8 import int8_matmul
+    from fish_speech_tpu_torch.ops.quant import mm, quantize_dual_ar_lowmem
 
     cfg = _s2_pro_cfg(tokenizer, 2048)
     dac_cfg = dac_s2_pro()
@@ -1660,6 +1798,10 @@ def run_quant_slice(dev, tokenizer):
               f"{torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB")
         served = [(n, requests[n]) for n in names]
         precompile_for(session, tokenizer, served, label)
+        print(f"{label} graph pool {session.pool_bytes / 2**20:.1f} MiB against "
+              f"{CAST_ROUTE_GRAPH_POOL_MIB[label]:.1f} before the int8 kernel (the "
+              f"prefill's LM head cast its whole int8 head to bf16; an earlier "
+              f"run of this script)")
         precompile_codec(engine, PHASE4_CODE_BUCKETS, (), label)
         _zero_counts()
         rows = serve(dev, tokenizer, engine, served, dac_cfg.frame_length, label)
@@ -1669,9 +1811,12 @@ def run_quant_slice(dev, tokenizer):
                         flash_prefill=flash_prefill_attention.launches_wgmma,
                         int4_mm=int4_matmul.launches_gemv,
                         int4_mm_wgmma=int4_matmul.launches_wgmma,
-                        int4_mm_fp32_tiled=int4_matmul.launches_fp32_tiled)
+                        int4_mm_fp32_tiled=int4_matmul.launches_fp32_tiled,
+                        int8_mm=int8_matmul.launches_gemv_mma,
+                        int8_cast=mm.launches_int8_cast)
         peak = torch.cuda.max_memory_allocated(dev) / 2**30
         per_step = check_replayed(session, label)
+        check_int8_route(per_step, label)
         check_codec_replayed(engine, ("decode",), label)
         step_ms = replayed_step_ms(session)
         fast_ms = fast_stack_frame_ms(session)
@@ -1683,8 +1828,9 @@ def run_quant_slice(dev, tokenizer):
               f"{fast_ms:.3f} ms/frame eager, {fast_replayed_ms:.3f} replayed "
               f"(_sample_column, CUDA events; eager with the two-launch "
               f"matvec: {TWO_LAUNCH_FAST_STACK_MS[label]} ms/frame)")
-        # `mixed` keeps its slow stack int8, so only `int4` prefills in int4
-        required = ["int4_mm", "flash_prefill", *wrappers] + (
+        # `mixed` keeps its slow stack int8, so only `int4` prefills in int4;
+        # both keep their heads int8
+        required = ["int4_mm", "flash_prefill", "int8_mm", *wrappers] + (
             ["int4_mm_wgmma"] if label == "int4" else [])
         if min(launches[k] for k in required) <= 0:
             raise SystemExit(f"{label}: a kernel of the quantized path was never "
@@ -1695,9 +1841,14 @@ def run_quant_slice(dev, tokenizer):
                   f"predicted 80-160 ms (the eager session: "
                   f"{EAGER_FIGURES['int4']}); tensor-core route launched "
                   f"{launches['int4_mm_wgmma']} times")
+        print(f"{label}: replayed decode step {step_ms:.3f} ms against "
+              f"{CAST_ROUTE_STEP_MS[label]} ms before the int8 kernel (an earlier run "
+              f"of this script); int8 kernel launches per replayed step "
+              f"{per_step.get('int8_matmul.launches', 0)}")
         out[label] = dict(rows=rows, launches=launches, peak_gib=peak,
                           weight_bytes=weight_bytes, fast_stack_ms=fast_ms,
-                          step_ms=step_ms, launches_per_step=per_step)
+                          step_ms=step_ms, launches_per_step=per_step,
+                          graph_pool_mib=session.pool_bytes / 2**20)
         del engine, session
         gc.collect()
         torch.cuda.empty_cache()
@@ -2180,6 +2331,7 @@ def run_pool(dev, tokenizer, p1_step_ms):
     from fish_speech_tpu_torch.ops.flash_decode import (
         flash_decode_attention, flash_decode_attention_kv8)
     from fish_speech_tpu_torch.ops.flash_prefill import flash_prefill_attention
+    from fish_speech_tpu_torch.ops.int8 import int8_matmul
     from fish_speech_tpu_torch.ops.quant import quantize_dual_ar_lowmem
 
     t_phase = time.perf_counter()
@@ -2218,7 +2370,9 @@ def run_pool(dev, tokenizer, p1_step_ms):
               f"pool's growth in MiB): "
               + ", ".join(f"{k} {v:.2f} s +{batcher.pool_growth[k] / 2**20:.1f}"
                           for k, v in times.items())
-              + f"; graph pool {batcher.pool_bytes / 2**20:.1f} MiB")
+              + f"; graph pool {batcher.pool_bytes / 2**20:.1f} MiB (before the "
+              f"int8 kernel: {CAST_ROUTE_GRAPH_POOL_MIB[f'pool {label}']:.1f}, an "
+              f"earlier run of this script)")
         precompile_codec(engine, (32, 64), (), f"pool {label}")
         batcher.replays.clear()
         batcher.eager_runs.clear()
@@ -2226,7 +2380,8 @@ def run_pool(dev, tokenizer, p1_step_ms):
         rows, t_submit = pool_serve(engine, requests, frame, f"{label}")
         launches = {"flash_decode": flash_decode_attention.launches,
                     "flash_decode_kv8": flash_decode_attention_kv8.launches,
-                    "flash_prefill": flash_prefill_attention.launches_wgmma}
+                    "flash_prefill": flash_prefill_attention.launches_wgmma,
+                    "int8_mm": int8_matmul.launches_gemv_mma}
         stats = batcher.stats()
         frames = sum(r["frames"] for r in rows)
         wall = max(r["last"] for r in rows) - t_submit
@@ -2246,7 +2401,8 @@ def run_pool(dev, tokenizer, p1_step_ms):
         if batcher.eager_runs or batcher.replays["decode"] <= 0 or prefills <= 0:
             raise SystemExit(f"pool {label}: a step or prefill ran eagerly on the "
                              f"card, or a graph never replayed")
-        need = ["flash_prefill", "flash_decode_kv8" if quant else "flash_decode"]
+        need = ["flash_prefill"] + (["flash_decode_kv8", "int8_mm"] if quant
+                                    else ["flash_decode"])
         if min(launches[k] for k in need) <= 0:
             raise SystemExit(f"pool {label}: a kernel of the path was never "
                              f"launched: {launches}")
@@ -2259,11 +2415,16 @@ def run_pool(dev, tokenizer, p1_step_ms):
         if not same:
             raise SystemExit(f"pool {label}: the repeated request gave other codes")
         per_step = batcher.launches_per_replay("decode")
+        check_int8_route(per_step, f"pool {label}", required=quant)
         step_ms = pool_step_ms(batcher)
         peak = torch.cuda.max_memory_allocated(dev) / 2**30
         print(f"pool {label} replayed step at P=32: {step_ms:.3f} ms of device time "
               f"({32e3 / step_ms:.1f} row-steps/s); launches per step {per_step}; "
-              f"peak device memory {peak:.2f} GiB")
+              f"peak device memory {peak:.2f} GiB"
+              + (f"; int8 kernel launches per step "
+                 f"{per_step.get('int8_matmul.launches', 0)}, before the int8 "
+                 f"kernel the step took {CAST_ROUTE_STEP_MS['pool int8']} ms (an earlier "
+                 f"run of this script)" if quant else ""))
         row = dict(frames_per_s=frames / wall, fps_p50=_pct(fps, 50), fps_min=min(fps),
                    ttfa_ms=(_pct(ttfa, 50), _pct(ttfa, 90), max(ttfa)),
                    step_ms=step_ms, per_step=per_step, launches=launches,
@@ -2287,9 +2448,14 @@ def run_pool(dev, tokenizer, p1_step_ms):
         print(f"pool {label} replayed step at P={small}: {row[f'step_ms_p{small}']:.3f} "
               f"ms of device time"
               + (f" (phase 4's single-stream step at P=1: {p1_step_ms:.3f} ms)"
-                 if not quant else ""))
+                 if not quant else f" (before the int8 kernel: "
+                 f"{CAST_ROUTE_STEP_MS['pool int8 P=1']} ms, an earlier run of this "
+                 f"script)"))
         if quant:
             row["accounting"]["P=1"] = print_pool_accounting(batcher, "int8 P=1")
+            print(f"int8 P=1 graph pool {batcher.pool_bytes / 2**20:.1f} MiB (before "
+                  f"the int8 kernel: {CAST_ROUTE_GRAPH_POOL_MIB['pool int8 P=1']:.1f}, an "
+                  f"earlier run of this script)")
         batcher.shutdown()
         del batcher
         gc.collect()
@@ -2301,11 +2467,11 @@ def run_pool(dev, tokenizer, p1_step_ms):
 
 def _zero_counts():
     """Set every kernel wrapper's launch counts to 0 (per route too)."""
-    from fish_speech_tpu_torch.ops import flash_prefill, flash_train, int4
+    from fish_speech_tpu_torch.ops import flash_prefill, flash_train, int4, int8, quant
 
     for f in _kernel_wrappers():
         f.launches = 0
-    for mod in (flash_prefill, flash_train, int4):
+    for mod in (flash_prefill, flash_train, int4, int8, quant):
         mod.reset_launches()
 
 
@@ -2317,10 +2483,11 @@ def _kernel_wrappers():
     from fish_speech_tpu_torch.ops.flash_train import (flash_train_backward,
                                                        flash_train_forward)
     from fish_speech_tpu_torch.ops.int4 import int4_matmul
+    from fish_speech_tpu_torch.ops.int8 import int8_matmul
 
     return (flash_prefill_attention, flash_decode_attention, flash_train_forward,
             flash_train_backward, int4_matmul, flash_decode_attention_kv8,
-            faststack_probe)
+            faststack_probe, int8_matmul)
 
 
 SRC = "fish_speech_tpu_torch/csrc/"
@@ -2349,17 +2516,20 @@ KERNELS = {  # name: (source, the TPU kernel or JAX code it replaces)
                          "fish_speech_tpu/ops/attention.py:66"),
     "faststack_probe": (SRC + "faststack.cu",
                         "fish_speech_tpu/ops/pallas_faststack.py:136"),
+    "int8_mm": (SRC + "int8_mm.cu", "scripts/microbench/matvec_pallas.py:18"),
+    "int8_mm_fp32": (SRC + "int8_mm.cu", "scripts/microbench/matvec_pallas.py:18"),
 }
 # headline shapes: the long request's prefill bucket, a 257-long cache, the
 # B=2 x T=1024 fine-tune shape, the slow w13 at B=1 (matvec route) and at
 # B=1024 (tensor-core route), a 257-long int8 cache, the probe at R=0 in
 # bf16; the fp32 attention routes' one small case each, the tiny slow
-# cache and the tiny fast wqkv for the fp32 decode and matvec
+# cache and the tiny fast wqkv for the fp32 decode and matvec; the int8
+# matmul on the slow w13 at B=1 and the tiny slow wqkv in fp32
 HEADLINE = {"flash_prefill": 1, "flash_prefill_fp32": 0, "flash_decode": 1,
             "flash_decode_fp32": 0, "flash_train_fwd": 0, "flash_train_fwd_fp32": 0,
             "flash_train_bwd": 0, "flash_train_bwd_fp32": 0, "int4_mm": 2,
             "int4_mm_wgmma": 6, "int4_mm_fp32": 0, "flash_decode_kv8": 1,
-            "faststack_probe": 0}
+            "faststack_probe": 0, "int8_mm": 2 * len(INT8_ROWS), "int8_mm_fp32": 0}
 # the kernels whose SASS must hold HGMMA (wgmma) instructions
 WGMMA_KERNELS = ("int4_wgmma_kernel", "train_fwd_wgmma_kernel",
                  "prefill_wgmma_kernel", "train_bwd_dkdv_wgmma_kernel",
@@ -2368,12 +2538,17 @@ WGMMA_KERNELS = ("int4_wgmma_kernel", "train_fwd_wgmma_kernel",
 
 def _ptxas_report(build_log):
     """Print ptxas' registers, shared memory and spills of the tensor-core
-    kernels from the build's log."""
+    kernels from the build's log (the int8 matvec's per n8 tiles of x rows
+    and load path: TMA or the block's own copy)."""
     name = None
     for line in build_log.read_text().splitlines():
         if "Compiling entry function" in line:
-            name = next((k for k in WGMMA_KERNELS if k in line), None)
+            name = next((k for k in (*WGMMA_KERNELS, "int8_gemv_mma_kernel")
+                         if k in line), None)
             dims = "<64>" if "ILi64E" in line else "<128>" if "ILi128E" in line else ""
+            int8 = re.search(r"int8_gemv_mma_kernelILi(\d)ELb(\d)E", line)
+            if int8:
+                dims = f"<{int8[1]} n8 tiles, {'TMA' if int8[2] == '1' else 'copy'}>"
         elif name and ("spill" in line or "Used" in line):
             print(f"ptxas {name}{dims}: {line.strip()}")
         if "C7513" in line:
@@ -2453,6 +2628,7 @@ def main():
     from fish_speech_tpu_torch.ops.flash_train import (flash_train_backward,
                                                        flash_train_forward)
     from fish_speech_tpu_torch.ops.int4 import int4_matmul
+    from fish_speech_tpu_torch.ops.int8 import int8_matmul
 
     # the fp32 routes run in the tiny fp32 models' phases (phase 3's decode
     # is all fp32, so its launches are the fp32 route's)
@@ -2467,6 +2643,7 @@ def main():
     _zero_counts()
     small_quant_reference(dev, tokenizer)
     fp32_launches["int4_mm_fp32"] = int4_matmul.launches_gemv
+    fp32_launches["int8_mm_fp32"] = int8_matmul.launches_gemv
     print(f"fp32 routes' launches in phases 3, 3b and 3c: {fp32_launches}")
     if min(fp32_launches.values()) <= 0:
         raise SystemExit("an fp32 route was never launched")
@@ -2484,18 +2661,20 @@ def main():
     launches["int4_mm"] = quant["mixed"]["launches"]["int4_mm"]
     launches["int4_mm_wgmma"] = quant["int4"]["launches"]["int4_mm_wgmma"]
     launches["flash_decode_kv8"] = quant["mixed"]["launches"]["flash_decode_kv8"]
+    launches["int8_mm"] = sum(row["launches"]["int8_mm"] for row in quant.values())
     cases["faststack_probe"], launches["faststack_probe"] = run_probe(
         dev, quant["mixed"]["fast_stack_ms"])
     gc.collect()  # the probe's weights go before the pool
     torch.cuda.empty_cache()
     pool = run_pool(dev, tokenizer, p1_step_ms)
     for row in pool.values():
-        for name in ("flash_decode", "flash_decode_kv8", "flash_prefill"):
+        for name in ("flash_decode", "flash_decode_kv8", "flash_prefill", "int8_mm"):
             launches[name] += row["launches"][name]
     per_step = {}  # launches of each kernel in one replayed P=32 step
     for label, name, counter in (
             ("bf16", "flash_decode", "flash_decode_attention.launches"),
-            ("int8", "flash_decode_kv8", "flash_decode_attention_kv8.launches")):
+            ("int8", "flash_decode_kv8", "flash_decode_attention_kv8.launches"),
+            ("int8", "int8_mm", "int8_matmul.launches_gemv_mma")):
         per_step[name] = pool[label]["per_step"].get(counter, 0)
     # the pools are bf16 and int8: each pool's count of the int4 tensor-core
     # route's launches in its captured step

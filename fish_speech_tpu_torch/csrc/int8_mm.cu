@@ -1,0 +1,513 @@
+// int8 weight-only matmul for up to 32 rows of x:
+//   y (B, O) = rn(sum_i x (B, I) * q (I, O) * s (O)), B <= 32,
+// with q int8, s fp32 per output column, the sum in fp32, the scale applied
+// in fp32 to the sum and y rounded once to x's dtype.
+//
+// Replaces the Pallas TPU kernels scripts/microbench/matvec_pallas.py
+// (_kernel / pallas_matvec) and scripts/microbench/ffn_per_op_pallas.py
+// (_kernel / pl_mv), which compute this same function: the int8 tile cast
+// to bf16 (exact), jnp.dot with fp32 accumulation, the fp32 scale on the
+// accumulator, one rounding. On the port's serving paths it is every int8
+// product of up to 32 rows (`ops/quant.py:mm`): the decode steps' layer
+// products and heads at B = 1 (the `mixed` session) and B = 32 (the int8
+// pool), and the prefill's full LM head at one row per prompt.
+//
+// What bounds it on the H100: bytes. The product reads I * O int8 bytes
+// once and does 2 * B * I * O operations, at most 64 per byte (B = 32), far
+// below the ~295 where the bf16 tensor cores become the limit; so its least
+// time is the weight's bytes over 3.35 TB/s (slow w13, 49.8 MB: 14.9 us;
+// the full LM head, 397 MB: 118.5 us).
+//
+// Two kernels, chosen by the wrapper (`ops/int8.py:_route`) on x's dtype:
+// * "gemv_mma", bf16 x: the products on the tensor cores (mma.sync
+//   m16n8k16, bf16 in, fp32 sums) as y^T = W^T x^T: W^T's columns on M,
+//   x's rows on N (1-4 n8 tiles). A block owns 128 output columns and a
+//   run of whole 128-row stages of I (`ops/int8.py:int8_gemv_split` picks
+//   the runs from a model of the bytes each split moves). W streams by TMA
+//   from its row-major (I, O) layout, without repacking: one 128 x 128-byte
+//   box a stage (the 128-byte swizzle; rows past I and columns past O read
+//   as 0), STAGES in flight; the stage's 128 elements of every row of x
+//   arrive beside it by cp.async, counted on the same mbarrier, zero past
+//   the run. Warp w takes columns [64 h, 64 h + 64), h = w % 2, of the
+//   stage's k16 steps w / 2 and w / 2 + 4. In an mma, lane (g = lane / 4,
+//   t = lane % 4) loads 8 bytes, columns 64 h + 8 g .. + 7, of rows 2t,
+//   2t + 1, 2t + 8 and 2t + 9 (a half warp's sixteen 8-byte loads fall on
+//   32 distinct banks through the swizzle); its bytes 2j and 2j + 1 are
+//   columns c = 64 h + 8 g + 2 j (m = g of M tile j) and c + 1 (m = g + 8).
+//   Each int8 value becomes bf16 exactly in registers (`i8x2_bf16`). The
+//   four warps of a column half meet in shared memory in a fixed tree,
+//   in the fragments' own order (no bank conflicts).
+// * "gemv", fp32 x (the small fp32 models): CUDA cores, a thread per output
+//   column, x staged by 64-row chunks, the products in fp32.
+// Both split I into runs the same way: with one run a block scales its sums
+// and writes y; otherwise each block writes its fp32 partial sums to a
+// workspace, publishes them with a release/acquire counter per column tile
+// (`fs::atomic_add_acq_rel`, as the int4 matvec) and the last block of the
+// tile adds the partials in run order, applies the scale, writes y in x's
+// dtype and puts the counter back to 0: one launch a product, no atomics on
+// data, the same bits on every run. The workspace and counters come from
+// `ops/_kernels.py:scratch`, made once per device.
+//
+// q needs unit column stride; its row stride `ldq` may exceed O (the
+// semantic head is a view of a buffer whose rows are padded to 16 bytes,
+// `models/dual_ar.py:precompute_semantic_head`). TMA needs 16-byte rows
+// and a 16-byte aligned base, and the cp.async of x 16-byte rows of 8
+// elements; any other q or x (and a q narrower than one box) takes the
+// same kernel with each stage copied by the block's threads.
+
+#include "common.cuh"
+#include "tma.cuh"
+
+namespace {
+
+constexpr int THREADS = 256;
+constexpr int WARPS = THREADS / 32;
+constexpr int MAX_ROWS = 32;                         // rows of x (ops/int8.py)
+constexpr int MMA_COLS = 128;                        // output columns per block
+constexpr int STAGE_ROWS = 128;                      // rows of q per stage (ops/int8.py)
+// stages in flight, and what a block computes: 0 the product; for
+// `scripts/int8_mm_bench.py`'s breakdown only, 1 the weight stream alone
+// (each stage's words are read from shared memory and folded by an xor,
+// no conversion, no mma) and 2 the stream and the int8 -> bf16 conversions
+// without the mmas
+#ifndef INT8_MM_STAGES
+#define INT8_MM_STAGES 4
+#endif
+#ifndef INT8_MM_PART
+#define INT8_MM_PART 0
+#endif
+constexpr int STAGES = INT8_MM_STAGES;
+constexpr int STAGE_BYTES = STAGE_ROWS * MMA_COLS;   // one TMA box
+// the W ring, which after the main loop holds the warps' sums (4 warps'
+// worth: 16 * 4 fragments of 32 lanes, fp32, at 4 n8 tiles)
+constexpr int RING_BYTES = STAGES * STAGE_BYTES > 4 * 64 * 32 * 4
+                               ? STAGES * STAGE_BYTES : 4 * 64 * 32 * 4;
+constexpr int XROW = STAGE_ROWS + 8;  // a stage's row of x, bf16: 68 words, 4 mod 32
+constexpr int GEMV_COLS = 256;        // fp32 kernel: columns per block
+constexpr int GEMV_CHUNK = 64;        // fp32 kernel: rows of x staged at once
+static_assert(STAGE_ROWS == 16 * WARPS, "a stage is two k16 steps per warp pair");
+
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// the barrier counts one arrival of this thread once its cp.async copies
+// so far have landed (its pending count is not raised: init counts them)
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n"
+               :: "r"(fs::wg::smem_u32(bar)) : "memory");
+}
+
+// Byte E of lo and byte E of hi (int8) as a bf16 pair, lo in the low half.
+// A byte v with low bits m (7) and sign bit z becomes bf16 (128 + m) by
+// OR-ing m into 0x4300, plus -128 (0xC300) or, with z set, -256 (0xC380):
+// both terms and their sum v are exact bf16 values, so the add is exact.
+template <int E>
+__device__ __forceinline__ uint32_t i8x2_bf16(uint32_t lo, uint32_t hi) {
+  const uint32_t w = __byte_perm(lo, hi, E | ((E + 4) << 8));
+  const uint32_t m = (w & 0x007F007Fu) | 0x43004300u;
+  const uint32_t z = (w & 0x00800080u) | 0xC300C300u;
+  const __nv_bfloat162 r = __hadd2(*reinterpret_cast<const __nv_bfloat162*>(&m),
+                                   *reinterpret_cast<const __nv_bfloat162*>(&z));
+  return *reinterpret_cast<const uint32_t*>(&r);
+}
+
+// After a block's sums are stored as its partial (fp32 [B][O] per run):
+// the last block of the column tile to arrive adds every run's partial in
+// run order, scales, rounds and writes y, and resets the counter. `cols`
+// columns from tile0; every thread of the block calls it.
+template <typename T>
+__device__ __forceinline__ void finish_split(const float* __restrict__ work,
+                                             int* __restrict__ counters,
+                                             const float* __restrict__ s,
+                                             T* __restrict__ out, int batch,
+                                             int out_dim, int tile0, int cols,
+                                             int n_split, int* last_s) {
+  __syncthreads();  // the block's partial is stored: publish it
+  if (threadIdx.x == 0)
+    *last_s = fs::atomic_add_acq_rel(counters + blockIdx.x, 1) == n_split - 1;
+  __syncthreads();
+  if (!*last_s) return;
+  // MERGE_OUT outputs of a thread at a time, MERGE_RUNS runs of each: 32
+  // loads in flight, each output's runs added in run order
+  constexpr int MERGE_OUT = 4, MERGE_RUNS = 8;
+  const size_t stride = (size_t)batch * out_dim;
+  for (int base = threadIdx.x; base < batch * cols; base += MERGE_OUT * THREADS) {
+    float acc[MERGE_OUT];
+    int at[MERGE_OUT], col[MERGE_OUT];  // y's offset, -1 past the tile
+#pragma unroll
+    for (int u = 0; u < MERGE_OUT; ++u) {
+      const int idx = base + u * THREADS;
+      col[u] = tile0 + idx % cols;
+      at[u] = idx < batch * cols && col[u] < out_dim ? idx / cols * out_dim + col[u] : -1;
+      acc[u] = 0.f;
+    }
+    for (int k0 = 0; k0 < n_split; k0 += MERGE_RUNS) {
+      float v[MERGE_OUT][MERGE_RUNS];
+#pragma unroll
+      for (int u = 0; u < MERGE_OUT; ++u)
+#pragma unroll
+        for (int r = 0; r < MERGE_RUNS; ++r)
+          v[u][r] = at[u] >= 0 && k0 + r < n_split
+                        ? __ldcg(work + at[u] + (k0 + r) * stride) : 0.f;
+#pragma unroll
+      for (int u = 0; u < MERGE_OUT; ++u)
+#pragma unroll
+        for (int r = 0; r < MERGE_RUNS; ++r)
+          if (k0 + r < n_split) acc[u] += v[u][r];
+    }
+#pragma unroll
+    for (int u = 0; u < MERGE_OUT; ++u)
+      if (at[u] >= 0) fs::store(out + at[u], acc[u] * s[col[u]]);
+  }
+  if (threadIdx.x == 0) counters[blockIdx.x] = 0;
+}
+
+// grid (ceil(O / MMA_COLS), n_split); run r covers rows [r * run, min(I,
+// (r + 1) * run)), run a multiple of STAGE_ROWS. Dynamic shared memory:
+// 1 KB of alignment slack | the W ring [STAGES][STAGE_ROWS][128] bytes, at
+// least RING_BYTES (after the main loop: the warps' sums) | the x ring
+// [STAGES][B][XROW] bf16. kTma: W by TMA and x by cp.async, STAGES in
+// flight, both counted on the stage's barrier; else the block's threads
+// copy each stage into slot 0 before it is used.
+template <int NT, bool kTma>
+__global__ void __launch_bounds__(THREADS, NT == 1 ? 3 : 2)
+    int8_gemv_mma_kernel(const __grid_constant__ CUtensorMap qmap,
+                         const int8_t* __restrict__ q,
+                         const __nv_bfloat16* __restrict__ x,
+                         const float* __restrict__ s,
+                         __nv_bfloat16* __restrict__ out,
+                         float* __restrict__ work, int* __restrict__ counters,
+                         int batch, int in_dim, int out_dim, int ldq, int run) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t full[STAGES];
+  __shared__ int last_s;
+  // the swizzled boxes want 1024-byte aligned stages
+  uint8_t* ring = smem_raw + ((1024 - fs::wg::smem_u32(smem_raw) % 1024) % 1024);
+  __nv_bfloat16* xring = reinterpret_cast<__nv_bfloat16*>(ring + RING_BYTES);
+  const int tile0 = blockIdx.x * MMA_COLS;
+  const int ks = blockIdx.y, n_split = gridDim.y;
+  const int r0 = ks * run, len = min(in_dim, r0 + run) - r0;
+  const int n_stage = (len + STAGE_ROWS - 1) / STAGE_ROWS;
+
+  // stage st into slot: the W box, and rows [128 st, 128 st + 128) of the
+  // run of every row of x (0 past the run: they meet W rows of the next run
+  // or past I); every thread calls it
+  auto load_stage = [&](int slot, int st) {
+    const int k0 = st * STAGE_ROWS;
+    __nv_bfloat16* xd = xring + slot * batch * XROW;
+    if (kTma) {
+      if (threadIdx.x == 0) {
+        fs::tma::bar_expect(&full[slot], STAGE_BYTES);
+        fs::tma::load_2d(ring + slot * STAGE_BYTES, &qmap, &full[slot], tile0, r0 + k0);
+      }
+      for (int idx = threadIdx.x; idx < batch * (STAGE_ROWS / 8); idx += THREADS) {
+        const int b = idx / (STAGE_ROWS / 8), k = 8 * (idx % (STAGE_ROWS / 8));
+        const bool in = k0 + k < len;
+        fs::wg::cp_async16(xd + b * XROW + k,
+                           in ? x + (size_t)b * in_dim + r0 + k0 + k : x, in);
+      }
+      cp_async_arrive(&full[slot]);
+      return;
+    }
+    // 16-byte chunk c of row R of the box at chunk c ^ (R % 8), as TMA lays
+    // it; past I or O, 0
+    for (int idx = threadIdx.x; idx < STAGE_ROWS * (MMA_COLS / 16); idx += THREADS) {
+      const int row = idx / (MMA_COLS / 16), ch = idx % (MMA_COLS / 16);
+      const int gr = r0 + k0 + row, c0 = tile0 + 16 * ch;
+      uint32_t wd[4] = {0u, 0u, 0u, 0u};
+      if (gr < in_dim) {
+        const int8_t* src = q + (size_t)gr * ldq + c0;
+#pragma unroll
+        for (int i = 0; i < 16; ++i)
+          if (c0 + i < out_dim) wd[i >> 2] |= (uint32_t)(uint8_t)src[i] << (8 * (i & 3));
+      }
+      *reinterpret_cast<uint4*>(ring + row * 128 + ((ch ^ (row & 7)) << 4)) =
+          make_uint4(wd[0], wd[1], wd[2], wd[3]);
+    }
+    for (int idx = threadIdx.x; idx < batch * STAGE_ROWS; idx += THREADS) {
+      const int b = idx / STAGE_ROWS, k = idx % STAGE_ROWS;
+      xd[b * XROW + k] = k0 + k < len ? x[(size_t)b * in_dim + r0 + k0 + k]
+                                      : __float2bfloat16_rn(0.f);
+    }
+  };
+  if (kTma) {
+    if (threadIdx.x == 0) {
+      // each phase: thread 0's arrival with the box's bytes, and every
+      // thread's once its copies of x have landed
+      for (int st = 0; st < STAGES; ++st) fs::tma::bar_init(&full[st], THREADS + 1);
+      fs::tma::bar_init_fence();
+    }
+    __syncthreads();  // the barriers' init is visible
+    for (int st = 0; st < min(STAGES, n_stage); ++st) load_stage(st, st);
+  }
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int h = warp & 1;  // the warp's column half
+  // the lane's 8 bytes of a box row R: columns 64 h + 8 g .. + 7, in 16-byte
+  // chunk 4 h + g / 2 (at chunk ^ (R % 8)), half g % 2
+  const int chunk = 4 * h + (g >> 1), half8 = 8 * (g & 1);
+  float acc[4][NT][4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[j][n][e] = 0.f;
+
+  for (int st = 0; st < n_stage; ++st) {
+    const int slot = kTma ? st % STAGES : 0;
+    if (kTma) {
+      fs::tma::bar_wait(&full[slot], (st / STAGES) & 1);
+    } else {
+      load_stage(0, st);
+      __syncthreads();
+    }
+    const uint8_t* box = ring + slot * STAGE_BYTES;
+    const __nv_bfloat16* xs = xring + slot * batch * XROW;
+#pragma unroll
+    for (int kstep = 0; kstep < 2; ++kstep) {
+      const int kr = 16 * ((warp >> 1) + 4 * kstep);  // rows kr .. kr + 15
+      uint2 w[4];  // rows kr + 2t, + 1, + 8, + 9
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = kr + 2 * t + (e & 1) + 8 * (e >> 1);
+        w[e] = *reinterpret_cast<const uint2*>(box + row * 128 +
+                                               ((chunk ^ (row & 7)) << 4) + half8);
+      }
+      uint32_t b0[NT], b1[NT];  // x rows 8n + g at k 2t, 2t + 1 and 2t + 8, 2t + 9
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        const int b = 8 * n + g;
+        const __nv_bfloat16* xr = xs + (b < batch ? b : 0) * XROW + kr + 2 * t;
+        b0[n] = b < batch ? *reinterpret_cast<const uint32_t*>(xr) : 0u;
+        b1[n] = b < batch ? *reinterpret_cast<const uint32_t*>(xr + 8) : 0u;
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {  // M tile j: columns c = 64h + 8g + 2j, c + 1
+        const uint32_t v0 = j < 2 ? w[0].x : w[0].y, v1 = j < 2 ? w[1].x : w[1].y;
+        const uint32_t v2 = j < 2 ? w[2].x : w[2].y, v3 = j < 2 ? w[3].x : w[3].y;
+        if (INT8_MM_PART == 1) {  // the stream alone
+          acc[j][0][0] += __uint_as_float((v0 ^ v1 ^ v2 ^ v3 ^ b0[0]) & 0x3F7FFFFFu);
+          continue;
+        }
+        uint32_t a[4];
+        if (j & 1) {
+          a[0] = i8x2_bf16<2>(v0, v1); a[1] = i8x2_bf16<3>(v0, v1);
+          a[2] = i8x2_bf16<2>(v2, v3); a[3] = i8x2_bf16<3>(v2, v3);
+        } else {
+          a[0] = i8x2_bf16<0>(v0, v1); a[1] = i8x2_bf16<1>(v0, v1);
+          a[2] = i8x2_bf16<0>(v2, v3); a[3] = i8x2_bf16<1>(v2, v3);
+        }
+        if (INT8_MM_PART == 2) {  // the conversions, no mma
+          acc[j][0][0] += __uint_as_float((a[0] ^ a[1] ^ a[2] ^ a[3] ^ b1[0]) & 0x3F7FFFFFu);
+          continue;
+        }
+#pragma unroll
+        for (int n = 0; n < NT; ++n) mma_bf16(acc[j][n], a, b0[n], b1[n]);
+      }
+    }
+    __syncthreads();  // the stage is read: refill its slot
+    if (kTma && st + STAGES < n_stage) load_stage(slot, st + STAGES);
+  }
+
+  // The four warps of a column half (h, h + 2, h + 4, h + 6) meet in the
+  // ring (every stage is consumed) in a fixed tree, (w + (w + 4)) +
+  // ((w + 2) + (w + 6)). They hold the same (row, column) at the same
+  // (fragment, lane), so the sums travel in fragment order: fragment
+  // f = (j * NT + n) * 4 + e of lane l at f * 32 + l, 32 lanes on 32 banks.
+  constexpr int NF = 16 * NT;  // fragments of a lane
+  float* red = reinterpret_cast<float*>(ring);
+  for (int half = WARPS / 2; half >= 2; half /= 2) {
+    float* buf = red + (warp % half) * NF * 32 + lane;
+    if (warp >= half && warp < 2 * half) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int n = 0; n < NT; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) buf[((j * NT + n) * 4 + e) * 32] = acc[j][n][e];
+    }
+    __syncthreads();
+    if (warp < half) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int n = 0; n < NT; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[j][n][e] += buf[((j * NT + n) * 4 + e) * 32];
+    }
+    __syncthreads();
+  }
+  // warps 0 and 1 hold the two halves: y[b][c] at red[b * RED_ROW + c] (an
+  // odd row: a warp's stores fall on 16 banks, a row's reads on 32), then
+  // written out a row at a time
+  constexpr int RED_ROW = MMA_COLS + 1;
+  if (warp < 2) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int b = 8 * n + 2 * t + (e & 1), c = 64 * h + 8 * g + 2 * j + (e >> 1);
+          if (b < batch) red[b * RED_ROW + c] = acc[j][n][e];
+        }
+  }
+  __syncthreads();
+  float* part = work + (size_t)ks * batch * out_dim;
+  for (int idx = threadIdx.x; idx < batch * MMA_COLS; idx += THREADS) {
+    const int b = idx / MMA_COLS, c = idx % MMA_COLS, col = tile0 + c;
+    if (col >= out_dim) continue;
+    if (n_split == 1)
+      out[(size_t)b * out_dim + col] = __float2bfloat16_rn(red[b * RED_ROW + c] * s[col]);
+    else
+      part[(size_t)b * out_dim + col] = red[b * RED_ROW + c];
+  }
+  if (n_split > 1)
+    finish_split(work, counters, s, out, batch, out_dim, tile0, MMA_COLS, n_split,
+                 &last_s);
+}
+
+// grid (ceil(O / GEMV_COLS), n_split): thread i of a block owns column
+// tile0 + i and sums its rows of the run for every row of x in fp32.
+__global__ void __launch_bounds__(THREADS)
+    int8_gemv_kernel(const float* __restrict__ x, const int8_t* __restrict__ q,
+                     const float* __restrict__ s, float* __restrict__ out,
+                     float* __restrict__ work, int* __restrict__ counters,
+                     int batch, int in_dim, int out_dim, int ldq, int run) {
+  __shared__ float xs[MAX_ROWS][GEMV_CHUNK];
+  __shared__ int last_s;
+  const int tile0 = blockIdx.x * GEMV_COLS, col = tile0 + threadIdx.x;
+  const int ks = blockIdx.y, n_split = gridDim.y;
+  const int r0 = ks * run, r1 = min(in_dim, r0 + run);
+  float acc[MAX_ROWS];
+#pragma unroll
+  for (int b = 0; b < MAX_ROWS; ++b) acc[b] = 0.f;
+  for (int c0 = r0; c0 < r1; c0 += GEMV_CHUNK) {
+    const int n = min(GEMV_CHUNK, r1 - c0);
+    __syncthreads();  // the previous chunk is done with xs
+    for (int idx = threadIdx.x; idx < batch * GEMV_CHUNK; idx += THREADS) {
+      const int b = idx / GEMV_CHUNK, j = idx % GEMV_CHUNK;
+      xs[b][j] = j < n ? x[(size_t)b * in_dim + c0 + j] : 0.f;
+    }
+    __syncthreads();
+    if (col < out_dim) {
+      for (int j = 0; j < n; ++j) {
+        const float w = (float)q[(size_t)(c0 + j) * ldq + col];
+#pragma unroll
+        for (int b = 0; b < MAX_ROWS; ++b)
+          if (b < batch) acc[b] = fmaf(xs[b][j], w, acc[b]);
+      }
+    }
+  }
+  float* part = work + (size_t)ks * batch * out_dim;
+  if (col < out_dim) {
+#pragma unroll
+    for (int b = 0; b < MAX_ROWS; ++b) {
+      if (b >= batch) break;
+      if (n_split == 1)
+        out[(size_t)b * out_dim + col] = acc[b] * s[col];
+      else
+        part[(size_t)b * out_dim + col] = acc[b];
+    }
+  }
+  if (n_split > 1)
+    finish_split(work, counters, s, out, batch, out_dim, tile0, GEMV_COLS, n_split,
+                 &last_s);
+}
+
+template <int NT, bool kTma>
+int launch_mma(const CUtensorMap& map, const int8_t* q, const void* x,
+               const float* s, void* out, float* work, int* counters, int batch,
+               int in_dim, int out_dim, int ldq, int n_split, int run,
+               cudaStream_t stream) {
+  static bool sized = false;  // one attribute call per instantiation
+  if (!sized) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        int8_gemv_mma_kernel<NT, kTma>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        1024 + RING_BYTES + STAGES * 2 * 8 * NT * XROW);
+    if (e != cudaSuccess) return (int)e;
+    sized = true;
+  }
+  const size_t smem = 1024 + RING_BYTES + (size_t)STAGES * 2 * batch * XROW;
+  dim3 grid((out_dim + MMA_COLS - 1) / MMA_COLS, n_split);
+  int8_gemv_mma_kernel<NT, kTma><<<grid, THREADS, smem, stream>>>(
+      map, q, static_cast<const __nv_bfloat16*>(x), s,
+      static_cast<__nv_bfloat16*>(out), work, counters, batch, in_dim, out_dim,
+      ldq, run);
+  return (int)cudaGetLastError();
+}
+
+template <bool kTma>
+int launch_mma_rows(const CUtensorMap& map, const int8_t* q, const void* x,
+                    const float* s, void* out, float* work, int* counters,
+                    int batch, int in_dim, int out_dim, int ldq, int n_split,
+                    int run, cudaStream_t stream) {
+  switch ((batch + 7) / 8) {
+#define FS_MMA(NT)                                                              \
+  case NT:                                                                      \
+    return launch_mma<NT, kTma>(map, q, x, s, out, work, counters, batch,       \
+                                in_dim, out_dim, ldq, n_split, run, stream)
+    FS_MMA(1); FS_MMA(2); FS_MMA(3); FS_MMA(4);
+#undef FS_MMA
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// route codes, as `ops/int8.py:ROUTES`
+constexpr int kRouteGemvMma = 0, kRouteGemv = 1;
+
+}  // namespace
+
+// x (B, I) in `dtype`, contiguous; q (I, O) int8, rows ldq >= O bytes
+// apart; s (O,) fp32; out (B, O) in `dtype`. Route "gemv_mma" takes bf16 x,
+// "gemv" fp32 x. I is cut into n_split runs of `run` rows (a multiple of
+// STAGE_ROWS; `ops/int8.py:int8_gemv_split`), the last one shorter; with
+// n_split > 1 the kernels need work, n_split * B * O fp32 partials, and
+// counters, one int32 per column tile (ceil(O / 128) for "gemv_mma",
+// ceil(O / 256) for "gemv"), all 0 on entry (the kernels leave them 0).
+extern "C" int fs_int8_matmul(const void* x, const void* q, const void* s,
+                              void* out, void* work, void* counters, int batch,
+                              int in_dim, int out_dim, int ldq, int dtype,
+                              int route, int n_split, int run, void* stream) {
+  if (batch < 1 || batch > MAX_ROWS || in_dim < 1 || out_dim < 1 || ldq < out_dim ||
+      run < 1 || run % STAGE_ROWS || n_split < 1 ||
+      (size_t)(n_split - 1) * run >= (size_t)in_dim ||
+      (size_t)n_split * run < (size_t)in_dim ||
+      (n_split > 1 && (work == nullptr || counters == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  const int8_t* qp = static_cast<const int8_t*>(q);
+  const float* sp = static_cast<const float*>(s);
+  float* wk = static_cast<float*>(work);
+  int* cnt = static_cast<int*>(counters);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (route == kRouteGemv && dtype == fs::kFloat32) {
+    dim3 grid((out_dim + GEMV_COLS - 1) / GEMV_COLS, n_split);
+    int8_gemv_kernel<<<grid, THREADS, 0, st>>>(
+        static_cast<const float*>(x), qp, sp, static_cast<float*>(out), wk, cnt,
+        batch, in_dim, out_dim, ldq, run);
+    return (int)cudaGetLastError();
+  }
+  if (route != kRouteGemvMma || dtype != fs::kBFloat16) return (int)cudaErrorInvalidValue;
+  CUtensorMap map;
+  if (ldq % 16 == 0 && reinterpret_cast<uintptr_t>(q) % 16 == 0 &&
+      out_dim >= MMA_COLS && in_dim >= STAGE_ROWS && in_dim % 8 == 0 &&
+      reinterpret_cast<uintptr_t>(x) % 16 == 0) {
+    // q as I rows of O bytes, ldq apart, read in boxes of 128 rows x 128 bytes
+    const int rc = fs::tma::encode_2d(&map, CU_TENSOR_MAP_DATA_TYPE_UINT8, q,
+                                      out_dim, in_dim, ldq, MMA_COLS, STAGE_ROWS);
+    if (rc != 0) return rc;
+    return launch_mma_rows<true>(map, qp, x, sp, out, wk, cnt, batch, in_dim,
+                                 out_dim, ldq, n_split, run, st);
+  }
+  std::memset(&map, 0, sizeof(map));
+  return launch_mma_rows<false>(map, qp, x, sp, out, wk, cnt, batch, in_dim,
+                                out_dim, ldq, n_split, run, st);
+}

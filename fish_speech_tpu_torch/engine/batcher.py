@@ -65,6 +65,7 @@ from fish_speech_tpu_torch.generate import (GUARD, PROMPT_BUCKETS, GroupState,
                                             prefill_group_body, replay_graph,
                                             scatter_parked_rows)
 from fish_speech_tpu_torch.models import dual_ar
+from fish_speech_tpu_torch.ops.quant import fp32_scales
 from fish_speech_tpu_torch.ops.sampling import check_top_k
 
 SIGNATURES = (16, 4, 1)  # admission group sizes, each a graph per bucket
@@ -203,8 +204,8 @@ class ContinuousBatcher:
                 "the prefix cache (prefill_group_parked_suffix, PrefixStore) "
                 "is not ported yet: ROADMAP §1 item 4")
         params = _detached(params)
-        self.params = dual_ar.fuse_ffn_weights(
-            dual_ar.precompute_semantic_head(params, cfg))
+        self.params = fp32_scales(dual_ar.fuse_ffn_weights(
+            dual_ar.precompute_semantic_head(params, cfg)))
         self.cfg = cfg.resolve()
         self.scfg = scfg or SamplingConfig()
         self.device = params["embeddings"].device

@@ -57,6 +57,8 @@ from fish_speech_tpu_torch.ops.flash_decode import (
     flash_decode_attention, flash_decode_attention_kv8)
 from fish_speech_tpu_torch.ops.flash_prefill import flash_prefill_attention
 from fish_speech_tpu_torch.ops.int4 import int4_matmul
+from fish_speech_tpu_torch.ops.int8 import int8_matmul
+from fish_speech_tpu_torch.ops.quant import fp32_scales, mm
 from fish_speech_tpu_torch.ops.sampling import (TOP_K_CAP, UNIFORM_FAST,
                                                  UNIFORM_RAS, UNIFORM_SLOW,
                                                  check_top_k, counter_uniforms,
@@ -389,8 +391,9 @@ def prefill_group_body(params, cfg: DualARConfig, scfg: SamplingConfig,
 
 
 # the wrappers whose launch counters a captured graph's replays add to
+# (`mm`'s count the int8 products by route: the kernel, or torch's cast)
 _WRAPPERS = (flash_decode_attention, flash_decode_attention_kv8,
-             flash_prefill_attention, int4_matmul)
+             flash_prefill_attention, int4_matmul, int8_matmul, mm)
 
 
 def _launch_counts():
@@ -557,8 +560,8 @@ class GenerationSession:
         # detached views: a tree fresh from training (LoRA tensors that
         # require grad) must not make decoding record an autograd graph
         params = _detached(params)
-        self.params = dual_ar.fuse_ffn_weights(
-            dual_ar.precompute_semantic_head(params, cfg))
+        self.params = fp32_scales(dual_ar.fuse_ffn_weights(
+            dual_ar.precompute_semantic_head(params, cfg)))
         self.cfg = cfg.resolve()
         self.scfg = scfg or SamplingConfig()
         self.device = params["embeddings"].device

@@ -654,10 +654,23 @@ def fast_decode_step(params, cfg: DualARConfig, x, fast_cache, pos: int,
 # ---------------------------------------------------------------------------
 
 
+def _rows_16_bytes_apart(q):
+    """An int8 (I, O) matrix as a view of an (I, O') buffer, O' = O rounded
+    up to 16 bytes: the int8 kernel streams rows by TMA, which needs row
+    strides of a multiple of 16 bytes (the semantic head has S + 1
+    columns)."""
+    o = q.shape[-1]
+    if o % 16 == 0:
+        return q.contiguous()
+    buf = q.new_zeros((*q.shape[:-1], o + (-o % 16)))
+    buf[..., :o] = q
+    return buf[..., :o]
+
+
 def precompute_semantic_head(params, cfg: DualARConfig):
     """Return params plus `_semantic_head`: the (D, S+1) slice of the LM
     head over the semantic ids and im_end, materialized once (an int8 head
-    keeps its int8 columns and their scales)."""
+    keeps its int8 columns, rows 16 bytes apart, and their scales)."""
     cfg = cfg.resolve()
     sb, se, end = cfg.semantic_begin_id, cfg.semantic_end_id, cfg.im_end_id
     if cfg.tie_word_embeddings:
@@ -673,7 +686,8 @@ def precompute_semantic_head(params, cfg: DualARConfig):
         head = {"w": torch.cat([out_w[:, sb : se + 1], out_w[:, end][:, None]],
                                dim=1)}
     new = dict(params)
-    new["_semantic_head"] = {k: v.contiguous() for k, v in head.items()}
+    new["_semantic_head"] = {k: _rows_16_bytes_apart(v) if k == "q" else
+                             v.contiguous() for k, v in head.items()}
     return new
 
 

@@ -127,6 +127,10 @@ def load_kernels() -> ctypes.CDLL:
         ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, i32, ptr
     ]
     lib.fs_int4_matmul.restype = i32
+    lib.fs_int8_matmul.argtypes = [
+        ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, i32, i32, ptr
+    ]
+    lib.fs_int8_matmul.restype = i32
     lib.fs_faststack_probe.argtypes = [
         ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, i32, i32,
         i32, ptr

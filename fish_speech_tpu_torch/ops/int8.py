@@ -1,0 +1,180 @@
+"""int8 weight-only matmul for up to 32 rows: y = rn(x @ q * s).
+
+Port of the Pallas TPU kernels `scripts/microbench/matvec_pallas.py`
+(`_kernel` / `pallas_matvec`) and `scripts/microbench/ffn_per_op_pallas.py`
+(`_kernel` / `pl_mv`), which compute the same function over a per-channel
+int8 weight (`ops/quant.py:quantize_int8`):
+
+  x: (B, I) bf16 or fp32, B <= 32;  q: (I, O) int8;  s: (O,) fp32
+  y[r, o] = rn_dtype(sum_i x[r, i] * float(q[i, o]) * s[o])
+
+summed in fp32, the scale applied in fp32 to the sum, one rounding to x's
+dtype (int8 -> bf16 is exact). JAX's `mm` rounds twice in bf16 (`x @ q`
+to bf16, then the product with the bf16 scale); this is the Pallas
+kernels' one rounding.
+
+The kernels are hand-written CUDA for Hopper (`csrc/int8_mm.cu`). The
+wrapper picks one by x's dtype (`_route`), an explicit dispatch, not a
+fallback: "gemv_mma" for bf16 x (the tensor cores, the weight streamed by
+TMA), "gemv" for fp32 x (the CUDA cores; the small fp32 models). Both cut I
+into runs (`int8_gemv_split`) and add the runs' partial sums in run order
+in the same launch. q may be a view whose rows lie further apart than O
+bytes (its column stride must be 1).
+
+`int8_matmul_reference` is the plain version; the wrapper runs it for CPU
+tensors only. For a CUDA tensor it launches the route's kernel or raises.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import torch
+
+from fish_speech_tpu_torch.ops._kernels import (DTYPE_CODES, check_launch,
+                                                 load_kernels, scratch,
+                                                 sm_count, stream_ptr)
+
+MAX_ROWS = 32  # rows of x the kernels take (ops/quant.py sends more to torch)
+ROUTES = ("gemv_mma", "gemv")  # route codes of fs_int8_matmul
+ROUTE_COLS = {"gemv_mma": 128, "gemv": 256}  # output columns per block
+STAGE_ROWS = 128  # rows of q per stage: a run is whole stages
+BLOCKS_PER_SM = 2  # blocks the split aims for
+MAX_SPLIT = 64  # most runs I is cut into
+_ROUTE_CODES = {r: n for n, r in enumerate(ROUTES)}
+
+
+@functools.lru_cache(maxsize=None)
+def int8_gemv_split(route: str, b: int, i: int, o: int, n_sm: int):
+    """(n_split, run): the kernel of `route` cuts I into n_split runs of
+    `run` rows, [k * run, min(I, (k + 1) * run)), run a multiple of
+    STAGE_ROWS (the last run shorter). The split with the least modelled
+    cost, in bytes moved: the weight as the busiest SM streams it (every SM
+    taking that many blocks, ceil(blocks / SMs), with ceil(O / cols) blocks
+    a run), one stage's worth per block and its x of the run, and the fp32
+    partials written and read back where there is more than one run; the
+    fewer runs on a tie, at most MAX_SPLIT runs."""
+    cols = ROUTE_COLS[route]
+    stages = -(-i // STAGE_ROWS)
+    tiles = -(-o // cols)
+    best = None
+    for per in range(stages, 0, -1):  # stages a run holds
+        n = -(-stages // per)
+        if n > MAX_SPLIT:
+            break
+        blocks = n * tiles
+        cost = (-(-blocks // n_sm) * n_sm * per * STAGE_ROWS * cols
+                + blocks * (STAGE_ROWS * cols + b * per * STAGE_ROWS)
+                + (8 * n * b * o if n > 1 else 0))
+        if best is None or cost < best[0]:
+            best = (cost, n, per)
+    return best[1], best[2] * STAGE_ROWS
+
+
+def int8_matmul_reference(x, q, s):
+    """The plain version: x @ float(q) in fp32, times the fp32 scale, cast
+    once to x's dtype."""
+    return ((x.float() @ q.float()) * s.float()).to(x.dtype)
+
+
+def int8_gemv_partials_reference(x, q, n_split: int, run: int):
+    """The kernels' per-run partial sums in fp32, (n_split, B, O), unscaled:
+    run k covers rows [k * run, min(I, (k + 1) * run)). Added in run order,
+    times s and cast to x's dtype, they give y."""
+    xf, qf = x.float(), q.float()
+    return torch.stack([xf[:, k * run:(k + 1) * run] @ qf[k * run:(k + 1) * run]
+                        for k in range(n_split)])
+
+
+def _route(b: int, dtype: torch.dtype) -> str:
+    """Which kernel `int8_matmul` launches for B rows of x in `dtype`."""
+    if not 1 <= b <= MAX_ROWS:
+        raise ValueError(f"int8_matmul: {b} rows of x; the kernels take 1 to "
+                         f"{MAX_ROWS} (ops/quant.py:mm keeps more in torch)")
+    if dtype == torch.bfloat16:
+        return "gemv_mma"
+    if dtype == torch.float32:
+        return "gemv"
+    raise TypeError(f"int8_matmul: x must be bf16 or fp32, got {dtype}")
+
+
+def _check(x, q, s):
+    """(B, I, O, row stride of q). Types, shapes and layout first, the
+    device last (so the CPU tests reach every check before it)."""
+    if x.dtype not in DTYPE_CODES or q.dtype != torch.int8 or s.dtype != torch.float32:
+        raise TypeError(f"int8_matmul: x bf16/fp32, q int8, s fp32; got "
+                        f"{x.dtype}/{q.dtype}/{s.dtype}")
+    if x.dim() != 2 or q.dim() != 2 or s.dim() != 1:
+        raise ValueError("int8_matmul: x (B, I), q (I, O), s (O,)")
+    b, i = x.shape
+    o = q.shape[1]
+    if q.shape[0] != i or s.shape[0] != o:
+        raise ValueError(f"int8_matmul: shapes x {tuple(x.shape)}, q "
+                         f"{tuple(q.shape)}, s {tuple(s.shape)} disagree")
+    _route(b, x.dtype)
+    if not (x.is_contiguous() and s.is_contiguous()):
+        raise ValueError("int8_matmul: x and s must be contiguous")
+    if q.stride(1) != 1 or q.stride(0) < o:
+        raise ValueError(f"int8_matmul: q needs unit column stride and rows at "
+                         f"least O apart; strides {q.stride()}")
+    if not (x.is_cuda and q.device == x.device and s.device == x.device):
+        raise ValueError("int8_matmul: x, q and s must lie on one CUDA device")
+    return b, i, o, q.stride(0)
+
+
+_PLANS: dict = {}
+
+
+def _plan(x, q, s):
+    """What a call of these shapes, strides, dtypes and devices passes the
+    kernel beyond its pointers: (route, counter name, I, O, ldq, n_split,
+    run, workspace, counters, dtype code, route code). The first call of a
+    key runs every check of `_check` and keeps the plan; a later one
+    repeats only contiguity, which the key does not fix."""
+    key = (x.shape, q.shape, q.stride(), s.shape, x.dtype, q.dtype, s.dtype,
+           x.get_device(), q.get_device(), s.get_device())
+    plan = _PLANS.get(key)
+    if plan is None:
+        b, i, o, ldq = _check(x, q, s)
+        route = _route(b, x.dtype)
+        n_split, run = int8_gemv_split(route, b, i, o, sm_count(x.device))
+        work = counters = 0  # NULL: one run
+        if n_split > 1:
+            w, c = scratch("int8_gemv", x.device, n_split * b * o,
+                           -(-o // ROUTE_COLS[route]))
+            work, counters = w.data_ptr(), c.data_ptr()
+        plan = _PLANS[key] = (route, f"launches_{route}", i, o, ldq, n_split, run,
+                              work, counters, DTYPE_CODES[x.dtype],
+                              _ROUTE_CODES[route])
+    elif not (x.is_contiguous() and s.is_contiguous()):
+        raise ValueError("int8_matmul: x and s must be contiguous")
+    return plan
+
+
+def int8_matmul(x, q, s):
+    """x (B, I) bf16/fp32, B <= 32, @ int8 q (I, O) times s (O,) -> (B, O)
+    in x's dtype. On CUDA tensors runs the hand-written kernel of
+    `_route(B, x.dtype)`."""
+    if not x.is_cuda and x.device.type == "cpu":
+        return int8_matmul_reference(x, q, s)
+    (route, count, i, o, ldq, n_split, run, work, counters, code,
+     route_code) = _plan(x, q, s)
+    b = x.shape[0]
+    out = x.new_empty((b, o))
+    rc = load_kernels().fs_int8_matmul(
+        x.data_ptr(), q.data_ptr(), s.data_ptr(), out.data_ptr(), work, counters,
+        b, i, o, ldq, code, route_code, n_split, run, stream_ptr(x))
+    check_launch(rc, f"int8_matmul ({route})")
+    int8_matmul.launches += 1
+    setattr(int8_matmul, count, getattr(int8_matmul, count) + 1)
+    return out
+
+
+def reset_launches():
+    """Set `int8_matmul`'s launch counts (all routes and each route) to 0."""
+    int8_matmul.launches = 0
+    for route in ROUTES:
+        setattr(int8_matmul, f"launches_{route}", 0)
+
+
+reset_launches()

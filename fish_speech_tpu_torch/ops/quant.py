@@ -8,11 +8,17 @@ Port of `fish_speech_tpu/ops/quant.py`. A quantized weight is a dict:
     [i, o] holds w[i, o] in the low nibble and w[i + I/2, o] in the high
     nibble, each biased by 8; the group size is g = 2 * p.rows / gs.rows.
 
-`mm` dispatches on the dict. The int8 product is `x @ q * s` in torch, as
-the JAX package left it to XLA (no Pallas kernel). The int4 product runs
-the hand-written kernel `ops/int4.py` (`csrc/int4_mm.cu`) on CUDA tensors
-and the unpacked reference weight on the CPU. The quantizers give results
-bitwise equal to the JAX package's (the tests hold them to it).
+`mm` dispatches on the dict. The int8 product of up to 32 rows (every
+decode product and head, and the prefill's LM head at a row per prompt)
+runs the hand-written kernel `ops/int8.py` (`csrc/int8_mm.cu`, the port of
+the Pallas int8 matvec: one rounding of the fp32 sum times the fp32 scale)
+on CUDA tensors and its plain version on the CPU; more rows (the prefill's
+layer products) stay `x @ q.to(dtype) * s.to(dtype)` in torch, as the JAX
+package leaves them to XLA. `mm.launches_int8_matmul` and
+`mm.launches_int8_cast` count the int8 products by route. The int4 product
+runs the hand-written kernel `ops/int4.py` (`csrc/int4_mm.cu`) on CUDA
+tensors and the unpacked reference weight on the CPU. The quantizers give
+results bitwise equal to the JAX package's (the tests hold them to it).
 """
 
 from __future__ import annotations
@@ -20,6 +26,8 @@ from __future__ import annotations
 import torch
 
 from fish_speech_tpu_torch.ops.int4 import int4_matmul, unpack_int4
+from fish_speech_tpu_torch.ops.int8 import MAX_ROWS as INT8_KERNEL_ROWS
+from fish_speech_tpu_torch.ops.int8 import int8_matmul
 
 # the layer weights quantized, and the int4 group size (halved where a
 # weight needs it, `_quantize_weight`)
@@ -75,13 +83,43 @@ def mm(x: torch.Tensor, w) -> torch.Tensor:
         if x.device.type == "cpu":
             return x @ _int4_effective_weight(w, x.dtype)
         lead = x.shape[:-1]
-        gs = w["gs"].float()  # a checkpoint read in bf16 has bf16 scales
+        gs = w["gs"].float()  # a no-op on the fp32 scales of `fp32_scales`
         y = int4_matmul(x.reshape(-1, x.shape[-1]).contiguous(), w["p"], gs)
         return y.reshape(*lead, y.shape[-1])
     if isinstance(w, dict) and "q" in w:
+        rows = x.numel() // x.shape[-1]
+        if 0 < rows <= INT8_KERNEL_ROWS:
+            mm.launches_int8_matmul += 1
+            lead = x.shape[:-1]
+            s = w["s"].float()  # a no-op on the fp32 scales of `fp32_scales`
+            y = int8_matmul(x.reshape(rows, x.shape[-1]).contiguous(), w["q"], s)
+            return y.reshape(*lead, y.shape[-1])
+        mm.launches_int8_cast += 1
         y = x @ w["q"].to(x.dtype)
         return y * w["s"].to(x.dtype)
     return x @ w
+
+
+def reset_launches():
+    """Set `mm`'s counts of int8 products by route to 0."""
+    mm.launches_int8_matmul = 0
+    mm.launches_int8_cast = 0
+
+
+reset_launches()
+
+
+def fp32_scales(params):
+    """The tree with every quantized weight's scales in fp32 (a checkpoint
+    read in bf16 has bf16 scales; the kernels take fp32), cast once here
+    rather than by `mm` on every call. Other leaves are shared."""
+    if isinstance(params, dict):
+        quant = {"q", "s"} <= params.keys() or {"p", "gs"} <= params.keys()
+        return {k: v.float() if quant and k in ("s", "gs") else fp32_scales(v)
+                for k, v in params.items()}
+    if isinstance(params, (list, tuple)):
+        return type(params)(fp32_scales(v) for v in params)
+    return params
 
 
 def _quantize_weight(w, mode: str):

@@ -32,6 +32,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 CLASSES = [  # (class, substrings of the kernel name), first match wins
     ("decode attention (hand-written)", ("decode_",)),
     ("int4 matvec (hand-written)", ("int4_",)),
+    ("int8 matvec (hand-written)", ("int8_gemv",)),
     ("cuBLAS products", ("gemm", "gemv", "sm90_", "cutlass", "nvjet", "xmma")),
     ("top-k and sort", ("topk", "sort", "radix", "bitonic")),
     ("copies and casts", ("copy", "cast", "cat_", "catarray", "index")),

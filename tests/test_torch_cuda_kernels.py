@@ -29,6 +29,15 @@ kernel carries it as two bf16 terms). The fast-stack probe at small dims
 (3 layers, 2 steps) is held to 1e-3 abs on outputs of rms 1 (fp32 sums in
 another order, and the activations' bf16 / int8 rounding can land one step
 apart), and gives the same bits twice (no atomics).
+
+The int8 matmul (`csrc/int8_mm.cu`, `ops/int8.py`) runs at every int8
+product of the serving paths (s2-pro's slow and fast stacks, w13 fused, the
+full LM head, the semantic head's S + 1 columns as a view of rows 16 bytes
+apart, the fast head) and at ragged I and O, at B in {1, 4, 16, 32}: bf16
+within 2^-8 |y| (its one rounding of y) + 1e-5 of (|x| @ |q|) * s (the
+order of the fp32 sums) of the plain version summed in fp32, fp32 within
+1e-5 of (|x| @ |q|) * s; one launch, only the output allocated, the same
+bits twice and under a CUDA graph.
 """
 
 import numpy as np
@@ -43,6 +52,8 @@ from fish_speech_tpu_torch.ops.flash_decode import (
 from fish_speech_tpu_torch.ops.int4 import (_route, int4_matmul,
                                              int4_matmul_bf16w_reference,
                                              int4_matmul_reference)
+from fish_speech_tpu_torch.ops.int8 import _route as int8_route
+from fish_speech_tpu_torch.ops.int8 import int8_matmul, int8_matmul_reference
 from fish_speech_tpu_torch.ops.quant import (_int4_effective_weight, mm,
                                              quantize_int4)
 from fish_speech_tpu_torch.ops.flash_prefill import _route as prefill_route
@@ -930,3 +941,124 @@ def test_pool_prefill_graph_captured_after_a_longer_bucket(dev):
         finally:
             b.shutdown()
     np.testing.assert_array_equal(outs[0], outs[1])
+
+
+# the int8 products at decode (I, O, layout): s2-pro's slow and fast stacks
+# (w13 fused), the full LM head, the semantic head (S + 1 columns, rows 16
+# bytes apart as `precompute_semantic_head` lays them out), the fast head;
+# then ragged shapes: rows not 16 bytes apart (the block's own copy in place
+# of TMA), O under one 128-column box, I not a whole stage, I off 8
+INT8_SHAPES = [
+    (2560, 6144, "contiguous"), (4096, 2560, "contiguous"),
+    (2560, 19456, "contiguous"), (9728, 2560, "contiguous"),
+    (1536, 2560, "contiguous"), (1536, 1536, "contiguous"),
+    (1536, 12288, "contiguous"), (6144, 1536, "contiguous"),
+    (2560, 155136, "contiguous"), (2560, 4097, "padded"),
+    (1536, 4096, "contiguous"),
+    (2560, 4097, "contiguous"), (1000, 72, "contiguous"),
+    (300, 4097, "padded"), (1000, 1000, "contiguous"), (1001, 200, "padded"),
+    (130, 260, "contiguous"),
+]
+
+
+def _int8_weight(i, o, layout, seed, dev):
+    """q (I, O) int8 and s (O,) fp32 on the card; "padded": q a view of an
+    (I, O rounded up to 16) buffer."""
+    gen = torch.Generator().manual_seed(seed)
+    width = o + (-o % 16 if layout == "padded" else 0)
+    q = torch.randint(-127, 128, (i, width), generator=gen, dtype=torch.int8).to(dev)
+    s = (torch.rand(o, generator=gen) * 0.02 + 0.001).to(dev)
+    return q[:, :o], s
+
+
+@pytest.mark.parametrize("i,o,layout", INT8_SHAPES)
+def test_int8_kernel_matches_plain(dev, i, o, layout):
+    rng = np.random.default_rng(i + o)
+    q, s = _int8_weight(i, o, layout, i * o, dev)
+    assert q.stride(0) % 16 == 0 or layout == "contiguous"
+    qf = q.float()
+    qa = qf.abs()
+    for dtype in (torch.bfloat16, torch.float32):
+        for b in (1, 4, 16, 32):
+            x = _randn(rng, (b, i), dtype, dev)
+            route = f"launches_{int8_route(b, dtype)}"
+            n0, r0 = int8_matmul.launches, getattr(int8_matmul, route)
+            got = int8_matmul(x, q, s)
+            torch.cuda.synchronize()
+            assert int8_matmul.launches == n0 + 1 and got.dtype == dtype
+            assert getattr(int8_matmul, route) == r0 + 1
+            exact = (x.float() @ qf) * s  # the plain version in fp32, not rounded
+            scale = (x.float().abs() @ qa) * s
+            err = (got.float() - exact).abs()
+            if dtype == torch.float32:
+                assert bool((err <= 1e-5 * scale + 1e-6).all()), (b, err.max().item())
+            else:
+                bound = 2.0 ** -8 * exact.abs() + 1e-5 * scale
+                assert bool((err <= bound).all()), (b, err.max().item())
+            # the route `mm` takes for up to 32 rows
+            assert torch.equal(mm(x[:, None], {"q": q, "s": s})[:, 0], got)
+            del exact, scale, err
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_int8_kernel_launches_once_and_allocates_only_the_output(dev, dtype):
+    rng = np.random.default_rng(4)
+    for b, i, o in [(1, 2560, 19456), (32, 4096, 2560), (1, 2560, 4097)]:
+        q, s = _int8_weight(i, o, "padded", 5, dev)
+        x = _randn(rng, (b, i), dtype, dev)
+        route = f"launches_{int8_route(b, dtype)}"
+        _, launched, made = _one_call(
+            lambda: int8_matmul(x, q, s),
+            [(int8_matmul, "launches"), (int8_matmul, route)])
+        assert launched == [1, 1] and made == 1  # the output only
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_int8_kernel_is_deterministic_and_graph_capturable(dev, dtype):
+    """Two calls give the same bits (the runs are added in one order); a
+    CUDA graph of the call replayed after x changes in place equals the
+    eager call on the new x. Slow wo at 32 rows: 16 runs, the in-launch sum."""
+    rng = np.random.default_rng(12)
+    q, s = _int8_weight(4096, 2560, "contiguous", 7, dev)
+    x = _randn(rng, (32, 4096), dtype, dev)
+    first, second = int8_matmul(x, q, s), int8_matmul(x, q, s)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    graph = torch.cuda.CUDAGraph()
+    n0 = int8_matmul.launches
+    with torch.cuda.graph(graph):
+        captured = int8_matmul(x, q, s)
+    x.copy_(_randn(rng, x.shape, x.dtype, dev))
+    graph.replay()
+    torch.cuda.synchronize()
+    assert int8_matmul.launches == n0 + 1
+    assert torch.equal(captured, int8_matmul(x, q, s))
+    assert not torch.equal(captured, first)
+
+
+def test_mm_routes_int8_products_by_rows(dev):
+    """Up to 32 rows go to the int8 kernel (both dtypes), more to torch's
+    cast; the decode graphs of a `mixed` session launch only the kernel."""
+    rng = np.random.default_rng(1)
+    q, s = _int8_weight(256, 192, "contiguous", 3, dev)
+    for shape, dtype, kernel in [((1, 1, 256), torch.bfloat16, True),
+                                 ((32, 1, 256), torch.bfloat16, True),
+                                 ((4, 1, 256), torch.float32, True),
+                                 ((2, 64, 256), torch.bfloat16, False),
+                                 ((33, 256), torch.float32, False)]:
+        before = (int8_matmul.launches, mm.launches_int8_matmul, mm.launches_int8_cast)
+        y = mm(_randn(rng, shape, dtype, dev), {"q": q, "s": s})
+        torch.cuda.synchronize()
+        assert y.shape == (*shape[:-1], 192) and y.dtype == dtype
+        assert (int8_matmul.launches - before[0], mm.launches_int8_matmul - before[1],
+                mm.launches_int8_cast - before[2]) == ((1, 1, 0) if kernel else (0, 0, 1))
+    session = _graph_session(dev, "mixed")
+    session.precompile(40, 8, 2)
+    per_step = session.launches_per_replay("decode")
+    assert per_step.get("int8_matmul.launches_gemv_mma", 0) > 0, per_step
+    assert per_step.get("mm.launches_int8_cast", 0) == 0, per_step
+    # the prefill: its layers' 64 rows through the cast, its heads' one row
+    # (the LM head, the fast head of the first column) through the kernel
+    prefill = session.launches_per_replay("prefill_64")
+    assert prefill.get("int8_matmul.launches_gemv_mma", 0) >= 1, prefill
+    assert prefill.get("mm.launches_int8_cast", 0) == 4 * session.cfg.n_layer, prefill

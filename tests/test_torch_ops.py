@@ -205,6 +205,7 @@ PORT_MODULES = [
     "fish_speech_tpu_torch.engine.batcher",
     "fish_speech_tpu_torch.engine.reference_loader",
     "fish_speech_tpu_torch.ops.int4",
+    "fish_speech_tpu_torch.ops.int8",
     "fish_speech_tpu_torch.ops.faststack",
     "fish_speech_tpu_torch.config",
     "fish_speech_tpu_torch.tokenizer",
@@ -220,7 +221,8 @@ PORT_MODULES = [
 # Run on the CPU with the JAX package and jax unimportable: every port
 # module, the tiny training CLI, a streamed engine request (generate_long
 # inside) and a voice-clone one (a WAV reference by id: load_audio, the
-# codec's encode), a mixed-quantized int8-KV session, a streamed request
+# codec's encode), a mixed-quantized int8-KV session (its int8 products
+# through `ops/int8.py`'s route), a streamed request
 # through the continuous batcher's pool, and the fast-stack probe.
 # (`jax` is blocked by an import hook, not by `sys.modules['jax'] = None`:
 # scipy's array-API helpers take a `jax` entry in `sys.modules` for the
@@ -272,6 +274,7 @@ cfg = config.dual_ar_tiny(vocab_size=tok.vocab_size, max_seq_len=256,
 params = quant.quantize_dual_ar_lowmem(
     dual_ar.init_dual_ar(0, cfg, torch.float32, 'cpu'), mode='int8',
     fast_mode='int4')
+quant.reset_launches()
 session = GenerationSession(params, cfg, dtype=torch.float32,
                             decode_chunk_size=4, kv_quant=True)
 os.makedirs(os.path.join(tmp, 'refs', 'spk'))
@@ -287,6 +290,9 @@ for extra in ({}, {'reference_id': 'spk'}):
     codes = [r.code for r in results]
     assert codes[0] == 'header' and codes[-1] == 'final', (codes, results[-1].error)
 assert engine.vq_cache_misses == 1
+# the mixed session's int8 products of up to 32 rows took ops/int8.py's route
+assert 'fish_speech_tpu_torch.ops.int8' in sys.modules
+assert quant.mm.launches_int8_matmul > 0, quant.mm.launches_int8_matmul
 
 from fish_speech_tpu_torch.engine.batcher import BatcherSession, ContinuousBatcher
 pool = ContinuousBatcher(dual_ar.init_dual_ar(1, cfg, torch.float32, 'cpu'), cfg,
