@@ -14,7 +14,8 @@ Phases, each of which ends the run with a nonzero exit if it fails:
    backward's two kernels (`train_bwd_dkdv_wgmma_kernel`,
    `train_bwd_dq_wgmma_kernel`), none of which may be 0, and the blocks
    per SM of the backward's two kernels (CUDA's occupancy calculator);
-   ptxas' report covers the int8 matvec (`int8_gemv_mma_kernel`) too;
+   ptxas' report covers the int8 matvec (`int8_gemv_mma_kernel`) and the
+   fused int8 FFN (`int8_ffn_mma_kernel`) too;
 2. each kernel against its plain PyTorch version at the main paths' shapes,
    in bf16 from N(0,1) inputs (pass: max abs error <= 2e-2, mean <= 2e-3,
    the bound of bf16 rounding of P before P.V in the plain version; the
@@ -64,7 +65,15 @@ Phases, each of which ends the run with a nonzero exit if it fails:
    to 1e-5 (|x| @ |q|) * s; each prints `device_ms`, cuBLAS on the
    dequantized bf16 W (`library_device_ms`) and the cast route it replaces
    (`cast_device_ms`, `x @ q.to(bf16) * s.to(bf16)`), all from graphs
-   walking weight copies over twice the L2;
+   walking weight copies over twice the L2; the fused int8 FFN's
+   tensor-core kernel (`int8_ffn_mma_kernel`, bf16 x) at s2-pro's slow and
+   fast FFNs at B = 1, 4, 16 and 32, held to 2 bf16 ulps of max |y| of its
+   plain version and to equal bits on two replays of a graph, its CUDA-core
+   kernel (`int8_ffn_fp32_kernel`, fp32 x) at phase 3c's tiny slow FFN to
+   1e-5 of max |y|; each prints `device_ms`, cuBLAS on the dequantized bf16
+   w13 and w2 with torch's gate (`library_device_ms`) and the route it
+   replaces (`replaced_device_ms`: two `int8_matmul` launches and torch's
+   gate), from graphs walking weight copies over twice the L2;
 3. a small-input reference: a tiny fp32 model runs the same greedy request
    through the kernels on the card (its session's graphs captured at first
    use) and through the plain versions on the CPU (the same step bodies
@@ -78,8 +87,9 @@ Phases, each of which ends the run with a nonzero exit if it fails:
 3c. a small quantized reference: phase 3's tiny fp32 model quantized
    `mixed` (slow int8, fast int4, heads int8) with the int8 KV cache, card
    kernels against CPU plain versions: identical greedy token columns,
-   prefill logits within 1e-4; the int4, int8-KV and int8 kernels must
-   launch (the int8 matmul's fp32 route counted);
+   prefill logits within 1e-4; the int4, int8-KV, int8 and fused int8 FFN
+   kernels must launch (the int8 matmul's and the FFN's fp32 routes
+   counted);
 4. the serving slice: the full-width `dual_ar_s2_pro` LM (bf16, random
    weights from a seed, max_seq_len 2048) and the full `dac_s2_pro` codec
    (encoder included) answer streamed requests through
@@ -138,7 +148,9 @@ Phases, each of which ends the run with a nonzero exit if it fails:
    graphs captured beforehand, as phase 4 does, with the same replay
    checks (the codec's decode graphs captured first, as in phase 4), and
    the int8 matmul's kernel must be launched by a replayed decode step and
-   torch's int8 cast route never (both sessions' heads are int8).
+   torch's int8 cast route never (both sessions' heads are int8); the
+   `mixed` step must launch the fused int8 FFN once per slow layer (36)
+   and the `int4` step never.
    TTFA, frames/s, weight bytes and peak memory for both, the graph pool
    and the replayed step beside an earlier run's with the int8 cast, the
    replayed step's launches and device time, and the fast stack's time per
@@ -173,7 +185,8 @@ Phases, each of which ends the run with a nonzero exit if it fails:
    card after `precompile`); `flash_prefill`'s tensor-core route and
    `flash_decode` (bf16) or `flash_decode_kv8` and the int8 matmul's
    kernel (int8) must have launched, and the int8 pool's replayed step
-   must launch that kernel and never torch's int8 cast route;
+   must launch that kernel and never torch's int8 cast route, and the
+   fused int8 FFN once per FFN of both stacks (36 + 12 x 10 = 156);
    one of the 40 sent again alone must give the codes it got in the
    burst. Printed, not held: aggregate frames/s (all frames over the wall
    time from the first submit to the last frame), per-stream frames/s p50
@@ -195,7 +208,8 @@ buckets 128 and 256, offsets 0; every bf16 prefill case with its
 stack's four shapes (cuBLAS on the dequantized W); the kernels' line
 gives each kernel's launches in one replayed P=32 step, read from the
 pools' captured steps (`launches_per_p32_step`); `int8_mm` and
-`int8_mm_fp32` replace `scripts/microbench/matvec_pallas.py:18`.
+`int8_mm_fp32` replace `scripts/microbench/matvec_pallas.py:18`, `int8_ffn`
+and `int8_ffn_fp32` `scripts/microbench/ffn_fused_packed.py:17`.
 
 Each phase sets the kernels' launch counts to 0 before it drives its path
 and reads them after. The line before the last is a JSON object with each
@@ -477,6 +491,7 @@ def kernel_cases(dev):
     cases.update(train_kernel_cases(dev, randn))
     cases.update(quant_kernel_cases(dev, randn))
     cases.update(int8_kernel_cases(dev, randn))
+    cases.update(int8_ffn_kernel_cases(dev, randn))
     torch.cuda.synchronize()
     for name, rows in cases.items():
         for r in rows:
@@ -494,6 +509,9 @@ def kernel_cases(dev):
                      if "device_ms" in r else "")
                   + (f" cast_device_ms={r['cast_device_ms']:.4f}"
                      if "cast_device_ms" in r else "")
+                  + (f" replaced_device_ms={r['replaced_device_ms']:.4f} max_ulps="
+                     f"{r['max_ulps']:.2f} replays_equal={r['replays_equal']}"
+                     if "replaced_device_ms" in r else "")
                   + "".join(f" {k}={v[0]:.3e}/{v[1]:.3e}"
                             for k, v in r.get("outputs", {}).items()))
             ok = r.get("ok", r["max_abs_err"] <= 2e-2 and r["mean_abs_err"] <= 2e-3)
@@ -1012,6 +1030,129 @@ def int8_kernel_cases(dev, randn):
     return cases
 
 
+# s2-pro's int8 FFNs at decode (D, I), w13 fused: the slow and the fast
+# stack (the `mixed` session's slow stack at B=1, both stacks of the int8
+# pool at B=32)
+INT8_FFN_SHAPES = [("slow FFN", 2560, 9728), ("fast FFN", 1536, 6144)]
+# phase 3c's tiny fp32 model's slow FFN
+INT8_FFN_TINY = ("tiny slow FFN", 64, 128)
+
+
+def _replays_equal(fn):
+    """Two replays of one CUDA graph of `fn` give the same bits."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn()
+    graph.replay()
+    first = out.clone()
+    graph.replay()
+    torch.cuda.synchronize()
+    same = torch.equal(first, out)
+    del graph
+    return same
+
+
+def int8_ffn_kernel_cases(dev, randn):
+    """The fused int8 FFN against its plain version: `int8_ffn_mma_kernel`
+    (bf16 x) at s2-pro's slow and fast FFNs and B in {1, 4, 16, 32}, held to
+    2 bf16 ulps of max |y| (the two sum u1 and u3 in another order, so g's
+    rounding can land one step apart), two replays of a graph giving equal
+    bits; `int8_ffn_fp32_kernel` (fp32 x) at phase 3c's tiny slow FFN to
+    1e-5 of max |y|. Each case is timed against the plain version and, from
+    CUDA-graph replays that walk copies of the weights over twice the L2,
+    beside the route it replaces (`replaced_device_ms`: two `int8_matmul`
+    launches with torch's silu * mul between) and the library call
+    (`library_device_ms`: cuBLAS on the dequantized bf16 w13 and w2 with
+    torch's silu * mul)."""
+    import torch
+    import torch.nn.functional as F
+
+    from fish_speech_tpu_torch.ops.int8 import int8_matmul
+    from fish_speech_tpu_torch.ops.int8_ffn import int8_ffn, int8_ffn_reference
+    from fish_speech_tpu_torch.ops.quant import quantize_int8
+
+    def weights(d, i):
+        w1, w3, w2 = (quantize_int8(randn(*shape).float() * 0.02)
+                      for shape in ((d, i), (d, i), (i, d)))
+        return {k: torch.cat([w1[k], w3[k]], dim=-1) for k in ("q", "s")}, w2
+
+    def ulps(got, want):
+        top = want.float().abs().max().item()
+        return (got.float() - want.float()).abs().max().item() / 2.0 ** (
+            np.floor(np.log2(top)) - 7)
+
+    cases = {"int8_ffn": [], "int8_ffn_fp32": []}
+    for name, d, i in INT8_FFN_SHAPES:
+        w13, w2 = weights(d, i)
+        lib13 = (w13["q"].float() * w13["s"]).to(torch.bfloat16)
+        lib2 = (w2["q"].float() * w2["s"]).to(torch.bfloat16)
+        nbytes = 3 * d * i + 4 * (2 * i + d)  # int8 weights and fp32 scales
+        n_w = -(-L2_COLD_BYTES // nbytes)
+        n_lib = -(-L2_COLD_BYTES // (6 * d * i))
+        ws = [({k: v.clone() for k, v in w13.items()}, {k: v.clone() for k, v in w2.items()})
+              for _ in range(n_w)]
+        libs = [(lib13.clone(), lib2.clone()) for _ in range(n_lib)]
+        del lib13, lib2
+        for b in INT8_ROWS:
+            x = randn(b, d)
+            got = int8_ffn(x, w13, w2)
+            plain = int8_ffn_reference(x, w13, w2)
+            err = (got.float() - plain.float()).abs()
+            same = _replays_equal(lambda: int8_ffn(x, w13, w2))
+
+            def replaced(k=0):
+                a, c = ws[k % n_w]
+                u = int8_matmul(x, a["q"], a["s"])
+                return int8_matmul(F.silu(u[:, :i]) * u[:, i:], c["q"], c["s"])
+
+            def library(k=0):
+                a, c = libs[k % n_lib]
+                u = x @ a
+                return (F.silu(u[:, :i]) * u[:, i:]) @ c
+
+            ms, plain_ms = _in_turns(lambda k=0: int8_ffn_reference(x, w13, w2),
+                                     lambda k=0: int8_ffn(x, w13, w2), 100)
+            bound = _bound(6 * b * d * i, nbytes + 4 * b * d)  # x in, y out, bf16
+            cases["int8_ffn"].append(dict(
+                shape=f"{name} B={b} D={d} I={i} bf16", max_abs_err=err.max().item(),
+                mean_abs_err=err.mean().item(), max_ulps=ulps(got, plain),
+                replays_equal=same, ms=ms, plain_ms=plain_ms, bound_ms=bound[0],
+                bound_by=bound[1], library_ms=_library_ms(library, 100),
+                ok=bool(torch.isfinite(got).all()) and ulps(got, plain) <= 2 and same,
+                device_ms=_device_ms(lambda k=0: int8_ffn(x, *ws[k % n_w]), 200),
+                replaced_device_ms=_device_ms(replaced, 200),
+                library_device_ms=_device_ms(library, 200), weight_copies=[n_w, n_lib]))
+            del got, plain, err
+        del w13, w2, ws, libs
+        torch.cuda.empty_cache()
+    name, d, i = INT8_FFN_TINY
+    w13, w2 = weights(d, i)
+    x = randn(1, d).float()
+    got, plain = int8_ffn(x, w13, w2), int8_ffn_reference(x, w13, w2)
+    err = (got - plain).abs()
+    lib13, lib2 = w13["q"].float() * w13["s"], w2["q"].float() * w2["s"]
+
+    def library_fp32(k=0):
+        u = x @ lib13
+        return (F.silu(u[:, :i]) * u[:, i:]) @ lib2
+
+    ms, plain_ms = _in_turns(lambda k=0: int8_ffn_reference(x, w13, w2),
+                             lambda k=0: int8_ffn(x, w13, w2), 200)
+    bound = _bound(6 * d * i, 3 * d * i + 4 * (2 * i + d) + 8 * d, PEAK_FP32)
+    cases["int8_ffn_fp32"].append(dict(
+        shape=f"{name} B=1 D={d} I={i} fp32", max_abs_err=err.max().item(),
+        mean_abs_err=err.mean().item(), ms=ms, plain_ms=plain_ms,
+        bound_ms=bound[0], bound_by=bound[1], library_ms=_library_ms(library_fp32, 200),
+        device_ms=_device_ms(lambda k=0: int8_ffn(x, w13, w2), 200),
+        library_device_ms=_device_ms(library_fp32, 200),
+        ok=bool((err <= 1e-5 * plain.abs().max()).all())))
+    return cases
+
+
 def _tiny_cfg(tokenizer):
     """A tiny model whose slow heads (D=64) the attention kernels take."""
     from fish_speech_tpu_torch.config import dual_ar_tiny
@@ -1078,6 +1219,7 @@ def small_quant_reference(dev, tokenizer):
     from fish_speech_tpu_torch.ops.flash_decode import flash_decode_attention_kv8
     from fish_speech_tpu_torch.ops.int4 import int4_matmul
     from fish_speech_tpu_torch.ops.int8 import int8_matmul
+    from fish_speech_tpu_torch.ops.int8_ffn import int8_ffn
     from fish_speech_tpu_torch.ops.quant import quantize_dual_ar_lowmem
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1091,7 +1233,7 @@ def small_quant_reference(dev, tokenizer):
                         dtype=torch.int32)
     inp[0, 0, 10:30] += cfg.semantic_begin_id
     launches = (int4_matmul.launches, flash_decode_attention_kv8.launches,
-                int8_matmul.launches)
+                int8_matmul.launches, int8_ffn.launches)
     logits = []
     for params, d in ((cpu_params, "cpu"), (gpu_params, dev)):
         cache = dual_ar.init_kv_cache(cfg, 1, 96, torch.float32, d, quant=True)
@@ -1111,10 +1253,12 @@ def small_quant_reference(dev, tokenizer):
     same = codes[0].shape == codes[1].shape and np.array_equal(*codes)
     ran = (int4_matmul.launches > launches[0]
            and flash_decode_attention_kv8.launches > launches[1]
-           and int8_matmul.launches > launches[2])
+           and int8_matmul.launches > launches[2]
+           and int8_ffn.launches > launches[3])
     print(f"small quantized reference (tiny fp32 mixed int8/int4 + int8 KV, card "
           f"kernels vs CPU plain): prefill max_abs_err={err:.3e}, greedy codes "
-          f"{codes[0].shape} identical={same}, int4/kv8/int8 kernels ran={ran}")
+          f"{codes[0].shape} identical={same}, int4/kv8/int8/int8 FFN kernels "
+          f"ran={ran}")
     if err > 1e-4 or not same or not ran:
         raise SystemExit("the quantized kernel path disagrees with the plain "
                          "path on the small reference")
@@ -1741,6 +1885,15 @@ CAST_ROUTE_STEP_MS = {"mixed": 33.952, "int4": 27.004, "pool int8": 53.500,
                 "pool int8 P=1": 47.516}
 
 
+def check_int8_ffn(per_step, label, want):
+    """A replayed decode step runs each of its `want` int8 FFNs (every one
+    has at most 32 rows) as one launch of the fused FFN kernel."""
+    got = per_step.get("int8_ffn.launches", 0)
+    if got != want:
+        raise SystemExit(f"{label}: a replayed decode step launched the fused "
+                         f"int8 FFN {got} times, not {want}")
+
+
 def check_int8_route(per_step, label, required=True):
     """A replayed decode step launches the int8 kernel (where the weights
     hold int8 products) and never torch's cast route: every int8 product
@@ -1766,6 +1919,7 @@ def run_quant_slice(dev, tokenizer):
     from fish_speech_tpu_torch.ops.flash_prefill import flash_prefill_attention
     from fish_speech_tpu_torch.ops.int4 import int4_matmul
     from fish_speech_tpu_torch.ops.int8 import int8_matmul
+    from fish_speech_tpu_torch.ops.int8_ffn import int8_ffn
     from fish_speech_tpu_torch.ops.quant import mm, quantize_dual_ar_lowmem
 
     cfg = _s2_pro_cfg(tokenizer, 2048)
@@ -1813,10 +1967,13 @@ def run_quant_slice(dev, tokenizer):
                         int4_mm_wgmma=int4_matmul.launches_wgmma,
                         int4_mm_fp32_tiled=int4_matmul.launches_fp32_tiled,
                         int8_mm=int8_matmul.launches_gemv_mma,
+                        int8_ffn=int8_ffn.launches_mma,
                         int8_cast=mm.launches_int8_cast)
         peak = torch.cuda.max_memory_allocated(dev) / 2**30
         per_step = check_replayed(session, label)
         check_int8_route(per_step, label)
+        # `mixed`: the slow stack's FFNs are int8, the fast stack's int4
+        check_int8_ffn(per_step, label, cfg.n_layer if label == "mixed" else 0)
         check_codec_replayed(engine, ("decode",), label)
         step_ms = replayed_step_ms(session)
         fast_ms = fast_stack_frame_ms(session)
@@ -1831,7 +1988,7 @@ def run_quant_slice(dev, tokenizer):
         # `mixed` keeps its slow stack int8, so only `int4` prefills in int4;
         # both keep their heads int8
         required = ["int4_mm", "flash_prefill", "int8_mm", *wrappers] + (
-            ["int4_mm_wgmma"] if label == "int4" else [])
+            ["int4_mm_wgmma"] if label == "int4" else ["int8_ffn"])
         if min(launches[k] for k in required) <= 0:
             raise SystemExit(f"{label}: a kernel of the quantized path was never "
                              f"launched: {launches}")
@@ -1844,7 +2001,8 @@ def run_quant_slice(dev, tokenizer):
         print(f"{label}: replayed decode step {step_ms:.3f} ms against "
               f"{CAST_ROUTE_STEP_MS[label]} ms before the int8 kernel (an earlier run "
               f"of this script); int8 kernel launches per replayed step "
-              f"{per_step.get('int8_matmul.launches', 0)}")
+              f"{per_step.get('int8_matmul.launches', 0)}, fused int8 FFN "
+              f"{per_step.get('int8_ffn.launches', 0)}")
         out[label] = dict(rows=rows, launches=launches, peak_gib=peak,
                           weight_bytes=weight_bytes, fast_stack_ms=fast_ms,
                           step_ms=step_ms, launches_per_step=per_step,
@@ -2332,6 +2490,7 @@ def run_pool(dev, tokenizer, p1_step_ms):
         flash_decode_attention, flash_decode_attention_kv8)
     from fish_speech_tpu_torch.ops.flash_prefill import flash_prefill_attention
     from fish_speech_tpu_torch.ops.int8 import int8_matmul
+    from fish_speech_tpu_torch.ops.int8_ffn import int8_ffn
     from fish_speech_tpu_torch.ops.quant import quantize_dual_ar_lowmem
 
     t_phase = time.perf_counter()
@@ -2381,7 +2540,8 @@ def run_pool(dev, tokenizer, p1_step_ms):
         launches = {"flash_decode": flash_decode_attention.launches,
                     "flash_decode_kv8": flash_decode_attention_kv8.launches,
                     "flash_prefill": flash_prefill_attention.launches_wgmma,
-                    "int8_mm": int8_matmul.launches_gemv_mma}
+                    "int8_mm": int8_matmul.launches_gemv_mma,
+                    "int8_ffn": int8_ffn.launches_mma}
         stats = batcher.stats()
         frames = sum(r["frames"] for r in rows)
         wall = max(r["last"] for r in rows) - t_submit
@@ -2401,8 +2561,8 @@ def run_pool(dev, tokenizer, p1_step_ms):
         if batcher.eager_runs or batcher.replays["decode"] <= 0 or prefills <= 0:
             raise SystemExit(f"pool {label}: a step or prefill ran eagerly on the "
                              f"card, or a graph never replayed")
-        need = ["flash_prefill"] + (["flash_decode_kv8", "int8_mm"] if quant
-                                    else ["flash_decode"])
+        need = ["flash_prefill"] + (["flash_decode_kv8", "int8_mm", "int8_ffn"]
+                                    if quant else ["flash_decode"])
         if min(launches[k] for k in need) <= 0:
             raise SystemExit(f"pool {label}: a kernel of the path was never "
                              f"launched: {launches}")
@@ -2416,13 +2576,18 @@ def run_pool(dev, tokenizer, p1_step_ms):
             raise SystemExit(f"pool {label}: the repeated request gave other codes")
         per_step = batcher.launches_per_replay("decode")
         check_int8_route(per_step, f"pool {label}", required=quant)
+        # int8: every FFN of both stacks (the slow step's and the fast
+        # stack's per codebook column)
+        check_int8_ffn(per_step, f"pool {label}",
+                       cfg.n_layer + cfg.n_fast_layer * cfg.num_codebooks if quant else 0)
         step_ms = pool_step_ms(batcher)
         peak = torch.cuda.max_memory_allocated(dev) / 2**30
         print(f"pool {label} replayed step at P=32: {step_ms:.3f} ms of device time "
               f"({32e3 / step_ms:.1f} row-steps/s); launches per step {per_step}; "
               f"peak device memory {peak:.2f} GiB"
               + (f"; int8 kernel launches per step "
-                 f"{per_step.get('int8_matmul.launches', 0)}, before the int8 "
+                 f"{per_step.get('int8_matmul.launches', 0)}, fused int8 FFN "
+                 f"{per_step.get('int8_ffn.launches', 0)}, before the int8 "
                  f"kernel the step took {CAST_ROUTE_STEP_MS['pool int8']} ms (an earlier "
                  f"run of this script)" if quant else ""))
         row = dict(frames_per_s=frames / wall, fps_p50=_pct(fps, 50), fps_min=min(fps),
@@ -2467,11 +2632,12 @@ def run_pool(dev, tokenizer, p1_step_ms):
 
 def _zero_counts():
     """Set every kernel wrapper's launch counts to 0 (per route too)."""
-    from fish_speech_tpu_torch.ops import flash_prefill, flash_train, int4, int8, quant
+    from fish_speech_tpu_torch.ops import (flash_prefill, flash_train, int4, int8,
+                                           int8_ffn, quant)
 
     for f in _kernel_wrappers():
         f.launches = 0
-    for mod in (flash_prefill, flash_train, int4, int8, quant):
+    for mod in (flash_prefill, flash_train, int4, int8, int8_ffn, quant):
         mod.reset_launches()
 
 
@@ -2484,10 +2650,11 @@ def _kernel_wrappers():
                                                        flash_train_forward)
     from fish_speech_tpu_torch.ops.int4 import int4_matmul
     from fish_speech_tpu_torch.ops.int8 import int8_matmul
+    from fish_speech_tpu_torch.ops.int8_ffn import int8_ffn
 
     return (flash_prefill_attention, flash_decode_attention, flash_train_forward,
             flash_train_backward, int4_matmul, flash_decode_attention_kv8,
-            faststack_probe, int8_matmul)
+            faststack_probe, int8_matmul, int8_ffn)
 
 
 SRC = "fish_speech_tpu_torch/csrc/"
@@ -2518,18 +2685,22 @@ KERNELS = {  # name: (source, the TPU kernel or JAX code it replaces)
                         "fish_speech_tpu/ops/pallas_faststack.py:136"),
     "int8_mm": (SRC + "int8_mm.cu", "scripts/microbench/matvec_pallas.py:18"),
     "int8_mm_fp32": (SRC + "int8_mm.cu", "scripts/microbench/matvec_pallas.py:18"),
+    "int8_ffn": (SRC + "int8_ffn.cu", "scripts/microbench/ffn_fused_packed.py:17"),
+    "int8_ffn_fp32": (SRC + "int8_ffn.cu", "scripts/microbench/ffn_fused_packed.py:17"),
 }
 # headline shapes: the long request's prefill bucket, a 257-long cache, the
 # B=2 x T=1024 fine-tune shape, the slow w13 at B=1 (matvec route) and at
 # B=1024 (tensor-core route), a 257-long int8 cache, the probe at R=0 in
 # bf16; the fp32 attention routes' one small case each, the tiny slow
 # cache and the tiny fast wqkv for the fp32 decode and matvec; the int8
-# matmul on the slow w13 at B=1 and the tiny slow wqkv in fp32
+# matmul on the slow w13 at B=1 and the tiny slow wqkv in fp32; the fused
+# int8 FFN on the slow FFN at B=1 and the tiny slow FFN in fp32
 HEADLINE = {"flash_prefill": 1, "flash_prefill_fp32": 0, "flash_decode": 1,
             "flash_decode_fp32": 0, "flash_train_fwd": 0, "flash_train_fwd_fp32": 0,
             "flash_train_bwd": 0, "flash_train_bwd_fp32": 0, "int4_mm": 2,
             "int4_mm_wgmma": 6, "int4_mm_fp32": 0, "flash_decode_kv8": 1,
-            "faststack_probe": 0, "int8_mm": 2 * len(INT8_ROWS), "int8_mm_fp32": 0}
+            "faststack_probe": 0, "int8_mm": 2 * len(INT8_ROWS), "int8_mm_fp32": 0,
+            "int8_ffn": 0, "int8_ffn_fp32": 0}
 # the kernels whose SASS must hold HGMMA (wgmma) instructions
 WGMMA_KERNELS = ("int4_wgmma_kernel", "train_fwd_wgmma_kernel",
                  "prefill_wgmma_kernel", "train_bwd_dkdv_wgmma_kernel",
@@ -2543,12 +2714,15 @@ def _ptxas_report(build_log):
     name = None
     for line in build_log.read_text().splitlines():
         if "Compiling entry function" in line:
-            name = next((k for k in (*WGMMA_KERNELS, "int8_gemv_mma_kernel")
-                         if k in line), None)
+            name = next((k for k in (*WGMMA_KERNELS, "int8_gemv_mma_kernel",
+                                     "int8_ffn_mma_kernel") if k in line), None)
             dims = "<64>" if "ILi64E" in line else "<128>" if "ILi128E" in line else ""
             int8 = re.search(r"int8_gemv_mma_kernelILi(\d)ELb(\d)E", line)
             if int8:
                 dims = f"<{int8[1]} n8 tiles, {'TMA' if int8[2] == '1' else 'copy'}>"
+            ffn = re.search(r"int8_ffn_mma_kernelILi(\d)E", line)
+            if ffn:
+                dims = f"<{ffn[1]} n8 tiles>"
         elif name and ("spill" in line or "Used" in line):
             print(f"ptxas {name}{dims}: {line.strip()}")
         if "C7513" in line:
@@ -2629,6 +2803,7 @@ def main():
                                                        flash_train_forward)
     from fish_speech_tpu_torch.ops.int4 import int4_matmul
     from fish_speech_tpu_torch.ops.int8 import int8_matmul
+    from fish_speech_tpu_torch.ops.int8_ffn import int8_ffn
 
     # the fp32 routes run in the tiny fp32 models' phases (phase 3's decode
     # is all fp32, so its launches are the fp32 route's)
@@ -2644,6 +2819,7 @@ def main():
     small_quant_reference(dev, tokenizer)
     fp32_launches["int4_mm_fp32"] = int4_matmul.launches_gemv
     fp32_launches["int8_mm_fp32"] = int8_matmul.launches_gemv
+    fp32_launches["int8_ffn_fp32"] = int8_ffn.launches_cuda_cores
     print(f"fp32 routes' launches in phases 3, 3b and 3c: {fp32_launches}")
     if min(fp32_launches.values()) <= 0:
         raise SystemExit("an fp32 route was never launched")
@@ -2662,19 +2838,22 @@ def main():
     launches["int4_mm_wgmma"] = quant["int4"]["launches"]["int4_mm_wgmma"]
     launches["flash_decode_kv8"] = quant["mixed"]["launches"]["flash_decode_kv8"]
     launches["int8_mm"] = sum(row["launches"]["int8_mm"] for row in quant.values())
+    launches["int8_ffn"] = sum(row["launches"]["int8_ffn"] for row in quant.values())
     cases["faststack_probe"], launches["faststack_probe"] = run_probe(
         dev, quant["mixed"]["fast_stack_ms"])
     gc.collect()  # the probe's weights go before the pool
     torch.cuda.empty_cache()
     pool = run_pool(dev, tokenizer, p1_step_ms)
     for row in pool.values():
-        for name in ("flash_decode", "flash_decode_kv8", "flash_prefill", "int8_mm"):
+        for name in ("flash_decode", "flash_decode_kv8", "flash_prefill", "int8_mm",
+                     "int8_ffn"):
             launches[name] += row["launches"][name]
     per_step = {}  # launches of each kernel in one replayed P=32 step
     for label, name, counter in (
             ("bf16", "flash_decode", "flash_decode_attention.launches"),
             ("int8", "flash_decode_kv8", "flash_decode_attention_kv8.launches"),
-            ("int8", "int8_mm", "int8_matmul.launches_gemv_mma")):
+            ("int8", "int8_mm", "int8_matmul.launches_gemv_mma"),
+            ("int8", "int8_ffn", "int8_ffn.launches_mma")):
         per_step[name] = pool[label]["per_step"].get(counter, 0)
     # the pools are bf16 and int8: each pool's count of the int4 tensor-core
     # route's launches in its captured step

@@ -69,4 +69,38 @@ __device__ __forceinline__ int atomic_add_acq_rel(int* p, int v) {
   return old;
 }
 
+// A wait that outlasts this ends the launch with an error (a trap) instead
+// of hanging the card: the kernels that wait on other blocks or on copies
+// take milliseconds.
+constexpr uint64_t kStuckNs = 10000000000ull;
+
+__device__ __forceinline__ uint64_t now_ns() {
+  uint64_t t;
+  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
+  return t;
+}
+
+// One thread of every block of a co-resident grid, after its block's sync:
+// returns once every block has arrived, and all stores a block made before
+// its sync are then seen by the loads of every block after its next sync.
+// The top bit of *bar flips once all blocks have arrived (block 0 adds
+// 2^31 - (blocks - 1), the others 1, so the low bits come back unchanged
+// and the word needs no reset: the scheme of cooperative groups' grid
+// sync); a release add to arrive, acquire loads to wait (CUTLASS's generic
+// barrier does the same; a __threadfence on each side instead was slower).
+__device__ __forceinline__ void grid_arrive_wait(unsigned* bar) {
+  const unsigned inc = blockIdx.x == 0 ? 0x80000000u - (gridDim.x - 1) : 1u;
+  unsigned old;  // the release publishes the block's stores (after the sync)
+  asm volatile("atom.release.gpu.global.add.u32 %0, [%1], %2;\n"
+               : "=r"(old) : "l"(bar), "r"(inc) : "memory");
+  const uint64_t t0 = now_ns();
+  unsigned now;
+  for (unsigned n = 1;; ++n) {
+    asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n"
+                 : "=r"(now) : "l"(bar) : "memory");
+    if ((old ^ now) & 0x80000000u) break;
+    if (n % 256 == 0 && now_ns() - t0 > kStuckNs) __trap();
+  }
+}
+
 }  // namespace fs

@@ -88,24 +88,6 @@ struct Probe {
   int df, dqkv, inter, n_layer, steps, r_resident, n_slots, part;
 };
 
-// A wait that outlasts this ends the launch with an error (a trap) instead
-// of hanging the card: a frame takes milliseconds.
-constexpr uint64_t kStuckNs = 10000000000ull;
-
-__device__ __forceinline__ uint64_t now_ns() {
-  uint64_t t;
-  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
-  return t;
-}
-
-// waits for an mbarrier's phase `parity` (or traps, see kStuckNs)
-__device__ __forceinline__ void slot_wait(uint64_t* bar, uint32_t parity) {
-  if (fs::tma::bar_try_wait(bar, parity)) return;
-  const uint64_t t0 = now_ns();
-  for (unsigned n = 1; !fs::tma::bar_try_wait(bar, parity); ++n)
-    if (n % 256 == 0 && now_ns() - t0 > kStuckNs) __trap();
-}
-
 // the consumer threads of the block (the producer warp never joins)
 __device__ __forceinline__ void consumer_sync() {
   asm volatile("bar.sync 1, %0;\n" :: "n"(NC) : "memory");
@@ -118,20 +100,7 @@ __device__ __forceinline__ void consumer_sync() {
 // side instead, as cooperative groups' grid sync has, was slower).
 __device__ void grid_sync(unsigned* bar) {
   consumer_sync();
-  if (threadIdx.x == 0) {
-    const unsigned inc = blockIdx.x == 0 ? 0x80000000u - (gridDim.x - 1) : 1u;
-    unsigned old;  // the release publishes the block's stores (after the sync)
-    asm volatile("atom.release.gpu.global.add.u32 %0, [%1], %2;\n"
-                 : "=r"(old) : "l"(bar), "r"(inc) : "memory");
-    const uint64_t t0 = now_ns();
-    unsigned now;
-    for (unsigned n = 1;; ++n) {
-      asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n"
-                   : "=r"(now) : "l"(bar) : "memory");
-      if ((old ^ now) & 0x80000000u) break;
-      if (n % 256 == 0 && now_ns() - t0 > kStuckNs) __trap();
-    }
-  }
+  if (threadIdx.x == 0) fs::grid_arrive_wait(bar);
   consumer_sync();  // the acquire orders the block's loads after the flip
 }
 
@@ -230,7 +199,7 @@ __device__ void produce(const Probe& a, unsigned char* ring, uint64_t* full,
       const int quads = s.in / 4, cq = chunk_quads(s.nu);
       for (int q0 = 0; q0 < quads; q0 += cq, at.next(a.n_slots)) {
         // the slot's previous chunk was released (a fresh barrier passes)
-        slot_wait(&empty[at.slot], at.phase ^ 1);
+        fs::tma::bar_wait_or_trap(&empty[at.slot], at.phase ^ 1);
         const uint32_t bytes = (uint32_t)(min(cq, quads - q0) * 16 * s.nu);
         fs::tma::bar_expect(&full[at.slot], bytes);
         fs::tma::load_1d(ring + (size_t)at.slot * SLOT,
@@ -318,7 +287,7 @@ __device__ void matvec(const Probe& a, int m, const Strip& s, const float* sc,
   const int step = P * s.nu;  // uint4s between this thread's quads
   int r = p;                  // (p - q0) mod P: its first quad is q0 + r
   for (int q0 = 0; q0 < quads; q0 += cq, at.next(a.n_slots)) {
-    slot_wait(&full[at.slot], at.phase);
+    fs::tma::bar_wait_or_trap(&full[at.slot], at.phase);
     const int q1 = min(q0 + cq, quads);
     if (active) {
       // its quads q = p (mod P) of the chunk, in order, four loads at a time
@@ -389,7 +358,7 @@ __device__ void drain(const Probe& a, const Strip* st, uint64_t* full,
       const Strip& s = st[m];
       if (s.nu == 0) continue;
       for (int q0 = 0; q0 < s.in / 4; q0 += chunk_quads(s.nu), at.next(a.n_slots)) {
-        slot_wait(&full[at.slot], at.phase);
+        fs::tma::bar_wait_or_trap(&full[at.slot], at.phase);
         __syncwarp();
         if ((threadIdx.x & 31) == 0) fs::tma::bar_arrive(&empty[at.slot]);
       }

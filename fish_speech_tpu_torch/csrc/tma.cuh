@@ -23,6 +23,7 @@
 #include <mutex>
 #include <unordered_map>
 
+#include "common.cuh"
 #include "wgmma.cuh"
 
 namespace fs {
@@ -176,6 +177,20 @@ __device__ __forceinline__ bool bar_try_wait(uint64_t* bar, uint32_t parity) {
       "}\n"
       : "=r"(done) : "r"(wg::smem_u32(bar)), "r"(parity) : "memory");
   return done != 0;
+}
+
+// orders this thread's generic-proxy writes to shared memory before later
+// async-proxy (TMA) writes to it, once a barrier follows
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// bar_wait, or a trap once the wait outlasts kStuckNs (common.cuh)
+__device__ __forceinline__ void bar_wait_or_trap(uint64_t* bar, uint32_t parity) {
+  if (bar_try_wait(bar, parity)) return;
+  const uint64_t t0 = now_ns();
+  for (unsigned n = 1; !bar_try_wait(bar, parity); ++n)
+    if (n % 256 == 0 && now_ns() - t0 > kStuckNs) __trap();
 }
 
 // the box at (x, y, z) of a rank-3 map into dst, counted on bar

@@ -58,6 +58,7 @@ from fish_speech_tpu_torch.ops.flash_decode import (
 from fish_speech_tpu_torch.ops.flash_prefill import flash_prefill_attention
 from fish_speech_tpu_torch.ops.int4 import int4_matmul
 from fish_speech_tpu_torch.ops.int8 import int8_matmul
+from fish_speech_tpu_torch.ops.int8_ffn import int8_ffn
 from fish_speech_tpu_torch.ops.quant import fp32_scales, mm
 from fish_speech_tpu_torch.ops.sampling import (TOP_K_CAP, UNIFORM_FAST,
                                                  UNIFORM_RAS, UNIFORM_SLOW,
@@ -393,7 +394,7 @@ def prefill_group_body(params, cfg: DualARConfig, scfg: SamplingConfig,
 # the wrappers whose launch counters a captured graph's replays add to
 # (`mm`'s count the int8 products by route: the kernel, or torch's cast)
 _WRAPPERS = (flash_decode_attention, flash_decode_attention_kv8,
-             flash_prefill_attention, int4_matmul, int8_matmul, mm)
+             flash_prefill_attention, int4_matmul, int8_matmul, int8_ffn, mm)
 
 
 def _launch_counts():

@@ -29,7 +29,8 @@ where its LoRA exists, as the JAX package does.
 
 Quantized weights (`ops/quant.py`: int8 {"q","s"}, int4 {"p","gs"}) may
 stand for any projection weight and for the untied heads; every product
-goes through `mm`.
+goes through `mm`, except an int8 FFN of up to 32 rows without LoRA, which
+runs as one fused product, `ops/int8_ffn.py:int8_ffn` (`_ffn`).
 
 Activations are (B, T, H, Dh); the KV caches are (L, B, S, Hkv, Dh) and are
 written IN PLACE (JAX threads them functionally; here the returned cache is
@@ -57,8 +58,10 @@ from fish_speech_tpu_torch.ops.flash_decode import (
     flash_decode_attention, flash_decode_attention_kv8)
 from fish_speech_tpu_torch.ops.flash_prefill import flash_prefill_attention
 from fish_speech_tpu_torch.ops.flash_train import flash_train_attention
+from fish_speech_tpu_torch.ops.int8_ffn import MAX_ROWS as INT8_FFN_ROWS
+from fish_speech_tpu_torch.ops.int8_ffn import int8_ffn
 from fish_speech_tpu_torch.ops.norms import rms_norm
-from fish_speech_tpu_torch.ops.quant import mm
+from fish_speech_tpu_torch.ops.quant import fp32_scales, mm
 from fish_speech_tpu_torch.ops.rope import apply_rope, rope_table
 from fish_speech_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
 
@@ -329,7 +332,25 @@ def _attn_out(lp, spec, y):
     return out
 
 
+def _takes_int8_ffn(lp, rows):
+    """Whether the layer's FFN over `rows` rows runs `int8_ffn`: every FFN
+    weight int8, no LoRA on w1, w3 or w2, and 1 to 32 rows (more rows, int4,
+    bf16 and LoRA layers keep `mm` and torch's gate)."""
+    names = ("w13", "w2") if "w13" in lp else ("w1", "w3", "w2")
+    lora = lp.get("lora", {})
+    return (0 < rows <= INT8_FFN_ROWS
+            and all(isinstance(lp[n], dict) and "q" in lp[n] for n in names)
+            and not any(n in lora for n in ("w1", "w3", "w2")))
+
+
 def _ffn(lp, spec, h2):
+    rows = h2.numel() // h2.shape[-1]
+    if _takes_int8_ffn(lp, rows):
+        # the kernel takes fp32 scales: a no-op on the trees of `fp32_scales`
+        w13 = fp32_scales(lp["w13"] if "w13" in lp else (lp["w1"], lp["w3"]))
+        y = int8_ffn(h2.reshape(rows, h2.shape[-1]).contiguous(), w13,
+                     fp32_scales(lp["w2"]))
+        return y.reshape(h2.shape)
     lora_scale = spec[4]
     if "w13" in lp:  # fused w1|w3 (`fuse_ffn_weights`); LoRA stays split
         u = mm(h2, lp["w13"])

@@ -131,6 +131,13 @@ def load_kernels() -> ctypes.CDLL:
         ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, i32, i32, ptr
     ]
     lib.fs_int8_matmul.restype = i32
+    lib.fs_int8_ffn.argtypes = [
+        ptr, ptr, ptr, i32, ptr, ptr, ptr, i32, ptr, ptr, ptr, ptr,
+        i32, i32, i32, i32, i32, i32, i32, i32, i32, i32, ptr
+    ]
+    lib.fs_int8_ffn.restype = i32
+    lib.fs_int8_ffn_blocks.argtypes = [i32, i32, ptr]
+    lib.fs_int8_ffn_blocks.restype = i32
     lib.fs_faststack_probe.argtypes = [
         ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, i32, i32,
         i32, ptr

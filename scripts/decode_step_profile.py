@@ -33,6 +33,7 @@ CLASSES = [  # (class, substrings of the kernel name), first match wins
     ("decode attention (hand-written)", ("decode_",)),
     ("int4 matvec (hand-written)", ("int4_",)),
     ("int8 matvec (hand-written)", ("int8_gemv",)),
+    ("int8 FFN (hand-written)", ("int8_ffn",)),
     ("cuBLAS products", ("gemm", "gemv", "sm90_", "cutlass", "nvjet", "xmma")),
     ("top-k and sort", ("topk", "sort", "radix", "bitonic")),
     ("copies and casts", ("copy", "cast", "cat_", "catarray", "index")),

@@ -38,6 +38,17 @@ within 2^-8 |y| (its one rounding of y) + 1e-5 of (|x| @ |q|) * s (the
 order of the fp32 sums) of the plain version summed in fp32, fp32 within
 1e-5 of (|x| @ |q|) * s; one launch, only the output allocated, the same
 bits twice and under a CUDA graph.
+
+The fused int8 FFN (`csrc/int8_ffn.cu`, `ops/int8_ffn.py`) runs at s2-pro's
+slow and fast FFNs, the graph tests' small model and a ragged I, at B in
+{1, 4, 16, 32}: bf16 (tensor cores) within 2 bf16 ulps of max |y| of the
+plain version (the two sum u in another order, so g's rounding can land
+one step apart), fp32 (CUDA cores) within 1e-5 of max |y|; the w13 and
+(w1, w3) forms and `dual_ar._ffn`'s route give the same bits; one launch,
+only the output allocated; the same bits twice and on two graph replays;
+`_check` refuses on card tensors what the kernels do not take; the decode
+graphs of a `mixed` session and of an int8 pool launch it once per int8
+FFN of the step.
 """
 
 import numpy as np
@@ -54,6 +65,8 @@ from fish_speech_tpu_torch.ops.int4 import (_route, int4_matmul,
                                              int4_matmul_reference)
 from fish_speech_tpu_torch.ops.int8 import _route as int8_route
 from fish_speech_tpu_torch.ops.int8 import int8_matmul, int8_matmul_reference
+from fish_speech_tpu_torch.ops.int8_ffn import _route as ffn_route
+from fish_speech_tpu_torch.ops.int8_ffn import int8_ffn, int8_ffn_reference
 from fish_speech_tpu_torch.ops.quant import (_int4_effective_weight, mm,
                                              quantize_int4)
 from fish_speech_tpu_torch.ops.flash_prefill import _route as prefill_route
@@ -1062,3 +1075,140 @@ def test_mm_routes_int8_products_by_rows(dev):
     prefill = session.launches_per_replay("prefill_64")
     assert prefill.get("int8_matmul.launches_gemv_mma", 0) >= 1, prefill
     assert prefill.get("mm.launches_int8_cast", 0) == 4 * session.cfg.n_layer, prefill
+
+
+# the int8 FFNs (D, I): s2-pro's slow and fast stacks, the graph tests'
+# small model, a ragged I (phase A's last tile part past I)
+FFN_SHAPES = [(2560, 9728), (1536, 6144), (256, 512), (128, 400)]
+
+
+def _ffn_weights(d, i, seed, dev):
+    """The fused w13 {"q": (D, 2I), "s": (2I,)} and w2 {"q": (I, D), "s":
+    (D,)}: random int8, scales that keep u and y near unit size."""
+    gen = torch.Generator().manual_seed(seed)
+    q13 = torch.randint(-127, 128, (d, 2 * i), generator=gen, dtype=torch.int8)
+    q2 = torch.randint(-127, 128, (i, d), generator=gen, dtype=torch.int8)
+    s13 = (torch.rand(2 * i, generator=gen) + 0.5) / (73.0 * d ** 0.5)
+    s2 = (torch.rand(d, generator=gen) + 0.5) / (73.0 * i ** 0.5)
+    return ({"q": q13.to(dev), "s": s13.to(dev)}, {"q": q2.to(dev), "s": s2.to(dev)})
+
+
+def _ffn_close(got, want, dtype):
+    """bf16: 2 ulps of max |y| (2^-6 of the largest power of 2 below it);
+    fp32: 1e-5 of max |y|."""
+    err = (got.float() - want.float()).abs().max().item()
+    top = want.float().abs().max().item()
+    bound = 2 * 2.0 ** (np.floor(np.log2(top)) - 7) if dtype == torch.bfloat16 else 1e-5 * top
+    assert err <= bound, (err, bound, top)
+
+
+@pytest.mark.parametrize("d,i", FFN_SHAPES)
+def test_int8_ffn_kernel_matches_plain(dev, d, i):
+    from fish_speech_tpu_torch.models.dual_ar import _ffn
+
+    rng = np.random.default_rng(d + i)
+    w13, w2 = _ffn_weights(d, i, d * i, dev)
+    pair = ({"q": w13["q"][:, :i].contiguous(), "s": w13["s"][:i].contiguous()},
+            {"q": w13["q"][:, i:].contiguous(), "s": w13["s"][i:].contiguous()})
+    for dtype in (torch.bfloat16, torch.float32):
+        for b in (1, 4, 16, 32):
+            x = _randn(rng, (b, d), dtype, dev)
+            route = f"launches_{ffn_route(b, dtype)}"
+            n0, r0 = int8_ffn.launches, getattr(int8_ffn, route)
+            got = int8_ffn(x, w13, w2)
+            torch.cuda.synchronize()
+            assert int8_ffn.launches == n0 + 1 and got.dtype == dtype
+            assert getattr(int8_ffn, route) == r0 + 1
+            assert bool(torch.isfinite(got).all())
+            _ffn_close(got, int8_ffn_reference(x, w13, w2), dtype)
+            # the split form and the model's route: the same kernel, the same bits
+            assert torch.equal(int8_ffn(x, pair, w2), got)
+            assert torch.equal(_ffn({"w13": w13, "w2": w2}, (0,) * 5, x[:, None])[:, 0], got)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_int8_ffn_launches_once_and_allocates_only_the_output(dev, dtype):
+    rng = np.random.default_rng(4)
+    for b, d, i in [(1, 2560, 9728), (32, 1536, 6144)]:
+        w13, w2 = _ffn_weights(d, i, 5, dev)
+        x = _randn(rng, (b, d), dtype, dev)
+        route = f"launches_{ffn_route(b, dtype)}"
+        _, launched, made = _one_call(lambda: int8_ffn(x, w13, w2),
+                                      [(int8_ffn, "launches"), (int8_ffn, route)])
+        assert launched == [1, 1] and made == 1  # the output only
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b", [1, 32])
+def test_int8_ffn_is_deterministic_and_graph_capturable(dev, dtype, b):
+    """Two calls give the same bits (runs added in one order, no atomics on
+    data); a CUDA graph of the call replayed twice gives the same bits, and
+    after x changes in place it equals the eager call on the new x. The
+    slow FFN: both phases split, the grid barrier and the tile counters
+    reused by every replay."""
+    rng = np.random.default_rng(12 + b)
+    w13, w2 = _ffn_weights(2560, 9728, 7, dev)
+    x = _randn(rng, (b, 2560), dtype, dev)
+    first, second = int8_ffn(x, w13, w2), int8_ffn(x, w13, w2)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    graph = torch.cuda.CUDAGraph()
+    n0 = int8_ffn.launches
+    with torch.cuda.graph(graph):
+        captured = int8_ffn(x, w13, w2)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(captured, first)
+    x.copy_(_randn(rng, x.shape, x.dtype, dev))
+    graph.replay()
+    again = captured.clone()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert int8_ffn.launches == n0 + 1
+    assert torch.equal(captured, again)
+    assert torch.equal(captured, int8_ffn(x, w13, w2))
+    assert not torch.equal(captured, first)
+
+
+def test_int8_ffn_check_refuses_on_the_card(dev):
+    w13, w2 = _ffn_weights(256, 512, 1, dev)
+    x = torch.zeros(2, 256, dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError, match="rows"):
+        int8_ffn(torch.zeros(33, 256, dtype=torch.bfloat16, device=dev), w13, w2)
+    with pytest.raises(TypeError):
+        int8_ffn(x.half(), w13, w2)
+    with pytest.raises(ValueError, match="16-byte"):  # x off a 16-byte boundary
+        int8_ffn(torch.zeros(2 * 256 + 1, dtype=torch.bfloat16, device=dev)[1:].view(2, 256),
+                 w13, w2)
+    small13, small2 = _ffn_weights(64, 128, 1, dev)
+    with pytest.raises(ValueError, match="TMA"):  # bf16 below one 128-byte box
+        int8_ffn(torch.zeros(1, 64, dtype=torch.bfloat16, device=dev), small13, small2)
+    # the fp32 route takes them
+    y = int8_ffn(torch.ones(1, 64, device=dev), small13, small2)
+    torch.cuda.synchronize()
+    _ffn_close(y, int8_ffn_reference(torch.ones(1, 64, device=dev), small13, small2),
+               torch.float32)
+    with pytest.raises(ValueError, match="CUDA device"):
+        int8_ffn(x, w13, {"q": w2["q"].cpu(), "s": w2["s"]})
+
+
+def test_decode_graphs_run_every_int8_ffn_on_the_fused_kernel(dev):
+    """The `mixed` session's replayed step: one fused FFN per slow layer
+    (the fast stack is int4); the int8 pool's: one per slow layer and per
+    fast layer of every codebook column; neither casts an int8 weight."""
+    session = _graph_session(dev, "mixed")
+    session.precompile(40, 8, 2)
+    cfg = session.cfg
+    per_step = session.launches_per_replay("decode")
+    assert per_step.get("int8_ffn.launches_mma", 0) == cfg.n_layer, per_step
+    assert per_step.get("mm.launches_int8_cast", 0) == 0, per_step
+    del session
+    b = _graph_pool(dev, "int8")
+    try:
+        b.precompile((64,))
+        per_step = b.launches_per_replay("decode")
+        want = cfg.n_layer + cfg.n_fast_layer * cfg.num_codebooks
+        assert per_step.get("int8_ffn.launches_mma", 0) == want, per_step
+        assert per_step.get("mm.launches_int8_cast", 0) == 0, per_step
+    finally:
+        b.shutdown()
