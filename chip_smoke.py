@@ -14,8 +14,9 @@ Phases, each of which ends the run with a nonzero exit if it fails:
    backward's two kernels (`train_bwd_dkdv_wgmma_kernel`,
    `train_bwd_dq_wgmma_kernel`), none of which may be 0, and the blocks
    per SM of the backward's two kernels (CUDA's occupancy calculator);
-   ptxas' report covers the int8 matvec (`int8_gemv_mma_kernel`) and the
-   fused int8 FFN (`int8_ffn_mma_kernel`) too;
+   ptxas' report covers the int8 matvec's kernels (`int8_gemv_mma_kernel`,
+   `int8_gemv_cluster_kernel`) and the fused int8 FFN
+   (`int8_ffn_mma_kernel`) too;
 2. each kernel against its plain PyTorch version at the main paths' shapes,
    in bf16 from N(0,1) inputs (pass: max abs error <= 2e-2, mean <= 2e-3,
    the bound of bf16 rounding of P before P.V in the plain version; the
@@ -56,12 +57,15 @@ Phases, each of which ends the run with a nonzero exit if it fails:
    plain causal and the mask tensor where padding or offsets need it, the
    best of three runs for the attention cases; cuBLAS on the dequantized
    weight);
-   the int8 matmul's tensor-core kernel (`int8_gemv_mma_kernel`, bf16 x)
-   runs at every int8 shape of the serving paths (the slow and fast stacks'
-   eight, the full LM head, the semantic head's 4097 columns as a view of
-   rows 16 bytes apart, the fast head) at B = 1, 4, 16 and 32, held to
-   2^-8 |y| + 1e-5 (|x| @ |q|) * s of the plain version summed in fp32, its
-   CUDA-core kernel (`int8_gemv_kernel`, fp32 x) at phase 3c's tiny shapes
+   the int8 matmul's tensor-core kernels (bf16 x: `int8_gemv_mma_kernel`
+   at 1-16 rows, `int8_gemv_cluster_kernel` at 17-32, split-K runs summed
+   in a thread block cluster's shared memory) run at every int8 shape of
+   the serving paths (the slow and fast stacks' eight, the full LM head,
+   the semantic head's 4097 columns as a view of rows 16 bytes apart, the
+   fast head) at B = 1, 4, 16 and 32, held to 2^-8 |y| + 1e-5 (|x| @ |q|)
+   * s of the plain version summed in fp32 and to equal bits on two
+   replays of a graph, its CUDA-core kernel (`int8_gemv_kernel`, fp32 x) at
+   phase 3c's tiny shapes
    to 1e-5 (|x| @ |q|) * s; each prints `device_ms`, cuBLAS on the
    dequantized bf16 W (`library_device_ms`) and the cast route it replaces
    (`cast_device_ms`, `x @ q.to(bf16) * s.to(bf16)`), all from graphs
@@ -207,8 +211,9 @@ buckets 128 and 256, offsets 0; every bf16 prefill case with its
 `device_ms` and SDPA's), and `int4_wgmma_kernel` at B=32 on the slow
 stack's four shapes (cuBLAS on the dequantized W); the kernels' line
 gives each kernel's launches in one replayed P=32 step, read from the
-pools' captured steps (`launches_per_p32_step`); `int8_mm` and
-`int8_mm_fp32` replace `scripts/microbench/matvec_pallas.py:18`, `int8_ffn`
+pools' captured steps (`launches_per_p32_step`); `int8_mm` (1-16 rows),
+`int8_mm_cluster` (17-32 rows: the pool's step) and `int8_mm_fp32` replace
+`scripts/microbench/matvec_pallas.py:18`, `int8_ffn`
 and `int8_ffn_fp32` `scripts/microbench/ffn_fused_packed.py:17`.
 
 Each phase sets the kernels' launch counts to 0 before it drives its path
@@ -507,8 +512,8 @@ def kernel_cases(dev):
                      f"{r['library_device_ms']:.4f} wrapper_host_ms="
                      f"{max(0.0, r['ms'] - r['device_ms']):.4f}"
                      if "device_ms" in r else "")
-                  + (f" cast_device_ms={r['cast_device_ms']:.4f}"
-                     if "cast_device_ms" in r else "")
+                  + (f" cast_device_ms={r['cast_device_ms']:.4f} replays_equal="
+                     f"{r['replays_equal']}" if "cast_device_ms" in r else "")
                   + (f" replaced_device_ms={r['replaced_device_ms']:.4f} max_ulps="
                      f"{r['max_ulps']:.2f} replays_equal={r['replays_equal']}"
                      if "replaced_device_ms" in r else "")
@@ -958,8 +963,9 @@ def int8_kernel_cases(dev, randn):
     """The int8 matmul against its plain version: `int8_gemv_mma_kernel` at
     every int8 shape of the serving paths and B in {1, 4, 16, 32}, held to
     2^-8 |y| (its one rounding) + 1e-5 (|x| @ |q|) * s (the order of the
-    fp32 sums) of the plain version summed in fp32; `int8_gemv_kernel` (fp32
-    x) at phase 3c's tiny shapes to 1e-5 (|x| @ |q|) * s. Each case is timed
+    fp32 sums) of the plain version summed in fp32, two replays of a graph
+    giving equal bits; `int8_gemv_kernel` (fp32 x) at phase 3c's tiny
+    shapes to 1e-5 (|x| @ |q|) * s. Each case is timed
     against the plain version, cuBLAS on the dequantized bf16 W (the library
     call) and the cast route it replaces (`x @ q.to(bf16) * s.to(bf16)`),
     and from CUDA-graph replays that walk copies of the weights over twice
@@ -970,7 +976,9 @@ def int8_kernel_cases(dev, randn):
     from fish_speech_tpu_torch.ops.int8 import int8_matmul, int8_matmul_reference
     from fish_speech_tpu_torch.ops.quant import quantize_int8
 
-    cases = {"int8_mm": [], "int8_mm_fp32": []}
+    from fish_speech_tpu_torch.ops.int8 import _route
+
+    cases = {"int8_mm": [], "int8_mm_cluster": [], "int8_mm_fp32": []}
     for name, i, o in INT8_SHAPES:
         qw = quantize_int8(randn(i, o).float() * 0.02)
         q, s = _rows_16_bytes_apart(qw["q"]), qw["s"]
@@ -987,8 +995,9 @@ def int8_kernel_cases(dev, randn):
             got = int8_matmul(x, q, s)
             exact = (x.float() @ qf) * s  # the plain version in fp32, not rounded
             scale = (x.float().abs() @ qf.abs()) * s
-            ok = bool(((got.float() - exact).abs()
-                       <= 2.0 ** -8 * exact.abs() + 1e-5 * scale).all())
+            same = _replays_equal(lambda: int8_matmul(x, q, s))
+            ok = same and bool(((got.float() - exact).abs()
+                                <= 2.0 ** -8 * exact.abs() + 1e-5 * scale).all())
             err = (got.float() - int8_matmul_reference(x, q, s).float()).abs()
             del exact, scale
             iters = 20 if o > 100_000 else 200
@@ -996,10 +1005,12 @@ def int8_kernel_cases(dev, randn):
                                      lambda k=0: int8_matmul(x, q, s), iters)
             lib = _library_ms(lambda k=0: x @ w_lib, iters)
             bound = _bound(2 * b * i * o, i * o + 4 * o + 2 * b * (i + o))
-            cases["int8_mm"].append(dict(
+            kernel = "int8_mm_cluster" if _route(b, x.dtype) == "gemv_cluster" else "int8_mm"
+            cases[kernel].append(dict(
                 shape=f"{name} B={b} I={i} O={o} bf16", max_abs_err=err.max().item(),
                 mean_abs_err=err.mean().item(), ms=ms, plain_ms=plain_ms,
                 bound_ms=bound[0], bound_by=bound[1], library_ms=lib, ok=ok,
+                replays_equal=same,
                 device_ms=_device_ms(lambda k=0: int8_matmul(x, *qs[k % n_q]), iters),
                 library_device_ms=_device_ms(lambda k=0: x @ ws[k % n_w], iters),
                 cast_device_ms=_device_ms(
@@ -1967,6 +1978,7 @@ def run_quant_slice(dev, tokenizer):
                         int4_mm_wgmma=int4_matmul.launches_wgmma,
                         int4_mm_fp32_tiled=int4_matmul.launches_fp32_tiled,
                         int8_mm=int8_matmul.launches_gemv_mma,
+                        int8_mm_cluster=int8_matmul.launches_gemv_cluster,
                         int8_ffn=int8_ffn.launches_mma,
                         int8_cast=mm.launches_int8_cast)
         peak = torch.cuda.max_memory_allocated(dev) / 2**30
@@ -2541,6 +2553,7 @@ def run_pool(dev, tokenizer, p1_step_ms):
                     "flash_decode_kv8": flash_decode_attention_kv8.launches,
                     "flash_prefill": flash_prefill_attention.launches_wgmma,
                     "int8_mm": int8_matmul.launches_gemv_mma,
+                    "int8_mm_cluster": int8_matmul.launches_gemv_cluster,
                     "int8_ffn": int8_ffn.launches_mma}
         stats = batcher.stats()
         frames = sum(r["frames"] for r in rows)
@@ -2561,8 +2574,8 @@ def run_pool(dev, tokenizer, p1_step_ms):
         if batcher.eager_runs or batcher.replays["decode"] <= 0 or prefills <= 0:
             raise SystemExit(f"pool {label}: a step or prefill ran eagerly on the "
                              f"card, or a graph never replayed")
-        need = ["flash_prefill"] + (["flash_decode_kv8", "int8_mm", "int8_ffn"]
-                                    if quant else ["flash_decode"])
+        need = ["flash_prefill"] + (["flash_decode_kv8", "int8_mm", "int8_mm_cluster",
+                                     "int8_ffn"] if quant else ["flash_decode"])
         if min(launches[k] for k in need) <= 0:
             raise SystemExit(f"pool {label}: a kernel of the path was never "
                              f"launched: {launches}")
@@ -2684,6 +2697,7 @@ KERNELS = {  # name: (source, the TPU kernel or JAX code it replaces)
     "faststack_probe": (SRC + "faststack.cu",
                         "fish_speech_tpu/ops/pallas_faststack.py:136"),
     "int8_mm": (SRC + "int8_mm.cu", "scripts/microbench/matvec_pallas.py:18"),
+    "int8_mm_cluster": (SRC + "int8_mm.cu", "scripts/microbench/matvec_pallas.py:18"),
     "int8_mm_fp32": (SRC + "int8_mm.cu", "scripts/microbench/matvec_pallas.py:18"),
     "int8_ffn": (SRC + "int8_ffn.cu", "scripts/microbench/ffn_fused_packed.py:17"),
     "int8_ffn_fp32": (SRC + "int8_ffn.cu", "scripts/microbench/ffn_fused_packed.py:17"),
@@ -2693,18 +2707,22 @@ KERNELS = {  # name: (source, the TPU kernel or JAX code it replaces)
 # B=1024 (tensor-core route), a 257-long int8 cache, the probe at R=0 in
 # bf16; the fp32 attention routes' one small case each, the tiny slow
 # cache and the tiny fast wqkv for the fp32 decode and matvec; the int8
-# matmul on the slow w13 at B=1 and the tiny slow wqkv in fp32; the fused
+# matmul on the slow w13 at B=1 (its cluster kernel at B=32) and the tiny
+# slow wqkv in fp32; the fused
 # int8 FFN on the slow FFN at B=1 and the tiny slow FFN in fp32
 HEADLINE = {"flash_prefill": 1, "flash_prefill_fp32": 0, "flash_decode": 1,
             "flash_decode_fp32": 0, "flash_train_fwd": 0, "flash_train_fwd_fp32": 0,
             "flash_train_bwd": 0, "flash_train_bwd_fp32": 0, "int4_mm": 2,
             "int4_mm_wgmma": 6, "int4_mm_fp32": 0, "flash_decode_kv8": 1,
-            "faststack_probe": 0, "int8_mm": 2 * len(INT8_ROWS), "int8_mm_fp32": 0,
+            "faststack_probe": 0, "int8_mm": 2 * (len(INT8_ROWS) - 1),
+            "int8_mm_cluster": 2, "int8_mm_fp32": 0,
             "int8_ffn": 0, "int8_ffn_fp32": 0}
 # the kernels whose SASS must hold HGMMA (wgmma) instructions
 WGMMA_KERNELS = ("int4_wgmma_kernel", "train_fwd_wgmma_kernel",
                  "prefill_wgmma_kernel", "train_bwd_dkdv_wgmma_kernel",
                  "train_bwd_dq_wgmma_kernel")
+# the int8 kernels whose registers and spills ptxas' report shows too
+INT8_KERNELS = ("int8_gemv_mma_kernel", "int8_gemv_cluster_kernel", "int8_ffn_mma_kernel")
 
 
 def _ptxas_report(build_log):
@@ -2714,10 +2732,9 @@ def _ptxas_report(build_log):
     name = None
     for line in build_log.read_text().splitlines():
         if "Compiling entry function" in line:
-            name = next((k for k in (*WGMMA_KERNELS, "int8_gemv_mma_kernel",
-                                     "int8_ffn_mma_kernel") if k in line), None)
+            name = next((k for k in (*WGMMA_KERNELS, *INT8_KERNELS) if k in line), None)
             dims = "<64>" if "ILi64E" in line else "<128>" if "ILi128E" in line else ""
-            int8 = re.search(r"int8_gemv_mma_kernelILi(\d)ELb(\d)E", line)
+            int8 = re.search(r"int8_gemv_(?:mma|cluster)_kernelILi(\d)ELb(\d)E", line)
             if int8:
                 dims = f"<{int8[1]} n8 tiles, {'TMA' if int8[2] == '1' else 'copy'}>"
             ffn = re.search(r"int8_ffn_mma_kernelILi(\d)E", line)
@@ -2838,6 +2855,8 @@ def main():
     launches["int4_mm_wgmma"] = quant["int4"]["launches"]["int4_mm_wgmma"]
     launches["flash_decode_kv8"] = quant["mixed"]["launches"]["flash_decode_kv8"]
     launches["int8_mm"] = sum(row["launches"]["int8_mm"] for row in quant.values())
+    launches["int8_mm_cluster"] = sum(row["launches"]["int8_mm_cluster"]
+                                      for row in quant.values())
     launches["int8_ffn"] = sum(row["launches"]["int8_ffn"] for row in quant.values())
     cases["faststack_probe"], launches["faststack_probe"] = run_probe(
         dev, quant["mixed"]["fast_stack_ms"])
@@ -2846,13 +2865,14 @@ def main():
     pool = run_pool(dev, tokenizer, p1_step_ms)
     for row in pool.values():
         for name in ("flash_decode", "flash_decode_kv8", "flash_prefill", "int8_mm",
-                     "int8_ffn"):
+                     "int8_mm_cluster", "int8_ffn"):
             launches[name] += row["launches"][name]
     per_step = {}  # launches of each kernel in one replayed P=32 step
     for label, name, counter in (
             ("bf16", "flash_decode", "flash_decode_attention.launches"),
             ("int8", "flash_decode_kv8", "flash_decode_attention_kv8.launches"),
             ("int8", "int8_mm", "int8_matmul.launches_gemv_mma"),
+            ("int8", "int8_mm_cluster", "int8_matmul.launches_gemv_cluster"),
             ("int8", "int8_ffn", "int8_ffn.launches_mma")):
         per_step[name] = pool[label]["per_step"].get(counter, 0)
     # the pools are bf16 and int8: each pool's count of the int4 tensor-core

@@ -18,10 +18,25 @@
 // time is the weight's bytes over 3.35 TB/s (slow w13, 49.8 MB: 14.9 us;
 // the full LM head, 397 MB: 118.5 us).
 //
-// Two kernels, chosen by the wrapper (`ops/int8.py:_route`) on x's dtype:
-// * "gemv_mma", bf16 x: the products on the tensor cores (mma.sync
-//   m16n8k16, bf16 in, fp32 sums) as y^T = W^T x^T: W^T's columns on M,
-//   x's rows on N (1-4 n8 tiles). A block owns 128 output columns and a
+// Three kernels, chosen by the wrapper (`ops/int8.py:_route`) on x's dtype
+// and rows:
+// * "gemv_cluster", bf16 x of 17-32 rows (the 32-row pool): the skeleton of
+//   int8_mma.cuh. A column tile of 128 outputs is one thread block cluster
+//   of C blocks (C in {1, 2, 4, 8}, `ops/int8.py:int8_gemv_plan`), block r
+//   taking rows [r run, (r + 1) run) of I (run a multiple of 64 rows; a
+//   rank past I takes none). A producer warp streams the run's W boxes and
+//   x boxes by TMA, two consumer warpgroups turn each int8 into bf16 in
+//   registers and run the products on mma.sync, keep their fp32 sums of
+//   the tile in shared memory, and after the cluster's barrier block r
+//   adds slice r of the tile's columns over the cluster's blocks in run
+//   order (distributed shared memory), scales, rounds and writes y. With
+//   C = 1 (the full LM head: 1212 tiles fill the card) the block adds
+//   nothing but its own sums. No global workspace, no atomics.
+// * "gemv_mma", bf16 x of 1-16 rows: the products on the tensor cores
+//   (mma.sync m16n8k16, bf16 in, fp32 sums) as y^T = W^T x^T: W^T's
+//   columns on M, x's rows on N (1-2 n8 tiles). At these rows it is
+//   faster than the cluster kernel (by 1-25%, PERF.md), so it
+//   stays. A block owns 128 output columns and a
 //   run of whole 128-row stages of I (`ops/int8.py:int8_gemv_split` picks
 //   the runs from a model of the bytes each split moves). W streams by TMA
 //   from its row-major (I, O) layout, without repacking: one 128 x 128-byte
@@ -39,7 +54,8 @@
 //   in the fragments' own order (no bank conflicts).
 // * "gemv", fp32 x (the small fp32 models): CUDA cores, a thread per output
 //   column, x staged by 64-row chunks, the products in fp32.
-// Both split I into runs the same way: with one run a block scales its sums
+// "gemv_mma" and "gemv" split I into runs the same way: with one run a
+// block scales its sums
 // and writes y; otherwise each block writes its fp32 partial sums to a
 // workspace, publishes them with a release/acquire counter per column tile
 // (`fs::atomic_add_acq_rel`, as the int4 matvec) and the last block of the
@@ -66,18 +82,7 @@ constexpr int WARPS = THREADS / 32;
 constexpr int MAX_ROWS = 32;                         // rows of x (ops/int8.py)
 constexpr int MMA_COLS = 128;                        // output columns per block
 constexpr int STAGE_ROWS = 128;                      // rows of q per stage (ops/int8.py)
-// stages in flight, and what a block computes: 0 the product; for
-// `scripts/int8_mm_bench.py`'s breakdown only, 1 the weight stream alone
-// (each stage's words are read from shared memory and folded by an xor,
-// no conversion, no mma) and 2 the stream and the int8 -> bf16 conversions
-// without the mmas
-#ifndef INT8_MM_STAGES
-#define INT8_MM_STAGES 4
-#endif
-#ifndef INT8_MM_PART
-#define INT8_MM_PART 0
-#endif
-constexpr int STAGES = INT8_MM_STAGES;
+constexpr int STAGES = 4;                            // stages in flight
 constexpr int STAGE_BYTES = STAGE_ROWS * MMA_COLS;   // one TMA box
 // the W ring, which after the main loop holds the warps' sums (4 warps'
 // worth: 16 * 4 fragments of 32 lanes, fp32, at 4 n8 tiles)
@@ -268,10 +273,6 @@ __global__ void __launch_bounds__(THREADS, NT == 1 ? 3 : 2)
       for (int j = 0; j < 4; ++j) {  // M tile j: columns c = 64h + 8g + 2j, c + 1
         const uint32_t v0 = j < 2 ? w[0].x : w[0].y, v1 = j < 2 ? w[1].x : w[1].y;
         const uint32_t v2 = j < 2 ? w[2].x : w[2].y, v3 = j < 2 ? w[3].x : w[3].y;
-        if (INT8_MM_PART == 1) {  // the stream alone
-          acc[j][0][0] += __uint_as_float((v0 ^ v1 ^ v2 ^ v3 ^ b0[0]) & 0x3F7FFFFFu);
-          continue;
-        }
         uint32_t a[4];
         if (j & 1) {
           a[0] = i8x2_bf16<2>(v0, v1); a[1] = i8x2_bf16<3>(v0, v1);
@@ -279,10 +280,6 @@ __global__ void __launch_bounds__(THREADS, NT == 1 ? 3 : 2)
         } else {
           a[0] = i8x2_bf16<0>(v0, v1); a[1] = i8x2_bf16<1>(v0, v1);
           a[2] = i8x2_bf16<0>(v2, v3); a[3] = i8x2_bf16<1>(v2, v3);
-        }
-        if (INT8_MM_PART == 2) {  // the conversions, no mma
-          acc[j][0][0] += __uint_as_float((a[0] ^ a[1] ^ a[2] ^ a[3] ^ b1[0]) & 0x3F7FFFFFu);
-          continue;
         }
 #pragma unroll
         for (int n = 0; n < NT; ++n) mma_bf16(acc[j][n], a, b0[n], b1[n]);
@@ -441,6 +438,150 @@ constexpr int kRouteGemvMma = 0, kRouteGemv = 1;
 
 }  // namespace
 
+// The cluster kernel (route "gemv_cluster"), on int8_mma.cuh's skeleton
+// (internal linkage, as above: each library built from this file keeps its
+// own `sized` flags, however many of them one process loads).
+namespace {
+namespace cl {
+
+using fs::i8::BOX;
+using fs::i8::MAX_CLUSTER;
+using fs::i8::Ring;
+using fs::i8::STAGE_ROWS;
+using fs::i8::STAGES;
+using fs::i8::THREADS;
+using fs::i8::W_STAGE;
+
+// The producer warp's copy of a stage in place of TMA: W rows [k0, k0 + 64)
+// of columns [col0, col0 + 128) and the same rows of every row of x, in
+// the layouts TMA gives (128-byte swizzle; 0 past I, O and B), then the
+// stage's arrival.
+__device__ __forceinline__ void copy_stage(const Ring& r, uint64_t* full, int slot,
+                                           const int8_t* __restrict__ q,
+                                           const __nv_bfloat16* __restrict__ x,
+                                           int batch, int n8, int in_dim, int out_dim,
+                                           int ldq, int col0, int k0) {
+  const int lane = threadIdx.x & 31;
+  uint8_t* wd = r.w + slot * W_STAGE;
+  for (int idx = lane; idx < STAGE_ROWS * (BOX / 16); idx += 32) {
+    const int row = idx / (BOX / 16), ch = idx % (BOX / 16);
+    const int gr = k0 + row, c0 = col0 + 16 * ch;
+    uint32_t wv[4] = {0u, 0u, 0u, 0u};
+    if (gr < in_dim) {
+      const int8_t* src = q + (size_t)gr * ldq + c0;
+#pragma unroll
+      for (int i = 0; i < 16; ++i)
+        if (c0 + i < out_dim) wv[i >> 2] |= (uint32_t)(uint8_t)src[i] << (8 * (i & 3));
+    }
+    *reinterpret_cast<uint4*>(wd + row * BOX + ((ch ^ (row & 7)) << 4)) =
+        make_uint4(wv[0], wv[1], wv[2], wv[3]);
+  }
+  uint8_t* xd = r.x + slot * r.xb;
+  for (int idx = lane; idx < n8 * 64; idx += 32) {
+    const int n = idx / 64, k = idx % 64, gk = k0 + k;
+    const __nv_bfloat16 v = n < batch && gk < in_dim ? x[(size_t)n * in_dim + gk]
+                                                     : __float2bfloat16_rn(0.f);
+    *reinterpret_cast<__nv_bfloat16*>(xd + n * 128 + (((k >> 3) ^ (n & 7)) << 4) +
+                                      2 * (k & 7)) = v;
+  }
+  __syncwarp();
+  if (lane == 0) fs::tma::bar_arrive(&full[slot]);
+}
+
+// grid: ceil(O / 128) clusters of C blocks; cluster k is column tile k,
+// its block of rank r the run of rows [r run, min(I, (r + 1) run)). kTma:
+// W and x by TMA (maps qmap, xmap); else copied by the producer warp.
+template <int NT, bool kTma>
+__global__ void __launch_bounds__(THREADS, 2)
+    int8_gemv_cluster_kernel(const __grid_constant__ CUtensorMap qmap,
+                             const __grid_constant__ CUtensorMap xmap,
+                             const int8_t* __restrict__ q,
+                             const __nv_bfloat16* __restrict__ x,
+                             const float* __restrict__ s,
+                             __nv_bfloat16* __restrict__ out, int batch, int in_dim,
+                             int out_dim, int ldq, int run) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t full[STAGES], empty[STAGES];
+  const Ring r(smem_raw, 8 * NT);
+  const int c_size = fs::cluster::size(), rank = fs::cluster::rank();
+  const int tile0 = blockIdx.x / c_size * BOX;
+  const int r0 = rank * run, len = min(in_dim, r0 + run) - r0;
+  const int n_stage = len > 0 ? (len + STAGE_ROWS - 1) / STAGE_ROWS : 0;
+  if (kTma && threadIdx.x == THREADS - 32) {
+    fs::tma::prefetch_map(&qmap);
+    fs::tma::prefetch_map(&xmap);
+  }
+  fs::i8::init_barriers(full, empty);
+
+  if (threadIdx.x / 32 == fs::i8::PRODUCER_WARP) {
+    for (int st = 0; st < n_stage; ++st) {
+      const int slot = fs::i8::acquire_slot(empty, st), k0 = r0 + st * STAGE_ROWS;
+      if (!kTma) {
+        copy_stage(r, full, slot, q, x, batch, 8 * NT, in_dim, out_dim, ldq, tile0, k0);
+      } else if (threadIdx.x % 32 == 0) {
+        fs::i8::load_w(r, full, slot, &qmap, tile0, k0);
+        fs::i8::load_x(r, full, slot, &xmap, k0);
+      }
+    }
+    fs::cluster::sync();  // the cluster's sums are stored
+    fs::cluster::sync();  // no block leaves while another reads its sums
+    return;
+  }
+
+  fs::i8::Acc<NT> acc;
+  fs::i8::mainloop<NT>(r, full, empty, 0, n_stage, acc);
+  fs::i8::store_sums<NT>(r.red, acc);
+  fs::cluster::sync();
+  fs::i8::slice_sums<NT>(r.red, batch, c_size, rank,
+                         [&](int n, int c, const float (&v)[MAX_CLUSTER]) {
+                           const int col = tile0 + c;
+                           if (col < out_dim)
+                             out[(size_t)n * out_dim + col] = __float2bfloat16_rn(
+                                 fs::i8::sum_in_order(v, 0, c_size) * s[col]);
+                         });
+  fs::cluster::sync();
+}
+
+template <int NT, bool kTma>
+int launch(const CUtensorMap& qmap, const CUtensorMap& xmap, const int8_t* q,
+           const void* x, const float* s, void* out, int batch, int in_dim,
+           int out_dim, int ldq, int cluster, int run, cudaStream_t stream) {
+  constexpr size_t smem = fs::i8::smem_bytes(8 * NT);
+  static bool sized = false;  // one attribute call per instantiation
+  if (!sized) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        int8_gemv_cluster_kernel<NT, kTma>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    sized = true;
+  }
+  const int tiles = (out_dim + BOX - 1) / BOX;
+  return (int)fs::i8::launch_clustered(
+      int8_gemv_cluster_kernel<NT, kTma>, tiles * cluster, cluster, smem, stream, qmap,
+      xmap, q, static_cast<const __nv_bfloat16*>(x), s,
+      static_cast<__nv_bfloat16*>(out), batch, in_dim, out_dim, ldq, run);
+}
+
+template <bool kTma>
+int launch_rows(const CUtensorMap& qmap, const CUtensorMap& xmap, const int8_t* q,
+                const void* x, const float* s, void* out, int batch, int in_dim,
+                int out_dim, int ldq, int cluster, int run, cudaStream_t stream) {
+  switch ((batch + 7) / 8) {
+#define FS_CLUSTER(NT)                                                           \
+  case NT:                                                                       \
+    return launch<NT, kTma>(qmap, xmap, q, x, s, out, batch, in_dim, out_dim, ldq, \
+                            cluster, run, stream)
+    FS_CLUSTER(1); FS_CLUSTER(2); FS_CLUSTER(3); FS_CLUSTER(4);
+#undef FS_CLUSTER
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+
+}  // namespace cl
+}  // namespace
+
 // x (B, I) in `dtype`, contiguous; q (I, O) int8, rows ldq >= O bytes
 // apart; s (O,) fp32; out (B, O) in `dtype`. Route "gemv_mma" takes bf16 x,
 // "gemv" fp32 x. I is cut into n_split runs of `run` rows (a multiple of
@@ -485,4 +626,40 @@ extern "C" int fs_int8_matmul(const void* x, const void* q, const void* s,
   std::memset(&map, 0, sizeof(map));
   return launch_mma_rows<false>(map, qp, x, sp, out, wk, cnt, batch, in_dim,
                                 out_dim, ldq, n_split, run, st);
+}
+
+// x (B, I) bf16, contiguous, B <= 32; q (I, O) int8, rows ldq >= O bytes
+// apart; s (O,) fp32; out (B, O) bf16: route "gemv_cluster". Each column
+// tile's I is cut into `cluster` runs of `run` rows (cluster in {1, 2, 4,
+// 8}, run a multiple of 64, cluster * run >= I; `ops/int8.py:
+// int8_gemv_plan`), one block of a cluster each.
+extern "C" int fs_int8_matmul_cluster(const void* x, const void* q, const void* s,
+                                      void* out, int batch, int in_dim, int out_dim,
+                                      int ldq, int cluster, int run, void* stream) {
+  if (batch < 1 || batch > MAX_ROWS || in_dim < 1 || out_dim < 1 || ldq < out_dim ||
+      !fs::i8::cluster_ok(cluster) || run < cl::STAGE_ROWS || run % cl::STAGE_ROWS ||
+      (size_t)cluster * run < (size_t)in_dim)
+    return (int)cudaErrorInvalidValue;
+  const int8_t* qp = static_cast<const int8_t*>(q);
+  const float* sp = static_cast<const float*>(s);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  CUtensorMap qmap, xmap;
+  if (ldq % 16 == 0 && cl::aligned16(q) && out_dim >= cl::BOX && in_dim >= cl::STAGE_ROWS &&
+      in_dim % 8 == 0 && cl::aligned16(x)) {
+    // q as I rows of O bytes, ldq apart, in boxes of 64 rows x 128 bytes;
+    // x as B rows of I bf16 in boxes of 8 ceil(B / 8) rows x 64 (rows past
+    // B and columns past I read as 0)
+    int rc = fs::tma::encode_2d(&qmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, q, out_dim, in_dim,
+                                ldq, cl::BOX, cl::STAGE_ROWS);
+    if (rc == 0)
+      rc = fs::tma::encode_2d(&xmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, x, in_dim, batch,
+                              (uint64_t)in_dim * 2, 64, 8 * ((batch + 7) / 8));
+    if (rc != 0) return rc;
+    return cl::launch_rows<true>(qmap, xmap, qp, x, sp, out, batch, in_dim, out_dim, ldq,
+                                 cluster, run, st);
+  }
+  std::memset(&qmap, 0, sizeof(qmap));
+  std::memset(&xmap, 0, sizeof(xmap));
+  return cl::launch_rows<false>(qmap, xmap, qp, x, sp, out, batch, in_dim, out_dim, ldq,
+                                cluster, run, st);
 }

@@ -1,6 +1,8 @@
 // Tensor Memory Accelerator (TMA) loads of 2D and 3D tiles into shared memory,
 // for the split matvec and decode kernels (int4_mm.cu, flash_decode.cu), and
-// 1D bulk copies, for the fast-stack probe (faststack.cu).
+// 1D bulk copies, for the fast-stack probe (faststack.cu), and the thread
+// block cluster's pieces (its barrier and its distributed shared memory),
+// for the int8 kernels (int8_mma.cuh).
 //
 // The host encodes a tensor map (`encode`, `encode_2d`: through
 // cuTensorMapEncodeTiled, looked up once at run time; each map is encoded
@@ -185,12 +187,41 @@ __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
+// bar_try_wait whose thread sleeps until the phase completes (or a
+// 1 ms hint runs out) instead of returning at once: waiting warps leave
+// their issue slots to the warps that compute
+__device__ __forceinline__ bool bar_try_wait_sleep(uint64_t* bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2, %3;\n"
+      "selp.u32 %0, 1, 0, p;\n"
+      "}\n"
+      : "=r"(done) : "r"(wg::smem_u32(bar)), "r"(parity), "r"(1000000u) : "memory");
+  return done != 0;
+}
+
+// bar_wait_or_trap with bar_try_wait_sleep's tries
+__device__ __forceinline__ void bar_wait_sleep_or_trap(uint64_t* bar, uint32_t parity) {
+  if (bar_try_wait_sleep(bar, parity)) return;
+  const uint64_t t0 = now_ns();
+  while (!bar_try_wait_sleep(bar, parity))
+    if (now_ns() - t0 > kStuckNs) __trap();
+}
+
 // bar_wait, or a trap once the wait outlasts kStuckNs (common.cuh)
 __device__ __forceinline__ void bar_wait_or_trap(uint64_t* bar, uint32_t parity) {
   if (bar_try_wait(bar, parity)) return;
   const uint64_t t0 = now_ns();
   for (unsigned n = 1; !bar_try_wait(bar, parity); ++n)
     if (n % 256 == 0 && now_ns() - t0 > kStuckNs) __trap();
+}
+
+// fetches a map's descriptor ahead of its first copy
+__device__ __forceinline__ void prefetch_map(const CUtensorMap* map) {
+  asm volatile("prefetch.tensormap [%0];\n" :: "l"(reinterpret_cast<uint64_t>(map))
+               : "memory");
 }
 
 // the box at (x, y, z) of a rank-3 map into dst, counted on bar
@@ -229,4 +260,40 @@ __device__ __forceinline__ void load_2d(void* dst, const CUtensorMap* map,
 }
 
 }  // namespace tma
+
+// Thread block clusters (sm_90). A launch without a cluster dimension is a
+// grid of one-block clusters, where these act on the block alone.
+namespace cluster {
+
+// this block's rank in its cluster, and the cluster's size
+__device__ __forceinline__ uint32_t rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+__device__ __forceinline__ uint32_t size() {
+  uint32_t n;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(n));
+  return n;
+}
+
+// every thread of every block of the cluster arrives, then waits for all:
+// the memory accesses before it are seen by the accesses after it in
+// every block of the cluster (release / acquire at cluster scope)
+__device__ __forceinline__ void sync() {
+  asm volatile("barrier.cluster.arrive.release;\n"
+               "barrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
+// the generic address of *p (this block's shared memory) in block `rank`
+// of the cluster: plain loads through it read that block's shared memory
+template <typename T>
+__device__ __forceinline__ const T* map(const T* p, uint32_t rank) {
+  uint64_t out;
+  asm("mapa.u64 %0, %1, %2;\n" : "=l"(out) : "l"(p), "r"(rank));
+  return reinterpret_cast<const T*>(out);
+}
+
+}  // namespace cluster
 }  // namespace fs

@@ -131,6 +131,10 @@ def load_kernels() -> ctypes.CDLL:
         ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, i32, i32, ptr
     ]
     lib.fs_int8_matmul.restype = i32
+    lib.fs_int8_matmul_cluster.argtypes = [
+        ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, ptr
+    ]
+    lib.fs_int8_matmul_cluster.restype = i32
     lib.fs_int8_ffn.argtypes = [
         ptr, ptr, ptr, i32, ptr, ptr, ptr, i32, ptr, ptr, ptr, ptr,
         i32, i32, i32, i32, i32, i32, i32, i32, i32, i32, ptr

@@ -14,12 +14,15 @@ to bf16, then the product with the bf16 scale); this is the Pallas
 kernels' one rounding.
 
 The kernels are hand-written CUDA for Hopper (`csrc/int8_mm.cu`). The
-wrapper picks one by x's dtype (`_route`), an explicit dispatch, not a
-fallback: "gemv_mma" for bf16 x (the tensor cores, the weight streamed by
-TMA), "gemv" for fp32 x (the CUDA cores; the small fp32 models). Both cut I
-into runs (`int8_gemv_split`) and add the runs' partial sums in run order
-in the same launch. q may be a view whose rows lie further apart than O
-bytes (its column stride must be 1).
+wrapper picks one by x's dtype and rows (`_route`), an explicit dispatch,
+not a fallback: "gemv_cluster" for bf16 x of 17-32 rows (the 32-row pool:
+a 128-column tile's runs of I are the blocks of one thread block cluster,
+`int8_gemv_plan`, their sums added in run order in the cluster's shared
+memory), "gemv_mma" for bf16 x of 1-16 rows (the weight streamed by TMA,
+mma.sync; runs of I from `int8_gemv_split`, their partials added in run
+order in the same launch), "gemv" for fp32 x (the CUDA cores; the small
+fp32 models). q may be a view whose rows lie further apart than O bytes
+(its column stride must be 1).
 
 `int8_matmul_reference` is the plain version; the wrapper runs it for CPU
 tensors only. For a CUDA tensor it launches the route's kernel or raises.
@@ -36,12 +39,17 @@ from fish_speech_tpu_torch.ops._kernels import (DTYPE_CODES, check_launch,
                                                  sm_count, stream_ptr)
 
 MAX_ROWS = 32  # rows of x the kernels take (ops/quant.py sends more to torch)
-ROUTES = ("gemv_mma", "gemv")  # route codes of fs_int8_matmul
+ROUTES = ("gemv_mma", "gemv", "gemv_cluster")  # route codes of fs_int8_matmul (the
+# first two; the third has its own entry point, fs_int8_matmul_cluster)
+CLUSTER_ROWS = 17  # bf16 rows of x from which the cluster kernel runs
 ROUTE_COLS = {"gemv_mma": 128, "gemv": 256}  # output columns per block
 STAGE_ROWS = 128  # rows of q per stage: a run is whole stages
 BLOCKS_PER_SM = 2  # blocks the split aims for
 MAX_SPLIT = 64  # most runs I is cut into
 _ROUTE_CODES = {r: n for n, r in enumerate(ROUTES)}
+TILE_COLS = 128  # "gemv_cluster": output columns of a cluster, one TMA box of q
+CLUSTER_STAGE_ROWS = 64  # "gemv_cluster": rows of q per stage, a run is whole stages
+CLUSTERS = (1, 2, 4, 8)  # blocks of a cluster (runs of a tile) the kernel takes
 
 
 @functools.lru_cache(maxsize=None)
@@ -71,6 +79,44 @@ def int8_gemv_split(route: str, b: int, i: int, o: int, n_sm: int):
     return best[1], best[2] * STAGE_ROWS
 
 
+@functools.lru_cache(maxsize=None)
+def int8_gemv_plan(b: int, i: int, o: int, n_sm: int):
+    """(cluster, run) of "gemv_cluster": each 128-column tile of O is a
+    cluster of `cluster` blocks, block k taking the run of I's rows [k *
+    run, min(I, (k + 1) * run)) (run whole stages of CLUSTER_STAGE_ROWS; a
+    block whose run starts past I takes none). The largest cluster whose
+    blocks stay within three quarters of the SMs (the tiles times the
+    cluster size), one block a tile where the tiles alone pass that: on
+    the H100 a card that holds more of the kernel's blocks streams the
+    weight more slowly, as blocks come to share SMs (PERF.md). `b`
+    keys the plan by rows; the rule does not read it."""
+    stages = -(-i // CLUSTER_STAGE_ROWS)
+    tiles = -(-o // TILE_COLS)
+    cluster = max([c for c in CLUSTERS if tiles * c <= 3 * n_sm // 4 and c <= stages],
+                  default=1)
+    return cluster, -(-stages // cluster) * CLUSTER_STAGE_ROWS
+
+
+def int8_gemv_cluster_reference(x, q, s, cluster: int, run: int):
+    """A plain replay of the "gemv_cluster" kernel's order: in each
+    128-column tile, block r of the cluster adds slice r of the tile's
+    columns (128 / cluster of them) over the cluster's per-block sums
+    (`int8_gemv_partials_reference`) in run order, scales them by s and
+    rounds once to x's dtype."""
+    parts = int8_gemv_partials_reference(x, q, cluster, run)
+    o = q.shape[1]
+    y = torch.empty((x.shape[0], o), dtype=torch.float32)
+    width = TILE_COLS // cluster
+    for tile0 in range(0, o, TILE_COLS):
+        for r in range(cluster):
+            cols = slice(tile0 + r * width, min(o, tile0 + (r + 1) * width))
+            acc = parts[0][:, cols]
+            for k in range(1, cluster):
+                acc = acc + parts[k][:, cols]
+            y[:, cols] = acc * s[cols].float()
+    return y.to(x.dtype)
+
+
 def int8_matmul_reference(x, q, s):
     """The plain version: x @ float(q) in fp32, times the fp32 scale, cast
     once to x's dtype."""
@@ -92,7 +138,7 @@ def _route(b: int, dtype: torch.dtype) -> str:
         raise ValueError(f"int8_matmul: {b} rows of x; the kernels take 1 to "
                          f"{MAX_ROWS} (ops/quant.py:mm keeps more in torch)")
     if dtype == torch.bfloat16:
-        return "gemv_mma"
+        return "gemv_cluster" if b >= CLUSTER_ROWS else "gemv_mma"
     if dtype == torch.float32:
         return "gemv"
     raise TypeError(f"int8_matmul: x must be bf16 or fp32, got {dtype}")
@@ -127,8 +173,9 @@ _PLANS: dict = {}
 
 def _plan(x, q, s):
     """What a call of these shapes, strides, dtypes and devices passes the
-    kernel beyond its pointers: (route, counter name, I, O, ldq, n_split,
-    run, workspace, counters, dtype code, route code). The first call of a
+    kernel beyond its pointers: (route, counter name, I, O, ldq, n_split
+    (the cluster size of "gemv_cluster"), run, workspace, counters, dtype
+    code, route code). The first call of a
     key runs every check of `_check` and keeps the plan; a later one
     repeats only contiguity, which the key does not fix."""
     key = (x.shape, q.shape, q.stride(), s.shape, x.dtype, q.dtype, s.dtype,
@@ -137,9 +184,12 @@ def _plan(x, q, s):
     if plan is None:
         b, i, o, ldq = _check(x, q, s)
         route = _route(b, x.dtype)
-        n_split, run = int8_gemv_split(route, b, i, o, sm_count(x.device))
-        work = counters = 0  # NULL: one run
-        if n_split > 1:
+        if route == "gemv_cluster":
+            n_split, run = int8_gemv_plan(b, i, o, sm_count(x.device))
+        else:
+            n_split, run = int8_gemv_split(route, b, i, o, sm_count(x.device))
+        work = counters = 0  # NULL: one run, or the cluster kernel
+        if n_split > 1 and route != "gemv_cluster":
             w, c = scratch("int8_gemv", x.device, n_split * b * o,
                            -(-o // ROUTE_COLS[route]))
             work, counters = w.data_ptr(), c.data_ptr()
@@ -161,9 +211,14 @@ def int8_matmul(x, q, s):
      route_code) = _plan(x, q, s)
     b = x.shape[0]
     out = x.new_empty((b, o))
-    rc = load_kernels().fs_int8_matmul(
-        x.data_ptr(), q.data_ptr(), s.data_ptr(), out.data_ptr(), work, counters,
-        b, i, o, ldq, code, route_code, n_split, run, stream_ptr(x))
+    if route == "gemv_cluster":
+        rc = load_kernels().fs_int8_matmul_cluster(
+            x.data_ptr(), q.data_ptr(), s.data_ptr(), out.data_ptr(), b, i, o, ldq,
+            n_split, run, stream_ptr(x))
+    else:
+        rc = load_kernels().fs_int8_matmul(
+            x.data_ptr(), q.data_ptr(), s.data_ptr(), out.data_ptr(), work, counters,
+            b, i, o, ldq, code, route_code, n_split, run, stream_ptr(x))
     check_launch(rc, f"int8_matmul ({route})")
     int8_matmul.launches += 1
     setattr(int8_matmul, count, getattr(int8_matmul, count) + 1)

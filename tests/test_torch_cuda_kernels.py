@@ -37,7 +37,13 @@ apart, the fast head) and at ragged I and O, at B in {1, 4, 16, 32}: bf16
 within 2^-8 |y| (its one rounding of y) + 1e-5 of (|x| @ |q|) * s (the
 order of the fp32 sums) of the plain version summed in fp32, fp32 within
 1e-5 of (|x| @ |q|) * s; one launch, only the output allocated, the same
-bits twice and under a CUDA graph.
+bits twice and under a CUDA graph. Its cluster kernel (bf16, 17-32 rows,
+`int8_gemv_plan`) also at a one-block plan (a tile count that fills the
+card), the largest cluster (8 blocks), the padded semantic head and the
+block-copied layouts (rows not 16 bytes apart, I off 8), at B = 27 (x's
+rows not a multiple of 8: TMA's zero rows; B = 5 there takes the 1-16-row
+kernel), and at every cluster size through its C entry point at B = 1, 5,
+27 and 32, the same bits twice.
 
 The fused int8 FFN (`csrc/int8_ffn.cu`, `ops/int8_ffn.py`) runs at s2-pro's
 slow and fast FFNs, the graph tests' small model and a ragged I, at B in
@@ -1030,7 +1036,8 @@ def test_int8_kernel_launches_once_and_allocates_only_the_output(dev, dtype):
 def test_int8_kernel_is_deterministic_and_graph_capturable(dev, dtype):
     """Two calls give the same bits (the runs are added in one order); a
     CUDA graph of the call replayed after x changes in place equals the
-    eager call on the new x. Slow wo at 32 rows: 16 runs, the in-launch sum."""
+    eager call on the new x. Slow wo at 32 rows: the cluster kernel, its 4
+    runs summed in the cluster's shared memory."""
     rng = np.random.default_rng(12)
     q, s = _int8_weight(4096, 2560, "contiguous", 7, dev)
     x = _randn(rng, (32, 4096), dtype, dev)
@@ -1047,6 +1054,77 @@ def test_int8_kernel_is_deterministic_and_graph_capturable(dev, dtype):
     assert int8_matmul.launches == n0 + 1
     assert torch.equal(captured, int8_matmul(x, q, s))
     assert not torch.equal(captured, first)
+
+
+# the cluster plans' cases (name, I, O, layout): one block a tile (266
+# tiles), the largest cluster (fast wo: clusters of 8), the semantic head's
+# padded rows, and the block-copied layouts (rows not 16 bytes apart; I
+# off 8, so x is copied too)
+INT8_PLAN_CASES = [("single block", 256, 34048, "contiguous"),
+                   ("largest cluster", 1536, 1536, "contiguous"),
+                   ("padded semantic head", 2560, 4097, "padded"),
+                   ("block-copied q", 2560, 4097, "contiguous"),
+                   ("block-copied q and x", 1001, 200, "padded")]
+
+
+def _int8_close(got, x, q, s):
+    """bf16 within 2^-8 |y| + 1e-5 (|x| @ |q|) * s of the exact product."""
+    exact = (x.float() @ q.float()) * s
+    scale = (x.float().abs() @ q.float().abs()) * s
+    err = (got.float() - exact).abs()
+    assert bool((err <= 2.0 ** -8 * exact.abs() + 1e-5 * scale).all()), err.max().item()
+
+
+@pytest.mark.parametrize("name,i,o,layout", INT8_PLAN_CASES)
+def test_int8_kernel_cluster_plans(dev, name, i, o, layout):
+    from fish_speech_tpu_torch.ops.int8 import int8_gemv_plan
+
+    rng = np.random.default_rng(i + 3 * o)
+    q, s = _int8_weight(i, o, layout, i + o, dev)
+    want = {"single block": 1, "largest cluster": 8}.get(name)
+    for b in (5, 27):
+        route = int8_route(b, torch.bfloat16)
+        assert route == ("gemv_cluster" if b == 27 else "gemv_mma")
+        if b == 27:
+            cluster, _ = int8_gemv_plan(b, i, o, torch.cuda.get_device_properties(
+                dev).multi_processor_count)
+            assert want is None or cluster == want, cluster
+        x = _randn(rng, (b, i), torch.bfloat16, dev)
+        n0 = getattr(int8_matmul, f"launches_{route}")
+        got = int8_matmul(x, q, s)
+        torch.cuda.synchronize()
+        assert getattr(int8_matmul, f"launches_{route}") == n0 + 1
+        _int8_close(got, x, q, s)
+        assert torch.equal(got, int8_matmul(x, q, s))
+
+
+@pytest.mark.parametrize("b", [1, 5, 27, 32])
+def test_int8_kernel_every_cluster_size(dev, b):
+    """The cluster kernel's C entry point at each cluster size it takes,
+    runs of whole stages and a run past I (cluster 8 over 15 stages): each
+    within the bound, the same bits twice."""
+    from fish_speech_tpu_torch.ops._kernels import (check_launch, load_kernels,
+                                                    stream_ptr)
+
+    rng = np.random.default_rng(b)
+    i, o = 960, 640
+    q, s = _int8_weight(i, o, "contiguous", 9, dev)
+    x = _randn(rng, (b, i), torch.bfloat16, dev)
+    stages = -(-i // 64)
+    for cluster in (1, 2, 4, 8):
+        run = -(-stages // cluster) * 64
+
+        def call():
+            out = torch.empty((b, o), dtype=torch.bfloat16, device=dev)
+            check_launch(load_kernels().fs_int8_matmul_cluster(
+                x.data_ptr(), q.data_ptr(), s.data_ptr(), out.data_ptr(), b, i, o,
+                q.stride(0), cluster, run, stream_ptr(x)), "int8_matmul (gemv_cluster)")
+            return out
+
+        got = call()
+        torch.cuda.synchronize()
+        _int8_close(got, x, q, s)
+        assert torch.equal(got, call()), cluster
 
 
 def test_mm_routes_int8_products_by_rows(dev):

@@ -20,6 +20,11 @@ ports and the JAX package, on the CPU.
     ulp (held too: 2^-8 |y| of the exact value).
   * `int8_gemv_split`'s runs cover I once within the kernels' limits, and
     the per-run partials added in run order equal the plain version.
+  * The cluster kernel's plan (`int8_gemv_plan`, bf16 rows 17-32) covers I
+    once within a cluster of 1, 2, 4 or 8 blocks, and a plain replay of the
+    cluster's order (block r adds slice r of the tile's columns over the
+    cluster's runs, in run order) equals the run-order sum bit for bit in
+    fp32 and the plain version within one bf16 ulp.
   * `_route`, `_check` (the device checked last) and the counters; the
     semantic head's int8 rows lie 16 bytes apart (the kernel's TMA needs
     it) with JAX's values; `fp32_scales`.
@@ -49,7 +54,8 @@ from fish_speech_tpu_torch.config import SamplingConfig as TSamplingConfig
 from fish_speech_tpu_torch.models import dual_ar as tdual
 from fish_speech_tpu_torch.ops import int8 as tint8
 from fish_speech_tpu_torch.ops import quant as tquant
-from fish_speech_tpu_torch.ops.int8 import (_check, _route, int8_gemv_partials_reference,
+from fish_speech_tpu_torch.ops.int8 import (_check, _route, int8_gemv_cluster_reference,
+                                            int8_gemv_partials_reference, int8_gemv_plan,
                                             int8_gemv_split, int8_matmul,
                                             int8_matmul_reference)
 
@@ -202,7 +208,7 @@ def _split_cost(route, b, i, o, n_sm, n, run):
             + (8 * n * b * o if n > 1 else 0))
 
 
-@pytest.mark.parametrize("route", tint8.ROUTES)
+@pytest.mark.parametrize("route", ["gemv_mma", "gemv"])
 @pytest.mark.parametrize("i,o", MODEL_SHAPES + [(1000, 72), (100, 40), (130, 4097)])
 def test_gemv_split_runs_cover_I_once(route, i, o):
     stages = -(-i // tint8.STAGE_ROWS)
@@ -238,7 +244,7 @@ def test_partials_added_in_run_order_equal_the_plain_version(b, i, o, dtype):
     x, q, s = _inputs(b, i, o, seed=b * i)
     xt = torch.from_numpy(x).to(dtype)
     qt, st = torch.from_numpy(q), torch.from_numpy(s)
-    route = _route(b, dtype)
+    route = "gemv_mma" if dtype == torch.bfloat16 else "gemv"  # the split routes
     n_split, run = int8_gemv_split(route, b, i, o, 132)
     assert n_split > 1  # few column tiles: the split covers the card
     parts = int8_gemv_partials_reference(xt, qt, n_split, run)
@@ -255,9 +261,76 @@ def test_partials_added_in_run_order_equal_the_plain_version(b, i, o, dtype):
         assert (np.abs(got - exact) <= 2.0 ** -8 * np.abs(exact) + 1e-5 * scale).all()
 
 
+@pytest.mark.parametrize("i,o", MODEL_SHAPES + [(1000, 72), (100, 40), (130, 4097)])
+def test_cluster_plan_covers_I_once(i, o):
+    stages = -(-i // tint8.CLUSTER_STAGE_ROWS)
+    tiles = -(-o // tint8.TILE_COLS)
+    for b in (17, 24, 32):
+        for n_sm in (132, 8):
+            cluster, run = int8_gemv_plan(b, i, o, n_sm)
+            assert cluster in tint8.CLUSTERS and run % tint8.CLUSTER_STAGE_ROWS == 0
+            # runs [k run, min(I, (k + 1) run)), k < cluster: every row once,
+            # the rows' runs at most the cluster's blocks
+            n_runs = -(-i // run)
+            assert (n_runs - 1) * run < i <= n_runs * run and n_runs <= cluster
+            assert run == -(-stages // cluster) * tint8.CLUSTER_STAGE_ROWS
+            # the largest cluster within three quarters of the SMs, else 1
+            fits = [c for c in tint8.CLUSTERS if tiles * c <= 3 * n_sm // 4 and c <= stages]
+            assert cluster == max(fits, default=1)
+
+
+def test_cluster_plan_of_the_serving_shapes():
+    """The plans the card runs at s2-pro's shapes at 32 rows on 132 SMs:
+    the tile count times the cluster size kept within 99 blocks (a block
+    an SM over three quarters of the card), the full LM head's 1212 tiles
+    one block each."""
+    plan = functools.partial(int8_gemv_plan, 32, n_sm=132)
+    assert plan(2560, 155136) == (1, 2560)  # the LM head
+    assert plan(2560, 6144) == (2, 1280)    # slow wqkv: 48 tiles, 96 blocks
+    assert plan(4096, 2560) == (4, 1024)    # slow wo: 20 tiles, 80 blocks
+    assert plan(1536, 2560) == (4, 384)     # fast wqkv: 20 tiles
+    assert plan(1536, 1536) == (8, 192)     # fast wo: 12 tiles, 96 blocks
+    assert plan(2560, 4097) == (2, 1280)    # the semantic head: 33 tiles
+    assert plan(1536, 4096) == (2, 768)     # the fast head: 32 tiles
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b", [1, 5, 27, 32])
+def test_cluster_order_replay_equals_the_plain_version(b, dtype):
+    """Block r of a tile's cluster adds slice r of the tile's columns over
+    the cluster's runs in run order: in fp32 that is the run-order sum of
+    the per-block sums bit for bit (the slices change no order), within
+    1e-5 of (|x| @ |q|) * s of the exact product; in bf16 within one ulp of
+    the plain version (each rounds an fp32 sum of its own order once). A
+    ragged O (the last tile's slices part past O), a run past I, and every
+    cluster size the kernel takes."""
+    i, o = 1000, 300
+    x, q, s = _inputs(b, i, o, seed=b + 7)
+    xt = torch.from_numpy(x).to(dtype)
+    qt, st = torch.from_numpy(q), torch.from_numpy(s)
+    stages = -(-i // tint8.CLUSTER_STAGE_ROWS)
+    for cluster in tint8.CLUSTERS:
+        run = -(-stages // cluster) * tint8.CLUSTER_STAGE_ROWS
+        got = int8_gemv_cluster_reference(xt, qt, st, cluster, run)
+        assert got.shape == (b, o) and got.dtype == dtype
+        if dtype == torch.float32:
+            parts = int8_gemv_partials_reference(xt, qt, cluster, run)
+            acc = parts[0]
+            for k in range(1, cluster):
+                acc = acc + parts[k]
+            assert torch.equal(got, acc * st)
+            exact = int8_matmul_reference(xt.double(), qt, st).numpy()
+            assert (np.abs(got.numpy() - exact) <= 1e-5 * _scale(x, q, s) + 1e-7).all()
+        else:
+            want = int8_matmul_reference(xt, qt, st).float().numpy()
+            diff = np.abs(got.float().numpy() - want)
+            assert (diff <= _bf16_ulp(want)).all(), (cluster, diff.max())
+
+
 def test_route_by_rows_and_dtype():
-    for b in (1, 8, 9, 32):
-        assert _route(b, torch.bfloat16) == "gemv_mma"
+    for b in (1, 8, 9, 16, 17, 32):
+        # bf16: the cluster kernel from 17 rows; fp32: the CUDA cores
+        assert _route(b, torch.bfloat16) == ("gemv_cluster" if b >= 17 else "gemv_mma")
         assert _route(b, torch.float32) == "gemv"
     for b in (0, 33, 1024):
         with pytest.raises(ValueError, match="rows"):
