@@ -82,7 +82,10 @@ Phases, each of which ends the run with a nonzero exit if it fails:
    through the kernels on the card (its session's graphs captured at first
    use) and through the plain versions on the CPU (the same step bodies
    run eagerly); token columns must be identical and prefill logits within
-   1e-4;
+   1e-4; then a prefix-cache miss and hit (two prompts sharing 140
+   columns; the hit's suffix through the suffix attention's fp32 route)
+   give identical columns on the card and the CPU (3c does the same over
+   the int8 cache);
 3b. a small training reference: a tiny fp32 LoRA model takes two
    `make_train_step` steps through the training kernels on the card (the
    forward's and the backward's CUDA-core route, which must launch) and
@@ -123,7 +126,16 @@ Phases, each of which ends the run with a nonzero exit if it fails:
    once (one VQ cache miss, a hit), every prompt prefilled by
    `prefill_1024`, the prefill's tensor-core route and the decode kernel
    launched, the encode graph replayed, no step or codec body run eagerly
-   on the card, and the three requests' codes identical. The TTFAs (the
+   on the card, and the three requests' codes identical. The session keeps
+   the prefix cache (`prefix_cache_size=4`): the first request stores its
+   prompt's rows, the request by bytes and the repeat by id are hits (two
+   `suffix_64` replays, the suffix kernel's bf16 route launched), and a
+   fourth with the cache off is cold (`prefill_1024`); the two hits must
+   give identical codes, as must the two cold runs; the hit TTFAs are
+   printed beside the cold one; the prompt's first logits from the stored
+   rows and `prefill_suffix` (at the hit's start and at a 40-column
+   suffix) must lie within 0.05 x max |logit| of a cold `prefill`'s, with
+   the same argmax. The TTFAs (the
    first with the clip's `load_audio` + encode time apart), frames/s, the
    encode's device ms at bucket 1024, the codec pool and the peak memory
    are printed. The replayed encode's codes must equal an eager run of
@@ -148,7 +160,9 @@ Phases, each of which ends the run with a nonzero exit if it fails:
    `flash_decode_kv8` and `flash_prefill` (tensor-core route) launched. Then the model is
    rebuilt and quantized `int4` (every layer int4, heads int8) and serves
    the 700-byte request (prefill bucket 1024: the int4 matmul's
-   tensor-core route, whose launch count must be > 0). Both serve through
+   tensor-core route, whose launch count must be > 0). `mixed` keeps the
+   prefix cache: the medium request and its repeat, which must be a hit
+   through `suffix_64` (the suffix kernel over the int8 cache). Both serve through
    graphs captured beforehand, as phase 4 does, with the same replay
    checks (the codec's decode graphs captured first, as in phase 4), and
    the int8 matmul's kernel must be launched by a replayed decode step and
@@ -200,7 +214,31 @@ Phases, each of which ends the run with a nonzero exit if it fails:
    peak memory, the bf16 step at P=8 beside phase 4's P=1 step, and under
    int8 each graph's pool growth beside its body's eager peak of
    temporaries at P=32 and P=1; the graph pools and the int8 steps beside
-   an earlier run's with the int8 cast.
+   an earlier run's with the int8 cast. The int8 pool keeps the prefix
+   cache (`prefix_cache_size=4`, the repeat alone runs with it off) and
+   then serves a same-reference burst: one request by phase 4b's reference
+   stores its prompt's rows, 16 more by the same reference must be
+   admitted as prefix hits through `suffix_{k}_64` replays (no eager body);
+   four of their prompts, submitted as one admission group and served
+   twice, must be two `suffix_4_*` hits with the same codes, and the first
+   logits of all 16 as one hit group computes them (the stored row in
+   every row of the cache, the suffixes at the group's start) must lie
+   within 0.05 x max |logit| of a cold prefill of the same prompts, row
+   by row, and of the suffixes over the cold prefill's own int8 rows with
+   their argmax (against the cold prefill the argmax is printed: the hit
+   attends the prefix's int8 keys, the cold prefill fresh ones);
+9. the port's HTTP server over phase 8's int8 / int8-KV pool engine (the
+   JAX server's `--int8 --kv-int8 --pool-size 32`): the server's `warm_up`
+   (the pool's precompile at every prompt bucket, the codec's, the warm
+   request and burst), then `create_app` on 127.0.0.1: health, references
+   added from WAV and from FLAC bytes, four concurrent streamed /v1/tts by
+   reference id, a msgpack request, /v1/audio/speech as pcm, a client that
+   drops its stream after the first frame, and the metrics. Each request
+   must answer 200 with a valid WAV header and whole frames of audio, the
+   dropped stream must count `cancelled` once, its row must be freed and
+   the next request served, and no pool body may run eagerly after
+   `warm_up`. Then `python -m fish_speech_tpu_torch.server.main --tiny
+   --no-warmup` in a process of its own on the card answers one /v1/tts.
 
 Phase 2 also holds the kernels at the pool's shapes: `decode_mma_kernel`
 and `decode_kv8_mma_kernel` at B=32, S=2176 (8 layers) with ragged
@@ -214,7 +252,14 @@ gives each kernel's launches in one replayed P=32 step, read from the
 pools' captured steps (`launches_per_p32_step`); `int8_mm` (1-16 rows),
 `int8_mm_cluster` (17-32 rows: the pool's step) and `int8_mm_fp32` replace
 `scripts/microbench/matvec_pallas.py:18`, `int8_ffn`
-and `int8_ffn_fp32` `scripts/microbench/ffn_fused_packed.py:17`.
+and `int8_ffn_fp32` `scripts/microbench/ffn_fused_packed.py:17`. The
+suffix attention (a prefix-cache hit's prefill over the KV cache, JAX's
+einsum in `prefill_suffix`) has four routes: `flash_suffix` (bf16 q, bf16
+cache) and `flash_suffix_kv8` (int8 cache), held at S = 2176, start 951,
+Ts 64 and 128 at one row and Ts 64 at 4 and 16 rows, with SDPA under the
+suffix's mask (over the dequantized cache for int8) as the library call;
+`flash_suffix_fp32` and `flash_suffix_kv8_fp32` at phase 3's tiny cache
+to 1e-4, launched in phases 3 and 3c.
 
 Each phase sets the kernels' launch counts to 0 before it drives its path
 and reads them after. The line before the last is a JSON object with each
@@ -225,6 +270,7 @@ not beside this script.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import json
@@ -234,6 +280,7 @@ import sys
 import threading
 import time
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 
@@ -493,6 +540,7 @@ def kernel_cases(dev):
             device_ms=_device_ms(lambda i=0: flash_decode_attention(
                 q, kc, vc, i % n_layer, lens), 100),
             library_device_ms=_device_ms(sdpa, 100), ok=mx <= 1e-4))
+    cases.update(suffix_kernel_cases(dev, randn))
     cases.update(train_kernel_cases(dev, randn))
     cases.update(quant_kernel_cases(dev, randn))
     cases.update(int8_kernel_cases(dev, randn))
@@ -523,6 +571,113 @@ def kernel_cases(dev):
             if not ok:
                 raise SystemExit(f"{name} disagrees with its plain version at "
                                  f"{r['shape']}")
+    return cases
+
+
+# the prefix cache's suffix prefill (phases 4b, 6 and 8): the slow cache of
+# the serving sessions and pool (S = 2048 + 128, Hkv=8, G=4, D=128) with a
+# stored ~950-column voice-clone prefix, start 951: one request (a 64- or a
+# 128-column suffix bucket) and admission groups of 4 and 16 rows; 8 layers,
+# each timed call reading the next, over a bf16 and an int8 cache; the fp32
+# route at phase 3's tiny cache (2 layers, S = 256 + 8, Hkv=2 G=2 D=64,
+# start 140)
+SUFFIX_START, SUFFIX_S = 951, 2176
+SUFFIX_CASES = [(1, 64), (1, 128), (4, 64), (16, 64)]
+
+
+def _suffix_cache(dev, randn, n_layer, b, s, hkv, d, kv8, dtype):
+    """A random stacked cache: bf16 (or `dtype`) k/v from N(0, 1), or int8
+    k/v (N(0, 1) x 40, rounded) with bf16 scales within 10% of 1/40: k and
+    v of unit scale either way, as the bf16 bound assumes."""
+    import torch
+
+    shape = (n_layer, b, s, hkv, d)
+    if not kv8:
+        return {"k": randn(*shape).to(dtype), "v": randn(*shape).to(dtype)}
+    out = {}
+    for n in ("k", "v"):
+        out[n] = (randn(*shape).float() * 40).clamp(-127, 127).round().to(torch.int8)
+        out[n + "s"] = ((1 + 0.1 * randn(*shape[:4]).float().clamp(-1, 1)) / 40
+                        ).to(torch.bfloat16)
+    return out
+
+
+def suffix_kernel_cases(dev, randn):
+    """The suffix attention's four routes against their plain version: bf16
+    q over a bf16 and an int8 cache (tensor cores) at the serving shapes,
+    fp32 q over an fp32 and an int8 cache (CUDA cores) at the tiny one.
+    SDPA with the suffix's causal mask is the library call (over the
+    dequantized cache for int8). Each case prints its bound: the q, K/V
+    (scales) and output bytes of keys [0, start + Ts) of each row, and
+    4 D H operations per visible (query, key) pair."""
+    import torch
+
+    import torch.nn.functional as F
+
+    from fish_speech_tpu_torch.ops.flash_prefill import (
+        _suffix_route, flash_suffix_attention, flash_suffix_reference)
+
+    cases = {n: [] for n in ("flash_suffix", "flash_suffix_kv8", "flash_suffix_fp32",
+                             "flash_suffix_kv8_fp32")}
+    shapes = [(8, b, SUFFIX_S, 32, 8, 128, SUFFIX_START, ts, torch.bfloat16)
+              for b, ts in SUFFIX_CASES]
+    shapes.append((2, 1, 264, 4, 2, 64, 140, 64, torch.float32))
+    for n_layer, b, s, h, hkv, d, start, ts, dtype in shapes:
+        fp32 = dtype == torch.float32
+        for kv8 in (False, True):
+            name = "flash_suffix" + ("_kv8" if kv8 else "") + ("_fp32" if fp32 else "")
+            cache = _suffix_cache(dev, randn, n_layer, b, s, hkv, d, kv8, dtype)
+            q = randn(b, ts, h, d).to(dtype)
+            st = torch.tensor([start], dtype=torch.int32, device=dev)
+            mx = mean = 0.0
+            for layer in (0, n_layer - 1):
+                e = _errors(flash_suffix_attention(q, cache, layer, st),
+                            flash_suffix_reference(q, cache, layer, st))
+                mx, mean = max(mx, e[0]), max(mean, e[1])
+            iters = 20
+            ms, plain_ms = _in_turns(
+                lambda i=0: flash_suffix_reference(q, cache, i % n_layer, st),
+                lambda i=0: flash_suffix_attention(q, cache, i % n_layer, st), iters)
+            kv = start + ts
+            pairs = b * (ts * start + ts * (ts + 1) // 2)
+            flops = 4 * d * h * pairs
+            kv_bytes = b * kv * hkv * d * (1 if kv8 else q.element_size()) * 2
+            nbytes = (2 * q.numel() * q.element_size() + kv_bytes
+                      + (b * kv * hkv * 2 * 2 if kv8 else 0))
+            bound = _bound(flops, nbytes, PEAK_FP32 if fp32 else PEAK_BF16)
+            # SDPA on the same function: the suffix's causal mask over keys
+            # [0, start + Ts) of each layer (the int8 cache dequantized
+            # beforehand, not timed)
+            i_, j_ = torch.arange(ts, device=dev), torch.arange(kv, device=dev)
+            mask = (j_[None, :] <= start + i_[:, None])[None, None]
+            if kv8:
+                kl = [(cache["k"][i, :, :kv].float() * cache["ks"][i, :, :kv, :, None].float()
+                       ).to(dtype).transpose(1, 2) for i in range(n_layer)]
+                vl = [(cache["v"][i, :, :kv].float() * cache["vs"][i, :, :kv, :, None].float()
+                       ).to(dtype).transpose(1, 2) for i in range(n_layer)]
+            else:
+                kl = [cache["k"][i, :, :kv].transpose(1, 2) for i in range(n_layer)]
+                vl = [cache["v"][i, :, :kv].transpose(1, 2) for i in range(n_layer)]
+            qt = q.transpose(1, 2)
+
+            def sdpa(i=0):
+                return F.scaled_dot_product_attention(
+                    qt, kl[i % n_layer], vl[i % n_layer], attn_mask=mask,
+                    enable_gqa=True)
+
+            cases[name].append(dict(
+                shape=f"L={n_layer} B={b} S={s} H={h} Hkv={hkv} D={d} start={start} "
+                      f"Ts={ts} {str(dtype)[6:]} q, {'int8' if kv8 else str(dtype)[6:]} "
+                      f"cache, {_suffix_route(dtype, kv8)} "
+                      f"({flops / ms / 1e9:.1f} TFLOP/s; SDPA mask)",
+                max_abs_err=mx, mean_abs_err=mean, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound[0], bound_by=bound[1],
+                library_ms=_library_ms(sdpa, iters),
+                device_ms=_device_ms(lambda i=0: flash_suffix_attention(
+                    q, cache, i % n_layer, st), iters),
+                library_device_ms=_device_ms(sdpa, iters),
+                ok=mx <= 1e-4 if fp32 else mx <= 2e-2 and mean <= 2e-3))
+            del cache, kl, vl
     return cases
 
 
@@ -1177,6 +1332,33 @@ def _tiny_cfg(tokenizer):
                         im_end_id=tokenizer.im_end_id)
 
 
+def _prefix_hit_codes(params, cfg, kv_quant, label):
+    """A tiny fp32 session with the prefix cache serves two greedy prompts
+    that share 140 columns: the second is a hit (its suffix through the
+    suffix attention, on the card its graph `suffix_64`). Returns the two
+    requests' columns."""
+    import torch
+
+    from fish_speech_tpu_torch.config import SamplingConfig
+    from fish_speech_tpu_torch.generate import GenerationSession
+
+    session = GenerationSession(params, cfg, SamplingConfig(), dtype=torch.float32,
+                                decode_chunk_size=8, first_chunk_size=4,
+                                kv_quant=kv_quant, prefix_cache_size=2)
+    rng = np.random.default_rng(17)
+    head = rng.integers(0, cfg.codebook_size, (cfg.num_codebooks + 1, 140))
+    head[0, 20:60] += cfg.semantic_begin_id
+    out = []
+    for n in (12, 20):
+        tail = rng.integers(0, cfg.codebook_size, (cfg.num_codebooks + 1, n))
+        prompt = np.concatenate([head, tail], axis=1).astype(np.int32)
+        out.append(session.generate(prompt, 5, max_new_tokens=12, top_k=1))
+    if session.prefix_hits != 1:
+        raise SystemExit(f"{label}: the shared prefix was not a hit "
+                         f"({session.prefix_hits} hits)")
+    return out
+
+
 def small_reference(dev, tokenizer):
     """Phase 3: a tiny fp32 model through the kernels (card) and the plain
     versions (CPU) on the same weights and request."""
@@ -1210,10 +1392,14 @@ def small_reference(dev, tokenizer):
             max_new_tokens=20, top_k=1, seed=5) if r.action == "sample"]
         codes.append(np.concatenate(out, axis=1))
     same = codes[0].shape == codes[1].shape and np.array_equal(*codes)
+    hits = [_prefix_hit_codes(p, cfg, False, "small reference")
+            for p in (cpu_params, gpu_params)]
+    hit_same = all(np.array_equal(a, b) for a, b in zip(*hits))
     print(f"small reference (tiny fp32, card kernels vs CPU plain): "
           f"prefill max_abs_err={err:.3e}, greedy codes {codes[0].shape} "
-          f"identical={same}")
-    if err > 1e-4 or not same:
+          f"identical={same}; a prefix miss and hit (suffix over the fp32 "
+          f"cache), columns identical={hit_same}")
+    if err > 1e-4 or not same or not hit_same:
         raise SystemExit("the kernel path disagrees with the plain path on "
                          "the small reference")
 
@@ -1262,14 +1448,17 @@ def small_quant_reference(dev, tokenizer):
             max_new_tokens=20, top_k=1, seed=5) if r.action == "sample"]
         codes.append(np.concatenate(out, axis=1))
     same = codes[0].shape == codes[1].shape and np.array_equal(*codes)
+    hits = [_prefix_hit_codes(p, cfg, True, "small quantized reference")
+            for p in (cpu_params, gpu_params)]
+    same = same and all(np.array_equal(a, b) for a, b in zip(*hits))
     ran = (int4_matmul.launches > launches[0]
            and flash_decode_attention_kv8.launches > launches[1]
            and int8_matmul.launches > launches[2]
            and int8_ffn.launches > launches[3])
     print(f"small quantized reference (tiny fp32 mixed int8/int4 + int8 KV, card "
           f"kernels vs CPU plain): prefill max_abs_err={err:.3e}, greedy codes "
-          f"{codes[0].shape} identical={same}, int4/kv8/int8/int8 FFN kernels "
-          f"ran={ran}")
+          f"{codes[0].shape} and a prefix miss and hit (suffix over the int8 "
+          f"cache) identical={same}, int4/kv8/int8/int8 FFN kernels ran={ran}")
     if err > 1e-4 or not same or not ran:
         raise SystemExit("the quantized kernel path disagrees with the plain "
                          "path on the small reference")
@@ -1374,6 +1563,7 @@ def _recording_engine(session, tokenizer, codec, dac_cfg, references_dir="refere
             super().__init__(*args)
             self.encode_seconds = []
             self.decode_seconds = []
+            self.codes_by_request = {}
 
         def decode_vq_tokens(self, codes):
             self.last_codes = np.array(codes)
@@ -1455,6 +1645,7 @@ def serve(dev, tokenizer, engine, requests, frame, label):
         if frames < 2 or t_first is None:
             raise SystemExit(f"{label} request {name}: only {frames} frames")
         codes[name] = engine.last_codes
+        engine.codes_by_request[name] = engine.last_codes
         prompt_len = len(tokenizer.encode(req.text))
         row = dict(request=name, text_bytes=len(req.text.encode()),
                    ttfa_s=t_first - t_start, frames=frames, segments=n_seg,
@@ -1494,14 +1685,15 @@ def _prompt_len(tokenizer, cfg, text, prompt_text=None, prompt_tokens=None):
                        tokenizer, cfg.num_codebooks).shape[1]
 
 
-def precompile_for(session, tokenizer, requests, label):
-    """Capture the graphs of `requests` before they are measured, as the
-    JAX server's `warm_up` compiles; prints the capture seconds and pool."""
+def precompile_for(session, tokenizer, requests, label, suffix_buckets=()):
+    """Capture the graphs of `requests` (and the suffix prefills of
+    `suffix_buckets`, a prefix hit's) before they are measured, as the JAX
+    server's `warm_up` compiles; prints the capture seconds and pool."""
     times = {}
     for t in sorted({_prompt_len(tokenizer, session.cfg, req.text)
                      for _, req in requests}):
         times.update(session.precompile(t, requests[0][1].max_new_tokens,
-                                        session.first_chunk_size))
+                                        session.first_chunk_size, suffix_buckets))
     print(f"{label} graphs captured (s, each with its eager run): "
           + ", ".join(f"{k} {v:.3f}" for k, v in times.items())
           + f"; graph pool {session.pool_bytes / 2**20:.1f} MiB")
@@ -1594,13 +1786,12 @@ def replayed_step_ms(session, n=64):
     events, after one such chunk untimed."""
     import torch
 
-    gen = session.new_generator(0)
-    session.decode_chunk(n, gen)
+    session.decode_chunk(n)
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
-    session.decode_chunk(n, gen)
+    session.decode_chunk(n)
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / n
@@ -1655,7 +1846,7 @@ def run_slice(dev, tokenizer):
     codec = init_dac(1, dac_cfg, torch.float32, dev)
     session = GenerationSession(params, cfg, SamplingConfig(),
                                 dtype=torch.bfloat16, decode_chunk_size=64,
-                                first_chunk_size=8)
+                                first_chunk_size=8, prefix_cache_size=4)
     del params  # the session holds the fused-FFN copy it decodes with
     refs_dir = Path(__file__).resolve().parent / "build" / "chip_smoke_refs"
     engine = _recording_engine(session, tokenizer, codec, dac_cfg, str(refs_dir))
@@ -1728,7 +1919,8 @@ def run_clone(dev, tokenizer, session, engine, refs_dir):
     from fish_speech_tpu_torch.engine.tts import TTSRequest
     from fish_speech_tpu_torch.models.dac.model import dac_encode
     from fish_speech_tpu_torch.ops.flash_decode import flash_decode_attention
-    from fish_speech_tpu_torch.ops.flash_prefill import flash_prefill_attention
+    from fish_speech_tpu_torch.ops.flash_prefill import (flash_prefill_attention,
+                                                         flash_suffix_attention)
 
     cfg, dac_cfg = session.cfg, engine.codec_cfg
     frame = dac_cfg.frame_length
@@ -1746,50 +1938,75 @@ def run_clone(dev, tokenizer, session, engine, refs_dir):
           f"{len(CLONE_TEXT)} bytes; prompt {prompt_len} tokens (prefill "
           f"bucket {bucket}) with phase 4's {len(text)}-byte short text")
     torch.cuda.reset_peak_memory_stats(dev)
-    times = session.precompile(prompt_len, 72, session.first_chunk_size)
+    times = session.precompile(prompt_len, 72, session.first_chunk_size,
+                               suffix_buckets=(1,))
     print(f"clone session graphs captured (s): {times or 'none new'}")
     precompile_codec(engine, (), (n_frames,), "clone")
     session.replays.clear()
     session.eager_runs.clear()
     engine.encode_seconds.clear()
     _zero_counts()
+    hits0, misses0 = session.prefix_hits, session.prefix_misses
     common = dict(text=text, streaming=True, max_new_tokens=72, seed=31)
+    # the first stores the prompt's rows (the prefix cache); the bytes and
+    # the repeat are hits; the cold one runs with the cache off, to set the
+    # full prefill's TTFA and codes beside the hits'
     requests = [
         ("clone-id", TTSRequest(**common, reference_id="speaker",
                                 use_memory_cache="on")),
         ("clone-bytes", TTSRequest(**common, references=[
             SimpleNamespace(audio=clip, text=CLONE_TEXT)])),
+        ("clone-id-cold", TTSRequest(**common, reference_id="speaker",
+                                     use_memory_cache="on")),
         ("clone-id-repeat", TTSRequest(**common, reference_id="speaker",
                                        use_memory_cache="on")),
     ]
     codes = {}
     rows = []
     for name, req in requests:
+        session.prefix.size = 0 if name.endswith("cold") else 4
         rows += serve(dev, tokenizer, engine, [(name, req)], frame, "clone")
         codes[name] = engine.last_codes
+    session.prefix.size = 4
     launches = {"flash_prefill": flash_prefill_attention.launches_wgmma,
-                "flash_decode": flash_decode_attention.launches}
+                "flash_decode": flash_decode_attention.launches,
+                "flash_suffix": flash_suffix_attention.launches_suffix_wgmma}
+    hits, misses = session.prefix_hits - hits0, session.prefix_misses - misses0
     encode_key = ("encode", 1, engine._code_bucket(n_frames))
     print(f"clone: reference load_audio + encode {engine.encode_seconds[0] * 1e3:.1f} "
           f"ms inside request clone-id's TTFA; VQ cache misses "
-          f"{engine.vq_cache_misses}, hits {engine.vq_cache_hits}; prefill "
-          f"graph replays {dict(session.replays)}; kernel launches {launches}")
+          f"{engine.vq_cache_misses}, hits {engine.vq_cache_hits}; prefix cache "
+          f"hits {hits}, misses {misses}; prefill graph replays "
+          f"{dict(session.replays)}; kernel launches {launches}")
     check_replayed(session, "clone")
     check_codec_replayed(engine, ("decode", "encode"), "clone")
-    same = all(np.array_equal(codes["clone-id"], c) for c in codes.values())
-    print(f"clone: codes of the three requests {codes['clone-id'].shape} "
-          f"identical={same}")
+    ttfa = {r["request"]: r["ttfa_s"] * 1e3 for r in rows}
+    hit_same = np.array_equal(codes["clone-bytes"], codes["clone-id-repeat"])
+    cold_same = np.array_equal(codes["clone-id"], codes["clone-id-cold"])
+    cross = np.array_equal(codes["clone-id"], codes["clone-bytes"])
+    print(f"clone TTFA: prefix hits (suffix_64) {ttfa['clone-bytes']:.1f} / "
+          f"{ttfa['clone-id-repeat']:.1f} ms against the cold prefill_1024 "
+          f"{ttfa['clone-id-cold']:.1f} ms (and {ttfa['clone-id']:.1f} ms with "
+          f"the reference's load and encode; earlier runs of this script, "
+          f"NVIDIA H100 80GB HBM3, 700.00 W: 52.5-59.5 ms for a cold repeat)")
+    print(f"clone codes {codes['clone-id'].shape}: the two hits identical="
+          f"{hit_same}, the two cold runs identical={cold_same}, hit vs cold "
+          f"identical={cross} (printed, not held: bf16 sums in another order)")
     failures = [msg for bad, msg in (
         (engine.vq_cache_misses != 1 or engine.vq_cache_hits < 1,
          "the clip was not encoded exactly once"),
-        (bucket != 1024 or session.replays[f"prefill_{bucket}"] != 3,
-         "the prompts did not go through prefill_1024"),
+        (bucket != 1024 or session.replays[f"prefill_{bucket}"] != 2,
+         "the cold prompts did not go through prefill_1024"),
+        (hits != 2 or session.replays["suffix_64"] != 2,
+         "the repeats were not prefix hits through suffix_64"),
         (min(launches.values()) <= 0, "a kernel of the path was never launched"),
         (engine.codec_replays[encode_key] < 1, "the encode graph never replayed"),
-        (not same, "the same reference, text and seed gave different codes"))
+        (not hit_same or not cold_same,
+         "the same reference, text and seed gave different codes"))
         if bad]
     if failures:
         raise SystemExit(f"clone: {'; '.join(failures)}")
+    check_hit_logits(session, prompt_len)
     peak = torch.cuda.max_memory_allocated(dev) / 2**30
     encode_ms = codec_device_ms(engine, encode_key, 5)
     step_ms = replayed_step_ms(session)
@@ -1824,7 +2041,47 @@ def run_clone(dev, tokenizer, session, engine, refs_dir):
     if not bitwise:
         raise SystemExit("clone: the replayed encode differs from its eager body")
     return dict(rows=rows, encode_ms=encode_ms, encode_s=engine.encode_seconds[0],
-                prompt_len=prompt_len)
+                prompt_len=prompt_len, launches=launches)
+
+
+def check_hit_logits(session, prompt_len):
+    """The stored clone prompt's first logits, cold (`dual_ar.prefill` at
+    bucket 1024) against a prefix hit (the stored rows restored, then
+    `prefill_suffix`), at the served hit's start (prompt - 1) and at a
+    40-column suffix: within 0.05 of max |logit|, with the same argmax
+    (the bound of `tests/test_prefix_cache.py`'s bf16 case)."""
+    import torch
+
+    from fish_speech_tpu_torch.generate import restore_prefix_rows
+    from fish_speech_tpu_torch.models import dual_ar
+
+    entry = next(e for e in session.prefix._store.values()
+                 if e["cols"].shape[1] == prompt_len)
+    cols, cfg, dev = entry["cols"], session.cfg, session.device
+    t, bucket = cols.shape[1], session._bucket(prompt_len)
+    inp = torch.zeros((1, cfg.num_codebooks + 1, bucket), dtype=torch.int32,
+                      device=dev)
+    inp[0, :, :t] = torch.from_numpy(cols)
+    with torch.no_grad():
+        cold, _, _ = dual_ar.prefill(session.params, cfg, inp, session.cache,
+                                     torch.zeros(1, dtype=torch.int32, device=dev), t)
+        for m in (t - 1, t - 40):
+            restore_prefix_rows(session.cache, entry["rows"])
+            sfx = torch.zeros((1, cfg.num_codebooks + 1, 64), dtype=torch.int32,
+                              device=dev)
+            sfx[0, :, : t - m] = inp[0, :, m:t]
+            hit, _, _ = dual_ar.prefill_suffix(
+                session.params, cfg, sfx, session.cache,
+                torch.tensor([m], dtype=torch.int32, device=dev), t - m)
+            delta = (hit - cold).abs().max().item()
+            scale = cold.abs().max().item()
+            same = int(hit.argmax()) == int(cold.argmax())
+            print(f"clone hit vs cold first logits (start {m}, suffix {t - m}): "
+                  f"max |delta| {delta:.4f} against 0.05 x max |logit| "
+                  f"{0.05 * scale:.4f}; argmax equal={same}")
+            if not np.isfinite(delta) or delta > 0.05 * max(scale, 1.0) or not same:
+                raise SystemExit("clone: the hit's first logits left the cold "
+                                 "prefill's envelope")
 
 
 def _tree_bytes(tree):
@@ -1849,7 +2106,7 @@ def _fast_stack_frame(session):
                          dtype=session.params["embeddings"].dtype)
     logits = torch.randn((1, cfg.semantic_end_id - cfg.semantic_begin_id + 2),
                          generator=gen, device=dev)
-    u = st.u[0].uniform_(generator=gen).clamp_(min=1e-30)
+    u = st.uniforms(cfg, st.draw)
 
     def frame(i=0):
         return _sample_column(session.params, cfg, session.scfg, logits, hidden,
@@ -1927,7 +2184,8 @@ def run_quant_slice(dev, tokenizer):
     from fish_speech_tpu_torch.generate import GenerationSession
     from fish_speech_tpu_torch.models import dual_ar
     from fish_speech_tpu_torch.ops.flash_decode import flash_decode_attention_kv8
-    from fish_speech_tpu_torch.ops.flash_prefill import flash_prefill_attention
+    from fish_speech_tpu_torch.ops.flash_prefill import (flash_prefill_attention,
+                                                         flash_suffix_attention)
     from fish_speech_tpu_torch.ops.int4 import int4_matmul
     from fish_speech_tpu_torch.ops.int8 import int8_matmul
     from fish_speech_tpu_torch.ops.int8_ffn import int8_ffn
@@ -1938,9 +2196,13 @@ def run_quant_slice(dev, tokenizer):
     codec = init_dac_decoder(1, dac_cfg, torch.float32, dev)
     wrappers = {"flash_decode_kv8": flash_decode_attention_kv8}
     requests = dict(_requests())
+    # `mixed` keeps the prefix cache on: the medium request (a prompt of
+    # over 128 columns, stored) and its repeat, a hit over the int8 cache
+    requests["medium-repeat"] = requests["medium"]
     out = {}
     for label, mode, fast_mode, names in (
-            ("mixed", "int8", "int4", ["short", "short-repeat"]),
+            ("mixed", "int8", "int4", ["short", "short-repeat", "medium",
+                                       "medium-repeat"]),
             ("int4", "int4", None, ["long"])):
         torch.cuda.reset_peak_memory_stats(dev)
         t0 = time.perf_counter()
@@ -1949,7 +2211,8 @@ def run_quant_slice(dev, tokenizer):
             fast_mode=fast_mode)
         session = GenerationSession(params, cfg, SamplingConfig(), max_batch=1,
                                     dtype=torch.bfloat16, decode_chunk_size=64,
-                                    first_chunk_size=8, kv_quant=True)
+                                    first_chunk_size=8, kv_quant=True,
+                                    prefix_cache_size=4 if label == "mixed" else 0)
         del params
         gc.collect()
         torch.cuda.empty_cache()
@@ -1962,7 +2225,8 @@ def run_quant_slice(dev, tokenizer):
               f"{weight_bytes / 2**30:.3f} GiB; device memory allocated "
               f"{torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB")
         served = [(n, requests[n]) for n in names]
-        precompile_for(session, tokenizer, served, label)
+        precompile_for(session, tokenizer, served, label,
+                       suffix_buckets=(1,) if label == "mixed" else ())
         print(f"{label} graph pool {session.pool_bytes / 2**20:.1f} MiB against "
               f"{CAST_ROUTE_GRAPH_POOL_MIB[label]:.1f} before the int8 kernel (the "
               f"prefill's LM head cast its whole int8 head to bf16; an earlier "
@@ -1980,8 +2244,23 @@ def run_quant_slice(dev, tokenizer):
                         int8_mm=int8_matmul.launches_gemv_mma,
                         int8_mm_cluster=int8_matmul.launches_gemv_cluster,
                         int8_ffn=int8_ffn.launches_mma,
-                        int8_cast=mm.launches_int8_cast)
+                        int8_cast=mm.launches_int8_cast,
+                        flash_suffix_kv8=flash_suffix_attention.launches_suffix_kv8_wgmma)
         peak = torch.cuda.max_memory_allocated(dev) / 2**30
+        if label == "mixed":
+            same = np.array_equal(engine.codes_by_request["medium"],
+                                  engine.codes_by_request["medium-repeat"])
+            print(f"mixed prefix cache: hits {session.prefix_hits}, misses "
+                  f"{session.prefix_misses}; the repeat's suffix_64 replays "
+                  f"{session.replays['suffix_64']}, its TTFA "
+                  f"{rows[3]['ttfa_s'] * 1e3:.1f} ms against the cold "
+                  f"{rows[2]['ttfa_s'] * 1e3:.1f} ms; codes of the hit equal the "
+                  f"cold run's={same} (printed, not held: the hit attends the "
+                  f"prefix's int8 keys, the cold prefill its fresh ones)")
+            if (session.prefix_hits != 1 or session.replays["suffix_64"] != 1
+                    or launches["flash_suffix_kv8"] <= 0):
+                raise SystemExit("mixed: the repeated medium request was not a "
+                                 "prefix hit through suffix_64")
         per_step = check_replayed(session, label)
         check_int8_route(per_step, label)
         # `mixed`: the slow stack's FFNs are int8, the fast stack's int4
@@ -2321,13 +2600,17 @@ def _pool_requests():
 
     long_tail = (" The pool decodes every stream in one step, and each one keeps "
                  "its own place, seed and budget.")
-    texts = [f"Pooled request {i} says hello." + (long_tail if i % 2 else "")
+    # the index first: no two prompts share 64 leading columns, so the
+    # burst is the prefix cache's miss side (the same-reference burst after
+    # it is the hit side) and the request repeated alone takes the path it
+    # took in the burst
+    texts = [f"{i} is a pooled request saying hello." + (long_tail if i % 2 else "")
              for i in range(POOL_CLIENTS)]
     return [TTSRequest(text=t, streaming=True, max_new_tokens=64, seed=100 + i)
             for i, t in enumerate(texts)]
 
 
-def _pool_engine(session, tokenizer, codec, dac_cfg):
+def _pool_engine(session, tokenizer, codec, dac_cfg, references_dir="references"):
     """An engine that keeps each request thread's last decoded codes (the
     closing decode of its segment) and the host seconds of each decode."""
     from fish_speech_tpu_torch.engine.tts import TTSInferenceEngine
@@ -2345,7 +2628,7 @@ def _pool_engine(session, tokenizer, codec, dac_cfg):
             self.decode_seconds.append(time.perf_counter() - t0)
             return out
 
-    return PoolRecordingEngine(session, tokenizer, codec, dac_cfg)
+    return PoolRecordingEngine(session, tokenizer, codec, dac_cfg, references_dir)
 
 
 def pool_serve(engine, requests, frame, label):
@@ -2474,7 +2757,7 @@ def print_pool_accounting(batcher, label):
     return rows
 
 
-def _pool_for(params, cfg, pool_size, kv_quant):
+def _pool_for(params, cfg, pool_size, kv_quant, prefix_cache_size=0):
     import torch
 
     from fish_speech_tpu_torch.config import SamplingConfig
@@ -2483,7 +2766,199 @@ def _pool_for(params, cfg, pool_size, kv_quant):
     return ContinuousBatcher(params, cfg, SamplingConfig(), pool_size=pool_size,
                              dtype=torch.bfloat16, decode_chunk_size=128,
                              first_chunk_size=8, admit_every=4,
-                             kv_quant=kv_quant)
+                             kv_quant=kv_quant, prefix_cache_size=prefix_cache_size)
+
+
+# phase 8's same-reference burst (int8 pool): one request stores the
+# speaker's prompt, then CLONE_BURST more by the same reference id are hits
+CLONE_BURST = 16
+
+
+def _clone_requests(n, seed0):
+    from fish_speech_tpu_torch.engine.tts import TTSRequest
+
+    return [TTSRequest(text=f"Line {i} of the same speaker.", reference_id="speaker",
+                       use_memory_cache="on", streaming=True, max_new_tokens=32,
+                       seed=seed0 + i) for i in range(n)]
+
+
+def run_clone_burst(engine, batcher, frame):
+    """Phase 8's int8 pool: a clone request stores its prompt's rows, then
+    a burst of CLONE_BURST more by the same reference: their admission
+    groups must be prefix hits through `suffix_*` replays. Then four of the
+    burst's prompts (the lowest seeds: the same four in every run) as one
+    admission group, served twice: a hit through `suffix_4_*` both times,
+    with the same codes; and the first logits of all 16 prompts as one hit
+    group computes them against a cold prefill of the same prompts
+    (`check_pool_hit_logits`)."""
+    from fish_speech_tpu_torch.ops.flash_prefill import flash_suffix_attention
+
+    hits0 = batcher.prefix.hits
+    batcher.replays.clear()
+    batcher.eager_runs.clear()  # the accounting above ran every body eagerly
+    first, _ = pool_serve(engine, _clone_requests(1, 300), frame, "clone burst")
+    n0 = flash_suffix_attention.launches_suffix_kv8_wgmma
+    recorded = []  # the burst's (seed, prompt) as the engine built them
+    submit = batcher.submit
+
+    def recording(req):
+        recorded.append((req.seed, req.prompt))
+        return submit(req)
+
+    batcher.submit = recording
+    try:
+        rows, _ = pool_serve(engine, _clone_requests(CLONE_BURST + 1, 300)[1:],
+                             frame, "clone burst")
+    finally:
+        del batcher.submit
+    launched = flash_suffix_attention.launches_suffix_kv8_wgmma - n0
+    hits = batcher.prefix.hits - hits0
+    suffix = {k: n for k, n in batcher.replays.items() if k.startswith("suffix")}
+    ttfa = [(r["first"] - r["t0"]) * 1e3 for r in rows]
+    print(f"pool int8 same-reference burst: the first request (stores its rows) "
+          f"TTFA {(first[0]['first'] - first[0]['t0']) * 1e3:.1f} ms; "
+          f"{CLONE_BURST} more by the same reference: prefix hits {hits}, "
+          f"suffix graph replays {suffix}, TTFA ms p50 {_pct(ttfa, 50):.1f} max "
+          f"{max(ttfa):.1f}; suffix kernel launches {launched}; eager body runs "
+          f"{dict(batcher.eager_runs)}; prefix store {batcher.prefix.hits} hits, "
+          f"{batcher.prefix.misses} misses")
+    if hits < 1 or not suffix or launched <= 0 or batcher.eager_runs:
+        raise SystemExit("pool int8: the same-reference burst was not served by "
+                         "prefix hits through suffix graphs")
+    prompts = [p for _, p in sorted(recorded, key=lambda r: r[0])]
+    group = prompts[:4]
+    pre = batcher._group_prefix([SimpleNamespace(prompt=p) for p in group])
+    if pre is None:
+        raise SystemExit("pool int8: four of the burst's prompts are no prefix hit")
+    name = f"suffix_4_{pre[2]}"
+    hits0, replays0 = batcher.prefix.hits, batcher.replays[name]
+    served = [_serve_group(batcher, group, 400) for _ in range(2)]
+    same = all(np.array_equal(a, b) for a, b in zip(*served))
+    print(f"pool int8 hit group (4 of the burst's prompts, start {pre[0]}) served "
+          f"twice: prefix hits {batcher.prefix.hits - hits0}, {name} replays "
+          f"{batcher.replays[name] - replays0}, codes "
+          f"{[c.shape[1] for c in served[0]]} columns identical={same}; eager "
+          f"body runs {dict(batcher.eager_runs)}")
+    if (batcher.prefix.hits - hits0 != 2 or batcher.replays[name] - replays0 != 2
+            or batcher.eager_runs or not same):
+        raise SystemExit("pool int8: the hit group served twice was not two "
+                         f"{name} replays with the same codes")
+    with _counts_kept():  # a comparison's launches, not the path's
+        check_pool_hit_logits(batcher, prompts)
+
+
+def _serve_group(batcher, prompts, seed0):
+    """The sampled columns of `prompts` (16 new tokens each), submitted
+    while the worker waits on the batcher's lock, so that one admission
+    pass takes them all: one group."""
+    from fish_speech_tpu_torch.engine.batcher import BatchRequest
+
+    reqs = [BatchRequest(prompt=p, seed=seed0 + j, max_new_tokens=16)
+            for j, p in enumerate(prompts)]
+    with batcher._state_lock:
+        outs = [batcher.submit(r) for r in reqs]
+    cols = []
+    for out in outs:
+        chunks = []
+        while (item := out.get(timeout=300)) is not None:
+            if isinstance(item, BaseException):
+                raise SystemExit(f"pool int8: the hit group failed: {item!r}")
+            chunks.append(item)
+        cols.append(np.concatenate(chunks).T)
+    return cols
+
+
+def check_pool_hit_logits(batcher, prompts):
+    """A pool hit group's first logits against a cold prefill of the same
+    prompts: cold, `dual_ar.prefill` of the whole prompts into a fresh
+    cache; as the batcher's hit computes them, the stored row restored into
+    every row of a fresh cache (`restore_prefix_rows`), then
+    `prefill_suffix` at the group's start with each row's suffix length;
+    and, with the cold prefill's own int8 rows in place of the stored ones,
+    `prefill_suffix` again over the cache the cold prefill wrote. Each row
+    of the hit within 0.05 of its max |logit| of both (phase 4b's bound),
+    with the argmax of the second: both attend the same int8 prefix keys.
+    The argmax against the cold prefill is printed, not held: the hit
+    attends the prefix's int8 keys where the cold prefill attends fresh
+    ones, and a row whose top two logits lie closer than twice that
+    difference may change its argmax (JAX's int8 cache does the same)."""
+    import torch
+
+    from fish_speech_tpu_torch.generate import pick_bucket, restore_prefix_rows
+    from fish_speech_tpu_torch.models import dual_ar
+
+    cfg, dev, k = batcher.cfg, batcher.device, len(prompts)
+    m, rows, sbucket = batcher._group_prefix([SimpleNamespace(prompt=p)
+                                              for p in prompts])
+    t = [p.shape[1] for p in prompts]
+    entry_bucket = rows["k"].shape[2]
+    bucket = (entry_bucket if m + sbucket <= entry_bucket
+              else pick_bucket(m + sbucket, batcher.cache_len))
+    cold_bucket = pick_bucket(max(t), batcher.cache_len)
+    inp = np.zeros((k, cfg.num_codebooks + 1, cold_bucket), np.int32)
+    sfx = np.zeros((k, cfg.num_codebooks + 1, sbucket), np.int32)
+    for j, p in enumerate(prompts):
+        inp[j, :, : t[j]] = p
+        sfx[j, :, : t[j] - m] = p[:, m:]
+    sfx = torch.from_numpy(sfx).to(dev)
+    start = torch.tensor([m], dtype=torch.int32, device=dev)
+    lengths = torch.tensor([n - m for n in t], dtype=torch.int64, device=dev)
+
+    def fresh():
+        return dual_ar.init_kv_cache(cfg, k, max(bucket, cold_bucket), batcher.dtype,
+                                     dev, quant=batcher.kv_quant)
+
+    with torch.no_grad():
+        cold_cache = fresh()
+        cold, _, _ = dual_ar.prefill(
+            batcher.params, cfg, torch.from_numpy(inp).to(dev), cold_cache,
+            torch.zeros(k, dtype=torch.int32, device=dev),
+            torch.tensor(t, dtype=torch.int64, device=dev))
+        cache = fresh()
+        restore_prefix_rows(cache, rows)
+        hit, _, _ = dual_ar.prefill_suffix(batcher.params, cfg, sfx, cache, start,
+                                           lengths)
+        own, _, _ = dual_ar.prefill_suffix(batcher.params, cfg, sfx, cold_cache,
+                                           start, lengths)
+    scale = cold.abs().amax(dim=1)
+    top2 = cold.topk(2, dim=1).values
+    rows_out = {  # name: (max |delta|, argmax equal, the argmax held)
+        "cold": ((hit - cold).abs().amax(dim=1), hit.argmax(1) == cold.argmax(1),
+                 False),
+        "own rows": ((hit - own).abs().amax(dim=1), hit.argmax(1) == own.argmax(1),
+                     True),
+    }
+    print(f"pool int8 hit group (start {m}, suffixes {[n - m for n in t]}, bucket "
+          f"{bucket}), first logits per row, 0.05 x max |logit| "
+          f"{[round(0.05 * c, 4) for c in scale.tolist()]}, the cold prefill's "
+          f"top-two margins {[round(x, 4) for x in (top2[:, 0] - top2[:, 1]).tolist()]}")
+    ok = True
+    for name, (delta, same, held) in rows_out.items():
+        print(f"  hit vs {name}: max |delta| {[round(d, 4) for d in delta.tolist()]}; "
+              f"argmax equal {same.tolist()}{'' if held else ' (printed, not held)'}")
+        ok &= bool(torch.isfinite(delta).all()) and bool(
+            (delta <= 0.05 * scale.clamp(min=1.0)).all()) and (
+                not held or bool(same.all()))
+    if not ok:
+        raise SystemExit("pool int8: the hit group's first logits left the cold "
+                         "prefill's envelope")
+
+
+@contextlib.contextmanager
+def _counts_kept():
+    """Every kernel wrapper's launch counts as they were before the block."""
+    from fish_speech_tpu_torch.ops.flash_prefill import flash_suffix_attention
+    from fish_speech_tpu_torch.ops.quant import mm
+
+    wrappers = (*_kernel_wrappers(), flash_suffix_attention, mm)
+    saved = [(f, {n: v for n, v in vars(f).items() if n.startswith("launches")})
+             for f in wrappers]
+    try:
+        yield
+    finally:
+        for f, counts in saved:
+            for n, v in counts.items():
+                setattr(f, n, v)
 
 
 def run_pool(dev, tokenizer, p1_step_ms):
@@ -2494,13 +2969,15 @@ def run_pool(dev, tokenizer, p1_step_ms):
     import torch
 
     from fish_speech_tpu_torch.config import dac_s2_pro
-    from fish_speech_tpu_torch.convert.from_jax import init_dac_decoder
+    from fish_speech_tpu_torch.audio.io import load_audio
     from fish_speech_tpu_torch.engine.batcher import BatcherSession
     from fish_speech_tpu_torch.generate import pick_bucket
     from fish_speech_tpu_torch.models import dual_ar
+    from fish_speech_tpu_torch.models.dac.model import init_dac
     from fish_speech_tpu_torch.ops.flash_decode import (
         flash_decode_attention, flash_decode_attention_kv8)
-    from fish_speech_tpu_torch.ops.flash_prefill import flash_prefill_attention
+    from fish_speech_tpu_torch.ops.flash_prefill import (flash_prefill_attention,
+                                                         flash_suffix_attention)
     from fish_speech_tpu_torch.ops.int8 import int8_matmul
     from fish_speech_tpu_torch.ops.int8_ffn import int8_ffn
     from fish_speech_tpu_torch.ops.quant import quantize_dual_ar_lowmem
@@ -2509,7 +2986,11 @@ def run_pool(dev, tokenizer, p1_step_ms):
     cfg = _s2_pro_cfg(tokenizer, 2048)
     dac_cfg = dac_s2_pro()
     frame = dac_cfg.frame_length
-    codec = init_dac_decoder(1, dac_cfg, torch.float32, dev)
+    # the whole codec: the int8 pool's same-reference burst encodes a clip
+    codec = init_dac(1, dac_cfg, torch.float32, dev)
+    refs_dir = Path(__file__).resolve().parent / "build" / "chip_smoke_refs"
+    n_frames = -(-len(load_audio(refs_dir / "speaker" / "sample.wav",
+                                  dac_cfg.sample_rate)) // frame)
     requests = _pool_requests()
     out = {}
     for label in ("bf16", "int8"):
@@ -2519,15 +3000,23 @@ def run_pool(dev, tokenizer, p1_step_ms):
         params = dual_ar.init_dual_ar(0, cfg, torch.bfloat16, dev)
         if quant:
             params = quantize_dual_ar_lowmem(params, mode="int8")
-        batcher = _pool_for(params, cfg, 32, quant)
+        # the int8 pool keeps the prefix cache on (the JAX server's
+        # --int8 --kv-int8 defaults)
+        batcher = _pool_for(params, cfg, 32, quant, 4 if quant else 0)
         cache_len = batcher.cache_len
-        engine = _pool_engine(BatcherSession(batcher), tokenizer, codec, dac_cfg)
+        engine = _pool_engine(BatcherSession(batcher), tokenizer, codec, dac_cfg,
+                              str(refs_dir))
         kv_bytes = sum(t.numel() * t.element_size()
                        for t in batcher.state.cache.values())
         buckets = sorted({pick_bucket(_prompt_len(tokenizer, cfg, r.text), cache_len)
                           for r in requests})
         if len(buckets) < 2:
             raise SystemExit(f"pool: the texts reach one bucket only {buckets}")
+        if quant:  # the same-reference burst's prompts
+            clone_len = _prompt_len(
+                tokenizer, cfg, _clone_requests(1, 0)[0].text, [CLONE_TEXT],
+                [np.zeros((dac_cfg.rvq.total_codebooks, n_frames), np.int32)])
+            buckets = sorted({*buckets, pick_bucket(clone_len, cache_len)})
         torch.cuda.synchronize()
         print(f"pool {label} (P=32, weights {'int8' if quant else 'bf16'}, KV "
               f"{'int8' if quant else 'bf16'}, chunk 128, first chunk 8, admit "
@@ -2544,7 +3033,8 @@ def run_pool(dev, tokenizer, p1_step_ms):
               + f"; graph pool {batcher.pool_bytes / 2**20:.1f} MiB (before the "
               f"int8 kernel: {CAST_ROUTE_GRAPH_POOL_MIB[f'pool {label}']:.1f}, an "
               f"earlier run of this script)")
-        precompile_codec(engine, (32, 64), (), f"pool {label}")
+        precompile_codec(engine, (32, 64), (n_frames,) if quant else (),
+                         f"pool {label}")
         batcher.replays.clear()
         batcher.eager_runs.clear()
         _zero_counts()
@@ -2580,7 +3070,11 @@ def run_pool(dev, tokenizer, p1_step_ms):
             raise SystemExit(f"pool {label}: a kernel of the path was never "
                              f"launched: {launches}")
         check_codec_replayed(engine, ("decode",), f"pool {label}")
+        # alone with the prefix cache off: a hit would attend the int8 keys
+        # of its stored prefix where the burst's prefill attended fresh ones
+        size, batcher.prefix.size = batcher.prefix.size, 0
         again, _ = pool_serve(engine, [requests[POOL_REPEAT]], frame, label)
+        batcher.prefix.size = size
         same = np.array_equal(again[0]["codes"], rows[POOL_REPEAT]["codes"])
         print(f"pool {label} request {POOL_REPEAT} alone in the idle pool: TTFA "
               f"{(again[0]['first'] - again[0]['t0']) * 1e3:.1f} ms, codes "
@@ -2609,6 +3103,14 @@ def run_pool(dev, tokenizer, p1_step_ms):
                    kv_bytes=kv_bytes, peak_gib=peak)
         if quant:
             row["accounting"] = {"P=32": print_pool_accounting(batcher, "int8 P=32")}
+            _zero_counts()
+            run_clone_burst(engine, batcher, frame)
+            row["launches"]["flash_suffix_kv8"] = (
+                flash_suffix_attention.launches_suffix_kv8_wgmma)
+            _zero_counts()
+            row["server"] = run_server(engine, batcher, refs_dir, frame)
+            row["launches"]["flash_suffix_kv8"] += (
+                flash_suffix_attention.launches_suffix_kv8_wgmma)
         batcher.shutdown()
         del engine, batcher
         gc.collect()
@@ -2641,6 +3143,211 @@ def run_pool(dev, tokenizer, p1_step_ms):
         out[label] = row
     print(f"phase 8 (the pool) took {time.perf_counter() - t_phase:.1f}s")
     return out
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _wav_frames(body, frame, label):
+    """Whole frames of 16-bit PCM (int16: finite by construction) behind a
+    valid WAV header (a streamed one's data size is left open)."""
+    if body[:4] != b"RIFF" or body[8:16] != b"WAVEfmt " or body[36:40] != b"data":
+        raise SystemExit(f"server {label}: not a WAV header {body[:44]!r}")
+    pcm = np.frombuffer(body[44:], "<i2")
+    if not len(pcm) or len(pcm) % frame:
+        raise SystemExit(f"server {label}: {len(pcm)} samples are not whole "
+                         f"frames of audio")
+    return len(pcm) // frame
+
+
+def run_server(engine, batcher, refs_dir, frame):
+    """Phase 9: phase 8's int8 / int8-KV pool engine (the JAX server's
+    `--int8 --kv-int8 --pool-size 32`) behind the port's HTTP app on
+    127.0.0.1, after the server's `warm_up`: health, references added from
+    WAV and FLAC bytes, concurrent streamed /v1/tts by reference id, a
+    msgpack request, /v1/audio/speech as pcm, a client that drops its
+    stream (counted cancelled, its row freed and reused), and the metrics;
+    then `python -m fish_speech_tpu_torch.server.main --tiny --no-warmup`
+    in a process of its own answers one request."""
+    import asyncio
+    import os
+    import urllib.request
+
+    import aiohttp
+    import msgpack
+    import torch
+    from aiohttp import web
+
+    from fish_speech_tpu_torch.audio.io import read_wav
+    from fish_speech_tpu_torch.audio.transcode import encode_flac
+    from fish_speech_tpu_torch.config import dac_tiny
+    from fish_speech_tpu_torch.server.app import create_app
+    from fish_speech_tpu_torch.server.main import warm_up
+
+    t0 = time.perf_counter()
+    import shutil
+
+    clip = (refs_dir / "speaker" / "sample.wav").read_bytes()
+    for rid in ("srv-wav", "srv-flac"):  # added below through the API
+        shutil.rmtree(refs_dir / rid, ignore_errors=True)
+    warm_up(engine, code_buckets=(32, 64), reference_buckets=())
+    eager_after_warm = dict(batcher.eager_runs)
+    batcher.replays.clear()
+    print(f"server: warm_up (the pool's precompile at every bucket, the codec's, "
+          f"the warm requests and burst) took {time.perf_counter() - t0:.1f}s; "
+          f"pool graphs {len(batcher._graphs)}")
+    batcher.eager_runs.clear()
+    samples, sr = read_wav(clip)
+    flac = encode_flac(samples.T, sr)
+    port = _free_port()
+    app = create_app(engine)
+    loop = asyncio.new_event_loop()
+    runner = web.AppRunner(app, handler_cancellation=True)
+    loop.run_until_complete(runner.setup())
+    loop.run_until_complete(web.TCPSite(runner, "127.0.0.1", port).start())
+    server = threading.Thread(target=loop.run_forever, daemon=True)
+    server.start()
+    url = f"http://127.0.0.1:{port}"
+    timings = {}
+
+    async def client():
+        async with aiohttp.ClientSession() as http:
+            async def post(path, **kw):
+                async with http.post(url + path, **kw) as r:
+                    return r.status, await r.read()
+
+            async with http.get(url + "/v1/health") as r:
+                health = (r.status, await r.json())
+            added = [await post("/v1/references/add", data=msgpack.packb(
+                {"id": rid, "audio": audio, "text": CLONE_TEXT}),
+                headers={"Content-Type": "application/msgpack"})
+                for rid, audio in (("srv-wav", clip), ("srv-flac", flac))]
+
+            async def tts(i, rid):
+                t = time.perf_counter()
+                status, body = await post("/v1/tts", json={
+                    "text": f"Served line {i} by reference.", "reference_id": rid,
+                    "streaming": True, "max_new_tokens": 48, "seed": 400 + i})
+                timings[f"tts {i}"] = time.perf_counter() - t
+                return status, body
+
+            streamed = await asyncio.gather(*(tts(i, ("srv-wav", "srv-flac")[i % 2])
+                                              for i in range(4)))
+            packed = await post("/v1/tts", data=msgpack.packb(
+                {"text": "A msgpack request.", "max_new_tokens": 24, "format": "wav"}),
+                headers={"Content-Type": "application/msgpack"})
+            speech = await post("/v1/audio/speech", json={
+                "input": "The OpenAI route.", "voice": "alloy",
+                "response_format": "pcm", "max_new_tokens": 24})
+            # a client that drops its stream after the header and a chunk
+            async with http.post(url + "/v1/tts", json={
+                    "text": "A stream the client leaves.", "streaming": True,
+                    "max_new_tokens": 400}) as r:
+                head = await r.content.readexactly(44 + 2 * frame)
+                r.close()
+            for _ in range(600):
+                async with http.get(url + "/v1/metrics") as r:
+                    metrics = await r.json()
+                if metrics["cancelled"] >= 1 and not metrics["inflight"]:
+                    break
+                await asyncio.sleep(0.05)
+            for _ in range(600):  # the worker reaps at its next boundary
+                if batcher.stats()["active_slots"] == 0:
+                    break
+                await asyncio.sleep(0.05)
+            freed = batcher.stats()
+            after = await post("/v1/tts", json={"text": "The freed row again.",
+                                                "streaming": True,
+                                                "max_new_tokens": 24})
+            async with http.get(url + "/v1/metrics") as r:
+                metrics = await r.json()
+            return dict(health=health, added=added, streamed=streamed,
+                        packed=packed, speech=speech, head=head, freed=freed,
+                        after=after, metrics=metrics)
+
+    try:
+        got = asyncio.run(client())
+    finally:
+        asyncio.run_coroutine_threadsafe(runner.cleanup(), loop).result(60)
+        loop.call_soon_threadsafe(loop.stop)
+        server.join(timeout=30)
+    failures = []
+    if got["health"] != (200, {"status": "ok"}):
+        failures.append(f"health {got['health']}")
+    failures += [f"references/add {s} {b[:200]!r}" for s, b in got["added"] if s != 200]
+    frames = []
+    for name, (status, body) in [*((f"tts {i}", r) for i, r in enumerate(got["streamed"])),
+                                 ("msgpack", got["packed"]), ("freed row", got["after"])]:
+        if status != 200:
+            failures.append(f"{name} {status} {body[:200]!r}")
+        else:
+            frames.append(_wav_frames(body, frame, name))
+    status, pcm = got["speech"]
+    if status != 200 or not len(pcm) or len(pcm) % 2:
+        failures.append(f"audio/speech {status} {len(pcm)} bytes")
+    m = got["metrics"]
+    if got["head"][:4] != b"RIFF" or m["cancelled"] != 1 or m["errors"]:
+        failures.append(f"the dropped stream: metrics {m}")
+    if got["freed"]["active_slots"] != 0:
+        failures.append(f"the dropped stream's row was not freed: {got['freed']}")
+    print(f"server on 127.0.0.1:{port}: health {got['health']}; references added "
+          f"(WAV, FLAC) {[s for s, _ in got['added']]}; 4 concurrent streamed "
+          f"/v1/tts by reference id, the msgpack request and the freed row's "
+          f"request: frames {frames}, host s "
+          f"{ {k: round(v, 3) for k, v in timings.items()} }; /v1/audio/speech "
+          f"pcm {len(pcm)} bytes; after the dropped stream: pool {got['freed']}; "
+          f"metrics {m}; pool graph replays {dict(batcher.replays)}, eager body "
+          f"runs after warm_up {dict(batcher.eager_runs)} (during it "
+          f"{eager_after_warm}); prefix store hits {batcher.prefix.hits}")
+    if batcher.eager_runs:
+        failures.append(f"a pool body ran eagerly after warm_up: {dict(batcher.eager_runs)}")
+
+    # the entry point, a process of its own on the card
+    port = _free_port()
+    env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent))
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "fish_speech_tpu_torch.server.main", "--tiny",
+         "--no-warmup", "--listen", f"127.0.0.1:{port}",
+         "--references-dir", str(refs_dir)],
+        cwd=str(Path(__file__).resolve().parent), env=env,
+        stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+    try:
+        for _ in range(1200):
+            try:
+                urllib.request.urlopen(f"http://127.0.0.1:{port}/v1/health",
+                                       timeout=1).read()
+                break
+            except OSError:
+                if proc.poll() is not None:
+                    break
+                time.sleep(0.1)
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{port}/v1/tts",
+            data=json.dumps({"text": "hello", "max_new_tokens": 16}).encode(),
+            headers={"Content-Type": "application/json"})
+        body = urllib.request.urlopen(req, timeout=300).read()
+        tiny_frames = _wav_frames(body, dac_tiny().frame_length, "--tiny")
+    except Exception as e:  # reported with the process's log
+        proc.terminate()
+        err = proc.communicate(timeout=60)[1]
+        raise SystemExit(f"server --tiny: {e!r}; its log: {err[-3000:]}")
+    finally:
+        if proc.poll() is None:
+            proc.terminate()
+            proc.wait(timeout=60)
+    print(f"server entry point (--tiny --no-warmup, on the card): one /v1/tts "
+          f"answered, {tiny_frames} frames, {time.perf_counter() - t0:.1f}s from "
+          f"the process's start")
+    if failures:
+        raise SystemExit(f"server: {'; '.join(failures)}")
+    torch.cuda.synchronize()
+    return dict(frames=frames, metrics=m, timings=timings)
 
 
 def _zero_counts():
@@ -2701,6 +3408,14 @@ KERNELS = {  # name: (source, the TPU kernel or JAX code it replaces)
     "int8_mm_fp32": (SRC + "int8_mm.cu", "scripts/microbench/matvec_pallas.py:18"),
     "int8_ffn": (SRC + "int8_ffn.cu", "scripts/microbench/ffn_fused_packed.py:17"),
     "int8_ffn_fp32": (SRC + "int8_ffn.cu", "scripts/microbench/ffn_fused_packed.py:17"),
+    # the prefill kernels' suffix form (a prefix-cache hit): JAX runs an
+    # einsum over the cache there (`gqa_attention`, `gqa_attention_kv8`)
+    "flash_suffix": (SRC + "attn_wgmma.cuh", "fish_speech_tpu/models/dual_ar.py:769"),
+    "flash_suffix_kv8": (SRC + "attn_wgmma.cuh", "fish_speech_tpu/ops/attention.py:66"),
+    "flash_suffix_fp32": (SRC + "flash_prefill.cu",
+                          "fish_speech_tpu/models/dual_ar.py:769"),
+    "flash_suffix_kv8_fp32": (SRC + "flash_prefill.cu",
+                              "fish_speech_tpu/ops/attention.py:66"),
 }
 # headline shapes: the long request's prefill bucket, a 257-long cache, the
 # B=2 x T=1024 fine-tune shape, the slow w13 at B=1 (matvec route) and at
@@ -2716,11 +3431,12 @@ HEADLINE = {"flash_prefill": 1, "flash_prefill_fp32": 0, "flash_decode": 1,
             "int4_mm_wgmma": 6, "int4_mm_fp32": 0, "flash_decode_kv8": 1,
             "faststack_probe": 0, "int8_mm": 2 * (len(INT8_ROWS) - 1),
             "int8_mm_cluster": 2, "int8_mm_fp32": 0,
-            "int8_ffn": 0, "int8_ffn_fp32": 0}
+            "int8_ffn": 0, "int8_ffn_fp32": 0, "flash_suffix": 0,
+            "flash_suffix_kv8": 0, "flash_suffix_fp32": 0, "flash_suffix_kv8_fp32": 0}
 # the kernels whose SASS must hold HGMMA (wgmma) instructions
 WGMMA_KERNELS = ("int4_wgmma_kernel", "train_fwd_wgmma_kernel",
-                 "prefill_wgmma_kernel", "train_bwd_dkdv_wgmma_kernel",
-                 "train_bwd_dq_wgmma_kernel")
+                 "prefill_wgmma_kernel", "suffix_wgmma_kernel",
+                 "train_bwd_dkdv_wgmma_kernel", "train_bwd_dq_wgmma_kernel")
 # the int8 kernels whose registers and spills ptxas' report shows too
 INT8_KERNELS = ("int8_gemv_mma_kernel", "int8_gemv_cluster_kernel", "int8_ffn_mma_kernel")
 
@@ -2740,6 +3456,9 @@ def _ptxas_report(build_log):
             ffn = re.search(r"int8_ffn_mma_kernelILi(\d)E", line)
             if ffn:
                 dims = f"<{ffn[1]} n8 tiles>"
+            suffix = re.search(r"suffix_wgmma_kernelILi(\d+)ELb(\d)E", line)
+            if suffix:
+                dims = f"<{suffix[1]}, {'int8' if suffix[2] == '1' else 'bf16'} cache>"
         elif name and ("spill" in line or "Used" in line):
             print(f"ptxas {name}{dims}: {line.strip()}")
         if "C7513" in line:
@@ -2815,7 +3534,8 @@ def main():
     cases = kernel_cases(dev)
     tokenizer = build_test_tokenizer()
     from fish_speech_tpu_torch.ops.flash_decode import flash_decode_attention
-    from fish_speech_tpu_torch.ops.flash_prefill import flash_prefill_attention
+    from fish_speech_tpu_torch.ops.flash_prefill import (flash_prefill_attention,
+                                                         flash_suffix_attention)
     from fish_speech_tpu_torch.ops.flash_train import (flash_train_backward,
                                                        flash_train_forward)
     from fish_speech_tpu_torch.ops.int4 import int4_matmul
@@ -2827,7 +3547,8 @@ def main():
     _zero_counts()
     small_reference(dev, tokenizer)
     fp32_launches = {"flash_prefill_fp32": flash_prefill_attention.launches_cuda_cores,
-                     "flash_decode_fp32": flash_decode_attention.launches}
+                     "flash_decode_fp32": flash_decode_attention.launches,
+                     "flash_suffix_fp32": flash_suffix_attention.launches_suffix_cuda_cores}
     _zero_counts()
     small_train_reference(dev, tokenizer)
     fp32_launches["flash_train_fwd_fp32"] = flash_train_forward.launches_cuda_cores
@@ -2837,10 +3558,13 @@ def main():
     fp32_launches["int4_mm_fp32"] = int4_matmul.launches_gemv
     fp32_launches["int8_mm_fp32"] = int8_matmul.launches_gemv
     fp32_launches["int8_ffn_fp32"] = int8_ffn.launches_cuda_cores
+    fp32_launches["flash_suffix_kv8_fp32"] = (
+        flash_suffix_attention.launches_suffix_kv8_cuda_cores)
     print(f"fp32 routes' launches in phases 3, 3b and 3c: {fp32_launches}")
     if min(fp32_launches.values()) <= 0:
         raise SystemExit("an fp32 route was never launched")
-    _, launches, _, p1_step_ms = run_slice(dev, tokenizer)
+    _, launches, clone, p1_step_ms = run_slice(dev, tokenizer)
+    launches["flash_suffix"] = clone["launches"]["flash_suffix"]
     gc.collect()  # the serving slice's model and caches go before training
     torch.cuda.empty_cache()
     train_launches = run_train_slice(
@@ -2858,6 +3582,7 @@ def main():
     launches["int8_mm_cluster"] = sum(row["launches"]["int8_mm_cluster"]
                                       for row in quant.values())
     launches["int8_ffn"] = sum(row["launches"]["int8_ffn"] for row in quant.values())
+    launches["flash_suffix_kv8"] = quant["mixed"]["launches"]["flash_suffix_kv8"]
     cases["faststack_probe"], launches["faststack_probe"] = run_probe(
         dev, quant["mixed"]["fast_stack_ms"])
     gc.collect()  # the probe's weights go before the pool
@@ -2865,8 +3590,10 @@ def main():
     pool = run_pool(dev, tokenizer, p1_step_ms)
     for row in pool.values():
         for name in ("flash_decode", "flash_decode_kv8", "flash_prefill", "int8_mm",
-                     "int8_mm_cluster", "int8_ffn"):
-            launches[name] += row["launches"][name]
+                     "int8_mm_cluster", "int8_ffn", "flash_suffix_kv8"):
+            launches[name] += row["launches"].get(name, 0)
+    if min(launches[n] for n in ("flash_suffix", "flash_suffix_kv8")) <= 0:
+        raise SystemExit(f"a suffix route was never launched: {launches}")
     per_step = {}  # launches of each kernel in one replayed P=32 step
     for label, name, counter in (
             ("bf16", "flash_decode", "flash_decode_attention.launches"),

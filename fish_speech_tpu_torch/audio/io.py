@@ -2,10 +2,10 @@
 header, and polyphase resampling (scipy's `resample_poly`).
 
 Copy of the parts of `fish_speech_tpu/audio/io.py` that the port uses, kept
-here so the port never imports the JAX package. `load_audio` reads WAV
-only: FLAC and the libav fallback need copies of `audio/transcode.py`,
-`audio/libav.py` and `native/`, which come with the HTTP server (ROADMAP
-§1 item 6).
+here so the port never imports the JAX package. `load_audio` reads WAV and
+FLAC (the port's copy of `audio/transcode.py`); the libav fallback for
+other formats needs ffmpeg's headers and is not ported (ROADMAP §1 item
+11).
 """
 
 from __future__ import annotations
@@ -119,19 +119,27 @@ def resample(x: np.ndarray, sr_from: int, sr_to: int) -> np.ndarray:
 
 
 def load_audio(path_or_bytes, target_sr: int) -> np.ndarray:
-    """Read a WAV clip, downmix to mono, resample. Returns (T,).
+    """Read a WAV or FLAC clip, downmix to mono, resample. Returns (T,).
 
-    Raises ValueError for anything else (FLAC, mp3, ogg, ...): their
-    decoders are not ported yet (ROADMAP §1 item 6)."""
+    Raises ValueError for anything else (mp3, ogg, ...): the libav
+    fallback is not ported (ROADMAP §1 item 11)."""
     if isinstance(path_or_bytes, (bytes, bytearray)):
         head = bytes(path_or_bytes[:4])
     else:
         with open(str(path_or_bytes), "rb") as f:
             head = f.read(4)
-    if head != b"RIFF":
-        raise ValueError("only WAV audio is read by the port (FLAC and the "
-                         "libav formats: ROADMAP §1 item 6, the HTTP server's "
-                         "host copies)")
-    x, sr = read_wav(path_or_bytes)
+    if head == b"fLaC":
+        from fish_speech_tpu_torch.audio.transcode import decode_flac_float
+
+        if not isinstance(path_or_bytes, (bytes, bytearray)):
+            with open(str(path_or_bytes), "rb") as f:
+                path_or_bytes = f.read()
+        samples, sr = decode_flac_float(bytes(path_or_bytes))
+        x = samples.T  # (C, T)
+    elif head == b"RIFF":
+        x, sr = read_wav(path_or_bytes)
+    else:
+        raise ValueError("only WAV and FLAC audio are read by the port (the "
+                         "libav formats: ROADMAP §1 item 11)")
     mono = x.mean(axis=0) if x.shape[0] > 1 else x[0]
     return resample(mono, sr, target_sr)

@@ -20,13 +20,22 @@ Port of `fish_speech_tpu/engine/batcher.py`:
     the host through pinned buffers and a CUDA event, so reading sub-chunk
     i never waits for sub-chunk i+1, and admission state is written through
     pinned buffers too (no stream synchronisation);
-  * a row retires on its own im_end, its budget, or its client's cancel.
+  * a row retires on its own im_end, its budget, or its client's cancel;
+  * with `prefix_cache_size` > 0, an admission group whose requests all
+    share a stored prompt prefix of at least 64 columns (a same-speaker
+    burst) restores that prefix's rows into every row of its scratch and
+    prefills only the suffixes (JAX's `_group_prefix` and
+    `prefill_group_parked_suffix`); a group that misses stores its first
+    request's rows (`generate.PrefixStore`).
 
 On CUDA every decode step and every admission prefill is the replay of a
 CUDA graph: one of the pool step (`decode`, replayed n times per
-sub-chunk) and one per admission signature and prompt bucket
-(`prefill_{k}_{bucket}`), captured by `precompile` before traffic (else at
-first use; a capture waits for the process's other device work through
+sub-chunk), one per admission signature and prompt bucket
+(`prefill_{k}_{bucket}`) and one per signature and suffix bucket
+(`suffix_{k}_{sbucket}`; the suffix kernel reads start + Ts keys with start
+on the device, so JAX's third key, the group's bucket, does not change the
+graph), captured by `precompile` before traffic (else at first use; a
+capture waits for the process's other device work through
 `generate.GUARD`). The graph dict is the counterpart of JAX's `_aot`
 executables; a failed capture or replay raises, and a worker crash fails
 every client with the exception. On the CPU the same bodies run eagerly.
@@ -39,9 +48,6 @@ The w1|w3 FFN weights are fused (`dual_ar.fuse_ffn_weights`), unlike the
 JAX pool, which skipped the fusion for HBM room on a 16 GB chip: one product
 launch fewer per layer, for a transient copy of the FFN weights while the
 batcher is built (an H100 holds it).
-
-Not ported yet (ROADMAP): the prefix cache (`prefix_cache_size > 0`
-raises).
 """
 
 from __future__ import annotations
@@ -59,10 +65,14 @@ import torch
 
 from fish_speech_tpu_torch.config import DualARConfig, SamplingConfig
 from fish_speech_tpu_torch.generate import (GUARD, PROMPT_BUCKETS, GroupState,
-                                            PoolState, _detached,
+                                            PoolState, PrefixStore, _detached,
                                             apply_admission, capture_graph,
-                                            pick_bucket, pool_decode_step,
-                                            prefill_group_body, replay_graph,
+                                            hit_suffix_buckets, pick_bucket,
+                                            pool_decode_step,
+                                            prefill_group_body,
+                                            prefill_group_suffix_body,
+                                            replay_graph, request_seed,
+                                            restore_prefix_rows,
                                             scatter_parked_rows)
 from fish_speech_tpu_torch.models import dual_ar
 from fish_speech_tpu_torch.ops.quant import fp32_scales
@@ -130,19 +140,24 @@ class BatcherSession:
         self.scfg = batcher.scfg
 
     def new_generator(self, seed: int) -> np.random.Generator:
-        """The source of one request's per-segment seeds: `generate_long`
-        passes it to each text segment's `generate_stream`."""
+        """The source of one request's per-segment seeds
+        (`generate.request_seed`): `generate_long` passes it to each text
+        segment's `generate_stream`."""
         return np.random.default_rng(int(seed))
 
-    @staticmethod
-    def _seed_of(generator) -> int:
-        return int(generator.integers(0, 2**31 - 1))
+    @property
+    def prefix_hits(self):
+        return self.batcher.prefix.hits
+
+    @property
+    def prefix_misses(self):
+        return self.batcher.prefix.misses
 
     def generate(self, prompt, generator, max_new_tokens=0, temperature=1.0,
                  top_p=0.9, top_k=30, **_):
         return self.batcher.generate(
             prompt, max_new_tokens=max_new_tokens, temperature=temperature,
-            top_p=top_p, top_k=top_k, seed=self._seed_of(generator))
+            top_p=top_p, top_k=top_k, seed=request_seed(generator))
 
     def generate_stream(self, prompt, generator, max_new_tokens=0,
                         temperature=1.0, top_p=0.9, top_k=30, **_):
@@ -152,7 +167,7 @@ class BatcherSession:
         cancelled, so the pool frees its slot at the next boundary."""
         req = BatchRequest(prompt=prompt, max_new_tokens=max_new_tokens,
                            temperature=temperature, top_p=top_p, top_k=top_k,
-                           seed=self._seed_of(generator))
+                           seed=request_seed(generator))
         out = self.batcher.submit(req)
         chunks = []
         done = False
@@ -187,8 +202,9 @@ class ContinuousBatcher:
     """The decode pool; see the module docstring. `params` (plain or
     quantized, `ops/quant.py`) are prepared as the session prepares them
     (restricted head, fused FFN): the caller should drop its reference.
-    The device is the params' device. JAX's unused `idle_sleep` is not
-    taken."""
+    The device is the params' device. `prefix_cache_size` > 0 turns on the
+    voice-clone prefix cache across admission groups (`prefix`,
+    `generate.PrefixStore`). JAX's unused `idle_sleep` is not taken."""
 
     def __init__(self, params, cfg: DualARConfig, scfg: SamplingConfig = None,
                  pool_size: int = 4, dtype=torch.bfloat16,
@@ -199,10 +215,6 @@ class ContinuousBatcher:
             # a negative value would make _chunk_plan return an empty plan
             # and the worker busy-spin with admitted streams never decoding
             raise ValueError(f"admit_every must be >= 0, got {admit_every}")
-        if prefix_cache_size > 0:
-            raise NotImplementedError(
-                "the prefix cache (prefill_group_parked_suffix, PrefixStore) "
-                "is not ported yet: ROADMAP §1 item 4")
         params = _detached(params)
         self.params = fp32_scales(dual_ar.fuse_ffn_weights(
             dual_ar.precompute_semantic_head(params, cfg)))
@@ -222,6 +234,7 @@ class ContinuousBatcher:
                                n_steps, dtype, self._act_dtype, self.device,
                                kv_quant)
         self.groups = {}  # k -> GroupState (the signature's scratch)
+        self.prefix = PrefixStore(prefix_cache_size)
         self.slots: List[_Slot] = [_Slot() for _ in range(pool_size)]
         self.parked: List[_Parked] = []
         self.park_max_rows = 2 * pool_size
@@ -310,7 +323,7 @@ class ContinuousBatcher:
                 if gs is not None and self.device.type == "cuda":
                     torch.cuda.synchronize(self.device)  # its graphs may be queued
                     for name in [n for n in self._graphs
-                                 if n.startswith(f"prefill_{k}_")]:
+                                 if n.split("_")[1:2] == [str(k)]]:
                         del self._graphs[name]
                 gs = self.groups[k] = GroupState(
                     self.cfg, self.scfg, k, bucket, self.dtype,
@@ -321,9 +334,10 @@ class ContinuousBatcher:
         if name == "decode":
             return functools.partial(pool_decode_step, self.params, self.cfg,
                                      self.scfg, self.state)
-        _, k, bucket = name.split("_")
-        return functools.partial(prefill_group_body, self.params, self.cfg,
-                                 self.scfg, self.groups[int(k)], int(bucket))
+        kind, k, bucket = name.split("_")
+        body = prefill_group_suffix_body if kind == "suffix" else prefill_group_body
+        return functools.partial(body, self.params, self.cfg, self.scfg,
+                                 self.groups[int(k)], int(bucket))
 
     def _graph(self, name: str):
         """Capture graph `name` unless it is captured (on CUDA): one eager
@@ -349,13 +363,15 @@ class ContinuousBatcher:
     def _eager_run(self, name: str):
         """One eager run of graph `name`'s body outside a capture: the
         pool's carried buffers put back after it, and a group's t_end set
-        to 1 before it (its scratch may hold a longer bucket's prompt
-        ends, which would index past this bucket)."""
+        to 1 and its start to 0 before it (its scratch may hold a longer
+        bucket's prompt ends, which would index past this bucket)."""
         with GUARD.launching():
             saved = [t.clone() for t in self.state.carry()]
             self.state.step.zero_()
             if name != "decode":
-                self.groups[int(name.split("_")[1])].t_end.fill_(1)
+                gs = self.groups[int(name.split("_")[1])]
+                gs.t_end.fill_(1)
+                gs.start.zero_()
             self._body(name)()
             self.eager_runs[name] += 1
             for t, s in zip(self.state.carry(), saved):
@@ -412,11 +428,13 @@ class ContinuousBatcher:
         """Capture, before serving traffic, every graph the pool can
         replay: the decode step and each admission signature {1, 4, 16}
         (those within the pool size) at each prompt bucket in `buckets`
-        (default: every bucket a prompt below max_seq_len can reach). The
-        counterpart of JAX's `precompile` (`fish_speech_tpu/engine/
-        batcher.py:763-907`). Returns {name: seconds} of the graphs it
-        captured (each with its eager run); on the CPU nothing is captured
-        and it returns {}."""
+        (default: every bucket of PROMPT_BUCKETS below max_seq_len) and,
+        with the prefix cache on, at every suffix bucket a hit on those
+        prompts can take (`hit_suffix_buckets`). The counterpart of JAX's
+        `precompile` (`fish_speech_tpu/engine/batcher.py:763-907`), which
+        leaves the suffix programs to their first hit. Returns {name:
+        seconds} of the graphs it captured (each with its eager run); on
+        the CPU nothing is captured and it returns {}."""
         with self._state_lock:
             if (any(s.active for s in self.slots) or self.parked
                     or self._overflow or not self.pending.empty()):
@@ -429,10 +447,14 @@ class ContinuousBatcher:
                 buckets = tuple(b for b in PROMPT_BUCKETS
                                 if b < cfg.max_seq_len) or (cfg.max_seq_len,)
             buckets = sorted({pick_bucket(b, self.cache_len) for b in buckets})
+            sbuckets = (hit_suffix_buckets(max(buckets),
+                                           min(self.cache_len, cfg.max_seq_len))
+                        if self.prefix.size else [])
             ks = [g for g in SIGNATURES if g <= max(self.pool_size, 1)]
             for k in ks:  # each scratch at the largest bucket, made once
-                self._group(k, buckets[-1])
+                self._group(k, max(buckets + sbuckets))
             names = ["decode"] + [f"prefill_{k}_{b}" for b in buckets for k in ks]
+            names += [f"suffix_{k}_{b}" for b in sbuckets for k in ks]
             out = {}
             for name in names:
                 if name not in self._graphs:
@@ -588,31 +610,81 @@ class ContinuousBatcher:
         """Phase 1: enqueue the group's prefill (the graph of its signature
         and bucket; 2-3 requests padded to 4 with t_end 1, temperature and
         top_p 1, top_k 1), a copy of its cache rows for the parked entry,
-        and the copy of its first columns to the host. Nothing waits."""
+        and the copy of its first columns to the host. Nothing waits. On a
+        prefix hit (`_group_prefix`) the stored rows are restored into the
+        scratch and the suffix graph runs instead; the group then prefers
+        the stored bucket when the prefix and the suffix bucket fit it. A
+        miss stores the first request's rows when the store takes its
+        prompt."""
         cfg = self.cfg
         k = len(reqs)
         ksig, pad = _alloc_rows(k), _alloc_rows(k) - k
-        name = f"prefill_{ksig}_{bucket}"
+        pre = self._group_prefix(reqs)
+        if pre is not None:
+            m, rows, sbucket = pre
+            entry_bucket = rows["k"].shape[2]
+            bucket = (entry_bucket if m + sbucket <= entry_bucket
+                      else pick_bucket(m + sbucket, self.cache_len))
+            name, width = f"suffix_{ksig}_{sbucket}", sbucket
+            lengths = [req.prompt.shape[1] - m for req in reqs]
+        else:
+            name, width = f"prefill_{ksig}_{bucket}", bucket
+            lengths = [req.prompt.shape[1] for req in reqs]
         gs = self._group(ksig, bucket)
         self._graph(name)
         t_ends = np.asarray([req.prompt.shape[1] for req in reqs], np.int64)
-        inp = np.zeros((ksig, cfg.num_codebooks + 1, bucket), np.int32)
+        inp = np.zeros((ksig, cfg.num_codebooks + 1, width), np.int32)
         for j, req in enumerate(reqs):
-            inp[j, :, : t_ends[j]] = req.prompt
+            inp[j, :, : lengths[j]] = req.prompt[:, req.prompt.shape[1] - lengths[j]:]
         ones = [1.0] * pad
         sampling = np.asarray([[r.temperature for r in reqs] + ones,
                                [r.top_p for r in reqs] + ones,
                                [r.top_k for r in reqs] + ones], np.float32)
         with GUARD.launching():
-            self._write(gs.prompt(bucket), inp)
-            self._write(gs.t_end, np.concatenate([t_ends, np.ones(pad, np.int64)]))
+            if pre is not None:
+                self.prefix.hits += 1
+                restore_prefix_rows(gs.cache, rows)
+                self._write(gs.start, np.asarray([m], np.int32))
+            elif self.prefix.size:
+                self.prefix.misses += 1
+            self._write(gs.prompt(width), inp)
+            self._write(gs.t_end, np.asarray(lengths + [1] * pad, np.int64))
             self._write(gs.seed, np.asarray([r.seed for r in reqs] + [0] * pad,
                                             np.int64))
             self._write(gs.sampling, sampling)
             self._run(name)
             cache = {n: t[:, :k, :bucket].clone() for n, t in gs.cache.items()}
+            if pre is None and self.prefix.size and self.prefix.accepts(reqs[0].prompt):
+                self.prefix.store(reqs[0].prompt,
+                                  {n: t[:, :1].clone() for n, t in cache.items()},
+                                  bucket)
             column = self._to_host(gs.column)
         return reqs, t_ends, column, cache, ksig
+
+    def _group_prefix(self, reqs):
+        """JAX's shared-prefix lookup for an admission group: (m, rows,
+        sbucket) only when every request shares the stored prefix for at
+        least 64 columns (m the group's minimum) and the prefix plus the
+        bucketed suffixes fit the cache; else None (a full group
+        prefill)."""
+        if not self.prefix.size:
+            return None
+        hit = self.prefix.lookup(reqs[0].prompt)
+        if hit is None:
+            return None
+        m, rows = hit
+        p0 = reqs[0].prompt
+        for req in reqs[1:]:
+            n = min(req.prompt.shape[1] - 1, p0.shape[1], m)
+            eq = (req.prompt[:, :n] == p0[:, :n]).all(axis=0)
+            m = int(np.argmin(eq)) if not eq.all() else n
+            if m < PrefixStore.MIN_MATCH:
+                return None
+        max_ts = max(r.prompt.shape[1] for r in reqs) - m
+        sbucket = pick_bucket(max_ts, self.cache_len)
+        if m + sbucket > self.cache_len or m + sbucket > self.cfg.max_seq_len:
+            return None  # the suffixes' pad tail would overrun the cache
+        return m, rows, sbucket
 
     def _prefill_finalize(self, staged) -> Optional[_Parked]:
         """Phase 2: read the group's first columns, stream each request's

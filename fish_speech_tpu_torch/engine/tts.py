@@ -25,8 +25,12 @@ codec's device work holds `generate.GUARD` shared, and its captures hold
 it alone, so a codec graph captured at first use never overlaps the
 batcher worker's replays.
 
-Not ported yet (ROADMAP): device partials, `cancel_check`, and the HTTP
-server's backend selection.
+A request's `cancel_check` (the server wires a client's disconnect to it)
+is polled between decode chunks: a cancelled request ends without an error
+or a final result, and under a `BatcherSession` the closed stream marks the
+pool's request cancelled, which frees its slot at the next boundary.
+
+Not ported yet (ROADMAP): device partials.
 """
 
 from __future__ import annotations
@@ -38,7 +42,7 @@ import hashlib
 import threading
 import time
 from dataclasses import dataclass
-from typing import Generator, List, Optional, Tuple
+from typing import Callable, Generator, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -77,6 +81,9 @@ class TTSRequest:
     repetition_penalty: float = 1.1
     temperature: float = 0.8
     top_k: int = 30
+    # optional () -> bool polled between decode chunks; True abandons the
+    # request (the server wires the client's disconnect here)
+    cancel_check: Optional[Callable[[], bool]] = None
 
 
 @dataclass
@@ -359,7 +366,10 @@ class TTSInferenceEngine:
                     prompt_tokens=list(prompt_tokens) or None,
                     seed=req.seed if req.seed is not None else 42,
                     stream_partials=req.streaming,
+                    cancel_check=req.cancel_check,
                 ):
+                    if req.cancel_check is not None and req.cancel_check():
+                        return
                     if response.action == "partial":
                         # decode the cumulative prefix (the codec is causal,
                         # so earlier samples are stable) and emit the new ones
@@ -383,6 +393,8 @@ class TTSInferenceEngine:
             yield InferenceResult(code="error", audio=None, error=e)
             return
 
+        if req.cancel_check is not None and req.cancel_check():
+            return  # abandoned by the client: no error, no final
         if not segments:
             yield InferenceResult(
                 code="error", audio=None,

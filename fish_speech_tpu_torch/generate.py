@@ -14,9 +14,16 @@ CPU the same bodies run eagerly.
 
 The decode attention kernel reads exactly `pos + 1` cache positions, with
 `pos` read on the device: the JAX package's fixed kv-length buckets are
-not needed. Sampling reads its uniforms from a block that one eager call
-fills per chunk from the request's `torch.Generator` (seeded from the
-request's seed), on the model's device (`ops/sampling.py`).
+not needed. A step's uniforms are `counter_uniforms` of the request's seed
+and the step's draw index, computed inside the step (`ops/sampling.py`),
+so the codes of a seed do not depend on how the steps were cut into
+chunks, as JAX's, whose key rides in the scan's carry.
+
+Voice-clone prefix caching (`PrefixStore`, JAX's): a request whose prompt
+shares at least 64 leading columns with a stored prompt has the stored KV
+rows copied back into its cache and prefills only its suffix
+(`dual_ar.prefill_suffix`, a graph per suffix bucket, `suffix_{sbucket}`);
+the batcher's admission groups do the same (`prefill_group_suffix_body`).
 
 The continuous batcher's device steps (`engine/batcher.py`) are here too:
 `pool_decode_step` (JAX's `decode_chunk_multi`, one step of every row of
@@ -31,9 +38,8 @@ holds `GUARD` alone; every thread's other device work holds it shared
 (`GUARD.launching()`), so no launch from another thread lands inside a
 capture.
 
-Not ported yet (ROADMAP): prefix caching (`prefill_suffix`), device
-partials (`StreamPartial`), batched lockstep generation
-(`generate_batch`) and its pool-insert prefills.
+Not ported yet (ROADMAP): device partials (`StreamPartial`), batched
+lockstep generation (`generate_batch`) and its pool-insert prefills.
 """
 
 from __future__ import annotations
@@ -55,7 +61,8 @@ from fish_speech_tpu_torch.config import DualARConfig, SamplingConfig
 from fish_speech_tpu_torch.models import dual_ar
 from fish_speech_tpu_torch.ops.flash_decode import (
     flash_decode_attention, flash_decode_attention_kv8)
-from fish_speech_tpu_torch.ops.flash_prefill import flash_prefill_attention
+from fish_speech_tpu_torch.ops.flash_prefill import (flash_prefill_attention,
+                                                     flash_suffix_attention)
 from fish_speech_tpu_torch.ops.int4 import int4_matmul
 from fish_speech_tpu_torch.ops.int8 import int8_matmul
 from fish_speech_tpu_torch.ops.int8_ffn import int8_ffn
@@ -63,9 +70,8 @@ from fish_speech_tpu_torch.ops.quant import fp32_scales, mm
 from fish_speech_tpu_torch.ops.sampling import (TOP_K_CAP, UNIFORM_FAST,
                                                  UNIFORM_RAS, UNIFORM_SLOW,
                                                  check_top_k, counter_uniforms,
-                                                 fill_uniforms, ras_select,
-                                                 sample_topk, topk_state,
-                                                 uniform_rows)
+                                                 ras_select, sample_topk,
+                                                 topk_state, uniform_rows)
 
 PROMPT_BUCKETS = (64, 128, 256, 512, 1024, 2048, 4096, 8192)
 
@@ -77,6 +83,104 @@ def pick_bucket(t: int, max_seq: int) -> int:
     if t <= max_seq:
         return max_seq
     raise ValueError(f"Prompt length {t} exceeds max_seq_len {max_seq}")
+
+
+def request_seed(generator) -> int:
+    """One request's sampling seed: an int as it is, else the next draw of
+    the numpy generator `new_generator` made (`generate_long` passes one
+    generator to each of its text segments)."""
+    if isinstance(generator, (int, np.integer)):
+        return int(generator)
+    return int(generator.integers(0, 2**31 - 1))
+
+
+class PrefixStore:
+    """Host-side LRU of recent prompts' KV rows (the voice-clone prefix
+    cache), JAX's `PrefixStore` with the same decisions: prompts of at least
+    128 columns are stored, a stored prefix is reused only when at least 64
+    leading columns match, the longest match wins, and the least recently
+    used entry goes first.
+
+    Shared by `GenerationSession` and `ContinuousBatcher`. An entry holds
+    the prompt's columns and its cache rows, (L, 1, bucket, ...) per cache
+    tensor. The port writes its caches in place, so the rows a caller
+    stores must be its own copies (`.clone()`), never views of a cache the
+    next request overwrites."""
+
+    MIN_MATCH = 64  # leading columns a stored prefix must share to be reused
+
+    def __init__(self, size: int):
+        self.size = size
+        self._store = {}  # key -> {"cols", "rows", "bucket"}
+        self._order = []  # LRU
+        self.hits = 0
+        self.misses = 0
+
+    def __len__(self):
+        return len(self._store)
+
+    def lookup(self, prompt: np.ndarray):
+        """(m, rows) of the longest common prefix of at least 64 columns
+        with a stored prompt, or None. m < t, so at least one suffix column
+        is left to prefill (it yields the first sample). `rows` is the
+        entry's whole bucket: positions >= m hold the other prompt's k/v,
+        which the suffix prefill overwrites or no query sees before a
+        decode step overwrites it."""
+        t = prompt.shape[1]
+        best_m, best_key = 0, None
+        for key_, e in self._store.items():
+            cols = e["cols"]
+            n = min(cols.shape[1], t - 1)
+            if n < self.MIN_MATCH:
+                continue
+            eq = (prompt[:, :n] == cols[:, :n]).all(axis=0)
+            m = int(np.argmin(eq)) if not eq.all() else n
+            if m > best_m:
+                best_m, best_key = m, key_
+        if best_m < self.MIN_MATCH or best_key is None:
+            return None
+        self._order.remove(best_key)
+        self._order.append(best_key)  # LRU refresh
+        return best_m, self._store[best_key]["rows"]
+
+    def accepts(self, prompt: np.ndarray) -> bool:
+        """Whether `store` would keep this prompt: check it before copying
+        cache rows."""
+        return (bool(self.size) and prompt.shape[1] >= 128
+                and hash(prompt.tobytes()) not in self._store)
+
+    def store(self, prompt: np.ndarray, rows: dict, bucket: int):
+        """rows: the caller's own copies of the cache rows, (L, 1, bucket,
+        ...) per cache tensor."""
+        if not self.accepts(prompt):
+            return
+        key_ = hash(prompt.tobytes())
+        self._store[key_] = {"cols": prompt.copy(), "rows": rows,
+                             "bucket": bucket}
+        self._order.append(key_)
+        while len(self._order) > self.size:
+            del self._store[self._order.pop(0)]
+
+
+def restore_prefix_rows(cache, rows):
+    """Copy stored prefix rows (L, 1, bucket, ...) into positions [0,
+    bucket) of every row of `cache`, for each tensor of its layout (JAX's
+    `_restore_prefix_rows`): an eager device copy made just before a suffix
+    graph's replay, which reads the cache at its own addresses."""
+    for name, dst in cache.items():
+        src = rows[name]
+        dst[:, :, : src.shape[2]].copy_(src.expand(
+            -1, dst.shape[1], *src.shape[2:]))
+
+
+def hit_suffix_buckets(longest: int, room: int) -> list:
+    """Every bucket a prefix hit's suffix can take, for prompts of buckets
+    up to `longest` and hits whose prefix plus bucketed suffix must fit
+    `room` columns: a hit reuses at least `PrefixStore.MIN_MATCH` stored
+    columns, so its suffix's bucket is at most its prompt's. The suffix
+    graphs `precompile` captures ahead of the hits."""
+    return [b for b in PROMPT_BUCKETS
+            if b <= longest and b + PrefixStore.MIN_MATCH <= room]
 
 
 # ---------------------------------------------------------------------------
@@ -138,32 +242,24 @@ def _restricted_logits(cfg: DualARConfig, logits_full):
                       logits_full[:, cfg.im_end_id][:, None]], dim=1)
 
 
-def prefill_step(params, cfg: DualARConfig, scfg: SamplingConfig, inp, cache,
-                 offsets, t_end, u, sampling, fast_cache):
-    """Prefill the cache from the prompt and sample the first column (no
-    RAS), from the uniforms `u` of one step."""
-    logits_full, hidden, cache = dual_ar.prefill(params, cfg, inp, cache,
-                                                 offsets, t_end)
-    column = _sample_column(params, cfg, scfg,
-                            _restricted_logits(cfg, logits_full), hidden,
-                            None, u, sampling, fast_cache)
-    return column, cache
-
-
 class StepState:
     """The fixed buffers of one stream's prefill and decode steps, which a
     captured CUDA graph reads and writes at the addresses it was captured
     with. The host writes a request's inputs in place (the prompt,
-    `t_end`, `sampling`, the uniform block `u`, `step`); the bodies
-    (`prefill_body`, `decode_step`) carry the rest on the device.
+    `t_end`, `start`, `sampling`, `seed`, `step`); the bodies
+    (`prefill_body`, `suffix_body`, `decode_step`) carry the rest on the
+    device.
 
     token (1, C+1) int32: the last column; pos (1,) int64: the next step's
-    position; window (1, W) int32: the RAS window; step (1,) int64: the
-    step's row in `u` and `cols`; u (n_steps, uniform_rows(C), TOP_K_CAP)
-    fp32; cols (n_steps, 1, C+1) int32: a chunk's columns; sampling (3,)
+    position; window (1, W) int32: the RAS window; seed (1,) int64: the
+    request's seed; draw (1,) int64: the next draw of `counter_uniforms`
+    (the first column is draw 0); step (1,) int64: the step's row in
+    `cols`; cols (n_steps, 1, C+1) int32: a chunk's columns; sampling (3,)
     fp32: temperature, top_p, top_k; offsets (1,) int32 and t_end (1,)
-    int64: the prompt's rows [offsets, t_end); inp: the padded prompt of
-    each bucket, (1, C+1, bucket) int32."""
+    int64: the prompt's rows [offsets, t_end), or under a suffix prefill
+    the suffix's real length; start (1,) int32: the suffix's first
+    position; inp: the padded prompt (or suffix) of each bucket, (1, C+1,
+    bucket) int32."""
 
     def __init__(self, cfg: DualARConfig, scfg: SamplingConfig, cache_len: int,
                  n_steps: int, dtype, act_dtype, device, kv_quant: bool):
@@ -171,23 +267,26 @@ class StepState:
         i32 = dict(dtype=torch.int32, device=device)
         i64 = dict(dtype=torch.int64, device=device)
         self.device = device
+        self.n_steps = n_steps
         self.cache = dual_ar.init_kv_cache(cfg, 1, cache_len, dtype, device,
                                            quant=kv_quant)
         self.fast_cache = dual_ar.init_fast_kv_cache(cfg, 1, act_dtype, device)
         self.token = torch.zeros((1, c1), **i32)
         self.pos = torch.zeros((1,), **i64)
         self.window = torch.zeros((1, scfg.ras_win_size), **i32)
+        self.seed = torch.zeros((1,), **i64)
+        self.draw = torch.zeros((1,), **i64)
         self.step = torch.zeros((1,), **i64)
-        self.u = torch.zeros((n_steps, uniform_rows(cfg.num_codebooks),
-                              TOP_K_CAP), dtype=torch.float32, device=device)
         self.cols = torch.zeros((n_steps, 1, c1), **i32)
         self.sampling = torch.zeros((3,), dtype=torch.float32, device=device)
         self.offsets = torch.zeros((1,), **i32)
         self.t_end = torch.zeros((1,), **i64)
+        self.start = torch.zeros((1,), **i32)
         self.inp = {}
 
     def prompt(self, bucket: int):
-        """The prompt buffer of `bucket`, made at its first use."""
+        """The prompt buffer of `bucket`, made at its first use (a suffix
+        of that bucket shares it: one body runs at a time)."""
         if bucket not in self.inp:
             self.inp[bucket] = torch.zeros(
                 (1, self.token.shape[1], bucket), dtype=torch.int32,
@@ -196,43 +295,75 @@ class StepState:
 
     def carry(self):
         """The tensors a body carries from one run to the next."""
-        return self.token, self.pos, self.window, self.step
+        return self.token, self.pos, self.window, self.draw, self.step
 
     def sampling_args(self):
         return self.sampling[0], self.sampling[1], self.sampling[2]
 
+    def uniforms(self, cfg: DualARConfig, draw):
+        """The (uniform_rows(C), TOP_K_CAP) uniforms of draw `draw` ((1,)
+        int64) of the request's seed."""
+        return counter_uniforms(self.seed, draw, uniform_rows(cfg.num_codebooks))[0]
+
+
+def _first_column(params, cfg: DualARConfig, scfg: SamplingConfig,
+                  st: StepState, logits_full, hidden, pos):
+    """The first column, sampled (no RAS) from draw 0, into `st.token`;
+    `st.pos` becomes `pos`, the RAS window is cleared and the next draw is
+    1."""
+    zero = torch.zeros_like(st.draw)
+    column = _sample_column(params, cfg, scfg, _restricted_logits(cfg, logits_full),
+                            hidden, None, st.uniforms(cfg, zero),
+                            st.sampling_args(), st.fast_cache)
+    st.token.copy_(column)
+    st.pos.copy_(pos)
+    st.window.zero_()
+    st.draw.fill_(1)
+
 
 def prefill_body(params, cfg: DualARConfig, scfg: SamplingConfig,
                  st: StepState, bucket: int):
-    """`prefill_step` of the prompt in `st.prompt(bucket)` on the fixed
-    buffers: the first column (from row 0 of `st.u`) goes to `st.token`,
-    `st.pos` becomes `t_end` and the RAS window is cleared."""
-    column, _ = prefill_step(params, cfg, scfg, st.prompt(bucket), st.cache,
-                             st.offsets, st.t_end, st.u[0], st.sampling_args(),
-                             st.fast_cache)
-    st.token.copy_(column)
-    st.pos.copy_(st.t_end)
-    st.window.zero_()
+    """JAX's `prefill_step` of the prompt in `st.prompt(bucket)` on the fixed
+    buffers: the first column goes to `st.token` and `st.pos` becomes
+    `t_end`."""
+    logits_full, hidden, _ = dual_ar.prefill(params, cfg, st.prompt(bucket),
+                                             st.cache, st.offsets, st.t_end)
+    _first_column(params, cfg, scfg, st, logits_full, hidden, st.t_end)
+
+
+def suffix_body(params, cfg: DualARConfig, scfg: SamplingConfig,
+                st: StepState, sbucket: int):
+    """JAX's `prefill_suffix_step` after its restore, on the fixed buffers:
+    the suffix in `st.prompt(sbucket)` (real length `st.t_end`) prefilled
+    at positions `st.start` on over the cache's stored prefix, its first
+    column to `st.token`; `st.pos` becomes start + t_end. The caller
+    restores the prefix rows into the cache before (`restore_prefix_rows`)."""
+    logits_full, hidden, _ = dual_ar.prefill_suffix(
+        params, cfg, st.prompt(sbucket), st.cache, st.start, st.t_end)
+    _first_column(params, cfg, scfg, st, logits_full, hidden,
+                  st.start.long() + st.t_end)
 
 
 def decode_step(params, cfg: DualARConfig, scfg: SamplingConfig,
                 st: StepState):
     """One decode step on the fixed buffers: the slow step at `st.pos` on
-    `st.token`, the head, sampling with RAS from `st.u[st.step]` and the
-    fast column. The column goes to `st.cols[st.step]` and `st.token`, the
-    window rolls, and `pos` and `step` advance, all on the device: a CUDA
-    graph of this body replayed n times runs n steps (JAX's `decode_chunk`
-    scan). Steps run past `<|im_end|>`; the host cuts them."""
+    `st.token`, the head, sampling with RAS from draw `st.draw` of the
+    request's seed, and the fast column. The column goes to
+    `st.cols[st.step]` and `st.token`, the window rolls, and `pos`, `draw`
+    and `step` advance, all on the device: a CUDA graph of this body
+    replayed n times runs n steps (JAX's `decode_chunk` scan). Steps run
+    past `<|im_end|>`; the host cuts them."""
     hidden, slow_out, _ = dual_ar.decode_slow_step(params, cfg, st.token,
                                                    st.cache, st.pos)
     logits = dual_ar.semantic_head_logits(params, cfg, slow_out)
     column = _sample_column(params, cfg, scfg, logits, hidden, st.window,
-                            st.u.index_select(0, st.step)[0],
-                            st.sampling_args(), st.fast_cache)
+                            st.uniforms(cfg, st.draw), st.sampling_args(),
+                            st.fast_cache)
     st.cols.index_copy_(0, st.step, column[None])
     st.token.copy_(column)
     st.window.copy_(torch.cat([st.window[:, 1:], column[:, :1]], dim=1))
     st.pos.add_(1)
+    st.draw.add_(1)
     st.step.add_(1)
 
 
@@ -346,9 +477,11 @@ class GroupState:
     rows are copied out before the next replay).
 
     cache (L, k, max_bucket, Hkv, Dh); offsets (k,) int32 zeros; t_end (k,)
-    int64; seed (k,) int64; sampling (3, k) fp32; column (k, C+1) int32:
-    the first columns; inp: the padded prompts of each bucket, (k, C+1,
-    bucket) int32."""
+    int64: each row's prompt end, or under a suffix prefill its suffix's
+    real length; start (1,) int32: the suffixes' first position; seed (k,)
+    int64; sampling (3, k) fp32; column (k, C+1) int32: the first columns;
+    inp: the padded prompts (or suffixes) of each bucket, (k, C+1, bucket)
+    int32."""
 
     def __init__(self, cfg: DualARConfig, scfg: SamplingConfig, k: int,
                  max_bucket: int, dtype, act_dtype, device, kv_quant: bool):
@@ -358,6 +491,7 @@ class GroupState:
         self.fast_cache = dual_ar.init_fast_kv_cache(cfg, k, act_dtype, device)
         self.offsets = torch.zeros((k,), dtype=torch.int32, device=device)
         self.t_end = torch.ones((k,), dtype=torch.int64, device=device)
+        self.start = torch.zeros((1,), dtype=torch.int32, device=device)
         self.seed = torch.zeros((k,), dtype=torch.int64, device=device)
         self.sampling = torch.ones((3, k), dtype=torch.float32, device=device)
         self.column = torch.zeros((k, cfg.num_codebooks + 1), dtype=torch.int32,
@@ -376,14 +510,10 @@ class GroupState:
         return self.sampling[0], self.sampling[1], self.sampling[2]
 
 
-def prefill_group_body(params, cfg: DualARConfig, scfg: SamplingConfig,
-                       gs: GroupState, bucket: int):
-    """JAX's `prefill_group_parked` on the fixed buffers: the k prompts of
-    `gs.prompt(bucket)` (offsets 0, per-row t_end) prefilled into the
-    scratch cache, and each row's first column sampled with its own
-    parameters from draw 0 of its seed (no RAS) into `gs.column`."""
-    logits_full, hidden, _ = dual_ar.prefill(params, cfg, gs.prompt(bucket),
-                                             gs.cache, gs.offsets, gs.t_end)
+def _group_columns(params, cfg: DualARConfig, scfg: SamplingConfig,
+                   gs: GroupState, logits_full, hidden):
+    """Each row's first column, sampled with its own parameters from draw 0
+    of its seed (no RAS), into `gs.column`."""
     u = counter_uniforms(gs.seed, torch.zeros_like(gs.seed),
                          uniform_rows(cfg.num_codebooks))
     gs.column.copy_(_sample_column(
@@ -391,10 +521,34 @@ def prefill_group_body(params, cfg: DualARConfig, scfg: SamplingConfig,
         u.transpose(0, 1), gs.sampling_args(), gs.fast_cache))
 
 
+def prefill_group_body(params, cfg: DualARConfig, scfg: SamplingConfig,
+                       gs: GroupState, bucket: int):
+    """JAX's `prefill_group_parked` on the fixed buffers: the k prompts of
+    `gs.prompt(bucket)` (offsets 0, per-row t_end) prefilled into the
+    scratch cache, and each row's first column into `gs.column`."""
+    logits_full, hidden, _ = dual_ar.prefill(params, cfg, gs.prompt(bucket),
+                                             gs.cache, gs.offsets, gs.t_end)
+    _group_columns(params, cfg, scfg, gs, logits_full, hidden)
+
+
+def prefill_group_suffix_body(params, cfg: DualARConfig, scfg: SamplingConfig,
+                              gs: GroupState, sbucket: int):
+    """JAX's `prefill_group_parked_suffix` after its restore, on the fixed
+    buffers: each row's suffix in `gs.prompt(sbucket)` (real lengths
+    `gs.t_end`) prefilled at positions `gs.start` on over the shared prefix
+    that the caller restored into every scratch row
+    (`restore_prefix_rows`), and each row's first column into
+    `gs.column`."""
+    logits_full, hidden, _ = dual_ar.prefill_suffix(
+        params, cfg, gs.prompt(sbucket), gs.cache, gs.start, gs.t_end)
+    _group_columns(params, cfg, scfg, gs, logits_full, hidden)
+
+
 # the wrappers whose launch counters a captured graph's replays add to
 # (`mm`'s count the int8 products by route: the kernel, or torch's cast)
 _WRAPPERS = (flash_decode_attention, flash_decode_attention_kv8,
-             flash_prefill_attention, int4_matmul, int8_matmul, int8_ffn, mm)
+             flash_prefill_attention, flash_suffix_attention, int4_matmul,
+             int8_matmul, int8_ffn, mm)
 
 
 def _launch_counts():
@@ -533,12 +687,16 @@ class GenerationSession:
     copies the FFN weights: the caller should drop its own reference to
     `params`, and must not change the session's. `kv_quant` keeps the slow
     cache in int8 with per-(position, head) scales
-    (`dual_ar.init_kv_cache(quant=True)`).
+    (`dual_ar.init_kv_cache(quant=True)`). `prefix_cache_size` > 0 keeps
+    the KV rows of that many recent prompts (`PrefixStore`): a prompt that
+    shares at least 64 leading columns with one of them restores its rows
+    and prefills only the rest (JAX's hit path).
 
     On CUDA every step is a replay of a CUDA graph: one graph per prompt
-    bucket for the prefill and its first column (`prefill_{bucket}`) and
-    one for the decode step (`decode`), replayed n times per chunk. A graph
-    is captured at the first use of its name, or ahead of time by
+    bucket for the prefill and its first column (`prefill_{bucket}`), one
+    per suffix bucket for a prefix hit's suffix prefill (`suffix_{sbucket}`)
+    and one for the decode step (`decode`), replayed n times per chunk. A
+    graph is captured at the first use of its name, or ahead of time by
     `precompile`, after one eager run of its body that builds the kernels'
     plans and workspaces; a failed capture raises. The graphs share one
     memory pool: they replay on one stream, one at a time, and keep no
@@ -552,7 +710,8 @@ class GenerationSession:
     def __init__(self, params, cfg: DualARConfig, scfg: SamplingConfig = None,
                  max_batch: int = 1, dtype=torch.bfloat16,
                  decode_chunk_size: int = 32, first_chunk_size: int = 0,
-                 pipeline_lookahead: int = 1, kv_quant: bool = False):
+                 pipeline_lookahead: int = 1, kv_quant: bool = False,
+                 prefix_cache_size: int = 0):
         if max_batch != 1:
             raise NotImplementedError(
                 "lockstep batched sessions (generate_batch) are not ported "
@@ -578,6 +737,7 @@ class GenerationSession:
             max(self.first_chunk_size, decode_chunk_size), dtype,
             params["embeddings"].dtype, self.device, kv_quant)
         self.cache = self.state.cache
+        self.prefix = PrefixStore(prefix_cache_size)
         self._graphs = {}  # name -> (CUDAGraph, launch counts per replay)
         self._pool = None
         self.capture_seconds = {}
@@ -585,8 +745,28 @@ class GenerationSession:
         self.replays = collections.Counter()
         self.eager_runs = collections.Counter()
 
-    def new_generator(self, seed: int) -> torch.Generator:
-        return torch.Generator(device=self.device).manual_seed(int(seed))
+    @property
+    def prefix_hits(self):
+        return self.prefix.hits
+
+    @property
+    def prefix_misses(self):
+        return self.prefix.misses
+
+    @property
+    def hit_buckets(self) -> list:
+        """Every suffix bucket a prefix hit of this session can take (none
+        with the prefix cache off): what `warm_up` captures ahead."""
+        if not self.prefix.size:
+            return []
+        return hit_suffix_buckets(self._bucket(self.cfg.max_seq_len - 1),
+                                  self.cache_len)
+
+    def new_generator(self, seed: int) -> np.random.Generator:
+        """The source of one request's per-segment seeds (`request_seed`):
+        `generate_long` passes it to each text segment's `generate_stream`,
+        as the batcher's session does."""
+        return np.random.default_rng(int(seed))
 
     def _bucket(self, t: int) -> int:
         return min(pick_bucket(t, self.cache_len), self.cfg.max_seq_len)
@@ -595,17 +775,23 @@ class GenerationSession:
         if name == "decode":
             return functools.partial(decode_step, self.params, self.cfg,
                                      self.scfg, self.state)
-        return functools.partial(prefill_body, self.params, self.cfg,
-                                 self.scfg, self.state,
-                                 int(name.split("_")[1]))
+        kind, bucket = name.split("_")
+        body = suffix_body if kind == "suffix" else prefill_body
+        return functools.partial(body, self.params, self.cfg, self.scfg,
+                                 self.state, int(bucket))
 
     def _capture(self, name: str):
         """Capture graph `name`: one eager run of its body (the carried
-        buffers put back after it), then the capture into the shared pool."""
+        buffers put back after it; a prefill's t_end set to 1 and its start
+        to 0 first, as the buffers may hold a longer request's, which would
+        index past this bucket), then the capture into the shared pool."""
         t0 = time.perf_counter()
         body = self._body(name)
         with GUARD.launching():
             saved = [t.clone() for t in self.state.carry()]
+            if name != "decode":
+                self.state.t_end.fill_(1)
+                self.state.start.zero_()
             body()
             self.eager_runs[name] += 1
             for t, s in zip(self.state.carry(), saved):
@@ -643,18 +829,22 @@ class GenerationSession:
                 for (f, attr), n in self._graphs[name][1].items()}
 
     def precompile(self, prompt_len: int, max_new_tokens: int = 0,
-                   first_chunk: Optional[int] = None) -> dict:
+                   first_chunk: Optional[int] = None,
+                   suffix_buckets=()) -> dict:
         """Capture, ahead of the first request, the graphs a request of
         `prompt_len` tokens and `max_new_tokens` replays: its bucket's
-        prefill (`prefill_{bucket}`) and, unless its budget ends with the
-        prefill, the decode step (`decode`), the counterpart of the JAX
+        prefill (`prefill_{bucket}`), unless its budget ends with the
+        prefill the decode step (`decode`), and the suffix prefill of each
+        bucket of `suffix_buckets` (`suffix_{sbucket}`, a prefix hit's;
+        values are mapped to their bucket), the counterpart of the JAX
         session's `precompile`. One decode graph serves every chunk size,
         so `first_chunk` has only to fit the step buffers. Call it between
-        requests: the eager runs write the cache. Returns {name: seconds}
-        of the graphs captured by this call (each with its eager run); on
-        the CPU nothing is captured and it returns {}."""
+        requests: the eager runs write the cache (stored prefixes are
+        copies and stay as they are). Returns {name: seconds} of the
+        graphs captured by this call (each with its eager run); on the CPU
+        nothing is captured and it returns {}."""
         cfg = self.cfg
-        n_steps = self.state.u.shape[0]
+        n_steps = self.state.n_steps
         if first_chunk is not None and not 0 < first_chunk <= n_steps:
             raise ValueError(f"first_chunk={first_chunk} outside the step "
                              f"buffers' 1..{n_steps}")
@@ -669,30 +859,35 @@ class GenerationSession:
         names = [f"prefill_{self._bucket(prompt_len)}"]
         if budget > 1:
             names.append("decode")
+        names += [f"suffix_{pick_bucket(t, self.cache_len)}"
+                  for t in suffix_buckets]
         with GUARD.launching():
-            self._set_request(prompt_len, self.scfg.temperature,
+            self._set_request(prompt_len, 0, self.scfg.temperature,
                               self.scfg.top_p, self.scfg.top_k)
         out = {}
-        for name in names:
+        for name in dict.fromkeys(names):
             if name not in self._graphs:
                 self._capture(name)
                 out[name] = self.capture_seconds[name]
         return out
 
-    def _set_request(self, t: int, temperature, top_p, top_k):
+    def _set_request(self, t: int, seed: int, temperature, top_p, top_k):
         st = self.state
         st.t_end.fill_(t)
+        st.seed.fill_(seed)
         for i, v in enumerate((temperature, top_p, top_k)):
             st.sampling[i].fill_(float(v))
 
-    def decode_chunk(self, n: int, generator):
-        """Enqueue n decode steps (on CUDA n replays of the step graph) after
-        filling their uniforms; returns a copy of their columns (n, 1, C+1).
-        Nothing here waits on the device, so chunks can queue."""
+    def decode_chunk(self, n: int, generator=None):
+        """Enqueue n decode steps (on CUDA n replays of the step graph);
+        returns a copy of their columns (n, 1, C+1). Nothing here waits on
+        the device, so chunks can queue. The steps draw from the request's
+        seed and draw counter. `generator` is not read: it stays only
+        because `scripts/decode_step_profile.py`, kept as it is, still
+        passes one; drop it when that script stops passing it."""
         st = self.state
         self._graphs_for("decode")
         with GUARD.launching():
-            fill_uniforms(st.u[:n], generator)
             st.step.zero_()
             for _ in range(n):
                 self._run("decode")
@@ -712,12 +907,55 @@ class GenerationSession:
             pass
         return last
 
+    def _prefill_first(self, prompt: np.ndarray, seed: int, sampling):
+        """Enqueue the prefill of `prompt` and its first column: on a
+        prefix hit the stored rows' restore and the suffix graph, else the
+        prompt's bucket (whose rows are stored when the store takes the
+        prompt). JAX's hit and miss decisions and counts."""
+        cfg, st = self.cfg, self.state
+        t = prompt.shape[1]
+        pre = self.prefix.lookup(prompt) if self.prefix.size else None
+        if pre is not None:
+            m, rows = pre
+            ts = t - m
+            sbucket = pick_bucket(ts, self.cache_len)
+            if m + sbucket > self.cache_len:
+                pre = None  # the suffix's pad tail would overrun the cache
+        if pre is not None:
+            self.prefix.hits += 1
+            inp = np.zeros((1, cfg.num_codebooks + 1, sbucket), np.int32)
+            inp[0, :, :ts] = prompt[:, m:]
+            name = f"suffix_{sbucket}"
+            self._graphs_for(name)
+            with GUARD.launching():
+                restore_prefix_rows(st.cache, rows)
+                st.prompt(sbucket).copy_(torch.from_numpy(inp))
+                self._set_request(ts, seed, *sampling)
+                st.start.fill_(m)
+                self._run(name)
+            return
+        self.prefix.misses += 1
+        bucket = self._bucket(t)
+        inp = np.zeros((1, cfg.num_codebooks + 1, bucket), dtype=np.int32)
+        inp[0, :, :t] = prompt
+        self._graphs_for(f"prefill_{bucket}")
+        with GUARD.launching():
+            st.prompt(bucket).copy_(torch.from_numpy(inp))
+            self._set_request(t, seed, *sampling)
+            self._run(f"prefill_{bucket}")
+            if self.prefix.accepts(prompt):
+                self.prefix.store(prompt, {name: c[:, :, :bucket].clone()
+                                           for name, c in st.cache.items()},
+                                  bucket)
+
     def generate_stream(self, prompt: np.ndarray, generator,
                         max_new_tokens: int = 0, temperature: float = 1.0,
                         top_p: float = 0.9, top_k: int = 30,
                         pipeline_lookahead: int = 0):
         """Yield the CUMULATIVE (C+1, n) host columns after the prefill frame
         and after every decode chunk; the last yield is the whole sequence.
+        `generator`: the request's seed, or the generator of
+        `new_generator` that gives it (`request_seed`).
 
         pipeline_lookahead > 0 enqueues that many chunks beyond the one
         being read, so the device runs chunks back to back."""
@@ -733,15 +971,9 @@ class GenerationSession:
         else:
             budget = cfg.max_seq_len - t
 
-        bucket = self._bucket(t)
-        inp = np.zeros((1, cfg.num_codebooks + 1, bucket), dtype=np.int32)
-        inp[0, :, :t] = prompt
-        self._graphs_for(f"prefill_{bucket}")
+        self._prefill_first(prompt, request_seed(generator),
+                            (temperature, top_p, top_k))
         with GUARD.launching():
-            st.prompt(bucket).copy_(torch.from_numpy(inp))
-            self._set_request(t, temperature, top_p, top_k)
-            fill_uniforms(st.u[:1], generator)
-            self._run(f"prefill_{bucket}")
             # a copy: on the CPU .cpu() returns the buffer the steps overwrite
             columns = [st.token.cpu().numpy().copy()]  # list of (B, C+1)
         yield np.concatenate(columns, axis=0).T
@@ -758,7 +990,7 @@ class GenerationSession:
                 # decode_chunk_size positions of headroom for the overshoot
                 n = self.first_chunk_size if first else self.decode_chunk_size
                 first = False
-                inflight.append((self.decode_chunk(n, generator), n))
+                inflight.append((self.decode_chunk(n), n))
                 dispatch_left -= n
             cols_dev, n = inflight.pop(0)
             with GUARD.launching():
@@ -875,7 +1107,8 @@ def generate_long(*, session: GenerationSession, tokenizer, text: str,
                   temperature: float = 1.0, chunk_length: int = 300,
                   prompt_text: Optional[Union[str, List[str]]] = None,
                   prompt_tokens: Optional[Union[np.ndarray, List[np.ndarray]]] = None,
-                  seed: int = 42, stream_partials: bool = False):
+                  seed: int = 42, stream_partials: bool = False,
+                  cancel_check=None):
     """Chunked long-form generation: split the text on speaker tags, batch
     the turns, generate each batch in turn with the earlier batches' codes
     as conversation context.
@@ -884,13 +1117,17 @@ def generate_long(*, session: GenerationSession, tokenizer, text: str,
     texts and their (num_codebooks, T) codes) for the system message.
     stream_partials: also yield action="partial" with the cumulative codes
     of the segment in progress after every decode chunk; the closing
-    action="sample" repeats the whole segment."""
+    action="sample" repeats the whole segment. cancel_check: an optional
+    () -> bool polled between text segments and decode chunks; True
+    abandons the generation (the server wires a client's disconnect here),
+    and closing the session's stream frees what it holds."""
     from fish_speech_tpu_torch.sequence import Conversation, Message, VQPart
 
     if not 0 < top_p <= 1:
         raise ValueError("top_p must be in (0, 1]")
     if not 0 < temperature < 2:
         raise ValueError("temperature must be in (0, 2)")
+    cancelled = cancel_check if cancel_check is not None else (lambda: False)
 
     cfg = session.cfg
     if isinstance(prompt_text, str):
@@ -915,27 +1152,36 @@ def generate_long(*, session: GenerationSession, tokenizer, text: str,
         if encoded.shape[1] > cfg.max_seq_len - 2048 and cfg.max_seq_len > 2048:
             raise ValueError(f"Prompt is too long: {encoded.shape[1]} > "
                              f"{cfg.max_seq_len - 2048}")
+        if cancelled():
+            return
 
-        if stream_partials:
+        kw = dict(max_new_tokens=max_new_tokens, temperature=temperature,
+                  top_p=top_p, top_k=top_k)
+        if stream_partials or cancel_check is not None:
+            # the chunked stream (the loop `session.generate` runs), so the
+            # poll fires between decode chunks
             seq = None
-            for seq in session.generate_stream(
-                encoded, generator, max_new_tokens=max_new_tokens,
-                temperature=temperature, top_p=top_p, top_k=top_k,
-            ):
-                n_p = seq.shape[1]
-                end_p = (n_p - 1 if n_p and int(seq[0, -1]) == cfg.im_end_id
-                         else n_p)
-                if end_p > 0:
-                    yield GenerateResponse(
-                        action="partial",
-                        codes=np.ascontiguousarray(seq[1:, :end_p]),
-                        text=batch_text,
-                    )
+            stream = session.generate_stream(
+                encoded, generator, **kw,
+                pipeline_lookahead=(0 if stream_partials else
+                                    getattr(session, "pipeline_lookahead", 0)))
+            try:
+                for seq in stream:
+                    if cancelled():
+                        return
+                    n_p = seq.shape[1]
+                    end_p = (n_p - 1 if n_p and int(seq[0, -1]) == cfg.im_end_id
+                             else n_p)
+                    if stream_partials and end_p > 0:
+                        yield GenerateResponse(
+                            action="partial",
+                            codes=np.ascontiguousarray(seq[1:, :end_p]),
+                            text=batch_text,
+                        )
+            finally:
+                stream.close()
         else:
-            seq = session.generate(
-                encoded, generator, max_new_tokens=max_new_tokens,
-                temperature=temperature, top_p=top_p, top_k=top_k,
-            )
+            seq = session.generate(encoded, generator, **kw)
         # drop the trailing im_end column; keep the codebook rows
         n = seq.shape[1]
         end = n - 1 if int(seq[0, -1]) == cfg.im_end_id else n

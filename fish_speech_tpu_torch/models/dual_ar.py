@@ -56,7 +56,8 @@ from fish_speech_tpu_torch.config import DualARConfig
 from fish_speech_tpu_torch.ops.attention import causal_mask, gqa_attention
 from fish_speech_tpu_torch.ops.flash_decode import (
     flash_decode_attention, flash_decode_attention_kv8)
-from fish_speech_tpu_torch.ops.flash_prefill import flash_prefill_attention
+from fish_speech_tpu_torch.ops.flash_prefill import (flash_prefill_attention,
+                                                     flash_suffix_attention)
 from fish_speech_tpu_torch.ops.flash_train import flash_train_attention
 from fish_speech_tpu_torch.ops.int8_ffn import MAX_ROWS as INT8_FFN_ROWS
 from fish_speech_tpu_torch.ops.int8_ffn import int8_ffn
@@ -203,9 +204,9 @@ def _kv_dequant(q, s, dtype):
 
 def _store_kv(cache, i, sl, k, v):
     """Write k/v (B, T, Hkv, Dh) into layer i of the cache at positions
-    `sl`: a slice, an int with T == 1, or a (1,) int64 device tensor with
-    T == 1 (written by `index_copy_`, so a CUDA graph reads the position
-    at replay); quantized under the int8 cache."""
+    `sl`: a slice, an int with T == 1, or a (T,) int64 device tensor of
+    positions (written by `index_copy_`, so a CUDA graph reads them at
+    replay); quantized under the int8 cache."""
     if "ks" in cache:
         (k, ks), (v, vs) = _kv_quant(k), _kv_quant(v)
         pairs = ((cache["k"], k), (cache["v"], v), (cache["ks"], ks),
@@ -585,6 +586,49 @@ def prefill(params, cfg: DualARConfig, inp, cache, offsets, t_end):
         _store_kv(cache, i, slice(0, t), k, v)
         y = flash_prefill_attention(q, k, v.contiguous(), offsets)
         x = x + _attn_out(lp, spec, y.reshape(b, t, -1))
+        h2 = rms_norm(x, lp["ffn_norm"], cfg.norm_eps)
+        x = x + _ffn(lp, spec, h2)
+    return _prefill_tail(params, cfg, x, t_end, cache)
+
+
+def prefill_suffix(params, cfg: DualARConfig, inp, cache, start, t_end):
+    """Prefill a prompt SUFFIX against a cache whose positions [0, start)
+    already hold a stored prompt prefix (the voice-clone prefix cache; JAX's
+    `prefill_suffix`): k/v at position j depend only on tokens 0..j, so any
+    prompt that shares those columns can reuse them.
+
+    inp (B, C+1, Ts): the suffix columns, bucket-padded; start: a (1,)
+    int32 tensor (or an int), the absolute position of the first column;
+    t_end: the suffix's real length, an int or a (B,) tensor (logits at
+    start + t_end - 1). Per layer the fresh k/v go to [start, start + Ts)
+    (quantized under the int8 cache), then `flash_suffix_attention` reads
+    the layer's cache under the absolute causal mask j <= start + i,
+    keys included the int8 ones of the suffix itself. The RoPE rows start ..
+    start + Ts come from a table of max_seq_len + Ts rows by `index_select`,
+    so nothing is read on the host. The pad tail's writes land where the
+    full prefill's bucket tail does: no query sees them before a decode
+    step overwrites them.
+
+    Returns (logits_last (B, V) fp32, hidden_last (B, D), cache)."""
+    cfg = cfg.resolve()
+    ts = inp.shape[2]
+    x = embed_tokens(params, cfg, inp)
+    start = torch.as_tensor(start, device=x.device).reshape(1).to(torch.int32)
+    pos = start.long() + torch.arange(ts, device=x.device)
+    table = rope_table(cfg.max_seq_len + ts, cfg.head_dim, cfg.rope_base,
+                       x.device)
+    freqs = table.index_select(0, pos)
+    spec = _slow_spec(cfg)
+    b = x.shape[0]
+    for i in range(cache["k"].shape[0]):
+        lp = _layer_slice(params["layers"], i)
+        h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
+        q, k, v = _qkv(lp, spec, h)
+        q = apply_rope(q, freqs)
+        k = apply_rope(k, freqs)
+        _store_kv(cache, i, pos, k, v)
+        y = flash_suffix_attention(q.contiguous(), cache, i, start)
+        x = x + _attn_out(lp, spec, y.reshape(b, ts, -1))
         h2 = rms_norm(x, lp["ffn_norm"], cfg.norm_eps)
         x = x + _ffn(lp, spec, h2)
     return _prefill_tail(params, cfg, x, t_end, cache)

@@ -102,6 +102,11 @@ def load_kernels() -> ctypes.CDLL:
         ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, f32, ptr
     ]
     lib.fs_flash_prefill.restype = i32
+    lib.fs_flash_suffix.argtypes = [
+        ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, i32,
+        i32, f32, ptr
+    ]
+    lib.fs_flash_suffix.restype = i32
     lib.fs_flash_decode.argtypes = [
         ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, i32,
         f32, ptr

@@ -3,18 +3,19 @@
 Port of the decode fast path of `fish_speech_tpu/ops/sampling.py`: top-p and
 top-k are applied to the untempered softmax over the top-`TOP_K_CAP`
 logits, rank 0 is always kept, then temperature is applied and the
-exponential race `argmax(p / -log u)` draws the sample. The uniforms come
-from a `torch.Generator`, or are passed in as `u` so that a test can feed
-both packages the same numbers (JAX's threefry and torch's Philox give
-different bits from one seed).
+exponential race `argmax(p / -log u)` draws the sample. The uniforms are
+passed in as `u` (or drawn from a `torch.Generator`), so that a test can
+feed both packages the same numbers (JAX's threefry and torch's Philox
+give different bits from one seed).
 
-The decode pool (`engine/batcher.py`) samples each row with its own
-parameters (`sample_topk` on (B,) tensors: JAX's `sample_topk_rows`) and
-its own uniforms, which `counter_uniforms` computes on the device from the
-row's request seed and draw index: a counter-based hash, so what a request draws does not depend
-on its slot, its neighbours or how its steps were cut into chunks (CUDA's
-Philox generator rounds its offset per call, so one fill of 8 steps does
-not draw what two fills of 4 draw).
+The serving steps (`generate.py`: the session's and the decode pool's)
+sample with uniforms that `counter_uniforms` computes on the device from
+the request's seed and draw index: a counter-based hash, so what a request
+draws does not depend on its slot, its neighbours or how its steps were
+cut into chunks (CUDA's Philox generator rounds its offset per call, so
+one fill of 8 steps does not draw what two fills of 4 draw). The pool
+samples each row with its own parameters (`sample_topk` on (B,) tensors:
+JAX's `sample_topk_rows`).
 """
 
 from typing import Optional
@@ -30,11 +31,6 @@ def uniform_rows(num_codebooks: int) -> int:
     """Rows of uniforms one decode step reads: the slow head's two samples
     and one for each of the fast stack's num_codebooks - 1 codebooks."""
     return UNIFORM_FAST + num_codebooks - 1
-
-
-def fill_uniforms(block: torch.Tensor, generator: torch.Generator):
-    """Fill `block` in place with uniforms in [tiny, 1) from `generator`."""
-    return block.uniform_(generator=generator).clamp_(min=_TINY)
 
 
 def check_top_k(top_k, k_cap: int = TOP_K_CAP):

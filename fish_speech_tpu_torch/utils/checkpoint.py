@@ -5,6 +5,10 @@ directory with `config.json` (DualARConfig) and `model.safetensors`, a flat
 "/"-joined parameter tree whose bf16 leaves are stored as raw uint16 bits
 under a "::bf16" key suffix. Lists are numeric path segments.
 
+A bundled codec (`codec_config.json`, DACConfig, and `codec.safetensors`)
+reads with `load_dac`. The writers (`save_dual_ar`, `save_dac`) wait for
+the port's `tools/quantize.py` (ROADMAP).
+
 A quantized tree (`ops/quant.py`) reads back as it was written: integer
 leaves (int8 `q`, uint8 `p`) stay integer, and floating leaves, the scales
 included, are cast to `dtype` when one is given, as the JAX package's
@@ -13,13 +17,15 @@ included, are cast to `dtype` when one is given, as the JAX package's
 
 from __future__ import annotations
 
+import json
 from pathlib import Path
 
 import numpy as np
 import torch
 from safetensors.numpy import load_file
 
-from fish_speech_tpu_torch.config import DualARConfig
+from fish_speech_tpu_torch.config import (CodecTransformerConfig, DACConfig,
+                                          DualARConfig, RVQConfig)
 from fish_speech_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
 
 _BF16_SUFFIX = "::bf16"
@@ -69,3 +75,29 @@ def load_dual_ar(path, dtype=torch.bfloat16, device=DEFAULT_DEVICE):
     path = Path(path)
     cfg = DualARConfig.from_json(str(path / "config.json"))
     return load_params(path, dtype=dtype, device=device), cfg
+
+
+def _dac_config_from_json(d: dict) -> DACConfig:
+    """A DACConfig from `codec_config.json` (the JAX package's
+    `dataclasses.asdict` layout)."""
+    d = dict(d)
+    rvq = dict(d.pop("rvq"))
+    for k in ("pre_transformer", "post_transformer"):
+        if rvq.get(k) is not None:
+            rvq[k] = CodecTransformerConfig(**rvq[k])
+    rvq["downsample_factor"] = tuple(rvq["downsample_factor"])
+    for k in ("encoder_rates", "decoder_rates", "encoder_transformer_layers"):
+        d[k] = tuple(d[k])
+    return DACConfig(rvq=RVQConfig(**rvq), **d)
+
+
+def load_dac(path, dtype=torch.float32, device=DEFAULT_DEVICE):
+    """(params, cfg) of the codec bundled in a checkpoint directory
+    (`codec_config.json`, `codec.safetensors`), on `device`. Raises without
+    CUDA unless `device` is the CPU."""
+    device = resolve_device(device, "load_dac")
+    path = Path(path)
+    with open(path / "codec_config.json") as f:
+        cfg = _dac_config_from_json(json.load(f))
+    return load_params(path, name="codec.safetensors", dtype=dtype,
+                       device=device), cfg

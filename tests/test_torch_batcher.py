@@ -11,7 +11,7 @@ Tiny float32 models with JAX's random weights, bridged:
     and closing a `BatcherSession` stream frees its slot;
   * a worker crash reaches every client, active, parked and queued, and
     later submissions fail at once;
-  * `admit_every < 0` and `prefix_cache_size > 0` raise;
+  * `admit_every < 0` raises;
   * the two engines over batcher sessions give the same results for
     concurrent greedy streamed requests: the same segments' audio within
     1e-5, whatever the partials' boundaries;
@@ -199,9 +199,7 @@ def test_worker_crash_reaches_every_client(where):
         b.shutdown()
 
 
-@pytest.mark.parametrize("kw,error", [({"admit_every": -1}, ValueError),
-                                      ({"prefix_cache_size": 4},
-                                       NotImplementedError)])
+@pytest.mark.parametrize("kw,error", [({"admit_every": -1}, ValueError)])
 def test_unsupported_options_raise(kw, error):
     _, cfg, _, tp = _tiny()
     with pytest.raises(error):

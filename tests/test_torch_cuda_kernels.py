@@ -609,8 +609,8 @@ def _graph_session(dev, kind, **kw):
     params = init_dual_ar(7, cfg, torch.bfloat16, dev)
     if kind == "mixed":
         params = quantize_dual_ar_lowmem(params, mode="int8", fast_mode="int4")
+    kw = {"decode_chunk_size": 4, "first_chunk_size": 2, **kw}
     return GenerationSession(params, cfg, SamplingConfig(), dtype=torch.bfloat16,
-                             decode_chunk_size=4, first_chunk_size=2,
                              kv_quant=kind == "mixed", **kw)
 
 
@@ -622,29 +622,27 @@ def _graph_prompt(cfg, t, seed):
     return inp
 
 
-def _eager_stream(session, prompt, budget, sampling, generator):
+def _eager_stream(session, prompt, budget, sampling, seed):
     """The session's request run eagerly: the same bodies on a fresh
-    `StepState` (the same weights), the uniform blocks filled from
-    `generator` in `generate_stream`'s order, every chunk run in full and
-    cut at the budget and at im_end as `generate_stream` cuts."""
+    `StepState` (the same weights) drawing the uniforms of `seed`, every
+    chunk run in full and cut at the budget and at im_end as
+    `generate_stream` cuts."""
     from fish_speech_tpu_torch.generate import (StepState, decode_step,
                                                 prefill_body)
-    from fish_speech_tpu_torch.ops.sampling import fill_uniforms
 
     cfg, scfg, ref = session.cfg, session.scfg, session.state
-    st = StepState(cfg, scfg, session.cache_len, ref.u.shape[0], torch.bfloat16,
+    st = StepState(cfg, scfg, session.cache_len, ref.n_steps, torch.bfloat16,
                    torch.bfloat16, session.device, session.kv_quant)
     t = prompt.shape[1]
     bucket = session._bucket(t)
     st.prompt(bucket)[0, :, :t].copy_(torch.from_numpy(prompt))
     st.t_end.fill_(t)
+    st.seed.fill_(seed)
     st.sampling.copy_(torch.tensor(sampling, dtype=torch.float32))
-    fill_uniforms(st.u[:1], generator)
     prefill_body(session.params, cfg, scfg, st, bucket)
     cols = [st.token.clone()]
     left, n = budget - 1, session.first_chunk_size
     while left > 0:
-        fill_uniforms(st.u[:n], generator)
         st.step.zero_()
         for _ in range(n):
             decode_step(session.params, cfg, scfg, st)
@@ -680,11 +678,9 @@ def test_graphed_session_columns_equal_the_eager_bodies(dev, kind):
         prompt = _graph_prompt(cfg, t, seed=t)
         replays = dict(session.replays)
         n0 = flash_decode_attention.launches
-        got = session.generate(prompt, session.new_generator(1), max_new_tokens=11,
-                               top_k=1)
+        got = session.generate(prompt, 1, max_new_tokens=11, top_k=1)
         launched = flash_decode_attention.launches - n0
-        want = _eager_stream(session, prompt, 11, (1.0, 0.9, 1),
-                             session.new_generator(1))
+        want = _eager_stream(session, prompt, 11, (1.0, 0.9, 1), 1)
         np.testing.assert_array_equal(got, want)
         name = f"prefill_{bucket}"
         assert session.replays[name] == replays.get(name, 0) + 1
@@ -700,25 +696,26 @@ def test_graphed_session_columns_equal_the_eager_bodies(dev, kind):
 
 @pytest.mark.parametrize("kind", ["bf16", "mixed"])
 def test_decode_graph_replayed_after_pos_and_token_change(dev, kind):
-    """Replayed after `pos`, `token` (and the window and uniforms) change
+    """Replayed after `pos`, `token` (and the window, seed and draw) change
     in place, the decode graph gives an eager step's column and cache row
     there."""
     from fish_speech_tpu_torch.generate import StepState, decode_step
 
     session = _graph_session(dev, kind)
     cfg, st = session.cfg, session.state
-    session.generate(_graph_prompt(cfg, 60, seed=3), session.new_generator(2),
+    session.generate(_graph_prompt(cfg, 60, seed=3), 2,
                      max_new_tokens=7, top_k=30)
     rng = np.random.default_rng(4)
     st.pos.fill_(97)
     st.token.copy_(torch.from_numpy(_graph_prompt(cfg, 1, seed=5)[:, 0][None]))
     st.window.copy_(torch.from_numpy(rng.integers(
         cfg.semantic_begin_id, cfg.semantic_begin_id + 50, st.window.shape)))
-    st.u.uniform_(generator=session.new_generator(9)).clamp_(min=1e-30)
+    st.seed.fill_(9)
+    st.draw.fill_(13)
     st.step.fill_(1)
-    ref = StepState(cfg, session.scfg, session.cache_len, st.u.shape[0],
+    ref = StepState(cfg, session.scfg, session.cache_len, st.n_steps,
                     torch.bfloat16, torch.bfloat16, dev, session.kv_quant)
-    for name in ("token", "pos", "window", "step", "u", "sampling"):
+    for name in ("token", "pos", "window", "step", "seed", "draw", "sampling"):
         getattr(ref, name).copy_(getattr(st, name))
     for name, t in st.cache.items():
         ref.cache[name].copy_(t)
@@ -726,15 +723,125 @@ def test_decode_graph_replayed_after_pos_and_token_change(dev, kind):
     session._run("decode")
     torch.cuda.synchronize()
     assert torch.equal(st.cols[1], ref.cols[1])
-    assert int(st.pos) == 98 and int(st.step) == 2
+    assert int(st.pos) == 98 and int(st.step) == 2 and int(st.draw) == 14
     for name, t in st.cache.items():
         assert torch.equal(t[:, :, 97], ref.cache[name][:, :, 97]), name
+
+
+@pytest.mark.parametrize("kind", ["bf16", "mixed"])
+def test_seeded_codes_do_not_depend_on_chunk_sizes_cuda(dev, kind):
+    """ROADMAP §3's fault, repaired on the card: the same seed through
+    graphed sessions with other (first_chunk_size, decode_chunk_size) pairs
+    gives the same sampled codes."""
+    runs = []
+    for first, chunk in ((2, 4), (3, 5)):
+        session = _graph_session(dev, kind, first_chunk_size=first,
+                                 decode_chunk_size=chunk)
+        prompt = _graph_prompt(session.cfg, 50, seed=6)
+        runs.append(session.generate(prompt, 21, max_new_tokens=19,
+                                     temperature=0.8, top_p=0.9, top_k=30))
+        assert session.replays["decode"] >= 18
+    np.testing.assert_array_equal(runs[0], runs[1])
+
+
+def _suffix_cache(dev, kv8, dtype, b=2, s=320, hkv=2, d=64, layers=2, seed=0):
+    rng = np.random.default_rng(seed)
+    shape = (layers, b, s, hkv, d)
+    if kv8:
+        return {"k": torch.from_numpy(rng.integers(-127, 128, shape)).to(torch.int8).to(dev),
+                "v": torch.from_numpy(rng.integers(-127, 128, shape)).to(torch.int8).to(dev),
+                "ks": torch.from_numpy(rng.uniform(0.005, 0.02, shape[:4])).to(dev, torch.bfloat16),
+                "vs": torch.from_numpy(rng.uniform(0.005, 0.02, shape[:4])).to(dev, torch.bfloat16)}
+    return {n: torch.from_numpy(rng.normal(size=shape)).to(dev, dtype) for n in "kv"}
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("kv8", [False, True])
+@pytest.mark.parametrize("start,ts,d", [(0, 64, 64), (151, 64, 128),
+                                        (37, 130, 128), (255, 1, 64)])
+def test_flash_suffix_matches_plain(dev, dtype, kv8, start, ts, d):
+    """The suffix kernels (every route: bf16 tensor cores, fp32 CUDA cores,
+    plain and int8 cache) against their plain version at ragged starts and
+    lengths; the start is read from device memory, so a CUDA graph of one
+    launch replayed at another start gives that start's output."""
+    from fish_speech_tpu_torch.ops import flash_prefill as fp
+
+    cache = _suffix_cache(dev, kv8, dtype, d=d, seed=start + ts)
+    rng = np.random.default_rng(ts)
+    q = torch.from_numpy(rng.normal(size=(2, ts, 8, d))).to(dev, dtype)
+    st = torch.tensor([start], dtype=torch.int32, device=dev)
+    fp.reset_launches()
+    got = fp.flash_suffix_attention(q, cache, 1, st)
+    torch.cuda.synchronize()
+    want = fp.flash_suffix_reference(q, cache, 1, st)
+    route = fp._suffix_route(dtype, kv8)
+    assert getattr(fp.flash_suffix_attention, f"launches_{route}") == 1
+    err = (got.float() - want.float()).abs()
+    if dtype == torch.float32:
+        assert float(err.max()) <= 1e-4
+    else:
+        assert float(err.max()) <= 2e-2 and float(err.mean()) <= 2e-3
+    graph = torch.cuda.CUDAGraph()
+    out = {}
+    with torch.cuda.graph(graph):
+        out["y"] = fp.flash_suffix_attention(q, cache, 1, st)
+    st.fill_(max(start - 17, 0))
+    graph.replay()
+    torch.cuda.synchronize()
+    again = fp.flash_suffix_attention(q, cache, 1, st)
+    assert torch.equal(out["y"], again)
+
+
+def test_flash_suffix_refuses_what_the_kernels_do_not_take(dev):
+    from fish_speech_tpu_torch.ops import flash_prefill as fp
+
+    cache = _suffix_cache(dev, True, torch.bfloat16)
+    q = torch.zeros((2, 8, 8, 64), dtype=torch.bfloat16, device=dev)
+    st = torch.tensor([3], dtype=torch.int32, device=dev)
+    with pytest.raises(TypeError, match="start"):
+        fp.flash_suffix_attention(q, cache, 0, st.long())
+    with pytest.raises(ValueError, match="one CUDA device"):
+        fp.flash_suffix_attention(q, cache, 0, st.cpu())
+    with pytest.raises(TypeError):
+        fp.flash_suffix_attention(q.half(), cache, 0, st)
+
+
+@pytest.mark.parametrize("kind", ["bf16", "mixed"])
+def test_graphed_prefix_hits_replay_the_suffix_graph(dev, kind):
+    """A graphed session with the prefix cache: requests that share a
+    stored prefix are `suffix_64` replays (captured ahead by `precompile`,
+    no other eager run), which launch the suffix kernel once per slow
+    layer; a repeated hit gives identical codes, and the stored entry is
+    unchanged by the requests after it."""
+    cfg = _graph_cfg()
+    warm = _graph_session(dev, kind, prefix_cache_size=2)
+    head = _graph_prompt(cfg, 140, seed=1)
+    prompts = [np.concatenate([head, _graph_prompt(cfg, n, seed=10 + n)], axis=1)
+               for n in (12, 20, 20)]
+    prompts[2] = prompts[1]
+    times = warm.precompile(152, 11, suffix_buckets=(1,))
+    assert "suffix_64" in times
+    runs = []
+    for i, p in enumerate(prompts):
+        runs.append(warm.generate(p, 5, max_new_tokens=11, temperature=0.8,
+                                  top_p=0.9, top_k=30))
+        if i == 0:
+            (entry,) = warm.prefix._store.values()
+            saved = {n: r.clone() for n, r in entry["rows"].items()}
+    np.testing.assert_array_equal(runs[1], runs[2])
+    assert warm.prefix_hits == 2 and warm.replays["suffix_64"] == 2
+    assert warm.eager_runs["suffix_64"] == 1  # its capture's warm-up only
+    per = warm.launches_per_replay("suffix_64")
+    route = "suffix_kv8_wgmma" if kind == "mixed" else "suffix_wgmma"
+    assert per[f"flash_suffix_attention.launches_{route}"] == cfg.n_layer
+    for n, r in entry["rows"].items():
+        assert torch.equal(r, saved[n]), n
 
 
 def test_repeated_seed_gives_identical_codes(dev):
     session = _graph_session(dev, "bf16")
     prompt = _graph_prompt(session.cfg, 50, seed=6)
-    runs = [session.generate(prompt, session.new_generator(s), max_new_tokens=15,
+    runs = [session.generate(prompt, s, max_new_tokens=15,
                              temperature=0.8, top_p=0.9, top_k=30)
             for s in (11, 11, 12)]
     np.testing.assert_array_equal(runs[0], runs[1])
@@ -960,6 +1067,79 @@ def test_pool_prefill_graph_captured_after_a_longer_bucket(dev):
         finally:
             b.shutdown()
     np.testing.assert_array_equal(outs[0], outs[1])
+
+
+def _tree_to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_tree_to(v, dev) for v in tree)
+    return tree.to(dev) if isinstance(tree, torch.Tensor) else tree
+
+
+def _serve_group(b, prompts, seed0):
+    """The greedy columns of `prompts`, submitted while the worker waits on
+    the batcher's lock, so that one admission pass takes them all: one
+    group."""
+    from fish_speech_tpu_torch.engine.batcher import BatchRequest
+
+    reqs = [BatchRequest(prompt=p, seed=seed0 + j, max_new_tokens=9, top_k=1)
+            for j, p in enumerate(prompts)]
+    with b._state_lock:
+        outs = [b.submit(r) for r in reqs]
+    cols = []
+    for out in outs:
+        chunks = []
+        while (item := out.get(timeout=300)) is not None:
+            assert not isinstance(item, BaseException), item
+            chunks.append(item)
+        cols.append(np.concatenate(chunks).T)
+    return cols
+
+
+@pytest.mark.parametrize("kv_quant", [False, True])
+def test_pool_graphed_prefix_hit_gives_the_cpu_batchers_greedy_codes(dev, kv_quant):
+    """A same-prefix group of four through the batcher's graphed hit path
+    (the stored row restored into every row of the signature's scratch,
+    the start written through a pinned buffer, `suffix_4_64` replayed)
+    gives the greedy codes the same batcher gives on the CPU, where every
+    body runs eagerly: a small fp32 model over a plain and an int8 cache.
+    On the card the hit graph was captured by `precompile`, and the group
+    served twice gives the same codes both times."""
+    from fish_speech_tpu_torch.config import SamplingConfig
+    from fish_speech_tpu_torch.engine.batcher import ContinuousBatcher
+    from fish_speech_tpu_torch.models.dual_ar import init_dual_ar
+
+    cfg = _graph_cfg()
+    params = init_dual_ar(7, cfg, torch.float32, "cpu")
+    # the stored prompt has 128 columns; the group shares its first 64, and
+    # prefix plus the 64-bucket suffix fit the stored bucket 128
+    head = _graph_prompt(cfg, 64, seed=1)
+    first = np.concatenate([head, _graph_prompt(cfg, 64, seed=2)], axis=1)
+    group = [np.concatenate([head, _graph_prompt(cfg, n, seed=20 + n)], axis=1)
+             for n in (20, 33, 47, 60)]
+    runs = {}
+    for d in ("cpu", dev):
+        b = ContinuousBatcher(_tree_to(params, d), cfg, SamplingConfig(),
+                              pool_size=4, dtype=torch.float32,
+                              decode_chunk_size=8, first_chunk_size=2,
+                              kv_quant=kv_quant, prefix_cache_size=4)
+        try:
+            captured = b.precompile()
+            _serve_group(b, [first], 3)
+            runs[d] = [_serve_group(b, group, 5) for _ in range(2)]
+            assert b.prefix.hits == 2 and b.prefix.misses == 1
+            if d != "cpu":
+                assert {"suffix_4_64", "suffix_4_128", "suffix_1_64"} <= set(captured)
+                assert b.replays["suffix_4_64"] == 2
+                assert set(b.eager_runs.values()) == {1}  # the captures' only
+        finally:
+            b.shutdown()
+    for a, c in zip(runs[dev][0], runs[dev][1]):
+        np.testing.assert_array_equal(a, c)
+    for a, c in zip(runs[dev][0], runs["cpu"][0]):
+        np.testing.assert_array_equal(a, c)
+    assert min(a.shape[1] for a in runs[dev][0]) > 1
 
 
 # the int8 products at decode (I, O, layout): s2-pro's slow and fast stacks

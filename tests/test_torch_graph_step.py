@@ -15,11 +15,14 @@ and bridged) in float32:
   * the prefill body at two prompt buckets gives logits within 1e-4 of
     JAX's jitted `prefill`, and the same greedy first column as JAX's
     `prefill_step`;
-  * on injected uniforms (top_k 30, top_p 0.9, temperature 0.7) the
-    bodies' sampled columns equal a hand loop of the eager per-step path
-    (host int positions, a fresh fast cache per frame) reading the same
-    uniform block, and the session's `generate_stream` equals that loop on
-    the blocks its generator fills;
+  * on the uniforms of a request's seed (`counter_uniforms` of draw 0 for
+    the first column and draws 1, 2, ... for the steps; top_k 30, top_p
+    0.9, temperature 0.7) the bodies' sampled columns equal a hand loop of
+    the eager per-step path (host int positions, a fresh fast cache per
+    frame) reading the same uniforms, and the session's `generate_stream`
+    equals that loop on its request's seed;
+  * a seed's codes do not depend on where the chunks are cut: two sessions
+    with other (first_chunk_size, decode_chunk_size) give equal codes;
   * neither body reads a tensor on the host: under a dispatch mode that
     raises on `_local_scalar_dense`, `nonzero` and the other syncing ops,
     one run of each completes;
@@ -78,12 +81,14 @@ def _state(cfg, quant, n_steps=max(CHUNKS)):
                           n_steps, torch.float32, torch.float32, "cpu", quant)
 
 
-def _uniforms(cfg, n, seed):
-    rng = np.random.default_rng(seed)
-    u = rng.uniform(size=(n, tsamp.uniform_rows(cfg.num_codebooks),
-                          tsamp.TOP_K_CAP))
-    return torch.from_numpy(np.maximum(u, np.finfo(np.float32).tiny)
-                            .astype(np.float32))
+def _blocks(cfg, seed, chunks=CHUNKS):
+    """The uniforms a request of `seed` draws: draw 0 (the first column),
+    then one block per chunk of its steps' draws."""
+    draws = np.cumsum((0, 1) + tuple(chunks))
+    seed_t = torch.tensor([seed])
+    return [tsamp.counter_uniforms(
+        seed_t.expand(b - a), torch.arange(a, b),
+        tsamp.uniform_rows(cfg.num_codebooks)) for a, b in zip(draws, draws[1:])]
 
 
 def _set_prompt(st, cfg, prompt, sampling):
@@ -99,17 +104,15 @@ def _set_prompt(st, cfg, prompt, sampling):
     return bucket
 
 
-def _run_bodies(tp, cfg, st, prompt, sampling, blocks):
-    """The prefill body, then CHUNKS of decode steps; block c fills the
-    uniforms of chunk c (block 0 row 0 those of the prefill's column).
-    Returns the (C+1, 1 + sum(CHUNKS)) columns."""
+def _run_bodies(tp, cfg, st, prompt, sampling, seed):
+    """The prefill body, then CHUNKS of decode steps, sampling from the
+    uniforms of `seed`. Returns the (C+1, 1 + sum(CHUNKS)) columns."""
     scfg = TSamplingConfig()
     bucket = _set_prompt(st, cfg, prompt, sampling)
-    st.u[:1].copy_(blocks[0][:1])
+    st.seed.fill_(seed)
     tgen.prefill_body(tp, cfg, scfg, st, bucket)
     cols = [st.token.clone()]
-    for n, block in zip(CHUNKS, blocks[1:]):
-        st.u[:n].copy_(block)
+    for n in CHUNKS:
         st.step.zero_()
         for _ in range(n):
             tgen.decode_step(tp, cfg, scfg, st)
@@ -124,9 +127,7 @@ def test_decode_body_greedy_columns_match_jax_decode_chunk(tokenizer, name):
     prompt = _prompt(cfg, 29, seed=7)[0]
     t = prompt.shape[1]
     st = _state(cfg, quant)
-    blocks = [_uniforms(cfg, 1, 0)] + [_uniforms(cfg, n, i + 1)
-                                       for i, n in enumerate(CHUNKS)]
-    got = _run_bodies(tp, cfg, st, prompt, (0.7, 0.9, 1), blocks)
+    got = _run_bodies(tp, cfg, st, prompt, (0.7, 0.9, 1), 0)
 
     scfg = SamplingConfig()
     jc = jdual.init_kv_cache(jcfg, 1, st.cache["k"].shape[2], jnp.float32,
@@ -171,7 +172,6 @@ def test_prefill_body_logits_match_jax_at_two_buckets(tokenizer, name,
         st = _state(cfg, quant)
         prompt = _prompt(cfg, t, seed=t)[0]
         bucket = _set_prompt(st, cfg, prompt, (1.0, 0.9, 1))
-        st.u[:1].copy_(_uniforms(cfg, 1, t))
         tgen.prefill_body(tp, cfg, TSamplingConfig(), st, bucket)
         buckets.append(bucket)
 
@@ -250,20 +250,18 @@ def test_sampled_columns_equal_a_hand_loop_on_injected_uniforms(tokenizer, name)
     _, cfg, _, tp, quant = _models(tokenizer, name)
     prompt = _prompt(cfg, 33, seed=8)[0]
     sampling = (0.7, 0.9, 30)
-    blocks = [_uniforms(cfg, 1, 10)] + [_uniforms(cfg, n, 11 + i)
-                                        for i, n in enumerate(CHUNKS)]
-    got = _run_bodies(tp, cfg, _state(cfg, quant), prompt, sampling, blocks)
-    want = _eager_columns(tp, cfg, quant, prompt, sampling, blocks)
+    got = _run_bodies(tp, cfg, _state(cfg, quant), prompt, sampling, 10)
+    want = _eager_columns(tp, cfg, quant, prompt, sampling, _blocks(cfg, 10))
     np.testing.assert_array_equal(got, want)
     # sampled, not greedy: some column differs from the argmax path
-    greedy = _run_bodies(tp, cfg, _state(cfg, quant), prompt, (0.7, 0.9, 1),
-                         blocks)
+    greedy = _run_bodies(tp, cfg, _state(cfg, quant), prompt, (0.7, 0.9, 1), 10)
     assert not np.array_equal(got, greedy)
 
 
 def test_session_stream_equals_the_hand_loop_on_its_generator(tokenizer):
-    """`generate_stream` fills row 0 of the block for the prefill, then
-    each chunk's rows, from the request's generator, in that order."""
+    """`generate_stream` draws the request's seed from its generator
+    (`request_seed`), then draw 0 for the prefill's column and one draw per
+    step."""
     _, cfg, _, tp, _ = _models(tokenizer, "plain")
     prompt = _prompt(cfg, 33, seed=9)[0]
     session = tgen.GenerationSession(tp, cfg, TSamplingConfig(),
@@ -273,17 +271,34 @@ def test_session_stream_equals_the_hand_loop_on_its_generator(tokenizer):
     budget = 1 + sum(CHUNKS)
     kw = dict(max_new_tokens=budget, temperature=0.7, top_p=0.9, top_k=30)
     got = list(session.generate_stream(prompt, session.new_generator(3), **kw))
-    gen = torch.Generator().manual_seed(3)
-    blocks = [tsamp.fill_uniforms(torch.empty(
-        (n, tsamp.uniform_rows(cfg.num_codebooks), tsamp.TOP_K_CAP)), gen)
-        for n in (1, *CHUNKS)]
-    want = _eager_columns(tp, cfg, False, prompt, (0.7, 0.9, 30), blocks)
+    seed = tgen.request_seed(np.random.default_rng(3))
+    want = _eager_columns(tp, cfg, False, prompt, (0.7, 0.9, 30),
+                          _blocks(cfg, seed))
     end = np.flatnonzero(want[0] == cfg.im_end_id)
     want = want[:, : end[0] + 1] if len(end) else want
     np.testing.assert_array_equal(got[-1], want)
     assert [g.shape[1] for g in got][:2] == [1, 1 + CHUNKS[0]]
     assert session.eager_runs["decode"] >= CHUNKS[0] and not session.replays
     assert session.precompile(33, budget) == {}
+
+
+@pytest.mark.parametrize("name", ["plain", "mixed"])
+def test_seeded_codes_do_not_depend_on_chunk_sizes(tokenizer, name):
+    """ROADMAP §3's fault, repaired: the same seed with other
+    (first_chunk_size, decode_chunk_size) pairs gives the same sampled
+    codes, as JAX's threaded key does."""
+    _, cfg, _, tp, quant = _models(tokenizer, name)
+    prompt = _prompt(cfg, 31, seed=12)[0]
+    kw = dict(max_new_tokens=19, temperature=0.8, top_p=0.9, top_k=30)
+    runs = []
+    for first, chunk in ((2, 4), (3, 5)):
+        session = tgen.GenerationSession(tp, cfg, TSamplingConfig(),
+                                         dtype=torch.float32, kv_quant=quant,
+                                         decode_chunk_size=chunk,
+                                         first_chunk_size=first)
+        runs.append(session.generate(prompt, 21, **kw))
+    np.testing.assert_array_equal(runs[0], runs[1])
+    assert runs[0].shape[1] > 1 + 4  # more than the first chunks
 
 
 class _NoHostSync(TorchDispatchMode):
@@ -318,11 +333,11 @@ def test_step_bodies_make_no_host_sync(tokenizer, name):
     _, cfg, _, tp, quant = _models(tokenizer, name)
     st = _state(cfg, quant)
     bucket = _set_prompt(st, cfg, _prompt(cfg, 21, seed=4)[0], (0.8, 0.9, 30))
-    st.u.copy_(_uniforms(cfg, st.u.shape[0], 4))
+    st.seed.fill_(4)
     with _NoHostSync():
         tgen.prefill_body(tp, cfg, TSamplingConfig(), st, bucket)
         tgen.decode_step(tp, cfg, TSamplingConfig(), st)
-    assert int(st.pos) == 22 and int(st.step) == 1
+    assert int(st.pos) == 22 and int(st.step) == 1 and int(st.draw) == 2
 
 
 def test_slow_step_past_the_rope_table_clamps_as_jax(tokenizer):

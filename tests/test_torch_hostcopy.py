@@ -4,10 +4,15 @@ originals: configs and presets field for field, the tokenizer's ids,
 so either module reads the other's bytes), the data pipeline's batches,
 brace expansion, the WAV writer and reader, resampling and `load_audio`,
 all equal; the reference loader behaves as the original on a temporary
-directory."""
+directory. The server's host modules too: FLAC bytes (native and numpy
+encoders) and decodes, `load_audio` of FLAC, mp3 and opus bytes where the
+system libraries load, the time stretch, the live text segmentation, the
+i18n tables, the static UI files, and `load_dac` of a checkpoint the JAX
+package wrote."""
 
 import dataclasses
 import struct
+from pathlib import Path
 from types import SimpleNamespace
 
 import numpy as np
@@ -226,13 +231,14 @@ def test_resample_is_equal(sr_from, sr_to):
     np.testing.assert_array_equal(got, want)
 
 
-@pytest.mark.parametrize("data", [b"fLaC" + bytes(60), b"ID3" + bytes(61),
+@pytest.mark.parametrize("data", [b"MThd" + bytes(60), b"ID3" + bytes(61),
                                   b"OggS" + bytes(60)])
 def test_load_audio_refuses_what_is_not_wav(tmp_path, data):
-    with pytest.raises(ValueError, match="item 6"):
+    """Neither WAV nor FLAC: the libav fallback is not ported."""
+    with pytest.raises(ValueError, match="item 11"):
         tio.load_audio(data, 44100)
     (tmp_path / "x.bin").write_bytes(data)
-    with pytest.raises(ValueError, match="item 6"):
+    with pytest.raises(ValueError, match="item 11"):
         tio.load_audio(tmp_path / "x.bin", 44100)
 
 
@@ -287,3 +293,164 @@ def test_reference_loader_behaves_as_the_original(tmp_path):
     got = run(tref, tmp_path / "t")
     assert plain(got) == plain(want)
     assert want[3] == 2 and want[6] == 4  # two clips by id, two by hash
+
+
+# -- the server's host modules ---------------------------------------------
+
+
+def _clip(n=30000, channels=1, seed=0):
+    rng = np.random.default_rng(seed)
+    t = np.arange(n) / 24000.0
+    x = 0.3 * np.sin(2 * np.pi * 220 * t)[:, None] + 0.05 * rng.normal(size=(n, channels))
+    return (x[:, 0] if channels == 1 else x).astype(np.float32)
+
+
+@pytest.mark.parametrize("channels", [1, 2])
+@pytest.mark.parametrize("python", [False, True])
+def test_flac_bytes_and_decodes_are_equal(channels, python):
+    from fish_speech_tpu.audio import transcode as jtc
+    from fish_speech_tpu_torch.audio import transcode as ttc
+
+    x = _clip(channels=channels, seed=channels)
+    got = ttc.encode_flac(x, 24000, _force_python=python)
+    assert got == jtc.encode_flac(x, 24000, _force_python=python)
+    dec_t, dec_j = ttc.decode_flac(got), jtc.decode_flac(got)
+    np.testing.assert_array_equal(dec_t[0], dec_j[0])
+    assert dec_t[1] == dec_j[1] == 24000
+    np.testing.assert_array_equal(ttc.decode_flac_float(got)[0],
+                                  jtc.decode_flac_float(got)[0])
+    np.testing.assert_array_equal(tio.load_audio(got, 44100),
+                                  jio.load_audio(got, 44100))
+    if not python:  # the port's native encoder is built beside the checkout
+        lib = ttc._flac_lib()
+        assert lib is not None and "build/native" in lib._name
+
+
+def test_native_build_dir_leaves_an_installed_package_alone(tmp_path, monkeypatch):
+    """From the source tree the native libraries go to the checkout's
+    `build/native/`; from an installed package (no checkout above it) to
+    the user's cache, never into the interpreter's library tree."""
+    from fish_speech_tpu_torch import native
+
+    root = Path(__file__).resolve().parents[1]
+    assert native.build_dir() == root / "build" / "native"
+    site = tmp_path / "lib" / "python3.12" / "site-packages"
+    monkeypatch.setattr(native, "__file__",
+                        str(site / "fish_speech_tpu_torch" / "native" / "__init__.py"))
+    monkeypatch.setenv("XDG_CACHE_HOME", str(tmp_path / "cache"))
+    assert native.build_dir() == tmp_path / "cache" / "fish_speech_tpu_torch" / "native"
+    monkeypatch.delenv("XDG_CACHE_HOME")
+    monkeypatch.setenv("HOME", str(tmp_path / "home"))
+    assert native.build_dir() == (tmp_path / "home" / ".cache"
+                                  / "fish_speech_tpu_torch" / "native")
+
+
+def test_transcode_formats_and_codecs_are_equal():
+    from fish_speech_tpu.audio import libcodec as jlc
+    from fish_speech_tpu.audio import transcode as jtc
+    from fish_speech_tpu_torch.audio import libcodec as tlc
+    from fish_speech_tpu_torch.audio import transcode as ttc
+
+    assert ttc.available_formats() == jtc.available_formats()
+    assert issubclass(tlc.TranscodeUnavailable, Exception)
+    x = _clip(n=24000)
+    for fmt, dec in (("mp3", "decode_mp3"), ("opus", "decode_opus")):
+        try:
+            want = jtc.encode_audio(x, 24000, fmt)
+        except jtc.TranscodeUnavailable:
+            with pytest.raises(ttc.TranscodeUnavailable):
+                ttc.encode_audio(x, 24000, fmt)
+            continue
+        got = ttc.encode_audio(x, 24000, fmt)
+        assert len(got) == len(want) and got[:4] == want[:4]
+        try:
+            a, sr = getattr(tlc, dec)(got)
+        except tlc.TranscodeUnavailable:
+            continue
+        b, sr_j = getattr(jlc, dec)(got)
+        np.testing.assert_array_equal(a, b)
+        assert sr == sr_j
+
+
+@pytest.mark.parametrize("speed", [0.5, 1.0, 1.7, 4.0])
+def test_time_stretch_is_equal(speed):
+    from fish_speech_tpu.audio import stretch as jst
+    from fish_speech_tpu_torch.audio import stretch as tst
+
+    x = _clip(n=12000, seed=3)
+    np.testing.assert_array_equal(tst.time_stretch(x, speed),
+                                  jst.time_stretch(x, speed))
+    assert (tst.MIN_SPEED, tst.MAX_SPEED) == (jst.MIN_SPEED, jst.MAX_SPEED)
+
+
+@pytest.mark.parametrize("text,force,budget", [
+    ("hello wor", False, 200), ("One. Two! Thr", False, 200),
+    ("no punctuation here", True, 200), ("あ" * 40, False, 100),
+    ("你好。接下来", False, 200), ("هل أنت هنا؟ نعم", False, 200)])
+def test_text_segmentation_is_equal(text, force, budget):
+    from fish_speech_tpu.utils import textseg as jseg
+    from fish_speech_tpu_torch.utils import textseg as tseg
+
+    assert (tseg.split_ready(text, force=force, max_buffer=budget)
+            == jseg.split_ready(text, force=force, max_buffer=budget))
+    assert tseg.TERMINATORS == jseg.TERMINATORS
+
+
+def test_i18n_tables_and_static_files_are_equal():
+    from pathlib import Path
+
+    import fish_speech_tpu.i18n.core as jcore
+    import fish_speech_tpu_torch.i18n.core as tcore
+    from fish_speech_tpu.i18n import scan as jscan
+    from fish_speech_tpu_torch.i18n import scan as tscan
+
+    langs = sorted(p.stem for p in jcore.I18N_FILE_PATH.glob("*.json"))
+    assert langs == sorted(p.stem for p in tcore.I18N_FILE_PATH.glob("*.json"))
+    for lang in langs:
+        assert tcore.load_language_list(lang) == jcore.load_language_list(lang)
+        assert tcore.I18nAuto(lang)("Synthesize") == jcore.I18nAuto(lang)("Synthesize")
+    src = 'i18n("Text") + i18n("Seed")'
+    assert tscan.extract_i18n_keys(src) == jscan.extract_i18n_keys(src)
+    jdir = Path(jcore.__file__).parents[1] / "server" / "static"
+    tdir = Path(tcore.__file__).parents[1] / "server" / "static"
+    names = sorted(p.name for p in jdir.iterdir())
+    assert names == sorted(p.name for p in tdir.iterdir())
+    for name in names:
+        assert (tdir / name).read_bytes() == (jdir / name).read_bytes()
+
+
+def test_load_dac_reads_what_the_jax_package_wrote(tmp_path):
+    import jax
+    import torch
+
+    from fish_speech_tpu.models.dac import init_dac
+    from fish_speech_tpu.utils import checkpoint as jckpt
+    from fish_speech_tpu_torch.utils import checkpoint as tckpt
+
+    cfg = jconfig.dac_tiny()
+    params = init_dac(jax.random.PRNGKey(0), cfg)
+    jckpt.save_dac(tmp_path, params, cfg)
+    got, got_cfg = tckpt.load_dac(tmp_path, device="cpu")
+    want, want_cfg = jckpt.load_dac(tmp_path)
+    assert dataclasses.asdict(got_cfg) == dataclasses.asdict(want_cfg)
+    assert type(got_cfg).__module__ == "fish_speech_tpu_torch.config"
+    flat_t, flat_j = {}, {}
+    jckpt_flat = jckpt.flatten_pytree(jax.tree_util.tree_map(np.asarray, want))
+    for k, v in jckpt_flat.items():
+        flat_j[k] = np.asarray(v, np.float32)
+
+    def walk(node, prefix=""):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                walk(v, f"{prefix}{k}/")
+        elif isinstance(node, list):
+            for i, v in enumerate(node):
+                walk(v, f"{prefix}{i}/")
+        else:
+            flat_t[prefix[:-1]] = node.float().numpy()
+
+    walk(got)
+    assert sorted(flat_t) == sorted(flat_j)
+    for k in flat_j:
+        np.testing.assert_array_equal(flat_t[k], flat_j[k], err_msg=k)
+    assert all(t.dtype == torch.float32 for t in [got["decoder"]["conv_in"]["w"]])

@@ -216,6 +216,17 @@ PORT_MODULES = [
     "fish_speech_tpu_torch.data.dataset",
     "fish_speech_tpu_torch.data.protos",
     "fish_speech_tpu_torch.utils.file",
+    "fish_speech_tpu_torch.utils.textseg",
+    "fish_speech_tpu_torch.audio.transcode",
+    "fish_speech_tpu_torch.audio.libcodec",
+    "fish_speech_tpu_torch.audio.stretch",
+    "fish_speech_tpu_torch.i18n",
+    "fish_speech_tpu_torch.native",
+    "fish_speech_tpu_torch.server",
+    "fish_speech_tpu_torch.server.schema",
+    "fish_speech_tpu_torch.server.openapi",
+    "fish_speech_tpu_torch.server.app",
+    "fish_speech_tpu_torch.server.main",
 ]
 
 # Run on the CPU with the JAX package and jax unimportable: every port
@@ -223,7 +234,8 @@ PORT_MODULES = [
 # inside) and a voice-clone one (a WAV reference by id: load_audio, the
 # codec's encode), a mixed-quantized int8-KV session (its int8 products
 # through `ops/int8.py`'s route), a streamed request
-# through the continuous batcher's pool, and the fast-stack probe.
+# through the continuous batcher's pool, the fast-stack probe, and one
+# /v1/tts answered by the port's HTTP app (its UI and spec too).
 # (`jax` is blocked by an import hook, not by `sys.modules['jax'] = None`:
 # scipy's array-API helpers take a `jax` entry in `sys.modules` for the
 # imported package.)
@@ -311,6 +323,27 @@ dims = faststack.ProbeDims(64, 128, 64, 2, 2)
 out = faststack.make_probe(1, 'w8a8', dims)(
     torch.ones(1, 64), faststack.make_weights(dims, 'cpu'))
 assert bool(torch.isfinite(out).all())
+
+import asyncio
+from aiohttp.test_utils import TestClient, TestServer
+from fish_speech_tpu_torch.server.app import create_app
+
+async def serve():
+    client = TestClient(TestServer(create_app(engine)))
+    await client.start_server()
+    try:
+        r = await client.post('/v1/tts', json={'text': 'Hi.', 'max_new_tokens': 6,
+                                              'format': 'flac'})
+        body = await r.read()
+        ui = await client.get('/ui')
+        spec = await client.get('/v1/openapi.json')
+        return r.status, body, ui.status, spec.status
+    finally:
+        await client.close()
+
+status, body, ui, spec = asyncio.run(serve())
+assert status == 200 and body[:4] == b'fLaC', (status, body[:200])
+assert ui == 200 and spec == 200
 
 bad = sorted(m for m in sys.modules
              if m == 'fish_speech_tpu' or m.startswith('fish_speech_tpu.'))
