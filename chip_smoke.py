@@ -77,7 +77,11 @@ Phases, each of which ends the run with a nonzero exit if it fails:
    1e-5 of max |y|; each prints `device_ms`, cuBLAS on the dequantized bf16
    w13 and w2 with torch's gate (`library_device_ms`) and the route it
    replaces (`replaced_device_ms`: two `int8_matmul` launches and torch's
-   gate), from graphs walking weight copies over twice the L2;
+   gate), from graphs walking weight copies over twice the L2; the bf16
+   decode and int8-KV decode kernels with per-row starts (the lockstep
+   batch's left pad) at the slow cache's full width, L=36 B=4 S=2112
+   Hkv=8 G=4, starts (700, 129, 5, 0), lengths (2048, 1100, 701, 1), with
+   SDPA under the [start, len) mask as the library call;
 3. a small-input reference: a tiny fp32 model runs the same greedy request
    through the kernels on the card (its session's graphs captured at first
    use) and through the plain versions on the CPU (the same step bodies
@@ -111,10 +115,28 @@ Phases, each of which ends the run with a nonzero exit if it fails:
    recorded), every decode step must have been a replay of the step graph
    and every codec call a replay of a codec graph (no eager body run on
    the card), and a repeated request with the same seed must give
-   identical codes. The first request's TTFA is printed beside the
+   identical codes. The requests stream from device partials (the
+   engine's default for a single-stream session, JAX's): the codec graph
+   runs on a partial's device columns before the host reads them. Then
+   the short request is served from device and host partials in turns
+   (device, host, host, device, one seed): equal codes, each TTFA and
+   decode frames/s printed. The first request's TTFA is printed beside the
    others'; then the codec's device ms per replay for each (rows, bucket)
    reached, and the launches of one replayed step by kernel and its
    device time (CUDA events over 64 replays);
+4c. the lockstep batch: full-width s2-pro (seed 0) in a
+   `GenerationSession(max_batch=4)` serves `generate_batch` over phase 4's
+   three prompts and one more (left-padded to a common end, bucket 1024),
+   72 new tokens, bf16, then quantized `mixed` with the int8 KV cache: the
+   graphs `prefill_4_1024` and `decode_4` captured by `precompile`, no
+   body run eagerly after it, the decode kernels (with starts) and the
+   prefill's tensor-core route launched (under `mixed` the int8 matvec
+   and fused FFN too), a repeat of the seed giving the same codes, every
+   row's columns in range, and each row's first logits within 0.05 x max
+   |logit| of its prompt's single-stream prefill, from position 0 and at
+   the row's own padded positions, with the latter's argmax;
+   aggregate frames/s, the replayed step's device ms and its launches are
+   printed;
 4b. voice cloning on the same model, session and engine: a ~30 s
    reference clip written from a seed under `build/` (16-bit mono PCM at
    24 kHz, so `load_audio` resamples it) with its transcript, in a
@@ -238,7 +260,11 @@ Phases, each of which ends the run with a nonzero exit if it fails:
    dropped stream must count `cancelled` once, its row must be freed and
    the next request served, and no pool body may run eagerly after
    `warm_up`. Then `python -m fish_speech_tpu_torch.server.main --tiny
-   --no-warmup` in a process of its own on the card answers one /v1/tts.
+   --no-warmup` in a process of its own on the card answers one /v1/tts;
+10. the generation tools as a user runs them, each a process of its own on
+   the card: `python -m fish_speech_tpu_torch.tools.tts --tiny` (codes and
+   a WAV of whole frames) and the codec CLI's round trip with `--tiny` (7
+   frames of audio to codes and back).
 
 Phase 2 also holds the kernels at the pool's shapes: `decode_mma_kernel`
 and `decode_kv8_mma_kernel` at B=32, S=2176 (8 layers) with ragged
@@ -543,6 +569,8 @@ def kernel_cases(dev):
     cases.update(suffix_kernel_cases(dev, randn))
     cases.update(train_kernel_cases(dev, randn))
     cases.update(quant_kernel_cases(dev, randn))
+    for name, row in starts_decode_cases(dev, randn).items():
+        cases[name].append(row)
     cases.update(int8_kernel_cases(dev, randn))
     cases.update(int8_ffn_kernel_cases(dev, randn))
     torch.cuda.synchronize()
@@ -797,6 +825,88 @@ def pool_decode_kv8_case(dev, randn):
                device_ms=_device_ms(kernel, 40), library_device_ms=_device_ms(sdpa, 40))
     del kq, ks, vq, vs, kd, vd
     return row
+
+
+# the lockstep batch's decode (phase 4c) at the slow cache's full width: 36
+# layers of the serving session's S = 2048 + 64, Hkv=8 G=4 D=128, B=4 rows
+# left-padded to a common end, each attending [start, len) (the kernels'
+# `starts`: one start past two whole slices and inside a tile)
+STARTS_LENS, STARTS = (2048, 1100, 701, 1), (700, 129, 5, 0)
+
+
+def starts_decode_cases(dev, randn):
+    """`decode_mma_kernel` and `decode_kv8_mma_kernel` with per-row starts
+    against their plain versions, with device times (graph replays) and
+    SDPA's under the [start, len) mask (over K/V dequantized beforehand for
+    the int8 cache)."""
+    import torch
+    import torch.nn.functional as F
+
+    from fish_speech_tpu_torch.models.dual_ar import _kv_dequant, _kv_quant
+    from fish_speech_tpu_torch.ops.flash_decode import (
+        flash_decode_attention, flash_decode_attention_kv8,
+        flash_decode_kv8_reference, flash_decode_reference)
+
+    n_layer, b, s, hkv, g = 36, len(STARTS_LENS), 2112, 8, 4
+    lens = torch.tensor(STARTS_LENS, dtype=torch.int32, device=dev)
+    starts = torch.tensor(STARTS, dtype=torch.int32, device=dev)
+    lmax = max(STARTS_LENS)
+    visible = sum(e - a for a, e in zip(STARTS, STARTS_LENS))
+    j = torch.arange(lmax, device=dev)
+    mask = ((j[None, :] >= starts[:, None]) & (j[None, :] < lens[:, None]))[:, None, None]
+    q = randn(b, hkv, g, 128)
+    qs = q.reshape(b, hkv * g, 1, 128)
+    rows = {}
+    for name in ("flash_decode", "flash_decode_kv8"):
+        kv8 = name == "flash_decode_kv8"
+        if kv8:
+            kc, ks = _kv_quant(randn(n_layer, b, s, hkv, 128))
+            vc, vs = _kv_quant(randn(n_layer, b, s, hkv, 128))
+            kd = _kv_dequant(kc[:, :, :lmax], ks[:, :, :lmax], torch.bfloat16)
+            vd = _kv_dequant(vc[:, :, :lmax], vs[:, :, :lmax], torch.bfloat16)
+
+            def kernel(i=0):
+                return flash_decode_attention_kv8(q, kc, ks, vc, vs, i % n_layer,
+                                                  lens, starts)
+
+            def plain(i=0):
+                return flash_decode_kv8_reference(q, kc, ks, vc, vs, i % n_layer,
+                                                  lens, starts)
+
+            nbytes = (visible * hkv * 128 * 2 + 2 * 2 * visible * hkv
+                      + 2 * 2 * b * hkv * g * 128)
+        else:
+            kc, vc = randn(n_layer, b, s, hkv, 128), randn(n_layer, b, s, hkv, 128)
+            kd, vd = kc[:, :, :lmax], vc[:, :, :lmax]
+
+            def kernel(i=0):
+                return flash_decode_attention(q, kc, vc, i % n_layer, lens, starts)
+
+            def plain(i=0):
+                return flash_decode_reference(q, kc, vc, i % n_layer, lens, starts)
+
+            nbytes = 2 * (2 * visible * hkv * 128 + 2 * b * hkv * g * 128)
+
+        def sdpa(i=0):
+            return F.scaled_dot_product_attention(
+                qs, kd[i % n_layer].transpose(1, 2), vd[i % n_layer].transpose(1, 2),
+                attn_mask=mask, enable_gqa=True)
+
+        mx = mean = 0.0
+        for layer in (0, n_layer - 1):
+            e = _errors(kernel(layer), plain(layer))
+            mx, mean = max(mx, e[0]), max(mean, e[1])
+        ms, plain_ms = _in_turns(plain, kernel, 100)
+        bound = _bound(4 * hkv * g * 128 * visible, nbytes)
+        rows[name] = dict(
+            shape=f"L={n_layer} B={b} S={s} Hkv={hkv} G={g} D=128 starts={list(STARTS)} "
+                  f"len={list(STARTS_LENS)} ({visible} visible){' int8 K/V' if kv8 else ''}"
+                  f" (SDPA [start, len) mask)",
+            max_abs_err=mx, mean_abs_err=mean, ms=ms, plain_ms=plain_ms,
+            bound_ms=bound[0], bound_by=bound[1], library_ms=_library_ms(sdpa, 100),
+            device_ms=_device_ms(kernel, 100), library_device_ms=_device_ms(sdpa, 100))
+        del kc, vc, kd, vd
+    return rows
 
 
 def _within_bf16_step(got, want):
@@ -1554,8 +1664,9 @@ def small_train_reference(dev, tokenizer):
 def _recording_engine(session, tokenizer, codec, dac_cfg, references_dir="references"):
     """A `TTSInferenceEngine` that keeps the codes of the last decoded
     segment, for the repeat check, and the host seconds of each codec
-    decode and reference encode (`load_audio` and the codec's encode);
-    both end in a host copy, so each is the call's whole time."""
+    decode (of a host or a device partial) and reference encode
+    (`load_audio` and the codec's encode); each ends in a host copy, so
+    each is the call's whole time."""
     from fish_speech_tpu_torch.engine.tts import TTSInferenceEngine
 
     class RecordingEngine(TTSInferenceEngine):
@@ -1569,6 +1680,12 @@ def _recording_engine(session, tokenizer, codec, dac_cfg, references_dir="refere
             self.last_codes = np.array(codes)
             t0 = time.perf_counter()
             out = super().decode_vq_tokens(codes)
+            self.decode_seconds.append(time.perf_counter() - t0)
+            return out
+
+        def _decode_vq_device(self, codes_dev, valid_frames):
+            t0 = time.perf_counter()
+            out = super()._decode_vq_device(codes_dev, valid_frames)
             self.decode_seconds.append(time.perf_counter() - t0)
             return out
 
@@ -1780,18 +1897,19 @@ def print_codec_ms(engine, label, reps=10):
     return out
 
 
-def replayed_step_ms(session, n=64):
-    """Device ms of one decode step: n replays of the step graph (one
-    chunk: its uniforms, the replays, the copy of its columns) between CUDA
-    events, after one such chunk untimed."""
+def replayed_step_ms(session, n=64, rows=1):
+    """Device ms of one decode step of the `rows`-row buffers (a lockstep
+    batch's for rows > 1): n replays of the step graph (one chunk: its
+    uniforms, the replays, the copy of its columns) between CUDA events,
+    after one such chunk untimed."""
     import torch
 
-    session.decode_chunk(n)
+    session.decode_chunk(n, rows=rows)
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
-    session.decode_chunk(n)
+    session.decode_chunk(n, rows=rows)
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / n
@@ -1822,6 +1940,36 @@ EAGER_FIGURES = {"bf16": "decode 4.31-6.38 frames/s, TTFA 173-253 ms",
 # phase 4's requests decode at these code buckets: the first partial (the
 # prefill's frame, then 9 frames after the first chunk of 8) and 72 frames
 PHASE4_CODE_BUCKETS = (32, 128)
+
+
+def partials_in_turns(dev, tokenizer, engine, frame):
+    """Phase 4's short request served from device partials (the engine's
+    default, JAX's) and from host partials, in turns (device, host, host,
+    device) with one seed: the codes must be equal; prints each one's TTFA
+    and decode frames/s."""
+    from fish_speech_tpu_torch.engine.tts import TTSRequest
+
+    text = _requests()[0][1].text
+    rows, codes = {"device": [], "host": []}, []
+    for mode in ("device", "host", "host", "device"):
+        engine.device_partials = mode == "device"
+        req = TTSRequest(text=text, streaming=True, max_new_tokens=72, seed=11)
+        rows[mode].append(serve(dev, tokenizer, engine, [(f"short {mode} partials",
+                                                         req)], frame, "bf16")[0])
+        codes.append(engine.last_codes)
+    engine.device_partials = True
+    same = all(np.array_equal(codes[0], c) for c in codes[1:])
+    print("bf16 device vs host partials, in turns (device, host, host, device; "
+          f"{_nvidia_smi()}): TTFA device "
+          + " / ".join(f"{r['ttfa_s'] * 1e3:.2f}" for r in rows["device"])
+          + " ms, host " + " / ".join(f"{r['ttfa_s'] * 1e3:.2f}" for r in rows["host"])
+          + " ms; decode frames/s device "
+          + " / ".join(f"{r['decode_frames_per_s']:.2f}" for r in rows["device"])
+          + ", host " + " / ".join(f"{r['decode_frames_per_s']:.2f}" for r in rows["host"])
+          + f"; codes identical={same}")
+    if not same:
+        raise SystemExit("device and host partials gave different codes")
+    return rows
 
 
 def run_slice(dev, tokenizer):
@@ -1874,6 +2022,8 @@ def run_slice(dev, tokenizer):
         raise SystemExit("a kernel of the path was never launched")
     check_replayed(session, "bf16")
     check_codec_replayed(engine, ("decode",), "bf16")
+    partials_in_turns(dev, tokenizer, engine, dac_cfg.frame_length)
+    check_codec_replayed(engine, ("decode",), "bf16 partials")
     print(f"peak device memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB "
           f"(allocated; the graph pools' reserved memory aside)")
     print_codec_ms(engine, "bf16")
@@ -1883,6 +2033,220 @@ def run_slice(dev, tokenizer):
           f"{EAGER_FIGURES['bf16']})")
     clone = run_clone(dev, tokenizer, session, engine, refs_dir)
     return results, launches, clone, step_ms
+
+
+# phase 4c: phase 4's three texts and one more, as one lockstep batch
+BATCH_EXTRA = "A fourth voice joins the batch, with a prompt of its own length."
+BATCH_SEED = 17
+
+
+def _batch_prompts(tokenizer, cfg):
+    """The (C+1, T) prompts of phase 4's three texts and BATCH_EXTRA, built
+    as `generate_long` builds a request's only text batch."""
+    from fish_speech_tpu_torch.generate import build_base_conversation, encode_turn
+
+    texts = [req.text for name, req in _requests() if name != "short-repeat"]
+    return [encode_turn(build_base_conversation(None, None), text, tokenizer,
+                        cfg.num_codebooks) for text in texts + [BATCH_EXTRA]]
+
+
+def check_batch_logits(session, prompts, label):
+    """Each row's first logits of the batch's prefill (the prompts
+    left-padded to a common end, per-row offsets; the body the
+    `prefill_4_{bucket}` graph runs, eager on the card) against a
+    single-stream prefill of the same prompt: within 0.05 x max |logit|
+    and with the same argmax against the one-row prefill of the row's own
+    padded columns (the same positions: the row's own arithmetic at one
+    row); within 0.05 x max |logit| of the prompt prefilled alone from
+    position 0, whose argmax is printed with its top-two margin (its RoPE
+    angles sit at other positions, so near ties may move)."""
+    import torch
+
+    from fish_speech_tpu_torch.models import dual_ar
+
+    cfg, dev = session.cfg, session.device
+    t_max = max(p.shape[1] for p in prompts)
+    bucket = session._bucket(t_max)
+    inp = np.zeros((len(prompts), cfg.num_codebooks + 1, bucket), np.int32)
+    offsets = np.asarray([t_max - p.shape[1] for p in prompts], np.int32)
+    for i, p in enumerate(prompts):
+        inp[i, :, offsets[i]:t_max] = p
+
+    def prefill(cols, offs, t_end):
+        cache = dual_ar.init_kv_cache(cfg, cols.shape[0], cols.shape[2],
+                                      torch.bfloat16, dev, quant=session.kv_quant)
+        logits, _, _ = dual_ar.prefill(
+            session.params, cfg, torch.from_numpy(cols).to(dev), cache,
+            torch.as_tensor(offs, dtype=torch.int32, device=dev), t_end)
+        return logits
+
+    def rel(a, b):
+        return ((a - b).abs().max() / b.abs().max()).item()
+
+    worst_own, worst_alone, argmax_own, notes = 0.0, 0.0, True, []
+    with torch.no_grad():
+        batch = prefill(inp, offsets, t_max)
+        for i, p in enumerate(prompts):
+            own = prefill(inp[i : i + 1], offsets[i : i + 1], t_max)[0]
+            t = p.shape[1]
+            one = np.zeros((1, cfg.num_codebooks + 1, session._bucket(t)), np.int32)
+            one[0, :, :t] = p
+            alone = prefill(one, [0], t)[0]
+            worst_own = max(worst_own, rel(batch[i], own))
+            worst_alone = max(worst_alone, rel(batch[i], alone))
+            argmax_own &= int(batch[i].argmax()) == int(own.argmax())
+            top2 = alone.topk(2).values
+            notes.append(f"row {i}: argmax {'equal' if int(batch[i].argmax()) == int(alone.argmax()) else 'moved'}"
+                         f" (margin {(top2[0] - top2[1]).item():.4f}, max |diff| "
+                         f"{(batch[i] - alone).abs().max().item():.4f})")
+    print(f"{label} batch prefill (offsets {offsets.tolist()}, bucket {bucket}): "
+          f"first logits, worst max |diff| / max |logit|: {worst_own:.4f} against "
+          f"each row's padded columns prefilled alone (argmax equal={argmax_own}), "
+          f"{worst_alone:.4f} against each prompt prefilled alone from 0 (bound "
+          f"0.05; {'; '.join(notes)})")
+    if max(worst_own, worst_alone) > 0.05 or not argmax_own:
+        raise SystemExit(f"{label}: a batch row's first logits left its "
+                         f"single-stream prefill's")
+
+
+def run_batch(dev, tokenizer):
+    """Phase 4c: full-width s2-pro (seed 0, max_seq_len 2048) serves
+    `generate_batch` at B=4 (phase 4's three prompts and one more,
+    left-padded to a common end at bucket 1024), bf16, then quantized
+    `mixed` with the int8 KV cache: every step a replay of the graphs
+    `precompile` captured, the decode kernels launched with starts,
+    aggregate frames/s, the replayed lockstep step's device ms and
+    launches, a repeat of the seed giving the same codes, and each row's
+    first logits held to its prompt's single-stream prefill."""
+    import torch
+
+    from fish_speech_tpu_torch.config import SamplingConfig
+    from fish_speech_tpu_torch.generate import GenerationSession
+    from fish_speech_tpu_torch.models import dual_ar
+    from fish_speech_tpu_torch.ops.flash_decode import (
+        flash_decode_attention, flash_decode_attention_kv8)
+    from fish_speech_tpu_torch.ops.flash_prefill import flash_prefill_attention
+    from fish_speech_tpu_torch.ops.int8 import int8_matmul
+    from fish_speech_tpu_torch.ops.int8_ffn import int8_ffn
+    from fish_speech_tpu_torch.ops.quant import quantize_dual_ar_lowmem
+
+    t_phase = time.perf_counter()
+    cfg = _s2_pro_cfg(tokenizer, 2048)
+    prompts = _batch_prompts(tokenizer, cfg)
+    lens = [p.shape[1] for p in prompts]
+    params = dual_ar.init_dual_ar(0, cfg, torch.bfloat16, dev)
+    out = {}
+    for label in ("bf16", "mixed"):
+        if label == "mixed":
+            params = quantize_dual_ar_lowmem(params, mode="int8", fast_mode="int4")
+        session = GenerationSession(params, cfg, SamplingConfig(), max_batch=4,
+                                    dtype=torch.bfloat16, decode_chunk_size=64,
+                                    first_chunk_size=8, kv_quant=label == "mixed")
+        label = f"batch {label}" + (" + int8 KV" if label == "mixed" else "")
+        times = session.precompile(max(lens), 72, first_chunk=8, batch=4)
+        captured = dict(session.eager_runs)
+        print(f"{label}: prompts of {lens} tokens, graphs captured (s, each with "
+              f"its eager run) " + ", ".join(f"{k} {v:.3f}" for k, v in times.items())
+              + f"; graph pool {session.pool_bytes / 2**20:.1f} MiB")
+        kw = dict(max_new_tokens=72, temperature=0.8, top_p=0.8, top_k=30,
+                  first_chunk_size=8)
+        _zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs = session.generate_batch(prompts, BATCH_SEED, **kw)
+        wall = time.perf_counter() - t0
+        counts = {"flash_prefill": flash_prefill_attention.launches_wgmma,
+                  "flash_decode": flash_decode_attention.launches,
+                  "flash_decode_kv8": flash_decode_attention_kv8.launches,
+                  "int8_mm": int8_matmul.launches_gemv_mma,
+                  "int8_ffn": int8_ffn.launches_mma}
+        again = session.generate_batch(prompts, BATCH_SEED, **kw)
+        same = all(np.array_equal(a, b) for a, b in zip(outs, again))
+        frames = sum(o.shape[1] for o in outs)
+        if dict(session.eager_runs) != captured:
+            raise SystemExit(f"{label}: a body ran eagerly after precompile: "
+                             f"{dict(session.eager_runs)}")
+        if not same:
+            raise SystemExit(f"{label}: the repeated seed gave other codes")
+        sb, se = cfg.semantic_begin_id, cfg.semantic_end_id
+        for o in outs:
+            ok = ((o[0] >= sb) & (o[0] <= se)) | (o[0] == cfg.im_end_id)
+            if o.shape[0] != cfg.num_codebooks + 1 or not ok.all() or (
+                    o[1:] < 0).any() or (o[1:] >= cfg.codebook_size).any():
+                raise SystemExit(f"{label}: a row's columns are out of range")
+        decode = counts["flash_decode_kv8" if "int8" in label else "flash_decode"]
+        need = [decode, counts["flash_prefill"]] + (
+            [counts["int8_mm"], counts["int8_ffn"]] if "int8" in label else [])
+        if min(need) <= 0:
+            raise SystemExit(f"{label}: a kernel of the path never launched: {counts}")
+        per_step = session.launches_per_replay("decode_4")
+        step_ms = replayed_step_ms(session, rows=4)
+        print(f"{label}: {frames} frames in rows of {[o.shape[1] for o in outs]} "
+              f"in {wall:.2f}s: aggregate {frames / wall:.1f} frames/s "
+              f"(prefill + {session.replays['decode_4']} replayed steps in both "
+              f"runs); replayed lockstep step {step_ms:.3f} ms of device time "
+              f"({4e3 / step_ms:.1f} frames/s of steps; {_nvidia_smi()}); "
+              f"launches per replayed step {per_step}; launches in the timed run "
+              f"{counts}; repeat identical={same}; graph replays "
+              f"{dict(session.replays)}")
+        check_batch_logits(session, prompts, label)
+        out[label] = dict(launches=counts, step_ms=step_ms,
+                          frames_per_s=frames / wall, per_step=per_step)
+        del session
+        gc.collect()
+        torch.cuda.empty_cache()
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase 4c (the lockstep batch) took {time.perf_counter() - t_phase:.1f}s")
+    return out
+
+
+def run_tools(tokenizer):
+    """Phase 10: the generation tools as a user runs them, each in a process
+    of its own on the card: `tools.tts --tiny` (codes and a WAV) and the
+    codec CLI's round trip with `--tiny` (a WAV to codes and back)."""
+    import os
+
+    from fish_speech_tpu_torch.audio.io import read_wav, write_wav
+    from fish_speech_tpu_torch.config import dac_tiny
+
+    root = Path(__file__).resolve().parent
+    out = root / "build" / "chip_smoke_tools"
+    out.mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(root))
+    cfg = dac_tiny()
+
+    def tool(name, *args):
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", f"fish_speech_tpu_torch.tools.{name}",
+                               *map(str, args)], cwd=str(root), env=env,
+                              capture_output=True, text=True, timeout=600)
+        if proc.returncode != 0:
+            raise SystemExit(f"tools.{name} {args} failed: {proc.stderr[-3000:]}")
+        return time.perf_counter() - t0
+
+    wav = out / "tts.wav"
+    t_tts = tool("tts", "--tiny", "--text", "<|speaker:0|>The tools on the card.",
+                 "--max-new-tokens", 24, "--output", wav, "--output-dir", out)
+    codes = np.load(out / "codes_0.npy")
+    audio, sr = read_wav(wav)
+    if (codes.shape[0] != cfg.rvq.total_codebooks or sr != cfg.sample_rate
+            or audio.shape[1] != codes.shape[1] * cfg.frame_length):
+        raise SystemExit(f"tools.tts: codes {codes.shape}, audio {audio.shape} at {sr}")
+    rng = np.random.default_rng(31)
+    write_wav(out / "in.wav", 0.1 * rng.standard_normal(7 * cfg.frame_length),
+              cfg.sample_rate)
+    t_enc = tool("codec", "-i", out / "in.wav", "-o", out / "codes.npy", "--tiny")
+    t_dec = tool("codec", "-i", out / "codes.npy", "-o", out / "recon.wav", "--tiny")
+    enc = np.load(out / "codes.npy")
+    recon, _ = read_wav(out / "recon.wav")
+    if enc.shape != (cfg.rvq.total_codebooks, 7) or recon.shape != (1, 7 * cfg.frame_length):
+        raise SystemExit(f"tools.codec round trip: codes {enc.shape}, audio {recon.shape}")
+    print(f"tools on the card: tools.tts --tiny wrote codes {codes.shape} and "
+          f"{audio.shape[1]} samples in {t_tts:.1f}s; tools.codec --tiny encoded 7 "
+          f"frames to {enc.shape} in {t_enc:.1f}s and decoded them to "
+          f"{recon.shape[1]} samples in {t_dec:.1f}s (each a process of its own)")
 
 
 CLONE_TEXT = ("A reference speaker reads a few calm sentences, so that the model "
@@ -3565,8 +3929,9 @@ def main():
         raise SystemExit("an fp32 route was never launched")
     _, launches, clone, p1_step_ms = run_slice(dev, tokenizer)
     launches["flash_suffix"] = clone["launches"]["flash_suffix"]
-    gc.collect()  # the serving slice's model and caches go before training
+    gc.collect()  # the serving slice's model and caches go before the batch
     torch.cuda.empty_cache()
+    batch = run_batch(dev, tokenizer)
     train_launches = run_train_slice(
         dev, tokenizer, _s2_pro_cfg(tokenizer, 1024),
         Path(__file__).resolve().parent / "build" / "chip_smoke_train")
@@ -3588,10 +3953,17 @@ def main():
     gc.collect()  # the probe's weights go before the pool
     torch.cuda.empty_cache()
     pool = run_pool(dev, tokenizer, p1_step_ms)
+    gc.collect()  # the pools go before the tools' processes
+    torch.cuda.empty_cache()
+    run_tools(tokenizer)
     for row in pool.values():
         for name in ("flash_decode", "flash_decode_kv8", "flash_prefill", "int8_mm",
                      "int8_mm_cluster", "int8_ffn", "flash_suffix_kv8"):
             launches[name] += row["launches"].get(name, 0)
+    for row in batch.values():
+        for name in ("flash_decode", "flash_decode_kv8", "flash_prefill", "int8_mm",
+                     "int8_ffn"):
+            launches[name] += row["launches"][name]
     if min(launches[n] for n in ("flash_suffix", "flash_suffix_kv8")) <= 0:
         raise SystemExit(f"a suffix route was never launched: {launches}")
     per_step = {}  # launches of each kernel in one replayed P=32 step

@@ -2,7 +2,9 @@
 //
 // Replaces the Pallas TPU kernel fish_speech_tpu/ops/pallas_decode.py
 // (_decode_kernel / flash_decode_attention): row b attends its first
-// lengths[b] cache positions with a float32 online softmax. The G query
+// lengths[b] cache positions with a float32 online softmax, or, given
+// per-row `starts`, positions [starts[b], lengths[b]) (the lockstep batch's
+// left pad masked out, the JAX einsum's `kv_valid`). The G query
 // heads that share a KV head are served together, so each K/V row is read
 // from device memory once per step, not once per query head.
 //
@@ -17,11 +19,12 @@
 // (`ops/flash_decode.py:decode_split_count`, about one block per SM at
 // batch 1), never from `lengths`, so the launch is the same at every step
 // and can be captured in a CUDA graph. Block z reads positions
-// [z * chunk, (z + 1) * chunk) of [0, lengths[b]), chunk = ceil(S / Z)
-// rounded up to 16 (`slice_chunk`, mirrored by `decode_slice`; a chunk cut
-// from the row's length instead measured slower at len 4000 and no faster
-// at 2048); a block whose slice is empty returns at once. The slice's K
-// and V rows stream into a ring of three 32 KB stages in shared memory
+// [z * chunk, (z + 1) * chunk) of [starts[b], lengths[b]), chunk = ceil(S
+// / Z) rounded up to 16 (`slice_chunk`, mirrored by `decode_slice`; a chunk
+// cut from the row's length instead measured slower at len 4000 and no
+// faster at 2048); a block whose slice is empty (past the length or wholly
+// before the start) returns at once, and only the slices with work merge.
+// The slice's K and V rows stream into a ring of three 32 KB stages in shared memory
 // (two blocks fit an SM), all in flight at once. bf16 runs on the tensor
 // cores (`decode_mma_kernel`): one thread asks the TMA for each stage's
 // boxes (64 dims x 64 positions, 128-byte swizzle) against an mbarrier,
@@ -193,37 +196,50 @@ __device__ __forceinline__ void wait_stage(int n_stages) {
   else fs::wg::cp_async_wait<3>();
 }
 
-// The slice of block (hk, b, z): returns false (after writing 0 for an
-// empty row) when the block has nothing to do.
+// The slice of block (hk, b, z) within the row's visible positions [lo,
+// len), lo = starts[b] (0 without `starts`): returns false (after writing
+// 0 for a row with no visible position) when the block has nothing to do.
+// The slices keep their places in the split: slice z covers [z * chunk,
+// (z + 1) * chunk) ∩ [lo, len), so the slices wholly before lo or past len
+// are empty and their blocks return; `first` is the first slice with work
+// and `n_active` the number of slices with work, whose partials the row's
+// last block merges (`block_finish`).
 template <typename T, int D>
-__device__ __forceinline__ bool block_slice(const int* lengths, T* out_bh,
+__device__ __forceinline__ bool block_slice(const int* lengths,
+                                            const int* starts, T* out_bh,
                                             int s_len, int n_group, int& start,
-                                            int& end, int& n_active) {
+                                            int& end, int& first,
+                                            int& n_active) {
   const int z = blockIdx.z, n_split = gridDim.z;
   const int len = min(max(lengths[blockIdx.y], 0), s_len);
-  if (len == 0) {  // no visible position: 0, as the old kernel gave
+  const int lo = starts ? min(max(starts[blockIdx.y], 0), len) : 0;
+  if (lo == len) {  // no visible position: 0, as the old kernel gave
     if (z == 0)
       for (int idx = threadIdx.x; idx < n_group * D; idx += blockDim.x)
         fs::store(out_bh + idx, 0.f);
     return false;
   }
   const int chunk = slice_chunk(s_len, n_split);
-  n_active = (len + chunk - 1) / chunk;
-  if (z >= n_active) return false;
-  start = z * chunk;
-  end = min(start + chunk, len);
+  first = lo / chunk;
+  const int last = (len + chunk - 1) / chunk;  // one past the last slice
+  if (z < first || z >= last) return false;
+  n_active = last - first;
+  start = max(z * chunk, lo);
+  end = min(z * chunk + chunk, len);
   return true;
 }
 
 // The block's warps have left their (m, l, acc) in sm_m [W][NG], sm_l
 // [W][NG] and sm_acc [W][NG][AS] (rows AS >= D floats apart; m = -inf for
 // a warp that saw no position). Merges them; a lone active slice writes
-// `out`, otherwise the block writes its partial and the last block of the
-// row merges.
+// `out`, otherwise the block writes its partial and the last of the row's
+// n_active blocks merges the partials of slices first .. first + n_active
+// - 1.
 template <typename T, int D, int W, int NG, int AS = D>
 __device__ void block_finish(const float* sm_m, const float* sm_l,
                              const float* sm_acc, T* out_bh, float* part,
-                             int* counter, int n_group, int n_active) {
+                             int* counter, int n_group, int first,
+                             int n_active) {
   __shared__ int last_s;
   const int z = blockIdx.z;
   const bool direct = n_active == 1;
@@ -259,7 +275,7 @@ __device__ void block_finish(const float* sm_m, const float* sm_l,
     last_s = fs::atomic_add_acq_rel(counter, 1) == n_active - 1;
   __syncthreads();
   if (!last_s) return;
-  merge_partials<T, D>(part, n_active, n_group, out_bh);
+  merge_partials<T, D>(part + (size_t)first * stride, n_active, n_group, out_bh);
   if (threadIdx.x == 0) *counter = 0;
 }
 
@@ -273,9 +289,9 @@ template <typename T, int D, int NG>
 __global__ void __launch_bounds__(CW * 32)
     decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
                   const T* __restrict__ v, const int* __restrict__ lengths,
-                  T* __restrict__ out, float* __restrict__ work,
-                  int* __restrict__ counters, int s_len, int n_kv, int n_group,
-                  float scale_log2) {
+                  const int* __restrict__ starts, T* __restrict__ out,
+                  float* __restrict__ work, int* __restrict__ counters,
+                  int s_len, int n_kv, int n_group, float scale_log2) {
   constexpr int VEC = 16 / sizeof(T);  // elements per 16-byte load
   constexpr int LPR = D / VEC;         // lanes per K/V row
   constexpr int RPW = 32 / LPR;        // rows per warp load
@@ -290,8 +306,9 @@ __global__ void __launch_bounds__(CW * 32)
   const int rg = lane / LPR, li = lane % LPR;
   const size_t bh = (size_t)b * n_kv + hk;
   T* out_bh = out + bh * n_group * D;
-  int start, end, n_active;
-  if (!block_slice<T, D>(lengths, out_bh, s_len, n_group, start, end, n_active))
+  int start, end, first, n_active;
+  if (!block_slice<T, D>(lengths, starts, out_bh, s_len, n_group, start, end,
+                         first, n_active))
     return;
   const int n_stages = ring_stages<T, D>(s_len, gridDim.z);
   const int n_sub = (end - start + SP - 1) / SP;
@@ -405,7 +422,7 @@ __global__ void __launch_bounds__(CW * 32)
   __syncthreads();
   block_finish<T, D, CW, NG>(sm_m, sm_l, sm_acc, out_bh,
                              work + bh * gridDim.z * (ML + n_group * D),
-                             counters + bh, n_group, n_active);
+                             counters + bh, n_group, first, n_active);
 }
 
 // ---------------------------------------------------------------------------
@@ -454,6 +471,7 @@ __global__ void __launch_bounds__(TW * 32)
                       const __grid_constant__ CUtensorMap vmap,
                       const __nv_bfloat16* __restrict__ q,
                       const int* __restrict__ lengths,
+                      const int* __restrict__ starts,
                       __nv_bfloat16* __restrict__ out, float* __restrict__ work,
                       int* __restrict__ counters, int s_len, int n_kv,
                       int n_group, float scale_log2) {
@@ -471,8 +489,9 @@ __global__ void __launch_bounds__(TW * 32)
   const int g = lane >> 2, qd = lane & 3;  // mma row group, thread in group
   const size_t bh = (size_t)b * n_kv + hk;
   T* out_bh = out + bh * n_group * D;
-  int start, end, n_active;
-  if (!block_slice<T, D>(lengths, out_bh, s_len, n_group, start, end, n_active))
+  int start, end, first, n_active;
+  if (!block_slice<T, D>(lengths, starts, out_bh, s_len, n_group, start, end,
+                         first, n_active))
     return;
   const int n_stages = ring_stages<T, D>(s_len, gridDim.z);
   const int n_sub = (end - start + SP - 1) / SP;
@@ -610,7 +629,7 @@ __global__ void __launch_bounds__(TW * 32)
   __syncthreads();
   block_finish<T, D, TW, MAXG>(sm_m, sm_l, sm_acc, out_bh,
                                work + bh * gridDim.z * (ML + n_group * D),
-                               counters + bh, n_group, n_active);
+                               counters + bh, n_group, first, n_active);
 }
 
 // The TMA map of one layer of the cache, (B, S, Hkv, D) bf16 read as
@@ -630,9 +649,10 @@ int cache_map(CUtensorMap* map, const void* base, int batch, int s_len,
 
 template <typename T, int D>
 int launch_decode(const void* q, const void* k, const void* v,
-                  const int* lengths, void* out, float* work, int* counters,
-                  int batch, int s_len, int n_kv, int n_group, int n_split,
-                  float scale, cudaStream_t stream) {
+                  const int* lengths, const int* starts, void* out,
+                  float* work, int* counters, int batch, int s_len,
+                  int n_kv, int n_group, int n_split, float scale,
+                  cudaStream_t stream) {
   constexpr float kLog2e = 1.4426950408889634f;
   constexpr bool kTensorCores = std::is_same<T, __nv_bfloat16>::value;
   // the ring, or the warps' states that take its place at the end
@@ -666,16 +686,16 @@ int launch_decode(const void* q, const void* k, const void* v,
     if (rc == 0) rc = cache_map<D>(&vmap, v, batch, s_len, n_kv);
     if (rc != 0) return rc;
     decode_mma_kernel<D><<<grid, TW * 32, smem, stream>>>(
-        kmap, vmap, qt, lengths, ot, work, counters, s_len, n_kv, n_group,
-        scale * kLog2e);
+        kmap, vmap, qt, lengths, starts, ot, work, counters, s_len, n_kv,
+        n_group, scale * kLog2e);
   } else if (n_group <= 4) {
     decode_kernel<T, D, 4><<<grid, CW * 32, smem, stream>>>(
-        qt, kt, vt, lengths, ot, work, counters, s_len, n_kv, n_group,
-        scale * kLog2e);
+        qt, kt, vt, lengths, starts, ot, work, counters, s_len, n_kv,
+        n_group, scale * kLog2e);
   } else {
     decode_kernel<T, D, 8><<<grid, CW * 32, smem, stream>>>(
-        qt, kt, vt, lengths, ot, work, counters, s_len, n_kv, n_group,
-        scale * kLog2e);
+        qt, kt, vt, lengths, starts, ot, work, counters, s_len, n_kv,
+        n_group, scale * kLog2e);
   }
   return (int)cudaGetLastError();
 }
@@ -737,6 +757,7 @@ __global__ void __launch_bounds__(TW * 32)
                           const __nv_bfloat16* __restrict__ ks,
                           const __nv_bfloat16* __restrict__ vs,
                           const int* __restrict__ lengths,
+                          const int* __restrict__ starts,
                           __nv_bfloat16* __restrict__ out,
                           float* __restrict__ work, int* __restrict__ counters,
                           int s_len, int n_kv, int n_group, float scale_log2) {
@@ -758,8 +779,9 @@ __global__ void __launch_bounds__(TW * 32)
   const int g = lane >> 2, qd = lane & 3;  // mma row group, thread in group
   const size_t bh = (size_t)b * n_kv + hk;
   T* out_bh = out + bh * n_group * D;
-  int start, end, n_active;
-  if (!block_slice<T, D>(lengths, out_bh, s_len, n_group, start, end, n_active))
+  int start, end, first, n_active;
+  if (!block_slice<T, D>(lengths, starts, out_bh, s_len, n_group, start, end,
+                         first, n_active))
     return;
   const int n_stages = ring_stages<int8_t, D>(s_len, gridDim.z);
   const int n_sub = (end - start + SP - 1) / SP;
@@ -958,7 +980,7 @@ __global__ void __launch_bounds__(TW * 32)
   __syncthreads();
   block_finish<T, D, TW, MAXG, AS>(sm_m, sm_l, sm_acc, out_bh,
                                    work + bh * gridDim.z * (ML + n_group * D),
-                                   counters + bh, n_group, n_active);
+                                   counters + bh, n_group, first, n_active);
 }
 
 // ---------------------------------------------------------------------------
@@ -972,7 +994,8 @@ __global__ void __launch_bounds__(CW * 32)
                       const __nv_bfloat16* __restrict__ ks,
                       const int8_t* __restrict__ v,
                       const __nv_bfloat16* __restrict__ vs,
-                      const int* __restrict__ lengths, float* __restrict__ out,
+                      const int* __restrict__ lengths,
+                      const int* __restrict__ starts, float* __restrict__ out,
                       float* __restrict__ work, int* __restrict__ counters,
                       int s_len, int n_kv, int n_group, float scale_log2) {
   constexpr int EPL = D / 32;
@@ -983,8 +1006,9 @@ __global__ void __launch_bounds__(CW * 32)
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const size_t bh = (size_t)b * n_kv + hk;
   float* out_bh = out + bh * n_group * D;
-  int start, end, n_active;
-  if (!block_slice<float, D>(lengths, out_bh, s_len, n_group, start, end, n_active))
+  int start, end, first, n_active;
+  if (!block_slice<float, D>(lengths, starts, out_bh, s_len, n_group, start,
+                             end, first, n_active))
     return;
   float qr[MAXG][EPL], m[MAXG], l[MAXG], acc[MAXG][EPL];
 #pragma unroll
@@ -1045,7 +1069,7 @@ __global__ void __launch_bounds__(CW * 32)
   __syncthreads();
   block_finish<float, D, CW, MAXG>(sm_m, sm_l, sm_acc, out_bh,
                                    work + bh * gridDim.z * (ML + n_group * D),
-                                   counters + bh, n_group, n_active);
+                                   counters + bh, n_group, first, n_active);
 }
 
 // The TMA map of one layer of the int8 cache, (B, S, Hkv, D) read as D x
@@ -1066,9 +1090,10 @@ int kv8_map(CUtensorMap* map, const void* base, int batch, int s_len, int n_kv) 
 template <typename T, int D>
 int launch_decode_kv8(const void* q, const void* k, const void* ks,
                       const void* v, const void* vs, const int* lengths,
-                      void* out, float* work, int* counters, int batch,
-                      int s_len, int n_kv, int n_group, int n_split,
-                      float scale, cudaStream_t stream) {
+                      const int* starts, void* out, float* work,
+                      int* counters, int batch, int s_len, int n_kv,
+                      int n_group, int n_split, float scale,
+                      cudaStream_t stream) {
   constexpr float kLog2e = 1.4426950408889634f;
   const dim3 grid(n_kv, batch, n_split);
   const auto* kst = static_cast<const __nv_bfloat16*>(ks);
@@ -1091,13 +1116,14 @@ int launch_decode_kv8(const void* q, const void* k, const void* ks,
     if (rc == 0) rc = kv8_map<D>(&vmap, v, batch, s_len, n_kv);
     if (rc != 0) return rc;
     decode_kv8_mma_kernel<D><<<grid, TW * 32, smem, stream>>>(
-        kmap, vmap, static_cast<const T*>(q), kst, vst, lengths,
+        kmap, vmap, static_cast<const T*>(q), kst, vst, lengths, starts,
         static_cast<T*>(out), work, counters, s_len, n_kv, n_group,
         scale * kLog2e);
   } else {
     decode_kv8_kernel<D><<<grid, CW * 32, 0, stream>>>(
         static_cast<const float*>(q), static_cast<const int8_t*>(k), kst,
-        static_cast<const int8_t*>(v), vst, lengths, static_cast<float*>(out),
+        static_cast<const int8_t*>(v), vst, lengths, starts,
+        static_cast<float*>(out),
         work, counters, s_len, n_kv, n_group, scale * kLog2e);
   }
   return (int)cudaGetLastError();
@@ -1106,25 +1132,29 @@ int launch_decode_kv8(const void* q, const void* k, const void* ks,
 }  // namespace
 
 // k_layer / v_layer point at one layer of the stacked cache: (B, S, Hkv, D);
-// q and out are (B, Hkv, G, D). work holds B * Hkv * n_split * (16 + G * D)
-// fp32 partials and counters B * Hkv int32s, all 0 on entry (the kernel
-// leaves them 0). q, k_layer and v_layer start on 16-byte boundaries.
+// q and out are (B, Hkv, G, D). Row b attends positions [starts[b],
+// lengths[b]) (from 0 where `starts` is null). work holds B * Hkv * n_split
+// * (16 + G * D) fp32 partials and counters B * Hkv int32s, all 0 on entry
+// (the kernel leaves them 0). q, k_layer and v_layer start on 16-byte
+// boundaries.
 extern "C" int fs_flash_decode(const void* q, const void* k_layer,
                                const void* v_layer, const void* lengths,
-                               void* out, void* work, void* counters,
-                               int batch, int s_len, int n_kv, int n_group,
-                               int head_dim, int dtype, int n_split,
-                               float scale, void* stream) {
+                               const void* starts, void* out, void* work,
+                               void* counters, int batch, int s_len,
+                               int n_kv, int n_group, int head_dim,
+                               int dtype, int n_split, float scale,
+                               void* stream) {
   if (batch < 1 || s_len < 1 || n_kv < 1 || n_group < 1 || n_group > MAXG ||
       n_split < 1 || n_split > MAX_SPLIT)
     return (int)cudaErrorInvalidValue;
   const int* lens = static_cast<const int*>(lengths);
+  const int* sts = static_cast<const int*>(starts);
   float* wk = static_cast<float*>(work);
   int* cnt = static_cast<int*>(counters);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define FS_DEC(T, D)                                                         \
-  return launch_decode<T, D>(q, k_layer, v_layer, lens, out, wk, cnt, batch, \
-                             s_len, n_kv, n_group, n_split, scale, s)
+  return launch_decode<T, D>(q, k_layer, v_layer, lens, sts, out, wk, cnt, \
+                             batch, s_len, n_kv, n_group, n_split, scale, s)
   if (dtype == fs::kBFloat16 && head_dim == 128) FS_DEC(__nv_bfloat16, 128);
   if (dtype == fs::kBFloat16 && head_dim == 64) FS_DEC(__nv_bfloat16, 64);
   if (dtype == fs::kFloat32 && head_dim == 128) FS_DEC(float, 128);
@@ -1135,26 +1165,28 @@ extern "C" int fs_flash_decode(const void* q, const void* k_layer,
 
 // int8 K/V: k_layer / v_layer (B, S, Hkv, D) int8 and ks_layer / vs_layer
 // (B, S, Hkv) bf16 point at one layer of the stacked cache; q and out are
-// `dtype` (B, Hkv, G, D); work and counters as fs_flash_decode's. q,
-// k_layer and v_layer start on 16-byte boundaries.
+// `dtype` (B, Hkv, G, D); starts, work and counters as fs_flash_decode's.
+// q, k_layer and v_layer start on 16-byte boundaries.
 extern "C" int fs_flash_decode_kv8(const void* q, const void* k_layer,
                                    const void* ks_layer, const void* v_layer,
                                    const void* vs_layer, const void* lengths,
-                                   void* out, void* work, void* counters,
-                                   int batch, int s_len, int n_kv, int n_group,
-                                   int head_dim, int dtype, int n_split,
-                                   float scale, void* stream) {
+                                   const void* starts, void* out, void* work,
+                                   void* counters, int batch, int s_len,
+                                   int n_kv, int n_group, int head_dim,
+                                   int dtype, int n_split, float scale,
+                                   void* stream) {
   if (batch < 1 || s_len < 1 || n_kv < 1 || n_group < 1 || n_group > MAXG ||
       n_split < 1 || n_split > MAX_SPLIT)
     return (int)cudaErrorInvalidValue;
   const int* lens = static_cast<const int*>(lengths);
+  const int* sts = static_cast<const int*>(starts);
   float* wk = static_cast<float*>(work);
   int* cnt = static_cast<int*>(counters);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define FS_KV8(T, D)                                                        \
   return launch_decode_kv8<T, D>(q, k_layer, ks_layer, v_layer, vs_layer,   \
-                                 lens, out, wk, cnt, batch, s_len, n_kv,    \
-                                 n_group, n_split, scale, s)
+                                 lens, sts, out, wk, cnt, batch, s_len,     \
+                                 n_kv, n_group, n_split, scale, s)
   if (dtype == fs::kBFloat16 && head_dim == 128) FS_KV8(__nv_bfloat16, 128);
   if (dtype == fs::kBFloat16 && head_dim == 64) FS_KV8(__nv_bfloat16, 64);
   if (dtype == fs::kFloat32 && head_dim == 128) FS_KV8(float, 128);

@@ -25,12 +25,18 @@ codec's device work holds `generate.GUARD` shared, and its captures hold
 it alone, so a codec graph captured at first use never overlaps the
 batcher worker's replays.
 
+A streamed request on a single-stream session decodes from device
+partials, as JAX's engine does (not under a `BatcherSession`, whose
+partials are host columns): each partial's device columns are copied into
+the codec graph's input buffer and the graph replayed before the host
+reads anything; only then does the host learn the partial's valid frames
+and read their samples (`_decode_vq_device`). `device_partials = False`
+streams from host partials instead.
+
 A request's `cancel_check` (the server wires a client's disconnect to it)
 is polled between decode chunks: a cancelled request ends without an error
 or a final result, and under a `BatcherSession` the closed stream marks the
 pool's request cancelled, which frees its slot at the next boundary.
-
-Not ported yet (ROADMAP): device partials.
 """
 
 from __future__ import annotations
@@ -131,6 +137,8 @@ class TTSInferenceEngine:
         self.codec_pool_bytes = 0
         self.codec_replays = collections.Counter()
         self.codec_eager_runs = collections.Counter()
+        # streamed single-stream requests decode from device partials
+        self.device_partials = True
 
     @property
     def sample_rate(self) -> int:
@@ -210,22 +218,52 @@ class TTSInferenceEngine:
             bucket //= self.codec_cfg.frame_length
         key = (kind, rows, bucket)
         with self._codec_lock:
-            cuda = self._codec_device.type == "cuda"
-            known = self.codec_graphs.get(key)
-            if cuda and (known is None or known.graph is None):
-                self._capture_codec(key)
+            entry = self._codec_ready(key)
             with GUARD.launching():
-                entry = self._codec_graph(key)
                 entry.inp.copy_(torch.from_numpy(padded))
-                if not cuda:
-                    with torch.no_grad():
-                        self._codec_body(key)()
-                    self.codec_eager_runs[key] += 1
-                else:
-                    replay_graph(entry.graph, entry.launches)
-                    self.codec_replays[key] += 1
+                self._codec_step(key, entry)
                 # a copy: on the CPU .cpu() is the buffer the next call writes
                 return entry.out.to("cpu", copy=True).numpy()
+
+    def _codec_ready(self, key) -> CodecGraph:
+        """The buffers of graph `key`, its graph captured first on CUDA
+        (under `_codec_lock`, outside a launching section)."""
+        known = self.codec_graphs.get(key)
+        if self._codec_device.type == "cuda" and (known is None
+                                                  or known.graph is None):
+            self._capture_codec(key)
+        return self._codec_graph(key)
+
+    def _codec_step(self, key, entry: CodecGraph):
+        """The codec on `entry.inp` into `entry.out`: a replay of its graph
+        on CUDA, its body on the CPU (inside a launching section)."""
+        if self._codec_device.type != "cuda":
+            with torch.no_grad():
+                self._codec_body(key)()
+            self.codec_eager_runs[key] += 1
+        else:
+            replay_graph(entry.graph, entry.launches)
+            self.codec_replays[key] += 1
+
+    def _decode_vq_device(self, codes_dev, valid_frames) -> np.ndarray:
+        """A device partial's audio (JAX's `_decode_vq_device`): its
+        (num_codebooks, T) device columns (cut at the budget, not at
+        im_end) are copied into the one-row decode graph's input buffer of
+        T's bucket and the graph replayed, with no host read; then
+        `valid_frames()` (the partial's host copy) says how many frames are
+        real, and only their samples are read back. The codec is causal,
+        so the frames past them do not change the ones kept."""
+        t = codes_dev.shape[1]
+        key = ("decode", 1, self._code_bucket(t))
+        with self._codec_lock:
+            entry = self._codec_ready(key)
+            with GUARD.launching():
+                entry.inp[0, :, :t].copy_(codes_dev)
+                entry.inp[0, :, t:].zero_()
+                self._codec_step(key, entry)
+            n = valid_frames() * self.codec_cfg.frame_length
+            with GUARD.launching():
+                return entry.out[0, 0, :n].to("cpu", copy=True).numpy()
 
     def precompile(self, code_buckets=(), reference_buckets=()) -> dict:
         """Capture, ahead of the first request, the codec graphs a request
@@ -366,6 +404,10 @@ class TTSInferenceEngine:
                     prompt_tokens=list(prompt_tokens) or None,
                     seed=req.seed if req.seed is not None else 42,
                     stream_partials=req.streaming,
+                    # JAX's: device partials for single-stream sessions
+                    device_partials=(req.streaming and self.device_partials
+                                     and not getattr(self.session, "concurrent",
+                                                     False)),
                     cancel_check=req.cancel_check,
                 ):
                     if req.cancel_check is not None and req.cancel_check():
@@ -373,7 +415,11 @@ class TTSInferenceEngine:
                     if response.action == "partial":
                         # decode the cumulative prefix (the codec is causal,
                         # so earlier samples are stable) and emit the new ones
-                        full = self.decode_vq_tokens(response.codes)
+                        if response.valid_frames is not None:
+                            full = self._decode_vq_device(response.codes,
+                                                          response.valid_frames)
+                        else:
+                            full = self.decode_vq_tokens(response.codes)
                         if len(full) > emitted:
                             yield InferenceResult(
                                 code="segment",

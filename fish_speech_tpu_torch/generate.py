@@ -1,11 +1,11 @@
 """Token-level generation runtime for the Dual-AR model, in PyTorch.
 
-Port of `fish_speech_tpu/generate.py` for the single-stream path. Where the
-JAX package jits `prefill_step` per prompt bucket and a decode chunk as one
-`lax.scan` program, here each is a CUDA graph: one per bucket for the
-prefill with its first column, and one of the decode step, replayed n
-times per chunk (`GenerationSession`; `precompile` captures them ahead of
-the first request, as JAX's compiles them). The step bodies
+Port of `fish_speech_tpu/generate.py`. Where the JAX package jits
+`prefill_step` per prompt bucket and a decode chunk as one `lax.scan`
+program, here each is a CUDA graph: one per bucket for the prefill with its
+first column, and one of the decode step, replayed n times per chunk
+(`GenerationSession`; `precompile` captures them ahead of the first
+request, as JAX's compiles them). The step bodies
 (`prefill_body`, `decode_step`) read and write fixed buffers
 (`StepState`): the position, token, RAS window and step index live on the
 device. The host syncs once per chunk, when it reads the chunk's columns,
@@ -33,13 +33,24 @@ prefill `prefill_group_body` (JAX's `prefill_group_parked`) over
 `scatter_parked_rows`. A pool row's uniforms are `counter_uniforms` of its
 request's seed and draw index, computed inside the step.
 
+The lockstep batch (`GenerationSession(max_batch=B).generate_batch`,
+JAX's): B prompts left-padded to a common end, prefilled at B rows with
+per-row offsets (`prefill_{B}_{bucket}`) and decoded in lockstep at one
+position by the same step body on B-row buffers (`decode_{B}`), each row's
+pad masked out of decode attention by the kernels' per-row `starts`. The
+pool-insert prefills (`prefill_single_into_pool`, `prefill_group_into_pool`)
+are plain functions, as nothing in JAX calls them either.
+
+Device partials (`generate_stream(device_partials=True)`, JAX's
+`StreamPartial`): each partial holds the cumulative columns on the device,
+untrimmed, and is yielded before any host sync; its host copy flies
+(pinned, behind an event) while the engine runs the codec on the device
+columns.
+
 Every graph capture in the process goes through `capture_graph`, which
 holds `GUARD` alone; every thread's other device work holds it shared
 (`GUARD.launching()`), so no launch from another thread lands inside a
 capture.
-
-Not ported yet (ROADMAP): device partials (`StreamPartial`), batched
-lockstep generation (`generate_batch`) and its pool-insert prefills.
 """
 
 from __future__ import annotations
@@ -52,7 +63,7 @@ import re
 import threading
 import time
 from dataclasses import dataclass
-from typing import List, Optional, Union
+from typing import Callable, List, Optional, Union
 
 import numpy as np
 import torch
@@ -92,6 +103,14 @@ def request_seed(generator) -> int:
     if isinstance(generator, (int, np.integer)):
         return int(generator)
     return int(generator.integers(0, 2**31 - 1))
+
+
+def batch_seeds(seed: int, rows: int) -> list:
+    """The seeds of a lockstep batch's rows: row r draws `counter_uniforms`
+    of seed ^ (r * 0x9E3779B1), low 32 bits (the bits the uniforms read),
+    so row 0 draws what a single stream of `seed` draws and each row's
+    codes depend only on the seed, its row and its prompt."""
+    return [(int(seed) ^ (r * 0x9E3779B1)) & 0xFFFFFFFF for r in range(rows)]
 
 
 class PrefixStore:
@@ -243,43 +262,47 @@ def _restricted_logits(cfg: DualARConfig, logits_full):
 
 
 class StepState:
-    """The fixed buffers of one stream's prefill and decode steps, which a
-    captured CUDA graph reads and writes at the addresses it was captured
-    with. The host writes a request's inputs in place (the prompt,
-    `t_end`, `start`, `sampling`, `seed`, `step`); the bodies
-    (`prefill_body`, `suffix_body`, `decode_step`) carry the rest on the
-    device.
+    """The fixed buffers of one stream's (or one lockstep batch's) prefill
+    and decode steps, which a captured CUDA graph reads and writes at the
+    addresses it was captured with. The host writes a request's inputs in
+    place (the prompt, `offsets`, `t_end`, `start`, `sampling`, `seed`,
+    `step`); the bodies (`prefill_body`, `suffix_body`, `decode_step`)
+    carry the rest on the device. `rows` is 1 for a stream and B for a
+    lockstep batch, whose rows share the position, draw and step.
 
-    token (1, C+1) int32: the last column; pos (1,) int64: the next step's
-    position; window (1, W) int32: the RAS window; seed (1,) int64: the
-    request's seed; draw (1,) int64: the next draw of `counter_uniforms`
-    (the first column is draw 0); step (1,) int64: the step's row in
-    `cols`; cols (n_steps, 1, C+1) int32: a chunk's columns; sampling (3,)
-    fp32: temperature, top_p, top_k; offsets (1,) int32 and t_end (1,)
-    int64: the prompt's rows [offsets, t_end), or under a suffix prefill
-    the suffix's real length; start (1,) int32: the suffix's first
-    position; inp: the padded prompt (or suffix) of each bucket, (1, C+1,
-    bucket) int32."""
+    token (rows, C+1) int32: the last column; pos (1,) int64: the next
+    step's position; window (rows, W) int32: the RAS window; seed (rows,)
+    int64: each row's seed (`batch_seeds`); draw (1,) int64: the next draw
+    of `counter_uniforms` (the first column is draw 0); step (1,) int64:
+    the step's row in `cols`; cols (n_steps, rows, C+1) int32: a chunk's
+    columns; sampling (3,) fp32: temperature, top_p, top_k; offsets (rows,)
+    int32 and t_end (1,) int64: each row's prompt at [offsets, t_end) (a
+    batch's prompts are left-padded to a common end; a row attends no
+    position below its offset), or under a suffix prefill the suffix's
+    real length; start (1,) int32: the suffix's first position; inp: the
+    padded prompts (or suffix) of each bucket, (rows, C+1, bucket) int32."""
 
     def __init__(self, cfg: DualARConfig, scfg: SamplingConfig, cache_len: int,
-                 n_steps: int, dtype, act_dtype, device, kv_quant: bool):
+                 n_steps: int, dtype, act_dtype, device, kv_quant: bool,
+                 rows: int = 1):
         c1 = cfg.num_codebooks + 1
         i32 = dict(dtype=torch.int32, device=device)
         i64 = dict(dtype=torch.int64, device=device)
         self.device = device
         self.n_steps = n_steps
-        self.cache = dual_ar.init_kv_cache(cfg, 1, cache_len, dtype, device,
+        self.rows = rows
+        self.cache = dual_ar.init_kv_cache(cfg, rows, cache_len, dtype, device,
                                            quant=kv_quant)
-        self.fast_cache = dual_ar.init_fast_kv_cache(cfg, 1, act_dtype, device)
-        self.token = torch.zeros((1, c1), **i32)
+        self.fast_cache = dual_ar.init_fast_kv_cache(cfg, rows, act_dtype, device)
+        self.token = torch.zeros((rows, c1), **i32)
         self.pos = torch.zeros((1,), **i64)
-        self.window = torch.zeros((1, scfg.ras_win_size), **i32)
-        self.seed = torch.zeros((1,), **i64)
+        self.window = torch.zeros((rows, scfg.ras_win_size), **i32)
+        self.seed = torch.zeros((rows,), **i64)
         self.draw = torch.zeros((1,), **i64)
         self.step = torch.zeros((1,), **i64)
-        self.cols = torch.zeros((n_steps, 1, c1), **i32)
+        self.cols = torch.zeros((n_steps, rows, c1), **i32)
         self.sampling = torch.zeros((3,), dtype=torch.float32, device=device)
-        self.offsets = torch.zeros((1,), **i32)
+        self.offsets = torch.zeros((rows,), **i32)
         self.t_end = torch.zeros((1,), **i64)
         self.start = torch.zeros((1,), **i32)
         self.inp = {}
@@ -289,7 +312,7 @@ class StepState:
         of that bucket shares it: one body runs at a time)."""
         if bucket not in self.inp:
             self.inp[bucket] = torch.zeros(
-                (1, self.token.shape[1], bucket), dtype=torch.int32,
+                (self.rows, self.token.shape[1], bucket), dtype=torch.int32,
                 device=self.device)
         return self.inp[bucket]
 
@@ -301,9 +324,17 @@ class StepState:
         return self.sampling[0], self.sampling[1], self.sampling[2]
 
     def uniforms(self, cfg: DualARConfig, draw):
-        """The (uniform_rows(C), TOP_K_CAP) uniforms of draw `draw` ((1,)
-        int64) of the request's seed."""
-        return counter_uniforms(self.seed, draw, uniform_rows(cfg.num_codebooks))[0]
+        """The uniforms of draw `draw` ((1,) int64) of each row's seed:
+        (uniform_rows(C), TOP_K_CAP) for one row, (uniform_rows(C), rows,
+        TOP_K_CAP) for a batch."""
+        u = counter_uniforms(self.seed, draw.expand(self.rows),
+                             uniform_rows(cfg.num_codebooks))
+        return u[0] if self.rows == 1 else u.transpose(0, 1)
+
+    def kv_valid(self):
+        """A batch's per-row first visible positions (its offsets) for the
+        decode kernels' `starts`; None for one row, which attends from 0."""
+        return self.offsets if self.rows > 1 else None
 
 
 def _first_column(params, cfg: DualARConfig, scfg: SamplingConfig,
@@ -347,14 +378,16 @@ def suffix_body(params, cfg: DualARConfig, scfg: SamplingConfig,
 def decode_step(params, cfg: DualARConfig, scfg: SamplingConfig,
                 st: StepState):
     """One decode step on the fixed buffers: the slow step at `st.pos` on
-    `st.token`, the head, sampling with RAS from draw `st.draw` of the
-    request's seed, and the fast column. The column goes to
+    `st.token` (a batch's rows attending from their offsets), the head,
+    sampling with RAS from draw `st.draw` of each row's seed, and the fast
+    column. The column goes to
     `st.cols[st.step]` and `st.token`, the window rolls, and `pos`, `draw`
     and `step` advance, all on the device: a CUDA graph of this body
     replayed n times runs n steps (JAX's `decode_chunk` scan). Steps run
     past `<|im_end|>`; the host cuts them."""
     hidden, slow_out, _ = dual_ar.decode_slow_step(params, cfg, st.token,
-                                                   st.cache, st.pos)
+                                                   st.cache, st.pos,
+                                                   st.kv_valid())
     logits = dual_ar.semantic_head_logits(params, cfg, slow_out)
     column = _sample_column(params, cfg, scfg, logits, hidden, st.window,
                             st.uniforms(cfg, st.draw), st.sampling_args(),
@@ -510,15 +543,23 @@ class GroupState:
         return self.sampling[0], self.sampling[1], self.sampling[2]
 
 
+def _seeded_first_columns(params, cfg: DualARConfig, scfg: SamplingConfig,
+                          logits_full, hidden, seeds, sampling, fast_cache):
+    """Each row's first column, sampled with `sampling` from draw 0 of its
+    seed (`seeds` (k,) int64; no RAS)."""
+    u = counter_uniforms(seeds, torch.zeros_like(seeds),
+                         uniform_rows(cfg.num_codebooks))
+    return _sample_column(params, cfg, scfg, _restricted_logits(cfg, logits_full),
+                          hidden, None, u.transpose(0, 1), sampling, fast_cache)
+
+
 def _group_columns(params, cfg: DualARConfig, scfg: SamplingConfig,
                    gs: GroupState, logits_full, hidden):
     """Each row's first column, sampled with its own parameters from draw 0
     of its seed (no RAS), into `gs.column`."""
-    u = counter_uniforms(gs.seed, torch.zeros_like(gs.seed),
-                         uniform_rows(cfg.num_codebooks))
-    gs.column.copy_(_sample_column(
-        params, cfg, scfg, _restricted_logits(cfg, logits_full), hidden, None,
-        u.transpose(0, 1), gs.sampling_args(), gs.fast_cache))
+    gs.column.copy_(_seeded_first_columns(params, cfg, scfg, logits_full,
+                                          hidden, gs.seed, gs.sampling_args(),
+                                          gs.fast_cache))
 
 
 def prefill_group_body(params, cfg: DualARConfig, scfg: SamplingConfig,
@@ -542,6 +583,48 @@ def prefill_group_suffix_body(params, cfg: DualARConfig, scfg: SamplingConfig,
     logits_full, hidden, _ = dual_ar.prefill_suffix(
         params, cfg, gs.prompt(sbucket), gs.cache, gs.start, gs.t_end)
     _group_columns(params, cfg, scfg, gs, logits_full, hidden)
+
+
+def prefill_single_into_pool(params, cfg: DualARConfig, scfg: SamplingConfig,
+                             inp, pool, scratch, slot, length, seed, sampling):
+    """JAX's `prefill_single_into_pool`, eager: the one prompt `inp` (1,
+    C+1, bucket) prefilled into the one-row cache `scratch` (offset 0, real
+    length `length`), its first column sampled from draw 0 of `seed` with
+    `sampling` = (temperature, top_p, top_k), then the scratch rows copied
+    into row `slot` of the cache `pool` (`dual_ar.insert_cache_slot`, every
+    tensor of the layout). Returns (first column (1, C+1), pool, scratch);
+    where JAX returns its split key, the next draw of the seed is 1."""
+    return _prefill_into_pool(params, cfg, scfg, inp, pool, scratch, length,
+                              [seed], sampling, lambda: dual_ar.insert_cache_slot(
+                                  pool, scratch, slot))
+
+
+def prefill_group_into_pool(params, cfg: DualARConfig, scfg: SamplingConfig,
+                            inp, pool, scratch, rows, t_ends, seeds, sampling):
+    """JAX's `prefill_group_into_pool`, eager: k prompts (k, C+1, bucket),
+    right-aligned at [0, t_ends[i]), prefilled at once into the k-row cache
+    `scratch`, each row's first column sampled from draw 0 of its seed
+    (`seeds`, k ints), then the rows copied into pool rows `rows` ((k,)
+    int64; `dual_ar.insert_cache_rows`, every tensor of the layout).
+    Returns (first columns (k, C+1), pool, scratch); where JAX returns the
+    rows' split keys, each row's next draw is 1."""
+    return _prefill_into_pool(params, cfg, scfg, inp, pool, scratch, t_ends,
+                              seeds, sampling, lambda: dual_ar.insert_cache_rows(
+                                  pool, scratch, rows))
+
+
+def _prefill_into_pool(params, cfg, scfg, inp, pool, scratch, t_end, seeds,
+                       sampling, insert):
+    k, dev = inp.shape[0], inp.device
+    logits_full, hidden, scratch = dual_ar.prefill(
+        params, cfg, inp, scratch, torch.zeros((k,), dtype=torch.int32, device=dev),
+        t_end)
+    fast_cache = dual_ar.init_fast_kv_cache(cfg, k, hidden.dtype, dev)
+    column = _seeded_first_columns(
+        params, cfg, scfg, logits_full, hidden,
+        torch.tensor(seeds, dtype=torch.int64, device=dev), sampling, fast_cache)
+    insert()
+    return column, pool, scratch
 
 
 # the wrappers whose launch counters a captured graph's replays add to
@@ -661,11 +744,57 @@ def replay_graph(graph, launches):
 # ---------------------------------------------------------------------------
 
 
+class StreamPartial:
+    """The cumulative (C+1, n) columns of a stream, still on the device
+    (JAX's `StreamPartial`): `generate_stream(device_partials=True)` yields
+    it before any host sync, so a consumer can enqueue device work on the
+    columns (the engine's codec) before the host learns where the stream
+    ends. The tensor is the partial's own (the step buffers are overwritten
+    by the next chunk) and holds whole chunks, untrimmed. On CUDA its host
+    copy is enqueued at once into pinned memory behind an event; `host()`
+    waits for that copy alone and keeps it; `valid_frames()` applies the
+    `<|im_end|>` and budget cut the host path applies before it yields.
+    Make one inside `GUARD.launching()`: it enqueues a copy."""
+
+    def __init__(self, device_cols, im_end_id: int, max_cols: int):
+        self.device_cols = device_cols  # (C+1, n) cumulative, untrimmed
+        self._im_end_id = im_end_id
+        self.max_cols = max_cols  # the budget: no column past it is real
+        self._host = None
+        self._pinned = self._event = None
+        if device_cols.is_cuda:
+            self._pinned = torch.empty(device_cols.shape, dtype=device_cols.dtype,
+                                       pin_memory=True)
+            self._pinned.copy_(device_cols, non_blocking=True)
+            self._event = torch.cuda.Event()
+            self._event.record()
+
+    def host(self) -> np.ndarray:
+        if self._host is None:
+            if self._event is not None:
+                self._event.synchronize()
+                self._host = self._pinned.numpy()
+            else:
+                self._host = self.device_cols.numpy().copy()
+        return self._host
+
+    def valid_frames(self) -> int:
+        """Leading columns that are real frames: up to the first im_end
+        (excluded) and never past the budget."""
+        cols = self.host()
+        n = min(cols.shape[1], self.max_cols)
+        ends = np.flatnonzero(cols[0, :n] == self._im_end_id)
+        return int(ends[0]) if len(ends) else n
+
+
 @dataclass
 class GenerateResponse:
     action: str  # "sample" | "next" | "partial"
     codes: Optional[np.ndarray] = None
     text: Optional[str] = None
+    # a device partial (`StreamPartial`): `codes` is its device tensor of
+    # codebook rows, untrimmed, and valid_frames() says how many are real
+    valid_frames: Optional[Callable[[], int]] = None
 
 
 def _detached(tree):
@@ -674,28 +803,55 @@ def _detached(tree):
     return tree.detach()
 
 
+def _tree_bytes(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(_tree_bytes(v) for v in tree.values())
+    return tree.numel() * tree.element_size()
+
+
+def _graph_name(kind: str, rows: int, bucket: Optional[int] = None) -> str:
+    """A session graph's name: `prefill_{bucket}`, `suffix_{bucket}` and
+    `decode` for one row, `prefill_{rows}_{bucket}` and `decode_{rows}` for
+    a lockstep batch."""
+    parts = [kind] + ([str(rows)] if rows > 1 else []) + (
+        [str(bucket)] if bucket is not None else [])
+    return "_".join(parts)
+
+
+def _parse_graph_name(name: str):
+    """(kind, rows, bucket or None) of a `_graph_name`."""
+    kind, *nums = name.split("_")
+    nums = [int(n) for n in nums]
+    if kind == "decode":
+        return kind, (nums[0] if nums else 1), None
+    return kind, (nums[0] if len(nums) == 2 else 1), nums[-1]
+
+
 class GenerationSession:
     """Owns the KV cache, the step buffers (`StepState`) and the
-    inference-prepared weights of one model, for one stream at a time
-    (`max_batch` must be 1; concurrent streams share the decode pool of
-    `engine/batcher.py`).
+    inference-prepared weights of one model, for one stream at a time or
+    one lockstep batch of up to `max_batch` prompts (`generate_batch`;
+    concurrent streams share the decode pool of `engine/batcher.py`).
 
     The session re-uses one cache for every request (each prefill writes
     the positions it reads); `params` (plain or quantized, `ops/quant.py`)
     are augmented with the restricted LM head and the fused w1|w3 FFN
-    weight (the JAX package fuses at batch 1, the only batch here). Fusing
-    copies the FFN weights: the caller should drop its own reference to
-    `params`, and must not change the session's. `kv_quant` keeps the slow
-    cache in int8 with per-(position, head) scales
+    weight. Fusing copies the FFN weights: the caller should drop its own
+    reference to `params`, and must not change the session's. `kv_quant`
+    keeps the slow cache in int8 with per-(position, head) scales
     (`dual_ar.init_kv_cache(quant=True)`). `prefix_cache_size` > 0 keeps
     the KV rows of that many recent prompts (`PrefixStore`): a prompt that
     shares at least 64 leading columns with one of them restores its rows
-    and prefills only the rest (JAX's hit path).
+    and prefills only the rest (JAX's hit path). A session of `max_batch`
+    > 1 refuses it, as JAX's lockstep batch never uses it.
 
+    Each row count has its own step buffers (`StepState`), made at its
+    first use; `state` (and `cache`) are those of `max_batch` rows.
     On CUDA every step is a replay of a CUDA graph: one graph per prompt
-    bucket for the prefill and its first column (`prefill_{bucket}`), one
-    per suffix bucket for a prefix hit's suffix prefill (`suffix_{sbucket}`)
-    and one for the decode step (`decode`), replayed n times per chunk. A
+    bucket for the prefill and its first column (`prefill_{bucket}`; a
+    batch of B rows `prefill_{B}_{bucket}`), one per suffix bucket for a
+    prefix hit's suffix prefill (`suffix_{sbucket}`) and one for the decode
+    step (`decode`, a batch's `decode_{B}`), replayed n times per chunk. A
     graph is captured at the first use of its name, or ahead of time by
     `precompile`, after one eager run of its body that builds the kernels'
     plans and workspaces; a failed capture raises. The graphs share one
@@ -712,19 +868,26 @@ class GenerationSession:
                  decode_chunk_size: int = 32, first_chunk_size: int = 0,
                  pipeline_lookahead: int = 1, kv_quant: bool = False,
                  prefix_cache_size: int = 0):
-        if max_batch != 1:
-            raise NotImplementedError(
-                "lockstep batched sessions (generate_batch) are not ported "
-                "yet (ROADMAP); the decode pool is engine/batcher.py's "
-                "ContinuousBatcher")
+        if max_batch < 1:
+            raise ValueError(f"max_batch={max_batch} must be at least 1")
+        if max_batch > 1 and prefix_cache_size:
+            raise ValueError(
+                f"GenerationSession(max_batch={max_batch}) serves lockstep "
+                f"batches, which never use the prefix cache: pass "
+                f"prefix_cache_size=0 (got {prefix_cache_size})")
         # detached views: a tree fresh from training (LoRA tensors that
         # require grad) must not make decoding record an autograd graph
         params = _detached(params)
+        # the weights' bytes, for generate_long's GB/s line (JAX's)
+        self.param_bytes = _tree_bytes(params)
         self.params = fp32_scales(dual_ar.fuse_ffn_weights(
             dual_ar.precompute_semantic_head(params, cfg)))
         self.cfg = cfg.resolve()
         self.scfg = scfg or SamplingConfig()
         self.device = params["embeddings"].device
+        self.max_batch = max_batch
+        self.dtype = dtype
+        self.act_dtype = params["embeddings"].dtype
         self.decode_chunk_size = decode_chunk_size
         self.first_chunk_size = first_chunk_size or decode_chunk_size
         # chunks dispatched ahead of the one being read in generate()
@@ -732,10 +895,8 @@ class GenerationSession:
         # headroom so a chunk's overshoot never writes past the buffer
         self.cache_len = self.cfg.max_seq_len + decode_chunk_size
         self.kv_quant = kv_quant
-        self.state = StepState(
-            self.cfg, self.scfg, self.cache_len,
-            max(self.first_chunk_size, decode_chunk_size), dtype,
-            params["embeddings"].dtype, self.device, kv_quant)
+        self._states = {}  # rows -> StepState
+        self.state = self._state_for(max_batch)
         self.cache = self.state.cache
         self.prefix = PrefixStore(prefix_cache_size)
         self._graphs = {}  # name -> (CUDAGraph, launch counts per replay)
@@ -744,6 +905,17 @@ class GenerationSession:
         self.pool_bytes = 0
         self.replays = collections.Counter()
         self.eager_runs = collections.Counter()
+
+    def _state_for(self, rows: int) -> StepState:
+        """The step buffers of `rows` rows, made at their first use (a
+        chunk of either chunk size fits them)."""
+        st = self._states.get(rows)
+        if st is None:
+            st = self._states[rows] = StepState(
+                self.cfg, self.scfg, self.cache_len,
+                max(self.first_chunk_size, self.decode_chunk_size), self.dtype,
+                self.act_dtype, self.device, self.kv_quant, rows)
+        return st
 
     @property
     def prefix_hits(self):
@@ -772,29 +944,33 @@ class GenerationSession:
         return min(pick_bucket(t, self.cache_len), self.cfg.max_seq_len)
 
     def _body(self, name: str):
-        if name == "decode":
+        kind, rows, bucket = _parse_graph_name(name)
+        st = self._state_for(rows)
+        if kind == "decode":
             return functools.partial(decode_step, self.params, self.cfg,
-                                     self.scfg, self.state)
-        kind, bucket = name.split("_")
+                                     self.scfg, st)
         body = suffix_body if kind == "suffix" else prefill_body
-        return functools.partial(body, self.params, self.cfg, self.scfg,
-                                 self.state, int(bucket))
+        return functools.partial(body, self.params, self.cfg, self.scfg, st,
+                                 bucket)
 
     def _capture(self, name: str):
         """Capture graph `name`: one eager run of its body (the carried
-        buffers put back after it; a prefill's t_end set to 1 and its start
-        to 0 first, as the buffers may hold a longer request's, which would
-        index past this bucket), then the capture into the shared pool."""
+        buffers put back after it; a prefill's t_end set to 1, its offsets
+        and its start to 0 first, as the buffers may hold a longer
+        request's, which would index past this bucket), then the capture
+        into the shared pool."""
         t0 = time.perf_counter()
         body = self._body(name)
+        st = self._state_for(_parse_graph_name(name)[1])
         with GUARD.launching():
-            saved = [t.clone() for t in self.state.carry()]
-            if name != "decode":
-                self.state.t_end.fill_(1)
-                self.state.start.zero_()
+            saved = [t.clone() for t in st.carry()]
+            if not name.startswith("decode"):
+                st.t_end.fill_(1)
+                st.offsets.zero_()
+                st.start.zero_()
             body()
             self.eager_runs[name] += 1
-            for t, s in zip(self.state.carry(), saved):
+            for t, s in zip(st.carry(), saved):
                 t.copy_(s)
             del saved
         if self._pool is None:
@@ -830,24 +1006,28 @@ class GenerationSession:
 
     def precompile(self, prompt_len: int, max_new_tokens: int = 0,
                    first_chunk: Optional[int] = None,
-                   suffix_buckets=()) -> dict:
+                   suffix_buckets=(), batch: int = 1) -> dict:
         """Capture, ahead of the first request, the graphs a request of
         `prompt_len` tokens and `max_new_tokens` replays: its bucket's
         prefill (`prefill_{bucket}`), unless its budget ends with the
         prefill the decode step (`decode`), and the suffix prefill of each
         bucket of `suffix_buckets` (`suffix_{sbucket}`, a prefix hit's;
         values are mapped to their bucket), the counterpart of the JAX
-        session's `precompile`. One decode graph serves every chunk size,
-        so `first_chunk` has only to fit the step buffers. Call it between
-        requests: the eager runs write the cache (stored prefixes are
-        copies and stay as they are). Returns {name: seconds} of the
+        session's `precompile`. `batch` > 1 captures a lockstep batch's
+        instead (`prefill_{batch}_{bucket}` for a longest prompt of
+        `prompt_len`, `decode_{batch}`). One decode graph serves every chunk
+        size, so `first_chunk` has only to fit the step buffers. Call it
+        between requests: the eager runs write the cache (stored prefixes
+        are copies and stay as they are). Returns {name: seconds} of the
         graphs captured by this call (each with its eager run); on the CPU
         nothing is captured and it returns {}."""
         cfg = self.cfg
-        n_steps = self.state.n_steps
-        if first_chunk is not None and not 0 < first_chunk <= n_steps:
+        if not 1 <= batch <= self.max_batch:
+            raise ValueError(f"batch={batch} outside 1..{self.max_batch}")
+        st = self._state_for(batch)
+        if first_chunk is not None and not 0 < first_chunk <= st.n_steps:
             raise ValueError(f"first_chunk={first_chunk} outside the step "
-                             f"buffers' 1..{n_steps}")
+                             f"buffers' 1..{st.n_steps}")
         if not 0 < prompt_len < cfg.max_seq_len:
             raise ValueError(f"prompt_len {prompt_len} outside 1.."
                              f"{cfg.max_seq_len - 1}")
@@ -856,13 +1036,13 @@ class GenerationSession:
         budget = (max_new_tokens
                   if max_new_tokens and prompt_len + max_new_tokens <= cfg.max_seq_len
                   else cfg.max_seq_len - prompt_len)
-        names = [f"prefill_{self._bucket(prompt_len)}"]
+        names = [_graph_name("prefill", batch, self._bucket(prompt_len))]
         if budget > 1:
-            names.append("decode")
+            names.append(_graph_name("decode", batch))
         names += [f"suffix_{pick_bucket(t, self.cache_len)}"
                   for t in suffix_buckets]
         with GUARD.launching():
-            self._set_request(prompt_len, 0, self.scfg.temperature,
+            self._set_request(st, prompt_len, [0] * batch, self.scfg.temperature,
                               self.scfg.top_p, self.scfg.top_k)
         out = {}
         for name in dict.fromkeys(names):
@@ -871,26 +1051,31 @@ class GenerationSession:
                 out[name] = self.capture_seconds[name]
         return out
 
-    def _set_request(self, t: int, seed: int, temperature, top_p, top_k):
-        st = self.state
+    @staticmethod
+    def _set_request(st: StepState, t: int, seeds, temperature, top_p, top_k):
         st.t_end.fill_(t)
-        st.seed.fill_(seed)
+        if len(seeds) == 1:
+            st.seed.fill_(seeds[0])
+        else:
+            st.seed.copy_(torch.tensor(seeds, dtype=torch.int64))
         for i, v in enumerate((temperature, top_p, top_k)):
             st.sampling[i].fill_(float(v))
 
-    def decode_chunk(self, n: int, generator=None):
-        """Enqueue n decode steps (on CUDA n replays of the step graph);
-        returns a copy of their columns (n, 1, C+1). Nothing here waits on
-        the device, so chunks can queue. The steps draw from the request's
-        seed and draw counter. `generator` is not read: it stays only
-        because `scripts/decode_step_profile.py`, kept as it is, still
-        passes one; drop it when that script stops passing it."""
-        st = self.state
-        self._graphs_for("decode")
+    def decode_chunk(self, n: int, generator=None, rows: int = 1):
+        """Enqueue n decode steps of the `rows`-row buffers (on CUDA n
+        replays of their step graph); returns a copy of their columns (n,
+        rows, C+1). Nothing here waits on the device, so chunks can queue.
+        The steps draw from each row's seed and the draw counter.
+        `generator` is not read: it stays only because
+        `scripts/decode_step_profile.py`, kept as it is, still passes one;
+        drop it when that script stops passing it."""
+        st = self._state_for(rows)
+        name = _graph_name("decode", rows)
+        self._graphs_for(name)
         with GUARD.launching():
             st.step.zero_()
             for _ in range(n):
-                self._run("decode")
+                self._run(name)
             return st.cols[:n].clone()
 
     def generate(self, prompt: np.ndarray, generator, max_new_tokens: int = 0,
@@ -912,7 +1097,7 @@ class GenerationSession:
         prefix hit the stored rows' restore and the suffix graph, else the
         prompt's bucket (whose rows are stored when the store takes the
         prompt). JAX's hit and miss decisions and counts."""
-        cfg, st = self.cfg, self.state
+        cfg, st = self.cfg, self._state_for(1)
         t = prompt.shape[1]
         pre = self.prefix.lookup(prompt) if self.prefix.size else None
         if pre is not None:
@@ -930,7 +1115,7 @@ class GenerationSession:
             with GUARD.launching():
                 restore_prefix_rows(st.cache, rows)
                 st.prompt(sbucket).copy_(torch.from_numpy(inp))
-                self._set_request(ts, seed, *sampling)
+                self._set_request(st, ts, [seed], *sampling)
                 st.start.fill_(m)
                 self._run(name)
             return
@@ -941,38 +1126,45 @@ class GenerationSession:
         self._graphs_for(f"prefill_{bucket}")
         with GUARD.launching():
             st.prompt(bucket).copy_(torch.from_numpy(inp))
-            self._set_request(t, seed, *sampling)
+            self._set_request(st, t, [seed], *sampling)
             self._run(f"prefill_{bucket}")
             if self.prefix.accepts(prompt):
                 self.prefix.store(prompt, {name: c[:, :, :bucket].clone()
                                            for name, c in st.cache.items()},
                                   bucket)
 
+    def _budget(self, t: int, max_new_tokens: int) -> int:
+        if t >= self.cfg.max_seq_len:
+            raise ValueError(f"Input sequence length {t} exceeds max_seq_len "
+                             f"{self.cfg.max_seq_len}")
+        if max_new_tokens and t + max_new_tokens <= self.cfg.max_seq_len:
+            return max_new_tokens
+        return self.cfg.max_seq_len - t
+
     def generate_stream(self, prompt: np.ndarray, generator,
                         max_new_tokens: int = 0, temperature: float = 1.0,
                         top_p: float = 0.9, top_k: int = 30,
-                        pipeline_lookahead: int = 0):
+                        pipeline_lookahead: int = 0,
+                        device_partials: bool = False):
         """Yield the CUMULATIVE (C+1, n) host columns after the prefill frame
         and after every decode chunk; the last yield is the whole sequence.
         `generator`: the request's seed, or the generator of
         `new_generator` that gives it (`request_seed`).
 
         pipeline_lookahead > 0 enqueues that many chunks beyond the one
-        being read, so the device runs chunks back to back."""
-        cfg, st = self.cfg, self.state
+        being read, so the device runs chunks back to back.
+        device_partials: yield a `StreamPartial` instead, before any host
+        sync, after the prefill and after each chunk's enqueue (JAX's
+        `_stream_device`; lookahead 0)."""
+        cfg, st = self.cfg, self._state_for(1)
         check_top_k(top_k)
         t = prompt.shape[1]
-        if t >= cfg.max_seq_len:
-            raise ValueError(
-                f"Input sequence length {t} exceeds max_seq_len {cfg.max_seq_len}"
-            )
-        if max_new_tokens and t + max_new_tokens <= cfg.max_seq_len:
-            budget = max_new_tokens
-        else:
-            budget = cfg.max_seq_len - t
-
+        budget = self._budget(t, max_new_tokens)
         self._prefill_first(prompt, request_seed(generator),
                             (temperature, top_p, top_k))
+        if device_partials:
+            yield from self._stream_device(budget)
+            return
         with GUARD.launching():
             # a copy: on the CPU .cpu() returns the buffer the steps overwrite
             columns = [st.token.cpu().numpy().copy()]  # list of (B, C+1)
@@ -1005,6 +1197,95 @@ class GenerationSession:
             columns.append(cols)
             yield np.concatenate(columns, axis=0).T
 
+    def _stream_device(self, budget: int):
+        """The device partials of the stream whose prefill was enqueued:
+        the first column's, then after each enqueued chunk the cumulative
+        columns, each yielded before the host reads anything; the host
+        checks for im_end after the consumer resumes, through the partial's
+        own host copy. Whole chunks, untrimmed (`StreamPartial`)."""
+        cfg, st = self.cfg, self._state_for(1)
+        with GUARD.launching():
+            cum = st.token.T.clone()  # (C+1, 1)
+            partial = StreamPartial(cum, cfg.im_end_id, budget)
+        yield partial
+        if int(partial.host()[0, -1]) == cfg.im_end_id:
+            return
+        dispatch_left = budget - 1
+        first = True
+        while dispatch_left > 0:
+            n = self.first_chunk_size if first else self.decode_chunk_size
+            first = False
+            cols = self.decode_chunk(n)
+            with GUARD.launching():
+                cum = torch.cat([cum, cols[:, 0].T], dim=1)
+                partial = StreamPartial(cum, cfg.im_end_id, budget)
+            dispatch_left -= n
+            yield partial
+            if (partial.host()[0] == cfg.im_end_id).any():
+                return
+
+    def generate_batch(self, prompts, generator, max_new_tokens: int = 0,
+                       temperature: float = 1.0, top_p: float = 0.9,
+                       top_k: int = 30, first_chunk_size: Optional[int] = None):
+        """JAX's lockstep `generate_batch`: B <= max_batch prompts ((C+1,
+        T_i) each) left-padded to a common end t_max, prefilled at B rows
+        with per-row offsets (`prefill_{B}_{bucket}`), then decoded in
+        lockstep at one position by chunks of `decode_{B}` replays, each
+        row attending from its offset (the decode kernels' `starts`). Row
+        r draws the uniforms of `batch_seeds(seed, B)[r]`, `seed` being
+        `generator` or its next draw (`request_seed`), so its codes do not
+        depend on the chunk sizes. Chunks run while any row lacks its
+        im_end and the budget (that of the longest prompt) lasts; returns a
+        list of (C+1, N_i) arrays, each cut after its own im_end.
+
+        first_chunk_size: an optional smaller first chunk (the streaming
+        ramp), then chunks of decode_chunk_size; both must fit the step
+        buffers."""
+        cfg = self.cfg
+        check_top_k(top_k)
+        b = len(prompts)
+        if not 1 <= b <= self.max_batch:
+            raise ValueError(f"{b} prompts for a session of max_batch="
+                             f"{self.max_batch}")
+        lens = [p.shape[1] for p in prompts]
+        t_max = max(lens)
+        budget = self._budget(t_max, max_new_tokens)
+        st = self._state_for(b)
+        chunk = int(first_chunk_size or self.decode_chunk_size)
+        if not 0 < chunk <= st.n_steps:
+            raise ValueError(f"first_chunk_size={chunk} outside the step "
+                             f"buffers' 1..{st.n_steps}")
+        bucket = self._bucket(t_max)
+        inp = np.zeros((b, cfg.num_codebooks + 1, bucket), dtype=np.int32)
+        offsets = np.asarray([t_max - n for n in lens], dtype=np.int32)
+        for i, p in enumerate(prompts):
+            inp[i, :, offsets[i] : t_max] = p
+        name = _graph_name("prefill", b, bucket)
+        self._graphs_for(name)
+        seeds = batch_seeds(request_seed(generator), b)
+        with GUARD.launching():
+            st.prompt(bucket).copy_(torch.from_numpy(inp))
+            st.offsets.copy_(torch.from_numpy(offsets))
+            self._set_request(st, t_max, seeds, temperature, top_p, top_k)
+            self._run(name)
+            columns = [st.token.cpu().numpy().copy()]  # (B, C+1) each
+        done = columns[0][:, 0] == cfg.im_end_id
+        steps_left = budget - 1
+        while steps_left > 0 and not done.all():
+            cols_dev = self.decode_chunk(chunk, rows=b)
+            with GUARD.launching():
+                cols = cols_dev.cpu().numpy()[: steps_left]  # (n, B, C+1)
+            steps_left -= chunk
+            columns.extend(cols)
+            done = done | (cols[:, :, 0] == cfg.im_end_id).any(axis=0)
+            chunk = self.decode_chunk_size
+        stacked = np.stack(columns, axis=0)  # (N, B, C+1)
+        outputs = []
+        for i in range(b):
+            ends = np.flatnonzero(stacked[:, i, 0] == cfg.im_end_id)
+            n = int(ends[0]) + 1 if len(ends) else stacked.shape[0]
+            outputs.append(np.ascontiguousarray(stacked[:n, i].T))
+        return outputs
 
 # ---------------------------------------------------------------------------
 # Text chunking and long-form generation
@@ -1103,24 +1384,34 @@ def encode_turn(conversation, text: str, tokenizer, num_codebooks: int):
 
 
 def generate_long(*, session: GenerationSession, tokenizer, text: str,
-                  max_new_tokens: int = 0, top_p: float = 0.9, top_k: int = 30,
-                  temperature: float = 1.0, chunk_length: int = 300,
+                  num_samples: int = 1, max_new_tokens: int = 0,
+                  top_p: float = 0.9, top_k: int = 30, temperature: float = 1.0,
+                  chunk_length: int = 300, max_speakers: int = 5,
                   prompt_text: Optional[Union[str, List[str]]] = None,
                   prompt_tokens: Optional[Union[np.ndarray, List[np.ndarray]]] = None,
-                  seed: int = 42, stream_partials: bool = False,
-                  cancel_check=None):
+                  seed: int = 42, logger=None, stream_partials: bool = False,
+                  device_partials: bool = False, cancel_check=None):
     """Chunked long-form generation: split the text on speaker tags, batch
-    the turns, generate each batch in turn with the earlier batches' codes
-    as conversation context.
+    the turns (at most `max_speakers` turns and `chunk_length` bytes a
+    batch), generate each batch in turn with the earlier batches' codes as
+    conversation context; `num_samples` times over, each sample from the
+    base conversation again and ending with action="next".
 
     prompt_text / prompt_tokens: an optional voice-clone prompt (reference
     texts and their (num_codebooks, T) codes) for the system message.
     stream_partials: also yield action="partial" with the cumulative codes
     of the segment in progress after every decode chunk; the closing
-    action="sample" repeats the whole segment. cancel_check: an optional
-    () -> bool polled between text segments and decode chunks; True
-    abandons the generation (the server wires a client's disconnect here),
-    and closing the session's stream frees what it holds."""
+    action="sample" repeats the whole segment. device_partials (with
+    stream_partials): the partials carry the session's device tensor of
+    codebook rows, yielded before any host sync, and a `valid_frames`
+    callable that says how many are real (JAX's low-TTFA path;
+    `StreamPartial`). The rows are cut at the budget, a host number (where
+    JAX passes the whole chunks): past an im_end they are not trimmed, so
+    the engine's codec reads the host path's columns except after one. cancel_check: an optional () -> bool polled
+    between text segments and decode chunks; True abandons the generation
+    (the server wires a client's disconnect here), and closing the
+    session's stream frees what it holds. logger: an optional logger given
+    each segment's columns, seconds and rates, as JAX's."""
     from fish_speech_tpu_torch.sequence import Conversation, Message, VQPart
 
     if not 0 < top_p <= 1:
@@ -1140,57 +1431,86 @@ def generate_long(*, session: GenerationSession, tokenizer, text: str,
     base_conversation = build_base_conversation(prompt_text, prompt_tokens)
     turns = split_text_by_speaker(text)
     if turns:
-        batches = group_turns_into_batches(turns, max_bytes=chunk_length)
+        batches = group_turns_into_batches(turns, max_speakers=max_speakers,
+                                           max_bytes=chunk_length)
     else:
         batches = [text]
 
     generator = session.new_generator(seed)
-    conversation = Conversation(list(base_conversation.messages))
-    for batch_text in batches:
-        encoded = encode_turn(conversation, batch_text, tokenizer,
-                              cfg.num_codebooks)
-        if encoded.shape[1] > cfg.max_seq_len - 2048 and cfg.max_seq_len > 2048:
-            raise ValueError(f"Prompt is too long: {encoded.shape[1]} > "
-                             f"{cfg.max_seq_len - 2048}")
-        if cancelled():
-            return
-
-        kw = dict(max_new_tokens=max_new_tokens, temperature=temperature,
-                  top_p=top_p, top_k=top_k)
-        if stream_partials or cancel_check is not None:
-            # the chunked stream (the loop `session.generate` runs), so the
-            # poll fires between decode chunks
-            seq = None
-            stream = session.generate_stream(
-                encoded, generator, **kw,
-                pipeline_lookahead=(0 if stream_partials else
-                                    getattr(session, "pipeline_lookahead", 0)))
-            try:
-                for seq in stream:
-                    if cancelled():
-                        return
-                    n_p = seq.shape[1]
-                    end_p = (n_p - 1 if n_p and int(seq[0, -1]) == cfg.im_end_id
-                             else n_p)
-                    if stream_partials and end_p > 0:
+    kw = dict(max_new_tokens=max_new_tokens, temperature=temperature,
+              top_p=top_p, top_k=top_k)
+    for _ in range(num_samples):
+        conversation = Conversation(list(base_conversation.messages))
+        for batch_text in batches:
+            encoded = encode_turn(conversation, batch_text, tokenizer,
+                                  cfg.num_codebooks)
+            if encoded.shape[1] > cfg.max_seq_len - 2048 and cfg.max_seq_len > 2048:
+                raise ValueError(f"Prompt is too long: {encoded.shape[1]} > "
+                                 f"{cfg.max_seq_len - 2048}")
+            if cancelled():
+                return
+            t0 = time.perf_counter()
+            if stream_partials and device_partials:
+                last = None
+                stream = session.generate_stream(encoded, generator, **kw,
+                                                 device_partials=True)
+                try:
+                    for last in stream:
+                        if cancelled():
+                            return
                         yield GenerateResponse(
                             action="partial",
-                            codes=np.ascontiguousarray(seq[1:, :end_p]),
-                            text=batch_text,
-                        )
-            finally:
-                stream.close()
-        else:
-            seq = session.generate(encoded, generator, **kw)
-        # drop the trailing im_end column; keep the codebook rows
-        n = seq.shape[1]
-        end = n - 1 if int(seq[0, -1]) == cfg.im_end_id else n
-        codes = np.ascontiguousarray(seq[1:, :end])
-        if (codes < 0).any():
-            raise RuntimeError("negative code generated")
-        conversation.append(Message(role="assistant",
-                                    parts=[VQPart(codes=codes, cal_loss=False)],
-                                    cal_loss=False, modality="voice",
-                                    add_im_start=True, add_im_end=True))
-        yield GenerateResponse(action="sample", codes=codes, text=batch_text)
-    yield GenerateResponse(action="next")
+                            codes=last.device_cols[1:, : last.max_cols],
+                            text=batch_text, valid_frames=last.valid_frames)
+                finally:
+                    stream.close()
+                # the trimmed host sequence (with its im_end column, if
+                # any), as the host path's last yield
+                host, valid = last.host(), last.valid_frames()
+                has_end = (valid < host.shape[1]
+                           and int(host[0, valid]) == cfg.im_end_id)
+                seq = host[:, : valid + 1 if has_end else valid]
+            elif stream_partials or cancel_check is not None:
+                # the chunked stream (the loop `session.generate` runs), so
+                # the poll fires between decode chunks
+                seq = None
+                stream = session.generate_stream(
+                    encoded, generator, **kw,
+                    pipeline_lookahead=(0 if stream_partials else
+                                        getattr(session, "pipeline_lookahead", 0)))
+                try:
+                    for seq in stream:
+                        if cancelled():
+                            return
+                        n_p = seq.shape[1]
+                        end_p = (n_p - 1 if n_p and int(seq[0, -1]) == cfg.im_end_id
+                                 else n_p)
+                        if stream_partials and end_p > 0:
+                            yield GenerateResponse(
+                                action="partial",
+                                codes=np.ascontiguousarray(seq[1:, :end_p]),
+                                text=batch_text,
+                            )
+                finally:
+                    stream.close()
+            else:
+                seq = session.generate(encoded, generator, **kw)
+            if logger is not None:
+                dt = time.perf_counter() - t0
+                tok_s = seq.shape[1] / max(dt, 1e-9)
+                logger.info("Generated %d columns in %.2fs (%.1f tok/s, %.1f GB/s, "
+                            "RTF %.3f)", seq.shape[1], dt, tok_s,
+                            getattr(session, "param_bytes", 0) * tok_s / 1e9,
+                            21.5332 / max(tok_s, 1e-9))
+            # drop the trailing im_end column; keep the codebook rows
+            n = seq.shape[1]
+            end = n - 1 if int(seq[0, -1]) == cfg.im_end_id else n
+            codes = np.ascontiguousarray(seq[1:, :end])
+            if (codes < 0).any():
+                raise RuntimeError("negative code generated")
+            conversation.append(Message(role="assistant",
+                                        parts=[VQPart(codes=codes, cal_loss=False)],
+                                        cal_loss=False, modality="voice",
+                                        add_im_start=True, add_im_end=True))
+            yield GenerateResponse(action="sample", codes=codes, text=batch_text)
+        yield GenerateResponse(action="next")

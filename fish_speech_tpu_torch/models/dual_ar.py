@@ -371,14 +371,16 @@ def _layer_slice(layers, i):
             for name, w in layers.items()}
 
 
-def _run_stack_decode(layers, spec, x, freqs, cache, pos, lengths):
+def _run_stack_decode(layers, spec, x, freqs, cache, pos, lengths,
+                      starts=None):
     """Decode-mode layer loop.
 
     x (B, 1, D). Lockstep: freqs (1, Dh/2, 2) and the cache is written in
     place at `pos` (an int or a (1,) int64 tensor). Per row (the decode
     pool): freqs (B, 1, Dh/2, 2) and `pos` is (flat_pos, active) for
     `_store_kv_rows`. int8 plus scales under the int8 cache; each layer's
-    attention reads its first `lengths[b]` positions."""
+    attention reads positions [starts[b], lengths[b]) (from 0 without
+    `starts`)."""
     n_head, n_kv, head_dim, eps, _ = spec
     b = x.shape[0]
     quant = "ks" in cache
@@ -395,9 +397,11 @@ def _run_stack_decode(layers, spec, x, freqs, cache, pos, lengths):
         qg = q.reshape(b, n_kv, n_head // n_kv, head_dim).contiguous()
         if quant:
             y = flash_decode_attention_kv8(qg, cache["k"], cache["ks"],
-                                           cache["v"], cache["vs"], i, lengths)
+                                           cache["v"], cache["vs"], i, lengths,
+                                           starts)
         else:
-            y = flash_decode_attention(qg, cache["k"], cache["v"], i, lengths)
+            y = flash_decode_attention(qg, cache["k"], cache["v"], i, lengths,
+                                       starts)
         x = x + _attn_out(lp, spec, y.reshape(b, 1, -1))
         h2 = rms_norm(x, lp["ffn_norm"], eps)
         x = x + _ffn(lp, spec, h2)
@@ -638,15 +642,19 @@ def _lengths(b: int, pos: int, device):
     return torch.full((b,), pos + 1, dtype=torch.int32, device=device)
 
 
-def decode_slow_step(params, cfg: DualARConfig, token, cache, pos):
+def decode_slow_step(params, cfg: DualARConfig, token, cache, pos,
+                     kv_valid=None):
     """One slow-transformer step at absolute position `pos`: a host int or
     an int tensor of one element on the model's device. Everything that
     depends on it is computed on the device (the RoPE row, the cache
     write, the attention lengths), so a CUDA graph of the step reads the
     position at replay.
 
-    token: (B, C+1) int current column. Returns (hidden (B, D) for the fast
-    stack, slow_out (B, D) normed, cache)."""
+    token: (B, C+1) int current column. kv_valid: optional (B,) int32
+    per-row first positions on the model's device (the lockstep batch's
+    left-padded prompts, JAX's `kv_valid`): row b attends [kv_valid[b],
+    pos], passed to the decode kernels as their `starts`. Returns (hidden
+    (B, D) for the fast stack, slow_out (B, D) normed, cache)."""
     cfg = cfg.resolve()
     x = embed_tokens(params, cfg, token[:, :, None])  # (B, 1, D)
     b = x.shape[0]
@@ -657,7 +665,7 @@ def decode_slow_step(params, cfg: DualARConfig, token, cache, pos):
     freqs = table.index_select(0, pos.clamp(max=table.shape[0] - 1))
     lengths = (pos + 1).to(torch.int32).expand(b).contiguous()
     x, cache = _run_stack_decode(params["layers"], _slow_spec(cfg), x, freqs,
-                                 cache, pos, lengths)
+                                 cache, pos, lengths, kv_valid)
     x = x[:, 0]
     slow_out = rms_norm(x, params["norm"], cfg.norm_eps)
     hidden = slow_out if cfg.norm_fastlayer_input else x
@@ -693,6 +701,28 @@ def decode_slow_step_multi(params, cfg: DualARConfig, token, cache, pos,
     slow_out = rms_norm(x, params["norm"], cfg.norm_eps)
     hidden = slow_out if cfg.norm_fastlayer_input else x
     return hidden, slow_out, cache
+
+
+def insert_cache_slot(pool, single, slot):
+    """Copy a one-row cache (L, 1, S', ...) into row `slot` (an int or a
+    one-element int64 tensor) of `pool`, positions [0, S'), for every
+    tensor of the layout (plain {k, v} or int8 {k, v, ks, vs}; JAX's
+    `insert_cache_slot` copies k and v). In place; returns `pool`."""
+    rows = torch.as_tensor(slot, device=pool["k"].device).reshape(1).long()
+    return insert_cache_rows(pool, single, rows)
+
+
+def insert_cache_rows(pool, group, rows):
+    """Copy a k-row cache (L, k, S', ...) into pool rows `rows` ((k,)
+    int64 on the pool's device), positions [0, S'), for every tensor of the
+    layout (JAX's `insert_cache_rows` copies k and v). S' may be smaller
+    than the pool's: a group prefill fills only its prompt bucket, and the
+    later positions are written by decode before they are attended. In
+    place; returns `pool`."""
+    s = group["k"].shape[2]
+    for name, dst in pool.items():
+        dst[:, :, :s].index_copy_(1, rows, group[name].to(dst.dtype))
+    return pool
 
 
 def fast_decode_step(params, cfg: DualARConfig, x, fast_cache, pos: int,

@@ -108,8 +108,8 @@ def load_kernels() -> ctypes.CDLL:
     ]
     lib.fs_flash_suffix.restype = i32
     lib.fs_flash_decode.argtypes = [
-        ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, i32,
-        f32, ptr
+        ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32,
+        i32, f32, ptr
     ]
     lib.fs_flash_decode.restype = i32
     lib.fs_flash_train_fwd.argtypes = [
@@ -124,7 +124,7 @@ def load_kernels() -> ctypes.CDLL:
     lib.fs_flash_train_bwd_occupancy.argtypes = [i32, ptr, ptr]
     lib.fs_flash_train_bwd_occupancy.restype = i32
     lib.fs_flash_decode_kv8.argtypes = [
-        ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr,
+        ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr,
         i32, i32, i32, i32, i32, i32, i32, f32, ptr
     ]
     lib.fs_flash_decode_kv8.restype = i32

@@ -10,6 +10,12 @@ heads of a KV head to Gp >= 8; this one takes any G <= 8 unpadded.
 `flash_decode_reference` is the plain PyTorch version: the wrapper runs it
 for CPU tensors only; for a CUDA tensor it launches the kernel or raises.
 
+Every entry takes an optional per-row `starts` (B,) int32 beside
+`lengths`: row b then attends positions [starts[b], lengths[b]), the JAX
+decode's `kv_valid` mask of the lockstep batch, whose prompts are
+left-padded to a common end (`GenerationSession.generate_batch`). Without
+it a row attends [0, lengths[b]), as before.
+
 The kernel splits each row's positions over Z blocks and merges their
 softmax states in the same launch. `decode_split_count` (Z, from S and the
 SM count) and `decode_slice` (a block's positions, from the row's length)
@@ -50,15 +56,18 @@ def decode_split_count(s_len: int, n_kv: int, batch: int, n_sm: int) -> int:
     return max(1, min(want, -(-s_len // SLICE_ALIGN), MAX_SPLIT))
 
 
-def decode_slice(z: int, n_split: int, length: int, s_len: int):
-    """[start, end) of the positions block z of n_split reads in a row of
-    `length`: chunks of ceil(S / Z) rounded up to SLICE_ALIGN (a chunk cut
-    from the row's length measured slower at len 4000 and no faster at
-    2048). Blocks past the length get an empty slice and do nothing."""
+def decode_slice(z: int, n_split: int, length: int, s_len: int,
+                 row_start: int = 0):
+    """[start, end) of the positions block z of n_split reads in a row that
+    attends [row_start, length): chunk z of ceil(S / Z) rounded up to
+    SLICE_ALIGN (a chunk cut from the row's length measured slower at len
+    4000 and no faster at 2048), cut to the row's positions. Blocks past
+    the length or wholly before the start get an empty slice and do
+    nothing; the kernel merges only the others."""
     per_block = -(-s_len // n_split)
     chunk = max(SLICE_ALIGN, -(-per_block // SLICE_ALIGN) * SLICE_ALIGN)
-    start = min(z * chunk, length)
-    return start, min(start + chunk, length)
+    start = min(max(z * chunk, row_start), length)
+    return start, max(start, min(z * chunk + chunk, length))
 
 
 def decode_partial_reference(q, k_all, v_all, layer: int, starts, ends):
@@ -92,26 +101,50 @@ def merge_decode_states(states, dtype):
     return (out / tot.clamp_min(1e-38)[..., None]).to(dtype)
 
 
-def flash_decode_reference(q, k_all, v_all, layer: int, lengths):
+def _visible(lengths, starts, s_len, device):
+    """(B, S) bool: position j visible to row b, starts[b] <= j <
+    lengths[b] (from 0 without `starts`)."""
+    j = torch.arange(s_len, device=device)
+    mask = j[None, :] < lengths.to(device)[:, None]
+    if starts is not None:
+        mask = mask & (j[None, :] >= starts.to(device)[:, None])
+    return mask
+
+
+def flash_decode_reference(q, k_all, v_all, layer: int, lengths, starts=None):
     """q (B, Hkv, G, D); k_all/v_all (L, B, S, Hkv, D); lengths (B,) = the
-    visible prefix per row (pos + 1), in [1, S]. Returns (B, Hkv, G, D):
-    fp32 scores, softmax and P.V (`pallas_decode.flash_decode_reference`)."""
+    visible prefix per row (pos + 1), in [1, S]; starts (B,) the first
+    visible position of each row, below its length (None: 0). Returns (B,
+    Hkv, G, D): fp32 scores, softmax and P.V
+    (`pallas_decode.flash_decode_reference`, with JAX's `kv_valid` mask)."""
     d = q.shape[-1]
     k = k_all[layer].float()
     v = v_all[layer].float()
     s = torch.einsum("bkgd,bskd->bkgs", q.float(), k) / math.sqrt(d)
-    j = torch.arange(k.shape[1], device=q.device)
-    mask = j[None, :] < lengths.to(q.device)[:, None]  # (B, S)
+    mask = _visible(lengths, starts, k.shape[1], q.device)  # (B, S)
     s = s.masked_fill(~mask[:, None, None, :], NEG_INF)
     w = torch.softmax(s, dim=-1)
     return torch.einsum("bkgs,bskd->bkgd", w, v).to(q.dtype)
 
 
-def _check(q, k_all, v_all, layer, lengths):
+def _check_starts(name, lengths, starts):
+    """`starts` as the kernels take it: None, or int32 shaped as `lengths`,
+    contiguous (its device is checked with the other tensors')."""
+    if starts is None:
+        return
+    if starts.dtype != torch.int32:
+        raise TypeError(f"{name}: starts must be int32")
+    if starts.shape != lengths.shape or not starts.is_contiguous():
+        raise ValueError(f"{name}: starts must be a contiguous (B,) tensor")
+
+
+def _check(q, k_all, v_all, layer, lengths, starts):
+    _check_starts("flash_decode_attention", lengths, starts)
     if not (q.is_cuda and k_all.device == q.device and v_all.device == q.device
-            and lengths.device == q.device):
-        raise ValueError("flash_decode_attention: q, k_all, v_all and lengths "
-                         "must lie on one CUDA device")
+            and lengths.device == q.device
+            and (starts is None or starts.device == q.device)):
+        raise ValueError("flash_decode_attention: q, k_all, v_all, lengths and "
+                         "starts must lie on one CUDA device")
     if (q.dtype not in DTYPE_CODES or k_all.dtype != q.dtype
             or v_all.dtype != q.dtype):
         raise TypeError(f"flash_decode_attention: bf16 or fp32 of one dtype, "
@@ -143,15 +176,15 @@ def _check(q, k_all, v_all, layer, lengths):
 _PLANS: dict = {}
 
 
-def _plan(name, q, caches, lengths, layer, check):
+def _plan(name, q, caches, lengths, starts, layer, check):
     """What a call of these shapes, dtypes and devices passes a decode
     kernel beyond its pointers: (Z, workspace, counters, layers, bytes per
     layer of each stacked cache tensor, dtype code, scale). The first call
-    of a key runs `check` and keeps the plan; a later one repeats only the
-    checks that the key does not fix (the layer, contiguity, and the
-    alignment of q and the K/V that the TMA reads, caches[0] and
-    caches[-2])."""
-    tensors = (q, *caches, lengths)
+    of a key (with or without `starts`) runs `check` and keeps the plan; a
+    later one repeats only the checks that the key does not fix (the layer,
+    contiguity, and the alignment of q and the K/V that the TMA reads,
+    caches[0] and caches[-2])."""
+    tensors = (q, *caches, lengths) + (() if starts is None else (starts,))
     key = (name,) + tuple((t.shape, t.dtype, t.get_device()) for t in tensors)
     plan = _PLANS.get(key)
     if plan is None:
@@ -176,21 +209,22 @@ def _plan(name, q, caches, lengths, layer, check):
     return plan
 
 
-def flash_decode_attention(q, k_all, v_all, layer: int, lengths):
+def flash_decode_attention(q, k_all, v_all, layer: int, lengths, starts=None):
     """Same contract as `flash_decode_reference`; on CUDA tensors runs the
-    hand-written kernel, which reads only the first lengths[b] positions,
-    split over `decode_split_count` blocks per row, in one launch."""
+    hand-written kernel, which reads only positions [starts[b],
+    lengths[b]), split over `decode_split_count` blocks per row, in one
+    launch."""
     if not q.is_cuda and q.device.type == "cpu":
-        return flash_decode_reference(q, k_all, v_all, layer, lengths)
+        return flash_decode_reference(q, k_all, v_all, layer, lengths, starts)
     z, work, counters, _, (layer_bytes, _), code, scale = _plan(
-        "flash_decode_attention", q, (k_all, v_all), lengths, layer,
-        lambda: _check(q, k_all, v_all, layer, lengths))
+        "flash_decode_attention", q, (k_all, v_all), lengths, starts, layer,
+        lambda: _check(q, k_all, v_all, layer, lengths, starts))
     b, hkv, g, d = q.shape
     out = torch.empty_like(q)
     rc = load_kernels().fs_flash_decode(
         q.data_ptr(), k_all.data_ptr() + layer_bytes * layer,
         v_all.data_ptr() + layer_bytes * layer, lengths.data_ptr(),
-        out.data_ptr(), work, counters, b, k_all.shape[2], hkv, g, d, code, z,
+        None if starts is None else starts.data_ptr(), out.data_ptr(), work, counters, b, k_all.shape[2], hkv, g, d, code, z,
         scale, stream_ptr(q))
     check_launch(rc, "flash_decode")
     flash_decode_attention.launches += 1
@@ -201,15 +235,14 @@ flash_decode_attention.launches = 0
 
 
 def flash_decode_kv8_reference(q, k_all, ks_all, v_all, vs_all, layer: int,
-                               lengths):
+                               lengths, starts=None):
     """q (B, Hkv, G, D); k_all/v_all (L, B, S, Hkv, D) int8; ks_all/vs_all
-    (L, B, S, Hkv) scales; lengths (B,) in [1, S]. Returns (B, Hkv, G, D):
-    `gqa_attention_kv8` of the one query position over the first
-    lengths[b] positions of layer `layer`."""
+    (L, B, S, Hkv) scales; lengths (B,) in [1, S]; starts as
+    `flash_decode_reference`'s. Returns (B, Hkv, G, D): `gqa_attention_kv8`
+    of the one query position over positions [starts[b], lengths[b]) of
+    layer `layer`."""
     b, hkv, g, d = q.shape
-    s = k_all.shape[2]
-    j = torch.arange(s, device=q.device)
-    mask = (j[None, :] < lengths.to(q.device)[:, None])[:, None, :]  # (B,1,S)
+    mask = _visible(lengths, starts, k_all.shape[2], q.device)[:, None, :]
     y = gqa_attention_kv8(q.reshape(b, 1, hkv * g, d), k_all[layer],
                           ks_all[layer], v_all[layer], vs_all[layer], mask)
     return y.reshape(b, hkv, g, d)
@@ -248,9 +281,11 @@ def decode_partial_kv8_reference(q, k_all, ks_all, v_all, vs_all, layer: int,
     return m, p.sum(dim=-1), torch.einsum("bkgs,bskd->bkgd", w, v)
 
 
-def _check_kv8(q, k_all, ks_all, v_all, vs_all, layer, lengths):
+def _check_kv8(q, k_all, ks_all, v_all, vs_all, layer, lengths, starts):
+    _check_starts("flash_decode_attention_kv8", lengths, starts)
     if not all(t.is_cuda and t.device == q.device
-               for t in (q, k_all, ks_all, v_all, vs_all, lengths)):
+               for t in (q, k_all, ks_all, v_all, vs_all, lengths,
+                         *(() if starts is None else (starts,)))):
         raise ValueError("flash_decode_attention_kv8: every tensor must lie on "
                          "one CUDA device")
     if (q.dtype not in DTYPE_CODES or k_all.dtype != torch.int8
@@ -285,24 +320,26 @@ def _check_kv8(q, k_all, ks_all, v_all, vs_all, layer, lengths):
 
 
 def flash_decode_attention_kv8(q, k_all, ks_all, v_all, vs_all, layer: int,
-                               lengths):
+                               lengths, starts=None):
     """Same contract as `flash_decode_kv8_reference`; on CUDA tensors runs
-    the hand-written int8-KV kernel, which reads only the first lengths[b]
-    positions, split over `decode_split_count` blocks per row, in one
-    launch."""
+    the hand-written int8-KV kernel, which reads only positions
+    [starts[b], lengths[b]), split over `decode_split_count` blocks per
+    row, in one launch."""
     if q.device.type == "cpu":
         return flash_decode_kv8_reference(q, k_all, ks_all, v_all, vs_all,
-                                          layer, lengths)
+                                          layer, lengths, starts)
     z, work, counters, _, (kv_bytes, sc_bytes, _, _), code, scale = _plan(
         "flash_decode_attention_kv8", q, (k_all, ks_all, v_all, vs_all),
-        lengths, layer,
-        lambda: _check_kv8(q, k_all, ks_all, v_all, vs_all, layer, lengths))
+        lengths, starts, layer,
+        lambda: _check_kv8(q, k_all, ks_all, v_all, vs_all, layer, lengths,
+                           starts))
     b, hkv, g, d = q.shape
     out = torch.empty_like(q)
     rc = load_kernels().fs_flash_decode_kv8(
         q.data_ptr(), k_all.data_ptr() + kv_bytes * layer,
         ks_all.data_ptr() + sc_bytes * layer, v_all.data_ptr() + kv_bytes * layer,
-        vs_all.data_ptr() + sc_bytes * layer, lengths.data_ptr(), out.data_ptr(),
+        vs_all.data_ptr() + sc_bytes * layer, lengths.data_ptr(),
+        None if starts is None else starts.data_ptr(), out.data_ptr(),
         work, counters, b, k_all.shape[2], hkv, g, d, code, z, scale,
         stream_ptr(q))
     check_launch(rc, "flash_decode_kv8")

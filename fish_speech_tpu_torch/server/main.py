@@ -43,6 +43,34 @@ def check_args(args):
             "and fp32")
 
 
+def tiny_models(device):
+    """(tokenizer, LM config, LM params, codec config, codec params) of the
+    random tiny models, fp32 on `device`: the test tokenizer, `dual_ar_tiny`
+    with heads 64 wide (the narrowest the attention kernels take on the
+    card) and `dac_tiny`, from seeds 0 and 1."""
+    import torch
+
+    from fish_speech_tpu_torch.config import dac_tiny, dual_ar_tiny
+    from fish_speech_tpu_torch.models.dac.model import init_dac
+    from fish_speech_tpu_torch.models.dual_ar import init_dual_ar
+    from fish_speech_tpu_torch.tokenizer import build_test_tokenizer
+
+    tokenizer = build_test_tokenizer()
+    dac_cfg = dac_tiny()
+    cfg = dual_ar_tiny(
+        vocab_size=tokenizer.vocab_size,
+        semantic_begin_id=tokenizer.semantic_begin_id,
+        semantic_end_id=tokenizer.semantic_end_id,
+        im_end_id=tokenizer.im_end_id,
+        codebook_size=4096,
+        num_codebooks=dac_cfg.rvq.total_codebooks,
+        head_dim=64, n_head=4, n_local_heads=2, fast_head_dim=64,
+        fast_n_head=3, fast_n_local_heads=1,
+    )
+    return (tokenizer, cfg, init_dual_ar(0, cfg, dtype=torch.float32, device=device),
+            dac_cfg, init_dac(1, dac_cfg, dtype=torch.float32, device=device))
+
+
 def build_engine(args):
     """The engine `args` ask for: the LM (a checkpoint's, or random tiny
     models with --tiny), quantized with --int8, behind a single-stream
@@ -52,35 +80,17 @@ def build_engine(args):
 
     import torch
 
-    from fish_speech_tpu_torch.config import (SamplingConfig, dac_tiny,
-                                              dual_ar_tiny)
+    from fish_speech_tpu_torch.config import SamplingConfig
     from fish_speech_tpu_torch.engine.tts import TTSInferenceEngine
     from fish_speech_tpu_torch.generate import GenerationSession
-    from fish_speech_tpu_torch.models.dac.model import init_dac
-    from fish_speech_tpu_torch.models.dual_ar import init_dual_ar
-    from fish_speech_tpu_torch.tokenizer import (FishTokenizer,
-                                                 build_test_tokenizer)
-    from fish_speech_tpu_torch.utils.checkpoint import load_dac, load_dual_ar
+    from fish_speech_tpu_torch.tokenizer import FishTokenizer
+    from fish_speech_tpu_torch.utils.checkpoint import load_codec, load_dual_ar
 
     check_args(args)
     device = "cpu" if args.cpu else "cuda:0"
     if args.tiny:
-        tokenizer = build_test_tokenizer()
-        dac_cfg = dac_tiny()
-        # heads 64 wide, the narrowest the attention kernels take on the card
-        cfg = dual_ar_tiny(
-            vocab_size=tokenizer.vocab_size,
-            semantic_begin_id=tokenizer.semantic_begin_id,
-            semantic_end_id=tokenizer.semantic_end_id,
-            im_end_id=tokenizer.im_end_id,
-            codebook_size=4096,
-            num_codebooks=dac_cfg.rvq.total_codebooks,
-            head_dim=64, n_head=4, n_local_heads=2, fast_head_dim=64,
-            fast_n_head=3, fast_n_local_heads=1,
-        )
+        tokenizer, cfg, params, dac_cfg, dac_params = tiny_models(device)
         dtype = torch.float32
-        params = init_dual_ar(0, cfg, dtype=dtype, device=device)
-        dac_params = init_dac(1, dac_cfg, dtype=dtype, device=device)
     else:
         dtype = torch.bfloat16
         params, cfg = load_dual_ar(args.checkpoint_path, dtype=dtype,
@@ -90,7 +100,7 @@ def build_engine(args):
             cfg, semantic_begin_id=tokenizer.semantic_begin_id,
             semantic_end_id=tokenizer.semantic_end_id,
             im_end_id=tokenizer.im_end_id).resolve()
-        dac_params, dac_cfg = load_dac(
+        dac_params, dac_cfg = load_codec(
             args.decoder_checkpoint_path or args.checkpoint_path,
             dtype=torch.float32, device=device)
 

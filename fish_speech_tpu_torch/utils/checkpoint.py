@@ -6,7 +6,8 @@ directory with `config.json` (DualARConfig) and `model.safetensors`, a flat
 under a "::bf16" key suffix. Lists are numeric path segments.
 
 A bundled codec (`codec_config.json`, DACConfig, and `codec.safetensors`)
-reads with `load_dac`. The writers (`save_dual_ar`, `save_dac`) wait for
+reads with `load_dac` (the stored layout) or `load_codec` (the torch
+layout the port's codec runs). The writers (`save_dual_ar`, `save_dac`) wait for
 the port's `tools/quantize.py` (ROADMAP).
 
 A quantized tree (`ops/quant.py`) reads back as it was written: integer
@@ -101,3 +102,15 @@ def load_dac(path, dtype=torch.float32, device=DEFAULT_DEVICE):
         cfg = _dac_config_from_json(json.load(f))
     return load_params(path, name="codec.safetensors", dtype=dtype,
                        device=device), cfg
+
+
+def load_codec(path, dtype=torch.float32, device=DEFAULT_DEVICE):
+    """(params, cfg) of the codec bundled in a checkpoint directory, in the
+    torch layout the port's codec runs (`convert/from_jax.py:dac_from_jax`:
+    the convolutions' weights transposed), on `device`. Raises without
+    CUDA unless `device` is the CPU."""
+    from fish_speech_tpu_torch.convert.from_jax import dac_from_jax
+
+    device = resolve_device(device, "load_codec")
+    params, cfg = load_dac(path, dtype=torch.float32, device="cpu")
+    return dac_from_jax(params, dtype, device), cfg

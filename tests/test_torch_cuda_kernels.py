@@ -55,6 +55,16 @@ only the output allocated; the same bits twice and on two graph replays;
 `_check` refuses on card tensors what the kernels do not take; the decode
 graphs of a `mixed` session and of an int8 pool launch it once per int8
 FFN of the step.
+
+The four decode kernels take per-row `starts` (the lockstep batch's left
+pad): ragged starts inside a 16-position tile and past whole slices,
+against their plain versions at the bounds above, with NaN and infinite
+pad below the starts; `starts=None` gives the bits of zero starts; one
+launch, and a graph replayed after starts change. The lockstep
+`generate_batch` (graphs captured by `precompile`) gives the CPU eager
+bodies' greedy columns (fp32, plain and int8 cache), and the tiny engine's
+streamed request gives the same audio from device partials as from host
+partials, every codec call a replay.
 """
 
 import numpy as np
@@ -1470,3 +1480,167 @@ def test_decode_graphs_run_every_int8_ffn_on_the_fused_kernel(dev):
         assert per_step.get("mm.launches_int8_cast", 0) == 0, per_step
     finally:
         b.shutdown()
+
+
+# the decode kernels with per-row starts (the lockstep batch's left pad):
+# S = 4160 at 8 KV heads splits into slices of 256 (`decode_slice`), so a
+# start of 700 leaves two slices wholly before it and starts inside the
+# third; 5 and 17 start inside a 16-position tile; S = 2112 is the serving
+# session's slow cache at B = 4
+STARTS_CASES = [
+    (4160, 8, 4, 128, [257, 40, 4000], [5, 17, 700]),
+    (4160, 8, 4, 128, [1, 4160, 513], [0, 4159, 256]),
+    (2112, 8, 4, 128, [2048, 701, 1, 1500], [700, 3, 0, 1499]),
+    (300, 2, 8, 64, [33, 100, 300], [1, 17, 299]),
+    (96, 4, 3, 128, [96, 40], [80, 39]),
+]
+
+
+def _starts_inputs(rng, kv8, dtype, s, hkv, g, d, lengths, starts, dev):
+    b = len(lengths)
+    q = _randn(rng, (b, hkv, g, d), dtype, dev)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    sts = torch.tensor(starts, dtype=torch.int32, device=dev)
+    if kv8:
+        k, ks = _kv_quant(_randn(rng, (1, b, s, hkv, d), torch.float32, dev))
+        v, vs = _kv_quant(_randn(rng, (1, b, s, hkv, d), torch.float32, dev))
+        return (lambda st=sts: flash_decode_attention_kv8(q, k, ks, v, vs, 0, lens, st),
+                lambda st=sts: flash_decode_kv8_reference(q, k, ks, v, vs, 0, lens, st),
+                lens, sts, q)
+    k = _randn(rng, (1, b, s, hkv, d), dtype, dev)
+    v = _randn(rng, (1, b, s, hkv, d), dtype, dev)
+    # the kernel's cache holds a non-finite pad below each start, which it
+    # must never read (the plain version's 0 * inf would be NaN: it gets
+    # the finite cache, the same function of the visible positions)
+    kn, vn = k.clone(), v.clone()
+    for r, st in enumerate(starts):
+        kn[0, r, :st] = float("nan")
+        vn[0, r, :st] = float("inf")
+    return (lambda st=sts: flash_decode_attention(q, kn, vn, 0, lens, st),
+            lambda st=sts: flash_decode_reference(q, k, v, 0, lens, st),
+            lens, sts, q)
+
+
+@pytest.mark.parametrize("kv8", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s,hkv,g,d,lengths,starts", STARTS_CASES)
+def test_decode_kernels_with_starts_match_plain(dev, kv8, dtype, s, hkv, g, d,
+                                                lengths, starts):
+    """Row b attends [starts[b], lengths[b]): the four decode kernels
+    (bf16 and fp32, plain and int8 cache) against their plain versions at
+    the existing bounds; under the plain cache the pad below each start
+    holds NaN keys and infinite values, which must not reach the output."""
+    rng = np.random.default_rng(s + sum(starts))
+    kernel, plain, *_ = _starts_inputs(rng, kv8, dtype, s, hkv, g, d, lengths,
+                                       starts, dev)
+    wrapper = flash_decode_attention_kv8 if kv8 else flash_decode_attention
+    n0 = wrapper.launches
+    got = kernel()
+    torch.cuda.synchronize()
+    assert wrapper.launches == n0 + 1
+    assert torch.isfinite(got).all()
+    _assert_close(got, plain(), dtype)
+
+
+@pytest.mark.parametrize("kv8", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_kernels_without_starts_give_the_bits_of_zero_starts(dev, kv8, dtype):
+    rng = np.random.default_rng(17)
+    lengths = [2048, 1, 700, 257]
+    kernel, *_ = _starts_inputs(rng, kv8, dtype, 2112, 8, 4, 128, lengths,
+                                [0] * 4, dev)
+    assert torch.equal(kernel(None), kernel())
+
+
+@pytest.mark.parametrize("kv8", [False, True])
+def test_decode_with_starts_launches_once_and_is_graph_capturable(dev, kv8):
+    """One launch and only the output allocated; a CUDA graph of the call,
+    replayed after starts, lengths and q change in place, equals the eager
+    call on the new inputs."""
+    rng = np.random.default_rng(23)
+    kernel, _, lens, sts, q = _starts_inputs(
+        rng, kv8, torch.bfloat16, 2112, 8, 4, 128, [2048, 701, 1, 1500],
+        [700, 3, 0, 1499], dev)
+    wrapper = flash_decode_attention_kv8 if kv8 else flash_decode_attention
+    first, launched, made = _one_call(kernel, [(wrapper, "launches")])
+    assert launched == [1] and made == 1
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = kernel()
+    # the new starts stay at or above the old (below them lies the pad)
+    lens.copy_(torch.tensor([2100, 702, 9, 1501], dtype=torch.int32))
+    sts.copy_(torch.tensor([1000, 3, 8, 1499], dtype=torch.int32))
+    q.copy_(_randn(rng, q.shape, q.dtype, dev))
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(captured, kernel())
+    assert not torch.equal(captured, first)
+
+
+def _fp32_models(dev, quant):
+    """`_graph_cfg`'s model in fp32 on the CPU and the same weights on the
+    card."""
+    from fish_speech_tpu_torch.models.dual_ar import init_dual_ar
+
+    cfg = _graph_cfg()
+    params = init_dual_ar(9, cfg, torch.float32, "cpu")
+    return cfg, params, _tree_to(params, dev)
+
+
+@pytest.mark.parametrize("kv_quant", [False, True])
+def test_graphed_generate_batch_equals_the_cpu_eager_bodies(dev, kv_quant):
+    """A lockstep batch of three prompts of mixed lengths, greedy, fp32
+    weights (plain or int8 cache): the card's graphs (`prefill_3_64`,
+    `decode_3`, captured by `precompile`) give the columns the same bodies
+    give eagerly on the CPU; every decode step on the card is a replay."""
+    from fish_speech_tpu_torch.config import SamplingConfig
+    from fish_speech_tpu_torch.generate import GenerationSession
+
+    cfg, cpu_params, card_params = _fp32_models(dev, kv_quant)
+    prompts = [_graph_prompt(cfg, t, seed=t) for t in (37, 20, 29)]
+    kw = dict(max_new_tokens=11, top_k=1)
+    outs = {}
+    for where, params in (("cpu", cpu_params), ("card", card_params)):
+        session = GenerationSession(params, cfg, SamplingConfig(), max_batch=3,
+                                    dtype=torch.float32, decode_chunk_size=4,
+                                    first_chunk_size=2, kv_quant=kv_quant)
+        if where == "card":
+            assert set(session.precompile(37, 11, batch=3)) == {"prefill_3_64",
+                                                                "decode_3"}
+        outs[where] = session.generate_batch(prompts, 5, first_chunk_size=2, **kw)
+        if where == "card":
+            assert session.eager_runs == {"prefill_3_64": 1, "decode_3": 1}
+            assert session.replays["decode_3"] >= 10
+            per_step = session.launches_per_replay("decode_3")
+            name = ("flash_decode_attention_kv8.launches" if kv_quant
+                    else "flash_decode_attention.launches")
+            assert per_step[name] >= cfg.n_layer
+    for got, want in zip(outs["card"], outs["cpu"]):
+        np.testing.assert_array_equal(got, want)
+
+
+def test_device_partial_request_equals_a_host_partial_one(dev):
+    """The server's `--tiny` engine on the card: a streamed request served
+    from device partials (the default) gives the audio segments and final
+    audio of the same request served from host partials, every codec call
+    a replay of a graph captured beforehand."""
+    from fish_speech_tpu_torch.engine.tts import TTSRequest
+    from fish_speech_tpu_torch.server.main import build_engine, parse_args
+
+    engine = build_engine(parse_args(["--tiny"]))
+    engine.session.precompile(60, 40)
+    engine.precompile(code_buckets=(32, 64))
+    engine.codec_eager_runs.clear()
+    runs = {}
+    for device_partials in (True, False):
+        engine.device_partials = device_partials
+        results = list(engine.inference(TTSRequest(
+            text="Device partials on the card.", streaming=True,
+            max_new_tokens=40, seed=3)))
+        assert [r.code for r in results][0] == "header"
+        assert results[-1].code == "final", results[-1].error
+        runs[device_partials] = [r.audio[1] for r in results[1:]]
+    assert len(runs[True]) == len(runs[False]) > 2
+    for a, b in zip(runs[True], runs[False]):
+        np.testing.assert_array_equal(a, b)
+    assert not engine.codec_eager_runs and sum(engine.codec_replays.values()) > 2

@@ -17,6 +17,15 @@ in plain PyTorch, to the plain versions and to the JAX package:
   * the plain per-run partials, added in run order, equal the int4 plain
     versions' fp32 sums (before the cast to x's dtype) within 1e-5 of
     |x| @ |W| (fp32 sums in another order);
+  * with per-row starts (the lockstep batch's `kv_valid`): the slices
+    cover [start, len) exactly once for every start in 0..len-1 (the
+    slices wholly before the start empty), and merging the per-slice
+    states in split order equals `flash_decode_reference(starts=...)` (fp32
+    to 1e-6, bf16 to kernel 2's bounds) at every (start, len) of a small
+    S, starts inside a 16-position tile and past whole slices included;
+    the plain version with starts equals the JAX decode's einsum
+    (`gqa_attention` under `decode_slow_step`'s kv_valid mask) to 1e-5,
+    and so does the int8-KV replay (`gqa_attention_kv8`, the same mask);
   * the int8-KV kernel's per-slice states (`decode_partial_kv8_reference`:
     the scales folded in, p * vs carried as the kernel carries it), merged
     in split order, equal `flash_decode_kv8_reference` for every len in
@@ -32,6 +41,7 @@ import numpy as np
 import pytest
 import torch
 
+from fish_speech_tpu.ops.attention import gqa_attention as j_gqa
 from fish_speech_tpu.ops.attention import gqa_attention_kv8 as j_gqa_kv8
 from fish_speech_tpu.ops.pallas_decode import \
     flash_decode_attention as j_flash_decode
@@ -187,6 +197,102 @@ def test_kv8_split_merge_matches_the_plain_version_and_jax(g, dtype):
             jnp.asarray(vs[layer].float().numpy(), jnp.bfloat16), mask)
         want = torch.from_numpy(np.array(want, np.float32)).reshape(b, hkv, g, d)
         _assert_within(got, want, dtype, 1e-5)
+
+
+@pytest.mark.parametrize("s,hkv,b", CACHES[:2])
+def test_decode_slices_with_starts_cover_the_visible_positions_once(s, hkv, b):
+    z = decode_split_count(s, hkv, b, H100_SMS)
+    for length in range(1, s + 1, 7):
+        for start in range(length):
+            cover, busy = start, 0
+            for i in range(z):
+                a, e = decode_slice(i, z, length, s, start)
+                assert start <= a <= e <= length
+                if a < e:
+                    assert a == cover, (length, start, i, a, cover)
+                    cover, busy = e, busy + 1
+            assert cover == length and busy >= 1
+
+
+def _pairs(s):
+    """Every (start, len) with start < len <= s, a few lens."""
+    return [(a, n) for n in (1, 16, 17, 37, s) for a in range(n)]
+
+
+def _starts_replay(q, k, v, layer, starts, lengths, s, z, partial):
+    states = []
+    for i in range(z):
+        bounds = [decode_slice(i, z, int(n), s, int(a))
+                  for a, n in zip(starts, lengths)]
+        states.append(partial(q, k, v, layer, [a for a, _ in bounds],
+                              [e for _, e in bounds]))
+    return merge_decode_states(states, q.dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("g,d", [(1, 64), (4, 128), (8, 64)])
+def test_decode_split_merge_with_starts_matches_plain_and_jax(g, d, dtype):
+    """One row per (start, len) pair at S = 80 (5 slices of 16 in a
+    one-row call): starts inside tiles and past whole slices."""
+    rng = np.random.default_rng(g * d + 1)
+    s, hkv = 80, 2
+    pairs = _pairs(s)
+    b = len(pairs)
+    starts = torch.tensor([a for a, _ in pairs], dtype=torch.int32)
+    lengths = torch.tensor([n for _, n in pairs], dtype=torch.int32)
+    q = torch.from_numpy(rng.standard_normal((b, hkv, g, d)).astype(np.float32))
+    k, v = (torch.from_numpy(rng.standard_normal((1, b, s, hkv, d))
+                             .astype(np.float32)) for _ in range(2))
+    q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
+    z = decode_split_count(s, hkv, 1, H100_SMS)
+    assert z == 5
+    got = _starts_replay(q, k, v, 0, starts, lengths, s, z, decode_partial_reference)
+    want = flash_decode_reference(q, k, v, 0, lengths, starts)
+    _assert_within(got, want, dtype, 1e-6)
+    if dtype == torch.float32:
+        j = np.arange(s)
+        mask = ((j[None, :] >= starts.numpy()[:, None])
+                & (j[None, :] < lengths.numpy()[:, None]))[:, None, :]
+        jw = j_gqa(jnp.asarray(q.numpy().reshape(b, 1, hkv * g, d)),
+                   jnp.asarray(k[0].numpy()), jnp.asarray(v[0].numpy()),
+                   jnp.asarray(mask))
+        _assert_within(want, torch.from_numpy(np.array(jw)).reshape(b, hkv, g, d),
+                       dtype, 1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kv8_split_merge_with_starts_matches_plain_and_jax(dtype):
+    rng = np.random.default_rng(7)
+    s, hkv, g, d = 80, 2, 4, 64
+    pairs = _pairs(s)
+    b = len(pairs)
+    starts = torch.tensor([a for a, _ in pairs], dtype=torch.int32)
+    lengths = torch.tensor([n for _, n in pairs], dtype=torch.int32)
+    q = torch.from_numpy(rng.standard_normal((b, hkv, g, d))
+                         .astype(np.float32)).to(dtype)
+    k, ks = _kv_quant(torch.from_numpy(
+        rng.standard_normal((1, b, s, hkv, d)).astype(np.float32)))
+    v, vs = _kv_quant(torch.from_numpy(
+        rng.standard_normal((1, b, s, hkv, d)).astype(np.float32)))
+    z = decode_split_count(s, hkv, 1, H100_SMS)
+
+    def partial(q_, k_, v_, layer, a, e):
+        return decode_partial_kv8_reference(q_, k, ks, v, vs, layer, a, e)
+
+    got = _starts_replay(q, k, v, 0, starts, lengths, s, z, partial)
+    want = flash_decode_kv8_reference(q, k, ks, v, vs, 0, lengths, starts)
+    _assert_within(got, want, dtype, 1e-6)
+    j = np.arange(s)
+    mask = jnp.asarray(((j[None, :] >= starts.numpy()[:, None])
+                        & (j[None, :] < lengths.numpy()[:, None]))[:, None])
+    jdtype = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+    jw = j_gqa_kv8(jnp.asarray(q.float().numpy().reshape(b, 1, hkv * g, d), jdtype),
+                   jnp.asarray(k[0].numpy()),
+                   jnp.asarray(ks[0].float().numpy(), jnp.bfloat16),
+                   jnp.asarray(v[0].numpy()),
+                   jnp.asarray(vs[0].float().numpy(), jnp.bfloat16), mask)
+    _assert_within(got, torch.from_numpy(np.array(jw, np.float32))
+                   .reshape(b, hkv, g, d), dtype, 1e-5)
 
 
 @pytest.mark.parametrize("n_sm", [H100_SMS, 114, 1])

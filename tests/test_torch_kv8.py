@@ -225,8 +225,12 @@ def test_session_options_follow_jax(tokenizer):
     assert fused["q"].shape[-1] == 2 * tq["layers"]["w1"]["q"].shape[-1]
     assert session.cache["k"].dtype == torch.float32 and "ks" not in session.cache
     assert session.params["_semantic_head"]["q"].dtype == torch.int8
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tgen.GenerationSession(tq, cfg, max_batch=2)
+    # a lockstep session of 2 rows: its cache has 2 rows, and it refuses
+    # the prefix cache, which JAX's lockstep batch never uses
+    batch = tgen.GenerationSession(tq, cfg, max_batch=2, dtype=torch.float32)
+    assert batch.cache["k"].shape[1] == 2 and batch.state.rows == 2
+    with pytest.raises(ValueError, match="prefix_cache_size"):
+        tgen.GenerationSession(tq, cfg, max_batch=2, prefix_cache_size=2)
     cfg2 = dataclasses.replace(cfg, max_seq_len=64)
     assert tgen.GenerationSession(tq, cfg2, kv_quant=True).cache["vs"].shape == (
         cfg.n_layer, 1, 64 + 32, cfg.n_local_heads)

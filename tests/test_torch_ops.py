@@ -227,15 +227,22 @@ PORT_MODULES = [
     "fish_speech_tpu_torch.server.openapi",
     "fish_speech_tpu_torch.server.app",
     "fish_speech_tpu_torch.server.main",
+    "fish_speech_tpu_torch.tools",
+    "fish_speech_tpu_torch.tools.tts",
+    "fish_speech_tpu_torch.tools.codec",
+    "fish_speech_tpu_torch.tools.extract_vq",
+    "fish_speech_tpu_torch.tools.batch_tts",
 ]
 
 # Run on the CPU with the JAX package and jax unimportable: every port
-# module, the tiny training CLI, a streamed engine request (generate_long
-# inside) and a voice-clone one (a WAV reference by id: load_audio, the
-# codec's encode), a mixed-quantized int8-KV session (its int8 products
-# through `ops/int8.py`'s route), a streamed request
-# through the continuous batcher's pool, the fast-stack probe, and one
-# /v1/tts answered by the port's HTTP app (its UI and spec too).
+# module (the tools included), the tiny training CLI, a streamed engine
+# request (generate_long inside, from device partials) and a voice-clone
+# one (a WAV reference by id: load_audio, the codec's encode), a
+# mixed-quantized int8-KV session (its int8 products through
+# `ops/int8.py`'s route), a lockstep `generate_batch` of two prompts, a
+# streamed request through the continuous batcher's pool, the fast-stack
+# probe, and one /v1/tts answered by the port's HTTP app (its UI and spec
+# too).
 # (`jax` is blocked by an import hook, not by `sys.modules['jax'] = None`:
 # scipy's array-API helpers take a `jax` entry in `sys.modules` for the
 # imported package.)
@@ -302,6 +309,18 @@ for extra in ({}, {'reference_id': 'spk'}):
     codes = [r.code for r in results]
     assert codes[0] == 'header' and codes[-1] == 'final', (codes, results[-1].error)
 assert engine.vq_cache_misses == 1
+# the streamed requests decoded from device partials: the codec's decode
+# ran on the partials' device columns
+assert engine.device_partials and engine.codec_eager_runs
+batch = GenerationSession(dual_ar.init_dual_ar(2, cfg, torch.float32, 'cpu'), cfg,
+                          max_batch=2, dtype=torch.float32, decode_chunk_size=4)
+prompts = [np.concatenate([rng.integers(0, 200, (1, t)),
+                           rng.integers(0, cfg.codebook_size,
+                                        (cfg.num_codebooks, t))]).astype(np.int32)
+           for t in (9, 5)]
+outs = batch.generate_batch(prompts, 3, max_new_tokens=6)
+assert [o.shape[0] for o in outs] == [cfg.num_codebooks + 1] * 2
+assert batch.eager_runs['decode_2'] > 0
 # the mixed session's int8 products of up to 32 rows took ops/int8.py's route
 assert 'fish_speech_tpu_torch.ops.int8' in sys.modules
 assert quant.mm.launches_int8_matmul > 0, quant.mm.launches_int8_matmul
