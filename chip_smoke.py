@@ -43,7 +43,10 @@ Phases, each of which ends the run with a nonzero exit if it fails:
    at len 4000) to kernel 2's bounds and in fp32 at phase 3c's tiny cache
    to 1e-4. The fp32 routes of the decode (phase 3's tiny slow and fast
    caches) and of the int4 matvec (phase 3c's tiny fast shapes) are held
-   to 1e-4 and to 1e-5 of |x| @ |W|. The decode cases (slow cache
+   to 1e-4 and to 1e-5 of |x| @ |W|; the fp32 prefill, decode and training
+   forward also at the shapes the parity tool reaches in phase 11 (the
+   prompt's bucket at H=32 Hkv=8 D=128; the cut-depth slow and fast
+   caches; B=1 at the teacher-forced prompt's length), beside SDPA. The decode cases (slow cache
    S = 4160 at len 1, 257 and 4000, S = 2112 at len 2048, fast cache S =
    10), the int8-KV and fp32 cases and the matvec cases also print
    `device_ms`: the same calls
@@ -264,7 +267,26 @@ Phases, each of which ends the run with a nonzero exit if it fails:
 10. the generation tools as a user runs them, each a process of its own on
    the card: `python -m fish_speech_tpu_torch.tools.tts --tiny` (codes and
    a WAV of whole frames) and the codec CLI's round trip with `--tiny` (7
-   frames of audio to codes and back).
+   frames of audio to codes and back);
+11. the checkpoint lifecycle on s2-pro's widths cut to 2 slow and 2 fast
+   layers (1.2B parameters), in a temporary directory under `build/`
+   removed at the end, each CLI a process of its own on the card:
+   `init_dual_ar` in bf16 and `save_dual_ar`, `convert.cli export-dual-ar`
+   then `convert.cli dual-ar`, whose checkpoint `load_dual_ar(bf16)` must
+   give back bitwise; the full `dac_s2_pro` from `init_dac(1)` through
+   `save_codec` and `load_codec`, bitwise; `tools.parity_check
+   --save-golden`, then `--golden` (`PARITY OK`), then one run in this
+   process that must launch the fp32 prefill, decode and training-forward
+   kernels; `tools.quantize --mode int8`, whose checkpoint serves a greedy
+   16-token request with the codes of a session over the in-memory
+   quantization (the int8 matvec and fused FFN launched), and `--mode int4
+   --group-size 128`, bitwise the in-memory tree; two LoRA steps (r 8,
+   alpha 16, B=1 x T=512) through `Trainer.fit`, then `tools.merge_lora` on
+   their checkpoint: an L1 line above 0, the merged tree bitwise the
+   in-memory `merge_lora` on the card, teacher-forced logits within 2e-2
+   of max |logit| of the LoRA model's; and `forward_train_naive` at
+   B=1 x T=1024 in bf16 (finite logits, the training forward's tensor-core
+   route launched). It prints its bytes written and seconds.
 
 Phase 2 also holds the kernels at the pool's shapes: `decode_mma_kernel`
 and `decode_kv8_mma_kernel` at B=32, S=2176 (8 layers) with ragged
@@ -422,8 +444,9 @@ def _errors(got, want):
     return err.max().item(), err.mean().item()
 
 
-def kernel_cases(dev):
-    """Phase 2: every kernel against its plain version at main-path shapes."""
+def kernel_cases(dev, parity):
+    """Phase 2: every kernel against its plain version at main-path shapes;
+    `parity` (`parity_shapes`) gives the fp32 routes' shapes in phase 11."""
     import torch
 
     import torch.nn.functional as F
@@ -443,15 +466,16 @@ def kernel_cases(dev):
     # prefill: flagship heads (H=32, Hkv=8, D=128), prompt buckets, bf16
     # (the tensor-core route), also the pool's group prefills (k = 4 and 16
     # rows at buckets 128 and 256, offsets 0, phase 8); the fp32 route (CUDA
-    # cores, the tiny fp32 models of phases 3 and 3c) once at a small shape,
-    # to fp32's 1e-4
+    # cores, the tiny fp32 models of phases 3 and 3c) once at a small shape
+    # and at the parity tool's prompt bucket (phase 11), to fp32's 1e-4
     for b, t, offsets, dtype in [(1, 64, [0], torch.bfloat16),
                                  (1, 1024, [0], torch.bfloat16),
                                  (2, 600, [0, 129], torch.bfloat16),
                                  (1, 4096, [0], torch.bfloat16),
                                  *((k, t, [0] * k, torch.bfloat16)
                                    for k in (4, 16) for t in (128, 256)),
-                                 (1, 256, [0], torch.float32)]:
+                                 (1, 256, [0], torch.float32),
+                                 (1, parity["bucket"], [0], torch.float32)]:
         q, k, v = (randn(b, t, n, 128).to(dtype) for n in (32, 8, 8))
         off = torch.tensor(offsets, dtype=torch.int32, device=dev)
         route = flash_prefill_route(dtype)
@@ -538,11 +562,16 @@ def kernel_cases(dev):
     cases["flash_decode"].append(pool_decode_case(dev, randn))
     # the fp32 route (CUDA cores) at the caches of phase 3's tiny fp32 model:
     # the slow one (2 layers, S = 256 + 8, Hkv=2 G=2 D=64) and the fast one
-    # (S = 10 codebooks, Hkv=1 G=3), to fp32's 1e-4
+    # (S = 10 codebooks, Hkv=1 G=3), and at phase 11's cut-depth s2-pro
+    # caches (the parity tool's greedy decode: 2 slow layers of the
+    # session's S at the prompt plus 32, 2 fast layers), to fp32's 1e-4
     cases["flash_decode_fp32"] = []
-    for n_layer, s, hkv, g, length in [(2, 264, 2, 2, 100), (2, 10, 1, 3, 10)]:
-        q = randn(1, hkv, g, 64).float()
-        kc, vc = (randn(n_layer, 1, s, hkv, 64).float() for _ in range(2))
+    for n_layer, s, hkv, g, length, d in [
+            (2, 264, 2, 2, 100, 64), (2, 10, 1, 3, 10, 64),
+            (2, parity["cache_len"], 8, 4, parity["prompt"] + 32, 128),
+            (2, 10, 4, 3, 10, 128)]:
+        q = randn(1, hkv, g, d).float()
+        kc, vc = (randn(n_layer, 1, s, hkv, d).float() for _ in range(2))
         lens = torch.tensor([length], dtype=torch.int32, device=dev)
         mx, mean = _errors(flash_decode_attention(q, kc, vc, 1, lens),
                            flash_decode_reference(q, kc, vc, 1, lens))
@@ -550,9 +579,9 @@ def kernel_cases(dev):
             lambda i=0: flash_decode_reference(q, kc, vc, i % n_layer, lens),
             lambda i=0: flash_decode_attention(q, kc, vc, i % n_layer, lens),
             100)
-        bound = _bound(4 * hkv * g * 64 * length,
-                       4 * (2 * length * hkv * 64 + 2 * hkv * g * 64), PEAK_FP32)
-        qs = q.reshape(1, hkv * g, 1, 64)
+        bound = _bound(4 * hkv * g * d * length,
+                       4 * (2 * length * hkv * d + 2 * hkv * g * d), PEAK_FP32)
+        qs = q.reshape(1, hkv * g, 1, d)
 
         def sdpa(i=0):
             return F.scaled_dot_product_attention(
@@ -560,14 +589,14 @@ def kernel_cases(dev):
                 vc[i % n_layer, :, :length].transpose(1, 2), enable_gqa=True)
 
         cases["flash_decode_fp32"].append(dict(
-            shape=f"L={n_layer} B=1 S={s} Hkv={hkv} G={g} D=64 len={length} fp32",
+            shape=f"L={n_layer} B=1 S={s} Hkv={hkv} G={g} D={d} len={length} fp32",
             max_abs_err=mx, mean_abs_err=mean, ms=ms, plain_ms=plain_ms,
             bound_ms=bound[0], bound_by=bound[1], library_ms=_time_ms(sdpa, 100),
             device_ms=_device_ms(lambda i=0: flash_decode_attention(
                 q, kc, vc, i % n_layer, lens), 100),
             library_device_ms=_device_ms(sdpa, 100), ok=mx <= 1e-4))
     cases.update(suffix_kernel_cases(dev, randn))
-    cases.update(train_kernel_cases(dev, randn))
+    cases.update(train_kernel_cases(dev, randn, parity["train_t"]))
     cases.update(quant_kernel_cases(dev, randn))
     for name, row in starts_decode_cases(dev, randn).items():
         cases[name].append(row)
@@ -914,7 +943,7 @@ def _within_bf16_step(got, want):
     return bool(((got.float() - want).abs() <= 2e-2 + 2 ** -7 * want.abs()).all())
 
 
-def train_kernel_cases(dev, randn):
+def train_kernel_cases(dev, randn, parity_t):
     """The training attention's forward and backward kernels against their
     plain versions on the same inputs (the backward on the plain forward's
     O and lse). Bounds, bf16 from N(0,1): O to 2e-2 plus one bf16 step of
@@ -938,11 +967,13 @@ def train_kernel_cases(dev, randn):
     # the fine-tune shape with a right-padded row, the default max_length,
     # and a ragged T (not a multiple of the 64-row tile), in bf16 (the
     # forward's tensor-core route); the forward's fp32 route (CUDA cores,
-    # the tiny fp32 model of phase 3b) once at a small shape, to 1e-4
+    # the tiny fp32 model of phase 3b) once at a small shape and at the
+    # parity tool's teacher-forced prompt (`parity_t`, phase 11), to 1e-4
     for b, t, pads, dtype in [(2, 1024, [0, 100], torch.bfloat16),
                               (1, 4096, [0], torch.bfloat16),
                               (2, 1000, [0, 0], torch.bfloat16),
-                              (2, 256, [0, 30], torch.float32)]:
+                              (2, 256, [0, 30], torch.float32),
+                              (1, parity_t, [0], torch.float32)]:
         q, k, v = (randn(b, t, n, 128).to(dtype) for n in (32, 8, 8))
         kvalid = torch.ones((b, t), dtype=torch.int32, device=dev)
         for i, n in enumerate(pads):
@@ -1582,12 +1613,14 @@ def _to(tree, dev):
 
 
 def _flat(tree, prefix=""):
+    """{"/"-joined path: tensor} of a tree of dicts and lists."""
     out = {}
-    for k, v in tree.items():
-        if isinstance(v, dict):
+    items = enumerate(tree) if isinstance(tree, (list, tuple)) else tree.items()
+    for k, v in items:
+        if isinstance(v, (dict, list, tuple)):
             out.update(_flat(v, f"{prefix}{k}/"))
         else:
-            out[prefix + k] = v
+            out[f"{prefix}{k}"] = v
     return out
 
 
@@ -2247,6 +2280,317 @@ def run_tools(tokenizer):
           f"{audio.shape[1]} samples in {t_tts:.1f}s; tools.codec --tiny encoded 7 "
           f"frames to {enc.shape} in {t_enc:.1f}s and decoded them to "
           f"{recon.shape[1]} samples in {t_dec:.1f}s (each a process of its own)")
+
+
+# phase 11: the checkpoint tools on s2-pro's widths at 2 slow and 2 fast
+# layers (the parity tool's text and budget are its defaults)
+PARITY_TEXT = "Hello world."
+PARITY_NEW_TOKENS = 64
+CKPT_MAX_SEQ_LEN = 1024
+
+
+def _ckpt_cfg(tokenizer):
+    """Phase 11's model: s2-pro's widths (vocab 155136, dim 2560, 32/8 heads
+    of 128, inter 9728; fast dim 1536, 12/4 heads, inter 6144; 10 codebooks
+    of 4096) at 2 slow and 2 fast layers."""
+    return dataclasses.replace(_s2_pro_cfg(tokenizer, CKPT_MAX_SEQ_LEN),
+                               n_layer=2, n_fast_layer=2).resolve()
+
+
+def parity_shapes(tokenizer):
+    """The attention shapes the parity tool reaches on phase 11's model: the
+    prompt's prefill bucket, the session's slow cache (max_seq_len plus the
+    default decode chunk of 32) and the teacher-forced prompt's length."""
+    from fish_speech_tpu_torch.generate import pick_bucket
+
+    cfg = _ckpt_cfg(tokenizer)
+    cache_len = cfg.max_seq_len + 32
+    prompt = _prompt_len(tokenizer, cfg, PARITY_TEXT)
+    return dict(prompt=prompt, bucket=min(pick_bucket(prompt, cache_len),
+                                          cfg.max_seq_len),
+                cache_len=cache_len, train_t=len(tokenizer.encode(PARITY_TEXT)))
+
+
+def _bitwise(got, want, label):
+    """Raise unless the two trees have the same paths and every leaf the
+    same dtype, shape and bits; returns the count of leaves."""
+    import torch
+
+    got, want = _flat(got), _flat(want)
+    if sorted(got) != sorted(want):
+        raise SystemExit(f"{label}: paths differ: {sorted(set(got) ^ set(want))[:8]}")
+    bad = [k for k, w in want.items()
+           if got[k].dtype != w.dtype or got[k].shape != w.shape
+           or not torch.equal(got[k].to(w.device), w)]
+    if bad:
+        raise SystemExit(f"{label}: {len(bad)} leaves differ, e.g. {bad[:4]}")
+    return len(want)
+
+
+def _dir_bytes(path):
+    return sum(f.stat().st_size for f in Path(path).rglob("*") if f.is_file())
+
+
+def run_checkpoint_tools(dev, tokenizer):
+    """Phase 11: the checkpoint lifecycle on the card, each CLI a process of
+    its own: random s2-pro weights (2 + 2 layers) saved, exported to the
+    upstream layout and converted back (bitwise), the full codec saved with
+    `save_codec` (bitwise), the parity tool's golden saved and checked
+    (`PARITY OK`) and one run in this process through the fp32 kernels,
+    `tools.quantize` int8 (a greedy request's codes equal a session over the
+    in-memory quantization) and int4 (bitwise), two LoRA steps then
+    `tools.merge_lora` (bitwise against the in-memory merge, logits near the
+    LoRA model's), and the naive model's forward at T=1024."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    from fish_speech_tpu_torch.config import SamplingConfig, dac_s2_pro
+    from fish_speech_tpu_torch.data.dataset import (SemanticIterableDataset,
+                                                    TextDataCollator)
+    from fish_speech_tpu_torch.generate import GenerationSession
+    from fish_speech_tpu_torch.models import dual_ar
+    from fish_speech_tpu_torch.models.dac.model import init_dac
+    from fish_speech_tpu_torch.models.lora import LoraConfig, merge_lora
+    from fish_speech_tpu_torch.models.naive import (forward_train_naive,
+                                                    init_naive)
+    from fish_speech_tpu_torch.ops.flash_decode import flash_decode_attention
+    from fish_speech_tpu_torch.ops.flash_prefill import flash_prefill_attention
+    from fish_speech_tpu_torch.ops.flash_train import flash_train_forward
+    from fish_speech_tpu_torch.ops.int8 import int8_matmul
+    from fish_speech_tpu_torch.ops.int8_ffn import int8_ffn
+    from fish_speech_tpu_torch.ops.quant import quantize_dual_ar_lowmem
+    from fish_speech_tpu_torch.tools.parity_check import parity_report
+    from fish_speech_tpu_torch.train.trainer import TrainConfig, Trainer
+    from fish_speech_tpu_torch.utils.checkpoint import (load_codec, load_dual_ar,
+                                                        save_codec, save_dual_ar)
+
+    t_phase = time.perf_counter()
+    root = Path(__file__).resolve().parent
+    (root / "build").mkdir(exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_ckpt_", dir=root / "build"))
+    env = dict(os.environ, PYTHONPATH=str(root))
+    written = 0
+    launches = {}
+
+    def tool(module, *args):
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", f"fish_speech_tpu_torch.{module}",
+                               *map(str, args)], cwd=str(root), env=env,
+                              capture_output=True, text=True, timeout=600)
+        if proc.returncode != 0:
+            raise SystemExit(f"{module} {args} failed ({proc.returncode}): "
+                             f"{proc.stdout[-2000:]} {proc.stderr[-3000:]}")
+        return proc.stdout, time.perf_counter() - t0
+
+    try:
+        cfg = _ckpt_cfg(tokenizer)
+        # 1. save, export to the upstream layout, convert back: bitwise
+        params = dual_ar.init_dual_ar(0, cfg, torch.bfloat16, dev)
+        n_params = dual_ar.param_count(params)
+        base = tmp / "base"
+        t0 = time.perf_counter()
+        save_dual_ar(base, params, cfg, tokenizer)
+        t_save = time.perf_counter() - t0
+        _, t_export = tool("convert.cli", "export-dual-ar", "--input", base,
+                           "--output", tmp / "upstream")
+        shutil.copy(base / "tokenizer.json", tmp / "upstream" / "tokenizer.json")
+        _, t_convert = tool("convert.cli", "dual-ar", "--input", tmp / "upstream",
+                            "--output", tmp / "native")
+        written += _dir_bytes(base) + _dir_bytes(tmp / "upstream")
+        shutil.rmtree(tmp / "upstream")
+        native = tmp / "native"
+        back, back_cfg = load_dual_ar(native, dtype=torch.bfloat16, device=dev)
+        n = _bitwise(back, params, "converter round trip")
+        if back_cfg != cfg:
+            raise SystemExit("converter round trip: the config changed")
+        del back
+        print(f"checkpoint tools: {n_params / 1e9:.3f}B params (s2-pro widths, "
+              f"2 + 2 layers) saved bf16 in {t_save:.1f}s ({_dir_bytes(base) / 1e9:.2f}"
+              f" GB); convert.cli export-dual-ar {t_export:.1f}s, dual-ar "
+              f"{t_convert:.1f}s ({_dir_bytes(native) / 1e9:.2f} GB fp32); "
+              f"load_dual_ar(bf16) gives back all {n} leaves bitwise")
+
+        # 2. the full codec through save_codec / load_codec: bitwise
+        dac_cfg = dac_s2_pro()
+        codec = init_dac(1, dac_cfg, torch.float32, dev)
+        t0 = time.perf_counter()
+        save_codec(native, codec, dac_cfg)
+        codec_back, codec_cfg = load_codec(native, device=dev)
+        n = _bitwise(codec_back, codec, "save_codec / load_codec")
+        if codec_cfg != dac_cfg:
+            raise SystemExit("save_codec / load_codec: the config changed")
+        print(f"checkpoint tools: dac_s2_pro ({sum(v.numel() for v in _flat(codec).values()) / 1e6:.1f}M"
+              f" params) save_codec + load_codec {time.perf_counter() - t0:.1f}s, "
+              f"all {n} leaves bitwise")
+        del codec, codec_back
+
+        # 3. the parity tool: a golden saved, then checked, as processes
+        golden = tmp / "golden.json"
+        _, t_save_golden = tool("tools.parity_check", "--checkpoint-path", native,
+                                "--save-golden", golden)
+        out, t_check = tool("tools.parity_check", "--checkpoint-path", native,
+                            "--golden", golden)
+        if "PARITY OK" not in out:
+            raise SystemExit(f"tools.parity_check --golden: {out[-2000:]}")
+        gc.collect()
+        torch.cuda.empty_cache()
+        _zero_counts()
+        t0 = time.perf_counter()
+        report = parity_report(native, device=dev)
+        t_report = time.perf_counter() - t0
+        fp32 = {"flash_prefill_fp32": flash_prefill_attention.launches_cuda_cores,
+                "flash_decode_fp32": flash_decode_attention.launches,
+                "flash_train_fwd_fp32": flash_train_forward.launches_cuda_cores}
+        launches.update(fp32)
+        print(f"checkpoint tools: tools.parity_check --save-golden {t_save_golden:.1f}s,"
+              f" --golden {t_check:.1f}s: PARITY OK; in this process "
+              f"{t_report:.1f}s, fp32 kernel launches {fp32}; report "
+              f"{json.dumps(report)}")
+        if min(fp32.values()) <= 0:
+            raise SystemExit(f"parity_check: an fp32 kernel was never launched: {fp32}")
+        want = json.loads(golden.read_text())
+        from fish_speech_tpu_torch.tools.parity_check import _diff
+
+        if _diff(want, report):
+            raise SystemExit(f"parity_check in process: {_diff(want, report)}")
+        written += _dir_bytes(native)
+        shutil.rmtree(native)
+
+        # 4. tools.quantize: int8 serves the in-memory tree's codes; int4
+        # writes the in-memory tree
+        _, t_int8 = tool("tools.quantize", "--checkpoint-path", base, "--mode", "int8",
+                         "--output", tmp / "int8")
+        q8, _ = load_dual_ar(tmp / "int8", dtype=None, device=dev)
+        rng = np.random.default_rng(23)
+        prompt = rng.integers(0, cfg.codebook_size, (cfg.num_codebooks + 1, 16))
+        prompt[0, :6] = rng.integers(0, 200, 6)
+        prompt[0, 6:] += cfg.semantic_begin_id
+        prompt = prompt.astype(np.int32)
+        codes = {}
+        for name, tree in (("in_memory", quantize_dual_ar_lowmem(params, "int8")),
+                           ("checkpoint", q8)):
+            session = GenerationSession(tree, cfg, SamplingConfig(),
+                                        decode_chunk_size=16, first_chunk_size=4)
+            _zero_counts()
+            codes[name] = session.generate(prompt, 7, max_new_tokens=16, top_k=1)
+            counts = {"int8_mm": int8_matmul.launches_gemv_mma,
+                      "int8_ffn": int8_ffn.launches_mma}
+            del session, tree
+        launches.update(counts)
+        same = np.array_equal(codes["in_memory"], codes["checkpoint"])
+        print(f"checkpoint tools: tools.quantize --mode int8 {t_int8:.1f}s "
+              f"({_dir_bytes(tmp / 'int8') / 1e9:.2f} GB); greedy codes "
+              f"{codes['checkpoint'].shape} from the checkpoint identical to the "
+              f"in-memory quantization={same}; launches {counts}")
+        if not same or min(counts.values()) <= 0:
+            raise SystemExit("quantize int8: codes differ or an int8 kernel was "
+                             "never launched")
+        del q8
+        written += _dir_bytes(tmp / "int8")
+        shutil.rmtree(tmp / "int8")
+        _, t_int4 = tool("tools.quantize", "--checkpoint-path", base, "--mode", "int4",
+                         "--group-size", 128, "--output", tmp / "int4")
+        q4, _ = load_dual_ar(tmp / "int4", dtype=None, device=dev)
+        n = _bitwise(q4, quantize_dual_ar_lowmem(params, "int4", group_size=128),
+                     "quantize int4")
+        print(f"checkpoint tools: tools.quantize --mode int4 --group-size 128 "
+              f"{t_int4:.1f}s ({_dir_bytes(tmp / 'int4') / 1e9:.2f} GB), all {n} "
+              f"leaves bitwise the in-memory quantization")
+        del q4
+        written += _dir_bytes(tmp / "int4")
+        shutil.rmtree(tmp / "int4")
+
+        # 5. two LoRA steps, then tools.merge_lora on their checkpoint
+        steps, max_length = 2, 512
+        proto = _write_protos(tmp / "data.protos", cfg.num_codebooks,
+                              cfg.codebook_size, np.random.default_rng(5))
+        stream = iter(SemanticIterableDataset([str(proto)], tokenizer, seed=0,
+                                              max_length=max_length,
+                                              num_codebooks=cfg.num_codebooks))
+        batch = TextDataCollator(tokenizer, max_length)([next(stream)])
+        lora = LoraConfig(r=8, lora_alpha=16.0)
+        tcfg = TrainConfig(output_dir=str(tmp / "train"), project="lora",
+                           max_steps=steps, batch_size=1, max_length=max_length,
+                           lr=1e-2, warmup_steps=0, schedule="constant",
+                           log_every_steps=1, val_every_steps=10 ** 9,
+                           ckpt_every_steps=steps, seed=0, precision="bfloat16",
+                           lora=lora)
+        trainer = Trainer(cfg, tcfg, params=params, device=dev)
+        t0 = time.perf_counter()
+        trainer.fit([batch] * steps, resume=False)
+        torch.cuda.synchronize()
+        t_fit = time.perf_counter() - t0
+        step_dir = trainer.latest_checkpoint()
+        out, t_merge = tool("tools.merge_lora", "--base", base, "--lora", step_dir,
+                            "--lora-r", 8, "--lora-alpha", 16,
+                            "--output", tmp / "merged")
+        l1 = float(re.search(r"L1 delta on layers\.0\.wqkv after merge: ([0-9.]+)",
+                             out).group(1))
+        merged, _ = load_dual_ar(tmp / "merged", dtype=None, device=dev)
+        lora_fp32 = _leafmap(trainer.params, lambda t: t.detach().float())
+        n = _bitwise(merged, merge_lora(lora_fp32, trainer.cfg), "merge_lora")
+        # teacher-forced logits in fp32: the merged model against the LoRA
+        # model (base and LoRA leaves widened exactly), and the base alone
+        # for the LoRA's own effect
+        inp = torch.from_numpy(np.asarray(batch["inputs"])).to(dev)
+        with torch.no_grad():
+            want = dual_ar.forward_train(lora_fp32, trainer.cfg, inp, remat=False)
+            got = dual_ar.forward_train(merged, cfg, inp, remat=False)
+            del merged
+            base_fp32 = _leafmap(params, lambda t: t.detach().float())
+            plain = dual_ar.forward_train(base_fp32, cfg, inp, remat=False)
+        rel = [((g - w).abs().max() / w.abs().max()).item() for g, w in zip(got, want)]
+        effect = [((p - w).abs().max() / w.abs().max()).item()
+                  for p, w in zip(plain, want)]
+        print(f"checkpoint tools: 2 LoRA steps (r 8, alpha 16, B=1 x T={max_length}) "
+              f"{t_fit:.1f}s; tools.merge_lora {t_merge:.1f}s, L1 {l1:.6f}; the merged "
+              f"tree equals the in-memory merge on the card in all {n} leaves; "
+              f"teacher-forced fp32 logits, max |diff| / max |logit|: merged vs "
+              f"LoRA model {rel[0]:.3e} (token) {rel[1]:.3e} (codebook); base vs "
+              f"LoRA model {effect[0]:.3e} / {effect[1]:.3e}")
+        if not l1 > 0 or max(rel) > 2e-2:
+            raise SystemExit(f"merge_lora: L1 {l1}, logits off by {rel}")
+        written += _dir_bytes(tmp / "merged") + _dir_bytes(tmp / "train")
+        del trainer, got, want, plain, lora_fp32, base_fp32
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # 6. the naive model at the same widths and depth, T=1024, bf16
+        naive = init_naive(0, cfg, torch.bfloat16, dev)
+        gen = torch.Generator().manual_seed(9)
+        inp = torch.randint(0, cfg.codebook_size, (1, cfg.num_codebooks + 1, 1024),
+                            generator=gen, dtype=torch.int32)
+        inp[0, 0, :200] = torch.randint(0, 200, (200,), generator=gen)
+        inp[0, 0, 200:] += cfg.semantic_begin_id
+        _zero_counts()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            tok_logits, cb_logits = forward_train_naive(naive, cfg, inp.to(dev))
+        torch.cuda.synchronize()
+        t_naive = time.perf_counter() - t0
+        finite = bool(torch.isfinite(tok_logits).all() and torch.isfinite(cb_logits).all())
+        launches["flash_train_fwd"] = flash_train_forward.launches_wgmma
+        print(f"checkpoint tools: forward_train_naive B=1 x T=1024 bf16 {t_naive:.2f}s, "
+              f"logits {tuple(tok_logits.shape)} / {tuple(cb_logits.shape)} "
+              f"finite={finite}; training-forward launches on the tensor-core "
+              f"route {flash_train_forward.launches_wgmma}")
+        if not finite or flash_train_forward.launches_wgmma <= 0:
+            raise SystemExit("naive: logits not finite or the training forward's "
+                             "tensor-core route never launched")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"phase 11 (the checkpoint tools) took {time.perf_counter() - t_phase:.1f}s "
+          f"and wrote {written / 1e9:.2f} GB; {_nvidia_smi()}")
+    return launches
+
+
+def _leafmap(tree, fn):
+    if isinstance(tree, dict):
+        return {k: _leafmap(v, fn) for k, v in tree.items()}
+    return fn(tree)
 
 
 CLONE_TEXT = ("A reference speaker reads a few calm sentences, so that the model "
@@ -3895,8 +4239,8 @@ def main():
     if min(occupancy.values()) <= 0:
         raise SystemExit("a training backward kernel fits no block on an SM")
 
-    cases = kernel_cases(dev)
     tokenizer = build_test_tokenizer()
+    cases = kernel_cases(dev, parity_shapes(tokenizer))
     from fish_speech_tpu_torch.ops.flash_decode import flash_decode_attention
     from fish_speech_tpu_torch.ops.flash_prefill import (flash_prefill_attention,
                                                          flash_suffix_attention)
@@ -3956,6 +4300,10 @@ def main():
     gc.collect()  # the pools go before the tools' processes
     torch.cuda.empty_cache()
     run_tools(tokenizer)
+    gc.collect()  # nothing of the earlier phases stays for the checkpoint tools
+    torch.cuda.empty_cache()
+    for name, n in run_checkpoint_tools(dev, tokenizer).items():
+        launches[name] += n
     for row in pool.values():
         for name in ("flash_decode", "flash_decode_kv8", "flash_prefill", "int8_mm",
                      "int8_mm_cluster", "int8_ffn", "flash_suffix_kv8"):

@@ -106,7 +106,7 @@ def _conv(p, dtype, device):
 
 # the codec tree's conv and conv-transpose leaves, by key; every other leaf
 # (transformer stacks, projections, codebooks, alphas, norms) keeps its layout
-_CODEC_CONVS = {"conv_in", "conv", "conv1", "conv2", "conv_out", "dwconv"}
+CODEC_CONVS = {"conv_in", "conv", "conv1", "conv2", "conv_out", "dwconv"}
 
 
 def dac_from_jax(params, dtype=torch.float32, device=DEFAULT_DEVICE):
@@ -118,7 +118,7 @@ def dac_from_jax(params, dtype=torch.float32, device=DEFAULT_DEVICE):
 
     def convert(node):
         if isinstance(node, dict):
-            return {k: _conv(v, dtype, device) if k in _CODEC_CONVS else convert(v)
+            return {k: _conv(v, dtype, device) if k in CODEC_CONVS else convert(v)
                     for k, v in node.items()}
         if isinstance(node, (list, tuple)):
             return [convert(v) for v in node]

@@ -29,8 +29,8 @@ from fish_speech_tpu_torch.ops.int4 import int4_matmul, unpack_int4
 from fish_speech_tpu_torch.ops.int8 import MAX_ROWS as INT8_KERNEL_ROWS
 from fish_speech_tpu_torch.ops.int8 import int8_matmul
 
-# the layer weights quantized, and the int4 group size (halved where a
-# weight needs it, `_quantize_weight`)
+# the layer weights quantized, and the default int4 group size (halved
+# where a weight needs it, `_quantize_weight`)
 TARGETS = ("wqkv", "wo", "w1", "w2", "w3")
 GROUP_SIZE = 128
 
@@ -122,12 +122,12 @@ def fp32_scales(params):
     return params
 
 
-def _quantize_weight(w, mode: str):
+def _quantize_weight(w, mode: str, group_size: int = GROUP_SIZE):
     if mode == "int8":
         return quantize_int8(w)
     if mode == "int4":
         i = w.shape[-2]
-        g = GROUP_SIZE
+        g = group_size
         # g must divide I and must not straddle the half split (the kernel's
         # contract): (I/2) % g == 0
         while g > 1 and (i % g or (i // 2) % g):
@@ -136,22 +136,23 @@ def _quantize_weight(w, mode: str):
     raise ValueError(mode)
 
 
-def _quantize_stacked(w, mode):
+def _quantize_stacked(w, mode, group_size=GROUP_SIZE):
     """Quantize a leaf one layer at a time, so the fp32 temporaries stay
     one layer in size; the outputs are allocated once and filled."""
     if w.dim() != 3:
-        return _quantize_weight(w, mode)
-    first = _quantize_weight(w[0], mode)
+        return _quantize_weight(w, mode, group_size)
+    first = _quantize_weight(w[0], mode, group_size)
     out = {k: torch.empty((w.shape[0], *v.shape), dtype=v.dtype, device=v.device)
            for k, v in first.items()}
     for i in range(w.shape[0]):
-        qi = first if i == 0 else _quantize_weight(w[i], mode)
+        qi = first if i == 0 else _quantize_weight(w[i], mode, group_size)
         for k, v in qi.items():
             out[k][i] = v
     return out
 
 
-def quantize_dual_ar_lowmem(params, mode="int8", fast_mode=None):
+def quantize_dual_ar_lowmem(params, mode="int8", fast_mode=None,
+                            group_size: int = GROUP_SIZE):
     """Quantize the Dual-AR parameter tree of a device-resident model, one
     leaf at a time and one layer at a time, each source leaf dropped from
     the returned tree as soon as it is quantized (the caller drops its own
@@ -159,22 +160,24 @@ def quantize_dual_ar_lowmem(params, mode="int8", fast_mode=None):
 
     mode: "int8" (per channel) or "int4" (group-wise, packed) for the
     TARGETS of both layer stacks; `fast_mode` quantizes the fast stack
-    differently ("mixed": mode="int8", fast_mode="int4"). Embedding tables
-    stay as they are (gathers, not matmuls); the untied LM head and the
-    fast head are always int8. The tree equals the JAX package's
-    `quantize_dual_ar` with the same modes."""
+    differently ("mixed": mode="int8", fast_mode="int4"). The int4 group
+    size starts at `group_size` and is halved, weight by weight, until it
+    divides I and I/2 (`_quantize_weight`, the JAX package's rule).
+    Embedding tables stay as they are (gathers, not matmuls); the untied LM
+    head and the fast head are always int8. The tree equals the JAX
+    package's `quantize_dual_ar` with the same modes and group size."""
     out = dict(params)
     layers = dict(params["layers"])
     for name in TARGETS:
         if name in layers and not isinstance(layers[name], dict):
-            layers[name] = _quantize_stacked(layers.pop(name), mode)
+            layers[name] = _quantize_stacked(layers.pop(name), mode, group_size)
     out["layers"] = layers
     fast = dict(params["fast"])
     flayers = dict(fast["layers"])
     for name in TARGETS:
         if name in flayers and not isinstance(flayers[name], dict):
             flayers[name] = _quantize_stacked(flayers.pop(name),
-                                              fast_mode or mode)
+                                              fast_mode or mode, group_size)
     fast["layers"] = flayers
     if "output" in fast and not isinstance(fast["output"], dict):
         fast["output"] = _quantize_stacked(fast.pop("output"), "int8")

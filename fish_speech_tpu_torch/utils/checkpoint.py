@@ -1,14 +1,18 @@
-"""Reader of the native checkpoint format, into torch tensors.
+"""The native checkpoint format, read into and written from torch tensors.
 
-Port of the reading half of `fish_speech_tpu/utils/checkpoint.py`: a
-directory with `config.json` (DualARConfig) and `model.safetensors`, a flat
-"/"-joined parameter tree whose bf16 leaves are stored as raw uint16 bits
-under a "::bf16" key suffix. Lists are numeric path segments.
+Port of `fish_speech_tpu/utils/checkpoint.py`: a directory with
+`config.json` (DualARConfig), `model.safetensors`, a flat "/"-joined
+parameter tree whose bf16 leaves are stored as raw uint16 bits under a
+"::bf16" key suffix (lists are numeric path segments), and
+`tokenizer.json`. The writers (`save_params`, `save_dual_ar`, `save_dac`)
+write the same bytes as the JAX package's on the same tree (each leaf made
+contiguous first).
 
 A bundled codec (`codec_config.json`, DACConfig, and `codec.safetensors`)
 reads with `load_dac` (the stored layout) or `load_codec` (the torch
-layout the port's codec runs). The writers (`save_dual_ar`, `save_dac`) wait for
-the port's `tools/quantize.py` (ROADMAP).
+layout the port's codec runs) and writes with `save_dac` (a tree in the
+stored layout) or `save_codec` (a tree in the torch layout, `init_dac`'s
+and `load_codec`'s).
 
 A quantized tree (`ops/quant.py`) reads back as it was written: integer
 leaves (int8 `q`, uint8 `p`) stay integer, and floating leaves, the scales
@@ -18,18 +22,94 @@ included, are cast to `dtype` when one is given, as the JAX package's
 
 from __future__ import annotations
 
+import dataclasses
 import json
 from pathlib import Path
 
 import numpy as np
 import torch
-from safetensors.numpy import load_file
+from safetensors.numpy import load_file, save_file
 
 from fish_speech_tpu_torch.config import (CodecTransformerConfig, DACConfig,
                                           DualARConfig, RVQConfig)
 from fish_speech_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
 
 _BF16_SUFFIX = "::bf16"
+
+
+def _leaf_array(leaf):
+    """(key suffix, contiguous numpy array) of one leaf: a bf16 tensor as
+    its raw bits. Contiguous, since safetensors writes a numpy array from
+    its data pointer."""
+    if isinstance(leaf, torch.Tensor):
+        t = leaf.detach().to("cpu").contiguous()
+        if t.dtype == torch.bfloat16:
+            return _BF16_SUFFIX, t.view(torch.int16).numpy().view(np.uint16)
+        return "", t.numpy()
+    return "", np.ascontiguousarray(leaf)
+
+
+def flatten_pytree(tree, prefix="") -> dict:
+    """{"/"-joined path: numpy array} of a tree of tensors (or numpy arrays,
+    the converter's); bf16 leaves as uint16 bits under a "::bf16" suffix,
+    on the host."""
+    out = {}
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            out.update(flatten_pytree(v, f"{prefix}{k}/"))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            out.update(flatten_pytree(v, f"{prefix}{i}/"))
+    else:
+        suffix, arr = _leaf_array(tree)
+        out[prefix[:-1] + suffix] = arr
+    return out
+
+
+def save_params(path, params, name="model.safetensors"):
+    """Write the tree to `path/name` (the directory made if missing)."""
+    path = Path(path)
+    path.mkdir(parents=True, exist_ok=True)
+    save_file(flatten_pytree(params), str(path / name))
+
+
+def save_dual_ar(path, params, cfg: DualARConfig, tokenizer=None):
+    """`config.json`, `model.safetensors` and, given a tokenizer, its
+    `tokenizer.json` in `path`."""
+    path = Path(path)
+    path.mkdir(parents=True, exist_ok=True)
+    cfg.to_json(str(path / "config.json"))
+    save_params(path, params)
+    if tokenizer is not None:
+        tokenizer.save_pretrained(str(path))
+
+
+def save_dac(path, params, cfg: DACConfig):
+    """`codec_config.json` and `codec.safetensors` of a codec tree in the
+    stored layout (`load_dac`'s)."""
+    path = Path(path)
+    path.mkdir(parents=True, exist_ok=True)
+    with open(path / "codec_config.json", "w") as f:
+        json.dump(dataclasses.asdict(cfg), f, indent=2)
+    save_params(path, params, name="codec.safetensors")
+
+
+def save_codec(path, params, cfg: DACConfig):
+    """`save_dac` of a codec tree in the torch layout (`init_dac`'s and
+    `load_codec`'s): each convolution's weight goes back to the stored
+    (K, Cin, Cout) (or (K, Cout, Cin)) layout, the inverse of
+    `dac_from_jax`."""
+    from fish_speech_tpu_torch.convert.from_jax import CODEC_CONVS
+
+    def stored(node):
+        if isinstance(node, dict):
+            return {k: {"w": v["w"].permute(2, 1, 0), "b": v["b"]}
+                    if k in CODEC_CONVS else stored(v) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return [stored(v) for v in node]
+        return node
+
+    save_dac(path, stored(params), cfg)
 
 
 def _to_tensor(key, value, dtype, device):

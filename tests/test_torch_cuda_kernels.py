@@ -65,6 +65,11 @@ launch, and a graph replayed after starts change. The lockstep
 bodies' greedy columns (fp32, plain and int8 cache), and the tiny engine's
 streamed request gives the same audio from device partials as from host
 partials, every codec call a replay.
+
+The checkpoint tools: a parity golden saved by `tools.parity_check --cpu`
+on a tiny fp32 checkpoint (heads of 64) passes the tool on the card, which
+launches the fp32 prefill, decode and training-forward kernels; the naive
+model's fp32 forward on the card is within 1e-4 of the CPU's.
 """
 
 import numpy as np
@@ -1644,3 +1649,85 @@ def test_device_partial_request_equals_a_host_partial_one(dev):
     for a, b in zip(runs[True], runs[False]):
         np.testing.assert_array_equal(a, b)
     assert not engine.codec_eager_runs and sum(engine.codec_replays.values()) > 2
+
+
+def _ckpt_tiny_cfg(tokenizer):
+    """A tiny fp32 model whose heads (D=64) the attention kernels take."""
+    from fish_speech_tpu_torch.config import dual_ar_tiny
+
+    return dual_ar_tiny(vocab_size=tokenizer.vocab_size, head_dim=64,
+                        n_head=4, n_local_heads=2, fast_head_dim=64,
+                        fast_n_head=3, fast_n_local_heads=1,
+                        attention_qk_norm=True, tie_word_embeddings=False,
+                        semantic_begin_id=tokenizer.semantic_begin_id,
+                        semantic_end_id=tokenizer.semantic_end_id,
+                        im_end_id=tokenizer.im_end_id)
+
+
+def test_parity_golden_from_the_cpu_passes_on_the_card(dev, tmp_path):
+    """`tools.parity_check`: a golden saved by a `--cpu` run (the plain
+    versions) on a tiny fp32 checkpoint with a codec passes on the card
+    (the fp32 kernels), and the card run launched the fp32 prefill, decode
+    and training-forward kernels."""
+    from click.testing import CliRunner
+
+    from fish_speech_tpu_torch.config import dac_tiny
+    from fish_speech_tpu_torch.models.dac.model import init_dac
+    from fish_speech_tpu_torch.models.dual_ar import init_dual_ar
+    from fish_speech_tpu_torch.ops import flash_prefill, flash_train
+    from fish_speech_tpu_torch.tokenizer import build_test_tokenizer
+    from fish_speech_tpu_torch.tools.parity_check import main
+    from fish_speech_tpu_torch.utils.checkpoint import save_codec, save_dual_ar
+
+    tokenizer = build_test_tokenizer()
+    cfg = _ckpt_tiny_cfg(tokenizer)
+    ckpt = tmp_path / "ckpt"
+    save_dual_ar(ckpt, init_dual_ar(0, cfg, torch.float32, "cpu"), cfg, tokenizer)
+    save_codec(ckpt, init_dac(1, dac_tiny(), device="cpu"), dac_tiny())
+    golden = tmp_path / "golden.json"
+    runner = CliRunner()
+    r = runner.invoke(main, ["--checkpoint-path", str(ckpt), "--max-new-tokens",
+                             "12", "--save-golden", str(golden), "--cpu"],
+                      catch_exceptions=False)
+    assert r.exit_code == 0, r.output
+    flash_prefill.reset_launches()
+    flash_train.reset_launches()
+    flash_decode_attention.launches = 0
+    r = runner.invoke(main, ["--checkpoint-path", str(ckpt), "--max-new-tokens",
+                             "12", "--golden", str(golden)], catch_exceptions=False)
+    assert r.exit_code == 0, r.output
+    assert "PARITY OK" in r.output
+    assert flash_prefill_attention.launches_cuda_cores > 0
+    assert flash_decode_attention.launches > 0
+    assert flash_train_forward.launches_cuda_cores > 0
+
+
+@pytest.mark.parametrize("padded", [False, True])
+def test_naive_forward_on_the_card_matches_the_cpu(dev, padded):
+    """`forward_train_naive` in fp32: the card (the training forward's
+    CUDA-core kernel) within 1e-4 of the CPU's plain run on the same
+    weights and inputs."""
+    from fish_speech_tpu_torch.models.naive import (forward_train_naive,
+                                                    init_naive)
+    from fish_speech_tpu_torch.tokenizer import build_test_tokenizer
+
+    tokenizer = build_test_tokenizer()
+    cfg = _ckpt_tiny_cfg(tokenizer)
+    params = init_naive(2, cfg, torch.float32, "cpu")
+    rng = np.random.default_rng(4)
+    inp = np.zeros((2, cfg.num_codebooks + 1, 150), np.int32)
+    inp[:, 0] = rng.integers(0, 200, (2, 150))
+    inp[:, 0, 40:120] = rng.integers(cfg.semantic_begin_id, cfg.semantic_end_id,
+                                     (2, 80))
+    inp[:, 1:] = rng.integers(0, cfg.codebook_size, (2, cfg.num_codebooks, 150))
+    pad = np.zeros((2, 150), bool)
+    pad[1, 131:] = True
+    inp, pad = torch.from_numpy(inp), torch.from_numpy(pad)
+    with torch.no_grad():
+        want = forward_train_naive(params, cfg, inp, pad if padded else None)
+        n = flash_train_forward.launches_cuda_cores
+        got = forward_train_naive(_tree_to(params, dev), cfg, inp.to(dev),
+                                  pad.to(dev) if padded else None)
+    assert flash_train_forward.launches_cuda_cores == n + cfg.n_layer
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.cpu().numpy(), w.numpy(), atol=1e-4, rtol=0)

@@ -8,7 +8,9 @@ directory. The server's host modules too: FLAC bytes (native and numpy
 encoders) and decodes, `load_audio` of FLAC, mp3 and opus bytes where the
 system libraries load, the time stretch, the live text segmentation, the
 i18n tables, the static UI files, and `load_dac` of a checkpoint the JAX
-package wrote."""
+package wrote. The converter's and the dataset tools' copies: every
+function the original's source but the three that take or import torch,
+and the state-dict loader equal on a `.pth`."""
 
 import dataclasses
 import struct
@@ -454,3 +456,55 @@ def test_load_dac_reads_what_the_jax_package_wrote(tmp_path):
     for k in flat_j:
         np.testing.assert_array_equal(flat_t[k], flat_j[k], err_msg=k)
     assert all(t.dtype == torch.float32 for t in [got["decoder"]["conv_in"]["w"]])
+
+
+# the converter's and the dataset tools' copies: every function is the
+# original's source, except the three that take torch tensors or import
+# torch at the top (held to the originals on the same inputs in
+# `tests/test_torch_convert.py`; the dataset tools' files in
+# `tests/test_torch_dataset_tools.py`)
+_COPIES = ("convert.torch_state", "convert.dual_ar", "convert.dac",
+           "tools.build_dataset", "tools.create_train_split")
+_CHANGED = {"convert.torch_state": {"_to_numpy", "load_torch_state_dict"},
+            "convert.dual_ar": {"export_dual_ar"}}
+
+
+@pytest.mark.parametrize("module", _COPIES)
+def test_converter_and_dataset_tool_copies_are_the_originals(module):
+    import importlib
+    import inspect
+
+    orig = importlib.import_module(f"fish_speech_tpu.{module}")
+    copy = importlib.import_module(f"fish_speech_tpu_torch.{module}")
+    compared = 0
+    for name, f in vars(orig).items():
+        f = getattr(f, "callback", f)  # a click command: its function
+        if not inspect.isfunction(f) or f.__module__ != orig.__name__:
+            continue
+        g = getattr(copy, name)
+        g = getattr(g, "callback", g)
+        if name in _CHANGED.get(module, ()):
+            assert inspect.getsource(g) != inspect.getsource(f)
+        else:
+            assert inspect.getsource(g) == inspect.getsource(f), name
+        compared += 1
+    assert compared >= 2
+
+
+def test_torch_state_loaders_are_equal_on_a_pth(tmp_path):
+    import torch
+
+    from fish_speech_tpu.convert import torch_state as jts
+    from fish_speech_tpu_torch.convert import torch_state as tts
+
+    rng = np.random.default_rng(0)
+    state = {"model.a.weight": torch.from_numpy(rng.normal(size=(3, 4)).astype(np.float32)),
+             "model.b": torch.from_numpy(rng.normal(size=(5,))).to(torch.bfloat16)}
+    torch.save(state, tmp_path / "model.pth")
+    got, want = tts.load_torch_state_dict(tmp_path), jts.load_torch_state_dict(tmp_path)
+    assert list(got) == list(want) == ["a.weight", "b"]
+    for k in want:
+        assert got[k].dtype == want[k].dtype
+        np.testing.assert_array_equal(got[k], want[k])
+    for v in state.values():
+        np.testing.assert_array_equal(tts._to_numpy(v), jts._to_numpy(v))

@@ -232,6 +232,16 @@ PORT_MODULES = [
     "fish_speech_tpu_torch.tools.codec",
     "fish_speech_tpu_torch.tools.extract_vq",
     "fish_speech_tpu_torch.tools.batch_tts",
+    "fish_speech_tpu_torch.convert.torch_state",
+    "fish_speech_tpu_torch.convert.dual_ar",
+    "fish_speech_tpu_torch.convert.dac",
+    "fish_speech_tpu_torch.convert.cli",
+    "fish_speech_tpu_torch.models.naive",
+    "fish_speech_tpu_torch.tools.quantize",
+    "fish_speech_tpu_torch.tools.merge_lora",
+    "fish_speech_tpu_torch.tools.parity_check",
+    "fish_speech_tpu_torch.tools.build_dataset",
+    "fish_speech_tpu_torch.tools.create_train_split",
 ]
 
 # Run on the CPU with the JAX package and jax unimportable: every port
@@ -241,8 +251,11 @@ PORT_MODULES = [
 # mixed-quantized int8-KV session (its int8 products through
 # `ops/int8.py`'s route), a lockstep `generate_batch` of two prompts, a
 # streamed request through the continuous batcher's pool, the fast-stack
-# probe, and one /v1/tts answered by the port's HTTP app (its UI and spec
-# too).
+# probe, one /v1/tts answered by the port's HTTP app (its UI and spec
+# too), and the checkpoint lifecycle's CLIs: `convert.cli` (export-dual-ar,
+# dual-ar), `tools.quantize --cpu`, `tools.merge_lora --cpu` (over a LoRA
+# trainer checkpoint), `tools.parity_check --cpu` (a golden saved, then
+# passed), `tools.build_dataset` and `tools.create_train_split`.
 # (`jax` is blocked by an import hook, not by `sys.modules['jax'] = None`:
 # scipy's array-API helpers take a `jax` entry in `sys.modules` for the
 # imported package.)
@@ -363,6 +376,50 @@ async def serve():
 status, body, ui, spec = asyncio.run(serve())
 assert status == 200 and body[:4] == b'fLaC', (status, body[:200])
 assert ui == 200 and spec == 200
+
+from pathlib import Path
+from fish_speech_tpu_torch.config import dac_tiny
+from fish_speech_tpu_torch.convert import cli as convert_cli
+from fish_speech_tpu_torch.models.lora import LoraConfig, add_lora, extract_lora
+from fish_speech_tpu_torch.tools import (build_dataset, create_train_split,
+                                         merge_lora, parity_check, quantize)
+from fish_speech_tpu_torch.utils.checkpoint import save_codec, save_dual_ar
+
+ck = Path(tmp) / 'ckpt'
+base = dual_ar.init_dual_ar(3, cfg, torch.float32, 'cpu')
+save_dual_ar(ck, base, cfg, tok)
+save_codec(ck, init_dac(1, dac_cfg, device='cpu'), dac_cfg)
+def run(main, args):
+    main([str(a) for a in args], standalone_mode=False)
+run(convert_cli.cli, ['export-dual-ar', '--input', ck, '--output', Path(tmp) / 'up'])
+tok.save_pretrained(str(Path(tmp) / 'up'))
+run(convert_cli.cli, ['dual-ar', '--input', Path(tmp) / 'up', '--output',
+                      Path(tmp) / 'conv'])
+assert (Path(tmp) / 'conv' / 'model.safetensors').exists()
+run(quantize.main, ['--checkpoint-path', ck, '--mode', 'int4', '--cpu'])
+assert (Path(tmp) / 'ckpt-int4' / 'model.safetensors').exists()
+lcfg = LoraConfig(r=2, lora_alpha=4.0)
+step = Path(tmp) / 'lora' / 'step_00000001'
+step.mkdir(parents=True)
+torch.save({'params': extract_lora(add_lora(base, cfg, lcfg, 1, torch.float32)),
+            'opt_state': {}}, step / 'state.pt')
+run(merge_lora.main, ['--base', ck, '--lora', step, '--lora-r', 2, '--lora-alpha', 4,
+                      '--output', Path(tmp) / 'merged', '--cpu'])
+assert (Path(tmp) / 'merged' / 'model.safetensors').exists()
+golden = Path(tmp) / 'golden.json'
+run(parity_check.main, ['--checkpoint-path', ck, '--max-new-tokens', 4,
+                        '--save-golden', golden, '--cpu'])
+run(parity_check.main, ['--checkpoint-path', ck, '--max-new-tokens', 4,
+                        '--golden', golden, '--cpu'])
+data = Path(tmp) / 'data' / 'spk'
+data.mkdir(parents=True)
+np.save(data / 'a.npy', rng.integers(0, 32, (4, 9)))
+(data / 'a.lab').write_text('a line')
+write_wav(data / 'a.wav', 0.1 * rng.standard_normal(4000), 16000)
+run(build_dataset.main, ['--input', data.parent, '--output', Path(tmp) / 'protos'])
+assert list((Path(tmp) / 'protos').glob('*.protos'))
+run(create_train_split.main, [data.parent])
+assert (data.parent / 'vq_train_filelist.txt').exists()
 
 bad = sorted(m for m in sys.modules
              if m == 'fish_speech_tpu' or m.startswith('fish_speech_tpu.'))
