@@ -404,9 +404,14 @@ class TTSInferenceEngine:
                     prompt_tokens=list(prompt_tokens) or None,
                     seed=req.seed if req.seed is not None else 42,
                     stream_partials=req.streaming,
-                    # JAX's: device partials for single-stream sessions
+                    # JAX's: device partials for single-stream sessions; a
+                    # multi-card leader streams host partials, which its
+                    # followers replay (`server/multihost.py`)
                     device_partials=(req.streaming and self.device_partials
                                      and not getattr(self.session, "concurrent",
+                                                     False)
+                                     and not getattr(self.session,
+                                                     "_multihost_leader",
                                                      False)),
                     cancel_check=req.cancel_check,
                 ):

@@ -51,6 +51,14 @@ Every graph capture in the process goes through `capture_graph`, which
 holds `GUARD` alone; every thread's other device work holds it shared
 (`GUARD.launching()`), so no launch from another thread lands inside a
 capture.
+
+Tensor-parallel serving (`GenerationSession(mesh=...)`, JAX's session on a
+(1, tp) mesh): the session holds this rank's shard (`parallel/mesh.py:
+shard_params`) and every rank runs every prefill, decode step and stream in
+lockstep. Each rank samples from the same gathered logits with the same
+`counter_uniforms(seed, draw)`, so every rank draws the same codes. Under
+nccl the collectives run inside the session's CUDA graphs; under gloo the
+bodies run eagerly (gloo cannot be captured), counted by `eager_runs`.
 """
 
 from __future__ import annotations
@@ -83,6 +91,7 @@ from fish_speech_tpu_torch.ops.sampling import (TOP_K_CAP, UNIFORM_FAST,
                                                  check_top_k, counter_uniforms,
                                                  ras_select, sample_topk,
                                                  topk_state, uniform_rows)
+from fish_speech_tpu_torch.parallel.mesh import has_quantized, use_mesh
 
 PROMPT_BUCKETS = (64, 128, 256, 512, 1024, 2048, 4096, 8192)
 
@@ -861,15 +870,28 @@ class GenerationSession:
     no kernel, so it takes back the launch counts its body added; each
     replay adds them again. On the CPU the bodies run eagerly.
     `replays` and `eager_runs` count graph replays and eager body runs by
-    name; `capture_seconds` and `pool_bytes` what the captures took."""
+    name; `capture_seconds` and `pool_bytes` what the captures took.
+
+    `mesh` (`parallel/mesh.py:make_mesh`, dp 1): `params` is this rank's
+    shard and every rank makes the same calls in the same order. Its caches
+    hold this rank's heads, its restricted head is whole on every rank, and
+    its bodies run under `use_mesh(mesh)`: replayed as graphs under nccl,
+    eagerly under gloo. Lockstep batches (max_batch > 1) and quantized
+    weights are refused under tp > 1, as JAX's server refuses them."""
 
     def __init__(self, params, cfg: DualARConfig, scfg: SamplingConfig = None,
                  max_batch: int = 1, dtype=torch.bfloat16,
                  decode_chunk_size: int = 32, first_chunk_size: int = 0,
                  pipeline_lookahead: int = 1, kv_quant: bool = False,
-                 prefix_cache_size: int = 0):
+                 prefix_cache_size: int = 0, mesh=None):
         if max_batch < 1:
             raise ValueError(f"max_batch={max_batch} must be at least 1")
+        if mesh is not None and mesh.tp.size > 1 and (
+                max_batch > 1 or has_quantized(params)):
+            raise NotImplementedError(
+                "tensor-parallel serving drives one stream of bf16/fp32 "
+                "weights: lockstep batches (max_batch > 1) and int8/int4 "
+                "weights under tp > 1 are not ported (ROADMAP §1 item 10)")
         if max_batch > 1 and prefix_cache_size:
             raise ValueError(
                 f"GenerationSession(max_batch={max_batch}) serves lockstep "
@@ -880,8 +902,10 @@ class GenerationSession:
         params = _detached(params)
         # the weights' bytes, for generate_long's GB/s line (JAX's)
         self.param_bytes = _tree_bytes(params)
-        self.params = fp32_scales(dual_ar.fuse_ffn_weights(
-            dual_ar.precompute_semantic_head(params, cfg)))
+        self.mesh = mesh
+        with use_mesh(mesh):  # the restricted head gathers over tp
+            self.params = fp32_scales(dual_ar.fuse_ffn_weights(
+                dual_ar.precompute_semantic_head(params, cfg)))
         self.cfg = cfg.resolve()
         self.scfg = scfg or SamplingConfig()
         self.device = params["embeddings"].device
@@ -895,6 +919,9 @@ class GenerationSession:
         # headroom so a chunk's overshoot never writes past the buffer
         self.cache_len = self.cfg.max_seq_len + decode_chunk_size
         self.kv_quant = kv_quant
+        # graphs on CUDA, unless the mesh's collectives cannot be captured
+        self.eager = self.device.type != "cuda" or (
+            mesh is not None and not mesh.graphs)
         self._states = {}  # rows -> StepState
         self.state = self._state_for(max_batch)
         self.cache = self.state.cache
@@ -911,10 +938,11 @@ class GenerationSession:
         chunk of either chunk size fits them)."""
         st = self._states.get(rows)
         if st is None:
-            st = self._states[rows] = StepState(
-                self.cfg, self.scfg, self.cache_len,
-                max(self.first_chunk_size, self.decode_chunk_size), self.dtype,
-                self.act_dtype, self.device, self.kv_quant, rows)
+            with use_mesh(self.mesh):  # caches of this rank's heads
+                st = self._states[rows] = StepState(
+                    self.cfg, self.scfg, self.cache_len,
+                    max(self.first_chunk_size, self.decode_chunk_size),
+                    self.dtype, self.act_dtype, self.device, self.kv_quant, rows)
         return st
 
     @property
@@ -947,11 +975,19 @@ class GenerationSession:
         kind, rows, bucket = _parse_graph_name(name)
         st = self._state_for(rows)
         if kind == "decode":
-            return functools.partial(decode_step, self.params, self.cfg,
+            body = functools.partial(decode_step, self.params, self.cfg,
                                      self.scfg, st)
-        body = suffix_body if kind == "suffix" else prefill_body
-        return functools.partial(body, self.params, self.cfg, self.scfg, st,
-                                 bucket)
+        else:
+            body = functools.partial(
+                suffix_body if kind == "suffix" else prefill_body, self.params,
+                self.cfg, self.scfg, st, bucket)
+        if self.mesh is None:
+            return body
+
+        def on_mesh():
+            with use_mesh(self.mesh):
+                body()
+        return on_mesh
 
     def _capture(self, name: str):
         """Capture graph `name`: one eager run of its body (the carried
@@ -983,8 +1019,8 @@ class GenerationSession:
 
     def _run(self, name: str):
         """Run step `name` once: a replay of its graph on CUDA (captured at
-        its first use), its body on the CPU."""
-        if self.device.type != "cuda":
+        its first use), its body on the CPU or under a gloo mesh."""
+        if self.eager:
             self._body(name)()
             self.eager_runs[name] += 1
             return
@@ -994,7 +1030,7 @@ class GenerationSession:
     def _graphs_for(self, *names):
         """Capture the graphs `names` not captured yet (on CUDA): before a
         launching section, which a capture may not sit in."""
-        if self.device.type == "cuda":
+        if not self.eager:
             for name in names:
                 if name not in self._graphs:
                     self._capture(name)
@@ -1020,7 +1056,7 @@ class GenerationSession:
         between requests: the eager runs write the cache (stored prefixes
         are copies and stay as they are). Returns {name: seconds} of the
         graphs captured by this call (each with its eager run); on the CPU
-        nothing is captured and it returns {}."""
+        nothing is captured and it returns {}, as under a gloo mesh."""
         cfg = self.cfg
         if not 1 <= batch <= self.max_batch:
             raise ValueError(f"batch={batch} outside 1..{self.max_batch}")
@@ -1031,7 +1067,7 @@ class GenerationSession:
         if not 0 < prompt_len < cfg.max_seq_len:
             raise ValueError(f"prompt_len {prompt_len} outside 1.."
                              f"{cfg.max_seq_len - 1}")
-        if self.device.type != "cuda":
+        if self.eager:
             return {}
         budget = (max_new_tokens
                   if max_new_tokens and prompt_len + max_new_tokens <= cfg.max_seq_len
@@ -1141,6 +1177,14 @@ class GenerationSession:
             return max_new_tokens
         return self.cfg.max_seq_len - t
 
+    def check_request(self, prompt: np.ndarray, max_new_tokens: int = 0,
+                      top_k: int = 30) -> int:
+        """Raise ValueError for a request `generate_stream` refuses (top_k
+        above the cap, a prompt that fills the context), before any step;
+        returns its budget of new tokens."""
+        check_top_k(top_k)
+        return self._budget(prompt.shape[1], max_new_tokens)
+
     def generate_stream(self, prompt: np.ndarray, generator,
                         max_new_tokens: int = 0, temperature: float = 1.0,
                         top_p: float = 0.9, top_k: int = 30,
@@ -1157,9 +1201,7 @@ class GenerationSession:
         sync, after the prefill and after each chunk's enqueue (JAX's
         `_stream_device`; lookahead 0)."""
         cfg, st = self.cfg, self._state_for(1)
-        check_top_k(top_k)
-        t = prompt.shape[1]
-        budget = self._budget(t, max_new_tokens)
+        budget = self.check_request(prompt, max_new_tokens, top_k)
         self._prefill_first(prompt, request_seed(generator),
                             (temperature, top_p, top_k))
         if device_partials:

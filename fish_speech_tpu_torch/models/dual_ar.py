@@ -42,6 +42,14 @@ attention runs `flash_decode_attention` with `lengths = pos + 1`, or
 `flash_decode_attention_kv8` over the int8 cache, and the teacher-forced
 training forward's slow stack runs `flash_train_attention`: on CUDA tensors
 those are the hand-written kernels.
+
+Under a (dp, tp) mesh (`parallel/mesh.py:use_mesh`) the tree is this rank's
+shard (`shard_params`) and every function here runs on its part: its block
+of heads (the attention kernels run at the local head counts, and the KV
+caches hold only those), its FFN columns and its vocabulary range, with the
+sums and gathers of `parallel/collectives.py` (the embedding and the
+row-parallel wo and w2 reduce, the column-parallel heads gather their
+logits). Without a mesh every function is what it is on one device.
 """
 
 from __future__ import annotations
@@ -64,6 +72,11 @@ from fish_speech_tpu_torch.ops.int8_ffn import int8_ffn
 from fish_speech_tpu_torch.ops.norms import rms_norm
 from fish_speech_tpu_torch.ops.quant import fp32_scales, mm
 from fish_speech_tpu_torch.ops.rope import apply_rope, rope_table
+from fish_speech_tpu_torch.parallel.collectives import (copy_to_tp,
+                                                        gather_from_tp,
+                                                        reduce_from_tp,
+                                                        slice_replicated)
+from fish_speech_tpu_torch.parallel.mesh import current_mesh, tp_layout
 from fish_speech_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
 
 # ---------------------------------------------------------------------------
@@ -72,6 +85,8 @@ from fish_speech_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
 
 
 def _dense(gen, shape, std, dtype, device):
+    if gen is None:  # the meta device: shapes only
+        return torch.empty(shape, dtype=dtype, device=device)
     w = torch.empty(shape, dtype=torch.float32, device=device)
     w.normal_(0.0, std, generator=gen)
     return w.to(dtype)
@@ -113,10 +128,11 @@ def init_dual_ar(seed: int, cfg: DualARConfig, dtype=torch.bfloat16,
     (the values differ from the JAX package's, whose RNG is threefry).
     Each tensor is drawn in fp32 and cast, one at a time, so the 5B model
     never holds a second full copy. Raises without CUDA unless `device` is
-    the CPU."""
+    the CPU. On the meta device it gives the shapes only."""
     cfg = cfg.resolve()
     device = resolve_device(device, "init_dual_ar")
-    gen = torch.Generator(device=device).manual_seed(seed)
+    gen = (None if device.type == "meta"
+           else torch.Generator(device=device).manual_seed(seed))
     std = cfg.initializer_range
 
     def dense(shape):
@@ -165,6 +181,32 @@ def param_count(params) -> int:
 
 
 # ---------------------------------------------------------------------------
+# The mesh
+# ---------------------------------------------------------------------------
+
+
+def _tp(cfg: DualARConfig, part: str):
+    """The tp axis that splits `part` ("vocab", "slow", "fast") under the
+    current mesh (`parallel/mesh.py:use_mesh`), or None: no mesh, or a
+    part that stays whole (`tp_layout`)."""
+    mesh = current_mesh()
+    if mesh is None or not getattr(tp_layout(cfg, mesh.tp.size), part):
+        return None
+    return mesh.tp
+
+
+def _tp_size(cfg: DualARConfig, part: str) -> int:
+    tp = _tp(cfg, part)
+    return tp.size if tp is not None else 1
+
+
+def _vocab_cols(tp, n: int, device):
+    """This rank's columns of an axis of n * tp split evenly (a LoRA factor
+    of a column-parallel head of n local columns)."""
+    return tp.index("even", n * tp.size, device)
+
+
+# ---------------------------------------------------------------------------
 # KV caches
 # ---------------------------------------------------------------------------
 
@@ -176,9 +218,11 @@ def init_kv_cache(cfg: DualARConfig, batch: int, max_seq: int,
     quant=True stores k/v int8 with per-(position, head) absmax scales
     ("ks"/"vs", (L, B, S, Hkv) bf16), as the JAX package does: half the
     decode-time KV bytes. Prefill attends the fresh k/v and only the store
-    is quantized, so prefill logits are exact; decode sees the rounding."""
+    is quantized, so prefill logits are exact; decode sees the rounding.
+    Under a mesh it holds this rank's heads."""
     cfg = cfg.resolve()
-    shape = (cfg.n_layer, batch, max_seq, cfg.n_local_heads, cfg.head_dim)
+    shape = (cfg.n_layer, batch, max_seq,
+             cfg.n_local_heads // _tp_size(cfg, "slow"), cfg.head_dim)
     if quant:
         return {"k": torch.zeros(shape, dtype=torch.int8, device=device),
                 "v": torch.zeros(shape, dtype=torch.int8, device=device),
@@ -246,10 +290,11 @@ def _store_kv_rows(cache, i, flat_pos, active, k, v):
 
 def init_fast_kv_cache(cfg: DualARConfig, batch: int, dtype=torch.bfloat16,
                        device=None):
-    """Fast-transformer cache: the sequence axis is the codebook index."""
+    """Fast-transformer cache: the sequence axis is the codebook index.
+    Under a mesh it holds this rank's heads."""
     cfg = cfg.resolve()
     shape = (cfg.n_fast_layer, batch, cfg.num_codebooks,
-             cfg.fast_n_local_heads, cfg.fast_head_dim)
+             cfg.fast_n_local_heads // _tp_size(cfg, "fast"), cfg.fast_head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
@@ -272,7 +317,9 @@ def embed_tokens(params, cfg: DualARConfig, inp, inference: bool = True):
     token + summed codebook embedding (gated by the semantic id range),
     (B, T, D). `scale_codebook_embeddings` applies on the inference path
     only: the training forward passes inference=False, as the JAX package
-    does. The audio-feature path is not ported."""
+    does. The audio-feature path is not ported. Under a mesh the table is
+    this rank's vocabulary range: ids outside it give zeros, and the ranks'
+    lookups are summed (the LoRA delta, replicated, is added after)."""
     inp = inp.long()
     codes = inp[:, 1:, :]  # (B, C, T)
     offsets = (torch.arange(cfg.num_codebooks, device=inp.device)
@@ -285,7 +332,15 @@ def embed_tokens(params, cfg: DualARConfig, inp, inference: bool = True):
     main = inp[:, 0, :]
     is_semantic = ((main >= cfg.semantic_begin_id)
                    & (main <= cfg.semantic_end_id))[..., None]
-    x = F.embedding(main, params["embeddings"])
+    tp = _tp(cfg, "vocab")
+    if tp is None:
+        x = F.embedding(main, params["embeddings"])
+    else:
+        n = params["embeddings"].shape[0]
+        local = main - tp.rank * n
+        inside = ((local >= 0) & (local < n))[..., None]
+        x = F.embedding(local.clamp(0, n - 1), params["embeddings"])
+        x = reduce_from_tp(torch.where(inside, x, torch.zeros_like(x)), tp)
     x = x + _lora_embed(params, "lora_embeddings", main, cfg.lora_scale)
     x = x + torch.where(is_semantic, vq_sum, torch.zeros_like(vq_sum))
     if cfg.scale_codebook_embeddings and inference:
@@ -299,18 +354,45 @@ def embed_tokens(params, cfg: DualARConfig, inp, inference: bool = True):
 # ---------------------------------------------------------------------------
 
 
-def _lora_delta(lp, name, x, scale):
-    """Low-rank delta `scale * (x @ A) @ B` when this weight has LoRA."""
+def _spec_tp(spec):
+    """The tp axis of a layer spec (`_slow_spec`), None without a mesh (a
+    spec of five values has none)."""
+    return spec[5] if len(spec) > 5 else None
+
+
+def _lora_delta(lp, name, x, spec):
+    """Low-rank delta `scale * (x @ A) @ B` when this weight has LoRA.
+
+    Under tp (`_spec_tp`) the factors are replicated and the weight split:
+    a column-parallel weight (wqkv, w1, w3; x replicated) takes its columns
+    of B after `copy_to_tp` of x @ A, a row-parallel one (wo, w2; x this
+    rank's rows) its rows of A and gives a partial that the weight's sum
+    reduces."""
     lora = lp.get("lora")
-    if lora is not None and name in lora:
-        return scale * ((x @ lora[name]["a"]) @ lora[name]["b"])
-    return 0
+    if lora is None or name not in lora:
+        return 0
+    a, b = lora[name]["a"], lora[name]["b"]
+    scale, tp = spec[4], _spec_tp(spec)
+    if tp is None:
+        return scale * ((x @ a) @ b)
+    if name in ("wo", "w2"):
+        rows = tp.index("even", a.shape[-2], a.device)
+        return scale * ((x @ slice_replicated(a, -2, rows, tp))
+                        @ copy_to_tp(b, tp))
+    if name == "wqkv":
+        heads = (spec[0] * tp.size, spec[1] * tp.size, spec[2])
+        cols = tp.index("qkv", b.shape[-1], b.device, heads)
+    else:
+        cols = tp.index("even", b.shape[-1], b.device)
+    return scale * (copy_to_tp(x @ a, tp) @ slice_replicated(b, -1, cols, tp))
 
 
 def _qkv(lp, spec, h):
-    """Project + split + per-head norm. Returns q, k, v (B, T, H*, Dh)."""
-    n_head, n_kv, head_dim, eps, lora_scale = spec
-    qkv = mm(h, lp["wqkv"]) + _lora_delta(lp, "wqkv", h, lora_scale)
+    """Project + split + per-head norm. Returns q, k, v (B, T, H*, Dh): this
+    rank's heads under tp."""
+    n_head, n_kv, head_dim, eps, _ = spec[:5]
+    tp = _spec_tp(spec)
+    qkv = mm(copy_to_tp(h, tp), lp["wqkv"]) + _lora_delta(lp, "wqkv", h, spec)
     if "bqkv" in lp:
         qkv = qkv + lp["bqkv"]
     b, t, _ = qkv.shape
@@ -319,15 +401,17 @@ def _qkv(lp, spec, h):
     q = qkv[..., :q_size].reshape(b, t, n_head, head_dim)
     k = qkv[..., q_size : q_size + kv_size].reshape(b, t, n_kv, head_dim)
     v = qkv[..., q_size + kv_size :].reshape(b, t, n_kv, head_dim)
-    if "q_norm" in lp:
-        q = rms_norm(q, lp["q_norm"], eps)
-        k = rms_norm(k, lp["k_norm"], eps)
+    if "q_norm" in lp:  # replicated weights on this rank's heads
+        q = rms_norm(q, copy_to_tp(lp["q_norm"], tp), eps)
+        k = rms_norm(k, copy_to_tp(lp["k_norm"], tp), eps)
     return q, k, v
 
 
 def _attn_out(lp, spec, y):
-    """Output projection with optional bias/LoRA. y: (B, T, H*Dh)."""
-    out = mm(y, lp["wo"]) + _lora_delta(lp, "wo", y, spec[4])
+    """Output projection with optional bias/LoRA. y: (B, T, H*Dh), this
+    rank's heads under tp, whose partials are summed before the bias."""
+    out = reduce_from_tp(mm(y, lp["wo"]) + _lora_delta(lp, "wo", y, spec),
+                         _spec_tp(spec))
     if "bo" in lp:
         out = out + lp["bo"]
     return out
@@ -345,24 +429,27 @@ def _takes_int8_ffn(lp, rows):
 
 
 def _ffn(lp, spec, h2):
+    """SwiGLU FFN; under tp on this rank's columns of w1, w3 (a fused w13
+    holds [w1 part | w3 part]) and rows of w2, the partials summed."""
     rows = h2.numel() // h2.shape[-1]
-    if _takes_int8_ffn(lp, rows):
+    tp = _spec_tp(spec)
+    if tp is None and _takes_int8_ffn(lp, rows):
         # the kernel takes fp32 scales: a no-op on the trees of `fp32_scales`
         w13 = fp32_scales(lp["w13"] if "w13" in lp else (lp["w1"], lp["w3"]))
         y = int8_ffn(h2.reshape(rows, h2.shape[-1]).contiguous(), w13,
                      fp32_scales(lp["w2"]))
         return y.reshape(h2.shape)
-    lora_scale = spec[4]
+    x = copy_to_tp(h2, tp)
     if "w13" in lp:  # fused w1|w3 (`fuse_ffn_weights`); LoRA stays split
-        u = mm(h2, lp["w13"])
+        u = mm(x, lp["w13"])
         i = u.shape[-1] // 2
-        u1 = u[..., :i] + _lora_delta(lp, "w1", h2, lora_scale)
-        u3 = u[..., i:] + _lora_delta(lp, "w3", h2, lora_scale)
+        u1 = u[..., :i] + _lora_delta(lp, "w1", h2, spec)
+        u3 = u[..., i:] + _lora_delta(lp, "w3", h2, spec)
     else:
-        u1 = mm(h2, lp["w1"]) + _lora_delta(lp, "w1", h2, lora_scale)
-        u3 = mm(h2, lp["w3"]) + _lora_delta(lp, "w3", h2, lora_scale)
+        u1 = mm(x, lp["w1"]) + _lora_delta(lp, "w1", h2, spec)
+        u3 = mm(x, lp["w3"]) + _lora_delta(lp, "w3", h2, spec)
     g = F.silu(u1) * u3
-    return mm(g, lp["w2"]) + _lora_delta(lp, "w2", g, lora_scale)
+    return reduce_from_tp(mm(g, lp["w2"]) + _lora_delta(lp, "w2", g, spec), tp)
 
 
 def _layer_slice(layers, i):
@@ -381,7 +468,7 @@ def _run_stack_decode(layers, spec, x, freqs, cache, pos, lengths,
     `_store_kv_rows`. int8 plus scales under the int8 cache; each layer's
     attention reads positions [starts[b], lengths[b]) (from 0 without
     `starts`)."""
-    n_head, n_kv, head_dim, eps, _ = spec
+    n_head, n_kv, head_dim, eps = spec[:4]
     b = x.shape[0]
     quant = "ks" in cache
     for i in range(cache["k"].shape[0]):
@@ -409,13 +496,19 @@ def _run_stack_decode(layers, spec, x, freqs, cache, pos, lengths,
 
 
 def _slow_spec(cfg: DualARConfig):
-    return (cfg.n_head, cfg.n_local_heads, cfg.head_dim, cfg.norm_eps,
-            cfg.lora_scale)
+    """(heads, kv heads, head dim, eps, LoRA scale, tp axis or None) of the
+    slow stack: this rank's head counts under a mesh."""
+    tp = _tp(cfg, "slow")
+    n = tp.size if tp is not None else 1
+    return (cfg.n_head // n, cfg.n_local_heads // n, cfg.head_dim, cfg.norm_eps,
+            cfg.lora_scale, tp)
 
 
 def _fast_spec(cfg: DualARConfig):
-    return (cfg.fast_n_head, cfg.fast_n_local_heads, cfg.fast_head_dim,
-            cfg.norm_eps, cfg.lora_scale)
+    tp = _tp(cfg, "fast")
+    n = tp.size if tp is not None else 1
+    return (cfg.fast_n_head // n, cfg.fast_n_local_heads // n,
+            cfg.fast_head_dim, cfg.norm_eps, cfg.lora_scale, tp)
 
 
 # ---------------------------------------------------------------------------
@@ -513,23 +606,44 @@ def fast_forward_train(params, cfg: DualARConfig, hidden, codebooks,
 
 
 def _lm_head(params, cfg: DualARConfig, slow_out):
+    """Full-vocab logits, fp32; under tp this rank's vocabulary columns,
+    gathered."""
+    tp = _tp(cfg, "vocab")
+    x = copy_to_tp(slow_out, tp)
     if cfg.tie_word_embeddings:
-        logits = slow_out @ params["embeddings"].T
+        logits = x @ params["embeddings"].T
         if "lora_embeddings" in params:
             la = params["lora_embeddings"]
-            logits = logits + cfg.lora_scale * ((slow_out @ la["b"].T) @ la["a"].T)
+            a = la["a"]
+            if tp is not None:
+                rows = _vocab_cols(tp, params["embeddings"].shape[0], a.device)
+                a = slice_replicated(a, 0, rows, tp)
+            logits = logits + cfg.lora_scale * (
+                copy_to_tp(slow_out @ la["b"].T, tp) @ a.T)
     else:
-        logits = mm(slow_out, params["output"])
+        logits = mm(x, params["output"])
         if "lora_output" in params:
-            la = params["lora_output"]
-            logits = logits + cfg.lora_scale * ((slow_out @ la["a"]) @ la["b"])
-    return logits.float()
+            logits = logits + _head_lora(params["lora_output"], slow_out, cfg,
+                                         tp, params["output"].shape[-1])
+    return gather_from_tp(logits, tp).float()
+
+
+def _head_lora(la, x, cfg: DualARConfig, tp, n_local: int):
+    """LoRA delta of a column-parallel head of n_local columns on this
+    rank: its columns of B under tp."""
+    b = la["b"]
+    if tp is not None:
+        b = slice_replicated(b, -1, _vocab_cols(tp, n_local, b.device), tp)
+    return cfg.lora_scale * (copy_to_tp(x @ la["a"], tp) @ b)
 
 
 def fast_project_in(params, cfg: DualARConfig, hidden):
+    """The slow hidden state into the fast width; under tp this rank's
+    columns, gathered."""
     if "project_in" in params["fast"]:
         p = params["fast"]["project_in"]
-        return hidden @ p["w"] + p["b"]
+        tp = _tp(cfg, "fast")
+        return gather_from_tp(copy_to_tp(hidden, tp) @ p["w"] + p["b"], tp)
     return hidden
 
 
@@ -542,11 +656,12 @@ def fast_embed(params, cfg: DualARConfig, codes):
 
 
 def _fast_head(params, cfg: DualARConfig, out):
-    logits = mm(out, params["fast"]["output"])
+    tp = _tp(cfg, "fast")
+    logits = mm(copy_to_tp(out, tp), params["fast"]["output"])
     if "lora_output" in params["fast"]:
-        la = params["fast"]["lora_output"]
-        logits = logits + cfg.lora_scale * ((out @ la["a"]) @ la["b"])
-    return logits.float()
+        logits = logits + _head_lora(params["fast"]["lora_output"], out, cfg,
+                                     tp, params["fast"]["output"].shape[-1])
+    return gather_from_tp(logits, tp).float()
 
 
 # ---------------------------------------------------------------------------
@@ -765,25 +880,48 @@ def _rows_16_bytes_apart(q):
 def precompute_semantic_head(params, cfg: DualARConfig):
     """Return params plus `_semantic_head`: the (D, S+1) slice of the LM
     head over the semantic ids and im_end, materialized once (an int8 head
-    keeps its int8 columns, rows 16 bytes apart, and their scales)."""
+    keeps its int8 columns, rows 16 bytes apart, and their scales). Under
+    tp every rank gets the whole head, its values the unsplit tree's: the
+    S+1 columns may cross a rank's vocabulary range."""
     cfg = cfg.resolve()
     sb, se, end = cfg.semantic_begin_id, cfg.semantic_end_id, cfg.im_end_id
     if cfg.tie_word_embeddings:
         emb = params["embeddings"]
-        head = {"w": torch.cat([emb[sb : se + 1], emb[end][None]], dim=0).T}
-    elif isinstance(params["output"], dict):
+        head = {"w": _pick_vocab(cfg, emb, 0, _semantic_ids(cfg, emb.device)).T}
+    elif not isinstance(params["output"], dict):
+        out_w = params["output"]
+        head = {"w": _pick_vocab(cfg, out_w, 1, _semantic_ids(cfg, out_w.device))}
+    else:
         out_w = params["output"]
         head = {"q": torch.cat([out_w["q"][:, sb : se + 1],
                                 out_w["q"][:, end][:, None]], dim=1),
                 "s": torch.cat([out_w["s"][sb : se + 1], out_w["s"][end][None]])}
-    else:
-        out_w = params["output"]
-        head = {"w": torch.cat([out_w[:, sb : se + 1], out_w[:, end][:, None]],
-                               dim=1)}
     new = dict(params)
     new["_semantic_head"] = {k: _rows_16_bytes_apart(v) if k == "q" else
                              v.contiguous() for k, v in head.items()}
     return new
+
+
+def _semantic_ids(cfg: DualARConfig, device):
+    """The semantic ids, then im_end: the restricted head's columns."""
+    return torch.cat([torch.arange(cfg.semantic_begin_id, cfg.semantic_end_id + 1,
+                                   device=device),
+                      torch.tensor([cfg.im_end_id], device=device)])
+
+
+def _pick_vocab(cfg: DualARConfig, w, dim: int, ids):
+    """The entries `ids` of w along its vocabulary axis `dim`; under tp
+    each rank picks those in its range, zeros elsewhere, and the ranks'
+    picks are summed (exact)."""
+    tp = _tp(cfg, "vocab")
+    if tp is None:
+        return w.index_select(dim, ids)
+    n = w.shape[dim]
+    local = ids - tp.rank * n
+    inside = ((local >= 0) & (local < n)).view(
+        [-1 if d == dim else 1 for d in range(w.dim())])
+    picked = w.index_select(dim, local.clamp(0, n - 1))
+    return tp.all_reduce(torch.where(inside, picked, torch.zeros_like(picked)))
 
 
 def fuse_ffn_weights(params):

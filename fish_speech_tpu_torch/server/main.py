@@ -13,9 +13,17 @@ smoke tests and demos:
 `--int8` quantizes the weights at load (`quantize_dual_ar_lowmem(mode=
 "int8")`), `--kv-int8` keeps the KV cache in int8, `--pool-size` > 1 serves
 through the continuous batcher (`engine/batcher.py`), and `--prefix-cache`
-sizes the voice-clone prefix cache of either session. Multi-host serving
-(`--coordinator`, `--num-hosts`, `--host-id`) is not ported (ROADMAP §1
-item 10), nor is fp16 (`--half`: the port's kernels take bf16 and fp32).
+sizes the voice-clone prefix cache of either session. fp16 (`--half`) is
+not served: the port's kernels take bf16 and fp32.
+
+Multi-card serving: one process per card, each started with the same flags
+and `--coordinator HOST:PORT --num-hosts N --host-id I` (JAX's flags; in the
+port the rendezvous, the world size and this process's rank). Rank I runs
+on `cuda:{I % cards}` over nccl (with `--cpu` on the CPU over gloo), the LM
+is split over a (dp=1, tp=N) mesh, rank 0 serves HTTP and broadcasts each
+request (`server/multihost.py`), and the other ranks follow it in lockstep.
+As JAX's server, it serves one stream of bf16 weights: `--pool-size` > 1
+and `--int8` raise under it.
 The JAX server's persistent compile cache has no counterpart: `warm_up`
 captures the CUDA graphs instead.
 """
@@ -31,12 +39,18 @@ import time
 logger = logging.getLogger("fish_speech_tpu_torch.server")
 
 
-def check_args(args):
-    """Raise on the JAX server's flags that the port does not serve."""
-    if args.coordinator or args.num_hosts or args.host_id is not None:
+def check_args(args, multihost: bool = False):
+    """Raise on the JAX server's flags that the port does not serve (under
+    multi-card serving, as JAX's refuses them: the pool and int8)."""
+    if multihost and args.pool_size > 1:
         raise NotImplementedError(
-            "multi-host serving (--coordinator, --num-hosts, --host-id) is "
-            "not ported: ROADMAP §1 item 10")
+            "multi-card serving drives the single-stream session; continuous "
+            "batching across ranks is not ported (--pool-size 1; ROADMAP §1 "
+            "item 10)")
+    if multihost and args.int8:
+        raise NotImplementedError(
+            "int8 weights have no tensor-parallel layout yet; serve "
+            "multi-card in bf16 (ROADMAP §1 item 10)")
     if args.half:
         raise NotImplementedError(
             "--half (fp16) is not served by the port: its kernels take bf16 "
@@ -71,11 +85,13 @@ def tiny_models(device):
             dac_cfg, init_dac(1, dac_cfg, dtype=torch.float32, device=device))
 
 
-def build_engine(args):
+def build_engine(args, multihost: bool = False):
     """The engine `args` ask for: the LM (a checkpoint's, or random tiny
     models with --tiny), quantized with --int8, behind a single-stream
     `GenerationSession` or, with --pool-size > 1, a `ContinuousBatcher`,
-    and the codec. On `cuda:0` unless --cpu."""
+    and the codec. On `cuda:0` unless --cpu. `multihost` (the process group
+    is up, `parallel/mesh.py:init_distributed`): on this rank's device, the
+    LM split over the (dp=1, tp=world) mesh before the session is built."""
     import dataclasses
 
     import torch
@@ -86,8 +102,17 @@ def build_engine(args):
     from fish_speech_tpu_torch.tokenizer import FishTokenizer
     from fish_speech_tpu_torch.utils.checkpoint import load_codec, load_dual_ar
 
-    check_args(args)
+    check_args(args, multihost)
+    mesh = None
     device = "cpu" if args.cpu else "cuda:0"
+    if multihost:
+        import torch.distributed as dist
+
+        from fish_speech_tpu_torch.parallel.mesh import make_mesh
+
+        mesh = make_mesh(dp=1, tp=dist.get_world_size(),
+                         device="cpu" if args.cpu else None)
+        device = mesh.device
     if args.tiny:
         tokenizer, cfg, params, dac_cfg, dac_params = tiny_models(device)
         dtype = torch.float32
@@ -108,6 +133,10 @@ def build_engine(args):
         from fish_speech_tpu_torch.ops.quant import quantize_dual_ar_lowmem
 
         params = quantize_dual_ar_lowmem(params, mode="int8")
+    if mesh is not None:
+        from fish_speech_tpu_torch.parallel.mesh import shard_params
+
+        params = shard_params(params, cfg, mesh)
 
     if args.pool_size > 1:
         from fish_speech_tpu_torch.engine.batcher import (BatcherSession,
@@ -126,7 +155,7 @@ def build_engine(args):
             # a small first chunk: the first audio reaches the codec after
             # 8 frames instead of a whole chunk
             first_chunk_size=8, kv_quant=args.kv_int8,
-            prefix_cache_size=args.prefix_cache)
+            prefix_cache_size=args.prefix_cache, mesh=mesh)
     # the sessions hold a fused-w13 copy of the weights: drop our reference
     del params
     return TTSInferenceEngine(session, tokenizer, dac_params, dac_cfg,
@@ -222,7 +251,8 @@ def parse_args(argv=None):
                         help="run on the CPU (else on cuda:0, or fail)")
     parser.add_argument("--no-warmup", action="store_true")
     parser.add_argument("--coordinator", default=None,
-                        help="multi-host serving: not ported (raises)")
+                        help="multi-card serving: the rendezvous HOST:PORT "
+                             "(one process per card)")
     parser.add_argument("--num-hosts", type=int, default=None)
     parser.add_argument("--host-id", type=int, default=None)
     return parser.parse_args(argv)
@@ -234,9 +264,24 @@ def main(argv=None):
 
     from aiohttp import web
 
+    from fish_speech_tpu_torch.parallel.mesh import init_distributed
     from fish_speech_tpu_torch.server.app import create_app
 
-    engine = build_engine(args)
+    multihost = init_distributed(args.coordinator, args.num_hosts, args.host_id,
+                                 device="cpu" if args.cpu else None)
+    engine = build_engine(args, multihost=multihost)
+    if multihost:
+        from fish_speech_tpu_torch.server import multihost as mh
+
+        session = engine.session
+        if not args.no_warmup:  # every rank captures the same graphs
+            session.precompile(1, 0, suffix_buckets=session.hit_buckets)
+        if args.host_id != 0:
+            # followers never face HTTP: they replay the leader's requests
+            # in lockstep until its stop descriptor
+            mh.follower_loop(session, session.cfg)
+            return
+        mh.wrap_leader(session, session.cfg)
     if not args.no_warmup:
         warm_up(engine)
     app = create_app(engine, api_key=args.api_key,
@@ -250,6 +295,10 @@ def main(argv=None):
         batcher = getattr(engine.session, "batcher", None)
         if batcher is not None:
             batcher.shutdown()
+        if multihost:  # release the followers
+            from fish_speech_tpu_torch.server import multihost as mh
+
+            mh.broadcast_stop(engine.session, engine.session.cfg)
 
     app.on_cleanup.append(_drain_pool)
     host, port = args.listen.rsplit(":", 1)

@@ -9,8 +9,15 @@
 Runs on `cuda:0`, and on the CPU only with `--cpu`: without it, a machine
 with no CUDA device raises instead of training on the CPU. `--tiny` (or no
 checkpoint) trains a tiny random model sized to the data's codebook count.
-The multi-device flags (`--dp` > 1, `--tp` > 1, `--zero1`,
-`--coordinator`/`--num-hosts`/`--host-id`) are not ported and raise.
+
+Several cards: one process per card, each started with the same flags and
+`--coordinator HOST:PORT --num-hosts N --host-id I` (the rendezvous, the
+world size and this process's rank: JAX's flags, whose processes are
+hosts) and the mesh's `--dp`/`--tp`/`--zero1`; rank I trains on
+`cuda:{I % cards}` over nccl, or with `--cpu` on the CPU over gloo. Each
+process reads its dp rank's shard of the proto files (`shard_id`,
+`num_shards`: its dp coordinate, so the ranks of one tp group read the same
+rows) and `--batch-size` rows of it per step.
 """
 
 from __future__ import annotations
@@ -58,27 +65,27 @@ def _peek_num_codebooks(paths):
 @click.option("--lora-alpha", type=float, default=16.0)
 @click.option("--lora-targets", type=str,
               default="attention,mlp,embeddings,output")
-@click.option("--dp", type=int, default=None, help="not ported (must be 1)")
-@click.option("--tp", type=int, default=1, help="not ported (must be 1)")
-@click.option("--zero1", is_flag=True, help="not ported")
+@click.option("--dp", type=int, default=None,
+              help="data-parallel ranks (default: the ranks tp leaves)")
+@click.option("--tp", type=int, default=1, help="tensor-parallel ranks")
+@click.option("--zero1", is_flag=True,
+              help="shard AdamW's m and v over dp (ZeRO-1)")
 @click.option("--seed", type=int, default=42)
 @click.option("--precision", type=click.Choice(["bfloat16", "float32"]),
               default="bfloat16")
 @click.option("--tiny", is_flag=True, help="tiny random model (dev smoke run)")
 @click.option("--no-resume", is_flag=True)
-@click.option("--coordinator", type=str, default=None, help="not ported")
-@click.option("--num-hosts", type=int, default=None, help="not ported")
-@click.option("--host-id", type=int, default=None, help="not ported")
+@click.option("--coordinator", type=str, default=None,
+              help="rendezvous HOST:PORT of a multi-process run")
+@click.option("--num-hosts", type=int, default=None,
+              help="processes (one per card) of the run")
+@click.option("--host-id", type=int, default=None, help="this process's rank")
 @click.option("--cpu", is_flag=True, help="train on the CPU")
 def main(checkpoint_path, data_paths, val_paths, output, max_steps, batch_size,
          grad_accum, max_length, lr, warmup_steps, ckpt_every, val_every, lora_r,
          lora_alpha, lora_targets, dp, tp, zero1, seed, precision, tiny,
          no_resume, coordinator, num_hosts, host_id, cpu):
     logging.basicConfig(level=logging.INFO, stream=sys.stderr)
-    if coordinator is not None or num_hosts is not None or host_id is not None:
-        raise NotImplementedError(
-            "multi-host training is not ported yet (ROADMAP: multi-device "
-            "trainer)")
 
     import torch
 
@@ -88,12 +95,19 @@ def main(checkpoint_path, data_paths, val_paths, output, max_steps, batch_size,
                                                     TextDataCollator)
     from fish_speech_tpu_torch.tokenizer import FishTokenizer, build_test_tokenizer
     from fish_speech_tpu_torch.models.lora import LoraConfig
+    from fish_speech_tpu_torch.parallel.mesh import init_distributed, make_mesh
     from fish_speech_tpu_torch.train.trainer import TrainConfig, Trainer
     from fish_speech_tpu_torch.utils.checkpoint import load_dual_ar
 
     if not cpu and not torch.cuda.is_available():
         raise click.UsageError("no CUDA device: pass --cpu to train on the CPU")
     device = torch.device("cpu" if cpu else "cuda:0")
+    mesh = None
+    if init_distributed(coordinator, num_hosts, host_id,
+                        device="cpu" if cpu else None):
+        mesh = make_mesh(dp=dp or num_hosts // tp, tp=tp,
+                         device="cpu" if cpu else None)
+        device = mesh.device
     logging.getLogger(__name__).info("training on %s", device)
     if tiny or checkpoint_path is None:
         tokenizer = build_test_tokenizer()
@@ -134,12 +148,15 @@ def main(checkpoint_path, data_paths, val_paths, output, max_steps, batch_size,
     )
 
     def make_loader(paths):
-        ds = SemanticIterableDataset(list(paths), tokenizer, seed=seed,
-                                     max_length=max_length,
-                                     num_codebooks=cfg.num_codebooks)
+        ds = SemanticIterableDataset(
+            list(paths), tokenizer, seed=seed, max_length=max_length,
+            num_codebooks=cfg.num_codebooks,
+            shard_id=mesh.dp.rank if mesh else 0,
+            num_shards=mesh.dp.size if mesh else 1)
         return DataLoader(ds, batch_size, TextDataCollator(tokenizer, max_length))
 
-    trainer = Trainer(cfg, tcfg, params=params, device=device)
+    trainer = Trainer(cfg, tcfg, params=params, device=device, mesh=mesh,
+                      local_batches=mesh is not None)
     trainer.fit(make_loader(data_paths),
                 val_loader=make_loader(val_paths) if val_paths else None,
                 resume=not no_resume)

@@ -1731,3 +1731,123 @@ def test_naive_forward_on_the_card_matches_the_cpu(dev, padded):
     assert flash_train_forward.launches_cuda_cores == n + cfg.n_layer
     for g, w in zip(got, want):
         np.testing.assert_allclose(g.cpu().numpy(), w.numpy(), atol=1e-4, rtol=0)
+
+
+# ---------------------------------------------------------------------------
+# Tensor parallelism: the kernels at each rank's heads, and the mesh session
+# ---------------------------------------------------------------------------
+
+# s2-pro's heads on one rank (D = 128): the slow stack's H / Hkv at tp=2 and
+# tp=4 (16 / 4, 8 / 2), the fast stack's (6 / 2, 3 / 1: G = 3)
+LOCAL_SLOW = [(16, 4), (8, 2)]
+LOCAL_FAST = [(6, 2), (3, 1)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,hkv", LOCAL_SLOW)
+def test_local_heads_prefill_and_suffix_match_plain(dev, dtype, h, hkv):
+    from fish_speech_tpu_torch.ops import flash_prefill as fp
+
+    rng = np.random.default_rng(h)
+    q = _randn(rng, (2, 600, h, 128), dtype, dev)
+    k = _randn(rng, (2, 600, hkv, 128), dtype, dev)
+    v = _randn(rng, (2, 600, hkv, 128), dtype, dev)
+    off = torch.tensor([0, 129], dtype=torch.int32, device=dev)
+    n0 = flash_prefill_attention.launches
+    got = flash_prefill_attention(q, k, v, off)
+    torch.cuda.synchronize()
+    assert flash_prefill_attention.launches == n0 + 1
+    _assert_close(got, flash_prefill_reference(q, k, v, off), dtype)
+    for kv8 in (False, True):
+        cache = _suffix_cache(dev, kv8, dtype, b=1, s=1100, hkv=hkv, d=128,
+                              seed=h + kv8)
+        qs = _randn(rng, (1, 64, h, 128), dtype, dev)
+        st = torch.tensor([951], dtype=torch.int32, device=dev)
+        fp.reset_launches()
+        got = fp.flash_suffix_attention(qs, cache, 1, st)
+        torch.cuda.synchronize()
+        assert fp.flash_suffix_attention.launches == 1
+        _assert_close(got, fp.flash_suffix_reference(qs, cache, 1, st), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s,hkv,g,lengths", [
+    *((2112, hkv, h // hkv, [1000]) for h, hkv in LOCAL_SLOW),
+    *((10, hkv, h // hkv, [7]) for h, hkv in LOCAL_FAST),
+    (2112, 4, 4, [1, 257, 2000]),
+])
+def test_local_heads_decode_matches_plain(dev, dtype, s, hkv, g, lengths):
+    rng = np.random.default_rng(s + hkv)
+    b = len(lengths)
+    q = _randn(rng, (b, hkv, g, 128), dtype, dev)
+    k = _randn(rng, (2, b, s, hkv, 128), dtype, dev)
+    v = _randn(rng, (2, b, s, hkv, 128), dtype, dev)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    for layer in range(2):
+        n0 = flash_decode_attention.launches
+        got = flash_decode_attention(q, k, v, layer, lens)
+        torch.cuda.synchronize()
+        assert flash_decode_attention.launches == n0 + 1
+        _assert_close(got, flash_decode_reference(q, k, v, layer, lens), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,hkv", LOCAL_SLOW)
+def test_local_heads_kv8_decode_matches_plain(dev, dtype, h, hkv):
+    rng = np.random.default_rng(h + 1)
+    q = _randn(rng, (1, hkv, h // hkv, 128), dtype, dev)
+    k, ks = _kv_quant(_randn(rng, (2, 1, 2112, hkv, 128), torch.float32, dev))
+    v, vs = _kv_quant(_randn(rng, (2, 1, 2112, hkv, 128), torch.float32, dev))
+    lens = torch.tensor([2000], dtype=torch.int32, device=dev)
+    for layer in range(2):
+        n0 = flash_decode_attention_kv8.launches
+        got = flash_decode_attention_kv8(q, k, ks, v, vs, layer, lens)
+        torch.cuda.synchronize()
+        assert flash_decode_attention_kv8.launches == n0 + 1
+        _assert_close(got, flash_decode_kv8_reference(q, k, ks, v, vs, layer,
+                                                      lens), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,hkv", LOCAL_SLOW)
+def test_local_heads_training_kernels_match_plain(dev, dtype, h, hkv):
+    test_train_forward_kernel_matches_plain(dev, dtype, 2, 1024, h, hkv, 128,
+                                            [0, 100])
+    test_train_backward_kernels_match_plain(dev, dtype, 2, 1024, h, hkv, 128,
+                                            [0, 100])
+
+
+def test_nccl_mesh_session_replays_the_unsharded_columns(dev, tmp_path):
+    """A (1, 1) mesh over nccl: the session's graphs capture the mesh's
+    collectives (an all-reduce per row-parallel product, the gathers of the
+    heads) and replay the unsharded session's columns bit for bit."""
+    import torch.distributed as dist
+
+    from fish_speech_tpu_torch.parallel.mesh import (init_distributed, make_mesh,
+                                                     shard_params)
+
+    assert init_distributed(f"file://{tmp_path}/rendezvous", 1, 0,
+                            backend="nccl", device=dev)
+    try:
+        mesh = make_mesh(dp=1, tp=1, device=dev)
+        plain = _graph_session(dev, "bf16")
+        from fish_speech_tpu_torch.config import SamplingConfig
+        from fish_speech_tpu_torch.generate import GenerationSession
+
+        meshed = GenerationSession(
+            shard_params(plain.params, plain.cfg, mesh), plain.cfg,
+            SamplingConfig(), dtype=torch.bfloat16, decode_chunk_size=4,
+            first_chunk_size=2, mesh=mesh)
+        assert not meshed.eager
+        calls = mesh.tp.calls
+        meshed.precompile(37, 11)
+        assert mesh.tp.calls > calls  # the capture recorded collectives
+        prompt = _graph_prompt(plain.cfg, 37, seed=3)
+        for kw in ({"top_k": 1}, {"temperature": 0.8, "top_k": 30}):
+            want = plain.generate(prompt, 5, max_new_tokens=11, **kw)
+            got = meshed.generate(prompt, 5, max_new_tokens=11, **kw)
+            np.testing.assert_array_equal(got, want)
+        assert meshed.replays["decode"] > 0
+        assert dict(meshed.eager_runs) == {"prefill_64": 1, "decode": 1}
+    finally:
+        dist.destroy_process_group()

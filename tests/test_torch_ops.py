@@ -242,6 +242,11 @@ PORT_MODULES = [
     "fish_speech_tpu_torch.tools.parity_check",
     "fish_speech_tpu_torch.tools.build_dataset",
     "fish_speech_tpu_torch.tools.create_train_split",
+    "fish_speech_tpu_torch.parallel",
+    "fish_speech_tpu_torch.parallel.mesh",
+    "fish_speech_tpu_torch.parallel.collectives",
+    "fish_speech_tpu_torch.parallel.dryrun",
+    "fish_speech_tpu_torch.server.multihost",
 ]
 
 # Run on the CPU with the JAX package and jax unimportable: every port
@@ -255,7 +260,9 @@ PORT_MODULES = [
 # too), and the checkpoint lifecycle's CLIs: `convert.cli` (export-dual-ar,
 # dual-ar), `tools.quantize --cpu`, `tools.merge_lora --cpu` (over a LoRA
 # trainer checkpoint), `tools.parity_check --cpu` (a golden saved, then
-# passed), `tools.build_dataset` and `tools.create_train_split`.
+# passed), `tools.build_dataset` and `tools.create_train_split`, and the
+# mesh path on one gloo rank (a session and a ZeRO-1 trainer step on a
+# (1, 1) mesh, the multi-card server's descriptor broadcast).
 # (`jax` is blocked by an import hook, not by `sys.modules['jax'] = None`:
 # scipy's array-API helpers take a `jax` entry in `sys.modules` for the
 # imported package.)
@@ -420,6 +427,27 @@ run(build_dataset.main, ['--input', data.parent, '--output', Path(tmp) / 'protos
 assert list((Path(tmp) / 'protos').glob('*.protos'))
 run(create_train_split.main, [data.parent])
 assert (data.parent / 'vq_train_filelist.txt').exists()
+
+from fish_speech_tpu_torch.parallel.mesh import (init_distributed, make_mesh,
+                                                 shard_params)
+from fish_speech_tpu_torch.server import multihost
+from fish_speech_tpu_torch.train.trainer import TrainConfig, Trainer
+assert init_distributed('file://' + os.path.join(tmp, 'rdzv'), 1, 0, device='cpu')
+mesh = make_mesh(dp=1, tp=1, device='cpu')
+full = dual_ar.init_dual_ar(3, cfg, torch.float32, 'cpu')
+on_mesh = GenerationSession(shard_params(full, cfg, mesh), cfg,
+                            dtype=torch.float32, decode_chunk_size=4, mesh=mesh)
+multihost.wrap_leader(on_mesh, cfg)
+prompt = rng.integers(0, 32, (cfg.num_codebooks + 1, 7)).astype(np.int32)
+assert on_mesh.generate(prompt, 1, max_new_tokens=5).shape[0] == cfg.num_codebooks + 1
+multihost.broadcast_stop(on_mesh, cfg)
+trainer = Trainer(cfg, TrainConfig(output_dir=tmp, max_steps=1, batch_size=1,
+                                   precision='float32', zero1=True),
+                  params=full, device='cpu', mesh=mesh)
+inp = np.stack([prompt])
+m = trainer.train_step(trainer.params, trainer._place_batch(
+    {'inputs': inp, 'labels': inp, 'pad_mask': np.zeros((1, 7), bool)}))
+assert np.isfinite(float(m['loss']))
 
 bad = sorted(m for m in sys.modules
              if m == 'fish_speech_tpu' or m.startswith('fish_speech_tpu.'))

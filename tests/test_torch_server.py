@@ -911,9 +911,11 @@ def test_entry_point_flags_follow_the_jax_server():
     flags = ["--int8", "--kv-int8", "--pool-size", "8", "--prefix-cache", "2",
              "--tiny", "--cpu", "--listen", "0.0.0.0:9000"]
     assert vars(tmain.parse_args(flags)) == vars(jmain.parse_args(flags))
-    for bad in (["--coordinator", "h:1"], ["--num-hosts", "2"], ["--host-id", "0"]):
-        with pytest.raises(NotImplementedError, match="item 10"):
-            tmain.check_args(tmain.parse_args(bad))
+    multi = ["--coordinator", "h:1", "--num-hosts", "2", "--host-id", "0"]
+    assert vars(tmain.parse_args(multi)) == vars(jmain.parse_args(multi))
+    tmain.check_args(tmain.parse_args(multi), multihost=True)
+    with pytest.raises(NotImplementedError, match="item 10"):
+        tmain.check_args(tmain.parse_args(multi + ["--int8"]), multihost=True)
     with pytest.raises(NotImplementedError, match="bf16"):
         tmain.check_args(tmain.parse_args(["--half"]))
 
