@@ -286,7 +286,31 @@ Phases, each of which ends the run with a nonzero exit if it fails:
    in-memory `merge_lora` on the card, teacher-forced logits within 2e-2
    of max |logit| of the LoRA model's; and `forward_train_naive` at
    B=1 x T=1024 in bf16 (finite logits, the training forward's tensor-core
-   route launched). It prints its bytes written and seconds.
+   route launched). It prints its bytes written and seconds;
+12. multi-device on torch.distributed (below, at its code);
+13. the evaluation tools on phase 11's model (s2-pro's widths at 2 + 2
+   layers, bf16, and the full codec) saved in a temporary directory under
+   `build/`: (a) `tools.eval_quality` in this process over a manifest of
+   four items (English, Chinese, two by one seeded 5 s reference clip) at
+   `--pool-size 8 --ab kv-int8 --ab prefix-cache --asr mock --sim spectral
+   --max-new-tokens 32`, once bf16 under one worker (the prefix-cache
+   config's second clone a hit) and once `--int8` with the items in
+   flight: every config in `report.json`, mock WER and CER 0, SIM in
+   [-1, 1], every WAV whole frames, and each config's launches of the
+   prefill, decode, suffix (the prefix-cache config of the bf16 run),
+   int8-KV decode (the kv-int8 configs), int8 matvec and fused int8 FFN
+   (the `--int8` run) above 0; (b) `tools.eval_in_context --precision
+   bfloat16`: finite per-frame losses whose mean is `dual_ar_loss`'s
+   semantic loss in the same call, through `train_fwd_wgmma_kernel`; (c)
+   in phase 9, `tools.api_client --streaming --play` as a process against
+   the server: the same bytes as a direct request with its payload, whole
+   frames, file-only with no audio backend; (d) `dac_forward` at
+   `dac_s2_pro`'s widths in fp32 on 43 frames of seeded audio: the codes
+   of `dac_encode`, audio within 1e-4 of `dac_from_indices`, finite
+   losses, and the quantizer-dropout draw of 64 samples; (e) the libav
+   shim's mp3 and Ogg/Opus decodes against `audio/libcodec`'s, or why it
+   is unavailable; (f) phase 5's analytic FLOPs per step, its TFLOP/s and
+   its share of 989 TFLOP/s dense bf16.
 
 Phase 2 also holds the kernels at the pool's shapes: `decode_mma_kernel`
 and `decode_kv8_mma_kernel` at B=32, S=2176 (8 layers) with ragged
@@ -2626,7 +2650,8 @@ def run_clone(dev, tokenizer, session, engine, refs_dir):
     from fish_speech_tpu_torch.audio.io import load_audio
     from fish_speech_tpu_torch.engine.tts import TTSRequest
     from fish_speech_tpu_torch.models.dac.model import dac_encode
-    from fish_speech_tpu_torch.ops.flash_decode import flash_decode_attention
+    from fish_speech_tpu_torch.ops.flash_decode import (flash_decode_attention,
+                                                        flash_decode_attention_kv8)
     from fish_speech_tpu_torch.ops.flash_prefill import (flash_prefill_attention,
                                                          flash_suffix_attention)
 
@@ -3293,7 +3318,7 @@ def run_train_slice(dev, tokenizer, cfg, out_dir):
     if not (restored and same and trainer.step == steps
             and trainer.optimizer.count == steps):
         raise SystemExit("training: the checkpoint did not restore")
-    return launches
+    return launches, dict(cfg=cfg, batch=batch_size, seq=max_length, step_s=steady)
 
 
 # phase 8: the 40 texts of the burst, whose prompts reach two buckets
@@ -3980,6 +4005,7 @@ def run_server(engine, batcher, refs_dir, frame):
 
     try:
         got = asyncio.run(client())
+        api_client = run_api_client(url, frame)
     finally:
         asyncio.run_coroutine_threadsafe(runner.cleanup(), loop).result(60)
         loop.call_soon_threadsafe(loop.stop)
@@ -4055,7 +4081,70 @@ def run_server(engine, batcher, refs_dir, frame):
     if failures:
         raise SystemExit(f"server: {'; '.join(failures)}")
     torch.cuda.synchronize()
-    return dict(frames=frames, metrics=m, timings=timings)
+    return dict(frames=frames, metrics=m, timings=timings, api_client=api_client)
+
+
+# 13(c)'s request: the API client's payload (its defaults, a seed) and the
+# same payload sent directly
+API_CLIENT_TEXT = "The API client's request, streamed to a file."
+API_CLIENT_ARGS = dict(seed=77, max_new_tokens=40)
+
+
+def run_api_client(url, frame):
+    """13(c), against phase 9's server: one streamed request sent directly
+    with the API client's payload, then `python -m
+    fish_speech_tpu_torch.tools.api_client --streaming --play` (a process
+    of its own) with the same text and seed, saving to a file: whole frames
+    of audio, the same bytes as the direct request's, and `--play` with no
+    audio backend on the machine ends file-only ("playback disabled")."""
+    import os
+    import tempfile
+    import urllib.request
+
+    import msgpack
+
+    payload = {"text": API_CLIENT_TEXT, "references": [], "reference_id": None,
+               "format": "wav", "streaming": True, "chunk_length": 200,
+               "max_new_tokens": API_CLIENT_ARGS["max_new_tokens"], "top_p": 0.8,
+               "temperature": 0.8, "repetition_penalty": 1.1,
+               "seed": API_CLIENT_ARGS["seed"], "use_memory_cache": "off",
+               "latency": "normal"}
+    req = urllib.request.Request(
+        url + "/v1/tts", data=msgpack.packb(payload, use_bin_type=True),
+        headers={"Content-Type": "application/msgpack"})
+    direct = urllib.request.urlopen(req, timeout=300).read()
+    root = Path(__file__).resolve().parent
+    with tempfile.TemporaryDirectory(dir=root / "build") as tmp:
+        out = Path(tmp) / "client.wav"
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "fish_speech_tpu_torch.tools.api_client", "--url",
+             url + "/v1/tts", "--text", API_CLIENT_TEXT, "--streaming", "--play",
+             "--seed", str(API_CLIENT_ARGS["seed"]), "--max-new-tokens",
+             str(API_CLIENT_ARGS["max_new_tokens"]), "-o", str(out)],
+            cwd=str(root), env=dict(os.environ, PYTHONPATH=str(root)),
+            capture_output=True, text=True, timeout=300)
+        seconds = time.perf_counter() - t0
+        body = out.read_bytes() if out.exists() else b""
+    if proc.returncode != 0:
+        raise SystemExit(f"phase 13(c): api_client failed ({proc.returncode}): "
+                         f"{proc.stdout[-2000:]} {proc.stderr[-3000:]}")
+    frames = _wav_frames(body, frame, "api_client")
+    same = body == direct
+    file_only = "playback disabled" in proc.stderr
+    print(f"phase 13(c) api_client --streaming --play against phase 9's server: "
+          f"{frames} frames ({len(body)} bytes) in {seconds:.1f}s from the process's "
+          f"start; equal to the direct request's bytes {same}; file-only "
+          f"{file_only} ({proc.stderr.strip().splitlines()[:1]}); {proc.stdout.strip()}")
+    if not same or not file_only:
+        a = np.frombuffer(body[44:], "<i2").astype(np.int32)
+        b = np.frombuffer(direct[44:], "<i2").astype(np.int32)
+        n = min(len(a), len(b))
+        raise SystemExit(f"phase 13(c): the client's file differs from the direct "
+                         f"request ({len(a)} vs {len(b)} samples, max |diff| "
+                         f"{np.abs(a[:n] - b[:n]).max() if n else None}) or played "
+                         f"({proc.stderr[-500:]})")
+    return dict(frames=frames, seconds=seconds)
 
 
 # ---------------------------------------------------------------------------
@@ -4845,6 +4934,336 @@ def local_head_cases(dev):
     return cases
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: the evaluation tools, the codec's training round trip, libav
+# input and the FLOPs accounting
+# ---------------------------------------------------------------------------
+
+# the harness's manifest: two English items, one Chinese, one with a seeded
+# reference clip, and a second item by that clip (listed last, so that under
+# one worker the prefix-cache config serves it as a hit of the first)
+EVAL_REF_SECONDS = 5.0
+EVAL_TOKENS = 32
+# the wrappers' launch counts that each harness config must show above 0:
+# (the counter, the `kernels` line's name it adds to)
+EVAL_COUNTERS = {
+    "prefill": ("flash_prefill_attention", "launches_wgmma", "flash_prefill"),
+    "decode": ("flash_decode_attention", "launches", "flash_decode"),
+    "suffix": ("flash_suffix_attention", "launches_suffix_wgmma", "flash_suffix"),
+    "decode_kv8": ("flash_decode_attention_kv8", "launches", "flash_decode_kv8"),
+    # 8 slots: every int8 product takes the 1-16-row kernel
+    "int8_mm": ("int8_matmul", "launches_gemv_mma", "int8_mm"),
+    "int8_ffn": ("int8_ffn", "launches_mma", "int8_ffn"),
+}
+
+
+def _eval_counts():
+    from fish_speech_tpu_torch.ops.flash_prefill import flash_suffix_attention
+
+    wrappers = {f.__name__: f for f in (*_kernel_wrappers(), flash_suffix_attention)}
+    return {key: getattr(wrappers[name], attr)
+            for key, (name, attr, _) in EVAL_COUNTERS.items()}
+
+
+def _eval_manifest(root):
+    ref = root / "speaker.wav"
+    _reference_clip(ref, seconds=EVAL_REF_SECONDS, seed=23)
+    items = [
+        {"id": "en_ref", "text": "The first line spoken in the reference voice.",
+         "lang": "en", "ref_audio": str(ref), "ref_text": CLONE_TEXT},
+        {"id": "en_1", "text": "Hello, this is a quality check.", "lang": "en"},
+        {"id": "zh_1", "text": "今天天气很好。", "lang": "zh"},
+        {"id": "en_clone", "text": "A second line in the same voice.", "lang": "en",
+         "ref_audio": str(ref), "ref_text": CLONE_TEXT},
+    ]
+    path = root / "manifest.jsonl"
+    path.write_text("\n".join(json.dumps(i, ensure_ascii=False) for i in items),
+                    encoding="utf-8")
+    return path
+
+
+def run_eval_quality(ckpt, root, frame):
+    """13(a): `tools.eval_quality` in this process on the checkpoint: the
+    pool of 8 slots, both A/Bs, mock ASR, the spectral SIM, 32 new tokens;
+    first bf16 under one worker (the prefix-cache config's second clone is
+    a hit), then `--int8` with the pool's 8 items in flight. Each config's
+    launch counts are read around its synthesis. Returns {run: {config:
+    counts}}."""
+    import torch
+
+    from fish_speech_tpu_torch.tools import eval_quality
+
+    manifest = _eval_manifest(root)
+    synthesize = eval_quality.synthesize_manifest
+    counts = {}
+
+    def counted(engine, items, out_dir, tag, *args, **kw):
+        _zero_counts()
+        t0 = time.perf_counter()
+        out = synthesize(engine, items, out_dir, tag, *args, **kw)
+        torch.cuda.synchronize()
+        counts[tag] = dict(_eval_counts(), seconds=round(time.perf_counter() - t0, 2),
+                           prefix_hits=engine.session.prefix_hits)
+        return out
+
+    runs = {}
+    eval_quality.synthesize_manifest = counted
+    try:
+        for run, extra in (("bf16", ["--workers", "1"]), ("int8", ["--int8"])):
+            out = root / f"eval_{run}"
+            counts.clear()
+            t0 = time.perf_counter()
+            eval_quality.main(
+                ["--manifest", str(manifest), "--out-dir", str(out),
+                 "--checkpoint-path", str(ckpt), "--pool-size", "8", "--ab", "kv-int8",
+                 "--ab", "prefix-cache", "--asr", "mock", "--sim", "spectral",
+                 "--max-new-tokens", str(EVAL_TOKENS), *extra], standalone_mode=False)
+            seconds = time.perf_counter() - t0
+            report = json.loads((out / "report.json").read_text())
+            runs[run] = dict(counts)
+            failures = []
+            if list(report["configs"]) != ["baseline", "kv-int8", "prefix-cache"]:
+                failures.append(f"configs {list(report['configs'])}")
+            for tag, conf in report["configs"].items():
+                agg = conf["aggregates"]
+                if agg.get("wer_en") != 0.0 or agg.get("wer_zh") != 0.0:
+                    failures.append(f"{tag}: mock WER/CER {agg}")
+                if not -1.0 <= agg.get("sim_mean", 2.0) <= 1.0:
+                    failures.append(f"{tag}: SIM {agg.get('sim_mean')}")
+                for row in conf["items"]:
+                    _wav_frames(Path(row["wav"]).read_bytes(), frame,
+                                f"eval {run} {tag} {row['id']}")
+            want = {"baseline": ["prefill", "decode"],
+                    "kv-int8": ["prefill", "decode_kv8"],
+                    "prefix-cache": ["prefill", "decode"]
+                    + (["suffix"] if run == "bf16" else [])}
+            if run == "int8":
+                for tag in want:
+                    want[tag] += ["int8_mm", "int8_ffn"]
+            for tag, keys in want.items():
+                zero = [k for k in keys if counts[tag][k] <= 0]
+                if zero:
+                    failures.append(f"{tag}: no launch of {zero}: {counts[tag]}")
+            print(f"phase 13(a) eval_quality {run} ({' '.join(extra)}): "
+                  f"{seconds:.1f}s; aggregates "
+                  f"{ {t: c['aggregates'] for t, c in report['configs'].items()} }; "
+                  f"launches per config {counts}")
+            if failures:
+                raise SystemExit(f"phase 13(a) eval_quality {run}: {'; '.join(failures)}")
+    finally:
+        eval_quality.synthesize_manifest = synthesize
+    return runs
+
+
+def run_eval_in_context(ckpt, root, tokenizer, dev):
+    """13(b): `tools.eval_in_context --precision bfloat16` on the checkpoint
+    with seeded reference and target codes: finite per-frame losses whose
+    mean is `dual_ar_loss`'s semantic loss on the same inputs in this call,
+    through the training forward's tensor-core route."""
+    import dataclasses as dc
+
+    import torch
+
+    from fish_speech_tpu_torch.ops.flash_train import flash_train_forward
+    from fish_speech_tpu_torch.tools import eval_in_context
+    from fish_speech_tpu_torch.train.loss import dual_ar_loss
+    from fish_speech_tpu_torch.utils.checkpoint import load_dual_ar
+
+    rng = np.random.default_rng(13)
+    cfg = _ckpt_cfg(tokenizer)
+    ref = rng.integers(0, cfg.codebook_size, (cfg.num_codebooks, 60)).astype(np.int32)
+    tgt = rng.integers(0, cfg.codebook_size, (cfg.num_codebooks, 40)).astype(np.int32)
+    np.save(root / "ref.npy", ref)
+    np.save(root / "tgt.npy", tgt)
+    texts = ("A reference line read in a calm voice.", "The target line to follow.")
+    _zero_counts()
+    t0 = time.perf_counter()
+    eval_in_context.main(
+        ["--checkpoint-path", str(ckpt), "--reference-codes", str(root / "ref.npy"),
+         "--reference-text", texts[0], "--target-codes", str(root / "tgt.npy"),
+         "--target-text", texts[1], "--output", str(root / "in_context.json"),
+         "--precision", "bfloat16"], standalone_mode=False)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = flash_train_forward.launches_wgmma
+    curve = np.asarray(json.loads((root / "in_context.json").read_text())[str(ckpt)]
+                       ["per_frame"])
+    params, _ = load_dual_ar(ckpt, dtype=torch.bfloat16, device=dev)
+    cfg = dc.replace(cfg, use_gradient_checkpointing=False)
+    inp, labels = eval_in_context.in_context_inputs(tokenizer, cfg, ref, texts[0],
+                                                    tgt, texts[1])
+    with torch.no_grad():
+        _, metrics = dual_ar_loss(params, cfg, {
+            "inputs": torch.from_numpy(inp[None]).to(dev),
+            "labels": torch.from_numpy(labels[None]).to(dev)}, remat=False)
+    semantic = float(metrics["semantic_loss"])
+    err = abs(float(curve.mean()) - semantic)
+    print(f"phase 13(b) eval_in_context (bf16, {inp.shape[1]} tokens): {len(curve)} "
+          f"frames, per-frame loss {curve.min():.4f}..{curve.max():.4f}, mean "
+          f"{curve.mean():.6f}; dual_ar_loss's semantic loss {semantic:.6f} (|diff| "
+          f"{err:.2e}); train_fwd_wgmma_kernel launches {launches}; {seconds:.1f}s")
+    if (len(curve) != tgt.shape[1] or not np.isfinite(curve).all()
+            or err > 1e-3 * max(1.0, abs(semantic)) or launches <= 0):
+        raise SystemExit("phase 13(b): the in-context evaluation failed")
+    return launches
+
+
+def run_dac_forward(dev):
+    """13(d): `dac_forward` at `dac_s2_pro`'s widths in fp32 (TF32 off) on
+    ~2 s of seeded audio (43 whole frames): without a generator its codes
+    are `dac_encode`'s, its audio within 1e-4 of `dac_from_indices` of them
+    and its losses finite; with one, the quantizer-dropout draw of 64
+    samples and a round trip under it."""
+    import torch
+
+    from fish_speech_tpu_torch.config import dac_s2_pro
+    from fish_speech_tpu_torch.models.dac import model as dac
+    from fish_speech_tpu_torch.models.dac.rvq import quantizer_dropout_mask
+
+    cfg = dac_s2_pro()
+    saved = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        params = dac.init_dac(1, cfg, torch.float32, dev)
+        t = 43 * cfg.frame_length
+        audio = torch.from_numpy(np.random.default_rng(31).normal(size=(1, 1, t))
+                                 .astype(np.float32) * 0.1).to(dev)
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            out, res = dac.dac_forward(params, cfg, audio)
+            codes, _ = dac.dac_encode(params, cfg, audio)
+            back = dac.dac_from_indices(params, cfg, codes)[..., :t]
+            gen = torch.Generator(device=dev).manual_seed(5)
+            drawn = quantizer_dropout_mask(cfg.rvq, 64, gen).sum(1).long()
+            out_g, res_g = dac.dac_forward(params, cfg, audio, generator=gen)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+    same = torch.equal(res["codes"], codes)
+    err = float((out - back).abs().max())
+    losses = [float(res[k][0]) for k in ("commitment_loss", "codebook_loss")]
+    hist = torch.bincount(drawn.cpu(), minlength=cfg.rvq.n_codebooks + 1).tolist()
+    print(f"phase 13(d) dac_forward (dac_s2_pro fp32, {t} samples): codes "
+          f"{tuple(codes.shape)} equal to dac_encode's {same}; audio vs "
+          f"dac_from_indices max abs {err:.2e}; commitment/codebook losses "
+          f"{losses[0]:.6f} / {losses[1]:.6f}; with a generator: codebooks kept "
+          f"per sample over 64 draws (p = {cfg.rvq.quantizer_dropout}, count of n = "
+          f"0..{cfg.rvq.n_codebooks}) {hist}, round trip finite "
+          f"{bool(torch.isfinite(out_g).all())}; {seconds:.1f}s")
+    if (not same or err > 1e-4 or not np.isfinite(losses).all()
+            or not torch.isfinite(out_g).all() or out.shape != audio.shape
+            or not all(np.isfinite([float(res_g[k][0]) for k in
+                                    ("commitment_loss", "codebook_loss")]))):
+        raise SystemExit("phase 13(d): dac_forward failed")
+
+
+def run_libav():
+    """13(e): the libav shim where it builds: mp3 and Ogg/Opus bytes of the
+    port's `audio/libcodec` through `load_audio`, against libcodec's own
+    decoders; else why it is unavailable."""
+    from fish_speech_tpu_torch.audio import libav, libcodec
+    from fish_speech_tpu_torch.audio.io import load_audio, resample
+    from fish_speech_tpu_torch.audio.transcode import TranscodeUnavailable
+
+    try:
+        libav._load()
+    except TranscodeUnavailable as e:
+        reason = str(e).splitlines()[0][:300]
+        print(f"phase 13(e) libav: unavailable ({reason})")
+        return
+    sr = 24000
+    t = np.arange(sr) / sr
+    x = (0.3 * np.sin(2 * np.pi * 330 * t)).astype(np.float32)
+    for name, enc, dec in (("mp3", libcodec.encode_mp3, libcodec.decode_mp3),
+                           ("opus", libcodec.encode_opus, libcodec.decode_opus)):
+        try:
+            data = enc(x, sr)
+            want, want_sr = dec(data)
+        except TranscodeUnavailable as e:
+            print(f"phase 13(e) libav: {name} encoder unavailable ({e})")
+            continue
+        if np.issubdtype(want.dtype, np.integer):
+            want = want / 32768.0
+        want = np.asarray(want, np.float32).mean(axis=1)
+        got = load_audio(data, want_sr)
+        n = min(len(got), len(want))
+        err = float(np.abs(got[:n] - want[:n]).max()) if n else float("inf")
+        print(f"phase 13(e) libav: {name} {len(data)} bytes, load_audio {len(got)} "
+              f"samples at {want_sr} Hz vs libcodec's decoder {len(want)}, max abs "
+              f"{err:.2e}")
+        if not n or err > 2e-2:
+            raise SystemExit(f"phase 13(e): libav's {name} decode disagrees")
+
+
+def print_flops(cfg, batch, seq, step_s, smi):
+    """13(f): phase 5's analytic model FLOPs per step (the LoRA step with
+    remat, `utils/flops.py:dual_ar_train_step_flops`), its rate at phase
+    5's steady s/step and its share of 989 TFLOP/s dense bf16."""
+    from fish_speech_tpu_torch.utils.flops import dual_ar_train_step_flops
+
+    plan = dual_ar_train_step_flops(cfg, batch, seq, mode="lora", remat=True)
+    rate = plan["total"] / step_s / 1e12
+    print(f"phase 13(f) FLOPs: phase 5's step (B={batch} x T={seq}, LoRA, remat) "
+          f"{plan['total'] / 1e12:.3f} TFLOP model ({plan['hfu_total'] / 1e12:.3f} "
+          f"with the remat forward) at {step_s:.4f} s/step: {rate:.1f} TFLOP/s, "
+          f"MFU {100 * rate * 1e12 / PEAK_BF16:.2f}% of 989 TFLOP/s dense bf16 "
+          f"({100 * plan['hfu_total'] / step_s / PEAK_BF16:.2f}% HFU); card {smi}")
+
+
+def run_eval_tools(dev, tokenizer, train, smi):
+    """Phase 13: (a) the quality harness, (b) the in-context evaluation, (d)
+    the codec's training round trip, (e) libav input and (f) the FLOPs of
+    phase 5's step ((c), the API client, runs against phase 9's server).
+    The checkpoint is phase 11's model (s2-pro's widths at 2 + 2 layers,
+    bf16) and the full codec, in a temporary directory under `build/`
+    removed at the end. Returns the launches of (a) and (b) by the
+    `kernels` line's names."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from fish_speech_tpu_torch.config import dac_s2_pro
+    from fish_speech_tpu_torch.models import dual_ar
+    from fish_speech_tpu_torch.models.dac.model import init_dac
+    from fish_speech_tpu_torch.utils.checkpoint import save_codec, save_dual_ar
+
+    t_phase = time.perf_counter()
+    root = Path(__file__).resolve().parent
+    (root / "build").mkdir(exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_eval_", dir=root / "build"))
+    try:
+        cfg = _ckpt_cfg(tokenizer)
+        ckpt = tmp / "ckpt"
+        save_dual_ar(ckpt, dual_ar.init_dual_ar(0, cfg, torch.bfloat16, dev), cfg,
+                     tokenizer)
+        codec_cfg = dac_s2_pro()
+        save_codec(ckpt, init_dac(1, codec_cfg, torch.float32, dev), codec_cfg)
+        gc.collect()
+        torch.cuda.empty_cache()
+        runs = run_eval_quality(ckpt, tmp, codec_cfg.frame_length)
+        launches = {}
+        for counts in runs.values():
+            for tag_counts in counts.values():
+                for key, (_, _, name) in EVAL_COUNTERS.items():
+                    launches[name] = launches.get(name, 0) + tag_counts[key]
+        gc.collect()
+        torch.cuda.empty_cache()
+        launches["flash_train_fwd"] = run_eval_in_context(ckpt, tmp, tokenizer, dev)
+        gc.collect()
+        torch.cuda.empty_cache()
+        run_dac_forward(dev)
+        run_libav()
+        print_flops(train["cfg"], train["batch"], train["seq"], train["step_s"], smi)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.synchronize()
+    print(f"phase 13 (the evaluation tools, dac_forward, libav, FLOPs) took "
+          f"{time.perf_counter() - t_phase:.1f}s; its launches {launches}")
+    return launches
+
+
 def _zero_counts():
     """Set every kernel wrapper's launch counts to 0 (per route too)."""
     from fish_speech_tpu_torch.ops import (flash_prefill, flash_train, int4, int8,
@@ -5032,7 +5451,8 @@ def main():
 
     tokenizer = build_test_tokenizer()
     cases = kernel_cases(dev, parity_shapes(tokenizer))
-    from fish_speech_tpu_torch.ops.flash_decode import flash_decode_attention
+    from fish_speech_tpu_torch.ops.flash_decode import (flash_decode_attention,
+                                                        flash_decode_attention_kv8)
     from fish_speech_tpu_torch.ops.flash_prefill import (flash_prefill_attention,
                                                          flash_suffix_attention)
     from fish_speech_tpu_torch.ops.flash_train import (flash_train_backward,
@@ -5059,6 +5479,7 @@ def main():
     fp32_launches["int8_ffn_fp32"] = int8_ffn.launches_cuda_cores
     fp32_launches["flash_suffix_kv8_fp32"] = (
         flash_suffix_attention.launches_suffix_kv8_cuda_cores)
+    fp32_launches["flash_decode_kv8_fp32"] = flash_decode_attention_kv8.launches
     print(f"fp32 routes' launches in phases 3, 3b and 3c: {fp32_launches}")
     if min(fp32_launches.values()) <= 0:
         raise SystemExit("an fp32 route was never launched")
@@ -5067,7 +5488,7 @@ def main():
     gc.collect()  # the serving slice's model and caches go before the batch
     torch.cuda.empty_cache()
     batch = run_batch(dev, tokenizer)
-    train_launches = run_train_slice(
+    train_launches, train = run_train_slice(
         dev, tokenizer, _s2_pro_cfg(tokenizer, 1024),
         Path(__file__).resolve().parent / "build" / "chip_smoke_train")
     launches.update(train_launches)
@@ -5101,6 +5522,10 @@ def main():
     for name, rows in cases12.items():
         cases[name].extend(rows)
     for name, n in launches12.items():
+        launches[name] += n
+    gc.collect()  # nothing of the mesh stays for the evaluation tools
+    torch.cuda.empty_cache()
+    for name, n in run_eval_tools(dev, tokenizer, train, smi).items():
         launches[name] += n
     for row in pool.values():
         for name in ("flash_decode", "flash_decode_kv8", "flash_prefill", "int8_mm",

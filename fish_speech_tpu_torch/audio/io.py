@@ -3,9 +3,8 @@ header, and polyphase resampling (scipy's `resample_poly`).
 
 Copy of the parts of `fish_speech_tpu/audio/io.py` that the port uses, kept
 here so the port never imports the JAX package. `load_audio` reads WAV and
-FLAC (the port's copy of `audio/transcode.py`); the libav fallback for
-other formats needs ffmpeg's headers and is not ported (ROADMAP §1 item
-11).
+FLAC (the port's copy of `audio/transcode.py`) and everything else through
+the libav shim (`audio/libav.py`), which needs ffmpeg's libraries.
 """
 
 from __future__ import annotations
@@ -119,10 +118,12 @@ def resample(x: np.ndarray, sr_from: int, sr_to: int) -> np.ndarray:
 
 
 def load_audio(path_or_bytes, target_sr: int) -> np.ndarray:
-    """Read a WAV or FLAC clip, downmix to mono, resample. Returns (T,).
+    """Read any supported audio, downmix to mono, resample. Returns (T,).
 
-    Raises ValueError for anything else (mp3, ogg, ...): the libav
-    fallback is not ported (ROADMAP §1 item 11)."""
+    WAV and FLAC decode through the self-contained readers; anything else
+    (mp3, ogg-opus/vorbis, m4a, ...) falls back to the libav shim, matching
+    the reference's torchaudio/soundfile input breadth (reference
+    `fish_speech/utils/file.py` AUDIO_EXTENSIONS)."""
     if isinstance(path_or_bytes, (bytes, bytearray)):
         head = bytes(path_or_bytes[:4])
     else:
@@ -136,10 +137,20 @@ def load_audio(path_or_bytes, target_sr: int) -> np.ndarray:
                 path_or_bytes = f.read()
         samples, sr = decode_flac_float(bytes(path_or_bytes))
         x = samples.T  # (C, T)
-    elif head == b"RIFF":
+    elif head[:4] == b"RIFF":
         x, sr = read_wav(path_or_bytes)
     else:
-        raise ValueError("only WAV and FLAC audio are read by the port (the "
-                         "libav formats: ROADMAP §1 item 11)")
+        from fish_speech_tpu_torch.audio import libav
+
+        if not isinstance(path_or_bytes, (bytes, bytearray)):
+            with open(str(path_or_bytes), "rb") as f:
+                path_or_bytes = f.read()
+        try:
+            samples, sr = libav.decode_bytes(bytes(path_or_bytes))
+        except Exception as e:
+            raise ValueError(
+                f"Unrecognized audio (not WAV/FLAC; libav fallback: {e})"
+            ) from e
+        x = samples.T  # (C, T)
     mono = x.mean(axis=0) if x.shape[0] > 1 else x[0]
     return resample(mono, sr, target_sr)

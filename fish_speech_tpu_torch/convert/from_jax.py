@@ -74,24 +74,22 @@ def dual_ar_from_jax(params, dtype=torch.bfloat16, device=DEFAULT_DEVICE):
     """Dual-AR LM pytree (numpy leaves) -> torch tensors on `device`, layout
     unchanged, LoRA leaves included (`models/lora.py` layout). Quantized
     weights cross leaf for leaf: int8 {"q","s"} and int4 {"p","gs"} keep
-    their integer `q`/`p` and their scales' dtype. The audio projector is
-    not ported. Raises without CUDA unless `device` is the CPU."""
+    their integer `q`/`p` and their scales' dtype; the audio projector
+    crosses as it is. Raises without CUDA unless `device` is the CPU."""
     device = resolve_device(device, "dual_ar_from_jax")
 
-    def convert(node, path=""):
+    def convert(node):
         if isinstance(node, dict):
             quant = {"q", "s"} <= node.keys() or {"p", "gs"} <= node.keys()
             out = {}
             for k, v in node.items():
-                if k == "audio_projector":
-                    raise NotImplementedError(f"{path}/{k} is not ported")
                 if quant and k in ("s", "gs"):  # scales keep their dtype
                     out[k] = _tensor(v, None, device)
                 else:
-                    out[k] = convert(v, f"{path}/{k}")
+                    out[k] = convert(v)
             return out
         if isinstance(node, (list, tuple)):
-            return [convert(v, path) for v in node]
+            return [convert(v) for v in node]
         return _tensor(node, dtype, device)
 
     return convert(params)

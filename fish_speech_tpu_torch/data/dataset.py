@@ -16,10 +16,10 @@ Pure numpy + threads (no torch DataLoader); rank/worker sharding
 is explicit via (shard_id, num_shards).
 
 Kept in the port as its own copy of `fish_speech_tpu/data/dataset.py`, so the port
-never imports the JAX package; the tests hold the two to each other. Left
-out: the C++ shard parser (`fish_speech_tpu/native/`; shards are read with
-protobuf, which gives the same groups) and the codec-training
-`VQGANDataset` (codec training is not ported).
+never imports the JAX package; the tests hold the two to each other. Shards
+are read by the port's copy of the C++ shard parser (`native/loader.py`)
+where it builds, else with protobuf, which gives the same groups.
+`VQGANDataset` gives the codec's training crops.
 """
 
 from __future__ import annotations
@@ -61,6 +61,52 @@ def expand_proto_files(proto_files: Sequence[str]) -> List[Path]:
     return sorted(out)
 
 
+class _NativeSentence:
+    """Lazy sentence view over the native parser's flat arrays; mimics the
+    protobuf Sentence surface the dataset touches (.texts, .semantics)."""
+
+    __slots__ = ("_data", "_flat", "_s", "_cache")
+
+    def __init__(self, data, flat, s):
+        self._data = data
+        self._flat = flat
+        self._s = s
+        self._cache = None
+
+    def _mat(self):
+        if self._cache is None:
+            from fish_speech_tpu_torch.native.loader import materialize_sentence
+
+            self._cache = materialize_sentence(self._data, self._flat, self._s)
+        return self._cache
+
+    @property
+    def texts(self):
+        return [self._mat()["text"]]
+
+    @property
+    def semantics(self):
+        return self._mat()["semantics"]  # ndarray (rows, T)
+
+
+class _NativeGroup:
+    __slots__ = ("sentences", "source", "name")
+
+    def __init__(self, sentences):
+        self.sentences = sentences
+        self.source = ""
+        self.name = ""
+
+
+def _native_groups(data, flat):
+    import numpy as _np
+
+    srec = flat["sent_record"]
+    for r in range(flat["n_records"]):
+        idx = _np.nonzero(srec == r)[0]
+        yield _NativeGroup([_NativeSentence(data, flat, int(s)) for s in idx])
+
+
 class SemanticIterableDataset:
     """Infinite sampler over packed text+semantic sequences."""
 
@@ -75,7 +121,9 @@ class SemanticIterableDataset:
         skip_text_prob: float = 0.0,
         shard_id: int = 0,
         num_shards: int = 1,
+        use_native_parser: bool = True,
     ):
+        self.use_native_parser = use_native_parser
         self.proto_files = proto_files
         self.tokenizer = tokenizer
         self.seed = seed
@@ -96,11 +144,28 @@ class SemanticIterableDataset:
             files = files * (self.num_shards // max(len(files), 1) + 1)
         files = files[self.shard_id :: self.num_shards]
 
+        native = False
+        if self.use_native_parser:
+            try:
+                from fish_speech_tpu_torch.native.loader import (
+                    fast_parse_available,
+                    parse_shard_flat,
+                )
+
+                native = fast_parse_available()
+            except Exception:
+                native = False
+
         self.groups = []
         for filename in files:
-            with open(filename, "rb") as f:
-                for text_data in read_pb_stream(f):
-                    self.groups.append(text_data)
+            if native:
+                data, flat = parse_shard_flat(filename)
+                for g in _native_groups(data, flat):
+                    self.groups.append(g)
+            else:
+                with open(filename, "rb") as f:
+                    for text_data in read_pb_stream(f):
+                        self.groups.append(text_data)
         Random(self.seed).shuffle(self.groups)
         if not self.groups:
             raise ValueError(f"No data found in {self.proto_files}")
@@ -136,9 +201,13 @@ class SemanticIterableDataset:
         cated = " ".join(sentences) if not skip_text else "<|skip_text|>"
         seq.append(TextPart(text=f"<|speaker:user|> {cated}"), add_end=True)
 
-        vq_codes = np.asarray(  # protobuf Sentence.semantics
-            [list(x.values) for x in semantics[0]], dtype=np.int32
-        )
+        sem0 = semantics[0]
+        if isinstance(sem0, np.ndarray):  # native-parser path
+            vq_codes = sem0.astype(np.int32)
+        else:  # protobuf Sentence.semantics
+            vq_codes = np.asarray(
+                [list(x.values) for x in sem0], dtype=np.int32
+            )
         vq_part = VQPart(codes=vq_codes, cal_loss=True)
         seq.append(
             [TextPart(text="<|speaker:assistant|> <|voice|>"), vq_part],
@@ -328,3 +397,57 @@ class ConcatRepeatDataset:
                 it = iter(ds)
                 for _ in range(self.repeats):
                     yield next(it)
+
+
+class VQGANDataset:
+    """Codec-training dataset: random fixed-length crops of audio files
+    (reference `datasets/vqgan.py`). Yields dicts with `audio` (T,) float32
+    and `audio_length`."""
+
+    def __init__(self, filelist: str, sample_rate: int = 44100,
+                 hop_length: int = 512, slice_frames=None, num_mels: int = 128,
+                 seed: int = 42):
+        from fish_speech_tpu_torch.audio.io import load_audio
+
+        self._load_audio = load_audio
+        root = Path(filelist).parent
+        names = [
+            line.strip() for line in Path(filelist).read_text().splitlines()
+            if line.strip()
+        ]
+        self.files = [root / n for n in names]
+        if not self.files:
+            raise ValueError(f"No files in {filelist}")
+        self.sample_rate = sample_rate
+        self.hop_length = hop_length
+        self.slice_frames = slice_frames
+        self.rng = random.Random(seed)
+
+    def __len__(self):
+        return len(self.files)
+
+    def __getitem__(self, idx: int) -> Optional[dict]:
+        try:
+            audio = self._load_audio(str(self.files[idx]), self.sample_rate)
+        except Exception:
+            return None
+        if self.slice_frames is not None:
+            span = self.slice_frames * self.hop_length
+            if len(audio) >= span:
+                start = self.rng.randint(0, len(audio) - span)
+                audio = audio[start : start + span]
+        if len(audio) == 0:
+            return None
+        # pad to hop multiple
+        pad = (-len(audio)) % self.hop_length
+        audio = np.pad(audio, (0, pad))
+        return {"audio": audio.astype(np.float32), "audio_length": len(audio)}
+
+    def __iter__(self):
+        order = list(range(len(self.files)))
+        while True:
+            self.rng.shuffle(order)
+            for i in order:
+                item = self[i]
+                if item is not None:
+                    yield item

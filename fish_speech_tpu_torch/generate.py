@@ -67,6 +67,7 @@ import collections
 import contextlib
 import functools
 import gc
+import logging
 import re
 import threading
 import time
@@ -289,7 +290,9 @@ class StepState:
     batch's prompts are left-padded to a common end; a row attends no
     position below its offset), or under a suffix prefill the suffix's
     real length; start (1,) int32: the suffix's first position; inp: the
-    padded prompts (or suffix) of each bucket, (rows, C+1, bucket) int32."""
+    padded prompts (or suffix) of each bucket, (rows, C+1, bucket) int32;
+    feats: an audio-conditioned prompt's features and mask of each bucket,
+    (rows, bucket, cfg.audio_feature_dim) fp32 and (rows, bucket) bool."""
 
     def __init__(self, cfg: DualARConfig, scfg: SamplingConfig, cache_len: int,
                  n_steps: int, dtype, act_dtype, device, kv_quant: bool,
@@ -315,6 +318,8 @@ class StepState:
         self.t_end = torch.zeros((1,), **i64)
         self.start = torch.zeros((1,), **i32)
         self.inp = {}
+        self.feature_dim = cfg.audio_feature_dim
+        self.feats = {}
 
     def prompt(self, bucket: int):
         """The prompt buffer of `bucket`, made at its first use (a suffix
@@ -324,6 +329,17 @@ class StepState:
                 (self.rows, self.token.shape[1], bucket), dtype=torch.int32,
                 device=self.device)
         return self.inp[bucket]
+
+    def features(self, bucket: int):
+        """The audio features and mask buffers of `bucket`, made at their
+        first use."""
+        if bucket not in self.feats:
+            self.feats[bucket] = (
+                torch.zeros((self.rows, bucket, self.feature_dim),
+                            dtype=torch.float32, device=self.device),
+                torch.zeros((self.rows, bucket), dtype=torch.bool,
+                            device=self.device))
+        return self.feats[bucket]
 
     def carry(self):
         """The tensors a body carries from one run to the next."""
@@ -362,12 +378,14 @@ def _first_column(params, cfg: DualARConfig, scfg: SamplingConfig,
 
 
 def prefill_body(params, cfg: DualARConfig, scfg: SamplingConfig,
-                 st: StepState, bucket: int):
+                 st: StepState, bucket: int, audio: bool = False):
     """JAX's `prefill_step` of the prompt in `st.prompt(bucket)` on the fixed
-    buffers: the first column goes to `st.token` and `st.pos` becomes
-    `t_end`."""
+    buffers (with `audio`, conditioned on `st.features(bucket)`): the first
+    column goes to `st.token` and `st.pos` becomes `t_end`."""
+    feats, mask = st.features(bucket) if audio else (None, None)
     logits_full, hidden, _ = dual_ar.prefill(params, cfg, st.prompt(bucket),
-                                             st.cache, st.offsets, st.t_end)
+                                             st.cache, st.offsets, st.t_end,
+                                             feats, mask)
     _first_column(params, cfg, scfg, st, logits_full, hidden, st.t_end)
 
 
@@ -819,9 +837,9 @@ def _tree_bytes(tree) -> int:
 
 
 def _graph_name(kind: str, rows: int, bucket: Optional[int] = None) -> str:
-    """A session graph's name: `prefill_{bucket}`, `suffix_{bucket}` and
-    `decode` for one row, `prefill_{rows}_{bucket}` and `decode_{rows}` for
-    a lockstep batch."""
+    """A session graph's name: `prefill_{bucket}`, `audio_{bucket}` (an
+    audio-conditioned prefill), `suffix_{bucket}` and `decode` for one row,
+    `prefill_{rows}_{bucket}` and `decode_{rows}` for a lockstep batch."""
     parts = [kind] + ([str(rows)] if rows > 1 else []) + (
         [str(bucket)] if bucket is not None else [])
     return "_".join(parts)
@@ -977,10 +995,12 @@ class GenerationSession:
         if kind == "decode":
             body = functools.partial(decode_step, self.params, self.cfg,
                                      self.scfg, st)
+        elif kind == "suffix":
+            body = functools.partial(suffix_body, self.params, self.cfg,
+                                     self.scfg, st, bucket)
         else:
-            body = functools.partial(
-                suffix_body if kind == "suffix" else prefill_body, self.params,
-                self.cfg, self.scfg, st, bucket)
+            body = functools.partial(prefill_body, self.params, self.cfg,
+                                     self.scfg, st, bucket, kind == "audio")
         if self.mesh is None:
             return body
 
@@ -1116,26 +1136,39 @@ class GenerationSession:
 
     def generate(self, prompt: np.ndarray, generator, max_new_tokens: int = 0,
                  temperature: float = 1.0, top_p: float = 0.9,
-                 top_k: int = 30) -> np.ndarray:
+                 top_k: int = 30, audio_features: Optional[np.ndarray] = None,
+                 audio_mask: Optional[np.ndarray] = None) -> np.ndarray:
         """Generate until im_end or the budget; returns (C+1, N) columns
-        including the final im_end column."""
+        including the final im_end column.
+
+        audio_features (T, F) / audio_mask (T,) bool: optional continuous
+        conditioning aligned with the prompt
+        (`ContentSequence.align_audio_features`); a model with
+        `audio_feature_dim > 0` projects them in."""
         last = None
         for last in self.generate_stream(
             prompt, generator, max_new_tokens=max_new_tokens,
             temperature=temperature, top_p=top_p, top_k=top_k,
+            audio_features=audio_features, audio_mask=audio_mask,
             pipeline_lookahead=self.pipeline_lookahead,
         ):
             pass
         return last
 
-    def _prefill_first(self, prompt: np.ndarray, seed: int, sampling):
+    def _prefill_first(self, prompt: np.ndarray, seed: int, sampling,
+                       audio_features=None, audio_mask=None):
         """Enqueue the prefill of `prompt` and its first column: on a
         prefix hit the stored rows' restore and the suffix graph, else the
         prompt's bucket (whose rows are stored when the store takes the
-        prompt). JAX's hit and miss decisions and counts."""
+        prompt). JAX's hit and miss decisions and counts: a prompt with
+        audio features never looks the store up nor enters it, and
+        prefills through `audio_{bucket}` (features and mask padded to the
+        bucket; a model without a projector warns and ignores them)."""
         cfg, st = self.cfg, self._state_for(1)
         t = prompt.shape[1]
-        pre = self.prefix.lookup(prompt) if self.prefix.size else None
+        audio = audio_features is not None
+        pre = (self.prefix.lookup(prompt) if self.prefix.size and not audio
+               else None)
         if pre is not None:
             m, rows = pre
             ts = t - m
@@ -1159,15 +1192,43 @@ class GenerationSession:
         bucket = self._bucket(t)
         inp = np.zeros((1, cfg.num_codebooks + 1, bucket), dtype=np.int32)
         inp[0, :, :t] = prompt
-        self._graphs_for(f"prefill_{bucket}")
+        feats = (self._audio_inputs(audio_features, audio_mask, t, bucket)
+                 if audio else None)
+        name = f"audio_{bucket}" if feats is not None else f"prefill_{bucket}"
+        self._graphs_for(name)
         with GUARD.launching():
             st.prompt(bucket).copy_(torch.from_numpy(inp))
+            if feats is not None:
+                for buf, host in zip(st.features(bucket), feats):
+                    buf.copy_(torch.from_numpy(host))
             self._set_request(st, t, [seed], *sampling)
-            self._run(f"prefill_{bucket}")
-            if self.prefix.accepts(prompt):
+            self._run(name)
+            if not audio and self.prefix.accepts(prompt):
                 self.prefix.store(prompt, {name: c[:, :, :bucket].clone()
                                            for name, c in st.cache.items()},
                                   bucket)
+
+    def _audio_inputs(self, audio_features, audio_mask, t: int, bucket: int):
+        """(features (1, bucket, F) fp32, mask (1, bucket) bool) padded from
+        a prompt's (T, F) features and (T,) mask, or None with a warning
+        when the model has no projector (JAX's `embed_tokens` ignores them
+        there); raises ValueError as JAX's does for a width other than the
+        projector's or a missing mask."""
+        if "audio_projector" not in self.params:
+            logging.getLogger(__name__).warning(
+                "audio_features provided but model has no audio_projector")
+            return None
+        dim = self.params["audio_projector"]["w"].shape[0]
+        if audio_features.shape[-1] != dim:
+            raise ValueError(f"audio_features dim {audio_features.shape[-1]} "
+                             f"!= audio_feature_dim {dim}")
+        if audio_mask is None:
+            raise ValueError("audio_features requires audio_mask")
+        feats = np.zeros((1, bucket, dim), dtype=np.float32)
+        feats[0, :t] = audio_features
+        mask = np.zeros((1, bucket), dtype=bool)
+        mask[0, :t] = audio_mask
+        return feats, mask
 
     def _budget(self, t: int, max_new_tokens: int) -> int:
         if t >= self.cfg.max_seq_len:
@@ -1188,6 +1249,8 @@ class GenerationSession:
     def generate_stream(self, prompt: np.ndarray, generator,
                         max_new_tokens: int = 0, temperature: float = 1.0,
                         top_p: float = 0.9, top_k: int = 30,
+                        audio_features: Optional[np.ndarray] = None,
+                        audio_mask: Optional[np.ndarray] = None,
                         pipeline_lookahead: int = 0,
                         device_partials: bool = False):
         """Yield the CUMULATIVE (C+1, n) host columns after the prefill frame
@@ -1199,11 +1262,13 @@ class GenerationSession:
         being read, so the device runs chunks back to back.
         device_partials: yield a `StreamPartial` instead, before any host
         sync, after the prefill and after each chunk's enqueue (JAX's
-        `_stream_device`; lookahead 0)."""
+        `_stream_device`; lookahead 0). audio_features / audio_mask: as in
+        `generate`."""
         cfg, st = self.cfg, self._state_for(1)
         budget = self.check_request(prompt, max_new_tokens, top_k)
         self._prefill_first(prompt, request_seed(generator),
-                            (temperature, top_p, top_k))
+                            (temperature, top_p, top_k), audio_features,
+                            audio_mask)
         if device_partials:
             yield from self._stream_device(budget)
             return

@@ -2,8 +2,8 @@
 `dac_encode` (B, 1, T) waveform -> (B, 1+N, T') codes through the causal
 conv encoder and the RVQ, `dac_from_indices` codes -> waveform through the
 causal conv decoder; `init_dac` draws random weights for both halves.
-`dac_forward` and `dac_decode` (training) are not ported (ROADMAP §1 item
-11)."""
+`dac_forward` is the training round trip (audio -> codes -> audio and the
+VQ losses), `dac_decode` a latent's decode."""
 
 from __future__ import annotations
 
@@ -16,7 +16,8 @@ from fish_speech_tpu_torch.models.dac.conv import (causal_conv1d,
                                                    causal_conv_transpose1d,
                                                    snake)
 from fish_speech_tpu_torch.models.dac.rvq import (downsample_rvq_codes,
-                                                  downsample_rvq_decode)
+                                                  downsample_rvq_decode,
+                                                  downsample_rvq_encode)
 from fish_speech_tpu_torch.models.dac.transformer import codec_transformer
 from fish_speech_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
 
@@ -108,6 +109,29 @@ def dac_encode(params, cfg: DACConfig, audio, audio_lengths=None):
     code_lengths = torch.ceil(audio_lengths.to(torch.float32)
                               / cfg.frame_length).to(torch.int32)
     return codes, code_lengths
+
+
+def dac_decode(params, cfg: DACConfig, z):
+    """Latent (B, T', D) -> audio (B, 1, T)."""
+    return decoder_forward(params["decoder"], cfg, z).transpose(1, 2)
+
+
+def dac_forward(params, cfg: DACConfig, audio, generator=None):
+    """Training-style round trip: audio (B, 1, T) or (B, T), right-padded to
+    a multiple of `hop_length` -> encoder -> the full quantizer forward
+    (`downsample_rvq_encode`, under quantizer dropout drawn from
+    `generator` when given) -> decoder. Returns (audio (B, 1, T) cropped to
+    the input length, the quantizer's dict: z, codes, latents and the
+    commitment and codebook losses)."""
+    if audio.dim() == 3:
+        audio = audio[:, 0, :]
+    t = audio.shape[-1]
+    right_pad = math.ceil(t / cfg.hop_length) * cfg.hop_length - t
+    x = torch.nn.functional.pad(audio, (0, right_pad))[..., None]
+    z = encoder_forward(params["encoder"], cfg, x)
+    result = downsample_rvq_encode(params["quantizer"], cfg.rvq, z, generator)
+    audio_out = decoder_forward(params["decoder"], cfg, result["z"])
+    return audio_out.transpose(1, 2)[..., :t], result
 
 
 def decode_half(params):

@@ -4,8 +4,8 @@ Encode: causal x4 downsample with ConvNeXt blocks -> pre transformer ->
 semantic RVQ (1 codebook) -> residual RVQ (N codebooks), each codebook
 picked by argmax over L2-normalised vectors. Decode: codes -> summed
 codebook vectors -> post transformer -> causal upsample. Channels-last.
-The quantizer-dropout draw of training (`key`) is not ported (ROADMAP §1
-item 11, with `dac_forward`)."""
+In training (`dac_forward` with a generator) the residual quantizer keeps
+a random number of its codebooks per sample (`quantizer_dropout_mask`)."""
 
 from __future__ import annotations
 
@@ -130,14 +130,37 @@ def _upsample(params, cfg: RVQConfig, z):
     return z
 
 
-def _quantize(params, cfg: RVQConfig, z):
-    """Downsample, pre transformer, semantic then residual RVQ: their two
-    result dicts."""
+def quantizer_dropout_mask(cfg: RVQConfig, batch: int, generator):
+    """Quantizer dropout (descript semantics, JAX's draw): with probability
+    `cfg.quantizer_dropout` a sample keeps the first n of the residual
+    codebooks, n uniform in [1, N], else all N. Returns (batch, N) fp32, 1
+    where a codebook is active, on the generator's device; None when the
+    config drops nothing."""
+    if cfg.quantizer_dropout <= 0:
+        return None
+    n_full = cfg.n_codebooks
+    dev = generator.device
+    rand_n = torch.randint(1, n_full + 1, (batch,), generator=generator,
+                           device=dev)
+    use_dropout = (torch.rand((batch,), generator=generator, device=dev)
+                   < cfg.quantizer_dropout)
+    n_per_sample = torch.where(use_dropout, rand_n,
+                               torch.full_like(rand_n, n_full))
+    return (torch.arange(n_full, device=dev)[None, :]
+            < n_per_sample[:, None]).to(torch.float32)
+
+
+def _quantize(params, cfg: RVQConfig, z, dropout_mask=None):
+    """Downsample, pre transformer, semantic then residual RVQ (the residual
+    under `dropout_mask`, (B, N), if given): their two result dicts."""
     z = _downsample(params, cfg, z)
     if "pre" in params:
         z = codec_transformer(params["pre"], cfg.pre_transformer, z)
     sem = rvq_encode(params["semantic"], z)
-    return sem, rvq_encode(params["residual"], z - sem["z_q"])
+    if dropout_mask is not None:
+        dropout_mask = dropout_mask.to(z.device)
+    return sem, rvq_encode(params["residual"], z - sem["z_q"],
+                           dropout_mask=dropout_mask)
 
 
 def downsample_rvq_codes(params, cfg: RVQConfig, z):
@@ -148,14 +171,21 @@ def downsample_rvq_codes(params, cfg: RVQConfig, z):
     return torch.cat([sem["codes"], res["codes"]], dim=1)
 
 
-def downsample_rvq_encode(params, cfg: RVQConfig, z):
+def downsample_rvq_encode(params, cfg: RVQConfig, z, generator=None):
     """Full quantizer forward. z: (B, T, D) at the encoder frame rate.
 
     Returns dict: z (B, T, D) reconstructed (padded/cropped on the left to
-    the input length), codes (B, 1+N, T/downsample), latents, losses.
+    the input length), codes (B, 1+N, T/downsample), latents, and the
+    commitment and codebook losses (B,).
+
+    Training: with `generator` (a `torch.Generator`) the residual quantizer
+    runs under a quantizer-dropout mask drawn from it
+    (`quantizer_dropout_mask`).
     """
     orig_t = z.shape[1]
-    sem, res = _quantize(params, cfg, z)
+    mask = (None if generator is None
+            else quantizer_dropout_mask(cfg, z.shape[0], generator))
+    sem, res = _quantize(params, cfg, z, mask)
     zq = sem["z_q"] + res["z_q"]
     if "post" in params:
         zq = codec_transformer(params["post"], cfg.post_transformer, zq)

@@ -54,6 +54,7 @@ logits). Without a mesh every function is what it is on one device.
 
 from __future__ import annotations
 
+import logging
 import math
 
 import torch
@@ -163,9 +164,10 @@ def init_dual_ar(seed: int, cfg: DualARConfig, dtype=torch.bfloat16,
     if not cfg.tie_word_embeddings:
         params["output"] = dense((cfg.dim, cfg.vocab_size))
     if cfg.audio_feature_dim > 0:
-        raise NotImplementedError(
-            "audio-feature conditioning (the audio_projector) is not ported "
-            "(ROADMAP §1 item 11: remaining modules)")
+        params["audio_projector"] = {
+            "w": dense((cfg.audio_feature_dim, cfg.dim)),
+            "b": torch.zeros((cfg.dim,), dtype=dtype, device=device),
+        }
     if cfg.fast_dim != cfg.dim:
         params["fast"]["project_in"] = {
             "w": dense((cfg.dim, cfg.fast_dim)),
@@ -312,14 +314,22 @@ def _lora_embed(params, name, idx, scale):
     return 0
 
 
-def embed_tokens(params, cfg: DualARConfig, inp, inference: bool = True):
+def embed_tokens(params, cfg: DualARConfig, inp, audio_features=None,
+                 audio_mask=None, inference: bool = True):
     """inp (B, C+1, T) int — row 0 text ids, rows 1..C codebook values ->
     token + summed codebook embedding (gated by the semantic id range),
     (B, T, D). `scale_codebook_embeddings` applies on the inference path
     only: the training forward passes inference=False, as the JAX package
-    does. The audio-feature path is not ported. Under a mesh the table is
-    this rank's vocabulary range: ids outside it give zeros, and the ranks'
-    lookups are summed (the LoRA delta, replicated, is added after)."""
+    does. Under a mesh the table is this rank's vocabulary range: ids
+    outside it give zeros, and the ranks' lookups are summed (the LoRA
+    delta, replicated, is added after).
+
+    audio_features (B, T, F) with audio_mask (B, T) bool: where the mask is
+    set, the projected features (`audio_projector`, /sqrt(2) under
+    `scale_codebook_embeddings`) REPLACE the embedding (JAX's
+    `embed_tokens`; the reference leaves this path dead). A model without
+    a projector warns and ignores them; a feature width other than the
+    projector's, or features without a mask, raise ValueError."""
     inp = inp.long()
     codes = inp[:, 1:, :]  # (B, C, T)
     offsets = (torch.arange(cfg.num_codebooks, device=inp.device)
@@ -346,7 +356,27 @@ def embed_tokens(params, cfg: DualARConfig, inp, inference: bool = True):
     if cfg.scale_codebook_embeddings and inference:
         scale = 1.0 / math.sqrt(cfg.num_codebooks + 1)
         x = torch.where(is_semantic, x * scale, x)
+    if audio_features is not None:
+        x = _audio_embed(params, cfg, x, audio_features, audio_mask)
     return x
+
+
+def _audio_embed(params, cfg: DualARConfig, x, audio_features, audio_mask):
+    if "audio_projector" not in params:
+        # reference behavior: warn and ignore (`llama.py:433`)
+        logging.getLogger(__name__).warning(
+            "audio_features provided but model has no audio_projector")
+        return x
+    ap = params["audio_projector"]
+    if audio_features.shape[-1] != ap["w"].shape[0]:
+        raise ValueError(f"audio_features dim {audio_features.shape[-1]} != "
+                         f"audio_feature_dim {ap['w'].shape[0]}")
+    if audio_mask is None:
+        raise ValueError("audio_features requires audio_mask")
+    proj = audio_features.to(device=x.device, dtype=x.dtype) @ ap["w"] + ap["b"]
+    if cfg.scale_codebook_embeddings:
+        proj = proj / math.sqrt(2)
+    return torch.where(audio_mask.to(x.device)[..., None], proj, x)
 
 
 # ---------------------------------------------------------------------------
@@ -552,12 +582,14 @@ def _run_stack_train(layers, spec, x, freqs, remat: bool, kvalid=None,
 
 
 def forward_train(params, cfg: DualARConfig, inp, labels=None, pad_mask=None,
-                  remat=None):
+                  remat=None, audio_features=None, audio_mask=None):
     """Full teacher-forced forward.
 
     inp (B, C+1, T) int inputs; labels (B, C+1, T) (the fast stack is
     teacher-forced on rows 1..C-1; defaults to inp); pad_mask (B, T) bool,
     True where PADDING. remat defaults to `cfg.use_gradient_checkpointing`.
+    audio_features/audio_mask: optional continuous conditioning
+    (`embed_tokens`).
 
     Returns token_logits (B, T, V) fp32 and codebook_logits (B, T, C, K)
     fp32, the fast logits at every position (the loss masks them)."""
@@ -565,7 +597,8 @@ def forward_train(params, cfg: DualARConfig, inp, labels=None, pad_mask=None,
     if remat is None:
         remat = cfg.use_gradient_checkpointing
     b, _, t = inp.shape
-    x = embed_tokens(params, cfg, inp, inference=False)
+    x = embed_tokens(params, cfg, inp, audio_features, audio_mask,
+                     inference=False)
     freqs = rope_table(cfg.max_seq_len, cfg.head_dim, cfg.rope_base,
                        x.device)[:t]
     if pad_mask is None:
@@ -681,16 +714,19 @@ def _prefill_tail(params, cfg: DualARConfig, x, t_end, cache):
     return logits, hidden, cache
 
 
-def prefill(params, cfg: DualARConfig, inp, cache, offsets, t_end):
+def prefill(params, cfg: DualARConfig, inp, cache, offsets, t_end,
+            audio_features=None, audio_mask=None):
     """Run the prompt (B, C+1, Tpad) through the slow stack, writing k/v at
     [0, Tpad) of the cache (quantized under the int8 cache). Row i's prompt
     occupies [offsets[i], t_end); attention is the prefill kernel over the
     fresh k/v (every prompt length, not only >= 512 as on the TPU).
+    audio_features (B, Tpad, F) / audio_mask (B, Tpad): optional continuous
+    conditioning (`embed_tokens`).
 
     Returns (logits_last (B, V) fp32, hidden_last (B, D), cache)."""
     cfg = cfg.resolve()
     t = inp.shape[2]
-    x = embed_tokens(params, cfg, inp)
+    x = embed_tokens(params, cfg, inp, audio_features, audio_mask)
     freqs = rope_table(cfg.max_seq_len, cfg.head_dim, cfg.rope_base,
                        x.device)[:t]
     offsets = offsets.to(device=x.device, dtype=torch.int32)

@@ -1,6 +1,10 @@
-"""The port's native host code: its copy of the JAX package's FLAC frame
-encoder (`flac_encode.c`), built with the system C compiler at first use
-into `build_dir()`, keyed by the source's hash, never beside the source.
+"""The port's native host code, its copies of the JAX package's
+`fish_speech_tpu/native/` sources: the FLAC frame encoder
+(`flac_encode.c`), the training-shard parser (`pb_stream.cc`, bound in
+`native/loader.py`) and the ffmpeg-backed audio decoder (`av_decode.c`,
+bound in `audio/libav.py`). Each is built with the system C or C++
+compiler at first use into `build_dir()`, keyed by the source's hash,
+never beside the source.
 """
 
 from __future__ import annotations
@@ -11,6 +15,8 @@ import subprocess
 from pathlib import Path
 
 FLAC_SRC = Path(__file__).parent / "flac_encode.c"
+PB_SRC = Path(__file__).parent / "pb_stream.cc"
+AV_SRC = Path(__file__).parent / "av_decode.c"
 
 
 def build_dir() -> Path:
@@ -25,17 +31,39 @@ def build_dir() -> Path:
     return Path(cache) / "fish_speech_tpu_torch" / "native"
 
 
-def build_flac() -> Path:
-    """The FLAC frame encoder's shared library, built once per source hash
-    (`gcc -O2 -shared -fPIC ... -lm`); raises if the build fails."""
-    tag = hashlib.sha256(FLAC_SRC.read_bytes()).hexdigest()[:16]
+def _build(src: Path, cmd: list, libs: list) -> Path:
+    """`src`'s shared library, built once per source hash with `cmd` (the
+    compiler and its flags) and linked with `libs`; raises
+    CalledProcessError (the compiler's output in `stderr`) or
+    FileNotFoundError (no compiler) if the build fails."""
+    tag = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
     out = build_dir()
-    lib = out / f"libflac_encode-{tag}.so"
+    lib = out / f"lib{src.stem}-{tag}.so"
     if lib.exists():
         return lib
     out.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    subprocess.run(["gcc", "-O2", "-shared", "-fPIC", str(FLAC_SRC), "-o",
-                    str(tmp), "-lm"], check=True, capture_output=True)
-    os.replace(tmp, lib)  # atomic: a concurrent builder sees all or nothing
+    subprocess.run([*cmd, str(src), "-o", str(tmp), *libs], check=True,
+                   capture_output=True, text=True)
+    os.replace(tmp, lib)  # atomic: a concurrent build sees all or nothing
     return lib
+
+
+def build_flac() -> Path:
+    """The FLAC frame encoder's shared library (`gcc -O2 -shared -fPIC ...
+    -lm`)."""
+    return _build(FLAC_SRC, ["gcc", "-O2", "-shared", "-fPIC"], ["-lm"])
+
+
+def build_pb() -> Path:
+    """The training-shard parser's shared library (`g++ -O2 -shared -fPIC
+    -std=c++17`, no dependencies)."""
+    return _build(PB_SRC, ["g++", "-O2", "-shared", "-fPIC", "-std=c++17"], [])
+
+
+def build_av() -> Path:
+    """The ffmpeg-backed decoder's shared library (`gcc -O2 -shared -fPIC
+    ... -lavformat -lavcodec -lavutil -lswresample`; needs ffmpeg's
+    development headers and libraries)."""
+    return _build(AV_SRC, ["gcc", "-O2", "-shared", "-fPIC"],
+                  ["-lavformat", "-lavcodec", "-lavutil", "-lswresample"])

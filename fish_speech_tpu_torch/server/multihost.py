@@ -105,8 +105,13 @@ def wrap_leader(session, cfg) -> None:
     orig = session.generate_stream
 
     def generate_stream(prompt, generator, max_new_tokens=0, temperature=1.0,
-                        top_p=0.9, top_k=30, pipeline_lookahead=0,
+                        top_p=0.9, top_k=30, audio_features=None,
+                        audio_mask=None, pipeline_lookahead=0,
                         device_partials=False):
+        if audio_features is not None:  # as JAX's leader
+            raise NotImplementedError(
+                "audio-feature conditioning is not broadcast to follower "
+                "hosts; run conditioned models on one card")
         if getattr(session, "_lockstep_lost", False):
             raise RuntimeError("multi-card serving: an earlier request failed "
                                "after its broadcast and the ranks are out of "

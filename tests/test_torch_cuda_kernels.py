@@ -637,11 +637,12 @@ def _graph_prompt(cfg, t, seed):
     return inp
 
 
-def _eager_stream(session, prompt, budget, sampling, seed):
+def _eager_stream(session, prompt, budget, sampling, seed, audio=None):
     """The session's request run eagerly: the same bodies on a fresh
     `StepState` (the same weights) drawing the uniforms of `seed`, every
     chunk run in full and cut at the budget and at im_end as
-    `generate_stream` cuts."""
+    `generate_stream` cuts; `audio` (features (T, F), mask (T,)) conditions
+    the prefill."""
     from fish_speech_tpu_torch.generate import (StepState, decode_step,
                                                 prefill_body)
 
@@ -654,7 +655,11 @@ def _eager_stream(session, prompt, budget, sampling, seed):
     st.t_end.fill_(t)
     st.seed.fill_(seed)
     st.sampling.copy_(torch.tensor(sampling, dtype=torch.float32))
-    prefill_body(session.params, cfg, scfg, st, bucket)
+    if audio is not None:
+        feats, mask = st.features(bucket)
+        feats[0, :t].copy_(torch.from_numpy(audio[0]))
+        mask[0, :t].copy_(torch.from_numpy(audio[1]))
+    prefill_body(session.params, cfg, scfg, st, bucket, audio is not None)
     cols = [st.token.clone()]
     left, n = budget - 1, session.first_chunk_size
     while left > 0:
@@ -1851,3 +1856,84 @@ def test_nccl_mesh_session_replays_the_unsharded_columns(dev, tmp_path):
         assert dict(meshed.eager_runs) == {"prefill_64": 1, "decode": 1}
     finally:
         dist.destroy_process_group()
+
+
+def test_audio_conditioned_prefill_graph_equals_its_eager_body(dev):
+    """A model with an audio projector: a request with features replays a
+    prefill graph of its own (`audio_{bucket}`, captured at its first use
+    after one eager run) whose columns are its eager body's, greedy and
+    sampled; a request without features replays `prefill_{bucket}`."""
+    import dataclasses
+
+    from fish_speech_tpu_torch.config import SamplingConfig
+    from fish_speech_tpu_torch.generate import GenerationSession
+    from fish_speech_tpu_torch.models.dual_ar import init_dual_ar
+
+    cfg = dataclasses.replace(_graph_cfg(), audio_feature_dim=24)
+    session = GenerationSession(init_dual_ar(9, cfg, torch.bfloat16, dev), cfg,
+                                SamplingConfig(), dtype=torch.bfloat16,
+                                decode_chunk_size=4, first_chunk_size=2)
+    rng = np.random.default_rng(11)
+    prompt = _graph_prompt(cfg, 40, seed=6)
+    feats = (rng.standard_normal((40, 24)) * 2).astype(np.float32)
+    mask = np.zeros(40, dtype=bool)
+    mask[20:] = True
+    for sampling, seed in (((1.0, 0.9, 1), 1), ((0.8, 0.9, 30), 4)):
+        got = session.generate(prompt, seed, max_new_tokens=11, temperature=sampling[0],
+                               top_p=sampling[1], top_k=sampling[2],
+                               audio_features=feats, audio_mask=mask)
+        want = _eager_stream(session, prompt, 11, sampling, seed, (feats, mask))
+        np.testing.assert_array_equal(got, want)
+    assert session.replays["audio_64"] == 2 and session.eager_runs["audio_64"] == 1
+    plain = session.generate(prompt, 1, max_new_tokens=11, top_k=1)
+    np.testing.assert_array_equal(plain, _eager_stream(session, prompt, 11,
+                                                       (1.0, 0.9, 1), 1))
+    assert session.replays["prefill_64"] == 1
+
+
+def test_eval_quality_tiny_on_the_card(dev, tmp_path):
+    """`tools.eval_quality --tiny` on cuda:0 (no --cpu) with `--ab kv-int8`
+    through the pool: mock WER 0 in both configs, and the kv-int8 config's
+    decode ran the int8-KV kernel."""
+    import json
+
+    from click.testing import CliRunner
+
+    from fish_speech_tpu_torch.audio.io import write_wav
+    from fish_speech_tpu_torch.config import dac_tiny
+    from fish_speech_tpu_torch.ops.flash_decode import flash_decode_attention_kv8
+    from fish_speech_tpu_torch.tools import eval_quality
+
+    cfg = dac_tiny()
+    ref = tmp_path / "speaker.wav"
+    write_wav(ref, np.random.default_rng(0).normal(size=cfg.frame_length * 4)
+              .astype(np.float32) * 0.1, cfg.sample_rate)
+    items = [{"id": "en_1", "text": "hello there", "lang": "en"},
+             {"id": "zh_1", "text": "one two three", "lang": "zh",
+              "ref_audio": str(ref), "ref_text": "ref"}]
+    manifest = tmp_path / "manifest.jsonl"
+    manifest.write_text("\n".join(json.dumps(i) for i in items))
+    synthesize, kv8 = eval_quality.synthesize_manifest, {}
+
+    def counted(engine, its, out_dir, tag, *a, **kw):
+        n0 = flash_decode_attention_kv8.launches
+        out = synthesize(engine, its, out_dir, tag, *a, **kw)
+        torch.cuda.synchronize()
+        kv8[tag] = flash_decode_attention_kv8.launches - n0
+        return out
+
+    eval_quality.synthesize_manifest = counted
+    try:
+        r = CliRunner().invoke(eval_quality.main, [
+            "--manifest", str(manifest), "--out-dir", str(tmp_path / "out"), "--tiny",
+            "--asr", "mock", "--sim", "spectral", "--ab", "kv-int8",
+            "--max-new-tokens", "8"], catch_exceptions=False)
+    finally:
+        eval_quality.synthesize_manifest = synthesize
+    assert r.exit_code == 0, r.output
+    report = json.loads((tmp_path / "out" / "report.json").read_text())
+    assert list(report["configs"]) == ["baseline", "kv-int8"]
+    for conf in report["configs"].values():
+        assert conf["aggregates"]["wer_en"] == 0.0 == conf["aggregates"]["wer_zh"]
+        assert -1.0 <= conf["aggregates"]["sim_mean"] <= 1.0
+    assert kv8["baseline"] == 0 and kv8["kv-int8"] > 0

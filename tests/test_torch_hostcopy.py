@@ -236,12 +236,14 @@ def test_resample_is_equal(sr_from, sr_to):
 @pytest.mark.parametrize("data", [b"MThd" + bytes(60), b"ID3" + bytes(61),
                                   b"OggS" + bytes(60)])
 def test_load_audio_refuses_what_is_not_wav(tmp_path, data):
-    """Neither WAV nor FLAC: the libav fallback is not ported."""
-    with pytest.raises(ValueError, match="item 11"):
-        tio.load_audio(data, 44100)
+    """Neither WAV nor FLAC, and nothing the libav fallback decodes: the
+    port's and JAX's `load_audio` both raise ValueError, from bytes and from
+    a file."""
     (tmp_path / "x.bin").write_bytes(data)
-    with pytest.raises(ValueError, match="item 11"):
-        tio.load_audio(tmp_path / "x.bin", 44100)
+    for src in (data, tmp_path / "x.bin"):
+        for mod in (tio, jio):
+            with pytest.raises(ValueError, match="Unrecognized audio"):
+                mod.load_audio(src, 44100)
 
 
 def test_reference_loader_behaves_as_the_original(tmp_path):
@@ -458,15 +460,28 @@ def test_load_dac_reads_what_the_jax_package_wrote(tmp_path):
     assert all(t.dtype == torch.float32 for t in [got["decoder"]["conv_in"]["w"]])
 
 
-# the converter's and the dataset tools' copies: every function is the
-# original's source, except the three that take torch tensors or import
-# torch at the top (held to the originals on the same inputs in
-# `tests/test_torch_convert.py`; the dataset tools' files in
-# `tests/test_torch_dataset_tools.py`)
+# the converter's, the dataset tools' and the evaluation tools' copies and
+# the host modules of ROADMAP §1 item 11: every function is the original's
+# source, except those in `_CHANGED` (they take torch tensors or import the
+# port's modules; held to the originals on the same inputs in
+# `tests/test_torch_convert.py`, `tests/test_torch_dataset_tools.py`,
+# `tests/test_torch_eval_tools.py`, `tests/test_torch_native.py`, and for
+# the dataset the pipeline's batches above)
 _COPIES = ("convert.torch_state", "convert.dual_ar", "convert.dac",
-           "tools.build_dataset", "tools.create_train_split")
+           "tools.build_dataset", "tools.create_train_split", "utils.flops",
+           "audio.spectrogram", "audio.libav", "native.loader", "tools.playback",
+           "tools.eval_quality", "utils.logging", "data.dataset")
 _CHANGED = {"convert.torch_state": {"_to_numpy", "load_torch_state_dict"},
-            "convert.dual_ar": {"export_dual_ar"}}
+            "convert.dual_ar": {"export_dual_ar"},
+            "utils.flops": {"dual_ar_forward_flops", "_rvq_encode_flops"},
+            "audio.spectrogram": {"stft_magnitude", "log_mel_spectrogram"},
+            "audio.libav": {"_load"},
+            "native.loader": {"load_library"},
+            "tools.playback": {"decode_to_pcm"},
+            "tools.eval_quality": {"spectral_sim", "synthesize_manifest", "main",
+                                   "_build_engine"},
+            "utils.logging": {"process_index", "set_seed"},
+            "data.dataset": {"expand_proto_files"}}
 
 
 @pytest.mark.parametrize("module", _COPIES)

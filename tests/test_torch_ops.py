@@ -247,6 +247,16 @@ PORT_MODULES = [
     "fish_speech_tpu_torch.parallel.collectives",
     "fish_speech_tpu_torch.parallel.dryrun",
     "fish_speech_tpu_torch.server.multihost",
+    "fish_speech_tpu_torch.utils.logging",
+    "fish_speech_tpu_torch.utils.flops",
+    "fish_speech_tpu_torch.audio.spectrogram",
+    "fish_speech_tpu_torch.audio.libav",
+    "fish_speech_tpu_torch.native.loader",
+    "fish_speech_tpu_torch.tools.playback",
+    "fish_speech_tpu_torch.tools.api_client",
+    "fish_speech_tpu_torch.tools.run_webui",
+    "fish_speech_tpu_torch.tools.eval_in_context",
+    "fish_speech_tpu_torch.tools.eval_quality",
 ]
 
 # Run on the CPU with the JAX package and jax unimportable: every port
@@ -262,7 +272,11 @@ PORT_MODULES = [
 # trainer checkpoint), `tools.parity_check --cpu` (a golden saved, then
 # passed), `tools.build_dataset` and `tools.create_train_split`, and the
 # mesh path on one gloo rank (a session and a ZeRO-1 trainer step on a
-# (1, 1) mesh, the multi-card server's descriptor broadcast).
+# (1, 1) mesh, the multi-card server's descriptor broadcast), and the
+# evaluation tools and the client: `tools.eval_quality --tiny --cpu` (the
+# pool, both A/Bs, mock ASR and the spectral SIM), `tools.eval_in_context
+# --cpu` on the saved checkpoint, and `tools.api_client` against the HTTP
+# app on 127.0.0.1.
 # (`jax` is blocked by an import hook, not by `sys.modules['jax'] = None`:
 # scipy's array-API helpers take a `jax` entry in `sys.modules` for the
 # imported package.)
@@ -448,6 +462,41 @@ inp = np.stack([prompt])
 m = trainer.train_step(trainer.params, trainer._place_batch(
     {'inputs': inp, 'labels': inp, 'pad_mask': np.zeros((1, 7), bool)}))
 assert np.isfinite(float(m['loss']))
+
+import json, threading
+from aiohttp import web
+from fish_speech_tpu_torch.tools import api_client, eval_in_context, eval_quality
+manifest = Path(tmp) / 'manifest.jsonl'
+manifest.write_text(chr(10).join(json.dumps(i) for i in (
+    {'id': 'en_1', 'text': 'hello there', 'lang': 'en'},
+    {'id': 'zh_1', 'text': 'one two', 'lang': 'zh',
+     'ref_audio': os.path.join(tmp, 'refs', 'spk', 'sample.wav'), 'ref_text': 'a'})))
+run(eval_quality.main, ['--manifest', manifest, '--out-dir', Path(tmp) / 'eval',
+                        '--tiny', '--cpu', '--pool-size', 2, '--asr', 'mock',
+                        '--sim', 'spectral', '--ab', 'kv-int8', '--max-new-tokens', 6])
+report = json.loads((Path(tmp) / 'eval' / 'report.json').read_text())
+assert report['configs']['kv-int8']['aggregates']['wer_en'] == 0.0, report
+np.save(Path(tmp) / 'ref.npy', rng.integers(0, 32, (cfg.num_codebooks, 5)))
+np.save(Path(tmp) / 'tgt.npy', rng.integers(0, 32, (cfg.num_codebooks, 4)))
+run(eval_in_context.main, ['--checkpoint-path', ck, '--reference-codes',
+                           Path(tmp) / 'ref.npy', '--reference-text', 'a line',
+                           '--target-codes', Path(tmp) / 'tgt.npy', '--target-text',
+                           'b line', '--output', Path(tmp) / 'ic.json', '--cpu'])
+assert json.loads((Path(tmp) / 'ic.json').read_text())[str(ck)]['per_frame']
+loop = asyncio.new_event_loop()
+runner = web.AppRunner(create_app(engine))
+loop.run_until_complete(runner.setup())
+site = web.TCPSite(runner, '127.0.0.1', 0)
+loop.run_until_complete(site.start())
+port = site._server.sockets[0].getsockname()[1]
+served = threading.Thread(target=loop.run_forever, daemon=True)
+served.start()
+run(api_client.main, ['--url', f'http://127.0.0.1:{port}/v1/tts', '--text', 'Hi.',
+                      '--max-new-tokens', 6, '--streaming', '-o', Path(tmp) / 'c.wav'])
+asyncio.run_coroutine_threadsafe(runner.cleanup(), loop).result(30)
+loop.call_soon_threadsafe(loop.stop)
+served.join(timeout=30)
+assert (Path(tmp) / 'c.wav').read_bytes()[:4] == b'RIFF'
 
 bad = sorted(m for m in sys.modules
              if m == 'fish_speech_tpu' or m.startswith('fish_speech_tpu.'))

@@ -196,17 +196,22 @@ def test_init_dual_ar_has_the_jax_layout(tokenizer, name):
 
 
 def test_bridge_rejects_what_is_not_ported(tokenizer):
-    """Quantized weights cross the bridge now (`tests/test_torch_quant.py`);
-    the audio projector is still not ported."""
+    """Nothing of the LM's tree is left out of the bridge now: int8 leaves
+    keep their integer `q` and their scales, and the audio projector of a
+    conditioned model crosses with its values."""
     cfg = make_cfg(tokenizer, "plain")
     jp = jax.tree_util.tree_map(
         np.asarray, jdual.init_dual_ar(jax.random.PRNGKey(0), cfg, jnp.float32))
     jp["layers"]["wo"] = {"q": jp["layers"]["wo"].astype(np.int8),
                           "s": np.ones(cfg.dim, np.float32)}
-    assert dual_ar_from_jax(jp, device="cpu")["layers"]["wo"]["q"].dtype == torch.int8
-    jp["audio_projector"] = {"w": np.ones((4, cfg.dim), np.float32)}
-    with pytest.raises(NotImplementedError, match="not ported"):
-        dual_ar_from_jax(jp, device="cpu")
+    w = np.random.default_rng(0).normal(size=(4, cfg.dim)).astype(np.float32)
+    jp["audio_projector"] = {"w": w, "b": np.zeros(cfg.dim, np.float32)}
+    got = dual_ar_from_jax(jp, dtype=torch.float32, device="cpu")
+    assert got["layers"]["wo"]["q"].dtype == torch.int8
+    np.testing.assert_array_equal(got["layers"]["wo"]["q"].numpy(),
+                                  jp["layers"]["wo"]["q"])
+    np.testing.assert_array_equal(got["audio_projector"]["w"].numpy(), w)
+    assert sorted(got["audio_projector"]) == ["b", "w"]
 
 
 def test_bucket_and_speaker_helpers_match_jax():
