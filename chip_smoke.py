@@ -310,7 +310,24 @@ Phases, each of which ends the run with a nonzero exit if it fails:
    losses, and the quantizer-dropout draw of 64 samples; (e) the libav
    shim's mp3 and Ogg/Opus decodes against `audio/libcodec`'s, or why it
    is unavailable; (f) phase 5's analytic FLOPs per step, its TFLOP/s and
-   its share of 989 TFLOP/s dense bf16.
+   its share of 989 TFLOP/s dense bf16;
+14. fp16 serving (`--half`): (the kernel cases) the fp16 forms of the
+   prefill, suffix (fp16 and int8 cache), decode, int8-KV decode, int8
+   matvec (1-16 and 17-32 rows) and fused int8 FFN kernels against their
+   plain versions at the serving shapes, to the bf16 forms' bounds, timed
+   beside SDPA / cuBLAS on fp16 operands; (a) full-width, full-depth
+   `dual_ar_s2_pro` in fp16 with `dac_s2_pro` in fp16 through the single
+   session's graphs (prefix cache on): phase 4's short and long requests,
+   the short one again (identical codes) and the long one again (a prefix
+   hit, the fp16 suffix kernel), TTFA, frames/s, the replayed step's device
+   ms, and the audio's max |x| and share of exact zeros beside the fp32
+   codec's on the same codes; (b) the server's `build_engine --half --int8
+   --kv-int8 --pool-size 32 --prefix-cache 4` and `warm_up` on phase 11's
+   model written by the port's writer, a burst of 24 streamed requests
+   (the cluster kernel's rows) and one of them again (a prefix hit over the
+   int8 cache). Every fp16 kernel launches in (a) or (b), no bf16 route
+   does, and the fp16 prefill and suffix forms hold HGMMA in their SASS.
+   `python3 chip_smoke.py --phase14` runs phase 14 alone (no result line).
 
 Phase 2 also holds the kernels at the pool's shapes: `decode_mma_kernel`
 and `decode_kv8_mma_kernel` at B=32, S=2176 (8 layers) with ragged
@@ -785,19 +802,23 @@ def _ragged_sdpa(lens, s):
     return (torch.arange(s, device=lens.device)[None, :] < lens[:, None])[:, None, None]
 
 
-def pool_decode_case(dev, randn):
+def pool_decode_case(dev, randn, dtype=None):
     """`decode_mma_kernel` at the pool's shapes against its plain version,
-    with device times (graph replays) and SDPA's on the ragged mask."""
+    with device times (graph replays) and SDPA's on the ragged mask; q and
+    the cache in `randn`'s dtype (bf16), or in `dtype` (fp16)."""
+    import torch
     import torch.nn.functional as F
 
     from fish_speech_tpu_torch.ops.flash_decode import (flash_decode_attention,
                                                         flash_decode_reference)
 
     hkv, g, n_layer, s = 8, 4, POOL_LAYERS, POOL_S
+    dtype = dtype or torch.bfloat16
     lens = _pool_lengths(dev)
     lmax = int(lens.max())
-    q = randn(32, hkv, g, 128)
-    kc, vc = randn(n_layer, 32, s, hkv, 128), randn(n_layer, 32, s, hkv, 128)
+    q = randn(32, hkv, g, 128).to(dtype)
+    kc = randn(n_layer, 32, s, hkv, 128).to(dtype)
+    vc = randn(n_layer, 32, s, hkv, 128).to(dtype)
     mx = mean = 0.0
     for layer in (0, n_layer - 1):
         e = _errors(flash_decode_attention(q, kc, vc, layer, lens),
@@ -819,7 +840,7 @@ def pool_decode_case(dev, randn):
             enable_gqa=True)
 
     row = dict(shape=f"L={n_layer} B=32 S={s} Hkv={hkv} G={g} D=128 ragged "
-                     f"len 1..2048 (sum {total}; SDPA ragged mask)",
+                     f"len 1..2048 (sum {total}; SDPA ragged mask) {str(q.dtype)[6:]}",
                max_abs_err=mx, mean_abs_err=mean, ms=ms, plain_ms=plain_ms,
                bound_ms=bound[0], bound_by=bound[1], library_ms=_library_ms(sdpa, 20),
                device_ms=_device_ms(lambda i=0: flash_decode_attention(
@@ -829,10 +850,11 @@ def pool_decode_case(dev, randn):
     return row
 
 
-def pool_decode_kv8_case(dev, randn):
+def pool_decode_kv8_case(dev, randn, dtype=None):
     """`decode_kv8_mma_kernel` at the pool's shapes (the int8 pool's slow
-    cache), against its plain version; SDPA on K/V dequantized beforehand,
-    with the ragged mask."""
+    cache), against its plain version; SDPA on K/V dequantized beforehand
+    to q's dtype, with the ragged mask; q in `randn`'s dtype (bf16), or in
+    `dtype` (fp16)."""
     import torch
     import torch.nn.functional as F
 
@@ -841,11 +863,12 @@ def pool_decode_kv8_case(dev, randn):
         flash_decode_attention_kv8, flash_decode_kv8_reference)
 
     hkv, g, n_layer, s = 8, 4, POOL_LAYERS, POOL_S
+    dtype = dtype or torch.bfloat16
     lens = _pool_lengths(dev)
     lmax = int(lens.max())
     kq, ks = _kv_quant(randn(n_layer, 32, s, hkv, 128))
     vq, vs = _kv_quant(randn(n_layer, 32, s, hkv, 128))
-    q = randn(32, hkv, g, 128)
+    q = randn(32, hkv, g, 128).to(dtype)
     mx = mean = 0.0
     for layer in (0, n_layer - 1):
         e = _errors(flash_decode_attention_kv8(q, kq, ks, vq, vs, layer, lens),
@@ -858,8 +881,8 @@ def pool_decode_kv8_case(dev, randn):
     ms, plain_ms = _in_turns(
         lambda i=0: flash_decode_kv8_reference(q, kq, ks, vq, vs, i % n_layer, lens),
         kernel, 20)
-    kd = _kv_dequant(kq[:, :, :lmax], ks[:, :, :lmax], torch.bfloat16)
-    vd = _kv_dequant(vq[:, :, :lmax], vs[:, :, :lmax], torch.bfloat16)
+    kd = _kv_dequant(kq[:, :, :lmax], ks[:, :, :lmax], q.dtype)
+    vd = _kv_dequant(vq[:, :, :lmax], vs[:, :, :lmax], q.dtype)
     qs = q.reshape(32, hkv * g, 1, 128)
     mask = _ragged_sdpa(lens, lmax)
 
@@ -872,7 +895,8 @@ def pool_decode_kv8_case(dev, randn):
     bound = _bound(4 * hkv * g * 128 * total,
                    2 * total * hkv * 128 + 2 * 2 * total * hkv + 2 * 2 * 32 * hkv * g * 128)
     row = dict(shape=f"L={n_layer} B=32 S={s} Hkv={hkv} G={g} D=128 ragged len "
-                     f"1..2048 (sum {total}) int8 K/V bf16 (SDPA ragged mask)",
+                     f"1..2048 (sum {total}) int8 K/V {str(q.dtype)[6:]} (SDPA ragged "
+                     f"mask)",
                max_abs_err=mx, mean_abs_err=mean, ms=ms, plain_ms=plain_ms,
                bound_ms=bound[0], bound_by=bound[1], library_ms=_library_ms(sdpa, 20),
                device_ms=_device_ms(kernel, 40), library_device_ms=_device_ms(sdpa, 40))
@@ -2777,8 +2801,8 @@ def run_clone(dev, tokenizer, session, engine, refs_dir):
                 prompt_len=prompt_len, launches=launches)
 
 
-def check_hit_logits(session, prompt_len):
-    """The stored clone prompt's first logits, cold (`dual_ar.prefill` at
+def check_hit_logits(session, prompt_len, label="clone"):
+    """The stored clone prompt's (or `label`'s) first logits, cold (`dual_ar.prefill` at
     bucket 1024) against a prefix hit (the stored rows restored, then
     `prefill_suffix`), at the served hit's start (prompt - 1) and at a
     40-column suffix: within 0.05 of max |logit|, with the same argmax
@@ -2809,12 +2833,12 @@ def check_hit_logits(session, prompt_len):
             delta = (hit - cold).abs().max().item()
             scale = cold.abs().max().item()
             same = int(hit.argmax()) == int(cold.argmax())
-            print(f"clone hit vs cold first logits (start {m}, suffix {t - m}): "
+            print(f"{label} hit vs cold first logits (start {m}, suffix {t - m}): "
                   f"max |delta| {delta:.4f} against 0.05 x max |logit| "
                   f"{0.05 * scale:.4f}; argmax equal={same}")
             if not np.isfinite(delta) or delta > 0.05 * max(scale, 1.0) or not same:
-                raise SystemExit("clone: the hit's first logits left the cold "
-                                 "prefill's envelope")
+                raise SystemExit(f"{label}: the hit's first logits left the cold "
+                                 f"prefill's envelope")
 
 
 def _tree_bytes(tree):
@@ -5264,6 +5288,497 @@ def run_eval_tools(dev, tokenizer, train, smi):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 14: fp16 serving (`--half`): the fp16 forms of the kernels against
+# their plain versions, full-width s2-pro in fp16 through the single
+# session's graphs with the fp16 codec, and `build_engine --half --int8
+# --kv-int8 --pool-size 32 --prefix-cache 4` under a burst
+# ---------------------------------------------------------------------------
+
+HALF_CLIENTS = 24  # 17-32 rows: the int8 matvec's cluster kernel
+HALF_TOKENS = 32   # new tokens of each request of the burst
+
+
+def half_kernel_cases(dev, randn):
+    """Each fp16 kernel against its plain version at the fp16 serving
+    path's shapes (the bf16 cases' shapes, a few each): the prefill at a
+    prompt bucket and a group prefill; the decode over the session's slow
+    cache, the fast cache and the pool's ragged rows; the int8-KV decode
+    likewise; the suffix over an fp16 and an int8 cache at a voice-clone
+    start; the int8 matvec (1-16 rows) and its cluster kernel (17-32 rows)
+    at the slow and fast w13 and the LM head; the fused FFN at the slow and
+    fast FFN. Each is held to its bf16 form's bound (attention 2e-2 max /
+    2e-3 mean; the int8 products to one fp16 rounding of y, 2^-11 |y|, +
+    1e-5 (|x| @ |q|) * s; the FFN to 2 fp16 ulps of max |y|) and timed
+    beside its plain version and the library call on fp16 operands (SDPA;
+    cuBLAS on the dequantized fp16 weight)."""
+    import torch
+    import torch.nn.functional as F
+
+    from fish_speech_tpu_torch.models.dual_ar import _kv_dequant, _kv_quant
+    from fish_speech_tpu_torch.ops.flash_decode import (
+        flash_decode_attention, flash_decode_attention_kv8,
+        flash_decode_kv8_reference, flash_decode_reference)
+    from fish_speech_tpu_torch.ops.flash_prefill import (
+        flash_prefill_attention, flash_prefill_reference, flash_suffix_attention,
+        flash_suffix_reference)
+    from fish_speech_tpu_torch.ops.int8 import (_route, int8_matmul,
+                                                int8_matmul_reference)
+    from fish_speech_tpu_torch.ops.int8_ffn import int8_ffn, int8_ffn_reference
+    from fish_speech_tpu_torch.ops.quant import quantize_int8
+
+    f16 = torch.float16
+
+    def h(*shape):
+        return randn(*shape).to(f16)
+
+    def attn_ok(mx, mean):
+        return mx <= 2e-2 and mean <= 2e-3
+
+    cases = {n: [] for n in HALF_KERNELS}
+    for b, t, offsets in [(1, 1024, [0]), (4, 128, [0] * 4)]:
+        q, k, v = (h(b, t, n, 128) for n in (32, 8, 8))
+        off = torch.tensor(offsets, dtype=torch.int32, device=dev)
+        mx, mean = _errors(flash_prefill_attention(q, k, v, off),
+                           flash_prefill_reference(q, k, v, off))
+        ms, plain_ms = _in_turns(lambda i=0: flash_prefill_reference(q, k, v, off),
+                                 lambda i=0: flash_prefill_attention(q, k, v, off), 20)
+        pairs = sum((t - o) * (t - o + 1) // 2 for o in offsets)
+        flops = 4 * 32 * 128 * pairs
+        bound = _bound(flops, 2 * b * t * 128 * 2 * (32 + 8))
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        lib = _library_ms(lambda i=0: _sdpa(qt, kt, vt, None, True), 20)
+        cases["flash_prefill_f16"].append(dict(
+            shape=f"B={b} T={t} H=32 Hkv=8 D=128 offsets={_offsets_text(offsets)} "
+                  f"float16 wgmma_f16 ({flops / ms / 1e9:.1f} TFLOP/s; SDPA is_causal)",
+            max_abs_err=mx, mean_abs_err=mean, ms=ms, plain_ms=plain_ms,
+            bound_ms=bound[0], bound_by=bound[1], library_ms=lib,
+            device_ms=_device_ms(lambda i=0: flash_prefill_attention(q, k, v, off), 20),
+            library_device_ms=_device_ms(lambda i=0: _sdpa(qt, kt, vt, None, True), 20),
+            ok=attn_ok(mx, mean)))
+        del q, k, v
+    for n_layer, s, hkv, g, length in [(36, 2112, 8, 4, 2048), (12, 10, 4, 3, 10)]:
+        q = h(1, hkv, g, 128)
+        kc, vc = h(n_layer, 1, s, hkv, 128), h(n_layer, 1, s, hkv, 128)
+        lens = torch.tensor([length], dtype=torch.int32, device=dev)
+        mx = mean = 0.0
+        for layer in (0, n_layer - 1):
+            e = _errors(flash_decode_attention(q, kc, vc, layer, lens),
+                        flash_decode_reference(q, kc, vc, layer, lens))
+            mx, mean = max(mx, e[0]), max(mean, e[1])
+        ms, plain_ms = _in_turns(
+            lambda i=0: flash_decode_reference(q, kc, vc, i % n_layer, lens),
+            lambda i=0: flash_decode_attention(q, kc, vc, i % n_layer, lens), 100)
+        bound = _bound(4 * hkv * g * 128 * length,
+                       2 * (2 * length * hkv * 128 + 2 * hkv * g * 128))
+        qs = q.reshape(1, hkv * g, 1, 128)
+
+        def sdpa(i=0):
+            return F.scaled_dot_product_attention(
+                qs, kc[i % n_layer, :, :length].transpose(1, 2),
+                vc[i % n_layer, :, :length].transpose(1, 2), enable_gqa=True)
+
+        cases["flash_decode_f16"].append(dict(
+            shape=f"L={n_layer} B=1 S={s} Hkv={hkv} G={g} D=128 len={length} float16",
+            max_abs_err=mx, mean_abs_err=mean, ms=ms, plain_ms=plain_ms,
+            bound_ms=bound[0], bound_by=bound[1], library_ms=_library_ms(sdpa, 100),
+            device_ms=_device_ms(lambda i=0: flash_decode_attention(
+                q, kc, vc, i % n_layer, lens), 100),
+            library_device_ms=_device_ms(sdpa, 100), ok=attn_ok(mx, mean)))
+        del kc, vc
+    cases["flash_decode_f16"].append(pool_decode_case(dev, randn, f16))
+    n_layer, s, length = 36, 2112, 2048
+    kq, ks = _kv_quant(randn(n_layer, 1, s, 8, 128))
+    vq, vs = _kv_quant(randn(n_layer, 1, s, 8, 128))
+    q = h(1, 8, 4, 128)
+    lens = torch.tensor([length], dtype=torch.int32, device=dev)
+    mx = mean = 0.0
+    for layer in (0, n_layer - 1):
+        e = _errors(flash_decode_attention_kv8(q, kq, ks, vq, vs, layer, lens),
+                    flash_decode_kv8_reference(q, kq, ks, vq, vs, layer, lens))
+        mx, mean = max(mx, e[0]), max(mean, e[1])
+
+    def kv8_kernel(k=0):
+        return flash_decode_attention_kv8(q, kq, ks, vq, vs, k % n_layer, lens)
+
+    ms, plain_ms = _in_turns(
+        lambda k=0: flash_decode_kv8_reference(q, kq, ks, vq, vs, k % n_layer, lens),
+        kv8_kernel, 100)
+    kd = _kv_dequant(kq[:, :, :length], ks[:, :, :length], f16)
+    vd = _kv_dequant(vq[:, :, :length], vs[:, :, :length], f16)
+    qs = q.reshape(1, 32, 1, 128)
+
+    def kv8_sdpa(k=0):
+        return F.scaled_dot_product_attention(
+            qs, kd[k % n_layer].transpose(1, 2), vd[k % n_layer].transpose(1, 2),
+            enable_gqa=True)
+
+    bound = _bound(4 * 8 * 4 * 128 * length,
+                   2 * length * 8 * 128 + 2 * 2 * length * 8 + 2 * 2 * 8 * 4 * 128)
+    cases["flash_decode_kv8_f16"].append(dict(
+        shape=f"L={n_layer} B=1 S={s} Hkv=8 G=4 D=128 len={length} int8 K/V float16",
+        max_abs_err=mx, mean_abs_err=mean, ms=ms, plain_ms=plain_ms,
+        bound_ms=bound[0], bound_by=bound[1], library_ms=_library_ms(kv8_sdpa, 100),
+        device_ms=_device_ms(kv8_kernel, 100),
+        library_device_ms=_device_ms(kv8_sdpa, 100), ok=attn_ok(mx, mean)))
+    del kq, ks, vq, vs, kd, vd
+    cases["flash_decode_kv8_f16"].append(pool_decode_kv8_case(dev, randn, f16))
+    # the suffix at a voice-clone start over 8 layers of the session's cache
+    n_layer, b, ts = 8, 1, 64
+    kv = SUFFIX_START + ts
+    st = torch.tensor([SUFFIX_START], dtype=torch.int32, device=dev)
+    q = h(b, ts, 32, 128)
+    i_, j_ = torch.arange(ts, device=dev), torch.arange(kv, device=dev)
+    mask = (j_[None, :] <= SUFFIX_START + i_[:, None])[None, None]
+    for kv8 in (False, True):
+        cache = _suffix_cache(dev, randn, n_layer, b, SUFFIX_S, 8, 128, kv8, f16)
+        mx = mean = 0.0
+        for layer in (0, n_layer - 1):
+            e = _errors(flash_suffix_attention(q, cache, layer, st),
+                        flash_suffix_reference(q, cache, layer, st))
+            mx, mean = max(mx, e[0]), max(mean, e[1])
+        ms, plain_ms = _in_turns(
+            lambda i=0: flash_suffix_reference(q, cache, i % n_layer, st),
+            lambda i=0: flash_suffix_attention(q, cache, i % n_layer, st), 20)
+        if kv8:
+            kl = [_kv_dequant(cache["k"][i, :, :kv], cache["ks"][i, :, :kv], f16
+                              ).transpose(1, 2) for i in range(n_layer)]
+            vl = [_kv_dequant(cache["v"][i, :, :kv], cache["vs"][i, :, :kv], f16
+                              ).transpose(1, 2) for i in range(n_layer)]
+        else:
+            kl = [cache["k"][i, :, :kv].transpose(1, 2) for i in range(n_layer)]
+            vl = [cache["v"][i, :, :kv].transpose(1, 2) for i in range(n_layer)]
+        qt = q.transpose(1, 2)
+
+        def sfx_sdpa(i=0):
+            return F.scaled_dot_product_attention(
+                qt, kl[i % n_layer], vl[i % n_layer], attn_mask=mask, enable_gqa=True)
+
+        flops = 4 * 128 * 32 * b * (ts * SUFFIX_START + ts * (ts + 1) // 2)
+        nbytes = (2 * q.numel() * 2 + b * kv * 8 * 128 * (1 if kv8 else 2) * 2
+                  + (b * kv * 8 * 2 * 2 if kv8 else 0))
+        bound = _bound(flops, nbytes)
+        name = "flash_suffix_kv8_f16" if kv8 else "flash_suffix_f16"
+        cases[name].append(dict(
+            shape=f"L={n_layer} B={b} S={SUFFIX_S} H=32 Hkv=8 D=128 start="
+                  f"{SUFFIX_START} Ts={ts} float16 q, {'int8' if kv8 else 'float16'} "
+                  f"cache (SDPA mask)",
+            max_abs_err=mx, mean_abs_err=mean, ms=ms, plain_ms=plain_ms,
+            bound_ms=bound[0], bound_by=bound[1], library_ms=_library_ms(sfx_sdpa, 20),
+            device_ms=_device_ms(lambda i=0: flash_suffix_attention(
+                q, cache, i % n_layer, st), 20),
+            library_device_ms=_device_ms(sfx_sdpa, 20), ok=attn_ok(mx, mean)))
+        del cache, kl, vl
+    # the int8 products: rows 1 and 4 (the session, a group's heads) on the
+    # 1-16-row kernel, 32 (the pool) on the cluster kernel
+    for label, i, o, rows in [("slow w13", 2560, 19456, (1, 4, 32)),
+                              ("fast w13", 1536, 12288, (32,)),
+                              ("LM head", 2560, 155136, (1,))]:
+        qw = quantize_int8(randn(i, o).float() * 0.02)
+        q8, s8 = qw["q"], qw["s"]
+        del qw
+        w16 = (q8.float() * s8).to(f16)  # cuBLAS's operand: W dequantized
+        for b in rows:
+            x = h(b, i)
+            got = int8_matmul(x, q8, s8)
+            exact = (x.float() @ q8.float()) * s8
+            scale = (x.float().abs() @ q8.float().abs()) * s8
+            ok = bool(((got.float() - exact).abs()
+                       <= 2.0 ** -11 * exact.abs() + 1e-5 * scale).all())
+            err = (got.float() - int8_matmul_reference(x, q8, s8).float()).abs()
+            del exact, scale
+            iters = 20 if o > 100_000 else 100
+            ms, plain_ms = _in_turns(lambda k=0: int8_matmul_reference(x, q8, s8),
+                                     lambda k=0: int8_matmul(x, q8, s8), iters)
+            bound = _bound(2 * b * i * o, i * o + 4 * o + 2 * b * (i + o))
+            name = ("int8_mm_cluster_f16" if _route(b, f16) == "gemv_cluster_f16"
+                    else "int8_mm_f16")
+            cases[name].append(dict(
+                shape=f"{label} B={b} I={i} O={o} float16", max_abs_err=err.max().item(),
+                mean_abs_err=err.mean().item(), ms=ms, plain_ms=plain_ms,
+                bound_ms=bound[0], bound_by=bound[1],
+                library_ms=_library_ms(lambda k=0: x @ w16, iters),
+                device_ms=_device_ms(lambda k=0: int8_matmul(x, q8, s8), iters),
+                library_device_ms=_device_ms(lambda k=0: x @ w16, iters), ok=ok))
+            del got, err
+        del q8, s8, w16
+        torch.cuda.empty_cache()
+    for label, d, i, b in [("slow FFN", 2560, 9728, 1), ("fast FFN", 1536, 6144, 32)]:
+        w1, w3, w2 = (quantize_int8(randn(*shape).float() * 0.02)
+                      for shape in ((d, i), (d, i), (i, d)))
+        w13 = {k: torch.cat([w1[k], w3[k]], dim=-1) for k in ("q", "s")}
+        lib13 = (w13["q"].float() * w13["s"]).to(f16)
+        lib2 = (w2["q"].float() * w2["s"]).to(f16)
+        x = h(b, d)
+        got, plain = int8_ffn(x, w13, w2), int8_ffn_reference(x, w13, w2)
+        err = (got.float() - plain.float()).abs()
+        top = plain.float().abs().max().item()
+        ulps = err.max().item() / 2.0 ** (np.floor(np.log2(top)) - 10)
+
+        def ffn_lib(k=0):
+            u = x @ lib13
+            return (F.silu(u[:, :i]) * u[:, i:]) @ lib2
+
+        ms, plain_ms = _in_turns(lambda k=0: int8_ffn_reference(x, w13, w2),
+                                 lambda k=0: int8_ffn(x, w13, w2), 100)
+        bound = _bound(6 * b * d * i, 3 * d * i + 4 * (2 * i + d) + 4 * b * d)
+        cases["int8_ffn_f16"].append(dict(
+            shape=f"{label} B={b} D={d} I={i} float16", max_abs_err=err.max().item(),
+            mean_abs_err=err.mean().item(), max_ulps=ulps, ms=ms, plain_ms=plain_ms,
+            bound_ms=bound[0], bound_by=bound[1], library_ms=_library_ms(ffn_lib, 100),
+            device_ms=_device_ms(lambda k=0: int8_ffn(x, w13, w2), 100),
+            library_device_ms=_device_ms(ffn_lib, 100),
+            ok=bool(torch.isfinite(got).all() and ulps <= 2)))
+        del w1, w3, w2, w13, lib13, lib2, got, plain, err
+        torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    for name, rows in cases.items():
+        for r in rows:
+            print(f"kernel {name} [{r['shape']}]: max_abs_err={r['max_abs_err']:.3e} "
+                  f"mean_abs_err={r['mean_abs_err']:.3e} kernel_ms={r['ms']:.4f} "
+                  f"plain_ms={r['plain_ms']:.4f} bound={_ms_text(r['bound_ms'])} "
+                  f"({r['bound_by']}) library_ms={r['library_ms']:.4f} device_ms="
+                  f"{r['device_ms']:.4f} library_device_ms={r['library_device_ms']:.4f}"
+                  + (f" max_ulps={r['max_ulps']:.2f}" if "max_ulps" in r else ""))
+            # the pool's rows (`pool_decode_case`) carry no verdict: the
+            # attention bound
+            if not r.get("ok", r["max_abs_err"] <= 2e-2 and r["mean_abs_err"] <= 2e-3):
+                raise SystemExit(f"{name} disagrees with its plain version at "
+                                 f"{r['shape']}")
+    return cases
+
+
+# the fp16 kernels' launch counters: (kernel name, wrapper, attribute)
+HALF_COUNTERS = {
+    "flash_prefill_f16": ("flash_prefill_attention", "launches_wgmma_f16"),
+    "flash_suffix_f16": ("flash_suffix_attention", "launches_suffix_wgmma_f16"),
+    "flash_suffix_kv8_f16": ("flash_suffix_attention", "launches_suffix_kv8_wgmma_f16"),
+    "flash_decode_f16": ("flash_decode_attention", "launches_f16"),
+    "flash_decode_kv8_f16": ("flash_decode_attention_kv8", "launches_f16"),
+    "int8_mm_f16": ("int8_matmul", "launches_gemv_mma_f16"),
+    "int8_mm_cluster_f16": ("int8_matmul", "launches_gemv_cluster_f16"),
+    "int8_ffn_f16": ("int8_ffn", "launches_mma_f16"),
+}
+HALF_KERNELS = tuple(HALF_COUNTERS)
+# the bf16 routes, which no fp16 request may take
+BF16_COUNTERS = (("flash_prefill_attention", "launches_wgmma"),
+                 ("flash_suffix_attention", "launches_suffix_wgmma"),
+                 ("flash_suffix_attention", "launches_suffix_kv8_wgmma"),
+                 ("int8_matmul", "launches_gemv_mma"),
+                 ("int8_matmul", "launches_gemv_cluster"),
+                 ("int8_ffn", "launches_mma"))
+
+
+def _half_counts():
+    """{fp16 kernel name: launches} and the bf16 routes' launches, read from
+    the wrappers' counters."""
+    from fish_speech_tpu_torch.ops.flash_prefill import flash_suffix_attention
+
+    wrappers = {f.__name__: f for f in (*_kernel_wrappers(), flash_suffix_attention)}
+    half = {name: getattr(wrappers[f], attr) for name, (f, attr) in HALF_COUNTERS.items()}
+    bf16 = sum(getattr(wrappers[f], attr) for f, attr in BF16_COUNTERS)
+    return half, bf16
+
+
+def _audio_stats(audio):
+    return float(np.abs(audio).max()), float((audio == 0).mean())
+
+
+def run_half_session(dev, tokenizer):
+    """14(a): `dual_ar_s2_pro` at full width and depth in fp16 with the
+    codec in fp16, through the single session's graphs (the prefix cache
+    on): phase 4's short and long requests, the short one again (the same
+    seed: identical codes) and the long one again (a prefix hit: the fp16
+    suffix kernel). Prints TTFA, frames/s, the replayed step's device ms,
+    and the audio's max |x| and share of exact zeros beside the fp32
+    codec's on the same codes (random weights: the fp16 codec may
+    underflow). Returns the fp16 kernels' launches."""
+    import torch
+
+    from fish_speech_tpu_torch.config import SamplingConfig, dac_s2_pro
+    from fish_speech_tpu_torch.generate import GenerationSession
+    from fish_speech_tpu_torch.models import dual_ar
+    from fish_speech_tpu_torch.models.dac.model import dac_from_indices, init_dac
+
+    t0 = time.perf_counter()
+    cfg = _s2_pro_cfg(tokenizer, 2048)
+    dac_cfg = dac_s2_pro()
+    params = dual_ar.init_dual_ar(0, cfg, torch.float16, dev)
+    codec = init_dac(1, dac_cfg, torch.float16, dev)
+    session = GenerationSession(params, cfg, SamplingConfig(), dtype=torch.float16,
+                                decode_chunk_size=64, first_chunk_size=8,
+                                prefix_cache_size=4)
+    del params
+    engine = _recording_engine(session, tokenizer, codec, dac_cfg)
+    short, long_ = _requests()[:2]
+    requests = [short, long_, ("short-repeat", short[1]), ("long-repeat", long_[1])]
+    print(f"14(a): dual_ar_s2_pro fp16 (max_seq_len 2048) + dac_s2_pro fp16 built in "
+          f"{time.perf_counter() - t0:.1f}s; device memory allocated "
+          f"{torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB")
+    precompile_for(session, tokenizer, requests, "fp16", suffix_buckets=(1,))
+    precompile_codec(engine, PHASE4_CODE_BUCKETS, (), "fp16")
+    _zero_counts()
+    results = serve(dev, tokenizer, engine, requests, dac_cfg.frame_length, "fp16")
+    torch.cuda.synchronize()
+    launches, bf16 = _half_counts()
+    hits = session.prefix_hits
+    check_replayed(session, "fp16")
+    check_codec_replayed(engine, ("decode",), "fp16")
+    step_ms = replayed_step_ms(session)
+    same_hit = np.array_equal(engine.codes_by_request["long"],
+                              engine.codes_by_request["long-repeat"])
+    # the hit's first logits within the cold prefill's envelope (phase 4b's
+    # bound); its codes are printed, not held: the suffix kernel sums in
+    # another order than the prefill's
+    check_hit_logits(session, _prompt_len(tokenizer, cfg, long_[1].text), "14(a) fp16")
+    codes = torch.from_numpy(engine.codes_by_request["long"][None]).to(dev)
+    with torch.no_grad():
+        a16 = dac_from_indices(codec, dac_cfg, codes).float().cpu().numpy()
+        del codec
+        codec32 = init_dac(1, dac_cfg, torch.float32, dev)
+        a32 = dac_from_indices(codec32, dac_cfg, codes).cpu().numpy()
+    del codec32
+    print(f"14(a) fp16 session: TTFA " + " / ".join(
+              f"{r['request']} {r['ttfa_s'] * 1e3:.1f} ms" for r in results)
+          + "; decode frames/s " + " / ".join(
+              f"{r['decode_frames_per_s']:.2f}" for r in results)
+          + f"; replayed step {step_ms:.3f} ms of device time; prefix hits {hits} "
+          f"(the hit's codes equal the cold run's: {same_hit}, printed, not held); "
+          f"long request's audio "
+          f"fp16 codec max|x| {_audio_stats(a16)[0]:.3e}, exact zeros "
+          f"{_audio_stats(a16)[1]:.4f}; fp32 codec on the same codes max|x| "
+          f"{_audio_stats(a32)[0]:.3e}, exact zeros {_audio_stats(a32)[1]:.4f}, "
+          f"max |fp16 - fp32| {np.abs(a16 - a32).max():.3e}; launches {launches}; "
+          f"bf16 routes {bf16}; {_nvidia_smi()}")
+    if hits < 1 or bf16:
+        raise SystemExit(f"14(a): prefix hits {hits}, bf16 route launches {bf16}")
+    for name in ("flash_prefill_f16", "flash_decode_f16", "flash_suffix_f16"):
+        if launches[name] <= 0:
+            raise SystemExit(f"14(a): {name} was never launched: {launches}")
+    if not (np.isfinite(a16).all() and np.isfinite(a32).all()):
+        raise SystemExit("14(a): the codec's audio is not finite")
+    del session, engine
+    return launches, dict(step_ms=step_ms, results=results)
+
+
+def run_half_pool(dev, tokenizer):
+    """14(b): `build_engine --half --int8 --kv-int8 --pool-size 32
+    --prefix-cache 4` (the server's own function and warm-up) on a
+    checkpoint at s2-pro's widths with 2 + 2 layers written by the port's
+    writer (bf16 LM, fp32 codec), then a burst of HALF_CLIENTS concurrent
+    requests (the pool's step at 17-32 rows: the cluster kernel) and one
+    request of the burst twice more alone (the second a prefix hit
+    whatever the burst left in the 4-entry cache: the int8-cache suffix
+    kernel). Returns the fp16 kernels' launches."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from fish_speech_tpu_torch.config import dac_s2_pro
+    from fish_speech_tpu_torch.models import dual_ar
+    from fish_speech_tpu_torch.models.dac.model import init_dac
+    from fish_speech_tpu_torch.server import main as server_main
+    from fish_speech_tpu_torch.utils.checkpoint import save_codec, save_dual_ar
+
+    root = Path(__file__).resolve().parent
+    (root / "build").mkdir(exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_half_", dir=root / "build"))
+    try:
+        t0 = time.perf_counter()
+        cfg = _ckpt_cfg(tokenizer)
+        ckpt = tmp / "ckpt"
+        save_dual_ar(ckpt, dual_ar.init_dual_ar(0, cfg, torch.bfloat16, dev), cfg,
+                     tokenizer)
+        codec_cfg = dac_s2_pro()
+        save_codec(ckpt, init_dac(1, codec_cfg, torch.float32, dev), codec_cfg)
+        gc.collect()
+        torch.cuda.empty_cache()
+        args = server_main.parse_args([
+            "--checkpoint-path", str(ckpt), "--half", "--int8", "--kv-int8",
+            "--pool-size", "32", "--prefix-cache", "4",
+            "--references-dir", str(tmp / "refs")])
+        built = server_main.build_engine(args)
+        batcher = built.session.batcher
+        dtypes = {str(t.dtype) for t in (batcher.params["embeddings"],
+                                         *_flat(built.codec_params).values())}
+        if dtypes != {"torch.float16"}:
+            raise SystemExit(f"14(b): --half built {dtypes} weights")
+        engine = _pool_engine(built.session, built.tokenizer, built.codec_params,
+                              built.codec_cfg, str(tmp / "refs"))
+        del built
+        t_built = time.perf_counter() - t0
+        server_main.warm_up(engine)
+        t_warm = time.perf_counter() - t0 - t_built
+        requests = [dataclasses.replace(r, max_new_tokens=HALF_TOKENS)
+                    for r in _pool_requests()[:HALF_CLIENTS]]
+        _zero_counts()
+        hits0 = batcher.prefix.hits
+        rows, t_submit = pool_serve(engine, requests, codec_cfg.frame_length, "fp16")
+        again = [pool_serve(engine, [requests[POOL_REPEAT]], codec_cfg.frame_length,
+                            "fp16 repeat")[0][0] for _ in range(2)]
+        torch.cuda.synchronize()
+        launches, bf16 = _half_counts()
+        hits = batcher.prefix.hits - hits0
+        per_step = batcher.launches_per_replay("decode")
+        frames = sum(r["frames"] for r in rows)
+        wall = max(r["last"] for r in rows) - t_submit
+        ttfa = [r["first"] - r["t0"] for r in rows]
+        same = all(np.array_equal(rows[POOL_REPEAT]["codes"], a["codes"])
+                   for a in again)
+        print(f"14(b) build_engine --half --int8 --kv-int8 --pool-size 32 "
+              f"--prefix-cache 4 on s2-pro's widths at 2 + 2 layers: checkpoint and "
+              f"engine {t_built:.1f}s, warm_up {t_warm:.1f}s; embeddings and codec "
+              f"in {sorted(dtypes)}; burst of {len(rows)}: {frames} frames in "
+              f"{wall:.2f}s ({frames / wall:.1f} frames/s), TTFA p50 "
+              f"{_pct(ttfa, 50) * 1e3:.1f} ms p90 {_pct(ttfa, 90) * 1e3:.1f} ms; "
+              f"request {POOL_REPEAT} twice again: prefix hits {hits}, codes equal "
+              f"to the burst's {same} (printed, not held); launches per replayed "
+              f"P=32 step {per_step}; "
+              f"launches {launches}; bf16 routes {bf16}; {_nvidia_smi()}")
+        if hits < 1 or bf16:
+            raise SystemExit(f"14(b): prefix hits {hits}, bf16 route launches {bf16}")
+        for name in ("flash_prefill_f16", "flash_decode_f16", "flash_decode_kv8_f16",
+                     "flash_suffix_kv8_f16", "int8_mm_f16", "int8_mm_cluster_f16",
+                     "int8_ffn_f16"):
+            if launches[name] <= 0:
+                raise SystemExit(f"14(b): {name} was never launched: {launches}")
+        batcher.shutdown()
+        del engine, batcher
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return launches
+
+
+def run_half(dev, tokenizer):
+    """Phase 14: fp16 serving. Returns (the fp16 kernels' cases, their
+    launches in 14(a) and 14(b))."""
+    import torch
+
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(14)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev, dtype=torch.bfloat16)
+
+    cases = half_kernel_cases(dev, randn)
+    t_cases = time.perf_counter() - t_phase
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches, _ = run_half_session(dev, tokenizer)
+    gc.collect()
+    torch.cuda.empty_cache()
+    for name, n in run_half_pool(dev, tokenizer).items():
+        launches[name] += n
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase 14 (fp16 serving) took {time.perf_counter() - t_phase:.1f}s "
+          f"(the kernel cases {t_cases:.1f}s); launches {launches}")
+    if min(launches.values()) <= 0:
+        raise SystemExit(f"phase 14: an fp16 kernel was never launched: {launches}")
+    return cases, launches
+
+
 def _zero_counts():
     """Set every kernel wrapper's launch counts to 0 (per route too)."""
     from fish_speech_tpu_torch.ops import (flash_prefill, flash_train, int4, int8,
@@ -5271,6 +5786,8 @@ def _zero_counts():
 
     for f in _kernel_wrappers():
         f.launches = 0
+        if hasattr(f, "launches_f16"):  # the decodes' fp16 count
+            f.launches_f16 = 0
     for mod in (flash_prefill, flash_train, int4, int8, int8_ffn, quant):
         mod.reset_launches()
 
@@ -5330,6 +5847,21 @@ KERNELS = {  # name: (source, the TPU kernel or JAX code it replaces)
                           "fish_speech_tpu/models/dual_ar.py:769"),
     "flash_suffix_kv8_fp32": (SRC + "flash_prefill.cu",
                               "fish_speech_tpu/ops/attention.py:66"),
+    # the fp16 forms (`--half` serving, phase 14): the same kernels
+    # instantiated for __half
+    "flash_prefill_f16": (SRC + "attn_wgmma.cuh",
+                          "fish_speech_tpu/ops/pallas_attention.py:26"),
+    "flash_suffix_f16": (SRC + "attn_wgmma.cuh", "fish_speech_tpu/models/dual_ar.py:769"),
+    "flash_suffix_kv8_f16": (SRC + "attn_wgmma.cuh",
+                             "fish_speech_tpu/ops/attention.py:66"),
+    "flash_decode_f16": (SRC + "flash_decode.cu",
+                         "fish_speech_tpu/ops/pallas_decode.py:47"),
+    "flash_decode_kv8_f16": (SRC + "flash_decode.cu",
+                             "fish_speech_tpu/ops/attention.py:66"),
+    "int8_mm_f16": (SRC + "int8_mm.cu", "scripts/microbench/matvec_pallas.py:18"),
+    "int8_mm_cluster_f16": (SRC + "int8_mm.cu",
+                            "scripts/microbench/matvec_pallas.py:18"),
+    "int8_ffn_f16": (SRC + "int8_ffn.cu", "scripts/microbench/ffn_fused_packed.py:17"),
 }
 # headline shapes: the long request's prefill bucket, a 257-long cache, the
 # B=2 x T=1024 fine-tune shape, the slow w13 at B=1 (matvec route) and at
@@ -5346,11 +5878,20 @@ HEADLINE = {"flash_prefill": 1, "flash_prefill_fp32": 0, "flash_decode": 1,
             "faststack_probe": 0, "int8_mm": 2 * (len(INT8_ROWS) - 1),
             "int8_mm_cluster": 2, "int8_mm_fp32": 0,
             "int8_ffn": 0, "int8_ffn_fp32": 0, "flash_suffix": 0,
-            "flash_suffix_kv8": 0, "flash_suffix_fp32": 0, "flash_suffix_kv8_fp32": 0}
-# the kernels whose SASS must hold HGMMA (wgmma) instructions
+            "flash_suffix_kv8": 0, "flash_suffix_fp32": 0, "flash_suffix_kv8_fp32": 0,
+            # phase 14: the prompt bucket 1024, the session's slow cache at
+            # len 2048, the suffix at start 951, the slow w13 at B=1 and 32,
+            # the slow FFN at B=1
+            "flash_prefill_f16": 0, "flash_decode_f16": 0, "flash_decode_kv8_f16": 0,
+            "flash_suffix_f16": 0, "flash_suffix_kv8_f16": 0, "int8_mm_f16": 0,
+            "int8_mm_cluster_f16": 0, "int8_ffn_f16": 0}
+# the kernels whose SASS must hold HGMMA (wgmma) instructions, and those of
+# them with fp16 instantiations (a `__half` in the mangled name), which
+# must hold them too
 WGMMA_KERNELS = ("int4_wgmma_kernel", "train_fwd_wgmma_kernel",
                  "prefill_wgmma_kernel", "suffix_wgmma_kernel",
                  "train_bwd_dkdv_wgmma_kernel", "train_bwd_dq_wgmma_kernel")
+HALF_WGMMA_KERNELS = ("prefill_wgmma_kernel", "suffix_wgmma_kernel")
 # the int8 kernels whose registers and spills ptxas' report shows too
 INT8_KERNELS = ("int8_gemv_mma_kernel", "int8_gemv_cluster_kernel", "int8_ffn_mma_kernel")
 
@@ -5373,6 +5914,8 @@ def _ptxas_report(build_log):
             suffix = re.search(r"suffix_wgmma_kernelILi(\d+)ELb(\d)E", line)
             if suffix:
                 dims = f"<{suffix[1]}, {'int8' if suffix[2] == '1' else 'bf16'} cache>"
+            if "6__half" in line:  # the fp16 forms of the templated kernels
+                dims = dims.replace("bf16 cache", "fp16 cache") + " fp16"
         elif name and ("spill" in line or "Used" in line):
             print(f"ptxas {name}{dims}: {line.strip()}")
         if "C7513" in line:
@@ -5444,12 +5987,22 @@ def main():
         print(f"HGMMA instructions in {name}'s SASS: {hgmma}")
         if not hgmma or min(hgmma.values()) <= 0:
             raise SystemExit(f"{name} issues no HGMMA")
+    for name in HALF_WGMMA_KERNELS:
+        half = {k: n for k, n in sass.items() if name in k and "6__half" in k}
+        print(f"HGMMA instructions in {name}'s fp16 forms: {half}")
+        if not half or min(half.values()) <= 0:
+            raise SystemExit(f"{name} has no fp16 form issuing HGMMA")
     occupancy = _bwd_occupancy()
     print(f"blocks per SM of the training backward's kernels: {occupancy}")
     if min(occupancy.values()) <= 0:
         raise SystemExit("a training backward kernel fits no block on an SM")
 
     tokenizer = build_test_tokenizer()
+    if sys.argv[1:2] == ["--phase14"]:  # phase 14 alone (no result line)
+        cases14, launches14 = run_half(dev, tokenizer)
+        print(json.dumps({name: dict(launches=launches14[name], cases=rows)
+                          for name, rows in cases14.items()}))
+        return
     cases = kernel_cases(dev, parity_shapes(tokenizer))
     from fish_speech_tpu_torch.ops.flash_decode import (flash_decode_attention,
                                                         flash_decode_attention_kv8)
@@ -5527,6 +6080,11 @@ def main():
     torch.cuda.empty_cache()
     for name, n in run_eval_tools(dev, tokenizer, train, smi).items():
         launches[name] += n
+    gc.collect()  # nothing of the evaluation tools stays for fp16 serving
+    torch.cuda.empty_cache()
+    half_cases, half_launches = run_half(dev, tokenizer)
+    cases.update(half_cases)
+    launches.update(half_launches)
     for row in pool.values():
         for name in ("flash_decode", "flash_decode_kv8", "flash_prefill", "int8_mm",
                      "int8_mm_cluster", "int8_ffn", "flash_suffix_kv8"):

@@ -68,6 +68,15 @@
 // The KV8 staging costs a second barrier per tile (the bf16 tile must be
 // whole before S reads it) and 34 KB more shared memory (D = 128).
 //
+// fp16 (the `--half` serving path): prefill_wgmma_kernel and
+// suffix_wgmma_kernel are templated on the 16-bit type T (common.cuh
+// `Elem`): q/k/v/O in fp16, S and P V on wgmma's `.f16` operands, P =
+// rn_f16(exp(s - m_running)) (11 significant bits where bf16 keeps 8; a p
+// below 2^-24 of the row's running max rounds to 0, and l sums the
+// unrounded p, as in bf16), the KV8 tiles converted to fp16 exactly and the
+// KV8 scales read as bf16 (the JAX package keeps them bf16 under fp16).
+// The training forward stays bf16.
+//
 // Left for later: TMA with mbarriers, a producer warp beside ping-pong
 // consumer warpgroups (softmax of one overlapping the wgmmas of the
 // other), 128-key tiles.
@@ -88,13 +97,14 @@ constexpr float kLog2e = 1.4426950408889634f;
 
 enum class Mask { kKeyValid, kOffset, kSuffix };
 
-struct Args {
-  const __nv_bfloat16* q;  // (B, T, H, D)
-  const __nv_bfloat16* k;  // (B, T, Hkv, D); kSuffix: a cache layer (B, S, Hkv, D)
-  const __nv_bfloat16* v;
+template <typename T = __nv_bfloat16>
+struct ArgsT {
+  const T* q;              // (B, T, H, D)
+  const T* k;              // (B, T, Hkv, D); kSuffix: a cache layer (B, S, Hkv, D)
+  const T* v;
   const int* mask;         // kKeyValid: kvalid (B, T); kOffset: offsets (B,);
                            // kSuffix: start (1,)
-  __nv_bfloat16* out;      // (B, T, H, D)
+  T* out;                  // (B, T, H, D)
   float* lse;              // (B, H, T), kKeyValid only
   int t_len, n_head, n_kv;
   float scale;
@@ -104,6 +114,7 @@ struct Args {
   const __nv_bfloat16* ks = nullptr;  // KV8: scales (B, S, Hkv)
   const __nv_bfloat16* vs = nullptr;
 };
+using Args = ArgsT<>;
 
 template <int D, bool KV8 = false>
 struct Layout {
@@ -121,17 +132,17 @@ struct Layout {
   static constexpr int SMEM = 1024 + I8_OFF + (KV8 ? 4 * I8_TILE : 0);  // + alignment slack
 };
 
-// O += P V for one 64-key tile: P (64 x 64 bf16) in A fragments, V from the
+// O += P V for one 64-key tile: P (64 x 64, T) in A fragments, V from the
 // MN-major descriptors of its k16 steps
-template <int D>
+template <int D, typename T>
 __device__ __forceinline__ void pv_wgmma(float (&o)[D / 2], const uint32_t (&p)[4][4],
                                          const uint64_t (&dv)[4]) {
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk) {
     if constexpr (D == 128) {
-      wg::wgmma_m64n128k16_rs_tb(o, p[kk], dv[kk]);
+      wg::wgmma_m64n128k16_rs_tb<T>(o, p[kk], dv[kk]);
     } else {
-      wg::wgmma_m64n64k16_rs_tb(o, p[kk], dv[kk]);
+      wg::wgmma_m64n64k16_rs_tb<T>(o, p[kk], dv[kk]);
     }
   }
 }
@@ -150,8 +161,8 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 // rows [row0, row0 + ROWS) of head hx of a (B, seq, Hx, D) tensor into DB
 // stacked 128-byte-swizzled blocks of ROWS rows; rows at or past `limit`
 // (default: seq) read as 0
-template <int D, int ROWS>
-__device__ __forceinline__ void load_tile(uint8_t* dst, const __nv_bfloat16* src,
+template <int D, int ROWS, typename T>
+__device__ __forceinline__ void load_tile(uint8_t* dst, const T* src,
                                           int b, int row0, int hx, int n_hx,
                                           int seq, int limit = -1) {
   if (limit < 0) limit = seq;
@@ -162,7 +173,7 @@ __device__ __forceinline__ void load_tile(uint8_t* dst, const __nv_bfloat16* src
     const int idx = threadIdx.x + it * THREADS;
     const int r = idx / CH, c = idx % CH, row = row0 + r;
     const bool valid = row < limit;
-    const __nv_bfloat16* s = src + (((size_t)b * seq + row) * n_hx + hx) * D + 8 * c;
+    const T* s = src + (((size_t)b * seq + row) * n_hx + hx) * D + 8 * c;
     wg::cp_async16(dst + (c / 8) * (ROWS * 128) + wg::sw128(r, c % 8),
                    valid ? s : src, valid);
   }
@@ -186,8 +197,8 @@ __device__ __forceinline__ void load_tile_i8(uint8_t* dst, const int8_t* src, in
   }
 }
 
-// KV8: a staged int8 tile into the swizzled bf16 layout of load_tile, exact
-template <int D>
+// KV8: a staged int8 tile into the swizzled T layout of load_tile, exact
+template <int D, typename T>
 __device__ __forceinline__ void convert_tile_i8(uint8_t* dst, const uint8_t* src) {
   constexpr int CH = D / 16;
 #pragma unroll
@@ -198,9 +209,9 @@ __device__ __forceinline__ void convert_tile_i8(uint8_t* dst, const uint8_t* src
     const int8_t* x = reinterpret_cast<const int8_t*>(&raw);
     uint32_t w[8];
 #pragma unroll
-    for (int e = 0; e < 8; ++e) w[e] = pack_bf16((float)x[2 * e], (float)x[2 * e + 1]);
+    for (int e = 0; e < 8; ++e) w[e] = Elem<T>::pack((float)x[2 * e], (float)x[2 * e + 1]);
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {  // bf16 chunk 2c + h: int8 columns 16c + 8h ..
+    for (int h = 0; h < 2; ++h) {  // 16-bit chunk 2c + h: int8 columns 16c + 8h ..
       const int cc = 2 * c + h;
       *reinterpret_cast<uint4*>(dst + (cc / 8) * (BK * 128) + wg::sw128(r, cc % 8)) =
           make_uint4(w[4 * h], w[4 * h + 1], w[4 * h + 2], w[4 * h + 3]);
@@ -208,8 +219,8 @@ __device__ __forceinline__ void convert_tile_i8(uint8_t* dst, const uint8_t* src
   }
 }
 
-template <Mask M, int D, bool KV8 = false>
-__device__ __forceinline__ void attn_fwd_wgmma(const Args& a) {
+template <Mask M, int D, bool KV8 = false, typename T = __nv_bfloat16>
+__device__ __forceinline__ void attn_fwd_wgmma(const ArgsT<T>& a) {
   static_assert(!KV8 || M == Mask::kSuffix, "an int8 cache is a suffix's");
   using L = Layout<D, KV8>;
   constexpr int KS = D / 16;  // k16 steps of S = Q K^T
@@ -281,7 +292,7 @@ __device__ __forceinline__ void attn_fwd_wgmma(const Args& a) {
   for (int i = 0; i < NO; ++i) o[i] = 0.f;
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
   const int row_g = r0 + 16 * warp + g;  // this thread's rows: row_g, row_g + 8
-  // P of the tile before, bf16: the operand of its P V, in flight during
+  // P of the tile before, in T: the operand of its P V, in flight during
   // this tile's softmax
   uint32_t pc[4][4] = {};
 
@@ -310,8 +321,8 @@ __device__ __forceinline__ void attn_fwd_wgmma(const Args& a) {
       // its scales into shared memory; the fence makes the generic stores
       // visible to wgmma's async proxy, the barrier the tile whole
       const uint8_t* stage8 = sm + L::I8_OFF + 2 * (j % 2) * L::I8_TILE;
-      convert_tile_i8<D>(sm + L::K_OFF + st * L::KV_TILE, stage8);
-      convert_tile_i8<D>(sm + L::V_OFF + st * L::KV_TILE, stage8 + L::I8_TILE);
+      convert_tile_i8<D, T>(sm + L::K_OFF + st * L::KV_TILE, stage8);
+      convert_tile_i8<D, T>(sm + L::V_OFF + st * L::KV_TILE, stage8 + L::I8_TILE);
       if (tid < 2 * BK) sc_s[st * 2 * BK + tid] = sc_next;
       asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
       __syncthreads();
@@ -324,7 +335,7 @@ __device__ __forceinline__ void attn_fwd_wgmma(const Args& a) {
     if (j == my_tiles) {  // this warpgroup's last P V
       wg::fence_regs(o);
       wg::wgmma_fence();
-      pv_wgmma<D>(o, pc, dv);
+      pv_wgmma<D, T>(o, pc, dv);
       wg::wgmma_commit();
       wg::wgmma_wait<0>();
       wg::fence_regs(o);
@@ -346,9 +357,9 @@ __device__ __forceinline__ void attn_fwd_wgmma(const Args& a) {
     wg::fence_regs(o);
     wg::wgmma_fence();
 #pragma unroll
-    for (int f = 0; f < KS; ++f) wg::wgmma_m64n64k16_ss(s, dq[f], dk[f], f > 0);
+    for (int f = 0; f < KS; ++f) wg::wgmma_m64n64k16_ss<T>(s, dq[f], dk[f], f > 0);
     wg::wgmma_commit();
-    pv_wgmma<D>(o, pc, dv);
+    pv_wgmma<D, T>(o, pc, dv);
     wg::wgmma_commit();
     wg::wgmma_wait<1>();  // S is retired; P V runs under the softmax
     wg::fence_regs(s);
@@ -402,7 +413,7 @@ __device__ __forceinline__ void attn_fwd_wgmma(const Args& a) {
     // retire P V of tile j - 1, rescale O to this tile's max, and pack P's
     // A fragments: register r of k16 step kk is row (r % 2), keys
     // 16 kk + 8 (r / 2) + 2 tq, +1: accumulators 8 kk + 2 r, +1 (KV8: the
-    // columns scaled by vs)
+    // columns scaled by vs), rounded to T
     wg::wgmma_wait<0>();
     wg::fence_regs(o);
 #pragma unroll
@@ -413,9 +424,9 @@ __device__ __forceinline__ void attn_fwd_wgmma(const Args& a) {
       for (int r = 0; r < 4; ++r) {
         const int i = 8 * kk + 2 * r, jj = 8 * (i / 4) + 2 * tq;
         if constexpr (KV8) {
-          pc[kk][r] = pack_bf16(s[i] * scs[BK + jj], s[i + 1] * scs[BK + jj + 1]);
+          pc[kk][r] = Elem<T>::pack(s[i] * scs[BK + jj], s[i + 1] * scs[BK + jj + 1]);
         } else {
-          pc[kk][r] = pack_bf16(s[i], s[i + 1]);
+          pc[kk][r] = Elem<T>::pack(s[i], s[i + 1]);
         }
       }
   }
@@ -425,13 +436,13 @@ __device__ __forceinline__ void attn_fwd_wgmma(const Args& a) {
     v_descs((n_tiles - 1) % NST, dv);
     wg::fence_regs(o);
     wg::wgmma_fence();
-    pv_wgmma<D>(o, pc, dv);
+    pv_wgmma<D, T>(o, pc, dv);
     wg::wgmma_commit();
     wg::wgmma_wait<0>();
     wg::fence_regs(o);
   }
 
-  // epilogue: l over the quad, O / l in bf16 pairs, lse = m + log(l)
+  // epilogue: l over the quad, O / l in T pairs, lse = m + log(l)
 #pragma unroll
   for (int e = 0; e < 2; ++e) {
     l[e] += __shfl_xor_sync(kFullMask, l[e], 1);
@@ -439,11 +450,11 @@ __device__ __forceinline__ void attn_fwd_wgmma(const Args& a) {
     const int row = row_g + 8 * e;
     if (row >= t_len) continue;
     const float inv = 1.f / l[e];
-    __nv_bfloat16* dst = a.out + (((size_t)b * t_len + row) * a.n_head + h) * D + 2 * tq;
+    T* dst = a.out + (((size_t)b * t_len + row) * a.n_head + h) * D + 2 * tq;
 #pragma unroll
     for (int c = 0; c < D / 8; ++c) {
       const int i = 4 * c + 2 * e;
-      *reinterpret_cast<uint32_t*>(dst + 8 * c) = pack_bf16(o[i] * inv, o[i + 1] * inv);
+      *reinterpret_cast<uint32_t*>(dst + 8 * c) = Elem<T>::pack(o[i] * inv, o[i + 1] * inv);
     }
     if (M == Mask::kKeyValid && tq == 0)
       a.lse[((size_t)b * a.n_head + h) * t_len + row] = m[e] + logf(l[e]);
@@ -452,8 +463,8 @@ __device__ __forceinline__ void attn_fwd_wgmma(const Args& a) {
 
 // sets the kernel's shared memory and launches it on the (H, B, query
 // tiles) grid; returns the CUDA error code
-template <int D, bool KV8 = false, typename Kernel>
-int launch(Kernel kernel, const Args& a, int batch, cudaStream_t stream) {
+template <int D, bool KV8 = false, typename Kernel, typename A>
+int launch(Kernel kernel, const A& a, int batch, cudaStream_t stream) {
   constexpr int smem = Layout<D, KV8>::SMEM;
   const cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);

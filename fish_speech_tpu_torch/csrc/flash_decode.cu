@@ -54,6 +54,16 @@
 // (TMA boxes of int8 rows) and merge by the last block, one launch and no
 // allocation; bf16 q runs on the tensor cores (`decode_kv8_mma_kernel`,
 // int8 -> bf16 in registers), fp32 q on the CUDA cores (`decode_kv8_kernel`).
+//
+// fp16 (the `--half` serving path): `decode_mma_kernel` and
+// `decode_kv8_mma_kernel` are templated on the 16-bit type T (common.cuh
+// `Elem`) and run in fp16 on mma.sync's `.f16` operands, with the bf16
+// forms' split, ring and merge. P (and, under the int8 cache, p * vs) keeps
+// the bf16 forms' two terms, hi = rn_f16(p) and lo = rn_f16(p - hi): 22
+// significant bits where one fp16 term would keep 11, so the plain version
+// models p in fp32 as for bf16 (`ops/flash_decode.py`); a term below
+// fp16's normal range (2^-14) keeps fp16's subnormal steps (2^-24). The
+// int8 cache's scales stay bf16 and the int8 values go to fp16 exactly.
 
 #include <algorithm>
 #include <type_traits>
@@ -426,24 +436,34 @@ __global__ void __launch_bounds__(CW * 32)
 }
 
 // ---------------------------------------------------------------------------
-// bf16: tensor cores (mma.sync m16n8k16, fp32 sums). A warp takes tiles of
+// bf16 or fp16 (T): tensor cores (mma.sync m16n8k16, fp32 sums). A warp takes tiles of
 // 16 positions: S^T = Q K^T with the G heads on M (rows past G are zero),
 // the positions on N and D on K; one max and one rescale per tile; then
 // O += P V with P as the A operand straight from S's registers and V read
 // transposed by ldmatrix. The TPU kernel keeps p in fp32; here p is split
-// into two bf16 terms, hi = rn_bf16(p) and lo = rn_bf16(p - hi), and each
-// takes one mma, so P keeps 16 significant bits (|p - hi - lo| <= 2^-17 p)
-// where one bf16 term would keep 8. K and V rows come from the ring in
+// into two T terms, hi = rn(p) and lo = rn(p - hi), and each takes one
+// mma, so P keeps 16 significant bits in bf16 (|p - hi - lo| <= 2^-17 p)
+// where one bf16 term would keep 8, and 22 in fp16. K and V rows come from the ring in
 // `tswz` order, so ldmatrix reads eight rows without bank conflicts.
 // ---------------------------------------------------------------------------
-__device__ __forceinline__ void mma_bf16(float (&d)[4], uint32_t a0, uint32_t a1,
-                                         uint32_t a2, uint32_t a3, uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+// d += a b, m16n8k16 with fp32 sums, the operands in T (bf16 or fp16)
+template <typename T>
+__device__ __forceinline__ void mma16(float (&d)[4], uint32_t a0, uint32_t a1,
+                                      uint32_t a2, uint32_t a3, uint32_t b0,
+                                      uint32_t b1) {
+  if constexpr (fs::Elem<T>::kF16) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+  } else {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+  }
 }
 
 __device__ __forceinline__ void ldsm4(uint32_t (&r)[4], const void* p) {
@@ -465,17 +485,17 @@ __device__ __forceinline__ int tswz(int j, int c) {
   return (c >> 3) * SP * 64 + j * 64 + (((c & 7) ^ (j & 7)) << 3);
 }
 
-template <int D>
+template <int D, typename T>
 __global__ void __launch_bounds__(TW * 32)
     decode_mma_kernel(const __grid_constant__ CUtensorMap kmap,
                       const __grid_constant__ CUtensorMap vmap,
-                      const __nv_bfloat16* __restrict__ q,
+                      const T* __restrict__ q,
                       const int* __restrict__ lengths,
                       const int* __restrict__ starts,
-                      __nv_bfloat16* __restrict__ out, float* __restrict__ work,
+                      T* __restrict__ out, float* __restrict__ work,
                       int* __restrict__ counters, int s_len, int n_kv,
                       int n_group, float scale_log2) {
-  using T = __nv_bfloat16;
+  using E = fs::Elem<T>;
   constexpr int SP = stage_positions<T, D>();
   constexpr int KS = D / 16;  // k steps of S, n tiles of O
   constexpr int NBOX = D / 64, BOX = SP * 64;  // boxes per K (or V) stage
@@ -547,8 +567,8 @@ __global__ void __launch_bounds__(TW * 32)
         uint32_t kf[4];
         const int j = t * 16 + (mi >> 1) * 8 + mr;
         ldsm4(kf, ks + tswz<SP>(j, 2 * kk + (mi & 1)));
-        mma_bf16(s[0], qa[kk][0], 0u, qa[kk][1], 0u, kf[0], kf[1]);
-        mma_bf16(s[1], qa[kk][0], 0u, qa[kk][1], 0u, kf[2], kf[3]);
+        mma16<T>(s[0], qa[kk][0], 0u, qa[kk][1], 0u, kf[0], kf[1]);
+        mma16<T>(s[1], qa[kk][0], 0u, qa[kk][1], 0u, kf[2], kf[3]);
       }
       // s[n][0..1]: head g, positions pb + 8 n + 2 qd, + 1
       float mt = -INFINITY;
@@ -572,17 +592,15 @@ __global__ void __launch_bounds__(TW * 32)
         acc[n][1] *= a;
       }
       // P as the A operand (positions 2qd.. and 8 + 2qd..), the fp32 p
-      // carried as hi + lo, two bf16 terms (16 significant bits)
+      // carried as hi + lo, two T terms (16 significant bits in bf16, 22
+      // in fp16)
       uint32_t phi[2], plo[2];
 #pragma unroll
       for (int n = 0; n < 2; ++n) {
         const float p0 = exp2f(s[n][0] - m_new), p1 = exp2f(s[n][1] - m_new);
         l += p0 + p1;
-        const __nv_bfloat162 hi = __floats2bfloat162_rn(p0, p1);
-        const __nv_bfloat162 lo = __floats2bfloat162_rn(
-            p0 - __low2float(hi), p1 - __high2float(hi));
-        phi[n] = *reinterpret_cast<const uint32_t*>(&hi);
-        plo[n] = *reinterpret_cast<const uint32_t*>(&lo);
+        phi[n] = E::pack(p0, p1);
+        plo[n] = E::pack(p0 - E::lo(phi[n]), p1 - E::hi(phi[n]));
       }
       // V rows past the slice may hold anything (even NaN): their B values
       // are zeroed, as 0 * NaN would not be 0. mv[h]: positions
@@ -601,10 +619,10 @@ __global__ void __launch_bounds__(TW * 32)
         const int j = t * 16 + (mi & 1) * 8 + mr;
         ldsm4_t(vf, vs + tswz<SP>(j, 2 * pp + (mi >> 1)));
         vf[0] &= mv[0]; vf[1] &= mv[1]; vf[2] &= mv[0]; vf[3] &= mv[1];
-        mma_bf16(acc[2 * pp], phi[0], 0u, phi[1], 0u, vf[0], vf[1]);
-        mma_bf16(acc[2 * pp + 1], phi[0], 0u, phi[1], 0u, vf[2], vf[3]);
-        mma_bf16(acc[2 * pp], plo[0], 0u, plo[1], 0u, vf[0], vf[1]);
-        mma_bf16(acc[2 * pp + 1], plo[0], 0u, plo[1], 0u, vf[2], vf[3]);
+        mma16<T>(acc[2 * pp], phi[0], 0u, phi[1], 0u, vf[0], vf[1]);
+        mma16<T>(acc[2 * pp + 1], phi[0], 0u, phi[1], 0u, vf[2], vf[3]);
+        mma16<T>(acc[2 * pp], plo[0], 0u, plo[1], 0u, vf[0], vf[1]);
+        mma16<T>(acc[2 * pp + 1], plo[0], 0u, plo[1], 0u, vf[2], vf[3]);
       }
     }
     __syncthreads();  // the stage is read: refill it
@@ -632,19 +650,21 @@ __global__ void __launch_bounds__(TW * 32)
                                counters + bh, n_group, first, n_active);
 }
 
-// The TMA map of one layer of the cache, (B, S, Hkv, D) bf16 read as
-// D x Hkv x (B * S) in boxes of 64 dims x 1 head x SP positions (encoded
-// once and kept by `fs::tma::encode`).
-template <int D>
+// The TMA map of one layer of the cache, (B, S, Hkv, D) bf16 or fp16 (T)
+// read as D x Hkv x (B * S) in boxes of 64 dims x 1 head x SP positions
+// (encoded once and kept by `fs::tma::encode`).
+template <typename T, int D>
 int cache_map(CUtensorMap* map, const void* base, int batch, int s_len,
               int n_kv) {
-  constexpr int SP = stage_positions<__nv_bfloat16, D>();
+  constexpr int SP = stage_positions<T, D>();
   const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)n_kv,
                               (cuuint64_t)batch * s_len};
   const cuuint64_t strides[2] = {(cuuint64_t)D * 2, (cuuint64_t)n_kv * D * 2};
   const cuuint32_t box[3] = {64, 1, SP};
-  return fs::tma::encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, base, dims,
-                         strides, box);
+  return fs::tma::encode(map,
+                         fs::Elem<T>::kF16 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                                           : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                         3, base, dims, strides, box);
 }
 
 template <typename T, int D>
@@ -654,7 +674,7 @@ int launch_decode(const void* q, const void* k, const void* v,
                   int n_kv, int n_group, int n_split, float scale,
                   cudaStream_t stream) {
   constexpr float kLog2e = 1.4426950408889634f;
-  constexpr bool kTensorCores = std::is_same<T, __nv_bfloat16>::value;
+  constexpr bool kTensorCores = !std::is_same<T, float>::value;
   // the ring, or the warps' states that take its place at the end
   const int warps = kTensorCores ? TW : CW, ng = kTensorCores || n_group > 4 ? MAXG : 4;
   const size_t smem =
@@ -672,7 +692,7 @@ int launch_decode(const void* q, const void* k, const void* v,
     constexpr int most = 1024 + STAGES * STAGE_BYTES;
     cudaError_t e;
     if constexpr (kTensorCores)
-      e = cudaFuncSetAttribute(decode_mma_kernel<D>,
+      e = cudaFuncSetAttribute(decode_mma_kernel<D, T>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, most);
     else
       e = cudaFuncSetAttribute(which == 1 ? decode_kernel<T, D, 4> : decode_kernel<T, D, 8>,
@@ -682,10 +702,10 @@ int launch_decode(const void* q, const void* k, const void* v,
   }
   if constexpr (kTensorCores) {
     CUtensorMap kmap, vmap;
-    int rc = cache_map<D>(&kmap, k, batch, s_len, n_kv);
-    if (rc == 0) rc = cache_map<D>(&vmap, v, batch, s_len, n_kv);
+    int rc = cache_map<T, D>(&kmap, k, batch, s_len, n_kv);
+    if (rc == 0) rc = cache_map<T, D>(&vmap, v, batch, s_len, n_kv);
     if (rc != 0) return rc;
-    decode_mma_kernel<D><<<grid, TW * 32, smem, stream>>>(
+    decode_mma_kernel<D, T><<<grid, TW * 32, smem, stream>>>(
         kmap, vmap, qt, lengths, starts, ot, work, counters, s_len, n_kv,
         n_group, scale * kLog2e);
   } else if (n_group <= 4) {
@@ -710,9 +730,15 @@ int launch_decode(const void* q, const void* k, const void* v,
 // (weights * vs).astype(q.dtype) (ROADMAP §3 records the choice)
 constexpr int KV8_PV_TERMS = 2;
 
-// two exact fp32 integers (|v| <= 128: their low 16 bits are 0) as bf16x2
-__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
-  return __byte_perm(__float_as_uint(lo), __float_as_uint(hi), 0x7632);
+// two exact fp32 integers (|v| <= 128) as a pair of T, exact: in bf16 their
+// top halves (the low 16 bits of such an fp32 are 0), in fp16 by
+// conversion (fp16 holds every integer up to 2048)
+template <typename T>
+__device__ __forceinline__ uint32_t pack_int2(float lo, float hi) {
+  if constexpr (fs::Elem<T>::kF16)
+    return fs::Elem<T>::pack(lo, hi);
+  else
+    return __byte_perm(__float_as_uint(lo), __float_as_uint(hi), 0x7632);
 }
 
 // byte offset of the 16-byte chunk c of row r of a K or V stage: rows of D
@@ -724,9 +750,9 @@ __device__ __forceinline__ int kv8_off(int r, int c) {
 }
 
 // ---------------------------------------------------------------------------
-// bf16 q: tensor cores (mma.sync m16n8k16, fp32 sums) on the TMA ring of
-// decode_mma_kernel, one warp per tile of 16 positions. Each int8 value
-// becomes bf16 in registers (exact: |k| <= 127). The positions take the
+// bf16 or fp16 q (T): tensor cores (mma.sync m16n8k16, fp32 sums) on the
+// TMA ring of decode_mma_kernel, one warp per tile of 16 positions. Each
+// int8 value becomes T in registers (exact: |k| <= 127). The positions take the
 // mma's M (all 16 rows used) and the G <= 8 heads its N:
 //   S = K Q^T (16 positions x 8 heads), one mma per 16 d. The dot product's
 //   order over d is free, so thread qd of a row group reads the D/4
@@ -749,19 +775,19 @@ __device__ __forceinline__ uint32_t transpose8x8(uint32_t x) {
   return y;
 }
 
-template <int D>
+template <int D, typename T>
 __global__ void __launch_bounds__(TW * 32)
     decode_kv8_mma_kernel(const __grid_constant__ CUtensorMap kmap,
                           const __grid_constant__ CUtensorMap vmap,
-                          const __nv_bfloat16* __restrict__ q,
+                          const T* __restrict__ q,
                           const __nv_bfloat16* __restrict__ ks,
                           const __nv_bfloat16* __restrict__ vs,
                           const int* __restrict__ lengths,
                           const int* __restrict__ starts,
-                          __nv_bfloat16* __restrict__ out,
+                          T* __restrict__ out,
                           float* __restrict__ work, int* __restrict__ counters,
                           int s_len, int n_kv, int n_group, float scale_log2) {
-  using T = __nv_bfloat16;
+  using E = fs::Elem<T>;
   constexpr int SP = stage_positions<int8_t, D>();
   constexpr int SPT = SP / (TW * 32);  // scale positions per thread
   constexpr int KS = D / 16;   // k steps of S
@@ -798,8 +824,8 @@ __global__ void __launch_bounds__(TW * 32)
     for (int st = 0; st < n_stages && st < n_sub; ++st) issue(st, st);
   }
   // a stage's scales: ks * scale_log2 and vs of its positions, 0 past end
-  const T* ks_row = ks + (size_t)b * s_len * n_kv + hk;
-  const T* vs_row = vs + (size_t)b * s_len * n_kv + hk;
+  const __nv_bfloat16* ks_row = ks + (size_t)b * s_len * n_kv + hk;
+  const __nv_bfloat16* vs_row = vs + (size_t)b * s_len * n_kv + hk;
   float nk[SPT], nv[SPT];
   auto fetch = [&](int sub) {
 #pragma unroll
@@ -860,11 +886,11 @@ __global__ void __launch_bounds__(TW * 32)
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
           const uint32_t x0 = w0[i] ^ 0x80808080u, x1 = w1[i] ^ 0x80808080u;
-          mma_bf16(sc,
-                   pack_bf16x2(fs::i8_to_f32<0>(x0), fs::i8_to_f32<1>(x0)),
-                   pack_bf16x2(fs::i8_to_f32<0>(x1), fs::i8_to_f32<1>(x1)),
-                   pack_bf16x2(fs::i8_to_f32<2>(x0), fs::i8_to_f32<3>(x0)),
-                   pack_bf16x2(fs::i8_to_f32<2>(x1), fs::i8_to_f32<3>(x1)),
+          mma16<T>(sc,
+                   pack_int2<T>(fs::i8_to_f32<0>(x0), fs::i8_to_f32<1>(x0)),
+                   pack_int2<T>(fs::i8_to_f32<0>(x1), fs::i8_to_f32<1>(x1)),
+                   pack_int2<T>(fs::i8_to_f32<2>(x0), fs::i8_to_f32<3>(x0)),
+                   pack_int2<T>(fs::i8_to_f32<2>(x1), fs::i8_to_f32<3>(x1)),
                    qb[4 * c + i][0], qb[4 * c + i][1]);
         }
       }
@@ -895,21 +921,19 @@ __global__ void __launch_bounds__(TW * 32)
         p[2 + e] = exp2f(sc[2 + e] - m_new);
         l[e] += p[e] + p[2 + e];
       }
-      // B of O^T: p * vs as hi (+ lo) bf16 terms, positions x heads, rows
+      // B of O^T: p * vs as hi (+ lo) T terms, positions x heads, rows
       // r0 / r1 of S transposed to heads x positions
       const float w[4] = {p[0] * sv[r0], p[1] * sv[r0], p[2] * sv[r1], p[3] * sv[r1]};
-      const __nv_bfloat162 h0 = __floats2bfloat162_rn(w[0], w[1]);
-      const __nv_bfloat162 h1 = __floats2bfloat162_rn(w[2], w[3]);
-      const __nv_bfloat162 o0 = __floats2bfloat162_rn(w[0] - __low2float(h0),
-                                                      w[1] - __high2float(h0));
-      const __nv_bfloat162 o1 = __floats2bfloat162_rn(w[2] - __low2float(h1),
-                                                      w[3] - __high2float(h1));
-      const uint32_t bhi0 = transpose8x8(*reinterpret_cast<const uint32_t*>(&h0));
-      const uint32_t bhi1 = transpose8x8(*reinterpret_cast<const uint32_t*>(&h1));
+      const uint32_t h0 = E::pack(w[0], w[1]);
+      const uint32_t h1 = E::pack(w[2], w[3]);
+      const uint32_t o0 = E::pack(w[0] - E::lo(h0), w[1] - E::hi(h0));
+      const uint32_t o1 = E::pack(w[2] - E::lo(h1), w[3] - E::hi(h1));
+      const uint32_t bhi0 = transpose8x8(h0);
+      const uint32_t bhi1 = transpose8x8(h1);
       uint32_t blo0 = 0u, blo1 = 0u;
       if (KV8_PV_TERMS == 2) {
-        blo0 = transpose8x8(*reinterpret_cast<const uint32_t*>(&o0));
-        blo1 = transpose8x8(*reinterpret_cast<const uint32_t*>(&o1));
+        blo0 = transpose8x8(o0);
+        blo1 = transpose8x8(o1);
       }
       // V rows t 16 + {2 qd, 2 qd + 1, 2 qd + 8, 2 qd + 9}, bytes
       // [g D/8, (g + 1) D/8) of each; rows past the slice count as 0
@@ -941,13 +965,13 @@ __global__ void __launch_bounds__(TW * 32)
         }
 #pragma unroll
         for (int mm = 0; mm < 2; ++mm) {
-          const uint32_t a0 = pack_bf16x2(f[0][2 * mm], f[1][2 * mm]);
-          const uint32_t a1 = pack_bf16x2(f[0][2 * mm + 1], f[1][2 * mm + 1]);
-          const uint32_t a2 = pack_bf16x2(f[2][2 * mm], f[3][2 * mm]);
-          const uint32_t a3 = pack_bf16x2(f[2][2 * mm + 1], f[3][2 * mm + 1]);
-          mma_bf16(acc[2 * i + mm], a0, a1, a2, a3, bhi0, bhi1);
+          const uint32_t a0 = pack_int2<T>(f[0][2 * mm], f[1][2 * mm]);
+          const uint32_t a1 = pack_int2<T>(f[0][2 * mm + 1], f[1][2 * mm + 1]);
+          const uint32_t a2 = pack_int2<T>(f[2][2 * mm], f[3][2 * mm]);
+          const uint32_t a3 = pack_int2<T>(f[2][2 * mm + 1], f[3][2 * mm + 1]);
+          mma16<T>(acc[2 * i + mm], a0, a1, a2, a3, bhi0, bhi1);
           if (KV8_PV_TERMS == 2)
-            mma_bf16(acc[2 * i + mm], a0, a1, a2, a3, blo0, blo1);
+            mma16<T>(acc[2 * i + mm], a0, a1, a2, a3, blo0, blo1);
         }
       }
     }
@@ -1098,7 +1122,7 @@ int launch_decode_kv8(const void* q, const void* k, const void* ks,
   const dim3 grid(n_kv, batch, n_split);
   const auto* kst = static_cast<const __nv_bfloat16*>(ks);
   const auto* vst = static_cast<const __nv_bfloat16*>(vs);
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+  if constexpr (!std::is_same<T, float>::value) {
     // the ring, or the warps' states that take its place at the end
     const size_t smem =
         1024 + std::max((size_t)ring_stages<int8_t, D>(s_len, n_split) * STAGE_BYTES,
@@ -1106,7 +1130,7 @@ int launch_decode_kv8(const void* q, const void* k, const void* ks,
     static bool sized = false;  // one attribute call: up to STAGES stages
     if (!sized) {
       const cudaError_t e = cudaFuncSetAttribute(
-          decode_kv8_mma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          decode_kv8_mma_kernel<D, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
           1024 + STAGES * STAGE_BYTES);
       if (e != cudaSuccess) return (int)e;
       sized = true;
@@ -1115,7 +1139,7 @@ int launch_decode_kv8(const void* q, const void* k, const void* ks,
     int rc = kv8_map<D>(&kmap, k, batch, s_len, n_kv);
     if (rc == 0) rc = kv8_map<D>(&vmap, v, batch, s_len, n_kv);
     if (rc != 0) return rc;
-    decode_kv8_mma_kernel<D><<<grid, TW * 32, smem, stream>>>(
+    decode_kv8_mma_kernel<D, T><<<grid, TW * 32, smem, stream>>>(
         kmap, vmap, static_cast<const T*>(q), kst, vst, lengths, starts,
         static_cast<T*>(out), work, counters, s_len, n_kv, n_group,
         scale * kLog2e);
@@ -1157,6 +1181,8 @@ extern "C" int fs_flash_decode(const void* q, const void* k_layer,
                              batch, s_len, n_kv, n_group, n_split, scale, s)
   if (dtype == fs::kBFloat16 && head_dim == 128) FS_DEC(__nv_bfloat16, 128);
   if (dtype == fs::kBFloat16 && head_dim == 64) FS_DEC(__nv_bfloat16, 64);
+  if (dtype == fs::kFloat16 && head_dim == 128) FS_DEC(__half, 128);
+  if (dtype == fs::kFloat16 && head_dim == 64) FS_DEC(__half, 64);
   if (dtype == fs::kFloat32 && head_dim == 128) FS_DEC(float, 128);
   if (dtype == fs::kFloat32 && head_dim == 64) FS_DEC(float, 64);
 #undef FS_DEC
@@ -1189,6 +1215,8 @@ extern "C" int fs_flash_decode_kv8(const void* q, const void* k_layer,
                                  n_kv, n_group, n_split, scale, s)
   if (dtype == fs::kBFloat16 && head_dim == 128) FS_KV8(__nv_bfloat16, 128);
   if (dtype == fs::kBFloat16 && head_dim == 64) FS_KV8(__nv_bfloat16, 64);
+  if (dtype == fs::kFloat16 && head_dim == 128) FS_KV8(__half, 128);
+  if (dtype == fs::kFloat16 && head_dim == 64) FS_KV8(__half, 64);
   if (dtype == fs::kFloat32 && head_dim == 128) FS_KV8(float, 128);
   if (dtype == fs::kFloat32 && head_dim == 64) FS_KV8(float, 64);
 #undef FS_KV8

@@ -14,11 +14,13 @@
 // BK keys and keeps an online (running max / running sum) softmax in float32
 // per query row. Scores never reach device memory.
 //
-// Two routes, one per dtype (fs_flash_prefill dispatches on it; the
+// Three routes, one per dtype (fs_flash_prefill dispatches on it; the
 // wrapper's `ops/flash_prefill.py:_route` names the route it counts):
 //  * "wgmma", bf16 (every served model): `prefill_wgmma_kernel`, the
 //    tensor-core mainloop of attn_wgmma.cuh (whose note gives its design)
 //    with the offset mask;
+//  * "wgmma_f16", fp16 (the `--half` serving path): the same kernel
+//    instantiated for __half (wgmma's `.f16` operands, P rounded to fp16);
 //  * "cuda_cores", fp32 (the small fp32 reference models):
 //    `prefill_kernel`, one block of 256 threads per (query tile of BQ=64
 //    rows, head, batch row), products on the CUDA cores in float32 from
@@ -30,10 +32,10 @@
 // prefill_suffix): query i sits at position start + i, with start read
 // from device memory, K/V come from one layer of the stacked cache (row
 // stride S), key j is visible iff j <= start + i, and only keys
-// [0, start + T) are read. Four entry points, {bf16, fp32} x {bf16 (or
-// fp32) cache, int8 cache}: `suffix_wgmma_kernel<D, KV8>` (the
-// tensor-core mainloop, attn_wgmma.cuh) and `prefill_kernel` with SUFFIX
-// set. Under the int8 cache K/V go to float exactly, ks scales the score
+// [0, start + T) are read. Six forms, {bf16, fp16, fp32} x {a cache of
+// q's dtype, int8 cache}: `suffix_wgmma_kernel<D, KV8, T>` (the
+// tensor-core mainloop, attn_wgmma.cuh, T bf16 or fp16; the int8 cache's
+// scales are bf16 under either) and `prefill_kernel` with SUFFIX set. Under the int8 cache K/V go to float exactly, ks scales the score
 // columns and vs the probability columns before P V, l summing the
 // unscaled p (fish_speech_tpu/ops/attention.py:gqa_attention_kv8). What
 // bounds the suffix on the H100: 4 * D operations per visible (query, key)
@@ -262,16 +264,73 @@ int launch_prefill(const void* q, const void* k, const void* v, const void* ksc,
   return (int)cudaGetLastError();
 }
 
-template <int D>
+template <int D, typename T>
 __global__ void __launch_bounds__(fs::attn::THREADS, 1)
-    prefill_wgmma_kernel(const fs::attn::Args a) {
-  fs::attn::attn_fwd_wgmma<fs::attn::Mask::kOffset, D>(a);
+    prefill_wgmma_kernel(const fs::attn::ArgsT<T> a) {
+  fs::attn::attn_fwd_wgmma<fs::attn::Mask::kOffset, D, false, T>(a);
 }
 
-template <int D, bool KV8>
+template <int D, bool KV8, typename T>
 __global__ void __launch_bounds__(fs::attn::THREADS, 1)
-    suffix_wgmma_kernel(const fs::attn::Args a) {
-  fs::attn::attn_fwd_wgmma<fs::attn::Mask::kSuffix, D, KV8>(a);
+    suffix_wgmma_kernel(const fs::attn::ArgsT<T> a) {
+  fs::attn::attn_fwd_wgmma<fs::attn::Mask::kSuffix, D, KV8, T>(a);
+}
+
+// the tensor-core prefill ("wgmma" in bf16, "wgmma_f16" in fp16) at head dim
+// 64 or 128
+template <typename T>
+int launch_prefill_wgmma(const void* q, const void* k, const void* v,
+                         const int* off, void* out, int batch, int t_len,
+                         int n_head, int n_kv, int head_dim, float scale,
+                         cudaStream_t s) {
+  fs::attn::ArgsT<T> a;
+  a.q = static_cast<const T*>(q);
+  a.k = static_cast<const T*>(k);
+  a.v = static_cast<const T*>(v);
+  a.mask = off;
+  a.out = static_cast<T*>(out);
+  a.lse = nullptr;
+  a.t_len = t_len;
+  a.n_head = n_head;
+  a.n_kv = n_kv;
+  a.scale = scale;
+  if (head_dim == 128)
+    return fs::attn::launch<128>(prefill_wgmma_kernel<128, T>, a, batch, s);
+  if (head_dim == 64)
+    return fs::attn::launch<64>(prefill_wgmma_kernel<64, T>, a, batch, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// the tensor-core suffix over a cache of T or an int8 cache (kv8)
+template <typename T>
+int launch_suffix_wgmma(const void* q, const void* k, const void* v,
+                        const void* ks, const void* vs, const int* st,
+                        void* out, int batch, int t_len, int n_head, int n_kv,
+                        int head_dim, int seq, bool kv8, float scale,
+                        cudaStream_t s) {
+  fs::attn::ArgsT<T> a;
+  a.q = static_cast<const T*>(q);
+  a.k = static_cast<const T*>(k);
+  a.v = static_cast<const T*>(v);
+  a.k8 = static_cast<const int8_t*>(k);
+  a.v8 = static_cast<const int8_t*>(v);
+  a.ks = static_cast<const __nv_bfloat16*>(ks);
+  a.vs = static_cast<const __nv_bfloat16*>(vs);
+  a.mask = st;
+  a.out = static_cast<T*>(out);
+  a.lse = nullptr;
+  a.t_len = t_len;
+  a.n_head = n_head;
+  a.n_kv = n_kv;
+  a.scale = scale;
+  a.kv_seq = seq;
+  if (head_dim == 128)
+    return kv8 ? fs::attn::launch<128, true>(suffix_wgmma_kernel<128, true, T>, a, batch, s)
+               : fs::attn::launch<128>(suffix_wgmma_kernel<128, false, T>, a, batch, s);
+  if (head_dim == 64)
+    return kv8 ? fs::attn::launch<64, true>(suffix_wgmma_kernel<64, true, T>, a, batch, s)
+               : fs::attn::launch<64>(suffix_wgmma_kernel<64, false, T>, a, batch, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 // the fp32 suffix route at head dim D
@@ -298,23 +357,12 @@ extern "C" int fs_flash_prefill(const void* q, const void* k, const void* v,
     return (int)cudaErrorInvalidValue;
   const int* off = static_cast<const int*>(offsets);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == fs::kBFloat16) {  // "wgmma"
-    fs::attn::Args a;
-    a.q = static_cast<const __nv_bfloat16*>(q);
-    a.k = static_cast<const __nv_bfloat16*>(k);
-    a.v = static_cast<const __nv_bfloat16*>(v);
-    a.mask = off;
-    a.out = static_cast<__nv_bfloat16*>(out);
-    a.lse = nullptr;
-    a.t_len = t_len;
-    a.n_head = n_head;
-    a.n_kv = n_kv;
-    a.scale = scale;
-    if (head_dim == 128)
-      return fs::attn::launch<128>(prefill_wgmma_kernel<128>, a, batch, s);
-    if (head_dim == 64)
-      return fs::attn::launch<64>(prefill_wgmma_kernel<64>, a, batch, s);
-  }
+  if (dtype == fs::kBFloat16)  // "wgmma"
+    return launch_prefill_wgmma<__nv_bfloat16>(q, k, v, off, out, batch, t_len,
+                                               n_head, n_kv, head_dim, scale, s);
+  if (dtype == fs::kFloat16)  // "wgmma_f16"
+    return launch_prefill_wgmma<__half>(q, k, v, off, out, batch, t_len, n_head,
+                                        n_kv, head_dim, scale, s);
   if (dtype == fs::kFloat32 && head_dim == 128)  // "cuda_cores"
     return launch_prefill<float, float, 128, false, false>(
         q, k, v, nullptr, nullptr, off, out, batch, t_len, t_len, n_head, n_kv,
@@ -326,8 +374,8 @@ extern "C" int fs_flash_prefill(const void* q, const void* k, const void* v,
   return (int)cudaErrorInvalidValue;
 }
 
-// q (B, T, H, D); k/v one layer of the stacked cache, (B, seq, Hkv, D) of
-// q's dtype or int8 (kv8, with ks/vs (B, seq, Hkv) bf16); start (1,) int32
+// q (B, T, H, D) bf16, fp16 or fp32; k/v one layer of the stacked cache,
+// (B, seq, Hkv, D) of q's dtype or int8 (kv8, with ks/vs (B, seq, Hkv) bf16); start (1,) int32
 // on the device; out (B, T, H, D). The caller keeps start + T <= seq.
 extern "C" int fs_flash_suffix(const void* q, const void* k, const void* v,
                                const void* ks, const void* vs, const void* start,
@@ -339,30 +387,14 @@ extern "C" int fs_flash_suffix(const void* q, const void* k, const void* v,
   if (kv8 && (ks == nullptr || vs == nullptr)) return (int)cudaErrorInvalidValue;
   const int* st = static_cast<const int*>(start);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == fs::kBFloat16) {  // "suffix_wgmma", "suffix_kv8_wgmma"
-    fs::attn::Args a;
-    a.q = static_cast<const __nv_bfloat16*>(q);
-    a.k = static_cast<const __nv_bfloat16*>(k);
-    a.v = static_cast<const __nv_bfloat16*>(v);
-    a.k8 = static_cast<const int8_t*>(k);
-    a.v8 = static_cast<const int8_t*>(v);
-    a.ks = static_cast<const __nv_bfloat16*>(ks);
-    a.vs = static_cast<const __nv_bfloat16*>(vs);
-    a.mask = st;
-    a.out = static_cast<__nv_bfloat16*>(out);
-    a.lse = nullptr;
-    a.t_len = t_len;
-    a.n_head = n_head;
-    a.n_kv = n_kv;
-    a.scale = scale;
-    a.kv_seq = seq;
-    if (head_dim == 128)
-      return kv8 ? fs::attn::launch<128, true>(suffix_wgmma_kernel<128, true>, a, batch, s)
-                 : fs::attn::launch<128>(suffix_wgmma_kernel<128, false>, a, batch, s);
-    if (head_dim == 64)
-      return kv8 ? fs::attn::launch<64, true>(suffix_wgmma_kernel<64, true>, a, batch, s)
-                 : fs::attn::launch<64>(suffix_wgmma_kernel<64, false>, a, batch, s);
-  }
+  if (dtype == fs::kBFloat16)  // "suffix_wgmma", "suffix_kv8_wgmma"
+    return launch_suffix_wgmma<__nv_bfloat16>(q, k, v, ks, vs, st, out, batch,
+                                              t_len, n_head, n_kv, head_dim, seq,
+                                              kv8 != 0, scale, s);
+  if (dtype == fs::kFloat16)  // "suffix_wgmma_f16", "suffix_kv8_wgmma_f16"
+    return launch_suffix_wgmma<__half>(q, k, v, ks, vs, st, out, batch, t_len,
+                                       n_head, n_kv, head_dim, seq, kv8 != 0,
+                                       scale, s);
   if (dtype == fs::kFloat32 && head_dim == 128)  // "suffix_cuda_cores", "suffix_kv8_..."
     return launch_suffix_fp32<128>(q, k, v, ks, vs, st, out, batch, t_len, seq,
                                    n_head, n_kv, kv8 != 0, scale, s);

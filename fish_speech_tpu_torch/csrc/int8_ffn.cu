@@ -59,6 +59,11 @@
 // barrier's word come from `ops/_kernels.py:scratch`; the word needs no
 // reset, so a captured graph replays.
 //
+// fp16 x (the `--half` serving path, route "mma_f16"): the same kernel
+// instantiated for __half (x, g and y in fp16, each int8 -> fp16 exactly,
+// mma.sync's `.f16` operands): g = rn_f16(silu(u1) u3) and y = rn_f16((g @
+// q2) s2), the sums in fp32 as in bf16.
+//
 // fp32 x (the small fp32 models): the same two phases on the CUDA cores, a
 // thread per output column (phase A: its column of u1 and of u3), over the
 // whole of D and of I (one run each), x and g staged by 64-row chunks.
@@ -79,7 +84,7 @@ constexpr int BOX_BYTES = STAGE_ROWS * BOX;
 constexpr int STAGE_BYTES = 2 * BOX_BYTES;     // two boxes a stage
 constexpr int STAGES = 4;                      // stages in flight
 constexpr int ITEM_COLS = 2 * BOX;             // an item's sums: its two boxes' columns
-constexpr int XROW = STAGE_ROWS + 8;           // a stage's row of x, bf16: 4 words mod 32
+constexpr int XROW = STAGE_ROWS + 8;           // a stage's row of x, 16-bit: 4 words mod 32
 constexpr int RED_ROW = ITEM_COLS + 1;         // a row of the item's sums, fp32
 constexpr int RED_FLOATS = MAX_ROWS * RED_ROW;
 static_assert(RED_FLOATS >= 4 * 64 * 32, "the warps' fragments fit the sums' region");
@@ -123,8 +128,8 @@ constexpr size_t mma_smem(int batch) {
 // Dynamic shared memory: 1 KB of alignment slack | the W ring [STAGES][2
 // boxes][STAGE_ROWS rows][128 bytes], at least RING_BYTES, which after an
 // item's main loop holds the item's sums | the x ring [STAGES][B][XROW]
-// bf16.
-template <int NT>
+// T (x's type, bf16 or fp16).
+template <int NT, typename T>
 __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
     int8_ffn_mma_kernel(const __grid_constant__ CUtensorMap m1,
                         const __grid_constant__ CUtensorMap m3,
@@ -133,7 +138,7 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
   __shared__ __align__(8) uint64_t full[STAGES];
   // the swizzled boxes want 1024-byte aligned stages
   uint8_t* ring = smem_raw + ((1024 - fs::wg::smem_u32(smem_raw) % 1024) % 1024);
-  __nv_bfloat16* xring = reinterpret_cast<__nv_bfloat16*>(ring + RING_BYTES);
+  T* xring = reinterpret_cast<T*>(ring + RING_BYTES);
   float* red = reinterpret_cast<float*>(ring);  // the sums, once every stage is read
   const int batch = a.batch;
 
@@ -157,7 +162,7 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
   // of x: rows [r0, r0 + len) of box 0 (map ma at column c0) and box 1 (mb
   // at c1) against the same elements of every row of xs (rows ldx apart)
   auto item = [&](const CUtensorMap* ma, int c0, const CUtensorMap* mb, int c1,
-                  const __nv_bfloat16* xs, int ldx, int r0, int len) {
+                  const T* xs, int ldx, int r0, int len) {
     const int n_stage = (len + STAGE_ROWS - 1) / STAGE_ROWS;
     // stage st into its slot: both boxes, and the stage's elements of
     // every row of xs (0 past the run: they meet the next run's rows or
@@ -170,7 +175,7 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
         fs::tma::load_2d(dst, ma, &full[slot], c0, r0 + k0);
         fs::tma::load_2d(dst + BOX_BYTES, mb, &full[slot], c1, r0 + k0);
       }
-      __nv_bfloat16* xd = xring + slot * batch * XROW;
+      T* xd = xring + slot * batch * XROW;
       for (int idx = threadIdx.x; idx < batch * (STAGE_ROWS / 8); idx += THREADS) {
         const int b = idx / (STAGE_ROWS / 8), k = 8 * (idx % (STAGE_ROWS / 8));
         const bool in = k0 + k < len;
@@ -193,7 +198,7 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
       const int slot = at % STAGES;
       fs::tma::bar_wait_or_trap(&full[slot], (at / STAGES) & 1);
       const uint8_t* bx = ring + slot * STAGE_BYTES + box * BOX_BYTES;
-      const __nv_bfloat16* xst = xring + slot * batch * XROW;
+      const T* xst = xring + slot * batch * XROW;
 #pragma unroll
       for (int s = 0; s < KSTEPS; ++s) {
         const int kr = 16 * (kg + 2 * s);  // rows kr .. kr + 15
@@ -208,7 +213,7 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
 #pragma unroll
         for (int n = 0; n < NT; ++n) {
           const int b = 8 * n + g;
-          const __nv_bfloat16* xr = xst + (b < batch ? b : 0) * XROW + kr + 2 * t;
+          const T* xr = xst + (b < batch ? b : 0) * XROW + kr + 2 * t;
           b0[n] = b < batch ? *reinterpret_cast<const uint32_t*>(xr) : 0u;
           b1[n] = b < batch ? *reinterpret_cast<const uint32_t*>(xr + 8) : 0u;
         }
@@ -218,14 +223,12 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
           const uint32_t v2 = j < 2 ? w[2].x : w[2].y, v3 = j < 2 ? w[3].x : w[3].y;
           uint32_t af[4];
           if (j & 1) {
-            af[0] = fs::i8::i8x2_bf16<2>(v0, v1); af[1] = fs::i8::i8x2_bf16<3>(v0, v1);
-            af[2] = fs::i8::i8x2_bf16<2>(v2, v3); af[3] = fs::i8::i8x2_bf16<3>(v2, v3);
+            fs::i8::i8_fragment<T, 2>(af, v0, v1, v2, v3);
           } else {
-            af[0] = fs::i8::i8x2_bf16<0>(v0, v1); af[1] = fs::i8::i8x2_bf16<1>(v0, v1);
-            af[2] = fs::i8::i8x2_bf16<0>(v2, v3); af[3] = fs::i8::i8x2_bf16<1>(v2, v3);
+            fs::i8::i8_fragment<T, 0>(af, v0, v1, v2, v3);
           }
 #pragma unroll
-          for (int n = 0; n < NT; ++n) fs::i8::mma_bf16(acc[j][n], af, b0[n], b1[n]);
+          for (int n = 0; n < NT; ++n) fs::i8::mma16<T>(acc[j][n], af, b0[n], b1[n]);
         }
       }
       __syncthreads();  // the stage is read: refill its slot
@@ -273,8 +276,8 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
 
   // phase A: item k is column tile k % tiles_a of I, run k / tiles_a of D;
   // red's column c < 128 is u1's column 128 tile + c, c >= 128 u3's
-  const __nv_bfloat16* x = static_cast<const __nv_bfloat16*>(a.x);
-  __nv_bfloat16* gw = static_cast<__nv_bfloat16*>(a.g);
+  const T* x = static_cast<const T*>(a.x);
+  T* gw = static_cast<T*>(a.g);
   const size_t stride_a = (size_t)batch * 2 * a.i;
   for (int k = blockIdx.x; k < a.tiles_a * a.n_a; k += gridDim.x) {
     const int tile = k % a.tiles_a, run = k / a.tiles_a;
@@ -306,13 +309,13 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
       u1 += __ldcg(p + r * stride_a);
       u3 += __ldcg(p + r * stride_a + a.i);
     }
-    gw[e] = __float2bfloat16_rn(gate(u1 * a.s1[col], u3 * a.s3[col]));
+    fs::store(gw + e, gate(u1 * a.s1[col], u3 * a.s3[col]));
   }
   grid_sync(a.bar);  // every block's g is seen (cp.async.cg reads it from L2)
 
   // phase B: item k is column tile k % tiles_b of D (256 columns: q2's
   // boxes at 256 tile and 256 tile + 128), run k / tiles_b of I
-  __nv_bfloat16* out = static_cast<__nv_bfloat16*>(a.out);
+  T* out = static_cast<T*>(a.out);
   const size_t stride_b = (size_t)batch * a.d;
   for (int k = blockIdx.x; k < a.tiles_b * a.n_b; k += gridDim.x) {
     const int tile = k % a.tiles_b, run = k / a.tiles_b;
@@ -336,7 +339,7 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
     float y = 0.f;
 #pragma unroll 8
     for (int r = 0; r < a.n_b; ++r) y += __ldcg(p + r * stride_b);
-    out[e] = __float2bfloat16_rn(y * a.s2[e % a.d]);
+    fs::store(out + e, y * a.s2[e % a.d]);
   }
 }
 
@@ -415,21 +418,33 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
-// route codes, as `ops/int8_ffn.py:ROUTES`
-constexpr int kRouteMma = 0, kRouteCudaCores = 1;
+// route codes, as `ops/int8_ffn.py:ROUTES`: "mma" takes bf16 x, "mma_f16"
+// fp16 x (the same kernel for __half), "cuda_cores" fp32 x
+constexpr int kRouteMma = 0, kRouteCudaCores = 1, kRouteMmaF16 = 2;
 
-template <int NT>
+template <int NT, typename T>
 cudaError_t mma_per_sm(int batch, int* per_sm) {
   static bool sized = false;  // one attribute call per instantiation
   if (!sized) {
-    const cudaError_t e = cudaFuncSetAttribute(int8_ffn_mma_kernel<NT>,
+    const cudaError_t e = cudaFuncSetAttribute(int8_ffn_mma_kernel<NT, T>,
                                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                                (int)mma_smem(8 * NT));
     if (e != cudaSuccess) return e;
     sized = true;
   }
-  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, int8_ffn_mma_kernel<NT>,
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, int8_ffn_mma_kernel<NT, T>,
                                                        THREADS, mma_smem(batch));
+}
+
+template <typename T>
+cudaError_t mma_rows_per_sm(int batch, int* per_sm) {
+  switch ((batch + 7) / 8) {
+    case 1: return mma_per_sm<1, T>(batch, per_sm);
+    case 2: return mma_per_sm<2, T>(batch, per_sm);
+    case 3: return mma_per_sm<3, T>(batch, per_sm);
+    case 4: return mma_per_sm<4, T>(batch, per_sm);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 // the blocks of `route` the card holds at once at this batch (the grid
@@ -439,17 +454,13 @@ int resident_blocks(int route, int batch, int* blocks) {
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
   if (e != cudaSuccess) return (int)e;
-  switch (route == kRouteCudaCores ? 0 : (batch + 7) / 8) {
-    case 0:
-      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, int8_ffn_fp32_kernel,
-                                                        THREADS, 0);
-      break;
-    case 1: e = mma_per_sm<1>(batch, &per_sm); break;
-    case 2: e = mma_per_sm<2>(batch, &per_sm); break;
-    case 3: e = mma_per_sm<3>(batch, &per_sm); break;
-    case 4: e = mma_per_sm<4>(batch, &per_sm); break;
-    default: return (int)cudaErrorInvalidValue;
-  }
+  if (route == kRouteCudaCores)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, int8_ffn_fp32_kernel,
+                                                      THREADS, 0);
+  else if (route == kRouteMmaF16)
+    e = mma_rows_per_sm<__half>(batch, &per_sm);
+  else
+    e = mma_rows_per_sm<__nv_bfloat16>(batch, &per_sm);
   if (e != cudaSuccess) return (int)e;
   *blocks = per_sm * n_sm;
   return 0;
@@ -467,14 +478,16 @@ bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 // The blocks the kernel of `route` can run at once on the current device at
 // `batch` rows of x: the largest grid `fs_int8_ffn` takes.
 extern "C" int fs_int8_ffn_blocks(int route, int batch, int* blocks) {
-  if (batch < 1 || batch > MAX_ROWS || (route != kRouteMma && route != kRouteCudaCores))
+  if (batch < 1 || batch > MAX_ROWS ||
+      (route != kRouteMma && route != kRouteCudaCores && route != kRouteMmaF16))
     return (int)cudaErrorInvalidValue;
   return resident_blocks(route, batch, blocks);
 }
 
 // x (B, D) in `dtype`, contiguous; q1, q3 (D, I) int8, rows ld13 >= I bytes
 // apart; s1, s3 (I,), s2 (D,) fp32; q2 (I, D) int8, rows ld2 >= D apart;
-// out (B, D) in `dtype`. Route "mma" takes bf16 x, "cuda_cores" fp32 x.
+// out (B, D) in `dtype`. Route "mma" takes bf16 x, "mma_f16" fp16 x,
+// "cuda_cores" fp32 x.
 // Phase A cuts D into n_a runs of run_a rows, phase B I into n_b runs of
 // run_b (multiples of STAGE_ROWS, the last run shorter; the "cuda_cores"
 // route takes one run each). work: g (B x I in `dtype`, rounded up to 16
@@ -490,7 +503,8 @@ extern "C" int fs_int8_ffn(const void* x, const void* q1, const void* q3, int ld
   if (batch < 1 || batch > MAX_ROWS || d < 1 || i < 1 || ld13 < i || ld2 < d ||
       grid < 1 || work == nullptr || bar == nullptr || !aligned16(work))
     return (int)cudaErrorInvalidValue;
-  const bool mma = route == kRouteMma && dtype == fs::kBFloat16;
+  const bool f16 = route == kRouteMmaF16 && dtype == fs::kFloat16;
+  const bool mma = (route == kRouteMma && dtype == fs::kBFloat16) || f16;
   if (mma) {
     if (d % 16 || i % 16 || d < BOX || i < BOX || ld13 % 16 || ld2 % 16 ||
         !aligned16(x) || !aligned16(q1) || !aligned16(q3) || !aligned16(q2) ||
@@ -549,9 +563,12 @@ extern "C" int fs_int8_ffn(const void* x, const void* q1, const void* q3, int ld
   if (e != 0) return e;
   const size_t smem = mma_smem(batch);
   switch ((batch + 7) / 8) {
-#define FS_LAUNCH(NT)                                                         \
-  case NT:                                                                    \
-    int8_ffn_mma_kernel<NT><<<grid, THREADS, smem, st>>>(m1, m3, m2, a);      \
+#define FS_LAUNCH(NT)                                                          \
+  case NT:                                                                     \
+    if (f16)                                                                   \
+      int8_ffn_mma_kernel<NT, __half><<<grid, THREADS, smem, st>>>(m1, m3, m2, a); \
+    else                                                                       \
+      int8_ffn_mma_kernel<NT, __nv_bfloat16><<<grid, THREADS, smem, st>>>(m1, m3, m2, a); \
     break
     FS_LAUNCH(1); FS_LAUNCH(2); FS_LAUNCH(3); FS_LAUNCH(4);
 #undef FS_LAUNCH

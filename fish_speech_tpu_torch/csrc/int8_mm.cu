@@ -19,7 +19,11 @@
 // the full LM head, 397 MB: 118.5 us).
 //
 // Three kernels, chosen by the wrapper (`ops/int8.py:_route`) on x's dtype
-// and rows:
+// and rows (the two tensor-core kernels are templated on x's 16-bit type:
+// bf16, or fp16 on the `--half` serving path, routes "gemv_cluster_f16" and
+// "gemv_mma_f16", where each int8 becomes fp16 exactly, `Elem<T>::i8x2`,
+// and the products run on mma.sync's `.f16` operands; the fp32 sums, the
+// fp32 scale and the one rounding of y to x's dtype are the same):
 // * "gemv_cluster", bf16 x of 17-32 rows (the 32-row pool): the skeleton of
 //   int8_mma.cuh. A column tile of 128 outputs is one thread block cluster
 //   of C blocks (C in {1, 2, 4, 8}, `ops/int8.py:int8_gemv_plan`), block r
@@ -49,7 +53,7 @@
 //   2t + 1, 2t + 8 and 2t + 9 (a half warp's sixteen 8-byte loads fall on
 //   32 distinct banks through the swizzle); its bytes 2j and 2j + 1 are
 //   columns c = 64 h + 8 g + 2 j (m = g of M tile j) and c + 1 (m = g + 8).
-//   Each int8 value becomes bf16 exactly in registers (`i8x2_bf16`). The
+//   Each int8 value becomes bf16 exactly in registers (`Elem<T>::i8x2`). The
 //   four warps of a column half meet in shared memory in a fixed tree,
 //   in the fragments' own order (no bank conflicts).
 // * "gemv", fp32 x (the small fp32 models): CUDA cores, a thread per output
@@ -94,8 +98,8 @@ constexpr int GEMV_CHUNK = 64;        // fp32 kernel: rows of x staged at once
 static_assert(STAGE_ROWS == 16 * WARPS, "a stage is two k16 steps per warp pair");
 
 using fs::i8::cp_async_arrive;
-using fs::i8::i8x2_bf16;
-using fs::i8::mma_bf16;
+using fs::i8::i8_fragment;
+using fs::i8::mma16;
 
 // After a block's sums are stored as its partial (fp32 [B][O] per run):
 // the last block of the column tile to arrive adds every run's partial in
@@ -152,16 +156,16 @@ __device__ __forceinline__ void finish_split(const float* __restrict__ work,
 // (r + 1) * run)), run a multiple of STAGE_ROWS. Dynamic shared memory:
 // 1 KB of alignment slack | the W ring [STAGES][STAGE_ROWS][128] bytes, at
 // least RING_BYTES (after the main loop: the warps' sums) | the x ring
-// [STAGES][B][XROW] bf16. kTma: W by TMA and x by cp.async, STAGES in
-// flight, both counted on the stage's barrier; else the block's threads
+// [STAGES][B][XROW] T (x's type). kTma: W by TMA and x by cp.async, STAGES
+// in flight, both counted on the stage's barrier; else the block's threads
 // copy each stage into slot 0 before it is used.
-template <int NT, bool kTma>
+template <int NT, bool kTma, typename T>
 __global__ void __launch_bounds__(THREADS, NT == 1 ? 3 : 2)
     int8_gemv_mma_kernel(const __grid_constant__ CUtensorMap qmap,
                          const int8_t* __restrict__ q,
-                         const __nv_bfloat16* __restrict__ x,
+                         const T* __restrict__ x,
                          const float* __restrict__ s,
-                         __nv_bfloat16* __restrict__ out,
+                         T* __restrict__ out,
                          float* __restrict__ work, int* __restrict__ counters,
                          int batch, int in_dim, int out_dim, int ldq, int run) {
   extern __shared__ __align__(1024) unsigned char smem_raw[];
@@ -169,7 +173,7 @@ __global__ void __launch_bounds__(THREADS, NT == 1 ? 3 : 2)
   __shared__ int last_s;
   // the swizzled boxes want 1024-byte aligned stages
   uint8_t* ring = smem_raw + ((1024 - fs::wg::smem_u32(smem_raw) % 1024) % 1024);
-  __nv_bfloat16* xring = reinterpret_cast<__nv_bfloat16*>(ring + RING_BYTES);
+  T* xring = reinterpret_cast<T*>(ring + RING_BYTES);
   const int tile0 = blockIdx.x * MMA_COLS;
   const int ks = blockIdx.y, n_split = gridDim.y;
   const int r0 = ks * run, len = min(in_dim, r0 + run) - r0;
@@ -180,7 +184,7 @@ __global__ void __launch_bounds__(THREADS, NT == 1 ? 3 : 2)
   // or past I); every thread calls it
   auto load_stage = [&](int slot, int st) {
     const int k0 = st * STAGE_ROWS;
-    __nv_bfloat16* xd = xring + slot * batch * XROW;
+    T* xd = xring + slot * batch * XROW;
     if (kTma) {
       if (threadIdx.x == 0) {
         fs::tma::bar_expect(&full[slot], STAGE_BYTES);
@@ -213,7 +217,7 @@ __global__ void __launch_bounds__(THREADS, NT == 1 ? 3 : 2)
     for (int idx = threadIdx.x; idx < batch * STAGE_ROWS; idx += THREADS) {
       const int b = idx / STAGE_ROWS, k = idx % STAGE_ROWS;
       xd[b * XROW + k] = k0 + k < len ? x[(size_t)b * in_dim + r0 + k0 + k]
-                                      : __float2bfloat16_rn(0.f);
+                                      : fs::Elem<T>::from_float(0.f);
     }
   };
   if (kTma) {
@@ -250,7 +254,7 @@ __global__ void __launch_bounds__(THREADS, NT == 1 ? 3 : 2)
       __syncthreads();
     }
     const uint8_t* box = ring + slot * STAGE_BYTES;
-    const __nv_bfloat16* xs = xring + slot * batch * XROW;
+    const T* xs = xring + slot * batch * XROW;
 #pragma unroll
     for (int kstep = 0; kstep < 2; ++kstep) {
       const int kr = 16 * ((warp >> 1) + 4 * kstep);  // rows kr .. kr + 15
@@ -265,7 +269,7 @@ __global__ void __launch_bounds__(THREADS, NT == 1 ? 3 : 2)
 #pragma unroll
       for (int n = 0; n < NT; ++n) {
         const int b = 8 * n + g;
-        const __nv_bfloat16* xr = xs + (b < batch ? b : 0) * XROW + kr + 2 * t;
+        const T* xr = xs + (b < batch ? b : 0) * XROW + kr + 2 * t;
         b0[n] = b < batch ? *reinterpret_cast<const uint32_t*>(xr) : 0u;
         b1[n] = b < batch ? *reinterpret_cast<const uint32_t*>(xr + 8) : 0u;
       }
@@ -275,14 +279,12 @@ __global__ void __launch_bounds__(THREADS, NT == 1 ? 3 : 2)
         const uint32_t v2 = j < 2 ? w[2].x : w[2].y, v3 = j < 2 ? w[3].x : w[3].y;
         uint32_t a[4];
         if (j & 1) {
-          a[0] = i8x2_bf16<2>(v0, v1); a[1] = i8x2_bf16<3>(v0, v1);
-          a[2] = i8x2_bf16<2>(v2, v3); a[3] = i8x2_bf16<3>(v2, v3);
+          i8_fragment<T, 2>(a, v0, v1, v2, v3);
         } else {
-          a[0] = i8x2_bf16<0>(v0, v1); a[1] = i8x2_bf16<1>(v0, v1);
-          a[2] = i8x2_bf16<0>(v2, v3); a[3] = i8x2_bf16<1>(v2, v3);
+          i8_fragment<T, 0>(a, v0, v1, v2, v3);
         }
 #pragma unroll
-        for (int n = 0; n < NT; ++n) mma_bf16(acc[j][n], a, b0[n], b1[n]);
+        for (int n = 0; n < NT; ++n) mma16<T>(acc[j][n], a, b0[n], b1[n]);
       }
     }
     __syncthreads();  // the stage is read: refill its slot
@@ -338,7 +340,7 @@ __global__ void __launch_bounds__(THREADS, NT == 1 ? 3 : 2)
     const int b = idx / MMA_COLS, c = idx % MMA_COLS, col = tile0 + c;
     if (col >= out_dim) continue;
     if (n_split == 1)
-      out[(size_t)b * out_dim + col] = __float2bfloat16_rn(red[b * RED_ROW + c] * s[col]);
+      fs::store(out + (size_t)b * out_dim + col, red[b * RED_ROW + c] * s[col]);
     else
       part[(size_t)b * out_dim + col] = red[b * RED_ROW + c];
   }
@@ -395,7 +397,7 @@ __global__ void __launch_bounds__(THREADS)
                  &last_s);
 }
 
-template <int NT, bool kTma>
+template <int NT, bool kTma, typename T>
 int launch_mma(const CUtensorMap& map, const int8_t* q, const void* x,
                const float* s, void* out, float* work, int* counters, int batch,
                int in_dim, int out_dim, int ldq, int n_split, int run,
@@ -403,21 +405,20 @@ int launch_mma(const CUtensorMap& map, const int8_t* q, const void* x,
   static bool sized = false;  // one attribute call per instantiation
   if (!sized) {
     const cudaError_t e = cudaFuncSetAttribute(
-        int8_gemv_mma_kernel<NT, kTma>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        int8_gemv_mma_kernel<NT, kTma, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         1024 + RING_BYTES + STAGES * 2 * 8 * NT * XROW);
     if (e != cudaSuccess) return (int)e;
     sized = true;
   }
   const size_t smem = 1024 + RING_BYTES + (size_t)STAGES * 2 * batch * XROW;
   dim3 grid((out_dim + MMA_COLS - 1) / MMA_COLS, n_split);
-  int8_gemv_mma_kernel<NT, kTma><<<grid, THREADS, smem, stream>>>(
-      map, q, static_cast<const __nv_bfloat16*>(x), s,
-      static_cast<__nv_bfloat16*>(out), work, counters, batch, in_dim, out_dim,
-      ldq, run);
+  int8_gemv_mma_kernel<NT, kTma, T><<<grid, THREADS, smem, stream>>>(
+      map, q, static_cast<const T*>(x), s, static_cast<T*>(out), work, counters,
+      batch, in_dim, out_dim, ldq, run);
   return (int)cudaGetLastError();
 }
 
-template <bool kTma>
+template <bool kTma, typename T>
 int launch_mma_rows(const CUtensorMap& map, const int8_t* q, const void* x,
                     const float* s, void* out, float* work, int* counters,
                     int batch, int in_dim, int out_dim, int ldq, int n_split,
@@ -425,8 +426,8 @@ int launch_mma_rows(const CUtensorMap& map, const int8_t* q, const void* x,
   switch ((batch + 7) / 8) {
 #define FS_MMA(NT)                                                              \
   case NT:                                                                      \
-    return launch_mma<NT, kTma>(map, q, x, s, out, work, counters, batch,       \
-                                in_dim, out_dim, ldq, n_split, run, stream)
+    return launch_mma<NT, kTma, T>(map, q, x, s, out, work, counters, batch,    \
+                                   in_dim, out_dim, ldq, n_split, run, stream)
     FS_MMA(1); FS_MMA(2); FS_MMA(3); FS_MMA(4);
 #undef FS_MMA
   }
@@ -456,9 +457,10 @@ using fs::i8::W_STAGE;
 // of columns [col0, col0 + 128) and the same rows of every row of x, in
 // the layouts TMA gives (128-byte swizzle; 0 past I, O and B), then the
 // stage's arrival.
+template <typename T>
 __device__ __forceinline__ void copy_stage(const Ring& r, uint64_t* full, int slot,
                                            const int8_t* __restrict__ q,
-                                           const __nv_bfloat16* __restrict__ x,
+                                           const T* __restrict__ x,
                                            int batch, int n8, int in_dim, int out_dim,
                                            int ldq, int col0, int k0) {
   const int lane = threadIdx.x & 31;
@@ -479,10 +481,9 @@ __device__ __forceinline__ void copy_stage(const Ring& r, uint64_t* full, int sl
   uint8_t* xd = r.x + slot * r.xb;
   for (int idx = lane; idx < n8 * 64; idx += 32) {
     const int n = idx / 64, k = idx % 64, gk = k0 + k;
-    const __nv_bfloat16 v = n < batch && gk < in_dim ? x[(size_t)n * in_dim + gk]
-                                                     : __float2bfloat16_rn(0.f);
-    *reinterpret_cast<__nv_bfloat16*>(xd + n * 128 + (((k >> 3) ^ (n & 7)) << 4) +
-                                      2 * (k & 7)) = v;
+    const T v = n < batch && gk < in_dim ? x[(size_t)n * in_dim + gk]
+                                         : fs::Elem<T>::from_float(0.f);
+    *reinterpret_cast<T*>(xd + n * 128 + (((k >> 3) ^ (n & 7)) << 4) + 2 * (k & 7)) = v;
   }
   __syncwarp();
   if (lane == 0) fs::tma::bar_arrive(&full[slot]);
@@ -490,15 +491,16 @@ __device__ __forceinline__ void copy_stage(const Ring& r, uint64_t* full, int sl
 
 // grid: ceil(O / 128) clusters of C blocks; cluster k is column tile k,
 // its block of rank r the run of rows [r run, min(I, (r + 1) run)). kTma:
-// W and x by TMA (maps qmap, xmap); else copied by the producer warp.
-template <int NT, bool kTma>
+// W and x by TMA (maps qmap, xmap); else copied by the producer warp. T is
+// x's type (bf16 or fp16).
+template <int NT, bool kTma, typename T>
 __global__ void __launch_bounds__(THREADS, 2)
     int8_gemv_cluster_kernel(const __grid_constant__ CUtensorMap qmap,
                              const __grid_constant__ CUtensorMap xmap,
                              const int8_t* __restrict__ q,
-                             const __nv_bfloat16* __restrict__ x,
+                             const T* __restrict__ x,
                              const float* __restrict__ s,
-                             __nv_bfloat16* __restrict__ out, int batch, int in_dim,
+                             T* __restrict__ out, int batch, int in_dim,
                              int out_dim, int ldq, int run) {
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   __shared__ __align__(8) uint64_t full[STAGES], empty[STAGES];
@@ -529,20 +531,20 @@ __global__ void __launch_bounds__(THREADS, 2)
   }
 
   fs::i8::Acc<NT> acc;
-  fs::i8::mainloop<NT>(r, full, empty, 0, n_stage, acc);
+  fs::i8::mainloop<NT, T>(r, full, empty, 0, n_stage, acc);
   fs::i8::store_sums<NT>(r.red, acc);
   fs::cluster::sync();
   fs::i8::slice_sums<NT>(r.red, batch, c_size, rank,
                          [&](int n, int c, const float (&v)[MAX_CLUSTER]) {
                            const int col = tile0 + c;
                            if (col < out_dim)
-                             out[(size_t)n * out_dim + col] = __float2bfloat16_rn(
-                                 fs::i8::sum_in_order(v, 0, c_size) * s[col]);
+                             fs::store(out + (size_t)n * out_dim + col,
+                                       fs::i8::sum_in_order(v, 0, c_size) * s[col]);
                          });
   fs::cluster::sync();
 }
 
-template <int NT, bool kTma>
+template <int NT, bool kTma, typename T>
 int launch(const CUtensorMap& qmap, const CUtensorMap& xmap, const int8_t* q,
            const void* x, const float* s, void* out, int batch, int in_dim,
            int out_dim, int ldq, int cluster, int run, cudaStream_t stream) {
@@ -550,27 +552,27 @@ int launch(const CUtensorMap& qmap, const CUtensorMap& xmap, const int8_t* q,
   static bool sized = false;  // one attribute call per instantiation
   if (!sized) {
     const cudaError_t e = cudaFuncSetAttribute(
-        int8_gemv_cluster_kernel<NT, kTma>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        int8_gemv_cluster_kernel<NT, kTma, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (e != cudaSuccess) return (int)e;
     sized = true;
   }
   const int tiles = (out_dim + BOX - 1) / BOX;
   return (int)fs::i8::launch_clustered(
-      int8_gemv_cluster_kernel<NT, kTma>, tiles * cluster, cluster, smem, stream, qmap,
-      xmap, q, static_cast<const __nv_bfloat16*>(x), s,
-      static_cast<__nv_bfloat16*>(out), batch, in_dim, out_dim, ldq, run);
+      int8_gemv_cluster_kernel<NT, kTma, T>, tiles * cluster, cluster, smem, stream,
+      qmap, xmap, q, static_cast<const T*>(x), s, static_cast<T*>(out), batch,
+      in_dim, out_dim, ldq, run);
 }
 
-template <bool kTma>
+template <bool kTma, typename T>
 int launch_rows(const CUtensorMap& qmap, const CUtensorMap& xmap, const int8_t* q,
                 const void* x, const float* s, void* out, int batch, int in_dim,
                 int out_dim, int ldq, int cluster, int run, cudaStream_t stream) {
   switch ((batch + 7) / 8) {
 #define FS_CLUSTER(NT)                                                           \
   case NT:                                                                       \
-    return launch<NT, kTma>(qmap, xmap, q, x, s, out, batch, in_dim, out_dim, ldq, \
-                            cluster, run, stream)
+    return launch<NT, kTma, T>(qmap, xmap, q, x, s, out, batch, in_dim, out_dim,  \
+                               ldq, cluster, run, stream)
     FS_CLUSTER(1); FS_CLUSTER(2); FS_CLUSTER(3); FS_CLUSTER(4);
 #undef FS_CLUSTER
   }
@@ -579,12 +581,48 @@ int launch_rows(const CUtensorMap& qmap, const CUtensorMap& xmap, const int8_t* 
 
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
+// the cluster kernel on x of type T (fs_int8_matmul_cluster's contract)
+template <typename T>
+int matmul(const void* x, const void* q, const void* s, void* out, int batch,
+           int in_dim, int out_dim, int ldq, int cluster, int run, void* stream) {
+  if (batch < 1 || batch > MAX_ROWS || in_dim < 1 || out_dim < 1 || ldq < out_dim ||
+      !fs::i8::cluster_ok(cluster) || run < STAGE_ROWS || run % STAGE_ROWS ||
+      (size_t)cluster * run < (size_t)in_dim)
+    return (int)cudaErrorInvalidValue;
+  const int8_t* qp = static_cast<const int8_t*>(q);
+  const float* sp = static_cast<const float*>(s);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  CUtensorMap qmap, xmap;
+  if (ldq % 16 == 0 && aligned16(q) && out_dim >= BOX && in_dim >= STAGE_ROWS &&
+      in_dim % 8 == 0 && aligned16(x)) {
+    // q as I rows of O bytes, ldq apart, in boxes of 64 rows x 128 bytes;
+    // x as B rows of I elements of T in boxes of 8 ceil(B / 8) rows x 64
+    // (rows past B and columns past I read as 0)
+    int rc = fs::tma::encode_2d(&qmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, q, out_dim, in_dim,
+                                ldq, BOX, STAGE_ROWS);
+    if (rc == 0)
+      rc = fs::tma::encode_2d(&xmap,
+                              fs::Elem<T>::kF16 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                                                : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                              x, in_dim, batch, (uint64_t)in_dim * 2, 64,
+                              8 * ((batch + 7) / 8));
+    if (rc != 0) return rc;
+    return launch_rows<true, T>(qmap, xmap, qp, x, sp, out, batch, in_dim, out_dim,
+                                ldq, cluster, run, st);
+  }
+  std::memset(&qmap, 0, sizeof(qmap));
+  std::memset(&xmap, 0, sizeof(xmap));
+  return launch_rows<false, T>(qmap, xmap, qp, x, sp, out, batch, in_dim, out_dim, ldq,
+                               cluster, run, st);
+}
+
 }  // namespace cl
 }  // namespace
 
 // x (B, I) in `dtype`, contiguous; q (I, O) int8, rows ldq >= O bytes
-// apart; s (O,) fp32; out (B, O) in `dtype`. Route "gemv_mma" takes bf16 x,
-// "gemv" fp32 x. I is cut into n_split runs of `run` rows (a multiple of
+// apart; s (O,) fp32; out (B, O) in `dtype`. Route "gemv_mma" takes bf16 or
+// fp16 x (`ops/int8.py` counts the fp16 launches as "gemv_mma_f16"), "gemv"
+// fp32 x. I is cut into n_split runs of `run` rows (a multiple of
 // STAGE_ROWS; `ops/int8.py:int8_gemv_split`), the last one shorter; with
 // n_split > 1 the kernels need work, n_split * B * O fp32 partials, and
 // counters, one int32 per column tile (ceil(O / 128) for "gemv_mma",
@@ -611,7 +649,9 @@ extern "C" int fs_int8_matmul(const void* x, const void* q, const void* s,
         batch, in_dim, out_dim, ldq, run);
     return (int)cudaGetLastError();
   }
-  if (route != kRouteGemvMma || dtype != fs::kBFloat16) return (int)cudaErrorInvalidValue;
+  if (route != kRouteGemvMma || (dtype != fs::kBFloat16 && dtype != fs::kFloat16))
+    return (int)cudaErrorInvalidValue;
+  const bool f16 = dtype == fs::kFloat16;
   CUtensorMap map;
   if (ldq % 16 == 0 && reinterpret_cast<uintptr_t>(q) % 16 == 0 &&
       out_dim >= MMA_COLS && in_dim >= STAGE_ROWS && in_dim % 8 == 0 &&
@@ -620,12 +660,18 @@ extern "C" int fs_int8_matmul(const void* x, const void* q, const void* s,
     const int rc = fs::tma::encode_2d(&map, CU_TENSOR_MAP_DATA_TYPE_UINT8, q,
                                       out_dim, in_dim, ldq, MMA_COLS, STAGE_ROWS);
     if (rc != 0) return rc;
-    return launch_mma_rows<true>(map, qp, x, sp, out, wk, cnt, batch, in_dim,
-                                 out_dim, ldq, n_split, run, st);
+    return f16 ? launch_mma_rows<true, __half>(map, qp, x, sp, out, wk, cnt, batch,
+                                               in_dim, out_dim, ldq, n_split, run, st)
+               : launch_mma_rows<true, __nv_bfloat16>(map, qp, x, sp, out, wk, cnt,
+                                                      batch, in_dim, out_dim, ldq,
+                                                      n_split, run, st);
   }
   std::memset(&map, 0, sizeof(map));
-  return launch_mma_rows<false>(map, qp, x, sp, out, wk, cnt, batch, in_dim,
-                                out_dim, ldq, n_split, run, st);
+  return f16 ? launch_mma_rows<false, __half>(map, qp, x, sp, out, wk, cnt, batch,
+                                              in_dim, out_dim, ldq, n_split, run, st)
+             : launch_mma_rows<false, __nv_bfloat16>(map, qp, x, sp, out, wk, cnt,
+                                                     batch, in_dim, out_dim, ldq,
+                                                     n_split, run, st);
 }
 
 // x (B, I) bf16, contiguous, B <= 32; q (I, O) int8, rows ldq >= O bytes
@@ -636,30 +682,15 @@ extern "C" int fs_int8_matmul(const void* x, const void* q, const void* s,
 extern "C" int fs_int8_matmul_cluster(const void* x, const void* q, const void* s,
                                       void* out, int batch, int in_dim, int out_dim,
                                       int ldq, int cluster, int run, void* stream) {
-  if (batch < 1 || batch > MAX_ROWS || in_dim < 1 || out_dim < 1 || ldq < out_dim ||
-      !fs::i8::cluster_ok(cluster) || run < cl::STAGE_ROWS || run % cl::STAGE_ROWS ||
-      (size_t)cluster * run < (size_t)in_dim)
-    return (int)cudaErrorInvalidValue;
-  const int8_t* qp = static_cast<const int8_t*>(q);
-  const float* sp = static_cast<const float*>(s);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  CUtensorMap qmap, xmap;
-  if (ldq % 16 == 0 && cl::aligned16(q) && out_dim >= cl::BOX && in_dim >= cl::STAGE_ROWS &&
-      in_dim % 8 == 0 && cl::aligned16(x)) {
-    // q as I rows of O bytes, ldq apart, in boxes of 64 rows x 128 bytes;
-    // x as B rows of I bf16 in boxes of 8 ceil(B / 8) rows x 64 (rows past
-    // B and columns past I read as 0)
-    int rc = fs::tma::encode_2d(&qmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, q, out_dim, in_dim,
-                                ldq, cl::BOX, cl::STAGE_ROWS);
-    if (rc == 0)
-      rc = fs::tma::encode_2d(&xmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, x, in_dim, batch,
-                              (uint64_t)in_dim * 2, 64, 8 * ((batch + 7) / 8));
-    if (rc != 0) return rc;
-    return cl::launch_rows<true>(qmap, xmap, qp, x, sp, out, batch, in_dim, out_dim, ldq,
-                                 cluster, run, st);
-  }
-  std::memset(&qmap, 0, sizeof(qmap));
-  std::memset(&xmap, 0, sizeof(xmap));
-  return cl::launch_rows<false>(qmap, xmap, qp, x, sp, out, batch, in_dim, out_dim, ldq,
-                                cluster, run, st);
+  return cl::matmul<__nv_bfloat16>(x, q, s, out, batch, in_dim, out_dim, ldq, cluster,
+                                   run, stream);
+}
+
+// fs_int8_matmul_cluster with fp16 x and out: route "gemv_cluster_f16"
+extern "C" int fs_int8_matmul_cluster_f16(const void* x, const void* q, const void* s,
+                                          void* out, int batch, int in_dim,
+                                          int out_dim, int ldq, int cluster, int run,
+                                          void* stream) {
+  return cl::matmul<__half>(x, q, s, out, batch, in_dim, out_dim, ldq, cluster, run,
+                            stream);
 }

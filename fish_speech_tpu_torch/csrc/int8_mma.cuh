@@ -1,6 +1,7 @@
 // The int8 weight-only kernels on the tensor cores share two sets of
-// pieces here. Their products' pieces: the exact int8 -> bf16 conversion of
-// a weight fragment in registers (`i8x2_bf16`), the mma.sync product, and
+// pieces here. Their products' pieces: the exact int8 -> bf16 (or fp16)
+// conversion of a weight fragment in registers (common.cuh
+// `Elem<T>::i8x2`), the mma.sync product on T operands (`mma16`), and
 // the cp.async arrival on a stage's mbarrier (the matvec at 1-16 rows,
 // int8_mm.cu's "gemv_mma", and the fused FFN, int8_ffn.cu). And the
 // skeleton of the matvec at 17-32 rows (int8_mm.cu's "gemv_cluster", the
@@ -29,7 +30,7 @@
 // warp w of a warpgroup reads 4 bytes, columns 32 w + 4 g .. + 3, of rows
 // 2t, 2t + 1, 2t + 8, 2t + 9 of each k16 step (a warp's 32 loads fall on
 // 32 banks through the swizzle) and turns each int8 into bf16 exactly
-// (`i8x2_bf16`): bytes 2j and 2j + 1 are M tile j of the warp (row g is
+// (`Elem<T>::i8x2`): bytes 2j and 2j + 1 are M tile j of the warp (row g is
 // column 32 w + 4 g + 2 j, row g + 8 the column after it). The products
 // run on `mma.sync` m16n8k16 (W^T on M, x's rows on N in NT n8 tiles, x's
 // fragments read from the stage's x box, conflict-free through the
@@ -37,6 +38,11 @@
 // from shared memory, K-major) was built and timed beside it in one call on
 // the H100: slower at 6 of the 7 serving shapes at 32 rows and 0.8% faster
 // at the LM head (PERF.md), so mma.sync stays.
+//
+// The pieces take the type T of x (bf16, or fp16 on the `--half` serving
+// path): x's boxes hold T, each int8 becomes T exactly, and the products
+// run on mma.sync's `.bf16` or `.f16` operands; the fp32 sums, the scale
+// and the one rounding of y are the same for both.
 //
 // The ring and the sums: dynamic shared memory is 1 KB of alignment slack
 // | the W ring [STAGES][STAGE_ROWS][128] bytes | the x ring
@@ -88,20 +94,6 @@ __host__ __device__ constexpr bool cluster_ok(int c) {
   return c == 1 || c == 2 || c == 4 || c == 8;
 }
 
-// Byte E of lo and byte E of hi (int8) as a bf16 pair, lo in the low half.
-// A byte v with low bits m (7) and sign bit z becomes bf16 (128 + m) by
-// OR-ing m into 0x4300, plus -128 (0xC300) or, with z set, -256 (0xC380):
-// both terms and their sum v are exact bf16 values, so the add is exact.
-template <int E>
-__device__ __forceinline__ uint32_t i8x2_bf16(uint32_t lo, uint32_t hi) {
-  const uint32_t w = __byte_perm(lo, hi, E | ((E + 4) << 8));
-  const uint32_t m = (w & 0x007F007Fu) | 0x43004300u;
-  const uint32_t z = (w & 0x00800080u) | 0xC300C300u;
-  const __nv_bfloat162 r = __hadd2(*reinterpret_cast<const __nv_bfloat162*>(&m),
-                                   *reinterpret_cast<const __nv_bfloat162*>(&z));
-  return *reinterpret_cast<const uint32_t*>(&r);
-}
-
 // the barrier counts one arrival of this thread once its cp.async copies
 // so far have landed (its pending count is not raised: init counts them)
 __device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
@@ -118,7 +110,7 @@ __device__ __forceinline__ void named_sync(int id, int n) {
 // The block's shared memory (see the top of the file).
 struct Ring {
   uint8_t* w;    // [STAGES][STAGE_ROWS][BOX] int8
-  uint8_t* x;    // [STAGES][N8][64] bf16
+  uint8_t* x;    // [STAGES][N8][64] T (bf16 or fp16)
   float* red;    // [BOX][N8 + 2] fp32
   int xb;        // bytes of an x stage
   __device__ Ring(unsigned char* raw, int n8) {
@@ -167,14 +159,36 @@ __device__ __forceinline__ void load_x(const Ring& r, uint64_t* full, int slot,
   tma::load_2d(r.x + slot * r.xb, xm, &full[slot], k, 0);
 }
 
-// d += a b: m16n8k16, bf16 in, fp32 sums
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+// d += a b: m16n8k16, T (bf16 or fp16) in, fp32 sums
+template <typename T>
+__device__ __forceinline__ void mma16(float (&d)[4], const uint32_t (&a)[4],
+                                      uint32_t b0, uint32_t b1) {
+  if constexpr (Elem<T>::kF16) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  } else {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  }
+}
+
+// the int8 pairs of one M tile's A fragment: bytes LO and LO + 1 of the
+// four words v (rows 2t, 2t + 1, 2t + 8, 2t + 9 of a k16 step) as exact T
+// pairs: [0] = (LO of v0, LO of v1), [1] = (LO + 1 of v0, v1), [2] and [3]
+// the same of v2, v3
+template <typename T, int LO>
+__device__ __forceinline__ void i8_fragment(uint32_t (&a)[4], uint32_t v0, uint32_t v1,
+                                            uint32_t v2, uint32_t v3) {
+  a[0] = Elem<T>::template i8x2<LO>(v0, v1);
+  a[1] = Elem<T>::template i8x2<LO + 1>(v0, v1);
+  a[2] = Elem<T>::template i8x2<LO>(v2, v3);
+  a[3] = Elem<T>::template i8x2<LO + 1>(v2, v3);
 }
 
 // A consumer thread's sums: acc[j][nt][e] is M tile j of its warp against
@@ -183,8 +197,9 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
 template <int NT>
 using Acc = float[2][NT][4];
 
-// The W fragments of k16 step kk of the box: f[j] is M tile j of the warp
-// (the lane map at the top of the file), v the four words read.
+// The W fragments of k16 step kk of the box in T: f[j] is M tile j of the
+// warp (the lane map at the top of the file), v the four words read.
+template <typename T>
 __device__ __forceinline__ void w_fragments(const uint8_t* box, int kk, int chunk,
                                             int byte4, int t, uint32_t (&f)[2][4],
                                             uint32_t (&v)[4]) {
@@ -194,17 +209,15 @@ __device__ __forceinline__ void w_fragments(const uint8_t* box, int kk, int chun
     v[e] = *reinterpret_cast<const uint32_t*>(
         box + row * BOX + ((chunk ^ (2 * t + (e & 1))) << 4) + byte4);
   }
-  f[0][0] = i8x2_bf16<0>(v[0], v[1]); f[0][1] = i8x2_bf16<1>(v[0], v[1]);
-  f[0][2] = i8x2_bf16<0>(v[2], v[3]); f[0][3] = i8x2_bf16<1>(v[2], v[3]);
-  f[1][0] = i8x2_bf16<2>(v[0], v[1]); f[1][1] = i8x2_bf16<3>(v[0], v[1]);
-  f[1][2] = i8x2_bf16<2>(v[2], v[3]); f[1][3] = i8x2_bf16<3>(v[2], v[3]);
+  i8_fragment<T, 0>(f[0], v[0], v[1], v[2], v[3]);
+  i8_fragment<T, 2>(f[1], v[0], v[1], v[2], v[3]);
 }
 
 // The consumer warpgroups' sums over n_stage stages, the block's stages
 // seq .. seq + n_stage - 1, into acc (zeroed here; warpgroup h's k16 steps
 // 2h, 2h + 1 of each stage). Every consumer thread calls it; it frees each
-// stage once read.
-template <int NT>
+// stage once read. T is x's type (bf16 or fp16).
+template <int NT, typename T>
 __device__ __forceinline__ void mainloop(const Ring& r, uint64_t* full, uint64_t* empty,
                                          uint32_t seq, int n_stage, Acc<NT>& acc) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -229,7 +242,7 @@ __device__ __forceinline__ void mainloop(const Ring& r, uint64_t* full, uint64_t
     for (int s2 = 0; s2 < 2; ++s2) {
       const int kk = 2 * h + s2;
       uint32_t f[2][4], v[4];
-      w_fragments(box, kk, chunk, byte4, t, f, v);
+      w_fragments<T>(box, kk, chunk, byte4, t, f, v);
       if (FS_INT8_PART == 1) {  // the stream alone
         acc[0][0][0] += __uint_as_float((v[0] ^ v[1] ^ v[2] ^ v[3]) & 0x3F7FFFFFu);
         continue;
@@ -244,8 +257,8 @@ __device__ __forceinline__ void mainloop(const Ring& r, uint64_t* full, uint64_t
         const uint8_t* xr = xs + n * 128 + 4 * t;
         const uint32_t b0 = *reinterpret_cast<const uint32_t*>(xr + (((2 * kk) ^ g) << 4));
         const uint32_t b1 = *reinterpret_cast<const uint32_t*>(xr + (((2 * kk + 1) ^ g) << 4));
-        mma_bf16(acc[0][nt], f[0], b0, b1);
-        mma_bf16(acc[1][nt], f[1], b0, b1);
+        mma16<T>(acc[0][nt], f[0], b0, b1);
+        mma16<T>(acc[1][nt], f[1], b0, b1);
       }
     }
     // the stage's generic reads are ordered before the TMA writes that

@@ -32,7 +32,11 @@ NVCC_FLAGS = (
 )
 
 # dtype codes of the C entry points (csrc/common.cuh)
-DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+# what the kernels without an fp16 form take: the training attention (JAX
+# trains in neither fp16 nor under `--half`) and the int4 matvec (ROADMAP §1
+# item 12b)
+BF16_FP32 = (torch.float32, torch.bfloat16)
 
 
 def _nvcc() -> str:
@@ -140,6 +144,8 @@ def load_kernels() -> ctypes.CDLL:
         ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, ptr
     ]
     lib.fs_int8_matmul_cluster.restype = i32
+    lib.fs_int8_matmul_cluster_f16.argtypes = lib.fs_int8_matmul_cluster.argtypes
+    lib.fs_int8_matmul_cluster_f16.restype = i32
     lib.fs_int8_ffn.argtypes = [
         ptr, ptr, ptr, i32, ptr, ptr, ptr, i32, ptr, ptr, ptr, ptr,
         i32, i32, i32, i32, i32, i32, i32, i32, i32, i32, ptr

@@ -10,6 +10,13 @@ heads of a KV head to Gp >= 8; this one takes any G <= 8 unpadded.
 `flash_decode_reference` is the plain PyTorch version: the wrapper runs it
 for CPU tensors only; for a CUDA tensor it launches the kernel or raises.
 
+q and the cache are bf16 (`decode_mma_kernel`), fp16 (the same kernel on
+fp16 operands, the `--half` serving path) or fp32 (`decode_kernel`). The
+tensor-core forms carry P as two terms of q's dtype, hi + lo (16
+significant bits in bf16, 22 in fp16), so the plain version keeps p in
+fp32. Each wrapper counts its launches in `.launches` and its fp16
+launches also in `.launches_f16`.
+
 Every entry takes an optional per-row `starts` (B,) int32 beside
 `lengths`: row b then attends positions [starts[b], lengths[b]), the JAX
 decode's `kv_valid` mask of the lockstep batch, whose prompts are
@@ -23,9 +30,10 @@ state its slice arithmetic; `decode_partial_reference` and
 `merge_decode_states` replay the split in plain PyTorch.
 
 `flash_decode_attention_kv8` is the same attention over the int8 KV cache
-(int8 K/V, bf16 per-(position, head) scales): the JAX package computed it
-with the einsum `gqa_attention_kv8` (no Pallas kernel); here it is a
-hand-written kernel in the same source, with the same split and merge, and
+(int8 K/V, bf16 per-(position, head) scales, bf16 under fp16 q too, as in
+the JAX package): the JAX package computed it with the einsum
+`gqa_attention_kv8` (no Pallas kernel); here it is a hand-written kernel in
+the same source, with the same split and merge, and
 `flash_decode_kv8_reference` (that einsum's semantics under `lengths`) is
 its plain version. `decode_partial_kv8_reference` replays its slices.
 """
@@ -147,8 +155,8 @@ def _check(q, k_all, v_all, layer, lengths, starts):
                          "starts must lie on one CUDA device")
     if (q.dtype not in DTYPE_CODES or k_all.dtype != q.dtype
             or v_all.dtype != q.dtype):
-        raise TypeError(f"flash_decode_attention: bf16 or fp32 of one dtype, "
-                        f"got {q.dtype}/{k_all.dtype}/{v_all.dtype}")
+        raise TypeError(f"flash_decode_attention: bf16, fp16 or fp32 of one "
+                        f"dtype, got {q.dtype}/{k_all.dtype}/{v_all.dtype}")
     if lengths.dtype != torch.int32:
         raise TypeError("flash_decode_attention: lengths must be int32")
     if q.dim() != 4 or k_all.dim() != 5 or k_all.shape != v_all.shape:
@@ -228,10 +236,13 @@ def flash_decode_attention(q, k_all, v_all, layer: int, lengths, starts=None):
         scale, stream_ptr(q))
     check_launch(rc, "flash_decode")
     flash_decode_attention.launches += 1
+    if q.dtype == torch.float16:
+        flash_decode_attention.launches_f16 += 1
     return out
 
 
 flash_decode_attention.launches = 0
+flash_decode_attention.launches_f16 = 0
 
 
 def flash_decode_kv8_reference(q, k_all, ks_all, v_all, vs_all, layer: int,
@@ -248,11 +259,12 @@ def flash_decode_kv8_reference(q, k_all, ks_all, v_all, vs_all, layer: int,
     return y.reshape(b, hkv, g, d)
 
 
-def _pv_terms(w):
-    """p * vs as the bf16 kernel feeds it to P.V: hi = rn_bf16(w) and lo =
-    rn_bf16(w - hi), summed (`csrc/flash_decode.cu:KV8_PV_TERMS`)."""
-    hi = w.to(torch.bfloat16).float()
-    return hi + (w - hi).to(torch.bfloat16).float()
+def _pv_terms(w, dtype=torch.bfloat16):
+    """p * vs as the bf16 or fp16 kernel feeds it to P.V: hi = rn(w) and
+    lo = rn(w - hi) in `dtype`, summed (`csrc/flash_decode.cu:
+    KV8_PV_TERMS`)."""
+    hi = w.to(dtype).float()
+    return hi + (w - hi).to(dtype).float()
 
 
 def decode_partial_kv8_reference(q, k_all, ks_all, v_all, vs_all, layer: int,
@@ -261,8 +273,8 @@ def decode_partial_kv8_reference(q, k_all, ks_all, v_all, vs_all, layer: int,
     positions [starts[b], ends[b]) of layer `layer`, in fp32, shaped as
     `decode_partial_reference`'s: scores (q . k_i8) * ks / sqrt(D), p =
     exp(score - m), l the sum of p, acc the sum of (p * vs) v_i8, with p *
-    vs carried as the kernel carries it (fp32 for fp32 q, two bf16 terms
-    for bf16 q)."""
+    vs carried as the kernel carries it (fp32 for fp32 q, two terms of q's
+    dtype for bf16 or fp16 q)."""
     d = q.shape[-1]
     k = k_all[layer].float()
     v = v_all[layer].float()
@@ -276,8 +288,8 @@ def decode_partial_kv8_reference(q, k_all, ks_all, v_all, vs_all, layer: int,
     m = s.amax(dim=-1)
     p = torch.exp(s - m.clamp_min(NEG_INF)[..., None])
     w = p * vs_all[layer].float().permute(0, 2, 1)[:, :, None, :]
-    if q.dtype == torch.bfloat16:
-        w = _pv_terms(w)
+    if q.dtype in (torch.bfloat16, torch.float16):
+        w = _pv_terms(w, q.dtype)
     return m, p.sum(dim=-1), torch.einsum("bkgs,bskd->bkgd", w, v)
 
 
@@ -291,8 +303,8 @@ def _check_kv8(q, k_all, ks_all, v_all, vs_all, layer, lengths, starts):
     if (q.dtype not in DTYPE_CODES or k_all.dtype != torch.int8
             or v_all.dtype != torch.int8 or ks_all.dtype != torch.bfloat16
             or vs_all.dtype != torch.bfloat16):
-        raise TypeError("flash_decode_attention_kv8: q bf16/fp32, K/V int8, "
-                        "scales bf16")
+        raise TypeError("flash_decode_attention_kv8: q bf16/fp16/fp32, K/V "
+                        "int8, scales bf16")
     if lengths.dtype != torch.int32:
         raise TypeError("flash_decode_attention_kv8: lengths must be int32")
     if (q.dim() != 4 or k_all.dim() != 5 or k_all.shape != v_all.shape
@@ -344,7 +356,10 @@ def flash_decode_attention_kv8(q, k_all, ks_all, v_all, vs_all, layer: int,
         stream_ptr(q))
     check_launch(rc, "flash_decode_kv8")
     flash_decode_attention_kv8.launches += 1
+    if q.dtype == torch.float16:
+        flash_decode_attention_kv8.launches_f16 += 1
     return out
 
 
 flash_decode_attention_kv8.launches = 0
+flash_decode_attention_kv8.launches_f16 = 0

@@ -6,12 +6,14 @@ Port of the Pallas TPU kernel `fish_speech_tpu/ops/pallas_attention.py`
 (`csrc/flash_prefill.cu`; its header note says what bounds them and how
 they are tiled), picked by `_route` on the dtype, an explicit dispatch, not
 a fallback: bf16 goes to "wgmma", the tensor-core kernel
-(`prefill_wgmma_kernel`, `csrc/attn_wgmma.cuh`), fp32 to "cuda_cores", the
-float32 kernel on the CUDA cores (`prefill_kernel`), which the small fp32
-reference models use. `flash_prefill_reference` is their plain PyTorch
-version: the wrapper runs it for CPU tensors only; for a CUDA tensor it
-launches the route's kernel or raises, and counts the launches in
-`.launches` and `.launches_<route>` (`reset_launches` zeroes them).
+(`prefill_wgmma_kernel`, `csrc/attn_wgmma.cuh`), fp16 (`--half` serving) to
+"wgmma_f16", the same kernel on fp16 operands (P rounded to fp16), fp32 to
+"cuda_cores", the float32 kernel on the CUDA cores (`prefill_kernel`),
+which the small fp32 reference models use. `flash_prefill_reference` is
+their plain PyTorch version: the wrapper runs it for CPU tensors only; for
+a CUDA tensor it launches the route's kernel or raises, and counts the
+launches in `.launches` and `.launches_<route>` (`reset_launches` zeroes
+them).
 
 `flash_suffix_attention` is the same kernels extended to a prefix-cache
 hit's suffix prefill (`models/dual_ar.py:prefill_suffix`, JAX's
@@ -23,9 +25,10 @@ start + i, with `start` read from device memory so that one CUDA graph
 serves every start. Under the int8 cache the K/V tiles go from int8 to the
 kernel's dtype exactly, `ks` scales the columns of Q K^T and `vs` those of P
 before P V (the folding of `ops/attention.py:gqa_attention_kv8`). Its
-routes are counted as "suffix_wgmma", "suffix_kv8_wgmma" (bf16 q) and
-"suffix_cuda_cores", "suffix_kv8_cuda_cores" (fp32 q); the plain version is
-`flash_suffix_reference`.
+routes are counted as "suffix_wgmma", "suffix_kv8_wgmma" (bf16 q),
+"suffix_wgmma_f16", "suffix_kv8_wgmma_f16" (fp16 q; the int8 cache's
+scales stay bf16) and "suffix_cuda_cores", "suffix_kv8_cuda_cores" (fp32
+q); the plain version is `flash_suffix_reference`.
 """
 
 from __future__ import annotations
@@ -44,7 +47,9 @@ def flash_prefill_reference(q, k, v, offsets):
 
     Key j is visible to query i iff j <= i and j >= offsets[b]; fp32 scores
     and softmax, weights cast to v's dtype before P.V (the TPU kernel's
-    numerics)."""
+    numerics; the tensor-core kernels round the unnormalised weights to
+    bf16 or fp16 instead and divide by their fp32 sum at the end: one
+    rounding on each weight either way)."""
     t = q.shape[1]
     i = torch.arange(t, device=q.device)
     mask = (i[None, :] <= i[:, None])[None] & (
@@ -53,24 +58,26 @@ def flash_prefill_reference(q, k, v, offsets):
     return gqa_attention(q, k, v, mask)
 
 
-ROUTES = ("cuda_cores", "wgmma")  # fs_flash_prefill picks one by the dtype
+# fs_flash_prefill picks one by the dtype: fp32, bf16, fp16
+ROUTES = ("cuda_cores", "wgmma", "wgmma_f16")
+_DTYPE_ROUTES = {torch.float32: "cuda_cores", torch.bfloat16: "wgmma",
+                 torch.float16: "wgmma_f16"}
 
 
 def _route(dtype: torch.dtype) -> str:
     """Which kernel `flash_prefill_attention` launches for `dtype`."""
-    if dtype == torch.bfloat16:
-        return "wgmma"
-    if dtype == torch.float32:
-        return "cuda_cores"
-    raise TypeError(f"flash_prefill_attention: bf16 or fp32 q/k/v, got {dtype}")
+    if dtype not in _DTYPE_ROUTES:
+        raise TypeError(f"flash_prefill_attention: bf16, fp16 or fp32 q/k/v, "
+                        f"got {dtype}")
+    return _DTYPE_ROUTES[dtype]
 
 
 def _check(q, k, v, offsets):
     """What the kernels take; the device is checked last, so that the CPU
     tests can hold the rest of the contract."""
     if q.dtype not in DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"flash_prefill_attention: bf16 or fp32 q/k/v of one "
-                        f"dtype, got {q.dtype}/{k.dtype}/{v.dtype}")
+        raise TypeError(f"flash_prefill_attention: bf16, fp16 or fp32 q/k/v of "
+                        f"one dtype, got {q.dtype}/{k.dtype}/{v.dtype}")
     if offsets.dtype != torch.int32:
         raise TypeError("flash_prefill_attention: offsets must be int32")
     if q.dim() != 4 or k.shape != v.shape or k.dim() != 4:
@@ -101,7 +108,7 @@ def flash_prefill_attention(q, k, v, offsets):
         return flash_prefill_reference(q, k, v, offsets)
     _check(q, k, v, offsets)
     route = _route(q.dtype)
-    if route == "wgmma":
+    if route != "cuda_cores":
         check_aligned("flash_prefill_attention", q=q, k=k, v=v)
     lib = load_kernels()
     b, t, h, d = q.shape
@@ -140,7 +147,7 @@ def flash_suffix_reference(q, cache, layer: int, start):
 
 
 SUFFIX_ROUTES = ("suffix_cuda_cores", "suffix_wgmma", "suffix_kv8_cuda_cores",
-                 "suffix_kv8_wgmma")
+                 "suffix_kv8_wgmma", "suffix_wgmma_f16", "suffix_kv8_wgmma_f16")
 
 
 def _suffix_route(dtype: torch.dtype, kv8: bool) -> str:
@@ -155,7 +162,8 @@ def _check_suffix(q, cache, layer, start):
     kv8 = "ks" in cache
     k, v = cache["k"], cache["v"]
     if q.dtype not in DTYPE_CODES:
-        raise TypeError(f"flash_suffix_attention: bf16 or fp32 q, got {q.dtype}")
+        raise TypeError(f"flash_suffix_attention: bf16, fp16 or fp32 q, got "
+                        f"{q.dtype}")
     want = torch.int8 if kv8 else q.dtype
     if k.dtype != want or v.dtype != want:
         raise TypeError(f"flash_suffix_attention: a {want} cache for {q.dtype} "
@@ -201,7 +209,7 @@ def flash_suffix_attention(q, cache, layer: int, start):
     kv8 = "ks" in cache
     route = _suffix_route(q.dtype, kv8)
     k, v = cache["k"], cache["v"]
-    if route.endswith("wgmma"):
+    if "wgmma" in route:
         check_aligned("flash_suffix_attention", q=q, k=k, v=v)
     lib = load_kernels()
     b, ts, h, d = q.shape

@@ -33,8 +33,9 @@ import math
 
 import torch
 
-from fish_speech_tpu_torch.ops._kernels import (DTYPE_CODES, check_aligned,
-                                                 check_launch, load_kernels)
+from fish_speech_tpu_torch.ops._kernels import (BF16_FP32, DTYPE_CODES,
+                                                check_aligned, check_launch,
+                                                load_kernels)
 from fish_speech_tpu_torch.ops.attention import NEG_INF
 
 
@@ -105,7 +106,7 @@ def _route(dtype: torch.dtype) -> str:
 def _check(q, k, v, kvalid, name="flash_train"):
     """What the kernels take; the device is checked last, so that the CPU
     tests can hold the rest of the contract."""
-    if q.dtype not in DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
+    if q.dtype not in BF16_FP32 or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"{name}: bf16 or fp32 q/k/v of one dtype, got "
                         f"{q.dtype}/{k.dtype}/{v.dtype}")
     if kvalid.dtype != torch.int32:

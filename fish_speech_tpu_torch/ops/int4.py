@@ -35,9 +35,9 @@ import functools
 
 import torch
 
-from fish_speech_tpu_torch.ops._kernels import (DTYPE_CODES, check_launch,
-                                                 load_kernels, scratch,
-                                                 sm_count, stream_ptr)
+from fish_speech_tpu_torch.ops._kernels import (BF16_FP32, DTYPE_CODES,
+                                                check_launch, load_kernels,
+                                                scratch, sm_count, stream_ptr)
 
 GEMV_MAX_ROWS = 8  # rows of x up to which the split-K matvec kernel runs
 ROUTES = ("gemv", "wgmma", "fp32_tiled")  # route codes of fs_int4_matmul
@@ -133,9 +133,9 @@ def _route(b: int, dtype: torch.dtype) -> str:
 def _check(x, p, gs):
     if not (x.is_cuda and p.device == x.device and gs.device == x.device):
         raise ValueError("int4_matmul: x, p and gs must lie on one CUDA device")
-    if x.dtype not in DTYPE_CODES or p.dtype != torch.uint8 or gs.dtype != torch.float32:
-        raise TypeError(f"int4_matmul: x bf16/fp32, p uint8, gs fp32; got "
-                        f"{x.dtype}/{p.dtype}/{gs.dtype}")
+    if x.dtype not in BF16_FP32 or p.dtype != torch.uint8 or gs.dtype != torch.float32:
+        raise TypeError(f"int4_matmul: x bf16/fp32 (fp16 is ROADMAP §1 item 12b), "
+                        f"p uint8, gs fp32; got {x.dtype}/{p.dtype}/{gs.dtype}")
     if x.dim() != 2 or p.dim() != 2 or gs.dim() != 2:
         raise ValueError("int4_matmul: x (B, I), p (I/2, O), gs (I/g, O)")
     b, i = x.shape

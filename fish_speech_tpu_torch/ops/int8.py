@@ -5,13 +5,15 @@ Port of the Pallas TPU kernels `scripts/microbench/matvec_pallas.py`
 (`_kernel` / `pl_mv`), which compute the same function over a per-channel
 int8 weight (`ops/quant.py:quantize_int8`):
 
-  x: (B, I) bf16 or fp32, B <= 32;  q: (I, O) int8;  s: (O,) fp32
+  x: (B, I) bf16, fp16 or fp32, B <= 32;  q: (I, O) int8;  s: (O,) fp32
   y[r, o] = rn_dtype(sum_i x[r, i] * float(q[i, o]) * s[o])
 
 summed in fp32, the scale applied in fp32 to the sum, one rounding to x's
-dtype (int8 -> bf16 is exact). JAX's `mm` rounds twice in bf16 (`x @ q`
-to bf16, then the product with the bf16 scale); this is the Pallas
-kernels' one rounding.
+dtype (int8 -> bf16 or fp16 is exact). JAX's `mm` rounds twice in x's
+dtype (`x @ q` to it, then the product with the scale rounded to it); this
+is the Pallas kernels' one rounding, in fp16 too (ROADMAP §3: under
+`--half` the two differ by up to an fp16 ulp, and JAX's fp16 `x @ q`
+overflows where this fp32 sum does not).
 
 The kernels are hand-written CUDA for Hopper (`csrc/int8_mm.cu`). The
 wrapper picks one by x's dtype and rows (`_route`), an explicit dispatch,
@@ -21,8 +23,10 @@ a 128-column tile's runs of I are the blocks of one thread block cluster,
 memory), "gemv_mma" for bf16 x of 1-16 rows (the weight streamed by TMA,
 mma.sync; runs of I from `int8_gemv_split`, their partials added in run
 order in the same launch), "gemv" for fp32 x (the CUDA cores; the small
-fp32 models). q may be a view whose rows lie further apart than O bytes
-(its column stride must be 1).
+fp32 models). fp16 x (`--half` serving) takes the two tensor-core kernels
+on fp16 operands, counted as "gemv_cluster_f16" and "gemv_mma_f16". q may
+be a view whose rows lie further apart than O bytes (its column stride
+must be 1).
 
 `int8_matmul_reference` is the plain version; the wrapper runs it for CPU
 tensors only. For a CUDA tensor it launches the route's kernel or raises.
@@ -39,14 +43,16 @@ from fish_speech_tpu_torch.ops._kernels import (DTYPE_CODES, check_launch,
                                                  sm_count, stream_ptr)
 
 MAX_ROWS = 32  # rows of x the kernels take (ops/quant.py sends more to torch)
-ROUTES = ("gemv_mma", "gemv", "gemv_cluster")  # route codes of fs_int8_matmul (the
-# first two; the third has its own entry point, fs_int8_matmul_cluster)
+# route codes of fs_int8_matmul: the first two (fp16 x takes "gemv_mma"'s
+# code, the kernel picks its form by the dtype); the cluster routes have
+# their own entry points, fs_int8_matmul_cluster and _cluster_f16
+ROUTES = ("gemv_mma", "gemv", "gemv_cluster", "gemv_mma_f16", "gemv_cluster_f16")
 CLUSTER_ROWS = 17  # bf16 rows of x from which the cluster kernel runs
-ROUTE_COLS = {"gemv_mma": 128, "gemv": 256}  # output columns per block
+ROUTE_COLS = {"gemv_mma": 128, "gemv": 256, "gemv_mma_f16": 128}  # columns a block
 STAGE_ROWS = 128  # rows of q per stage: a run is whole stages
 BLOCKS_PER_SM = 2  # blocks the split aims for
 MAX_SPLIT = 64  # most runs I is cut into
-_ROUTE_CODES = {r: n for n, r in enumerate(ROUTES)}
+_ROUTE_CODES = {"gemv_mma": 0, "gemv": 1, "gemv_mma_f16": 0}
 TILE_COLS = 128  # "gemv_cluster": output columns of a cluster, one TMA box of q
 CLUSTER_STAGE_ROWS = 64  # "gemv_cluster": rows of q per stage, a run is whole stages
 CLUSTERS = (1, 2, 4, 8)  # blocks of a cluster (runs of a tile) the kernel takes
@@ -137,18 +143,19 @@ def _route(b: int, dtype: torch.dtype) -> str:
     if not 1 <= b <= MAX_ROWS:
         raise ValueError(f"int8_matmul: {b} rows of x; the kernels take 1 to "
                          f"{MAX_ROWS} (ops/quant.py:mm keeps more in torch)")
-    if dtype == torch.bfloat16:
-        return "gemv_cluster" if b >= CLUSTER_ROWS else "gemv_mma"
+    if dtype in (torch.bfloat16, torch.float16):
+        route = "gemv_cluster" if b >= CLUSTER_ROWS else "gemv_mma"
+        return route + ("_f16" if dtype == torch.float16 else "")
     if dtype == torch.float32:
         return "gemv"
-    raise TypeError(f"int8_matmul: x must be bf16 or fp32, got {dtype}")
+    raise TypeError(f"int8_matmul: x must be bf16, fp16 or fp32, got {dtype}")
 
 
 def _check(x, q, s):
     """(B, I, O, row stride of q). Types, shapes and layout first, the
     device last (so the CPU tests reach every check before it)."""
     if x.dtype not in DTYPE_CODES or q.dtype != torch.int8 or s.dtype != torch.float32:
-        raise TypeError(f"int8_matmul: x bf16/fp32, q int8, s fp32; got "
+        raise TypeError(f"int8_matmul: x bf16/fp16/fp32, q int8, s fp32; got "
                         f"{x.dtype}/{q.dtype}/{s.dtype}")
     if x.dim() != 2 or q.dim() != 2 or s.dim() != 1:
         raise ValueError("int8_matmul: x (B, I), q (I, O), s (O,)")
@@ -184,25 +191,26 @@ def _plan(x, q, s):
     if plan is None:
         b, i, o, ldq = _check(x, q, s)
         route = _route(b, x.dtype)
-        if route == "gemv_cluster":
+        cluster = route.startswith("gemv_cluster")
+        if cluster:
             n_split, run = int8_gemv_plan(b, i, o, sm_count(x.device))
         else:
             n_split, run = int8_gemv_split(route, b, i, o, sm_count(x.device))
         work = counters = 0  # NULL: one run, or the cluster kernel
-        if n_split > 1 and route != "gemv_cluster":
+        if n_split > 1 and not cluster:
             w, c = scratch("int8_gemv", x.device, n_split * b * o,
                            -(-o // ROUTE_COLS[route]))
             work, counters = w.data_ptr(), c.data_ptr()
         plan = _PLANS[key] = (route, f"launches_{route}", i, o, ldq, n_split, run,
                               work, counters, DTYPE_CODES[x.dtype],
-                              _ROUTE_CODES[route])
+                              _ROUTE_CODES.get(route))
     elif not (x.is_contiguous() and s.is_contiguous()):
         raise ValueError("int8_matmul: x and s must be contiguous")
     return plan
 
 
 def int8_matmul(x, q, s):
-    """x (B, I) bf16/fp32, B <= 32, @ int8 q (I, O) times s (O,) -> (B, O)
+    """x (B, I) bf16/fp16/fp32, B <= 32, @ int8 q (I, O) times s (O,) -> (B, O)
     in x's dtype. On CUDA tensors runs the hand-written kernel of
     `_route(B, x.dtype)`."""
     if not x.is_cuda and x.device.type == "cpu":
@@ -211,10 +219,12 @@ def int8_matmul(x, q, s):
      route_code) = _plan(x, q, s)
     b = x.shape[0]
     out = x.new_empty((b, o))
-    if route == "gemv_cluster":
-        rc = load_kernels().fs_int8_matmul_cluster(
-            x.data_ptr(), q.data_ptr(), s.data_ptr(), out.data_ptr(), b, i, o, ldq,
-            n_split, run, stream_ptr(x))
+    if route_code is None:  # the cluster kernel, bf16 or fp16
+        lib = load_kernels()
+        entry = (lib.fs_int8_matmul_cluster_f16 if route == "gemv_cluster_f16"
+                 else lib.fs_int8_matmul_cluster)
+        rc = entry(x.data_ptr(), q.data_ptr(), s.data_ptr(), out.data_ptr(), b, i,
+                   o, ldq, n_split, run, stream_ptr(x))
     else:
         rc = load_kernels().fs_int8_matmul(
             x.data_ptr(), q.data_ptr(), s.data_ptr(), out.data_ptr(), work, counters,

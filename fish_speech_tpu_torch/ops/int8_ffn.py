@@ -5,7 +5,7 @@ Port of the Pallas TPU kernel `scripts/microbench/ffn_fused_packed.py`
 (`models/dual_ar.py:_ffn`) in one kernel over per-channel int8 weights
 (`ops/quant.py:quantize_int8`):
 
-  x: (B, D) bf16 or fp32, 1 <= B <= 32
+  x: (B, D) bf16, fp16 or fp32, 1 <= B <= 32
   w13: {"q": int8 (D, 2I), "s": fp32 (2I,)} (`fuse_ffn_weights`), or the
        pair (w1, w3), each {"q": int8 (D, I), "s": fp32 (I,)}
   w2: {"q": int8 (I, D), "s": fp32 (D,)}
@@ -22,8 +22,9 @@ runs phase A (u1, u3 and the gate into g), a grid barrier, and phase B (g
 @ q2), each cut into items of a column tile and a run of rows
 (`int8_ffn_plan`). The wrapper picks the kernel by x's dtype (`_route`),
 an explicit dispatch, not a fallback: "mma" for bf16 x (the tensor cores,
-the weights streamed by TMA), "cuda_cores" for fp32 x (the small fp32
-models). It reads the weights as the session holds them: w13's halves are
+the weights streamed by TMA), "mma_f16" for fp16 x (`--half` serving: the
+same kernel on fp16 operands, g and y rounded to fp16), "cuda_cores" for
+fp32 x (the small fp32 models). It reads the weights as the session holds them: w13's halves are
 views, w13 and w2 row-major; nothing is repacked or copied.
 
 `int8_ffn_reference` is the plain version; the wrapper runs it for CPU
@@ -43,11 +44,11 @@ from fish_speech_tpu_torch.ops._kernels import (DTYPE_CODES, check_aligned,
                                                  scratch, stream_ptr)
 
 MAX_ROWS = 32  # rows of x the kernels take (`models/dual_ar.py:_ffn` keeps more in torch)
-ROUTES = ("mma", "cuda_cores")  # route codes of fs_int8_ffn
+ROUTES = ("mma", "cuda_cores", "mma_f16")  # route codes of fs_int8_ffn
 # columns of I (phase A) and of D (phase B) an item covers, by route: the
 # mma route's phase A item is a 128-column box of q1 and one of q3, its
 # phase B item two boxes of q2; the CUDA-core kernel a column per thread
-ITEM_COLS = {"mma": (128, 256), "cuda_cores": (256, 256)}
+ITEM_COLS = {"mma": (128, 256), "cuda_cores": (256, 256), "mma_f16": (128, 256)}
 STAGE_ROWS = 64  # weight rows per stage of the mma route (`csrc/int8_ffn.cu`)
 STAGE_BYTES = 2 * STAGE_ROWS * 128  # two TMA boxes
 ITEM_SUMS = 256  # fp32 sums of an mma item per row of x: u1 | u3 of 128 columns, or 256 of y
@@ -174,11 +175,11 @@ def _route(b: int, dtype: torch.dtype) -> str:
     if not 1 <= b <= MAX_ROWS:
         raise ValueError(f"int8_ffn: {b} rows of x; the kernels take 1 to "
                          f"{MAX_ROWS} (`models/dual_ar.py:_ffn` keeps more in torch)")
-    if dtype == torch.bfloat16:
-        return "mma"
-    if dtype == torch.float32:
-        return "cuda_cores"
-    raise TypeError(f"int8_ffn: x must be bf16 or fp32, got {dtype}")
+    routes = {torch.bfloat16: "mma", torch.float16: "mma_f16",
+              torch.float32: "cuda_cores"}
+    if dtype not in routes:
+        raise TypeError(f"int8_ffn: x must be bf16, fp16 or fp32, got {dtype}")
+    return routes[dtype]
 
 
 def _check(x, q1, s1, q3, s3, q2, s2):
@@ -187,7 +188,7 @@ def _check(x, q1, s1, q3, s3, q2, s2):
     if (x.dtype not in DTYPE_CODES
             or any(q.dtype != torch.int8 for q in (q1, q3, q2))
             or any(s.dtype != torch.float32 for s in (s1, s3, s2))):
-        raise TypeError(f"int8_ffn: x bf16/fp32, q int8, s fp32; got {x.dtype}/"
+        raise TypeError(f"int8_ffn: x bf16/fp16/fp32, q int8, s fp32; got {x.dtype}/"
                         f"{q1.dtype}, {q3.dtype}, {q2.dtype}/{s1.dtype}, "
                         f"{s3.dtype}, {s2.dtype}")
     if x.dim() != 2 or any(q.dim() != 2 for q in (q1, q3, q2)) or any(
@@ -210,7 +211,7 @@ def _check(x, q1, s1, q3, s3, q2, s2):
         raise ValueError(f"int8_ffn: q1, q3 and q2 need unit column stride and rows "
                          f"at least a row apart, q1 and q3 alike; strides "
                          f"{q1.stride()}, {q3.stride()}, {q2.stride()}")
-    if route == "mma" and (d % 16 or i % 16 or d < 128 or i < 128
+    if route != "cuda_cores" and (d % 16 or i % 16 or d < 128 or i < 128
                            or ld13 % 16 or ld2 % 16):
         raise ValueError(f"int8_ffn: the tensor-core route reads whole 128-byte "
                          f"boxes by TMA: D={d} and I={i} must be multiples of 16, "
@@ -261,13 +262,13 @@ def _plan(x, q1, s1, q3, s3, q2, s2):
                               DTYPE_CODES[x.dtype], _ROUTE_CODES[route])
     elif not all(t.is_contiguous() for t in (x, s1, s3, s2)):
         raise ValueError("int8_ffn: x and the scales must be contiguous")
-    if plan[0] == "mma":
+    if plan[0] != "cuda_cores":
         check_aligned("int8_ffn", x=x, q1=q1, q3=q3, q2=q2)
     return plan
 
 
 def int8_ffn(x, w13, w2):
-    """x (B, D) bf16/fp32, B <= 32, through the int8 SwiGLU FFN of w13 (a
+    """x (B, D) bf16/fp16/fp32, B <= 32, through the int8 SwiGLU FFN of w13 (a
     fused dict or a pair (w1, w3)) and w2 -> (B, D) in x's dtype. On CUDA
     tensors runs the hand-written kernel of `_route(B, x.dtype)`."""
     if not x.is_cuda and x.device.type == "cpu":

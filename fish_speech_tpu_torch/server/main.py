@@ -13,8 +13,12 @@ smoke tests and demos:
 `--int8` quantizes the weights at load (`quantize_dual_ar_lowmem(mode=
 "int8")`), `--kv-int8` keeps the KV cache in int8, `--pool-size` > 1 serves
 through the continuous batcher (`engine/batcher.py`), and `--prefix-cache`
-sizes the voice-clone prefix cache of either session. fp16 (`--half`) is
-not served: the port's kernels take bf16 and fp32.
+sizes the voice-clone prefix cache of either session. The LM and the codec
+load in bf16, or in fp16 with `--half` (the JAX server's dtypes; the
+kernels have fp16 forms), with any of the flags above and under a mesh;
+`--half` over a checkpoint of int4 leaves (`tools/quantize.py --mode int4`)
+raises, as the int4 kernels have no fp16 form yet (ROADMAP §1 item 12b).
+`--tiny` serves fp32 models whatever `--half` says, as JAX's.
 
 Multi-card serving: one process per card, each started with the same flags
 and `--coordinator HOST:PORT --num-hosts N --host-id I` (JAX's flags; in the
@@ -22,8 +26,8 @@ port the rendezvous, the world size and this process's rank). Rank I runs
 on `cuda:{I % cards}` over nccl (with `--cpu` on the CPU over gloo), the LM
 is split over a (dp=1, tp=N) mesh, rank 0 serves HTTP and broadcasts each
 request (`server/multihost.py`), and the other ranks follow it in lockstep.
-As JAX's server, it serves one stream of bf16 weights: `--pool-size` > 1
-and `--int8` raise under it.
+As JAX's server, it serves one stream of bf16 (or, with `--half`, fp16)
+weights: `--pool-size` > 1 and `--int8` raise under it.
 The JAX server's persistent compile cache has no counterpart: `warm_up`
 captures the CUDA graphs instead.
 """
@@ -50,11 +54,17 @@ def check_args(args, multihost: bool = False):
     if multihost and args.int8:
         raise NotImplementedError(
             "int8 weights have no tensor-parallel layout yet; serve "
-            "multi-card in bf16 (ROADMAP §1 item 10)")
-    if args.half:
-        raise NotImplementedError(
-            "--half (fp16) is not served by the port: its kernels take bf16 "
-            "and fp32")
+            "multi-card in bf16 or fp16 (ROADMAP §1 item 10)")
+
+
+def has_int4_leaves(tree) -> bool:
+    """Whether a parameter tree holds an int4 weight ({"p", "gs"})."""
+    if isinstance(tree, dict):
+        return {"p", "gs"} <= tree.keys() or any(
+            has_int4_leaves(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return any(has_int4_leaves(v) for v in tree)
+    return False
 
 
 def tiny_models(device):
@@ -87,7 +97,8 @@ def tiny_models(device):
 
 def build_engine(args, multihost: bool = False):
     """The engine `args` ask for: the LM (a checkpoint's, or random tiny
-    models with --tiny), quantized with --int8, behind a single-stream
+    models with --tiny) in bf16 or, with --half, fp16 (the codec in the
+    same dtype, as JAX's), quantized with --int8, behind a single-stream
     `GenerationSession` or, with --pool-size > 1, a `ContinuousBatcher`,
     and the codec. On `cuda:0` unless --cpu. `multihost` (the process group
     is up, `parallel/mesh.py:init_distributed`): on this rank's device, the
@@ -117,9 +128,14 @@ def build_engine(args, multihost: bool = False):
         tokenizer, cfg, params, dac_cfg, dac_params = tiny_models(device)
         dtype = torch.float32
     else:
-        dtype = torch.bfloat16
+        dtype = torch.float16 if args.half else torch.bfloat16
         params, cfg = load_dual_ar(args.checkpoint_path, dtype=dtype,
                                    device=device)
+        if args.half and has_int4_leaves(params):  # the int4 kernels take bf16, fp32
+            raise NotImplementedError(
+                "--half over int4 leaves is not served: the int4 kernels have no "
+                "fp16 form yet (ROADMAP §1 item 12b); serve this checkpoint in "
+                "bf16, or quantize it with --mode int8")
         tokenizer = FishTokenizer.from_pretrained(args.checkpoint_path)
         cfg = dataclasses.replace(
             cfg, semantic_begin_id=tokenizer.semantic_begin_id,
@@ -127,7 +143,7 @@ def build_engine(args, multihost: bool = False):
             im_end_id=tokenizer.im_end_id).resolve()
         dac_params, dac_cfg = load_codec(
             args.decoder_checkpoint_path or args.checkpoint_path,
-            dtype=torch.float32, device=device)
+            dtype=dtype, device=device)
 
     if args.int8:
         from fish_speech_tpu_torch.ops.quant import quantize_dual_ar_lowmem
@@ -219,7 +235,7 @@ def parse_args(argv=None):
     parser.add_argument("--listen", type=str, default="127.0.0.1:8080")
     parser.add_argument("--api-key", type=str, default=None)
     parser.add_argument("--half", action="store_true",
-                        help="fp16 weights: not served by the port (raises)")
+                        help="fp16 LM and codec (int4 checkpoints raise: ROADMAP §1 item 12b)")
     parser.add_argument("--max-text-length", type=int, default=0)
     parser.add_argument("--max-inflight", type=int, default=0,
                         help="cap concurrent /v1/tts requests; excess gets "

@@ -32,11 +32,18 @@ WRAPPERS = {"train": flash_train, "train_bwd": flash_train,
 
 @pytest.mark.parametrize("name", sorted(WRAPPERS))
 def test_route_by_dtype(name):
+    """bf16 "wgmma", fp32 "cuda_cores"; fp16 "wgmma_f16" for the prefill
+    (`--half` serving) and a TypeError for training, which JAX runs in
+    neither fp16 nor under `--half`."""
     mod = WRAPPERS[name]
-    assert mod.ROUTES == ("cuda_cores", "wgmma")
+    half = name == "prefill"
+    assert mod.ROUTES == ("cuda_cores", "wgmma") + (("wgmma_f16",) if half else ())
     assert mod._route(torch.bfloat16) == "wgmma"
     assert mod._route(torch.float32) == "cuda_cores"
-    for dtype in (torch.float16, torch.float64, torch.int8):
+    if half:
+        assert mod._route(torch.float16) == "wgmma_f16"
+    for dtype in ((torch.float64, torch.int8) if half
+                  else (torch.float16, torch.float64, torch.int8)):
         with pytest.raises(TypeError):
             mod._route(dtype)
 
@@ -83,8 +90,10 @@ def test_check_rejects_other_head_dims(name, d):
 def test_check_rejects_mixed_and_other_dtypes(name):
     with pytest.raises(TypeError):
         _check(name, *_args(name, kdtype=torch.float32))
-    with pytest.raises(TypeError):
-        _check(name, *_args(name, dtype=torch.float16))
+    # fp16 is the prefill's `--half` form; training takes no fp16
+    for dtype in (torch.float64,) + (() if name == "prefill" else (torch.float16,)):
+        with pytest.raises(TypeError):
+            _check(name, *_args(name, dtype=dtype))
     q, k, v, mask = _args(name)
     with pytest.raises(TypeError):
         _check(name, q, k, v, mask.long())

@@ -123,7 +123,7 @@ def _assert_close(got, want, dtype):
         assert err.mean().item() <= 2e-3, err.mean().item()
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
 @pytest.mark.parametrize("b,t,h,hkv,d,offsets", [
     (1, 64, 32, 8, 128, [0]),
     (2, 100, 4, 2, 64, [0, 7]),
@@ -149,7 +149,7 @@ def test_prefill_kernel_matches_plain(dev, dtype, b, t, h, hkv, d, offsets):
     _assert_close(got, flash_prefill_reference(q, k, v, off), dtype)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
 @pytest.mark.parametrize("n_layer,b,s,hkv,g,d,lengths", [
     (2, 1, 4160, 8, 4, 128, [1]),
     (2, 1, 4160, 8, 4, 128, [257]),
@@ -175,7 +175,7 @@ def test_decode_kernel_matches_plain(dev, dtype, n_layer, b, s, hkv, g, d,
 # S = 4160 at 8 KV heads splits 17 ways on 132 SMs, into slices of 256
 # positions (`decode_split_count`, `decode_slice`); the bf16 kernel reads
 # them in stages of 64 and tiles of 16
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
 @pytest.mark.parametrize("lengths", [[1], [15], [17], [255], [256], [257],
                                      [513], [4160], [1, 257, 4160]])
 def test_decode_kernel_on_slice_boundaries(dev, dtype, lengths):
@@ -404,7 +404,8 @@ def test_train_attention_function_bf16_matches_plain(dev):
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(dev):
-    q = torch.zeros(1, 8, 4, 128, device=dev, dtype=torch.float16)
+    # fp16 has a prefill form (`--half`); float64 none
+    q = torch.zeros(1, 8, 4, 128, device=dev, dtype=torch.float64)
     with pytest.raises(TypeError):
         flash_prefill_attention(q, q, q, torch.zeros(1, dtype=torch.int32,
                                                      device=dev))
@@ -525,7 +526,7 @@ def test_mm_routes_int4_products_by_rows_and_dtype(dev):
             assert getattr(int4_matmul, f"launches_{r}") == n + (r == route), r
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
 @pytest.mark.parametrize("n_layer,b,s,hkv,g,d,lengths", [
     (2, 1, 2112, 8, 4, 128, [1]),
     (2, 1, 2112, 8, 4, 128, [129]),
@@ -775,7 +776,7 @@ def _suffix_cache(dev, kv8, dtype, b=2, s=320, hkv=2, d=64, layers=2, seed=0):
     return {n: torch.from_numpy(rng.normal(size=shape)).to(dev, dtype) for n in "kv"}
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32, torch.float16])
 @pytest.mark.parametrize("kv8", [False, True])
 @pytest.mark.parametrize("start,ts,d", [(0, 64, 64), (151, 64, 128),
                                         (37, 130, 128), (255, 1, 64)])
@@ -822,8 +823,8 @@ def test_flash_suffix_refuses_what_the_kernels_do_not_take(dev):
         fp.flash_suffix_attention(q, cache, 0, st.long())
     with pytest.raises(ValueError, match="one CUDA device"):
         fp.flash_suffix_attention(q, cache, 0, st.cpu())
-    with pytest.raises(TypeError):
-        fp.flash_suffix_attention(q.half(), cache, 0, st)
+    with pytest.raises(TypeError):  # fp16 has a form; float64 none
+        fp.flash_suffix_attention(q.double(), cache, 0, st)
 
 
 @pytest.mark.parametrize("kind", ["bf16", "mixed"])
@@ -1219,7 +1220,7 @@ def test_int8_kernel_matches_plain(dev, i, o, layout):
             del exact, scale, err
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32, torch.float16])
 def test_int8_kernel_launches_once_and_allocates_only_the_output(dev, dtype):
     rng = np.random.default_rng(4)
     for b, i, o in [(1, 2560, 19456), (32, 4096, 2560), (1, 2560, 4097)]:
@@ -1232,7 +1233,7 @@ def test_int8_kernel_launches_once_and_allocates_only_the_output(dev, dtype):
         assert launched == [1, 1] and made == 1  # the output only
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32, torch.float16])
 def test_int8_kernel_is_deterministic_and_graph_capturable(dev, dtype):
     """Two calls give the same bits (the runs are added in one order); a
     CUDA graph of the call replayed after x changes in place equals the
@@ -1404,7 +1405,7 @@ def test_int8_ffn_kernel_matches_plain(dev, d, i):
             assert torch.equal(_ffn({"w13": w13, "w2": w2}, (0,) * 5, x[:, None])[:, 0], got)
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32, torch.float16])
 def test_int8_ffn_launches_once_and_allocates_only_the_output(dev, dtype):
     rng = np.random.default_rng(4)
     for b, d, i in [(1, 2560, 9728), (32, 1536, 6144)]:
@@ -1416,7 +1417,7 @@ def test_int8_ffn_launches_once_and_allocates_only_the_output(dev, dtype):
         assert launched == [1, 1] and made == 1  # the output only
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32, torch.float16])
 @pytest.mark.parametrize("b", [1, 32])
 def test_int8_ffn_is_deterministic_and_graph_capturable(dev, dtype, b):
     """Two calls give the same bits (runs added in one order, no atomics on
@@ -1453,8 +1454,8 @@ def test_int8_ffn_check_refuses_on_the_card(dev):
     x = torch.zeros(2, 256, dtype=torch.bfloat16, device=dev)
     with pytest.raises(ValueError, match="rows"):
         int8_ffn(torch.zeros(33, 256, dtype=torch.bfloat16, device=dev), w13, w2)
-    with pytest.raises(TypeError):
-        int8_ffn(x.half(), w13, w2)
+    with pytest.raises(TypeError):  # fp16 has a form; float64 none
+        int8_ffn(x.double(), w13, w2)
     with pytest.raises(ValueError, match="16-byte"):  # x off a 16-byte boundary
         int8_ffn(torch.zeros(2 * 256 + 1, dtype=torch.bfloat16, device=dev)[1:].view(2, 256),
                  w13, w2)
@@ -1532,7 +1533,7 @@ def _starts_inputs(rng, kv8, dtype, s, hkv, g, d, lengths, starts, dev):
 
 
 @pytest.mark.parametrize("kv8", [False, True])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
 @pytest.mark.parametrize("s,hkv,g,d,lengths,starts", STARTS_CASES)
 def test_decode_kernels_with_starts_match_plain(dev, kv8, dtype, s, hkv, g, d,
                                                 lengths, starts):
@@ -1553,7 +1554,7 @@ def test_decode_kernels_with_starts_match_plain(dev, kv8, dtype, s, hkv, g, d,
 
 
 @pytest.mark.parametrize("kv8", [False, True])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
 def test_decode_kernels_without_starts_give_the_bits_of_zero_starts(dev, kv8, dtype):
     rng = np.random.default_rng(17)
     lengths = [2048, 1, 700, 257]
@@ -1748,7 +1749,7 @@ LOCAL_SLOW = [(16, 4), (8, 2)]
 LOCAL_FAST = [(6, 2), (3, 1)]
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
 @pytest.mark.parametrize("h,hkv", LOCAL_SLOW)
 def test_local_heads_prefill_and_suffix_match_plain(dev, dtype, h, hkv):
     from fish_speech_tpu_torch.ops import flash_prefill as fp
@@ -1775,7 +1776,7 @@ def test_local_heads_prefill_and_suffix_match_plain(dev, dtype, h, hkv):
         _assert_close(got, fp.flash_suffix_reference(qs, cache, 1, st), dtype)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
 @pytest.mark.parametrize("s,hkv,g,lengths", [
     *((2112, hkv, h // hkv, [1000]) for h, hkv in LOCAL_SLOW),
     *((10, hkv, h // hkv, [7]) for h, hkv in LOCAL_FAST),
@@ -1796,7 +1797,7 @@ def test_local_heads_decode_matches_plain(dev, dtype, s, hkv, g, lengths):
         _assert_close(got, flash_decode_reference(q, k, v, layer, lens), dtype)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
 @pytest.mark.parametrize("h,hkv", LOCAL_SLOW)
 def test_local_heads_kv8_decode_matches_plain(dev, dtype, h, hkv):
     rng = np.random.default_rng(h + 1)
@@ -1937,3 +1938,106 @@ def test_eval_quality_tiny_on_the_card(dev, tmp_path):
         assert conf["aggregates"]["wer_en"] == 0.0 == conf["aggregates"]["wer_zh"]
         assert -1.0 <= conf["aggregates"]["sim_mean"] <= 1.0
     assert kv8["baseline"] == 0 and kv8["kv-int8"] > 0
+
+
+# ---------------------------------------------------------------------------
+# fp16 (`--half` serving): the fp16 forms of the int8 products and of the
+# fused FFN at serving shapes, and a graphed fp16 session (the attention
+# kernels' fp16 forms are cases of the dtype-parametrized tests above)
+# ---------------------------------------------------------------------------
+
+INT8_F16_SHAPES = [(2560, 6144, "contiguous"), (9728, 2560, "contiguous"),
+                   (2560, 155136, "contiguous"), (2560, 4097, "padded"),
+                   (1536, 4096, "contiguous"), (1001, 200, "padded"),
+                   (2560, 4097, "contiguous")]
+
+
+@pytest.mark.parametrize("i,o,layout", INT8_F16_SHAPES)
+def test_fp16_int8_kernel_matches_plain(dev, i, o, layout):
+    """fp16 x of 1-16 rows on `int8_gemv_mma_kernel`'s fp16 form, 17-32 on
+    `int8_gemv_cluster_kernel`'s: within 2^-11 |y| (the one rounding of y
+    to fp16) + 1e-5 of (|x| @ |q|) * s (the order of the fp32 sums) of the
+    exact product, and `mm`'s route gives the same bits."""
+    rng = np.random.default_rng(i + o + 1)
+    q, s = _int8_weight(i, o, layout, i * o + 1, dev)
+    qf = q.float()
+    for b in (1, 4, 16, 17, 27, 32):
+        x = _randn(rng, (b, i), torch.float16, dev)
+        route = f"launches_{int8_route(b, torch.float16)}"
+        assert route.endswith("_f16")
+        n0, r0 = int8_matmul.launches, getattr(int8_matmul, route)
+        got = int8_matmul(x, q, s)
+        torch.cuda.synchronize()
+        assert int8_matmul.launches == n0 + 1 and got.dtype == torch.float16
+        assert getattr(int8_matmul, route) == r0 + 1
+        exact = (x.float() @ qf) * s
+        scale = (x.float().abs() @ qf.abs()) * s
+        err = (got.float() - exact).abs()
+        assert bool((err <= 2.0 ** -11 * exact.abs() + 1e-5 * scale).all()), \
+            (b, err.max().item())
+        assert torch.equal(mm(x[:, None], {"q": q, "s": s})[:, 0], got)
+        del exact, scale, err
+
+
+@pytest.mark.parametrize("d,i", FFN_SHAPES)
+def test_fp16_int8_ffn_kernel_matches_plain(dev, d, i):
+    """`int8_ffn_mma_kernel`'s fp16 form within 2 fp16 ulps of max |y| of
+    the plain version (g rounded to fp16 once in both, from u summed in
+    another order), the model's route the same bits."""
+    from fish_speech_tpu_torch.models.dual_ar import _ffn
+
+    rng = np.random.default_rng(d + i + 1)
+    w13, w2 = _ffn_weights(d, i, d * i + 1, dev)
+    for b in (1, 4, 16, 32):
+        x = _randn(rng, (b, d), torch.float16, dev)
+        n0, r0 = int8_ffn.launches, int8_ffn.launches_mma_f16
+        got = int8_ffn(x, w13, w2)
+        torch.cuda.synchronize()
+        assert int8_ffn.launches == n0 + 1 and int8_ffn.launches_mma_f16 == r0 + 1
+        assert got.dtype == torch.float16 and bool(torch.isfinite(got).all())
+        want = int8_ffn_reference(x, w13, w2)
+        err = (got.float() - want.float()).abs().max().item()
+        top = want.float().abs().max().item()
+        assert err <= 2 * 2.0 ** (np.floor(np.log2(top)) - 10), (err, top)
+        assert torch.equal(_ffn({"w13": w13, "w2": w2}, (0,) * 5, x[:, None])[:, 0], got)
+
+
+@pytest.mark.parametrize("kind", ["fp16", "fp16_int8"])
+def test_fp16_graphed_session_equals_its_eager_run(dev, kind):
+    """`_graph_cfg`'s model in fp16 (weights int8 and the KV cache int8 in
+    "fp16_int8"): greedy columns of the graphed session equal an eager
+    session's on the same weights (the same kernels, launched one by one),
+    and the replayed decode step launches the fp16 forms only."""
+    from fish_speech_tpu_torch.config import SamplingConfig
+    from fish_speech_tpu_torch.generate import GenerationSession
+    from fish_speech_tpu_torch.models.dual_ar import init_dual_ar
+    from fish_speech_tpu_torch.ops.quant import quantize_dual_ar_lowmem
+
+    cfg = _graph_cfg()
+    params = init_dual_ar(7, cfg, torch.float16, dev)
+    quant = kind == "fp16_int8"
+    if quant:
+        params = quantize_dual_ar_lowmem(params, mode="int8")
+    kw = dict(decode_chunk_size=4, first_chunk_size=2, kv_quant=quant,
+              dtype=torch.float16)
+    graphed = GenerationSession(params, cfg, SamplingConfig(), **kw)
+    eager = GenerationSession(params, cfg, SamplingConfig(), **kw)
+    eager.eager = True
+    assert not graphed.eager
+    graphed.precompile(37, 11)
+    per_step = graphed.launches_per_replay("decode")
+    fast = cfg.num_codebooks * cfg.n_fast_layer
+    if quant:  # the slow stack over the int8 cache, the fast over its own
+        assert per_step["flash_decode_attention_kv8.launches_f16"] == cfg.n_layer
+        assert per_step["flash_decode_attention.launches_f16"] == fast
+    else:
+        assert per_step["flash_decode_attention.launches_f16"] == cfg.n_layer + fast
+    if quant:
+        assert per_step["int8_ffn.launches_mma_f16"] >= cfg.n_layer
+        assert per_step["int8_matmul.launches_gemv_mma_f16"] > 0
+        assert per_step.get("int8_matmul.launches_gemv_mma", 0) == 0
+    prompt = _graph_prompt(cfg, 37, seed=37)
+    got = graphed.generate(prompt, 1, max_new_tokens=11, top_k=1)
+    want = eager.generate(prompt, 1, max_new_tokens=11, top_k=1)
+    np.testing.assert_array_equal(got, want)
+    assert graphed.replays["decode"] > 0 and not eager.replays

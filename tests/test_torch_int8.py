@@ -335,8 +335,8 @@ def test_route_by_rows_and_dtype():
     for b in (0, 33, 1024):
         with pytest.raises(ValueError, match="rows"):
             _route(b, torch.bfloat16)
-    with pytest.raises(TypeError):
-        _route(1, torch.float16)
+    with pytest.raises(TypeError):  # fp16 takes the kernels' fp16 forms
+        _route(1, torch.float64)
 
 
 def test_check_refuses_what_the_kernels_do_not_take_device_last():
@@ -345,7 +345,7 @@ def test_check_refuses_what_the_kernels_do_not_take_device_last():
     q = torch.zeros(64, 48, dtype=torch.int8)
     s = torch.ones(48)
     for args, err in [
-            ((x.half(), q, s), TypeError),
+            ((x.double(), q, s), TypeError),
             ((x, q.to(torch.uint8), s), TypeError),
             ((x, q, s.to(torch.bfloat16)), TypeError),
             ((x[None], q, s), ValueError),

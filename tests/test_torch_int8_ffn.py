@@ -218,7 +218,7 @@ def test_plan_covers_every_column_and_row_once(route, d, i):
             # runs [k run, min(rows, (k + 1) run)): every row once, none empty
             assert (p.n_a - 1) * p.run_a < d <= p.n_a * p.run_a
             assert (p.n_b - 1) * p.run_b < i <= p.n_b * p.run_b
-            if route == "mma":
+            if route != "cuda_cores":  # "mma" and "mma_f16"
                 assert p.run_a % tffn.STAGE_ROWS == 0 and p.run_b % tffn.STAGE_ROWS == 0
                 assert p.n_a <= tffn.MAX_SPLIT and p.n_b <= tffn.MAX_SPLIT
             else:
@@ -272,8 +272,8 @@ def test_route_by_rows_and_dtype():
     for b in (0, 33, 1024):
         with pytest.raises(ValueError, match="rows"):
             _route(b, torch.bfloat16)
-    with pytest.raises(TypeError):
-        _route(1, torch.float16)
+    with pytest.raises(TypeError):  # fp16 takes the kernel's fp16 form
+        _route(1, torch.float64)
 
 
 def test_check_refuses_what_the_kernels_do_not_take_device_last():
@@ -292,7 +292,7 @@ def test_check_refuses_what_the_kernels_do_not_take_device_last():
         return tuple(kw.get(n, a) for n, a in zip(names, ok))
 
     for args, err in [
-            (but(x=x.half()), TypeError),
+            (but(x=x.double()), TypeError),
             (but(q1=q1.to(torch.uint8)), TypeError),
             (but(q2=q2.to(torch.uint8)), TypeError),
             (but(s3=s3.to(torch.bfloat16)), TypeError),

@@ -171,8 +171,10 @@ def test_flash_suffix_contract():
     st = torch.tensor([3], dtype=torch.int32)
     assert tfp._suffix_route(torch.bfloat16, True) == "suffix_kv8_wgmma"
     assert tfp._suffix_route(torch.float32, False) == "suffix_cuda_cores"
+    assert tfp._suffix_route(torch.float16, True) == "suffix_kv8_wgmma_f16"
     assert set(tfp.SUFFIX_ROUTES) == {tfp._suffix_route(d, k)
-                                      for d in (torch.float32, torch.bfloat16)
+                                      for d in (torch.float32, torch.bfloat16,
+                                                torch.float16)
                                       for k in (False, True)}
     with pytest.raises(TypeError, match="start"):
         tfp._check_suffix(qt, tc, 0, st.long())

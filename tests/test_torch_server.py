@@ -916,8 +916,10 @@ def test_entry_point_flags_follow_the_jax_server():
     tmain.check_args(tmain.parse_args(multi), multihost=True)
     with pytest.raises(NotImplementedError, match="item 10"):
         tmain.check_args(tmain.parse_args(multi + ["--int8"]), multihost=True)
-    with pytest.raises(NotImplementedError, match="bf16"):
-        tmain.check_args(tmain.parse_args(["--half"]))
+    # fp16 is served, alone and under a mesh (tests/test_torch_half.py
+    # holds the engine it builds and the int4 refusal)
+    tmain.check_args(tmain.parse_args(["--half"]))
+    tmain.check_args(tmain.parse_args(multi + ["--half"]), multihost=True)
 
 
 def test_build_engine_maps_the_flags(tmp_path):

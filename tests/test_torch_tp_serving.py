@@ -3,7 +3,8 @@ the JAX package's session on the (1, 2) mesh of
 `tests/test_sharded_inference.py`, on the same weights and inputs: greedy
 codes equal (plain and int8 KV cache), both ranks' codes equal (sampled
 too), the teacher-forced forward's logits within 1e-5, and each rank's
-caches and kernels at its own heads."""
+caches and kernels at its own heads. In fp16 (`--half` under a mesh) the
+tp=2 greedy codes equal the unsharded port's fp16 session's."""
 
 import jax
 import jax.numpy as jnp
@@ -19,7 +20,9 @@ from fish_speech_tpu.parallel.mesh import (dual_ar_param_specs, kv_cache_specs,
 from fish_speech_tpu_torch.convert.from_jax import (config_from_jax,
                                                     dual_ar_from_jax)
 from fish_speech_tpu_torch.config import DualARConfig
-from tests.torch_dist_worker import spawn_ranks
+from fish_speech_tpu_torch.config import SamplingConfig as TSamplingConfig
+from fish_speech_tpu_torch.generate import GenerationSession as TGenerationSession
+from tests.torch_dist_worker import _half, spawn_ranks
 
 torch.set_num_threads(1)
 
@@ -73,10 +76,17 @@ def runs(tmp_path_factory):
     want["logits"] = jax.jit(lambda p, x: jdual.forward_train(
         p, cfg, x, remat=False))(sh4, jnp.asarray(inp))
 
+    tparams = dual_ar_from_jax(jax.tree_util.tree_map(np.asarray, params),
+                               dtype=torch.float32, device="cpu")
+    tcfg = config_from_jax(cfg, DualARConfig)
+    for kv_quant in (False, True):  # the unsharded port in fp16
+        s = TGenerationSession(_half(tparams), tcfg, TSamplingConfig(),
+                               dtype=torch.float16, decode_chunk_size=8,
+                               kv_quant=kv_quant)
+        want["fp16", kv_quant] = s.generate(prompt, 5, top_k=1, max_new_tokens=12)
     work = tmp_path_factory.mktemp("tp_serving")
-    torch.save({"cfg": config_from_jax(cfg, DualARConfig),
-                "params": dual_ar_from_jax(jax.tree_util.tree_map(np.asarray, params),
-                                           dtype=torch.float32, device="cpu"),
+    torch.save({"cfg": tcfg,
+                "params": tparams,
                 "prompt": prompt, "forward_inp": torch.from_numpy(inp),
                 "dp": 1, "tp": 2}, work / "inputs.pt")
     return want, spawn_ranks("serve", 2, work)
@@ -87,6 +97,15 @@ def test_tp2_greedy_codes_equal_jax_on_the_1x2_mesh(runs, kv_quant):
     want, got = runs
     assert want[kv_quant].shape[1] > 1
     np.testing.assert_array_equal(got[0]["codes"][kv_quant], want[kv_quant])
+
+
+@pytest.mark.parametrize("kv_quant", [False, True], ids=["fp16_cache", "int8_cache"])
+def test_tp2_fp16_greedy_codes_equal_the_unsharded_port(runs, kv_quant):
+    want, got = runs
+    assert want["fp16", kv_quant].shape[1] > 1
+    for rank in (0, 1):
+        np.testing.assert_array_equal(got[rank]["codes"]["fp16", kv_quant],
+                                      want["fp16", kv_quant])
 
 
 @pytest.mark.parametrize("kv_quant", [False, True], ids=["bf16_cache", "int8_cache"])

@@ -70,9 +70,18 @@ def spawn_ranks(scenario: str, world: int, workdir, timeout: float = 240.0):
 # ---------------------------------------------------------------------------
 
 
+def _half(tree):
+    """The tree with its floating leaves in fp16."""
+    if isinstance(tree, dict):
+        return {k: _half(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_half(v) for v in tree)
+    return tree.half() if tree.is_floating_point() else tree
+
+
 def _serve(inputs, mesh):
-    """Greedy sessions (plain and int8 KV) and the teacher-forced forward
-    on this rank's tp shard."""
+    """Greedy sessions (plain and int8 KV, fp32 and fp16) and the
+    teacher-forced forward on this rank's tp shard."""
     import torch
 
     from fish_speech_tpu_torch.config import SamplingConfig
@@ -92,6 +101,12 @@ def _serve(inputs, mesh):
             inputs["prompt"], 5, temperature=0.8, top_k=30, max_new_tokens=12)
         out["eager_runs"][kv_quant] = dict(s.eager_runs)
         out["cache_heads"] = s.cache["k"].shape[3]
+        # fp16 (`--half` serving under a mesh): the same weights in fp16
+        s = GenerationSession(shard_params(_half(params), cfg, mesh), cfg,
+                              SamplingConfig(), dtype=torch.float16,
+                              decode_chunk_size=8, kv_quant=kv_quant, mesh=mesh)
+        out["codes"]["fp16", kv_quant] = s.generate(inputs["prompt"], 5, top_k=1,
+                                                    max_new_tokens=12)
     with use_mesh(mesh), torch.no_grad():
         out["logits"] = dual_ar.forward_train(shard, cfg, inputs["forward_inp"],
                                               remat=False)
