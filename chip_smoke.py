@@ -313,9 +313,10 @@ Phases, each of which ends the run with a nonzero exit if it fails:
    its share of 989 TFLOP/s dense bf16;
 14. fp16 serving (`--half`): (the kernel cases) the fp16 forms of the
    prefill, suffix (fp16 and int8 cache), decode, int8-KV decode, int8
-   matvec (1-16 and 17-32 rows) and fused int8 FFN kernels against their
-   plain versions at the serving shapes, to the bf16 forms' bounds, timed
-   beside SDPA / cuBLAS on fp16 operands; (a) full-width, full-depth
+   matvec (1-16 and 17-32 rows), fused int8 FFN, int4 matvec and int4
+   tensor-core kernels against their plain versions at the serving shapes,
+   to the bf16 forms' bounds (the int4 products to one fp16 rounding of
+   y), timed beside SDPA / cuBLAS on fp16 operands; (a) full-width, full-depth
    `dual_ar_s2_pro` in fp16 with `dac_s2_pro` in fp16 through the single
    session's graphs (prefix cache on): phase 4's short and long requests,
    the short one again (identical codes) and the long one again (a prefix
@@ -325,8 +326,13 @@ Phases, each of which ends the run with a nonzero exit if it fails:
    --kv-int8 --pool-size 32 --prefix-cache 4` and `warm_up` on phase 11's
    model written by the port's writer, a burst of 24 streamed requests
    (the cluster kernel's rows) and one of them again (a prefix hit over the
-   int8 cache). Every fp16 kernel launches in (a) or (b), no bf16 route
-   does, and the fp16 prefill and suffix forms hold HGMMA in their SASS.
+   int8 cache); (c) fp16 int4 serving: full-width `dual_ar_s2_pro` in fp16
+   quantized as phase 6 (`int4`, then `mixed`) with the int8 KV cache and
+   the fp16 codec, the short request and its repeat each (whole finite
+   frames, identical codes), then `build_engine --half` over an int4
+   checkpoint of phase 11's model and one request. Every fp16 kernel
+   launches in (a), (b) or (c), no bf16 route does, and the fp16 prefill,
+   suffix and int4 tensor-core forms hold HGMMA in their SASS.
    `python3 chip_smoke.py --phase14` runs phase 14 alone (no result line).
 
 Phase 2 also holds the kernels at the pool's shapes: `decode_mma_kernel`
@@ -4752,7 +4758,7 @@ def _print_case(name, r):
 def local_head_cases(dev):
     """Phase 12: the attention kernels at the heads of one tp rank against
     their plain versions, bf16 (the tensor-core routes; bounds as phase
-    2's): the prefill and its suffix form (bf16 and int8 cache), the decode
+    2's): the prefill and the suffix (bf16 and int8 cache), the decode
     of both stacks, the int8-KV decode and the training forward and
     backward, timed in turns beside SDPA."""
     import torch
@@ -5322,10 +5328,12 @@ def half_kernel_cases(dev, randn):
     from fish_speech_tpu_torch.ops.flash_prefill import (
         flash_prefill_attention, flash_prefill_reference, flash_suffix_attention,
         flash_suffix_reference)
+    from fish_speech_tpu_torch.ops.int4 import (int4_dequant_f16, int4_matmul,
+                                                 int4_matmul_f16w_reference)
     from fish_speech_tpu_torch.ops.int8 import (_route, int8_matmul,
                                                 int8_matmul_reference)
     from fish_speech_tpu_torch.ops.int8_ffn import int8_ffn, int8_ffn_reference
-    from fish_speech_tpu_torch.ops.quant import quantize_int8
+    from fish_speech_tpu_torch.ops.quant import quantize_int4, quantize_int8
 
     f16 = torch.float16
 
@@ -5503,6 +5511,52 @@ def half_kernel_cases(dev, randn):
             del got, err
         del q8, s8, w16
         torch.cuda.empty_cache()
+    # the int4 products (phase 14(c)'s `int4` and `mixed`): the matvec
+    # ("gemv_f16", B = 1) at the slow w13 and w2 and the fast w13, the
+    # tensor cores ("wgmma_f16") at the slow w13 and w2 at B = 1024 and the
+    # slow w2 at B = 128 (the prefill buckets); fp16-valued scales (a
+    # checkpoint read under `--half`), so W is the JAX `mm`'s, held to one
+    # fp16 rounding of y, 2^-11 |y|, + 1e-5 |x| @ |W| of x @ W in fp32. The
+    # matvec's device ms walks copies of (p, gs), and cuBLAS copies of its
+    # fp16 W, over twice the L2, as phase 2's bf16 rows
+    for label, i, o, rows in [("slow w13", 2560, 19456, (1, 1024)),
+                              ("slow w2", 9728, 2560, (1, 128, 1024)),
+                              ("fast w13", 1536, 12288, (1,))]:
+        qw = quantize_int4(randn(i, o).float() * 0.02, group_size=128)
+        p, gs = qw["p"], qw["gs"].half().float()
+        del qw
+        w16 = int4_dequant_f16(p, gs)  # cuBLAS's operand
+        for b in rows:
+            x = h(b, i)
+            got = int4_matmul(x, p, gs)
+            exact = x.float() @ w16.float()
+            scale = x.float().abs() @ w16.float().abs()
+            ok = bool(((got.float() - exact).abs()
+                       <= 2.0 ** -11 * exact.abs() + 1e-5 * scale).all())
+            err = (got.float() - int4_matmul_f16w_reference(x, p, gs).float()).abs()
+            del exact, scale
+            iters = 200 if b == 1 else 20
+            ms, plain_ms = _in_turns(lambda k=0: int4_matmul_f16w_reference(x, p, gs),
+                                     lambda k=0: int4_matmul(x, p, gs), iters)
+            flops = 2 * b * i * o
+            bound = _bound(flops, i // 2 * o + 4 * (i // 128) * o + 2 * b * (i + o))
+            n_q = -(-L2_COLD_BYTES // (p.numel() + 4 * gs.numel())) if b == 1 else 1
+            n_w = -(-L2_COLD_BYTES // (2 * i * o)) if b == 1 else 1
+            qs = [(p, gs)] + [(p.clone(), gs.clone()) for _ in range(n_q - 1)]
+            ws = [w16] + [w16.clone() for _ in range(n_w - 1)]
+            name = "int4_mm_f16" if b <= 8 else "int4_mm_wgmma_f16"
+            cases[name].append(dict(
+                shape=f"{label} B={b} I={i} O={o} g=128 float16 "
+                      f"({flops / ms / 1e9:.1f} TFLOP/s)",
+                max_abs_err=err.max().item(), mean_abs_err=err.mean().item(), ms=ms,
+                plain_ms=plain_ms, bound_ms=bound[0], bound_by=bound[1],
+                library_ms=_library_ms(lambda k=0: x @ w16, iters),
+                device_ms=_device_ms(lambda k=0: int4_matmul(x, *qs[k % n_q]), iters),
+                library_device_ms=_device_ms(lambda k=0: x @ ws[k % n_w], iters),
+                weight_copies=[n_q, n_w], ok=ok))
+            del got, err, qs, ws
+        del p, gs, w16
+        torch.cuda.empty_cache()
     for label, d, i, b in [("slow FFN", 2560, 9728, 1), ("fast FFN", 1536, 6144, 32)]:
         w1, w3, w2 = (quantize_int8(randn(*shape).float() * 0.02)
                       for shape in ((d, i), (d, i), (i, d)))
@@ -5558,6 +5612,8 @@ HALF_COUNTERS = {
     "int8_mm_f16": ("int8_matmul", "launches_gemv_mma_f16"),
     "int8_mm_cluster_f16": ("int8_matmul", "launches_gemv_cluster_f16"),
     "int8_ffn_f16": ("int8_ffn", "launches_mma_f16"),
+    "int4_mm_f16": ("int4_matmul", "launches_gemv_f16"),
+    "int4_mm_wgmma_f16": ("int4_matmul", "launches_wgmma_f16"),
 }
 HALF_KERNELS = tuple(HALF_COUNTERS)
 # the bf16 routes, which no fp16 request may take
@@ -5566,7 +5622,9 @@ BF16_COUNTERS = (("flash_prefill_attention", "launches_wgmma"),
                  ("flash_suffix_attention", "launches_suffix_kv8_wgmma"),
                  ("int8_matmul", "launches_gemv_mma"),
                  ("int8_matmul", "launches_gemv_cluster"),
-                 ("int8_ffn", "launches_mma"))
+                 ("int8_ffn", "launches_mma"),
+                 ("int4_matmul", "launches_gemv"),
+                 ("int4_matmul", "launches_wgmma"))
 
 
 def _half_counts():
@@ -5750,9 +5808,123 @@ def run_half_pool(dev, tokenizer):
     return launches
 
 
+def run_half_int4(dev, tokenizer):
+    """14(c): fp16 int4 serving. `dual_ar_s2_pro` at full width and depth in
+    fp16, quantized as phase 6 quantizes it (`int4`: both stacks int4;
+    `mixed`: slow int8, fast int4; heads int8), with the int8 KV cache and
+    the fp16 codec: phase 4's short request and its repeat each (whole
+    finite frames; the same seed gives the same codes), through the int4
+    kernels' fp16 forms; then `build_engine --half` (the server's function)
+    over an int4 checkpoint of phase 11's 2 + 2-layer model (the port's
+    writer; fp16 scales when read) and one request. No bf16 route launches.
+    Returns the fp16 kernels' launches."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from fish_speech_tpu_torch.config import SamplingConfig, dac_s2_pro
+    from fish_speech_tpu_torch.generate import GenerationSession
+    from fish_speech_tpu_torch.models import dual_ar
+    from fish_speech_tpu_torch.models.dac.model import init_dac
+    from fish_speech_tpu_torch.ops.quant import quantize_dual_ar_lowmem
+    from fish_speech_tpu_torch.server import main as server_main
+    from fish_speech_tpu_torch.utils.checkpoint import save_codec, save_dual_ar
+
+    t_start = time.perf_counter()
+    cfg = _s2_pro_cfg(tokenizer, 2048)
+    dac_cfg = dac_s2_pro()
+    codec = init_dac(1, dac_cfg, torch.float16, dev)
+    short = _requests()[0]
+    served = [short, ("short-repeat", short[1])]
+    total = {name: 0 for name in HALF_KERNELS}
+    for label, mode, fast_mode in (("int4", "int4", None), ("mixed", "int8", "int4")):
+        t0 = time.perf_counter()
+        params = quantize_dual_ar_lowmem(
+            dual_ar.init_dual_ar(0, cfg, torch.float16, dev), mode=mode,
+            fast_mode=fast_mode)
+        session = GenerationSession(params, cfg, SamplingConfig(), max_batch=1,
+                                    dtype=torch.float16, decode_chunk_size=64,
+                                    first_chunk_size=8, kv_quant=True)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        engine = _recording_engine(session, tokenizer, codec, dac_cfg)
+        precompile_for(session, tokenizer, served, f"14(c) fp16 {label}")
+        precompile_codec(engine, PHASE4_CODE_BUCKETS, (), f"14(c) fp16 {label}")
+        _zero_counts()
+        rows = serve(dev, tokenizer, engine, served, dac_cfg.frame_length,
+                     f"14(c) fp16 {label}")
+        torch.cuda.synchronize()
+        launches, bf16 = _half_counts()
+        check_replayed(session, f"14(c) fp16 {label}")
+        step_ms = replayed_step_ms(session)
+        print(f"14(c) fp16 {label} (slow {mode}, fast {fast_mode or mode}, heads int8, "
+              f"int8 KV cache) on dual_ar_s2_pro: built, quantized, captured and "
+              f"served in {time.perf_counter() - t0:.1f}s; TTFA "
+              + " / ".join(f"{r['request']} {r['ttfa_s'] * 1e3:.1f} ms" for r in rows)
+              + f"; replayed step {step_ms:.3f} ms of device time; int4 fp16 "
+              f"launches: matvec {launches['int4_mm_f16']}, tensor cores "
+              f"{launches['int4_mm_wgmma_f16']}; bf16 routes {bf16}")
+        need = ["int4_mm_f16"] + (["int4_mm_wgmma_f16"] if label == "int4" else [])
+        if bf16 or min(launches[n] for n in need) <= 0:
+            raise SystemExit(f"14(c) {label}: bf16 route launches {bf16}, "
+                             f"launches {launches}")
+        for name, n in launches.items():
+            total[name] += n
+        del engine, session
+        gc.collect()
+        torch.cuda.empty_cache()
+    del codec
+    root = Path(__file__).resolve().parent
+    (root / "build").mkdir(exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_int4_", dir=root / "build"))
+    try:
+        t0 = time.perf_counter()
+        ckpt_cfg = _ckpt_cfg(tokenizer)
+        ckpt = tmp / "ckpt"
+        save_dual_ar(ckpt, quantize_dual_ar_lowmem(
+            dual_ar.init_dual_ar(0, ckpt_cfg, torch.bfloat16, dev), mode="int4"),
+            ckpt_cfg, tokenizer)
+        save_codec(ckpt, init_dac(1, dac_cfg, torch.float32, dev), dac_cfg)
+        gc.collect()
+        torch.cuda.empty_cache()
+        built = server_main.build_engine(server_main.parse_args([
+            "--checkpoint-path", str(ckpt), "--half",
+            "--references-dir", str(tmp / "refs")]))
+        layers = built.session.params["layers"]
+        if not ({"p", "gs"} <= layers["wqkv"].keys()
+                and built.session.dtype == torch.float16):
+            raise SystemExit("14(c): build_engine --half did not serve int4 leaves "
+                             "in fp16")
+        engine = _recording_engine(built.session, built.tokenizer, built.codec_params,
+                                   built.codec_cfg)
+        _zero_counts()
+        rows = serve(dev, built.tokenizer, engine, [short], dac_cfg.frame_length,
+                     "14(c) build_engine --half int4")
+        torch.cuda.synchronize()
+        launches, bf16 = _half_counts()
+        print(f"14(c) build_engine --half over an int4 checkpoint (s2-pro's widths, "
+              f"2 + 2 layers): written, built and served in "
+              f"{time.perf_counter() - t0:.1f}s; TTFA {rows[0]['ttfa_s'] * 1e3:.1f} ms; "
+              f"int4 fp16 launches: matvec {launches['int4_mm_f16']}, tensor cores "
+              f"{launches['int4_mm_wgmma_f16']}; bf16 routes {bf16}")
+        if bf16 or min(launches[n] for n in ("int4_mm_f16", "int4_mm_wgmma_f16")) <= 0:
+            raise SystemExit(f"14(c) build_engine: bf16 route launches {bf16}, "
+                             f"launches {launches}")
+        for name, n in launches.items():
+            total[name] += n
+        del engine, built
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"14(c) fp16 int4 serving took {time.perf_counter() - t_start:.1f}s; "
+          f"{_nvidia_smi()}")
+    return total
+
+
 def run_half(dev, tokenizer):
     """Phase 14: fp16 serving. Returns (the fp16 kernels' cases, their
-    launches in 14(a) and 14(b))."""
+    launches in 14(a), 14(b) and 14(c))."""
     import torch
 
     t_phase = time.perf_counter()
@@ -5769,6 +5941,10 @@ def run_half(dev, tokenizer):
     gc.collect()
     torch.cuda.empty_cache()
     for name, n in run_half_pool(dev, tokenizer).items():
+        launches[name] += n
+    gc.collect()
+    torch.cuda.empty_cache()
+    for name, n in run_half_int4(dev, tokenizer).items():
         launches[name] += n
     gc.collect()
     torch.cuda.empty_cache()
@@ -5839,10 +6015,10 @@ KERNELS = {  # name: (source, the TPU kernel or JAX code it replaces)
     "int8_mm_fp32": (SRC + "int8_mm.cu", "scripts/microbench/matvec_pallas.py:18"),
     "int8_ffn": (SRC + "int8_ffn.cu", "scripts/microbench/ffn_fused_packed.py:17"),
     "int8_ffn_fp32": (SRC + "int8_ffn.cu", "scripts/microbench/ffn_fused_packed.py:17"),
-    # the prefill kernels' suffix form (a prefix-cache hit): JAX runs an
-    # einsum over the cache there (`gqa_attention`, `gqa_attention_kv8`)
-    "flash_suffix": (SRC + "attn_wgmma.cuh", "fish_speech_tpu/models/dual_ar.py:769"),
-    "flash_suffix_kv8": (SRC + "attn_wgmma.cuh", "fish_speech_tpu/ops/attention.py:66"),
+    # the prefix-cache hit's suffix attention: JAX runs an einsum over the
+    # cache there (`gqa_attention`, `gqa_attention_kv8`)
+    "flash_suffix": (SRC + "flash_prefill.cu", "fish_speech_tpu/models/dual_ar.py:769"),
+    "flash_suffix_kv8": (SRC + "flash_prefill.cu", "fish_speech_tpu/ops/attention.py:66"),
     "flash_suffix_fp32": (SRC + "flash_prefill.cu",
                           "fish_speech_tpu/models/dual_ar.py:769"),
     "flash_suffix_kv8_fp32": (SRC + "flash_prefill.cu",
@@ -5851,8 +6027,8 @@ KERNELS = {  # name: (source, the TPU kernel or JAX code it replaces)
     # instantiated for __half
     "flash_prefill_f16": (SRC + "attn_wgmma.cuh",
                           "fish_speech_tpu/ops/pallas_attention.py:26"),
-    "flash_suffix_f16": (SRC + "attn_wgmma.cuh", "fish_speech_tpu/models/dual_ar.py:769"),
-    "flash_suffix_kv8_f16": (SRC + "attn_wgmma.cuh",
+    "flash_suffix_f16": (SRC + "flash_prefill.cu", "fish_speech_tpu/models/dual_ar.py:769"),
+    "flash_suffix_kv8_f16": (SRC + "flash_prefill.cu",
                              "fish_speech_tpu/ops/attention.py:66"),
     "flash_decode_f16": (SRC + "flash_decode.cu",
                          "fish_speech_tpu/ops/pallas_decode.py:47"),
@@ -5862,6 +6038,8 @@ KERNELS = {  # name: (source, the TPU kernel or JAX code it replaces)
     "int8_mm_cluster_f16": (SRC + "int8_mm.cu",
                             "scripts/microbench/matvec_pallas.py:18"),
     "int8_ffn_f16": (SRC + "int8_ffn.cu", "scripts/microbench/ffn_fused_packed.py:17"),
+    "int4_mm_f16": (SRC + "int4_mm.cu", "fish_speech_tpu/ops/pallas_int4.py:32"),
+    "int4_mm_wgmma_f16": (SRC + "int4_mm.cu", "fish_speech_tpu/ops/pallas_int4.py:32"),
 }
 # headline shapes: the long request's prefill bucket, a 257-long cache, the
 # B=2 x T=1024 fine-tune shape, the slow w13 at B=1 (matvec route) and at
@@ -5884,14 +6062,17 @@ HEADLINE = {"flash_prefill": 1, "flash_prefill_fp32": 0, "flash_decode": 1,
             # the slow FFN at B=1
             "flash_prefill_f16": 0, "flash_decode_f16": 0, "flash_decode_kv8_f16": 0,
             "flash_suffix_f16": 0, "flash_suffix_kv8_f16": 0, "int8_mm_f16": 0,
-            "int8_mm_cluster_f16": 0, "int8_ffn_f16": 0}
+            "int8_mm_cluster_f16": 0, "int8_ffn_f16": 0,
+            # phase 14(c): the slow w13 at B=1 and 1024
+            "int4_mm_f16": 0, "int4_mm_wgmma_f16": 0}
 # the kernels whose SASS must hold HGMMA (wgmma) instructions, and those of
 # them with fp16 instantiations (a `__half` in the mangled name), which
 # must hold them too
 WGMMA_KERNELS = ("int4_wgmma_kernel", "train_fwd_wgmma_kernel",
                  "prefill_wgmma_kernel", "suffix_wgmma_kernel",
                  "train_bwd_dkdv_wgmma_kernel", "train_bwd_dq_wgmma_kernel")
-HALF_WGMMA_KERNELS = ("prefill_wgmma_kernel", "suffix_wgmma_kernel")
+HALF_WGMMA_KERNELS = ("prefill_wgmma_kernel", "suffix_wgmma_kernel",
+                      "int4_wgmma_kernel")
 # the int8 kernels whose registers and spills ptxas' report shows too
 INT8_KERNELS = ("int8_gemv_mma_kernel", "int8_gemv_cluster_kernel", "int8_ffn_mma_kernel")
 

@@ -1,24 +1,14 @@
 // Causal GQA attention forward on the Hopper tensor cores (wgmma): one
-// mainloop behind three kernels that differ only in their key mask and
-// where K/V come from,
+// mainloop behind two kernels that differ only in their key mask,
 //  * train_fwd_wgmma_kernel (flash_train.cu), Mask::kKeyValid: key j is
 //    visible to query i iff j <= i and kvalid[b, j] != 0; writes O and the
 //    row logsumexp lse = m + log(l) (the TPU kernel is _fwd_kernel of
 //    fish_speech_tpu/ops/pallas_attention_train.py);
 //  * prefill_wgmma_kernel (flash_prefill.cu), Mask::kOffset: key j is
 //    visible iff j <= i and j >= offsets[b]; writes O (the TPU kernel is
-//    _prefill_kernel of fish_speech_tpu/ops/pallas_attention.py);
-//  * suffix_wgmma_kernel (flash_prefill.cu), Mask::kSuffix: the prefill
-//    extended to a prefix-cache hit's suffix (dual_ar.prefill_suffix): query
-//    i sits at position start + i, with start read from device memory (one
-//    CUDA graph serves every start), K/V are one layer of the stacked cache
-//    (row stride S, keys [0, start + T) read), and key j is visible iff
-//    j <= start + i. With KV8 the cache is int8: each K/V tile lands by
-//    cp.async in an int8 staging ring, goes to bf16 exactly in shared
-//    memory (|x| <= 127), ks scales the columns of S = Q K^T and vs the
-//    columns of P before P V, while l sums the unscaled p: the folding of
-//    fish_speech_tpu/ops/attention.py:gqa_attention_kv8 (no Pallas kernel
-//    there; JAX runs an einsum over the cache).
+//    _prefill_kernel of fish_speech_tpu/ops/pallas_attention.py).
+// (The prefix-cache suffix, a decode-like walk over the cache, has its own
+// kernel: flash_prefill.cu, suffix_wgmma_kernel.)
 // Masked scores are the finite fs::kMaskedScore and keys past T get -inf,
 // so a row with no visible key averages V over every key the block walks.
 //
@@ -65,17 +55,12 @@
 //   fence, so ptxas keeps the wgmmas asynchronous (C7513). One block per
 //   SM (about 130 KB of shared memory and up to 255 registers a thread).
 //
-// The KV8 staging costs a second barrier per tile (the bf16 tile must be
-// whole before S reads it) and 34 KB more shared memory (D = 128).
-//
-// fp16 (the `--half` serving path): prefill_wgmma_kernel and
-// suffix_wgmma_kernel are templated on the 16-bit type T (common.cuh
-// `Elem`): q/k/v/O in fp16, S and P V on wgmma's `.f16` operands, P =
-// rn_f16(exp(s - m_running)) (11 significant bits where bf16 keeps 8; a p
-// below 2^-24 of the row's running max rounds to 0, and l sums the
-// unrounded p, as in bf16), the KV8 tiles converted to fp16 exactly and the
-// KV8 scales read as bf16 (the JAX package keeps them bf16 under fp16).
-// The training forward stays bf16.
+// fp16 (the `--half` serving path): prefill_wgmma_kernel is templated on
+// the 16-bit type T (common.cuh `Elem`): q/k/v/O in fp16, S and P V on
+// wgmma's `.f16` operands, P = rn_f16(exp(s - m_running)) (11 significant
+// bits where bf16 keeps 8; a p below 2^-24 of the row's running max rounds
+// to 0, and l sums the unrounded p, as in bf16). The training forward stays
+// bf16.
 //
 // Left for later: TMA with mbarriers, a producer warp beside ping-pong
 // consumer warpgroups (softmax of one overlapping the wgmmas of the
@@ -95,28 +80,22 @@ constexpr int NST = 3;       // K/V stages: tile j + 1 lands, j is read, j - 1's
 constexpr int THREADS = 256;
 constexpr float kLog2e = 1.4426950408889634f;
 
-enum class Mask { kKeyValid, kOffset, kSuffix };
+enum class Mask { kKeyValid, kOffset };
 
 template <typename T = __nv_bfloat16>
 struct ArgsT {
   const T* q;              // (B, T, H, D)
-  const T* k;              // (B, T, Hkv, D); kSuffix: a cache layer (B, S, Hkv, D)
+  const T* k;              // (B, T, Hkv, D)
   const T* v;
-  const int* mask;         // kKeyValid: kvalid (B, T); kOffset: offsets (B,);
-                           // kSuffix: start (1,)
+  const int* mask;         // kKeyValid: kvalid (B, T); kOffset: offsets (B,)
   T* out;                  // (B, T, H, D)
   float* lse;              // (B, H, T), kKeyValid only
   int t_len, n_head, n_kv;
   float scale;
-  int kv_seq = 0;          // kSuffix: S, the cache's row stride in keys
-  const int8_t* k8 = nullptr;  // KV8: the int8 cache layer (B, S, Hkv, D)
-  const int8_t* v8 = nullptr;
-  const __nv_bfloat16* ks = nullptr;  // KV8: scales (B, S, Hkv)
-  const __nv_bfloat16* vs = nullptr;
 };
 using Args = ArgsT<>;
 
-template <int D, bool KV8 = false>
+template <int D>
 struct Layout {
   static constexpr int DB = D / 64;              // 64-column blocks of a row
   static constexpr int Q_BLOCK = BQ * 128;       // a column block of the Q tile
@@ -126,10 +105,7 @@ struct Layout {
   static constexpr int K_OFF = Q_OFF + DB * Q_BLOCK;    // [stage] K tiles
   static constexpr int V_OFF = K_OFF + NST * KV_TILE;   // [stage] V tiles
   static constexpr int M_OFF = V_OFF + NST * KV_TILE;   // [stage][BK] kvalid
-  static constexpr int SC_OFF = M_OFF + NST * BK * 4;   // KV8: [stage][ks | vs] fp32
-  static constexpr int I8_TILE = BK * D;                // an int8 K or V tile
-  static constexpr int I8_OFF = SC_OFF + (KV8 ? NST * 2 * BK * 4 : 0);  // [2][K, V]
-  static constexpr int SMEM = 1024 + I8_OFF + (KV8 ? 4 * I8_TILE : 0);  // + alignment slack
+  static constexpr int SMEM = 1024 + M_OFF + NST * BK * 4;  // + alignment slack
 };
 
 // O += P V for one 64-key tile: P (64 x 64, T) in A fragments, V from the
@@ -159,77 +135,34 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 }
 
 // rows [row0, row0 + ROWS) of head hx of a (B, seq, Hx, D) tensor into DB
-// stacked 128-byte-swizzled blocks of ROWS rows; rows at or past `limit`
-// (default: seq) read as 0
+// stacked 128-byte-swizzled blocks of ROWS rows; rows at or past seq read
+// as 0
 template <int D, int ROWS, typename T>
 __device__ __forceinline__ void load_tile(uint8_t* dst, const T* src,
                                           int b, int row0, int hx, int n_hx,
-                                          int seq, int limit = -1) {
-  if (limit < 0) limit = seq;
+                                          int seq) {
   constexpr int CH = D / 8;  // 16-byte chunks of a row
   static_assert(ROWS * CH % THREADS == 0, "whole copies per thread");
 #pragma unroll
   for (int it = 0; it < ROWS * CH / THREADS; ++it) {
     const int idx = threadIdx.x + it * THREADS;
     const int r = idx / CH, c = idx % CH, row = row0 + r;
-    const bool valid = row < limit;
+    const bool valid = row < seq;
     const T* s = src + (((size_t)b * seq + row) * n_hx + hx) * D + 8 * c;
     wg::cp_async16(dst + (c / 8) * (ROWS * 128) + wg::sw128(r, c % 8),
                    valid ? s : src, valid);
   }
 }
 
-// KV8: BK int8 rows of head hx of a (B, seq, Hx, D) cache layer into a
-// plain (BK, D) staging tile; rows at or past `limit` read as 0
-template <int D>
-__device__ __forceinline__ void load_tile_i8(uint8_t* dst, const int8_t* src, int b,
-                                             int row0, int hx, int n_hx, int seq,
-                                             int limit) {
-  constexpr int CH = D / 16;  // 16-byte chunks of an int8 row
-  static_assert(BK * CH % THREADS == 0, "whole copies per thread");
-#pragma unroll
-  for (int it = 0; it < BK * CH / THREADS; ++it) {
-    const int idx = threadIdx.x + it * THREADS;
-    const int r = idx / CH, c = idx % CH, row = row0 + r;
-    const bool valid = row < limit;
-    const int8_t* s = src + (((size_t)b * seq + row) * n_hx + hx) * D + 16 * c;
-    wg::cp_async16(dst + r * D + 16 * c, valid ? s : src, valid);
-  }
-}
-
-// KV8: a staged int8 tile into the swizzled T layout of load_tile, exact
-template <int D, typename T>
-__device__ __forceinline__ void convert_tile_i8(uint8_t* dst, const uint8_t* src) {
-  constexpr int CH = D / 16;
-#pragma unroll
-  for (int it = 0; it < BK * CH / THREADS; ++it) {
-    const int idx = threadIdx.x + it * THREADS;
-    const int r = idx / CH, c = idx % CH;
-    const int4 raw = *reinterpret_cast<const int4*>(src + r * D + 16 * c);
-    const int8_t* x = reinterpret_cast<const int8_t*>(&raw);
-    uint32_t w[8];
-#pragma unroll
-    for (int e = 0; e < 8; ++e) w[e] = Elem<T>::pack((float)x[2 * e], (float)x[2 * e + 1]);
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {  // 16-bit chunk 2c + h: int8 columns 16c + 8h ..
-      const int cc = 2 * c + h;
-      *reinterpret_cast<uint4*>(dst + (cc / 8) * (BK * 128) + wg::sw128(r, cc % 8)) =
-          make_uint4(w[4 * h], w[4 * h + 1], w[4 * h + 2], w[4 * h + 3]);
-    }
-  }
-}
-
-template <Mask M, int D, bool KV8 = false, typename T = __nv_bfloat16>
+template <Mask M, int D, typename T = __nv_bfloat16>
 __device__ __forceinline__ void attn_fwd_wgmma(const ArgsT<T>& a) {
-  static_assert(!KV8 || M == Mask::kSuffix, "an int8 cache is a suffix's");
-  using L = Layout<D, KV8>;
+  using L = Layout<D>;
   constexpr int KS = D / 16;  // k16 steps of S = Q K^T
   constexpr int NO = D / 2;   // O accumulators per thread
   extern __shared__ uint8_t smem_raw[];
   uint8_t* sm = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
   int* kv_s = reinterpret_cast<int*>(sm + L::M_OFF);
-  float* sc_s = reinterpret_cast<float*>(sm + L::SC_OFF);  // KV8 scales
 
   const int tid = threadIdx.x, wgi = tid / 128;
   const int warp = (tid % 128) / 32, lane = tid % 32, g = lane / 4, tq = lane % 4;
@@ -238,42 +171,23 @@ __device__ __forceinline__ void attn_fwd_wgmma(const ArgsT<T>& a) {
   const int t_len = a.t_len;
   const int hk = h / (a.n_head / a.n_kv);
   const int off = M == Mask::kOffset ? a.mask[b] : 0;
-  // kSuffix: query i sits at diag + i and keys [0, lim) exist
-  const int diag = M == Mask::kSuffix ? a.mask[0] : 0;
-  const int lim = diag + t_len;
-  const int seq = M == Mask::kSuffix ? a.kv_seq : t_len;
 
   // Keys a run of rows [first, last] walks: up to the causal limit of its
   // last row, or all T where a row lies before its offset (it sees no key
   // and averages every key, as the TPU kernel gives it).
   auto kv_tiles = [&](int first, int last) {
-    const int end = (M == Mask::kOffset && first < off) ? t_len : diag + last + 1;
+    const int end = (M == Mask::kOffset && first < off) ? t_len : last + 1;
     return (end + BK - 1) / BK;
   };
   const int n_tiles = kv_tiles(q0, min(q0 + BQ, t_len) - 1);
   const int r0 = q0 + 64 * wgi;  // this warpgroup's first row
   const int my_tiles = r0 < t_len ? kv_tiles(r0, min(r0 + 64, t_len) - 1) : 0;
 
-  // K, V and the key-valid flags (0 past T) of tile j into stage j % NST;
-  // KV8: the int8 tiles into staging slot j % 2 and the tile's scales into
-  // `sc_next` (thread t < BK: ks of key t, BK <= t < 2 BK: vs of key t - BK)
-  float sc_next = 0.f;
+  // K, V and the key-valid flags (0 past T) of tile j into stage j % NST
   auto load_kv = [&](int j) {
     const int st = j % NST;
-    if constexpr (KV8) {
-      uint8_t* stage8 = sm + L::I8_OFF + 2 * (j % 2) * L::I8_TILE;
-      load_tile_i8<D>(stage8, a.k8, b, j * BK, hk, a.n_kv, seq, lim);
-      load_tile_i8<D>(stage8 + L::I8_TILE, a.v8, b, j * BK, hk, a.n_kv, seq, lim);
-      if (tid < 2 * BK) {
-        const int key = j * BK + tid % BK;
-        const __nv_bfloat16* sp = tid < BK ? a.ks : a.vs;
-        sc_next = key < lim ? __bfloat162float(sp[((size_t)b * seq + key) * a.n_kv + hk])
-                            : 0.f;
-      }
-    } else {
-      load_tile<D, BK>(sm + L::K_OFF + st * L::KV_TILE, a.k, b, j * BK, hk, a.n_kv, seq, lim);
-      load_tile<D, BK>(sm + L::V_OFF + st * L::KV_TILE, a.v, b, j * BK, hk, a.n_kv, seq, lim);
-    }
+    load_tile<D, BK>(sm + L::K_OFF + st * L::KV_TILE, a.k, b, j * BK, hk, a.n_kv, t_len);
+    load_tile<D, BK>(sm + L::V_OFF + st * L::KV_TILE, a.v, b, j * BK, hk, a.n_kv, t_len);
     if (M == Mask::kKeyValid && tid < BK) {
       const int key = j * BK + tid;
       const bool ok = key < t_len;
@@ -316,17 +230,6 @@ __device__ __forceinline__ void attn_fwd_wgmma(const ArgsT<T>& a) {
     // tile j is in place for every thread, and both warpgroups have retired
     // every read of tile j - 2's stage, which tile j + 1 now takes
     __syncthreads();
-    if constexpr (KV8) {
-      // tile j's int8 staging into its bf16 stage (tile j - 3's, retired),
-      // its scales into shared memory; the fence makes the generic stores
-      // visible to wgmma's async proxy, the barrier the tile whole
-      const uint8_t* stage8 = sm + L::I8_OFF + 2 * (j % 2) * L::I8_TILE;
-      convert_tile_i8<D, T>(sm + L::K_OFF + st * L::KV_TILE, stage8);
-      convert_tile_i8<D, T>(sm + L::V_OFF + st * L::KV_TILE, stage8 + L::I8_TILE);
-      if (tid < 2 * BK) sc_s[st * 2 * BK + tid] = sc_next;
-      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-      __syncthreads();
-    }
     if (j + 1 < n_tiles) load_kv(j + 1);
     wg::cp_async_commit();
     if (j > my_tiles || my_tiles == 0) continue;  // past this warpgroup's limit
@@ -366,24 +269,23 @@ __device__ __forceinline__ void attn_fwd_wgmma(const ArgsT<T>& a) {
 
     // scale and mask; s[i] is row row_g + 8 * ((i / 2) % 2), key
     // k0 + 8 * (i / 4) + 2 * tq + i % 2
-    bool need_mask = k0 + BK - 1 > diag + r0 || k0 + BK > lim;
+    bool need_mask = k0 + BK - 1 > r0 || k0 + BK > t_len;
     if constexpr (M == Mask::kOffset) {
       need_mask |= k0 < off;
     } else if constexpr (M == Mask::kKeyValid) {  // an invalid key (one vote per warp)
       need_mask |= !__all_sync(kFullMask, kv_s[st * BK + lane] != 0 &&
                                               kv_s[st * BK + lane + 32] != 0);
     }
-    const float* scs = sc_s + st * 2 * BK;  // KV8: ks of the tile's keys, then vs
 #pragma unroll
     for (int i = 0; i < 32; ++i) {
       const int jj = 8 * (i / 4) + 2 * tq + i % 2, key = k0 + jj;
-      float x = KV8 ? s[i] * (scs[jj] * a.scale) : s[i] * a.scale;
+      float x = s[i] * a.scale;
       if (need_mask) {
         const int row = row_g + 8 * ((i / 2) % 2);
-        bool visible = key <= row + diag;
+        bool visible = key <= row;
         if constexpr (M == Mask::kOffset) visible = visible && key >= off;
         if constexpr (M == Mask::kKeyValid) visible = visible && kv_s[st * BK + jj] != 0;
-        x = key >= lim ? -INFINITY : (visible ? x : kMaskedScore);
+        x = key >= t_len ? -INFINITY : (visible ? x : kMaskedScore);
       }
       s[i] = x;
     }
@@ -412,8 +314,8 @@ __device__ __forceinline__ void attn_fwd_wgmma(const ArgsT<T>& a) {
 
     // retire P V of tile j - 1, rescale O to this tile's max, and pack P's
     // A fragments: register r of k16 step kk is row (r % 2), keys
-    // 16 kk + 8 (r / 2) + 2 tq, +1: accumulators 8 kk + 2 r, +1 (KV8: the
-    // columns scaled by vs), rounded to T
+    // 16 kk + 8 (r / 2) + 2 tq, +1: accumulators 8 kk + 2 r, +1, rounded
+    // to T
     wg::wgmma_wait<0>();
     wg::fence_regs(o);
 #pragma unroll
@@ -422,12 +324,8 @@ __device__ __forceinline__ void attn_fwd_wgmma(const ArgsT<T>& a) {
     for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
       for (int r = 0; r < 4; ++r) {
-        const int i = 8 * kk + 2 * r, jj = 8 * (i / 4) + 2 * tq;
-        if constexpr (KV8) {
-          pc[kk][r] = Elem<T>::pack(s[i] * scs[BK + jj], s[i + 1] * scs[BK + jj + 1]);
-        } else {
-          pc[kk][r] = Elem<T>::pack(s[i], s[i + 1]);
-        }
+        const int i = 8 * kk + 2 * r;
+        pc[kk][r] = Elem<T>::pack(s[i], s[i + 1]);
       }
   }
   // the last tile's P V, where this warpgroup walked every tile of the block
@@ -463,9 +361,9 @@ __device__ __forceinline__ void attn_fwd_wgmma(const ArgsT<T>& a) {
 
 // sets the kernel's shared memory and launches it on the (H, B, query
 // tiles) grid; returns the CUDA error code
-template <int D, bool KV8 = false, typename Kernel, typename A>
+template <int D, typename Kernel, typename A>
 int launch(Kernel kernel, const A& a, int batch, cudaStream_t stream) {
-  constexpr int smem = Layout<D, KV8>::SMEM;
+  constexpr int smem = Layout<D>::SMEM;
   const cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;

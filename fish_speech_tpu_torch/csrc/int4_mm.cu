@@ -17,7 +17,8 @@
 // the 989 TFLOP/s of the bf16 tensor cores, which only `wgmma` reaches.
 //
 // Three routes, chosen by the wrapper (`ops/int4.py:_route`) on B and x's
-// dtype; a route that does not take the call returns cudaErrorInvalidValue.
+// dtype (fp16 x takes the first two as "gemv_f16" and "wgmma_f16"); a route
+// that does not take the call returns cudaErrorInvalidValue.
 // * "gemv", B <= 8: split-K matrix-vector kernel, one launch a product.
 //   A block owns 256 output columns and one run of whole groups of packed
 //   rows (`ops/int4.py:gemv_split` picks the runs from the shape and the
@@ -25,8 +26,10 @@
 //   would give 6-76 blocks). Its 16 row slices of 16 threads each read 16
 //   packed bytes (32 W values: rows r and r + I/2 of 16 columns) per load,
 //   8 rows in flight per thread, while the block stages x and the group's
-//   scales in shared memory. bf16 x dequantizes every nibble to the bf16 W
-//   of the other routes (below, in bf16x2 arithmetic); fp32 x uses q * s in
+//   scales in shared memory. bf16 (fp16) x dequantizes every nibble to the
+//   bf16 (fp16) W of the other routes (below, in x2 arithmetic of the 16-bit
+//   type; on the tensor cores, `int4_gemv_mma_kernel`, where the groups are
+//   multiples of 128 rows and O of 16); fp32 x uses q * s in
 //   fp32; the sums are fp32. The slices' sums meet by a shuffle and then
 //   through shared memory in a fixed order. With one run the block writes
 //   y; otherwise each block writes its fp32 partial to a workspace, fences
@@ -34,7 +37,7 @@
 //   the partials in split order (deterministic, no atomics on data),
 //   writes y in x's dtype and puts the counter back to 0. The workspace and
 //   counters are allocated once per device by the wrapper.
-// * "wgmma", bf16 x and B > 8 (every prefill): tensor-core product,
+// * "wgmma", bf16 (fp16) x and B > 8 (every prefill): tensor-core product,
 //   `int4_wgmma_kernel` below, whose note gives its design.
 // * "fp32_tiled", fp32 x and B > 8 (the small fp32 reference models):
 //   tiled product on the CUDA cores. A block computes a 128 x 128 output
@@ -51,6 +54,18 @@
 // significand is exact in fp32, so it rounds once. So a bf16 decode step
 // and its prefill run on one W; only the order of the fp32 sums differs
 // from the TPU kernel.
+//
+// fp16 x (the `--half` serving path, routes "gemv_f16" and "wgmma_f16"):
+// the matvec kernels and `int4_wgmma_kernel` are templated on the 16-bit
+// type T (common.cuh `Elem`) and run on mma.sync / wgmma `.f16` operands
+// with fp32 sums, y rounded once to fp16. W = rn_f16(q * rn_f16(s)): a
+// nibble n is the fp16 1024 + n when OR-ed into 0x6400, minus 1032 it is q
+// exactly, and one fp16 multiply (HMUL2) by the rounded scale rounds the
+// exact product once. A checkpoint read under `--half` has fp16 scales
+// (`utils/checkpoint.py:load_params`), and there W is bitwise the JAX
+// package's `mm` off the TPU, rn_f16(q * s) (`fish_speech_tpu/ops/quant.py:
+// _int4_effective_weight`). The Pallas kernel keeps its bf16 W under fp16
+// x; ROADMAP §3 records the difference.
 
 #include <algorithm>
 #include <type_traits>
@@ -81,23 +96,44 @@ __device__ __forceinline__ void load4(const uint8_t* row, int col0, int out_dim,
   }
 }
 
-__device__ __forceinline__ uint32_t bf2_bits(__nv_bfloat162 v) {
+template <typename P>
+__device__ __forceinline__ P as_pair(uint32_t v) {
+  return *reinterpret_cast<P*>(&v);
+}
+template <typename P>
+__device__ __forceinline__ uint32_t pair_bits(P v) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
-__device__ __forceinline__ __nv_bfloat162 bits_bf2(uint32_t v) {
-  return *reinterpret_cast<__nv_bfloat162*>(&v);
+
+// W values of the low nibbles (bytes 0 and 2 of w) and of the high ones, as
+// T pairs, from the T scale pairs s_lo and s_hi (rn_T(s)): bf16 (128 + n)
+// by OR-ing n into 0x4300, minus 136; fp16 (1024 + n) by OR-ing n into
+// 0x6400, minus 1032; q exact either way, then one rounding of q * s
+template <typename T>
+__device__ __forceinline__ void dequant_pair(uint32_t w, uint32_t s_lo, uint32_t s_hi,
+                                             uint32_t& lo, uint32_t& hi) {
+  if constexpr (fs::Elem<T>::kF16) {
+    const __half2 bias = __floats2half2_rn(1032.f, 1032.f);  // 1024 + 8
+    const __half2 ql = __hsub2(as_pair<__half2>((w & 0x000F000Fu) | 0x64006400u), bias);
+    const __half2 qh =
+        __hsub2(as_pair<__half2>(((w >> 4) & 0x000F000Fu) | 0x64006400u), bias);
+    lo = pair_bits(__hmul2(ql, as_pair<__half2>(s_lo)));
+    hi = pair_bits(__hmul2(qh, as_pair<__half2>(s_hi)));
+  } else {
+    const __nv_bfloat162 bias = __floats2bfloat162_rn(136.f, 136.f);  // 128 + 8
+    const __nv_bfloat162 ql =
+        __hsub2(as_pair<__nv_bfloat162>((w & 0x000F000Fu) | 0x43004300u), bias);
+    const __nv_bfloat162 qh =
+        __hsub2(as_pair<__nv_bfloat162>(((w >> 4) & 0x000F000Fu) | 0x43004300u), bias);
+    lo = pair_bits(__hmul2_rn(ql, as_pair<__nv_bfloat162>(s_lo)));
+    hi = pair_bits(__hmul2_rn(qh, as_pair<__nv_bfloat162>(s_hi)));
+  }
 }
 
-// W values of the low nibbles (bytes 0 and 2 of w) and of the high ones
-__device__ __forceinline__ void dequant_pair(uint32_t w, __nv_bfloat162 s_lo,
-                                             __nv_bfloat162 s_hi, uint32_t& lo,
-                                             uint32_t& hi) {
-  const __nv_bfloat162 bias = __floats2bfloat162_rn(136.f, 136.f);  // 128 + 8
-  const __nv_bfloat162 ql = __hsub2(bits_bf2((w & 0x000F000Fu) | 0x43004300u), bias);
-  const __nv_bfloat162 qh =
-      __hsub2(bits_bf2(((w >> 4) & 0x000F000Fu) | 0x43004300u), bias);
-  lo = bf2_bits(__hmul2_rn(ql, s_lo));
-  hi = bf2_bits(__hmul2_rn(qh, s_hi));
+// the bits of a 16-bit value
+template <typename T>
+__device__ __forceinline__ uint32_t bits16(T v) {
+  return *reinterpret_cast<const uint16_t*>(&v);
 }
 
 // One 16-byte load: 16 columns of packed row r, i.e. W[r, c..c+16) in the
@@ -136,8 +172,8 @@ __device__ __forceinline__ float sum_partials(const float* p, size_t stride, int
 }
 
 // y[b][c] += x_lo[b] * W[r, c] + x_hi[b] * W[r + I/2, c] over a thread's 16
-// columns. bf16 x: W = rn_bf16(q * rn_bf16(s)) (s_lo/s_hi hold rn_bf16(s)
-// as bf16 pairs, column 2i in the low half); fp32 x: W = q * s in fp32.
+// columns. 16-bit x (T): W = rn_T(q * rn_T(s)) (sb_lo/sb_hi hold rn_T(s)
+// as T pairs, column 2i in the low half); fp32 x: W = q * s in fp32.
 template <typename T, int NB>
 __device__ __forceinline__ void gemv_row(uint4 w4, const float* s_lo,
                                          const float* s_hi,
@@ -149,16 +185,15 @@ __device__ __forceinline__ void gemv_row(uint4 w4, const float* s_lo,
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     float lo[4], hi[4];
-    if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-      uint32_t lo01, hi01, lo23, hi23;  // bf16 pairs, column c in the low half
-      dequant_pair(__byte_perm(words[i], 0, 0x4140), bits_bf2(sb_lo[2 * i]),
-                   bits_bf2(sb_hi[2 * i]), lo01, hi01);
-      dequant_pair(__byte_perm(words[i], 0, 0x4342), bits_bf2(sb_lo[2 * i + 1]),
-                   bits_bf2(sb_hi[2 * i + 1]), lo23, hi23);
-      lo[0] = __uint_as_float(lo01 << 16); lo[1] = __uint_as_float(lo01 & 0xFFFF0000u);
-      lo[2] = __uint_as_float(lo23 << 16); lo[3] = __uint_as_float(lo23 & 0xFFFF0000u);
-      hi[0] = __uint_as_float(hi01 << 16); hi[1] = __uint_as_float(hi01 & 0xFFFF0000u);
-      hi[2] = __uint_as_float(hi23 << 16); hi[3] = __uint_as_float(hi23 & 0xFFFF0000u);
+    if constexpr (!std::is_same<T, float>::value) {
+      using E = fs::Elem<T>;
+      uint32_t lo01, hi01, lo23, hi23;  // T pairs, column c in the low half
+      dequant_pair<T>(__byte_perm(words[i], 0, 0x4140), sb_lo[2 * i], sb_hi[2 * i],
+                      lo01, hi01);
+      dequant_pair<T>(__byte_perm(words[i], 0, 0x4342), sb_lo[2 * i + 1],
+                      sb_hi[2 * i + 1], lo23, hi23);
+      lo[0] = E::lo(lo01); lo[1] = E::hi(lo01); lo[2] = E::lo(lo23); lo[3] = E::hi(lo23);
+      hi[0] = E::lo(hi01); hi[1] = E::hi(hi01); hi[2] = E::lo(hi23); hi[3] = E::hi(hi23);
     } else {
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
@@ -176,7 +211,8 @@ __device__ __forceinline__ void gemv_row(uint4 w4, const float* s_lo,
 }
 
 // The 16 scales of a thread's columns in group `grp`: fp32 (fp32 x) and
-// rn_bf16 pairs (bf16 x).
+// rn_T pairs (16-bit x of type T).
+template <typename T>
 __device__ __forceinline__ void gemv_scales(const float* gs, int grp, int col0,
                                             int out_dim, float* s,
                                             uint32_t* sb) {
@@ -185,9 +221,10 @@ __device__ __forceinline__ void gemv_scales(const float* gs, int grp, int col0,
     const int col = col0 + c;
     s[c] = col < out_dim ? gs[(size_t)grp * out_dim + col] : 0.f;
   }
+  if constexpr (!std::is_same<T, float>::value) {
 #pragma unroll
-  for (int i = 0; i < GV_VEC / 2; ++i)
-    sb[i] = bf2_bits(__floats2bfloat162_rn(s[2 * i], s[2 * i + 1]));
+    for (int i = 0; i < GV_VEC / 2; ++i) sb[i] = fs::Elem<T>::pack(s[2 * i], s[2 * i + 1]);
+  }
 }
 
 // grid (ceil(O / GV_COLS), n_split); split k owns packed rows
@@ -255,10 +292,12 @@ __global__ void __launch_bounds__(GV_THREADS, NB <= 4 ? 2 : 1)
         s_lo[c] = ss[ct * GV_VEC + c];
         s_hi[c] = ss[GV_COLS + ct * GV_VEC + c];
       }
+      if constexpr (!std::is_same<T, float>::value) {
 #pragma unroll
-      for (int i = 0; i < GV_VEC / 2; ++i) {
-        sb_lo[i] = bf2_bits(__floats2bfloat162_rn(s_lo[2 * i], s_lo[2 * i + 1]));
-        sb_hi[i] = bf2_bits(__floats2bfloat162_rn(s_hi[2 * i], s_hi[2 * i + 1]));
+        for (int i = 0; i < GV_VEC / 2; ++i) {
+          sb_lo[i] = fs::Elem<T>::pack(s_lo[2 * i], s_lo[2 * i + 1]);
+          sb_hi[i] = fs::Elem<T>::pack(s_hi[2 * i], s_hi[2 * i + 1]);
+        }
       }
     }
 #pragma unroll
@@ -267,8 +306,8 @@ __global__ void __launch_bounds__(GV_THREADS, NB <= 4 ? 2 : 1)
       if (j >= n) break;
       if (!one_group) {  // small or odd groups: the row's own scales
         const int grp = (c0 + j) / group;
-        gemv_scales(gs, grp, col0, out_dim, s_lo, sb_lo);
-        gemv_scales(gs, grp + half / group, col0, out_dim, s_hi, sb_hi);
+        gemv_scales<T>(gs, grp, col0, out_dim, s_lo, sb_lo);
+        gemv_scales<T>(gs, grp + half / group, col0, out_dim, s_hi, sb_hi);
       }
       float x_lo[NB], x_hi[NB];
 #pragma unroll
@@ -405,7 +444,8 @@ __global__ void __launch_bounds__(256)
 
 // ---------------------------------------------------------------------------
 // The "wgmma" route: y (B, O) bf16 = x (B, I) bf16 @ W, W = rn_bf16(q *
-// rn_bf16(s)), summed in fp32 on the tensor cores.
+// rn_bf16(s)), summed in fp32 on the tensor cores; "wgmma_f16" the same on
+// fp16 x and y with W = rn_f16(q * rn_f16(s)) (T = __half, `.f16` wgmma).
 //
 // * It computes y^T = W^T x^T: the tensor cores' M is O and their N is B.
 //   W^T is wgmma's A operand, which may come from registers: each thread
@@ -430,7 +470,8 @@ __global__ void __launch_bounds__(256)
 //   one packed row: 4 loads per k16 step feed 8 A values of each half.
 //   A nibble v becomes bf16 (128 + v) by OR-ing it into 0x4300, then
 //   q = (128 + v) - 136 exactly and W = q * s in bf16x2 arithmetic (round
-//   to nearest, as the Pallas kernel's bf16 product).
+//   to nearest, as the Pallas kernel's bf16 product); in fp16 (1024 + v)
+//   from 0x6400, minus 1032, and W = q * rn_f16(s) in fp16x2.
 // * Shared memory: x tiles in the 128-byte swizzle (row m's 16-byte chunk
 //   c at chunk c ^ (m % 8), tiles 1024-byte aligned) for the wgmma
 //   descriptor; packed bytes in rows padded to 144 bytes, so the 16-bit
@@ -481,11 +522,12 @@ inline int scale_rows(int group) { return std::min(KP, (KP - 1) / group + 2); }
 
 using namespace fs::wg;
 
+template <typename T>
 struct Args {
-  const __nv_bfloat16* x;
+  const T* x;
   const uint8_t* p;
   const float* gs;
-  __nv_bfloat16* out;
+  T* out;
   int batch, in_dim, out_dim, group, srows;
   bool xvec, pvec, svec;  // 16-byte copies possible (else element by element)
   bool sglobal;           // scales read from global memory (srows > S_MAX)
@@ -494,8 +536,9 @@ struct Args {
 // Stage `st` into buffer `buf`. Thread t copies 8 chunks of x (rows
 // t/8 + 32j of the tile, j = 0..3, in both halves, 16-byte chunk t % 8) and
 // 2 of packed bytes (rows t/8 + 32j, j = 0..1, chunk t % 8).
+template <typename T>
 __device__ void load_stage(uint8_t* sm, int buf, int st, int m0, int n0,
-                           const Args& a) {
+                           const Args<T>& a) {
   const int half = a.in_dim / 2, r0 = st * KP, t = threadIdx.x, c = t % 8;
   uint8_t* xs = sm + X_OFF + buf * 2 * X_TILE + sw128(t / 8, c);
   const bool k_ok = r0 + 8 * c < half;
@@ -505,17 +548,17 @@ __device__ void load_stage(uint8_t* sm, int buf, int st, int m0, int n0,
     for (int j = 0; j < 4; ++j) {
       uint8_t* dst = xs + h * X_TILE + j * 32 * 128;
       const int row = m0 + t / 8 + 32 * j;
-      const __nv_bfloat16* src = a.x + (size_t)row * a.in_dim + h * half + r0 + 8 * c;
+      const T* src = a.x + (size_t)row * a.in_dim + h * half + r0 + 8 * c;
       if (a.xvec) {
         const bool valid = row < a.batch && k_ok;
         cp_async16(dst, valid ? src : a.x, valid);
       } else {
         uint4 v;
-        __nv_bfloat16* e = reinterpret_cast<__nv_bfloat16*>(&v);
+        T* e = reinterpret_cast<T*>(&v);
 #pragma unroll
         for (int i = 0; i < 8; ++i)
           e[i] = (row < a.batch && r0 + 8 * c + i < half) ? src[i]
-                                                          : __float2bfloat16(0.f);
+                                                          : fs::Elem<T>::from_float(0.f);
         *reinterpret_cast<uint4*>(dst) = v;
       }
     }
@@ -562,11 +605,11 @@ __device__ void load_stage(uint8_t* sm, int buf, int st, int m0, int n0,
   }
 }
 
-// the bf16 scales of half h at scale row `rel` of the stage (row j0 + rel
+// the fp32 scales of half h at scale row `rel` of the stage (row j0 + rel
 // of the half's groups), for tile columns c and c + 1
-__device__ __forceinline__ void scales_at(const float* ss, int h, int rel,
-                                          int c, int j0, int n0, const Args& a,
-                                          __nv_bfloat16& s0, __nv_bfloat16& s1) {
+template <typename T>
+__device__ __forceinline__ float2 scales_at(const float* ss, int h, int rel,
+                                            int c, int j0, int n0, const Args<T>& a) {
   float2 v;
   if (a.sglobal) {
     const int groups_half = a.in_dim / 2 / a.group, grow = j0 + rel;
@@ -577,15 +620,16 @@ __device__ __forceinline__ void scales_at(const float* ss, int h, int rel,
   } else {
     v = *reinterpret_cast<const float2*>(ss + h * (S_TILE / 4) + rel * BO + c);
   }
-  s0 = __float2bfloat16_rn(v.x);
-  s1 = __float2bfloat16_rn(v.y);
+  return v;
 }
 
 // A fragments of stage `st` (buffer `buf`) for this thread: frag[kk] for
 // the low half's k16 step kk, frag[4 + kk] for the high half's.
+template <typename T>
 __device__ __forceinline__ void dequant_stage(const uint8_t* sm, int buf, int st,
-                                              int n0, const Args& a,
+                                              int n0, const Args<T>& a,
                                               uint32_t (&frag)[8][4]) {
+  using E = fs::Elem<T>;
   const uint8_t* ps = sm + P_OFF + buf * P_TILE;
   const float* ss = reinterpret_cast<const float*>(sm + S_OFF + buf * 2 * S_TILE);
   const uint8_t* srow = sm + R_OFF + buf * KP;
@@ -600,25 +644,24 @@ __device__ __forceinline__ void dequant_stage(const uint8_t* sm, int buf, int st
 #pragma unroll
     for (int e = 0; e < 4; ++e)
       u[e] = *reinterpret_cast<const uint16_t*>(ps + (k0 + (e & 1) + 8 * (e >> 1)) * PS + c);
-    // scales: [half][fragment register], each a bf16 pair over its two K
-    __nv_bfloat162 sp[2][4];
+    // scales: [half][fragment register], each a T pair of rn_T(s) over its
+    // two K
+    uint32_t sp[2][4];
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       if (uniform) {
-        __nv_bfloat16 s0, s1;
-        scales_at(ss, h, srow[kk * 16], c, j0, n0, a, s0, s1);
-        sp[h][0] = sp[h][2] = __halves2bfloat162(s0, s0);
-        sp[h][1] = sp[h][3] = __halves2bfloat162(s1, s1);
+        const float2 v = scales_at<T>(ss, h, srow[kk * 16], c, j0, n0, a);
+        sp[h][0] = sp[h][2] = E::pack(v.x, v.x);
+        sp[h][1] = sp[h][3] = E::pack(v.y, v.y);
       } else {
-        __nv_bfloat16 s[4][2];  // [K row k0, k0+1, k0+8, k0+9][column]
+        float2 s[4];  // K row k0, k0+1, k0+8, k0+9; (column c, c + 1)
 #pragma unroll
         for (int e = 0; e < 4; ++e)
-          scales_at(ss, h, srow[k0 + (e & 1) + 8 * (e >> 1)], c, j0, n0, a,
-                    s[e][0], s[e][1]);
-        sp[h][0] = __halves2bfloat162(s[0][0], s[1][0]);
-        sp[h][1] = __halves2bfloat162(s[0][1], s[1][1]);
-        sp[h][2] = __halves2bfloat162(s[2][0], s[3][0]);
-        sp[h][3] = __halves2bfloat162(s[2][1], s[3][1]);
+          s[e] = scales_at<T>(ss, h, srow[k0 + (e & 1) + 8 * (e >> 1)], c, j0, n0, a);
+        sp[h][0] = E::pack(s[0].x, s[1].x);
+        sp[h][1] = E::pack(s[0].y, s[1].y);
+        sp[h][2] = E::pack(s[2].x, s[3].x);
+        sp[h][3] = E::pack(s[2].y, s[3].y);
       }
     }
     // register 0: column c at K k0, k0+1; 1: column c+1 at K k0, k0+1;
@@ -627,10 +670,11 @@ __device__ __forceinline__ void dequant_stage(const uint8_t* sm, int buf, int st
                            __byte_perm(u[2], u[3], 0x0400), __byte_perm(u[2], u[3], 0x0501)};
 #pragma unroll
     for (int r = 0; r < 4; ++r)
-      dequant_pair(w[r], sp[0][r], sp[1][r], frag[kk][r], frag[4 + kk][r]);
+      dequant_pair<T>(w[r], sp[0][r], sp[1][r], frag[kk][r], frag[4 + kk][r]);
   }
 }
 
+template <typename T>
 __device__ __forceinline__ void issue_wgmmas(float (&acc)[64],
                                              uint32_t (&frag)[8][4],
                                              const uint8_t* sm, int buf) {
@@ -648,18 +692,19 @@ __device__ __forceinline__ void issue_wgmmas(float (&acc)[64],
   fence_regs(acc);
   wgmma_fence();
 #pragma unroll
-  for (int f = 0; f < 8; ++f) wgmma_m64n128k16_rs(acc, frag[f], desc[f]);
+  for (int f = 0; f < 8; ++f) wgmma_m64n128k16_rs<T>(acc, frag[f], desc[f]);
   wgmma_commit();
   fence_regs(acc);
 }
 
 // One stage: dequantize it, run its wgmmas, wait for the next stage's
 // copies, one barrier, then the copies of stage st + NBUF into its buffer.
+template <typename T>
 __device__ __forceinline__ void run_stage(float (&acc)[64], uint32_t (&frag)[8][4],
                                           uint8_t* sm, int st, int n_stages,
-                                          int m0, int n0, const Args& a) {
-  dequant_stage(sm, st % NBUF, st, n0, a, frag);
-  issue_wgmmas(acc, frag, sm, st % NBUF);
+                                          int m0, int n0, const Args<T>& a) {
+  dequant_stage<T>(sm, st % NBUF, st, n0, a, frag);
+  issue_wgmmas<T>(acc, frag, sm, st % NBUF);
   // ptxas serializes wgmmas whose register inputs are written while an
   // earlier group is in flight, so the stage's group is retired here; the
   // other block on the SM fills the tensor cores meanwhile
@@ -675,7 +720,8 @@ __device__ __forceinline__ void run_stage(float (&acc)[64], uint32_t (&frag)[8][
   cp_async_commit();
 }
 
-__global__ void __launch_bounds__(THREADS, 2) int4_wgmma_kernel(const Args a) {
+template <typename T>
+__global__ void __launch_bounds__(THREADS, 2) int4_wgmma_kernel(const Args<T> a) {
   extern __shared__ uint8_t smem_raw[];
   uint8_t* sm = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
@@ -711,25 +757,25 @@ __global__ void __launch_bounds__(THREADS, 2) int4_wgmma_kernel(const Args a) {
     for (int e = 0; e < 2; ++e) {
       const int row = m0 + 8 * (i / 4) + 2 * tq + e;
       if (row >= a.batch || col >= a.out_dim) continue;
-      __nv_bfloat16* dst = a.out + (size_t)row * a.out_dim + col;
+      T* dst = a.out + (size_t)row * a.out_dim + col;
       if (pairs) {
-        *reinterpret_cast<__nv_bfloat162*>(dst) =
-            __floats2bfloat162_rn(acc[i + e], acc[i + 2 + e]);
+        *reinterpret_cast<uint32_t*>(dst) = fs::Elem<T>::pack(acc[i + e], acc[i + 2 + e]);
       } else {
-        dst[0] = __float2bfloat16_rn(acc[i + e]);
-        if (col + 1 < a.out_dim) dst[1] = __float2bfloat16_rn(acc[i + 2 + e]);
+        dst[0] = fs::Elem<T>::from_float(acc[i + e]);
+        if (col + 1 < a.out_dim) dst[1] = fs::Elem<T>::from_float(acc[i + 2 + e]);
       }
     }
   }
 }
 
+template <typename T>
 int launch(const void* x, const uint8_t* p, const float* gs, void* out,
            int batch, int in_dim, int out_dim, int group, cudaStream_t stream) {
-  Args a;
-  a.x = static_cast<const __nv_bfloat16*>(x);
+  Args<T> a;
+  a.x = static_cast<const T*>(x);
   a.p = p;
   a.gs = gs;
-  a.out = static_cast<__nv_bfloat16*>(out);
+  a.out = static_cast<T*>(out);
   a.batch = batch;
   a.in_dim = in_dim;
   a.out_dim = out_dim;
@@ -740,18 +786,19 @@ int launch(const void* x, const uint8_t* p, const float* gs, void* out,
   a.pvec = out_dim % 16 == 0 && reinterpret_cast<uintptr_t>(p) % 16 == 0;
   a.svec = out_dim % 4 == 0 && reinterpret_cast<uintptr_t>(gs) % 16 == 0;
   const cudaError_t e = cudaFuncSetAttribute(
-      int4_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+      int4_wgmma_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
   if (e != cudaSuccess) return (int)e;
   dim3 grid((out_dim + BO - 1) / BO, (batch + BN - 1) / BN);
-  int4_wgmma_kernel<<<grid, THREADS, SMEM, stream>>>(a);
+  int4_wgmma_kernel<T><<<grid, THREADS, SMEM, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
 }  // namespace tc
 
 // ---------------------------------------------------------------------------
-// "gemv" route, bf16 x with g % 128 == 0 and O % 16 == 0: the products on
-// the tensor cores (mma.sync m16n8k16, bf16 in, fp32 sums), y^T = W^T x^T.
+// "gemv" route, bf16 (or fp16, "gemv_f16") x with g % 128 == 0 and O % 16 ==
+// 0: the products on the tensor cores (mma.sync m16n8k16, 16-bit in, fp32
+// sums), y^T = W^T x^T.
 // A block owns 256 columns and a run of whole groups of packed rows; its
 // W streams through shared memory in stages of 64 packed rows, each stage
 // two TMA boxes of 64 rows x 128 bytes (the 128-byte swizzle; columns past
@@ -762,7 +809,7 @@ int launch(const void* x, const uint8_t* p, const float* gs, void* out,
 // (g = lane / 4, q = lane % 4) holds the A values of columns c = 16 g + 2 j
 // and c + 1 (m = g and g + 8) at packed rows q and q + 4, each register
 // one byte: its two nibbles are rows r and r + I/2 (the k pair 2q, 2q + 1),
-// dequantized to the bf16 W in bf16x2 arithmetic. B holds x at the same
+// dequantized to the 16-bit W in x2 arithmetic. B holds x at the same
 // rows, batch row g in column n = g.
 // ---------------------------------------------------------------------------
 
@@ -773,25 +820,35 @@ constexpr int MMA_MAX_RUN = 1024;      // packed rows of a run (ops/int4.py)
 constexpr int MMA_BOX = MMA_STAGE_ROWS * 128;        // one TMA box, bytes
 constexpr int MMA_STAGE_BYTES = 2 * MMA_BOX;
 
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+// d += a b, m16n8k16 with fp32 sums, the operands in T (bf16 or fp16)
+template <typename T>
+__device__ __forceinline__ void mma16(float (&d)[4], const uint32_t (&a)[4],
+                                      uint32_t b0, uint32_t b1) {
+  if constexpr (fs::Elem<T>::kF16) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  } else {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  }
 }
 
 // smem: ring [MMA_STAGES][2 boxes][64][128] bytes | x pairs [NB][run]
-// uint32 (row r and r + I/2, bf16) | scale pairs [groups of the run][2][128]
-// uint32 (columns c, c + 1, bf16; low groups then high) | sums [4][NB][256]
-// fp32.
-template <int NB>
+// uint32 (row r and r + I/2, T) | scale pairs [groups of the run][2][128]
+// uint32 (columns c, c + 1, rn_T(s); low groups then high) | sums
+// [4][NB][256] fp32. T is bf16 ("gemv") or fp16 ("gemv_f16").
+template <int NB, typename T>
 __global__ void __launch_bounds__(GV_THREADS)
     int4_gemv_mma_kernel(const __grid_constant__ CUtensorMap pmap,
-                         const __nv_bfloat16* __restrict__ x,
+                         const T* __restrict__ x,
                          const float* __restrict__ gs,
-                         __nv_bfloat16* __restrict__ out,
+                         T* __restrict__ out,
                          float* __restrict__ work, int* __restrict__ counters,
                          int in_dim, int out_dim, int group, int rows) {
   constexpr int n_stages = MMA_STAGES;
@@ -823,20 +880,19 @@ __global__ void __launch_bounds__(GV_THREADS)
     for (int st = 0; st < n_stages; ++st) load_stage(st, st);
   }
 
-  // x of the run's rows as bf16 pairs (row r, row r + I/2); the scales of
-  // its groups as bf16 pairs of neighbouring columns, rn_bf16(s)
+  // x of the run's rows as T pairs (row r, row r + I/2); the scales of
+  // its groups as T pairs of neighbouring columns, rn_T(s)
   for (int idx = threadIdx.x; idx < NB * rows; idx += GV_THREADS) {
     const int b = idx / rows, r = r0 + idx % rows;
-    const __nv_bfloat16* xb = x + (size_t)b * in_dim;
-    xs[idx] = (uint32_t)__bfloat16_as_ushort(xb[r]) |
-              ((uint32_t)__bfloat16_as_ushort(xb[half + r]) << 16);
+    const T* xb = x + (size_t)b * in_dim;
+    xs[idx] = bits16(xb[r]) | (bits16(xb[half + r]) << 16);
   }
   for (int idx = threadIdx.x; idx < n_grp * MMA_COLS; idx += GV_THREADS) {
     const int gi = idx / MMA_COLS, h = (idx / (MMA_COLS / 2)) & 1;
     const int col = tile0 + 2 * (idx % (MMA_COLS / 2));
     const float* srow = gs + (size_t)(r0 / group + gi + h * (half / group)) * out_dim;
-    ss[idx] = bf2_bits(__floats2bfloat162_rn(col < out_dim ? srow[col] : 0.f,
-                                             col + 1 < out_dim ? srow[col + 1] : 0.f));
+    ss[idx] = fs::Elem<T>::pack(col < out_dim ? srow[col] : 0.f,
+                                col + 1 < out_dim ? srow[col + 1] : 0.f);
   }
   __syncthreads();  // x, the scales and the barriers' init are visible
 
@@ -856,11 +912,11 @@ __global__ void __launch_bounds__(GV_THREADS)
     const uint8_t* box = ring + slot * MMA_STAGE_BYTES + wc * MMA_BOX;
     // a stage lies in one group (g % 128 == 0): its 16 scale pairs
     const int gi = sub * MMA_STAGE_ROWS / group;
-    __nv_bfloat162 s_lo[8], s_hi[8];
+    uint32_t s_lo[8], s_hi[8];
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
-      s_lo[j] = bits_bf2(ss[gi * MMA_COLS + cw / 2 + j]);
-      s_hi[j] = bits_bf2(ss[gi * MMA_COLS + MMA_COLS / 2 + cw / 2 + j]);
+      s_lo[j] = ss[gi * MMA_COLS + cw / 2 + j];
+      s_hi[j] = ss[gi * MMA_COLS + MMA_COLS / 2 + cw / 2 + j];
     }
 #pragma unroll
     for (int t = 0; t < MMA_STAGE_ROWS / 8 / 4; ++t) {
@@ -882,15 +938,15 @@ __global__ void __launch_bounds__(GV_THREADS)
           const int j = 2 * i + h;
           const uint32_t sel = h ? 0x4342u : 0x4140u;
           uint32_t lo0, hi0, lo1, hi1;  // (W[r, c], W[r, c+1]), (W[r+I/2, ...])
-          dequant_pair(__byte_perm(words0[i], 0, sel), s_lo[j], s_hi[j], lo0, hi0);
-          dequant_pair(__byte_perm(words1[i], 0, sel), s_lo[j], s_hi[j], lo1, hi1);
+          dequant_pair<T>(__byte_perm(words0[i], 0, sel), s_lo[j], s_hi[j], lo0, hi0);
+          dequant_pair<T>(__byte_perm(words1[i], 0, sel), s_lo[j], s_hi[j], lo1, hi1);
           // A: (m = g, k pair q): column c at row q; (g + 8, q): column c + 1;
           // (g, q + 4) and (g + 8, q + 4): row q + 4
           const uint32_t a[4] = {__byte_perm(lo0, hi0, 0x5410),
                                  __byte_perm(lo0, hi0, 0x7632),
                                  __byte_perm(lo1, hi1, 0x5410),
                                  __byte_perm(lo1, hi1, 0x7632)};
-          mma_bf16(acc[j], a, b0, b1);
+          mma16<T>(acc[j], a, b0, b1);
         }
       }
     }
@@ -916,7 +972,7 @@ __global__ void __launch_bounds__(GV_THREADS)
 #pragma unroll
     for (int w = 0; w < 4; ++w) y += red[(w * NB + b) * MMA_COLS + idx % MMA_COLS];
     if (n_split == 1)
-      out[(size_t)b * out_dim + col] = __float2bfloat16_rn(y);
+      fs::store(out + (size_t)b * out_dim + col, y);
     else
       part[(size_t)b * out_dim + col] = y;
   }
@@ -929,13 +985,13 @@ __global__ void __launch_bounds__(GV_THREADS)
   for (int idx = threadIdx.x; idx < NB * MMA_COLS; idx += GV_THREADS) {
     const int b = idx / MMA_COLS, col = tile0 + idx % MMA_COLS;
     if (col >= out_dim) continue;
-    out[(size_t)b * out_dim + col] = __float2bfloat16_rn(
-        sum_partials(work + (size_t)b * out_dim + col, (size_t)NB * out_dim, n_split));
+    fs::store(out + (size_t)b * out_dim + col,
+              sum_partials(work + (size_t)b * out_dim + col, (size_t)NB * out_dim, n_split));
   }
   if (threadIdx.x == 0) counters[blockIdx.x] = 0;
 }
 
-template <int NB>
+template <int NB, typename T>
 int launch_gemv_mma(const void* x, const uint8_t* p, const float* gs, void* out,
                     float* work, int* counters, int in_dim, int out_dim,
                     int group, int n_split, cudaStream_t stream) {
@@ -947,7 +1003,7 @@ int launch_gemv_mma(const void* x, const uint8_t* p, const float* gs, void* out,
     const int most = 1024 + MMA_STAGES * MMA_STAGE_BYTES + 4 * NB * MMA_MAX_RUN +
                      4 * (MMA_MAX_RUN / 128) * MMA_COLS + 16 * NB * MMA_COLS;
     const cudaError_t e = cudaFuncSetAttribute(
-        int4_gemv_mma_kernel<NB>, cudaFuncAttributeMaxDynamicSharedMemorySize, most);
+        int4_gemv_mma_kernel<NB, T>, cudaFuncAttributeMaxDynamicSharedMemorySize, most);
     if (e != cudaSuccess) return (int)e;
     sized = true;
   }
@@ -958,15 +1014,14 @@ int launch_gemv_mma(const void* x, const uint8_t* p, const float* gs, void* out,
                                     MMA_STAGE_ROWS);
   if (rc != 0) return rc;
   dim3 grid((out_dim + MMA_COLS - 1) / MMA_COLS, n_split);
-  int4_gemv_mma_kernel<NB><<<grid, GV_THREADS, smem, stream>>>(
-      pmap, static_cast<const __nv_bfloat16*>(x), gs,
-      static_cast<__nv_bfloat16*>(out), work, counters, in_dim, out_dim, group,
-      rows);
+  int4_gemv_mma_kernel<NB, T><<<grid, GV_THREADS, smem, stream>>>(
+      pmap, static_cast<const T*>(x), gs, static_cast<T*>(out), work, counters,
+      in_dim, out_dim, group, rows);
   return (int)cudaGetLastError();
 }
 
-// the tensor-core matvec takes the call: bf16 x, whole 128-row groups, runs
-// of at most MMA_MAX_RUN rows, 16-byte rows of p
+// the tensor-core matvec takes the call: 16-bit x, whole 128-row groups,
+// runs of at most MMA_MAX_RUN rows, 16-byte rows of p
 bool gemv_mma_takes(int in_dim, int out_dim, int group, int n_split,
                     const void* p) {
   const int rows = in_dim / 2 / n_split;
@@ -999,10 +1054,17 @@ int launch_gemv_rows(int batch, const void* x, const uint8_t* p,
                      const float* gs, void* out, float* work, int* counters,
                      int in_dim, int out_dim, int group, int n_split,
                      cudaStream_t stream) {
+  // 16-bit x on the tensor cores where the groups and rows allow it
+  const bool mma = !std::is_same<T, float>::value &&
+                   gemv_mma_takes(in_dim, out_dim, group, n_split, p);
   switch (batch) {
-#define FS_GV(NB)                                                            \
-  case NB:                                                                   \
-    return launch_gemv<T, NB>(x, p, gs, out, work, counters, in_dim, out_dim, \
+#define FS_GV(NB)                                                                \
+  case NB:                                                                       \
+    if constexpr (!std::is_same<T, float>::value)                                \
+      if (mma)                                                                   \
+        return launch_gemv_mma<NB, T>(x, p, gs, out, work, counters, in_dim,     \
+                                      out_dim, group, n_split, stream);          \
+    return launch_gemv<T, NB>(x, p, gs, out, work, counters, in_dim, out_dim,    \
                               group, n_split, stream)
     FS_GV(1); FS_GV(2); FS_GV(3); FS_GV(4); FS_GV(5); FS_GV(6); FS_GV(7); FS_GV(8);
 #undef FS_GV
@@ -1036,26 +1098,21 @@ extern "C" int fs_int4_matmul(const void* x, const void* p, const void* gs,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (route == kRouteGemv && batch <= GV_MAXB &&
       (n_split == 1 || (wk != nullptr && cnt != nullptr))) {
-    if (dtype == fs::kBFloat16 && gemv_mma_takes(in_dim, out_dim, group, n_split, p)) {
-      switch (batch) {
-#define FS_GV(NB)                                                              \
-  case NB:                                                                     \
-    return launch_gemv_mma<NB>(x, pp, gp, out, wk, cnt, in_dim, out_dim, group, \
-                               n_split, s)
-        FS_GV(1); FS_GV(2); FS_GV(3); FS_GV(4); FS_GV(5); FS_GV(6); FS_GV(7); FS_GV(8);
-#undef FS_GV
-      }
-    }
-    if (dtype == fs::kBFloat16)
+    if (dtype == fs::kBFloat16)  // "gemv"
       return launch_gemv_rows<__nv_bfloat16>(batch, x, pp, gp, out, wk, cnt,
                                              in_dim, out_dim, group, n_split, s);
-    if (dtype == fs::kFloat32)
+    if (dtype == fs::kFloat16)  // "gemv_f16"
+      return launch_gemv_rows<__half>(batch, x, pp, gp, out, wk, cnt, in_dim,
+                                      out_dim, group, n_split, s);
+    if (dtype == fs::kFloat32)  // "gemv"
       return launch_gemv_rows<float>(batch, x, pp, gp, out, wk, cnt, in_dim,
                                      out_dim, group, n_split, s);
   }
   if (n_split != 1) return (int)cudaErrorInvalidValue;
-  if (route == kRouteWgmma && dtype == fs::kBFloat16)
-    return tc::launch(x, pp, gp, out, batch, in_dim, out_dim, group, s);
+  if (route == kRouteWgmma && dtype == fs::kBFloat16)  // "wgmma"
+    return tc::launch<__nv_bfloat16>(x, pp, gp, out, batch, in_dim, out_dim, group, s);
+  if (route == kRouteWgmma && dtype == fs::kFloat16)  // "wgmma_f16"
+    return tc::launch<__half>(x, pp, gp, out, batch, in_dim, out_dim, group, s);
   if (route == kRouteFp32Tiled && dtype == fs::kFloat32) {
     dim3 grid((out_dim + BN - 1) / BN, (batch + BM - 1) / BM);
     int4_gemm_kernel<float><<<grid, 256, 0, s>>>(

@@ -161,10 +161,12 @@ class BatcherSession:
 
     def generate_stream(self, prompt, generator, max_new_tokens=0,
                         temperature=1.0, top_p=0.9, top_k=30, **_):
-        """Yield the CUMULATIVE (C+1, n) columns as the pool emits this
-        request's columns; emissions queued while the consumer was busy are
-        taken together. Closing the generator early marks the request
-        cancelled, so the pool frees its slot at the next boundary."""
+        """Yield the CUMULATIVE (C+1, n) columns once per emission of this
+        request's columns by the pool, as JAX's: emissions queued while the
+        consumer was busy are not merged, so the partials' lengths (and the
+        codec shapes that decode them) do not depend on the consumer's pace.
+        Closing the generator early marks the request cancelled, so the
+        pool frees its slot at the next boundary."""
         req = BatchRequest(prompt=prompt, max_new_tokens=max_new_tokens,
                            temperature=temperature, top_p=top_p, top_k=top_k,
                            seed=request_seed(generator))
@@ -172,24 +174,16 @@ class BatcherSession:
         chunks = []
         done = False
         try:
-            while not done:
-                items = [out.get()]
-                while items[-1] is not None and not isinstance(
-                        items[-1], BaseException):
-                    try:
-                        items.append(out.get_nowait())
-                    except queue.Empty:
-                        break
-                for item in items:
-                    if isinstance(item, BaseException):
-                        done = True
-                        raise RuntimeError("batcher worker failed") from item
-                    if item is None:
-                        done = True
-                    else:
-                        chunks.append(item)
-                if any(item is not None for item in items):
-                    yield np.concatenate(chunks, axis=0).T
+            while True:
+                item = out.get()
+                if item is None:
+                    done = True
+                    break
+                if isinstance(item, BaseException):
+                    done = True
+                    raise RuntimeError("batcher worker failed") from item
+                chunks.append(item)
+                yield np.concatenate(chunks, axis=0).T
             if not chunks:
                 yield np.zeros((self.cfg.num_codebooks + 1, 0), np.int32)
         finally:

@@ -34,8 +34,7 @@ NVCC_FLAGS = (
 # dtype codes of the C entry points (csrc/common.cuh)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 # what the kernels without an fp16 form take: the training attention (JAX
-# trains in neither fp16 nor under `--half`) and the int4 matvec (ROADMAP §1
-# item 12b)
+# trains in neither fp16 nor under `--half`)
 BF16_FP32 = (torch.float32, torch.bfloat16)
 
 
@@ -107,8 +106,8 @@ def load_kernels() -> ctypes.CDLL:
     ]
     lib.fs_flash_prefill.restype = i32
     lib.fs_flash_suffix.argtypes = [
-        ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, i32,
-        i32, f32, ptr
+        ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32,
+        i32, i32, i32, i32, i32, i32, f32, ptr
     ]
     lib.fs_flash_suffix.restype = i32
     lib.fs_flash_decode.argtypes = [

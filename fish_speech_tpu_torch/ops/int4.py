@@ -5,7 +5,9 @@ Port of the Pallas TPU kernel `fish_speech_tpu/ops/pallas_int4.py`
 `ops/quant.py`):
 
   p:  (I/2, O) uint8 -- low nibble = row i, high nibble = row i + I/2, +8
-  gs: (I/g, O) fp32  -- group scales over the original row index
+  gs: (I/g, O) fp32  -- group scales over the original row index (bf16 or
+                        fp16 as a checkpoint read in that dtype holds them:
+                        the wrapper widens them to fp32, exactly)
 
 and a group never straddles the half split: (I/2) % g == 0.
 
@@ -22,7 +24,14 @@ explicit dispatch, not a fallback:
     dequantizes W as the Pallas kernel does, rn_bf16(q * rn_bf16(s)), and
     sums in fp32; its plain version is `int4_matmul_bf16w_reference`;
   * "fp32_tiled", fp32 x with B > 8: a tiled product on the CUDA cores, W
-    in fp32.
+    in fp32;
+  * "gemv_f16" and "wgmma_f16", fp16 x (`--half` serving), B <= 8 and
+    B > 8: the first two routes' kernels on fp16 operands, W =
+    rn_f16(q * rn_f16(s)) (`int4_dequant_f16`; plain version
+    `int4_matmul_f16w_reference`). Where s is an fp16 value (a checkpoint
+    read under `--half`) that is bitwise the JAX package's `mm` off the
+    TPU, rn_f16(q * s); the Pallas kernel keeps a bf16 W under fp16 x
+    (ROADMAP §3).
 
 `int4_matmul_reference` is the plain version of the fp32-W routes (the JAX
 package's `int4_matmul_reference`). The wrapper runs it for CPU tensors
@@ -35,17 +44,20 @@ import functools
 
 import torch
 
-from fish_speech_tpu_torch.ops._kernels import (BF16_FP32, DTYPE_CODES,
-                                                check_launch, load_kernels,
-                                                scratch, sm_count, stream_ptr)
+from fish_speech_tpu_torch.ops._kernels import (DTYPE_CODES, check_launch,
+                                                load_kernels, scratch, sm_count,
+                                                stream_ptr)
 
 GEMV_MAX_ROWS = 8  # rows of x up to which the split-K matvec kernel runs
-ROUTES = ("gemv", "wgmma", "fp32_tiled")  # route codes of fs_int4_matmul
+# routes; the code of each in fs_int4_matmul, which takes fp16 x on the
+# codes of "gemv" and "wgmma"
+ROUTES = ("gemv", "wgmma", "fp32_tiled", "gemv_f16", "wgmma_f16")
 GEMV_COLS = 256  # output columns per block of the matvec kernel
 GEMV_BLOCKS_PER_SM = 2  # blocks the split aims for
 GEMV_MAX_SPLIT = 64  # most runs the packed rows are cut into
 GEMV_MAX_RUN = 1024  # most packed rows of a run, where groups allow
-_ROUTE_CODES = {r: n for n, r in enumerate(ROUTES)}
+_ROUTE_CODES = {"gemv": 0, "wgmma": 1, "fp32_tiled": 2, "gemv_f16": 0, "wgmma_f16": 1}
+SCALE_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 
 
 @functools.lru_cache(maxsize=None)
@@ -66,16 +78,25 @@ def gemv_split(i: int, o: int, g: int, n_sm: int) -> int:
     return n_groups // (max(fits) if fits else min(sizes))
 
 
+def split_count(route: str, i: int, o: int, g: int, n_sm: int) -> int:
+    """The runs the kernel of `route` cuts the packed rows into:
+    `gemv_split`'s on the matvec routes (either dtype), else one."""
+    return gemv_split(i, o, g, n_sm) if route in ("gemv", "gemv_f16") else 1
+
+
 def gemv_partials_reference(x, p, gs, n_split: int):
     """The matvec kernel's per-run partial sums in fp32, (n_split, B, O):
     run k covers packed rows [k * I/(2 n_split), (k + 1) * I/(2 n_split))
     and both their nibbles, on the W of x's dtype (bf16: the Pallas
-    kernel's; fp32: q * s). Summed in run order they give y."""
+    kernel's; fp16: `int4_dequant_f16`; fp32: q * s). Summed in run order
+    they give y."""
     half = p.shape[-2]
     rows = half // n_split
-    w = (int4_dequant_bf16(p, gs) if x.dtype == torch.bfloat16 else
-         unpack_int4(p).float() * torch.repeat_interleave(
-             gs.float(), 2 * half // gs.shape[-2], dim=-2)).float()
+    if x.dtype in (torch.bfloat16, torch.float16):
+        w = _dequant16(p, gs, x.dtype).float()
+    else:
+        w = unpack_int4(p).float() * torch.repeat_interleave(
+            gs.float(), 2 * half // gs.shape[-2], dim=-2)
     xf = x.float()
     return torch.stack([
         xf[:, k * rows:(k + 1) * rows] @ w[k * rows:(k + 1) * rows]
@@ -107,14 +128,26 @@ def int4_matmul_reference(x, p, gs):
     return (x.float() @ w).to(x.dtype)
 
 
-def int4_dequant_bf16(p, gs):
-    """The Pallas kernel's weight: rn_bf16(q * rn_bf16(s)), (I, O) bf16.
-    Both factors are bf16, so the product rounds once, from an exact fp32
-    product (a 4-bit and an 8-bit significand)."""
+def _dequant16(p, gs, dtype):
+    """rn(q * rn(s)) in the 16-bit `dtype`, (I, O): both factors are
+    values of `dtype`, so the product rounds once, from an exact fp32
+    product (a 4-bit and an 8- or 11-bit significand)."""
     half = p.shape[-2]
     g = _group(2 * half, gs.shape[-2])
-    s = torch.repeat_interleave(gs.to(torch.bfloat16).float(), g, dim=-2)
-    return (unpack_int4(p).float() * s).to(torch.bfloat16)
+    s = torch.repeat_interleave(gs.to(dtype).float(), g, dim=-2)
+    return (unpack_int4(p).float() * s).to(dtype)
+
+
+def int4_dequant_bf16(p, gs):
+    """The Pallas kernel's weight: rn_bf16(q * rn_bf16(s)), (I, O) bf16."""
+    return _dequant16(p, gs, torch.bfloat16)
+
+
+def int4_dequant_f16(p, gs):
+    """The fp16 routes' weight: rn_f16(q * rn_f16(s)), (I, O) fp16. For
+    fp16 scales (a checkpoint read under `--half`) it is rn_f16(q * s),
+    bitwise the JAX package's `mm` off the TPU."""
+    return _dequant16(p, gs, torch.float16)
 
 
 def int4_matmul_bf16w_reference(x, p, gs):
@@ -123,8 +156,16 @@ def int4_matmul_bf16w_reference(x, p, gs):
     return (x.float() @ int4_dequant_bf16(p, gs).float()).to(x.dtype)
 
 
+def int4_matmul_f16w_reference(x, p, gs):
+    """Plain version of the "gemv_f16" and "wgmma_f16" routes: x @
+    `int4_dequant_f16(p, gs)`, summed in fp32, cast to x's dtype."""
+    return (x.float() @ int4_dequant_f16(p, gs).float()).to(x.dtype)
+
+
 def _route(b: int, dtype: torch.dtype) -> str:
     """Which kernel `int4_matmul` launches for B rows of x in `dtype`."""
+    if dtype == torch.float16:
+        return "gemv_f16" if b <= GEMV_MAX_ROWS else "wgmma_f16"
     if b <= GEMV_MAX_ROWS:
         return "gemv"
     return "wgmma" if dtype == torch.bfloat16 else "fp32_tiled"
@@ -133,9 +174,10 @@ def _route(b: int, dtype: torch.dtype) -> str:
 def _check(x, p, gs):
     if not (x.is_cuda and p.device == x.device and gs.device == x.device):
         raise ValueError("int4_matmul: x, p and gs must lie on one CUDA device")
-    if x.dtype not in BF16_FP32 or p.dtype != torch.uint8 or gs.dtype != torch.float32:
-        raise TypeError(f"int4_matmul: x bf16/fp32 (fp16 is ROADMAP §1 item 12b), "
-                        f"p uint8, gs fp32; got {x.dtype}/{p.dtype}/{gs.dtype}")
+    if (x.dtype not in DTYPE_CODES or p.dtype != torch.uint8
+            or gs.dtype not in SCALE_DTYPES):
+        raise TypeError(f"int4_matmul: x bf16/fp16/fp32, p uint8, gs fp32/bf16/"
+                        f"fp16; got {x.dtype}/{p.dtype}/{gs.dtype}")
     if x.dim() != 2 or p.dim() != 2 or gs.dim() != 2:
         raise ValueError("int4_matmul: x (B, I), p (I/2, O), gs (I/g, O)")
     b, i = x.shape
@@ -164,7 +206,7 @@ def _plan(x, p, gs):
     if plan is None:
         b, i, o, g = _check(x, p, gs)
         route = _route(b, x.dtype)
-        n_split = gemv_split(i, o, g, sm_count(x.device)) if route == "gemv" else 1
+        n_split = split_count(route, i, o, g, sm_count(x.device))
         work = counters = 0  # NULL: one run, or another route
         if n_split > 1:
             w, c = scratch("int4_gemv", x.device, n_split * b * o, -(-o // GEMV_COLS))
@@ -177,11 +219,13 @@ def _plan(x, p, gs):
 
 
 def int4_matmul(x, p, gs):
-    """x (B, I) bf16/fp32 @ packed int4 W -> (B, O) in x's dtype. On CUDA
-    tensors runs the hand-written kernel of `_route(B, x.dtype)`."""
+    """x (B, I) bf16/fp16/fp32 @ packed int4 W -> (B, O) in x's dtype. On
+    CUDA tensors runs the hand-written kernel of `_route(B, x.dtype)`."""
     if not x.is_cuda and x.device.type == "cpu":
         return int4_matmul_reference(x, p, gs)
     route, count, i, o, g, n_split, work, counters, code, route_code = _plan(x, p, gs)
+    if gs.dtype != torch.float32:  # a checkpoint's bf16 or fp16 scales, exactly
+        gs = gs.float()
     b = x.shape[0]
     out = x.new_empty((b, o))
     rc = load_kernels().fs_int4_matmul(

@@ -83,8 +83,7 @@ def mm(x: torch.Tensor, w) -> torch.Tensor:
         if x.device.type == "cpu":
             return x @ _int4_effective_weight(w, x.dtype)
         lead = x.shape[:-1]
-        gs = w["gs"].float()  # a no-op on the fp32 scales of `fp32_scales`
-        y = int4_matmul(x.reshape(-1, x.shape[-1]).contiguous(), w["p"], gs)
+        y = int4_matmul(x.reshape(-1, x.shape[-1]).contiguous(), w["p"], w["gs"])
         return y.reshape(*lead, y.shape[-1])
     if isinstance(w, dict) and "q" in w:
         rows = x.numel() // x.shape[-1]

@@ -15,9 +15,8 @@ smoke tests and demos:
 through the continuous batcher (`engine/batcher.py`), and `--prefix-cache`
 sizes the voice-clone prefix cache of either session. The LM and the codec
 load in bf16, or in fp16 with `--half` (the JAX server's dtypes; the
-kernels have fp16 forms), with any of the flags above and under a mesh;
-`--half` over a checkpoint of int4 leaves (`tools/quantize.py --mode int4`)
-raises, as the int4 kernels have no fp16 form yet (ROADMAP §1 item 12b).
+kernels have fp16 forms), with any of the flags above and under a mesh,
+over a checkpoint of int8 or int4 leaves (`tools/quantize.py`) too.
 `--tiny` serves fp32 models whatever `--half` says, as JAX's.
 
 Multi-card serving: one process per card, each started with the same flags
@@ -55,16 +54,6 @@ def check_args(args, multihost: bool = False):
         raise NotImplementedError(
             "int8 weights have no tensor-parallel layout yet; serve "
             "multi-card in bf16 or fp16 (ROADMAP §1 item 10)")
-
-
-def has_int4_leaves(tree) -> bool:
-    """Whether a parameter tree holds an int4 weight ({"p", "gs"})."""
-    if isinstance(tree, dict):
-        return {"p", "gs"} <= tree.keys() or any(
-            has_int4_leaves(v) for v in tree.values())
-    if isinstance(tree, (list, tuple)):
-        return any(has_int4_leaves(v) for v in tree)
-    return False
 
 
 def tiny_models(device):
@@ -131,11 +120,6 @@ def build_engine(args, multihost: bool = False):
         dtype = torch.float16 if args.half else torch.bfloat16
         params, cfg = load_dual_ar(args.checkpoint_path, dtype=dtype,
                                    device=device)
-        if args.half and has_int4_leaves(params):  # the int4 kernels take bf16, fp32
-            raise NotImplementedError(
-                "--half over int4 leaves is not served: the int4 kernels have no "
-                "fp16 form yet (ROADMAP §1 item 12b); serve this checkpoint in "
-                "bf16, or quantize it with --mode int8")
         tokenizer = FishTokenizer.from_pretrained(args.checkpoint_path)
         cfg = dataclasses.replace(
             cfg, semantic_begin_id=tokenizer.semantic_begin_id,
@@ -235,7 +219,7 @@ def parse_args(argv=None):
     parser.add_argument("--listen", type=str, default="127.0.0.1:8080")
     parser.add_argument("--api-key", type=str, default=None)
     parser.add_argument("--half", action="store_true",
-                        help="fp16 LM and codec (int4 checkpoints raise: ROADMAP §1 item 12b)")
+                        help="fp16 LM and codec")
     parser.add_argument("--max-text-length", type=int, default=0)
     parser.add_argument("--max-inflight", type=int, default=0,
                         help="cap concurrent /v1/tts requests; excess gets "

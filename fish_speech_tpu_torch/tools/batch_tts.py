@@ -180,7 +180,7 @@ def main(argv=None):
     p.add_argument("--kv-int8", dest="kv_int8", action="store_true")
     p.add_argument("--prefix-cache", type=int, default=0)
     p.add_argument("--half", action="store_true",
-                   help="fp16 LM and codec (int4 checkpoints raise: ROADMAP §1 item 12b)")
+                   help="fp16 LM and codec")
     p.add_argument("--tiny", action="store_true",
                    help="random tiny models (smoke tests/demos)")
     p.add_argument("--cpu", action="store_true",

@@ -2,11 +2,15 @@
 """The tensor-core attention forwards against SDPA, on one NVIDIA GPU.
 
     python3 scripts/attn_fwd_bench.py [LABEL=path/to/attn_wgmma.cuh ...]
+    python3 scripts/attn_fwd_bench.py [LABEL=path/to/other/csrc ...]
 
 Builds the kernel library from the checkout's sources and, for each
 LABEL=HEADER given, from a copy of them in which `csrc/attn_wgmma.cuh` is
 replaced by HEADER (another version of the mainloop, for an A/B in one
-process). Each build's training forward and prefill (bf16, the "wgmma"
+process); a LABEL=DIR names a whole other `csrc/` directory (another
+checkout's, `git archive REV | tar -x -C DIR`), built as it is: its
+`fs_flash_prefill` and `fs_flash_train_fwd` take this checkout's
+arguments. Each build's training forward and prefill (bf16, the "wgmma"
 route) are first held to their plain versions, at small shapes (D=64,
 ragged T, padding, offsets) and at the timed ones, to `chip_smoke.py`'s
 bounds. Then every build is timed at s2-pro's shapes (H=32, Hkv=8, D=128)
@@ -51,6 +55,9 @@ def _builds(variants, header_name="attn_wgmma.cuh", build="attn_fwd_bench"):
     dirs = {"checkout": _kernels.CSRC}
     for spec in variants:
         label, header = spec.split("=", 1)
+        if Path(header).is_dir():
+            dirs[label] = Path(header).resolve()
+            continue
         out = ROOT / "build" / build / label / "csrc"
         shutil.rmtree(out, ignore_errors=True)
         shutil.copytree(_kernels.CSRC, out)

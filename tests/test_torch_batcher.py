@@ -11,6 +11,8 @@ Tiny float32 models with JAX's random weights, bridged:
     and closing a `BatcherSession` stream frees its slot;
   * a worker crash reaches every client, active, parked and queued, and
     later submissions fail at once;
+  * a `BatcherSession` stream yields one partial per pool emission,
+    whatever its consumer's pace;
   * `admit_every < 0` raises;
   * the two engines over batcher sessions give the same results for
     concurrent greedy streamed requests: the same segments' audio within
@@ -169,6 +171,41 @@ def test_cancel_frees_the_slot():
         assert b.generate(prompt, max_new_tokens=6, seed=11).shape[1] == 6
     finally:
         b.shutdown()
+
+
+def test_stream_partials_follow_the_pools_emissions_not_the_consumers_pace():
+    """A `BatcherSession` stream yields one cumulative partial per emission
+    of the pool, as JAX's does, also when its consumer reads them only after
+    the request has ended: the partials' lengths (and so the codec shapes
+    that decode a streamed request) do not depend on timing."""
+    _, cfg, _, tp = _tiny(256)
+    b = _port(tp, cfg, TSamplingConfig(mask_im_end=True), pool_size=2,
+              decode_chunk_size=8, admit_every=2)
+    session = tbatch.BatcherSession(b)
+    prompt = random_prompt(cfg, 8)
+    try:
+        chunks, end = _drain(b.submit(tbatch.BatchRequest(
+            prompt=prompt, max_new_tokens=20, seed=5)))
+        assert end is None
+        want = np.cumsum([len(c) for c in chunks])
+
+        fast = list(session.generate_stream(
+            prompt, np.random.default_rng(5), max_new_tokens=20))
+        gen = session.generate_stream(prompt, np.random.default_rng(5),
+                                      max_new_tokens=20)
+        first = next(gen)
+        deadline = time.monotonic() + 60
+        while b.stats()["active_slots"] and time.monotonic() < deadline:
+            time.sleep(0.02)
+        assert b.stats()["active_slots"] == 0  # every emission is queued
+        slow = [first] + list(gen)
+    finally:
+        b.shutdown()
+    assert len(want) > 2 and want[-1] == 20
+    assert [p.shape[1] for p in fast] == list(want)
+    assert [p.shape[1] for p in slow] == list(want)
+    for f, s in zip(fast, slow):
+        np.testing.assert_array_equal(s, f)
 
 
 @pytest.mark.parametrize("where", ["_dispatch_steps", "_prefill_dispatch"])

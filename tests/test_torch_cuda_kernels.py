@@ -23,7 +23,15 @@ versions (`int4_matmul_reference` and `mm`'s CPU path, which rounds W to
 bf16), and, since bf16 x uses the Pallas kernel's bf16 W on every route
 (matvec, B <= 8, and tensor cores, B > 8), to that W's plain version,
 `int4_matmul_bf16w_reference`, summed in fp32: 2^-8 |y| (the kernel's one
-rounding of y to bf16) + 1e-5 of |x| @ |W| (the order of the fp32 sums). The int8-KV decode kernel is held to
+rounding of y to bf16) + 1e-5 of |x| @ |W| (the order of the fp32 sums).
+fp16 x (the "gemv_f16" and "wgmma_f16" forms) is held to the bf16 cases'
+bounds against the fp32-W versions and to `int4_matmul_f16w_reference`
+within 2^-11 |y| (half an fp16 ulp) + 1e-5 of |x| @ |W|; with a
+checkpoint's fp16 scales its W is the JAX `mm`'s, rn_f16(q * s). The
+suffix kernel is also held at the serving cache's shapes (S = 2176, start
+951, Ts 64 and 128, B 1, 4 and 16) in bf16 and fp16 over both caches, with
+equal bits twice and from a graph, and its int8-cache split plans are
+replayed 4096 times beside a stream of copies, every output in equal bits. The int8-KV decode kernel is held to
 kernel 2's bounds (the plain version rounds p * vs to bf16 once, the
 kernel carries it as two bf16 terms). The fast-stack probe at small dims
 (3 layers, 2 steps) is held to 1e-3 abs on outputs of rms 1 (fp32 sums in
@@ -72,6 +80,8 @@ launches the fp32 prefill, decode and training-forward kernels; the naive
 model's fp32 forward on the card is within 1e-4 of the CPU's.
 """
 
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -81,8 +91,10 @@ from fish_speech_tpu_torch.ops import faststack
 from fish_speech_tpu_torch.ops.flash_decode import (
     flash_decode_attention, flash_decode_attention_kv8,
     flash_decode_kv8_reference, flash_decode_reference)
-from fish_speech_tpu_torch.ops.int4 import (_route, int4_matmul,
+from fish_speech_tpu_torch.ops.int4 import (ROUTES as INT4_ROUTES, _route,
+                                             int4_dequant_f16, int4_matmul,
                                              int4_matmul_bf16w_reference,
+                                             int4_matmul_f16w_reference,
                                              int4_matmul_reference)
 from fish_speech_tpu_torch.ops.int8 import _route as int8_route
 from fish_speech_tpu_torch.ops.int8 import int8_matmul, int8_matmul_reference
@@ -448,7 +460,7 @@ def test_wrappers_recheck_what_a_kept_plan_does_not_fix(dev):
 
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
 @pytest.mark.parametrize("b,i,o,g", [
     (1, 2560, 6144, 128),    # slow wqkv, decode
     (1, 4096, 2560, 128),    # slow wo
@@ -503,6 +515,13 @@ def test_int4_kernel_matches_plain(dev, dtype, b, i, o, g):
         err = (got.float() - exact).abs()
         assert bool((err <= 2.0 ** -8 * exact.abs() + 1e-5 * scale).all()), \
             err.max().item()
+    if dtype == torch.float16:
+        # both fp16 routes: W = rn_f16(q * rn_f16(s)) summed in fp32, y
+        # rounded once (half an fp16 ulp, 2^-11 |y|)
+        exact = int4_matmul_f16w_reference(x.float(), qw["p"], qw["gs"])
+        err = (got.float() - exact).abs()
+        assert bool((err <= 2.0 ** -11 * exact.abs() + 1e-5 * scale).all()), \
+            err.max().item()
     # mm dispatches CUDA int4 weights to the kernel
     assert torch.equal(mm(x[None], qw)[0], got)
 
@@ -516,9 +535,10 @@ def test_mm_routes_int4_products_by_rows_and_dtype(dev):
     for shape, dtype, route in [((2, 64, 256), torch.bfloat16, "wgmma"),
                                 ((2, 64, 256), torch.float32, "fp32_tiled"),
                                 ((1, 8, 256), torch.bfloat16, "gemv"),
-                                ((1, 1, 256), torch.float32, "gemv")]:
-        before = {r: getattr(int4_matmul, f"launches_{r}")
-                  for r in ("gemv", "wgmma", "fp32_tiled")}
+                                ((1, 1, 256), torch.float32, "gemv"),
+                                ((2, 64, 256), torch.float16, "wgmma_f16"),
+                                ((1, 8, 256), torch.float16, "gemv_f16")]:
+        before = {r: getattr(int4_matmul, f"launches_{r}") for r in INT4_ROUTES}
         y = mm(_randn(rng, shape, dtype, dev), qw)
         torch.cuda.synchronize()
         assert y.shape == (*shape[:-1], 192) and y.dtype == dtype
@@ -553,6 +573,36 @@ def test_kv8_decode_kernel_matches_plain(dev, dtype, n_layer, b, s, hkv, g, d,
                                                       lens), dtype)
 
 
+@pytest.mark.parametrize("b,i,o", [(1, 2560, 19456), (128, 9728, 2560),
+                                   (1024, 9728, 2560)])
+def test_int4_fp16_routes_at_serving_shapes(dev, b, i, o):
+    """The fp16 routes at phase 6's shapes (the slow w13 at B=1: "gemv_f16";
+    the slow w2 at B=128 and 1024: "wgmma_f16") with a checkpoint's fp16
+    scales, where the kernels' W, rn_f16(q * s), is bitwise the W of the
+    JAX package's `mm` (`_int4_effective_weight` in fp16): within half an
+    fp16 ulp of y (its one rounding) + 1e-5 of |x| @ |W| (the order of the
+    fp32 sums) of x @ W summed in fp32; the same bits twice."""
+    rng = np.random.default_rng(b + o)
+    w = torch.from_numpy(rng.standard_normal((i, o)).astype(np.float32) * 0.02)
+    qw = {k: v.to(dev) for k, v in quantize_int4(w, group_size=128).items()}
+    qw["gs"] = qw["gs"].half()  # as `load_params` reads it under --half
+    x = _randn(rng, (b, i), torch.float16, dev)
+    route = f"launches_{_route(b, torch.float16)}"
+    assert route == ("launches_gemv_f16" if b == 1 else "launches_wgmma_f16")
+    r0 = getattr(int4_matmul, route)
+    got = int4_matmul(x, qw["p"], qw["gs"])
+    again = int4_matmul(x, qw["p"], qw["gs"])
+    torch.cuda.synchronize()
+    assert getattr(int4_matmul, route) == r0 + 2 and got.dtype == torch.float16
+    assert torch.equal(got, again)
+    w16 = _int4_effective_weight(qw, torch.float16)  # mm's W, rn_f16(q * s)
+    assert torch.equal(int4_dequant_f16(qw["p"], qw["gs"]), w16)
+    exact = x.float() @ w16.float()
+    scale = x.float().abs() @ w16.float().abs()
+    err = (got.float() - exact).abs()
+    assert bool((err <= 2.0 ** -11 * exact.abs() + 1e-5 * scale).all()), err.max().item()
+
+
 @pytest.mark.parametrize("variant", ["bf16", "w8a8"])
 @pytest.mark.parametrize("r", [0, 1])
 def test_faststack_kernel_matches_plain(dev, variant, r):
@@ -579,8 +629,8 @@ def test_new_wrappers_reject_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError, match="straddle"):
         int4_matmul(x, torch.zeros(48, 8, dtype=torch.uint8, device=dev),
                     torch.ones(3, 8, device=dev))
-    with pytest.raises(TypeError):
-        int4_matmul(x.half(), torch.zeros(48, 8, dtype=torch.uint8, device=dev),
+    with pytest.raises(TypeError):  # fp16 has a form (`--half`); float64 none
+        int4_matmul(x.double(), torch.zeros(48, 8, dtype=torch.uint8, device=dev),
                     torch.ones(1, 8, device=dev))
     q = torch.zeros(1, 2, 4, 128, device=dev, dtype=torch.bfloat16)
     kq = torch.zeros(1, 1, 8, 2, 128, device=dev, dtype=torch.int8)
@@ -825,6 +875,100 @@ def test_flash_suffix_refuses_what_the_kernels_do_not_take(dev):
         fp.flash_suffix_attention(q, cache, 0, st.cpu())
     with pytest.raises(TypeError):  # fp16 has a form; float64 none
         fp.flash_suffix_attention(q.double(), cache, 0, st)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("kv8", [False, True])
+@pytest.mark.parametrize("b,ts", [(1, 64), (1, 128), (4, 64), (16, 64)])
+def test_split_suffix_kernel_at_serving_shapes(dev, dtype, kv8, b, ts):
+    """The tensor-core suffix kernel (G heads packed per block, the keys
+    split over `suffix_plan`'s slices and merged in the launch) at the
+    serving cache's shapes (S = 2176, H = 32, Hkv = 8, D = 128, start 951)
+    against its plain version, to the bounds above; the same bits twice
+    and from a CUDA graph replayed at the same start; one launch a call."""
+    from fish_speech_tpu_torch.ops import flash_prefill as fp
+
+    cache = _suffix_cache(dev, kv8, dtype, b=b, s=2176, hkv=8, d=128, seed=b + ts)
+    rng = np.random.default_rng(ts + b)
+    q = torch.from_numpy(rng.normal(size=(b, ts, 32, 128))).to(dev, dtype)
+    st = torch.tensor([951], dtype=torch.int32, device=dev)
+    fp.reset_launches()
+    got = fp.flash_suffix_attention(q, cache, 1, st)
+    again = fp.flash_suffix_attention(q, cache, 1, st)
+    torch.cuda.synchronize()
+    assert fp.flash_suffix_attention.launches == 2
+    assert torch.equal(got, again)
+    err = (got.float() - fp.flash_suffix_reference(q, cache, 1, st).float()).abs()
+    assert float(err.max()) <= 2e-2 and float(err.mean()) <= 2e-3
+    graph = torch.cuda.CUDAGraph()
+    out = {}
+    with torch.cuda.graph(graph):
+        out["y"] = fp.flash_suffix_attention(q, cache, 1, st)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out["y"], got)
+
+
+@pytest.mark.parametrize("b,plan", [(1, (64, 7, 5)), (16, (64, 9, 4)), (16, (128, 4, 9))])
+def test_split_suffix_kv8_ring_under_load(dev, b, plan):
+    """The int8-cache suffix kernel at split plans (rows a block, Z, tiles
+    a slice; 64 rows: the warpgroups take the tiles in turn, each waiting on
+    the full barriers of the ring's stages by parity) replayed 4096 times
+    from a CUDA graph while another stream copies 512 MiB buffers: every
+    launch's output has the bits of the first call's, which holds to the
+    plain version. A consumer that read a stage a phase early would
+    convert a tile still landing, or trap at its barrier."""
+    from fish_speech_tpu_torch.ops import flash_prefill as fp
+    from fish_speech_tpu_torch.ops._kernels import DTYPE_CODES, load_kernels
+
+    rows, n_split, per = plan
+    ts, h, hkv, d, s = 64, 32, 8, 128, 2176
+    cache = _suffix_cache(dev, True, torch.bfloat16, b=b, s=s, hkv=hkv, d=d, seed=b)
+    rng = np.random.default_rng(b)
+    q = torch.from_numpy(rng.normal(size=(b, ts, h, d))).to(dev, torch.bfloat16)
+    st = torch.tensor([951], dtype=torch.int32, device=dev)
+    tiles = b * hkv * fp.suffix_row_tiles(ts, h // hkv, rows)
+    work = torch.empty(n_split * tiles * rows * (2 + d), dtype=torch.float32, device=dev)
+    counters = torch.zeros(tiles, dtype=torch.int32, device=dev)
+    lib = load_kernels()
+    kv_layer, sc_layer = b * s * hkv * d, b * s * hkv * 2
+    n_call = 64
+    outs = torch.empty((n_call,) + q.shape, dtype=q.dtype, device=dev)
+
+    def call(out):
+        rc = lib.fs_flash_suffix(
+            q.data_ptr(), cache["k"].data_ptr() + kv_layer, cache["v"].data_ptr() + kv_layer,
+            cache["ks"].data_ptr() + sc_layer, cache["vs"].data_ptr() + sc_layer,
+            st.data_ptr(), out.data_ptr(), work.data_ptr(), counters.data_ptr(), b, ts, h,
+            hkv, d, s, DTYPE_CODES[q.dtype], 1, rows, n_split, per, 1.0 / math.sqrt(d),
+            torch.cuda.current_stream().cuda_stream)
+        assert rc == 0
+
+    call(outs[0])
+    torch.cuda.synchronize()
+    first = outs[0].clone()
+    err = (first.float() - fp.flash_suffix_reference(q, cache, 1, st).float()).abs()
+    assert float(err.max()) <= 2e-2 and float(err.mean()) <= 2e-3
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(n_call):
+            call(outs[i])
+    src = torch.empty(2 ** 27, dtype=torch.float32, device=dev).normal_()
+    dst = torch.empty_like(src)
+    side = torch.cuda.Stream(dev)
+    bad = torch.zeros((), dtype=torch.int64, device=dev)
+    for _ in range(4096 // n_call):
+        begun = torch.cuda.Event()
+        begun.record()
+        with torch.cuda.stream(side):
+            side.wait_event(begun)
+            for _ in range(4):
+                dst.copy_(src)
+        graph.replay()
+        bad += (outs != first).flatten(1).any(1).sum()
+    torch.cuda.synchronize()
+    assert int(bad) == 0
+    assert int(counters.abs().sum()) == 0  # the kernel leaves the counters 0
 
 
 @pytest.mark.parametrize("kind", ["bf16", "mixed"])

@@ -22,11 +22,20 @@ subnormal step 2^-24 below 2^-14):
     JAX's `_ffn` within 4;
   * JAX's `mm` in fp16 overflows to inf at I = 2560 (x = 8, q = 127) where
     the port's one-rounding product stays finite (ROADMAP §3 records it);
+  * the int4 product's fp16 routes' plain version (`int4_matmul_f16w_
+    reference`, W = rn_f16(q * rn_f16(s))) against JAX's `mm` in fp16 off
+    the TPU (W = rn_f16(q * s)) within 2 ulps of max |y|, with fp16 scales
+    (a checkpoint read under `--half`: W bitwise JAX's) and fp32 ones; and
+    against the Pallas int4 kernel in interpret mode on fp16 x, which keeps
+    its bf16 W, within that W's error: 2^-8 of |x| @ |W| (one bf16 rounding
+    of W, 2^-9, and the fp16 one, 2^-11, of the two W) plus 2 ulps of
+    max |y|;
   * greedy codes of the fp16 single session and of the fp16 pool burst
     equal JAX's, with the plain and the int8 KV cache;
   * the fp16 `--int8` session teacher-forced: prefill logits and each
     step's slow and fast logits within 4 ulps of max |logit| of JAX's (the
     int8 products round once here, twice in JAX: greedy codes may part);
+    the same for the `mixed` session (int8 slow stack, int4 fast stack);
   * quantizing fp16 params gives fp32 scales, and a quantized checkpoint
     read in fp16 has fp16 scales that `fp32_scales` widens exactly;
   * the fp16 codec against JAX's on codes whose audio lies in fp16's normal
@@ -34,9 +43,11 @@ subnormal step 2^-24 below 2^-14):
   * `build_engine --half`: the LM and the codec in fp16, greedy codes equal
     JAX's engine on the same checkpoint; the bf16 engine's codec is bf16
     too (as JAX's), its waveform within 2 bf16 ulps of max |audio| of
-    JAX's; `--half` over int4 leaves raises, naming ROADMAP §1 item 12b;
-    `check_args` takes `--half` with every serving flag and under a mesh;
-    `tools/batch_tts.py --half` serves a job through an fp16 pool.
+    JAX's; `--half` over a checkpoint of int4 leaves (ROADMAP §1 item 12b)
+    loads fp16 scales and gives JAX's engine's greedy codes, and
+    `tools/batch_tts.py --half` serves it; `check_args` takes `--half`
+    with every serving flag and under a mesh; `tools/batch_tts.py --half`
+    serves a job through an fp16 pool.
 """
 
 import json
@@ -56,6 +67,7 @@ from fish_speech_tpu.models.dac import init_dac
 from fish_speech_tpu.models.dac import model as jdac_model
 from fish_speech_tpu.ops import quant as jquant
 from fish_speech_tpu.ops.attention import gqa_attention_kv8 as j_gqa_kv8
+from fish_speech_tpu.ops.pallas_int4 import int4_matmul as j_int4_matmul
 from fish_speech_tpu.ops.pallas_attention import \
     flash_prefill_attention as j_flash_prefill
 from fish_speech_tpu.ops.pallas_decode import \
@@ -79,6 +91,9 @@ from fish_speech_tpu_torch.ops.flash_decode import (decode_split_count,
                                                     flash_decode_kv8_reference,
                                                     flash_decode_reference)
 from fish_speech_tpu_torch.ops.flash_prefill import flash_prefill_reference
+from fish_speech_tpu_torch.ops.int4 import (gemv_partials_reference, gemv_split,
+                                             int4_dequant_f16,
+                                             int4_matmul_f16w_reference)
 from fish_speech_tpu_torch.ops.int8 import int8_matmul_reference
 from fish_speech_tpu_torch.ops.int8_ffn import int8_ffn_reference
 
@@ -284,6 +299,61 @@ def test_int8_ffn_fp16_plain_matches_pallas_and_jax_ffn(b):
     assert tffn._route(b, torch.float16) == "mma_f16"
 
 
+def _int4_inputs(rng, m, i, o, g, scales):
+    """x in fp16 and JAX's int4 quantization of a random W: p, and gs in
+    fp32 or, as a checkpoint read under `--half` holds them, in fp16."""
+    x = _half(rng, m, i)
+    w = rng.standard_normal((i, o)).astype(np.float32) * 0.05
+    qw = jquant.quantize_int4(jnp.asarray(w), group_size=g)
+    gs = np.asarray(qw["gs"])
+    if scales == "fp16":
+        gs = gs.astype(np.float16)
+    return x, np.asarray(qw["p"]), gs
+
+
+@pytest.mark.parametrize("scales", ["fp16", "fp32"])
+@pytest.mark.parametrize("m,i,o,g", [(1, 256, 136, 64), (8, 512, 200, 128),
+                                     (40, 384, 264, 32), (9, 1024, 256, 128)])
+def test_int4_fp16_plain_matches_jax_mm(scales, m, i, o, g):
+    rng = np.random.default_rng(m + i + o)
+    x, p, gs = _int4_inputs(rng, m, i, o, g, scales)
+    jw = {"p": jnp.asarray(p), "gs": jnp.asarray(gs)}
+    want = jquant.mm(jnp.asarray(x, jnp.float16), jw)
+    assert want.dtype == jnp.float16
+    tx, tp, tgs = torch.from_numpy(x).half(), torch.from_numpy(p), torch.from_numpy(gs)
+    got = int4_matmul_f16w_reference(tx, tp, tgs)
+    assert got.dtype == torch.float16
+    assert _max_ulps(got, want) <= 2
+    # the port's `mm` on CPU tensors (the JAX formula) agrees too
+    assert _max_ulps(tquant.mm(tx, {"p": tp, "gs": tgs}), want) <= 2
+    if scales == "fp16":  # W = rn_f16(q * s): bitwise JAX's off the TPU
+        np.testing.assert_array_equal(
+            int4_dequant_f16(tp, tgs).numpy(),
+            np.asarray(jquant._int4_effective_weight(jw, jnp.float16)))
+    if m <= 8:  # the matvec's runs, added in order, give the same y
+        n_split = gemv_split(i, o, g, H100_SMS)
+        parts = gemv_partials_reference(tx, tp, tgs, n_split)
+        np.testing.assert_allclose(parts.sum(0).half().float().numpy(),
+                                   got.float().numpy(), atol=0,
+                                   rtol=2.0 ** -10)
+
+
+@pytest.mark.parametrize("m,i,o,g", [(1, 256, 512, 64), (4, 512, 256, 128),
+                                     (16, 256, 384, 32)])
+def test_int4_fp16_plain_within_bf16_w_of_pallas_interpret(m, i, o, g):
+    """The Pallas kernel keeps its bf16 W (nibble and scale cast to bf16)
+    under fp16 x; the port's fp16 routes use rn_f16(q * rn_f16(s))."""
+    rng = np.random.default_rng(m * i)
+    x, p, gs = _int4_inputs(rng, m, i, o, g, "fp16")
+    want = _f32(j_int4_matmul(jnp.asarray(x, jnp.float16), jnp.asarray(p),
+                              jnp.asarray(gs), interpret=True))
+    tp, tgs = torch.from_numpy(p), torch.from_numpy(gs)
+    got = _f32(int4_matmul_f16w_reference(torch.from_numpy(x).half(), tp, tgs))
+    scale = np.abs(x) @ np.abs(_f32(int4_dequant_f16(tp, tgs)))
+    bound = 2.0 ** -8 * scale + 2 * _ulp(np.abs(want).max())
+    assert (np.abs(got - want) <= bound).all(), np.abs(got - want).max()
+
+
 # --- sessions -------------------------------------------------------------
 
 
@@ -352,12 +422,12 @@ def test_greedy_fp16_pool_burst_matches_the_jax_batcher(kv_quant):
         np.testing.assert_array_equal(g, w, err_msg=f"request {i}")
 
 
-def _jax_int8(jcfg, seed):
-    """JAX's random weights in fp16, quantized by JAX (fp32 scales, as
-    `quantize_dual_ar_lowmem` gives on fp16 params), and the same tree in
-    the port."""
+def _jax_int8(jcfg, seed, **quant):
+    """JAX's random weights in fp16, quantized by JAX (`mode="int8"` and
+    `quant`; fp32 scales, as `quantize_dual_ar_lowmem` gives on fp16
+    params), and the same tree in the port."""
     jp = _to_half(jdual.init_dual_ar(jax.random.PRNGKey(seed), jcfg, dtype=jnp.float32))
-    jq = jquant.quantize_dual_ar_lowmem(jp, mode="int8")
+    jq = jquant.quantize_dual_ar_lowmem(jp, mode="int8", **quant)
     tq = dual_ar_from_jax(jax.tree_util.tree_map(np.asarray, jq),
                           dtype=torch.float16, device="cpu")
     return jq, tq
@@ -383,12 +453,13 @@ def test_fp16_quantizing_gives_fp32_scales_and_fp32_scales_widens_fp16(tokenizer
     assert wide["embeddings"] is read["embeddings"]
 
 
-def test_fp16_int8_session_teacher_forced_logits_match_jax(tokenizer):
+def _teacher_forced_fp16(tokenizer, **quant):
     """Prefill, then three slow steps and each step's fast stack fed the
-    same tokens: the logits stay within 4 fp16 ulps of max |logit| of JAX's
-    (measured 2; JAX's `mm` rounds twice, the port's int8 products once)."""
+    same tokens, JAX's fp16 weights quantized by JAX with `quant`: the
+    largest distance of the port's logits from JAX's, in fp16 ulps of max
+    |logit|."""
     jcfg, cfg = _kv8_cfgs(tokenizer)
-    jq, tq = _jax_int8(jcfg, seed=2)
+    jq, tq = _jax_int8(jcfg, seed=2, **quant)
     jq = jdual.fuse_ffn_weights(jdual.precompute_semantic_head(jq, jcfg))
     tq = tquant.fp32_scales(tdual.fuse_ffn_weights(tdual.precompute_semantic_head(tq, cfg)))
     inp = _kv8_prompt(cfg, 32, seed=1)
@@ -399,15 +470,15 @@ def test_fp16_int8_session_teacher_forced_logits_match_jax(tokenizer):
                               jnp.zeros((1,), jnp.int32), jnp.int32(t_end))
     tl, _, tc = tdual.prefill(tq, cfg, torch.from_numpy(inp), tc,
                               torch.zeros((1,), dtype=torch.int32), t_end)
-    assert _max_ulps(tl, jl) <= 4
+    worst = _max_ulps(tl, jl)
     for pos in range(t_end, t_end + 3):
         token = _kv8_prompt(cfg, 1, seed=pos)[:, :, 0]
         jhid, jslow, jc = jdual.decode_slow_step(jq, jcfg, jnp.asarray(token), jc,
                                                  jnp.int32(pos))
         thid, tslow, tc = tdual.decode_slow_step(tq, cfg, torch.from_numpy(token),
                                                  tc, pos)
-        assert _max_ulps(tdual.semantic_head_logits(tq, cfg, tslow),
-                         jdual.semantic_head_logits(jq, jcfg, jslow)) <= 4
+        worst = max(worst, _max_ulps(tdual.semantic_head_logits(tq, cfg, tslow),
+                                     jdual.semantic_head_logits(jq, jcfg, jslow)))
         # the fast stack from JAX's hidden state, fed the token's codes
         jfc = jdual.init_fast_kv_cache(jcfg, 1, jnp.float16)
         tfc = tdual.init_fast_kv_cache(cfg, 1, torch.float16)
@@ -416,10 +487,24 @@ def test_fp16_int8_session_teacher_forced_logits_match_jax(tokenizer):
         for i in range(cfg.num_codebooks):
             jlog, jfc = jdual.fast_decode_step(jq, jcfg, jx, jfc, jnp.int32(i))
             tlog, tfc = tdual.fast_decode_step(tq, cfg, tx, tfc, i)
-            assert _max_ulps(tlog, jlog) <= 4
+            worst = max(worst, _max_ulps(tlog, jlog))
             code = int(token[0, 1 + i])
             jx = jdual.fast_embed(jq, jcfg, jnp.asarray([code], jnp.int32))
             tx = tdual.fast_embed(tq, cfg, torch.tensor([code]))
+    return worst
+
+
+def test_fp16_int8_session_teacher_forced_logits_match_jax(tokenizer):
+    """The logits stay within 4 fp16 ulps of max |logit| of JAX's (measured
+    2; JAX's `mm` rounds twice, the port's int8 products once)."""
+    assert _teacher_forced_fp16(tokenizer) <= 4
+
+
+def test_fp16_mixed_session_teacher_forced_logits_match_jax(tokenizer):
+    """`mixed` (int8 slow stack, int4 fast stack, fp32 scales): the fast
+    stack's int4 products take JAX's fp16 W, rn_f16(q * s), on the CPU, so
+    the logits stay within the int8 session's 4 fp16 ulps of max |logit|."""
+    assert _teacher_forced_fp16(tokenizer, fast_mode="int4") <= 4
 
 
 # --- the codec and the engine ---------------------------------------------
@@ -530,7 +615,11 @@ def test_build_engine_dtypes_codes_and_waveform_follow_jax(tmp_path, tokenizer, 
 
 
 def test_half_over_int4_leaves_raises_naming_item_12b(tmp_path, tokenizer):
-    from fish_speech_tpu_torch.server import main as tmain
+    """`--half` over a checkpoint of int4 leaves (ROADMAP §1 item 12b) is
+    served: `build_engine --half` loads its scales in fp16 and its greedy
+    codes equal JAX's engine's on the same checkpoint over 12 new tokens,
+    nothing raises, and `tools/batch_tts.py --half` serves a job from it."""
+    from fish_speech_tpu_torch.tools.batch_tts import main
     from fish_speech_tpu_torch.utils.checkpoint import (load_params,
                                                         save_dual_ar)
     from fish_speech_tpu_torch.config import DualARConfig as TCfg
@@ -538,15 +627,27 @@ def test_half_over_int4_leaves_raises_naming_item_12b(tmp_path, tokenizer):
     ckpt = _checkpoint(tmp_path, tokenizer)
     params = load_params(ckpt, dtype=torch.float32, device="cpu")
     quant = tquant.quantize_dual_ar_lowmem(params, mode="int4")
-    save_dual_ar(tmp_path / "int4", quant, TCfg.from_json(str(ckpt / "config.json")),
-                 tokenizer)
-    argv = ["--checkpoint-path", str(tmp_path / "int4"), "--cpu",
-            "--decoder-checkpoint-path", str(ckpt)]
-    with pytest.raises(NotImplementedError, match="item 12b"):
-        tmain.build_engine(tmain.parse_args(argv + ["--half"]))
-    assert tmain.has_int4_leaves(quant) and not tmain.has_int4_leaves(params)
-    # the same checkpoint in bf16 is served
-    assert tmain.build_engine(tmain.parse_args(argv)).session.dtype == torch.bfloat16
+    int4 = tmp_path / "int4"
+    save_dual_ar(int4, quant, TCfg.from_json(str(ckpt / "config.json")), tokenizer)
+    jeng, teng = _engines(int4, tmp_path, "--half", "--decoder-checkpoint-path", str(ckpt))
+    layers = teng.session.params["layers"]
+    assert teng.session.dtype == torch.float16 and layers["wqkv"]["p"].dtype == torch.uint8
+    prompt = random_prompt(teng.session.cfg, 40, np.random.default_rng(5))
+    gen = dict(max_new_tokens=12, temperature=0.7, top_p=0.9, top_k=1)
+    got = np.concatenate(list(teng.session.generate_stream(
+        prompt, teng.session.new_generator(0), **gen)), axis=1)
+    want = np.concatenate(list(jeng.session.generate_stream(
+        prompt, jax.random.PRNGKey(0), **gen)), axis=1)
+    np.testing.assert_array_equal(got, want)
+    job = tmp_path / "job.tsv"
+    job.write_text("one\tThe first line.\n")
+    out = tmp_path / "out"
+    assert main(["--input", str(job), "--output-dir", str(out), "--checkpoint-path",
+                 str(int4), "--decoder-checkpoint-path", str(ckpt), "--half", "--cpu",
+                 "--decode-chunk-size", "4", "--max-new-tokens", "8",
+                 "--references-dir", str(tmp_path / "refs")]) == 0
+    rows = [json.loads(line) for line in (out / "manifest.jsonl").read_text().splitlines()]
+    assert [r["status"] for r in rows] == ["ok"]
 
 
 def test_check_args_takes_half_with_every_serving_flag():

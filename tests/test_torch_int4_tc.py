@@ -12,7 +12,9 @@ interpret mode on the same numpy inputs:
     sums in another order can land one step apart) plus 1e-5 of
     |x| @ |W| (the order of the fp32 sums);
   * `_route` sends up to 8 rows to the matvec kernel, more bf16 rows to the
-    tensor cores and more fp32 rows to the CUDA-core tiled kernel.
+    tensor cores and more fp32 rows to the CUDA-core tiled kernel, and fp16
+    rows to the same two kernels' fp16 forms; the matvec's fp16 form cuts
+    the packed rows into the runs of its bf16 form (`split_count`).
 
 The training CLI without `--cpu` and `Trainer` without a device never train
 on the CPU: on a machine without CUDA both raise.
@@ -139,3 +141,11 @@ def test_cli_without_cpu_raises_without_cuda(tmp_path):
         "--precision", "float32"])
     assert res.exit_code != 0 and "--cpu" in res.output, res.output
     assert not out.exists()
+
+
+@pytest.mark.parametrize("i,o", [(2560, 19456), (9728, 2560), (1536, 12288), (6144, 1536)])
+def test_fp16_routes_take_the_bf16_routes_plans(i, o):
+    assert _route(1, torch.float16) == "gemv_f16" and _route(9, torch.float16) == "wgmma_f16"
+    runs = tint4.split_count("gemv", i, o, 128, 132)
+    assert runs > 1 and tint4.split_count("gemv_f16", i, o, 128, 132) == runs
+    assert tint4.split_count("wgmma_f16", i, o, 128, 132) == 1
