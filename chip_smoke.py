@@ -28,9 +28,13 @@ Phases, each of which ends the run with a nonzero exit if it fails:
    on the minimal five products a pair): the prefill at B=1 T=64, 1024
    and 4096 and B=2 T=600 with offsets [0, 129], the training forward
    and backward at B=2 T=1024 with a right-padded row, B=1 T=4096 and a
-   ragged B=2 T=1000; their fp32 CUDA-core route is held once at a small
+   ragged B=2 T=1000; their fp32 CUDA-core route is held at JAX's tiny
+   heads (H=2 Hkv=1 D=32: the prefill at buckets 64 and 256, the training
+   pair at phase 3b's B=2 T=200) and once at s2-pro's heads at a small
    shape (B=2 T=256, one row padded 30), to 1e-4 (the backward's of each
-   tensor's largest magnitude).
+   tensor's largest magnitude); the training pair in bf16 at the tiny
+   heads ("cuda_cores_bf16", the train CLI's B=2 T=256) to the bf16
+   bounds.
    The int4 matmul's matvec route runs at s2-pro's eight decode shapes
    (B=1), its tensor-core route at the slow stack's four shapes at B=128
    and B=1024 (the two prompt buckets) and at a ragged (1000, 384, 200,
@@ -42,7 +46,9 @@ Phases, each of which ends the run with a nonzero exit if it fails:
    slow caches (S = 2048 + 64 at len 1, 257, 1100 and 2048, S = 4096 + 64
    at len 4000) to kernel 2's bounds and in fp32 at phase 3c's tiny cache
    to 1e-4. The fp32 routes of the decode (phase 3's tiny slow and fast
-   caches) and of the int4 matvec (phase 3c's tiny fast shapes) are held
+   caches at JAX's widths, D=32 and D=16; the `--tiny` server's slow cache;
+   the 64-wide heads of the earlier tiny model) and of the int4 matvec
+   (phase 3c's tiny fast shapes) are held
    to 1e-4 and to 1e-5 of |x| @ |W|; the fp32 prefill, decode and training
    forward also at the shapes the parity tool reaches in phase 11 (the
    prompt's bucket at H=32 Hkv=8 D=128; the cut-depth slow and fast
@@ -67,17 +73,20 @@ Phases, each of which ends the run with a nonzero exit if it fails:
    the semantic head's 4097 columns as a view of rows 16 bytes apart, the
    fast head) at B = 1, 4, 16 and 32, held to 2^-8 |y| + 1e-5 (|x| @ |q|)
    * s of the plain version summed in fp32 and to equal bits on two
-   replays of a graph, its CUDA-core kernel (`int8_gemv_kernel`, fp32 x) at
-   phase 3c's tiny shapes
-   to 1e-5 (|x| @ |q|) * s; each prints `device_ms`, cuBLAS on the
+   replays of a graph, its CUDA-core kernel (`int8_gemv_fp32_kernel`, fp32
+   x) at JAX's tiny model's products (B = 1 and 4) and s2-pro's slow w13
+   (B = 1) to 1e-5 (|x| @ |q|) * s and equal bits on two replays; each
+   prints `device_ms`, cuBLAS on the
    dequantized bf16 W (`library_device_ms`) and the cast route it replaces
    (`cast_device_ms`, `x @ q.to(bf16) * s.to(bf16)`), all from graphs
    walking weight copies over twice the L2; the fused int8 FFN's
    tensor-core kernel (`int8_ffn_mma_kernel`, bf16 x) at s2-pro's slow and
    fast FFNs at B = 1, 4, 16 and 32, held to 2 bf16 ulps of max |y| of its
    plain version and to equal bits on two replays of a graph, its CUDA-core
-   kernel (`int8_ffn_fp32_kernel`, fp32 x) at phase 3c's tiny slow FFN to
-   1e-5 of max |y|; each prints `device_ms`, cuBLAS on the dequantized bf16
+   kernel (`int8_ffn_fp32_kernel`, fp32 x) at JAX's tiny slow and fast FFNs
+   (B = 1 and 4) and s2-pro's slow FFN (B = 1) to 1e-5 of max |y| and equal
+   bits on two replays (cuBLAS on the dequantized fp32 weights with torch's
+   gate beside it); each prints `device_ms`, cuBLAS on the dequantized bf16
    w13 and w2 with torch's gate (`library_device_ms`) and the route it
    replaces (`replaced_device_ms`: two `int8_matmul` launches and torch's
    gate), from graphs walking weight copies over twice the L2; the bf16
@@ -85,7 +94,9 @@ Phases, each of which ends the run with a nonzero exit if it fails:
    batch's left pad) at the slow cache's full width, L=36 B=4 S=2112
    Hkv=8 G=4, starts (700, 129, 5, 0), lengths (2048, 1100, 701, 1), with
    SDPA under the [start, len) mask as the library call;
-3. a small-input reference: a tiny fp32 model runs the same greedy request
+3. a small-input reference: JAX's tiny model at its widths (slow heads
+   D=32, fast heads D=16, G=2; QK norm, untied embeddings, ten codebooks)
+   in fp32 runs the same greedy request
    through the kernels on the card (its session's graphs captured at first
    use) and through the plain versions on the CPU (the same step bodies
    run eagerly); token columns must be identical and prefill logits within
@@ -177,6 +188,13 @@ Phases, each of which ends the run with a nonzero exit if it fails:
    tensor-core route and never on the CUDA cores, and the checkpoint
    must restore; s/step and tokens/s are printed beside the
    prediction;
+5b. the train CLI as a user runs it: `python -m
+   fish_speech_tpu_torch.train.cli --tiny` (JAX's tiny model, heads 32
+   wide; bf16, its default precision) takes 2 LoRA steps in a process of
+   its own on the card, on a proto shard of phase 5's writer: both losses
+   must be finite, the slow stack's attention must launch forward and
+   backward on "cuda_cores_bf16" (the CUDA-core kernels on bf16 inputs)
+   and never on "wgmma";
 6. quantized serving: the training model is freed, full-width s2-pro (bf16,
    seed 0, max_seq_len 2048) is quantized `mixed` (`quantize_dual_ar_lowmem
    (mode="int8", fast_mode="int4")`) and served with the int8 KV cache
@@ -263,7 +281,11 @@ Phases, each of which ends the run with a nonzero exit if it fails:
    dropped stream must count `cancelled` once, its row must be freed and
    the next request served, and no pool body may run eagerly after
    `warm_up`. Then `python -m fish_speech_tpu_torch.server.main --tiny
-   --no-warmup` in a process of its own on the card answers one /v1/tts;
+   --int8 --no-warmup` in a process of its own on the card answers one
+   /v1/tts: JAX's tiny model (heads 32 and 16 wide) with int8 weights,
+   through the fp32 attention kernels at those widths and the fp32 int8
+   matvec and fused FFN (no route falls back: an answer on the card is the
+   kernels' answer);
 10. the generation tools as a user runs them, each a process of its own on
    the card: `python -m fish_speech_tpu_torch.tools.tts --tiny` (codes and
    a WAV of whole frames) and the codec CLI's round trip with `--tiny` (7
@@ -354,7 +376,10 @@ cache) and `flash_suffix_kv8` (int8 cache), held at S = 2176, start 951,
 Ts 64 and 128 at one row and Ts 64 at 4 and 16 rows, with SDPA under the
 suffix's mask (over the dequantized cache for int8) as the library call;
 `flash_suffix_fp32` and `flash_suffix_kv8_fp32` at phase 3's tiny cache
-to 1e-4, launched in phases 3 and 3c.
+(JAX's widths, then the earlier 64-wide heads) to 1e-4, launched in phases
+3 and 3c. `flash_train_fwd_cuda_cores_bf16` and
+`flash_train_bwd_cuda_cores_bf16` are the training pair's bf16 route at
+D=32, launched by phase 5b's train CLI.
 
 Each phase sets the kernels' launch counts to 0 before it drives its path
 and reads them after. The line before the last is a JSON object with each
@@ -452,6 +477,14 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_BF16 = 989e12
 PEAK_INT8 = 1979e12
 PEAK_FP32 = 67e12
+
+
+# calls each timing of the older phase-2 loops makes (the bf16 decode rows,
+# the int4 and int8 matvecs at one row, the bf16 fused FFN), kept short for
+# the script's time: timings only, no check reads them
+DECODE_ITERS = 50
+MATVEC_ITERS = 100
+FFN_ITERS = 50
 
 
 def _bound(flops, nbytes, peak=PEAK_BF16):
@@ -562,6 +595,30 @@ def kernel_cases(dev, parity):
             tflop_s=flops / ms / 1e9, **dev_ms,
             ok=mx <= 1e-4 if fp32 else mx <= 2e-2 and mean <= 2e-3))
         del q, k, v, got, want, mask
+    # the fp32 route at JAX's tiny model's slow heads (H=2 Hkv=1 D=32, the
+    # tiny models of phases 3 and 3c and of `--tiny`) at its prompt buckets
+    # 64 and 256, first in the list (the headline)
+    tiny = []
+    for t in (64, 256):
+        q, k, v = (randn(1, t, n, 32).float() for n in (2, 1, 1))
+        off = torch.zeros(1, dtype=torch.int32, device=dev)
+        mx, mean = _errors(flash_prefill_attention(q, k, v, off),
+                           flash_prefill_reference(q, k, v, off))
+        ms, plain_ms = _in_turns(lambda i=0: flash_prefill_reference(q, k, v, off),
+                                 lambda i=0: flash_prefill_attention(q, k, v, off), 20)
+        flops = 4 * 2 * 32 * t * (t + 1) // 2
+        bound = _bound(flops, 4 * t * 32 * 2 * (2 + 1), PEAK_FP32)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        tiny.append(dict(
+            shape=f"B=1 T={t} H=2 Hkv=1 D=32 offsets=[0] fp32 cuda_cores "
+                  f"({flops / ms / 1e9:.3f} TFLOP/s; SDPA is_causal)",
+            max_abs_err=mx, mean_abs_err=mean, ms=ms, plain_ms=plain_ms,
+            bound_ms=bound[0], bound_by=bound[1],
+            library_ms=_library_ms(lambda i=0: _sdpa(qt, kt, vt, None, True), 20),
+            device_ms=_device_ms(lambda i=0: flash_prefill_attention(q, k, v, off), 20),
+            library_device_ms=_device_ms(lambda i=0: _sdpa(qt, kt, vt, None, True), 20),
+            tflop_s=flops / ms / 1e9, ok=mx <= 1e-4))
+    cases["flash_prefill_fp32"][:0] = tiny
     # decode: slow cache (36 layers, S = 2048 + 64 is the serving session's;
     # 4160 the 4096-context one) and fast cache (12 layers, S = 10
     # codebooks), one row, and the fast cache at the pool's 32 rows (phase
@@ -587,7 +644,7 @@ def kernel_cases(dev, parity):
         ms, plain_ms = _in_turns(
             lambda i=0: flash_decode_reference(q, kc, vc, i % n_layer, lens),
             lambda i=0: flash_decode_attention(q, kc, vc, i % n_layer, lens),
-            100)
+            DECODE_ITERS)
         bound = _bound(4 * b * hkv * g * 128 * length,
                        2 * b * (2 * length * hkv * 128 + 2 * hkv * g * 128))
         qs = q.reshape(b, hkv * g, 1, 128)
@@ -597,23 +654,27 @@ def kernel_cases(dev, parity):
                 qs, kc[i % n_layer, :, :length].transpose(1, 2),
                 vc[i % n_layer, :, :length].transpose(1, 2), enable_gqa=True)
 
-        lib = _time_ms(sdpa, 100)
+        lib = _time_ms(sdpa, DECODE_ITERS)
         cases["flash_decode"].append(dict(
             shape=f"L={n_layer} B={b} S={s} Hkv={hkv} G={g} D=128 len={length}",
             max_abs_err=mx, mean_abs_err=mean, ms=ms, plain_ms=plain_ms,
             bound_ms=bound[0], bound_by=bound[1], library_ms=lib,
             device_ms=_device_ms(lambda i=0: flash_decode_attention(
-                q, kc, vc, i % n_layer, lens), 100),
-            library_device_ms=_device_ms(sdpa, 100)))
+                q, kc, vc, i % n_layer, lens), DECODE_ITERS),
+            library_device_ms=_device_ms(sdpa, DECODE_ITERS)))
         del kc, vc
     cases["flash_decode"].append(pool_decode_case(dev, randn))
-    # the fp32 route (CUDA cores) at the caches of phase 3's tiny fp32 model:
-    # the slow one (2 layers, S = 256 + 8, Hkv=2 G=2 D=64) and the fast one
-    # (S = 10 codebooks, Hkv=1 G=3), and at phase 11's cut-depth s2-pro
-    # caches (the parity tool's greedy decode: 2 slow layers of the
-    # session's S at the prompt plus 32, 2 fast layers), to fp32's 1e-4
+    # the fp32 route (CUDA cores) at the caches of phase 3's tiny fp32 model,
+    # JAX's widths: the slow one (2 layers, S = 256 + 8, Hkv=1 G=2 D=32)
+    # and the fast one (S = 10 codebooks, Hkv=1 G=2 D=16), at the `--tiny`
+    # server's slow cache (S = 256 + 64), at the 64-wide heads of the
+    # earlier tiny model (Hkv=2 G=2, Hkv=1 G=3), and at phase 11's
+    # cut-depth s2-pro caches (the parity tool's greedy decode: 2 slow
+    # layers of the session's S at the prompt plus 32, 2 fast layers), to
+    # fp32's 1e-4
     cases["flash_decode_fp32"] = []
     for n_layer, s, hkv, g, length, d in [
+            (2, 264, 1, 2, 100, 32), (2, 10, 1, 2, 10, 16), (2, 320, 1, 2, 300, 32),
             (2, 264, 2, 2, 100, 64), (2, 10, 1, 3, 10, 64),
             (2, parity["cache_len"], 8, 4, parity["prompt"] + 32, 128),
             (2, 10, 4, 3, 10, 128)]:
@@ -669,6 +730,9 @@ def kernel_cases(dev, parity):
                   + (f" replaced_device_ms={r['replaced_device_ms']:.4f} max_ulps="
                      f"{r['max_ulps']:.2f} replays_equal={r['replays_equal']}"
                      if "replaced_device_ms" in r else "")
+                  + (f" replays_equal={r['replays_equal']}" if "replays_equal" in r
+                     and "cast_device_ms" not in r and "replaced_device_ms" not in r
+                     else "")
                   + "".join(f" {k}={v[0]:.3e}/{v[1]:.3e}"
                             for k, v in r.get("outputs", {}).items()))
             ok = r.get("ok", r["max_abs_err"] <= 2e-2 and r["mean_abs_err"] <= 2e-3)
@@ -683,8 +747,8 @@ def kernel_cases(dev, parity):
 # stored ~950-column voice-clone prefix, start 951: one request (a 64- or a
 # 128-column suffix bucket) and admission groups of 4 and 16 rows; 8 layers,
 # each timed call reading the next, over a bf16 and an int8 cache; the fp32
-# route at phase 3's tiny cache (2 layers, S = 256 + 8, Hkv=2 G=2 D=64,
-# start 140)
+# route at phase 3's tiny cache (2 layers, S = 256 + 8, start 140) at JAX's
+# tiny widths (H=2 Hkv=1 D=32) and at the earlier 64-wide heads (H=4 Hkv=2)
 SUFFIX_START, SUFFIX_S = 951, 2176
 SUFFIX_CASES = [(1, 64), (1, 128), (4, 64), (16, 64)]
 
@@ -725,6 +789,7 @@ def suffix_kernel_cases(dev, randn):
                              "flash_suffix_kv8_fp32")}
     shapes = [(8, b, SUFFIX_S, 32, 8, 128, SUFFIX_START, ts, torch.bfloat16)
               for b, ts in SUFFIX_CASES]
+    shapes.append((2, 1, 264, 2, 1, 32, 140, 64, torch.float32))  # JAX's tiny widths
     shapes.append((2, 1, 264, 4, 2, 64, 140, 64, torch.float32))
     for n_layer, b, s, h, hkv, d, start, ts, dtype in shapes:
         fp32 = dtype == torch.float32
@@ -1017,28 +1082,38 @@ def train_kernel_cases(dev, randn, parity_t):
         flash_train_forward_reference)
 
     cases = {"flash_train_fwd": [], "flash_train_fwd_fp32": [],
-             "flash_train_bwd": [], "flash_train_bwd_fp32": []}
-    # the fine-tune shape with a right-padded row, the default max_length,
-    # and a ragged T (not a multiple of the 64-row tile), in bf16 (the
-    # forward's tensor-core route); the forward's fp32 route (CUDA cores,
-    # the tiny fp32 model of phase 3b) once at a small shape and at the
-    # parity tool's teacher-forced prompt (`parity_t`, phase 11), to 1e-4
-    for b, t, pads, dtype in [(2, 1024, [0, 100], torch.bfloat16),
-                              (1, 4096, [0], torch.bfloat16),
-                              (2, 1000, [0, 0], torch.bfloat16),
-                              (2, 256, [0, 30], torch.float32),
-                              (1, parity_t, [0], torch.float32)]:
-        q, k, v = (randn(b, t, n, 128).to(dtype) for n in (32, 8, 8))
+             "flash_train_bwd": [], "flash_train_bwd_fp32": [],
+             "flash_train_fwd_cuda_cores_bf16": [],
+             "flash_train_bwd_cuda_cores_bf16": []}
+    names = {"wgmma": "", "cuda_cores": "_fp32", "cuda_cores_bf16": "_cuda_cores_bf16"}
+    # s2-pro's heads (H=32 Hkv=8 D=128): the fine-tune shape with a
+    # right-padded row, the default max_length, and a ragged T (not a
+    # multiple of the 64-row tile), in bf16 (the tensor-core route); the
+    # fp32 route (CUDA cores) first at JAX's tiny heads (H=2 Hkv=1 D=32,
+    # phase 3b's B=2 T=200 with a padded row), then once at a small shape
+    # and at the parity tool's teacher-forced prompt (`parity_t`, phase
+    # 11), to 1e-4; bf16 at the tiny heads ("cuda_cores_bf16", the train
+    # CLI's `--tiny` batch: B=2 T=256, a padded row)
+    big, tiny = (32, 8, 128), (2, 1, 32)
+    for b, t, pads, dtype, (h, hkv, d) in [
+            (2, 1024, [0, 100], torch.bfloat16, big),
+            (1, 4096, [0], torch.bfloat16, big),
+            (2, 1000, [0, 0], torch.bfloat16, big),
+            (2, 200, [0, 37], torch.float32, tiny),
+            (2, 256, [0, 30], torch.float32, big),
+            (1, parity_t, [0], torch.float32, big),
+            (2, 256, [0, 40], torch.bfloat16, tiny)]:
+        q, k, v = (randn(b, t, n, d).to(dtype) for n in (h, hkv, hkv))
         kvalid = torch.ones((b, t), dtype=torch.int32, device=dev)
         for i, n in enumerate(pads):
             if n:
                 kvalid[i, -n:] = 0
-        do = randn(b, t, 32, 128).to(dtype) * kvalid[:, :, None, None].to(dtype)
+        do = randn(b, t, h, d).to(dtype) * kvalid[:, :, None, None].to(dtype)
         fp32 = dtype == torch.float32
-        route = flash_train_route(dtype)
+        route = flash_train_route(dtype, d)
         # visible (query, key) pairs: causal and key-valid
         pairs = sum((t - n) * (t - n + 1) // 2 + n * (t - n) for n in pads)
-        flops = 4 * 32 * 128 * pairs
+        flops = 4 * h * d * pairs
 
         o, lse = flash_train_forward(q, k, v, kvalid)
         want_o, want_lse = flash_train_forward_reference(q, k, v, kvalid)
@@ -1046,16 +1121,16 @@ def train_kernel_cases(dev, randn, parity_t):
         ms, plain_ms = _in_turns(
             lambda i=0: flash_train_forward_reference(q, k, v, kvalid),
             lambda i=0: flash_train_forward(q, k, v, kvalid), 10)
-        shape = (f"B={b} T={t} H=32 Hkv=8 D=128 right_pad={pads} "
-                 f"{str(dtype)[6:]} {route} ({flops / ms / 1e9:.1f} TFLOP/s)")
-        io_bytes = q.element_size() * b * t * 128 * (32 + 8)  # q, o | k, v
-        fwd_bound = _bound(flops, 2 * io_bytes + 4 * b * 32 * t,
-                           PEAK_FP32 if fp32 else PEAK_BF16)
+        shape = (f"B={b} T={t} H={h} Hkv={hkv} D={d} right_pad={pads} "
+                 f"{str(dtype)[6:]} {route} ({flops / ms / 1e9:.3f} TFLOP/s)")
+        # the peak of the inputs' type, whichever route the port takes
+        peak = PEAK_FP32 if fp32 else PEAK_BF16
+        io_bytes = q.element_size() * b * t * d * (h + hkv)  # q, o | k, v
+        fwd_bound = _bound(flops, 2 * io_bytes + 4 * b * h * t, peak)
         # inputs q, k, v, O, dO, lse and kvalid once, dQ, dK and dV once
-        bwd_bytes = (q.element_size() * b * t * 128 * (4 * 32 + 4 * 8)
-                     + 4 * b * 32 * t + 4 * b * t)
-        bwd_bound = _bound(10 * 32 * 128 * pairs, bwd_bytes,
-                           PEAK_FP32 if fp32 else PEAK_BF16)
+        bwd_bytes = (q.element_size() * b * t * d * (4 * h + 4 * hkv)
+                     + 4 * b * h * t + 4 * b * t)
+        bwd_bound = _bound(10 * h * d * pairs, bwd_bytes, peak)
         # SDPA on the same function: is_causal where no key is padded, else
         # the causal, key-valid mask; a padded case also times is_causal,
         # which gives the same O on every row that is not padding
@@ -1077,14 +1152,15 @@ def train_kernel_cases(dev, randn, parity_t):
         lib_fwd = _library_ms(sdpa_fwd, 10)
         extra = {} if causal else {
             "library_causal_ms": _library_ms(lambda i=0: sdpa_fwd(causal=True), 10)}
-        cases["flash_train_fwd_fp32" if fp32 else "flash_train_fwd"].append(dict(
+        cases["flash_train_fwd" + names[route]].append(dict(
             shape=shape, max_abs_err=max(e_o[0], e_lse[0]),
             mean_abs_err=max(e_o[1], e_lse[1]), ms=ms, plain_ms=plain_ms,
             bound_ms=fwd_bound[0], bound_by=fwd_bound[1], library_ms=lib_fwd,
             **extra,
             outputs={"O": e_o, "lse": e_lse}, tflop_s=flops / ms / 1e9,
             ok=(e_o[0] <= 1e-4 if fp32 else _within_bf16_step(o, want_o)
-                and e_o[1] <= 2e-3) and e_lse[0] <= 1e-4))
+                and e_o[1] <= 2e-3) and e_lse[0] <= 1e-4
+            and getattr(flash_train_forward, f"launches_{route}") > 0))
         # the backward: SDPA forward+backward minus its forward, on the same
         # mask (and is_causal beside it where a key is padded)
         lib_bwd = _library_ms(sdpa_fwd_bwd, 5) - lib_fwd
@@ -1109,10 +1185,10 @@ def train_kernel_cases(dev, randn, parity_t):
         ms, plain_ms = _in_turns(lambda i=0: flash_train_backward_reference(*args),
                                  lambda i=0: flash_train_backward(*args), 5)
         # TFLOP/s on the minimal five products (S, dP, dV, dK, dQ) a pair
-        bwd_flops = 10 * 32 * 128 * pairs
-        cases["flash_train_bwd_fp32" if fp32 else "flash_train_bwd"].append(dict(
-            shape=f"B={b} T={t} H=32 Hkv=8 D=128 right_pad={pads} "
-                  f"{str(dtype)[6:]} {route} ({bwd_flops / ms / 1e9:.1f} TFLOP/s "
+        bwd_flops = 10 * h * d * pairs
+        cases["flash_train_bwd" + names[route]].append(dict(
+            shape=f"B={b} T={t} H={h} Hkv={hkv} D={d} right_pad={pads} "
+                  f"{str(dtype)[6:]} {route} ({bwd_flops / ms / 1e9:.3f} TFLOP/s "
                   f"on five products; SDPA {'is_causal' if causal else 'mask'})",
             max_abs_err=max(e[0] for e in errs.values()),
             mean_abs_err=max(e[1] for e in errs.values()), ms=ms,
@@ -1184,7 +1260,7 @@ def quant_kernel_cases(dev, randn):
             w_lib = _int4_effective_weight(qw, torch.bfloat16)
             err = (got - want).abs()
         del got, want, scale
-        iters = 200 if b == 1 else 20
+        iters = MATVEC_ITERS if b == 1 else 20
         ms, plain_ms = _in_turns(lambda k=0: plain(x, p, gs),
                                  lambda k=0: int4_matmul(x, p, gs), iters)
         lib = _time_ms(lambda k=0: x @ w_lib, iters)
@@ -1212,10 +1288,11 @@ def quant_kernel_cases(dev, randn):
             library_ms=lib, tflop_s=tflops, ok=ok, **device))
         del qw, p, gs, x, w_lib, err
     # the int4 matvec's fp32 route (`int4_gemv_kernel`) at the fast-stack
-    # shapes of phase 3c's tiny model (fast dim 32, 3 x 64 q, 64 x 2 kv,
-    # ffn 64), held to 1e-5 of |x| @ |W| (the order of the fp32 sums)
+    # shapes of phase 3c's tiny model, JAX's widths (fast dim 32, 2 x 16 q,
+    # 1 x 16 k and v, ffn 64; the group size `quantize_dual_ar_lowmem`
+    # picks), held to 1e-5 of |x| @ |W| (the order of the fp32 sums)
     cases["int4_mm_fp32"] = []
-    for name, i, o, g in [("tiny fast wqkv", 32, 320, 16), ("tiny fast wo", 192, 32, 32),
+    for name, i, o, g in [("tiny fast wqkv", 32, 64, 16), ("tiny fast wo", 32, 32, 16),
                           ("tiny fast w13", 32, 128, 16), ("tiny fast w2", 64, 32, 32)]:
         qw = quantize_int4(randn(i, o).float() * 0.02, group_size=g)
         p, gs = qw["p"], qw["gs"]
@@ -1239,13 +1316,13 @@ def quant_kernel_cases(dev, randn):
     # of the 4096-context one (S = 4096 + 64); each timed call reads the
     # next layer, `device_ms` / `library_device_ms` from a CUDA-graph replay
     # as for the decode rows. Then the fp32 route (CUDA cores) at phase 3c's
-    # tiny cache (2 layers, S = 264, Hkv=2 G=2 D=64), to fp32's 1e-4.
-    hkv, grp = 8, 4
-    for n_layer, s, lengths, d, dtype in [
-            (36, 2112, (1, 257, 1100, 2048), 128, torch.bfloat16),
-            (36, 4160, (4000,), 128, torch.bfloat16),
-            (2, 264, (100,), 64, torch.float32)]:
-        h, gq = (hkv, grp) if d == 128 else (2, 2)
+    # tiny cache (2 layers, S = 264) at JAX's widths (Hkv=1 G=2 D=32) and at
+    # the earlier 64-wide heads (Hkv=2 G=2), to fp32's 1e-4.
+    for n_layer, s, lengths, d, dtype, (h, gq) in [
+            (36, 2112, (1, 257, 1100, 2048), 128, torch.bfloat16, (8, 4)),
+            (36, 4160, (4000,), 128, torch.bfloat16, (8, 4)),
+            (2, 264, (100,), 32, torch.float32, (1, 2)),
+            (2, 264, (100,), 64, torch.float32, (2, 2))]:
         kq, ks = _kv_quant(randn(n_layer, 1, s, h, d))
         vq, vs = _kv_quant(randn(n_layer, 1, s, h, d))
         for length in lengths:
@@ -1303,10 +1380,17 @@ INT8_SHAPES = INT4_SHAPES + [("LM head", 2560, 155136),
                              ("semantic head", 2560, 4097),
                              ("fast head", 1536, 4096)]
 INT8_ROWS = (1, 4, 16, 32)  # the session, the group prefills' heads, the pool
-# phase 3c's tiny fp32 model's int8 products (slow stack and heads)
-INT8_TINY_SHAPES = [("tiny slow wqkv", 64, 512), ("tiny slow wo", 256, 64),
+# the fp32 int8 products of JAX's tiny model as `--tiny --int8` serves it
+# (I -> O, w13 fused): the slow and fast stacks, the semantic head (4097
+# columns, rows 16 bytes apart) and the fast head, at one row and at four;
+# then s2-pro's slow w13 at one row, where the weight's bytes bound it
+INT8_TINY_SHAPES = [("tiny slow wqkv", 64, 128), ("tiny slow wo", 64, 64),
                     ("tiny slow w13", 64, 256), ("tiny slow w2", 128, 64),
-                    ("tiny semantic head", 64, 33), ("tiny fast head", 32, 32)]
+                    ("tiny fast wqkv", 32, 64), ("tiny fast wo", 32, 32),
+                    ("tiny fast w13", 32, 128), ("tiny fast w2", 64, 32),
+                    ("tiny semantic head", 64, 4097), ("tiny fast head", 32, 4096)]
+INT8_FP32_ROWS = (1, 4)
+INT8_FP32_WIDE = ("slow w13", 2560, 19456)
 
 
 def int8_kernel_cases(dev, randn):
@@ -1314,8 +1398,10 @@ def int8_kernel_cases(dev, randn):
     every int8 shape of the serving paths and B in {1, 4, 16, 32}, held to
     2^-8 |y| (its one rounding) + 1e-5 (|x| @ |q|) * s (the order of the
     fp32 sums) of the plain version summed in fp32, two replays of a graph
-    giving equal bits; `int8_gemv_kernel` (fp32 x) at phase 3c's tiny
-    shapes to 1e-5 (|x| @ |q|) * s. Each case is timed
+    giving equal bits; `int8_gemv_fp32_kernel` (fp32 x) at JAX's tiny
+    model's shapes (B = 1 and 4) and s2-pro's slow w13 (B = 1) to 1e-5
+    (|x| @ |q|) * s, replays giving equal bits, timed beside cuBLAS on the
+    dequantized fp32 W. Each bf16 case is timed
     against the plain version, cuBLAS on the dequantized bf16 W (the library
     call) and the cast route it replaces (`x @ q.to(bf16) * s.to(bf16)`),
     and from CUDA-graph replays that walk copies of the weights over twice
@@ -1350,7 +1436,7 @@ def int8_kernel_cases(dev, randn):
                                 <= 2.0 ** -8 * exact.abs() + 1e-5 * scale).all())
             err = (got.float() - int8_matmul_reference(x, q, s).float()).abs()
             del exact, scale
-            iters = 20 if o > 100_000 else 200
+            iters = 20 if o > 100_000 else MATVEC_ITERS
             ms, plain_ms = _in_turns(lambda k=0: int8_matmul_reference(x, q, s),
                                      lambda k=0: int8_matmul(x, q, s), iters)
             lib = _library_ms(lambda k=0: x @ w_lib, iters)
@@ -1370,24 +1456,41 @@ def int8_kernel_cases(dev, randn):
             del got, err
         del q, s, qf, w_lib, qs, ws
         torch.cuda.empty_cache()
-    for name, i, o in INT8_TINY_SHAPES:
+    # the fp32 route (`int8_gemv_fp32_kernel`): JAX's tiny shapes at B = 1
+    # and 4 (its weights sit in L2, as the tiny model's all do), then
+    # s2-pro's slow w13 at B = 1 over weight copies that walk twice the L2
+    tiny = [(name, i, o, b) for name, i, o in INT8_TINY_SHAPES for b in INT8_FP32_ROWS]
+    for name, i, o, b in tiny + [(*INT8_FP32_WIDE, 1)]:
         qw = quantize_int8(randn(i, o).float() * 0.02)
-        q, s = qw["q"], qw["s"]
-        x = randn(1, i).float()
-        w_lib = q.float() * s
-        err = (int8_matmul(x, q, s) - int8_matmul_reference(x, q, s)).abs()
+        q, s = _rows_16_bytes_apart(qw["q"]), qw["s"]
+        del qw
+        x = randn(b, i).float()
+        w_lib = q.float() * s  # cuBLAS's operand: W dequantized, fp32
+        wide = i * o > L2_COLD_BYTES // 4
+        n_q = -(-L2_COLD_BYTES // (i * q.stride(0) + 4 * o)) if wide else 1
+        n_w = -(-L2_COLD_BYTES // (4 * i * o)) if wide else 1
+        qs = [(q, s)] + [(_rows_16_bytes_apart(q.contiguous()), s.clone())
+                         for _ in range(n_q - 1)]
+        ws = [w_lib] + [w_lib.clone() for _ in range(n_w - 1)]
+        got = int8_matmul(x, q, s)
+        err = (got - int8_matmul_reference(x, q, s)).abs()
         scale = x.abs() @ w_lib.abs()
+        same = _replays_equal(lambda: int8_matmul(x, q, s))
+        iters = 200
         ms, plain_ms = _in_turns(lambda k=0: int8_matmul_reference(x, q, s),
-                                 lambda k=0: int8_matmul(x, q, s), 200)
-        bound = _bound(2 * i * o, i * o + 4 * o + 4 * (i + o), PEAK_FP32)
+                                 lambda k=0: int8_matmul(x, q, s), iters)
+        bound = _bound(2 * b * i * o, i * o + 4 * o + 4 * b * (i + o), PEAK_FP32)
         cases["int8_mm_fp32"].append(dict(
-            shape=f"{name} B=1 I={i} O={o} fp32", max_abs_err=err.max().item(),
+            shape=f"{name} B={b} I={i} O={o} fp32", max_abs_err=err.max().item(),
             mean_abs_err=err.mean().item(), ms=ms, plain_ms=plain_ms,
             bound_ms=bound[0], bound_by=bound[1],
-            library_ms=_library_ms(lambda k=0: x @ w_lib, 200),
-            device_ms=_device_ms(lambda k=0: int8_matmul(x, q, s), 200),
-            library_device_ms=_device_ms(lambda k=0: x @ w_lib, 200),
-            ok=bool((err <= 1e-5 * scale + 1e-6).all())))
+            library_ms=_library_ms(lambda k=0: x @ w_lib, iters), replays_equal=same,
+            device_ms=_device_ms(lambda k=0: int8_matmul(x, *qs[k % n_q]), iters),
+            library_device_ms=_device_ms(lambda k=0: x @ ws[k % n_w], iters),
+            weight_copies=[n_q, n_w],
+            ok=same and bool((err <= 1e-5 * scale + 1e-6).all())))
+        del q, s, x, w_lib, qs, ws, got, err, scale
+    torch.cuda.empty_cache()
     return cases
 
 
@@ -1395,8 +1498,10 @@ def int8_kernel_cases(dev, randn):
 # stack (the `mixed` session's slow stack at B=1, both stacks of the int8
 # pool at B=32)
 INT8_FFN_SHAPES = [("slow FFN", 2560, 9728), ("fast FFN", 1536, 6144)]
-# phase 3c's tiny fp32 model's slow FFN
-INT8_FFN_TINY = ("tiny slow FFN", 64, 128)
+# the fp32 FFNs of JAX's tiny model (the slow and the fast stack) at one
+# row and at four, then s2-pro's slow FFN at one row
+INT8_FFN_TINY = [("tiny slow FFN", 64, 128), ("tiny fast FFN", 32, 64)]
+INT8_FFN_WIDE = ("slow FFN", 2560, 9728)
 
 
 def _replays_equal(fn):
@@ -1422,8 +1527,11 @@ def int8_ffn_kernel_cases(dev, randn):
     (bf16 x) at s2-pro's slow and fast FFNs and B in {1, 4, 16, 32}, held to
     2 bf16 ulps of max |y| (the two sum u1 and u3 in another order, so g's
     rounding can land one step apart), two replays of a graph giving equal
-    bits; `int8_ffn_fp32_kernel` (fp32 x) at phase 3c's tiny slow FFN to
-    1e-5 of max |y|. Each case is timed against the plain version and, from
+    bits; `int8_ffn_fp32_kernel` (fp32 x) at JAX's tiny model's slow and
+    fast FFNs (B = 1 and 4) and s2-pro's slow FFN (B = 1) to 1e-5 of max
+    |y|, replays giving equal bits, beside cuBLAS on the dequantized fp32
+    weights with torch's gate. Each bf16 case is timed against the plain
+    version and, from
     CUDA-graph replays that walk copies of the weights over twice the L2,
     beside the route it replaces (`replaced_device_ms`: two `int8_matmul`
     launches with torch's silu * mul between) and the library call
@@ -1476,51 +1584,69 @@ def int8_ffn_kernel_cases(dev, randn):
                 return (F.silu(u[:, :i]) * u[:, i:]) @ c
 
             ms, plain_ms = _in_turns(lambda k=0: int8_ffn_reference(x, w13, w2),
-                                     lambda k=0: int8_ffn(x, w13, w2), 100)
+                                     lambda k=0: int8_ffn(x, w13, w2), FFN_ITERS)
             bound = _bound(6 * b * d * i, nbytes + 4 * b * d)  # x in, y out, bf16
             cases["int8_ffn"].append(dict(
                 shape=f"{name} B={b} D={d} I={i} bf16", max_abs_err=err.max().item(),
                 mean_abs_err=err.mean().item(), max_ulps=ulps(got, plain),
                 replays_equal=same, ms=ms, plain_ms=plain_ms, bound_ms=bound[0],
-                bound_by=bound[1], library_ms=_library_ms(library, 100),
+                bound_by=bound[1], library_ms=_library_ms(library, FFN_ITERS),
                 ok=bool(torch.isfinite(got).all()) and ulps(got, plain) <= 2 and same,
-                device_ms=_device_ms(lambda k=0: int8_ffn(x, *ws[k % n_w]), 200),
-                replaced_device_ms=_device_ms(replaced, 200),
-                library_device_ms=_device_ms(library, 200), weight_copies=[n_w, n_lib]))
+                device_ms=_device_ms(lambda k=0: int8_ffn(x, *ws[k % n_w]), 2 * FFN_ITERS),
+                replaced_device_ms=_device_ms(replaced, 2 * FFN_ITERS),
+                library_device_ms=_device_ms(library, 2 * FFN_ITERS),
+                weight_copies=[n_w, n_lib]))
             del got, plain, err
         del w13, w2, ws, libs
         torch.cuda.empty_cache()
-    name, d, i = INT8_FFN_TINY
-    w13, w2 = weights(d, i)
-    x = randn(1, d).float()
-    got, plain = int8_ffn(x, w13, w2), int8_ffn_reference(x, w13, w2)
-    err = (got - plain).abs()
-    lib13, lib2 = w13["q"].float() * w13["s"], w2["q"].float() * w2["s"]
+    # the fp32 route (`int8_ffn_fp32_kernel`): JAX's tiny FFNs (their
+    # weights in L2, as the tiny model's all are), then s2-pro's slow FFN
+    # over weight copies that walk twice the L2
+    tiny = [(name, d, i, b) for name, d, i in INT8_FFN_TINY for b in INT8_FP32_ROWS]
+    for name, d, i, b in tiny + [(*INT8_FFN_WIDE, 1)]:
+        w13, w2 = weights(d, i)
+        x = randn(b, d).float()
+        got, plain = int8_ffn(x, w13, w2), int8_ffn_reference(x, w13, w2)
+        err = (got - plain).abs()
+        same = _replays_equal(lambda: int8_ffn(x, w13, w2))
+        nbytes = 3 * d * i + 4 * (2 * i + d)
+        wide = nbytes > L2_COLD_BYTES // 4
+        n_w = -(-L2_COLD_BYTES // nbytes) if wide else 1
+        n_lib = -(-L2_COLD_BYTES // (12 * d * i)) if wide else 1
+        ws = [(w13, w2)] + [({k: v.clone() for k, v in w13.items()},
+                             {k: v.clone() for k, v in w2.items()})
+                            for _ in range(n_w - 1)]
+        libs = [(w13["q"].float() * w13["s"], w2["q"].float() * w2["s"])]
+        libs += [(a.clone(), c.clone()) for a, c in libs * (n_lib - 1)]
 
-    def library_fp32(k=0):
-        u = x @ lib13
-        return (F.silu(u[:, :i]) * u[:, i:]) @ lib2
+        def library_fp32(k=0):
+            a, c = libs[k % n_lib]
+            u = x @ a
+            return (F.silu(u[:, :i]) * u[:, i:]) @ c
 
-    ms, plain_ms = _in_turns(lambda k=0: int8_ffn_reference(x, w13, w2),
-                             lambda k=0: int8_ffn(x, w13, w2), 200)
-    bound = _bound(6 * d * i, 3 * d * i + 4 * (2 * i + d) + 8 * d, PEAK_FP32)
-    cases["int8_ffn_fp32"].append(dict(
-        shape=f"{name} B=1 D={d} I={i} fp32", max_abs_err=err.max().item(),
-        mean_abs_err=err.mean().item(), ms=ms, plain_ms=plain_ms,
-        bound_ms=bound[0], bound_by=bound[1], library_ms=_library_ms(library_fp32, 200),
-        device_ms=_device_ms(lambda k=0: int8_ffn(x, w13, w2), 200),
-        library_device_ms=_device_ms(library_fp32, 200),
-        ok=bool((err <= 1e-5 * plain.abs().max()).all())))
+        ms, plain_ms = _in_turns(lambda k=0: int8_ffn_reference(x, w13, w2),
+                                 lambda k=0: int8_ffn(x, w13, w2), 200)
+        bound = _bound(6 * b * d * i, nbytes + 8 * b * d, PEAK_FP32)
+        cases["int8_ffn_fp32"].append(dict(
+            shape=f"{name} B={b} D={d} I={i} fp32", max_abs_err=err.max().item(),
+            mean_abs_err=err.mean().item(), ms=ms, plain_ms=plain_ms,
+            bound_ms=bound[0], bound_by=bound[1], replays_equal=same,
+            library_ms=_library_ms(library_fp32, 200),
+            device_ms=_device_ms(lambda k=0: int8_ffn(x, *ws[k % n_w]), 200),
+            library_device_ms=_device_ms(library_fp32, 200), weight_copies=[n_w, n_lib],
+            ok=same and bool((err <= 1e-5 * plain.abs().max()).all())))
+        del w13, w2, ws, libs, x, got, plain, err
+    torch.cuda.empty_cache()
     return cases
 
 
 def _tiny_cfg(tokenizer):
-    """A tiny model whose slow heads (D=64) the attention kernels take."""
+    """JAX's tiny model at its own widths (slow heads D=32, 2 over 1 KV
+    head; fast heads D=16, G=2), with QK norm, untied embeddings and ten
+    codebooks."""
     from fish_speech_tpu_torch.config import dual_ar_tiny
 
-    return dual_ar_tiny(vocab_size=tokenizer.vocab_size, head_dim=64,
-                        n_head=4, n_local_heads=2, fast_head_dim=64,
-                        fast_n_head=3, fast_n_local_heads=1, num_codebooks=10,
+    return dual_ar_tiny(vocab_size=tokenizer.vocab_size, num_codebooks=10,
                         attention_qk_norm=True, tie_word_embeddings=False,
                         semantic_begin_id=tokenizer.semantic_begin_id,
                         semantic_end_id=tokenizer.semantic_end_id,
@@ -3351,6 +3477,71 @@ def run_train_slice(dev, tokenizer, cfg, out_dir):
     return launches, dict(cfg=cfg, batch=batch_size, seq=max_length, step_s=steady)
 
 
+# phase 5b: the train CLI as a user runs it, `--tiny` (JAX's tiny model)
+# in bf16, its default precision, in a process of its own on the card. The
+# harness runs the CLI's `main` with the user's flags, logs every step's
+# metrics (`TrainConfig.log_every_steps`, 10 by default, to 1) and prints
+# the training attention's launch counts at the end.
+TRAIN_CLI_HARNESS = """
+import dataclasses, json, sys
+from fish_speech_tpu_torch.ops import flash_train
+from fish_speech_tpu_torch.train import cli, trainer
+
+@dataclasses.dataclass
+class EveryStep(trainer.TrainConfig):
+    log_every_steps: int = 1
+
+trainer.TrainConfig = EveryStep
+cli.main(sys.argv[1:], standalone_mode=False)
+print(json.dumps({f"{w.__name__}.{r}": getattr(w, "launches_" + r)
+                  for w in (flash_train.flash_train_forward,
+                            flash_train.flash_train_backward)
+                  for r in flash_train.ROUTES}))
+"""
+
+
+def run_train_cli(out_dir):
+    """Phase 5b: `python -m fish_speech_tpu_torch.train.cli --tiny` takes 2
+    LoRA steps in bf16 on a proto shard written by phase 5's writer (ten
+    codebooks of the tiny model's 32 codes): the slow stack's attention at
+    JAX's D=32 must launch on "cuda_cores_bf16" (forward and backward) and
+    never on "wgmma", and both steps' losses must be finite. Returns the
+    route's launches."""
+    import os
+    import shutil
+
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    root = Path(__file__).resolve().parent
+    proto = _write_protos(out_dir / "tiny.protos", 10, 32, np.random.default_rng(3))
+    args = ["--tiny", "--data", proto, "--output", out_dir / "run", "--max-steps", 2,
+            "--batch-size", 2, "--max-length", 256, "--lora-r", 8, "--warmup-steps", 1,
+            "--val-every", 10 ** 9, "--no-resume"]
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", TRAIN_CLI_HARNESS, *map(str, args)],
+                          cwd=str(root), env=dict(os.environ, PYTHONPATH=str(root)),
+                          capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        raise SystemExit(f"train.cli --tiny failed: {proc.stderr[-3000:]}")
+    counts = json.loads(proc.stdout.strip().splitlines()[-1])
+    metrics = next((out_dir / "run").rglob("metrics.jsonl"))
+    losses = [json.loads(line)["loss"] for line in metrics.read_text().splitlines()]
+    launches = {
+        "flash_train_fwd_cuda_cores_bf16": counts["flash_train_forward.cuda_cores_bf16"],
+        "flash_train_bwd_cuda_cores_bf16": counts["flash_train_backward.cuda_cores_bf16"]}
+    wgmma = counts["flash_train_forward.wgmma"] + counts["flash_train_backward.wgmma"]
+    print(f"train.cli --tiny (bf16, JAX's tiny model, heads 32 wide; a process of "
+          f"its own): losses {losses}, launches {counts}, "
+          f"{time.perf_counter() - t0:.1f}s")
+    if len(losses) != 2 or not np.isfinite(losses).all():
+        raise SystemExit(f"train.cli --tiny: losses {losses}")
+    if min(launches.values()) <= 0 or wgmma:
+        raise SystemExit(f"train.cli --tiny: the bf16 D=32 route did not carry the "
+                         f"attention: {counts}")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    return launches
+
+
 # phase 8: the 40 texts of the burst, whose prompts reach two buckets
 # (128 and 256 with the system prompt), and the index of the request sent
 # again alone
@@ -3935,8 +4126,8 @@ def run_server(engine, batcher, refs_dir, frame):
     WAV and FLAC bytes, concurrent streamed /v1/tts by reference id, a
     msgpack request, /v1/audio/speech as pcm, a client that drops its
     stream (counted cancelled, its row freed and reused), and the metrics;
-    then `python -m fish_speech_tpu_torch.server.main --tiny --no-warmup`
-    in a process of its own answers one request."""
+    then `python -m fish_speech_tpu_torch.server.main --tiny --int8
+    --no-warmup` in a process of its own answers one request."""
     import asyncio
     import os
     import urllib.request
@@ -4077,7 +4268,7 @@ def run_server(engine, batcher, refs_dir, frame):
     t0 = time.perf_counter()
     proc = subprocess.Popen(
         [sys.executable, "-m", "fish_speech_tpu_torch.server.main", "--tiny",
-         "--no-warmup", "--listen", f"127.0.0.1:{port}",
+         "--int8", "--no-warmup", "--listen", f"127.0.0.1:{port}",
          "--references-dir", str(refs_dir)],
         cwd=str(Path(__file__).resolve().parent), env=env,
         stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
@@ -4100,12 +4291,14 @@ def run_server(engine, batcher, refs_dir, frame):
     except Exception as e:  # reported with the process's log
         proc.terminate()
         err = proc.communicate(timeout=60)[1]
-        raise SystemExit(f"server --tiny: {e!r}; its log: {err[-3000:]}")
+        raise SystemExit(f"server --tiny --int8: {e!r}; its log: {err[-3000:]}")
     finally:
         if proc.poll() is None:
             proc.terminate()
             proc.wait(timeout=60)
-    print(f"server entry point (--tiny --no-warmup, on the card): one /v1/tts "
+    print(f"server entry point (--tiny --int8 --no-warmup, on the card: JAX's "
+          f"tiny model, heads 32 and 16 wide, int8 weights through the fp32 "
+          f"int8 matvec and fused FFN): one /v1/tts "
           f"answered, {tiny_frames} frames, {time.perf_counter() - t0:.1f}s from "
           f"the process's start")
     if failures:
@@ -5535,7 +5728,7 @@ def half_kernel_cases(dev, randn):
                        <= 2.0 ** -11 * exact.abs() + 1e-5 * scale).all())
             err = (got.float() - int4_matmul_f16w_reference(x, p, gs).float()).abs()
             del exact, scale
-            iters = 200 if b == 1 else 20
+            iters = MATVEC_ITERS if b == 1 else 20
             ms, plain_ms = _in_turns(lambda k=0: int4_matmul_f16w_reference(x, p, gs),
                                      lambda k=0: int4_matmul(x, p, gs), iters)
             flops = 2 * b * i * o
@@ -6002,10 +6195,16 @@ KERNELS = {  # name: (source, the TPU kernel or JAX code it replaces)
                         "fish_speech_tpu/ops/pallas_attention_train.py:131"),
     "flash_train_bwd_fp32": (SRC + "flash_train.cu",
                              "fish_speech_tpu/ops/pallas_attention_train.py:131"),
-    "int4_mm": (SRC + "int4_mm.cu", "fish_speech_tpu/ops/pallas_int4.py:32"),
-    "int4_mm_wgmma": (SRC + "int4_mm.cu",
+    # bf16 at JAX's tiny D=32 (the train CLI's default precision): the
+    # CUDA-core kernels on bf16 inputs
+    "flash_train_fwd_cuda_cores_bf16": (
+        SRC + "flash_train.cu", "fish_speech_tpu/ops/pallas_attention_train.py:56"),
+    "flash_train_bwd_cuda_cores_bf16": (
+        SRC + "flash_train.cu", "fish_speech_tpu/ops/pallas_attention_train.py:131"),
+    "int4_mm": (SRC + "int4_mm.cuh", "fish_speech_tpu/ops/pallas_int4.py:32"),
+    "int4_mm_wgmma": (SRC + "int4_mm.cuh",
                       "fish_speech_tpu/ops/pallas_int4.py:32"),
-    "int4_mm_fp32": (SRC + "int4_mm.cu", "fish_speech_tpu/ops/pallas_int4.py:32"),
+    "int4_mm_fp32": (SRC + "int4_mm.cuh", "fish_speech_tpu/ops/pallas_int4.py:32"),
     "flash_decode_kv8": (SRC + "flash_decode.cu",
                          "fish_speech_tpu/ops/attention.py:66"),
     "faststack_probe": (SRC + "faststack.cu",
@@ -6038,17 +6237,19 @@ KERNELS = {  # name: (source, the TPU kernel or JAX code it replaces)
     "int8_mm_cluster_f16": (SRC + "int8_mm.cu",
                             "scripts/microbench/matvec_pallas.py:18"),
     "int8_ffn_f16": (SRC + "int8_ffn.cu", "scripts/microbench/ffn_fused_packed.py:17"),
-    "int4_mm_f16": (SRC + "int4_mm.cu", "fish_speech_tpu/ops/pallas_int4.py:32"),
-    "int4_mm_wgmma_f16": (SRC + "int4_mm.cu", "fish_speech_tpu/ops/pallas_int4.py:32"),
+    "int4_mm_f16": (SRC + "int4_mm.cuh", "fish_speech_tpu/ops/pallas_int4.py:32"),
+    "int4_mm_wgmma_f16": (SRC + "int4_mm.cuh", "fish_speech_tpu/ops/pallas_int4.py:32"),
 }
 # headline shapes: the long request's prefill bucket, a 257-long cache, the
 # B=2 x T=1024 fine-tune shape, the slow w13 at B=1 (matvec route) and at
 # B=1024 (tensor-core route), a 257-long int8 cache, the probe at R=0 in
-# bf16; the fp32 attention routes' one small case each, the tiny slow
-# cache and the tiny fast wqkv for the fp32 decode and matvec; the int8
-# matmul on the slow w13 at B=1 (its cluster kernel at B=32) and the tiny
-# slow wqkv in fp32; the fused
-# int8 FFN on the slow FFN at B=1 and the tiny slow FFN in fp32
+# bf16; the fp32 attention routes at JAX's tiny widths (the prefill at
+# bucket 64, the slow cache, phase 3b's training batch, the suffix at
+# start 140), the tiny fast wqkv for the fp32 int4 matvec; bf16 training
+# at the tiny widths on the train CLI's batch; the int8 matmul on the slow
+# w13 at B=1 (its cluster kernel at B=32) and the tiny slow wqkv in fp32
+# at B=1; the fused int8 FFN on the slow FFN at B=1 and the tiny slow FFN
+# in fp32 at B=1
 HEADLINE = {"flash_prefill": 1, "flash_prefill_fp32": 0, "flash_decode": 1,
             "flash_decode_fp32": 0, "flash_train_fwd": 0, "flash_train_fwd_fp32": 0,
             "flash_train_bwd": 0, "flash_train_bwd_fp32": 0, "int4_mm": 2,
@@ -6056,6 +6257,7 @@ HEADLINE = {"flash_prefill": 1, "flash_prefill_fp32": 0, "flash_decode": 1,
             "faststack_probe": 0, "int8_mm": 2 * (len(INT8_ROWS) - 1),
             "int8_mm_cluster": 2, "int8_mm_fp32": 0,
             "int8_ffn": 0, "int8_ffn_fp32": 0, "flash_suffix": 0,
+            "flash_train_fwd_cuda_cores_bf16": 0, "flash_train_bwd_cuda_cores_bf16": 0,
             "flash_suffix_kv8": 0, "flash_suffix_fp32": 0, "flash_suffix_kv8_fp32": 0,
             # phase 14: the prompt bucket 1024, the session's slow cache at
             # len 2048, the suffix at start 951, the slow w13 at B=1 and 32,
@@ -6226,6 +6428,8 @@ def main():
         dev, tokenizer, _s2_pro_cfg(tokenizer, 1024),
         Path(__file__).resolve().parent / "build" / "chip_smoke_train")
     launches.update(train_launches)
+    launches.update(run_train_cli(
+        Path(__file__).resolve().parent / "build" / "chip_smoke_train_cli"))
     launches.update(fp32_launches)
     gc.collect()  # the training model goes before quantized serving
     torch.cuda.empty_cache()

@@ -110,10 +110,15 @@ __host__ __device__ __forceinline__ int ring_stages(int s_len, int n_split) {
 }
 
 // element offset of the 16-byte piece c of row j of a stage: the pieces of
-// eight neighbouring rows are spread over the banks (XOR with j % 8)
+// eight neighbouring rows are spread over the banks (XOR with j % 8). A row
+// of fewer than eight pieces (fp32 at D = 16: four) XORs within its own
+// pieces: eight lanes then read two whole neighbouring rows, 128 bytes
+// without a conflict.
 template <typename T, int D>
 __device__ __forceinline__ int swz(int j, int c) {
-  return j * D + ((c ^ (j & 7)) << 4) / (int)sizeof(T);
+  constexpr int PIECES = D * (int)sizeof(T) / 16;
+  constexpr int MASK = (PIECES < 8 ? PIECES : 8) - 1;
+  return j * D + ((c ^ (j & MASK)) << 4) / (int)sizeof(T);
 }
 
 // 8 bf16 or 4 fp32 values of one 16-byte load, as fp32
@@ -293,7 +298,9 @@ __device__ void block_finish(const float* sm_m, const float* sm_l,
 // fp32 (and any dtype): CUDA cores. Each of CW warps scores SP / CW
 // positions of a stage for its G heads (NG >= n_group bounds the
 // registers): lanes hold 16-byte pieces of a row, a shuffle sum per score,
-// one max and one rescale per warp and stage.
+// one max and one rescale per warp and stage. A row is D / 4 lanes (fp32),
+// so a warp load takes 32 / (D / 4) rows: 2 at D = 128, 8 at D = 16 (the
+// tiny model's fast stack), 4 at D = 32 (its slow stack).
 // ---------------------------------------------------------------------------
 template <typename T, int D, int NG>
 __global__ void __launch_bounds__(CW * 32)
@@ -308,6 +315,7 @@ __global__ void __launch_bounds__(CW * 32)
   constexpr int SP = stage_positions<T, D>();
   constexpr int TP = SP / CW;          // positions per warp and stage
   constexpr int U = TP / RPW;          // rows per lane and stage
+  static_assert(LPR >= 1 && LPR <= 32 && 32 % LPR == 0, "a row is whole lanes of a warp");
   static_assert(U * RPW * CW == SP, "a stage splits evenly over the warps");
   extern __shared__ __align__(16) unsigned char ring_raw[];
   T* ring = reinterpret_cast<T*>(ring_raw);
@@ -1010,7 +1018,8 @@ __global__ void __launch_bounds__(TW * 32)
 // ---------------------------------------------------------------------------
 // fp32 q (the tiny fp32 models): CUDA cores. Each of CW warps takes UNROLL
 // positions at a time of the block's slice; a lane holds D/32 values of a
-// row, a warp sum per score and head; the warps' states merge as above.
+// row (one at the tiny model's D = 32: only its slow cache is ever int8), a
+// warp sum per score and head; the warps' states merge as above.
 // ---------------------------------------------------------------------------
 template <int D>
 __global__ void __launch_bounds__(CW * 32)
@@ -1023,6 +1032,7 @@ __global__ void __launch_bounds__(CW * 32)
                       float* __restrict__ work, int* __restrict__ counters,
                       int s_len, int n_kv, int n_group, float scale_log2) {
   constexpr int EPL = D / 32;
+  static_assert(EPL >= 1 && EPL * 32 == D, "a row is whole values per lane");
   __shared__ float sm_m[CW * MAXG];
   __shared__ float sm_l[CW * MAXG];
   __shared__ float sm_acc[CW * MAXG * D];
@@ -1185,6 +1195,8 @@ extern "C" int fs_flash_decode(const void* q, const void* k_layer,
   if (dtype == fs::kFloat16 && head_dim == 64) FS_DEC(__half, 64);
   if (dtype == fs::kFloat32 && head_dim == 128) FS_DEC(float, 128);
   if (dtype == fs::kFloat32 && head_dim == 64) FS_DEC(float, 64);
+  if (dtype == fs::kFloat32 && head_dim == 32) FS_DEC(float, 32);  // tiny slow stack
+  if (dtype == fs::kFloat32 && head_dim == 16) FS_DEC(float, 16);  // tiny fast stack
 #undef FS_DEC
   return (int)cudaErrorInvalidValue;
 }
@@ -1219,6 +1231,7 @@ extern "C" int fs_flash_decode_kv8(const void* q, const void* k_layer,
   if (dtype == fs::kFloat16 && head_dim == 64) FS_KV8(__half, 64);
   if (dtype == fs::kFloat32 && head_dim == 128) FS_KV8(float, 128);
   if (dtype == fs::kFloat32 && head_dim == 64) FS_KV8(float, 64);
+  if (dtype == fs::kFloat32 && head_dim == 32) FS_KV8(float, 32);  // tiny slow stack
 #undef FS_KV8
   return (int)cudaErrorInvalidValue;
 }

@@ -24,7 +24,9 @@
 //  * "cuda_cores", fp32 (the small fp32 reference models):
 //    `prefill_kernel`, one block of 256 threads per (query tile of BQ=64
 //    rows, head, batch row), products on the CUDA cores in float32 from
-//    shared memory, tiles past the causal limit of the block skipped.
+//    shared memory, tiles past the causal limit of the block skipped; at
+//    head dim 32 (the tiny model's slow stack), 64 or 128, where the
+//    tensor-core routes take 64 and 128.
 //
 // fs_flash_suffix serves a prefix-cache hit's suffix prefill
 // (dual_ar.prefill_suffix; JAX runs an
@@ -81,7 +83,8 @@ __global__ void __launch_bounds__(NT)
                    int seq, int n_head, int n_kv, float scale) {
   constexpr int QP = D + 1;  // padded strides keep shared reads conflict-free
   constexpr int KP = D + 1;
-  constexpr int NC = D / 32;  // output columns per thread
+  constexpr int NC = D / 32;  // output columns per thread: 1 at the tiny D = 32
+  static_assert(NC >= 1 && NC * 32 == D, "whole output columns per lane");
 
   extern __shared__ float smem[];
   float* qs = smem;                 // [BQ][QP]
@@ -984,6 +987,10 @@ extern "C" int fs_flash_prefill(const void* q, const void* k, const void* v,
     return launch_prefill<float, float, 64, false, false>(
         q, k, v, nullptr, nullptr, off, out, batch, t_len, t_len, n_head, n_kv,
         scale, s);
+  if (dtype == fs::kFloat32 && head_dim == 32)  // the tiny model's slow stack
+    return launch_prefill<float, float, 32, false, false>(
+        q, k, v, nullptr, nullptr, off, out, batch, t_len, t_len, n_head, n_kv,
+        scale, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -1033,6 +1040,9 @@ extern "C" int fs_flash_suffix(const void* q, const void* k, const void* v,
                                    n_head, n_kv, kv8 != 0, scale, s);
   if (dtype == fs::kFloat32 && head_dim == 64)
     return launch_suffix_fp32<64>(q, k, v, ks, vs, st, out, batch, t_len, seq,
+                                  n_head, n_kv, kv8 != 0, scale, s);
+  if (dtype == fs::kFloat32 && head_dim == 32)  // the tiny model's slow stack
+    return launch_suffix_fp32<32>(q, k, v, ks, vs, st, out, batch, t_len, seq,
                                   n_head, n_kv, kv8 != 0, scale, s);
   return (int)cudaErrorInvalidValue;
 }

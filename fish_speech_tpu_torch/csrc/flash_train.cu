@@ -28,7 +28,14 @@
 //        row), products on the CUDA cores in float32 from shared memory,
 //        an online (running max / running sum) softmax in float32 per
 //        row, causal tiles past the block's last row skipped; writes O
-//        and lse = m + log(l).
+//        and lse = m + log(l); at head dim 32 (the tiny model's slow
+//        stack), 64 or 128;
+//      - "cuda_cores_bf16", bf16 at head dim 32 (the tiny model trained in
+//        bf16, the train CLI's default precision), where the wgmma
+//        kernels' 128-byte swizzled 64-column blocks have no form: the
+//        same `train_fwd_kernel` instantiated for __nv_bfloat16 inputs,
+//        read into float32 shared tiles, every product and sum in float32
+//        and O rounded to bf16 once.
 //  * backward, FlashAttention-2 style recompute from lse, in two kernels so
 //    that every output is written once by one block (deterministic, no
 //    atomics, as the TPU kernel's revisit-accumulate was), two routes, one
@@ -45,7 +52,13 @@
 //        `train_bwd_dq_kernel`, one block per (64-query tile, head, batch
 //        row) walking the key tiles up to the causal limit, dQ += dS K.
 //        Products on the CUDA cores in float32 from shared memory, P and dS
-//        kept in float32.
+//        kept in float32;
+//      - "cuda_cores_bf16", bf16 at head dim 32: the same pair instantiated
+//        for __nv_bfloat16, sums in float32 and dQ, dK, dV each rounded to
+//        bf16 once.
+//    The routes are picked by dtype and head dim (`ops/flash_train.py:
+//    _route`), an explicit dispatch: a head dim no route takes is refused
+//    before any launch.
 //    delta = rowsum(dO * O) comes in from the wrapper (a plain reduction, as
 //    the JAX package computes it outside its kernel).
 
@@ -128,7 +141,8 @@ __global__ void __launch_bounds__(TNT)
                      T* __restrict__ out, float* __restrict__ lse, int t_len,
                      int n_head, int n_kv, float scale) {
   constexpr int P = D + 1;
-  constexpr int NC = D / 32;  // output columns per thread
+  constexpr int NC = D / 32;  // output columns per thread: 1 at the tiny D = 32
+  static_assert(NC >= 1 && NC * 32 == D, "whole output columns per lane");
 
   extern __shared__ float smem[];
   float* qs = smem;               // [TB][P]
@@ -597,6 +611,9 @@ extern "C" int fs_flash_train_fwd(const void* q, const void* k, const void* v,
   const int* kv = static_cast<const int*>(kvalid);
   float* l = static_cast<float*>(lse);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == fs::kBFloat16 && head_dim == 32)  // "cuda_cores_bf16"
+    return launch_fwd<__nv_bfloat16, 32>(q, k, v, kv, out, l, batch, t_len,
+                                         n_head, n_kv, scale, s);
   if (dtype == fs::kBFloat16) {  // "wgmma"
     fs::attn::Args a;
     a.q = static_cast<const __nv_bfloat16*>(q);
@@ -620,6 +637,9 @@ extern "C" int fs_flash_train_fwd(const void* q, const void* k, const void* v,
   if (dtype == fs::kFloat32 && head_dim == 64)
     return launch_fwd<float, 64>(q, k, v, kv, out, l, batch, t_len, n_head,
                                  n_kv, scale, s);
+  if (dtype == fs::kFloat32 && head_dim == 32)
+    return launch_fwd<float, 32>(q, k, v, kv, out, l, batch, t_len, n_head,
+                                 n_kv, scale, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -634,6 +654,10 @@ extern "C" int fs_flash_train_bwd(const void* q, const void* k, const void* v,
   const float* l = static_cast<const float*>(lse);
   const float* dl = static_cast<const float*>(delta);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == fs::kBFloat16 && head_dim == 32)  // "cuda_cores_bf16"
+    return launch_bwd_cuda_cores<__nv_bfloat16, 32>(q, k, v, kv, dout, l, dl, dq,
+                                                    dk, dv, batch, t_len, n_head,
+                                                    n_kv, scale, s);
   if (dtype == fs::kBFloat16) {  // "wgmma"
     fs::attn::BwdArgs a;
     a.q = static_cast<const __nv_bfloat16*>(q);
@@ -664,6 +688,10 @@ extern "C" int fs_flash_train_bwd(const void* q, const void* k, const void* v,
                                              scale, s);
   if (dtype == fs::kFloat32 && head_dim == 64)
     return launch_bwd_cuda_cores<float, 64>(q, k, v, kv, dout, l, dl, dq, dk,
+                                            dv, batch, t_len, n_head, n_kv,
+                                            scale, s);
+  if (dtype == fs::kFloat32 && head_dim == 32)
+    return launch_bwd_cuda_cores<float, 32>(q, k, v, kv, dout, l, dl, dq, dk,
                                             dv, batch, t_len, n_head, n_kv,
                                             scale, s);
   return (int)cudaErrorInvalidValue;

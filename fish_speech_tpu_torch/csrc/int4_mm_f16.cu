@@ -1,0 +1,11 @@
+// The int4 matmul's launches for fp16 x (routes "gemv_f16" and "wgmma_f16"),
+// compiled apart from the other dtypes' (int4_mm.cuh).
+
+#include "int4_mm.cuh"
+
+int fs::i4::run_f16(int batch, const void* x, const uint8_t* p, const float* gs,
+                  void* out, float* work, int* counters, int in_dim, int out_dim,
+                  int group, int route, int n_split, cudaStream_t s) {
+  return run16<__half>(batch, x, p, gs, out, work, counters, in_dim, out_dim, group, route,
+                     n_split, s);
+}

@@ -64,11 +64,19 @@
 // mma.sync's `.f16` operands): g = rn_f16(silu(u1) u3) and y = rn_f16((g @
 // q2) s2), the sums in fp32 as in bf16.
 //
-// fp32 x (the small fp32 models): the same two phases on the CUDA cores, a
-// thread per output column (phase A: its column of u1 and of u3), over the
-// whole of D and of I (one run each), x and g staged by 64-row chunks.
+// fp32 x (the small fp32 models: JAX's `--tiny --int8`, the parity tool),
+// route "cuda_cores": `int8_ffn_fp32_kernel<NB, kTma>`, the same phases and
+// items (two 128-column boxes) on the CUDA cores in fp32, in the design of
+// int8_fp32.cuh (NB rows of x a template parameter, four columns a lane
+// from one 32-bit word, W through a TMA ring where its layout takes the
+// boxes, x of the run in shared memory once), split as the wrapper's plan
+// says (`ops/int8_ffn.py:int8_ffn_plan`: runs of I and of D so that the
+// items cover the SMs where the column tiles alone do not), the grid sized
+// to the items. With one run of D a block gates its own u1 and u3 and the
+// launch holds one grid barrier (the tiny FFNs: one block, no partials).
 
 #include "common.cuh"
+#include "int8_fp32.cuh"
 #include "int8_mma.cuh"
 #include "tma.cuh"
 
@@ -93,8 +101,9 @@ static_assert(STAGE_ROWS % 32 == 0, "whole k16 steps per warp");
 constexpr int RING_BYTES = STAGES * STAGE_BYTES > RED_FLOATS * 4 ? STAGES * STAGE_BYTES
                                                                  : RED_FLOATS * 4;
 constexpr int MAX_SPLIT = 64;                  // most runs a phase's rows are cut into
-constexpr int CC_COLS = THREADS;               // fp32 kernel: columns per item
-constexpr int CC_CHUNK = 64;                   // fp32 kernel: rows of x or g staged at once
+static_assert(THREADS == fs::i8f::THREADS && STAGE_ROWS == fs::i8f::SR &&
+                  BOX == fs::i8f::COLS,
+              "the fp32 kernel's block and boxes are this file's");
 
 struct Ffn {
   const void* x;                 // (B, D), x's dtype
@@ -343,78 +352,203 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
   }
 }
 
-// fp32 x: phase A's item t is columns [256 t, 256 t + 256) of I over all of
-// D, phase B's columns [256 t, ...) of D over all of I; thread i owns one
-// column and sums every row of x (of g) for it in fp32.
+// fp32 x: the same phases on the CUDA cores, in the items of int8_fp32.cuh.
+// An item is two 128-column boxes over a run of rows, each box taken by a
+// group of four warps (warps 0-3 box 0, 4-7 box 1) over the run's rows in
+// turn, their sums met in a fixed tree: phase A's item (column tile t of
+// I, run k of D) is box t of q1 and box t of q3; phase B's (256 columns of
+// D from 256 t, run k of I) two boxes of q2. W streams through the TMA
+// ring (kTma) or straight from device memory (layouts a box cannot take).
+// With one run of D (n_a = 1) the block applies the gate to its u1 and u3
+// at once and writes g, else it writes both partials and, after a grid
+// barrier, every block adds the runs of its share in run order and forms
+// g. After the barrier that publishes g, phase B takes g as x (an item
+// whose second box lies past D gives all eight warps to its first); one
+// run writes y, else the partials meet as in the mma kernel. Dynamic shared
+// memory: `fs::i8f::smem_bytes<NB, 2, kTma>` of the longest run.
+// `vec13` / `vec2`: the rows of q1 and q3 / of q2 start on 4-byte
+// boundaries (the direct path's 32-bit loads), else byte loads.
+template <int NB, bool kTma>
 __global__ void __launch_bounds__(THREADS)
-    int8_ffn_fp32_kernel(const Ffn a) {
-  __shared__ float xs[MAX_ROWS][CC_CHUNK];
+    int8_ffn_fp32_kernel(const __grid_constant__ CUtensorMap m1,
+                         const __grid_constant__ CUtensorMap m3,
+                         const __grid_constant__ CUtensorMap m2, const Ffn a, int vec13,
+                         int vec2) {
+  namespace f = fs::i8f;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t full[f::STAGES];
+  uint8_t* ring = f::ring_base(smem_raw);
+  // x (or g) of a run, then the sums
+  float* xs = reinterpret_cast<float*>(kTma ? ring + f::STAGES * 2 * f::BOX_BYTES
+                                            : smem_raw);
+  if (kTma) f::init_ring(full);
+  uint32_t seq = 0;
   const int batch = a.batch;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int grp = warp >> 2, wg = warp & 3;  // the warp's box, and its place in the group
+  float* red = xs + grp * 2 * NB * f::COLS;   // the group's tree: two slots
   const float* x = static_cast<const float*>(a.x);
   float* gw = static_cast<float*>(a.g);
-  for (int tile = blockIdx.x; tile < a.tiles_a; tile += gridDim.x) {
-    const int col = tile * CC_COLS + threadIdx.x;
-    float acc1[MAX_ROWS], acc3[MAX_ROWS];
+  const size_t stride_a = (size_t)batch * 2 * a.i;
+  for (int k = blockIdx.x; k < a.tiles_a * a.n_a; k += gridDim.x) {
+    const int tile = k % a.tiles_a, run = k / a.tiles_a;
+    const int r0 = run * a.run_a, len = min(a.d, r0 + a.run_a) - r0;
+    const int c = tile * f::COLS + 4 * lane;
+    __syncthreads();  // the previous item is done with x and the sums
+    f::stage_x<NB, false>(xs, x, a.d, batch, r0, len);
+    __syncthreads();
+    float acc[NB][4];
 #pragma unroll
-    for (int b = 0; b < MAX_ROWS; ++b) acc1[b] = acc3[b] = 0.f;
-    for (int c0 = 0; c0 < a.d; c0 += CC_CHUNK) {
-      const int n = min(CC_CHUNK, a.d - c0);
-      __syncthreads();  // the previous chunk is done with xs
-      for (int idx = threadIdx.x; idx < batch * CC_CHUNK; idx += THREADS) {
-        const int b = idx / CC_CHUNK, j = idx % CC_CHUNK;
-        xs[b][j] = j < n ? x[(size_t)b * a.d + c0 + j] : 0.f;
-      }
+    for (int b = 0; b < NB; ++b)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[b][e] = 0.f;
+    if constexpr (kTma)
+      f::stream_item<NB, 2>(&m1, tile * f::COLS, &m3, tile * f::COLS, r0, len, ring,
+                            full, seq, xs, grp, wg, 4, acc);
+    else
+      f::dot_rows<NB>((grp ? a.q3 : a.q1) + (size_t)r0 * a.ld13, a.ld13, a.i, c,
+                      vec13 != 0, xs, len, wg, 4, acc);
+    __syncthreads();  // x is read: the sums take its place
+    f::reduce_warps<NB>(acc, red, wg, 4);
+    if (a.n_a == 1) {  // u1 (warp 0) and u3 (warp 4) are whole: the gate
+      if (warp == 4)
+#pragma unroll
+        for (int b = 0; b < NB; ++b)
+          *reinterpret_cast<float4*>(xs + b * f::COLS + 4 * lane) =
+              make_float4(acc[b][0], acc[b][1], acc[b][2], acc[b][3]);
       __syncthreads();
-      if (col < a.i) {
-        for (int j = 0; j < n; ++j) {
-          const float w1 = (float)a.q1[(size_t)(c0 + j) * a.ld13 + col];
-          const float w3 = (float)a.q3[(size_t)(c0 + j) * a.ld13 + col];
+      if (warp == 0)
 #pragma unroll
-          for (int b = 0; b < MAX_ROWS; ++b)
-            if (b < batch) {
-              acc1[b] = fmaf(xs[b][j], w1, acc1[b]);
-              acc3[b] = fmaf(xs[b][j], w3, acc3[b]);
-            }
+        for (int b = 0; b < NB; ++b) {
+          if (b >= batch) break;
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (c + e < a.i)
+              gw[(size_t)b * a.i + c + e] =
+                  gate(acc[b][e] * a.s1[c + e], xs[b * f::COLS + 4 * lane + e] * a.s3[c + e]);
         }
-      }
-    }
-    if (col < a.i) {
+    } else if (wg == 0) {  // warps 0 and 4: the run's partial of u1 or u3
+      float* part = a.part_a + run * stride_a + grp * a.i;
 #pragma unroll
-      for (int b = 0; b < MAX_ROWS; ++b)
-        if (b < batch) gw[(size_t)b * a.i + col] = gate(acc1[b] * a.s1[col], acc3[b] * a.s3[col]);
+      for (int b = 0; b < NB; ++b) {
+        if (b >= batch) break;
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (c + e < a.i) part[(size_t)b * 2 * a.i + c + e] = acc[b][e];
+      }
     }
   }
-
+  if (a.n_a > 1) {  // every block adds the runs of its share of u1 | u3
+    grid_sync(a.bar);
+    for (int e = blockIdx.x * THREADS + threadIdx.x; e < batch * a.i;
+         e += gridDim.x * THREADS) {
+      const int b = e / a.i, col = e % a.i;
+      const float* p = a.part_a + (size_t)b * 2 * a.i + col;
+      float u1 = 0.f, u3 = 0.f;
+      for (int r = 0; r < a.n_a; ++r) {
+        u1 += __ldcg(p + r * stride_a);
+        u3 += __ldcg(p + r * stride_a + a.i);
+      }
+      gw[e] = gate(u1 * a.s1[col], u3 * a.s3[col]);
+    }
+  }
   grid_sync(a.bar);  // every block's g is stored and seen
 
   float* out = static_cast<float*>(a.out);
-  for (int tile = blockIdx.x; tile < a.tiles_b; tile += gridDim.x) {
-    const int col = tile * CC_COLS + threadIdx.x;
-    float acc[MAX_ROWS];
+  const size_t stride_b = (size_t)batch * a.d;
+  for (int k = blockIdx.x; k < a.tiles_b * a.n_b; k += gridDim.x) {
+    const int tile = k % a.tiles_b, run = k / a.tiles_b;
+    const int r0 = run * a.run_b, len = min(a.i, r0 + a.run_b) - r0;
+    // an item whose second box lies past D (D under 128 columns, or its
+    // last tile) gives all eight warps to the first
+    const bool one = tile * ITEM_COLS + f::COLS >= a.d;
+    const int box = one ? 0 : grp, w = one ? warp : wg, n_w = one ? 8 : 4;
+    const int c = tile * ITEM_COLS + box * f::COLS + 4 * lane;
+    __syncthreads();
+    f::stage_x<NB, true>(xs, gw, a.i, batch, r0, len);  // other blocks' g
+    __syncthreads();
+    float acc[NB][4];
 #pragma unroll
-    for (int b = 0; b < MAX_ROWS; ++b) acc[b] = 0.f;
-    for (int c0 = 0; c0 < a.i; c0 += CC_CHUNK) {
-      const int n = min(CC_CHUNK, a.i - c0);
-      __syncthreads();
-      for (int idx = threadIdx.x; idx < batch * CC_CHUNK; idx += THREADS) {
-        const int b = idx / CC_CHUNK, j = idx % CC_CHUNK;
-        xs[b][j] = j < n ? __ldcg(gw + (size_t)b * a.i + c0 + j) : 0.f;  // other blocks' g
-      }
-      __syncthreads();
-      if (col < a.d) {
-        for (int j = 0; j < n; ++j) {
-          const float w = (float)a.q2[(size_t)(c0 + j) * a.ld2 + col];
+    for (int b = 0; b < NB; ++b)
 #pragma unroll
-          for (int b = 0; b < MAX_ROWS; ++b)
-            if (b < batch) acc[b] = fmaf(xs[b][j], w, acc[b]);
+      for (int e = 0; e < 4; ++e) acc[b][e] = 0.f;
+    if constexpr (kTma)
+      f::stream_item<NB, 2>(&m2, tile * ITEM_COLS, &m2, tile * ITEM_COLS + f::COLS, r0,
+                            len, ring, full, seq, xs, box, w, n_w, acc);
+    else
+      f::dot_rows<NB>(a.q2 + (size_t)r0 * a.ld2, a.ld2, a.d, c, vec2 != 0, xs, len, w,
+                      n_w, acc);
+    __syncthreads();
+    f::reduce_warps<NB>(acc, one ? xs : red, w, n_w);
+    if (w == 0) {  // y (one run) or the run's partial, of the warp's box
+      float* part = a.part_b + run * stride_b;
+#pragma unroll
+      for (int b = 0; b < NB; ++b) {
+        if (b >= batch) break;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          if (c + e >= a.d) break;
+          if (a.n_b == 1)
+            out[(size_t)b * a.d + c + e] = acc[b][e] * a.s2[c + e];
+          else
+            part[(size_t)b * a.d + c + e] = acc[b][e];
         }
       }
     }
-    if (col < a.d) {
-#pragma unroll
-      for (int b = 0; b < MAX_ROWS; ++b)
-        if (b < batch) out[(size_t)b * a.d + col] = acc[b] * a.s2[col];
+  }
+  if (a.n_b > 1) {  // every block adds the runs of its share of y in run order
+    grid_sync(a.bar);
+    for (int e = blockIdx.x * THREADS + threadIdx.x; e < batch * a.d;
+         e += gridDim.x * THREADS) {
+      const float* p = a.part_b + e;
+      float y = 0.f;
+      for (int r = 0; r < a.n_b; ++r) y += __ldcg(p + r * stride_b);
+      out[e] = y * a.s2[e % a.d];
     }
+  }
+}
+
+// the fp32 kernel's largest dynamic shared memory at NB rows (runs of up
+// to `fs::i8f::max_run<NB>()` rows, the ring's layout): the occupancy and
+// both forms' attribute are taken at it
+template <int NB>
+constexpr int fp32_smem_max() {
+  return fs::i8f::smem_bytes<NB, 2, true>(fs::i8f::max_run<NB>());
+}
+
+template <int NB>
+cudaError_t fp32_per_sm(int* per_sm) {
+  static bool sized = false;  // one attribute call per instantiation
+  if (!sized) {
+    for (auto kernel : {int8_ffn_fp32_kernel<NB, true>, int8_ffn_fp32_kernel<NB, false>}) {
+      const cudaError_t e = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, fp32_smem_max<NB>());
+      if (e != cudaSuccess) return e;
+    }
+    sized = true;
+  }
+  // the least of the two forms: `fs_int8_ffn` sizes the grid before it
+  // knows which form the layout takes, and the grid barrier needs every
+  // block resident
+  int most = 0;
+  for (auto kernel : {int8_ffn_fp32_kernel<NB, true>, int8_ffn_fp32_kernel<NB, false>}) {
+    int n = 0;
+    const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &n, kernel, THREADS, fp32_smem_max<NB>());
+    if (e != cudaSuccess) return e;
+    most = most == 0 ? n : (n < most ? n : most);
+  }
+  *per_sm = most;
+  return cudaSuccess;
+}
+
+cudaError_t fp32_rows_per_sm(int batch, int* per_sm) {
+  switch (fs::i8f::rows_of(batch)) {
+    case 1: return fp32_per_sm<1>(per_sm);
+    case 8: return fp32_per_sm<8>(per_sm);
+    case 16: return fp32_per_sm<16>(per_sm);
+    case 32: return fp32_per_sm<32>(per_sm);
+    default: return cudaErrorInvalidValue;
   }
 }
 
@@ -455,8 +589,7 @@ int resident_blocks(int route, int batch, int* blocks) {
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
   if (e != cudaSuccess) return (int)e;
   if (route == kRouteCudaCores)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, int8_ffn_fp32_kernel,
-                                                      THREADS, 0);
+    e = fp32_rows_per_sm(batch, &per_sm);
   else if (route == kRouteMmaF16)
     e = mma_rows_per_sm<__half>(batch, &per_sm);
   else
@@ -472,6 +605,16 @@ bool runs_ok(int n, int run, int rows) {
 }
 
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+
+// the fp32 route's runs: whole 64 rows, at most `fs::i8f::max_run` at B rows
+bool fp32_runs_ok(int n, int run, int rows, int batch) {
+  const int nb = fs::i8f::rows_of(batch);
+  const int most = nb == 1 ? fs::i8f::max_run<1>() : nb == 8 ? fs::i8f::max_run<8>()
+                   : nb == 16 ? fs::i8f::max_run<16>() : fs::i8f::max_run<32>();
+  return n >= 1 && n <= MAX_SPLIT && run >= 1 && run % fs::i8f::RUN_ALIGN == 0 &&
+         run <= most && (size_t)(n - 1) * run < (size_t)rows &&
+         (size_t)n * run >= (size_t)rows;
+}
 
 }  // namespace
 
@@ -489,8 +632,8 @@ extern "C" int fs_int8_ffn_blocks(int route, int batch, int* blocks) {
 // out (B, D) in `dtype`. Route "mma" takes bf16 x, "mma_f16" fp16 x,
 // "cuda_cores" fp32 x.
 // Phase A cuts D into n_a runs of run_a rows, phase B I into n_b runs of
-// run_b (multiples of STAGE_ROWS, the last run shorter; the "cuda_cores"
-// route takes one run each). work: g (B x I in `dtype`, rounded up to 16
+// run_b (multiples of STAGE_ROWS on the mma routes; on "cuda_cores" of 64
+// rows, at most `fs::i8f::max_run` at B rows; the last run shorter). work: g (B x I in `dtype`, rounded up to 16
 // bytes), then phase A's partials (n_a B 2I fp32), then phase B's (n_b B
 // D); bar: the grid barrier's word, 0 before the
 // first launch (each launch leaves its low 31 bits as it found them). grid:
@@ -510,7 +653,8 @@ extern "C" int fs_int8_ffn(const void* x, const void* q1, const void* q3, int ld
         !aligned16(x) || !aligned16(q1) || !aligned16(q3) || !aligned16(q2) ||
         !runs_ok(n_a, run_a, d) || !runs_ok(n_b, run_b, i))
       return (int)cudaErrorInvalidValue;
-  } else if (route != kRouteCudaCores || dtype != fs::kFloat32 || n_a != 1 || n_b != 1) {
+  } else if (route != kRouteCudaCores || dtype != fs::kFloat32 ||
+             !fp32_runs_ok(n_a, run_a, d, batch) || !fp32_runs_ok(n_b, run_b, i, batch)) {
     return (int)cudaErrorInvalidValue;
   }
   int blocks = 0;
@@ -538,29 +682,57 @@ extern "C" int fs_int8_ffn(const void* x, const void* q1, const void* q3, int ld
   a.i = i;
   a.ld13 = ld13;
   a.ld2 = ld2;
-  a.tiles_a = (i + (mma ? BOX : CC_COLS) - 1) / (mma ? BOX : CC_COLS);
-  a.tiles_b = (d + (mma ? ITEM_COLS : CC_COLS) - 1) / (mma ? ITEM_COLS : CC_COLS);
+  a.tiles_a = (i + BOX - 1) / BOX;              // 128 columns of I
+  a.tiles_b = (d + ITEM_COLS - 1) / ITEM_COLS;  // 256 columns of D
   a.n_a = n_a;
   a.run_a = run_a;
   a.n_b = n_b;
   a.run_b = run_b;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  // q1 / q3 as D rows of I bytes, q2 as I rows of D bytes, in boxes of 64
+  // rows x 128 bytes (past I or D: TMA's zeros); the fp32 route streams
+  // them too where their layout takes the boxes
+  const bool tma = mma || (d % 16 == 0 && i % 16 == 0 && d >= BOX && i >= BOX &&
+                           ld13 % 16 == 0 && ld2 % 16 == 0 && aligned16(q1) &&
+                           aligned16(q3) && aligned16(q2));
+  CUtensorMap m1, m3, m2;
+  if (tma) {
+    int e = fs::tma::encode_2d(&m1, CU_TENSOR_MAP_DATA_TYPE_UINT8, q1, i, d, ld13, BOX,
+                               STAGE_ROWS);
+    if (e == 0)
+      e = fs::tma::encode_2d(&m3, CU_TENSOR_MAP_DATA_TYPE_UINT8, q3, i, d, ld13, BOX,
+                             STAGE_ROWS);
+    if (e == 0)
+      e = fs::tma::encode_2d(&m2, CU_TENSOR_MAP_DATA_TYPE_UINT8, q2, d, i, ld2, BOX,
+                             STAGE_ROWS);
+    if (e != 0) return e;
+  } else {
+    std::memset(&m1, 0, sizeof(m1));
+    std::memset(&m3, 0, sizeof(m3));
+    std::memset(&m2, 0, sizeof(m2));
+  }
   if (!mma) {
-    int8_ffn_fp32_kernel<<<grid, THREADS, 0, st>>>(a);
+    const int vec13 = ld13 % 4 == 0 && reinterpret_cast<uintptr_t>(q1) % 4 == 0 &&
+                      reinterpret_cast<uintptr_t>(q3) % 4 == 0;
+    const int vec2 = ld2 % 4 == 0 && reinterpret_cast<uintptr_t>(q2) % 4 == 0;
+    const int run = run_a > run_b ? run_a : run_b;
+    switch (fs::i8f::rows_of(batch)) {
+#define FS_FP32(NB)                                                                     \
+  case NB:                                                                              \
+    if (tma)                                                                            \
+      int8_ffn_fp32_kernel<NB, true>                                                    \
+          <<<grid, THREADS, fs::i8f::smem_bytes<NB, 2, true>(run), st>>>(m1, m3, m2, a, \
+                                                                         vec13, vec2); \
+    else                                                                                \
+      int8_ffn_fp32_kernel<NB, false>                                                   \
+          <<<grid, THREADS, fs::i8f::smem_bytes<NB, 2, false>(run), st>>>(m1, m3, m2, a, \
+                                                                          vec13, vec2); \
+    break
+      FS_FP32(1); FS_FP32(8); FS_FP32(16); FS_FP32(32);
+#undef FS_FP32
+    }
     return (int)cudaGetLastError();
   }
-  // q1 / q3 as D rows of I bytes, q2 as I rows of D bytes, in boxes of 128
-  // rows x 128 bytes (past I or D: TMA's zeros)
-  CUtensorMap m1, m3, m2;
-  int e = fs::tma::encode_2d(&m1, CU_TENSOR_MAP_DATA_TYPE_UINT8, q1, i, d, ld13, BOX,
-                             STAGE_ROWS);
-  if (e == 0)
-    e = fs::tma::encode_2d(&m3, CU_TENSOR_MAP_DATA_TYPE_UINT8, q3, i, d, ld13, BOX,
-                           STAGE_ROWS);
-  if (e == 0)
-    e = fs::tma::encode_2d(&m2, CU_TENSOR_MAP_DATA_TYPE_UINT8, q2, d, i, ld2, BOX,
-                           STAGE_ROWS);
-  if (e != 0) return e;
   const size_t smem = mma_smem(batch);
   switch ((batch + 7) / 8) {
 #define FS_LAUNCH(NT)                                                          \

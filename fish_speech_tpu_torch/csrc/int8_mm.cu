@@ -56,9 +56,16 @@
 //   Each int8 value becomes bf16 exactly in registers (`Elem<T>::i8x2`). The
 //   four warps of a column half meet in shared memory in a fixed tree,
 //   in the fragments' own order (no bank conflicts).
-// * "gemv", fp32 x (the small fp32 models): CUDA cores, a thread per output
-//   column, x staged by 64-row chunks, the products in fp32.
-// "gemv_mma" and "gemv" split I into runs the same way: with one run a
+// * "gemv", fp32 x (the small fp32 models: JAX's `--tiny --int8`, the
+//   parity tool): `int8_gemv_fp32_kernel<NB, kTma>`, the products on the
+//   CUDA cores in fp32 (int8_fp32.cuh gives its design: NB rows of x a
+//   template parameter, four columns a lane from one 32-bit word, W
+//   through a TMA ring of 64-row boxes where its rows lie 16 bytes apart,
+//   x of the run in shared memory once, the warps' sums in a fixed tree).
+//   Its runs are its
+//   own plan's (`ops/int8.py:fp32_split`: runs of whole 64 rows, enough to
+//   cover the SMs where O's 128-column tiles do not).
+// "gemv_mma" and "gemv" merge their runs the same way: with one run a
 // block scales its sums
 // and writes y; otherwise each block writes its fp32 partial sums to a
 // workspace, publishes them with a release/acquire counter per column tile
@@ -76,6 +83,7 @@
 // same kernel with each stage copied by the block's threads.
 
 #include "common.cuh"
+#include "int8_fp32.cuh"
 #include "int8_mma.cuh"
 #include "tma.cuh"
 
@@ -93,9 +101,8 @@ constexpr int STAGE_BYTES = STAGE_ROWS * MMA_COLS;   // one TMA box
 constexpr int RING_BYTES = STAGES * STAGE_BYTES > 4 * 64 * 32 * 4
                                ? STAGES * STAGE_BYTES : 4 * 64 * 32 * 4;
 constexpr int XROW = STAGE_ROWS + 8;  // a stage's row of x, bf16: 68 words, 4 mod 32
-constexpr int GEMV_COLS = 256;        // fp32 kernel: columns per block
-constexpr int GEMV_CHUNK = 64;        // fp32 kernel: rows of x staged at once
 static_assert(STAGE_ROWS == 16 * WARPS, "a stage is two k16 steps per warp pair");
+static_assert(THREADS == fs::i8f::THREADS, "the fp32 kernel's block is this file's");
 
 using fs::i8::cp_async_arrive;
 using fs::i8::i8_fragment;
@@ -349,52 +356,120 @@ __global__ void __launch_bounds__(THREADS, NT == 1 ? 3 : 2)
                  &last_s);
 }
 
-// grid (ceil(O / GEMV_COLS), n_split): thread i of a block owns column
-// tile0 + i and sums its rows of the run for every row of x in fp32.
+// grid (ceil(O / 128), n_split): block (t, k) takes column tile t (lane l
+// of each warp columns 128 t + 4 l .. + 3) over run k of I, its eight warps
+// the run's rows in turn (int8_fp32.cuh), x of the run staged once; W
+// streams through the TMA ring (kTma) or straight from device memory (the
+// layouts a box cannot take: rows not 16 bytes apart, O under a box). The
+// warps' sums meet in a fixed tree, and warp 0 writes y (one run) or the
+// block's partial, the tile's last block adding the runs in order.
+template <int NB, bool kTma>
 __global__ void __launch_bounds__(THREADS)
-    int8_gemv_kernel(const float* __restrict__ x, const int8_t* __restrict__ q,
-                     const float* __restrict__ s, float* __restrict__ out,
-                     float* __restrict__ work, int* __restrict__ counters,
-                     int batch, int in_dim, int out_dim, int ldq, int run) {
-  __shared__ float xs[MAX_ROWS][GEMV_CHUNK];
+    int8_gemv_fp32_kernel(const __grid_constant__ CUtensorMap qmap,
+                          const float* __restrict__ x, const int8_t* __restrict__ q,
+                          const float* __restrict__ s, float* __restrict__ out,
+                          float* __restrict__ work, int* __restrict__ counters,
+                          int batch, int in_dim, int out_dim, int ldq, int run,
+                          int vec) {
+  namespace f = fs::i8f;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t full[f::STAGES];
   __shared__ int last_s;
-  const int tile0 = blockIdx.x * GEMV_COLS, col = tile0 + threadIdx.x;
-  const int ks = blockIdx.y, n_split = gridDim.y;
-  const int r0 = ks * run, r1 = min(in_dim, r0 + run);
-  float acc[MAX_ROWS];
+  uint8_t* ring = f::ring_base(smem_raw);
+  // x of the run, then the sums
+  float* xs = reinterpret_cast<float*>(kTma ? ring + f::STAGES * f::BOX_BYTES : smem_raw);
+  if (kTma) f::init_ring(full);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int tile0 = blockIdx.x * f::COLS, ks = blockIdx.y, n_split = gridDim.y;
+  const int r0 = ks * run, len = min(in_dim, r0 + run) - r0;
+  f::stage_x<NB, false>(xs, x, in_dim, batch, r0, len);
+  __syncthreads();
+  float acc[NB][4];
 #pragma unroll
-  for (int b = 0; b < MAX_ROWS; ++b) acc[b] = 0.f;
-  for (int c0 = r0; c0 < r1; c0 += GEMV_CHUNK) {
-    const int n = min(GEMV_CHUNK, r1 - c0);
-    __syncthreads();  // the previous chunk is done with xs
-    for (int idx = threadIdx.x; idx < batch * GEMV_CHUNK; idx += THREADS) {
-      const int b = idx / GEMV_CHUNK, j = idx % GEMV_CHUNK;
-      xs[b][j] = j < n ? x[(size_t)b * in_dim + c0 + j] : 0.f;
-    }
-    __syncthreads();
-    if (col < out_dim) {
-      for (int j = 0; j < n; ++j) {
-        const float w = (float)q[(size_t)(c0 + j) * ldq + col];
+  for (int b = 0; b < NB; ++b)
 #pragma unroll
-        for (int b = 0; b < MAX_ROWS; ++b)
-          if (b < batch) acc[b] = fmaf(xs[b][j], w, acc[b]);
+    for (int e = 0; e < 4; ++e) acc[b][e] = 0.f;
+  if constexpr (kTma) {
+    uint32_t seq = 0;
+    f::stream_item<NB, 1>(&qmap, tile0, nullptr, 0, r0, len, ring, full, seq, xs, 0,
+                          warp, WARPS, acc);
+  } else {
+    f::dot_rows<NB>(q + (size_t)r0 * ldq, ldq, out_dim, tile0 + 4 * lane, vec != 0, xs,
+                    len, warp, WARPS, acc);
+  }
+  __syncthreads();  // x is read: the sums take its place
+  f::reduce_warps<NB>(acc, xs, warp, WARPS);
+  if (warp == 0) {
+    float* part = work + (size_t)ks * batch * out_dim;
+#pragma unroll
+    for (int b = 0; b < NB; ++b) {
+      if (b >= batch) break;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = tile0 + 4 * lane + e;
+        if (col >= out_dim) break;
+        if (n_split == 1)
+          out[(size_t)b * out_dim + col] = acc[b][e] * s[col];
+        else
+          part[(size_t)b * out_dim + col] = acc[b][e];
       }
     }
   }
-  float* part = work + (size_t)ks * batch * out_dim;
-  if (col < out_dim) {
-#pragma unroll
-    for (int b = 0; b < MAX_ROWS; ++b) {
-      if (b >= batch) break;
-      if (n_split == 1)
-        out[(size_t)b * out_dim + col] = acc[b] * s[col];
-      else
-        part[(size_t)b * out_dim + col] = acc[b];
-    }
-  }
   if (n_split > 1)
-    finish_split(work, counters, s, out, batch, out_dim, tile0, GEMV_COLS, n_split,
+    finish_split(work, counters, s, out, batch, out_dim, tile0, f::COLS, n_split,
                  &last_s);
+}
+
+template <int NB, bool kTma>
+int launch_gemv_fp32(const CUtensorMap& qmap, const float* x, const int8_t* q,
+                     const float* s, float* out, float* work, int* counters, int batch,
+                     int in_dim, int out_dim, int ldq, int n_split, int run,
+                     cudaStream_t stream) {
+  namespace f = fs::i8f;
+  if (run > f::max_run<NB>()) return (int)cudaErrorInvalidValue;
+  static bool sized = false;  // one attribute call per instantiation
+  if (!sized) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        int8_gemv_fp32_kernel<NB, kTma>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        f::smem_bytes<NB, 1, kTma>(f::max_run<NB>()));
+    if (e != cudaSuccess) return (int)e;
+    sized = true;
+  }
+  // direct loads: 32-bit words where every row starts on a 4-byte boundary
+  const int vec = ldq % 4 == 0 && reinterpret_cast<uintptr_t>(q) % 4 == 0;
+  const dim3 grid((out_dim + f::COLS - 1) / f::COLS, n_split);
+  int8_gemv_fp32_kernel<NB, kTma><<<grid, THREADS, f::smem_bytes<NB, 1, kTma>(run), stream>>>(
+      qmap, x, q, s, out, work, counters, batch, in_dim, out_dim, ldq, run, vec);
+  return (int)cudaGetLastError();
+}
+
+// the fp32 kernel at B rows: NB's instantiation, by TMA where W's layout
+// takes 128-byte boxes of 64 rows
+int gemv_fp32(const float* x, const int8_t* q, const float* s, float* out, float* work,
+              int* counters, int batch, int in_dim, int out_dim, int ldq, int n_split,
+              int run, cudaStream_t stream) {
+  namespace f = fs::i8f;
+  CUtensorMap map;
+  const bool tma = ldq % 16 == 0 && reinterpret_cast<uintptr_t>(q) % 16 == 0 &&
+                   out_dim >= f::COLS;
+  if (tma) {
+    const int rc = fs::tma::encode_2d(&map, CU_TENSOR_MAP_DATA_TYPE_UINT8, q, out_dim,
+                                      in_dim, ldq, f::COLS, f::SR);
+    if (rc != 0) return rc;
+  } else {
+    std::memset(&map, 0, sizeof(map));
+  }
+  switch (f::rows_of(batch)) {
+#define FS_GEMV(NB)                                                                    \
+  case NB:                                                                             \
+    return tma ? launch_gemv_fp32<NB, true>(map, x, q, s, out, work, counters, batch, \
+                                            in_dim, out_dim, ldq, n_split, run, stream) \
+               : launch_gemv_fp32<NB, false>(map, x, q, s, out, work, counters, batch, \
+                                             in_dim, out_dim, ldq, n_split, run, stream)
+    FS_GEMV(1); FS_GEMV(8); FS_GEMV(16); FS_GEMV(32);
+#undef FS_GEMV
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 template <int NT, bool kTma, typename T>
@@ -623,16 +698,18 @@ int matmul(const void* x, const void* q, const void* s, void* out, int batch,
 // apart; s (O,) fp32; out (B, O) in `dtype`. Route "gemv_mma" takes bf16 or
 // fp16 x (`ops/int8.py` counts the fp16 launches as "gemv_mma_f16"), "gemv"
 // fp32 x. I is cut into n_split runs of `run` rows (a multiple of
-// STAGE_ROWS; `ops/int8.py:int8_gemv_split`), the last one shorter; with
-// n_split > 1 the kernels need work, n_split * B * O fp32 partials, and
-// counters, one int32 per column tile (ceil(O / 128) for "gemv_mma",
-// ceil(O / 256) for "gemv"), all 0 on entry (the kernels leave them 0).
+// STAGE_ROWS, `ops/int8.py:int8_gemv_split`, for "gemv_mma"; of 64 rows,
+// at most `fs::i8f::max_run`, `ops/int8.py:fp32_split`, for "gemv"), the
+// last one shorter; with n_split > 1 the kernels need work, n_split * B * O
+// fp32 partials, and counters, one int32 per 128-column tile, all 0 on
+// entry (the kernels leave them 0).
 extern "C" int fs_int8_matmul(const void* x, const void* q, const void* s,
                               void* out, void* work, void* counters, int batch,
                               int in_dim, int out_dim, int ldq, int dtype,
                               int route, int n_split, int run, void* stream) {
+  const int align = route == kRouteGemv ? fs::i8f::RUN_ALIGN : STAGE_ROWS;
   if (batch < 1 || batch > MAX_ROWS || in_dim < 1 || out_dim < 1 || ldq < out_dim ||
-      run < 1 || run % STAGE_ROWS || n_split < 1 ||
+      run < 1 || run % align || n_split < 1 ||
       (size_t)(n_split - 1) * run >= (size_t)in_dim ||
       (size_t)n_split * run < (size_t)in_dim ||
       (n_split > 1 && (work == nullptr || counters == nullptr)))
@@ -642,13 +719,9 @@ extern "C" int fs_int8_matmul(const void* x, const void* q, const void* s,
   float* wk = static_cast<float*>(work);
   int* cnt = static_cast<int*>(counters);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (route == kRouteGemv && dtype == fs::kFloat32) {
-    dim3 grid((out_dim + GEMV_COLS - 1) / GEMV_COLS, n_split);
-    int8_gemv_kernel<<<grid, THREADS, 0, st>>>(
-        static_cast<const float*>(x), qp, sp, static_cast<float*>(out), wk, cnt,
-        batch, in_dim, out_dim, ldq, run);
-    return (int)cudaGetLastError();
-  }
+  if (route == kRouteGemv && dtype == fs::kFloat32)
+    return gemv_fp32(static_cast<const float*>(x), qp, sp, static_cast<float*>(out), wk,
+                     cnt, batch, in_dim, out_dim, ldq, n_split, run, st);
   if (route != kRouteGemvMma || (dtype != fs::kBFloat16 && dtype != fs::kFloat16))
     return (int)cudaErrorInvalidValue;
   const bool f16 = dtype == fs::kFloat16;

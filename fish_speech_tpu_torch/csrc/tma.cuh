@@ -1,5 +1,5 @@
 // Tensor Memory Accelerator (TMA) loads of 2D and 3D tiles into shared memory,
-// for the split matvec and decode kernels (int4_mm.cu, flash_decode.cu), and
+// for the split matvec and decode kernels (int4_mm.cuh, flash_decode.cu), and
 // 1D bulk copies, for the fast-stack probe (faststack.cu), and the thread
 // block cluster's pieces (its barrier and its distributed shared memory),
 // for the int8 kernels (int8_mma.cuh).

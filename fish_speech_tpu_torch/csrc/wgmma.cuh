@@ -1,5 +1,5 @@
 // Building blocks of the port's Hopper tensor-core (wgmma) kernels:
-// `int4_wgmma_kernel` (int4_mm.cu) and the attention forward of
+// `int4_wgmma_kernel` (int4_mm.cuh) and the attention forward of
 // attn_wgmma.cuh (flash_train.cu, flash_prefill.cu).
 //
 // Shared-memory tiles are kept in the 128-byte swizzle: a tile is a stack

@@ -12,6 +12,8 @@ for CPU tensors only; for a CUDA tensor it launches the kernel or raises.
 
 q and the cache are bf16 (`decode_mma_kernel`), fp16 (the same kernel on
 fp16 operands, the `--half` serving path) or fp32 (`decode_kernel`). The
+16-bit kernels take heads 64 or 128 wide; the fp32 one also the tiny
+model's 32 (slow stack) and 16 (fast stack) (`HEAD_DIMS`). The
 tensor-core forms carry P as two terms of q's dtype, hi + lo (16
 significant bits in bf16, 22 in fp16), so the plain version keeps p in
 fp32. Each wrapper counts its launches in `.launches` and its fp16
@@ -54,6 +56,15 @@ SLICE_ALIGN = 16  # a slice's length is a multiple of this (csrc: SLICE_ALIGN)
 MAX_SPLIT = 64  # most blocks over one (batch row, KV head) (csrc: MAX_SPLIT)
 BLOCKS_PER_SM = 1  # blocks the split aims for at batch 1
 PARTIAL_HEAD = 2 * MAX_GROUP  # floats ahead of a slice's accumulator (csrc: ML)
+# head widths the kernels take, by q's dtype: the 16-bit (tensor-core)
+# kernels 64 and 128, the fp32 (CUDA-core) ones also the tiny model's 32
+# (slow stack) and 16 (fast stack); the int8 cache is only ever the slow
+# stack's, so its fp32 kernel takes 32 and not 16
+_WIDE = (64, 128)
+HEAD_DIMS = {torch.bfloat16: _WIDE, torch.float16: _WIDE,
+             torch.float32: (16, 32) + _WIDE}
+KV8_HEAD_DIMS = {torch.bfloat16: _WIDE, torch.float16: _WIDE,
+                 torch.float32: (32,) + _WIDE}
 
 
 def decode_split_count(s_len: int, n_kv: int, batch: int, n_sm: int) -> int:
@@ -147,12 +158,9 @@ def _check_starts(name, lengths, starts):
 
 
 def _check(q, k_all, v_all, layer, lengths, starts):
+    """What the kernels take; the device is checked last, so that the CPU
+    tests can hold the rest of the contract."""
     _check_starts("flash_decode_attention", lengths, starts)
-    if not (q.is_cuda and k_all.device == q.device and v_all.device == q.device
-            and lengths.device == q.device
-            and (starts is None or starts.device == q.device)):
-        raise ValueError("flash_decode_attention: q, k_all, v_all, lengths and "
-                         "starts must lie on one CUDA device")
     if (q.dtype not in DTYPE_CODES or k_all.dtype != q.dtype
             or v_all.dtype != q.dtype):
         raise TypeError(f"flash_decode_attention: bf16, fp16 or fp32 of one "
@@ -169,15 +177,21 @@ def _check(q, k_all, v_all, layer, lengths, starts):
                          f"does not match q {tuple(q.shape)}")
     if not 0 <= layer < n_layer:
         raise ValueError(f"flash_decode_attention: layer {layer} out of range")
-    if d not in (64, 128) or not 1 <= g <= MAX_GROUP:
-        raise ValueError(f"flash_decode_attention: D={d} not in (64, 128) or "
-                         f"G={g} not in [1, {MAX_GROUP}]")
+    if d not in HEAD_DIMS[q.dtype] or not 1 <= g <= MAX_GROUP:
+        raise ValueError(f"flash_decode_attention: D={d} not in "
+                         f"{HEAD_DIMS[q.dtype]} for {q.dtype} or G={g} not in "
+                         f"[1, {MAX_GROUP}]")
     if tuple(lengths.shape) != (b,):
         raise ValueError("flash_decode_attention: lengths must be (B,)")
     for name, x in (("q", q), ("k_all", k_all), ("v_all", v_all),
                     ("lengths", lengths)):
         if not x.is_contiguous():
             raise ValueError(f"flash_decode_attention: {name} must be contiguous")
+    if not (q.is_cuda and k_all.device == q.device and v_all.device == q.device
+            and lengths.device == q.device
+            and (starts is None or starts.device == q.device)):
+        raise ValueError("flash_decode_attention: q, k_all, v_all, lengths and "
+                         "starts must lie on one CUDA device")
     check_aligned("flash_decode_attention", q=q, k_all=k_all, v_all=v_all)
 
 
@@ -294,12 +308,9 @@ def decode_partial_kv8_reference(q, k_all, ks_all, v_all, vs_all, layer: int,
 
 
 def _check_kv8(q, k_all, ks_all, v_all, vs_all, layer, lengths, starts):
+    """What the int8-KV kernels take; the device is checked last, so that
+    the CPU tests can hold the rest of the contract."""
     _check_starts("flash_decode_attention_kv8", lengths, starts)
-    if not all(t.is_cuda and t.device == q.device
-               for t in (q, k_all, ks_all, v_all, vs_all, lengths,
-                         *(() if starts is None else (starts,)))):
-        raise ValueError("flash_decode_attention_kv8: every tensor must lie on "
-                         "one CUDA device")
     if (q.dtype not in DTYPE_CODES or k_all.dtype != torch.int8
             or v_all.dtype != torch.int8 or ks_all.dtype != torch.bfloat16
             or vs_all.dtype != torch.bfloat16):
@@ -318,9 +329,10 @@ def _check_kv8(q, k_all, ks_all, v_all, vs_all, layer, lengths, starts):
                          f"{tuple(k_all.shape)} does not match q {tuple(q.shape)}")
     if not 0 <= layer < n_layer:
         raise ValueError(f"flash_decode_attention_kv8: layer {layer} out of range")
-    if d not in (64, 128) or not 1 <= g <= MAX_GROUP:
-        raise ValueError(f"flash_decode_attention_kv8: D={d} not in (64, 128) "
-                         f"or G={g} not in [1, {MAX_GROUP}]")
+    if d not in KV8_HEAD_DIMS[q.dtype] or not 1 <= g <= MAX_GROUP:
+        raise ValueError(f"flash_decode_attention_kv8: D={d} not in "
+                         f"{KV8_HEAD_DIMS[q.dtype]} for {q.dtype} or G={g} not "
+                         f"in [1, {MAX_GROUP}]")
     if tuple(lengths.shape) != (b,):
         raise ValueError("flash_decode_attention_kv8: lengths must be (B,)")
     for name, x in (("q", q), ("k_all", k_all), ("ks_all", ks_all),
@@ -328,6 +340,11 @@ def _check_kv8(q, k_all, ks_all, v_all, vs_all, layer, lengths, starts):
         if not x.is_contiguous():
             raise ValueError(f"flash_decode_attention_kv8: {name} must be "
                              f"contiguous")
+    if not all(t.is_cuda and t.device == q.device
+               for t in (q, k_all, ks_all, v_all, vs_all, lengths,
+                         *(() if starts is None else (starts,)))):
+        raise ValueError("flash_decode_attention_kv8: every tensor must lie on "
+                         "one CUDA device")
     check_aligned("flash_decode_attention_kv8", q=q, k_all=k_all, v_all=v_all)
 
 

@@ -76,6 +76,12 @@ _DTYPE_ROUTES = {torch.float32: "cuda_cores", torch.bfloat16: "wgmma",
                  torch.float16: "wgmma_f16"}
 
 
+# head widths each route takes: the tensor-core kernels 64 and 128, the
+# fp32 CUDA-core kernel also the tiny model's 32 (its slow stack; the fast
+# stack never prefills)
+HEAD_DIMS = {"cuda_cores": (32, 64, 128), "wgmma": (64, 128), "wgmma_f16": (64, 128)}
+
+
 def _route(dtype: torch.dtype) -> str:
     """Which kernel `flash_prefill_attention` launches for `dtype`."""
     if dtype not in _DTYPE_ROUTES:
@@ -100,8 +106,10 @@ def _check(q, k, v, offsets):
                          f"does not match q {tuple(q.shape)}")
     if h % k.shape[2]:
         raise ValueError("flash_prefill_attention: H must be a multiple of Hkv")
-    if d not in (64, 128):
-        raise ValueError(f"flash_prefill_attention: head dim {d} not in (64, 128)")
+    dims = HEAD_DIMS[_route(q.dtype)]
+    if d not in dims:
+        raise ValueError(f"flash_prefill_attention: head dim {d} not in {dims} "
+                         f"for {q.dtype}")
     if tuple(offsets.shape) != (b,):
         raise ValueError("flash_prefill_attention: offsets must be (B,)")
     for name, x in (("q", q), ("k", k), ("v", v), ("offsets", offsets)):
@@ -115,7 +123,7 @@ def _check(q, k, v, offsets):
 
 def flash_prefill_attention(q, k, v, offsets):
     """Same contract as `flash_prefill_reference`; on CUDA tensors runs the
-    kernel of `_route(q.dtype)` (D in {64, 128}, any T)."""
+    kernel of `_route(q.dtype)` (D in its `HEAD_DIMS`, any T)."""
     if q.device.type == "cpu":
         return flash_prefill_reference(q, k, v, offsets)
     _check(q, k, v, offsets)
@@ -336,8 +344,10 @@ def _check_suffix(q, cache, layer, start):
                          f"{n_layer - 1}")
     if h % hkv:
         raise ValueError("flash_suffix_attention: H must be a multiple of Hkv")
-    if d not in (64, 128):
-        raise ValueError(f"flash_suffix_attention: head dim {d} not in (64, 128)")
+    dims = HEAD_DIMS[_route(q.dtype)]
+    if d not in dims:
+        raise ValueError(f"flash_suffix_attention: head dim {d} not in {dims} "
+                         f"for {q.dtype}")
     if kv8 and tuple(cache["ks"].shape) != tuple(k.shape[:4]):
         raise ValueError("flash_suffix_attention: ks/vs must be (L,B,S,Hkv)")
     tensors = dict(q=q, start=start, **cache)
@@ -351,7 +361,7 @@ def _check_suffix(q, cache, layer, start):
 
 def flash_suffix_attention(q, cache, layer: int, start):
     """Same contract as `flash_suffix_reference`; on CUDA tensors runs the
-    kernel of `_suffix_route` (D in {64, 128}; the caller keeps start + Ts
+    kernel of `_suffix_route` (D in `HEAD_DIMS` of q's dtype; the caller keeps start + Ts
     <= S). It reads keys [0, start + Ts) of the layer only: one launch,
     planned by `suffix_plan` on the tensor-core routes."""
     if q.device.type == "cpu":

@@ -7,13 +7,20 @@ Port of the Pallas TPU kernels `fish_speech_tpu/ops/pallas_attention_train.py`
 are tiled); they read the model's (B, T, H, D) layout directly, so there
 are no transposes.
 
-The forward and the backward each have two routes, picked by `_route` on
-the dtype, an explicit dispatch, not a fallback: bf16 goes to "wgmma", the
-tensor-core kernels (`train_fwd_wgmma_kernel`, `csrc/attn_wgmma.cuh`;
+The forward and the backward each have three routes, picked by `_route` on
+the dtype and the head dim, an explicit dispatch, not a fallback: bf16 at
+D in {64, 128} goes to "wgmma", the tensor-core kernels
+(`train_fwd_wgmma_kernel`, `csrc/attn_wgmma.cuh`;
 `train_bwd_dkdv_wgmma_kernel` and `train_bwd_dq_wgmma_kernel`,
 `csrc/attn_bwd_wgmma.cuh`), fp32 to "cuda_cores", the float32 kernels on
 the CUDA cores (`train_fwd_kernel`, `train_bwd_dkdv_kernel` and
-`train_bwd_dq_kernel`), which the small fp32 reference models use.
+`train_bwd_dq_kernel`), which the small fp32 reference models use, and
+bf16 at D = 32 (JAX's tiny model trained in bf16, the train CLI's default)
+to "cuda_cores_bf16", the same CUDA-core kernels on bf16 inputs, with fp32
+sums and one rounding of O, dQ, dK and dV (P and dS stay fp32, so they
+sit closer to the fp32 function than the plain version's bf16 P and dS).
+`HEAD_DIMS` lists the widths each route takes; any other raises before a
+launch.
 
 `flash_train_attention` is a `torch.autograd.Function`: its forward runs
 `flash_train_forward` and saves q, k, v, O and the fp32 row logsumexp; its
@@ -89,15 +96,20 @@ def flash_train_backward_reference(q, k, v, kvalid, o, lse, do):
     return dq.reshape(b, t, h, d).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-# fs_flash_train_fwd and fs_flash_train_bwd pick one by the dtype
-ROUTES = ("cuda_cores", "wgmma")
+# fs_flash_train_fwd and fs_flash_train_bwd pick one by the dtype and D
+ROUTES = ("cuda_cores", "wgmma", "cuda_cores_bf16")
+# head widths each route takes: the tensor-core kernels' 64-column
+# swizzled blocks take 64 and 128; the CUDA-core kernels also the tiny
+# model's 32, in fp32 and in bf16
+HEAD_DIMS = {"cuda_cores": (32, 64, 128), "wgmma": (64, 128),
+             "cuda_cores_bf16": (32,)}
 
 
-def _route(dtype: torch.dtype) -> str:
+def _route(dtype: torch.dtype, d: int) -> str:
     """Which kernels `flash_train_forward` and `flash_train_backward` launch
-    for `dtype`."""
+    for q/k/v of `dtype` and head dim `d`."""
     if dtype == torch.bfloat16:
-        return "wgmma"
+        return "cuda_cores_bf16" if d in HEAD_DIMS["cuda_cores_bf16"] else "wgmma"
     if dtype == torch.float32:
         return "cuda_cores"
     raise TypeError(f"flash_train: bf16 or fp32 q/k/v, got {dtype}")
@@ -119,8 +131,10 @@ def _check(q, k, v, kvalid, name="flash_train"):
                          f"{tuple(q.shape)}")
     if h % k.shape[2]:
         raise ValueError(f"{name}: H must be a multiple of Hkv")
-    if d not in (64, 128):
-        raise ValueError(f"{name}: head dim {d} not in (64, 128)")
+    dims = HEAD_DIMS[_route(q.dtype, d)]
+    if d not in dims:
+        raise ValueError(f"{name}: head dim {d} is taken by no route of "
+                         f"{q.dtype} (the routes' widths: {HEAD_DIMS})")
     if tuple(kvalid.shape) != (b, t):
         raise ValueError(f"{name}: kvalid must be (B, T)")
     for n, x in (("q", q), ("k", k), ("v", v), ("kvalid", kvalid)):
@@ -149,12 +163,12 @@ def _check_backward(q, k, v, kvalid, o, lse, do):
 
 def flash_train_forward(q, k, v, kvalid):
     """Same contract as `flash_train_forward_reference`; on CUDA tensors runs
-    the forward kernel of `_route(q.dtype)` (D in {64, 128}, any T). kvalid
-    is (B, T) int32, nonzero where the key is real."""
+    the forward kernel of `_route(q.dtype, D)` (D in its `HEAD_DIMS`, any
+    T). kvalid is (B, T) int32, nonzero where the key is real."""
     if q.device.type == "cpu":
         return flash_train_forward_reference(q, k, v, kvalid)
     _check(q, k, v, kvalid, "flash_train_forward")
-    route = _route(q.dtype)
+    route = _route(q.dtype, q.shape[-1])
     if route == "wgmma":
         check_aligned("flash_train_forward", q=q, k=k, v=v)
     lib = load_kernels()
@@ -174,13 +188,13 @@ def flash_train_forward(q, k, v, kvalid):
 
 def flash_train_backward(q, k, v, kvalid, o, lse, do):
     """Same contract as `flash_train_backward_reference`; on CUDA tensors
-    runs the dK/dV and dQ kernels of `_route(q.dtype)` (one launch of the
-    pair counts once)."""
+    runs the dK/dV and dQ kernels of `_route(q.dtype, D)` (one launch of
+    the pair counts once)."""
     if q.device.type == "cpu":
         return flash_train_backward_reference(q, k, v, kvalid, o, lse, do)
     _check_backward(q, k, v, kvalid, o, lse, do)
     b, t, h, d = q.shape
-    route = _route(q.dtype)
+    route = _route(q.dtype, d)
     if route == "wgmma":
         check_aligned("flash_train_backward", q=q, k=k, v=v, do=do)
     lib = load_kernels()

@@ -11,8 +11,9 @@ Port of the Pallas TPU kernel `fish_speech_tpu/ops/pallas_int4.py`
 
 and a group never straddles the half split: (I/2) % g == 0.
 
-The kernels are hand-written CUDA for Hopper (`csrc/int4_mm.cu`). The
-wrapper picks one of three routes by x's rows B and dtype (`_route`), an
+The kernels are hand-written CUDA for Hopper (`csrc/int4_mm.cuh`,
+compiled per dtype by `int4_mm{,_bf16,_f16}.cu`). The wrapper picks one
+of three routes by x's rows B and dtype (`_route`), an
 explicit dispatch, not a fallback:
 
   * "gemv", B <= 8: a split-K matrix-vector kernel, one launch a product:

@@ -23,7 +23,10 @@ a 128-column tile's runs of I are the blocks of one thread block cluster,
 memory), "gemv_mma" for bf16 x of 1-16 rows (the weight streamed by TMA,
 mma.sync; runs of I from `int8_gemv_split`, their partials added in run
 order in the same launch), "gemv" for fp32 x (the CUDA cores; the small
-fp32 models). fp16 x (`--half` serving) takes the two tensor-core kernels
+fp32 models: `int8_gemv_fp32_kernel<NB, kTma>`, NB rows of x in {1, 8,
+16, 32}, four columns a lane, W by TMA where its rows lie 16 bytes apart,
+runs of I from `fp32_split`, their partials added in run order in the
+same launch). fp16 x (`--half` serving) takes the two tensor-core kernels
 on fp16 operands, counted as "gemv_cluster_f16" and "gemv_mma_f16". q may
 be a view whose rows lie further apart than O bytes (its column stride
 must be 1).
@@ -48,7 +51,7 @@ MAX_ROWS = 32  # rows of x the kernels take (ops/quant.py sends more to torch)
 # their own entry points, fs_int8_matmul_cluster and _cluster_f16
 ROUTES = ("gemv_mma", "gemv", "gemv_cluster", "gemv_mma_f16", "gemv_cluster_f16")
 CLUSTER_ROWS = 17  # bf16 rows of x from which the cluster kernel runs
-ROUTE_COLS = {"gemv_mma": 128, "gemv": 256, "gemv_mma_f16": 128}  # columns a block
+ROUTE_COLS = {"gemv_mma": 128, "gemv": 128, "gemv_mma_f16": 128}  # columns a block
 STAGE_ROWS = 128  # rows of q per stage: a run is whole stages
 BLOCKS_PER_SM = 2  # blocks the split aims for
 MAX_SPLIT = 64  # most runs I is cut into
@@ -56,6 +59,16 @@ _ROUTE_CODES = {"gemv_mma": 0, "gemv": 1, "gemv_mma_f16": 0}
 TILE_COLS = 128  # "gemv_cluster": output columns of a cluster, one TMA box of q
 CLUSTER_STAGE_ROWS = 64  # "gemv_cluster": rows of q per stage, a run is whole stages
 CLUSTERS = (1, 2, 4, 8)  # blocks of a cluster (runs of a tile) the kernel takes
+# the fp32 kernels of the matvec ("gemv") and of the fused FFN
+# ("cuda_cores", ops/int8_ffn.py), csrc/int8_fp32.cuh: runs of whole
+# FP32_RUN_ALIGN rows, at most FP32_MAX_RUN[NB] (x of a run stays in shared
+# memory once), none shorter than FP32_MIN_RUN unless I is; the matvec aims
+# its items at FP32_BLOCKS_PER_SM a streaming multiprocessor
+FP32_ROWS = (1, 8, 16, 32)  # the kernels' instantiations: NB rows of x
+FP32_RUN_ALIGN = 64
+FP32_MIN_RUN = 128
+FP32_MAX_RUN = {1: 4096, 8: 1024, 16: 512, 32: 256}
+FP32_BLOCKS_PER_SM = 2
 
 
 @functools.lru_cache(maxsize=None)
@@ -83,6 +96,31 @@ def int8_gemv_split(route: str, b: int, i: int, o: int, n_sm: int):
         if best is None or cost < best[0]:
             best = (cost, n, per)
     return best[1], best[2] * STAGE_ROWS
+
+
+def fp32_rows(b: int) -> int:
+    """NB, the rows of x of the fp32 kernels' instantiation that takes B
+    rows: B itself at 1, else the next of 8, 16, 32 (the padding rows 0)."""
+    return next(n for n in FP32_ROWS if n >= b)
+
+
+@functools.lru_cache(maxsize=None)
+def fp32_split(tiles: int, rows: int, b: int, want: int):
+    """(n, run): the fp32 kernels cut `rows` into n runs of `run` rows,
+    [k run, min(rows, (k + 1) run)), run a multiple of FP32_RUN_ALIGN and at
+    most FP32_MAX_RUN at B rows. With `tiles` column tiles, the runs make
+    about `want` items where the tiles alone are fewer: n = ceil(want /
+    tiles), but no run shorter than FP32_MIN_RUN (a short run's merge costs
+    more than its rows: the tiny model's products are one run), none
+    longer than FP32_MAX_RUN, and at most MAX_SPLIT runs."""
+    most = FP32_MAX_RUN[fp32_rows(b)]
+    n_min = -(-rows // most)
+    if n_min > MAX_SPLIT:
+        raise ValueError(f"fp32 int8 kernels: {rows} rows at B={b} need {n_min} "
+                         f"runs of at most {most}; they take {MAX_SPLIT}")
+    n = max(n_min, min(max(1, rows // FP32_MIN_RUN), -(-want // tiles), MAX_SPLIT))
+    run = -(-(-(-rows // n)) // FP32_RUN_ALIGN) * FP32_RUN_ALIGN
+    return -(-rows // run), run
 
 
 @functools.lru_cache(maxsize=None)
@@ -194,6 +232,9 @@ def _plan(x, q, s):
         cluster = route.startswith("gemv_cluster")
         if cluster:
             n_split, run = int8_gemv_plan(b, i, o, sm_count(x.device))
+        elif route == "gemv":
+            n_split, run = fp32_split(-(-o // ROUTE_COLS[route]), i, b,
+                                      FP32_BLOCKS_PER_SM * sm_count(x.device))
         else:
             n_split, run = int8_gemv_split(route, b, i, o, sm_count(x.device))
         work = counters = 0  # NULL: one run, or the cluster kernel

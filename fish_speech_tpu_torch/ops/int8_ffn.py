@@ -24,7 +24,10 @@ runs phase A (u1, u3 and the gate into g), a grid barrier, and phase B (g
 an explicit dispatch, not a fallback: "mma" for bf16 x (the tensor cores,
 the weights streamed by TMA), "mma_f16" for fp16 x (`--half` serving: the
 same kernel on fp16 operands, g and y rounded to fp16), "cuda_cores" for
-fp32 x (the small fp32 models). It reads the weights as the session holds them: w13's halves are
+fp32 x (the small fp32 models: `int8_ffn_fp32_kernel<NB, kTma>`, the
+mma route's items on the CUDA cores, the weights by TMA where their layout
+takes 128-byte boxes, runs from `ops/int8.py:fp32_split`; with one run of
+D a block gates its own u1 and u3). It reads the weights as the session holds them: w13's halves are
 views, w13 and w2 row-major; nothing is repacked or copied.
 
 `int8_ffn_reference` is the plain version; the wrapper runs it for CPU
@@ -42,13 +45,15 @@ import torch
 from fish_speech_tpu_torch.ops._kernels import (DTYPE_CODES, check_aligned,
                                                  check_launch, load_kernels,
                                                  scratch, stream_ptr)
+from fish_speech_tpu_torch.ops.int8 import fp32_split
 
 MAX_ROWS = 32  # rows of x the kernels take (`models/dual_ar.py:_ffn` keeps more in torch)
 ROUTES = ("mma", "cuda_cores", "mma_f16")  # route codes of fs_int8_ffn
 # columns of I (phase A) and of D (phase B) an item covers, by route: the
 # mma route's phase A item is a 128-column box of q1 and one of q3, its
-# phase B item two boxes of q2; the CUDA-core kernel a column per thread
-ITEM_COLS = {"mma": (128, 256), "cuda_cores": (256, 256), "mma_f16": (128, 256)}
+# phase B item two boxes of q2; the CUDA-core kernel's items are the same
+# boxes (each 128 columns, 32 lanes of four, taken by four warps)
+ITEM_COLS = {"mma": (128, 256), "cuda_cores": (128, 256), "mma_f16": (128, 256)}
 STAGE_ROWS = 64  # weight rows per stage of the mma route (`csrc/int8_ffn.cu`)
 STAGE_BYTES = 2 * STAGE_ROWS * 128  # two TMA boxes
 ITEM_SUMS = 256  # fp32 sums of an mma item per row of x: u1 | u3 of 128 columns, or 256 of y
@@ -98,11 +103,15 @@ def _phase_split(tiles: int, rows: int, b: int, sums: int, n_blocks: int):
 @functools.lru_cache(maxsize=None)
 def int8_ffn_plan(route: str, b: int, d: int, i: int, n_blocks: int) -> FfnPlan:
     """The plan of a launch over B rows, D, I on a card that holds
-    `n_blocks` blocks at once. "cuda_cores" takes each phase in one run."""
+    `n_blocks` blocks at once. "cuda_cores" cuts each phase by
+    `ops/int8.py:fp32_split`, aiming at half the blocks the card holds (so
+    that every item's block has a neighbour streaming on its SM)."""
     cols_a, cols_b = ITEM_COLS[route]
     tiles_a, tiles_b = -(-i // cols_a), -(-d // cols_b)
     if route == "cuda_cores":
-        n_a, run_a, n_b, run_b = 1, d, 1, i
+        want = max(1, n_blocks // 2)
+        n_a, run_a = fp32_split(tiles_a, d, b, want)
+        n_b, run_b = fp32_split(tiles_b, i, b, want)
     else:
         n_a, run_a = _phase_split(tiles_a, d, b, 2 * i, n_blocks)
         n_b, run_b = _phase_split(tiles_b, i, b, d, n_blocks)
@@ -113,7 +122,7 @@ def int8_ffn_plan(route: str, b: int, d: int, i: int, n_blocks: int) -> FfnPlan:
 def workspace_floats(plan: FfnPlan, b: int, d: int, i: int, dtype: torch.dtype) -> int:
     """fp32 words of the kernel's workspace: g (B x I in x's dtype, whole
     16-byte words), then phase A's partials (n_a x B x 2I) and phase B's
-    (n_b x B x D); the "cuda_cores" route uses g only."""
+    (n_b x B x D); a phase of one run leaves its partials unused."""
     esize = torch.tensor([], dtype=dtype).element_size()
     return -(-b * i * esize // 16) * 4 + plan.n_a * b * 2 * i + plan.n_b * b * d
 
@@ -149,7 +158,7 @@ def int8_ffn_reference(x, w13, w2):
 
 
 def int8_ffn_partials_reference(x, w13, w2, plan: FfnPlan):
-    """The mma route's per-run fp32 partial sums, unscaled: phase A's
+    """Both routes' per-run fp32 partial sums, unscaled: phase A's
     (n_a, B, 2I), u1 | u3 over D's run k, and phase B's (n_b, B, D) over
     I's run k, from the g that phase A's partials give added in run order.
     Returns (part_a, g, part_b); part_b added in run order, times s2 and

@@ -16,7 +16,7 @@ on CUDA tensors and its plain version on the CPU; more rows (the prefill's
 layer products) stay `x @ q.to(dtype) * s.to(dtype)` in torch, as the JAX
 package leaves them to XLA. `mm.launches_int8_matmul` and
 `mm.launches_int8_cast` count the int8 products by route. The int4 product
-runs the hand-written kernel `ops/int4.py` (`csrc/int4_mm.cu`) on CUDA
+runs the hand-written kernel `ops/int4.py` (`csrc/int4_mm.cuh`) on CUDA
 tensors and the unpacked reference weight on the CPU. The quantizers give
 results bitwise equal to the JAX package's (the tests hold them to it).
 """

@@ -5,8 +5,8 @@
 
 It serves on the card (`cuda:0`) and fails where there is none; `--cpu`
 is the only way to the CPU. `--tiny` starts with random tiny models (no
-checkpoint needed; the LM's heads 64 wide, which the kernels take), for
-smoke tests and demos:
+checkpoint needed; the JAX server's `--tiny` model, heads 32 and 16
+wide, which the fp32 kernels take), for smoke tests and demos:
 
     python -m fish_speech_tpu_torch.server.main --tiny --cpu
 
@@ -59,8 +59,9 @@ def check_args(args, multihost: bool = False):
 def tiny_models(device):
     """(tokenizer, LM config, LM params, codec config, codec params) of the
     random tiny models, fp32 on `device`: the test tokenizer, `dual_ar_tiny`
-    with heads 64 wide (the narrowest the attention kernels take on the
-    card) and `dac_tiny`, from seeds 0 and 1."""
+    built with the JAX server's `--tiny` arguments (heads 32 wide in the
+    slow stack and 16 in the fast one, which the fp32 kernels take) and
+    `dac_tiny`, from seeds 0 and 1."""
     import torch
 
     from fish_speech_tpu_torch.config import dac_tiny, dual_ar_tiny
@@ -77,8 +78,6 @@ def tiny_models(device):
         im_end_id=tokenizer.im_end_id,
         codebook_size=4096,
         num_codebooks=dac_cfg.rvq.total_codebooks,
-        head_dim=64, n_head=4, n_local_heads=2, fast_head_dim=64,
-        fast_n_head=3, fast_n_local_heads=1,
     )
     return (tokenizer, cfg, init_dual_ar(0, cfg, dtype=torch.float32, device=device),
             dac_cfg, init_dac(1, dac_cfg, dtype=torch.float32, device=device))

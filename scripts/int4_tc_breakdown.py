@@ -3,7 +3,8 @@
 
     python3 scripts/int4_tc_breakdown.py
 
-Builds variants of `fish_speech_tpu_torch/csrc/int4_mm.cu` in which one or
+Builds variants of `fish_speech_tpu_torch/csrc/int4_mm.cuh` (with its C
+entry point's sources, `int4_mm{,_bf16,_f16}.cu`, in one file) in which one or
 two phases of `int4_wgmma_kernel` are compiled out (the cp.async copies of
 x, packed bytes and scales; the dequantization into A fragments; the
 wgmmas), times each on the slow stack's prefill shapes (B=1024, g=128)
@@ -24,12 +25,13 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
-# the function whose body each variant replaces, and with what: every
-# 16-byte cp.async (the stage's other bookkeeping stays), the
+# the function whose body each variant replaces, and with what: the
 # dequantization, the wgmmas (the fragments are folded into one
-# accumulator instead, so the compiler keeps the dequantization)
+# accumulator instead, so the compiler keeps the dequantization); the
+# copies are every 16-byte cp.async of `int4_mm.cuh` (`cp_async16`, which
+# lives in `wgmma.cuh`: its calls are put under a macro, so the stage's
+# other bookkeeping stays)
 PHASES = {
-    "copies": ("cp_async16", "return;"),
     "dequant": ("dequant_stage", "return;"),
     "wgmma": ("issue_wgmmas",
               "uint32_t s = 0;\n#pragma unroll\n  for (int f = 0; f < 32; ++f) "
@@ -43,16 +45,29 @@ SHAPES = [("slow wqkv", 2560, 6144), ("slow wo", 4096, 2560),
           ("slow w13", 2560, 19456), ("slow w2", 9728, 2560)]
 
 
+# the copies' stand-in: nothing under SKIP_COPIES, else the copy
+SKIP_COPIES = """#ifdef SKIP_COPIES
+#define skippable_cp_async16(dst, src, valid) ((void)0)
+#else
+#define skippable_cp_async16(dst, src, valid) cp_async16(dst, src, valid)
+#endif
+"""
+
+
 def _source() -> str:
-    """The kernel source with an early return, under a macro, at the top of
-    each phase's function."""
+    """The kernel source with the copies under a macro and an early return,
+    under a macro, at the top of each other phase's function."""
     csrc = ROOT / "fish_speech_tpu_torch" / "csrc"
-    src = (csrc / "int4_mm.cu").read_text().replace(
-        '#include "common.cuh"', f'#include "{csrc / "common.cuh"}"')
+    src = (csrc / "int4_mm.cuh").read_text()
+    if "cp_async16(" not in src:
+        raise SystemExit("cannot find the cp_async16 calls in int4_mm.cuh")
+    src = SKIP_COPIES + src.replace("cp_async16(", "skippable_cp_async16(")
+    for part in ("int4_mm.cu", "int4_mm_bf16.cu", "int4_mm_f16.cu"):
+        src += (csrc / part).read_text().replace('#include "int4_mm.cuh"', "")
     for phase, (fn, body) in PHASES.items():
         pattern = re.compile(r"(__device__[^;{]*\b" + fn + r"\([^;{]*\{)")
         if len(pattern.findall(src)) != 1:
-            raise SystemExit(f"cannot find the definition of {fn} in int4_mm.cu")
+            raise SystemExit(f"cannot find the definition of {fn} in int4_mm.cuh")
         src = pattern.sub(lambda m: m.group(1) + f"\n#ifdef SKIP_{phase.upper()}\n"
                           f"  {body}\n#endif\n", src)
     return src
@@ -67,7 +82,8 @@ def _build(out_dir: Path) -> dict:
     procs = {}
     for name, skipped in VARIANTS.items():
         lib = out_dir / (name.replace(" ", "_") + ".so")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-shared", "-o", str(lib), str(src),
+        cmd = [_nvcc(), *NVCC_FLAGS, "-shared", "-I",
+               str(ROOT / "fish_speech_tpu_torch" / "csrc"), "-o", str(lib), str(src),
                *(f"-DSKIP_{p.upper()}" for p in skipped)]
         procs[name] = (lib, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                              stderr=subprocess.STDOUT, text=True))

@@ -3,7 +3,8 @@
 `flash_train_forward`, `flash_train_backward` and `flash_prefill_attention`
 pick their kernels by dtype (`_route`): bf16 goes to the tensor-core
 kernels ("wgmma"), fp32 to the CUDA-core kernels ("cuda_cores"), anything
-else raises. Their checks (`_check`, `_check_backward`) raise on what the
+else raises; training's bf16 at head dim 32 (JAX's tiny model) goes to the
+CUDA-core kernels on bf16 inputs ("cuda_cores_bf16"). Their checks (`_check`, `_check_backward`) raise on what the
 kernels do not take before they look at the device, so the contract is
 held here without a card. The launch counters count per route and
 `reset_launches` zeroes them.
@@ -34,18 +35,25 @@ WRAPPERS = {"train": flash_train, "train_bwd": flash_train,
 def test_route_by_dtype(name):
     """bf16 "wgmma", fp32 "cuda_cores"; fp16 "wgmma_f16" for the prefill
     (`--half` serving) and a TypeError for training, which JAX runs in
-    neither fp16 nor under `--half`."""
+    neither fp16 nor under `--half`; training's bf16 at D=32
+    "cuda_cores_bf16" (the tensor-core kernels take D in {64, 128})."""
     mod = WRAPPERS[name]
     half = name == "prefill"
-    assert mod.ROUTES == ("cuda_cores", "wgmma") + (("wgmma_f16",) if half else ())
-    assert mod._route(torch.bfloat16) == "wgmma"
-    assert mod._route(torch.float32) == "cuda_cores"
+    d64 = () if half else (64,)  # training's route takes the head dim too
+    assert mod.ROUTES == ("cuda_cores", "wgmma") + (("wgmma_f16",) if half
+                                                    else ("cuda_cores_bf16",))
+    assert mod._route(torch.bfloat16, *d64) == "wgmma"
+    assert mod._route(torch.float32, *d64) == "cuda_cores"
     if half:
         assert mod._route(torch.float16) == "wgmma_f16"
+    else:
+        assert mod._route(torch.bfloat16, 32) == "cuda_cores_bf16"
+        assert mod._route(torch.float32, 32) == "cuda_cores"
+        assert mod._route(torch.bfloat16, 128) == "wgmma"
     for dtype in ((torch.float64, torch.int8) if half
                   else (torch.float16, torch.float64, torch.int8)):
         with pytest.raises(TypeError):
-            mod._route(dtype)
+            mod._route(dtype, *d64)
 
 
 def _args(name, b=1, t=8, h=4, hkv=2, d=128, dtype=torch.bfloat16, kdtype=None):
@@ -82,8 +90,15 @@ def test_check_takes_both_head_dims_and_wants_a_card(name, d, dtype):
 @pytest.mark.parametrize("name", sorted(WRAPPERS))
 @pytest.mark.parametrize("d", [32, 96, 256])
 def test_check_rejects_other_head_dims(name, d):
-    with pytest.raises(ValueError, match="head dim"):
-        _check(name, *_args(name, d=d))
+    # D=32 is JAX's tiny model's: the fp32 routes take it, and training's
+    # bf16 "cuda_cores_bf16"; the prefill's tensor-core routes do not, nor
+    # does any route take 8 or 48
+    for dd in ((8, 48) if d == 32 and name != "prefill" else (d,)):
+        with pytest.raises(ValueError, match="head dim"):
+            _check(name, *_args(name, d=dd))
+    if d == 32:
+        with pytest.raises(ValueError, match="CUDA device"):
+            _check(name, *_args(name, d=32, dtype=torch.float32))
 
 
 @pytest.mark.parametrize("name", sorted(WRAPPERS))

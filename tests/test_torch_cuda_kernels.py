@@ -15,7 +15,7 @@ kernel's and the plain version's roundings can land one step apart. The
 training backward's gradients are held to 1e-4 (fp32) or 2e-2 (bf16) of
 each tensor's largest magnitude.
 
-The int4 matmul (`csrc/int4_mm.cu`) has three routes (`ops/int4.py:
+The int4 matmul (`csrc/int4_mm.cuh`) has three routes (`ops/int4.py:
 _route`). fp32 x (matvec, fp32 tiled) uses the fp32 W: fp32 cases are held
 to 1e-5 of |x| @ |W| (summation order). Every bf16 case is held to one bf16
 rounding of W and of y, 2^-8 (|x| @ |W| + |y|), against both fp32-W plain
@@ -75,9 +75,25 @@ streamed request gives the same audio from device partials as from host
 partials, every codec call a replay.
 
 The checkpoint tools: a parity golden saved by `tools.parity_check --cpu`
-on a tiny fp32 checkpoint (heads of 64) passes the tool on the card, which
-launches the fp32 prefill, decode and training-forward kernels; the naive
-model's fp32 forward on the card is within 1e-4 of the CPU's.
+on a tiny fp32 checkpoint (heads of 64, and at JAX's tiny widths) passes
+the tool on the card, which launches the fp32 prefill, decode and
+training-forward kernels; the naive model's fp32 forward on the card is
+within 1e-4 of the CPU's (both widths).
+
+JAX's tiny widths (slow heads D=32, fast D=16, G=2): the fp32 decode at
+D=32 and 16 (with and without starts), the fp32 int8-KV decode, prefill
+and both suffix forms at D=32, the training pair at D=32 in fp32
+("cuda_cores") and bf16 ("cuda_cores_bf16", within the bf16 cases'
+bounds; autograd's gradients are the backward's), each against its plain
+version; other widths refused on card tensors. The lockstep batch at
+JAX's widths gives the CPU's columns, and the `--tiny` engine (plain and
+`--int8`) on the card gives the `--cpu` engine's greedy codes over prefix
+hits. The redesigned fp32 int8 matvec (`int8_gemv_fp32_kernel`: JAX's
+tiny products, the heads, split shapes, s2-pro's w2, byte loads at odd
+row strides) and fused FFN (`int8_ffn_fp32_kernel`: the tiny FFNs,
+s2-pro's, ragged ones) at B in {1, 4, 16, 32}: within 1e-5 of (|x| @ |q|)
+* s or of max |y|, one launch on their route, and two replays of a graph
+giving the eager call's bits.
 """
 
 import math
@@ -328,7 +344,7 @@ BWD_SHAPES = TRAIN_SHAPES + [
 def test_train_forward_kernel_matches_plain(dev, dtype, b, t, h, hkv, d, pads):
     rng = np.random.default_rng(t + h)
     q, k, v, kvalid, _ = _train_inputs(rng, b, t, h, hkv, d, pads, dtype, dev)
-    route = f"launches_{train_route(dtype)}"
+    route = f"launches_{train_route(dtype, d)}"
     n0, r0 = flash_train_forward.launches, getattr(flash_train_forward, route)
     o, lse = flash_train_forward(q, k, v, kvalid)
     torch.cuda.synchronize()
@@ -353,7 +369,7 @@ def test_train_backward_kernels_match_plain(dev, dtype, b, t, h, hkv, d, pads):
     rng = np.random.default_rng(t + d)
     q, k, v, kvalid, do = _train_inputs(rng, b, t, h, hkv, d, pads, dtype, dev)
     o, lse = flash_train_forward_reference(q, k, v, kvalid)
-    route = f"launches_{train_route(dtype)}"
+    route = f"launches_{train_route(dtype, d)}"
     n0, r0 = flash_train_backward.launches, getattr(flash_train_backward, route)
     got = flash_train_backward(q, k, v, kvalid, o, lse, do)
     torch.cuda.synchronize()
@@ -1732,12 +1748,26 @@ def test_decode_with_starts_launches_once_and_is_graph_capturable(dev, kv8):
     assert not torch.equal(captured, first)
 
 
-def _fp32_models(dev, quant):
-    """`_graph_cfg`'s model in fp32 on the CPU and the same weights on the
-    card."""
+def _jax_tiny_cfg():
+    """JAX's tiny model at its own widths (slow heads D=32, 2 over 1; fast
+    heads D=16, G=2) with `_graph_cfg`'s ten codebooks and vocabulary."""
+    from fish_speech_tpu_torch.config import dual_ar_tiny
+    from fish_speech_tpu_torch.tokenizer import build_test_tokenizer
+
+    tok = build_test_tokenizer()
+    return dual_ar_tiny(vocab_size=tok.vocab_size, num_codebooks=10,
+                        attention_qk_norm=True, tie_word_embeddings=False,
+                        semantic_begin_id=tok.semantic_begin_id,
+                        semantic_end_id=tok.semantic_end_id,
+                        im_end_id=tok.im_end_id)
+
+
+def _fp32_models(dev, quant, cfg=None):
+    """`_graph_cfg`'s model (or `cfg`) in fp32 on the CPU and the same
+    weights on the card."""
     from fish_speech_tpu_torch.models.dual_ar import init_dual_ar
 
-    cfg = _graph_cfg()
+    cfg = cfg or _graph_cfg()
     params = init_dual_ar(9, cfg, torch.float32, "cpu")
     return cfg, params, _tree_to(params, dev)
 
@@ -1748,10 +1778,21 @@ def test_graphed_generate_batch_equals_the_cpu_eager_bodies(dev, kv_quant):
     weights (plain or int8 cache): the card's graphs (`prefill_3_64`,
     `decode_3`, captured by `precompile`) give the columns the same bodies
     give eagerly on the CPU; every decode step on the card is a replay."""
+    _generate_batch_case(dev, kv_quant, _graph_cfg())
+
+
+@pytest.mark.parametrize("kv_quant", [False, True])
+def test_graphed_generate_batch_at_jax_tiny_widths(dev, kv_quant):
+    """The same at JAX's tiny widths: the decode kernels at D=32 (slow, the
+    fp32 cache or the int8 one) and D=16 (fast), per-row starts included."""
+    _generate_batch_case(dev, kv_quant, _jax_tiny_cfg())
+
+
+def _generate_batch_case(dev, kv_quant, cfg):
     from fish_speech_tpu_torch.config import SamplingConfig
     from fish_speech_tpu_torch.generate import GenerationSession
 
-    cfg, cpu_params, card_params = _fp32_models(dev, kv_quant)
+    cfg, cpu_params, card_params = _fp32_models(dev, kv_quant, cfg)
     prompts = [_graph_prompt(cfg, t, seed=t) for t in (37, 20, 29)]
     kw = dict(max_new_tokens=11, top_k=1)
     outs = {}
@@ -1801,13 +1842,47 @@ def test_device_partial_request_equals_a_host_partial_one(dev):
     assert not engine.codec_eager_runs and sum(engine.codec_replays.values()) > 2
 
 
-def _ckpt_tiny_cfg(tokenizer):
-    """A tiny fp32 model whose heads (D=64) the attention kernels take."""
+@pytest.mark.parametrize("int8", [False, True])
+def test_tiny_engine_on_the_card_gives_the_cpu_engines_codes(dev, int8, monkeypatch):
+    """`server.main --tiny` (JAX's tiny model, heads 32 and 16 wide), with
+    and without `--int8`: the card's engine (its graphs over the fp32
+    attention kernels at those widths, and under `--int8` the fp32 int8
+    matvec and fused FFN) gives the `--cpu` engine's greedy codes over a
+    voice's requests, the later two prefix-cache hits (the suffix at
+    D=32). Both serve the CPU's weights (a seed draws other weights on
+    the card's generator)."""
+    from fish_speech_tpu_torch.server import main as server
+
+    flags = ["--tiny", "--prefix-cache", "2"] + (["--int8"] if int8 else [])
+    n_ffn, n_mm = int8_ffn.launches_cuda_cores, int8_matmul.launches_gemv
+    tok, cfg, params, dac_cfg, dac_params = server.tiny_models("cpu")
+    monkeypatch.setattr(server, "tiny_models", lambda device: (
+        tok, cfg, _tree_to(params, device), dac_cfg, _tree_to(dac_params, device)))
+    sessions = [server.build_engine(server.parse_args(flags + extra)).session
+                for extra in ([], ["--cpu"])]
+    cfg = sessions[0].cfg
+    assert (cfg.head_dim, cfg.fast_head_dim) == (32, 16)
+    head = _graph_prompt(cfg, 140, seed=1)
+    prompts = [np.concatenate([head, _graph_prompt(cfg, n, seed=n)], axis=1)
+               for n in (12, 20, 9)]
+    runs = [[s.generate(p, s.new_generator(i), max_new_tokens=10, top_k=1)
+             for i, p in enumerate(prompts)] for s in sessions]
+    for got, want in zip(*runs):
+        np.testing.assert_array_equal(got, want)
+    assert [s.prefix_hits for s in sessions] == [2, 2]
+    if int8:
+        assert int8_ffn.launches_cuda_cores > n_ffn and int8_matmul.launches_gemv > n_mm
+
+
+def _ckpt_tiny_cfg(tokenizer, jax_widths=False):
+    """A tiny fp32 model with heads of D=64 (the earlier tiny model's), or
+    at JAX's tiny widths (slow D=32, fast D=16)."""
     from fish_speech_tpu_torch.config import dual_ar_tiny
 
-    return dual_ar_tiny(vocab_size=tokenizer.vocab_size, head_dim=64,
-                        n_head=4, n_local_heads=2, fast_head_dim=64,
-                        fast_n_head=3, fast_n_local_heads=1,
+    widths = {} if jax_widths else dict(head_dim=64, n_head=4, n_local_heads=2,
+                                        fast_head_dim=64, fast_n_head=3,
+                                        fast_n_local_heads=1)
+    return dual_ar_tiny(vocab_size=tokenizer.vocab_size, **widths,
                         attention_qk_norm=True, tie_word_embeddings=False,
                         semantic_begin_id=tokenizer.semantic_begin_id,
                         semantic_end_id=tokenizer.semantic_end_id,
@@ -1819,6 +1894,15 @@ def test_parity_golden_from_the_cpu_passes_on_the_card(dev, tmp_path):
     versions) on a tiny fp32 checkpoint with a codec passes on the card
     (the fp32 kernels), and the card run launched the fp32 prefill, decode
     and training-forward kernels."""
+    _parity_golden_case(tmp_path, False)
+
+
+def test_parity_golden_from_the_cpu_passes_on_the_card_at_jax_widths(dev, tmp_path):
+    """The same on a checkpoint at JAX's tiny widths (D=32 and 16)."""
+    _parity_golden_case(tmp_path, True)
+
+
+def _parity_golden_case(tmp_path, jax_widths):
     from click.testing import CliRunner
 
     from fish_speech_tpu_torch.config import dac_tiny
@@ -1830,7 +1914,7 @@ def test_parity_golden_from_the_cpu_passes_on_the_card(dev, tmp_path):
     from fish_speech_tpu_torch.utils.checkpoint import save_codec, save_dual_ar
 
     tokenizer = build_test_tokenizer()
-    cfg = _ckpt_tiny_cfg(tokenizer)
+    cfg = _ckpt_tiny_cfg(tokenizer, jax_widths)
     ckpt = tmp_path / "ckpt"
     save_dual_ar(ckpt, init_dual_ar(0, cfg, torch.float32, "cpu"), cfg, tokenizer)
     save_codec(ckpt, init_dac(1, dac_tiny(), device="cpu"), dac_tiny())
@@ -1857,12 +1941,22 @@ def test_naive_forward_on_the_card_matches_the_cpu(dev, padded):
     """`forward_train_naive` in fp32: the card (the training forward's
     CUDA-core kernel) within 1e-4 of the CPU's plain run on the same
     weights and inputs."""
+    _naive_forward_case(dev, padded, False)
+
+
+@pytest.mark.parametrize("padded", [False, True])
+def test_naive_forward_on_the_card_at_jax_widths(dev, padded):
+    """The same at JAX's tiny widths (the training forward at D=32)."""
+    _naive_forward_case(dev, padded, True)
+
+
+def _naive_forward_case(dev, padded, jax_widths):
     from fish_speech_tpu_torch.models.naive import (forward_train_naive,
                                                     init_naive)
     from fish_speech_tpu_torch.tokenizer import build_test_tokenizer
 
     tokenizer = build_test_tokenizer()
-    cfg = _ckpt_tiny_cfg(tokenizer)
+    cfg = _ckpt_tiny_cfg(tokenizer, jax_widths)
     params = init_naive(2, cfg, torch.float32, "cpu")
     rng = np.random.default_rng(4)
     inp = np.zeros((2, cfg.num_codebooks + 1, 150), np.int32)
@@ -2185,3 +2279,293 @@ def test_fp16_graphed_session_equals_its_eager_run(dev, kind):
     want = eager.generate(prompt, 1, max_new_tokens=11, top_k=1)
     np.testing.assert_array_equal(got, want)
     assert graphed.replays["decode"] > 0 and not eager.replays
+
+
+# ---------------------------------------------------------------------------
+# JAX's tiny model's widths (`dual_ar_tiny`: slow heads D=32, 2 over 1 KV
+# head; fast heads D=16, G=2): the fp32 attention kernels at D=32 and 16,
+# bf16 training at D=32 ("cuda_cores_bf16"), and the redesigned fp32 int8
+# matvec (`int8_gemv_fp32_kernel`) and fused FFN (`int8_ffn_fp32_kernel`)
+# ---------------------------------------------------------------------------
+
+# (n_layer, b, s, hkv, g, d, lengths): the tiny slow cache (max_seq_len 256
+# + a chunk), the fast cache (S = num_codebooks: 3 for dac_tiny's, 10), a
+# ragged batch, and D=16 over many positions (whole warps of eight rows)
+TINY_DECODE = [
+    (2, 1, 264, 1, 2, 32, [1]), (2, 1, 264, 1, 2, 32, [37]),
+    (2, 1, 264, 1, 2, 32, [264]), (2, 3, 264, 1, 2, 32, [5, 100, 264]),
+    (2, 1, 3, 1, 2, 16, [1]), (2, 1, 3, 1, 2, 16, [3]),
+    (2, 1, 10, 1, 2, 16, [7]), (2, 4, 10, 1, 2, 16, [1, 4, 9, 10]),
+    (1, 2, 700, 2, 4, 16, [700, 333]),
+]
+
+
+@pytest.mark.parametrize("n_layer,b,s,hkv,g,d,lengths", TINY_DECODE)
+def test_tiny_width_decode_matches_plain(dev, n_layer, b, s, hkv, g, d, lengths):
+    rng = np.random.default_rng(s + d + sum(lengths))
+    q = _randn(rng, (b, hkv, g, d), torch.float32, dev)
+    k = _randn(rng, (n_layer, b, s, hkv, d), torch.float32, dev)
+    v = _randn(rng, (n_layer, b, s, hkv, d), torch.float32, dev)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    for layer in range(n_layer):
+        n0 = flash_decode_attention.launches
+        got = flash_decode_attention(q, k, v, layer, lens)
+        torch.cuda.synchronize()
+        assert flash_decode_attention.launches == n0 + 1
+        _assert_close(got, flash_decode_reference(q, k, v, layer, lens), torch.float32)
+    # with starts: the lockstep batch's left pad
+    starts = torch.tensor([max(0, n - 5) for n in lengths], dtype=torch.int32, device=dev)
+    got = flash_decode_attention(q, k, v, 0, lens, starts)
+    torch.cuda.synchronize()
+    _assert_close(got, flash_decode_reference(q, k, v, 0, lens, starts), torch.float32)
+
+
+@pytest.mark.parametrize("b,s,g,lengths", [(1, 264, 2, [1]), (1, 264, 2, [200]),
+                                           (3, 264, 2, [5, 64, 264]),
+                                           (2, 1100, 4, [1100, 17])])
+def test_tiny_width_kv8_decode_matches_plain(dev, b, s, g, lengths):
+    rng = np.random.default_rng(s + sum(lengths))
+    q = _randn(rng, (b, 1, g, 32), torch.float32, dev)
+    k, ks = _kv_quant(_randn(rng, (2, b, s, 1, 32), torch.float32, dev))
+    v, vs = _kv_quant(_randn(rng, (2, b, s, 1, 32), torch.float32, dev))
+    lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    for layer in range(2):
+        n0 = flash_decode_attention_kv8.launches
+        got = flash_decode_attention_kv8(q, k, ks, v, vs, layer, lens)
+        torch.cuda.synchronize()
+        assert flash_decode_attention_kv8.launches == n0 + 1
+        _assert_close(got, flash_decode_kv8_reference(q, k, ks, v, vs, layer, lens),
+                      torch.float32)
+
+
+@pytest.mark.parametrize("b,t,h,hkv,offsets", [(1, 64, 2, 1, [0]), (2, 100, 2, 1, [0, 7]),
+                                               (1, 257, 4, 2, [30]), (2, 1000, 2, 1, [0, 129])])
+def test_tiny_width_prefill_matches_plain(dev, b, t, h, hkv, offsets):
+    rng = np.random.default_rng(t + h)
+    q = _randn(rng, (b, t, h, 32), torch.float32, dev)
+    k = _randn(rng, (b, t, hkv, 32), torch.float32, dev)
+    v = _randn(rng, (b, t, hkv, 32), torch.float32, dev)
+    off = torch.tensor(offsets, dtype=torch.int32, device=dev)
+    n0 = flash_prefill_attention.launches_cuda_cores
+    got = flash_prefill_attention(q, k, v, off)
+    torch.cuda.synchronize()
+    assert flash_prefill_attention.launches_cuda_cores == n0 + 1
+    _assert_close(got, flash_prefill_reference(q, k, v, off), torch.float32)
+
+
+@pytest.mark.parametrize("kv8", [False, True])
+@pytest.mark.parametrize("start,ts", [(0, 64), (151, 64), (37, 130), (255, 1)])
+def test_tiny_width_suffix_matches_plain(dev, kv8, start, ts):
+    """The fp32 suffix (the prefix cache's hit on JAX's tiny model) at D=32
+    over both caches; a graph replayed at another start gives that start's
+    output."""
+    from fish_speech_tpu_torch.ops import flash_prefill as fp
+
+    cache = _suffix_cache(dev, kv8, torch.float32, hkv=1, d=32, seed=start + ts)
+    rng = np.random.default_rng(ts)
+    q = torch.from_numpy(rng.normal(size=(2, ts, 2, 32))).to(dev, torch.float32)
+    st = torch.tensor([start], dtype=torch.int32, device=dev)
+    fp.reset_launches()
+    got = fp.flash_suffix_attention(q, cache, 1, st)
+    torch.cuda.synchronize()
+    route = fp._suffix_route(torch.float32, kv8)
+    assert getattr(fp.flash_suffix_attention, f"launches_{route}") == 1
+    want = fp.flash_suffix_reference(q, cache, 1, st)
+    assert float((got - want).abs().max()) <= 1e-4
+    graph = torch.cuda.CUDAGraph()
+    out = {}
+    with torch.cuda.graph(graph):
+        out["y"] = fp.flash_suffix_attention(q, cache, 1, st)
+    st.fill_(max(start - 17, 0))
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out["y"], fp.flash_suffix_attention(q, cache, 1, st))
+
+
+TINY_TRAIN = [(2, 100, 2, 1, 32, [0, 7]), (1, 130, 2, 1, 32, [3]),
+              (2, 600, 4, 2, 32, [0, 50]), (1, 64, 8, 2, 32, [0])]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,t,h,hkv,d,pads", TINY_TRAIN)
+def test_tiny_width_training_kernels_match_plain(dev, dtype, b, t, h, hkv, d, pads):
+    """The training forward and backward at D=32: fp32 on "cuda_cores",
+    bf16 on "cuda_cores_bf16" (the CUDA-core kernels on bf16 inputs, fp32
+    P and dS, where the plain version rounds them to bf16: within the
+    bounds of the bf16 cases above)."""
+    rng = np.random.default_rng(t + h + 32)
+    q, k, v, kvalid, do = _train_inputs(rng, b, t, h, hkv, d, pads, dtype, dev)
+    route = train_route(dtype, d)
+    assert route == ("cuda_cores" if dtype == torch.float32 else "cuda_cores_bf16")
+    counter = f"launches_{route}"
+    f0, b0 = getattr(flash_train_forward, counter), getattr(flash_train_backward, counter)
+    o, lse = flash_train_forward(q, k, v, kvalid)
+    grads = flash_train_backward(q, k, v, kvalid, o, lse, do)
+    torch.cuda.synchronize()
+    assert getattr(flash_train_forward, counter) == f0 + 1
+    assert getattr(flash_train_backward, counter) == b0 + 1
+    want_o, want_lse = flash_train_forward_reference(q, k, v, kvalid)
+    err = (o.float() - want_o.float()).abs()
+    if dtype == torch.float32:
+        assert err.max().item() <= 1e-4
+    else:
+        assert (err <= 2e-2 + 2 ** -7 * want_o.float().abs()).all(), err.max().item()
+        assert err.mean().item() <= 2e-3
+    assert (lse - want_lse).abs().max().item() <= 1e-4
+    want = flash_train_backward_reference(q, k, v, kvalid, o, lse, do)
+    for g, w in zip(grads, want):
+        assert g.dtype == dtype and torch.isfinite(g.float()).all()
+        e = (g.float() - w.float()).abs().max().item()
+        bound = 1e-4 if dtype == torch.float32 else 2e-2
+        assert e <= bound * max(1.0, w.float().abs().max().item()), e
+    # through autograd: the function's gradients are the backward's
+    qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
+    flash_train_attention(qg, kg, vg, kvalid).backward(do)
+    for got, g in zip((qg.grad, kg.grad, vg.grad), grads):
+        assert torch.equal(got, g)
+
+
+def test_tiny_width_wrappers_refuse_other_widths_on_the_card(dev):
+    """D=8 and 48 raise on card tensors before a launch; the 16-bit
+    attention routes refuse the tiny widths (their tensor-core kernels take
+    64 and 128)."""
+    from fish_speech_tpu_torch.ops import flash_prefill as fp
+
+    n0 = flash_decode_attention.launches
+    for d, dtype in ((8, torch.float32), (48, torch.float32), (32, torch.bfloat16),
+                     (16, torch.float16)):
+        q = torch.zeros(1, 1, 2, d, dtype=dtype, device=dev)
+        kv = torch.zeros(1, 1, 8, 1, d, dtype=dtype, device=dev)
+        with pytest.raises(ValueError, match="D="):
+            flash_decode_attention(q, kv, kv, 0, torch.ones(1, dtype=torch.int32, device=dev))
+    assert flash_decode_attention.launches == n0
+    for d in (8, 16, 48):
+        x = torch.zeros(1, 8, 2, d, device=dev)
+        with pytest.raises(ValueError, match="head dim"):
+            flash_prefill_attention(x, x[:, :, :1].contiguous(), x[:, :, :1].contiguous(),
+                                    torch.zeros(1, dtype=torch.int32, device=dev))
+        with pytest.raises(ValueError, match="head dim"):
+            flash_train_forward(x, x, x, torch.ones(1, 8, dtype=torch.int32, device=dev))
+    cache = _suffix_cache(dev, False, torch.bfloat16, hkv=1, d=32)
+    with pytest.raises(ValueError, match="head dim"):
+        fp.flash_suffix_attention(torch.zeros(2, 4, 2, 32, dtype=torch.bfloat16, device=dev),
+                                  cache, 0, torch.zeros(1, dtype=torch.int32, device=dev))
+
+
+# the fp32 int8 products of JAX's tiny model as `--tiny --int8` serves it
+# (I, O, layout): slow wqkv, wo, w13 (fused), w2; fast wqkv, wo, w13, w2;
+# the semantic head (4097 columns, rows 16 bytes apart) and the fast head;
+# the output head of an untied tiny model (O = the test tokenizer's 4364);
+# then shapes that split (few tiles over a long I) and a row stride that is
+# not a multiple of 4 (byte loads)
+TINY_INT8 = [(64, 128, "contiguous"), (64, 64, "contiguous"), (64, 256, "contiguous"),
+             (128, 64, "contiguous"), (32, 64, "contiguous"), (32, 32, "contiguous"),
+             (32, 128, "contiguous"), (64, 32, "contiguous"), (64, 4097, "padded"),
+             (32, 4096, "contiguous"), (64, 4364, "contiguous"), (2560, 200, "contiguous"),
+             (4096, 130, "contiguous"), (9728, 2560, "contiguous"), (300, 4097, "contiguous")]
+
+
+@pytest.mark.parametrize("i,o,layout", TINY_INT8)
+def test_fp32_int8_matvec_matches_plain(dev, i, o, layout):
+    """`int8_gemv_fp32_kernel` at B in {1, 4, 16, 32} (NB = 1, 8, 16, 32):
+    within 1e-5 of (|x| @ |q|) * s of the exact product, one launch on
+    "gemv", and a graph of the call replayed twice gives the same bits."""
+    rng = np.random.default_rng(i + o)
+    q, s = _int8_weight(i, o, layout, i * o + 1, dev)
+    qf = q.float()
+    for b in (1, 4, 16, 32):
+        x = _randn(rng, (b, i), torch.float32, dev)
+        n0 = int8_matmul.launches_gemv
+        got = int8_matmul(x, q, s)
+        torch.cuda.synchronize()
+        assert int8_matmul.launches_gemv == n0 + 1
+        exact = (x @ qf) * s
+        scale = (x.abs() @ qf.abs()) * s
+        err = (got - exact).abs()
+        assert bool((err <= 1e-5 * scale + 1e-6).all()), (b, err.max().item())
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            captured = int8_matmul(x, q, s)
+        graph.replay()
+        torch.cuda.synchronize()
+        first = captured.clone()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(first, captured) and torch.equal(first, got)
+
+
+def test_fp32_int8_matvec_byte_loads(dev):
+    """W's rows 4099 bytes apart (a view: no row but the first on a 4-byte
+    boundary) take the kernel's byte loads: the same sums."""
+    rng = np.random.default_rng(5)
+    gen = torch.Generator().manual_seed(5)
+    buf = torch.randint(-127, 128, (64, 4099), generator=gen, dtype=torch.int8).to(dev)
+    q, s = buf[:, :4097], (torch.rand(4097, generator=gen) * 0.02 + 0.001).to(dev)
+    for b in (1, 4):
+        x = _randn(rng, (b, 64), torch.float32, dev)
+        got = int8_matmul(x, q, s)
+        exact = (x @ q.float()) * s
+        scale = (x.abs() @ q.float().abs()) * s
+        assert bool(((got - exact).abs() <= 1e-5 * scale + 1e-6).all())
+
+
+# the fp32 FFNs (D, I): JAX's tiny slow and fast stacks, s2-pro's slow and
+# fast (both phases split), and a ragged I
+TINY_FFN = [(64, 128), (32, 64), (2560, 9728), (1536, 6144), (384, 640), (128, 400)]
+
+
+@pytest.mark.parametrize("d,i", TINY_FFN)
+def test_fp32_int8_ffn_matches_plain(dev, d, i):
+    """`int8_ffn_fp32_kernel` at B in {1, 4, 16, 32}: within 1e-5 of max
+    |y| of the plain version, one launch on "cuda_cores", the (w1, w3)
+    form the same bits, and a graph of the call replayed twice the same
+    bits as the eager call."""
+    rng = np.random.default_rng(d + i)
+    w13, w2 = _ffn_weights(d, i, d * i + 1, dev)
+    pair = ({"q": w13["q"][:, :i].contiguous(), "s": w13["s"][:i].contiguous()},
+            {"q": w13["q"][:, i:].contiguous(), "s": w13["s"][i:].contiguous()})
+    for b in (1, 4, 16, 32):
+        x = _randn(rng, (b, d), torch.float32, dev)
+        n0 = int8_ffn.launches_cuda_cores
+        got = int8_ffn(x, w13, w2)
+        torch.cuda.synchronize()
+        assert int8_ffn.launches_cuda_cores == n0 + 1
+        assert bool(torch.isfinite(got).all())
+        _ffn_close(got, int8_ffn_reference(x, w13, w2), torch.float32)
+        assert torch.equal(int8_ffn(x, pair, w2), got)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            captured = int8_ffn(x, w13, w2)
+        graph.replay()
+        torch.cuda.synchronize()
+        first = captured.clone()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(first, captured) and torch.equal(first, got)
+
+
+@pytest.mark.parametrize("b", [1, 16, 32])
+def test_fp32_int8_ffn_direct_loads_at_a_full_grid(dev, b):
+    """The fp32 FFN's direct-load form (w1 and w3 rows 9732 bytes apart,
+    which TMA cannot take) at s2-pro's slow widths, where the plan's grid
+    reaches what the card holds at once: the grid barrier completes (the
+    bound on the grid is the least occupancy of the two forms), the result
+    within 1e-5 of max |y| of the plain version."""
+    d, i = 2560, 9728
+    rng = np.random.default_rng(b)
+    gen = torch.Generator().manual_seed(b)
+    w1, w3 = (torch.randint(-127, 128, (d, i + 4), generator=gen,
+                            dtype=torch.int8).to(dev)[:, :i] for _ in range(2))
+    s1, s3 = ((torch.rand(i, generator=gen) + 0.5).to(dev) / (73.0 * d ** 0.5)
+              for _ in range(2))
+    _, w2 = _ffn_weights(d, i, b, dev)
+    assert w1.stride(0) % 16 != 0
+    pair = ({"q": w1, "s": s1}, {"q": w3, "s": s3})
+    fused = {"q": torch.cat([w1, w3], dim=1), "s": torch.cat([s1, s3])}
+    x = _randn(rng, (b, d), torch.float32, dev)
+    n0 = int8_ffn.launches_cuda_cores
+    got = int8_ffn(x, pair, w2)
+    torch.cuda.synchronize()
+    assert int8_ffn.launches_cuda_cores == n0 + 1
+    assert bool(torch.isfinite(got).all())
+    _ffn_close(got, int8_ffn_reference(x, fused, w2), torch.float32)

@@ -18,8 +18,9 @@ ports and the JAX package, on the CPU.
     exact sum (XLA's bf16 dot), so it lands up to 2.2 ulps off the exact
     value here, where the kernel route's one rounding stays within half an
     ulp (held too: 2^-8 |y| of the exact value).
-  * `int8_gemv_split`'s runs cover I once within the kernels' limits, and
-    the per-run partials added in run order equal the plain version.
+  * `int8_gemv_split`'s runs ("gemv_mma") and `fp32_split`'s ("gemv",
+    the fp32 kernel's own plan) cover I once within the kernels' limits,
+    and the per-run partials added in run order equal the plain version.
   * The cluster kernel's plan (`int8_gemv_plan`, bf16 rows 17-32) covers I
     once within a cluster of 1, 2, 4 or 8 blocks, and a plain replay of the
     cluster's order (block r adds slice r of the tile's columns over the
@@ -208,12 +209,30 @@ def _split_cost(route, b, i, o, n_sm, n, run):
             + (8 * n * b * o if n > 1 else 0))
 
 
+def _fp32_plan(b, i, o, n_sm):
+    """The fp32 route's ("gemv") split, as `ops/int8.py:_plan` asks it."""
+    return tint8.fp32_split(-(-o // tint8.ROUTE_COLS["gemv"]), i, b,
+                            tint8.FP32_BLOCKS_PER_SM * n_sm)
+
+
 @pytest.mark.parametrize("route", ["gemv_mma", "gemv"])
 @pytest.mark.parametrize("i,o", MODEL_SHAPES + [(1000, 72), (100, 40), (130, 4097)])
 def test_gemv_split_runs_cover_I_once(route, i, o):
     stages = -(-i // tint8.STAGE_ROWS)
     for b in (1, 4, 16, 32):
         for n_sm in (132, 8):
+            if route == "gemv":  # the fp32 kernel's own plan
+                n_split, run = _fp32_plan(b, i, o, n_sm)
+                assert run % tint8.FP32_RUN_ALIGN == 0 and 1 <= n_split <= tint8.MAX_SPLIT
+                assert run <= tint8.FP32_MAX_RUN[tint8.fp32_rows(b)]
+                assert (n_split - 1) * run < i <= n_split * run
+                # more runs than x's room asks only where O's tiles leave the
+                # SMs short, and none shorter than FP32_MIN_RUN
+                tiles = -(-o // tint8.ROUTE_COLS["gemv"])
+                n_min = -(-i // tint8.FP32_MAX_RUN[tint8.fp32_rows(b)])
+                want = -(-tint8.FP32_BLOCKS_PER_SM * n_sm // tiles)
+                assert n_split <= max(n_min, min(want, max(1, i // tint8.FP32_MIN_RUN)))
+                continue
             n_split, run = int8_gemv_split(route, b, i, o, n_sm)
             assert run % tint8.STAGE_ROWS == 0 and 1 <= n_split <= tint8.MAX_SPLIT
             # runs [k * run, min(I, (k + 1) * run)): every row once, none empty
@@ -234,7 +253,10 @@ def test_gemv_split_shapes_of_the_serving_path():
     assert split("gemv_mma", 1, 1536, 1536) == (6, 256)     # fast wo: 72 blocks
     assert split("gemv_mma", 1, 2560, 6144) == (5, 512)     # slow wqkv: 240 blocks
     assert split("gemv_mma", 32, 2560, 155136) == (1, 2560)  # 32 rows: no split either
-    assert split("gemv", 1, 64, 320) == (1, 128)
+    # the fp32 kernel at the tiny model's shapes: one run, no merge
+    assert _fp32_plan(1, 64, 320, 132) == (1, 64)
+    assert _fp32_plan(4, 128, 64, 132) == (1, 128)
+    assert _fp32_plan(1, 2560, 19456, 132) == (2, 1280)  # 152 tiles: 2 runs
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -244,8 +266,10 @@ def test_partials_added_in_run_order_equal_the_plain_version(b, i, o, dtype):
     x, q, s = _inputs(b, i, o, seed=b * i)
     xt = torch.from_numpy(x).to(dtype)
     qt, st = torch.from_numpy(q), torch.from_numpy(s)
-    route = "gemv_mma" if dtype == torch.bfloat16 else "gemv"  # the split routes
-    n_split, run = int8_gemv_split(route, b, i, o, 132)
+    if dtype == torch.bfloat16:  # the split routes
+        n_split, run = int8_gemv_split("gemv_mma", b, i, o, 132)
+    else:
+        n_split, run = _fp32_plan(b, i, o, 132)
     assert n_split > 1  # few column tiles: the split covers the card
     parts = int8_gemv_partials_reference(xt, qt, n_split, run)
     assert parts.shape == (n_split, b, o) and parts.dtype == torch.float32

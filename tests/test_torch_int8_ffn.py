@@ -52,6 +52,7 @@ from fish_speech_tpu.models import dual_ar as jdual
 from fish_speech_tpu_torch import generate as tgen
 from fish_speech_tpu_torch.config import SamplingConfig as TSamplingConfig
 from fish_speech_tpu_torch.models import dual_ar as tdual
+from fish_speech_tpu_torch.ops import int8 as tint8
 from fish_speech_tpu_torch.ops import int8_ffn as tffn
 from fish_speech_tpu_torch.ops import quant as tquant
 from fish_speech_tpu_torch.ops.int8_ffn import (_check, _route, int8_ffn,
@@ -221,8 +222,14 @@ def test_plan_covers_every_column_and_row_once(route, d, i):
             if route != "cuda_cores":  # "mma" and "mma_f16"
                 assert p.run_a % tffn.STAGE_ROWS == 0 and p.run_b % tffn.STAGE_ROWS == 0
                 assert p.n_a <= tffn.MAX_SPLIT and p.n_b <= tffn.MAX_SPLIT
-            else:
-                assert p.n_a == p.n_b == 1
+            else:  # the fp32 kernel's own plan: whole 64 rows, x of a run fits
+                most = tint8.FP32_MAX_RUN[tint8.fp32_rows(b)]
+                for n, run in ((p.n_a, p.run_a), (p.n_b, p.run_b)):
+                    assert run % tint8.FP32_RUN_ALIGN == 0 and run <= most
+                    assert n <= tffn.MAX_SPLIT
+                want = max(1, n_blocks // 2)
+                assert (p.n_a, p.run_a) == tint8.fp32_split(p.tiles_a, d, b, want)
+                assert (p.n_b, p.run_b) == tint8.fp32_split(p.tiles_b, i, b, want)
             # grid-stride: every item of both phases is walked, the grid fits
             assert 1 <= p.grid <= n_blocks
             assert p.grid == min(n_blocks, max(p.tiles_a * p.n_a, p.tiles_b * p.n_b))
