@@ -28,10 +28,12 @@ Phases, each of which ends the run with a nonzero exit if it fails:
    on the minimal five products a pair): the prefill at B=1 T=64, 1024
    and 4096 and B=2 T=600 with offsets [0, 129], the training forward
    and backward at B=2 T=1024 with a right-padded row, B=1 T=4096 and a
-   ragged B=2 T=1000; their fp32 CUDA-core route is held at JAX's tiny
-   heads (H=2 Hkv=1 D=32: the prefill at buckets 64 and 256, the training
-   pair at phase 3b's B=2 T=200) and once at s2-pro's heads at a small
-   shape (B=2 T=256, one row padded 30), to 1e-4 (the backward's of each
+   ragged B=2 T=1000; their fp32 routes (the prefill's "fp32_tc" on the
+   tensor cores in 3xTF32, the training pair's CUDA-core kernels) are held
+   on fp32 inputs at JAX's tiny heads (H=2 Hkv=1 D=32: the prefill at
+   buckets 64 and 256, the training pair at phase 3b's B=2 T=200) and at
+   s2-pro's heads (the prefill at T=256 and at the full width's T=1024, the
+   training pair at B=2 T=256, one row padded 30), to 1e-4 (the backward's of each
    tensor's largest magnitude); the training pair in bf16 at the tiny
    heads ("cuda_cores_bf16", the train CLI's B=2 T=256) to the bf16
    bounds.
@@ -49,7 +51,18 @@ Phases, each of which ends the run with a nonzero exit if it fails:
    caches at JAX's widths, D=32 and D=16; the `--tiny` server's slow cache;
    the 64-wide heads of the earlier tiny model) and of the int4 matvec
    (phase 3c's tiny fast shapes) are held
-   to 1e-4 and to 1e-5 of |x| @ |W|; the fp32 prefill, decode and training
+   to 1e-4 and to 1e-5 of |x| @ |W|; the int4 matmul's fp32 route
+   ("fp32_tc", `int4_tf32_kernel` on mma.sync, `int4_tf32_wgmma_kernel`
+   from 64 rows: x as two TF32 terms times the exact q on
+   the tensor cores, each group's sum scaled once) on fp32 x at s2-pro's
+   slow wqkv, wo, w13, w2 and fast w13 at B = 9, 128 and 1024, at JAX's
+   tiny widths at B = 64 and at the products 13(b') gives it (289 rows
+   through the slow stack, 2890 through the fast one), to 1e-5 of
+   |x| @ |W| and equal bits on two replays, beside cuBLAS in fp32 on the
+   dequantized W (TF32 off), with its `device_ms`; its bound, and that of
+   the fp32 prefill and suffix ("fp32_tc"), is the TF32 products the
+   kernel issues at 495 TFLOP/s (`_tf32_bound`), with the fp32 one (67
+   TFLOP/s) beside it for comparison; the fp32 prefill, decode and training
    forward also at the shapes the parity tool reaches in phase 11 (the
    prompt's bucket at H=32 Hkv=8 D=128; the cut-depth slow and fast
    caches; B=1 at the teacher-forced prompt's length), beside SDPA. The decode cases (slow cache
@@ -323,7 +336,14 @@ Phases, each of which ends the run with a nonzero exit if it fails:
    int8-KV decode (the kv-int8 configs), int8 matvec and fused int8 FFN
    (the `--int8` run) above 0; (b) `tools.eval_in_context --precision
    bfloat16`: finite per-frame losses whose mean is `dual_ar_loss`'s
-   semantic loss in the same call, through `train_fwd_wgmma_kernel`; (c)
+   semantic loss in the same call, through `train_fwd_wgmma_kernel`; (b')
+   the same inputs through `tools.eval_in_context` at its default
+   `--precision float32` over an int4 checkpoint of the model written by
+   `tools.quantize --mode int4 --group-size 128`: finite per-frame losses
+   whose mean is within 1e-4 relative the fp32 `dual_ar_loss` semantic
+   loss of the int4 tree with every weight dequantized (plain fp32
+   products, TF32 off, no int4 kernel launched), every layer product
+   through the int4 matmul's "fp32_tc" route (its wgmma tile, launched); (c)
    in phase 9, `tools.api_client --streaming --play` as a process against
    the server: the same bytes as a direct request with its payload, whole
    frames, file-only with no audio backend; (d) `dac_forward` at
@@ -375,9 +395,12 @@ einsum in `prefill_suffix`) has four routes: `flash_suffix` (bf16 q, bf16
 cache) and `flash_suffix_kv8` (int8 cache), held at S = 2176, start 951,
 Ts 64 and 128 at one row and Ts 64 at 4 and 16 rows, with SDPA under the
 suffix's mask (over the dequantized cache for int8) as the library call;
-`flash_suffix_fp32` and `flash_suffix_kv8_fp32` at phase 3's tiny cache
-(JAX's widths, then the earlier 64-wide heads) to 1e-4, launched in phases
-3 and 3c. `flash_train_fwd_cuda_cores_bf16` and
+`flash_suffix_fp32` and `flash_suffix_kv8_fp32` (`attn_tf32_kernel` with
+the bf16 kernel's packing and key split, 64 rows a block) at phase 3's tiny
+cache (JAX's widths, then the earlier 64-wide heads) and at the serving
+cache's full width (S = 2176, start 951, Ts 64, H=32 Hkv=8 D=128, split
+over seven slices) to 1e-4, launched in phases 3 and 3c. `int4_mm_fp32_tc`
+is the int4 matmul's fp32 route, launched by 13(b'). `flash_train_fwd_cuda_cores_bf16` and
 `flash_train_bwd_cuda_cores_bf16` are the training pair's bf16 route at
 D=32, launched by phase 5b's train CLI.
 
@@ -471,11 +494,12 @@ def _in_turns(plain, kernel, iters):
     return (k1 + k2) / 2, (p1 + p2) / 2
 
 
-# H100 SXM peaks (NVIDIA's data sheet): HBM3 bytes/s, dense bf16 and int8
-# on the tensor cores, fp32 on the CUDA cores
+# H100 SXM peaks (NVIDIA's data sheet): HBM3 bytes/s, dense bf16, int8 and
+# TF32 on the tensor cores, fp32 on the CUDA cores
 HBM_BYTES_PER_S = 3.35e12
 PEAK_BF16 = 989e12
 PEAK_INT8 = 1979e12
+PEAK_TF32 = 495e12
 PEAK_FP32 = 67e12
 
 
@@ -491,6 +515,16 @@ def _bound(flops, nbytes, peak=PEAK_BF16):
     """(ms, "bytes" | "operations"): the least time the card could take."""
     t_ops, t_bytes = flops / peak, nbytes / HBM_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops > t_bytes else "bytes"
+
+
+def _tf32_bound(flops, nbytes, terms):
+    """The bound of an "fp32_tc" kernel, which runs each fp32 product as
+    `terms` TF32 products on the tensor cores (2 where one operand is exact
+    in TF32: the int4 weights, an int8 cache; else 3, hi hi + hi lo + lo
+    hi): those products at the TF32 peak, or the bytes. The fp32 bound
+    (67 TFLOP/s on the CUDA cores) is a comparison only, `fp32_bound_ms`:
+    these kernels can beat it."""
+    return _bound(terms * flops, nbytes, PEAK_TF32)
 
 
 def _sdpa(q, k, v, mask, causal, **kw):
@@ -538,16 +572,21 @@ def kernel_cases(dev, parity):
         flash_prefill_attention, flash_prefill_reference)
 
     gen = torch.Generator(device=dev).manual_seed(0)
+    gen32 = torch.Generator(device=dev).manual_seed(1)
 
     def randn(*shape):
         return torch.randn(shape, generator=gen, device=dev, dtype=torch.bfloat16)
 
+    def randn32(*shape):  # fp32 inputs whose low bits are not zero
+        return torch.randn(shape, generator=gen32, device=dev, dtype=torch.float32)
+
     cases = {"flash_prefill": [], "flash_prefill_fp32": [], "flash_decode": []}
     # prefill: flagship heads (H=32, Hkv=8, D=128), prompt buckets, bf16
     # (the tensor-core route), also the pool's group prefills (k = 4 and 16
-    # rows at buckets 128 and 256, offsets 0, phase 8); the fp32 route (CUDA
-    # cores, the tiny fp32 models of phases 3 and 3c) once at a small shape
-    # and at the parity tool's prompt bucket (phase 11), to fp32's 1e-4
+    # rows at buckets 128 and 256, offsets 0, phase 8); the fp32 route
+    # ("fp32_tc", 3xTF32 on the tensor cores: the fp32 models of phases 3,
+    # 3c and 11) on fp32 inputs at T=256, at the parity tool's prompt bucket
+    # (phase 11) and at the full width's T=1024, to fp32's 1e-4
     for b, t, offsets, dtype in [(1, 64, [0], torch.bfloat16),
                                  (1, 1024, [0], torch.bfloat16),
                                  (2, 600, [0, 129], torch.bfloat16),
@@ -555,8 +594,10 @@ def kernel_cases(dev, parity):
                                  *((k, t, [0] * k, torch.bfloat16)
                                    for k in (4, 16) for t in (128, 256)),
                                  (1, 256, [0], torch.float32),
-                                 (1, parity["bucket"], [0], torch.float32)]:
-        q, k, v = (randn(b, t, n, 128).to(dtype) for n in (32, 8, 8))
+                                 (1, parity["bucket"], [0], torch.float32),
+                                 (1, 1024, [0], torch.float32)]:
+        rand = randn32 if dtype == torch.float32 else randn
+        q, k, v = (rand(b, t, n, 128).to(dtype) for n in (32, 8, 8))
         off = torch.tensor(offsets, dtype=torch.int32, device=dev)
         route = flash_prefill_route(dtype)
         got = flash_prefill_attention(q, k, v, off)
@@ -568,8 +609,9 @@ def kernel_cases(dev, parity):
                                  iters)
         pairs = sum((t - o) * (t - o + 1) // 2 for o in offsets)
         flops = 4 * 32 * 128 * pairs
-        bound = _bound(flops, q.element_size() * b * t * 128 * 2 * (32 + 8),
-                       PEAK_BF16 if dtype == torch.bfloat16 else PEAK_FP32)
+        nbytes = q.element_size() * b * t * 128 * 2 * (32 + 8)
+        fp32 = dtype == torch.float32
+        bound = _tf32_bound(flops, nbytes, 3) if fp32 else _bound(flops, nbytes)
         # SDPA on the same function: is_causal where every offset is 0, else
         # the causal, offset mask
         i = torch.arange(t, device=dev)
@@ -578,10 +620,10 @@ def kernel_cases(dev, parity):
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
         causal = not any(offsets)
         lib = _library_ms(lambda i=0: _sdpa(qt, kt, vt, mask, causal), iters)
-        fp32 = dtype == torch.float32
-        # the tensor-core route's device time, as the pool's prefill graphs
-        # replay it, beside SDPA's
-        dev_ms = {} if fp32 else dict(
+        # the kernel's device time, as the pool's prefill graphs replay it,
+        # beside SDPA's
+        dev_ms = dict(
+            **({"fp32_bound_ms": _bound(flops, nbytes, PEAK_FP32)[0]} if fp32 else {}),
             device_ms=_device_ms(lambda i=0: flash_prefill_attention(q, k, v, off),
                                  iters),
             library_device_ms=_device_ms(lambda i=0: _sdpa(qt, kt, vt, mask, causal),
@@ -600,20 +642,21 @@ def kernel_cases(dev, parity):
     # 64 and 256, first in the list (the headline)
     tiny = []
     for t in (64, 256):
-        q, k, v = (randn(1, t, n, 32).float() for n in (2, 1, 1))
+        q, k, v = (randn32(1, t, n, 32) for n in (2, 1, 1))
         off = torch.zeros(1, dtype=torch.int32, device=dev)
         mx, mean = _errors(flash_prefill_attention(q, k, v, off),
                            flash_prefill_reference(q, k, v, off))
         ms, plain_ms = _in_turns(lambda i=0: flash_prefill_reference(q, k, v, off),
                                  lambda i=0: flash_prefill_attention(q, k, v, off), 20)
         flops = 4 * 2 * 32 * t * (t + 1) // 2
-        bound = _bound(flops, 4 * t * 32 * 2 * (2 + 1), PEAK_FP32)
+        bound = _tf32_bound(flops, 4 * t * 32 * 2 * (2 + 1), 3)
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
         tiny.append(dict(
-            shape=f"B=1 T={t} H=2 Hkv=1 D=32 offsets=[0] fp32 cuda_cores "
+            shape=f"B=1 T={t} H=2 Hkv=1 D=32 offsets=[0] fp32 fp32_tc "
                   f"({flops / ms / 1e9:.3f} TFLOP/s; SDPA is_causal)",
             max_abs_err=mx, mean_abs_err=mean, ms=ms, plain_ms=plain_ms,
             bound_ms=bound[0], bound_by=bound[1],
+            fp32_bound_ms=_bound(flops, 4 * t * 32 * 2 * (2 + 1), PEAK_FP32)[0],
             library_ms=_library_ms(lambda i=0: _sdpa(qt, kt, vt, None, True), 20),
             device_ms=_device_ms(lambda i=0: flash_prefill_attention(q, k, v, off), 20),
             library_device_ms=_device_ms(lambda i=0: _sdpa(qt, kt, vt, None, True), 20),
@@ -703,9 +746,10 @@ def kernel_cases(dev, parity):
             device_ms=_device_ms(lambda i=0: flash_decode_attention(
                 q, kc, vc, i % n_layer, lens), 100),
             library_device_ms=_device_ms(sdpa, 100), ok=mx <= 1e-4))
-    cases.update(suffix_kernel_cases(dev, randn))
+    cases.update(suffix_kernel_cases(dev, randn, randn32))
     cases.update(train_kernel_cases(dev, randn, parity["train_t"]))
     cases.update(quant_kernel_cases(dev, randn))
+    cases["int4_mm_fp32_tc"] = int4_fp32_tc_cases(dev, randn32)
     for name, row in starts_decode_cases(dev, randn).items():
         cases[name].append(row)
     cases.update(int8_kernel_cases(dev, randn))
@@ -733,6 +777,8 @@ def kernel_cases(dev, parity):
                   + (f" replays_equal={r['replays_equal']}" if "replays_equal" in r
                      and "cast_device_ms" not in r and "replaced_device_ms" not in r
                      else "")
+                  + (f" fp32_bound={_ms_text(r['fp32_bound_ms'])}"
+                     if "fp32_bound_ms" in r else "")
                   + "".join(f" {k}={v[0]:.3e}/{v[1]:.3e}"
                             for k, v in r.get("outputs", {}).items()))
             ok = r.get("ok", r["max_abs_err"] <= 2e-2 and r["mean_abs_err"] <= 2e-3)
@@ -748,12 +794,13 @@ def kernel_cases(dev, parity):
 # 128-column suffix bucket) and admission groups of 4 and 16 rows; 8 layers,
 # each timed call reading the next, over a bf16 and an int8 cache; the fp32
 # route at phase 3's tiny cache (2 layers, S = 256 + 8, start 140) at JAX's
-# tiny widths (H=2 Hkv=1 D=32) and at the earlier 64-wide heads (H=4 Hkv=2)
+# tiny widths (H=2 Hkv=1 D=32), at the earlier 64-wide heads (H=4 Hkv=2)
+# and at the serving cache's full width (start 951, Ts 64, 8 layers)
 SUFFIX_START, SUFFIX_S = 951, 2176
 SUFFIX_CASES = [(1, 64), (1, 128), (4, 64), (16, 64)]
 
 
-def _suffix_cache(dev, randn, n_layer, b, s, hkv, d, kv8, dtype):
+def _suffix_cache(dev, randn, n_layer, b, s, hkv, d, kv8, dtype, randn32=None):
     """A random stacked cache: bf16 (or `dtype`) k/v from N(0, 1), or int8
     k/v (N(0, 1) x 40, rounded) with bf16 scales within 10% of 1/40: k and
     v of unit scale either way, as the bf16 bound assumes."""
@@ -761,6 +808,8 @@ def _suffix_cache(dev, randn, n_layer, b, s, hkv, d, kv8, dtype):
 
     shape = (n_layer, b, s, hkv, d)
     if not kv8:
+        if dtype == torch.float32 and randn32 is not None:
+            return {"k": randn32(*shape), "v": randn32(*shape)}
         return {"k": randn(*shape).to(dtype), "v": randn(*shape).to(dtype)}
     out = {}
     for n in ("k", "v"):
@@ -770,14 +819,16 @@ def _suffix_cache(dev, randn, n_layer, b, s, hkv, d, kv8, dtype):
     return out
 
 
-def suffix_kernel_cases(dev, randn):
+def suffix_kernel_cases(dev, randn, randn32):
     """The suffix attention's four routes against their plain version: bf16
-    q over a bf16 and an int8 cache (tensor cores) at the serving shapes,
-    fp32 q over an fp32 and an int8 cache (CUDA cores) at the tiny one.
+    q over a bf16 and an int8 cache (wgmma) at the serving shapes, fp32 q
+    (`randn32`'s inputs) over an fp32 and an int8 cache (3xTF32 on mma.sync)
+    at the tiny ones and the serving one.
     SDPA with the suffix's causal mask is the library call (over the
     dequantized cache for int8). Each case prints its bound: the q, K/V
     (scales) and output bytes of keys [0, start + Ts) of each row, and
-    4 D H operations per visible (query, key) pair."""
+    4 D H operations per visible (query, key) pair (on fp32 q the TF32
+    products the kernel issues for them, `_tf32_bound`)."""
     import torch
 
     import torch.nn.functional as F
@@ -791,12 +842,13 @@ def suffix_kernel_cases(dev, randn):
               for b, ts in SUFFIX_CASES]
     shapes.append((2, 1, 264, 2, 1, 32, 140, 64, torch.float32))  # JAX's tiny widths
     shapes.append((2, 1, 264, 4, 2, 64, 140, 64, torch.float32))
+    shapes.append((8, 1, SUFFIX_S, 32, 8, 128, SUFFIX_START, 64, torch.float32))
     for n_layer, b, s, h, hkv, d, start, ts, dtype in shapes:
         fp32 = dtype == torch.float32
         for kv8 in (False, True):
             name = "flash_suffix" + ("_kv8" if kv8 else "") + ("_fp32" if fp32 else "")
-            cache = _suffix_cache(dev, randn, n_layer, b, s, hkv, d, kv8, dtype)
-            q = randn(b, ts, h, d).to(dtype)
+            cache = _suffix_cache(dev, randn, n_layer, b, s, hkv, d, kv8, dtype, randn32)
+            q = (randn32(b, ts, h, d) if fp32 else randn(b, ts, h, d).to(dtype))
             st = torch.tensor([start], dtype=torch.int32, device=dev)
             mx = mean = 0.0
             for layer in (0, n_layer - 1):
@@ -813,7 +865,8 @@ def suffix_kernel_cases(dev, randn):
             kv_bytes = b * kv * hkv * d * (1 if kv8 else q.element_size()) * 2
             nbytes = (2 * q.numel() * q.element_size() + kv_bytes
                       + (b * kv * hkv * 2 * 2 if kv8 else 0))
-            bound = _bound(flops, nbytes, PEAK_FP32 if fp32 else PEAK_BF16)
+            bound = (_tf32_bound(flops, nbytes, 2 if kv8 else 3) if fp32
+                     else _bound(flops, nbytes))
             # SDPA on the same function: the suffix's causal mask over keys
             # [0, start + Ts) of each layer (the int8 cache dequantized
             # beforehand, not timed)
@@ -845,7 +898,8 @@ def suffix_kernel_cases(dev, randn):
                 device_ms=_device_ms(lambda i=0: flash_suffix_attention(
                     q, cache, i % n_layer, st), iters),
                 library_device_ms=_device_ms(sdpa, iters),
-                ok=mx <= 1e-4 if fp32 else mx <= 2e-2 and mean <= 2e-3))
+                ok=mx <= 1e-4 if fp32 else mx <= 2e-2 and mean <= 2e-3,
+                **({"fp32_bound_ms": _bound(flops, nbytes, PEAK_FP32)[0]} if fp32 else {})))
             del cache, kl, vl
     return cases
 
@@ -1370,6 +1424,85 @@ def quant_kernel_cases(dev, randn):
     cases["flash_decode_kv8"].append(pool_decode_kv8_case(dev, randn))
     torch.cuda.empty_cache()
     return cases
+
+
+# the int4 matmul's fp32 route ("fp32_tc", `int4_tf32_kernel` and its wgmma
+# tile shape `int4_tf32_wgmma_kernel`): s2-pro's
+# slow wqkv, wo, w13, w2 and fast w13 at B = 9 (the fewest rows it takes),
+# 128 and 1024 (the prompt buckets) with g = 128, then JAX's tiny widths at
+# B = 64 (the group sizes the quantizer picks there), then the products
+# phase 13(b') gives it: the in-context evaluation's 289 tokens through the
+# slow stack and their 289 x 10 codebook rows through the fast one (w1 and
+# w3 apart, as the checkpoint holds them)
+FP32_TC_ROWS = (9, 128, 1024)
+FP32_TC_SHAPES = [INT4_SHAPES[k] for k in (0, 1, 2, 3, 6)]
+FP32_TC_TINY = [("tiny slow wqkv", 64, 128, 32), ("tiny slow w2", 128, 64, 64),
+                ("tiny fast wqkv", 32, 64, 16), ("tiny fast w13", 32, 128, 16)]
+IN_CONTEXT_TOKENS, IN_CONTEXT_CODEBOOKS = 289, 10
+FP32_TC_EVAL = ([(IN_CONTEXT_TOKENS, "slow " + n, i, o) for n, i, o in
+                 (("wqkv", 2560, 6144), ("wo", 4096, 2560), ("w1", 2560, 9728),
+                  ("w2", 9728, 2560))]
+                + [(IN_CONTEXT_TOKENS * IN_CONTEXT_CODEBOOKS, "fast " + n, i, o) for n, i, o in
+                   (("wqkv", 1536, 2560), ("wo", 1536, 1536), ("w1", 1536, 6144),
+                    ("w2", 6144, 1536))])
+
+
+def int4_fp32_tc_cases(dev, randn32):
+    """The int4 matmul's fp32 route on fp32 x against its plain version
+    (`int4_matmul_reference`: x @ (q * s) in fp32), within 1e-5 of |x| @ |W|
+    and in equal bits on two replays of a graph, timed in turns with it,
+    with its device time beside cuBLAS fp32 (TF32 off) on the dequantized
+    W: the weights are warm in L2 (one weight, as in a prefill). The bound
+    is the TF32 products the kernel issues (two a product) at 495 TFLOP/s,
+    or the bytes; `fp32_bound_ms` is fp32's on the CUDA cores, for
+    comparison."""
+    import torch
+
+    from fish_speech_tpu_torch.ops._kernels import sm_count
+    from fish_speech_tpu_torch.ops.int4 import (FP32_TC_TILES, _route, fp32_tc_plan,
+                                                 fp32_tc_resident, int4_matmul,
+                                                 int4_matmul_reference)
+    from fish_speech_tpu_torch.ops.quant import _int4_effective_weight, quantize_int4
+
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rows = []
+    try:
+        shapes = ([(b, name, i, o, 128) for b in FP32_TC_ROWS for name, i, o in FP32_TC_SHAPES]
+                  + [(64, *t) for t in FP32_TC_TINY] + [(*t, 128) for t in FP32_TC_EVAL])
+        for b, name, i, o, g in shapes:
+            qw = quantize_int4(randn32(i, o) * 0.02, group_size=g)
+            p, gs = qw["p"], qw["gs"]
+            x = randn32(b, i)
+            assert _route(b, x.dtype) == "fp32_tc"
+            w = _int4_effective_weight(qw, torch.float32)
+            err = (int4_matmul(x, p, gs) - int4_matmul_reference(x, p, gs)).abs()
+            scale = x.abs() @ w.abs()
+            iters = 5 if b >= 1024 else 10
+            ms, plain_ms = _in_turns(lambda k=0: int4_matmul_reference(x, p, gs),
+                                     lambda k=0: int4_matmul(x, p, gs), iters)
+            flops = 2 * b * i * o
+            nbytes = i // 2 * o + 4 * (i // g) * o + 4 * b * (i + o)
+            bound = _tf32_bound(flops, nbytes, 2)
+            tile, n_split = fp32_tc_plan(b, i, o, g, sm_count(x.device),
+                                         fp32_tc_resident(x.device))
+            bm, bn = FP32_TC_TILES[tile]
+            rows.append(dict(
+                shape=f"{name} B={b} I={i} O={o} g={g} fp32 fp32_tc tile {bm}x{bn} runs "
+                      f"{n_split} ({flops / ms / 1e9:.1f} TFLOP/s)",
+                max_abs_err=err.max().item(), mean_abs_err=err.mean().item(), ms=ms,
+                plain_ms=plain_ms, bound_ms=bound[0], bound_by=bound[1],
+                fp32_bound_ms=_bound(flops, nbytes, PEAK_FP32)[0],
+                library_ms=_library_ms(lambda k=0: x @ w, iters),
+                device_ms=_device_ms(lambda k=0: int4_matmul(x, p, gs), iters),
+                library_device_ms=_device_ms(lambda k=0: x @ w, iters),
+                replays_equal=_replays_equal(lambda: int4_matmul(x, p, gs)),
+                ok=bool((err <= 1e-5 * scale + 1e-6).all())))
+            rows[-1]["ok"] &= rows[-1]["replays_equal"]
+            del qw, p, gs, x, w, err, scale
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+    return rows
 
 
 # s2-pro's int8 products at decode, I -> O: the slow and fast stacks (w13
@@ -2621,7 +2754,7 @@ def run_checkpoint_tools(dev, tokenizer):
         t0 = time.perf_counter()
         report = parity_report(native, device=dev)
         t_report = time.perf_counter() - t0
-        fp32 = {"flash_prefill_fp32": flash_prefill_attention.launches_cuda_cores,
+        fp32 = {"flash_prefill_fp32": flash_prefill_attention.launches_fp32_tc,
                 "flash_decode_fp32": flash_decode_attention.launches,
                 "flash_train_fwd_fp32": flash_train_forward.launches_cuda_cores}
         launches.update(fp32)
@@ -3124,12 +3257,12 @@ def run_quant_slice(dev, tokenizer):
         _zero_counts()
         rows = serve(dev, tokenizer, engine, served, dac_cfg.frame_length, label)
         # the int4 matmul's routes: matvec (decode), tensor cores (bf16
-        # prefill); the fp32 tiled route serves no bf16 model
+        # prefill); the fp32 route ("fp32_tc") serves no bf16 model
         launches = dict(_counted(wrappers),
                         flash_prefill=flash_prefill_attention.launches_wgmma,
                         int4_mm=int4_matmul.launches_gemv,
                         int4_mm_wgmma=int4_matmul.launches_wgmma,
-                        int4_mm_fp32_tiled=int4_matmul.launches_fp32_tiled,
+                        int4_mm_fp32_tc=int4_matmul.launches_fp32_tc,
                         int8_mm=int8_matmul.launches_gemv_mma,
                         int8_mm_cluster=int8_matmul.launches_gemv_cluster,
                         int8_ffn=int8_ffn.launches_mma,
@@ -4912,7 +5045,7 @@ def run_multidevice(dev, tokenizer):
     need = (("12(a)", "flash_prefill", "flash_prefill_attention.launches_wgmma"),
             ("12(a)", "flash_decode", "flash_decode_attention.launches"),
             ("12(b) fp32", "flash_prefill_fp32",
-             "flash_prefill_attention.launches_cuda_cores"),
+             "flash_prefill_attention.launches_fp32_tc"),
             ("12(b) fp32", "flash_decode_fp32", "flash_decode_attention.launches"),
             ("12(b) bf16", "flash_prefill", "flash_prefill_attention.launches_wgmma"),
             ("12(b) bf16", "flash_decode", "flash_decode_attention.launches"),
@@ -5331,6 +5464,102 @@ def run_eval_in_context(ckpt, root, tokenizer, dev):
     return launches
 
 
+def _dense_fp32(params):
+    """The tree with every quantized weight replaced by its plain fp32
+    value: int4 W = q * s (`int4_matmul_reference`'s), int8 W = q * s."""
+    import torch
+
+    from fish_speech_tpu_torch.ops.quant import _int4_effective_weight, dequantize_int8
+
+    if isinstance(params, dict):
+        if {"p", "gs"} <= params.keys():
+            return _int4_effective_weight(params, torch.float32)
+        if {"q", "s"} <= params.keys():
+            return dequantize_int8(params, torch.float32)
+        return {k: _dense_fp32(v) for k, v in params.items()}
+    if isinstance(params, (list, tuple)):
+        return type(params)(_dense_fp32(v) for v in params)
+    return params
+
+
+def run_eval_in_context_int4(ckpt, root, tokenizer, dev):
+    """13(b'): `tools.quantize --mode int4 --group-size 128` of the
+    checkpoint, then `tools.eval_in_context` at its default `--precision
+    float32` over it on 13(b)'s inputs: finite per-frame losses whose mean
+    is, within 1e-4 relative, the fp32 `dual_ar_loss` semantic loss of the
+    int4 tree with every weight dequantized (W = q * s, plain fp32 products
+    with TF32 off: no int4 kernel in the reference), every int4 layer
+    product of the teacher-forced forward on the "fp32_tc" route (the slow
+    stack at B = T rows, the fast one at T x codebooks; phase 2 holds the
+    kernel to its plain version at those shapes). Returns its launches."""
+    import dataclasses as dc
+
+    import torch
+
+    from fish_speech_tpu_torch.ops.int4 import int4_matmul
+    from fish_speech_tpu_torch.tools import eval_in_context, quantize
+    from fish_speech_tpu_torch.train.loss import dual_ar_loss
+    from fish_speech_tpu_torch.utils.checkpoint import load_dual_ar
+
+    qckpt = root / "ckpt-int4"
+    t0 = time.perf_counter()
+    quantize.main(["--checkpoint-path", str(ckpt), "--output", str(qckpt), "--mode", "int4",
+                   "--group-size", "128"], standalone_mode=False)
+    t_quant = time.perf_counter() - t0
+    ref, tgt = np.load(root / "ref.npy"), np.load(root / "tgt.npy")
+    texts = ("A reference line read in a calm voice.", "The target line to follow.")
+    gc.collect()
+    torch.cuda.empty_cache()
+    _zero_counts()
+    t0 = time.perf_counter()
+    eval_in_context.main(
+        ["--checkpoint-path", str(qckpt), "--reference-codes", str(root / "ref.npy"),
+         "--reference-text", texts[0], "--target-codes", str(root / "tgt.npy"),
+         "--target-text", texts[1], "--output", str(root / "in_context_int4.json")],
+        standalone_mode=False)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = int4_matmul.launches_fp32_tc
+    others = {r: getattr(int4_matmul, f"launches_{r}") for r in ("gemv", "wgmma")}
+    curve = np.asarray(json.loads((root / "in_context_int4.json").read_text())[str(qckpt)]
+                       ["per_frame"])
+    params, cfg = load_dual_ar(qckpt, dtype=torch.float32, device=dev)
+    cfg = dc.replace(cfg, semantic_begin_id=tokenizer.semantic_begin_id,
+                     semantic_end_id=tokenizer.semantic_end_id, im_end_id=tokenizer.im_end_id,
+                     use_gradient_checkpointing=False).resolve()
+    quantized = any(isinstance(w, dict) and "p" in w for w in params["layers"].values())
+    inp, labels = eval_in_context.in_context_inputs(tokenizer, cfg, ref, texts[0], tgt,
+                                                    texts[1])
+    dense = _dense_fp32(params)
+    del params
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    n0 = int4_matmul.launches
+    try:
+        with torch.no_grad():
+            _, metrics = dual_ar_loss(dense, cfg, {
+                "inputs": torch.from_numpy(inp[None]).to(dev),
+                "labels": torch.from_numpy(labels[None]).to(dev)}, remat=False)
+        semantic = float(metrics["semantic_loss"])
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+    plain = int4_matmul.launches == n0  # the reference launched no int4 kernel
+    del dense
+    err = abs(float(curve.mean()) - semantic)
+    print(f"phase 13(b') eval_in_context (fp32 over the int4 checkpoint, g=128, "
+          f"{inp.shape[1]} tokens; quantize {t_quant:.1f}s): {len(curve)} frames, per-frame "
+          f"loss {curve.min():.4f}..{curve.max():.4f}, mean {curve.mean():.6f}; fp32 "
+          f"dual_ar_loss's semantic loss over the dequantized tree {semantic:.6f} (|diff| "
+          f"{err:.2e}; reference free of int4 kernels {plain}); int4_matmul launches "
+          f"fp32_tc {launches}, others {others}; {seconds:.1f}s")
+    if (not quantized or not plain or inp.shape[1] != IN_CONTEXT_TOKENS
+            or cfg.num_codebooks != IN_CONTEXT_CODEBOOKS or len(curve) != tgt.shape[1]
+            or not np.isfinite(curve).all()
+            or err > 1e-4 * max(1.0, abs(semantic)) or launches <= 0):
+        raise SystemExit("phase 13(b'): the fp32 in-context evaluation over int4 failed")
+    return launches
+
+
 def run_dac_forward(dev):
     """13(d): `dac_forward` at `dac_s2_pro`'s widths in fp32 (TF32 off) on
     ~2 s of seeded audio (43 whole frames): without a generator its codes
@@ -5435,12 +5664,13 @@ def print_flops(cfg, batch, seq, step_s, smi):
 
 
 def run_eval_tools(dev, tokenizer, train, smi):
-    """Phase 13: (a) the quality harness, (b) the in-context evaluation, (d)
+    """Phase 13: (a) the quality harness, (b) the in-context evaluation in
+    bf16 and (b') in fp32 over an int4 checkpoint, (d)
     the codec's training round trip, (e) libav input and (f) the FLOPs of
     phase 5's step ((c), the API client, runs against phase 9's server).
     The checkpoint is phase 11's model (s2-pro's widths at 2 + 2 layers,
     bf16) and the full codec, in a temporary directory under `build/`
-    removed at the end. Returns the launches of (a) and (b) by the
+    removed at the end. Returns the launches of (a), (b) and (b') by the
     `kernels` line's names."""
     import shutil
     import tempfile
@@ -5474,6 +5704,9 @@ def run_eval_tools(dev, tokenizer, train, smi):
         gc.collect()
         torch.cuda.empty_cache()
         launches["flash_train_fwd"] = run_eval_in_context(ckpt, tmp, tokenizer, dev)
+        gc.collect()
+        torch.cuda.empty_cache()
+        launches["int4_mm_fp32_tc"] = run_eval_in_context_int4(ckpt, tmp, tokenizer, dev)
         gc.collect()
         torch.cuda.empty_cache()
         run_dac_forward(dev)
@@ -6181,7 +6414,7 @@ SRC = "fish_speech_tpu_torch/csrc/"
 KERNELS = {  # name: (source, the TPU kernel or JAX code it replaces)
     "flash_prefill": (SRC + "attn_wgmma.cuh",
                       "fish_speech_tpu/ops/pallas_attention.py:26"),
-    "flash_prefill_fp32": (SRC + "flash_prefill.cu",
+    "flash_prefill_fp32": (SRC + "flash_fp32.cu",
                            "fish_speech_tpu/ops/pallas_attention.py:26"),
     "flash_decode": (SRC + "flash_decode.cu",
                      "fish_speech_tpu/ops/pallas_decode.py:47"),
@@ -6205,6 +6438,8 @@ KERNELS = {  # name: (source, the TPU kernel or JAX code it replaces)
     "int4_mm_wgmma": (SRC + "int4_mm.cuh",
                       "fish_speech_tpu/ops/pallas_int4.py:32"),
     "int4_mm_fp32": (SRC + "int4_mm.cuh", "fish_speech_tpu/ops/pallas_int4.py:32"),
+    # fp32 x, B > 8: the products on the tensor cores as two TF32 terms
+    "int4_mm_fp32_tc": (SRC + "int4_mm.cuh", "fish_speech_tpu/ops/pallas_int4.py:32"),
     "flash_decode_kv8": (SRC + "flash_decode.cu",
                          "fish_speech_tpu/ops/attention.py:66"),
     "faststack_probe": (SRC + "faststack.cu",
@@ -6218,9 +6453,9 @@ KERNELS = {  # name: (source, the TPU kernel or JAX code it replaces)
     # cache there (`gqa_attention`, `gqa_attention_kv8`)
     "flash_suffix": (SRC + "flash_prefill.cu", "fish_speech_tpu/models/dual_ar.py:769"),
     "flash_suffix_kv8": (SRC + "flash_prefill.cu", "fish_speech_tpu/ops/attention.py:66"),
-    "flash_suffix_fp32": (SRC + "flash_prefill.cu",
+    "flash_suffix_fp32": (SRC + "flash_fp32.cu",
                           "fish_speech_tpu/models/dual_ar.py:769"),
-    "flash_suffix_kv8_fp32": (SRC + "flash_prefill.cu",
+    "flash_suffix_kv8_fp32": (SRC + "flash_fp32.cu",
                               "fish_speech_tpu/ops/attention.py:66"),
     # the fp16 forms (`--half` serving, phase 14): the same kernels
     # instantiated for __half
@@ -6254,6 +6489,8 @@ HEADLINE = {"flash_prefill": 1, "flash_prefill_fp32": 0, "flash_decode": 1,
             "flash_decode_fp32": 0, "flash_train_fwd": 0, "flash_train_fwd_fp32": 0,
             "flash_train_bwd": 0, "flash_train_bwd_fp32": 0, "int4_mm": 2,
             "int4_mm_wgmma": 6, "int4_mm_fp32": 0, "flash_decode_kv8": 1,
+            # the slow w13 at B=1024
+            "int4_mm_fp32_tc": 2 * len(FP32_TC_SHAPES) + 2,
             "faststack_probe": 0, "int8_mm": 2 * (len(INT8_ROWS) - 1),
             "int8_mm_cluster": 2, "int8_mm_fp32": 0,
             "int8_ffn": 0, "int8_ffn_fp32": 0, "flash_suffix": 0,
@@ -6401,9 +6638,9 @@ def main():
     # is all fp32, so its launches are the fp32 route's)
     _zero_counts()
     small_reference(dev, tokenizer)
-    fp32_launches = {"flash_prefill_fp32": flash_prefill_attention.launches_cuda_cores,
+    fp32_launches = {"flash_prefill_fp32": flash_prefill_attention.launches_fp32_tc,
                      "flash_decode_fp32": flash_decode_attention.launches,
-                     "flash_suffix_fp32": flash_suffix_attention.launches_suffix_cuda_cores}
+                     "flash_suffix_fp32": flash_suffix_attention.launches_suffix_fp32_tc}
     _zero_counts()
     small_train_reference(dev, tokenizer)
     fp32_launches["flash_train_fwd_fp32"] = flash_train_forward.launches_cuda_cores
@@ -6414,7 +6651,7 @@ def main():
     fp32_launches["int8_mm_fp32"] = int8_matmul.launches_gemv
     fp32_launches["int8_ffn_fp32"] = int8_ffn.launches_cuda_cores
     fp32_launches["flash_suffix_kv8_fp32"] = (
-        flash_suffix_attention.launches_suffix_kv8_cuda_cores)
+        flash_suffix_attention.launches_suffix_kv8_fp32_tc)
     fp32_launches["flash_decode_kv8_fp32"] = flash_decode_attention_kv8.launches
     print(f"fp32 routes' launches in phases 3, 3b and 3c: {fp32_launches}")
     if min(fp32_launches.values()) <= 0:
@@ -6464,7 +6701,7 @@ def main():
     gc.collect()  # nothing of the mesh stays for the evaluation tools
     torch.cuda.empty_cache()
     for name, n in run_eval_tools(dev, tokenizer, train, smi).items():
-        launches[name] += n
+        launches[name] = launches.get(name, 0) + n
     gc.collect()  # nothing of the evaluation tools stays for fp16 serving
     torch.cuda.empty_cache()
     half_cases, half_launches = run_half(dev, tokenizer)

@@ -39,14 +39,13 @@
 //   counters are allocated once per device by the wrapper.
 // * "wgmma", bf16 (fp16) x and B > 8 (every prefill): tensor-core product,
 //   `int4_wgmma_kernel` below, whose note gives its design.
-// * "fp32_tiled", fp32 x and B > 8 (the small fp32 reference models):
-//   tiled product on the CUDA cores. A block computes a 128 x 128 output
-//   tile; per step it stages 8 packed rows (16 logical rows) of W, unpacked
-//   and dequantized in fp32 with their group scales, and the matching 16
-//   columns of x in shared memory; each thread accumulates an 8 x 8
-//   sub-tile in fp32 registers.
+// * "fp32_tc", fp32 x and B > 8 (the fp32 models: JAX's tiny ones, the
+//   in-context evaluation over an int4 checkpoint): `int4_tf32_kernel`
+//   below, the products on the tensor cores as two TF32 terms of x times
+//   the exact q, each group's sum scaled once (its note gives the design).
+//   Its own C entry point, fs_int4_matmul_fp32, takes the tile shape.
 //
-// The W of each route: fp32 x (the "gemv" and "fp32_tiled" routes) uses
+// The W of each route: fp32 x (the "gemv" and "fp32_tc" routes) uses
 // q * s in fp32 (the JAX package's `int4_matmul_reference`). bf16 x (the
 // "gemv" and "wgmma" routes) uses rn_bf16(q * rn_bf16(s)), which is
 // bitwise the W of the Pallas kernel: it casts the nibble and the scale to
@@ -78,6 +77,7 @@
 #include <type_traits>
 
 #include "common.cuh"
+#include "tf32.cuh"
 #include "tma.cuh"
 #include "wgmma.cuh"
 
@@ -91,17 +91,6 @@ constexpr int GV_SLICES = GV_THREADS / GV_CT;   // row slices per block
 constexpr int GV_U = 8;                         // rows in flight per thread
 constexpr int GV_CHUNK = GV_SLICES * GV_U;      // packed rows per block step
 constexpr int GV_MAXB = 8;                      // rows of x the matvec kernel takes
-
-__device__ __forceinline__ void load4(const uint8_t* row, int col0, int out_dim,
-                                      bool vec, uint8_t w[4]) {
-  if (vec) {
-    const uchar4 v = *reinterpret_cast<const uchar4*>(row + col0);
-    w[0] = v.x; w[1] = v.y; w[2] = v.z; w[3] = v.w;
-  } else {
-#pragma unroll
-    for (int c = 0; c < 4; ++c) w[c] = col0 + c < out_dim ? row[col0 + c] : 0x88;
-  }
-}
 
 template <typename P>
 __device__ __forceinline__ P as_pair(uint32_t v) {
@@ -373,81 +362,598 @@ __global__ void __launch_bounds__(GV_THREADS, NB <= 4 ? 2 : 1)
   if (threadIdx.x == 0) counters[blockIdx.x] = 0;
 }
 
-constexpr int BM = 128, BN = 128, KP = 8;  // tile rows, tile columns, packed rows per step
-constexpr int KL = 2 * KP;                 // logical rows per step
-constexpr int APAD = 4;                    // padding of the x tile against bank conflicts
+// ---------------------------------------------------------------------------
+// The "fp32_tc" route: y (B, O) fp32 = x (B, I) fp32 @ W, W = q * s, on the
+// tensor cores (`int4_tf32_kernel`). It replaced a tiled kernel on the CUDA
+// cores (`int4_gemm_kernel`: 128 x 128 tiles, two fp32 scales read from
+// device memory for every W byte, two barriers a step and nothing
+// overlapped; 26x cuBLAS's time at the slow w13, B = 1024, on an H100).
+//
+// What bounds it: 2 B I O operations, ops-bound from B ~ 80 at s2-pro's
+// widths (fp32's 67 TFLOP/s on the CUDA cores; the tensor cores' TF32 rate
+// is 495). The design:
+// * The scale comes out of each group's sum: y = sum over groups G of
+//   s[G, o] * (sum over the group's rows i of x[b, i] q[i, o]). q is an
+//   integer in [-8, 7], exact in TF32, and x = big + small (tf32.cuh), so
+//   the group's sum is two mma.sync m16n8k8 .tf32 per tile, fp32 sums in
+//   the accumulators `acc`, and its epilogue adds s * acc into y in fp32:
+//   the only rounding that differs from the JAX package's
+//   `int4_matmul_reference` (x @ (q * s) in fp32) is the factored scale
+//   and 2^-20 |x| of x's split.
+// * Passes: packed row r holds logical rows r (low nibble) and r + I/2
+//   (high nibble), which lie in two groups, so the K loop walks passes
+//   (group G of the low half, then the same packed rows' high nibbles as
+//   group G + I/2g): one `acc` set beside y, and the second pass reads its
+//   bytes from L2. Every group size the quantizer writes works: a pass is
+//   g packed rows cut into stages of KP, the last one zero-filled.
+// * A ring of NBUF stages in shared memory, filled by cp.async a stage
+//   ahead of the math, one barrier a stage: each stage holds the pass's x
+//   columns (BM rows x KP, rows padded to 48 floats), its packed bytes (KP
+//   rows x BN, 32 bytes more every fourth row) and, on the pass's last
+//   stage, its scale row (BN floats): scales are read once per (group,
+//   column) per block.
+// * Warp tiles of MT m16 tiles x 32 columns. Inside a k16 step lane (g, t)
+//   takes K 4t..4t+3 (one 16-byte load of x per row, two mma k8 steps of
+//   K pairs), and n8 tile j's column n is column 4n + j of the warp's 32:
+//   one 32-bit load of a packed row gives a lane its B values of all four
+//   tiles, and its accumulators hold columns 8t..8t+7 of each row
+//   (16-byte stores and scale loads). The paddings keep those loads free
+//   of bank conflicts.
+// * Tile shapes (`Tile`, picked by the wrapper's `ops/int4.py:fp32_tc_plan`
+//   from the shape and the SM count): 64 x 64, 32 x 64 and 16 x 64 on
+//   mma.sync, and 64 x 128 on wgmma (`int4_tf32_wgmma_kernel` below: the
+//   fastest where x has 64 rows or more, measured 1.5x the rate of a
+//   128 x 128 mma.sync tile, which the plan therefore never picked and
+//   which is not built); where a shape's tiles still leave SMs idle
+//   (s2-pro's wo and w2, O = 2560, at few rows) the groups are split into
+//   runs (whole groups, any count) over the grid's z, each run's y partial
+//   written to a workspace and the last run of a tile to finish (a
+//   release/acquire counter) adding them in run order. One launch, a fixed
+//   order of sums, replays in equal bits.
+// ---------------------------------------------------------------------------
+namespace tf {
 
-template <typename T>
-__global__ void __launch_bounds__(256)
-    int4_gemm_kernel(const T* __restrict__ x, const uint8_t* __restrict__ p,
-                     const float* __restrict__ gs, T* __restrict__ out,
-                     int batch, int in_dim, int out_dim, int group) {
-  __shared__ float As[KL][BM + APAD];  // x tile, k-major
-  __shared__ float Bs[KL][BN];         // dequantized W tile
-  const int half = in_dim / 2;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  float acc[8][8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+constexpr int KP = 32;    // packed rows of a stage: two k16 steps
+constexpr int NBUF = 4;   // stages of the ring
+constexpr int XS = KP + 16;  // padded x row (floats): 16-byte loads conflict-free
+constexpr int N_TILES = 4;   // tile shapes, `ops/int4.py:FP32_TC_TILES`
 
-  const int bj = threadIdx.x / 32;        // packed row of the W tile this thread loads
-  const int bc = (threadIdx.x % 32) * 4;  // its 4 columns
-  const bool bvec = (out_dim % 4 == 0) && (n0 + bc + 4 <= out_dim);
+template <int MT_, int WM_, int WN_>
+struct Tile {
+  static constexpr int MT = MT_, WM = WM_, WN = WN_;  // m16 tiles a warp, warps
+  static constexpr int THREADS = 32 * WM * WN;
+  static constexpr int BM = 16 * MT * WM;  // rows of x a block
+  static constexpr int BN = 32 * WN;       // output columns a block
+  static constexpr int X_TILE = BM * XS * 4;
+  static constexpr int P_TILE = KP * BN + (KP / 4) * 32;
+  static constexpr int STAGE = X_TILE + P_TILE + BN * 4;
+  static constexpr int SMEM = NBUF * STAGE;
+};
 
-  for (int r0 = 0; r0 < half; r0 += KP) {
-    for (int idx = threadIdx.x; idx < KL * BM; idx += 256) {
-      const int m = idx / KL, kk = idx % KL;
-      const int r = r0 + (kk % KP);
-      const int row = kk < KP ? r : half + r;
-      As[kk][m] = (m0 + m < batch && r < half)
-                      ? fs::to_float(x[(size_t)(m0 + m) * in_dim + row])
-                      : 0.f;
+// byte offset of packed row r in a stage: 32 bytes more every fourth row,
+// so that lanes t = 0..3 reading rows 4t + e land on distinct banks
+template <int BN>
+__device__ __forceinline__ int prow(int r) {
+  return r * BN + (r >> 2) * 32;
+}
+
+struct Args {
+  const float* x;
+  const uint8_t* p;
+  const float* gs;
+  float* out;
+  float* work;   // n_split > 1: n_split partials of (B, O)
+  int* counters; // one per output tile, 0 on entry and exit
+  int batch, in_dim, out_dim, group;
+  int stages_per_pass, n_groups;  // groups of a half; run z: groups [z G / n, (z + 1) G / n)
+  bool xvec, pvec, svec;  // 16-byte copies possible (else 4-byte or bytes)
+};
+
+// Stage `st` into buffer `sm`: pass st / SP (group j, half h), its stage
+// st % SP of KP packed rows; rows past the pass are zero.
+template <class L>
+__device__ __forceinline__ void load_stage(uint8_t* sm, int st, int m0, int n0,
+                                           const Args& a) {
+  using namespace fs::wg;
+  const int pass = st / a.stages_per_pass, sub = st % a.stages_per_pass;
+  const int j = pass >> 1, h = pass & 1, half = a.in_dim / 2;
+  const int r0 = j * a.group + sub * KP;
+  const int n_rows = min(KP, a.group - sub * KP);
+  const int t = threadIdx.x;
+  float* xs = reinterpret_cast<float*>(sm);
+  // x: BM rows x KP columns h * I/2 + r0 + kk
+  if (a.xvec) {
+    for (int idx = t; idx < L::BM * (KP / 4); idx += L::THREADS) {
+      const int m = idx / (KP / 4), c = idx % (KP / 4);
+      const bool ok = m0 + m < a.batch && 4 * c < n_rows;
+      const float* src = a.x + (size_t)(m0 + m) * a.in_dim + h * half + r0 + 4 * c;
+      cp_async16(xs + m * XS + 4 * c, ok ? src : a.x, ok);
     }
-    {
-      const int r = r0 + bj;
-      uint8_t w[4] = {0x88, 0x88, 0x88, 0x88};
-      if (r < half) load4(p + (size_t)r * out_dim, n0 + bc, out_dim, bvec, w);
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int col = n0 + bc + c;
-        float slo = 0.f, shi = 0.f;
-        if (r < half && col < out_dim) {
-          slo = gs[(size_t)(r / group) * out_dim + col];
-          shi = gs[(size_t)((r + half) / group) * out_dim + col];
-        }
-        Bs[bj][bc + c] = (float)((int)(w[c] & 0xF) - 8) * slo;
-        Bs[KP + bj][bc + c] = (float)((int)(w[c] >> 4) - 8) * shi;
-      }
+  } else {
+    for (int idx = t; idx < L::BM * KP; idx += L::THREADS) {
+      const int m = idx / KP, c = idx % KP;
+      const bool ok = m0 + m < a.batch && c < n_rows;
+      const float* src = a.x + (size_t)(m0 + m) * a.in_dim + h * half + r0 + c;
+      cp_async4(xs + m * XS + c, ok ? src : a.x, ok);
     }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < KL; ++kk) {
-      float a[8], b[8];
-#pragma unroll
-      for (int i = 0; i < 8; ++i) a[i] = As[kk][ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < 8; ++j) b[j] = Bs[kk][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
   }
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int m = m0 + ty + 16 * i;
-    if (m >= batch) continue;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int n = n0 + tx + 16 * j;
-      if (n < out_dim) fs::store(out + (size_t)m * out_dim + n, acc[i][j]);
+  // packed bytes: KP rows x BN columns
+  uint8_t* ps = sm + L::X_TILE;
+  if (a.pvec) {
+    for (int idx = t; idx < KP * (L::BN / 16); idx += L::THREADS) {
+      const int r = idx / (L::BN / 16), c = idx % (L::BN / 16);
+      const bool ok = r < n_rows && n0 + 16 * c < a.out_dim;
+      const uint8_t* src = a.p + (size_t)(r0 + r) * a.out_dim + n0 + 16 * c;
+      cp_async16(ps + prow<L::BN>(r) + 16 * c, ok ? src : a.p, ok);
+    }
+  } else {
+    for (int idx = t; idx < KP * L::BN; idx += L::THREADS) {
+      const int r = idx / L::BN, c = idx % L::BN;
+      ps[prow<L::BN>(r) + c] =
+          r < n_rows && n0 + c < a.out_dim ? a.p[(size_t)(r0 + r) * a.out_dim + n0 + c] : 0;
+    }
+  }
+  // the pass's scale row, on its last stage
+  if (sub != a.stages_per_pass - 1) return;
+  float* ss = reinterpret_cast<float*>(sm + L::X_TILE + L::P_TILE);
+  const float* srow = a.gs + (size_t)(h * (half / a.group) + j) * a.out_dim + n0;
+  if (a.svec) {
+    for (int c = t; c < L::BN / 4; c += L::THREADS) {
+      const bool ok = n0 + 4 * c < a.out_dim;
+      cp_async16(ss + 4 * c, ok ? srow + 4 * c : a.gs, ok);
+    }
+  } else {
+    for (int c = t; c < L::BN; c += L::THREADS) {
+      const bool ok = n0 + c < a.out_dim;
+      cp_async4(ss + c, ok ? srow + c : a.gs, ok);
     }
   }
 }
+
+// The stages of this block's run of groups (the grid's z cuts the groups
+// into runs of whole groups, their sizes differing by at most one): each
+// group is two passes of stages_per_pass stages.
+__device__ __forceinline__ void run_stages(const Args& a, int* st0, int* n_st) {
+  const int g0 = blockIdx.z * a.n_groups / gridDim.z;
+  const int g1 = (blockIdx.z + 1) * a.n_groups / gridDim.z;
+  *st0 = 2 * g0 * a.stages_per_pass;
+  *n_st = 2 * (g1 - g0) * a.stages_per_pass;
+}
+
+// After a split run's partial of output tile (m0, n0) is stored: the last
+// run of the tile to finish adds the runs' partials in run order and puts
+// the tile's counter back to 0 (a block of `threads`, all calling).
+__device__ __forceinline__ void merge_runs(const Args& a, int m0, int n0, int bm, int bn,
+                                           int threads, int* last_s) {
+  const int n_split = gridDim.z;
+  __syncthreads();  // the block's partial is stored: publish it
+  const int tile_id = blockIdx.y * gridDim.x + blockIdx.x;
+  if (threadIdx.x == 0)
+    *last_s = fs::atomic_add_acq_rel(a.counters + tile_id, 1) == n_split - 1;
+  __syncthreads();
+  if (!*last_s) return;
+  for (int idx = threadIdx.x; idx < bm * bn; idx += threads) {
+    const int m = m0 + idx / bn, c = n0 + idx % bn;
+    if (m >= a.batch || c >= a.out_dim) continue;
+    const size_t at = (size_t)m * a.out_dim + c;
+    a.out[at] = sum_partials(a.work + at, (size_t)a.batch * a.out_dim, n_split);
+  }
+  if (threadIdx.x == 0) a.counters[tile_id] = 0;
+}
+
+template <class L>
+__global__ void __launch_bounds__(L::THREADS)
+    int4_tf32_kernel(const __grid_constant__ Args a) {
+  using namespace fs::wg;
+  constexpr int MT = L::MT;
+  extern __shared__ __align__(16) uint8_t smem[];
+  const int m0 = blockIdx.y * L::BM, n0 = blockIdx.x * L::BN;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int wm = warp / L::WN, wn = warp % L::WN;
+  const int row0 = wm * 16 * MT + g;  // the lane's first row of x in the block
+  const int col0 = wn * 32;           // its warp's first column in the block
+  const int sp = a.stages_per_pass;
+  int st0, n_st;
+  run_stages(a, &st0, &n_st);
+  __shared__ int last_s;
+
+  float y[MT][4][4], acc[MT][4][4];
+#pragma unroll
+  for (int mi = 0; mi < MT; ++mi)
+#pragma unroll
+    for (int jn = 0; jn < 4; ++jn)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) y[mi][jn][e] = acc[mi][jn][e] = 0.f;
+
+#pragma unroll
+  for (int s = 0; s < NBUF - 1; ++s) {
+    if (s < n_st) load_stage<L>(smem + s * L::STAGE, st0 + s, m0, n0, a);
+    cp_async_commit();
+  }
+  for (int ls = 0; ls < n_st; ++ls) {
+    const int st = st0 + ls;    // the stage of the whole walk
+    fs::tf32::cp_async_wait<NBUF - 2>();  // stage st has landed
+    __syncthreads();            // ... for every thread; stage st - 1 is read
+    const int nxt = ls + NBUF - 1;
+    if (nxt < n_st) load_stage<L>(smem + (nxt % NBUF) * L::STAGE, st0 + nxt, m0, n0, a);
+    cp_async_commit();
+
+    const uint8_t* sm = smem + (ls % NBUF) * L::STAGE;
+    const float* xs = reinterpret_cast<const float*>(sm);
+    const uint8_t* ps = sm + L::X_TILE;
+    const bool high = (st / sp) & 1;  // the pass's nibble
+#pragma unroll
+    for (int kc = 0; kc < KP / 16; ++kc) {
+      // B: packed rows kc*16 + 4t + e, the warp's columns 4g..4g+3; q of
+      // tile j (column 4n + j) in byte j
+      uint32_t bq[4][4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        uint32_t w = *reinterpret_cast<const uint32_t*>(
+            ps + prow<L::BN>(kc * 16 + 4 * t + e) + col0 + 4 * g);
+        w = (high ? w >> 4 : w) & 0x0F0F0F0Fu;
+        bq[e][0] = fs::tf32::nibble_q<0>(w);
+        bq[e][1] = fs::tf32::nibble_q<1>(w);
+        bq[e][2] = fs::tf32::nibble_q<2>(w);
+        bq[e][3] = fs::tf32::nibble_q<3>(w);
+      }
+      // x of every m tile first (k index t of step s is K 4t + 2s, t + 4 is
+      // 4t + 2s + 1), then each step's and term's mmas over all MT x 4
+      // tiles: an accumulator's next mma comes 4 MT mmas after its last
+      float4 xr[MT][2];
+#pragma unroll
+      for (int mi = 0; mi < MT; ++mi)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          xr[mi][h] = *reinterpret_cast<const float4*>(
+              xs + (row0 + 16 * mi + 8 * h) * XS + kc * 16 + 4 * t);
+#pragma unroll
+      for (int s = 0; s < 2; ++s) {
+        uint32_t big[MT][4], small[MT][4];
+#pragma unroll
+        for (int mi = 0; mi < MT; ++mi) {
+          const float v[4] = {s ? xr[mi][0].z : xr[mi][0].x, s ? xr[mi][1].z : xr[mi][1].x,
+                              s ? xr[mi][0].w : xr[mi][0].y, s ? xr[mi][1].w : xr[mi][1].y};
+#pragma unroll
+          for (int e = 0; e < 4; ++e) fs::tf32::split(v[e], big[mi][e], small[mi][e]);
+        }
+#pragma unroll
+        for (int mi = 0; mi < MT; ++mi)
+#pragma unroll
+          for (int jn = 0; jn < 4; ++jn)
+            fs::tf32::mma(acc[mi][jn], big[mi][0], big[mi][1], big[mi][2], big[mi][3],
+                          bq[2 * s][jn], bq[2 * s + 1][jn]);
+#pragma unroll
+        for (int mi = 0; mi < MT; ++mi)
+#pragma unroll
+          for (int jn = 0; jn < 4; ++jn)
+            fs::tf32::mma(acc[mi][jn], small[mi][0], small[mi][1], small[mi][2],
+                          small[mi][3], bq[2 * s][jn], bq[2 * s + 1][jn]);
+      }
+    }
+    if (st % sp == sp - 1) {  // the pass's end: y += s * acc
+      const float* ss = reinterpret_cast<const float*>(sm + L::X_TILE + L::P_TILE);
+      const float4 s0 = *reinterpret_cast<const float4*>(ss + col0 + 8 * t);
+      const float4 s1 = *reinterpret_cast<const float4*>(ss + col0 + 8 * t + 4);
+      const float sc[8] = {s0.x, s0.y, s0.z, s0.w, s1.x, s1.y, s1.z, s1.w};
+#pragma unroll
+      for (int mi = 0; mi < MT; ++mi)
+#pragma unroll
+        for (int jn = 0; jn < 4; ++jn)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            // accumulator e: column 8t + jn (e even) or 8t + 4 + jn (e odd)
+            y[mi][jn][e] = fmaf(sc[jn + 4 * (e & 1)], acc[mi][jn][e], y[mi][jn][e]);
+            acc[mi][jn][e] = 0.f;
+          }
+    }
+  }
+  fs::tf32::cp_async_wait<0>();
+
+  // lane (g, t): rows row0 + 16 mi (+ 8), columns 8t .. 8t + 7 of its warp's
+  // 32; with a split, into this run's partial
+  const int n_split = gridDim.z;
+  const int col = n0 + col0 + 8 * t;
+  const bool vec = a.out_dim % 4 == 0 && col + 8 <= a.out_dim;
+  float* yout = n_split == 1 ? a.out : a.work + (size_t)blockIdx.z * a.batch * a.out_dim;
+#pragma unroll
+  for (int mi = 0; mi < MT; ++mi)
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int m = m0 + row0 + 16 * mi + 8 * hr;
+      if (m >= a.batch) continue;
+      float o[8];
+#pragma unroll
+      for (int jn = 0; jn < 4; ++jn) {
+        o[jn] = y[mi][jn][2 * hr];
+        o[4 + jn] = y[mi][jn][2 * hr + 1];
+      }
+      float* dst = yout + (size_t)m * a.out_dim + col;
+      if (vec) {
+        *reinterpret_cast<float4*>(dst) = make_float4(o[0], o[1], o[2], o[3]);
+        *reinterpret_cast<float4*>(dst + 4) = make_float4(o[4], o[5], o[6], o[7]);
+      } else {
+#pragma unroll
+        for (int c = 0; c < 8; ++c)
+          if (col + c < a.out_dim) dst[c] = o[c];
+      }
+    }
+  if (n_split == 1) return;
+  merge_runs(a, m0, n0, L::BM, L::BN, L::THREADS, &last_s);
+}
+
+template <class L>
+int launch(const Args& a, int n_split, cudaStream_t stream) {
+  static bool sized = false;  // one attribute call per instantiation
+  if (!sized) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        int4_tf32_kernel<L>, cudaFuncAttributeMaxDynamicSharedMemorySize, L::SMEM);
+    if (e != cudaSuccess) return (int)e;
+    sized = true;
+  }
+  dim3 grid((a.out_dim + L::BN - 1) / L::BN, (a.batch + L::BM - 1) / L::BM, n_split);
+  int4_tf32_kernel<L><<<grid, L::THREADS, L::SMEM, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// the mma.sync tile shapes, as `ops/int4.py:FP32_TC_TILES` lists them (the
+// fourth, 64 x 128, is `WTile` below)
+using Tile0 = Tile<2, 2, 2>;  // 64 x 64, 128 threads
+using Tile1 = Tile<1, 2, 2>;  // 32 x 64, 128 threads
+using Tile2 = Tile<1, 1, 2>;  // 16 x 64, 64 threads
+
+template <class L>
+int occupancy(int* blocks) {
+  const cudaError_t e = cudaFuncSetAttribute(
+      int4_tf32_kernel<L>, cudaFuncAttributeMaxDynamicSharedMemorySize, L::SMEM);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, int4_tf32_kernel<L>,
+                                                            L::THREADS, L::SMEM);
+}
+
+
+// ---------------------------------------------------------------------------
+// Tile shape 3, the wgmma form of the same kernel (`int4_tf32_wgmma_kernel`):
+// 64 rows of x x 128 output columns a block, two warpgroups of 64 columns.
+// The product runs as y^T = W^T x^T: wgmma's M is O, its N the rows of x.
+// q is the A operand, from registers (exact in TF32, four values a k8 step
+// from two 16-bit loads of packed bytes: fragment rows g and g + 8 of a
+// warp are its columns 2g and 2g + 1); x is the B operand, K-major in
+// shared memory in the 128-byte swizzle, as two tiles (big and small,
+// split in place by the thread that copied each 16-byte chunk). A stage is
+// KP packed rows of one pass: 4 k8 steps x 2 terms = 8 wgmma.m64n64k8
+// .tf32 a warpgroup, the pass's first starting its accumulators at 0, its
+// last followed by y += s * acc; each stage's wgmmas are retired before the
+// next (ptxas serializes wgmmas whose register operands are written while
+// others are in flight), and two blocks an SM keep the tensor cores busy
+// while one splits x and loads its fragments. The ring, passes and split
+// of the groups are the mma.sync form's.
+
+// d (64 x 64, fp32) = (scale_d ? d : 0) + a (64 x 8, tf32, registers) * b
+// (8 x 64, tf32, shared memory, K-major)
+__device__ __forceinline__ void wgmma_m64n64k8_tf32(float (&d)[32], const uint32_t (&a)[4],
+                                                    uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]),
+        "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]),
+        "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]),
+        "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+struct WTile {
+  static constexpr int BM = 64, BN = 128, THREADS = 256;
+  static constexpr int NST = 3;                  // stages of the ring
+  static constexpr int PSW = BN + 16;            // padded packed row (bytes)
+  static constexpr int X_TILE = BM * 128;        // 64 rows x 32 floats, swizzled
+  static constexpr int P_OFF = 2 * X_TILE;       // after the big and small tiles
+  static constexpr int S_OFF = P_OFF + KP * PSW;
+  static constexpr int STAGE = S_OFF + BN * 4;  // 21 KB: 1024-byte aligned
+  static constexpr int SMEM = 1024 + NST * STAGE;    // + alignment slack
+  static_assert(STAGE % 1024 == 0, "the swizzled tiles want 1024-byte stages");
+};
+
+// Stage `st` into `sm`: x chunk (r, c) of the stage (16 bytes: K 4c..4c+3 of
+// row r) at its 128-byte-swizzled place, two chunks a thread (the thread
+// that splits them), the packed bytes one chunk a thread, the scale row.
+__device__ __forceinline__ void load_stage_w(uint8_t* sm, int st, int m0, int n0,
+                                             const Args& a) {
+  using namespace fs::wg;
+  using L = WTile;
+  const int pass = st / a.stages_per_pass, sub = st % a.stages_per_pass;
+  const int j = pass >> 1, h = pass & 1, half = a.in_dim / 2;
+  const int r0 = j * a.group + sub * KP;
+  const int n_rows = min(KP, a.group - sub * KP);
+  const int t = threadIdx.x;
+#pragma unroll
+  for (int u = 0; u < 2; ++u) {
+    const int idx = t + L::THREADS * u, r = idx / 8, c = idx % 8;
+    const float* src = a.x + (size_t)(m0 + r) * a.in_dim + h * half + r0 + 4 * c;
+    uint8_t* dst = sm + sw128(r, c);
+    if (a.xvec) {
+      const bool ok = m0 + r < a.batch && 4 * c < n_rows;
+      cp_async16(dst, ok ? src : a.x, ok);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const bool ok = m0 + r < a.batch && 4 * c + e < n_rows;
+        cp_async4(dst + 4 * e, ok ? src + e : a.x, ok);
+      }
+    }
+  }
+  {
+    const int r = t / 8, c = t % 8;
+    uint8_t* dst = sm + L::P_OFF + r * L::PSW + 16 * c;
+    const uint8_t* src = a.p + (size_t)(r0 + r) * a.out_dim + n0 + 16 * c;
+    if (a.pvec) {
+      const bool ok = r < n_rows && n0 + 16 * c < a.out_dim;
+      cp_async16(dst, ok ? src : a.p, ok);
+    } else {
+      for (int e = 0; e < 16; ++e)
+        dst[e] = r < n_rows && n0 + 16 * c + e < a.out_dim ? src[e] : 0;
+    }
+  }
+  if (sub != a.stages_per_pass - 1) return;
+  float* ss = reinterpret_cast<float*>(sm + L::S_OFF);
+  const float* srow = a.gs + (size_t)(h * (half / a.group) + j) * a.out_dim + n0;
+  if (a.svec) {
+    if (t < L::BN / 4) {
+      const bool ok = n0 + 4 * t < a.out_dim;
+      cp_async16(ss + 4 * t, ok ? srow + 4 * t : a.gs, ok);
+    }
+  } else if (t < L::BN) {
+    const bool ok = n0 + t < a.out_dim;
+    cp_async4(ss + t, ok ? srow + t : a.gs, ok);
+  }
+}
+
+__global__ void __launch_bounds__(WTile::THREADS, 2)
+    int4_tf32_wgmma_kernel(const __grid_constant__ Args a) {
+  using namespace fs::wg;
+  using L = WTile;
+  extern __shared__ uint8_t smem_w[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_w) + 1023) & ~uintptr_t(1023));
+  __shared__ int last_s;
+  const int m0 = blockIdx.y * L::BM, n0 = blockIdx.x * L::BN;
+  const int t = threadIdx.x, wg = t / 128, w = (t % 128) / 32;
+  const int lane = t % 32, g = lane / 4, tq = lane % 4;
+  const int col = 64 * wg + 16 * w + 2 * g;  // the lane's two columns in the block
+  const int sp = a.stages_per_pass;
+  int st0, n_st;
+  run_stages(a, &st0, &n_st);
+
+  float acc[32], y[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] = y[i] = 0.f;
+
+#pragma unroll
+  for (int s = 0; s < L::NST - 1; ++s) {
+    if (s < n_st) load_stage_w(smem + s * L::STAGE, st0 + s, m0, n0, a);
+    cp_async_commit();
+  }
+  for (int ls = 0; ls < n_st; ++ls) {
+    const int st = st0 + ls;
+    fs::tf32::cp_async_wait<L::NST - 2>();  // stage st has landed
+    __syncthreads();  // ... for every thread; stage st - 1's wgmmas are retired
+    const int nxt = ls + L::NST - 1;
+    if (nxt < n_st) load_stage_w(smem + (nxt % L::NST) * L::STAGE, st0 + nxt, m0, n0, a);
+    cp_async_commit();
+    uint8_t* sm = smem + (ls % L::NST) * L::STAGE;
+    // this thread's two x chunks: big in place, small in the second tile
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int idx = t + L::THREADS * u, off = sw128(idx / 8, idx % 8);
+      const float4 v = *reinterpret_cast<const float4*>(sm + off);
+      uint32_t b[4], s[4];
+      fs::tf32::split(v.x, b[0], s[0]);
+      fs::tf32::split(v.y, b[1], s[1]);
+      fs::tf32::split(v.z, b[2], s[2]);
+      fs::tf32::split(v.w, b[3], s[3]);
+      *reinterpret_cast<uint4*>(sm + off) = make_uint4(b[0], b[1], b[2], b[3]);
+      *reinterpret_cast<uint4*>(sm + L::X_TILE + off) = make_uint4(s[0], s[1], s[2], s[3]);
+    }
+    // A fragments of the 4 k8 steps: (row g, k t) is column 2g at packed
+    // row 8f + t, (g + 8, t) column 2g + 1, (g, t + 4) and (g + 8, t + 4)
+    // the same at packed row 8f + t + 4
+    const bool high = (st / sp) & 1;
+    uint32_t af[4][4];
+#pragma unroll
+    for (int f = 0; f < 4; ++f)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        uint32_t wd =
+            *reinterpret_cast<const uint16_t*>(sm + L::P_OFF + (8 * f + tq + 4 * e) * L::PSW + col);
+        wd = (high ? wd >> 4 : wd) & 0x0F0Fu;
+        af[f][2 * e] = fs::tf32::nibble_q<0>(wd);
+        af[f][2 * e + 1] = fs::tf32::nibble_q<1>(wd);
+      }
+    fs::tma::fence_proxy_async();  // the split tiles' writes before wgmma reads them
+    __syncthreads();
+    const uint32_t xb = smem_u32(sm);
+    uint64_t db[4], ds[4];
+#pragma unroll
+    for (int f = 0; f < 4; ++f) {
+      db[f] = sw128_desc(xb + 32 * f);
+      ds[f] = sw128_desc(xb + L::X_TILE + 32 * f);
+      asm volatile("" : "+l"(db[f]), "+l"(ds[f]));
+#pragma unroll
+      for (int r = 0; r < 4; ++r) asm volatile("" : "+r"(af[f][r]));
+    }
+    const int keep = st % sp != 0;  // the pass's first stage starts acc at 0
+    fence_regs(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int f = 0; f < 4; ++f) {
+      wgmma_m64n64k8_tf32(acc, af[f], db[f], keep | (f > 0));
+      wgmma_m64n64k8_tf32(acc, af[f], ds[f], 1);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
+    if (st % sp == sp - 1) {  // the pass's end: y += s * acc
+      const float* ss = reinterpret_cast<const float*>(sm + L::S_OFF);
+      const float s0 = ss[col], s1 = ss[col + 1];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) y[i] = fmaf((i / 2) % 2 ? s1 : s0, acc[i], y[i]);
+    }
+  }
+  fs::tf32::cp_async_wait<0>();
+
+  // accumulator i: output column col + (i / 2) % 2, row 8 (i / 4) + 2 tq + i % 2
+  const int n_split = gridDim.z;
+  float* yout = n_split == 1 ? a.out : a.work + (size_t)blockIdx.z * a.batch * a.out_dim;
+  const int c = n0 + col;
+  const bool pair = a.out_dim % 2 == 0 && c + 2 <= a.out_dim;
+#pragma unroll
+  for (int i = 0; i < 32; i += 4)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int m = m0 + 8 * (i / 4) + 2 * tq + e;
+      if (m >= a.batch) continue;
+      float* dst = yout + (size_t)m * a.out_dim + c;
+      if (pair) {
+        *reinterpret_cast<float2*>(dst) = make_float2(y[i + e], y[i + 2 + e]);
+      } else {
+        if (c < a.out_dim) dst[0] = y[i + e];
+        if (c + 1 < a.out_dim) dst[1] = y[i + 2 + e];
+      }
+    }
+  if (n_split == 1) return;
+  merge_runs(a, m0, n0, L::BM, L::BN, L::THREADS, &last_s);
+}
+
+int launch_wgmma(const Args& a, int n_split, cudaStream_t stream) {
+  static bool sized = false;
+  if (!sized) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        int4_tf32_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, WTile::SMEM);
+    if (e != cudaSuccess) return (int)e;
+    sized = true;
+  }
+  dim3 grid((a.out_dim + WTile::BN - 1) / WTile::BN, (a.batch + WTile::BM - 1) / WTile::BM,
+            n_split);
+  int4_tf32_wgmma_kernel<<<grid, WTile::THREADS, WTile::SMEM, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+int occupancy_wgmma(int* blocks) {
+  const cudaError_t e = cudaFuncSetAttribute(
+      int4_tf32_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, WTile::SMEM);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, int4_tf32_wgmma_kernel,
+                                                            WTile::THREADS, WTile::SMEM);
+}
+
+}  // namespace tf
 
 // ---------------------------------------------------------------------------
 // The "wgmma" route: y (B, O) bf16 = x (B, I) bf16 @ W, W = rn_bf16(q *
@@ -1080,7 +1586,7 @@ int launch_gemv_rows(int batch, const void* x, const uint8_t* p,
 }
 
 // route codes, as `ops/int4.py:ROUTES`
-constexpr int kRouteGemv = 0, kRouteWgmma = 1, kRouteFp32Tiled = 2;
+constexpr int kRouteGemv = 0, kRouteWgmma = 1;
 
 
 // The launch of a 16-bit x's route (fs_int4_matmul's contract, its checks

@@ -135,6 +135,10 @@ def load_kernels() -> ctypes.CDLL:
         ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, i32, ptr
     ]
     lib.fs_int4_matmul.restype = i32
+    lib.fs_int4_matmul_fp32.argtypes = [ptr] * 6 + [i32] * 6 + [ptr]
+    lib.fs_int4_matmul_fp32.restype = i32
+    lib.fs_int4_fp32_occupancy.argtypes = [i32, ptr]
+    lib.fs_int4_fp32_occupancy.restype = i32
     lib.fs_int8_matmul.argtypes = [
         ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, i32, i32, ptr
     ]

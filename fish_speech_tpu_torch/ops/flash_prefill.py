@@ -8,9 +8,12 @@ they are tiled), picked by `_route` on the dtype, an explicit dispatch, not
 a fallback: bf16 goes to "wgmma", the tensor-core kernel
 (`prefill_wgmma_kernel`, `csrc/attn_wgmma.cuh`), fp16 (`--half` serving) to
 "wgmma_f16", the same kernel on fp16 operands (P rounded to fp16), fp32 to
-"cuda_cores", the float32 kernel on the CUDA cores (`prefill_kernel`),
-which the small fp32 reference models use. `flash_prefill_reference` is
-their plain PyTorch version: the wrapper runs it for CPU tensors only; for
+"fp32_tc", the float32 kernel on the tensor cores in 3xTF32
+(`csrc/flash_fp32.cu:attn_tf32_kernel`: the G heads of a KV head packed
+into a block's 64 rows, K/V through a double-buffered cp.async ring), which
+the fp32 models use.
+`flash_prefill_reference` is their plain PyTorch version: the wrapper runs
+it for CPU tensors only; for
 a CUDA tensor it launches the route's kernel or raises, and counts the
 launches in `.launches` and `.launches_<route>` (`reset_launches` zeroes
 them).
@@ -27,8 +30,9 @@ kernel's dtype exactly, `ks` scales the columns of Q K^T and `vs` those of P
 before P V (the folding of `ops/attention.py:gqa_attention_kv8`). Its
 routes are counted as "suffix_wgmma", "suffix_kv8_wgmma" (bf16 q),
 "suffix_wgmma_f16", "suffix_kv8_wgmma_f16" (fp16 q; the int8 cache's
-scales stay bf16) and "suffix_cuda_cores", "suffix_kv8_cuda_cores" (fp32
-q); the plain version is `flash_suffix_reference`.
+scales stay bf16) and "suffix_fp32_tc", "suffix_kv8_fp32_tc" (fp32 q, the
+fp32 prefill's kernel with the suffix's split and merge); the plain
+version is `flash_suffix_reference`.
 
 The tensor-core suffix kernel (`csrc/flash_prefill.cu:suffix_wgmma_kernel`)
 is a decode over Ts * G query rows: a block takes 64 or 128 packed rows
@@ -71,15 +75,15 @@ def flash_prefill_reference(q, k, v, offsets):
 
 
 # fs_flash_prefill picks one by the dtype: fp32, bf16, fp16
-ROUTES = ("cuda_cores", "wgmma", "wgmma_f16")
-_DTYPE_ROUTES = {torch.float32: "cuda_cores", torch.bfloat16: "wgmma",
+ROUTES = ("fp32_tc", "wgmma", "wgmma_f16")
+_DTYPE_ROUTES = {torch.float32: "fp32_tc", torch.bfloat16: "wgmma",
                  torch.float16: "wgmma_f16"}
 
 
-# head widths each route takes: the tensor-core kernels 64 and 128, the
-# fp32 CUDA-core kernel also the tiny model's 32 (its slow stack; the fast
-# stack never prefills)
-HEAD_DIMS = {"cuda_cores": (32, 64, 128), "wgmma": (64, 128), "wgmma_f16": (64, 128)}
+# head widths each route takes: the 16-bit kernels 64 and 128, the fp32
+# kernel also the tiny model's 32 (its slow stack; the fast stack never
+# prefills)
+HEAD_DIMS = {"fp32_tc": (32, 64, 128), "wgmma": (64, 128), "wgmma_f16": (64, 128)}
 
 
 def _route(dtype: torch.dtype) -> str:
@@ -128,8 +132,7 @@ def flash_prefill_attention(q, k, v, offsets):
         return flash_prefill_reference(q, k, v, offsets)
     _check(q, k, v, offsets)
     route = _route(q.dtype)
-    if route != "cuda_cores":
-        check_aligned("flash_prefill_attention", q=q, k=k, v=v)
+    check_aligned("flash_prefill_attention", q=q, k=k, v=v)
     lib = load_kernels()
     b, t, h, d = q.shape
     out = torch.empty_like(q)
@@ -166,7 +169,7 @@ def flash_suffix_reference(q, cache, layer: int, start):
     return gqa_attention(q, cache["k"][layer], cache["v"][layer], mask)
 
 
-SUFFIX_ROUTES = ("suffix_cuda_cores", "suffix_wgmma", "suffix_kv8_cuda_cores",
+SUFFIX_ROUTES = ("suffix_fp32_tc", "suffix_wgmma", "suffix_kv8_fp32_tc",
                  "suffix_kv8_wgmma", "suffix_wgmma_f16", "suffix_kv8_wgmma_f16")
 SUFFIX_ROWS = 64  # packed query rows of a warpgroup (csrc: sfx::BQ)
 SUFFIX_KEYS = 64  # keys of a tile (csrc: sfx::BK)
@@ -181,7 +184,7 @@ def suffix_row_tiles(ts: int, n_group: int, rows_per_block: int = SUFFIX_ROWS) -
 
 
 def suffix_plan(s_len: int, n_kv: int, batch: int, ts: int, n_group: int,
-                n_sm: int):
+                n_sm: int, rows: int | None = None):
     """(rows a block, Z, tiles per slice), from the shape alone. 64 rows
     (the warpgroups take the tiles in turn: the keys walked twice as fast)
     while such blocks fit in one wave over the SMs, else 128 (each
@@ -193,9 +196,11 @@ def suffix_plan(s_len: int, n_kv: int, batch: int, ts: int, n_group: int,
     SUFFIX_MAX_SPLIT: a slice with keys costs its block's start-up and its
     partial's merge, so fewer blocks than SMs are better than a second
     wave (`scripts/suffix_bench.py`'s plan sweep). It never reads start,
-    so every hit launches alike."""
-    pair = 2 * SUFFIX_ROWS
-    rows = pair if batch * n_kv * suffix_row_tiles(ts, n_group) > n_sm else SUFFIX_ROWS
+    so every hit launches alike. `rows` fixes the rows a block (the fp32
+    kernel's 64)."""
+    if rows is None:
+        pair = 2 * SUFFIX_ROWS
+        rows = pair if batch * n_kv * suffix_row_tiles(ts, n_group) > n_sm else SUFFIX_ROWS
     tiles = -(-s_len // SUFFIX_KEYS)
     blocks = batch * n_kv * suffix_row_tiles(ts, n_group, rows)
     want = max(1, min(SUFFIX_BLOCKS_PER_SM * n_sm // blocks, tiles, SUFFIX_MAX_SPLIT))
@@ -363,15 +368,14 @@ def flash_suffix_attention(q, cache, layer: int, start):
     """Same contract as `flash_suffix_reference`; on CUDA tensors runs the
     kernel of `_suffix_route` (D in `HEAD_DIMS` of q's dtype; the caller keeps start + Ts
     <= S). It reads keys [0, start + Ts) of the layer only: one launch,
-    planned by `suffix_plan` on the tensor-core routes."""
+    planned by `suffix_plan` (64 rows a block in fp32)."""
     if q.device.type == "cpu":
         return flash_suffix_reference(q, cache, layer, start)
     _check_suffix(q, cache, layer, start)
     kv8 = "ks" in cache
     route = _suffix_route(q.dtype, kv8)
     k, v = cache["k"], cache["v"]
-    if "wgmma" in route:
-        check_aligned("flash_suffix_attention", q=q, k=k, v=v)
+    check_aligned("flash_suffix_attention", q=q, k=k, v=v)
     lib = load_kernels()
     b, ts, h, d = q.shape
     s, hkv = k.shape[2], k.shape[3]
@@ -379,9 +383,10 @@ def flash_suffix_attention(q, cache, layer: int, start):
     sc_layer = b * s * hkv * 2
     ks = cache["ks"].data_ptr() + layer * sc_layer if kv8 else 0
     vs = cache["vs"].data_ptr() + layer * sc_layer if kv8 else 0
-    rows, n_split, per = suffix_plan(s, hkv, b, ts, h // hkv, sm_count(q.device))
-    work = counters = 0  # NULL: one slice, or the fp32 route
-    if n_split > 1 and "wgmma" in route:
+    rows, n_split, per = suffix_plan(s, hkv, b, ts, h // hkv, sm_count(q.device),
+                                     SUFFIX_ROWS if q.dtype == torch.float32 else None)
+    work = counters = 0  # NULL: one slice
+    if n_split > 1:
         tiles = b * hkv * suffix_row_tiles(ts, h // hkv, rows)
         w, c = scratch("flash_suffix", q.device, n_split * tiles * rows * (2 + d), tiles)
         work, counters = w.data_ptr(), c.data_ptr()

@@ -24,8 +24,12 @@ explicit dispatch, not a fallback:
   * "wgmma", bf16 x with B > 8 (every prefill): a tensor-core kernel that
     dequantizes W as the Pallas kernel does, rn_bf16(q * rn_bf16(s)), and
     sums in fp32; its plain version is `int4_matmul_bf16w_reference`;
-  * "fp32_tiled", fp32 x with B > 8: a tiled product on the CUDA cores, W
-    in fp32;
+  * "fp32_tc", fp32 x with B > 8: the products on the tensor cores, x as
+    two TF32 terms times the exact q, each group's sum scaled once in fp32
+    (`csrc/int4_mm.cuh:int4_tf32_kernel` on mma.sync and
+    `int4_tf32_wgmma_kernel` on wgmma, its own C entry point; the tile
+    shape and a split of the groups into runs, summed in the launch, from
+    `fp32_tc_plan`);
   * "gemv_f16" and "wgmma_f16", fp16 x (`--half` serving), B <= 8 and
     B > 8: the first two routes' kernels on fp16 operands, W =
     rn_f16(q * rn_f16(s)) (`int4_dequant_f16`; plain version
@@ -51,13 +55,21 @@ from fish_speech_tpu_torch.ops._kernels import (DTYPE_CODES, check_launch,
 
 GEMV_MAX_ROWS = 8  # rows of x up to which the split-K matvec kernel runs
 # routes; the code of each in fs_int4_matmul, which takes fp16 x on the
-# codes of "gemv" and "wgmma"
-ROUTES = ("gemv", "wgmma", "fp32_tiled", "gemv_f16", "wgmma_f16")
+# codes of "gemv" and "wgmma" ("fp32_tc" has its own entry point,
+# fs_int4_matmul_fp32)
+ROUTES = ("gemv", "wgmma", "fp32_tc", "gemv_f16", "wgmma_f16")
 GEMV_COLS = 256  # output columns per block of the matvec kernel
 GEMV_BLOCKS_PER_SM = 2  # blocks the split aims for
 GEMV_MAX_SPLIT = 64  # most runs the packed rows are cut into
 GEMV_MAX_RUN = 1024  # most packed rows of a run, where groups allow
-_ROUTE_CODES = {"gemv": 0, "wgmma": 1, "fp32_tiled": 2, "gemv_f16": 0, "wgmma_f16": 1}
+_ROUTE_CODES = {"gemv": 0, "wgmma": 1, "gemv_f16": 0, "wgmma_f16": 1}
+# "fp32_tc"'s tile shapes (rows of x, output columns), as `csrc/int4_mm.cuh:
+# tf::Tile0..2` (mma.sync) and `tf::WTile` (wgmma) lay them out, and the rate
+# of each (a block's rows x columns a unit of time; only their ratios count;
+# set by `scripts/fp32_kernels_bench.py --sweep`)
+FP32_TC_TILES = ((64, 64), (32, 64), (16, 64), (64, 128))
+FP32_TC_RATE = (0.95, 0.75, 0.75, 1.5)
+FP32_TC_MAX_SPLIT = 16  # most runs the groups are cut into
 SCALE_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 
 
@@ -104,6 +116,33 @@ def gemv_partials_reference(x, p, gs, n_split: int):
         + xf[:, half + k * rows:half + (k + 1) * rows]
         @ w[half + k * rows:half + (k + 1) * rows]
         for k in range(n_split)])
+
+
+def fp32_tc_plan(b: int, i: int, o: int, g: int, n_sm: int, resident) -> tuple:
+    """(tile, n_split) of the "fp32_tc" kernel for B rows of x, I -> O with
+    groups of g, on `n_sm` SMs, `resident[k]` blocks of tile shape k (an
+    index of FP32_TC_TILES) fitting on one SM. For each shape the runs the
+    I/2g groups of a half are cut into (the grid's z; whole groups, sizes
+    differing by at most one) are the most, up to FP32_TC_MAX_SPLIT, that
+    still leave no more blocks than fit on the card at once; the pick is
+    the least waves x
+    (blocks an SM runs at once) x rows x columns / runs / FP32_TC_RATE.
+    So the products with few output columns or rows (s2-pro's wo and w2,
+    O = 2560) fill the card. It reads the shape only."""
+    n_groups = i // 2 // g
+
+    def plan(k):
+        bm, bn = FP32_TC_TILES[k]
+        blocks = -(-b // bm) * -(-o // bn)
+        fit = n_sm * resident[k]
+        n = max(1, min(FP32_TC_MAX_SPLIT, n_groups, fit // blocks))
+        total = blocks * n
+        waves = -(-total // fit)
+        per_sm = min(resident[k], -(-total // n_sm))
+        return waves * per_sm * bm * bn / n / FP32_TC_RATE[k], n
+
+    k = min(range(len(FP32_TC_TILES)), key=lambda k: plan(k)[0])
+    return k, plan(k)[1]
 
 
 def _group(i: int, n_groups: int) -> int:
@@ -169,7 +208,7 @@ def _route(b: int, dtype: torch.dtype) -> str:
         return "gemv_f16" if b <= GEMV_MAX_ROWS else "wgmma_f16"
     if b <= GEMV_MAX_ROWS:
         return "gemv"
-    return "wgmma" if dtype == torch.bfloat16 else "fp32_tiled"
+    return "wgmma" if dtype == torch.bfloat16 else "fp32_tc"
 
 
 def _check(x, p, gs):
@@ -195,10 +234,28 @@ def _check(x, p, gs):
 _PLANS: dict = {}
 
 
+@functools.lru_cache(maxsize=None)
+def fp32_tc_resident(device: torch.device) -> tuple:
+    """Blocks of each "fp32_tc" tile shape that fit on one SM of `device`
+    (the CUDA occupancy calculator)."""
+    import ctypes
+
+    lib = load_kernels()
+    out = []
+    for k in range(len(FP32_TC_TILES)):
+        n = ctypes.c_int()
+        with torch.cuda.device(device):
+            check_launch(lib.fs_int4_fp32_occupancy(k, ctypes.byref(n)),
+                         "fs_int4_fp32_occupancy")
+        out.append(max(1, n.value))
+    return tuple(out)
+
+
 def _plan(x, p, gs):
     """What a call of these shapes, dtypes and devices passes the kernel
     beyond its pointers: (route, counter name, I, O, g, split count,
-    workspace, counters, dtype code, route code). The first call of a key
+    workspace, counters, dtype code, route code; "fp32_tc": its tile shape
+    in place of the route code, its runs as the split count). The first call of a key
     runs every check of `_check` and keeps the plan; a later one repeats
     only contiguity, which the key does not fix."""
     key = (x.shape, p.shape, gs.shape, x.dtype, p.dtype, gs.dtype,
@@ -207,13 +264,21 @@ def _plan(x, p, gs):
     if plan is None:
         b, i, o, g = _check(x, p, gs)
         route = _route(b, x.dtype)
-        n_split = split_count(route, i, o, g, sm_count(x.device))
-        work = counters = 0  # NULL: one run, or another route
+        if route == "fp32_tc":
+            code, n_split = fp32_tc_plan(b, i, o, g, sm_count(x.device),
+                                         fp32_tc_resident(x.device))
+            bm, bn = FP32_TC_TILES[code]
+            name, tiles = "int4_fp32", -(-b // bm) * -(-o // bn)
+        else:
+            code, n_split = _ROUTE_CODES[route], split_count(route, i, o, g,
+                                                             sm_count(x.device))
+            name, tiles = "int4_gemv", -(-o // GEMV_COLS)
+        work = counters = 0  # NULL: one run
         if n_split > 1:
-            w, c = scratch("int4_gemv", x.device, n_split * b * o, -(-o // GEMV_COLS))
+            w, c = scratch(name, x.device, n_split * b * o, tiles)
             work, counters = w.data_ptr(), c.data_ptr()
         plan = _PLANS[key] = (route, f"launches_{route}", i, o, g, n_split, work,
-                              counters, DTYPE_CODES[x.dtype], _ROUTE_CODES[route])
+                              counters, DTYPE_CODES[x.dtype], code)
     elif not (x.is_contiguous() and p.is_contiguous() and gs.is_contiguous()):
         raise ValueError("int4_matmul: x, p and gs must be contiguous")
     return plan
@@ -229,9 +294,14 @@ def int4_matmul(x, p, gs):
         gs = gs.float()
     b = x.shape[0]
     out = x.new_empty((b, o))
-    rc = load_kernels().fs_int4_matmul(
-        x.data_ptr(), p.data_ptr(), gs.data_ptr(), out.data_ptr(), work,
-        counters, b, i, o, g, code, route_code, n_split, stream_ptr(x))
+    if route == "fp32_tc":
+        rc = load_kernels().fs_int4_matmul_fp32(
+            x.data_ptr(), p.data_ptr(), gs.data_ptr(), out.data_ptr(), work, counters,
+            b, i, o, g, route_code, n_split, stream_ptr(x))
+    else:
+        rc = load_kernels().fs_int4_matmul(
+            x.data_ptr(), p.data_ptr(), gs.data_ptr(), out.data_ptr(), work,
+            counters, b, i, o, g, code, route_code, n_split, stream_ptr(x))
     check_launch(rc, f"int4_matmul ({route})")
     int4_matmul.launches += 1
     setattr(int4_matmul, count, getattr(int4_matmul, count) + 1)

@@ -2,7 +2,8 @@
 
 `flash_train_forward`, `flash_train_backward` and `flash_prefill_attention`
 pick their kernels by dtype (`_route`): bf16 goes to the tensor-core
-kernels ("wgmma"), fp32 to the CUDA-core kernels ("cuda_cores"), anything
+kernels ("wgmma"), fp32 to the training's CUDA-core kernels ("cuda_cores")
+and the prefill's 3xTF32 kernel ("fp32_tc"), anything
 else raises; training's bf16 at head dim 32 (JAX's tiny model) goes to the
 CUDA-core kernels on bf16 inputs ("cuda_cores_bf16"). Their checks (`_check`, `_check_backward`) raise on what the
 kernels do not take before they look at the device, so the contract is
@@ -33,17 +34,19 @@ WRAPPERS = {"train": flash_train, "train_bwd": flash_train,
 
 @pytest.mark.parametrize("name", sorted(WRAPPERS))
 def test_route_by_dtype(name):
-    """bf16 "wgmma", fp32 "cuda_cores"; fp16 "wgmma_f16" for the prefill
+    """bf16 "wgmma"; fp32 "cuda_cores" for training, "fp32_tc" for the
+    prefill; fp16 "wgmma_f16" for the prefill
     (`--half` serving) and a TypeError for training, which JAX runs in
     neither fp16 nor under `--half`; training's bf16 at D=32
     "cuda_cores_bf16" (the tensor-core kernels take D in {64, 128})."""
     mod = WRAPPERS[name]
     half = name == "prefill"
     d64 = () if half else (64,)  # training's route takes the head dim too
-    assert mod.ROUTES == ("cuda_cores", "wgmma") + (("wgmma_f16",) if half
-                                                    else ("cuda_cores_bf16",))
+    fp32 = "fp32_tc" if half else "cuda_cores"
+    assert mod.ROUTES == (fp32, "wgmma") + (("wgmma_f16",) if half
+                                            else ("cuda_cores_bf16",))
     assert mod._route(torch.bfloat16, *d64) == "wgmma"
-    assert mod._route(torch.float32, *d64) == "cuda_cores"
+    assert mod._route(torch.float32, *d64) == fp32
     if half:
         assert mod._route(torch.float16) == "wgmma_f16"
     else:

@@ -7,8 +7,9 @@ Inputs come from numpy with a seed. fp32 cases hold the kernel to 1e-4 abs
 (only the summation order differs); bf16 cases to 2e-2 max / 2e-3 mean abs,
 the bound of bf16 rounding of P before P.V (the output is a convex
 combination of V rows of unit scale). The attention forwards take bf16 on
-their tensor-core route and fp32 on their CUDA-core route (`_route`); each
-case counts its launch on its route. The training
+their wgmma route and fp32 on their fp32 route (`_route`: the prefill's
+"fp32_tc", 3xTF32 on mma.sync; training's "cuda_cores"); each case counts
+its launch on its route. The training
 forward's bf16 output gets one bf16 step of the value on top (2^-7 |O|):
 rows with few visible keys have outputs above 2 in magnitude, where the
 kernel's and the plain version's roundings can land one step apart. The
@@ -16,8 +17,9 @@ training backward's gradients are held to 1e-4 (fp32) or 2e-2 (bf16) of
 each tensor's largest magnitude.
 
 The int4 matmul (`csrc/int4_mm.cuh`) has three routes (`ops/int4.py:
-_route`). fp32 x (matvec, fp32 tiled) uses the fp32 W: fp32 cases are held
-to 1e-5 of |x| @ |W| (summation order). Every bf16 case is held to one bf16
+_route`). fp32 x (matvec, and "fp32_tc" over 8 rows: x as two TF32 terms
+on the tensor cores) uses the fp32 W: fp32 cases are held to 1e-5 of |x|
+@ |W| (summation order and x's split). Every bf16 case is held to one bf16
 rounding of W and of y, 2^-8 (|x| @ |W| + |y|), against both fp32-W plain
 versions (`int4_matmul_reference` and `mm`'s CPU path, which rounds W to
 bf16), and, since bf16 x uses the Pallas kernel's bf16 W on every route
@@ -79,6 +81,16 @@ on a tiny fp32 checkpoint (heads of 64, and at JAX's tiny widths) passes
 the tool on the card, which launches the fp32 prefill, decode and
 training-forward kernels; the naive model's fp32 forward on the card is
 within 1e-4 of the CPU's (both widths).
+
+The fp32 kernels on the tensor cores: `int4_tf32_kernel` at B = 9, 33,
+128, 289, 1024 and 2890 (the in-context evaluation's rows), ragged O, g = 2, 12, 16, 32 and 128, JAX's tiny and s2-pro's
+widths, every tile shape (the wgmma one too) with and without a split of the
+groups, within
+1e-5 of |x| @ |W| and the same bits twice and from a graph;
+`attn_tf32_kernel`'s prefill with offsets and pad rows at D = 32, 64 and
+128, and its suffix at the serving cache's split plan (S = 2176) at starts
+0, 951 and 2112 over an fp32 and an int8 cache, within 1e-4, the same bits
+twice and from a graph, the counters left at 0.
 
 JAX's tiny widths (slow heads D=32, fast D=16, G=2): the fp32 decode at
 D=32 and 16 (with and without starts), the fp32 int8-KV decode, prefill
@@ -544,12 +556,12 @@ def test_int4_kernel_matches_plain(dev, dtype, b, i, o, g):
 
 def test_mm_routes_int4_products_by_rows_and_dtype(dev):
     """bf16 prefill rows go to the tensor-core kernel, fp32 rows to the
-    CUDA-core tiled kernel, up to 8 rows to the matvec kernel."""
+    fp32 tensor-core kernel ("fp32_tc"), up to 8 rows to the matvec kernel."""
     rng = np.random.default_rng(0)
     w = torch.from_numpy(rng.standard_normal((256, 192)).astype(np.float32))
     qw = {k: v.to(dev) for k, v in quantize_int4(w, group_size=64).items()}
     for shape, dtype, route in [((2, 64, 256), torch.bfloat16, "wgmma"),
-                                ((2, 64, 256), torch.float32, "fp32_tiled"),
+                                ((2, 64, 256), torch.float32, "fp32_tc"),
                                 ((1, 8, 256), torch.bfloat16, "gemv"),
                                 ((1, 1, 256), torch.float32, "gemv"),
                                 ((2, 64, 256), torch.float16, "wgmma_f16"),
@@ -847,7 +859,7 @@ def _suffix_cache(dev, kv8, dtype, b=2, s=320, hkv=2, d=64, layers=2, seed=0):
 @pytest.mark.parametrize("start,ts,d", [(0, 64, 64), (151, 64, 128),
                                         (37, 130, 128), (255, 1, 64)])
 def test_flash_suffix_matches_plain(dev, dtype, kv8, start, ts, d):
-    """The suffix kernels (every route: bf16 tensor cores, fp32 CUDA cores,
+    """The suffix kernels (every route: bf16 wgmma, fp32 3xTF32 mma.sync,
     plain and int8 cache) against their plain version at ragged starts and
     lengths; the start is read from device memory, so a CUDA graph of one
     launch replayed at another start gives that start's output."""
@@ -1931,7 +1943,7 @@ def _parity_golden_case(tmp_path, jax_widths):
                              "12", "--golden", str(golden)], catch_exceptions=False)
     assert r.exit_code == 0, r.output
     assert "PARITY OK" in r.output
-    assert flash_prefill_attention.launches_cuda_cores > 0
+    assert flash_prefill_attention.launches_fp32_tc > 0
     assert flash_decode_attention.launches > 0
     assert flash_train_forward.launches_cuda_cores > 0
 
@@ -2346,10 +2358,10 @@ def test_tiny_width_prefill_matches_plain(dev, b, t, h, hkv, offsets):
     k = _randn(rng, (b, t, hkv, 32), torch.float32, dev)
     v = _randn(rng, (b, t, hkv, 32), torch.float32, dev)
     off = torch.tensor(offsets, dtype=torch.int32, device=dev)
-    n0 = flash_prefill_attention.launches_cuda_cores
+    n0 = flash_prefill_attention.launches_fp32_tc
     got = flash_prefill_attention(q, k, v, off)
     torch.cuda.synchronize()
-    assert flash_prefill_attention.launches_cuda_cores == n0 + 1
+    assert flash_prefill_attention.launches_fp32_tc == n0 + 1
     _assert_close(got, flash_prefill_reference(q, k, v, off), torch.float32)
 
 
@@ -2569,3 +2581,152 @@ def test_fp32_int8_ffn_direct_loads_at_a_full_grid(dev, b):
     assert int8_ffn.launches_cuda_cores == n0 + 1
     assert bool(torch.isfinite(got).all())
     _ffn_close(got, int8_ffn_reference(x, fused, w2), torch.float32)
+
+
+# -- the fp32 kernels on the tensor cores ("fp32_tc") ---------------------------------
+
+FP32_TC_INT4 = [
+    (9, 2560, 2560, 128),      # s2-pro's wo / w2 width at the fewest rows
+    (33, 256, 200, 16),        # ragged B and O, JAX's tiny group size
+    (128, 2560, 6144, 128),    # slow wqkv, the short prompt's bucket
+    (128, 4096, 2560, 128),    # slow wo
+    (128, 9728, 2560, 128),    # slow w2
+    (1024, 2560, 19456, 128),  # slow w13, prefill bucket 1024
+    (1024, 1536, 12288, 128),  # fast w13
+    (289, 2560, 9728, 128),    # slow w1 at the in-context evaluation's 289 rows
+    (2890, 6144, 1536, 128),   # fast w2 at its 289 x 10 codebook rows
+    (64, 32, 64, 16),          # JAX's tiny fast wqkv at a 64-row batch
+    (64, 64, 256, 32),         # JAX's tiny slow w13
+    (300, 192, 72, 12),        # a group of 12: stages cut inside a group
+    (20, 100, 40, 2),          # I and O off the 16-byte copies, scales of 2 rows
+]
+
+
+@pytest.mark.parametrize("b,i,o,g", FP32_TC_INT4)
+def test_fp32_tc_int4_kernel_matches_plain(dev, b, i, o, g):
+    """`int4_tf32_kernel` (fp32 x, B > 8) against the plain version within
+    1e-5 of |x| @ |W| (x's two TF32 terms and the order of the fp32 sums),
+    one launch on "fp32_tc", the same bits twice and from a CUDA graph."""
+    rng = np.random.default_rng(b + i + o + g)
+    w = torch.from_numpy(rng.standard_normal((i, o)).astype(np.float32) * 0.02)
+    qw = {k: v.to(dev) for k, v in quantize_int4(w, group_size=g).items()}
+    x = _randn(rng, (b, i), torch.float32, dev)
+    assert _route(b, torch.float32) == "fp32_tc"
+    n0 = int4_matmul.launches_fp32_tc
+    got = int4_matmul(x, qw["p"], qw["gs"])
+    again = int4_matmul(x, qw["p"], qw["gs"])
+    torch.cuda.synchronize()
+    assert int4_matmul.launches_fp32_tc == n0 + 2 and torch.equal(got, again)
+    want = int4_matmul_reference(x, qw["p"], qw["gs"])
+    scale = x.abs() @ _int4_effective_weight(qw, torch.float32).abs()
+    err = (got - want).abs()
+    assert bool((err <= 1e-5 * scale + 1e-6).all()), err.max().item()
+    graph = torch.cuda.CUDAGraph()
+    out = {}
+    with torch.cuda.graph(graph):
+        out["y"] = int4_matmul(x, qw["p"], qw["gs"])
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out["y"], got)
+
+
+@pytest.mark.parametrize("tile", [0, 1, 2, 3])
+@pytest.mark.parametrize("b,i,o,g,n_split", [(33, 256, 200, 16, 1), (33, 256, 200, 16, 4),
+                                             (130, 2560, 2560, 128, 1),
+                                             (130, 2560, 2560, 128, 3),
+                                             (130, 2560, 2560, 128, 10)])
+def test_fp32_tc_int4_every_tile_shape_and_split(dev, tile, b, i, o, g, n_split):
+    """Each tile shape of the kernel through its C entry point, whatever
+    the plan would pick, with the groups in one run and split into runs of
+    equal and of unequal sizes (summed in the launch): the same bound
+    against the plain version, the same bits twice, and the counters left
+    at 0."""
+    import ctypes
+
+    from fish_speech_tpu_torch.ops._kernels import load_kernels
+
+    rng = np.random.default_rng(tile + b + n_split)
+    w = torch.from_numpy(rng.standard_normal((i, o)).astype(np.float32) * 0.02)
+    qw = {k: v.to(dev) for k, v in quantize_int4(w, group_size=g).items()}
+    x = _randn(rng, (b, i), torch.float32, dev)
+    outs = [torch.empty((b, o), dtype=torch.float32, device=dev) for _ in range(2)]
+    work = torch.empty(n_split * b * o, dtype=torch.float32, device=dev)
+    counters = torch.zeros(b * o, dtype=torch.int32, device=dev)
+    lib = load_kernels()
+    for out in outs:
+        rc = lib.fs_int4_matmul_fp32(x.data_ptr(), qw["p"].data_ptr(), qw["gs"].data_ptr(),
+                                     out.data_ptr(), work.data_ptr(), counters.data_ptr(),
+                                     b, i, o, g, tile, n_split,
+                                     torch.cuda.current_stream().cuda_stream)
+        assert rc == 0
+    torch.cuda.synchronize()
+    want = int4_matmul_reference(x, qw["p"], qw["gs"])
+    scale = x.abs() @ _int4_effective_weight(qw, torch.float32).abs()
+    assert bool(((outs[0] - want).abs() <= 1e-5 * scale + 1e-6).all())
+    assert torch.equal(outs[0], outs[1]) and int(counters.abs().sum()) == 0
+    n = ctypes.c_int()
+    assert lib.fs_int4_fp32_occupancy(tile, ctypes.byref(n)) == 0 and n.value >= 1
+
+
+@pytest.mark.parametrize("kv8", [False, True])
+@pytest.mark.parametrize("start", [0, 951, 2112])
+def test_fp32_tc_suffix_split_plan_at_serving_shapes(dev, kv8, start):
+    """The fp32 suffix (`attn_tf32_kernel` with SUFFIX) at the serving
+    cache's shapes (S = 2176, H = 32, Hkv = 8, D = 128, Ts = 64: `suffix_plan`
+    at 64 rows a block splits the keys over 7 slices), at a start of 0, a
+    voice-clone prefix's 951 and the last one (start + Ts = S), over an
+    fp32 and an int8 cache: within 1e-4 of the plain version, one launch
+    on its route, the same bits twice and from a CUDA graph replayed at
+    another start, and the counters left at 0."""
+    from fish_speech_tpu_torch.ops import flash_prefill as fp
+    from fish_speech_tpu_torch.ops._kernels import _SCRATCH
+
+    cache = _suffix_cache(dev, kv8, torch.float32, b=1, s=2176, hkv=8, d=128, seed=start)
+    rng = np.random.default_rng(start + 1)
+    q = torch.from_numpy(rng.normal(size=(1, 64, 32, 128))).to(dev, torch.float32)
+    st = torch.tensor([start], dtype=torch.int32, device=dev)
+    assert fp.suffix_plan(2176, 8, 1, 64, 4, torch.cuda.get_device_properties(
+        dev).multi_processor_count, fp.SUFFIX_ROWS)[1] > 1
+    fp.reset_launches()
+    got = fp.flash_suffix_attention(q, cache, 1, st)
+    again = fp.flash_suffix_attention(q, cache, 1, st)
+    torch.cuda.synchronize()
+    route = fp._suffix_route(torch.float32, kv8)
+    assert getattr(fp.flash_suffix_attention, f"launches_{route}") == 2
+    assert torch.equal(got, again)
+    want = fp.flash_suffix_reference(q, cache, 1, st)
+    assert float((got - want).abs().max()) <= 1e-4
+    graph = torch.cuda.CUDAGraph()
+    out = {}
+    with torch.cuda.graph(graph):
+        out["y"] = fp.flash_suffix_attention(q, cache, 1, st)
+    st.fill_(max(start - 300, 0))
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out["y"], fp.flash_suffix_attention(q, cache, 1, st))
+    assert int(_SCRATCH[("flash_suffix", q.device)][1].abs().sum()) == 0
+
+
+@pytest.mark.parametrize("b,t,h,hkv,d,offsets", [
+    (1, 1024, 32, 8, 128, [0]), (2, 333, 32, 8, 128, [0, 200]), (1, 256, 4, 2, 64, [17]),
+    (2, 130, 2, 1, 32, [0, 129])])
+def test_fp32_tc_prefill_is_deterministic(dev, b, t, h, hkv, d, offsets):
+    """The fp32 prefill (G heads packed per block; rows before the offset
+    average all T keys) within 1e-4 of the plain version and the same bits
+    on a second call and from a CUDA graph."""
+    rng = np.random.default_rng(t + d + b)
+    q = _randn(rng, (b, t, h, d), torch.float32, dev)
+    k = _randn(rng, (b, t, hkv, d), torch.float32, dev)
+    v = _randn(rng, (b, t, hkv, d), torch.float32, dev)
+    off = torch.tensor(offsets, dtype=torch.int32, device=dev)
+    got = flash_prefill_attention(q, k, v, off)
+    torch.cuda.synchronize()
+    _assert_close(got, flash_prefill_reference(q, k, v, off), torch.float32)
+    assert torch.equal(got, flash_prefill_attention(q, k, v, off))
+    graph = torch.cuda.CUDAGraph()
+    out = {}
+    with torch.cuda.graph(graph):
+        out["y"] = flash_prefill_attention(q, k, v, off)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out["y"], got)

@@ -201,6 +201,43 @@ def test_eval_in_context_matches_jax(tmp_path):
     assert r.exit_code != 0 and "no CUDA device" in str(r.exception)
 
 
+def test_eval_in_context_over_int4_matches_jax(tmp_path):
+    """The tool at its default fp32 over an int4 checkpoint (JAX's
+    `tools.quantize --mode int4 --group-size 128` of the tiny tree: groups
+    of 32 and 16 at its widths) gives JAX's tool's per-frame losses within
+    1e-4: on the card every layer product of that forward is the int4
+    matmul's "fp32_tc" route, whose plain version (W = q * s in fp32, the
+    JAX package's `int4_matmul_reference`) the CPU run takes."""
+    from fish_speech_tpu.tools.eval_in_context import main as jmain
+    from fish_speech_tpu.tools.quantize import main as jquantize
+    from fish_speech_tpu_torch.tools.eval_in_context import main as tmain
+    from fish_speech_tpu_torch.utils.checkpoint import load_dual_ar
+
+    args = _in_context_checkpoint(tmp_path)
+    r = CliRunner().invoke(jquantize, ["--checkpoint-path", str(tmp_path / "ckpt0"),
+                                       "--output", str(tmp_path / "ckpt0-int4"), "--mode",
+                                       "int4", "--group-size", "128"], catch_exceptions=False)
+    assert r.exit_code == 0, r.output
+    params, _ = load_dual_ar(tmp_path / "ckpt0-int4", dtype=torch.float32, device="cpu")
+    assert {"p", "gs"} <= set(params["layers"]["w2"])
+    # the int4 checkpoint alone, on the same codes and texts
+    args = ["--checkpoint-path", str(tmp_path / "ckpt0-int4")] + args[4:]
+    r = CliRunner().invoke(jmain, args + ["--output", str(tmp_path / "j.json")],
+                           catch_exceptions=False)
+    assert r.exit_code == 0, r.output
+    r = CliRunner().invoke(tmain, args + ["--output", str(tmp_path / "t.json"), "--cpu"],
+                           catch_exceptions=False)
+    assert r.exit_code == 0, r.output
+    want = json.loads((tmp_path / "j.json").read_text())
+    got = json.loads((tmp_path / "t.json").read_text())
+    assert list(got) == list(want) == [str(tmp_path / "ckpt0-int4")]
+    for ckpt in want:
+        assert len(got[ckpt]["per_frame"]) == len(want[ckpt]["per_frame"]) == 5
+        np.testing.assert_allclose(got[ckpt]["per_frame"], want[ckpt]["per_frame"],
+                                   rtol=0, atol=1e-4)
+        assert abs(got[ckpt]["mean_loss"] - want[ckpt]["mean_loss"]) < 1e-4
+
+
 def test_per_frame_loss_is_the_training_cross_entropy(tmp_path):
     """The tool's per-frame losses average to `dual_ar_loss`'s semantic
     loss on the same inputs (frames of equal codebook counts)."""

@@ -12,7 +12,8 @@ interpret mode on the same numpy inputs:
     sums in another order can land one step apart) plus 1e-5 of
     |x| @ |W| (the order of the fp32 sums);
   * `_route` sends up to 8 rows to the matvec kernel, more bf16 rows to the
-    tensor cores and more fp32 rows to the CUDA-core tiled kernel, and fp16
+    tensor cores and more fp32 rows to the fp32 tensor-core kernel
+    ("fp32_tc"), and fp16
     rows to the same two kernels' fp16 forms; the matvec's fp16 form cuts
     the packed rows into the runs of its bf16 form (`split_count`).
 
@@ -97,7 +98,7 @@ def test_bf16w_reference_matches_the_pallas_kernel(b):
     (1, torch.bfloat16, "gemv"), (8, torch.bfloat16, "gemv"),
     (9, torch.bfloat16, "wgmma"), (1024, torch.bfloat16, "wgmma"),
     (1, torch.float32, "gemv"), (8, torch.float32, "gemv"),
-    (9, torch.float32, "fp32_tiled"), (1024, torch.float32, "fp32_tiled"),
+    (9, torch.float32, "fp32_tc"), (1024, torch.float32, "fp32_tc"),
 ])
 def test_route_by_rows_and_dtype(b, dtype, route):
     assert _route(b, dtype) == route

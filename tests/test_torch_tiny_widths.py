@@ -143,7 +143,7 @@ def test_the_listed_widths():
                                       f32: (16, 32, 64, 128)}
     assert flash_decode.KV8_HEAD_DIMS == {bf16: (64, 128), f16: (64, 128),
                                           f32: (32, 64, 128)}
-    assert flash_prefill.HEAD_DIMS == {"cuda_cores": (32, 64, 128),
+    assert flash_prefill.HEAD_DIMS == {"fp32_tc": (32, 64, 128),
                                        "wgmma": (64, 128), "wgmma_f16": (64, 128)}
     assert flash_train.HEAD_DIMS == {"cuda_cores": (32, 64, 128), "wgmma": (64, 128),
                                      "cuda_cores_bf16": (32,)}
