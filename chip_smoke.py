@@ -28,15 +28,18 @@ Phases, each of which ends the run with a nonzero exit if it fails:
    on the minimal five products a pair): the prefill at B=1 T=64, 1024
    and 4096 and B=2 T=600 with offsets [0, 129], the training forward
    and backward at B=2 T=1024 with a right-padded row, B=1 T=4096 and a
-   ragged B=2 T=1000; their fp32 routes (the prefill's "fp32_tc" on the
-   tensor cores in 3xTF32, the training pair's CUDA-core kernels) are held
+   ragged B=2 T=1000; their fp32 routes ("fp32_tc", on the tensor cores
+   in 3xTF32, the prefill's and the training pair's) are held
    on fp32 inputs at JAX's tiny heads (H=2 Hkv=1 D=32: the prefill at
    buckets 64 and 256, the training pair at phase 3b's B=2 T=200) and at
    s2-pro's heads (the prefill at T=256 and at the full width's T=1024, the
    training pair at B=2 T=256, one row padded 30), to 1e-4 (the backward's of each
    tensor's largest magnitude); the training pair in bf16 at the tiny
-   heads ("cuda_cores_bf16", the train CLI's B=2 T=256) to the bf16
-   bounds.
+   heads ("bf16_tf32", the train CLI's B=2 T=256) to the bf16
+   bounds. The training rows on the TF32 routes also print `device_ms`
+   (the calls replayed from a CUDA graph); their bound is the TF32
+   products the kernels issue at 495 TFLOP/s ("fp32_tc", 3 a product)
+   with the fp32 one beside it, or bf16's peak ("bf16_tf32").
    The int4 matmul's matvec route runs at s2-pro's eight decode shapes
    (B=1), its tensor-core route at the slow stack's four shapes at B=128
    and B=1024 (the two prompt buckets) and at a ragged (1000, 384, 200,
@@ -119,7 +122,8 @@ Phases, each of which ends the run with a nonzero exit if it fails:
    the int8 cache);
 3b. a small training reference: a tiny fp32 LoRA model takes two
    `make_train_step` steps through the training kernels on the card (the
-   forward's and the backward's CUDA-core route, which must launch) and
+   forward's and the backward's "fp32_tc" route, which must carry every
+   launch) and
    the plain versions on the CPU; losses and LoRA leaves must agree to
    1e-5;
 3c. a small quantized reference: phase 3's tiny fp32 model quantized
@@ -198,7 +202,7 @@ Phases, each of which ends the run with a nonzero exit if it fails:
    Every loss must be finite and the last below the first, sampled frozen
    base tensors bitwise unchanged, every LoRA B leaf nonzero, the
    forward's tensor-core route launched, the backward 288 times on its
-   tensor-core route and never on the CUDA cores, and the checkpoint
+   "wgmma" route and never on another, and the checkpoint
    must restore; s/step and tokens/s are printed beside the
    prediction;
 5b. the train CLI as a user runs it: `python -m
@@ -206,8 +210,8 @@ Phases, each of which ends the run with a nonzero exit if it fails:
    wide; bf16, its default precision) takes 2 LoRA steps in a process of
    its own on the card, on a proto shard of phase 5's writer: both losses
    must be finite, the slow stack's attention must launch forward and
-   backward on "cuda_cores_bf16" (the CUDA-core kernels on bf16 inputs)
-   and never on "wgmma";
+   backward on "bf16_tf32" (the TF32 kernels on bf16 inputs) and on no
+   other route;
 6. quantized serving: the training model is freed, full-width s2-pro (bf16,
    seed 0, max_seq_len 2048) is quantized `mixed` (`quantize_dual_ar_lowmem
    (mode="int8", fast_mode="int4")`) and served with the int8 KV cache
@@ -400,9 +404,12 @@ the bf16 kernel's packing and key split, 64 rows a block) at phase 3's tiny
 cache (JAX's widths, then the earlier 64-wide heads) and at the serving
 cache's full width (S = 2176, start 951, Ts 64, H=32 Hkv=8 D=128, split
 over seven slices) to 1e-4, launched in phases 3 and 3c. `int4_mm_fp32_tc`
-is the int4 matmul's fp32 route, launched by 13(b'). `flash_train_fwd_cuda_cores_bf16` and
-`flash_train_bwd_cuda_cores_bf16` are the training pair's bf16 route at
-D=32, launched by phase 5b's train CLI.
+is the int4 matmul's fp32 route, launched by 13(b'). `flash_train_fwd_fp32`
+and `flash_train_bwd_fp32` are the training pair's "fp32_tc" route
+(`attn_tf32_kernel<D, kTrain, float>`, `train_bwd_tf32_kernel<D, float>`),
+launched in phases 3b, 11 and 12(c); `flash_train_fwd_bf16_tf32` and
+`flash_train_bwd_bf16_tf32` its "bf16_tf32" route at D=32 (the same
+kernels on bf16 inputs), launched by phase 5b's train CLI.
 
 Each phase sets the kernels' launch counts to 0 before it drives its path
 and reads them after. The line before the last is a JSON object with each
@@ -765,10 +772,11 @@ def kernel_cases(dev, parity):
                   + ("null" if lib is None else f"{lib:.4f}")
                   + (f" library_causal_ms={r['library_causal_ms']:.4f}"
                      if "library_causal_ms" in r else "")
-                  + (f" device_ms={r['device_ms']:.4f} library_device_ms="
-                     f"{r['library_device_ms']:.4f} wrapper_host_ms="
+                  + (f" device_ms={r['device_ms']:.4f} wrapper_host_ms="
                      f"{max(0.0, r['ms'] - r['device_ms']):.4f}"
                      if "device_ms" in r else "")
+                  + (f" library_device_ms={r['library_device_ms']:.4f}"
+                     if "library_device_ms" in r else "")
                   + (f" cast_device_ms={r['cast_device_ms']:.4f} replays_equal="
                      f"{r['replays_equal']}" if "cast_device_ms" in r else "")
                   + (f" replaced_device_ms={r['replaced_device_ms']:.4f} max_ulps="
@@ -1137,17 +1145,16 @@ def train_kernel_cases(dev, randn, parity_t):
 
     cases = {"flash_train_fwd": [], "flash_train_fwd_fp32": [],
              "flash_train_bwd": [], "flash_train_bwd_fp32": [],
-             "flash_train_fwd_cuda_cores_bf16": [],
-             "flash_train_bwd_cuda_cores_bf16": []}
-    names = {"wgmma": "", "cuda_cores": "_fp32", "cuda_cores_bf16": "_cuda_cores_bf16"}
+             "flash_train_fwd_bf16_tf32": [], "flash_train_bwd_bf16_tf32": []}
+    names = {"wgmma": "", "fp32_tc": "_fp32", "bf16_tf32": "_bf16_tf32"}
     # s2-pro's heads (H=32 Hkv=8 D=128): the fine-tune shape with a
     # right-padded row, the default max_length, and a ragged T (not a
     # multiple of the 64-row tile), in bf16 (the tensor-core route); the
-    # fp32 route (CUDA cores) first at JAX's tiny heads (H=2 Hkv=1 D=32,
-    # phase 3b's B=2 T=200 with a padded row), then once at a small shape
-    # and at the parity tool's teacher-forced prompt (`parity_t`, phase
-    # 11), to 1e-4; bf16 at the tiny heads ("cuda_cores_bf16", the train
-    # CLI's `--tiny` batch: B=2 T=256, a padded row)
+    # fp32 route ("fp32_tc", 3xTF32 on the tensor cores) first at JAX's
+    # tiny heads (H=2 Hkv=1 D=32, phase 3b's B=2 T=200 with a padded row),
+    # then once at a small shape and at the parity tool's teacher-forced
+    # prompt (`parity_t`, phase 11), to 1e-4; bf16 at the tiny heads
+    # ("bf16_tf32", the train CLI's `--tiny` batch: B=2 T=256, a padded row)
     big, tiny = (32, 8, 128), (2, 1, 32)
     for b, t, pads, dtype, (h, hkv, d) in [
             (2, 1024, [0, 100], torch.bfloat16, big),
@@ -1177,14 +1184,28 @@ def train_kernel_cases(dev, randn, parity_t):
             lambda i=0: flash_train_forward(q, k, v, kvalid), 10)
         shape = (f"B={b} T={t} H={h} Hkv={hkv} D={d} right_pad={pads} "
                  f"{str(dtype)[6:]} {route} ({flops / ms / 1e9:.3f} TFLOP/s)")
-        # the peak of the inputs' type, whichever route the port takes
-        peak = PEAK_FP32 if fp32 else PEAK_BF16
         io_bytes = q.element_size() * b * t * d * (h + hkv)  # q, o | k, v
-        fwd_bound = _bound(flops, 2 * io_bytes + 4 * b * h * t, peak)
+        fwd_bytes = 2 * io_bytes + 4 * b * h * t
         # inputs q, k, v, O, dO, lse and kvalid once, dQ, dK and dV once
         bwd_bytes = (q.element_size() * b * t * d * (4 * h + 4 * hkv)
                      + 4 * b * h * t + 4 * b * t)
-        bwd_bound = _bound(10 * h * d * pairs, bwd_bytes, peak)
+        # "fp32_tc": the TF32 products its kernels issue (3 a product) at
+        # 495 TFLOP/s, the fp32 bound beside it; bf16: bf16's peak
+        # the minimal five products (S, dP, dV, dK, dQ) a pair
+        bwd_flops = 10 * h * d * pairs
+        if fp32:
+            fwd_bound = _tf32_bound(flops, fwd_bytes, 3)
+            bwd_bound = _tf32_bound(bwd_flops, bwd_bytes, 3)
+            extra_fwd = {"fp32_bound_ms": _bound(flops, fwd_bytes, PEAK_FP32)[0]}
+            extra_bwd = {"fp32_bound_ms": _bound(bwd_flops, bwd_bytes, PEAK_FP32)[0]}
+        else:
+            fwd_bound = _bound(flops, fwd_bytes)
+            bwd_bound = _bound(bwd_flops, bwd_bytes)
+            extra_fwd, extra_bwd = {}, {}
+        tc = route != "wgmma"  # the TF32 kernels: their device time too
+        if tc:
+            extra_fwd["device_ms"] = _device_ms(
+                lambda i=0: flash_train_forward(q, k, v, kvalid), 10)
         # SDPA on the same function: is_causal where no key is padded, else
         # the causal, key-valid mask; a padded case also times is_causal,
         # which gives the same O on every row that is not padding
@@ -1204,8 +1225,10 @@ def train_kernel_cases(dev, randn, parity_t):
             return torch.autograd.grad(out, leaves, dot)
 
         lib_fwd = _library_ms(sdpa_fwd, 10)
-        extra = {} if causal else {
-            "library_causal_ms": _library_ms(lambda i=0: sdpa_fwd(causal=True), 10)}
+        if tc:  # SDPA's device time beside the kernel's
+            extra_fwd["library_device_ms"] = _device_ms(sdpa_fwd, 10)
+        extra = dict(extra_fwd, **({} if causal else {
+            "library_causal_ms": _library_ms(lambda i=0: sdpa_fwd(causal=True), 10)}))
         cases["flash_train_fwd" + names[route]].append(dict(
             shape=shape, max_abs_err=max(e_o[0], e_lse[0]),
             mean_abs_err=max(e_o[1], e_lse[1]), ms=ms, plain_ms=plain_ms,
@@ -1218,10 +1241,14 @@ def train_kernel_cases(dev, randn, parity_t):
         # the backward: SDPA forward+backward minus its forward, on the same
         # mask (and is_causal beside it where a key is padded)
         lib_bwd = _library_ms(sdpa_fwd_bwd, 5) - lib_fwd
+        lib_causal = extra.get("library_causal_ms")
+        extra = extra_bwd
         if not causal:
-            extra = {"library_causal_ms": _library_ms(
-                lambda i=0: sdpa_fwd_bwd(causal=True), 5) - extra["library_causal_ms"]}
+            extra["library_causal_ms"] = _library_ms(
+                lambda i=0: sdpa_fwd_bwd(causal=True), 5) - lib_causal
         args = (q, k, v, kvalid, want_o, want_lse, do)
+        if tc:
+            extra["device_ms"] = _device_ms(lambda i=0: flash_train_backward(*args), 5)
         n_route = getattr(flash_train_backward, f"launches_{route}")
         got = flash_train_backward(*args)
         ran = getattr(flash_train_backward, f"launches_{route}") == n_route + 1
@@ -1238,8 +1265,6 @@ def train_kernel_cases(dev, randn, parity_t):
                        and errs[name][1] <= 1e-2 * ref.mean().item())
         ms, plain_ms = _in_turns(lambda i=0: flash_train_backward_reference(*args),
                                  lambda i=0: flash_train_backward(*args), 5)
-        # TFLOP/s on the minimal five products (S, dP, dV, dK, dQ) a pair
-        bwd_flops = 10 * h * d * pairs
         cases["flash_train_bwd" + names[route]].append(dict(
             shape=f"B={b} T={t} H={h} Hkv={hkv} D={d} right_pad={pads} "
                   f"{str(dtype)[6:]} {route} ({bwd_flops / ms / 1e9:.3f} TFLOP/s "
@@ -1994,6 +2019,9 @@ def small_train_reference(dev, tokenizer):
     if (flash_train_forward.launches == launches[0]
             or flash_train_backward.launches == launches[1]):
         raise SystemExit("the card's training steps did not run the kernels")
+    if (flash_train_forward.launches != flash_train_forward.launches_fp32_tc
+            or flash_train_backward.launches != flash_train_backward.launches_fp32_tc):
+        raise SystemExit("the card's fp32 training steps launched off the fp32_tc route")
     loss_err = max(abs(a - b) for a, b in zip(*losses))
     leaf_err = max((trees[0][k] - trees[1][k]).abs().max().item()
                    for k in trees[0])
@@ -2756,7 +2784,7 @@ def run_checkpoint_tools(dev, tokenizer):
         t_report = time.perf_counter() - t0
         fp32 = {"flash_prefill_fp32": flash_prefill_attention.launches_fp32_tc,
                 "flash_decode_fp32": flash_decode_attention.launches,
-                "flash_train_fwd_fp32": flash_train_forward.launches_cuda_cores}
+                "flash_train_fwd_fp32": flash_train_forward.launches_fp32_tc}
         launches.update(fp32)
         print(f"checkpoint tools: tools.parity_check --save-golden {t_save_golden:.1f}s,"
               f" --golden {t_check:.1f}s: PARITY OK; in this process "
@@ -3547,7 +3575,7 @@ def run_train_slice(dev, tokenizer, cfg, out_dir):
     torch.cuda.synchronize()
     launches = {"flash_train_fwd": flash_train_forward.launches_wgmma,
                 "flash_train_bwd": flash_train_backward.launches_wgmma}
-    bwd_cuda_cores = flash_train_backward.launches_cuda_cores
+    bwd_other = flash_train_backward.launches - flash_train_backward.launches_wgmma
     peak = torch.cuda.max_memory_allocated(dev) / 2**30
 
     recs = [json.loads(line) for line in
@@ -3586,10 +3614,10 @@ def run_train_slice(dev, tokenizer, cfg, out_dir):
     if min(launches.values()) <= 0:
         raise SystemExit("a training kernel of the path was never launched")
     # 36 layers, each backward once under remat, over 8 steps
-    if launches["flash_train_bwd"] != 288 or bwd_cuda_cores:
+    if launches["flash_train_bwd"] != 288 or bwd_other:
         raise SystemExit(f"training: {launches['flash_train_bwd']} backward "
-                         f"launches on the tensor-core route (want 288) and "
-                         f"{bwd_cuda_cores} on the CUDA cores (want 0)")
+                         f"launches on the wgmma route (want 288) and "
+                         f"{bwd_other} on the others (want 0)")
 
     # the checkpoint holds the LoRA leaves and the optimizer state: wipe the
     # leaves and restore them
@@ -3637,8 +3665,8 @@ def run_train_cli(out_dir):
     """Phase 5b: `python -m fish_speech_tpu_torch.train.cli --tiny` takes 2
     LoRA steps in bf16 on a proto shard written by phase 5's writer (ten
     codebooks of the tiny model's 32 codes): the slow stack's attention at
-    JAX's D=32 must launch on "cuda_cores_bf16" (forward and backward) and
-    never on "wgmma", and both steps' losses must be finite. Returns the
+    JAX's D=32 must launch on "bf16_tf32" (forward and backward) and on
+    no other route, and both steps' losses must be finite. Returns the
     route's launches."""
     import os
     import shutil
@@ -3660,15 +3688,15 @@ def run_train_cli(out_dir):
     metrics = next((out_dir / "run").rglob("metrics.jsonl"))
     losses = [json.loads(line)["loss"] for line in metrics.read_text().splitlines()]
     launches = {
-        "flash_train_fwd_cuda_cores_bf16": counts["flash_train_forward.cuda_cores_bf16"],
-        "flash_train_bwd_cuda_cores_bf16": counts["flash_train_backward.cuda_cores_bf16"]}
-    wgmma = counts["flash_train_forward.wgmma"] + counts["flash_train_backward.wgmma"]
+        "flash_train_fwd_bf16_tf32": counts["flash_train_forward.bf16_tf32"],
+        "flash_train_bwd_bf16_tf32": counts["flash_train_backward.bf16_tf32"]}
+    others = sum(n for name, n in counts.items() if not name.endswith(".bf16_tf32"))
     print(f"train.cli --tiny (bf16, JAX's tiny model, heads 32 wide; a process of "
           f"its own): losses {losses}, launches {counts}, "
           f"{time.perf_counter() - t0:.1f}s")
     if len(losses) != 2 or not np.isfinite(losses).all():
         raise SystemExit(f"train.cli --tiny: losses {losses}")
-    if min(launches.values()) <= 0 or wgmma:
+    if min(launches.values()) <= 0 or others:
         raise SystemExit(f"train.cli --tiny: the bf16 D=32 route did not carry the "
                          f"attention: {counts}")
     shutil.rmtree(out_dir, ignore_errors=True)
@@ -5050,9 +5078,8 @@ def run_multidevice(dev, tokenizer):
             ("12(b) bf16", "flash_prefill", "flash_prefill_attention.launches_wgmma"),
             ("12(b) bf16", "flash_decode", "flash_decode_attention.launches"),
             ("12(b) bf16", "flash_decode_kv8", "flash_decode_attention_kv8.launches"),
-            ("12(c)", "flash_train_fwd_fp32", "flash_train_forward.launches_cuda_cores"),
-            ("12(c)", "flash_train_bwd_fp32",
-             "flash_train_backward.launches_cuda_cores"))
+            ("12(c)", "flash_train_fwd_fp32", "flash_train_forward.launches_fp32_tc"),
+            ("12(c)", "flash_train_bwd_fp32", "flash_train_backward.launches_fp32_tc"))
     launches, missing = {}, []
     for path, name, counter in need:
         n = paths[path].get(counter, 0)
@@ -6422,17 +6449,16 @@ KERNELS = {  # name: (source, the TPU kernel or JAX code it replaces)
                           "fish_speech_tpu/ops/pallas_decode.py:47"),
     "flash_train_fwd": (SRC + "attn_wgmma.cuh",
                         "fish_speech_tpu/ops/pallas_attention_train.py:56"),
-    "flash_train_fwd_fp32": (SRC + "flash_train.cu",
+    # fp32 and bf16 at D = 32: the 3xTF32 forward (flash_fp32.cu) and backward
+    "flash_train_fwd_fp32": (SRC + "flash_fp32.cu",
                              "fish_speech_tpu/ops/pallas_attention_train.py:56"),
     "flash_train_bwd": (SRC + "attn_bwd_wgmma.cuh",
                         "fish_speech_tpu/ops/pallas_attention_train.py:131"),
     "flash_train_bwd_fp32": (SRC + "flash_train.cu",
                              "fish_speech_tpu/ops/pallas_attention_train.py:131"),
-    # bf16 at JAX's tiny D=32 (the train CLI's default precision): the
-    # CUDA-core kernels on bf16 inputs
-    "flash_train_fwd_cuda_cores_bf16": (
-        SRC + "flash_train.cu", "fish_speech_tpu/ops/pallas_attention_train.py:56"),
-    "flash_train_bwd_cuda_cores_bf16": (
+    "flash_train_fwd_bf16_tf32": (
+        SRC + "flash_fp32.cu", "fish_speech_tpu/ops/pallas_attention_train.py:56"),
+    "flash_train_bwd_bf16_tf32": (
         SRC + "flash_train.cu", "fish_speech_tpu/ops/pallas_attention_train.py:131"),
     "int4_mm": (SRC + "int4_mm.cuh", "fish_speech_tpu/ops/pallas_int4.py:32"),
     "int4_mm_wgmma": (SRC + "int4_mm.cuh",
@@ -6494,7 +6520,7 @@ HEADLINE = {"flash_prefill": 1, "flash_prefill_fp32": 0, "flash_decode": 1,
             "faststack_probe": 0, "int8_mm": 2 * (len(INT8_ROWS) - 1),
             "int8_mm_cluster": 2, "int8_mm_fp32": 0,
             "int8_ffn": 0, "int8_ffn_fp32": 0, "flash_suffix": 0,
-            "flash_train_fwd_cuda_cores_bf16": 0, "flash_train_bwd_cuda_cores_bf16": 0,
+            "flash_train_fwd_bf16_tf32": 0, "flash_train_bwd_bf16_tf32": 0,
             "flash_suffix_kv8": 0, "flash_suffix_fp32": 0, "flash_suffix_kv8_fp32": 0,
             # phase 14: the prompt bucket 1024, the session's slow cache at
             # len 2048, the suffix at start 951, the slow w13 at B=1 and 32,
@@ -6514,6 +6540,11 @@ HALF_WGMMA_KERNELS = ("prefill_wgmma_kernel", "suffix_wgmma_kernel",
                       "int4_wgmma_kernel")
 # the int8 kernels whose registers and spills ptxas' report shows too
 INT8_KERNELS = ("int8_gemv_mma_kernel", "int8_gemv_cluster_kernel", "int8_ffn_mma_kernel")
+# and the 3xTF32 attention kernels (the fp32 prefill, suffix and training
+# forward; the training backward)
+TF32_KERNELS = ("attn_tf32_kernel", "train_bwd_tf32_kernel")
+TF32_MODES = {"0": "prefill", "1": "suffix", "2": "train"}
+TF32_TYPES = {"f": "fp32", "a": "int8 cache", "13__nv_bfloat16": "bf16"}
 
 
 def _ptxas_report(build_log):
@@ -6523,7 +6554,8 @@ def _ptxas_report(build_log):
     name = None
     for line in build_log.read_text().splitlines():
         if "Compiling entry function" in line:
-            name = next((k for k in (*WGMMA_KERNELS, *INT8_KERNELS) if k in line), None)
+            name = next((k for k in (*WGMMA_KERNELS, *INT8_KERNELS, *TF32_KERNELS)
+                         if k in line), None)
             dims = "<64>" if "ILi64E" in line else "<128>" if "ILi128E" in line else ""
             int8 = re.search(r"int8_gemv_(?:mma|cluster)_kernelILi(\d)ELb(\d)E", line)
             if int8:
@@ -6534,6 +6566,12 @@ def _ptxas_report(build_log):
             suffix = re.search(r"suffix_wgmma_kernelILi(\d+)ELb(\d)E", line)
             if suffix:
                 dims = f"<{suffix[1]}, {'int8' if suffix[2] == '1' else 'bf16'} cache>"
+            tf32 = re.search(r"attn_tf32_kernelILi(\d+)ELi(\d)E(f|a|13__nv_bfloat16)E", line)
+            if tf32:
+                dims = f"<{tf32[1]}, {TF32_MODES[tf32[2]]}, {TF32_TYPES[tf32[3]]}>"
+            tf32 = re.search(r"train_bwd_tf32_kernelILi(\d+)E(f|13__nv_bfloat16)E", line)
+            if tf32:
+                dims = f"<{tf32[1]}, {TF32_TYPES[tf32[2]]}>"
             if "6__half" in line:  # the fp16 forms of the templated kernels
                 dims = dims.replace("bf16 cache", "fp16 cache") + " fp16"
         elif name and ("spill" in line or "Used" in line):
@@ -6643,8 +6681,8 @@ def main():
                      "flash_suffix_fp32": flash_suffix_attention.launches_suffix_fp32_tc}
     _zero_counts()
     small_train_reference(dev, tokenizer)
-    fp32_launches["flash_train_fwd_fp32"] = flash_train_forward.launches_cuda_cores
-    fp32_launches["flash_train_bwd_fp32"] = flash_train_backward.launches_cuda_cores
+    fp32_launches["flash_train_fwd_fp32"] = flash_train_forward.launches_fp32_tc
+    fp32_launches["flash_train_bwd_fp32"] = flash_train_backward.launches_fp32_tc
     _zero_counts()
     small_quant_reference(dev, tokenizer)
     fp32_launches["int4_mm_fp32"] = int4_matmul.launches_gemv

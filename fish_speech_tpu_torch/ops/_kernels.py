@@ -120,8 +120,8 @@ def load_kernels() -> ctypes.CDLL:
     ]
     lib.fs_flash_train_fwd.restype = i32
     lib.fs_flash_train_bwd.argtypes = [
-        ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr,
-        i32, i32, i32, i32, i32, i32, f32, ptr
+        ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr,
+        i32, i32, i32, i32, i32, i32, i32, i32, f32, ptr
     ]
     lib.fs_flash_train_bwd.restype = i32
     lib.fs_flash_train_bwd_occupancy.argtypes = [i32, ptr, ptr]

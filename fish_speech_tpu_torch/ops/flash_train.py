@@ -12,15 +12,19 @@ the dtype and the head dim, an explicit dispatch, not a fallback: bf16 at
 D in {64, 128} goes to "wgmma", the tensor-core kernels
 (`train_fwd_wgmma_kernel`, `csrc/attn_wgmma.cuh`;
 `train_bwd_dkdv_wgmma_kernel` and `train_bwd_dq_wgmma_kernel`,
-`csrc/attn_bwd_wgmma.cuh`), fp32 to "cuda_cores", the float32 kernels on
-the CUDA cores (`train_fwd_kernel`, `train_bwd_dkdv_kernel` and
-`train_bwd_dq_kernel`), which the small fp32 reference models use, and
-bf16 at D = 32 (JAX's tiny model trained in bf16, the train CLI's default)
-to "cuda_cores_bf16", the same CUDA-core kernels on bf16 inputs, with fp32
-sums and one rounding of O, dQ, dK and dV (P and dS stay fp32, so they
-sit closer to the fp32 function than the plain version's bf16 P and dS).
-`HEAD_DIMS` lists the widths each route takes; any other raises before a
-launch.
+`csrc/attn_bwd_wgmma.cuh`), fp32 to "fp32_tc", the fp32 products on the
+tensor cores in 3xTF32 (the forward `csrc/flash_fp32.cu:attn_tf32_kernel`
+in its training mode, the backward `csrc/flash_train.cu:
+train_bwd_tf32_kernel`), which the small fp32 reference models, the parity
+tool and the fp32 multi-device trainer use, and bf16 at D = 32 (JAX's tiny
+model trained in bf16, the train CLI's default) to "bf16_tf32", the same
+kernels on bf16 inputs, exact in TF32, with fp32 P and dS and one rounding
+of O, dQ, dK and dV (so they sit closer to the fp32 function than the
+plain version's bf16 P and dS). `HEAD_DIMS` lists the widths each route
+takes; any other raises before a launch. The TF32 backward splits each
+64-key tile's walk over the query rows into slices (`train_bwd_plan`, from
+the shape and the SM count alone; `dkdv_slices` lists them) whose partial
+dK and dV the tile's last slice sums in slice order.
 
 `flash_train_attention` is a `torch.autograd.Function`: its forward runs
 `flash_train_forward` and saves q, k, v, O and the fp32 row logsumexp; its
@@ -42,7 +46,7 @@ import torch
 
 from fish_speech_tpu_torch.ops._kernels import (BF16_FP32, DTYPE_CODES,
                                                 check_aligned, check_launch,
-                                                load_kernels)
+                                                load_kernels, scratch, sm_count)
 from fish_speech_tpu_torch.ops.attention import NEG_INF
 
 
@@ -97,22 +101,78 @@ def flash_train_backward_reference(q, k, v, kvalid, o, lse, do):
 
 
 # fs_flash_train_fwd and fs_flash_train_bwd pick one by the dtype and D
-ROUTES = ("cuda_cores", "wgmma", "cuda_cores_bf16")
-# head widths each route takes: the tensor-core kernels' 64-column
-# swizzled blocks take 64 and 128; the CUDA-core kernels also the tiny
-# model's 32, in fp32 and in bf16
-HEAD_DIMS = {"cuda_cores": (32, 64, 128), "wgmma": (64, 128),
-             "cuda_cores_bf16": (32,)}
+ROUTES = ("fp32_tc", "wgmma", "bf16_tf32")
+# head widths each route takes: the wgmma kernels' 64-column swizzled
+# blocks take 64 and 128; the TF32 kernels also the tiny model's 32, in
+# fp32 and in bf16
+HEAD_DIMS = {"fp32_tc": (32, 64, 128), "wgmma": (64, 128), "bf16_tf32": (32,)}
 
 
 def _route(dtype: torch.dtype, d: int) -> str:
     """Which kernels `flash_train_forward` and `flash_train_backward` launch
     for q/k/v of `dtype` and head dim `d`."""
     if dtype == torch.bfloat16:
-        return "cuda_cores_bf16" if d in HEAD_DIMS["cuda_cores_bf16"] else "wgmma"
+        return "bf16_tf32" if d in HEAD_DIMS["bf16_tf32"] else "wgmma"
     if dtype == torch.float32:
-        return "cuda_cores"
+        return "fp32_tc"
     raise TypeError(f"flash_train: bf16 or fp32 q/k/v, got {dtype}")
+
+
+# the TF32 backward (`csrc/flash_train.cu:train_bwd_tf32_kernel`): a dK/dV
+# block owns BWD_KEYS keys of a KV head and walks the packed query rows
+# (row m of (b, kv) is position m // G of head kv * G + m % G) that can see
+# them, bwd_step(D) rows a step; a dQ block owns BWD_KEYS packed rows and
+# walks the keys up to their causal limit, bwd_step(D) keys a step. The
+# plan aims at BWD_BLOCKS_PER_SM blocks' worth of steps an SM.
+BWD_KEYS = 64
+BWD_BLOCKS_PER_SM = 2
+
+
+def bwd_step(d: int) -> int:
+    """Packed query rows a dK/dV step takes, keys a dQ step takes: 64, 32,
+    16 at D = 32, 64, 128 (two blocks an SM in shared memory and registers)."""
+    return 2048 // d
+
+
+def dkdv_walk(t: int, n_group: int, d: int):
+    """[lo, hi) row tiles (of `bwd_step(d)` packed rows) that each 64-key
+    tile walks: from the tile holding packed row k0 * G (position k0, the
+    first that sees a key of the tile) to the last."""
+    step = bwd_step(d)
+    n_rt = -(-t * n_group // step)
+    return [(k0 * n_group // step, n_rt) for k0 in range(0, t, BWD_KEYS)]
+
+
+def dq_walk(t: int, n_group: int, d: int):
+    """Key steps (of `bwd_step(d)` keys) each dQ block walks: up to the
+    causal limit of its last packed row."""
+    step, rows = bwd_step(d), t * n_group
+    return [((min(m0 + BWD_KEYS, rows) - 1) // n_group) // step + 1
+            for m0 in range(0, rows, BWD_KEYS)]
+
+
+def train_bwd_plan(b: int, t: int, h: int, hkv: int, d: int, n_sm: int):
+    """(Z, row tiles per slice) of the dK/dV walks, from the shape and the
+    SM count alone (never kvalid): slices as long as the steps of both
+    kinds of block over BWD_BLOCKS_PER_SM blocks an SM, and no shorter than
+    the longest dQ walk (the launch ends with its longest block); Z is the
+    slices of the longest walk (key tile 0's), so every row tile of every
+    walk lies in one slice."""
+    g = h // hkv
+    walks = [hi - lo for lo, hi in dkdv_walk(t, g, d)]
+    dq = dq_walk(t, g, d)
+    steps = (sum(walks) + sum(dq)) * hkv * b
+    per = max(1, max(dq), -(-steps // (BWD_BLOCKS_PER_SM * n_sm)))
+    per = min(per, walks[0])
+    return -(-walks[0] // per), per
+
+
+def dkdv_slices(t: int, n_group: int, d: int, kt: int, per: int):
+    """The row-tile ranges [lo, hi) of key tile kt's active slices, in slice
+    order (the order their partials are summed in); slices past them do
+    nothing."""
+    lo, hi = dkdv_walk(t, n_group, d)[kt]
+    return [(r, min(r + per, hi)) for r in range(lo, hi, per)]
 
 
 def _check(q, k, v, kvalid, name="flash_train"):
@@ -169,8 +229,7 @@ def flash_train_forward(q, k, v, kvalid):
         return flash_train_forward_reference(q, k, v, kvalid)
     _check(q, k, v, kvalid, "flash_train_forward")
     route = _route(q.dtype, q.shape[-1])
-    if route == "wgmma":
-        check_aligned("flash_train_forward", q=q, k=k, v=v)
+    check_aligned("flash_train_forward", q=q, k=k, v=v)
     lib = load_kernels()
     b, t, h, d = q.shape
     out = torch.empty_like(q)
@@ -189,22 +248,31 @@ def flash_train_forward(q, k, v, kvalid):
 def flash_train_backward(q, k, v, kvalid, o, lse, do):
     """Same contract as `flash_train_backward_reference`; on CUDA tensors
     runs the dK/dV and dQ kernels of `_route(q.dtype, D)` (one launch of
-    the pair counts once)."""
+    the pair counts once; the TF32 routes' pair is one kernel, split by
+    `train_bwd_plan`, its partials in `scratch("flash_train_bwd")`)."""
     if q.device.type == "cpu":
         return flash_train_backward_reference(q, k, v, kvalid, o, lse, do)
     _check_backward(q, k, v, kvalid, o, lse, do)
     b, t, h, d = q.shape
+    hkv = k.shape[2]
     route = _route(q.dtype, d)
-    if route == "wgmma":
-        check_aligned("flash_train_backward", q=q, k=k, v=v, do=do)
+    check_aligned("flash_train_backward", q=q, k=k, v=v, do=do)
     lib = load_kernels()
     delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    n_split, per, work, counters = 1, 1, 0, 0  # the wgmma route reads none
+    if route != "wgmma":
+        n_split, per = train_bwd_plan(b, t, h, hkv, d, sm_count(q.device))
+        if n_split > 1:
+            tiles = -(-t // BWD_KEYS) * hkv * b
+            w, c = scratch("flash_train_bwd", q.device,
+                           tiles * n_split * 2 * BWD_KEYS * d, tiles)
+            work, counters = w.data_ptr(), c.data_ptr()
     rc = lib.fs_flash_train_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), kvalid.data_ptr(),
         do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-        dk.data_ptr(), dv.data_ptr(), b, t, h, k.shape[2], d,
-        DTYPE_CODES[q.dtype], 1.0 / math.sqrt(d),
+        dk.data_ptr(), dv.data_ptr(), work, counters, n_split, per, b, t, h,
+        hkv, d, DTYPE_CODES[q.dtype], 1.0 / math.sqrt(d),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     check_launch(rc, f"flash_train_bwd ({route})")

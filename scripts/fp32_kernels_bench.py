@@ -3,7 +3,7 @@
 cores ("fp32_tc") against an earlier checkout's CUDA-core kernels, the
 library call and their plain versions, timed on the card.
 
-    python3 scripts/fp32_kernels_bench.py [OTHER_CHECKOUT] [--sweep]
+    python3 scripts/fp32_kernels_bench.py [OTHER_CHECKOUT] [--sweep] [--attn]
 
 Shapes:
 * the int4 matmul on fp32 x (`int4_tf32_kernel`): s2-pro's slow wqkv, wo,
@@ -38,6 +38,10 @@ OTHER_CHECKOUT (`git archive REV | tar -x -C DIR`) adds `old`: its `csrc/`
 built into `build/fp32_kernels_bench/`, its `fs_int4_matmul` at route code
 2 (its "fp32_tiled", `int4_gemm_kernel`), its `fs_flash_prefill` and
 `fs_flash_suffix` on fp32 (its `prefill_kernel`, which takes no plan).
+
+`--attn` times the attention rows alone (the prefill and the suffix): an
+OTHER_CHECKOUT from after the int4 kernel's redesign has no "fp32_tiled"
+route to time in turns.
 
 `--sweep` times this checkout's int4 kernel at every tile shape
 (`ops/int4.py:FP32_TC_TILES`) and split of the groups into 1-16 runs at
@@ -369,7 +373,8 @@ def main():
     smi = _nvidia_smi()
     old = _other(args[0]) if args else None
     result = {"card": smi, "tf32": "off (torch.backends.cuda.matmul.allow_tf32 = False)"}
-    result["int4"] = int4_rows(dev, old, smi)
+    if "--attn" not in sys.argv:
+        result["int4"] = int4_rows(dev, old, smi)
     result["prefill"] = prefill_rows(dev, old, smi)
     result["suffix"] = suffix_rows(dev, old, smi)
     if "--sweep" in sys.argv:

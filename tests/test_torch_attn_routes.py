@@ -2,10 +2,10 @@
 
 `flash_train_forward`, `flash_train_backward` and `flash_prefill_attention`
 pick their kernels by dtype (`_route`): bf16 goes to the tensor-core
-kernels ("wgmma"), fp32 to the training's CUDA-core kernels ("cuda_cores")
-and the prefill's 3xTF32 kernel ("fp32_tc"), anything
+kernels ("wgmma"), fp32 to the 3xTF32 kernels on the tensor cores
+("fp32_tc", training's and the prefill's), anything
 else raises; training's bf16 at head dim 32 (JAX's tiny model) goes to the
-CUDA-core kernels on bf16 inputs ("cuda_cores_bf16"). Their checks (`_check`, `_check_backward`) raise on what the
+TF32 kernels on bf16 inputs ("bf16_tf32"). Their checks (`_check`, `_check_backward`) raise on what the
 kernels do not take before they look at the device, so the contract is
 held here without a card. The launch counters count per route and
 `reset_launches` zeroes them.
@@ -34,24 +34,24 @@ WRAPPERS = {"train": flash_train, "train_bwd": flash_train,
 
 @pytest.mark.parametrize("name", sorted(WRAPPERS))
 def test_route_by_dtype(name):
-    """bf16 "wgmma"; fp32 "cuda_cores" for training, "fp32_tc" for the
-    prefill; fp16 "wgmma_f16" for the prefill
+    """bf16 "wgmma"; fp32 "fp32_tc" for training and the prefill; fp16
+    "wgmma_f16" for the prefill
     (`--half` serving) and a TypeError for training, which JAX runs in
     neither fp16 nor under `--half`; training's bf16 at D=32
-    "cuda_cores_bf16" (the tensor-core kernels take D in {64, 128})."""
+    "bf16_tf32" (the wgmma kernels take D in {64, 128})."""
     mod = WRAPPERS[name]
     half = name == "prefill"
     d64 = () if half else (64,)  # training's route takes the head dim too
-    fp32 = "fp32_tc" if half else "cuda_cores"
+    fp32 = "fp32_tc"
     assert mod.ROUTES == (fp32, "wgmma") + (("wgmma_f16",) if half
-                                            else ("cuda_cores_bf16",))
+                                            else ("bf16_tf32",))
     assert mod._route(torch.bfloat16, *d64) == "wgmma"
     assert mod._route(torch.float32, *d64) == fp32
     if half:
         assert mod._route(torch.float16) == "wgmma_f16"
     else:
-        assert mod._route(torch.bfloat16, 32) == "cuda_cores_bf16"
-        assert mod._route(torch.float32, 32) == "cuda_cores"
+        assert mod._route(torch.bfloat16, 32) == "bf16_tf32"
+        assert mod._route(torch.float32, 32) == "fp32_tc"
         assert mod._route(torch.bfloat16, 128) == "wgmma"
     for dtype in ((torch.float64, torch.int8) if half
                   else (torch.float16, torch.float64, torch.int8)):
@@ -94,7 +94,7 @@ def test_check_takes_both_head_dims_and_wants_a_card(name, d, dtype):
 @pytest.mark.parametrize("d", [32, 96, 256])
 def test_check_rejects_other_head_dims(name, d):
     # D=32 is JAX's tiny model's: the fp32 routes take it, and training's
-    # bf16 "cuda_cores_bf16"; the prefill's tensor-core routes do not, nor
+    # bf16 "bf16_tf32"; the prefill's 16-bit routes do not, nor
     # does any route take 8 or 48
     for dd in ((8, 48) if d == 32 and name != "prefill" else (d,)):
         with pytest.raises(ValueError, match="head dim"):

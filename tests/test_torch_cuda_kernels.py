@@ -8,7 +8,8 @@ Inputs come from numpy with a seed. fp32 cases hold the kernel to 1e-4 abs
 the bound of bf16 rounding of P before P.V (the output is a convex
 combination of V rows of unit scale). The attention forwards take bf16 on
 their wgmma route and fp32 on their fp32 route (`_route`: the prefill's
-"fp32_tc", 3xTF32 on mma.sync; training's "cuda_cores"); each case counts
+"fp32_tc", 3xTF32 on mma.sync; training's "fp32_tc", the same products
+in its TF32 kernels); each case counts
 its launch on its route. The training
 forward's bf16 output gets one bf16 step of the value on top (2^-7 |O|):
 rows with few visible keys have outputs above 2 in magnitude, where the
@@ -95,7 +96,7 @@ twice and from a graph, the counters left at 0.
 JAX's tiny widths (slow heads D=32, fast D=16, G=2): the fp32 decode at
 D=32 and 16 (with and without starts), the fp32 int8-KV decode, prefill
 and both suffix forms at D=32, the training pair at D=32 in fp32
-("cuda_cores") and bf16 ("cuda_cores_bf16", within the bf16 cases'
+("fp32_tc") and bf16 ("bf16_tf32", within the bf16 cases'
 bounds; autograd's gradients are the backward's), each against its plain
 version; other widths refused on card tensors. The lockstep batch at
 JAX's widths gives the CPU's columns, and the `--tiny` engine (plain and
@@ -441,6 +442,77 @@ def test_train_attention_function_bf16_matches_plain(dev):
         assert torch.isfinite(g.float()).all()
         err = (g.float() - w.float()).abs().max().item()
         assert err <= 2e-2 * max(1.0, w.float().abs().max().item()), err
+
+
+# The training pair's TF32 kernels ("fp32_tc": fp32 at D = 32, 64, 128;
+# "bf16_tf32": bf16 at D = 32) at G = 1-4, at T = 12 and at T not a
+# multiple of 64; batch row 0's tail is padded, row 1's head (its first
+# rows see no key: a finite output, and their zero cotangent gives a zero
+# dQ); (T, Hkv, G, D, dtype)
+TC_TRAIN = [
+    (12, 2, 1, 32, torch.float32), (200, 1, 2, 32, torch.float32),
+    (1000, 2, 4, 32, torch.float32), (12, 2, 1, 64, torch.float32),
+    (200, 3, 3, 64, torch.float32), (1000, 1, 2, 64, torch.float32),
+    (12, 8, 4, 128, torch.float32), (200, 2, 3, 128, torch.float32),
+    (1000, 4, 1, 128, torch.float32), (12, 1, 2, 32, torch.bfloat16),
+    (200, 1, 2, 32, torch.bfloat16), (1000, 2, 3, 32, torch.bfloat16),
+]
+
+
+@pytest.mark.parametrize("t,hkv,g,d,dtype", TC_TRAIN, ids=[
+    f"{'fp32_tc' if dt == torch.float32 else 'bf16_tf32'}-T{t}-Hkv{hkv}-G{g}-D{d}"
+    for t, hkv, g, d, dt in TC_TRAIN])
+def test_tc_training_kernels_match_plain(dev, t, hkv, g, d, dtype):
+    """The forward against the plain forward (O on the rows that see a key,
+    lse on every row: -1e30 on both sides where none is seen) and the
+    backward against the plain backward on the plain O and lse, fp32 to
+    1e-4 (of each gradient's largest magnitude), bf16 to the bf16 cases'
+    bounds; each call twice, in equal bits, one launch each on its route."""
+    rng = np.random.default_rng(t + 7 * g + d)
+    h = hkv * g
+    q = _randn(rng, (2, t, h, d), dtype, dev)
+    k = _randn(rng, (2, t, hkv, d), dtype, dev)
+    v = _randn(rng, (2, t, hkv, d), dtype, dev)
+    tail, head = max(1, t // 5), max(1, t // 7)
+    kvalid = torch.ones((2, t), dtype=torch.int32)
+    kvalid[0, t - tail:] = 0
+    kvalid[1, :head] = 0
+    kvalid = kvalid.to(dev)
+    do = _randn(rng, (2, t, h, d), dtype, dev) * kvalid.to(dtype)[:, :, None, None]
+    route = train_route(dtype, d)
+    assert route == ("fp32_tc" if dtype == torch.float32 else "bf16_tf32")
+    counter = f"launches_{route}"
+    f0, b0 = getattr(flash_train_forward, counter), getattr(flash_train_backward, counter)
+    o, lse = flash_train_forward(q, k, v, kvalid)
+    o2, lse2 = flash_train_forward(q, k, v, kvalid)
+    torch.cuda.synchronize()
+    assert getattr(flash_train_forward, counter) == f0 + 2
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    assert torch.isfinite(o.float()).all()
+    want_o, want_lse = flash_train_forward_reference(q, k, v, kvalid)
+    seen = torch.ones(2, t, dtype=torch.bool, device=dev)
+    seen[1, :head] = False
+    err = (o.float() - want_o.float()).abs()[seen]
+    if dtype == torch.float32:
+        assert err.max().item() <= 1e-4, err.max().item()
+    else:
+        bound = 2e-2 + 2 ** -7 * want_o.float().abs()[seen]
+        assert (err <= bound).all(), err.max().item()
+        assert err.mean().item() <= 2e-3
+    assert (lse - want_lse).abs().max().item() <= 1e-4
+    args = (q, k, v, kvalid, want_o, want_lse, do)
+    got = flash_train_backward(*args)
+    again = flash_train_backward(*args)
+    torch.cuda.synchronize()
+    assert getattr(flash_train_backward, counter) == b0 + 2
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+    want = flash_train_backward_reference(*args)
+    for name, x, w in zip(("dQ", "dK", "dV"), got, want):
+        assert x.dtype == dtype and torch.isfinite(x.float()).all(), name
+        e = (x.float() - w.float()).abs().max().item()
+        bound = 1e-4 if dtype == torch.float32 else 2e-2
+        assert e <= bound * max(1.0, w.float().abs().max().item()), (name, e)
+    assert not got[0][1, :head].any()  # no key seen, zero cotangent: zero dQ
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(dev):
@@ -1945,13 +2017,13 @@ def _parity_golden_case(tmp_path, jax_widths):
     assert "PARITY OK" in r.output
     assert flash_prefill_attention.launches_fp32_tc > 0
     assert flash_decode_attention.launches > 0
-    assert flash_train_forward.launches_cuda_cores > 0
+    assert flash_train_forward.launches_fp32_tc > 0
 
 
 @pytest.mark.parametrize("padded", [False, True])
 def test_naive_forward_on_the_card_matches_the_cpu(dev, padded):
     """`forward_train_naive` in fp32: the card (the training forward's
-    CUDA-core kernel) within 1e-4 of the CPU's plain run on the same
+    "fp32_tc" kernel) within 1e-4 of the CPU's plain run on the same
     weights and inputs."""
     _naive_forward_case(dev, padded, False)
 
@@ -1981,10 +2053,10 @@ def _naive_forward_case(dev, padded, jax_widths):
     inp, pad = torch.from_numpy(inp), torch.from_numpy(pad)
     with torch.no_grad():
         want = forward_train_naive(params, cfg, inp, pad if padded else None)
-        n = flash_train_forward.launches_cuda_cores
+        n = flash_train_forward.launches_fp32_tc
         got = forward_train_naive(_tree_to(params, dev), cfg, inp.to(dev),
                                   pad.to(dev) if padded else None)
-    assert flash_train_forward.launches_cuda_cores == n + cfg.n_layer
+    assert flash_train_forward.launches_fp32_tc == n + cfg.n_layer
     for g, w in zip(got, want):
         np.testing.assert_allclose(g.cpu().numpy(), w.numpy(), atol=1e-4, rtol=0)
 
@@ -2296,7 +2368,7 @@ def test_fp16_graphed_session_equals_its_eager_run(dev, kind):
 # ---------------------------------------------------------------------------
 # JAX's tiny model's widths (`dual_ar_tiny`: slow heads D=32, 2 over 1 KV
 # head; fast heads D=16, G=2): the fp32 attention kernels at D=32 and 16,
-# bf16 training at D=32 ("cuda_cores_bf16"), and the redesigned fp32 int8
+# bf16 training at D=32 ("bf16_tf32"), and the redesigned fp32 int8
 # matvec (`int8_gemv_fp32_kernel`) and fused FFN (`int8_ffn_fp32_kernel`)
 # ---------------------------------------------------------------------------
 
@@ -2401,14 +2473,14 @@ TINY_TRAIN = [(2, 100, 2, 1, 32, [0, 7]), (1, 130, 2, 1, 32, [3]),
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,t,h,hkv,d,pads", TINY_TRAIN)
 def test_tiny_width_training_kernels_match_plain(dev, dtype, b, t, h, hkv, d, pads):
-    """The training forward and backward at D=32: fp32 on "cuda_cores",
-    bf16 on "cuda_cores_bf16" (the CUDA-core kernels on bf16 inputs, fp32
-    P and dS, where the plain version rounds them to bf16: within the
-    bounds of the bf16 cases above)."""
+    """The training forward and backward at D=32: fp32 on "fp32_tc", bf16
+    on "bf16_tf32" (the TF32 kernels on bf16 inputs, fp32 P and dS, where
+    the plain version rounds them to bf16: within the bounds of the bf16
+    cases above)."""
     rng = np.random.default_rng(t + h + 32)
     q, k, v, kvalid, do = _train_inputs(rng, b, t, h, hkv, d, pads, dtype, dev)
     route = train_route(dtype, d)
-    assert route == ("cuda_cores" if dtype == torch.float32 else "cuda_cores_bf16")
+    assert route == ("fp32_tc" if dtype == torch.float32 else "bf16_tf32")
     counter = f"launches_{route}"
     f0, b0 = getattr(flash_train_forward, counter), getattr(flash_train_backward, counter)
     o, lse = flash_train_forward(q, k, v, kvalid)

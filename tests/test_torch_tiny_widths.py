@@ -19,7 +19,7 @@ training attention in bf16 too), so its `--tiny` builds the same model:
       (`HEAD_DIMS`: bf16 and fp16 64 and 128; fp32 32, 64 and 128; the fp32
       decode also 16; bf16 training also 32) up to the device check, and
       refuses D=8 and D=48 with a ValueError before it; bf16 training at
-      D=32 routes to "cuda_cores_bf16";
+      D=32 routes to "bf16_tf32";
   (d) the fp32 int8 kernels' split plans (`ops/int8.py:fp32_split`, the
       matvec's and the fused FFN's): per-run partials added in run order
       equal `int8_matmul_reference` and `int8_ffn_reference` within 1e-5
@@ -145,11 +145,11 @@ def test_the_listed_widths():
                                           f32: (32, 64, 128)}
     assert flash_prefill.HEAD_DIMS == {"fp32_tc": (32, 64, 128),
                                        "wgmma": (64, 128), "wgmma_f16": (64, 128)}
-    assert flash_train.HEAD_DIMS == {"cuda_cores": (32, 64, 128), "wgmma": (64, 128),
-                                     "cuda_cores_bf16": (32,)}
-    assert flash_train._route(bf16, 32) == "cuda_cores_bf16"
+    assert flash_train.HEAD_DIMS == {"fp32_tc": (32, 64, 128), "wgmma": (64, 128),
+                                     "bf16_tf32": (32,)}
+    assert flash_train._route(bf16, 32) == "bf16_tf32"
     assert flash_train._route(bf16, 64) == flash_train._route(bf16, 128) == "wgmma"
-    assert flash_train._route(f32, 32) == "cuda_cores"
+    assert flash_train._route(f32, 32) == "fp32_tc"
 
 
 def _decode_args(dtype, d, g=2, kv8=False):
@@ -220,7 +220,7 @@ def test_training_checks_take_the_listed_widths(dtype, backward):
                                                torch.zeros(1, 2, 8), q.clone())
         return flash_train._check(q, k, k.clone(), kvalid)
 
-    for d in (32, 64, 128):  # fp32: "cuda_cores"; bf16: "cuda_cores_bf16", "wgmma"
+    for d in (32, 64, 128):  # fp32: "fp32_tc"; bf16: "bf16_tf32", "wgmma"
         with pytest.raises(ValueError, match="CUDA device"):
             check(d)
     for d in (8, 16, 48, 96):
